@@ -1,0 +1,107 @@
+"""Deployment separation: mixture wavs in, per-speaker wavs out.
+
+Counterpart of the batch mode of ``convtasnet_tpu/infer/separate.py``:
+loads an inference package, builds the manifest from a mixture directory
+if needed, batches length-sorted mixtures padded to a multiple of
+``pad_to_multiple`` samples, and writes ``<utt>.wav`` (the mixture) plus
+``<utt>_s{c}.wav`` per speaker. The streaming, sequence-parallel and
+tensor-parallel modes are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from convtasnet_tpu_torch.data.audio_io import write_wav
+from convtasnet_tpu_torch.data.dataset import EvalDataset
+from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+from convtasnet_tpu_torch.train.checkpoint import load_params_for_inference
+from convtasnet_tpu_torch.utils.padding import remove_pad
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises if it names CUDA and CUDA is
+    absent (there is no silent CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (--device cpu) to run "
+            "the plain path on the CPU")
+    return device
+
+
+def separate(
+    model_path: str,
+    out_dir: str,
+    mix_dir: Optional[str] = None,
+    mix_json: Optional[str] = None,
+    batch_size: int = 1,
+    sample_rate: int = 8000,
+    pad_to_multiple: int = 8000,
+    write_mix: bool = True,
+    streaming: bool = False,
+    chunk_seconds: float = 0.5,
+    sequence_parallel: bool = False,
+    ring_attention: bool = False,
+    use_pallas: Optional[bool] = None,
+    tensor_parallel: int = 0,
+    device="cuda",
+) -> int:
+    """Separate every mixture; returns the number of utterances written.
+
+    ``use_pallas``: run the TCN blocks through the CUDA kernel (None = on
+    for a CUDA device). Each batch runs as one forward call. ``chunk_seconds``
+    only applies to ``streaming``.
+    """
+    if streaming:
+        raise NotImplementedError(
+            "streaming separation is not ported yet (ROADMAP queue A, "
+            "'streaming with cLN')")
+    if sequence_parallel or ring_attention:
+        raise NotImplementedError(
+            "sequence-parallel separation is not ported yet (ROADMAP "
+            "queue A, 'DP/TP/SP')")
+    if tensor_parallel > 1:
+        raise NotImplementedError(
+            "tensor-parallel separation is not ported yet (ROADMAP queue A, "
+            "'DP/TP/SP')")
+    device = resolve_device(device)
+    cfg, state_dict = load_params_for_inference(model_path)
+    model = ConvTasNet(cfg, use_pallas=use_pallas, device=device)
+    model.load_state_dict(state_dict)
+    model.eval()
+    ds = EvalDataset(mix_dir=mix_dir, mix_json=mix_json,
+                     batch_size=batch_size, sample_rate=sample_rate)
+    os.makedirs(out_dir, exist_ok=True)
+
+    def write(est_dev, mixture, lengths, names) -> int:
+        est_list = remove_pad(est_dev.cpu().numpy(), lengths)
+        mix_list = remove_pad(mixture, lengths)
+        for b, name in enumerate(names):
+            stem = os.path.splitext(os.path.basename(name))[0]
+            if write_mix:
+                write_wav(os.path.join(out_dir, stem + ".wav"), mix_list[b],
+                          sample_rate)
+            for c in range(cfg.num_speakers):
+                write_wav(os.path.join(out_dir, f"{stem}_s{c + 1}.wav"),
+                          est_list[b][c], sample_rate)
+        return len(names)
+
+    # one-deep pipeline: queue batch i+1 on the device before writing batch
+    # i, so decoding and wav writes on the host overlap the device's work
+    n_written = 0
+    pending = None
+    with torch.inference_mode():
+        for bi in range(len(ds)):
+            mixture, lengths, names = ds.load_batch(
+                bi, pad_to_multiple=pad_to_multiple)
+            est_dev = model(torch.from_numpy(mixture).to(device))
+            if pending is not None:
+                n_written += write(*pending)
+            pending = (est_dev, mixture, lengths, names)
+        if pending is not None:
+            n_written += write(*pending)
+    return n_written

@@ -1,0 +1,245 @@
+"""Conv-TasNet with the TCN separator, in PyTorch.
+
+Counterpart of ``convtasnet_tpu/models/conv_tasnet.py`` (TCN family,
+inference). Layout, parameter names and shapes are the JAX model's:
+channels-last ``[batch, time, channels]``, 1x1 convs as ``x @ w``, and
+state_dict keys such as ``encoder.w [L,N]``,
+``separator.block_r{r}_x{x}.conv1x1 [B,H]``, ``.dwconv [P,H]``,
+``.pwconv [H,B]``, ``.norm1.gamma [H]``, ``separator.mask_conv [B,C*N]`` and
+``decoder.w [N,L]``, so weights move between the two packages one leaf at a
+time (``models/jax_params.py``).
+
+Parameters are stored in float32; the forward runs in ``cfg.compute_dtype``
+with weights cast at use, norm statistics in float32, and returns float32.
+
+``use_pallas`` keeps the JAX meaning, "run each TCN block through the
+hand-written kernel" (``ops/cuda/tcn_block.py``): ``None`` (auto) runs the
+kernel for CUDA tensors and the plain ops for CPU tensors; ``True`` needs
+CUDA tensors and raises on CPU ones; ``False`` runs the plain ops anywhere.
+``cfg.use_pallas=True`` acts as ``use_pallas=True``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from convtasnet_tpu.config import ConvTasNetConfig
+from convtasnet_tpu_torch.models.functional import (
+    block_forward,
+    block_names,
+    decode_frames,
+    encode_frames,
+    separator_forward,
+)
+from convtasnet_tpu_torch.ops.conv import (
+    depthwise_conv1d,
+    torch_conv_xavier_normal,
+)
+from convtasnet_tpu_torch.ops.cuda.tcn_block import fused_tcn_block
+from convtasnet_tpu_torch.ops.frames import frame_signal, overlap_and_add
+from convtasnet_tpu_torch.ops.norm import (
+    batch_norm,
+    channelwise_layer_norm,
+    global_layer_norm,
+)
+
+
+def _xavier(shape, std: float, generator: torch.Generator, device):
+    w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    return nn.Parameter(w.to(device))
+
+
+class Norm(nn.Module):
+    """gLN / cLN / BN over the last axis. gamma=1, beta=0; BN keeps its
+    running ``mean``/``var`` as buffers and normalises with them (the
+    inference semantics; batch statistics come with training)."""
+
+    def __init__(self, norm_type: str, features: int, device=None):
+        super().__init__()
+        if norm_type not in ("gLN", "cLN", "BN"):
+            raise ValueError(f"unsupported norm_type: {norm_type}")
+        self.norm_type = norm_type
+        self.gamma = nn.Parameter(torch.ones(features, device=device))
+        self.beta = nn.Parameter(torch.zeros(features, device=device))
+        if norm_type == "BN":
+            self.register_buffer("mean", torch.zeros(features, device=device))
+            self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.norm_type == "gLN":
+            out = global_layer_norm(xf, self.gamma, self.beta)
+        elif self.norm_type == "cLN":
+            out = channelwise_layer_norm(xf, self.gamma, self.beta)
+        else:
+            if self.training:
+                raise NotImplementedError(
+                    "BN batch statistics arrive with the train step "
+                    "(ROADMAP queue A); call .eval() for inference")
+            out = batch_norm(xf, self.gamma, self.beta, self.mean, self.var)
+        return out.to(x.dtype)
+
+
+class Encoder(nn.Module):
+    """Learned analysis filterbank: mixture [M, T] -> frames [M, K, L]
+    -> @ w [L, N] -> ReLU -> [M, K, N]."""
+
+    def __init__(self, cfg: ConvTasNetConfig, generator, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.w = _xavier((cfg.kernel_size, cfg.n_filters),
+                         torch_conv_xavier_normal(cfg.n_filters, 1,
+                                                  cfg.kernel_size),
+                         generator, device)
+
+    def forward(self, mixture: torch.Tensor) -> torch.Tensor:
+        frames = frame_signal(mixture, self.cfg.kernel_size, self.cfg.stride)
+        return encode_frames({"w": self.w}, frames)
+
+
+class Decoder(nn.Module):
+    """Masked basis reconstruction and overlap-add:
+    (mixture_w [M,K,N], masks [M,K,C,N]) -> [M,C,K,L] -> [M,C,T]."""
+
+    def __init__(self, cfg: ConvTasNetConfig, generator, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.w = _xavier((cfg.n_filters, cfg.kernel_size),
+                         torch_conv_xavier_normal(cfg.kernel_size,
+                                                  cfg.n_filters, 1),
+                         generator, device)
+
+    def forward(self, mixture_w: torch.Tensor,
+                est_mask: torch.Tensor) -> torch.Tensor:
+        est_frames = decode_frames({"w": self.w}, mixture_w, est_mask)
+        return overlap_and_add(est_frames, self.cfg.stride)
+
+
+class TemporalBlock(nn.Module):
+    """One residual TCN block: 1x1 (B->H) -> PReLU -> norm -> depthwise
+    dilated (P taps) -> PReLU -> norm -> 1x1 (H->B), residual add."""
+
+    def __init__(self, cfg: ConvTasNetConfig, dilation: int, generator,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dilation = dilation
+        B, H, P = cfg.bottleneck, cfg.hidden, cfg.conv_kernel
+        self.conv1x1 = _xavier((B, H), torch_conv_xavier_normal(H, B, 1),
+                               generator, device)
+        self.prelu1 = nn.Parameter(torch.tensor(0.25, device=device))
+        self.dwconv = _xavier((P, H), torch_conv_xavier_normal(H, 1, P),
+                              generator, device)
+        self.prelu2 = nn.Parameter(torch.tensor(0.25, device=device))
+        self.pwconv = _xavier((H, B), torch_conv_xavier_normal(B, H, 1),
+                              generator, device)
+        self.norm1 = Norm(cfg.norm_type, H, device)
+        self.norm2 = Norm(cfg.norm_type, H, device)
+
+    def forward(self, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+        cfg = self.cfg
+        if use_kernel:
+            bn_stats = None
+            if cfg.norm_type == "BN":
+                bn_stats = (self.norm1.mean, self.norm1.var,
+                            self.norm2.mean, self.norm2.var)
+            out = fused_tcn_block(
+                x.reshape(-1, *x.shape[-2:]), self.conv1x1, self.dwconv,
+                self.pwconv, self.prelu1, self.prelu2,
+                self.norm1.gamma, self.norm1.beta,
+                self.norm2.gamma, self.norm2.beta, dilation=self.dilation,
+                causal=cfg.causal, norm_type=cfg.norm_type, bn_stats=bn_stats)
+            return out.reshape(x.shape)
+        blk = {"conv1x1": self.conv1x1, "prelu1": self.prelu1,
+               "dwconv": self.dwconv, "prelu2": self.prelu2,
+               "pwconv": self.pwconv}
+        return block_forward(
+            blk, x,
+            dwconv=lambda h, w: depthwise_conv1d(h, w, self.dilation,
+                                                 cfg.causal),
+            norm1=self.norm1, norm2=self.norm2)
+
+
+class TemporalConvNet(nn.Module):
+    """TCN separator -> masks: cLN input norm -> 1x1 bottleneck N->B ->
+    R repeats x X blocks (dilation 2**x) -> 1x1 B->C*N -> relu/softmax masks
+    [M, K, C, N]."""
+
+    def __init__(self, cfg: ConvTasNetConfig, generator, device=None):
+        super().__init__()
+        self.cfg = cfg
+        N, B, C = cfg.n_filters, cfg.bottleneck, cfg.num_speakers
+        self.input_norm = Norm("cLN", N, device)
+        self.bottleneck = _xavier((N, B), torch_conv_xavier_normal(B, N, 1),
+                                  generator, device)
+        for name, dilation in block_names(cfg):
+            self.add_module(name, TemporalBlock(cfg, dilation, generator,
+                                                device))
+        self.mask_conv = _xavier((B, C * N),
+                                 torch_conv_xavier_normal(C * N, B, 1),
+                                 generator, device)
+
+    def forward(self, mixture_w: torch.Tensor,
+                use_kernel: bool) -> torch.Tensor:
+        return separator_forward(
+            self.cfg,
+            {"bottleneck": self.bottleneck, "mask_conv": self.mask_conv},
+            mixture_w, input_norm=self.input_norm,
+            run_block=lambda name, _, y: getattr(self, name)(y, use_kernel))
+
+
+class ConvTasNet(nn.Module):
+    """Full model: ``forward(mixture [M, T]) -> est_source [M, C, T]`` in
+    float32, right-padded with zeros back to the input length.
+
+    ``generator`` seeds the initial weights (default: seed 0); ``device``
+    is where the parameters live.
+    """
+
+    def __init__(self, cfg: ConvTasNetConfig, *,
+                 use_pallas: Optional[bool] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if cfg.separator == "dpt":
+            raise NotImplementedError(
+                "the dual-path separator (separator='dpt') is not ported "
+                "yet: ROADMAP queue A, 'Dual-path separator'")
+        if cfg.separator != "tcn":
+            raise ValueError(f"unsupported separator family: {cfg.separator}")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.use_pallas = True if use_pallas is None and cfg.use_pallas \
+            else use_pallas
+        self.encoder = Encoder(cfg, generator, device)
+        self.separator = TemporalConvNet(cfg, generator, device)
+        self.decoder = Decoder(cfg, generator, device)
+
+    def forward(self, mixture: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        use_kernel = mixture.is_cuda if self.use_pallas is None \
+            else self.use_pallas
+        if use_kernel and not mixture.is_cuda:
+            raise ValueError(
+                "use_pallas=True runs the CUDA TCN-block kernel and needs "
+                f"CUDA tensors; the mixture is on {mixture.device}")
+        x = mixture.to(getattr(torch, cfg.compute_dtype))
+        mixture_w = self.encoder(x)
+        est_mask = self.separator(mixture_w, use_kernel)
+        est_source = self.decoder(mixture_w, est_mask)
+        T_origin = mixture.shape[-1]
+        T_conv = est_source.shape[-1]
+        if T_conv < T_origin:
+            est_source = torch.nn.functional.pad(
+                est_source, (0, T_origin - T_conv))
+        return est_source.float()
+
+
+def init_params(cfg: ConvTasNetConfig,
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Freshly initialised weights as a state_dict (CPU, float32):
+    Xavier-normal convs, PReLU 0.25, norms 1/0, BN statistics 0/1."""
+    return ConvTasNet(cfg, generator=generator).state_dict()

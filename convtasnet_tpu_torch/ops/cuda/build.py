@@ -1,0 +1,91 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+The sources under ``convtasnet_tpu_torch/csrc/`` compile into one shared
+library with a plain C interface (``nvcc -shared``, no PyTorch headers, so a
+build takes seconds). The library lands in ``convtasnet_tpu_torch/_build/``
+under a name keyed on a hash of the sources, so an edited source rebuilds at
+first use and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# ctn_tcn_block_{f32,bf16}: 21 pointers, 8 ints, the stream (see tcn_block.cu)
+_BLOCK_ARGTYPES = [_P] * 21 + [_I] * 8 + [_P]
+
+
+def _sources() -> list:
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with nvcc "
+                       "from the CUDA toolkit (on PATH or /usr/local/cuda)")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libconvtasnet_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> float:
+    """Compile the sources if their library is missing; returns the seconds
+    the compile took (0.0 when the library was already built)."""
+    lib = library_path()
+    if lib.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library, with argtypes set."""
+    build()
+    lib = ctypes.CDLL(str(library_path()))
+    for name in ("ctn_tcn_block_f32", "ctn_tcn_block_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = _BLOCK_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.ctn_tcn_block_partials.argtypes = [_I, _I, _I,
+                                           ctypes.POINTER(ctypes.c_longlong),
+                                           ctypes.POINTER(ctypes.c_longlong)]
+    lib.ctn_tcn_block_partials.restype = ctypes.c_int
+    lib.ctn_error_string.argtypes = [_I]
+    lib.ctn_error_string.restype = ctypes.c_char_p
+    return lib
