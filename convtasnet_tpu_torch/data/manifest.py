@@ -1,8 +1,9 @@
 """Manifest construction: wav directory -> JSON list of (path, num_samples).
 
-Counterpart of ``build_manifest`` in ``convtasnet_tpu/data/manifest.py``:
-sample counts come from the WAV header, scaled by the resampling ratio
-when the target rate differs.
+Counterpart of ``convtasnet_tpu/data/manifest.py``: sample counts come
+from the WAV header, scaled by the resampling ratio when the target rate
+differs; ``build_manifests`` covers a whole
+``{tr,cv,tt}/{mix,s1..sC}`` tree.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from convtasnet_tpu_torch.data.audio_io import (
     wav_duration_samples,
@@ -44,3 +45,24 @@ def build_manifest(wav_dir: str, out_dir: str, part: str,
     with open(out_path, "w") as f:
         json.dump(infos, f, indent=4)
     return out_path
+
+
+def build_manifests(
+    data_dir: str,
+    out_dir: str,
+    sample_rate: int = 8000,
+    splits: Sequence[str] = ("tr", "cv", "tt"),
+    num_speakers: int = 2,
+    parts: Optional[Sequence[str]] = None,
+) -> None:
+    """Write ``out_dir/<split>/<part>.json`` for every
+    ``data_dir/<split>/<part>/`` wav directory that exists, parts
+    ``mix, s1..sC`` unless given."""
+    if parts is None:
+        parts = ["mix"] + [f"s{i + 1}" for i in range(num_speakers)]
+    for split in splits:
+        for part in parts:
+            wav_dir = os.path.join(data_dir, split, part)
+            if os.path.isdir(wav_dir):
+                build_manifest(wav_dir, os.path.join(out_dir, split), part,
+                               sample_rate)

@@ -1,7 +1,7 @@
 """Conv-TasNet with the TCN separator, in PyTorch.
 
-Counterpart of ``convtasnet_tpu/models/conv_tasnet.py`` (TCN family,
-inference). Layout, parameter names and shapes are the JAX model's:
+Counterpart of ``convtasnet_tpu/models/conv_tasnet.py`` (TCN family).
+Layout, parameter names and shapes are the JAX model's:
 channels-last ``[batch, time, channels]``, 1x1 convs as ``x @ w``, and
 state_dict keys such as ``encoder.w [L,N]``,
 ``separator.block_r{r}_x{x}.conv1x1 [B,H]``, ``.dwconv [P,H]``,
@@ -13,10 +13,17 @@ Parameters are stored in float32; the forward runs in ``cfg.compute_dtype``
 with weights cast at use, norm statistics in float32, and returns float32.
 
 ``use_pallas`` keeps the JAX meaning, "run each TCN block through the
-hand-written kernel" (``ops/cuda/tcn_block.py``): ``None`` (auto) runs the
-kernel for CUDA tensors and the plain ops for CPU tensors; ``True`` needs
+hand-written kernels" (``ops/cuda/tcn_block.py``): ``None`` (auto) runs the
+kernels for CUDA tensors and the plain ops for CPU tensors; ``True`` needs
 CUDA tensors and raises on CPU ones; ``False`` runs the plain ops anywhere.
 ``cfg.use_pallas=True`` acts as ``use_pallas=True``.
+
+Training (``model.train()`` with gradients): gLN blocks run the forward
+and backward kernels through ``fused_tcn_block_ad``; BN blocks train
+through the plain ops with batch statistics, as the JAX model's do; cLN
+blocks train through the plain ops until the cLN backward (kernel 3,
+ROADMAP A6) is ported, and with ``use_pallas=True`` the model raises
+instead.
 """
 
 from __future__ import annotations
@@ -38,7 +45,10 @@ from convtasnet_tpu_torch.ops.conv import (
     depthwise_conv1d,
     torch_conv_xavier_normal,
 )
-from convtasnet_tpu_torch.ops.cuda.tcn_block import fused_tcn_block
+from convtasnet_tpu_torch.ops.cuda.tcn_block import (
+    fused_tcn_block,
+    fused_tcn_block_ad,
+)
 from convtasnet_tpu_torch.ops.frames import frame_signal, overlap_and_add
 from convtasnet_tpu_torch.ops.norm import (
     batch_norm,
@@ -54,8 +64,13 @@ def _xavier(shape, std: float, generator: torch.Generator, device):
 
 class Norm(nn.Module):
     """gLN / cLN / BN over the last axis. gamma=1, beta=0; BN keeps its
-    running ``mean``/``var`` as buffers and normalises with them (the
-    inference semantics; batch statistics come with training)."""
+    running ``mean``/``var`` as buffers. In training mode BN normalises
+    with the batch statistics over every axis but the last, the variance
+    as E[x^2]-mean^2, and updates the buffers with momentum 0.1 and the
+    unbiased variance (torch ``BatchNorm1d``, as the JAX ``Norm`` does with
+    ``train=True``); in eval mode it uses the buffers."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, norm_type: str, features: int, device=None):
         super().__init__()
@@ -74,11 +89,17 @@ class Norm(nn.Module):
             out = global_layer_norm(xf, self.gamma, self.beta)
         elif self.norm_type == "cLN":
             out = channelwise_layer_norm(xf, self.gamma, self.beta)
+        elif self.training:
+            axes = tuple(range(xf.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = xf.square().mean(dim=axes) - mean.square()
+            with torch.no_grad():
+                n = xf.numel() // xf.shape[-1]
+                unbiased = var * (n / max(n - 1, 1))
+                self.mean.mul_(1 - self.MOMENTUM).add_(self.MOMENTUM * mean)
+                self.var.mul_(1 - self.MOMENTUM).add_(self.MOMENTUM * unbiased)
+            out = batch_norm(xf, self.gamma, self.beta, mean, var)
         else:
-            if self.training:
-                raise NotImplementedError(
-                    "BN batch statistics arrive with the train step "
-                    "(ROADMAP queue A); call .eval() for inference")
             out = batch_norm(xf, self.gamma, self.beta, self.mean, self.var)
         return out.to(x.dtype)
 
@@ -140,7 +161,23 @@ class TemporalBlock(nn.Module):
         self.norm2 = Norm(cfg.norm_type, H, device)
 
     def forward(self, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+        """``use_kernel``: run the CUDA kernels where this block's norm has
+        them."""
         cfg = self.cfg
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if use_kernel and needs_grad:
+            if cfg.norm_type == "gLN":
+                out = fused_tcn_block_ad(
+                    x.reshape(-1, *x.shape[-2:]), self.conv1x1, self.dwconv,
+                    self.pwconv, self.prelu1, self.prelu2,
+                    self.norm1.gamma, self.norm1.beta,
+                    self.norm2.gamma, self.norm2.beta,
+                    dilation=self.dilation, causal=cfg.causal)
+                return out.reshape(x.shape)
+            use_kernel = False     # BN and cLN train through the plain ops
+        if use_kernel and cfg.norm_type == "BN" and self.training:
+            use_kernel = False     # batch statistics: the plain ops
         if use_kernel:
             bn_stats = None
             if cfg.norm_type == "BN":
@@ -220,6 +257,14 @@ class ConvTasNet(nn.Module):
 
     def forward(self, mixture: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if (self.use_pallas is True and cfg.norm_type == "cLN"
+                and torch.is_grad_enabled()
+                and any(p.requires_grad for p in self.parameters())):
+            raise NotImplementedError(
+                "training a cLN model through the CUDA kernels needs the cLN "
+                "block backward, kernel 3, not ported yet (ROADMAP A6); pass "
+                "use_pallas=None or False to train cLN blocks through the "
+                "plain ops")
         use_kernel = mixture.is_cuda if self.use_pallas is None \
             else self.use_pallas
         if use_kernel and not mixture.is_cuda:

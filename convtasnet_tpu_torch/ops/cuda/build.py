@@ -26,8 +26,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL_P = ctypes.POINTER(ctypes.c_longlong)
 # ctn_tcn_block_{f32,bf16}: 21 pointers, 8 ints, the stream (see tcn_block.cu)
 _BLOCK_ARGTYPES = [_P] * 21 + [_I] * 8 + [_P]
+# ctn_tcn_block_bwd_{f32,bf16}: 17 pointers, 7 ints, the stream
+# (see tcn_block_bwd.cu)
+_BWD_ARGTYPES = [_P] * 17 + [_I] * 7 + [_P]
 
 
 def _sources() -> list:
@@ -78,14 +82,18 @@ def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, with argtypes set."""
     build()
     lib = ctypes.CDLL(str(library_path()))
-    for name in ("ctn_tcn_block_f32", "ctn_tcn_block_bf16"):
+    signatures = {
+        "ctn_tcn_block_f32": _BLOCK_ARGTYPES,
+        "ctn_tcn_block_bf16": _BLOCK_ARGTYPES,
+        "ctn_tcn_block_partials": [_I, _I, _I, _LL_P, _LL_P],
+        "ctn_tcn_block_bwd_f32": _BWD_ARGTYPES,
+        "ctn_tcn_block_bwd_bf16": _BWD_ARGTYPES,
+        "ctn_tcn_block_bwd_workspace": [_I] * 6 + [_LL_P, _LL_P],
+    }
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
-        fn.argtypes = _BLOCK_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.ctn_tcn_block_partials.argtypes = [_I, _I, _I,
-                                           ctypes.POINTER(ctypes.c_longlong),
-                                           ctypes.POINTER(ctypes.c_longlong)]
-    lib.ctn_tcn_block_partials.restype = ctypes.c_int
     lib.ctn_error_string.argtypes = [_I]
     lib.ctn_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,6 +9,12 @@ layout. On CPU tensors it runs the plain twin
 ``fused_tcn_block_reference``; on CUDA tensors it launches the kernel or
 raises, with no fallback. ``fused_tcn_block.launches`` counts the calls
 that launched the kernel.
+
+``fused_tcn_block_ad`` is the differentiable block (the counterpart of
+``_fused_block_ad``): its forward is ``fused_tcn_block`` and saves only the
+block inputs; its backward recomputes the rest in
+``ops/cuda/tcn_block_bwd.fused_tcn_block_bwd`` (the backward kernel on CUDA
+tensors, its twin on CPU ones). gLN only, as that kernel is.
 """
 
 from __future__ import annotations
@@ -123,10 +129,11 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
             t.requires_grad for t in (x, w_in, dw, w_out, a1, a2, gamma1,
                                       beta1, gamma2, beta2)):
         raise NotImplementedError(
-            "the CUDA TCN-block kernel is forward only: its output carries "
-            "no gradient. The backward kernel comes with the train step "
-            "(ROADMAP queue A2); run inference under torch.inference_mode() "
-            "or torch.no_grad()")
+            "fused_tcn_block launches the CUDA TCN-block kernel forward only: "
+            "its output carries no gradient. Train through "
+            "fused_tcn_block_ad, whose backward is the block backward "
+            "kernel, or run inference under torch.inference_mode() or "
+            "torch.no_grad()")
     lib = load_library()
     if x.device.type != "cuda":
         raise ValueError(f"fused_tcn_block runs on CPU or CUDA tensors, "
@@ -195,3 +202,49 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
                            f"{err} ({msg})")
     fused_tcn_block.launches += 1
     return out
+
+
+class _FusedBlockFn(torch.autograd.Function):
+    """Forward kernel + backward kernel; saves only the block inputs and
+    recomputes the intermediates in the backward (remat, as
+    ``_fused_block_fwd`` does)."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
+                beta2, kw):
+        ctx.save_for_backward(x, w_in, dw, w_out, a1, a2, gamma1, beta1,
+                              gamma2, beta2)
+        ctx.kw = kw
+        return fused_tcn_block(x, w_in, dw, w_out, a1, a2, gamma1, beta1,
+                               gamma2, beta2, norm_type="gLN", **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        # imported here: tcn_block_bwd imports this module for the twin
+        from convtasnet_tpu_torch.ops.cuda.tcn_block_bwd import (
+            fused_tcn_block_bwd,
+        )
+
+        x, *weights = ctx.saved_tensors
+        grads = fused_tcn_block_bwd(x, g.contiguous(), *weights,
+                                    norm_type="gLN", **ctx.kw)
+        return (*grads, None)
+
+
+def fused_tcn_block_ad(
+    x: torch.Tensor, w_in: torch.Tensor, dw: torch.Tensor,
+    w_out: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
+    gamma1: torch.Tensor, beta1: torch.Tensor,
+    gamma2: torch.Tensor, beta2: torch.Tensor,
+    *, dilation: int, causal: bool, norm_type: str = "gLN",
+) -> torch.Tensor:
+    """Differentiable gLN block -> [M, K, B] in x's dtype. Gradients come
+    back in each primal's dtype (f32 weights, x's dtype for dx)."""
+    if norm_type != "gLN":
+        raise NotImplementedError(
+            f"fused_tcn_block_ad takes gLN, got {norm_type}: the cLN block "
+            "backward is kernel 3, not ported yet (ROADMAP A6), and BN "
+            "blocks train through the plain ops")
+    return _FusedBlockFn.apply(x, w_in, dw, w_out, a1, a2, gamma1, beta1,
+                               gamma2, beta2,
+                               dict(dilation=dilation, causal=causal))

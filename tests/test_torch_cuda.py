@@ -1,4 +1,4 @@
-"""The CUDA TCN-block kernel against its plain twin, on the card.
+"""The CUDA TCN-block kernels against their plain twins, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it also runs on a machine with only torch and the
@@ -6,8 +6,10 @@ CUDA toolkit (``tests/conftest.py`` imports jax, hence ``--noconftest``):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Bars: relative L2 <= 4e-2 in bf16 and <= 2e-3 in f32, those of the JAX
-package's Pallas probe gate (``tcn_block.py`` ``_numerics_tol``).
+Bars: relative L2 <= 4e-2 in bf16 and <= 2e-3 in f32 for the forward,
+those of the JAX package's Pallas probe gate (``tcn_block.py``
+``_numerics_tol``); twice that, 8e-2 and 4e-3, for the backward, the
+JAX train gate (``tcn_block.py:1148``).
 """
 
 import numpy as np
@@ -17,10 +19,14 @@ import torch
 from convtasnet_tpu.config import ConvTasNetConfig
 from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
 from convtasnet_tpu_torch.ops.cuda import tcn_block as port
+from convtasnet_tpu_torch.ops.cuda import tcn_block_bwd as port_bwd
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 4e-2}
+BWD_TOL = {torch.float32: 4e-3, torch.bfloat16: 8e-2}
+NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
+         "dg1", "db1", "dg2", "db2")
 CASES = [
     (norm, causal, d)
     for norm, causal in [("gLN", False), ("gLN", True), ("cLN", False),
@@ -94,13 +100,132 @@ def test_kernel_rejects_untiled_widths(cuda):
 
 
 def test_kernel_path_refuses_autograd(cuda):
-    """The kernel is forward only; with grad enabled the model raises
-    instead of returning an output that carries no gradient."""
-    cfg = ConvTasNetConfig(n_filters=64, bottleneck=64, hidden=128,
-                           num_blocks=2, num_repeats=1)
-    model = ConvTasNet(cfg, use_pallas=True, device=cuda)
+    """``fused_tcn_block`` launches the forward kernel only; with grad
+    enabled and an operand that requires grad it raises instead of
+    returning an output that carries no gradient (training goes through
+    ``fused_tcn_block_ad``)."""
+    args, _ = _block_args(cuda, torch.float32, "gLN")
+    args = (args[0], args[1].requires_grad_(True), *args[2:])
     with pytest.raises(NotImplementedError, match="forward only"):
-        model(torch.zeros(1, 800, device=cuda))
+        port.fused_tcn_block(*args, dilation=1, causal=False,
+                             norm_type="gLN")
+
+
+def _bwd_args(device, dtype, m=2, k=300, b=64, h=128, seed=0):
+    """Block operands with a2 < 0 (the sign flip of PReLU'), and a
+    cotangent."""
+    args, _ = _block_args(device, dtype, "gLN", m=m, k=k, b=b, h=h,
+                          seed=seed)
+    args = list(args)
+    args[5] = torch.tensor(-0.1, device=device)
+    g = torch.randn(m, k, b, generator=torch.Generator().manual_seed(seed))
+    return args, g.to(device, dtype)
+
+
+def _check_cotangents(got, want, dtype):
+    assert len(got) == len(want) == 10
+    for name, q, w in zip(NAMES, got, want):
+        assert q.shape == w.shape and q.dtype == w.dtype, name
+        assert torch.isfinite(q).all(), name
+        err = _rel_l2(q, w)
+        assert err <= BWD_TOL[dtype], f"{name}: rel_l2 {err:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,dilation", [
+    (False, 1), (False, 4), (False, 128), (True, 2), (True, 128)])
+def test_bwd_kernel_matches_twin(cuda, dtype, causal, dilation):
+    """All ten cotangents; K=300 is not a multiple of any tile and d=128
+    reaches past both ends."""
+    args, g = _bwd_args(cuda, dtype)
+    kw = dict(dilation=dilation, causal=causal)
+    before = port_bwd.fused_tcn_block_bwd.launches
+    got = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert port_bwd.fused_tcn_block_bwd.launches == before + 1
+    want = port_bwd.fused_tcn_block_bwd_reference(args[0], g, *args[1:],
+                                                  norm_type="gLN", **kw)
+    _check_cotangents(got, want, dtype)
+
+
+def test_bwd_kernel_is_deterministic(cuda):
+    args, g = _bwd_args(cuda, torch.bfloat16, m=4, k=1000)
+    a = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], dilation=8,
+                                     causal=False)
+    b = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], dilation=8,
+                                     causal=False)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_bwd_kernel_rejects_untiled_widths(cuda):
+    args, g = _bwd_args(cuda, torch.float32, b=32, h=64)
+    with pytest.raises(ValueError, match="multiples"):
+        port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], dilation=1,
+                                     causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_ad_gradients(cuda, dtype):
+    """Autograd through the forward and backward kernels against autograd
+    through the plain block, for x and all nine weights (f32 weights, as
+    the model keeps them)."""
+    args, g = _bwd_args(cuda, dtype, seed=3)
+    prims = [args[0]] + [t.float() for t in args[1:]]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in prims]
+        out = fn(*leaves, dilation=4, causal=False, norm_type="gLN")
+        out.backward(g)
+        return out, [t.grad for t in leaves]
+
+    f0 = port.fused_tcn_block.launches
+    b0 = port_bwd.fused_tcn_block_bwd.launches
+    out, got = grads(port.fused_tcn_block_ad)
+    torch.cuda.synchronize()
+    assert port.fused_tcn_block.launches == f0 + 1
+    assert port_bwd.fused_tcn_block_bwd.launches == b0 + 1
+    ref_out, want = grads(port.fused_tcn_block_reference)
+    assert out.dtype == dtype
+    assert _rel_l2(out, ref_out) <= TOL[dtype]
+    _check_cotangents(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_train_grads_kernel_vs_plain(cuda, dtype):
+    """One training forward/backward of a small gLN model: every block
+    runs both kernels, and the gradients agree with the plain path's as
+    chip_smoke.py holds them: in f32 to 4e-3 globally; in bf16, where
+    either path is far from the f32 gradient, the kernel path no further
+    from it than max(8e-2, 1.25x the plain bf16 path)."""
+    from convtasnet_tpu_torch.losses.pit import pit_si_snr
+
+    gen = torch.Generator().manual_seed(2)
+    mix = torch.randn(2, 8000, generator=gen).to(cuda)
+    src = torch.randn(2, 2, 8000, generator=gen).to(cuda)
+    lengths = torch.full((2,), 8000, device=cuda)
+
+    def grads(compute_dtype, use):
+        cfg = ConvTasNetConfig(n_filters=64, bottleneck=64, hidden=128,
+                               num_blocks=4, num_repeats=2,
+                               compute_dtype=compute_dtype)
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).train()
+        f0 = port.fused_tcn_block.launches
+        b0 = port_bwd.fused_tcn_block_bwd.launches
+        snr, _ = pit_si_snr(src, model(mix), lengths)
+        (-snr.mean()).backward()
+        n = cfg.num_blocks * cfg.num_repeats if use else 0
+        assert port.fused_tcn_block.launches - f0 == n
+        assert port_bwd.fused_tcn_block_bwd.launches - b0 == n
+        return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+    kernel, plain = grads(dtype, True), grads(dtype, False)
+    assert torch.isfinite(kernel).all()
+    if dtype == "float32":
+        assert _rel_l2(kernel, plain) <= BWD_TOL[torch.float32]
+    else:
+        exact = grads("float32", False)
+        assert _rel_l2(kernel, exact) <= max(
+            BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -19,6 +19,10 @@ def test_port_imports_with_jax_blocked():
         "import convtasnet_tpu_torch.infer.separate\n"
         "import convtasnet_tpu_torch.models.jax_params\n"
         "import convtasnet_tpu_torch.ops.cuda.tcn_block\n"
+        "import convtasnet_tpu_torch.ops.cuda.tcn_block_bwd\n"
+        "import convtasnet_tpu_torch.train.solver\n"
+        "import convtasnet_tpu_torch.data.loader\n"
+        "import convtasnet_tpu_torch.data.segment_cache\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] == 'convtasnet_tpu'))\n"
     )

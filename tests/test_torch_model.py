@@ -91,14 +91,31 @@ def test_paper_width_matches_jax():
 
 
 def test_bn_model_matches_jax():
-    """BN running statistics travel as buffers through the bridge."""
+    """BN running statistics travel as buffers through the bridge; in
+    training mode the forward normalises with batch statistics and
+    updates the running ones as ``apply(train=True,
+    mutable=["batch_stats"])`` does."""
     cfg = ConvTasNetConfig(**SMALL, norm_type="BN")
     variables, got, mix = _pair(cfg, T=800)
     np.testing.assert_allclose(got.numpy(), _jax_forward(cfg, variables, mix),
                                rtol=1e-3, atol=2e-4)
+    want, updates = jmodel.ConvTasNet(cfg).apply(
+        variables, jnp.asarray(mix), train=True, mutable=["batch_stats"])
     model = ConvTasNet(cfg)
-    with pytest.raises(NotImplementedError):
-        model(torch.from_numpy(mix))    # training mode: batch statistics
+    model.load_state_dict(state_dict_from_jax(variables, cfg))
+    model.train()
+    with torch.no_grad():
+        got_train = model(torch.from_numpy(mix))
+    np.testing.assert_allclose(got_train.numpy(), np.asarray(want),
+                               rtol=1e-3, atol=2e-4)
+    new_stats = state_dict_from_jax(
+        {"params": variables["params"], "batch_stats": updates["batch_stats"]},
+        cfg)
+    buffers = dict(model.named_buffers())
+    assert buffers
+    for name, buf in buffers.items():
+        np.testing.assert_allclose(buf.numpy(), new_stats[name].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("norm_type", ["gLN", "BN"])
