@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's TCN serving and training paths and its
+dual-path (DPT) serving path on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
 Phases, each raising on failure (so the script exits nonzero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the TCN-block CUDA kernels from ``convtasnet_tpu_torch/csrc``;
+2. build every CUDA kernel from ``convtasnet_tpu_torch/csrc`` (one nvcc
+   per source, all at once, then one link);
 3. kernel 1 (block forward) against its plain PyTorch twin at the serving
    shape ([8, 3199, 256], H=512), every dilation 1..128, gLN, bf16 and f32,
    at the relative-L2 bars of the JAX package's Pallas probe gate
@@ -19,18 +20,30 @@ Phases, each raising on failure (so the script exits nonzero):
    the forward's bars: 8e-2 / 4e-3); and with a random cotangent, against
    the exact (f32) cotangents: all ten within 4e-3 in f32, the eight
    besides the two PReLU slopes within 8e-2 in bf16;
-5. the serving path: ``separate`` on four seeded 4 s mixtures with a
+5. the three DPT sublayer kernels (inter, intra, FFN) against their twins
+   at the DPT quality default's widths ([8, n, 128, 256], 8 heads, F=1024)
+   with the real key mask, n = 1 (100 real frames), 25 (4 s) and 94
+   (15 s), bf16 and f32, on the valid rows: 4e-2 in bf16, and in f32
+   1e-5, tighter than the probe gate's 2e-3 because only the summation
+   order differs there;
+6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
    once through the kernel and once through the plain ops: 12 wavs each,
    finite and of the right length, the kernel launched 32 times per batch,
    and the two paths' outputs within the forward bars;
-6. the training path: ``cli preprocess`` and ``cli train`` in process on a
+7. the training path: ``cli preprocess`` and ``cli train`` in process on a
    seeded two-speaker wav corpus at the paper config, bf16,
    ``--use-pallas 1``, one epoch of 4 steps at batch 8 and a cv pass:
    every step's loss finite, kernels 1 and 2 launched 32 times per step,
    kernel 1 32 times per cv batch, and the best-model package separating
    a mixture on the card (32 launches per batch);
-7. one train step's loss and gradients, kernel path against plain path,
+8. the DPT serving path: the quality-default forward in bf16 at
+   B=8 x 4 s, kernel path against plain path within 4e-2, 4 inter, 4
+   intra and 8 FFN launches per forward; then ``cli separate`` and
+   ``cli evaluate`` on a DPT inference package over 8 seeded utterances
+   with sources: the kernels launched per batch, the wavs finite, SI-SNRi
+   finite and the kernel path within 0.05 dB of the plain path;
+9. one train step's loss and gradients, kernel path against plain path,
    from the same init and batch (B=4 x 4 s, two batch seeds): in f32 the
    loss within 1e-5, the global gradient within 4e-3, every multi-element
    leaf correlated >= 0.9999 (a leaf with no correlation, such as an
@@ -39,10 +52,14 @@ Phases, each raising on failure (so the script exits nonzero):
    in bf16 the loss within 4e-2 and the kernel path's gradient no
    further from the f32 gradient than max(8e-2, 1.25x the plain bf16
    path's);
-8. timings (CUDA events, warm-ups excluded): the bf16 forward at B=8 x 4 s
-   and the bf16 train step (forward + backward + optimizer) at B=8 x 4 s,
-   kernel path and plain path; the kernel path's train step at
-   B=24 x 4 s; each kernel against its twin per dilation.
+10. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
+   B=8 x 4 s and the bf16 train step (forward + backward + optimizer) at
+   B=8 x 4 s, kernel path and plain path; the kernel path's train step at
+   B=24 x 4 s; each TCN kernel against its twin per dilation; each DPT
+   kernel against its twin at [8, 25, 128, 256]; the DPT forward at
+   B=8 x 4 s, kernel path and plain path; each kernel's bound (the larger
+   of its operations at the bf16 tensor-core peak and its bytes at the
+   HBM rate).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits 1
@@ -64,7 +81,14 @@ SAMPLE_RATE = 8000
 SECONDS = 4
 TOL = {"bfloat16": 4e-2, "float32": 2e-3}   # tcn_block.py _numerics_tol
 BWD_TOL = {k: 2 * v for k, v in TOL.items()}  # the train gate, :1148
+# the DPT kernels in f32 differ from their twins only in summation order
+# (<= 4e-7 here); 2e-3 would let erf-GELU for tanh-GELU (~1e-4) through
+DPT_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
 DILATIONS = [2 ** i for i in range(8)]
+# an H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth (at
+# its full 700 W power limit): the floors that bound_ms is taken against
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
 GRAD_NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
               "dg1", "db1", "dg2", "db2")
 
@@ -497,6 +521,273 @@ def phase_main_path(torch, tcn, work: str):
               f"{err:.3e}")
 
 
+DPT_S, DPT_B, DPT_F, DPT_HEADS = 128, 256, 1024, 8   # the DPT quality default
+# (n chunks, real frames K): one chunk of which 100 frames are real, the
+# B=8 x 4 s main shape (K=3199), and a 15 s utterance (K=11999)
+DPT_SHAPES = ((1, 100), (25, 3199), (94, 11999))
+DPT_KINDS = ("inter", "intra", "ffn")
+
+
+def dpt_inputs(torch, kind: str, dtype, n: int, K: int, seed: int, M=8):
+    """Seeded operands of one DPT sublayer on the card at the quality
+    default's widths, with the key mask of K real frames out of n*S:
+    (args, kwargs, valid [n, S])."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    S, B = DPT_S, DPT_B
+    valid = torch.arange(n * S, device="cuda").reshape(n, S) < K
+    x = rn(M, n, S, B).to(dtype)
+    gamma, beta = 1.0 + 0.1 * rn(B), 0.1 * rn(B)
+    if kind == "ffn":
+        args = (x.reshape(M, n * S, B), gamma, beta,
+                rn(B, DPT_F, scale=B ** -0.5).to(dtype), 0.1 * rn(DPT_F),
+                rn(DPT_F, B, scale=DPT_F ** -0.5).to(dtype), 0.1 * rn(B))
+        return args, {}, valid
+    bias = torch.where(valid, 0.0, -1e9).to(torch.float32)
+    args = (x, gamma, beta, rn(B, 3 * B, scale=B ** -0.5).to(dtype),
+            rn(B, B, scale=B ** -0.5).to(dtype), bias)
+    return args, dict(n_heads=DPT_HEADS), valid
+
+
+def dpt_fns(dpt, kind: str):
+    """(kernel wrapper, plain twin) of one DPT sublayer."""
+    return {"inter": (dpt["inter"].fused_inter_attention,
+                      dpt["inter"].inter_attention_reference),
+            "intra": (dpt["intra"].fused_intra_attention,
+                      dpt["intra"].intra_attention_reference),
+            "ffn": (dpt["ffn"].fused_ffn, dpt["ffn"].ffn_reference)}[kind]
+
+
+def phase_dpt_kernels_vs_twin(torch, dpt):
+    """Each DPT sublayer kernel against its plain twin at the quality
+    default's widths ([8, n, 128, 256], 8 heads, F=1024) with the real key
+    mask, for n = 1, 25 and 94, bf16 and f32: rel-L2 on the valid rows
+    within 4e-2 / 1e-5. Every case is printed before the phase fails;
+    returns the worst max_abs_err per kernel."""
+    worst = {k: 0.0 for k in DPT_KINDS}
+    failures = []
+    for kind in DPT_KINDS:
+        fused, twin = dpt_fns(dpt, kind)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for n, K in DPT_SHAPES:
+                args, kw, valid = dpt_inputs(torch, kind, dtype, n, K,
+                                             seed=3000 + n)
+                got = fused(*args, **kw)
+                torch.cuda.synchronize()
+                want = twin(*args, **kw)
+                torch.cuda.synchronize()
+                rows = valid.reshape(-1)
+                got_v = got.reshape(8, n * DPT_S, DPT_B)[:, rows]
+                want_v = want.reshape(8, n * DPT_S, DPT_B)[:, rows]
+                err = rel_l2(got_v, want_v)
+                abs_err = (got_v.float() - want_v.float()).abs().max().item()
+                worst[kind] = max(worst[kind], abs_err)
+                finite = torch.isfinite(got_v).all().item()
+                print(f"dpt {kind} kernel vs twin [8,{n},{DPT_S},{DPT_B}] "
+                      f"K={K} {name}: rel_l2 {err:.3e} (bar "
+                      f"{DPT_TOL[name]:.0e}) max_abs {abs_err:.3e}",
+                      flush=True)
+                if not finite or not err <= DPT_TOL[name]:
+                    failures.append(f"{kind} n={n} {name}: rel_l2 {err:.3e}"
+                                    f"{'' if finite else ', non-finite'}")
+    check(not failures, "DPT kernels disagree with their twins: "
+          + "; ".join(failures))
+    return worst
+
+
+def dpt_config(dtype: str = "bfloat16"):
+    """The repo's DPT quality default (bench.py's dpt line): N=256, L=20,
+    B=256, chunk 128, 4 layers, 8 heads of 32, F=1024, C=2, relu."""
+    from convtasnet_tpu_torch import ConvTasNetConfig
+
+    return ConvTasNetConfig(separator="dpt", compute_dtype=dtype)
+
+
+def reset_dpt(dpt):
+    for kind in DPT_KINDS:
+        dpt_fns(dpt, kind)[0].launches = 0
+
+
+def dpt_launches(dpt):
+    return {kind: dpt_fns(dpt, kind)[0].launches for kind in DPT_KINDS}
+
+
+def phase_dpt_forward(torch, dpt):
+    """The DPT forward at the quality default, bf16, B=8 x 4 s, random
+    weights from seed 0: kernel path against plain path within 4e-2, and
+    each kernel launched per forward as the model's layers call it (4
+    inter, 4 intra, 8 FFN)."""
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+
+    cfg = dpt_config()
+    mix = torch.randn(8, SECONDS * SAMPLE_RATE, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(7))
+    outs = {}
+    for path, flag in (("kernel", None), ("plain", False)):
+        model = ConvTasNet(cfg, use_pallas=flag, device="cuda",
+                           generator=torch.Generator().manual_seed(0)).eval()
+        reset_dpt(dpt)
+        with torch.inference_mode():
+            outs[path] = model(mix)
+        torch.cuda.synchronize()
+        counts = dpt_launches(dpt)
+        want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                 "ffn": 2 * cfg.dpt_layers} if flag is None
+                else dict.fromkeys(DPT_KINDS, 0))
+        print(f"dpt forward {path} path B=8x{SECONDS}s bf16: launches "
+              f"{counts} (expected {want})", flush=True)
+        check(counts == want, f"dpt forward {path} path launched {counts}, "
+              f"expected {want}")
+    err = rel_l2(outs["kernel"], outs["plain"])
+    print(f"dpt forward B=8x{SECONDS}s bf16: kernel path vs plain path "
+          f"rel_l2 {err:.3e} (bar {TOL['bfloat16']:.0e})", flush=True)
+    check(torch.isfinite(outs["kernel"]).all().item()
+          and tuple(outs["kernel"].shape) == (8, 2, SECONDS * SAMPLE_RATE),
+          "dpt forward: non-finite or misshapen output")
+    check(err <= TOL["bfloat16"], f"dpt forward paths disagree: {err:.3e}")
+
+
+def phase_dpt_serving(torch, dpt, work: str):
+    """``cli separate`` and ``cli evaluate`` on a DPT inference package
+    (quality default, bf16, random weights from seed 0) over 8 seeded
+    two-source utterances of 3-6 s, batch 4: the kernels launched in each
+    run, every separated wav finite and of the mixture's length, SI-SNRi
+    finite and the kernel path's within 0.05 dB of the plain path's.
+    Returns the kernel launches of the ``cli separate`` run."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
+    from convtasnet_tpu_torch.train.checkpoint import save_inference_package
+
+    cfg = dpt_config()
+    pkg = os.path.join(work, "dpt_bf16.pt")
+    save_inference_package(pkg, cfg,
+                           init_params(cfg, torch.Generator().manual_seed(0)))
+    data = os.path.join(work, "dpt_corpus")
+    n_utt, batch = 8, 4
+    write_corpus(data, "tt", n_utt, np.random.default_rng(2), 3.0, 6.0)
+    json_dir = os.path.join(work, "dpt_json")
+    check(cli.main(["preprocess", "--data-dir", data, "--out-dir",
+                    json_dir]) == 0, "preprocess failed")
+    mix_dir = os.path.join(data, "tt", "mix")
+    out_dir = os.path.join(work, "dpt_sep")
+    reset_dpt(dpt)
+    check(cli.main(["separate", "--model-path", pkg, "--mix-dir", mix_dir,
+                    "--out-dir", out_dir, "--batch-size", str(batch)]) == 0,
+          "cli separate failed")
+    torch.cuda.synchronize()
+    sep_counts = dpt_launches(dpt)
+    n_fwd = -(-n_utt // batch)
+    want = {"inter": cfg.dpt_layers * n_fwd, "intra": cfg.dpt_layers * n_fwd,
+            "ffn": 2 * cfg.dpt_layers * n_fwd}
+    for name in sorted(f for f in os.listdir(mix_dir) if f.endswith(".wav")):
+        T = read_wav(os.path.join(mix_dir, name))[0].shape[0]
+        for c in (1, 2):
+            y, sr = read_wav(os.path.join(out_dir,
+                                          name.replace(".wav", f"_s{c}.wav")))
+            check(sr == SAMPLE_RATE and y.shape == (T,)
+                  and np.isfinite(y).all(), f"bad separated {name} s{c}")
+    print(f"cli separate, DPT package bf16: {n_utt} utterances in {n_fwd} "
+          f"batches, launches {sep_counts} (expected {want})", flush=True)
+    check(sep_counts == want, f"cli separate launched {sep_counts}")
+
+    results = {}
+    for path, flag in (("kernel", "-1"), ("plain", "0")):
+        reset_dpt(dpt)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["evaluate", "--model-path", pkg, "--data-dir",
+                           os.path.join(json_dir, "tt"), "--batch-size",
+                           str(batch), "--use-pallas", flag])
+        torch.cuda.synchronize()
+        counts = dpt_launches(dpt)
+        check(rc == 0, f"cli evaluate ({path}) returned {rc}")
+        results[path] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"cli evaluate, DPT package bf16, {path} path: "
+              f"{results[path]}, launches {counts}", flush=True)
+        check(counts == (want if path == "kernel"
+                         else dict.fromkeys(DPT_KINDS, 0)),
+              f"cli evaluate ({path}) launched {counts}")
+    k, p = results["kernel"]["si_snri"], results["plain"]["si_snri"]
+    check(math.isfinite(k) and math.isfinite(p), "non-finite SI-SNRi")
+    check(abs(k - p) <= 0.05, f"SI-SNRi kernel {k:.4f} vs plain {p:.4f} dB")
+    return sep_counts
+
+
+def kernel_bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the bf16 tensor-core time and the
+    memory time at an H100 SXM's published peaks."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def dpt_work(kind: str, args) -> tuple:
+    """(flops, bytes) one DPT sublayer call needs on these inputs: every
+    product of the Pallas kernel's cost estimate; each input read once and
+    the output written once."""
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if hasattr(t, "numel")) + args[0].numel() * args[0].element_size()
+    if kind == "ffn":
+        M, K, B = args[0].shape
+        return 2 * M * K * B * args[3].shape[1] * 2, nbytes
+    M, n, S, B = args[0].shape
+    mix = S * S if kind == "intra" else n * S
+    return 2 * M * n * S * B * 4 * B + 4 * M * n * mix * B, nbytes
+
+
+def phase_dpt_timings(torch, dpt, card: str):
+    """Each DPT kernel at [8, 25, 128, 256] bf16 with the real mask, and its
+    twin, in turns (twin, kernel, kernel, twin); then the DPT forward at
+    B=8 x 4 s bf16, kernel path and plain path in turns. Returns
+    {kind: (ms, plain_ms, bound_ms, bound_by)}."""
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+
+    rows = {}
+    with torch.inference_mode():
+        for kind in DPT_KINDS:
+            fused, twin = dpt_fns(dpt, kind)
+            args, kw, _ = dpt_inputs(torch, kind, torch.bfloat16, 25, 3199,
+                                     seed=4000)
+            runs = {"kernel": [], "plain": []}
+            fns = {"kernel": fused, "plain": twin}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                runs[name].append(time_ms(torch, lambda: fns[name](*args, **kw),
+                                          20))
+            ms = statistics.median(runs["kernel"])
+            plain_ms = statistics.median(runs["plain"])
+            bound_ms, bound_by = kernel_bound(*dpt_work(kind, args))
+            rows[kind] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"timing [{card}] dpt {kind} [8,25,128,256] bf16: kernel "
+                  f"{ms:.4f} ms (runs {[round(r, 4) for r in runs['kernel']]}),"
+                  f" twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})", flush=True)
+
+        cfg = dpt_config()
+        mix = torch.randn(8, SECONDS * SAMPLE_RATE, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(8))
+        models = {name: ConvTasNet(cfg, use_pallas=flag, device="cuda").eval()
+                  for name, flag in (("kernel", True), ("plain", False))}
+        runs = {"kernel": [], "plain": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            runs[name].append(time_ms(torch, lambda: models[name](mix), 10))
+    for name in ("kernel", "plain"):
+        med = statistics.median(runs[name])
+        print(f"timing [{card}] dpt forward B=8x{SECONDS}s bf16 {name} path: "
+              f"{med:.3f} ms, {8 * SECONDS / (med / 1e3):.1f}x realtime "
+              f"(runs {[round(r, 3) for r in runs[name]]})", flush=True)
+    return rows
+
+
 def phase_timings(torch, tcn, bwd, card: str):
     from convtasnet_tpu_torch import ConvTasNetConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
@@ -540,8 +831,24 @@ def phase_timings(torch, tcn, bwd, card: str):
               f"forward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
               f"backward kernel {kb_ms:.4f} ms, twin {pb_ms:.4f} ms",
               flush=True)
-    return [statistics.mean(v[i] for v in per_block.values())
-            for i in range(4)]
+    # the floors: the two products (five in the backward) and the
+    # depthwise conv (three passes in the backward); x, the weights and g
+    # read once, the output (dx and the ten gradients) written once
+    x, dw = args[0], args[2]
+    M, K, B = x.shape
+    P, H = dw.shape
+    prod, conv = 2 * M * K * B * H, 2 * M * K * H * P
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    x_bytes = x.numel() * x.element_size()
+    bounds = (kernel_bound(2 * prod + conv, in_bytes + x_bytes),
+              kernel_bound(5 * prod + 3 * conv, 2 * in_bytes + x_bytes))
+    means = [statistics.mean(v[i] for v in per_block.values())
+             for i in range(4)]
+    for (ms, name), (bound_ms, by) in zip(((means[0], "forward"),
+                                           (means[2], "backward")), bounds):
+        print(f"bound [{card}] block {name} [8,3199,256] H=512 bf16: "
+              f"{bound_ms:.4f} ms ({by}); kernel {ms:.4f} ms", flush=True)
+    return means, bounds
 
 
 def phase_train_timings(torch, cfg, card: str):
@@ -575,6 +882,17 @@ def phase_train_timings(torch, cfg, card: str):
           f"{ms24:.3f} ms, peak memory {mem24:.2f} GiB", flush=True)
 
 
+def kernel_line(name, source, replaces, launches, max_abs, ms, plain_ms,
+                bound):
+    return {"name": name, "route": "cuda",
+            "source": f"convtasnet_tpu_torch/csrc/{source}",
+            "replaces": f"convtasnet_tpu/ops/pallas/{replaces}",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            # no single PyTorch call computes the block or the sublayer
+            "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -583,9 +901,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from convtasnet_tpu_torch.ops.cuda import build
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
     from convtasnet_tpu_torch.ops.cuda import tcn_block as tcn
     from convtasnet_tpu_torch.ops.cuda import tcn_block_bwd as bwd
 
+    dpt = {"inter": dpt_attention, "intra": dpt_intra, "ffn": dpt_ffn}
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -602,31 +922,32 @@ def main() -> int:
 
     max_abs = phase_kernel_vs_twin(torch, tcn)
     max_abs_bwd = phase_bwd_vs_twin(torch, bwd)
+    max_abs_dpt = phase_dpt_kernels_vs_twin(torch, dpt)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_main_path(torch, tcn, work)
         fwd_launches, bwd_launches = phase_train_path(torch, tcn, bwd, work)
+        phase_dpt_forward(torch, dpt)
+        dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
     phase_step_compare(torch)
-    k_ms, p_ms, kb_ms, pb_ms = phase_timings(torch, tcn, bwd, card)
+    (k_ms, p_ms, kb_ms, pb_ms), (fwd_bound, bwd_bound) = phase_timings(
+        torch, tcn, bwd, card)
+    dpt_times = phase_dpt_timings(torch, dpt, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "tcn_block",
-        "route": "cuda",
-        "source": "convtasnet_tpu_torch/csrc/tcn_block.cu",
-        "replaces": "convtasnet_tpu/ops/pallas/tcn_block.py:92",
-        "launches": fwd_launches,
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "tcn_block_bwd",
-        "route": "cuda",
-        "source": "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
-        "replaces": "convtasnet_tpu/ops/pallas/tcn_block_bwd.py:74",
-        "launches": bwd_launches,
-        "max_abs_err": max_abs_bwd,
-        "ms": kb_ms,
-        "plain_ms": pb_ms,
-    }]}), flush=True)
+    lines = [
+        kernel_line("tcn_block", "tcn_block.cu", "tcn_block.py:92",
+                    fwd_launches, max_abs, k_ms, p_ms, fwd_bound),
+        kernel_line("tcn_block_bwd", "tcn_block_bwd.cu",
+                    "tcn_block_bwd.py:74", bwd_launches, max_abs_bwd, kb_ms,
+                    pb_ms, bwd_bound)]
+    for kind, source, replaces in (
+            ("inter", "dpt_attention.cu", "dpt_attention.py:62"),
+            ("intra", "dpt_intra.cu", "dpt_intra.py:53"),
+            ("ffn", "dpt_ffn.cu", "dpt_ffn.py:41")):
+        ms, plain_ms, bound_ms, bound_by = dpt_times[kind]
+        lines.append(kernel_line(
+            f"dpt_{kind}", source, replaces, dpt_launches_sep[kind],
+            max_abs_dpt[kind], ms, plain_ms, (bound_ms, bound_by)))
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,13 +5,16 @@
         --valid-dir JSON/cv --save-folder OUT [--device cuda]
     python -m convtasnet_tpu_torch.cli separate --model-path PKG \\
         --mix-dir DIR --out-dir OUT [--device cuda]
+    python -m convtasnet_tpu_torch.cli evaluate --model-path PKG \\
+        --data-dir JSON/tt [--cal-sdr 1] [--device cuda]
 
 Each subcommand takes the JAX package's flags (``convtasnet_tpu/cli.py``)
 plus ``--device`` (default ``cuda``; it raises when CUDA is absent, and
 ``--device cpu`` runs the plain path on the CPU). ``--use-pallas`` keeps
 its meaning: -1 runs the CUDA kernels on a CUDA device, 1 insists on them,
-0 runs the plain ops. Flags of what is not ported yet raise and name the
-ROADMAP item.
+0 runs the plain ops. ``separate`` and ``evaluate`` take the model, TCN or
+dual-path (``--separator dpt`` at training), from the package. Flags of
+what is not ported yet raise and name the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import sys
 
 
 def _add_model_flags(p: argparse.ArgumentParser) -> None:
-    from convtasnet_tpu.config import ConvTasNetConfig
+    from convtasnet_tpu_torch.config import ConvTasNetConfig
 
     g = p.add_argument_group("model")
     g.add_argument("--N", type=int, default=256, help="filters in autoencoder")
@@ -38,7 +41,8 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
     g.add_argument("--mask-nonlinear", default="relu",
                    choices=["relu", "softmax"])
     g.add_argument("--separator", default="tcn", choices=["tcn", "dpt"],
-                   help="separator family (dpt: not ported yet)")
+                   help="separator family (dpt: serving only, its training "
+                        "is not ported yet)")
     g.add_argument("--dpt-chunk", type=int, default=128)
     g.add_argument("--dpt-layers", type=int, default=4)
     g.add_argument("--dpt-heads", type=int, default=0)
@@ -104,8 +108,9 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
 def _check_ported(a: argparse.Namespace) -> None:
     if a.separator == "dpt":
         raise NotImplementedError(
-            "the dual-path separator (--separator dpt) is not ported yet "
-            "(ROADMAP A7)")
+            "training the dual-path separator (--separator dpt) needs the DPT "
+            "backward kernels B8, B10 and B12, not ported yet (ROADMAP A7, "
+            "DPT training); separate and evaluate serve DPT packages")
     if a.n_data > 1 or a.n_model > 1:
         raise NotImplementedError(
             "data- and model-parallel training (--n-data/--n-model > 1) is "
@@ -113,7 +118,7 @@ def _check_ported(a: argparse.Namespace) -> None:
 
 
 def _cfg_from_args(a: argparse.Namespace):
-    from convtasnet_tpu.config import (
+    from convtasnet_tpu_torch.config import (
         ConvTasNetConfig,
         DataConfig,
         MeshConfig,
@@ -160,7 +165,7 @@ def cmd_preprocess(a) -> int:
 
 
 def cmd_train(a) -> int:
-    from convtasnet_tpu.config import SolverConfig, TrainConfig, exp_name
+    from convtasnet_tpu_torch.config import SolverConfig, TrainConfig, exp_name
     from convtasnet_tpu_torch.data.dataset import SeparationDataset
     from convtasnet_tpu_torch.data.loader import BatchLoader
     from convtasnet_tpu_torch.data.segment_cache import maybe_cache
@@ -213,6 +218,20 @@ def cmd_separate(a) -> int:
     return 0
 
 
+def cmd_evaluate(a) -> int:
+    import json
+
+    from convtasnet_tpu_torch.infer.evaluate import evaluate
+
+    res = evaluate(a.model_path, a.data_dir, batch_size=a.batch_size,
+                   sample_rate=a.sample_rate, cal_sdr=bool(a.cal_sdr),
+                   max_batches=a.max_batches,
+                   use_pallas=None if a.use_pallas < 0 else bool(a.use_pallas),
+                   device=a.device)
+    print(json.dumps(res))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="convtasnet-tpu-torch",
@@ -240,6 +259,26 @@ def main(argv=None) -> int:
     _add_solver_flags(p)
     p.set_defaults(fn=cmd_train)
 
+    p = sub.add_parser("evaluate", help="SI-SNRi / SDRi evaluation")
+    p.add_argument("--model-path", required=True,
+                   help="inference package or training checkpoint")
+    p.add_argument("--data-dir", required=True,
+                   help="json dir with tt manifests")
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--sample-rate", type=int, default=8000)
+    p.add_argument("--cal-sdr", type=int, default=0)
+    p.add_argument("--max-batches", type=int, default=None)
+    p.add_argument("--use-pallas", type=int, default=-1, choices=[-1, 0, 1],
+                   help="the model's CUDA kernels: -1 auto (on for a CUDA "
+                        "device), 0 off, 1 on")
+    p.add_argument("--batch-chunk", type=int, default=8,
+                   help="accepted for flag parity and ignored: the JAX "
+                        "package splits batches to fit TPU VMEM; here each "
+                        "batch is one forward")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda raises when CUDA is absent")
+    p.set_defaults(fn=cmd_evaluate)
+
     p = sub.add_parser("separate", help="write separated wavs")
     p.add_argument("--model-path", required=True,
                    help="inference package or training checkpoint "
@@ -257,7 +296,7 @@ def main(argv=None) -> int:
     p.add_argument("--ring-attention", type=int, default=0,
                    help="with --sequence-parallel (not ported yet)")
     p.add_argument("--use-pallas", type=int, default=-1, choices=[-1, 0, 1],
-                   help="TCN-block CUDA kernel: -1 auto (on for a CUDA "
+                   help="the model's CUDA kernels: -1 auto (on for a CUDA "
                         "device), 0 off, 1 on")
     p.add_argument("--batch-chunk", type=int, default=8,
                    help="accepted for flag parity and ignored: the JAX "

@@ -52,9 +52,9 @@ def separate(
 ) -> int:
     """Separate every mixture; returns the number of utterances written.
 
-    ``use_pallas``: run the TCN blocks through the CUDA kernel (None = on
-    for a CUDA device). Each batch runs as one forward call. ``chunk_seconds``
-    only applies to ``streaming``.
+    ``use_pallas``: run the model's hand-written kernels, the TCN block's
+    or the DPT sublayers' (None = on for a CUDA device). Each batch runs
+    as one forward call. ``chunk_seconds`` only applies to ``streaming``.
     """
     if streaming:
         raise NotImplementedError(

@@ -1,6 +1,7 @@
-"""Conv-TasNet with the TCN separator, in PyTorch.
+"""Conv-TasNet in PyTorch: the TCN separator here, the dual-path (DPT)
+separator in ``models/dual_path.py``, behind one encoder and decoder.
 
-Counterpart of ``convtasnet_tpu/models/conv_tasnet.py`` (TCN family).
+Counterpart of ``convtasnet_tpu/models/conv_tasnet.py``.
 Layout, parameter names and shapes are the JAX model's:
 channels-last ``[batch, time, channels]``, 1x1 convs as ``x @ w``, and
 state_dict keys such as ``encoder.w [L,N]``,
@@ -12,11 +13,11 @@ time (``models/jax_params.py``).
 Parameters are stored in float32; the forward runs in ``cfg.compute_dtype``
 with weights cast at use, norm statistics in float32, and returns float32.
 
-``use_pallas`` keeps the JAX meaning, "run each TCN block through the
-hand-written kernels" (``ops/cuda/tcn_block.py``): ``None`` (auto) runs the
-kernels for CUDA tensors and the plain ops for CPU tensors; ``True`` needs
-CUDA tensors and raises on CPU ones; ``False`` runs the plain ops anywhere.
-``cfg.use_pallas=True`` acts as ``use_pallas=True``.
+``use_pallas`` keeps the JAX meaning, "run each TCN block (or DPT
+sublayer) through the hand-written kernels" (``ops/cuda/``): ``None``
+(auto) runs the kernels for CUDA tensors and the plain ops for CPU tensors;
+``True`` needs CUDA tensors and raises on CPU ones; ``False`` runs the
+plain ops anywhere. ``cfg.use_pallas=True`` acts as ``use_pallas=True``.
 
 Training (``model.train()`` with gradients): gLN blocks run the forward
 and backward kernels through ``fused_tcn_block_ad``; BN blocks train
@@ -33,7 +34,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from convtasnet_tpu.config import ConvTasNetConfig
+from convtasnet_tpu_torch.config import ConvTasNetConfig
+from convtasnet_tpu_torch.models.dual_path import DualPathSeparator
 from convtasnet_tpu_torch.models.functional import (
     block_forward,
     block_names,
@@ -240,11 +242,8 @@ class ConvTasNet(nn.Module):
                  use_pallas: Optional[bool] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if cfg.separator == "dpt":
-            raise NotImplementedError(
-                "the dual-path separator (separator='dpt') is not ported "
-                "yet: ROADMAP queue A, 'Dual-path separator'")
-        if cfg.separator != "tcn":
+        separators = {"tcn": TemporalConvNet, "dpt": DualPathSeparator}
+        if cfg.separator not in separators:
             raise ValueError(f"unsupported separator family: {cfg.separator}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -252,25 +251,33 @@ class ConvTasNet(nn.Module):
         self.use_pallas = True if use_pallas is None and cfg.use_pallas \
             else use_pallas
         self.encoder = Encoder(cfg, generator, device)
-        self.separator = TemporalConvNet(cfg, generator, device)
+        self.separator = separators[cfg.separator](cfg, generator, device)
         self.decoder = Decoder(cfg, generator, device)
 
     def forward(self, mixture: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        if (self.use_pallas is True and cfg.norm_type == "cLN"
-                and torch.is_grad_enabled()
-                and any(p.requires_grad for p in self.parameters())):
+        use_kernel = mixture.is_cuda if self.use_pallas is None \
+            else self.use_pallas
+        needs_grad = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        if (self.use_pallas is True and cfg.separator == "tcn"
+                and cfg.norm_type == "cLN" and needs_grad):
             raise NotImplementedError(
                 "training a cLN model through the CUDA kernels needs the cLN "
                 "block backward, kernel 3, not ported yet (ROADMAP A6); pass "
                 "use_pallas=None or False to train cLN blocks through the "
                 "plain ops")
-        use_kernel = mixture.is_cuda if self.use_pallas is None \
-            else self.use_pallas
+        if use_kernel and cfg.separator == "dpt" and needs_grad:
+            raise NotImplementedError(
+                "training the dual-path separator through the CUDA kernels "
+                "needs the DPT backward kernels B8, B10 and B12, not ported "
+                "yet (ROADMAP A7, DPT training); pass use_pallas=False to "
+                "train through the plain ops, or run inference under "
+                "torch.inference_mode() or torch.no_grad()")
         if use_kernel and not mixture.is_cuda:
             raise ValueError(
-                "use_pallas=True runs the CUDA TCN-block kernel and needs "
-                f"CUDA tensors; the mixture is on {mixture.device}")
+                "use_pallas=True runs the CUDA kernels and needs CUDA "
+                f"tensors; the mixture is on {mixture.device}")
         x = mixture.to(getattr(torch, cfg.compute_dtype))
         mixture_w = self.encoder(x)
         est_mask = self.separator(mixture_w, use_kernel)

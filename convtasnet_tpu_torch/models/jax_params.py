@@ -15,7 +15,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from convtasnet_tpu.config import ConvTasNetConfig
+from convtasnet_tpu_torch.config import ConvTasNetConfig
 from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
 
 

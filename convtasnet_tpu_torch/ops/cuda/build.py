@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``convtasnet_tpu_torch/csrc/`` compile into one shared
-library with a plain C interface (``nvcc -shared``, no PyTorch headers, so a
-build takes seconds). The library lands in ``convtasnet_tpu_torch/_build/``
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds): one ``nvcc -c`` per ``.cu`` file, all started together, then one
+``nvcc -shared`` link. The library lands in ``convtasnet_tpu_torch/_build/``
 under a name keyed on a hash of the sources, so an edited source rebuilds at
 first use and an unchanged one is loaded as it is.
 """
@@ -22,7 +23,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +33,11 @@ _BLOCK_ARGTYPES = [_P] * 21 + [_I] * 8 + [_P]
 # ctn_tcn_block_bwd_{f32,bf16}: 17 pointers, 7 ints, the stream
 # (see tcn_block_bwd.cu)
 _BWD_ARGTYPES = [_P] * 17 + [_I] * 7 + [_P]
+# ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 5 ints, the stream
+# (dpt_common.cuh)
+_ATTN_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
+# ctn_dpt_ffn_{f32,bf16}: 8 pointers, 3 ints, the stream (dpt_ffn.cu)
+_FFN_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P]
 
 
 def _sources() -> list:
@@ -66,14 +72,34 @@ def build() -> float:
     if lib.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build never loads half
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     return time.perf_counter() - t0
 
 
@@ -89,6 +115,12 @@ def load_library() -> ctypes.CDLL:
         "ctn_tcn_block_bwd_f32": _BWD_ARGTYPES,
         "ctn_tcn_block_bwd_bf16": _BWD_ARGTYPES,
         "ctn_tcn_block_bwd_workspace": [_I] * 6 + [_LL_P, _LL_P],
+        "ctn_dpt_inter_f32": _ATTN_ARGTYPES,
+        "ctn_dpt_inter_bf16": _ATTN_ARGTYPES,
+        "ctn_dpt_intra_f32": _ATTN_ARGTYPES,
+        "ctn_dpt_intra_bf16": _ATTN_ARGTYPES,
+        "ctn_dpt_ffn_f32": _FFN_ARGTYPES,
+        "ctn_dpt_ffn_bf16": _FFN_ARGTYPES,
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

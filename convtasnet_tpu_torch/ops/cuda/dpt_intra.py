@@ -1,0 +1,55 @@
+"""The dual-path intra-chunk attention sublayer: the hand-written CUDA
+kernel and its plain twin.
+
+Counterpart of ``convtasnet_tpu/ops/pallas/dpt_intra.py`` (the Pallas
+``_intra_kernel`` behind ``fused_intra_attention``, and
+``xla_intra_attention`` as its plain math). The kernel is
+``csrc/dpt_intra.cu``; its design note is there. It shares its launcher,
+checks and twin with the inter-chunk sublayer (``dpt_attention.py``); the
+key bias [n, S] is indexed by the key's chunk and its position in it.
+
+On CPU tensors ``fused_intra_attention`` runs the plain twin; on CUDA
+tensors it launches the kernel or raises, with no fallback.
+``fused_intra_attention.launches`` counts the calls that launched it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
+    attention_reference,
+    launch_attention,
+)
+
+
+def intra_attention_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,
+                              n_heads: int) -> torch.Tensor:
+    """The intra-chunk sublayer's plain twin (``xla_intra_attention``)."""
+    return attention_reference(x, gamma, beta, w_qkv, w_out, key_bias,
+                               n_heads=n_heads, attend_axis=2)
+
+
+def fused_intra_attention(
+    x: torch.Tensor,                    # [M, n, S, B]
+    gamma: torch.Tensor,                # [B]
+    beta: torch.Tensor,                 # [B]
+    w_qkv: torch.Tensor,                # [B, 3B]
+    w_out: torch.Tensor,                # [B, B]
+    key_bias: Optional[torch.Tensor],   # [n, S] f32 additive, or None
+    *,
+    n_heads: int,
+) -> torch.Tensor:
+    """Intra-chunk attention sublayer -> [M, n, S, B] in x's dtype."""
+    if x.device.type == "cpu":
+        return intra_attention_reference(x, gamma, beta, w_qkv, w_out,
+                                         key_bias, n_heads=n_heads)
+    out = launch_attention("intra", x, gamma, beta, w_qkv, w_out, key_bias,
+                           n_heads=n_heads)
+    fused_intra_attention.launches += 1
+    return out
+
+
+fused_intra_attention.launches = 0

@@ -2,7 +2,9 @@
 
 Counterpart of ``convtasnet_tpu/ops/norm.py``: eps is added to the biased
 variance E[(x-mean)^2] before the square root (1e-8 for cLN/gLN), and BN
-uses given statistics with eps 1e-5.
+uses given statistics with eps 1e-5. ``layer_norm`` is the dual-path
+separator's pre-LN (``models/dual_path._LayerNorm``): eps 1e-6, statistics
+in float32 whatever the input's dtype.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import torch
 
 EPS = 1e-8
 BN_EPS = 1e-5
+LN_EPS = 1e-6
 
 
 def channelwise_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -34,3 +37,11 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = BN_EPS) -> torch.Tensor:
     """Affine batch norm with given per-channel statistics."""
     return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor,
+               beta: torch.Tensor) -> torch.Tensor:
+    """LN over the last axis with f32 statistics, returned in x's dtype."""
+    out = channelwise_layer_norm(x.float(), gamma.float(), beta.float(),
+                                 eps=LN_EPS)
+    return out.to(x.dtype)

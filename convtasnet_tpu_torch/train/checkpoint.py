@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from convtasnet_tpu.config import ConvTasNetConfig
+from convtasnet_tpu_torch.config import ConvTasNetConfig
 
 FORMAT = "convtasnet_tpu_torch"
 JAX_MAGIC = b"CTTPU1\x00\x00"  # first bytes of a JAX package checkpoint

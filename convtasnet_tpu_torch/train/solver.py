@@ -29,7 +29,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from convtasnet_tpu.config import TrainConfig
+from convtasnet_tpu_torch.config import TrainConfig
 from convtasnet_tpu_torch.train import checkpoint as ckpt
 from convtasnet_tpu_torch.train.train_step import (
     create_train_state,

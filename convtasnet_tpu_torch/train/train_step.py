@@ -28,7 +28,7 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
-from convtasnet_tpu.config import ConvTasNetConfig, SolverConfig
+from convtasnet_tpu_torch.config import ConvTasNetConfig, SolverConfig
 from convtasnet_tpu_torch.losses.pit import pit_si_snr
 from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
 

@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Plant known faults in copies of the DPT sublayer kernels and report
+which checks see each one. Needs one CUDA GPU and nvcc.
+
+    python3 scripts/dpt_planted_faults.py [--log-dir DIR] [--only NAME ...]
+
+For each fault the script copies ``convtasnet_tpu_torch/`` (without its
+build directory), ``chip_smoke.py``, ``pyproject.toml`` and
+``tests/test_torch_cuda.py`` into a temporary directory, edits one line of
+the copy's ``csrc/``, and runs there, against the edited kernels:
+``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, then
+the ``cuda``-marked DPT tests. The repository itself is never edited. A
+fault is caught when either run fails. Each run's full output goes to
+``--log-dir`` (default: a new temporary directory), one file per fault.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# name: (file, the line's text as it is, the planted text)
+FAULTS = {
+    "inter_bias_transposed": (
+        "convtasnet_tpu_torch/csrc/dpt_attention.cu",
+        "p.bias[static_cast<size_t>(k0 + j) * S + s]",
+        "p.bias[static_cast<size_t>(s) * n + k0 + j]"),
+    "intra_mask_dropped": (
+        "convtasnet_tpu_torch/csrc/dpt_intra.cu",
+        "b_s[k] = p.bias ? p.bias[static_cast<size_t>(chunk) * S + k] : 0.f;",
+        "b_s[k] = 0.f;"),
+    "ffn_gelu_erf": (
+        "convtasnet_tpu_torch/csrc/dpt_ffn.cu",
+        "return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));",
+        "return 0.5f * v * (1.f + erff(v * 0.70710678118654752f)) + 0.f * k;"),
+    "inter_no_rescale": (
+        "convtasnet_tpu_torch/csrc/dpt_attention.cu",
+        "sum = sum * expf(mx - mn) + expf(sc - mn);",
+        "sum = sum + expf(sc - mn);"),
+    "ln_eps_1e-5": (
+        "convtasnet_tpu_torch/csrc/dpt_common.cuh",
+        "constexpr float kLnEps = 1e-6f;",
+        "constexpr float kLnEps = 1e-5f;"),
+}
+PHASES = (
+    "import torch, chip_smoke\n"
+    "from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, "
+    "dpt_intra\n"
+    "dpt = {'inter': dpt_attention, 'intra': dpt_intra, 'ffn': dpt_ffn}\n"
+    "chip_smoke.phase_dpt_kernels_vs_twin(torch, dpt)\n"
+    "chip_smoke.phase_dpt_forward(torch, dpt)\n")
+COPIED = ("chip_smoke.py", "pyproject.toml", "tests/test_torch_cuda.py")
+
+
+def plant(root: str, name: str) -> str:
+    """A copy of the package and its checks with fault ``name`` planted."""
+    path, old, new = FAULTS[name]
+    d = os.path.join(root, name)
+    shutil.copytree(os.path.join(REPO, "convtasnet_tpu_torch"),
+                    os.path.join(d, "convtasnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    os.makedirs(os.path.join(d, "tests"))
+    for f in COPIED:
+        shutil.copy(os.path.join(REPO, f), os.path.join(d, f))
+    with open(os.path.join(d, path)) as f:
+        src = f.read()
+    if src.count(old) != 1:
+        raise RuntimeError(f"{name}: the line to edit occurs {src.count(old)}"
+                           f" times in {path}")
+    with open(os.path.join(d, path), "w") as f:
+        f.write(src.replace(old, new))
+    return d
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--log-dir", default=None)
+    ap.add_argument("--only", nargs="*", choices=sorted(FAULTS))
+    a = ap.parse_args()
+    log_dir = a.log_dir or tempfile.mkdtemp(prefix="dpt_faults_logs_")
+    os.makedirs(log_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="dpt_faults_") as root:
+        for name in a.only or FAULTS:
+            d = plant(root, name)
+            env = dict(os.environ, PYTHONPATH=d)
+            smoke = subprocess.run([sys.executable, "-c", PHASES], cwd=d,
+                                   env=env, capture_output=True, text=True)
+            tests = subprocess.run(
+                [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+                 "tests/test_torch_cuda.py", "-q", "-k", "dpt", "-p",
+                 "no:cacheprovider"], cwd=d, env=env, capture_output=True,
+                text=True)
+            with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
+                f.write(smoke.stdout + smoke.stderr + "\n=== card tests\n"
+                        + tests.stdout + tests.stderr)
+            summary = (tests.stdout.strip().splitlines() or [""])[-1]
+            caught = smoke.returncode != 0 or tests.returncode != 0
+            print(f"== {name}: {'CAUGHT' if caught else 'not caught'}; "
+                  f"smoke phases rc={smoke.returncode}, card tests "
+                  f"rc={tests.returncode} ({summary})", flush=True)
+            for line in smoke.stdout.splitlines():
+                if " kernel vs twin " in line or "dpt forward B" in line:
+                    print("   ", line)
+            for line in tests.stdout.splitlines():
+                if line.startswith("FAILED"):
+                    print("   ", line[:200])
+    print(f"logs in {log_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,5 @@
-"""The CUDA TCN-block kernels against their plain twins, on the card.
+"""The CUDA kernels (the TCN block's forward and backward, the DPT
+sublayers' forwards) against their plain twins, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it also runs on a machine with only torch and the
@@ -16,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from convtasnet_tpu.config import ConvTasNetConfig
+from convtasnet_tpu_torch.config import ConvTasNetConfig
 from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
 from convtasnet_tpu_torch.ops.cuda import tcn_block as port
 from convtasnet_tpu_torch.ops.cuda import tcn_block_bwd as port_bwd
 
@@ -25,6 +27,10 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 4e-2}
 BWD_TOL = {torch.float32: 4e-3, torch.bfloat16: 8e-2}
+# the DPT kernels in f32 differ from their twins only in summation order
+# (<= 4e-7 at the quality default's widths); 2e-3 would let erf-GELU for
+# tanh-GELU (~1e-4) through
+DPT_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-2}
 NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
          "dg1", "db1", "dg2", "db2")
 CASES = [
@@ -244,3 +250,122 @@ def test_model_kernel_path_matches_plain_path(cuda, dtype):
         assert launched == (cfg.num_blocks * cfg.num_repeats if use else 0)
     assert outs[True].dtype == torch.float32
     assert _rel_l2(outs[True], outs[False]) <= TOL[getattr(torch, dtype)]
+
+
+DPT_FNS = {
+    "inter": (dpt_attention.fused_inter_attention,
+              dpt_attention.inter_attention_reference),
+    "intra": (dpt_intra.fused_intra_attention,
+              dpt_intra.intra_attention_reference),
+    "ffn": (dpt_ffn.fused_ffn, dpt_ffn.ffn_reference),
+}
+
+
+def _dpt_args(device, dtype, kind, n, masked, M=2, S=32, B=128, heads=4,
+              F=256, seed=0):
+    """Seeded operands of one DPT sublayer; with ``masked`` the last 13
+    frames (all but 10 when n = 1) are padding. -> (args, kwargs, valid)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    K = (10 if n == 1 else n * S - 13) if masked else n * S
+    valid = torch.arange(n * S, device=device).reshape(n, S) < K
+    x = t(rng.standard_normal((M, n, S, B)), dtype)
+    gamma, beta = t(1 + 0.1 * rng.standard_normal(B)), t(
+        0.1 * rng.standard_normal(B))
+    if kind == "ffn":
+        return ((x.reshape(M, n * S, B), gamma, beta,
+                 t(rng.standard_normal((B, F)) / np.sqrt(B), dtype),
+                 t(0.1 * rng.standard_normal(F)),
+                 t(rng.standard_normal((F, B)) / np.sqrt(F), dtype),
+                 t(0.1 * rng.standard_normal(B))), {}, valid)
+    bias = torch.where(valid, 0.0, -1e9) if masked else None
+    return ((x, gamma, beta,
+             t(rng.standard_normal((B, 3 * B)) / np.sqrt(B), dtype),
+             t(rng.standard_normal((B, B)) / np.sqrt(B), dtype), bias),
+            dict(n_heads=heads), valid)
+
+
+def _valid_rows(out, valid, B):
+    return out.reshape(out.shape[0], -1, B)[:, valid.reshape(-1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("n,masked", [(1, True), (1, False), (25, True),
+                                      (25, False), (94, True), (94, False)])
+def test_dpt_kernel_matches_twin(cuda, dtype, kind, n, masked):
+    """n = 1 with 10 real frames puts every inter key at s >= 10 under the
+    mask (a uniform softmax); n = 94 is a 15 s utterance's chunk count, more
+    than one inter key tile."""
+    fused, twin = DPT_FNS[kind]
+    args, kw, valid = _dpt_args(cuda, dtype, kind, n, masked)
+    before = fused.launches
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        torch.cuda.synchronize()
+        want = twin(*args, **kw)
+    assert fused.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    got, want = _valid_rows(got, valid, 128), _valid_rows(want, valid, 128)
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, want) <= DPT_TOL[dtype]
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+@pytest.mark.parametrize("S,heads", [(16, 2), (48, 4)])
+def test_dpt_attention_other_shapes(cuda, kind, S, heads):
+    """Head width 64 (2 heads of B=128) and chunk lengths 16 and 48."""
+    fused, twin = DPT_FNS[kind]
+    args, kw, valid = _dpt_args(cuda, torch.bfloat16, kind, 5, True, S=S,
+                                heads=heads, seed=1)
+    with torch.inference_mode():
+        got, want = fused(*args, **kw), twin(*args, **kw)
+    assert _rel_l2(_valid_rows(got, valid, 128),
+                   _valid_rows(want, valid, 128)) <= TOL[torch.bfloat16]
+
+
+def test_dpt_kernels_are_deterministic_and_check_shapes(cuda):
+    for kind in DPT_FNS:
+        fused, _ = DPT_FNS[kind]
+        args, kw, _ = _dpt_args(cuda, torch.bfloat16, kind, 7, True, seed=2)
+        with torch.inference_mode():
+            assert torch.equal(fused(*args, **kw), fused(*args, **kw))
+    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, B=96,
+                            heads=3)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        dpt_intra.fused_intra_attention(*args, **kw)
+    args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=8)
+    with pytest.raises(ValueError, match="head width"):
+        dpt_attention.fused_inter_attention(*args, **kw)
+    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, S=24)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dpt_intra.fused_intra_attention(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dpt_model_kernel_path_matches_plain_path(cuda, dtype):
+    """A small DPT model (B=128, 4 heads, 2 layers) serving a 1.3 s
+    mixture: every sublayer launches its kernel, the output within the
+    forward bars of the plain path's, and training through the kernels
+    refused."""
+    cfg = ConvTasNetConfig(n_filters=64, bottleneck=128, separator="dpt",
+                           dpt_chunk=32, dpt_layers=2, dpt_ff=256,
+                           compute_dtype=dtype)
+    mix = torch.randn(2, 10400, generator=torch.Generator().manual_seed(4))
+    mix = mix.to(cuda)
+    outs = {}
+    for use in (True, False):
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).eval()
+        before = [DPT_FNS[k][0].launches for k in DPT_FNS]
+        with torch.inference_mode():
+            outs[use] = model(mix)
+        launched = [DPT_FNS[k][0].launches - b
+                    for k, b in zip(DPT_FNS, before)]
+        assert launched == ([2, 2, 4] if use else [0, 0, 0])
+    assert torch.isfinite(outs[True]).all()
+    assert _rel_l2(outs[True], outs[False]) <= TOL[getattr(torch, dtype)]
+    with pytest.raises(NotImplementedError, match="B8, B10 and B12"):
+        ConvTasNet(cfg, use_pallas=True, device=cuda)(mix)

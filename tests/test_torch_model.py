@@ -150,5 +150,11 @@ def test_bridge_rejects_wrong_config():
 
 
 def test_dual_path_not_ported():
+    """The DPT serving path is ported (tests/test_torch_dpt_model.py); its
+    training through the kernels is not (ROADMAP A7): a DPT forward under
+    gradients with the kernels forced raises."""
+    cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=64,
+                           separator="dpt", dpt_chunk=16, dpt_layers=1,
+                           dpt_ff=64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConvTasNet(ConvTasNetConfig(separator="dpt"))
+        ConvTasNet(cfg, use_pallas=True)(torch.zeros(1, 400))

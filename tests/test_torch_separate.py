@@ -86,7 +86,7 @@ def test_cli_separate_matches_jax_separate(slice_dirs):
 
 def test_package_roundtrip_and_formats(slice_dirs, tmp_path):
     cfg, sd = load_params_for_inference(slice_dirs["pkg"])
-    assert cfg == CFG
+    assert cfg.to_dict() == CFG.to_dict()
     assert sd["encoder.w"].shape == (CFG.kernel_size, CFG.n_filters)
     with pytest.raises(NotImplementedError, match="JAX"):
         load_params_for_inference(slice_dirs["jax_ckpt"])
