@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's TCN serving and training paths and its
-dual-path (DPT) serving path on one NVIDIA GPU, and check them.
+"""Drive the PyTorch port's TCN and dual-path (DPT) serving and training
+paths on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -25,7 +25,12 @@ Phases, each raising on failure (so the script exits nonzero):
    with the real key mask, n = 1 (100 real frames), 25 (4 s) and 94
    (15 s), bf16 and f32, on the valid rows: 4e-2 in bf16, and in f32
    1e-5, tighter than the probe gate's 2e-3 because only the summation
-   order differs there;
+   order differs there; then their backward kernels (B8, B10, B12) at the
+   same shapes with a random cotangent zero on the padded rows: every
+   cotangent (dx on the valid rows) against the twin's exact f32
+   cotangents, in f32 within 1e-5 (the kernels read <= 1.5e-6), in bf16
+   within 4e-2 of the bf16 twin and no further from exact than
+   max(4e-2, 1.25x the bf16 twin's own distance);
 6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
    once through the kernel and once through the plain ops: 12 wavs each,
@@ -42,13 +47,20 @@ Phases, each raising on failure (so the script exits nonzero):
    intra and 8 FFN launches per forward; then ``cli separate`` and
    ``cli evaluate`` on a DPT inference package over 8 seeded utterances
    with sources: the kernels launched per batch, the wavs finite, SI-SNRi
-   finite and the kernel path within 0.05 dB of the plain path;
+   finite and the kernel path within 0.05 dB of the plain path; then
+   ``cli train --separator dpt`` at the quality default, bf16,
+   ``--use-pallas 1``, on phase 7's corpus (4 steps at batch 8 and a cv
+   pass): every loss finite, per step 4 / 4 / 8 launches of the inter,
+   intra and FFN forward kernels and of their backward kernels, the cv
+   batches forward only, and the best-model package separating a mixture
+   on the card;
 9. one train step's loss and gradients, kernel path against plain path,
-   from the same init and batch (B=4 x 4 s, two batch seeds): in f32 the
+   from the same init and batch (B=4 x 4 s, two batch seeds), for the
+   TCN paper config and the DPT quality default: in f32 the
    loss within 1e-5, the global gradient within 4e-3, every multi-element
    leaf correlated >= 0.9999 (a leaf with no correlation, such as an
    all-zero gradient, fails) and the PReLU slopes within 4e-3 as one
-   vector;
+   vector (the TCN's; the DPT has no scalar leaves);
    in bf16 the loss within 4e-2 and the kernel path's gradient no
    further from the f32 gradient than max(8e-2, 1.25x the plain bf16
    path's);
@@ -56,10 +68,11 @@ Phases, each raising on failure (so the script exits nonzero):
    B=8 x 4 s and the bf16 train step (forward + backward + optimizer) at
    B=8 x 4 s, kernel path and plain path; the kernel path's train step at
    B=24 x 4 s; each TCN kernel against its twin per dilation; each DPT
-   kernel against its twin at [8, 25, 128, 256]; the DPT forward at
-   B=8 x 4 s, kernel path and plain path; each kernel's bound (the larger
-   of its operations at the bf16 tensor-core peak and its bytes at the
-   HBM rate).
+   kernel, forward and backward, against its twin at [8, 25, 128, 256];
+   the DPT forward and the DPT train step at B=8 x 4 s, kernel path and
+   plain path (the step with each path's peak memory); each kernel's
+   bound (the larger of its operations at the bf16 tensor-core peak and
+   its bytes at the HBM rate).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits 1
@@ -350,7 +363,7 @@ def phase_train_path(torch, tcn, bwd, work: str):
                   and np.isfinite(y).all(), f"bad separated {name} s{c}")
     print(f"separate with the trained package: {n} utterances, kernel 1 "
           f"launches {sep_launches} (1 batch)", flush=True)
-    return fwd_n, bwd_n
+    return fwd_n, bwd_n, data, json_dir
 
 
 def train_batch(torch, M: int, seed: int):
@@ -363,9 +376,10 @@ def train_batch(torch, M: int, seed: int):
             torch.ones(M, device="cuda"))
 
 
-def phase_step_compare(torch):
+def phase_step_compare(torch, separator: str = "tcn"):
     """Loss and gradients of one train step, kernel path vs plain path,
-    from the same init and batch, for two batch seeds.
+    from the same init and batch, for two batch seeds, for the paper
+    config (``separator`` "tcn") or the DPT quality default ("dpt").
 
     At random init the paper model's gradient is ill-conditioned: in f32
     the plain path against itself with its sums reordered (gradients
@@ -375,17 +389,28 @@ def phase_step_compare(torch):
     the correlation of every multi-element leaf (the JAX whole-model
     test's criterion) and the slopes as one vector are held; in bf16 the
     loss, and the kernel path's distance from the f32 gradient against
-    the plain bf16 path's own. Every reading is printed before the phase
-    fails."""
+    the plain bf16 path's own. The DPT model has no scalar leaves, and its
+    kernel path launches each sublayer's backward kernel. Every reading is
+    printed before the phase fails."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import init_params
     from convtasnet_tpu_torch.train import train_step as ts
 
+    from convtasnet_tpu_torch.ops.cuda import (
+        dpt_attention,
+        dpt_ffn,
+        dpt_intra,
+        tcn_block_bwd,
+    )
+
+    bwd_fns = ([dpt_attention.fused_inter_attention_bwd,
+                dpt_intra.fused_intra_attention_bwd, dpt_ffn.fused_ffn_bwd]
+               if separator == "dpt" else [tcn_block_bwd.fused_tcn_block_bwd])
     failures = []
     for seed in (11, 12):
         batch = train_batch(torch, 4, seed)
         for dtype in ("float32", "bfloat16"):
-            cfg = ConvTasNetConfig(compute_dtype=dtype)
+            cfg = ConvTasNetConfig(separator=separator, compute_dtype=dtype)
             sd = init_params(cfg, torch.Generator().manual_seed(0))
             res = {}
             for path, flag, chunk in (("kernel", True, 0),
@@ -394,7 +419,13 @@ def phase_step_compare(torch):
                 state = ts.create_train_state(cfg, SolverConfig(),
                                               device="cuda", use_pallas=flag,
                                               state_dict=sd)
+                before = [f.launches for f in bwd_fns]
                 loss = float(ts._loss_and_grads(state.model, batch, chunk))
+                torch.cuda.synchronize()
+                if flag and not all(f.launches > b
+                                    for f, b in zip(bwd_fns, before)):
+                    failures.append(f"{separator} {dtype} kernel path "
+                                    "launched no backward kernel")
                 res[path] = (loss, {n: p.grad.detach().float().clone()
                                     for n, p in
                                     state.model.named_parameters()})
@@ -407,12 +438,13 @@ def phase_step_compare(torch):
                 failures.append(f"non-finite gradients ({dtype}, seed {seed})")
             loss_rel = abs(lk - lp) / abs(lp)
             global_err = rel_l2(flat["kernel"], flat["plain"])
-            head = (f"train step {dtype} B=4x{SECONDS}s seed {seed} kernel "
+            head = (f"train step {separator} {dtype} B=4x{SECONDS}s seed "
+                    f"{seed} kernel "
                     f"vs plain: loss {lk:.6f} vs {lp:.6f} (rel "
                     f"{loss_rel:.3e}), global gradient rel_l2 "
                     f"{global_err:.3e} (plain vs itself reordered "
                     f"{rel_l2(flat['c2'], flat['plain']):.3e})")
-            at = f"{dtype} seed {seed}"
+            at = f"{separator} {dtype} seed {seed}"
             if dtype == "float32":
                 f32_grads = flat["plain"]
                 multi = [n for n in gp if gp[n].numel() > 1]
@@ -425,7 +457,8 @@ def phase_step_compare(torch):
                 low = min(corr, key=corr.get)
                 slopes = [n for n in gp if gp[n].numel() == 1]
                 slope_err = rel_l2(torch.stack([gk[n] for n in slopes]),
-                                   torch.stack([gp[n] for n in slopes]))
+                                   torch.stack([gp[n] for n in slopes])) \
+                    if slopes else 0.0
                 print(f"{head}; lowest leaf correlation {low} "
                       f"{corr[low]:.7f}; the {len(slopes)} slopes as one "
                       f"vector rel_l2 {slope_err:.3e}", flush=True)
@@ -599,6 +632,113 @@ def phase_dpt_kernels_vs_twin(torch, dpt):
     return worst
 
 
+DPT_GRAD_NAMES = {
+    "inter": ("dx", "dgamma", "dbeta", "dw_qkv", "dw_out"),
+    "intra": ("dx", "dgamma", "dbeta", "dw_qkv", "dw_out"),
+    "ffn": ("dx", "dgamma", "dbeta", "dw_up", "db_up", "dw_down", "db_down")}
+# the backward kernels in f32 against the exact twin differ in summation
+# order only (<= 1.5e-6 at n = 1..94): 1e-5, under the JAX package's VJP
+# gate of 1e-4, which an erf-GELU derivative (~1e-4) could pass
+DPT_BWD_TOL_F32 = 1e-5
+
+
+def dpt_bwd_fns(dpt, kind: str):
+    """(backward kernel wrapper, plain twin) of one DPT sublayer."""
+    return {"inter": (dpt["inter"].fused_inter_attention_bwd,
+                      dpt["inter"].inter_attention_bwd_reference),
+            "intra": (dpt["intra"].fused_intra_attention_bwd,
+                      dpt["intra"].intra_attention_bwd_reference),
+            "ffn": (dpt["ffn"].fused_ffn_bwd,
+                    dpt["ffn"].ffn_bwd_reference)}[kind]
+
+
+def dpt_bwd_inputs(torch, kind: str, dtype, n: int, K: int, seed: int):
+    """(x, g, the f32 weights, kwargs, valid [n, S]): ``dpt_inputs`` with
+    the weights in f32, as the model keeps them, and a random cotangent
+    that is zero on the padded rows, as the model delivers it."""
+    args, kw, valid = dpt_inputs(torch, kind, dtype, n, K, seed)
+    x = args[0]
+    g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1))
+    g = (g.reshape(8, -1, DPT_B) * valid.reshape(1, -1, 1)).reshape(x.shape)
+    weights = [None if a is None else a.float() for a in args[1:]]
+    return x, g.to(dtype), weights, kw, valid
+
+
+def phase_dpt_bwd_vs_twin(torch, dpt):
+    """Each DPT backward kernel (B8, B10, B12) against its plain twin at the
+    quality default's widths with the real key mask, n = 1, 25 and 94,
+    bf16 and f32, a random cotangent zero on the padded rows: every
+    cotangent (dx on the valid rows) against the exact f32 cotangents of
+    the twin, by relative L2; in f32 within DPT_BWD_TOL_F32; in bf16 within
+    4e-2 of the bf16 twin and no further from exact than max(4e-2, 1.25x
+    the bf16 twin's own distance). Every case is printed before the phase
+    fails; returns the worst max_abs_err per kernel (against the twin in
+    the same dtype)."""
+    worst = {k: 0.0 for k in DPT_KINDS}
+    failures = []
+    for kind in DPT_KINDS:
+        fused, twin = dpt_bwd_fns(dpt, kind)
+        names = DPT_GRAD_NAMES[kind]
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for n, K in DPT_SHAPES:
+                x, g, w, kw, valid = dpt_bwd_inputs(torch, kind, dtype, n, K,
+                                                    seed=5000 + n)
+                got = fused(x, g, *w, **kw)
+                torch.cuda.synchronize()
+                exact = twin(x.float(), g.float(), *w, **kw)
+                same = twin(x, g, *w, **kw) if dtype == torch.bfloat16 \
+                    else exact
+                torch.cuda.synchronize()
+                rows = valid.reshape(-1)
+
+                def pick(t, i):
+                    return t.reshape(8, -1, DPT_B)[:, rows] if i == 0 else t
+
+                errs, twin_errs, same_errs = {}, {}, {}
+                for i, gname in enumerate(names):
+                    q, e, t = (pick(v[i], i) for v in (got, exact, same))
+                    if not (q.shape == t.shape and q.dtype == t.dtype):
+                        failures.append(f"{kind} {gname}: {q.shape} {q.dtype}"
+                                        f" vs {t.shape} {t.dtype}")
+                        continue
+                    if not torch.isfinite(q).all().item():
+                        failures.append(f"{kind} n={n} {name}: non-finite "
+                                        f"{gname}")
+                    errs[gname] = rel_l2(q, e)
+                    twin_errs[gname] = rel_l2(t, e)
+                    same_errs[gname] = rel_l2(q, t)
+                    worst[kind] = max(worst[kind], (q.float() - t.float())
+                                      .abs().max().item())
+                top = max(errs, key=errs.get)
+                line = (f"dpt {kind} bwd kernel vs twin [8,{n},{DPT_S},"
+                        f"{DPT_B}] K={K} {name}: vs exact max {errs[top]:.3e}"
+                        f" ({top}), dx {errs['dx']:.3e}")
+                if dtype == torch.float32:
+                    print(f"{line} (bar {DPT_BWD_TOL_F32:.0e})", flush=True)
+                    if errs[top] > DPT_BWD_TOL_F32:
+                        failures.append(f"{kind} n={n} f32: {errs[top]:.3e} "
+                                        f"({top})")
+                    continue
+                bad = [gname for gname in errs
+                       if same_errs[gname] > DPT_TOL[name]
+                       or errs[gname] > max(DPT_TOL[name],
+                                            1.25 * twin_errs[gname])]
+                top_s = max(same_errs, key=same_errs.get)
+                top_t = max(twin_errs, key=twin_errs.get)
+                print(f"{line}; vs the bf16 twin max {same_errs[top_s]:.3e} "
+                      f"({top_s}); bf16 twin vs exact max "
+                      f"{twin_errs[top_t]:.3e} ({top_t})", flush=True)
+                if bad:
+                    failures.append(f"{kind} n={n} bf16: " + ", ".join(
+                        f"{b} {errs[b]:.3e} (twin {twin_errs[b]:.3e}, vs "
+                        f"twin {same_errs[b]:.3e})" for b in bad))
+    check(not failures, "DPT backward kernels disagree with their twins: "
+          + "; ".join(failures))
+    return worst
+
+
 def dpt_config(dtype: str = "bfloat16"):
     """The repo's DPT quality default (bench.py's dpt line): N=256, L=20,
     B=256, chunk 128, 4 layers, 8 heads of 32, F=1024, C=2, relu."""
@@ -649,6 +789,87 @@ def phase_dpt_forward(torch, dpt):
           and tuple(outs["kernel"].shape) == (8, 2, SECONDS * SAMPLE_RATE),
           "dpt forward: non-finite or misshapen output")
     check(err <= TOL["bfloat16"], f"dpt forward paths disagree: {err:.3e}")
+
+
+def dpt_bwd_launches(dpt):
+    return {kind: dpt_bwd_fns(dpt, kind)[0].launches for kind in DPT_KINDS}
+
+
+def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
+    """``cli train --separator dpt`` in process at the DPT quality default,
+    bf16, ``--use-pallas 1``, on the corpus ``phase_train_path`` wrote: one
+    epoch of 4 steps at batch 8 x 4 s and a cv pass. Every loss finite;
+    per step 4 / 4 / 8 launches of the inter, intra and FFN forward
+    kernels and of their backward kernels; the cv batches run the forwards
+    only; then ``separate`` with the best-model package on the card.
+    Returns the backward kernels' launches."""
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+    from convtasnet_tpu_torch.infer.separate import separate
+
+    cfg = dpt_config()
+    per_step = {"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                "ffn": 2 * cfg.dpt_layers}
+    n_cv = 2
+    out = os.path.join(work, "exp_dpt")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    reset_dpt(dpt)
+    for kind in DPT_KINDS:
+        dpt_bwd_fns(dpt, kind)[0].launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main([
+        "train", "--train-dir", os.path.join(json_dir, "tr"),
+        "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder", out,
+        "--device", "cuda", "--separator", "dpt", "--compute-dtype",
+        "bfloat16", "--use-pallas", "1", "--epochs", "1", "--batch-size", "8",
+        "--print-freq", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = dpt_launches(dpt), dpt_bwd_launches(dpt)
+    check(rc == 0, f"cli train --separator dpt returned {rc}")
+    with open(os.path.join(out, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps = len(losses)
+    print(f"cli train --separator dpt (quality default, bf16, --use-pallas "
+          f"1): {n_steps} steps, losses {[round(x, 4) for x in losses]}, cv "
+          f"loss {[r['loss'] for r in records if r.get('split') == 'valid']},"
+          f" forward launches {fwd}, backward launches {bwd}, {wall:.1f} s "
+          f"wall", flush=True)
+    check(n_steps == 4, f"{n_steps} train steps, expected 4")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    want_bwd = {k: v * n_steps for k, v in per_step.items()}
+    want_fwd = {k: v * (n_steps + n_cv) for k, v in per_step.items()}
+    check(bwd == want_bwd, f"backward kernels launched {bwd}, expected "
+          f"{want_bwd} ({per_step} per step)")
+    check(fwd == want_fwd, f"forward kernels launched {fwd}, expected "
+          f"{want_fwd} ({per_step} per step and per cv batch)")
+
+    pkg = os.path.join(out, "final.ckpt")
+    check(os.path.exists(pkg), "no best-model package written")
+    sep_dir = os.path.join(work, "sep_trained_dpt")
+    mix_dir = os.path.join(data, "cv", "mix")
+    reset_dpt(dpt)
+    n = separate(pkg, sep_dir, mix_dir=mix_dir, batch_size=n_cv,
+                 device="cuda")
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    torch.cuda.synchronize()
+    sep = dpt_launches(dpt)
+    check(n == n_cv and sep == per_step,
+          f"separate with the trained DPT package: {n} utterances, "
+          f"launches {sep}")
+    for name in sorted(f for f in os.listdir(mix_dir) if f.endswith(".wav")):
+        T = read_wav(os.path.join(mix_dir, name))[0].shape[0]
+        for c in (1, 2):
+            y, sr = read_wav(os.path.join(
+                sep_dir, name.replace(".wav", f"_s{c}.wav")))
+            check(sr == SAMPLE_RATE and y.shape == (T,)
+                  and np.isfinite(y).all(), f"bad separated {name} s{c}")
+    print(f"separate with the trained DPT package: {n} utterances, "
+          f"launches {sep} (1 batch)", flush=True)
+    return bwd
 
 
 def phase_dpt_serving(torch, dpt, work: str):
@@ -745,30 +966,76 @@ def dpt_work(kind: str, args) -> tuple:
     return 2 * M * n * S * B * 4 * B + 4 * M * n * mix * B, nbytes
 
 
+def dpt_bwd_work(kind: str, tensors, grads) -> tuple:
+    """(flops, bytes) one DPT sublayer backward needs on these inputs
+    (x, g, weights), counted product by product at 2 FLOP per
+    multiply-add over its R rows; every input read once and every cotangent
+    written once.
+
+    FFN: pre = y W_up (recomputed), dh = g W_down^T, dy = dpre W_up^T,
+    dW_up = y^T dpre and dW_down = h^T g, five products of 2 R B F.
+    Attention: the QKV projection recomputed (3 B^2 per row), dA = g W_out^T
+    and dW_out = a^T g (B^2 each), dW_qkv = y^T dqkv and dy = dqkv W_qkv^T
+    (3 B^2 each), 11 products of 2 R B^2; and in the core six of 2 R keys B
+    (s = q k^T and a = p v recomputed, dp = dA v^T, dv = p^T dA, dq = ds k,
+    dk = ds^T q), with keys = S (intra) or n (inter) per query row."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*tensors, *grads) if t is not None)
+    x = tensors[0]
+    B = x.shape[-1]
+    R = x.numel() // B
+    if kind == "ffn":
+        return 5 * 2 * R * B * tensors[4].shape[1], nbytes
+    keys = x.shape[2] if kind == "intra" else x.shape[1]
+    return 11 * 2 * R * B * B + 6 * 2 * R * keys * B, nbytes
+
+
+def time_in_turns(torch, fns: dict, iters: int) -> dict:
+    """{name: (median ms, runs)} over the turns plain, kernel, kernel,
+    plain (``time_ms`` each)."""
+    runs = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        runs[name].append(time_ms(torch, fns[name], iters))
+    return {k: (statistics.median(v), v) for k, v in runs.items()}
+
+
 def phase_dpt_timings(torch, dpt, card: str):
-    """Each DPT kernel at [8, 25, 128, 256] bf16 with the real mask, and its
-    twin, in turns (twin, kernel, kernel, twin); then the DPT forward at
-    B=8 x 4 s bf16, kernel path and plain path in turns. Returns
-    {kind: (ms, plain_ms, bound_ms, bound_by)}."""
+    """Each DPT kernel, forward and backward, at [8, 25, 128, 256] bf16
+    with the real mask, and its twin, in turns (twin, kernel, kernel,
+    twin); then the DPT forward at B=8 x 4 s bf16, kernel path and plain
+    path in turns, and the DPT train step. Returns {kind: (ms, plain_ms,
+    bound_ms, bound_by)} for the forwards and {kind: ...} for the
+    backwards."""
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
 
-    rows = {}
+    rows, bwd_rows = {}, {}
     with torch.inference_mode():
         for kind in DPT_KINDS:
             fused, twin = dpt_fns(dpt, kind)
             args, kw, _ = dpt_inputs(torch, kind, torch.bfloat16, 25, 3199,
                                      seed=4000)
-            runs = {"kernel": [], "plain": []}
-            fns = {"kernel": fused, "plain": twin}
-            for name in ("plain", "kernel", "kernel", "plain"):
-                runs[name].append(time_ms(torch, lambda: fns[name](*args, **kw),
-                                          20))
-            ms = statistics.median(runs["kernel"])
-            plain_ms = statistics.median(runs["plain"])
+            t = time_in_turns(torch, {"kernel": lambda: fused(*args, **kw),
+                                      "plain": lambda: twin(*args, **kw)}, 20)
+            (ms, runs), (plain_ms, _) = t["kernel"], t["plain"]
             bound_ms, bound_by = kernel_bound(*dpt_work(kind, args))
             rows[kind] = (ms, plain_ms, bound_ms, bound_by)
             print(f"timing [{card}] dpt {kind} [8,25,128,256] bf16: kernel "
-                  f"{ms:.4f} ms (runs {[round(r, 4) for r in runs['kernel']]}),"
+                  f"{ms:.4f} ms (runs {[round(r, 4) for r in runs]}),"
+                  f" twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})", flush=True)
+        for kind in DPT_KINDS:
+            fused, twin = dpt_bwd_fns(dpt, kind)
+            x, g, w, kw, _ = dpt_bwd_inputs(torch, kind, torch.bfloat16, 25,
+                                            3199, seed=4000)
+            t = time_in_turns(torch, {"kernel": lambda: fused(x, g, *w, **kw),
+                                      "plain": lambda: twin(x, g, *w, **kw)},
+                              10)
+            (ms, runs), (plain_ms, _) = t["kernel"], t["plain"]
+            bound_ms, bound_by = kernel_bound(*dpt_bwd_work(
+                kind, (x, g, *w), fused(x, g, *w, **kw)))
+            bwd_rows[kind] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"timing [{card}] dpt {kind} backward [8,25,128,256] bf16: "
+                  f"kernel {ms:.4f} ms (runs {[round(r, 4) for r in runs]}),"
                   f" twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by})", flush=True)
 
@@ -785,7 +1052,9 @@ def phase_dpt_timings(torch, dpt, card: str):
         print(f"timing [{card}] dpt forward B=8x{SECONDS}s bf16 {name} path: "
               f"{med:.3f} ms, {8 * SECONDS / (med / 1e3):.1f}x realtime "
               f"(runs {[round(r, 3) for r in runs[name]]})", flush=True)
-    return rows
+    del models
+    phase_train_timings(torch, cfg, card, "dpt", big_batch=False)
+    return rows, bwd_rows
 
 
 def phase_timings(torch, tcn, bwd, card: str):
@@ -812,7 +1081,7 @@ def phase_timings(torch, tcn, bwd, card: str):
               flush=True)
 
     del models
-    phase_train_timings(torch, cfg, card)
+    phase_train_timings(torch, cfg, card, "tcn", big_batch=True)
 
     per_block = {}
     for d in DILATIONS:
@@ -851,9 +1120,11 @@ def phase_timings(torch, tcn, bwd, card: str):
     return means, bounds
 
 
-def phase_train_timings(torch, cfg, card: str):
+def phase_train_timings(torch, cfg, card: str, label: str,
+                        big_batch: bool):
     """The bf16 train step (forward + backward + optimizer) at B=8 x 4 s,
-    kernel path vs plain path in turns, and the kernel path at B=24."""
+    kernel path vs plain path in turns, with each path's peak memory; with
+    ``big_batch`` also the kernel path at B=24."""
     from convtasnet_tpu_torch import SolverConfig
     from convtasnet_tpu_torch.train import train_step as ts
 
@@ -874,12 +1145,15 @@ def phase_train_timings(torch, cfg, card: str):
         runs[name].append(ms)
     for name in ("kernel", "plain"):
         med = statistics.median(runs[name])
-        print(f"timing [{card}] train step B=8x{SECONDS}s bf16 {name} path: "
-              f"{med:.3f} ms (runs {[round(r, 3) for r in runs[name]]}), "
-              f"peak memory {mem[name]:.2f} GiB", flush=True)
-    ms24, mem24 = step_ms(True, 24, 5)
-    print(f"timing [{card}] train step B=24x{SECONDS}s bf16 kernel path: "
-          f"{ms24:.3f} ms, peak memory {mem24:.2f} GiB", flush=True)
+        print(f"timing [{card}] {label} train step B=8x{SECONDS}s bf16 "
+              f"{name} path: {med:.3f} ms (runs "
+              f"{[round(r, 3) for r in runs[name]]}), peak memory "
+              f"{mem[name]:.2f} GiB", flush=True)
+    if big_batch:
+        ms24, mem24 = step_ms(True, 24, 5)
+        print(f"timing [{card}] {label} train step B=24x{SECONDS}s bf16 "
+              f"kernel path: {ms24:.3f} ms, peak memory {mem24:.2f} GiB",
+              flush=True)
 
 
 def kernel_line(name, source, replaces, launches, max_abs, ms, plain_ms,
@@ -923,15 +1197,20 @@ def main() -> int:
     max_abs = phase_kernel_vs_twin(torch, tcn)
     max_abs_bwd = phase_bwd_vs_twin(torch, bwd)
     max_abs_dpt = phase_dpt_kernels_vs_twin(torch, dpt)
+    max_abs_dpt_bwd = phase_dpt_bwd_vs_twin(torch, dpt)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_main_path(torch, tcn, work)
-        fwd_launches, bwd_launches = phase_train_path(torch, tcn, bwd, work)
+        fwd_launches, bwd_launches, data, json_dir = phase_train_path(
+            torch, tcn, bwd, work)
         phase_dpt_forward(torch, dpt)
         dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
-    phase_step_compare(torch)
+        dpt_launches_bwd = phase_dpt_train_path(torch, dpt, work, data,
+                                                json_dir)
+    phase_step_compare(torch, "tcn")
+    phase_step_compare(torch, "dpt")
     (k_ms, p_ms, kb_ms, pb_ms), (fwd_bound, bwd_bound) = phase_timings(
         torch, tcn, bwd, card)
-    dpt_times = phase_dpt_timings(torch, dpt, card)
+    dpt_times, dpt_bwd_times = phase_dpt_timings(torch, dpt, card)
 
     lines = [
         kernel_line("tcn_block", "tcn_block.cu", "tcn_block.py:92",
@@ -947,6 +1226,14 @@ def main() -> int:
         lines.append(kernel_line(
             f"dpt_{kind}", source, replaces, dpt_launches_sep[kind],
             max_abs_dpt[kind], ms, plain_ms, (bound_ms, bound_by)))
+    for kind, source, replaces in (
+            ("inter", "dpt_attention_bwd.cu", "dpt_attention.py:271"),
+            ("intra", "dpt_intra_bwd.cu", "dpt_intra.py:252"),
+            ("ffn", "dpt_ffn_bwd.cu", "dpt_ffn.py:186")):
+        ms, plain_ms, bound_ms, bound_by = dpt_bwd_times[kind]
+        lines.append(kernel_line(
+            f"dpt_{kind}_bwd", source, replaces, dpt_launches_bwd[kind],
+            max_abs_dpt_bwd[kind], ms, plain_ms, (bound_ms, bound_by)))
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

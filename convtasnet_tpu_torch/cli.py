@@ -12,9 +12,10 @@ Each subcommand takes the JAX package's flags (``convtasnet_tpu/cli.py``)
 plus ``--device`` (default ``cuda``; it raises when CUDA is absent, and
 ``--device cpu`` runs the plain path on the CPU). ``--use-pallas`` keeps
 its meaning: -1 runs the CUDA kernels on a CUDA device, 1 insists on them,
-0 runs the plain ops. ``separate`` and ``evaluate`` take the model, TCN or
-dual-path (``--separator dpt`` at training), from the package. Flags of
-what is not ported yet raise and name the ROADMAP item.
+0 runs the plain ops. ``train`` trains either separator family, the TCN
+or the dual-path one (``--separator dpt``); ``separate`` and ``evaluate``
+take the model from the package. Flags of what is not ported yet raise and
+name the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
     g.add_argument("--mask-nonlinear", default="relu",
                    choices=["relu", "softmax"])
     g.add_argument("--separator", default="tcn", choices=["tcn", "dpt"],
-                   help="separator family (dpt: serving only, its training "
-                        "is not ported yet)")
+                   help="separator family: the paper's TCN or the dual-path "
+                        "attention separator (dpt)")
     g.add_argument("--dpt-chunk", type=int, default=128)
     g.add_argument("--dpt-layers", type=int, default=4)
     g.add_argument("--dpt-heads", type=int, default=0)
@@ -50,8 +51,10 @@ def _add_model_flags(p: argparse.ArgumentParser) -> None:
     g.add_argument("--compute-dtype", default=ConvTasNetConfig.compute_dtype,
                    choices=["float32", "bfloat16"])
     g.add_argument("--use-pallas", type=int, default=-1, choices=[-1, 0, 1],
-                   help="TCN-block CUDA kernels (forward and backward): -1 "
-                        "auto (on for a CUDA device), 0 off, 1 on")
+                   help="the model's CUDA kernels, forward and backward "
+                        "(the TCN block's, or the DPT inter, intra and FFN "
+                        "sublayers'): -1 auto (on for a CUDA device), 0 off, "
+                        "1 on")
 
 
 def _add_data_flags(p: argparse.ArgumentParser) -> None:
@@ -106,11 +109,6 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _check_ported(a: argparse.Namespace) -> None:
-    if a.separator == "dpt":
-        raise NotImplementedError(
-            "training the dual-path separator (--separator dpt) needs the DPT "
-            "backward kernels B8, B10 and B12, not ported yet (ROADMAP A7, "
-            "DPT training); separate and evaluate serve DPT packages")
     if a.n_data > 1 or a.n_model > 1:
         raise NotImplementedError(
             "data- and model-parallel training (--n-data/--n-model > 1) is "

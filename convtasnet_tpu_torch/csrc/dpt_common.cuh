@@ -273,23 +273,26 @@ __device__ __forceinline__ void store8_bf16(__nv_bfloat16* dst,
 
 // One warp: c[0:16, 0:NC] (f32, ldc) = a[0:16, 0:depth] (lda) @ b, with b
 // [depth][NC] row-major (ldb), or with kBT b^T stored as [NC][depth]
-// row-major (ldb). All three in shared memory; depth % 16 == 0 and
-// NC % 16 == 0. For f32, an odd ldb keeps the kBT reads off shared banks.
-template <typename T, bool kBT>
+// row-major (ldb); with kAT the left operand is a^T, a stored as
+// [depth][16] row-major (lda). All three in shared memory; depth % 16 == 0
+// and NC % 16 == 0. For f32, an odd ldb keeps the kBT reads off shared
+// banks.
+template <typename T, bool kBT, bool kAT = false>
 __device__ void warp_mm(const T* a, int lda, const T* b, int ldb, int depth,
                         int NC, float* c, int ldc) {
   if constexpr (kIsBf16<T>) {
     using namespace nvcuda;
+    using ALayout = typename std::conditional<kAT, wmma::col_major,
+                                              wmma::row_major>::type;
     using BLayout = typename std::conditional<kBT, wmma::col_major,
                                               wmma::row_major>::type;
     for (int n0 = 0; n0 < NC; n0 += 16) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
       for (int k0 = 0; k0 < depth; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb;
-        wmma::load_matrix_sync(fa, a + k0, lda);
+        wmma::load_matrix_sync(fa, kAT ? a + k0 * lda : a + k0, lda);
         wmma::load_matrix_sync(fb, kBT ? b + n0 * ldb + k0 : b + k0 * ldb + n0,
                                ldb);
         wmma::mma_sync(acc, fa, fb, acc);
@@ -308,7 +311,8 @@ __device__ void warp_mm(const T* a, int lda, const T* b, int ldb, int depth,
           const float bv = to_f<T>(kBT ? b[col * ldb + k] : b[k * ldb + col]);
 #pragma unroll
           for (int r = 0; r < 16; ++r)
-            acc[r] = fmaf(to_f<T>(a[r * lda + k]), bv, acc[r]);
+            acc[r] = fmaf(to_f<T>(a[kAT ? k * lda + r : r * lda + k]), bv,
+                          acc[r]);
         }
 #pragma unroll
         for (int r = 0; r < 16; ++r) c[r * ldc + col] = acc[r];
@@ -478,20 +482,26 @@ int launch_out_proj_bf16(const DptAttnParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch 1 alone (the backward kernels recompute qkv with it).
+template <typename T>
+int launch_ln_qkv(const DptAttnParams& p, cudaStream_t stream) {
+  const unsigned tiles = static_cast<unsigned>((p.R + kRowTile - 1) / kRowTile);
+  const size_t smem = ln_qkv_smem<T>(p.B);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ln_qkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ln_qkv_kernel<T><<<tiles, kDptThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launches 1 and 3 around an attention core (launch 2), on one stream;
 // returns the first CUDA error.
 template <typename T, typename Core>
 int launch_attention(const DptAttnParams& p, cudaStream_t stream,
                      Core core) {
-  const unsigned tiles = static_cast<unsigned>((p.R + kRowTile - 1) / kRowTile);
-  const size_t smem = ln_qkv_smem<T>(p.B);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_qkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ln_qkv_kernel<T><<<tiles, kDptThreads, smem, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ln_err = launch_ln_qkv<T>(p, stream);
+  if (ln_err != 0) return ln_err;
   const int core_err = core(p, stream);
   if (core_err != 0) return core_err;
   if constexpr (kIsBf16<T>) {

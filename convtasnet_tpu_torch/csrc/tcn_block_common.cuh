@@ -4,7 +4,8 @@
 // (64x64 output tile, depth 32, 4 warps; WMMA bf16 tensor-core fragments
 // with f32 accumulation for bf16, FMA for f32), and the forward's first two
 // launches (A: input product, B: depthwise conv), which the backward reruns
-// to recompute the block's intermediates. Their kPre flag stores the
+// to recompute the block's intermediates, and the backward kernels' weight
+// gradients (split-row a^T @ b with a fixed-order chunk sum, transposes). Their kPre flag stores the
 // pre-activation values instead of the PReLU outputs, for the backward's
 // PReLU derivatives; the norm statistics are the same either way. The norm
 // is a template parameter too (p.norm must equal kNorm), so that a gLN or
@@ -444,5 +445,187 @@ __global__ void __launch_bounds__(kDwThreads, 8)
     }
   }
 }
+
+// The weight gradients of the backward kernels (tcn_block_bwd.cu and the
+// DPT backwards): a^T @ b over all rows, split into chunks of kChunkRows
+// rows whose f32 partials are added in a fixed order, and the weight
+// transpose that feeds the g @ W^T products.
+
+// Rows per block of the weight-gradient GEMMs (a multiple of kBK).
+constexpr int kChunkRows = 1024;
+
+// Tiles of the weight-gradient product: two row-major [kBK, 64] slices.
+template <typename T>
+struct TnSmem {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kLd = kBN + kVec;
+  static constexpr int kLdC = kBN + 4;
+  alignas(32) T a[kBK * kLd];
+  alignas(32) T b[kBK * kLd];
+  alignas(32) float c[kBM * kLdC];
+};
+
+// s.c[i][j] = sum over r in [r_begin, r_end) of a[r][na0 + i] * b[r][nb0 + j]
+// (a^T @ b over a range of rows). a is [rows, ca], b is [rows, cb], both
+// row-major; ca, cb are multiples of 64 and the range starts on a multiple
+// of kBK. Rows at or beyond r_end read as zero.
+template <typename T>
+__device__ void gemm_tile_tn(const T* __restrict__ a, const T* __restrict__ b,
+                             int ca, int cb, int r_begin, int r_end, int na0,
+                             int nb0, TnSmem<T>& s) {
+  using S = TnSmem<T>;
+  constexpr int V = S::kVec;
+  const int tid = threadIdx.x;
+
+  auto load_tiles = [&](int r0) {
+    for (int v = tid; v < kBK * kBM / V; v += kGemmThreads) {
+      const int r = v / (kBM / V);
+      const int col = (v % (kBM / V)) * V;
+      uint4 va = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vb = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < r_end) {
+        va = *reinterpret_cast<const uint4*>(
+            a + static_cast<size_t>(r0 + r) * ca + na0 + col);
+        vb = *reinterpret_cast<const uint4*>(
+            b + static_cast<size_t>(r0 + r) * cb + nb0 + col);
+      }
+      *reinterpret_cast<uint4*>(&s.a[r * S::kLd + col]) = va;
+      *reinterpret_cast<uint4*>(&s.b[r * S::kLd + col]) = vb;
+    }
+  };
+
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using namespace nvcuda;
+    const int warp = tid >> 5;
+    const int wr = warp >> 1;
+    const int wc = warp & 1;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int r0 = r_begin; r0 < r_end; r0 += kBK) {
+      load_tiles(r0);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16) {
+        // a's slice read column-major is the [64, kBK] slice of a^T
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(fa[i], &s.a[kk * S::kLd + wr * 32 + i * 16],
+                                 S::kLd);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], &s.b[kk * S::kLd + wc * 32 + j * 16],
+                                 S::kLd);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(
+            &s.c[(wr * 32 + i * 16) * S::kLdC + wc * 32 + j * 16], acc[i][j],
+            S::kLdC, wmma::mem_row_major);
+  } else {
+    const int tx = tid & 15;
+    const int ty = tid >> 4;
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int r0 = r_begin; r0 < r_end; r0 += kBK) {
+      load_tiles(r0);
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < kBK; ++kk) {
+        float av[8], bv[4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) av[i] = to_f<T>(s.a[kk * S::kLd + ty * 8 + i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = to_f<T>(s.b[kk * S::kLd + tx * 4 + j]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s.c[(ty * 8 + i) * S::kLdC + tx * 4 + j] = acc[i][j];
+  }
+  __syncthreads();
+}
+
+// T: dst [cols, rows] = src [rows, cols]^T. Block (32, 8), grid
+// (cols/32, rows/32); rows and cols are multiples of 32.
+template <typename T>
+__global__ void transpose_kernel(const T* __restrict__ src,
+                                 T* __restrict__ dst, int rows, int cols) {
+  __shared__ T tile[32][33];
+  const int c0 = blockIdx.x * 32;
+  const int r0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y)
+    tile[i][threadIdx.x] =
+        src[static_cast<size_t>(r0 + i) * cols + c0 + threadIdx.x];
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y)
+    dst[static_cast<size_t>(c0 + i) * rows + r0 + threadIdx.x] =
+        tile[threadIdx.x][i];
+}
+
+// Weight gradient, first pass: out_part[z] = a[rows of chunk z]^T @
+// b[same rows].
+// Grid (ca/kBM, cb/kBN, n_chunks).
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+    wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b, int rows,
+                 int ca, int cb, float* __restrict__ out_part) {
+  using S = TnSmem<T>;
+  __shared__ S s;
+  const int na0 = blockIdx.x * kBM;
+  const int nb0 = blockIdx.y * kBN;
+  const int r_begin = blockIdx.z * kChunkRows;
+  const int r_end = min(rows, r_begin + kChunkRows);
+  gemm_tile_tn<T>(a, b, ca, cb, r_begin, r_end, na0, nb0, s);
+  float* out = out_part + static_cast<size_t>(blockIdx.z) * ca * cb;
+  for (int e = threadIdx.x; e < kBM * kBN; e += kGemmThreads) {
+    const int i = e / kBN;
+    const int j = e % kBN;
+    out[static_cast<size_t>(na0 + i) * cb + nb0 + j] = s.c[i * S::kLdC + j];
+  }
+}
+
+// Second pass: out[i] = sum over z of part[z][i], in order of z.
+__global__ void reduce_chunks_kernel(const float* __restrict__ part,
+                                     int n_chunks, int n,
+                                     float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  double acc = 0.0;
+  for (int z = 0; z < n_chunks; ++z) acc += part[static_cast<size_t>(z) * n + i];
+  out[i] = static_cast<float>(acc);
+}
+
+// Returns the pending CUDA error, if any, from the enclosing launcher.
+#define CTN_CHECK()                                   \
+  do {                                                \
+    cudaError_t err_ = cudaGetLastError();            \
+    if (err_ != cudaSuccess) return static_cast<int>(err_); \
+  } while (0)
 
 }  // namespace

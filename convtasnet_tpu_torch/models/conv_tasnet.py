@@ -267,13 +267,6 @@ class ConvTasNet(nn.Module):
                 "block backward, kernel 3, not ported yet (ROADMAP A6); pass "
                 "use_pallas=None or False to train cLN blocks through the "
                 "plain ops")
-        if use_kernel and cfg.separator == "dpt" and needs_grad:
-            raise NotImplementedError(
-                "training the dual-path separator through the CUDA kernels "
-                "needs the DPT backward kernels B8, B10 and B12, not ported "
-                "yet (ROADMAP A7, DPT training); pass use_pallas=False to "
-                "train through the plain ops, or run inference under "
-                "torch.inference_mode() or torch.no_grad()")
         if use_kernel and not mixture.is_cuda:
             raise ValueError(
                 "use_pallas=True runs the CUDA kernels and needs CUDA "

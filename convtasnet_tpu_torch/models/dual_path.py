@@ -14,9 +14,10 @@ Each parameter's state_dict name is its flax path
 (``separator.layer_{i}.intra_att.qkv.kernel``, ``...intra_ffn.up.bias``,
 ``separator.mask_conv``, ...), so ``models/jax_params.py`` carries weights
 over one leaf at a time. With ``use_kernel`` the sublayers run the CUDA
-kernels (``ops/cuda/dpt_{intra,attention,ffn}.py``), else their plain twins.
-The kernels are forward only: the model raises for DPT training through
-them (``ConvTasNet.forward``).
+kernels (``ops/cuda/dpt_{intra,attention,ffn}.py``): the bare forward
+kernels when no gradient is needed, and when one is, the differentiable
+``fused_{intra_attention,inter_attention,ffn}_ad``, whose backwards are the
+kernels B10, B8 and B12. Without it they run their plain twins.
 """
 
 from __future__ import annotations
@@ -33,11 +34,18 @@ from convtasnet_tpu_torch.ops.conv import pointwise_conv
 from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
     NEG_INF,
     fused_inter_attention,
+    fused_inter_attention_ad,
     inter_attention_reference,
+    needs_grad,
 )
-from convtasnet_tpu_torch.ops.cuda.dpt_ffn import ffn_reference, fused_ffn
+from convtasnet_tpu_torch.ops.cuda.dpt_ffn import (
+    ffn_reference,
+    fused_ffn,
+    fused_ffn_ad,
+)
 from convtasnet_tpu_torch.ops.cuda.dpt_intra import (
     fused_intra_attention,
+    fused_intra_attention_ad,
     intra_attention_reference,
 )
 from convtasnet_tpu_torch.ops.norm import layer_norm
@@ -107,14 +115,16 @@ class _AttentionSublayer(nn.Module):
         self.out = _Kernel((features, features), generator, device)
 
     def forward(self, x, key_bias, use_kernel: bool):
-        if self.attend_axis == 2:
-            fn = fused_intra_attention if use_kernel \
-                else intra_attention_reference
-        else:
-            fn = fused_inter_attention if use_kernel \
-                else inter_attention_reference
-        return fn(x, self.norm.gamma, self.norm.beta, self.qkv.kernel,
-                  self.out.kernel, key_bias, n_heads=self.n_heads)
+        args = (x, self.norm.gamma, self.norm.beta, self.qkv.kernel,
+                self.out.kernel, key_bias)
+        plain, fused, fused_ad = (
+            (intra_attention_reference, fused_intra_attention,
+             fused_intra_attention_ad) if self.attend_axis == 2 else
+            (inter_attention_reference, fused_inter_attention,
+             fused_inter_attention_ad))
+        fn = (plain if not use_kernel
+              else fused_ad if needs_grad(*args) else fused)
+        return fn(*args, n_heads=self.n_heads)
 
 
 class _FFNSublayer(nn.Module):
@@ -128,11 +138,12 @@ class _FFNSublayer(nn.Module):
 
     def forward(self, x, use_kernel: bool):
         M, n, S, B = x.shape
-        fn = fused_ffn if use_kernel else ffn_reference
-        out = fn(x.reshape(M, n * S, B), self.norm.gamma, self.norm.beta,
-                 self.up.kernel, self.up.bias, self.down.kernel,
-                 self.down.bias)
-        return out.reshape(M, n, S, B)
+        args = (x.reshape(M, n * S, B), self.norm.gamma, self.norm.beta,
+                self.up.kernel, self.up.bias, self.down.kernel,
+                self.down.bias)
+        fn = (ffn_reference if not use_kernel
+              else fused_ffn_ad if needs_grad(*args) else fused_ffn)
+        return fn(*args).reshape(M, n, S, B)
 
 
 class DualPathLayer(nn.Module):

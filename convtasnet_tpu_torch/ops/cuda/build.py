@@ -38,6 +38,11 @@ _BWD_ARGTYPES = [_P] * 17 + [_I] * 7 + [_P]
 _ATTN_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
 # ctn_dpt_ffn_{f32,bf16}: 8 pointers, 3 ints, the stream (dpt_ffn.cu)
 _FFN_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P]
+# ctn_dpt_{inter,intra}_bwd_{f32,bf16}: 13 pointers, 5 ints, the stream
+# (dpt_bwd_common.cuh)
+_ATTN_BWD_ARGTYPES = [_P] * 13 + [_I] * 5 + [_P]
+# ctn_dpt_ffn_bwd_{f32,bf16}: 15 pointers, 3 ints, the stream (dpt_ffn_bwd.cu)
+_FFN_BWD_ARGTYPES = [_P] * 15 + [_I] * 3 + [_P]
 
 
 def _sources() -> list:
@@ -121,6 +126,14 @@ def load_library() -> ctypes.CDLL:
         "ctn_dpt_intra_bf16": _ATTN_ARGTYPES,
         "ctn_dpt_ffn_f32": _FFN_ARGTYPES,
         "ctn_dpt_ffn_bf16": _FFN_ARGTYPES,
+        "ctn_dpt_inter_bwd_f32": _ATTN_BWD_ARGTYPES,
+        "ctn_dpt_inter_bwd_bf16": _ATTN_BWD_ARGTYPES,
+        "ctn_dpt_intra_bwd_f32": _ATTN_BWD_ARGTYPES,
+        "ctn_dpt_intra_bwd_bf16": _ATTN_BWD_ARGTYPES,
+        "ctn_dpt_attn_bwd_workspace": [_I] * 6 + [_LL_P, _LL_P],
+        "ctn_dpt_ffn_bwd_f32": _FFN_BWD_ARGTYPES,
+        "ctn_dpt_ffn_bwd_bf16": _FFN_BWD_ARGTYPES,
+        "ctn_dpt_ffn_bwd_workspace": [_I] * 4 + [_LL_P, _LL_P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -11,6 +11,11 @@ key bias [n, S] is indexed by the key's chunk and its position in it.
 On CPU tensors ``fused_intra_attention`` runs the plain twin; on CUDA
 tensors it launches the kernel or raises, with no fallback.
 ``fused_intra_attention.launches`` counts the calls that launched it.
+
+The backward is kernel B10 (``csrc/dpt_intra_bwd.cu``) behind
+``fused_intra_attention_bwd``, with the twin
+``intra_attention_bwd_reference``; ``fused_intra_attention_ad`` joins the
+two kernels in the autograd Function ``dpt_attention.AttentionFn``.
 """
 
 from __future__ import annotations
@@ -20,8 +25,11 @@ from typing import Optional
 import torch
 
 from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
+    AttentionFn,
+    attention_bwd_reference,
     attention_reference,
     launch_attention,
+    launch_attention_bwd,
 )
 
 
@@ -53,3 +61,42 @@ def fused_intra_attention(
 
 
 fused_intra_attention.launches = 0
+
+
+def intra_attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias,
+                                  *, n_heads: int):
+    """The intra-chunk sublayer backward's plain twin."""
+    return attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out,
+                                   key_bias, n_heads=n_heads, attend_axis=2)
+
+
+def fused_intra_attention_bwd(
+    x: torch.Tensor,                    # [M, n, S, B] sublayer input
+    g: torch.Tensor,                    # [M, n, S, B] output cotangent
+    gamma: torch.Tensor, beta: torch.Tensor,
+    w_qkv: torch.Tensor, w_out: torch.Tensor,
+    key_bias: Optional[torch.Tensor],
+    *,
+    n_heads: int,
+):
+    """Backward of the intra-chunk sublayer -> ``(dx, dgamma, dbeta,
+    dw_qkv, dw_out)`` in the primals' dtypes."""
+    args = (x, g, gamma, beta, w_qkv, w_out, key_bias)
+    if x.device.type == "cpu":
+        return intra_attention_bwd_reference(*args, n_heads=n_heads)
+    grads = launch_attention_bwd("intra", *args, n_heads=n_heads)
+    fused_intra_attention_bwd.launches += 1
+    return grads
+
+
+fused_intra_attention_bwd.launches = 0
+
+
+def fused_intra_attention_ad(x, gamma, beta, w_qkv, w_out, key_bias, *,
+                             n_heads: int) -> torch.Tensor:
+    """Differentiable intra-chunk sublayer -> [M, n, S, B] in x's dtype:
+    ``fused_intra_attention`` forward, ``fused_intra_attention_bwd``
+    backward. Gradients come back in each primal's dtype."""
+    return AttentionFn.apply(x, gamma, beta, w_qkv, w_out, key_bias,
+                             fused_intra_attention, fused_intra_attention_bwd,
+                             n_heads)

@@ -7,11 +7,14 @@ which checks see each one. Needs one CUDA GPU and nvcc.
 For each fault the script copies ``convtasnet_tpu_torch/`` (without its
 build directory), ``chip_smoke.py``, ``pyproject.toml`` and
 ``tests/test_torch_cuda.py`` into a temporary directory, edits one line of
-the copy's ``csrc/``, and runs there, against the edited kernels:
-``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, then
-the ``cuda``-marked DPT tests. The repository itself is never edited. A
-fault is caught when either run fails. Each run's full output goes to
-``--log-dir`` (default: a new temporary directory), one file per fault.
+the copy's ``csrc/``, and runs there, against the edited kernels: the
+smoke's DPT phases (``chip_smoke.phase_dpt_kernels_vs_twin`` and
+``phase_dpt_forward`` for a fault in a forward kernel;
+``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch, "dpt")`` for
+one in a backward kernel), then the ``cuda``-marked DPT tests. The
+repository itself is never edited. A fault is caught when either run
+fails. Each run's full output goes to ``--log-dir`` (default: a new
+temporary directory), one file per fault.
 """
 
 from __future__ import annotations
@@ -46,14 +49,54 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/dpt_common.cuh",
         "constexpr float kLnEps = 1e-6f;",
         "constexpr float kLnEps = 1e-5f;"),
+    # the backward kernels
+    "intra_bwd_rowsum_dropped": (
+        "convtasnet_tpu_torch/csrc/dpt_intra_bwd.cu",
+        "from_f<T>(prow[k] * (drow[k] - rs) * scale)",
+        "from_f<T>(prow[k] * drow[k] * scale + 0.f * rs)"),
+    "inter_bwd_bias_transposed": (
+        "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
+        "p.bias[static_cast<size_t>(c) * S + s]",
+        "p.bias[static_cast<size_t>(s) * n + c]"),
+    "ffn_bwd_gelu_erf_derivative": (
+        "convtasnet_tpu_torch/csrc/dpt_ffn_bwd.cu",
+        "*dy = 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * c * "
+        "(1.f + 3.f * a * x * x);",
+        "*dy = 0.5f * (1.f + erff(x * 0.70710678118654752f)) + "
+        "x * 0.3989422804014327f * expf(-0.5f * x * x) + 0.f * a;"),
+    "inter_bwd_dk_unscaled": (
+        "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
+        "round_to<T>(pj * (dot(dav, vv) - st[2]) * scale)",
+        "round_to<T>(pj * (dot(dav, vv) - st[2]))"),
 }
-PHASES = (
-    "import torch, chip_smoke\n"
-    "from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, "
-    "dpt_intra\n"
-    "dpt = {'inter': dpt_attention, 'intra': dpt_intra, 'ffn': dpt_ffn}\n"
-    "chip_smoke.phase_dpt_kernels_vs_twin(torch, dpt)\n"
-    "chip_smoke.phase_dpt_forward(torch, dpt)\n")
+# The smoke phases a fault in a forward or a backward kernel is run
+# through; each phase runs whether or not an earlier one failed, and prints
+# "PHASE <call>: passed" or "PHASE <call>: FAILED <reason>".
+PHASES = {
+    "forward": ["phase_dpt_kernels_vs_twin(torch, dpt)",
+                "phase_dpt_forward(torch, dpt)"],
+    "backward": ["phase_dpt_bwd_vs_twin(torch, dpt)",
+                 "phase_step_compare(torch, 'dpt')"],
+}
+RUNNER = """
+import sys
+import torch
+import chip_smoke
+from chip_smoke import *
+from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dpt = {'inter': dpt_attention, 'intra': dpt_intra, 'ffn': dpt_ffn}
+failed = False
+for call in sys.argv[1:]:
+    try:
+        eval(call)
+        print(f"PHASE {call}: passed", flush=True)
+    except AssertionError as e:
+        failed = True
+        print(f"PHASE {call}: FAILED {str(e)[:400]}", flush=True)
+sys.exit(1 if failed else 0)
+"""
 COPIED = ("chip_smoke.py", "pyproject.toml", "tests/test_torch_cuda.py")
 
 
@@ -88,8 +131,11 @@ def main() -> int:
         for name in a.only or FAULTS:
             d = plant(root, name)
             env = dict(os.environ, PYTHONPATH=d)
-            smoke = subprocess.run([sys.executable, "-c", PHASES], cwd=d,
-                                   env=env, capture_output=True, text=True)
+            phases = PHASES["backward" if "_bwd" in FAULTS[name][0]
+                            else "forward"]
+            smoke = subprocess.run([sys.executable, "-c", RUNNER, *phases],
+                                   cwd=d, env=env, capture_output=True,
+                                   text=True)
             tests = subprocess.run(
                 [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
                  "tests/test_torch_cuda.py", "-q", "-k", "dpt", "-p",
@@ -104,8 +150,10 @@ def main() -> int:
                   f"smoke phases rc={smoke.returncode}, card tests "
                   f"rc={tests.returncode} ({summary})", flush=True)
             for line in smoke.stdout.splitlines():
-                if " kernel vs twin " in line or "dpt forward B" in line:
+                if line.startswith("PHASE") or "dpt forward B" in line:
                     print("   ", line)
+            for line in smoke.stderr.splitlines()[-3:]:
+                print("   ", line[:300])
             for line in tests.stdout.splitlines():
                 if line.startswith("FAILED"):
                     print("   ", line[:200])

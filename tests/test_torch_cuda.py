@@ -1,5 +1,5 @@
 """The CUDA kernels (the TCN block's forward and backward, the DPT
-sublayers' forwards) against their plain twins, on the card.
+sublayers' forwards and backwards) against their plain twins, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it also runs on a machine with only torch and the
@@ -10,7 +10,10 @@ CUDA toolkit (``tests/conftest.py`` imports jax, hence ``--noconftest``):
 Bars: relative L2 <= 4e-2 in bf16 and <= 2e-3 in f32 for the forward,
 those of the JAX package's Pallas probe gate (``tcn_block.py``
 ``_numerics_tol``); twice that, 8e-2 and 4e-3, for the backward, the
-JAX train gate (``tcn_block.py:1148``).
+JAX train gate (``tcn_block.py:1148``). The DPT backward kernels hold
+every cotangent against the exact f32 cotangents of their twins: in f32
+within DPT_BWD_TOL, in bf16 within 4e-2 of the bf16 twin and no further
+from exact than max(4e-2, 1.25x the bf16 twin's own distance).
 """
 
 import numpy as np
@@ -31,6 +34,10 @@ BWD_TOL = {torch.float32: 4e-3, torch.bfloat16: 8e-2}
 # (<= 4e-7 at the quality default's widths); 2e-3 would let erf-GELU for
 # tanh-GELU (~1e-4) through
 DPT_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-2}
+# the DPT backward kernels in f32 against the exact twin differ in summation
+# order only (<= 1.5e-6 at the quality default's widths): 1e-5, under the
+# JAX package's VJP gate of 1e-4
+DPT_BWD_TOL = 1e-5
 NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
          "dg1", "db1", "dg2", "db2")
 CASES = [
@@ -349,8 +356,8 @@ def test_dpt_kernels_are_deterministic_and_check_shapes(cuda):
 def test_dpt_model_kernel_path_matches_plain_path(cuda, dtype):
     """A small DPT model (B=128, 4 heads, 2 layers) serving a 1.3 s
     mixture: every sublayer launches its kernel, the output within the
-    forward bars of the plain path's, and training through the kernels
-    refused."""
+    forward bars of the plain path's; and a backward through the kernel
+    path launches each sublayer's backward kernel."""
     cfg = ConvTasNetConfig(n_filters=64, bottleneck=128, separator="dpt",
                            dpt_chunk=32, dpt_layers=2, dpt_ff=256,
                            compute_dtype=dtype)
@@ -367,5 +374,166 @@ def test_dpt_model_kernel_path_matches_plain_path(cuda, dtype):
         assert launched == ([2, 2, 4] if use else [0, 0, 0])
     assert torch.isfinite(outs[True]).all()
     assert _rel_l2(outs[True], outs[False]) <= TOL[getattr(torch, dtype)]
-    with pytest.raises(NotImplementedError, match="B8, B10 and B12"):
-        ConvTasNet(cfg, use_pallas=True, device=cuda)(mix)
+    model = ConvTasNet(cfg, use_pallas=True, device=cuda).train()
+    before = [DPT_BWD_FNS[k][0].launches for k in DPT_BWD_FNS]
+    model(mix).square().mean().backward()
+    torch.cuda.synchronize()
+    assert [DPT_BWD_FNS[k][0].launches - b
+            for k, b in zip(DPT_BWD_FNS, before)] == [2, 2, 4]
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+
+
+DPT_BWD_FNS = {
+    "inter": (dpt_attention.fused_inter_attention_bwd,
+              dpt_attention.inter_attention_bwd_reference),
+    "intra": (dpt_intra.fused_intra_attention_bwd,
+              dpt_intra.intra_attention_bwd_reference),
+    "ffn": (dpt_ffn.fused_ffn_bwd, dpt_ffn.ffn_bwd_reference),
+}
+DPT_AD = {
+    "inter": (dpt_attention.fused_inter_attention_ad,
+              dpt_attention.inter_attention_reference),
+    "intra": (dpt_intra.fused_intra_attention_ad,
+              dpt_intra.intra_attention_reference),
+    "ffn": (dpt_ffn.fused_ffn_ad, dpt_ffn.ffn_reference),
+}
+
+
+def _dpt_bwd_args(device, dtype, kind, n, masked, **kw):
+    """``_dpt_args`` with f32 weights (as the model keeps them) and a
+    random cotangent, zero on the padded rows. -> (x, g, weights, kwargs,
+    valid)."""
+    args, kwargs, valid = _dpt_args(device, dtype, kind, n, masked, **kw)
+    x = args[0]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(n))
+    g = g.to(device).reshape(x.shape[0], -1, x.shape[-1]) * valid.reshape(
+        1, -1, 1)
+    weights = [None if a is None else a.float() for a in args[1:]]
+    return x, g.reshape(x.shape).to(dtype), weights, kwargs, valid
+
+
+def _check_dpt_cotangents(got, exact, same, valid, dtype):
+    assert len(got) == len(exact) == len(same)
+    for i, (q, e, t) in enumerate(zip(got, exact, same)):
+        assert q.shape == t.shape and q.dtype == t.dtype, i
+        if i == 0:
+            q, e, t = (_valid_rows(v, valid, v.shape[-1]) for v in (q, e, t))
+        assert torch.isfinite(q).all(), i
+        if dtype == torch.float32:
+            assert _rel_l2(q, e) <= DPT_BWD_TOL, (i, _rel_l2(q, e))
+        else:
+            assert _rel_l2(q, t) <= DPT_TOL[dtype], (i, _rel_l2(q, t))
+            assert _rel_l2(q, e) <= max(DPT_TOL[dtype],
+                                        1.25 * _rel_l2(t, e)), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("n,masked", [(1, True), (25, True), (25, False),
+                                      (94, True)])
+def test_dpt_bwd_kernel_matches_twin(cuda, dtype, kind, n, masked):
+    """Every cotangent of the backward kernels B8, B10 and B12 (dx on the
+    valid rows); n = 1 with 10 real frames, n = 94 more than one inter
+    tile of 32 chunks."""
+    fused, twin = DPT_BWD_FNS[kind]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, kind, n, masked)
+    before = fused.launches
+    got = fused(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    exact = twin(x.float(), g.float(), *w, **kw)
+    same = twin(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, same, valid, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+def test_dpt_bwd_kernel_matches_twin_at_full_width(cuda, dtype, kind):
+    """The DPT quality default's widths (B=256, 8 heads, S=128, F=1024) at
+    n = 25 with a masked tail, as chip_smoke.py holds them."""
+    fused, twin = DPT_BWD_FNS[kind]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, kind, 25, True, M=4,
+                                       S=128, B=256, heads=8, F=1024)
+    got = fused(x, g, *w, **kw)
+    exact = twin(x.float(), g.float(), *w, **kw)
+    same = twin(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, same, valid, dtype)
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+def test_dpt_ad_sublayer_on_the_card(cuda, kind):
+    """Autograd through each ``_ad`` sublayer (forward kernel, backward
+    kernel, one launch each) against autograd through the plain forward,
+    in f32; the key bias gets no gradient."""
+    ad, plain = DPT_AD[kind]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.float32, kind, 5, True)
+    prims = [x, *w] if kind == "ffn" else [x, *w[:-1]]
+    const = [] if kind == "ffn" else [w[-1]]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in prims]
+        fn(*leaves, *const, **kw).backward(g)
+        return [t.grad for t in leaves]
+
+    f0, b0 = DPT_FNS[kind][0].launches, DPT_BWD_FNS[kind][0].launches
+    got = grads(ad)
+    torch.cuda.synchronize()
+    assert DPT_FNS[kind][0].launches == f0 + 1
+    assert DPT_BWD_FNS[kind][0].launches == b0 + 1
+    want = grads(plain)
+    got[0], want[0] = (_valid_rows(t, valid, t.shape[-1])
+                       for t in (got[0], want[0]))
+    for q, r in zip(got, want):
+        assert q.dtype == r.dtype and _rel_l2(q, r) <= DPT_BWD_TOL
+
+
+def test_dpt_bwd_kernels_are_deterministic_and_check_shapes(cuda):
+    for kind, (fused, _) in DPT_BWD_FNS.items():
+        x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.bfloat16, kind, 7, True)
+        a, b = fused(x, g, *w, **kw), fused(x, g, *w, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), kind
+    x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
+                                   S=144)
+    with pytest.raises(ValueError, match="at most 128"):
+        dpt_intra.fused_intra_attention_bwd(x, g, *w, **kw)
+    x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "inter", 3, True)
+    with pytest.raises(ValueError, match="shape"):
+        dpt_attention.fused_inter_attention_bwd(x, g[:, :2], *w, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype):
+    """One training forward/backward of a small DPT model (B=128, 4 heads,
+    2 layers, a padded tail): every sublayer runs both kernels, and the
+    gradients agree with the plain path's as chip_smoke.py holds them: in
+    f32 to 4e-3 globally; in bf16 the kernel path no further from the f32
+    gradient than max(8e-2, 1.25x the plain bf16 path)."""
+    from convtasnet_tpu_torch.losses.pit import pit_si_snr
+
+    gen = torch.Generator().manual_seed(6)
+    mix = torch.randn(2, 10400, generator=gen).to(cuda)
+    src = torch.randn(2, 2, 10400, generator=gen).to(cuda)
+    lengths = torch.full((2,), 10400, device=cuda)
+
+    def grads(compute_dtype, use):
+        cfg = ConvTasNetConfig(n_filters=64, bottleneck=128, separator="dpt",
+                               dpt_chunk=32, dpt_layers=2, dpt_ff=256,
+                               compute_dtype=compute_dtype)
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).train()
+        before = [DPT_BWD_FNS[k][0].launches for k in DPT_BWD_FNS]
+        snr, _ = pit_si_snr(src, model(mix), lengths)
+        (-snr.mean()).backward()
+        launched = [DPT_BWD_FNS[k][0].launches - b
+                    for k, b in zip(DPT_BWD_FNS, before)]
+        assert launched == ([2, 2, 4] if use else [0, 0, 0])
+        return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+    kernel, plain = grads(dtype, True), grads(dtype, False)
+    assert torch.isfinite(kernel).all()
+    if dtype == "float32":
+        assert _rel_l2(kernel, plain) <= BWD_TOL[torch.float32]
+    else:
+        exact = grads("float32", False)
+        assert _rel_l2(kernel, exact) <= max(
+            BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))

@@ -128,12 +128,14 @@ def test_dual_path_layers_ignore_pad_content():
 
 
 def test_dpt_training_through_kernels_raises():
-    """The DPT kernels are forward only: a DPT forward under gradients with
-    the kernels forced raises, naming the backward kernels and ROADMAP A7;
-    with use_pallas=False it trains through the plain ops."""
+    """A DPT forward under gradients with the kernels forced runs the
+    differentiable kernels (forward and backward), which take CUDA tensors
+    only: on the CPU it raises the CUDA-tensor error, as a forward without
+    gradients does; with use_pallas=False it trains through the plain
+    ops."""
     cfg = ConvTasNetConfig(**SMALL)
     mix = torch.randn(1, 400, generator=torch.Generator().manual_seed(3))
-    with pytest.raises(NotImplementedError, match="B8, B10 and B12"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         ConvTasNet(cfg, use_pallas=True)(mix)
     model = ConvTasNet(cfg, use_pallas=False)
     model(mix).square().mean().backward()

@@ -169,9 +169,10 @@ def test_pad_content_invariance():
 def test_cuda_branch_has_no_fallback_and_refuses_autograd(monkeypatch,
                                                           wrapper):
     """On the CPU the wrappers run their twins and count no launch; their
-    CUDA branch refuses operands that need a gradient (the DPT kernels are
-    forward only) and otherwise builds the library or raises: it never
-    drops back to the twin."""
+    CUDA branch refuses operands that need a gradient (a bare forward's
+    output carries none: training goes through the ``_ad`` sublayers) and
+    otherwise builds the library or raises: it never drops back to the
+    twin."""
 
     def broken_loader():
         raise RuntimeError("kernel library unavailable")
@@ -203,7 +204,7 @@ def test_cuda_branch_has_no_fallback_and_refuses_autograd(monkeypatch,
     fused(*t, **kw)
     assert counter.launches == before
     t[3].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B8, B10, B12"):
+    with pytest.raises(NotImplementedError, match=f"{wrapper}.*_ad"):
         cuda_branch(*t, **kw)
     with torch.no_grad(), pytest.raises(RuntimeError, match="unavailable"):
         cuda_branch(*t, **kw)

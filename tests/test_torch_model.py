@@ -150,11 +150,20 @@ def test_bridge_rejects_wrong_config():
 
 
 def test_dual_path_not_ported():
-    """The DPT serving path is ported (tests/test_torch_dpt_model.py); its
-    training through the kernels is not (ROADMAP A7): a DPT forward under
-    gradients with the kernels forced raises."""
+    """The DPT serving and training paths are ported
+    (tests/test_torch_dpt_model.py, tests/test_torch_dpt_train.py): with
+    the kernels forced, a DPT forward under gradients runs the
+    differentiable kernels, which take CUDA tensors only, so on the CPU it
+    raises the CUDA-tensor error and no ROADMAP refusal; with use_pallas
+    unset the CPU takes the plain path, and a backward reaches every
+    parameter."""
     cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=64,
                            separator="dpt", dpt_chunk=16, dpt_layers=1,
                            dpt_ff=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         ConvTasNet(cfg, use_pallas=True)(torch.zeros(1, 400))
+    model = ConvTasNet(cfg)
+    mix = torch.randn(1, 400, generator=torch.Generator().manual_seed(0))
+    model(mix).square().mean().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())

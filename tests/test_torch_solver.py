@@ -203,13 +203,26 @@ def test_cli_train_then_separate(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--separator", "dpt"], "ROADMAP A7"),
+    (["--norm-type", "cLN", "--use-pallas", "1"], "ROADMAP A6"),
     (["--n-data", "2"], "ROADMAP A8"),
     (["--n-model", "2"], "ROADMAP A8"),
 ])
-def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, item):
+def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, item,
+                                              monkeypatch):
+    """The mesh flags are refused before any data is read; cLN blocks with
+    the kernels insisted on reach the model's refusal at the first step."""
     from convtasnet_tpu_torch import cli
 
+    monkeypatch.setenv("CONVTASNET_SEGMENT_CACHE", str(tmp_path / "cache"))
+    root, json_dir = str(tmp_path / "wavs"), str(tmp_path / "json")
+    _write_corpus(root, [4000] * 2, split="tr", seed=0)
+    _write_corpus(root, [4000], split="cv", seed=1)
+    assert cli.main(["preprocess", "--data-dir", root, "--out-dir",
+                     json_dir]) == 0
     with pytest.raises(NotImplementedError, match=item):
-        cli.main(["train", "--train-dir", str(tmp_path), "--valid-dir",
-                  str(tmp_path), "--device", "cpu", *flags])
+        cli.main(["train", "--train-dir", os.path.join(json_dir, "tr"),
+                  "--valid-dir", os.path.join(json_dir, "cv"),
+                  "--save-folder", str(tmp_path / "exp"), "--device", "cpu",
+                  "--N", "16", "--L", "8", "--B", "12", "--H", "24", "--X",
+                  "2", "--R", "1", "--segment", "0.5", "--batch-size", "2",
+                  "--epochs", "1", "--num-workers", "0", *flags])
