@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's TCN and dual-path (DPT) serving and training
-paths on one NVIDIA GPU, and check them.
+"""Drive the PyTorch port's TCN (gLN and causal cLN) and dual-path (DPT)
+serving and training paths and its streaming separator on one NVIDIA GPU,
+and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -10,14 +11,16 @@ Phases, each raising on failure (so the script exits nonzero):
 2. build every CUDA kernel from ``convtasnet_tpu_torch/csrc`` (one nvcc
    per source, all at once, then one link);
 3. kernel 1 (block forward) against its plain PyTorch twin at the serving
-   shape ([8, 3199, 256], H=512), every dilation 1..128, gLN, bf16 and f32,
-   at the relative-L2 bars of the JAX package's Pallas probe gate
-   (4e-2 / 2e-3);
-4. kernel 2 (gLN block backward) against its twin (autograd through the
-   plain block) at the same shape and dilations, bf16 and f32, plus a
-   causal case and one with a negative PReLU slope: all ten cotangents
-   finite and within the JAX train gate (loss = sum of the output, twice
-   the forward's bars: 8e-2 / 4e-3); and with a random cotangent, against
+   shape ([8, 3199, 256], H=512), every dilation 1..128, gLN non-causal
+   and cLN causal, bf16 and f32, at the relative-L2 bars of the JAX
+   package's Pallas probe gate (4e-2 / 2e-3);
+4. kernels 2 (gLN block backward) and 3 (cLN block backward) against
+   their twin (autograd through the plain block) at the same shape: gLN
+   non-causal at every dilation plus a causal case, cLN causal at every
+   dilation plus non-causal at d=4 and d=128, each with one case of a
+   negative PReLU slope, bf16 and f32: all ten cotangents finite and
+   within the JAX train gate (loss = sum of the output, twice the
+   forward's bars: 8e-2 / 4e-3); and with a random cotangent, against
    the exact (f32) cotangents: all ten within 4e-3 in f32, the eight
    besides the two PReLU slopes within 8e-2 in bf16;
 5. the three DPT sublayer kernels (inter, intra, FFN) against their twins
@@ -41,7 +44,13 @@ Phases, each raising on failure (so the script exits nonzero):
    ``--use-pallas 1``, one epoch of 4 steps at batch 8 and a cv pass:
    every step's loss finite, kernels 1 and 2 launched 32 times per step,
    kernel 1 32 times per cv batch, and the best-model package separating
-   a mixture on the card (32 launches per batch);
+   a mixture on the card (32 launches per batch); then the same with
+   ``--norm-type cLN --causal 1``: kernels 1 and 3 32 times per step
+   (kernel 2 never), and its package serving on the card offline
+   (``separate``, 32 launches of kernel 1 per batch), ``cli separate
+   --streaming 1`` and ``cli stream-demo`` (finite wavs of the right
+   length; the streaming step launches no kernel, as the JAX one reaches
+   no Pallas kernel);
 8. the DPT serving path: the quality-default forward in bf16 at
    B=8 x 4 s, kernel path against plain path within 4e-2, 4 inter, 4
    intra and 8 FFN launches per forward; then ``cli separate`` and
@@ -54,23 +63,29 @@ Phases, each raising on failure (so the script exits nonzero):
    intra and FFN forward kernels and of their backward kernels, the cv
    batches forward only, and the best-model package separating a mixture
    on the card;
-9. one train step's loss and gradients, kernel path against plain path,
+9. the streaming separator on the card, f32, the paper widths with the
+   causal cLN norm: two 4 s mixtures in 8 ms chunks rounded down to whole
+   hops (7.5 ms), the stream plus its flush against the offline causal
+   forward on the left-padded input, the plain path within STREAM_TOL and
+   the kernel path within 2e-3; ``stream_demo`` at 8 ms, its wav against
+   the stream within one PCM-16 step, and its latencies;
+10. one train step's loss and gradients, kernel path against plain path,
    from the same init and batch (B=4 x 4 s, two batch seeds), for the
-   TCN paper config and the DPT quality default: in f32 the
-   loss within 1e-5, the global gradient within 4e-3, every multi-element
-   leaf correlated >= 0.9999 (a leaf with no correlation, such as an
-   all-zero gradient, fails) and the PReLU slopes within 4e-3 as one
-   vector (the TCN's; the DPT has no scalar leaves);
-   in bf16 the loss within 4e-2 and the kernel path's gradient no
-   further from the f32 gradient than max(8e-2, 1.25x the plain bf16
-   path's);
-10. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
+   TCN paper config, its causal cLN variant and the DPT quality default:
+   in f32 the loss within 1e-5, the global gradient within 4e-3, every
+   multi-element leaf correlated >= 0.9999 (a leaf with no correlation,
+   such as an all-zero gradient, fails) and the PReLU slopes within 4e-3
+   as one vector (the TCN's; the DPT has no scalar leaves); in bf16 the
+   loss within 4e-2 and the kernel path's gradient no further from the
+   f32 gradient than max(8e-2, 1.25x the plain bf16 path's);
+11. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
    B=8 x 4 s and the bf16 train step (forward + backward + optimizer) at
-   B=8 x 4 s, kernel path and plain path; the kernel path's train step at
-   B=24 x 4 s; each TCN kernel against its twin per dilation; each DPT
+   B=8 x 4 s, kernel path and plain path, for the paper config and its
+   causal cLN variant; the kernel path's train step at B=24 x 4 s; each
+   TCN kernel against its twin per dilation (kernel 3 causal); each DPT
    kernel, forward and backward, against its twin at [8, 25, 128, 256];
    the DPT forward and the DPT train step at B=8 x 4 s, kernel path and
-   plain path (the step with each path's peak memory); each kernel's
+   plain path (the steps with each path's peak memory); each kernel's
    bound (the larger of its operations at the bf16 tensor-core peak and
    its bytes at the HBM rate).
 
@@ -97,6 +112,9 @@ BWD_TOL = {k: 2 * v for k, v in TOL.items()}  # the train gate, :1148
 # the DPT kernels in f32 differ from their twins only in summation order
 # (<= 4e-7 here); 2e-3 would let erf-GELU for tanh-GELU (~1e-4) through
 DPT_TOL = {"bfloat16": 4e-2, "float32": 1e-5}
+# the stream against the offline plain forward in f32: the same math in
+# another summation order
+STREAM_TOL = 1e-5
 DILATIONS = [2 ** i for i in range(8)]
 # an H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth (at
 # its full 700 W power limit): the floors that bound_ms is taken against
@@ -159,13 +177,16 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernel_vs_twin(torch, tcn):
+def phase_kernel_vs_twin(torch, tcn, norm: str = "gLN",
+                         causal: bool = False):
+    """Kernel 1 against its twin at every dilation, bf16 and f32, for the
+    paper config's gLN (non-causal) or the causal cLN model."""
     worst_abs = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for d in DILATIONS:
             args = block_inputs(torch, dtype, d)
-            kw = dict(dilation=d, causal=False, norm_type="gLN")
+            kw = dict(dilation=d, causal=causal, norm_type=norm)
             got = tcn.fused_tcn_block(*args, **kw)
             torch.cuda.synchronize()
             want = tcn.fused_tcn_block_reference(*args, **kw)
@@ -173,9 +194,9 @@ def phase_kernel_vs_twin(torch, tcn):
             err = rel_l2(got, want)
             abs_err = (got.float() - want.float()).abs().max().item()
             worst_abs = max(worst_abs, abs_err)
-            print(f"kernel vs twin [8,3199,256] H=512 gLN {name} d={d}: "
-                  f"rel_l2 {err:.3e} (bar {TOL[name]:.0e}) "
-                  f"max_abs {abs_err:.3e}", flush=True)
+            print(f"kernel vs twin [8,3199,256] H=512 {norm} causal="
+                  f"{int(causal)} {name} d={d}: rel_l2 {err:.3e} (bar "
+                  f"{TOL[name]:.0e}) max_abs {abs_err:.3e}", flush=True)
             check(torch.isfinite(got).all().item(), f"non-finite kernel "
                   f"output at d={d} {name}")
             check(err <= TOL[name], f"kernel disagrees with its twin at "
@@ -183,8 +204,12 @@ def phase_kernel_vs_twin(torch, tcn):
     return worst_abs
 
 
-def phase_bwd_vs_twin(torch, bwd):
-    """Kernel 2 against its twin on all ten cotangents.
+def phase_bwd_vs_twin(torch, bwd, norm: str = "gLN"):
+    """Kernel 2 (gLN) or kernel 3 (cLN) against its twin on all ten
+    cotangents. gLN: non-causal at every dilation, one causal case and one
+    with a negative second slope; cLN: causal at every dilation,
+    non-causal at d=4 and d=128, and one causal case with a negative
+    second slope.
 
     The first gate is the JAX train gate (``_train_grads_numerics``):
     cotangents of loss = sum(block output), i.e. g = ones, against autograd
@@ -197,8 +222,12 @@ def phase_bwd_vs_twin(torch, bwd):
     bf16 no evaluation lands within the bar of their exact values (the
     bf16 twin's own distance is printed beside the kernel's). Every case
     is run and printed before the phase fails."""
-    cases = ([(d, False, 0.25) for d in DILATIONS]
-             + [(16, True, 0.25), (4, False, -0.1)])
+    if norm == "gLN":
+        cases = ([(d, False, 0.25) for d in DILATIONS]
+                 + [(16, True, 0.25), (4, False, -0.1)])
+    else:
+        cases = ([(d, True, 0.25) for d in DILATIONS]
+                 + [(4, False, 0.25), (128, False, 0.25), (16, True, -0.1)])
     worst_abs, worst_at = 0.0, ""
     failures = []
 
@@ -213,12 +242,11 @@ def phase_bwd_vs_twin(torch, bwd):
         name = str(dtype).split(".")[-1]
         for d, causal, a2 in cases:
             x, *w = block_inputs(torch, dtype, d, a2=a2)
-            kw = dict(dilation=d, causal=causal)
+            kw = dict(dilation=d, causal=causal, norm_type=norm)
             g = torch.ones_like(x)
             got = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
             torch.cuda.synchronize()
-            want = bwd.fused_tcn_block_bwd_reference(x, g, *w,
-                                                     norm_type="gLN", **kw)
+            want = bwd.fused_tcn_block_bwd_reference(x, g, *w, **kw)
             torch.cuda.synchronize()
             for gname, q, r in zip(GRAD_NAMES, got, want):
                 check(q.shape == r.shape and q.dtype == r.dtype,
@@ -238,10 +266,8 @@ def phase_bwd_vs_twin(torch, bwd):
                 device="cuda").manual_seed(2000 + d), device="cuda").to(dtype)
             got = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
             exact = bwd.fused_tcn_block_bwd_reference(
-                x.float(), g.float(), *[t.float() for t in w],
-                norm_type="gLN", **kw)
-            twin = (bwd.fused_tcn_block_bwd_reference(x, g, *w,
-                                                      norm_type="gLN", **kw)
+                x.float(), g.float(), *[t.float() for t in w], **kw)
+            twin = (bwd.fused_tcn_block_bwd_reference(x, g, *w, **kw)
                     if dtype == torch.bfloat16 else exact)
             torch.cuda.synchronize()
             if not all(torch.isfinite(q).all().item() for q in got):
@@ -250,7 +276,7 @@ def phase_bwd_vs_twin(torch, bwd):
             k_err = errors(got, exact)
             held = {n: v for n, v in k_err.items()
                     if dtype == torch.float32 or n not in ("da1", "da2")}
-            print(f"bwd kernel vs twin [8,3199,256] H=512 gLN {name} d={d} "
+            print(f"bwd kernel vs twin [8,3199,256] H=512 {norm} {name} d={d} "
                   f"causal={int(causal)} a2={a2}: gate (g=1) {fmt(gate)}, "
                   f"bar {BWD_TOL[name]:.0e}; random g vs exact: kernel "
                   f"{fmt(k_err)}, held {fmt(held)}, dx {k_err['dx']:.3e}, "
@@ -261,9 +287,9 @@ def phase_bwd_vs_twin(torch, bwd):
                 failures.append(f"g=1 gate at d={d} {name}: {fmt(gate)}")
             if max(held.values()) > BWD_TOL[name]:
                 failures.append(f"random g at d={d} {name}: {fmt(held)}")
-    print(f"bwd kernel vs twin (g=1): max_abs_err {worst_abs:.3e} at "
-          f"{worst_at}", flush=True)
-    check(not failures, "backward kernel disagrees with its twin: "
+    print(f"bwd kernel vs twin {norm} (g=1): max_abs_err {worst_abs:.3e} "
+          f"at {worst_at}", flush=True)
+    check(not failures, f"{norm} backward kernel disagrees with its twin: "
           + "; ".join(failures))
     return worst_abs
 
@@ -290,13 +316,28 @@ def write_corpus(root: str, split: str, n: int, rng, lo_s: float,
                       sig.astype(np.float32), SAMPLE_RATE)
 
 
+def check_wavs(out_dir: str, mix_dir: str) -> None:
+    """Both speakers' wavs of every mixture in ``mix_dir`` written to
+    ``out_dir``: finite, at the sample rate, of the mixture's length."""
+    import numpy as np
+
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+
+    for name in sorted(f for f in os.listdir(mix_dir) if f.endswith(".wav")):
+        T = read_wav(os.path.join(mix_dir, name))[0].shape[0]
+        for c in (1, 2):
+            y, sr = read_wav(os.path.join(
+                out_dir, name.replace(".wav", f"_s{c}.wav")))
+            check(sr == SAMPLE_RATE and y.shape == (T,)
+                  and np.isfinite(y).all(), f"bad separated {name} s{c}")
+
+
 def phase_train_path(torch, tcn, bwd, work: str):
     """``cli preprocess`` + ``cli train`` at the paper config, bf16, the
     kernels forced on; then ``separate`` with the best model."""
     import numpy as np
 
     from convtasnet_tpu_torch import cli
-    from convtasnet_tpu_torch.data.audio_io import read_wav
     from convtasnet_tpu_torch.infer.separate import separate
 
     n_blocks, n_cv = 32, 2
@@ -312,6 +353,7 @@ def phase_train_path(torch, tcn, bwd, work: str):
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
     tcn.fused_tcn_block.launches = 0
     bwd.fused_tcn_block_bwd.launches = 0
+    bwd.fused_tcn_block_bwd.cln_launches = 0
     t0 = time.perf_counter()
     rc = cli.main([
         "train", "--train-dir", os.path.join(json_dir, "tr"),
@@ -337,6 +379,8 @@ def phase_train_path(torch, tcn, bwd, work: str):
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(bwd_n == n_blocks * n_steps,
           f"kernel 2 launched {bwd_n}x, expected {n_blocks} x {n_steps}")
+    check(bwd.fused_tcn_block_bwd.cln_launches == 0,
+          "the gLN model launched kernel 3")
     check(fwd_n == n_blocks * (n_steps + n_cv),
           f"kernel 1 launched {fwd_n}x, expected {n_blocks} x "
           f"({n_steps} steps + {n_cv} cv batches)")
@@ -353,17 +397,201 @@ def phase_train_path(torch, tcn, bwd, work: str):
     check(n == n_cv and sep_launches == n_blocks,
           f"separate with the trained package: {n} utterances, "
           f"{sep_launches} launches")
-    mix_dir = os.path.join(data, "cv", "mix")
-    for name in sorted(f for f in os.listdir(mix_dir) if f.endswith(".wav")):
-        T = read_wav(os.path.join(mix_dir, name))[0].shape[0]
-        for c in (1, 2):
-            y, sr = read_wav(os.path.join(
-                sep_dir, name.replace(".wav", f"_s{c}.wav")))
-            check(sr == SAMPLE_RATE and y.shape == (T,)
-                  and np.isfinite(y).all(), f"bad separated {name} s{c}")
+    check_wavs(sep_dir, os.path.join(data, "cv", "mix"))
     print(f"separate with the trained package: {n} utterances, kernel 1 "
           f"launches {sep_launches} (1 batch)", flush=True)
     return fwd_n, bwd_n, data, json_dir
+
+
+def phase_cln_train_path(torch, tcn, bwd, work: str, data: str,
+                         json_dir: str):
+    """``cli train --norm-type cLN --causal 1`` at the paper widths, bf16,
+    ``--use-pallas 1``, on the corpus ``phase_train_path`` wrote: one epoch
+    of 4 steps at batch 8 and a cv pass. Every loss finite; kernels 1 and 3
+    launched 32 times per step (kernel 2 never), kernel 1 32 times per cv
+    batch. Then the best-model package serves on the card: offline
+    ``separate`` through kernel 1 (32 launches per batch), ``cli separate
+    --streaming 1`` and ``cli stream-demo`` (the plain streaming step, no
+    kernel launch). Returns kernel 3's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+    from convtasnet_tpu_torch.infer.separate import separate
+
+    n_blocks, n_cv = 32, 2
+    out = os.path.join(work, "exp_cln")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    tcn.fused_tcn_block.launches = 0
+    bwd.fused_tcn_block_bwd.launches = 0
+    bwd.fused_tcn_block_bwd.cln_launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main([
+        "train", "--train-dir", os.path.join(json_dir, "tr"),
+        "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder", out,
+        "--device", "cuda", "--norm-type", "cLN", "--causal", "1",
+        "--compute-dtype", "bfloat16", "--use-pallas", "1", "--epochs", "1",
+        "--batch-size", "8", "--print-freq", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd_n = tcn.fused_tcn_block.launches
+    gln_n = bwd.fused_tcn_block_bwd.launches
+    cln_n = bwd.fused_tcn_block_bwd.cln_launches
+    check(rc == 0, f"cli train --norm-type cLN --causal 1 returned {rc}")
+    with open(os.path.join(out, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps = len(losses)
+    print(f"cli train (paper widths, cLN causal, bf16, --use-pallas 1): "
+          f"{n_steps} steps, losses {[round(x, 4) for x in losses]}, cv loss "
+          f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
+          f"kernel 1 launches {fwd_n}, kernel 3 launches {cln_n}, kernel 2 "
+          f"launches {gln_n}, {wall:.1f} s wall", flush=True)
+    check(n_steps == 4, f"{n_steps} train steps, expected 4")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(cln_n == n_blocks * n_steps and gln_n == 0,
+          f"kernel 3 launched {cln_n}x and kernel 2 {gln_n}x, expected "
+          f"{n_blocks} x {n_steps} and 0")
+    check(fwd_n == n_blocks * (n_steps + n_cv),
+          f"kernel 1 launched {fwd_n}x, expected {n_blocks} x "
+          f"({n_steps} steps + {n_cv} cv batches)")
+
+    pkg = os.path.join(out, "final.ckpt")
+    check(os.path.exists(pkg), "no best-model package written")
+    mix_dir = os.path.join(data, "cv", "mix")
+    sep_dir = os.path.join(work, "sep_cln")
+    tcn.fused_tcn_block.launches = 0
+    n = separate(pkg, sep_dir, mix_dir=mix_dir, batch_size=n_cv,
+                 device="cuda")
+    torch.cuda.synchronize()
+    sep_launches = tcn.fused_tcn_block.launches
+    check(n == n_cv and sep_launches == n_blocks,
+          f"separate with the cLN package: {n} utterances, {sep_launches} "
+          f"launches")
+    check_wavs(sep_dir, mix_dir)
+    stream_dir = os.path.join(work, "sep_cln_stream")
+    tcn.fused_tcn_block.launches = 0
+    check(cli.main(["separate", "--model-path", pkg, "--mix-dir", mix_dir,
+                    "--out-dir", stream_dir, "--streaming", "1"]) == 0,
+          "cli separate --streaming 1 failed")
+    check_wavs(stream_dir, mix_dir)
+    wav = os.path.join(mix_dir, sorted(f for f in os.listdir(mix_dir)
+                                       if f.endswith(".wav"))[0])
+    demo_dir = os.path.join(work, "demo_cln")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["stream-demo", "--model-path", pkg, "--wav", wav,
+                       "--out-dir", demo_dir])
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli stream-demo returned {rc}")
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(tcn.fused_tcn_block.launches == 0,
+          "the streaming step launched kernel 1")
+    T = read_wav(wav)[0].shape[0]
+    for c in (1, 2):
+        y, _ = read_wav(os.path.join(demo_dir, os.path.basename(wav).replace(
+            ".wav", f"_s{c}.wav")))
+        check(y.shape == (T,) and np.isfinite(y).all(),
+              f"bad stream-demo output s{c}")
+    print(f"the cLN package on the card: separate {n} utterances (kernel 1 "
+          f"launches {sep_launches}, 1 batch); separate --streaming 1 and "
+          f"stream-demo wrote finite wavs; stream-demo {stats}", flush=True)
+    return cln_n
+
+
+def phase_streaming(torch, tcn, work: str, card: str):
+    """The streaming separator on the card, f32, the paper widths with the
+    causal cLN norm (random weights from seed 0): two seeded 4 s mixtures
+    in chunks of 8 ms rounded down to whole hops (60 samples, 7.5 ms).
+    The stream plus the flush against the offline causal forward on the
+    input left-padded with L - hop zeros: the plain path within STREAM_TOL
+    (the same math in another summation order), the kernel path (32
+    launches of kernel 1) within the forward's f32 bar 2e-3. The stream
+    launches no kernel. Then ``stream_demo`` on one of the mixtures at
+    8 ms: its per-chunk latencies and real-time factor (recorded, not
+    gated), and its wav against the stream."""
+    import numpy as np
+
+    from convtasnet_tpu_torch import ConvTasNetConfig
+    from convtasnet_tpu_torch.data.audio_io import read_wav, write_wav
+    from convtasnet_tpu_torch.infer.stream_demo import stream_demo
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet, init_params
+    from convtasnet_tpu_torch.models.streaming import StreamingSeparator
+    from convtasnet_tpu_torch.train.checkpoint import save_inference_package
+
+    cfg = ConvTasNetConfig(norm_type="cLN", causal=True,
+                           compute_dtype="float32")
+    sd = init_params(cfg, torch.Generator().manual_seed(0))
+    hop, T = cfg.stride, SECONDS * SAMPLE_RATE
+    chunk = int(0.008 * SAMPLE_RATE) // hop * hop
+    Tp = -(-T // chunk) * chunk
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.zeros(2, Tp, device="cuda")
+    x[:, :T] = 0.1 * torch.randn(2, T, generator=gen, device="cuda")
+
+    sep = StreamingSeparator(cfg, sd, batch_size=2, device="cuda")
+    tcn.fused_tcn_block.launches = 0
+    t0 = time.perf_counter()
+    outs = [sep.process(x[:, s:s + chunk]) for s in range(0, Tp, chunk)]
+    outs.append(sep.flush())
+    stream = torch.cat(outs, dim=-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(tcn.fused_tcn_block.launches == 0, "the stream launched kernel 1")
+    pad = torch.nn.functional.pad(x, (cfg.kernel_size - hop, 0))
+    offline = {}
+    for path, flag in (("plain", False), ("kernel", True)):
+        model = ConvTasNet(cfg, use_pallas=flag, device="cuda")
+        model.load_state_dict(sd)
+        model.eval()
+        tcn.fused_tcn_block.launches = 0
+        with torch.inference_mode():
+            offline[path] = model(pad)
+        torch.cuda.synchronize()
+        n = tcn.fused_tcn_block.launches
+        check(n == (32 if flag else 0), f"offline {path} path: {n} launches")
+    check(stream.shape == offline["plain"].shape
+          and torch.isfinite(stream).all().item(),
+          f"stream {tuple(stream.shape)} vs offline "
+          f"{tuple(offline['plain'].shape)}, or non-finite")
+    e_plain = rel_l2(stream, offline["plain"])
+    e_kernel = rel_l2(stream, offline["kernel"])
+    print(f"stream [2 x {SECONDS} s] f32 cLN causal in {chunk}-sample "
+          f"chunks ({Tp // chunk} steps, {wall:.2f} s wall): vs offline "
+          f"plain rel_l2 {e_plain:.3e} (bar {STREAM_TOL:.0e}), vs offline "
+          f"kernel path {e_kernel:.3e} (bar {TOL['float32']:.0e})",
+          flush=True)
+    check(e_plain <= STREAM_TOL, f"stream vs offline plain {e_plain:.3e}")
+    check(e_kernel <= TOL["float32"],
+          f"stream vs offline kernel path {e_kernel:.3e}")
+
+    pkg = os.path.join(work, "cln_f32.pt")
+    save_inference_package(pkg, cfg, sd)
+    wav = os.path.join(work, "stream_mix.wav")
+    write_wav(wav, x[0, :T].cpu().numpy(), SAMPLE_RATE)
+    demo_dir = os.path.join(work, "demo_f32")
+    stats = stream_demo(pkg, wav, chunk_ms=8.0, out_dir=demo_dir,
+                        device="cuda")
+    held = read_wav(wav)[0]
+    sep = StreamingSeparator(cfg, sd, batch_size=1, device="cuda")
+    xs = torch.zeros(1, Tp)
+    xs[0, :T] = torch.from_numpy(held)
+    want = torch.cat([sep.process(xs[:, s:s + chunk]).cpu()
+                      for s in range(0, Tp, chunk)], dim=-1)[0, :, :T]
+    y = torch.from_numpy(np.stack([read_wav(os.path.join(
+        demo_dir, f"stream_mix_s{c}.wav"))[0] for c in (1, 2)]))
+    lsb = 1.0 / 32768.0
+    demo_err = (y - want.clamp(-1.0, 1.0 - lsb)).abs().max().item()
+    print(f"timing [{card}] stream-demo paper widths cLN causal f32, "
+          f"{SECONDS} s wav: {stats}; wav vs stream max_abs {demo_err:.3e} "
+          f"(bar one PCM-16 step {lsb:.3e})", flush=True)
+    check(demo_err <= lsb * 1.001, f"stream-demo wav off the stream by "
+          f"{demo_err:.3e}")
+    return stats
 
 
 def train_batch(torch, M: int, seed: int):
@@ -376,20 +604,24 @@ def train_batch(torch, M: int, seed: int):
             torch.ones(M, device="cuda"))
 
 
-def phase_step_compare(torch, separator: str = "tcn"):
+def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
     """Loss and gradients of one train step, kernel path vs plain path,
     from the same init and batch, for two batch seeds, for the paper
-    config (``separator`` "tcn") or the DPT quality default ("dpt").
+    config (``separator`` "tcn"), its causal cLN variant (``norm`` "cLN")
+    or the DPT quality default ("dpt").
 
     At random init the paper model's gradient is ill-conditioned: in f32
     the plain path against itself with its sums reordered (gradients
     accumulated over 2-row chunks) moves by ~1.3e-3 globally and by 10% on
     the smallest scalar PReLU-slope gradients, and in bf16 either path is
-    ~0.2 from the f32 gradient. So in f32 the loss, the global gradient,
-    the correlation of every multi-element leaf (the JAX whole-model
-    test's criterion) and the slopes as one vector are held; in bf16 the
-    loss, and the kernel path's distance from the f32 gradient against
-    the plain bf16 path's own. The DPT model has no scalar leaves, and its
+    ~0.2 from the f32 gradient. Reordering cannot move a cLN model, whose
+    statistics each span one row, so the plain path also runs on the
+    mixture nudged by one or two f32 rounding steps, which shows how far
+    the model carries a rounding difference. So in f32 the loss, the
+    global gradient, the correlation of every multi-element leaf (the JAX
+    whole-model test's criterion) and the slopes as one vector are held;
+    in bf16 the loss, and the kernel path's distance from the f32 gradient
+    against the plain bf16 path's own. The DPT model has no scalar leaves, and its
     kernel path launches each sublayer's backward kernel. Every reading is
     printed before the phase fails."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
@@ -403,48 +635,65 @@ def phase_step_compare(torch, separator: str = "tcn"):
         tcn_block_bwd,
     )
 
-    bwd_fns = ([dpt_attention.fused_inter_attention_bwd,
-                dpt_intra.fused_intra_attention_bwd, dpt_ffn.fused_ffn_bwd]
-               if separator == "dpt" else [tcn_block_bwd.fused_tcn_block_bwd])
+    # the launch counters of the backward kernels of this model
+    if separator == "dpt":
+        counters = [(f, "launches") for f in (
+            dpt_attention.fused_inter_attention_bwd,
+            dpt_intra.fused_intra_attention_bwd, dpt_ffn.fused_ffn_bwd)]
+    else:
+        counters = [(tcn_block_bwd.fused_tcn_block_bwd,
+                     "cln_launches" if norm == "cLN" else "launches")]
     failures = []
+    label = separator if norm == "gLN" else f"{separator} {norm} causal"
     for seed in (11, 12):
         batch = train_batch(torch, 4, seed)
+        # the mixture with most samples moved by one or two f32 rounding
+        # steps: how far the model itself carries such a difference
+        mix = batch[0]
+        nudged = (mix + mix * 2.0 ** -23 * torch.randn(
+            mix.shape, generator=torch.Generator(device="cuda")
+            .manual_seed(seed), device="cuda"), *batch[1:])
         for dtype in ("float32", "bfloat16"):
-            cfg = ConvTasNetConfig(separator=separator, compute_dtype=dtype)
+            cfg = ConvTasNetConfig(separator=separator, compute_dtype=dtype,
+                                   norm_type=norm, causal=norm == "cLN")
             sd = init_params(cfg, torch.Generator().manual_seed(0))
             res = {}
-            for path, flag, chunk in (("kernel", True, 0),
-                                      ("plain", False, 0),
-                                      ("plain_c2", False, 2)):
+            for path, flag, chunk, b in (("kernel", True, 0, batch),
+                                         ("plain", False, 0, batch),
+                                         ("plain_c2", False, 2, batch),
+                                         ("plain_ulp", False, 0, nudged)):
                 state = ts.create_train_state(cfg, SolverConfig(),
                                               device="cuda", use_pallas=flag,
                                               state_dict=sd)
-                before = [f.launches for f in bwd_fns]
-                loss = float(ts._loss_and_grads(state.model, batch, chunk))
+                before = [getattr(f, a) for f, a in counters]
+                loss = float(ts._loss_and_grads(state.model, b, chunk))
                 torch.cuda.synchronize()
-                if flag and not all(f.launches > b
-                                    for f, b in zip(bwd_fns, before)):
-                    failures.append(f"{separator} {dtype} kernel path "
+                if flag and not all(getattr(f, a) > b for (f, a), b
+                                    in zip(counters, before)):
+                    failures.append(f"{label} {dtype} kernel path "
                                     "launched no backward kernel")
                 res[path] = (loss, {n: p.grad.detach().float().clone()
                                     for n, p in
                                     state.model.named_parameters()})
                 del state
-            (lk, gk), (lp, gp), (_, gc) = (res[k] for k in
-                                           ("kernel", "plain", "plain_c2"))
+            (lk, gk), (lp, gp), (_, gc), (_, gu) = (
+                res[k] for k in ("kernel", "plain", "plain_c2", "plain_ulp"))
             flat = {k: torch.cat([g.reshape(-1) for g in v.values()])
-                    for k, v in (("kernel", gk), ("plain", gp), ("c2", gc))}
+                    for k, v in (("kernel", gk), ("plain", gp), ("c2", gc),
+                                 ("ulp", gu))}
             if not all(torch.isfinite(v).all().item() for v in flat.values()):
                 failures.append(f"non-finite gradients ({dtype}, seed {seed})")
             loss_rel = abs(lk - lp) / abs(lp)
             global_err = rel_l2(flat["kernel"], flat["plain"])
-            head = (f"train step {separator} {dtype} B=4x{SECONDS}s seed "
+            head = (f"train step {label} {dtype} B=4x{SECONDS}s seed "
                     f"{seed} kernel "
                     f"vs plain: loss {lk:.6f} vs {lp:.6f} (rel "
                     f"{loss_rel:.3e}), global gradient rel_l2 "
                     f"{global_err:.3e} (plain vs itself reordered "
-                    f"{rel_l2(flat['c2'], flat['plain']):.3e})")
-            at = f"{separator} {dtype} seed {seed}"
+                    f"{rel_l2(flat['c2'], flat['plain']):.3e}, with the "
+                    f"mixture nudged by one rounding step "
+                    f"{rel_l2(flat['ulp'], flat['plain']):.3e})")
+            at = f"{label} {dtype} seed {seed}"
             if dtype == "float32":
                 f32_grads = flat["plain"]
                 multi = [n for n in gp if gp[n].numel() > 1]
@@ -803,10 +1052,7 @@ def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     kernels and of their backward kernels; the cv batches run the forwards
     only; then ``separate`` with the best-model package on the card.
     Returns the backward kernels' launches."""
-    import numpy as np
-
     from convtasnet_tpu_torch import cli
-    from convtasnet_tpu_torch.data.audio_io import read_wav
     from convtasnet_tpu_torch.infer.separate import separate
 
     cfg = dpt_config()
@@ -860,13 +1106,7 @@ def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     check(n == n_cv and sep == per_step,
           f"separate with the trained DPT package: {n} utterances, "
           f"launches {sep}")
-    for name in sorted(f for f in os.listdir(mix_dir) if f.endswith(".wav")):
-        T = read_wav(os.path.join(mix_dir, name))[0].shape[0]
-        for c in (1, 2):
-            y, sr = read_wav(os.path.join(
-                sep_dir, name.replace(".wav", f"_s{c}.wav")))
-            check(sr == SAMPLE_RATE and y.shape == (T,)
-                  and np.isfinite(y).all(), f"bad separated {name} s{c}")
+    check_wavs(sep_dir, mix_dir)
     print(f"separate with the trained DPT package: {n} utterances, "
           f"launches {sep} (1 batch)", flush=True)
     return bwd
@@ -885,7 +1125,6 @@ def phase_dpt_serving(torch, dpt, work: str):
     import numpy as np
 
     from convtasnet_tpu_torch import cli
-    from convtasnet_tpu_torch.data.audio_io import read_wav
     from convtasnet_tpu_torch.models.conv_tasnet import init_params
     from convtasnet_tpu_torch.train.checkpoint import save_inference_package
 
@@ -910,13 +1149,7 @@ def phase_dpt_serving(torch, dpt, work: str):
     n_fwd = -(-n_utt // batch)
     want = {"inter": cfg.dpt_layers * n_fwd, "intra": cfg.dpt_layers * n_fwd,
             "ffn": 2 * cfg.dpt_layers * n_fwd}
-    for name in sorted(f for f in os.listdir(mix_dir) if f.endswith(".wav")):
-        T = read_wav(os.path.join(mix_dir, name))[0].shape[0]
-        for c in (1, 2):
-            y, sr = read_wav(os.path.join(out_dir,
-                                          name.replace(".wav", f"_s{c}.wav")))
-            check(sr == SAMPLE_RATE and y.shape == (T,)
-                  and np.isfinite(y).all(), f"bad separated {name} s{c}")
+    check_wavs(out_dir, mix_dir)
     print(f"cli separate, DPT package bf16: {n_utt} utterances in {n_fwd} "
           f"batches, launches {sep_counts} (expected {want})", flush=True)
     check(sep_counts == want, f"cli separate launched {sep_counts}")
@@ -988,6 +1221,20 @@ def dpt_bwd_work(kind: str, tensors, grads) -> tuple:
         return 5 * 2 * R * B * tensors[4].shape[1], nbytes
     keys = x.shape[2] if kind == "intra" else x.shape[1]
     return 11 * 2 * R * B * B + 6 * 2 * R * keys * B, nbytes
+
+
+def tcn_bwd_work(args, g, grads) -> tuple:
+    """(flops, bytes) one block backward (kernel 2 or 3) needs on these
+    inputs (x and the nine weights in ``args``, the cotangent g), counted
+    product by product at 2 FLOP per multiply-add: x W_in recomputed,
+    g W_out^T, hn2^T g, dh_pre W_in^T and x^T dh_pre, five of 2 M K B H;
+    and the depthwise conv recomputed, its transpose and d_dw, three of
+    2 M K H P. Every input read once and every cotangent written once."""
+    x, dw = args[0], args[2]
+    M, K, B = x.shape
+    P, H = dw.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, g, *grads))
+    return 5 * 2 * M * K * B * H + 3 * 2 * M * K * H * P, nbytes
 
 
 def time_in_turns(torch, fns: dict, iters: int) -> dict:
@@ -1100,17 +1347,19 @@ def phase_timings(torch, tcn, bwd, card: str):
               f"forward kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
               f"backward kernel {kb_ms:.4f} ms, twin {pb_ms:.4f} ms",
               flush=True)
-    # the floors: the two products (five in the backward) and the
-    # depthwise conv (three passes in the backward); x, the weights and g
-    # read once, the output (dx and the ten gradients) written once
+    # the floors: the two products and the depthwise conv of the forward,
+    # x and the weights read once and the output written once; the
+    # backward's by tcn_bwd_work
     x, dw = args[0], args[2]
     M, K, B = x.shape
     P, H = dw.shape
     prod, conv = 2 * M * K * B * H, 2 * M * K * H * P
     in_bytes = sum(t.numel() * t.element_size() for t in args)
     x_bytes = x.numel() * x.element_size()
+    grads = bwd.fused_tcn_block_bwd(args[0], g, *args[1:], dilation=1,
+                                    causal=False)
     bounds = (kernel_bound(2 * prod + conv, in_bytes + x_bytes),
-              kernel_bound(5 * prod + 3 * conv, 2 * in_bytes + x_bytes))
+              kernel_bound(*tcn_bwd_work(args, g, grads)))
     means = [statistics.mean(v[i] for v in per_block.values())
              for i in range(4)]
     for (ms, name), (bound_ms, by) in zip(((means[0], "forward"),
@@ -1118,6 +1367,49 @@ def phase_timings(torch, tcn, bwd, card: str):
         print(f"bound [{card}] block {name} [8,3199,256] H=512 bf16: "
               f"{bound_ms:.4f} ms ({by}); kernel {ms:.4f} ms", flush=True)
     return means, bounds
+
+
+def phase_cln_timings(torch, bwd, card: str):
+    """Kernel 3 against its twin, bf16, causal, [8, 3199, 256] H=512, at
+    every dilation in turns (twin, kernel, kernel, twin), with its bound,
+    and kernel 1's cLN forward beside it; then the bf16 causal cLN train
+    step at B=8 x 4 s, kernel path against plain path, with each path's
+    peak memory. Returns (mean kernel ms, mean twin ms, (bound_ms,
+    bound_by))."""
+    from convtasnet_tpu_torch import ConvTasNetConfig
+    from convtasnet_tpu_torch.ops.cuda import tcn_block as tcn
+
+    kernel, plain, fwd = [], [], []
+    for d in DILATIONS:
+        args = block_inputs(torch, torch.bfloat16, d)
+        g = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
+        kw = dict(dilation=d, causal=True, norm_type="cLN")
+        with torch.inference_mode():
+            fwd.append(time_ms(torch, lambda: tcn.fused_tcn_block(*args, **kw),
+                               20))
+        t = time_in_turns(torch, {
+            "kernel": lambda: bwd.fused_tcn_block_bwd(args[0], g, *args[1:],
+                                                      **kw),
+            "plain": lambda: bwd.fused_tcn_block_bwd_reference(
+                args[0], g, *args[1:], **kw)}, 10)
+        (k_ms, runs), (p_ms, _) = t["kernel"], t["plain"]
+        kernel.append(k_ms)
+        plain.append(p_ms)
+        print(f"timing [{card}] block [8,3199,256] H=512 cLN causal bf16 "
+              f"d={d}: forward kernel 1 {fwd[-1]:.4f} ms; backward kernel 3 "
+              f"{k_ms:.4f} ms (runs {[round(r, 4) for r in runs]}), twin "
+              f"{p_ms:.4f} ms", flush=True)
+    grads = bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    bound = kernel_bound(*tcn_bwd_work(args, g, grads))
+    means = (statistics.mean(kernel), statistics.mean(plain))
+    print(f"bound [{card}] block backward cLN [8,3199,256] H=512 bf16: "
+          f"{bound[0]:.4f} ms ({bound[1]}); kernel 3 {means[0]:.4f} ms, "
+          f"twin {means[1]:.4f} ms; kernel 1 cLN forward "
+          f"{statistics.mean(fwd):.4f} ms (means over d)", flush=True)
+    cfg = ConvTasNetConfig(compute_dtype="bfloat16", norm_type="cLN",
+                           causal=True)
+    phase_train_timings(torch, cfg, card, "tcn cLN causal", big_batch=False)
+    return means[0], means[1], bound
 
 
 def phase_train_timings(torch, cfg, card: str, label: str,
@@ -1194,22 +1486,29 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s -> {build.library_path().name}",
           flush=True)
 
-    max_abs = phase_kernel_vs_twin(torch, tcn)
+    max_abs = max(phase_kernel_vs_twin(torch, tcn),
+                  phase_kernel_vs_twin(torch, tcn, "cLN", causal=True))
     max_abs_bwd = phase_bwd_vs_twin(torch, bwd)
+    max_abs_cln = phase_bwd_vs_twin(torch, bwd, "cLN")
     max_abs_dpt = phase_dpt_kernels_vs_twin(torch, dpt)
     max_abs_dpt_bwd = phase_dpt_bwd_vs_twin(torch, dpt)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_main_path(torch, tcn, work)
         fwd_launches, bwd_launches, data, json_dir = phase_train_path(
             torch, tcn, bwd, work)
+        cln_launches = phase_cln_train_path(torch, tcn, bwd, work, data,
+                                            json_dir)
         phase_dpt_forward(torch, dpt)
         dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
         dpt_launches_bwd = phase_dpt_train_path(torch, dpt, work, data,
                                                 json_dir)
+        phase_streaming(torch, tcn, work, card)
     phase_step_compare(torch, "tcn")
+    phase_step_compare(torch, "tcn", "cLN")
     phase_step_compare(torch, "dpt")
     (k_ms, p_ms, kb_ms, pb_ms), (fwd_bound, bwd_bound) = phase_timings(
         torch, tcn, bwd, card)
+    cln_ms, cln_plain_ms, cln_bound = phase_cln_timings(torch, bwd, card)
     dpt_times, dpt_bwd_times = phase_dpt_timings(torch, dpt, card)
 
     lines = [
@@ -1217,7 +1516,10 @@ def main() -> int:
                     fwd_launches, max_abs, k_ms, p_ms, fwd_bound),
         kernel_line("tcn_block_bwd", "tcn_block_bwd.cu",
                     "tcn_block_bwd.py:74", bwd_launches, max_abs_bwd, kb_ms,
-                    pb_ms, bwd_bound)]
+                    pb_ms, bwd_bound),
+        kernel_line("tcn_block_bwd_cln", "tcn_block_bwd.cu",
+                    "tcn_block_bwd.py:325", cln_launches, max_abs_cln, cln_ms,
+                    cln_plain_ms, cln_bound)]
     for kind, source, replaces in (
             ("inter", "dpt_attention.cu", "dpt_attention.py:62"),
             ("intra", "dpt_intra.cu", "dpt_intra.py:53"),

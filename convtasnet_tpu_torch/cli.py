@@ -7,6 +7,8 @@
         --mix-dir DIR --out-dir OUT [--device cuda]
     python -m convtasnet_tpu_torch.cli evaluate --model-path PKG \\
         --data-dir JSON/tt [--cal-sdr 1] [--device cuda]
+    python -m convtasnet_tpu_torch.cli stream-demo --model-path PKG \\
+        --wav MIX.wav [--chunk-ms 8] [--device cuda]
 
 Each subcommand takes the JAX package's flags (``convtasnet_tpu/cli.py``)
 plus ``--device`` (default ``cuda``; it raises when CUDA is absent, and
@@ -14,7 +16,9 @@ plus ``--device`` (default ``cuda``; it raises when CUDA is absent, and
 its meaning: -1 runs the CUDA kernels on a CUDA device, 1 insists on them,
 0 runs the plain ops. ``train`` trains either separator family, the TCN
 or the dual-path one (``--separator dpt``); ``separate`` and ``evaluate``
-take the model from the package. Flags of what is not ported yet raise and
+take the model from the package; ``separate --streaming 1`` and
+``stream-demo`` run a causal cLN or BN package through the streaming
+separator. Flags of what is not ported yet raise and
 name the ROADMAP item.
 """
 
@@ -230,6 +234,16 @@ def cmd_evaluate(a) -> int:
     return 0
 
 
+def cmd_stream_demo(a) -> int:
+    import json
+
+    from convtasnet_tpu_torch.infer.stream_demo import stream_demo
+
+    print(json.dumps(stream_demo(a.model_path, a.wav, a.chunk_ms, a.out_dir,
+                                 realtime=bool(a.realtime), device=a.device)))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="convtasnet-tpu-torch",
@@ -287,7 +301,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--sample-rate", type=int, default=8000)
     p.add_argument("--streaming", type=int, default=0,
-                   help="chunk-by-chunk causal streaming (not ported yet)")
+                   help="chunk-by-chunk causal streaming (a causal cLN or "
+                        "BN package)")
     p.add_argument("--chunk-seconds", type=float, default=0.5)
     p.add_argument("--sequence-parallel", type=int, default=0,
                    help="shard each mixture's time axis (not ported yet)")
@@ -305,6 +320,18 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda raises when CUDA is absent")
     p.set_defaults(fn=cmd_separate)
+
+    p = sub.add_parser("stream-demo",
+                       help="real-time chunked separation with latency stats")
+    p.add_argument("--model-path", required=True,
+                   help="causal (cLN or BN) package")
+    p.add_argument("--wav", required=True)
+    p.add_argument("--chunk-ms", type=float, default=8.0)
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--realtime", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda raises when CUDA is absent")
+    p.set_defaults(fn=cmd_stream_demo)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,32 +1,34 @@
-// Backward of one Conv-TasNet TCN block with gLN, for Hopper (sm_90a), bf16
-// or f32.
+// Backward of one Conv-TasNet TCN block with gLN (kernel B2) or cLN (kernel
+// B3), for Hopper (sm_90a), bf16 or f32.
 //
-// Replaces convtasnet_tpu/ops/pallas/tcn_block_bwd.py::_bwd_kernel (wrapper
-// fused_tcn_block_bwd). From the block input x and the cotangent g of the
-// block output it returns dx and every weight gradient, recomputing the
-// forward's intermediates from x (only x is saved, as jax.checkpoint does):
+// Replaces convtasnet_tpu/ops/pallas/tcn_block_bwd.py::_bwd_kernel (gLN) and
+// ::_bwd_kernel_cln (cLN), both behind fused_tcn_block_bwd. From the block
+// input x and the cotangent g of the block output it returns dx and every
+// weight gradient, recomputing the forward's intermediates from x (only x is
+// saved, as jax.checkpoint does):
 //
-//   hp = x @ W_in;  h1 = PReLU_a1(hp);  hn1 = gLN1(h1)
-//   c  = depthwise_dilated_conv(hn1);   h2 = PReLU_a2(c);  hn2 = gLN2(h2)
+//   hp = x @ W_in;  h1 = PReLU_a1(hp);  hn1 = norm1(h1)
+//   c  = depthwise_dilated_conv(hn1);   h2 = PReLU_a2(c);  hn2 = norm2(h2)
 //   out = x + hn2 @ W_out
 //
 // What bounds it on the card. At the paper shape (M=8, K=3199, B=256,
 // H=512) the five products (x W_in, g W_out^T, hn2^T g, dh_pre W_in^T,
 // x^T dh_pre) are ~33 GFLOP, and the [K,H] intermediates are ~26 MB each
-// per pass in bf16. The Pallas kernel keeps one sample's [K,H] activations
-// in VMEM across six passes; an SM has 227 KB of shared memory, so here
-// every intermediate lives in device memory and each gLN statistic or
-// backward reduction that spans a whole sample ends a launch:
+// per pass in bf16. The Pallas kernels keep one sample's [K,H] activations
+// in VMEM across their passes; an SM has 227 KB of shared memory, so here
+// every intermediate lives in device memory and each norm statistic or
+// backward reduction that spans a whole sample (gLN) or a whole row of H
+// channels (cLN) ends a launch:
 //
 //   T   W_in^T and W_out^T in the compute dtype (the GEMM tile reads its B
 //       operand row-major), once per call.
 //   R1  hp = x @ W_in (pre-activation, kept: a slope may be <= 0, so
-//       PReLU cannot be inverted), partials of gLN1's sums.       | F1 stats
-//   R2  c = dwconv(gLN1(PReLU(hp))) (pre-activation), partials.   | F2 stats
+//       PReLU cannot be inverted), partials of norm1's sums.     | F1 stats
+//   R2  c = dwconv(norm1(PReLU(hp))) (pre-activation), partials. | F2 stats
 //       R1 and R2 are the forward's launches A and B
 //       (tcn_block_common.cuh) with kPre set, so the statistics follow the
 //       forward's rule.
-//   G1  e = g @ W_out^T; hn2 = gLN2(PReLU(c)) for dW_out; partials of
+//   G1  e = g @ W_out^T; hn2 = norm2(PReLU(c)) for dW_out; partials of
 //       t1 = sum g2*e, t2 = sum g2*e*hhat2; per-channel dg2, db2. | F3
 //   E1  dc = rs2*(g2*e - t1/n - hhat2*t2/n) * PReLU'(c) over e in place;
 //       per-channel da2 partials of dh2*min(c,0).
@@ -40,9 +42,24 @@
 //       tile, and a second launch adds the chunks in a fixed order.
 //   S   per-channel partials summed in a fixed order, then da1, da2.
 //
+// gLN and cLN differ only in what a statistic spans, so every launch is a
+// template on the norm. gLN: the sums of F1-F4 run over a sample's K*H
+// elements (n = K*H), one (mean, rs, t1, t2, u1, u2) per sample. cLN: they
+// run over one row's H channels (n = H), one set per row. A block of the
+// GEMM launches sees 64 channels of a row and one of the depthwise launches
+// 256, so each writes per-row partials per column tile (warp sums, added
+// across the block's warps in a fixed order), and a row-finalize launch
+// (finalize_rows_kernel) adds a row's partials in a fixed order into
+// [M*K, kNumStats] per-row statistics that the next launches read. F1 and
+// F2 take B1's row rule (row_stats: E[h^2]-mean^2 in double over its
+// partials, rsqrt in f32, eps 1e-8) on the very partials B1 writes, so B1
+// and B3 share their cLN statistics bit for bit. The causal halo needs no
+// fill: a tap outside [0,K) is skipped, as in B1's launch B, so no
+// statistic of a row outside the sample is ever read.
+//
 // As in the forward, nothing is summed with atomics: every tile writes its
 // partial and a later launch adds them in a fixed order (in double), so two
-// runs give the same bits. The gLN statistics are the forward's, taken over
+// runs give the same bits. The statistics are the forward's, taken over
 // the f32 PReLU outputs before rounding; the later passes normalise the
 // stored compute-dtype values with them, as the forward's launches B and C
 // do. Rows at or beyond K add nothing to any sum. The products are the
@@ -58,7 +75,7 @@ namespace {
 // one channel per thread, kDwRows rows per block, grid (ceil(K/kDwRows),
 // ceil(H/kDwThreads), M).
 
-// Per-sample scalars, [M, kNumStats].
+// Statistics per sample (gLN) or per row (cLN), [M or M*K, kNumStats].
 enum { kMean1, kRs1, kMean2, kRs2, kT1, kT2, kU1, kU2, kNumStats };
 
 struct BwdParams {
@@ -79,12 +96,13 @@ struct BwdParams {
   void* hp;            // [M, K, H] x @ W_in
   void* c;             // [M, K, H] dwconv output, pre-activation
   void* e;             // [M, K, H] g @ W_out^T, then dc
-  void* hn2;           // [M, K, H] gLN2 output
+  void* hn2;           // [M, K, H] norm2 output
   void* dh;            // [M, K, H] dhn1, then dh_pre
   // f32 workspace
-  float* stats;        // [M, kNumStats]
-  float* part;         // [M, n_part, 2] (sum, sum) partials of one pass
-  float* part2;        // [M, n_dw, 2] R2's partials (R2 reads R1's in part)
+  float* stats;        // [M, kNumStats] (gLN) or [M * K, kNumStats] (cLN)
+  float* part;         // (sum, sum) partials of one pass: [M, n_part, 2]
+                       // (gLN) or [M * K, H / kBN, 2] (cLN)
+  float* part2;        // R2's partials (R2 reads R1's in part)
   float* pch_g1;       // [M * kt, 2, H]: dg2, db2
   float* pch_e1;       // [M * rt, H]: da2
   float* pch_e2;       // [M * rt, P + 2, H]: d_dw[0..P-1], dg1, db1
@@ -98,11 +116,26 @@ struct BwdParams {
   int M, K, B, H, P, dilation, left;
 };
 
-// Where a block's (sum, sum) partial of a per-sample reduction goes.
+// The statistics row k of sample m reads.
+template <int kNorm>
+__device__ __forceinline__ const float* stat_row(const BwdParams& p, int m,
+                                                 int k) {
+  const size_t i = kNorm == kNormCLN ? static_cast<size_t>(m) * p.K + k
+                                     : static_cast<size_t>(m);
+  return p.stats + i * kNumStats;
+}
+
+// Where a block's (sum, sum) partial of a per-sample reduction goes (gLN).
 __device__ __forceinline__ float* part_slot(float* part, int m) {
   const size_t n = static_cast<size_t>(gridDim.x) * gridDim.y;
   return part + 2 * (m * n + static_cast<size_t>(blockIdx.x) * gridDim.y +
                      blockIdx.y);
+}
+
+// Where row k's (sum, sum) partial of column tile blockIdx.y goes (cLN).
+__device__ __forceinline__ float* row_slot(float* part, int K, int m, int k) {
+  return part +
+         2 * ((static_cast<size_t>(m) * K + k) * gridDim.y + blockIdx.y);
 }
 
 // F: per-sample scalars from one pass's partials (grid M). mode 0: the gLN
@@ -136,25 +169,51 @@ __global__ void finalize_kernel(const float* __restrict__ part, int n_part,
   }
 }
 
-// G1: e = g @ W_out^T, hn2, and the gLN2 backward sums.
+// F, cLN: per-row scalars from n_part partials per row, one thread per row
+// of the M*K. mode 0: the cLN mean and rs by the forward's row_stats;
+// mode 1: the two sums divided by H.
+__global__ void finalize_rows_kernel(const float* __restrict__ part,
+                                     int n_part, int rows, int H,
+                                     float* __restrict__ stats, int slot,
+                                     int mode) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* pr = part + 2 * static_cast<size_t>(r) * n_part;
+  float* st = stats + static_cast<size_t>(r) * kNumStats;
+  if (mode == 0) {
+    row_stats(pr, n_part, H, &st[slot], &st[slot + 1]);
+    return;
+  }
+  double s1 = 0.0, s2 = 0.0;
+  for (int j = 0; j < n_part; ++j) {
+    s1 += pr[2 * j];
+    s2 += pr[2 * j + 1];
+  }
+  st[slot] = static_cast<float>(s1 / H);
+  st[slot + 1] = static_cast<float>(s2 / H);
+}
+
+// G1: e = g @ W_out^T, hn2, and the norm2 backward sums.
 // Grid (ceil(K/kBM), H/kBN, M). Thread t owns column t % 64 of the tile and
-// every other row from t / 64, so its per-channel sums need no shuffle.
-template <typename T>
+// every other row from t / 64, so its per-channel sums need no shuffle; a
+// row's (cLN) is the sum of two warps' shuffles.
+template <typename T, int kNorm>
 __global__ void __launch_bounds__(kGemmThreads) g1_kernel(BwdParams p) {
   using S = GemmSmem<T>;
   __shared__ S s;
   __shared__ float s_col[2][2][kBN];
+  __shared__ float s_row[2][kGemmThreads / 32][kBM];
   const int m = blockIdx.z;
   const int r0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const int K = p.K, H = p.H;
   const T* g = static_cast<const T*>(p.g) + static_cast<size_t>(m) * K * p.B;
   gemm_tile<T>(g, static_cast<const T*>(p.w_out_t), K, p.B, H, r0, n0, s);
-  const float* st = p.stats + static_cast<size_t>(m) * kNumStats;
-  const float mean2 = st[kMean2], rs2 = st[kRs2];
   const float a2 = *p.a2;
   const int col = threadIdx.x % kBN;
   const int half = threadIdx.x / kBN;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int ch = n0 + col;
   const float gam = p.g2[ch], bet = p.b2[ch];
   const T* c = static_cast<const T*>(p.c) + static_cast<size_t>(m) * K * H;
@@ -162,24 +221,45 @@ __global__ void __launch_bounds__(kGemmThreads) g1_kernel(BwdParams p) {
   T* hn2 = static_cast<T*>(p.hn2) + static_cast<size_t>(m) * K * H;
   float t1 = 0.f, t2 = 0.f, dg = 0.f, db = 0.f;
   for (int r = half; r < kBM && r0 + r < K; r += 2) {
+    const float* st = stat_row<kNorm>(p, m, r0 + r);
     const size_t idx = static_cast<size_t>(r0 + r) * H + ch;
     const float ev = round_to<T>(s.c[r * S::kLdC + col]);
-    const float hh = (prelu(to_f<T>(c[idx]), a2) - mean2) * rs2;
+    const float hh = (prelu(to_f<T>(c[idx]), a2) - st[kMean2]) * st[kRs2];
     e[idx] = from_f<T>(ev);
     hn2[idx] = from_f<T>(gam * hh + bet);
-    t1 += gam * ev;
-    t2 += gam * ev * hh;
     dg += ev * hh;
     db += ev;
+    if constexpr (kNorm == kNormCLN) {
+      const float w1 = warp_sum(gam * ev);
+      const float w2 = warp_sum(gam * ev * hh);
+      if (lane == 0) {
+        s_row[0][warp][r] = w1;
+        s_row[1][warp][r] = w2;
+      }
+    } else {
+      t1 += gam * ev;
+      t2 += gam * ev * hh;
+    }
   }
   s_col[0][half][col] = dg;
   s_col[1][half][col] = db;
-  block_sum2(t1, t2);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float* dst = part_slot(p.part, m);
-    dst[0] = t1;
-    dst[1] = t2;
+  if constexpr (kNorm == kNormCLN) {
+    __syncthreads();
+    const int r = threadIdx.x;
+    if (r < kBM && r0 + r < K) {
+      const int w = 2 * (r & 1);   // the two warps of row r's half
+      float* dst = row_slot(p.part, K, m, r0 + r);
+      dst[0] = s_row[0][w][r] + s_row[0][w + 1][r];
+      dst[1] = s_row[1][w][r] + s_row[1][w + 1][r];
+    }
+  } else {
+    block_sum2(t1, t2);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float* dst = part_slot(p.part, m);
+      dst[0] = t1;
+      dst[1] = t2;
+    }
   }
   if (threadIdx.x < kBN) {
     float* dst = p.pch_g1 +
@@ -191,57 +271,63 @@ __global__ void __launch_bounds__(kGemmThreads) g1_kernel(BwdParams p) {
 }
 
 // E1: dc = dh2 * PReLU'(c) over e in place, and per-channel da2 partials.
-template <typename T>
+template <typename T, int kNorm>
 __global__ void __launch_bounds__(kDwThreads) e1_kernel(BwdParams p) {
   const int m = blockIdx.z;
   const int r0 = blockIdx.x * kDwRows;
   const int ch = blockIdx.y * kDwThreads + threadIdx.x;
   const int K = p.K, H = p.H;
   if (ch >= H) return;
-  const float* st = p.stats + static_cast<size_t>(m) * kNumStats;
-  const float mean2 = st[kMean2], rs2 = st[kRs2], t1 = st[kT1], t2 = st[kT2];
   const float a2 = *p.a2;
   const float gam = p.g2[ch];
   const T* c = static_cast<const T*>(p.c) + static_cast<size_t>(m) * K * H;
   T* e = static_cast<T*>(p.e) + static_cast<size_t>(m) * K * H;
   float da2 = 0.f;
   for (int i = 0; i < kDwRows && r0 + i < K; ++i) {
+    const float* st = stat_row<kNorm>(p, m, r0 + i);
+    const float rs2 = st[kRs2];
     const size_t idx = static_cast<size_t>(r0 + i) * H + ch;
     const float cv = to_f<T>(c[idx]);
-    const float hh = (prelu(cv, a2) - mean2) * rs2;
-    const float dh2 = rs2 * (gam * to_f<T>(e[idx]) - t1 - hh * t2);
+    const float hh = (prelu(cv, a2) - st[kMean2]) * rs2;
+    const float dh2 =
+        rs2 * (gam * to_f<T>(e[idx]) - st[kT1] - hh * st[kT2]);
     da2 += dh2 * fminf(cv, 0.f);
     e[idx] = from_f<T>(cv >= 0.f ? dh2 : a2 * dh2);
   }
   p.pch_e1[(static_cast<size_t>(m) * gridDim.x + blockIdx.x) * H + ch] = da2;
 }
 
-// E2: the transposed dilated conv dhn1, d_dw, dg1/db1 and the gLN1
+// E2: the transposed dilated conv dhn1, d_dw, dg1/db1 and the norm1
 // backward sums.
-template <typename T>
+template <typename T, int kNorm>
 __global__ void __launch_bounds__(kDwThreads) e2_kernel(BwdParams p) {
+  __shared__ float s_row[2][kDwThreads / 32][kDwRows];
   const int m = blockIdx.z;
   const int r0 = blockIdx.x * kDwRows;
   const int ch = blockIdx.y * kDwThreads + threadIdx.x;
   const int K = p.K, H = p.H, P = p.P, d = p.dilation, left = p.left;
-  const float* st = p.stats + static_cast<size_t>(m) * kNumStats;
-  const float mean1 = st[kMean1], rs1 = st[kRs1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool active = ch < H;
   const float a1 = *p.a1;
   const T* hp = static_cast<const T*>(p.hp) + static_cast<size_t>(m) * K * H;
   const T* dc = static_cast<const T*>(p.e) + static_cast<size_t>(m) * K * H;
   const T* dw = static_cast<const T*>(p.dw);
   T* dhn1 = static_cast<T*>(p.dh) + static_cast<size_t>(m) * K * H;
-  float u1 = 0.f, u2 = 0.f;
-  if (ch < H) {
-    const float gam = p.g1[ch];
-    const float sc = rs1 * gam;              // hn1 = h1 * sc + sh
-    const float sh = p.b1[ch] - mean1 * sc;
-    float ddw[kMaxTaps];
-    for (int q = 0; q < P; ++q) ddw[q] = 0.f;
-    float dg = 0.f, db = 0.f;
-    for (int i = 0; i < kDwRows; ++i) {
-      const int j = r0 + i;
-      if (j >= K) break;
+  const float gam = active ? p.g1[ch] : 0.f;
+  const float bet = active ? p.b1[ch] : 0.f;
+  // gLN: hn1 = h1 * sc + sh for every row of the sample
+  const float* st_m = stat_row<kNorm>(p, m, 0);
+  const float sc = st_m[kRs1] * gam;
+  const float sh = bet - st_m[kMean1] * sc;
+  float ddw[kMaxTaps];
+  for (int q = 0; q < P; ++q) ddw[q] = 0.f;
+  float u1 = 0.f, u2 = 0.f, dg = 0.f, db = 0.f;
+  for (int i = 0; i < kDwRows; ++i) {
+    const int j = r0 + i;
+    if (j >= K) break;
+    float dn = 0.f, hh = 0.f;
+    if (active) {
       const float dcj = to_f<T>(dc[static_cast<size_t>(j) * H + ch]);
       float acc = 0.f;
       for (int q = 0; q < P; ++q) {
@@ -250,57 +336,91 @@ __global__ void __launch_bounds__(kDwThreads) e2_kernel(BwdParams p) {
           acc = fmaf(to_f<T>(dw[q * H + ch]),
                      to_f<T>(dc[static_cast<size_t>(kk) * H + ch]), acc);
         const int kh = j + q * d - left;   // input row tap q of j read
-        if (kh >= 0 && kh < K)
-          ddw[q] = fmaf(dcj,
-                        prelu(to_f<T>(hp[static_cast<size_t>(kh) * H + ch]),
-                              a1) * sc + sh,
-                        ddw[q]);
+        if (kh >= 0 && kh < K) {
+          const float h1 =
+              prelu(to_f<T>(hp[static_cast<size_t>(kh) * H + ch]), a1);
+          float hn;
+          if constexpr (kNorm == kNormCLN) {
+            const float* sk = stat_row<kNorm>(p, m, kh);
+            hn = (h1 - sk[kMean1]) * sk[kRs1] * gam + bet;
+          } else {
+            hn = h1 * sc + sh;
+          }
+          ddw[q] = fmaf(dcj, hn, ddw[q]);
+        }
       }
       dhn1[static_cast<size_t>(j) * H + ch] = from_f<T>(acc);
-      const float dn = round_to<T>(acc);
-      const float hh =
-          (prelu(to_f<T>(hp[static_cast<size_t>(j) * H + ch]), a1) - mean1) *
-          rs1;
-      u1 += gam * dn;
-      u2 += gam * dn * hh;
+      dn = round_to<T>(acc);
+      const float* sj = stat_row<kNorm>(p, m, j);
+      hh = (prelu(to_f<T>(hp[static_cast<size_t>(j) * H + ch]), a1) -
+            sj[kMean1]) * sj[kRs1];
       dg += dn * hh;
       db += dn;
     }
+    if constexpr (kNorm == kNormCLN) {
+      const float w1 = warp_sum(gam * dn);
+      const float w2 = warp_sum(gam * dn * hh);
+      if (lane == 0) {
+        s_row[0][warp][i] = w1;
+        s_row[1][warp][i] = w2;
+      }
+    } else {
+      u1 += gam * dn;
+      u2 += gam * dn * hh;
+    }
+  }
+  if (active) {
     float* dst = p.pch_e2 +
         (static_cast<size_t>(m) * gridDim.x + blockIdx.x) * (P + 2) * H + ch;
     for (int q = 0; q < P; ++q) dst[static_cast<size_t>(q) * H] = ddw[q];
     dst[static_cast<size_t>(P) * H] = dg;
     dst[static_cast<size_t>(P + 1) * H] = db;
   }
-  block_sum2(u1, u2);
-  if (threadIdx.x == 0) {
-    float* dst = part_slot(p.part, m);
-    dst[0] = u1;
-    dst[1] = u2;
+  if constexpr (kNorm == kNormCLN) {
+    __syncthreads();
+    const int i = threadIdx.x;
+    if (i < kDwRows && r0 + i < K) {
+      float v1 = 0.f, v2 = 0.f;
+      for (int w = 0; w < kDwThreads / 32; ++w) {
+        v1 += s_row[0][w][i];
+        v2 += s_row[1][w][i];
+      }
+      float* dst = row_slot(p.part, K, m, r0 + i);
+      dst[0] = v1;
+      dst[1] = v2;
+    }
+  } else {
+    block_sum2(u1, u2);
+    if (threadIdx.x == 0) {
+      float* dst = part_slot(p.part, m);
+      dst[0] = u1;
+      dst[1] = u2;
+    }
   }
 }
 
 // G2, first half: dh_pre = dh1 * PReLU'(hp) over dhn1 in place, and
 // per-channel da1 partials.
-template <typename T>
+template <typename T, int kNorm>
 __global__ void __launch_bounds__(kDwThreads) g2a_kernel(BwdParams p) {
   const int m = blockIdx.z;
   const int r0 = blockIdx.x * kDwRows;
   const int ch = blockIdx.y * kDwThreads + threadIdx.x;
   const int K = p.K, H = p.H;
   if (ch >= H) return;
-  const float* st = p.stats + static_cast<size_t>(m) * kNumStats;
-  const float mean1 = st[kMean1], rs1 = st[kRs1], u1 = st[kU1], u2 = st[kU2];
   const float a1 = *p.a1;
   const float gam = p.g1[ch];
   const T* hp = static_cast<const T*>(p.hp) + static_cast<size_t>(m) * K * H;
   T* dh = static_cast<T*>(p.dh) + static_cast<size_t>(m) * K * H;
   float da1 = 0.f;
   for (int i = 0; i < kDwRows && r0 + i < K; ++i) {
+    const float* st = stat_row<kNorm>(p, m, r0 + i);
+    const float rs1 = st[kRs1];
     const size_t idx = static_cast<size_t>(r0 + i) * H + ch;
     const float hv = to_f<T>(hp[idx]);
-    const float hh = (prelu(hv, a1) - mean1) * rs1;
-    const float dh1 = rs1 * (gam * to_f<T>(dh[idx]) - u1 - hh * u2);
+    const float hh = (prelu(hv, a1) - st[kMean1]) * rs1;
+    const float dh1 =
+        rs1 * (gam * to_f<T>(dh[idx]) - st[kU1] - hh * st[kU2]);
     da1 += dh1 * fminf(hv, 0.f);
     dh[idx] = from_f<T>(hv >= 0.f ? dh1 : a1 * dh1);
   }
@@ -399,15 +519,20 @@ struct Layout {
 
 size_t align_up(size_t n, size_t a) { return (n + a - 1) / a * a; }
 
-Layout make_layout(int M, int K, int B, int H, int P, size_t act_bytes) {
+Layout make_layout(int M, int K, int B, int H, int P, size_t act_bytes,
+                   int norm) {
   Layout L;
   L.kt = (K + kBM - 1) / kBM;
   L.rt = (K + kDwRows - 1) / kDwRows;
   L.ct = (H + kDwThreads - 1) / kDwThreads;
-  const int n_r1 = L.kt * (H / kBN);
-  const int n_dw = L.rt * L.ct;
-  L.n_part = n_r1 > n_dw ? n_r1 : n_dw;
   const long long rows = static_cast<long long>(M) * K;
+  // partials per sample (gLN: one per tile) or per row (cLN: one per
+  // column tile); part holds R1's, G1's and E2's, part2 R2's
+  const bool cln = norm == kNormCLN;
+  const size_t n_r1 = cln ? H / kBN : static_cast<size_t>(L.kt) * (H / kBN);
+  const size_t n_dw = cln ? L.ct : static_cast<size_t>(L.rt) * L.ct;
+  const size_t n_rows = cln ? static_cast<size_t>(rows) : M;
+  L.n_part = static_cast<int>(n_r1 > n_dw ? n_r1 : n_dw);
   L.n_chunks = static_cast<int>((rows + kChunkRows - 1) / kChunkRows);
   const size_t mkh = static_cast<size_t>(M) * K * H;
   const size_t act_sizes[7] = {static_cast<size_t>(H) * B,
@@ -421,9 +546,9 @@ Layout make_layout(int M, int K, int B, int H, int P, size_t act_bytes) {
   }
   L.n_act = off;
   const size_t f32_sizes[8] = {
-      static_cast<size_t>(M) * kNumStats,
-      2 * static_cast<size_t>(M) * L.n_part,
-      2 * static_cast<size_t>(M) * n_dw,
+      n_rows * kNumStats,
+      2 * n_rows * L.n_part,
+      2 * n_rows * n_dw,
       2 * static_cast<size_t>(M) * L.kt * H,
       static_cast<size_t>(M) * L.rt * H,
       static_cast<size_t>(M) * L.rt * (P + 2) * H,
@@ -438,10 +563,12 @@ Layout make_layout(int M, int K, int B, int H, int P, size_t act_bytes) {
   return L;
 }
 
-template <typename T>
+template <typename T, int kNorm>
 int launch_bwd(BwdParams p, void* ws_act, float* ws_f32, int causal,
                cudaStream_t stream) {
-  const Layout L = make_layout(p.M, p.K, p.B, p.H, p.P, sizeof(T));
+  static_assert(kNorm == kNormGLN || kNorm == kNormCLN, "gLN or cLN");
+  constexpr bool kCln = kNorm == kNormCLN;
+  const Layout L = make_layout(p.M, p.K, p.B, p.H, p.P, sizeof(T), kNorm);
   T* act = static_cast<T*>(ws_act);
   p.w_in_t = act + L.act[0];
   p.w_out_t = act + L.act[1];
@@ -464,6 +591,9 @@ int launch_bwd(BwdParams p, void* ws_act, float* ws_f32, int causal,
   const dim3 gemm_h(L.kt, H / kBN, M);
   const dim3 gemm_b(L.kt, B / kBN, M);
   const dim3 rows(L.rt, L.ct, M);
+  // cLN: the row finalisers, one thread per row of the M*K
+  const int n_rows = M * K;
+  const int fin_blocks = (n_rows + 255) / 256;
 
   transpose_kernel<T><<<dim3(H / 32, B / 32), dim3(32, 8), 0, stream>>>(
       static_cast<const T*>(p.w_in), static_cast<T*>(p.w_in_t), B, H);
@@ -491,23 +621,40 @@ int launch_bwd(BwdParams p, void* ws_act, float* ws_f32, int causal,
   fp.P = p.P;
   fp.dilation = p.dilation;
   fp.left = p.left;
-  fp.norm = kNormGLN;
-  const int n_r1 = gemm_h.x * gemm_h.y;
-  in_proj_kernel<T, kNormGLN, true><<<gemm_h, kGemmThreads, 0, stream>>>(fp);
+  fp.norm = kNorm;
+  // R1's partials per sample (gLN) or per row (cLN), as launch B reads them
+  const int n_r1 = kCln ? gemm_h.y : gemm_h.x * gemm_h.y;
+  in_proj_kernel<T, kNorm, true><<<gemm_h, kGemmThreads, 0, stream>>>(fp);
   CTN_CHECK();
-  // gLN1 as launch B reduces it (kDwThreads), gLN2 as launch C does
-  finalize_kernel<<<M, kDwThreads, 0, stream>>>(p.part, n_r1, count, p.stats,
-                                                kMean1, 0);
+  if constexpr (kCln) {
+    dwconv_kernel<T, kNorm, true><<<rows, kDwThreads, 0, stream>>>(fp, n_r1);
+    CTN_CHECK();
+    // cLN1 as launch B reduces each row, cLN2 as launch C does
+    finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
+        p.part, n_r1, n_rows, H, p.stats, kMean1, 0);
+    CTN_CHECK();
+    finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
+        p.part2, rows.y, n_rows, H, p.stats, kMean2, 0);
+    CTN_CHECK();
+  } else {
+    // gLN1 as launch B reduces it (kDwThreads), gLN2 as launch C does
+    finalize_kernel<<<M, kDwThreads, 0, stream>>>(p.part, n_r1, count,
+                                                  p.stats, kMean1, 0);
+    CTN_CHECK();
+    dwconv_kernel<T, kNorm, true><<<rows, kDwThreads, 0, stream>>>(fp, n_r1);
+    CTN_CHECK();
+    finalize_kernel<<<M, kGemmThreads, 0, stream>>>(
+        p.part2, rows.x * rows.y, count, p.stats, kMean2, 0);
+    CTN_CHECK();
+  }
+  g1_kernel<T, kNorm><<<gemm_h, kGemmThreads, 0, stream>>>(p);
   CTN_CHECK();
-  dwconv_kernel<T, kNormGLN, true><<<rows, kDwThreads, 0, stream>>>(fp, n_r1);
-  CTN_CHECK();
-  finalize_kernel<<<M, kGemmThreads, 0, stream>>>(p.part2, rows.x * rows.y,
-                                                  count, p.stats, kMean2, 0);
-  CTN_CHECK();
-  g1_kernel<T><<<gemm_h, kGemmThreads, 0, stream>>>(p);
-  CTN_CHECK();
-  finalize_kernel<<<M, 256, 0, stream>>>(p.part, gemm_h.x * gemm_h.y, count,
-                                         p.stats, kT1, 1);
+  if constexpr (kCln)
+    finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
+        p.part, gemm_h.y, n_rows, H, p.stats, kT1, 1);
+  else
+    finalize_kernel<<<M, 256, 0, stream>>>(p.part, gemm_h.x * gemm_h.y,
+                                           count, p.stats, kT1, 1);
   CTN_CHECK();
   // dW_out = hn2^T @ g needs only G1's output
   const int R = M * K;
@@ -518,14 +665,18 @@ int launch_bwd(BwdParams p, void* ws_act, float* ws_f32, int causal,
   reduce_chunks_kernel<<<(H * B + 255) / 256, 256, 0, stream>>>(
       p.wpart, L.n_chunks, H * B, p.dw_out);
   CTN_CHECK();
-  e1_kernel<T><<<rows, kDwThreads, 0, stream>>>(p);
+  e1_kernel<T, kNorm><<<rows, kDwThreads, 0, stream>>>(p);
   CTN_CHECK();
-  e2_kernel<T><<<rows, kDwThreads, 0, stream>>>(p);
+  e2_kernel<T, kNorm><<<rows, kDwThreads, 0, stream>>>(p);
   CTN_CHECK();
-  finalize_kernel<<<M, 256, 0, stream>>>(p.part, rows.x * rows.y, count,
-                                         p.stats, kU1, 1);
+  if constexpr (kCln)
+    finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
+        p.part, rows.y, n_rows, H, p.stats, kU1, 1);
+  else
+    finalize_kernel<<<M, 256, 0, stream>>>(p.part, rows.x * rows.y, count,
+                                           p.stats, kU1, 1);
   CTN_CHECK();
-  g2a_kernel<T><<<rows, kDwThreads, 0, stream>>>(p);
+  g2a_kernel<T, kNorm><<<rows, kDwThreads, 0, stream>>>(p);
   CTN_CHECK();
   g2b_kernel<T><<<gemm_b, kGemmThreads, 0, stream>>>(p);
   CTN_CHECK();
@@ -591,29 +742,38 @@ BwdParams make_bwd_params(const void* x, const void* g, const void* w_in,
 
 extern "C" {
 
-// Workspace the backward needs: n_act elements of the compute dtype
-// (elem_bytes 2 for bf16, 4 for f32) and n_f32 floats.
+// Workspace the backward needs for norm (0 gLN, 1 cLN): n_act elements of
+// the compute dtype (elem_bytes 2 for bf16, 4 for f32) and n_f32 floats.
 int ctn_tcn_block_bwd_workspace(int M, int K, int B, int H, int P,
-                                int elem_bytes, long long* n_act,
+                                int elem_bytes, int norm, long long* n_act,
                                 long long* n_f32) {
-  const Layout L = make_layout(M, K, B, H, P, elem_bytes);
+  const Layout L = make_layout(M, K, B, H, P, elem_bytes, norm);
   *n_act = static_cast<long long>(L.n_act);
   *n_f32 = static_cast<long long>(L.n_f32);
   return 0;
 }
 
-// Backward of one gLN block; every pointer is device memory, `stream` is a
+// Backward of one gLN block (B2, ctn_tcn_block_bwd_*) or cLN block (B3,
+// ctn_tcn_block_bwd_cln_*); every pointer is device memory, `stream` is a
 // cudaStream_t. x, g, w_in, dw, w_out and dx are in the compute dtype; the
 // slopes, norm affines and every other output are f32: dw_in [B,H],
 // dw_out [H,B], and aux [(P+6)*H + 2] = d_dw [P,H], dg1, db1, dg2, db2,
 // per-channel da1 and da2 parts [H] each, then da1 and da2. Returns
 // cudaGetLastError() after the launches.
 int ctn_tcn_block_bwd_f32(CTN_BWD_ARGS) {
-  return launch_bwd<float>(CTN_BWD_CALL);
+  return launch_bwd<float, kNormGLN>(CTN_BWD_CALL);
 }
 
 int ctn_tcn_block_bwd_bf16(CTN_BWD_ARGS) {
-  return launch_bwd<__nv_bfloat16>(CTN_BWD_CALL);
+  return launch_bwd<__nv_bfloat16, kNormGLN>(CTN_BWD_CALL);
+}
+
+int ctn_tcn_block_bwd_cln_f32(CTN_BWD_ARGS) {
+  return launch_bwd<float, kNormCLN>(CTN_BWD_CALL);
+}
+
+int ctn_tcn_block_bwd_cln_bf16(CTN_BWD_ARGS) {
+  return launch_bwd<__nv_bfloat16, kNormCLN>(CTN_BWD_CALL);
 }
 
 }  // extern "C"

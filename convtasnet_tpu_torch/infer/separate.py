@@ -4,7 +4,9 @@ Counterpart of the batch mode of ``convtasnet_tpu/infer/separate.py``:
 loads an inference package, builds the manifest from a mixture directory
 if needed, batches length-sorted mixtures padded to a multiple of
 ``pad_to_multiple`` samples, and writes ``<utt>.wav`` (the mixture) plus
-``<utt>_s{c}.wav`` per speaker. The streaming, sequence-parallel and
+``<utt>_s{c}.wav`` per speaker. ``streaming=True`` runs the causal
+streaming separator (``models/streaming.py``) chunk by chunk instead, as
+the JAX package's ``_separate_streaming`` does. The sequence-parallel and
 tensor-parallel modes are not ported yet and raise.
 """
 
@@ -13,11 +15,13 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from convtasnet_tpu_torch.data.audio_io import write_wav
 from convtasnet_tpu_torch.data.dataset import EvalDataset
 from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+from convtasnet_tpu_torch.models.streaming import StreamingSeparator
 from convtasnet_tpu_torch.train.checkpoint import load_params_for_inference
 from convtasnet_tpu_torch.utils.padding import remove_pad
 
@@ -54,12 +58,11 @@ def separate(
 
     ``use_pallas``: run the model's hand-written kernels, the TCN block's
     or the DPT sublayers' (None = on for a CUDA device). Each batch runs
-    as one forward call. ``chunk_seconds`` only applies to ``streaming``.
+    as one forward call. ``streaming=True`` separates each mixture in
+    chunks of ``chunk_seconds`` (whole encoder hops) through the causal
+    streaming separator, which needs a causal cLN or BN package and runs
+    the plain ops, as the JAX streaming step does.
     """
-    if streaming:
-        raise NotImplementedError(
-            "streaming separation is not ported yet (ROADMAP queue A, "
-            "'streaming with cLN')")
     if sequence_parallel or ring_attention:
         raise NotImplementedError(
             "sequence-parallel separation is not ported yet (ROADMAP "
@@ -70,6 +73,10 @@ def separate(
             "'DP/TP/SP')")
     device = resolve_device(device)
     cfg, state_dict = load_params_for_inference(model_path)
+    if streaming:
+        return _separate_streaming(cfg, state_dict, out_dir, mix_dir,
+                                   mix_json, sample_rate, chunk_seconds,
+                                   write_mix, device)
     model = ConvTasNet(cfg, use_pallas=use_pallas, device=device)
     model.load_state_dict(state_dict)
     model.eval()
@@ -105,3 +112,34 @@ def separate(
         if pending is not None:
             n_written += write(*pending)
     return n_written
+
+
+def _separate_streaming(cfg, state_dict, out_dir, mix_dir, mix_json,
+                        sample_rate, chunk_seconds, write_mix,
+                        device) -> int:
+    """Chunk-by-chunk separation with the streaming separator, one
+    utterance at a time."""
+    sep = StreamingSeparator(cfg, state_dict, batch_size=1, device=device)
+    ds = EvalDataset(mix_dir=mix_dir, mix_json=mix_json, batch_size=1,
+                     sample_rate=sample_rate)
+    os.makedirs(out_dir, exist_ok=True)
+    hop = cfg.stride
+    chunk = max(hop, int(chunk_seconds * sample_rate) // hop * hop)
+    for bi in range(len(ds)):
+        mixture, lengths, names = ds.load_batch(bi)
+        T = int(lengths[0])
+        x = np.zeros((1, -(-T // chunk) * chunk), np.float32)
+        x[0, :T] = mixture[0, :T]
+        sep.reset()
+        outs = [sep.process(torch.from_numpy(x[:, s:s + chunk])).cpu()
+                for s in range(0, x.shape[1], chunk)]
+        outs.append(sep.flush().cpu())
+        est = torch.cat(outs, dim=-1)[0, :, :T].numpy()
+        stem = os.path.splitext(os.path.basename(names[0]))[0]
+        if write_mix:
+            write_wav(os.path.join(out_dir, stem + ".wav"), mixture[0, :T],
+                      sample_rate)
+        for c in range(cfg.num_speakers):
+            write_wav(os.path.join(out_dir, f"{stem}_s{c + 1}.wav"), est[c],
+                      sample_rate)
+    return len(ds)

@@ -19,12 +19,11 @@ sublayer) through the hand-written kernels" (``ops/cuda/``): ``None``
 ``True`` needs CUDA tensors and raises on CPU ones; ``False`` runs the
 plain ops anywhere. ``cfg.use_pallas=True`` acts as ``use_pallas=True``.
 
-Training (``model.train()`` with gradients): gLN blocks run the forward
-and backward kernels through ``fused_tcn_block_ad``; BN blocks train
-through the plain ops with batch statistics, as the JAX model's do; cLN
-blocks train through the plain ops until the cLN backward (kernel 3,
-ROADMAP A6) is ported, and with ``use_pallas=True`` the model raises
-instead.
+Training (``model.train()`` with gradients) with the kernels in use: gLN
+and cLN blocks run the forward kernel B1 and the backward kernel of their
+norm (B2 for gLN, B3 for cLN) through ``fused_tcn_block_ad``; BN blocks
+train through the plain ops with batch statistics, as the JAX model's do
+(its fused train branch takes only gLN/cLN).
 """
 
 from __future__ import annotations
@@ -168,18 +167,18 @@ class TemporalBlock(nn.Module):
         cfg = self.cfg
         needs_grad = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        if use_kernel and needs_grad:
-            if cfg.norm_type == "gLN":
-                out = fused_tcn_block_ad(
-                    x.reshape(-1, *x.shape[-2:]), self.conv1x1, self.dwconv,
-                    self.pwconv, self.prelu1, self.prelu2,
-                    self.norm1.gamma, self.norm1.beta,
-                    self.norm2.gamma, self.norm2.beta,
-                    dilation=self.dilation, causal=cfg.causal)
-                return out.reshape(x.shape)
-            use_kernel = False     # BN and cLN train through the plain ops
-        if use_kernel and cfg.norm_type == "BN" and self.training:
-            use_kernel = False     # batch statistics: the plain ops
+        if use_kernel and needs_grad and cfg.norm_type != "BN":
+            out = fused_tcn_block_ad(
+                x.reshape(-1, *x.shape[-2:]), self.conv1x1, self.dwconv,
+                self.pwconv, self.prelu1, self.prelu2,
+                self.norm1.gamma, self.norm1.beta,
+                self.norm2.gamma, self.norm2.beta,
+                dilation=self.dilation, causal=cfg.causal,
+                norm_type=cfg.norm_type)
+            return out.reshape(x.shape)
+        if use_kernel and cfg.norm_type == "BN" and (needs_grad
+                                                    or self.training):
+            use_kernel = False     # BN trains through the plain ops
         if use_kernel:
             bn_stats = None
             if cfg.norm_type == "BN":
@@ -258,15 +257,6 @@ class ConvTasNet(nn.Module):
         cfg = self.cfg
         use_kernel = mixture.is_cuda if self.use_pallas is None \
             else self.use_pallas
-        needs_grad = torch.is_grad_enabled() and any(
-            p.requires_grad for p in self.parameters())
-        if (self.use_pallas is True and cfg.separator == "tcn"
-                and cfg.norm_type == "cLN" and needs_grad):
-            raise NotImplementedError(
-                "training a cLN model through the CUDA kernels needs the cLN "
-                "block backward, kernel 3, not ported yet (ROADMAP A6); pass "
-                "use_pallas=None or False to train cLN blocks through the "
-                "plain ops")
         if use_kernel and not mixture.is_cuda:
             raise ValueError(
                 "use_pallas=True runs the CUDA kernels and needs CUDA "

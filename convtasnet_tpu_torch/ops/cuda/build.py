@@ -30,7 +30,7 @@ _I = ctypes.c_int
 _LL_P = ctypes.POINTER(ctypes.c_longlong)
 # ctn_tcn_block_{f32,bf16}: 21 pointers, 8 ints, the stream (see tcn_block.cu)
 _BLOCK_ARGTYPES = [_P] * 21 + [_I] * 8 + [_P]
-# ctn_tcn_block_bwd_{f32,bf16}: 17 pointers, 7 ints, the stream
+# ctn_tcn_block_bwd[_cln]_{f32,bf16}: 17 pointers, 7 ints, the stream
 # (see tcn_block_bwd.cu)
 _BWD_ARGTYPES = [_P] * 17 + [_I] * 7 + [_P]
 # ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 5 ints, the stream
@@ -119,7 +119,9 @@ def load_library() -> ctypes.CDLL:
         "ctn_tcn_block_partials": [_I, _I, _I, _LL_P, _LL_P],
         "ctn_tcn_block_bwd_f32": _BWD_ARGTYPES,
         "ctn_tcn_block_bwd_bf16": _BWD_ARGTYPES,
-        "ctn_tcn_block_bwd_workspace": [_I] * 6 + [_LL_P, _LL_P],
+        "ctn_tcn_block_bwd_cln_f32": _BWD_ARGTYPES,
+        "ctn_tcn_block_bwd_cln_bf16": _BWD_ARGTYPES,
+        "ctn_tcn_block_bwd_workspace": [_I] * 7 + [_LL_P, _LL_P],
         "ctn_dpt_inter_f32": _ATTN_ARGTYPES,
         "ctn_dpt_inter_bf16": _ATTN_ARGTYPES,
         "ctn_dpt_intra_f32": _ATTN_ARGTYPES,

@@ -13,8 +13,10 @@ that launched the kernel.
 ``fused_tcn_block_ad`` is the differentiable block (the counterpart of
 ``_fused_block_ad``): its forward is ``fused_tcn_block`` and saves only the
 block inputs; its backward recomputes the rest in
-``ops/cuda/tcn_block_bwd.fused_tcn_block_bwd`` (the backward kernel on CUDA
-tensors, its twin on CPU ones). gLN only, as that kernel is.
+``ops/cuda/tcn_block_bwd.fused_tcn_block_bwd`` (the backward kernel of
+the block's norm on CUDA tensors, B2 for gLN and B3 for cLN; the twin on
+CPU ones). gLN and cLN, as those kernels are; BN blocks train through the
+plain ops with batch statistics.
 """
 
 from __future__ import annotations
@@ -216,7 +218,7 @@ class _FusedBlockFn(torch.autograd.Function):
                               gamma2, beta2)
         ctx.kw = kw
         return fused_tcn_block(x, w_in, dw, w_out, a1, a2, gamma1, beta1,
-                               gamma2, beta2, norm_type="gLN", **kw)
+                               gamma2, beta2, **kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -226,8 +228,7 @@ class _FusedBlockFn(torch.autograd.Function):
         )
 
         x, *weights = ctx.saved_tensors
-        grads = fused_tcn_block_bwd(x, g.contiguous(), *weights,
-                                    norm_type="gLN", **ctx.kw)
+        grads = fused_tcn_block_bwd(x, g.contiguous(), *weights, **ctx.kw)
         return (*grads, None)
 
 
@@ -238,13 +239,14 @@ def fused_tcn_block_ad(
     gamma2: torch.Tensor, beta2: torch.Tensor,
     *, dilation: int, causal: bool, norm_type: str = "gLN",
 ) -> torch.Tensor:
-    """Differentiable gLN block -> [M, K, B] in x's dtype. Gradients come
-    back in each primal's dtype (f32 weights, x's dtype for dx)."""
-    if norm_type != "gLN":
+    """Differentiable gLN or cLN block -> [M, K, B] in x's dtype.
+    Gradients come back in each primal's dtype (f32 weights, x's dtype for
+    dx)."""
+    if norm_type not in ("gLN", "cLN"):
         raise NotImplementedError(
-            f"fused_tcn_block_ad takes gLN, got {norm_type}: the cLN block "
-            "backward is kernel 3, not ported yet (ROADMAP A6), and BN "
-            "blocks train through the plain ops")
+            f"fused_tcn_block_ad takes gLN and cLN, got {norm_type}: BN "
+            "blocks train through the plain ops with batch statistics")
     return _FusedBlockFn.apply(x, w_in, dw, w_out, a1, a2, gamma1, beta1,
                                gamma2, beta2,
-                               dict(dilation=dilation, causal=causal))
+                               dict(dilation=dilation, causal=causal,
+                                    norm_type=norm_type))

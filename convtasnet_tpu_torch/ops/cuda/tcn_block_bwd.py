@@ -1,18 +1,21 @@
-"""One gLN TCN block backward: the hand-written CUDA kernel and its twin.
+"""One TCN block backward, gLN or cLN: the hand-written CUDA kernels and
+their twin.
 
 Counterpart of ``convtasnet_tpu/ops/pallas/tcn_block_bwd.py`` (the Pallas
-``_bwd_kernel`` behind ``fused_tcn_block_bwd``). The kernel is
-``csrc/tcn_block_bwd.cu``; its design note is there.
+``_bwd_kernel`` (gLN) and ``_bwd_kernel_cln`` (cLN) behind
+``fused_tcn_block_bwd``). Both kernels are ``csrc/tcn_block_bwd.cu``, one
+template on the norm; its design note is there.
 
 ``fused_tcn_block_bwd`` takes the JAX wrapper's arguments in the same order
 and returns the same ten cotangents ``(dx, dW_in, d_dw, dW_out, da1, da2,
 dgamma1, dbeta1, dgamma2, dbeta2)``, each in its primal's dtype. On CPU
 tensors it runs the plain twin ``fused_tcn_block_bwd_reference`` (autograd
-through the forward twin); on CUDA tensors it launches the kernel or
-raises, with no fallback. ``fused_tcn_block_bwd.launches`` counts the calls
-that launched the kernel. The kernel takes gLN only: the cLN backward is
-kernel 3 (ROADMAP A6), and BN blocks train through the plain ops, as the
-JAX package's do.
+through the forward twin, the block's explicit math for either norm); on
+CUDA tensors it launches the kernel or raises, with no fallback.
+``fused_tcn_block_bwd.launches`` counts the calls that launched the gLN
+kernel (B2), ``fused_tcn_block_bwd.cln_launches`` those that launched the
+cLN kernel (B3). BN blocks train through the plain ops with batch
+statistics, as the JAX package's do, so BN raises here.
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ import torch
 from convtasnet_tpu_torch.ops.cuda.build import load_library
 from convtasnet_tpu_torch.ops.cuda.tcn_block import (
     MAX_TAPS,
+    NORM_CODES,
     TILE,
     fused_tcn_block_reference,
 )
 
-_ENTRY = {torch.float32: "ctn_tcn_block_bwd_f32",
-          torch.bfloat16: "ctn_tcn_block_bwd_bf16"}
+_ENTRY = {("gLN", torch.float32): "ctn_tcn_block_bwd_f32",
+          ("gLN", torch.bfloat16): "ctn_tcn_block_bwd_bf16",
+          ("cLN", torch.float32): "ctn_tcn_block_bwd_cln_f32",
+          ("cLN", torch.bfloat16): "ctn_tcn_block_bwd_cln_bf16"}
 
 
 def fused_tcn_block_bwd_reference(
@@ -65,25 +71,25 @@ def fused_tcn_block_bwd(
     causal: bool,
     norm_type: str = "gLN",
 ) -> Tuple[torch.Tensor, ...]:
-    """Backward of one gLN block -> ``(dx, dW_in, d_dw, dW_out, da1, da2,
-    dgamma1, dbeta1, dgamma2, dbeta2)`` in the primals' dtypes."""
-    if norm_type != "gLN":
+    """Backward of one gLN or cLN block -> ``(dx, dW_in, d_dw, dW_out,
+    da1, da2, dgamma1, dbeta1, dgamma2, dbeta2)`` in the primals' dtypes."""
+    if norm_type not in ("gLN", "cLN"):
         raise NotImplementedError(
-            f"the block backward kernel takes gLN, got {norm_type}: the cLN "
-            "backward is kernel 3, not ported yet (ROADMAP A6); BN blocks "
-            "train through the plain ops")
+            f"the block backward kernels take gLN and cLN, got {norm_type}: "
+            "BN blocks train through the plain ops with batch statistics")
     args = (x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2)
     kw = dict(dilation=dilation, causal=causal, norm_type=norm_type)
     if x.device.type == "cpu":
         return fused_tcn_block_bwd_reference(*args, **kw)
-    return _launch_cuda(*args, dilation=dilation, causal=causal)
+    return _launch_cuda(*args, **kw)
 
 
-fused_tcn_block_bwd.launches = 0
+fused_tcn_block_bwd.launches = 0        # B2, the gLN kernel
+fused_tcn_block_bwd.cln_launches = 0    # B3, the cLN kernel
 
 
 def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
-                 beta2, *, dilation, causal):
+                 beta2, *, dilation, causal, norm_type="gLN"):
     """The CUDA branch of ``fused_tcn_block_bwd``: builds the kernel at
     first use, checks, allocates, launches on the current stream, and
     raises on anything the kernel does not take."""
@@ -91,7 +97,7 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
     if x.device.type != "cuda":
         raise ValueError(f"fused_tcn_block_bwd runs on CPU or CUDA tensors, "
                          f"got {x.device}")
-    if x.dtype not in _ENTRY:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the backward kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
     if x.dim() != 3 or tuple(g.shape) != tuple(x.shape):
@@ -128,6 +134,7 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
 
     n_act, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
     lib.ctn_tcn_block_bwd_workspace(M, K, B, H, P, x.element_size(),
+                                    NORM_CODES[norm_type],
                                     ctypes.byref(n_act), ctypes.byref(n_f32))
     f32 = dict(dtype=torch.float32, device=x.device)
     ws_act = torch.empty(n_act.value, dtype=dt, device=x.device)
@@ -138,7 +145,7 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
     aux = torch.empty((P + 6) * H + 2, **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, _ENTRY[dt])(
+        err = getattr(lib, _ENTRY[norm_type, dt])(
             x.data_ptr(), g.data_ptr(), w_in_c.data_ptr(), dw_c.data_ptr(),
             w_out_c.data_ptr(), *[v.data_ptr() for v in vecs],
             ws_act.data_ptr(), ws_f32.data_ptr(), dx.data_ptr(),
@@ -148,7 +155,10 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
         msg = lib.ctn_error_string(err).decode()
         raise RuntimeError(f"tcn_block_bwd kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    fused_tcn_block_bwd.launches += 1
+    if norm_type == "cLN":
+        fused_tcn_block_bwd.cln_launches += 1
+    else:
+        fused_tcn_block_bwd.launches += 1
     rows = aux[: (P + 6) * H].view(P + 6, H)
     da1, da2 = aux[(P + 6) * H:]
     return (

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Plant known faults in copies of the DPT sublayer kernels and report
-which checks see each one. Needs one CUDA GPU and nvcc.
+"""Plant known faults in copies of the DPT sublayer kernels and of the cLN
+block backward (kernel B3), and report which checks see each one. Needs
+one CUDA GPU and nvcc.
 
-    python3 scripts/dpt_planted_faults.py [--log-dir DIR] [--only NAME ...]
+    python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...]
 
 For each fault the script copies ``convtasnet_tpu_torch/`` (without its
 build directory), ``chip_smoke.py``, ``pyproject.toml`` and
 ``tests/test_torch_cuda.py`` into a temporary directory, edits one line of
-the copy's ``csrc/``, and runs there, against the edited kernels: the
-smoke's DPT phases (``chip_smoke.phase_dpt_kernels_vs_twin`` and
-``phase_dpt_forward`` for a fault in a forward kernel;
-``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch, "dpt")`` for
-one in a backward kernel), then the ``cuda``-marked DPT tests. The
-repository itself is never edited. A fault is caught when either run
+the copy's ``csrc/``, and runs there, against the edited kernels, the
+smoke phases of the kernel's kind (``PHASES``: for a DPT forward kernel
+``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, for a
+DPT backward ``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch,
+"dpt")``, for B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
+``phase_step_compare(torch, "tcn", "cLN")``), then the kind's
+``cuda``-marked tests. The repository itself is never edited. A fault is caught when either run
 fails. Each run's full output goes to ``--log-dir`` (default: a new
 temporary directory), one file per fault.
 """
@@ -27,63 +29,85 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# name: (file, the line's text as it is, the planted text)
+# name: (kind, file, the line's text as it is, the planted text)
 FAULTS = {
-    "inter_bias_transposed": (
+    "inter_bias_transposed": ("dpt_forward",
         "convtasnet_tpu_torch/csrc/dpt_attention.cu",
         "p.bias[static_cast<size_t>(k0 + j) * S + s]",
         "p.bias[static_cast<size_t>(s) * n + k0 + j]"),
-    "intra_mask_dropped": (
+    "intra_mask_dropped": ("dpt_forward",
         "convtasnet_tpu_torch/csrc/dpt_intra.cu",
         "b_s[k] = p.bias ? p.bias[static_cast<size_t>(chunk) * S + k] : 0.f;",
         "b_s[k] = 0.f;"),
-    "ffn_gelu_erf": (
+    "ffn_gelu_erf": ("dpt_forward",
         "convtasnet_tpu_torch/csrc/dpt_ffn.cu",
         "return 0.5f * v * (1.f + tanhf(k * (v + 0.044715f * v * v * v)));",
         "return 0.5f * v * (1.f + erff(v * 0.70710678118654752f)) + 0.f * k;"),
-    "inter_no_rescale": (
+    "inter_no_rescale": ("dpt_forward",
         "convtasnet_tpu_torch/csrc/dpt_attention.cu",
         "sum = sum * expf(mx - mn) + expf(sc - mn);",
         "sum = sum + expf(sc - mn);"),
-    "ln_eps_1e-5": (
+    "ln_eps_1e-5": ("dpt_forward",
         "convtasnet_tpu_torch/csrc/dpt_common.cuh",
         "constexpr float kLnEps = 1e-6f;",
         "constexpr float kLnEps = 1e-5f;"),
     # the backward kernels
-    "intra_bwd_rowsum_dropped": (
+    "intra_bwd_rowsum_dropped": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_intra_bwd.cu",
         "from_f<T>(prow[k] * (drow[k] - rs) * scale)",
         "from_f<T>(prow[k] * drow[k] * scale + 0.f * rs)"),
-    "inter_bwd_bias_transposed": (
+    "inter_bwd_bias_transposed": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
         "p.bias[static_cast<size_t>(c) * S + s]",
         "p.bias[static_cast<size_t>(s) * n + c]"),
-    "ffn_bwd_gelu_erf_derivative": (
+    "ffn_bwd_gelu_erf_derivative": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_ffn_bwd.cu",
         "*dy = 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * c * "
         "(1.f + 3.f * a * x * x);",
         "*dy = 0.5f * (1.f + erff(x * 0.70710678118654752f)) + "
         "x * 0.3989422804014327f * expf(-0.5f * x * x) + 0.f * a;"),
-    "inter_bwd_dk_unscaled": (
+    "inter_bwd_dk_unscaled": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
         "round_to<T>(pj * (dot(dav, vv) - st[2]) * scale)",
         "round_to<T>(pj * (dot(dav, vv) - st[2]))"),
+    # the cLN block backward (B3)
+    "cln_bwd_tap_stats_of_output_row": ("cln_backward",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "const float* sk = stat_row<kNorm>(p, m, kh);",
+        "const float* sk = stat_row<kNorm>(p, m, j);"),
+    "cln_bwd_g1_row_sum_one_warp_twice": ("cln_backward",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "dst[1] = s_row[1][w][r] + s_row[1][w + 1][r];",
+        "dst[1] = s_row[1][w][r] + s_row[1][w][r];"),
+    "cln_bwd_e2_row_partial_shifted": ("cln_backward",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "float* dst = row_slot(p.part, K, m, r0 + i);",
+        "float* dst = row_slot(p.part, K, m, r0 + (i + 1) % kDwRows);"),
+    "cln_bwd_row_mean_over_h_minus_1": ("cln_backward",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "st[slot + 1] = static_cast<float>(s2 / H);",
+        "st[slot + 1] = static_cast<float>(s2 / (H - 1));"),
 }
-# The smoke phases a fault in a forward or a backward kernel is run
-# through; each phase runs whether or not an earlier one failed, and prints
-# "PHASE <call>: passed" or "PHASE <call>: FAILED <reason>".
+# The smoke phases a fault of each kind is run through; each phase runs
+# whether or not an earlier one failed, and prints "PHASE <call>: passed"
+# or "PHASE <call>: FAILED <reason>"; then the card tests that -k selects.
 PHASES = {
-    "forward": ["phase_dpt_kernels_vs_twin(torch, dpt)",
-                "phase_dpt_forward(torch, dpt)"],
-    "backward": ["phase_dpt_bwd_vs_twin(torch, dpt)",
-                 "phase_step_compare(torch, 'dpt')"],
+    "dpt_forward": ["phase_dpt_kernels_vs_twin(torch, dpt)",
+                    "phase_dpt_forward(torch, dpt)"],
+    "dpt_backward": ["phase_dpt_bwd_vs_twin(torch, dpt)",
+                     "phase_step_compare(torch, 'dpt')"],
+    "cln_backward": ["phase_bwd_vs_twin(torch, bwd, 'cLN')",
+                     "phase_step_compare(torch, 'tcn', 'cLN')"],
 }
+CARD_TESTS = {"dpt_forward": "dpt", "dpt_backward": "dpt",
+              "cln_backward": "cln"}
 RUNNER = """
 import sys
 import torch
 import chip_smoke
 from chip_smoke import *
 from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
+from convtasnet_tpu_torch.ops.cuda import tcn_block_bwd as bwd
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dpt = {'inter': dpt_attention, 'intra': dpt_intra, 'ffn': dpt_ffn}
@@ -102,7 +126,7 @@ COPIED = ("chip_smoke.py", "pyproject.toml", "tests/test_torch_cuda.py")
 
 def plant(root: str, name: str) -> str:
     """A copy of the package and its checks with fault ``name`` planted."""
-    path, old, new = FAULTS[name]
+    _, path, old, new = FAULTS[name]
     d = os.path.join(root, name)
     shutil.copytree(os.path.join(REPO, "convtasnet_tpu_torch"),
                     os.path.join(d, "convtasnet_tpu_torch"),
@@ -125,22 +149,22 @@ def main() -> int:
     ap.add_argument("--log-dir", default=None)
     ap.add_argument("--only", nargs="*", choices=sorted(FAULTS))
     a = ap.parse_args()
-    log_dir = a.log_dir or tempfile.mkdtemp(prefix="dpt_faults_logs_")
+    log_dir = a.log_dir or tempfile.mkdtemp(prefix="faults_logs_")
     os.makedirs(log_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="dpt_faults_") as root:
+    with tempfile.TemporaryDirectory(prefix="faults_") as root:
         for name in a.only or FAULTS:
             d = plant(root, name)
             env = dict(os.environ, PYTHONPATH=d)
-            phases = PHASES["backward" if "_bwd" in FAULTS[name][0]
-                            else "forward"]
-            smoke = subprocess.run([sys.executable, "-c", RUNNER, *phases],
+            kind = FAULTS[name][0]
+            smoke = subprocess.run([sys.executable, "-c", RUNNER,
+                                    *PHASES[kind]],
                                    cwd=d, env=env, capture_output=True,
                                    text=True)
             tests = subprocess.run(
                 [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-                 "tests/test_torch_cuda.py", "-q", "-k", "dpt", "-p",
-                 "no:cacheprovider"], cwd=d, env=env, capture_output=True,
-                text=True)
+                 "tests/test_torch_cuda.py", "-q", "-k", CARD_TESTS[kind],
+                 "-p", "no:cacheprovider"], cwd=d, env=env,
+                capture_output=True, text=True)
             with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
                 f.write(smoke.stdout + smoke.stderr + "\n=== card tests\n"
                         + tests.stdout + tests.stderr)

@@ -1,5 +1,6 @@
-"""The CUDA kernels (the TCN block's forward and backward, the DPT
-sublayers' forwards and backwards) against their plain twins, on the card.
+"""The CUDA kernels (the TCN block's forward and its gLN and cLN backwards,
+the DPT sublayers' forwards and backwards) against their plain twins, on
+the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it also runs on a machine with only torch and the
@@ -124,10 +125,11 @@ def test_kernel_path_refuses_autograd(cuda):
                              norm_type="gLN")
 
 
-def _bwd_args(device, dtype, m=2, k=300, b=64, h=128, seed=0):
+def _bwd_args(device, dtype, m=2, k=300, b=64, h=128, seed=0,
+              norm_type="gLN"):
     """Block operands with a2 < 0 (the sign flip of PReLU'), and a
     cotangent."""
-    args, _ = _block_args(device, dtype, "gLN", m=m, k=k, b=b, h=h,
+    args, _ = _block_args(device, dtype, norm_type, m=m, k=k, b=b, h=h,
                           seed=seed)
     args = list(args)
     args[5] = torch.tensor(-0.1, device=device)
@@ -201,6 +203,111 @@ def test_fused_block_ad_gradients(cuda, dtype):
     assert out.dtype == dtype
     assert _rel_l2(out, ref_out) <= TOL[dtype]
     _check_cotangents(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,dilation", [
+    (True, 1), (True, 4), (True, 128), (False, 2), (False, 128)])
+def test_cln_bwd_kernel_matches_twin(cuda, dtype, causal, dilation):
+    """B3, all ten cotangents, at B2's bars; K=300 is not a multiple of any
+    tile and d=128 reaches past both ends."""
+    args, g = _bwd_args(cuda, dtype, norm_type="cLN")
+    kw = dict(dilation=dilation, causal=causal, norm_type="cLN")
+    before = port_bwd.fused_tcn_block_bwd.cln_launches
+    gln_before = port_bwd.fused_tcn_block_bwd.launches
+    got = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert port_bwd.fused_tcn_block_bwd.cln_launches == before + 1
+    assert port_bwd.fused_tcn_block_bwd.launches == gln_before
+    want = port_bwd.fused_tcn_block_bwd_reference(args[0], g, *args[1:],
+                                                  **kw)
+    _check_cotangents(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cln_bwd_kernel_is_deterministic(cuda, dtype):
+    """Two calls of B3 agree bit for bit (fixed-order partial sums)."""
+    args, g = _bwd_args(cuda, dtype, m=4, k=1000, norm_type="cLN")
+    kw = dict(dilation=8, causal=True, norm_type="cLN")
+    a = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    b = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_cln_bwd_kernel_checks_shapes(cuda):
+    args, g = _bwd_args(cuda, torch.float32, b=32, h=64, norm_type="cLN")
+    with pytest.raises(ValueError, match="multiples"):
+        port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], dilation=1,
+                                     causal=True, norm_type="cLN")
+    args, g = _bwd_args(cuda, torch.float32, norm_type="cLN")
+    dw4 = torch.zeros(4, args[2].shape[1], device=cuda)
+    with pytest.raises(ValueError, match="kernel size"):
+        port_bwd.fused_tcn_block_bwd(args[0], g, args[1], dw4, *args[3:],
+                                     dilation=1, causal=False,
+                                     norm_type="cLN")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cln_fused_block_ad_gradients(cuda, dtype):
+    """Autograd through B1 (cLN) and B3 against autograd through the plain
+    block, causal, for x and all nine weights."""
+    args, g = _bwd_args(cuda, dtype, seed=3, norm_type="cLN")
+    prims = [args[0]] + [t.float() for t in args[1:]]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in prims]
+        out = fn(*leaves, dilation=4, causal=True, norm_type="cLN")
+        out.backward(g)
+        return out, [t.grad for t in leaves]
+
+    f0 = port.fused_tcn_block.launches
+    b0 = port_bwd.fused_tcn_block_bwd.cln_launches
+    out, got = grads(port.fused_tcn_block_ad)
+    torch.cuda.synchronize()
+    assert port.fused_tcn_block.launches == f0 + 1
+    assert port_bwd.fused_tcn_block_bwd.cln_launches == b0 + 1
+    ref_out, want = grads(port.fused_tcn_block_reference)
+    assert out.dtype == dtype
+    assert _rel_l2(out, ref_out) <= TOL[dtype]
+    _check_cotangents(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cln_model_train_grads_kernel_vs_plain(cuda, dtype):
+    """One training forward/backward of a small causal cLN model: every
+    block runs B1 and B3 (and never B2), at the bars of the gLN model
+    test."""
+    from convtasnet_tpu_torch.losses.pit import pit_si_snr
+
+    gen = torch.Generator().manual_seed(4)
+    mix = torch.randn(2, 8000, generator=gen).to(cuda)
+    src = torch.randn(2, 2, 8000, generator=gen).to(cuda)
+    lengths = torch.full((2,), 8000, device=cuda)
+
+    def grads(compute_dtype, use):
+        cfg = ConvTasNetConfig(n_filters=64, bottleneck=64, hidden=128,
+                               num_blocks=4, num_repeats=2, norm_type="cLN",
+                               causal=True, compute_dtype=compute_dtype)
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).train()
+        f0 = port.fused_tcn_block.launches
+        b0 = port_bwd.fused_tcn_block_bwd.cln_launches
+        g0 = port_bwd.fused_tcn_block_bwd.launches
+        snr, _ = pit_si_snr(src, model(mix), lengths)
+        (-snr.mean()).backward()
+        n = cfg.num_blocks * cfg.num_repeats if use else 0
+        assert port.fused_tcn_block.launches - f0 == n
+        assert port_bwd.fused_tcn_block_bwd.cln_launches - b0 == n
+        assert port_bwd.fused_tcn_block_bwd.launches == g0
+        return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+    kernel, plain = grads(dtype, True), grads(dtype, False)
+    assert torch.isfinite(kernel).all()
+    if dtype == "float32":
+        assert _rel_l2(kernel, plain) <= BWD_TOL[torch.float32]
+    else:
+        exact = grads("float32", False)
+        assert _rel_l2(kernel, exact) <= max(
+            BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -99,8 +99,7 @@ def test_package_roundtrip_and_formats(slice_dirs, tmp_path):
 def test_separate_refuses_what_is_not_ported(slice_dirs, tmp_path):
     kw = dict(mix_dir=slice_dirs["mix_dir"], device="cpu")
     out = str(tmp_path / "out")
-    for flag in (dict(streaming=True), dict(sequence_parallel=True),
-                 dict(tensor_parallel=2)):
+    for flag in (dict(sequence_parallel=True), dict(tensor_parallel=2)):
         with pytest.raises(NotImplementedError):
             separate(slice_dirs["pkg"], out, **kw, **flag)
     with pytest.raises(ValueError, match="CUDA"):

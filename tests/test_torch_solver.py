@@ -202,15 +202,18 @@ def test_cli_train_then_separate(tmp_path):
         "utt000.wav", "utt000_s1.wav", "utt000_s2.wav"]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--norm-type", "cLN", "--use-pallas", "1"], "ROADMAP A6"),
-    (["--n-data", "2"], "ROADMAP A8"),
-    (["--n-model", "2"], "ROADMAP A8"),
+@pytest.mark.parametrize("flags,error,item", [
+    (["--norm-type", "cLN", "--causal", "1", "--use-pallas", "1"],
+     ValueError, "CUDA tensors"),
+    (["--n-data", "2"], NotImplementedError, "ROADMAP A8"),
+    (["--n-model", "2"], NotImplementedError, "ROADMAP A8"),
 ])
-def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, item,
+def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, error, item,
                                               monkeypatch):
-    """The mesh flags are refused before any data is read; cLN blocks with
-    the kernels insisted on reach the model's refusal at the first step."""
+    """The mesh flags are refused before any data is read; a causal cLN
+    model with the kernels insisted on trains through them, and on CPU
+    tensors it is refused at the first step for want of CUDA tensors (no
+    fallback to the plain ops)."""
     from convtasnet_tpu_torch import cli
 
     monkeypatch.setenv("CONVTASNET_SEGMENT_CACHE", str(tmp_path / "cache"))
@@ -219,7 +222,7 @@ def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, item,
     _write_corpus(root, [4000], split="cv", seed=1)
     assert cli.main(["preprocess", "--data-dir", root, "--out-dir",
                      json_dir]) == 0
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         cli.main(["train", "--train-dir", os.path.join(json_dir, "tr"),
                   "--valid-dir", os.path.join(json_dir, "cv"),
                   "--save-folder", str(tmp_path / "exp"), "--device", "cpu",

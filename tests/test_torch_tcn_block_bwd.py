@@ -1,11 +1,13 @@
-"""The port's gLN block backward against the JAX package's.
+"""The port's gLN and cLN block backwards against the JAX package's.
 
 ``fused_tcn_block_bwd_reference`` (the plain twin of the CUDA backward
-kernel) is held against ``jax.vjp`` of ``_xla_block`` and against the
-Pallas ``fused_tcn_block_bwd`` run in interpret mode, on all ten
+kernels, B2 for gLN and B3 for cLN) is held against ``jax.vjp`` of
+``_xla_block`` and against the Pallas ``fused_tcn_block_bwd`` run in
+interpret mode (``_bwd_kernel`` and ``_bwd_kernel_cln``), on all ten
 cotangents, and the differentiable ``fused_tcn_block_ad`` against the JAX
-``fused_tcn_block_ad`` on CPU tensors. The kernel itself is held against
-the twin on the card in ``tests/test_torch_cuda.py``.
+``fused_tcn_block_ad`` on CPU tensors, for both norms. The kernels
+themselves are held against the twin on the card in
+``tests/test_torch_cuda.py``.
 """
 
 import jax
@@ -43,10 +45,11 @@ def _inputs(seed=0):
     return arrs, g
 
 
-def _port_grads(arrs, g, causal, d):
+def _port_grads(arrs, g, causal, d, norm_type):
     args = [torch.from_numpy(arrs[n]) for n in ORDER]
     grads = port_bwd.fused_tcn_block_bwd(
-        args[0], torch.from_numpy(g), *args[1:], dilation=d, causal=causal)
+        args[0], torch.from_numpy(g), *args[1:], dilation=d, causal=causal,
+        norm_type=norm_type)
     return [t.numpy() for t in grads]
 
 
@@ -62,15 +65,16 @@ def _assert_cotangents(got, want, atol):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
 @pytest.mark.parametrize("causal,dilation", [
-    (False, 1), (False, 16), (True, 4), (True, 128)])
-def test_twin_matches_jax_vjp(causal, dilation):
+    (False, 1), (False, 16), (False, 128), (True, 4), (True, 128)])
+def test_twin_matches_jax_vjp(causal, dilation, norm_type):
     """d=128 reaches past both ends of K=300 (SAME) or the start (causal)."""
     arrs, g = _inputs(seed=dilation)
-    got = _port_grads(arrs, g, causal, dilation)
+    got = _port_grads(arrs, g, causal, dilation, norm_type)
 
     def block(*a):
-        return jax_tcn._xla_block((dilation, causal, "gLN"), *a,
+        return jax_tcn._xla_block((dilation, causal, norm_type), *a,
                                   jnp.zeros(H), jnp.ones(H),
                                   jnp.zeros(H), jnp.ones(H))
 
@@ -79,37 +83,43 @@ def test_twin_matches_jax_vjp(causal, dilation):
     _assert_cotangents(got, vjp(jnp.asarray(g)), atol=2e-5)
 
 
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
 @pytest.mark.parametrize("causal,dilation", [(False, 4), (True, 2),
                                              (False, 64)])
-def test_twin_matches_pallas_interpret(causal, dilation):
+def test_twin_matches_pallas_interpret(causal, dilation, norm_type):
     arrs, g = _inputs(seed=100 + dilation)
-    got = _port_grads(arrs, g, causal, dilation)
+    got = _port_grads(arrs, g, causal, dilation, norm_type)
     want = jax_bwd.fused_tcn_block_bwd(
         jnp.asarray(arrs["x"]), jnp.asarray(g),
         *[jnp.asarray(arrs[n]) for n in ORDER[1:]], dilation=dilation,
-        causal=causal, norm_type="gLN", tile=128, interpret=True)
+        causal=causal, norm_type=norm_type, tile=128, interpret=True)
     # the bar of tests/test_pallas.py for the Pallas backward against
     # autodiff (it takes its statistics as E[h^2]-mean^2 in one pass)
     _assert_cotangents(got, want, atol=5e-5)
 
 
-def test_fused_block_ad_matches_jax():
+# cLN takes seed 8: at seed 7 its da1 nearly cancels, and JAX's own two
+# evaluations (Pallas and _xla_block) part by 6.6e-5 of it
+@pytest.mark.parametrize("norm_type,causal,seed", [("gLN", False, 7),
+                                                   ("cLN", True, 8)])
+def test_fused_block_ad_matches_jax(norm_type, causal, seed):
     """Gradients of a scalar loss through the differentiable block, with
     respect to x and all nine weights, against JAX's fused_tcn_block_ad
     (Pallas forward and backward in interpret mode)."""
-    arrs, w = _inputs(seed=7)
-    d, causal = 8, False
+    arrs, w = _inputs(seed=seed)
+    d = 8
 
     def jax_loss(*a):
         out = jax_tcn.fused_tcn_block_ad(
-            *a, dilation=d, causal=causal, norm_type="gLN", tile=128,
+            *a, dilation=d, causal=causal, norm_type=norm_type, tile=128,
             interpret=True, bwd="store")
         return jnp.sum(out * jnp.asarray(w))
 
     want = jax.grad(jax_loss, argnums=tuple(range(10)))(
         *[jnp.asarray(arrs[n]) for n in ORDER])
     prims = [torch.from_numpy(arrs[n]).requires_grad_(True) for n in ORDER]
-    out = port.fused_tcn_block_ad(*prims, dilation=d, causal=causal)
+    out = port.fused_tcn_block_ad(*prims, dilation=d, causal=causal,
+                                  norm_type=norm_type)
     (out * torch.from_numpy(w)).sum().backward()
     got = [p.grad.numpy() for p in prims]
     assert out.dtype == torch.float32 and out.shape == (M, K, B)
@@ -149,32 +159,45 @@ def test_cuda_branch_has_no_fallback(monkeypatch):
 
 @pytest.mark.parametrize("norm_type", ["cLN", "BN"])
 def test_backward_takes_gln_only(norm_type):
+    """The backward takes gLN and cLN: on CPU tensors the cLN wrapper is
+    its twin, with no launch counted; BN raises in the wrapper and in the
+    differentiable block."""
     arrs, g = _inputs(seed=4)
     args = [torch.from_numpy(arrs[n]) for n in ORDER]
-    with pytest.raises(NotImplementedError, match="kernel 3"):
+    kw = dict(dilation=1, causal=True, norm_type=norm_type)
+    if norm_type == "cLN":
+        before = port_bwd.fused_tcn_block_bwd.cln_launches
+        got = port_bwd.fused_tcn_block_bwd(args[0], torch.from_numpy(g),
+                                           *args[1:], **kw)
+        want = port_bwd.fused_tcn_block_bwd_reference(
+            args[0], torch.from_numpy(g), *args[1:], **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert port_bwd.fused_tcn_block_bwd.cln_launches == before
+        return
+    with pytest.raises(NotImplementedError, match="BN blocks train"):
         port_bwd.fused_tcn_block_bwd(args[0], torch.from_numpy(g), *args[1:],
-                                     dilation=1, causal=False,
-                                     norm_type=norm_type)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        port.fused_tcn_block_ad(*args, dilation=1, causal=False,
-                                norm_type=norm_type)
+                                     **kw)
+    with pytest.raises(NotImplementedError, match="BN blocks train"):
+        port.fused_tcn_block_ad(*args, **kw)
 
 
 @pytest.mark.parametrize("norm_type,strict,route", [
     ("gLN", True, "kernel"), ("gLN", False, "kernel"),
-    ("cLN", True, "raise"), ("cLN", False, "plain"),
+    ("cLN", True, "kernel"), ("cLN", False, "kernel"),
     ("BN", True, "plain"), ("BN", False, "plain"),
 ])
 def test_block_training_route_by_norm(monkeypatch, norm_type, strict, route):
-    """A block in training with the kernels in use: gLN runs
-    fused_tcn_block_ad (here on CPU tensors, i.e. the twins), cLN trains
-    through the plain ops and a cLN model with use_pallas=True (``strict``)
-    raises, BN trains through the plain ops with batch statistics; the
-    gradients equal the plain path's."""
+    """A block in training with the kernels in use: gLN and cLN run
+    fused_tcn_block_ad (here on CPU tensors, i.e. the twins), BN trains
+    through the plain ops with batch statistics; the gradients equal the
+    plain path's. A model with use_pallas=True (``strict``) needs CUDA
+    tensors for any norm."""
     from convtasnet_tpu.config import ConvTasNetConfig
     from convtasnet_tpu_torch.models import conv_tasnet as pmodel
 
-    cfg = ConvTasNetConfig(bottleneck=B, hidden=H, norm_type=norm_type)
+    cfg = ConvTasNetConfig(bottleneck=B, hidden=H, norm_type=norm_type,
+                           causal=norm_type == "cLN")
     calls = []
     real = pmodel.fused_tcn_block_ad
     monkeypatch.setattr(pmodel, "fused_tcn_block_ad",
@@ -195,13 +218,6 @@ def test_block_training_route_by_norm(monkeypatch, norm_type, strict, route):
         mixture = torch.from_numpy(
             np.random.default_rng(9).standard_normal((2, 64)).astype(
                 np.float32))
-        if route == "raise":
-            with pytest.raises(NotImplementedError, match="kernel 3"):
-                model(mixture)
-            with torch.no_grad():   # no gradients: not a training call
-                with pytest.raises(ValueError, match="CUDA tensors"):
-                    model(mixture)
-            return
         with pytest.raises(ValueError, match="CUDA tensors"):
             model(mixture)      # the kernels need the card, as in eval
     got = grads(True)

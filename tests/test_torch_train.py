@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from convtasnet_tpu.config import ConvTasNetConfig, SolverConfig
+from convtasnet_tpu.models import conv_tasnet as jmodel
 from convtasnet_tpu.train import train_step as jts
 from convtasnet_tpu_torch.models.jax_params import state_dict_from_jax
 from convtasnet_tpu_torch.train import train_step as pts
@@ -78,6 +79,65 @@ def test_adam_steps_match_jax():
                                    float(jm["grad_norm"]), rtol=1e-5)
         clipped += float(jm["grad_norm"]) > SOLVER.max_grad_norm
         _assert_params(TINY, js, ps)
+    assert clipped >= 1
+    assert ps.step == int(js.step) == 3
+
+
+def _assert_grads_match(cfg, js, ps, b):
+    """The port's gradient at the shared weights against ``jax.grad`` of
+    the JAX step's loss, to 1e-5 relative L2: every multi-element leaf,
+    and the scalar PReLU slopes as one vector (each slope's gradient is a
+    sum of cancelling terms, 1e-5 from JAX's alone at these inputs)."""
+    model = jmodel.ConvTasNet(cfg)
+    jgrads = jax.jit(lambda p, s, bb: jts._loss_and_grads(
+        model, p, s, bb, 0)[2])(js.params, js.batch_stats, _jax(b))
+    want = state_dict_from_jax(jax.device_get(
+        {"params": jgrads, "batch_stats": js.batch_stats}), cfg)
+    pts._loss_and_grads(ps.model, _torch(b), 0)
+    got = {k: p.grad.double() for k, p in ps.model.named_parameters()}
+    assert set(got) <= set(want) and len(got) > 0
+    slopes = [k for k in got if got[k].numel() == 1]
+    leaves = {k: (got[k], want[k].double()) for k in got if k not in slopes}
+    leaves["the PReLU slopes"] = (
+        torch.stack([got[k].reshape(()) for k in slopes]),
+        torch.stack([want[k].double().reshape(()) for k in slopes]))
+    for k, (g, w) in leaves.items():
+        err = float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w).clamp_min(1e-30))
+        assert err <= 1e-5, f"{k}: relative L2 {err:.3g}"
+
+
+def test_causal_cln_adam_steps_match_jax():
+    """Three Adam steps of the causal cLN model (the streaming model),
+    clipping engaged, at the gLN case's bars. Its clipped gradient has
+    elements near Adam's eps, whose updates follow the f32 summation
+    order: at lr 1e-3 the two frameworks' weights part after two steps
+    enough that the third step's gradient norm moves by 1.8e-5, and that
+    step's gradients disagree by 4e-5 even at shared weights (the noise
+    ``tests/test_torch_dpt_train.py`` describes). So, as there, lr is 1e-4,
+    each step starts the port from the JAX step's parameters, and the
+    gradient is held against ``jax.grad`` at the shared weights first."""
+    import dataclasses
+
+    cfg = dataclasses.replace(TINY, norm_type="cLN", causal=True)
+    js, tx, ps = _pair(cfg=cfg, solver=dataclasses.replace(SOLVER, lr=1e-4),
+                       seed=8)
+    jstep = jts.make_train_step(cfg, tx, donate=False)
+    pstep = pts.make_train_step()
+    clipped = 0
+    for i in range(3):
+        b = _batch(90 + i)
+        _assert_grads_match(cfg, js, ps, b)
+        js, jm = jstep(js, _jax(b))
+        ps, pm = pstep(ps, _torch(b))
+        np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(pm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-5)
+        clipped += float(jm["grad_norm"]) > SOLVER.max_grad_norm
+        _assert_params(cfg, js, ps)
+        ps.model.load_state_dict(state_dict_from_jax(jax.device_get(
+            {"params": js.params, "batch_stats": js.batch_stats}), cfg))
     assert clipped >= 1
     assert ps.step == int(js.step) == 3
 
