@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's TCN (gLN and causal cLN) and dual-path (DPT)
-serving and training paths and its streaming separator on one NVIDIA GPU,
-and check them.
+"""Drive the PyTorch port's TCN (gLN and causal cLN, blocks singly and as
+block pairs) and dual-path (DPT) serving and training paths and its
+streaming separator on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -22,35 +22,48 @@ Phases, each raising on failure (so the script exits nonzero):
    within the JAX train gate (loss = sum of the output, twice the
    forward's bars: 8e-2 / 4e-3); and with a random cotangent, against
    the exact (f32) cotangents: all ten within 4e-3 in f32, the eight
-   besides the two PReLU slopes within 8e-2 in bf16;
+   besides the two PReLU slopes within 8e-2 in bf16; then the block pair:
+   kernel B4 against its twin for each pair of dilations (1, 2) .. (64,
+   128), gLN non-causal and cLN causal (and the other two at (4, 8)), at
+   the JAX pair gate (6e-2 / 3e-3), and kernel B5 (the gLN pair backward)
+   at kernel 2's gates on all 19 cotangents (the four PReLU slopes as one
+   vector; one by one in f32 with every slope at 1, where no PReLU branch
+   can flip), twice to the same bits; B4 equals two chained kernel-1 calls
+   and B5 chained kernels 1 + 2 + 2, to the bit;
 5. the three DPT sublayer kernels (inter, intra, FFN) against their twins
    at the DPT quality default's widths ([8, n, 128, 256], 8 heads, F=1024)
    with the real key mask, n = 1 (100 real frames), 25 (4 s) and 94
    (15 s), bf16 and f32, on the valid rows: 4e-2 in bf16, and in f32
    1e-5, tighter than the probe gate's 2e-3 because only the summation
-   order differs there; then their backward kernels (B8, B10, B12) at the
-   same shapes with a random cotangent zero on the padded rows: every
+   order differs there, and in f32 on rows of variance ~1e-3, where an LN
+   eps off by 10x moves the output by ~4.5e-3; then their backward kernels
+   (B8, B10, B12) at the same shapes, the intra one also at 256-frame
+   chunks, with a random cotangent zero on the padded rows: every
    cotangent (dx on the valid rows) against the twin's exact f32
    cotangents, in f32 within 1e-5 (the kernels read <= 1.5e-6), in bf16
    within 4e-2 of the bf16 twin and no further from exact than
    max(4e-2, 1.25x the bf16 twin's own distance);
 6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
-   once through the kernel and once through the plain ops: 12 wavs each,
-   finite and of the right length, the kernel launched 32 times per batch,
-   and the two paths' outputs within the forward bars;
+   through the block pairs (``CONVTASNET_PAIR_FUSION=1``: B4 16 times per
+   batch), through the single blocks (``=0``: kernel 1 32 times) and
+   through the plain ops: 12 wavs each, finite and of the right length,
+   the kernel paths within the forward bars of the plain path and equal to
+   each other;
 7. the training path: ``cli preprocess`` and ``cli train`` in process on a
    seeded two-speaker wav corpus at the paper config, bf16,
-   ``--use-pallas 1``, one epoch of 4 steps at batch 8 and a cv pass:
-   every step's loss finite, kernels 1 and 2 launched 32 times per step,
-   kernel 1 32 times per cv batch, and the best-model package separating
-   a mixture on the card (32 launches per batch); then the same with
-   ``--norm-type cLN --causal 1``: kernels 1 and 3 32 times per step
-   (kernel 2 never), and its package serving on the card offline
-   (``separate``, 32 launches of kernel 1 per batch), ``cli separate
-   --streaming 1`` and ``cli stream-demo`` (finite wavs of the right
-   length; the streaming step launches no kernel, as the JAX one reaches
-   no Pallas kernel);
+   ``--use-pallas 1``, one epoch of 4 steps at batch 8 and a cv pass, with
+   pairs on (B4 and B5 16 times per step, B4 16 times per cv batch, no
+   kernel 1 or 2) and off (kernels 1 and 2 32 times per step, kernel 1 32
+   times per cv batch): every step's loss finite, and the best-model
+   package separating a mixture on the card; then, pairs on, the same with
+   ``--norm-type cLN --causal 1``: kernels 1 and 3 32 times per step (a
+   cLN pair trains as two blocks; kernel 2 and B5 never), B4 16 times per
+   cv batch, and its package serving on the card offline (``separate``
+   with pairs on, 16 launches of B4 per batch, and off, 32 of kernel 1),
+   ``cli separate --streaming 1`` and ``cli
+   stream-demo`` (finite wavs of the right length; the streaming step
+   launches no kernel, as the JAX one reaches no Pallas kernel);
 8. the DPT serving path: the quality-default forward in bf16 at
    B=8 x 4 s, kernel path against plain path within 4e-2, 4 inter, 4
    intra and 8 FFN launches per forward; then ``cli separate`` and
@@ -67,8 +80,9 @@ Phases, each raising on failure (so the script exits nonzero):
    causal cLN norm: two 4 s mixtures in 8 ms chunks rounded down to whole
    hops (7.5 ms), the stream plus its flush against the offline causal
    forward on the left-padded input, the plain path within STREAM_TOL and
-   the kernel path within 2e-3; ``stream_demo`` at 8 ms, its wav against
-   the stream within one PCM-16 step, and its latencies;
+   the kernel path within 2e-3 with pairs on (16 B4) and off (32 kernel
+   1), the two the same bits; ``stream_demo`` at 8 ms, its wav against the
+   stream within one PCM-16 step, and its latencies;
 10. one train step's loss and gradients, kernel path against plain path,
    from the same init and batch (B=4 x 4 s, two batch seeds), for the
    TCN paper config, its causal cLN variant and the DPT quality default:
@@ -77,12 +91,18 @@ Phases, each raising on failure (so the script exits nonzero):
    such as an all-zero gradient, fails) and the PReLU slopes within 4e-3
    as one vector (the TCN's; the DPT has no scalar leaves); in bf16 the
    loss within 4e-2 and the kernel path's gradient no further from the
-   f32 gradient than max(8e-2, 1.25x the plain bf16 path's);
+   f32 gradient than max(8e-2, 1.25x the plain bf16 path's); the gLN
+   kernel path with pairs on and off (the same gradient bits), each
+   kernel's launches exact; and one bf16 DPT step with 256-frame chunks,
+   the intra backward at S = 256;
 11. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
-   B=8 x 4 s and the bf16 train step (forward + backward + optimizer) at
-   B=8 x 4 s, kernel path and plain path, for the paper config and its
-   causal cLN variant; the kernel path's train step at B=24 x 4 s; each
-   TCN kernel against its twin per dilation (kernel 3 causal); each DPT
+   B=8 and B=24 x 4 s and the bf16 train step (forward + backward +
+   optimizer) at B=8 x 4 s, kernel path with pairs on and off and plain
+   path, with peak memory, for the paper config, and the kernel and plain
+   steps of its causal cLN variant; the kernel paths' train step at B=24 x
+   4 s; each TCN kernel against its twin per dilation (kernel 3 causal);
+   B4 and B5 against two kernel-1 (kernel-2) calls and their twins per
+   pair of dilations; each DPT
    kernel, forward and backward, against its twin at [8, 25, 128, 256];
    the DPT forward and the DPT train step at B=8 x 4 s, kernel path and
    plain path (the steps with each path's peak memory); each kernel's
@@ -122,6 +142,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 GRAD_NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
               "dg1", "db1", "dg2", "db2")
+# a block pair's gate: 1.5x the block's, as JAX's _pair_numerics_tol
+PAIR_TOL = {k: 1.5 * v for k, v in TOL.items()}
+PAIRS = [(1, 2), (4, 8), (16, 32), (64, 128)]
+PAIR_GRAD_NAMES = ("dx",) + tuple(
+    f"{n}_{blk}" for blk in ("a", "b") for n in GRAD_NAMES[1:])
+# the launch counters of the TCN kernels: name -> (module key, wrapper,
+# counter)
+TCN_COUNTERS = {"b1": ("tcn", "fused_tcn_block", "launches"),
+                "b2": ("bwd", "fused_tcn_block_bwd", "launches"),
+                "b3": ("bwd", "fused_tcn_block_bwd", "cln_launches"),
+                "b4": ("pair", "fused_tcn_block_pair", "launches"),
+                "b5": ("pair_bwd", "fused_tcn_block_pair_bwd", "launches")}
 
 
 def rel_l2(got, want) -> float:
@@ -160,6 +192,58 @@ def block_inputs(torch, dtype, dilation_seed: int, M=8, K=3199, B=256,
     g1, g2 = 1.0 + 0.1 * rn(H), 1.0 + 0.1 * rn(H)
     b1, b2 = 0.1 * rn(H), 0.1 * rn(H)
     return (x, w_in, dw, w_out, a1, a2, g1, b1, g2, b2)
+
+
+def tcn_modules():
+    """The TCN kernels' wrapper modules, as the launch counters read them."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block, tcn_block_bwd
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_pair
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_pair_bwd
+
+    return {"tcn": tcn_block, "bwd": tcn_block_bwd, "pair": tcn_block_pair,
+            "pair_bwd": tcn_block_pair_bwd}
+
+
+def tcn_reset(k) -> None:
+    for mod, fn, attr in TCN_COUNTERS.values():
+        setattr(getattr(k[mod], fn), attr, 0)
+
+
+def tcn_counts(k) -> dict:
+    return {name: getattr(getattr(k[mod], fn), attr)
+            for name, (mod, fn, attr) in TCN_COUNTERS.items()}
+
+
+def tcn_want(**nonzero) -> dict:
+    """Expected TCN launch counts: the named ones, every other 0."""
+    return {**dict.fromkeys(TCN_COUNTERS, 0), **nonzero}
+
+
+class pair_switch:
+    """CONVTASNET_PAIR_FUSION set to 1 (blocks run as pairs) or 0 (every
+    block singly) inside the block."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.old = os.environ.get("CONVTASNET_PAIR_FUSION")
+        os.environ["CONVTASNET_PAIR_FUSION"] = "1" if self.on else "0"
+        return self
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("CONVTASNET_PAIR_FUSION", None)
+        else:
+            os.environ["CONVTASNET_PAIR_FUSION"] = self.old
+
+
+def pair_inputs(torch, dtype, d1: int, a2b=0.25):
+    """A pair's seeded operands at the serving shape: x and the two
+    blocks' nine weights (block 2's second slope a2b)."""
+    x, *pa = block_inputs(torch, dtype, d1)
+    _, *pb = block_inputs(torch, dtype, 500 + d1, a2=a2b)
+    return x, pa, pb
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -294,6 +378,238 @@ def phase_bwd_vs_twin(torch, bwd, norm: str = "gLN"):
     return worst_abs
 
 
+def phase_pair_vs_twin(torch, k):
+    """Kernel B4 (the block pair) against its twin at the serving shape for
+    each pair (1, 2), (4, 8), (16, 32), (64, 128): gLN non-causal and cLN
+    causal, plus gLN causal and cLN non-causal at (4, 8), bf16 and f32, at
+    the JAX pair gate (1.5x the block's: 6e-2 / 3e-3). Beside it, B4
+    against two chained kernel-1 calls, which run the same code on the same
+    operands: the same bits. Every case is printed before the phase fails;
+    returns the worst max_abs_err against the twin."""
+    pair, tcn = k["pair"], k["tcn"]
+    cases = ([(d1, d2, "gLN", False) for d1, d2 in PAIRS]
+             + [(d1, d2, "cLN", True) for d1, d2 in PAIRS]
+             + [(4, 8, "gLN", True), (4, 8, "cLN", False)])
+    worst, failures = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for d1, d2, norm, causal in cases:
+            x, pa, pb = pair_inputs(torch, dtype, d1)
+            kw = dict(d1=d1, d2=d2, causal=causal, norm_type=norm)
+            got = pair.fused_tcn_block_pair(x, pa, pb, **kw)
+            torch.cuda.synchronize()
+            want = pair.fused_tcn_block_pair_reference(x, pa, pb, **kw)
+            x1 = tcn.fused_tcn_block(x, *pa, dilation=d1, causal=causal,
+                                     norm_type=norm)
+            two = tcn.fused_tcn_block(x1, *pb, dilation=d2, causal=causal,
+                                      norm_type=norm)
+            torch.cuda.synchronize()
+            err = rel_l2(got, want)
+            abs_err = (got.float() - want.float()).abs().max().item()
+            vs_two = (got.float() - two.float()).abs().max().item()
+            worst = max(worst, abs_err)
+            print(f"pair kernel vs twin [8,3199,256] H=512 {norm} causal="
+                  f"{int(causal)} {name} d=({d1},{d2}): rel_l2 {err:.3e} (bar "
+                  f"{PAIR_TOL[name]:.0e}) max_abs {abs_err:.3e}; vs two "
+                  f"kernel-1 calls max_abs {vs_two:.3e}", flush=True)
+            if not torch.isfinite(got).all().item() or err > PAIR_TOL[name]:
+                failures.append(f"{norm} causal={int(causal)} {name} "
+                                f"d=({d1},{d2}): {err:.3e}")
+            if vs_two != 0.0:
+                failures.append(f"{norm} {name} d=({d1},{d2}): not the bits "
+                                f"of two kernel-1 calls ({vs_two:.3e})")
+    check(not failures, "pair kernel disagrees: " + "; ".join(failures))
+    return worst
+
+
+def pair_grads(out):
+    """(dx, grads_a, grads_b) as one flat tuple of 19."""
+    return (out[0], *out[1], *out[2])
+
+
+def f64_pair_cotangents(torch, x, g, pa, pb, d1: int, d2: int,
+                        causal: bool):
+    """The gLN pair's 19 cotangents with every product and statistic in
+    float64 (autograd through the block's math): the witness that says
+    which of two f32 evaluations sits nearer the value."""
+    from convtasnet_tpu_torch.ops.conv import depthwise_conv1d, prelu
+    from convtasnet_tpu_torch.ops.norm import global_layer_norm
+
+    def block(y, p, d):
+        w_in, dw, w_out, a1, a2, g1, b1, g2, b2 = p
+        h = global_layer_norm(prelu(y @ w_in, a1), g1, b1)
+        h = global_layer_norm(prelu(depthwise_conv1d(h, dw, d, causal), a2),
+                              g2, b2)
+        return y + h @ w_out
+
+    prims = [t.detach().double().requires_grad_(True)
+             for t in (x, *pa, *pb)]
+    with torch.enable_grad():
+        out = block(block(prims[0], prims[1:10], d1), prims[10:], d2)
+        cots = torch.autograd.grad(out, prims, g.double())
+    return cots[0], cots[1:10], cots[10:]
+
+
+def phase_pair_bwd_vs_twin(torch, k):
+    """Kernel B5 (the gLN pair backward) against its twin on all 19
+    cotangents at the serving shape, for each pair non-causal, causal at
+    (4, 8), and one case with block 2's second slope negative, at kernel
+    2's gates: the JAX train gate (g = 1, against the twin in the same
+    dtype, 8e-2 / 4e-3) and a random cotangent against exact f32 (within
+    4e-3 in f32; in bf16 the 15 besides the four slopes within 8e-2, the
+    bf16 twin's own distance printed beside). dx and the 14 weight and
+    affine gradients are held each, the four PReLU-slope gradients as one
+    vector, as the train-step comparison holds a model's: each is a sum of
+    M*K*H cancelling terms, block 1's taken through block 2's backward,
+    and a pre-activation within rounding of 0 that the two evaluations put
+    on opposite PReLU branches moves one by 1e-2 in f32
+    (``scripts/tcn_bwd_outliers.py``); each slope's reading is printed.
+    In f32 each slope's distance from a float64 evaluation is printed for
+    kernel and twin. Then at each pair in f32 with every slope at 1, where
+    no branch flip moves a slope gradient, all 19 one by one against exact
+    f32 and against float64, at 4e-3.
+    B5 run twice gives the same bits, and equals chained kernel 1 + 2 + 2
+    (block 2's backward at x1, then block 1's at its cotangent) to the bit:
+    kernel 2's own gates hold each block. Every case is printed before the
+    phase fails; returns the worst max_abs_err against the twin (g = 1)."""
+    pair_bwd, tcn, bwd = k["pair_bwd"], k["tcn"], k["bwd"]
+    cases = ([(d1, d2, False, 0.25) for d1, d2 in PAIRS]
+             + [(4, 8, True, 0.25), (1, 2, False, -0.1)])
+    slopes = [n for n in PAIR_GRAD_NAMES if n.startswith(("da1", "da2"))]
+    worst, worst_at, failures = 0.0, "", []
+
+    def errors(got, want):
+        """Relative L2 of each cotangent but the slopes, and of the four
+        slopes as one vector ("slopes")."""
+        q = dict(zip(PAIR_GRAD_NAMES, pair_grads(got)))
+        r = dict(zip(PAIR_GRAD_NAMES, pair_grads(want)))
+        errs = {n: rel_l2(q[n], r[n]) for n in PAIR_GRAD_NAMES
+                if n not in slopes}
+        errs["slopes"] = rel_l2(torch.stack([q[n].reshape(()) for n in slopes]),
+                                torch.stack([r[n].reshape(()) for n in slopes]))
+        return errs
+
+    def per_slope(got, want):
+        q = dict(zip(PAIR_GRAD_NAMES, pair_grads(got)))
+        r = dict(zip(PAIR_GRAD_NAMES, pair_grads(want)))
+        return " ".join(f"{n} {rel_l2(q[n], r[n]):.2e}" for n in slopes)
+
+    def fmt(errs):
+        top = max(errs, key=errs.get)
+        return f"{errs[top]:.3e} ({top})"
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for d1, d2, causal, a2b in cases:
+            x, pa, pb = pair_inputs(torch, dtype, d1, a2b=a2b)
+            kw = dict(d1=d1, d2=d2, causal=causal)
+            g = torch.ones_like(x)
+            got = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+            torch.cuda.synchronize()
+            want = pair_bwd.fused_tcn_block_pair_bwd_reference(x, g, pa, pb,
+                                                               **kw)
+            for gname, q, r in zip(PAIR_GRAD_NAMES, pair_grads(got),
+                                   pair_grads(want)):
+                check(q.shape == r.shape and q.dtype == r.dtype,
+                      f"{gname}: {q.shape} {q.dtype} vs {r.shape} {r.dtype}")
+                abs_err = (q.float() - r.float()).abs().max().item()
+                if abs_err > worst:
+                    worst = abs_err
+                    worst_at = (f"{gname} {name} d=({d1},{d2}), where max "
+                                f"|twin| is {r.float().abs().max().item():.3e}")
+            gate = errors(got, want)
+            gate_slopes = per_slope(got, want)
+
+            g = torch.randn(x.shape, generator=torch.Generator(
+                device="cuda").manual_seed(2000 + d1), device="cuda").to(dtype)
+            got = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+            again = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+            exact = pair_bwd.fused_tcn_block_pair_bwd_reference(
+                x.float(), g.float(), [t.float() for t in pa],
+                [t.float() for t in pb], **kw)
+            twin = (pair_bwd.fused_tcn_block_pair_bwd_reference(
+                x, g, pa, pb, **kw) if dtype == torch.bfloat16 else exact)
+            x1 = tcn.fused_tcn_block(x, *pa, dilation=d1, causal=causal,
+                                     norm_type="gLN")
+            dx1, *wb = bwd.fused_tcn_block_bwd(x1, g, *pb, dilation=d2,
+                                               causal=causal)
+            dx0, *wa = bwd.fused_tcn_block_bwd(x, dx1, *pa, dilation=d1,
+                                               causal=causal)
+            torch.cuda.synchronize()
+            flat, chained = pair_grads(got), (dx0, *wa, *wb)
+            repeat = all(torch.equal(u, v)
+                         for u, v in zip(flat, pair_grads(again)))
+            vs_chain = max((u.float() - v.float()).abs().max().item()
+                           for u, v in zip(flat, chained))
+            if not all(torch.isfinite(q).all().item() for q in flat):
+                failures.append(f"non-finite cotangent at d=({d1},{d2}) "
+                                f"{name}")
+            k_err = errors(got, exact)
+            held = {n: v for n, v in k_err.items()
+                    if dtype == torch.float32 or n != "slopes"}
+            witness = ""
+            if dtype == torch.float32:
+                f64 = f64_pair_cotangents(torch, x, g, pa, pb, d1, d2, causal)
+                witness = (f" (vs float64: kernel {per_slope(got, f64)}; "
+                           f"twin {per_slope(exact, f64)})")
+            print(f"pair bwd kernel vs twin [8,3199,256] H=512 gLN {name} "
+                  f"d=({d1},{d2}) causal={int(causal)} a2b={a2b}: gate (g=1) "
+                  f"{fmt(gate)} (each slope {gate_slopes}), bar "
+                  f"{BWD_TOL[name]:.0e}; random g vs exact: kernel "
+                  f"{fmt(k_err)}, held {fmt(held)}, dx {k_err['dx']:.3e} "
+                  f"(each slope {per_slope(got, exact)}){witness}"
+                  + (f", {name} twin {fmt(errors(twin, exact))} (each slope "
+                     f"{per_slope(twin, exact)})"
+                     if dtype == torch.bfloat16 else "")
+                  + f"; twice the same bits {repeat}; vs chained kernels "
+                  f"1+2+2 max_abs {vs_chain:.3e}", flush=True)
+            if max(gate.values()) > BWD_TOL[name]:
+                failures.append(f"g=1 gate at d=({d1},{d2}) {name}: "
+                                f"{fmt(gate)}")
+            if max(held.values()) > BWD_TOL[name]:
+                failures.append(f"random g at d=({d1},{d2}) {name}: "
+                                f"{fmt(held)}")
+            if not repeat:
+                failures.append(f"two runs differ at d=({d1},{d2}) {name}")
+            if vs_chain != 0.0:
+                failures.append(f"not the bits of chained kernels 1+2+2 at "
+                                f"d=({d1},{d2}) {name} ({vs_chain:.3e})")
+    for d1, d2 in PAIRS:
+        # every slope at 1: PReLU is the identity, so no branch flip moves a
+        # slope gradient, and all 19 are held one by one in f32
+        x, pa, pb = pair_inputs(torch, torch.float32, d1)
+        for p in (pa, pb):
+            p[3] = p[4] = torch.ones_like(p[3])
+        kw = dict(d1=d1, d2=d2, causal=False)
+        g = torch.randn(x.shape, generator=torch.Generator(
+            device="cuda").manual_seed(3000 + d1), device="cuda")
+        got = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+        exact = pair_bwd.fused_tcn_block_pair_bwd_reference(x, g, pa, pb,
+                                                            **kw)
+        f64 = f64_pair_cotangents(torch, x, g, pa, pb, d1, d2, False)
+        torch.cuda.synchronize()
+        each = {n: rel_l2(q, r) for n, q, r in zip(
+            PAIR_GRAD_NAMES, pair_grads(got), pair_grads(exact))}
+        each64 = {n: rel_l2(q, r) for n, q, r in zip(
+            PAIR_GRAD_NAMES, pair_grads(got), pair_grads(f64))}
+        print(f"pair bwd kernel vs twin [8,3199,256] H=512 gLN float32 "
+              f"d=({d1},{d2}) slopes at 1, random g, each of the 19: "
+              f"{fmt(each)} (each slope {per_slope(got, exact)}); vs "
+              f"float64: kernel {fmt(each64)} (each slope "
+              f"{per_slope(got, f64)}), twin each slope "
+              f"{per_slope(exact, f64)}; bar {BWD_TOL['float32']:.0e}",
+              flush=True)
+        for ref, errs in (("twin", each), ("float64", each64)):
+            if max(errs.values()) > BWD_TOL["float32"]:
+                failures.append(f"slopes at 1 at d=({d1},{d2}) vs {ref}: "
+                                f"{fmt(errs)}")
+    print(f"pair bwd kernel vs twin (g=1): max_abs_err {worst:.3e} at "
+          f"{worst_at}", flush=True)
+    check(not failures, "pair backward kernel disagrees with its twin: "
+          + "; ".join(failures))
+    return worst
+
+
 def write_corpus(root: str, split: str, n: int, rng, lo_s: float,
                  hi_s: float):
     """Seeded two-"speaker" utterances of lo_s..hi_s seconds: an
@@ -332,87 +648,103 @@ def check_wavs(out_dir: str, mix_dir: str) -> None:
                   and np.isfinite(y).all(), f"bad separated {name} s{c}")
 
 
-def phase_train_path(torch, tcn, bwd, work: str):
-    """``cli preprocess`` + ``cli train`` at the paper config, bf16, the
-    kernels forced on; then ``separate`` with the best model."""
+def make_corpus(work: str):
+    """The seeded two-speaker corpus of the train phases, preprocessed:
+    16 utterances of 4.2-6 s (2 segments of 4 s each, 4 batches of 8) and
+    2 cv utterances. Returns (data dir, json dir)."""
     import numpy as np
 
+    from convtasnet_tpu_torch import cli
+
+    rng = np.random.default_rng(1)
+    data = os.path.join(work, "corpus")
+    write_corpus(data, "tr", 16, rng, 4.2, 6.0)
+    write_corpus(data, "cv", 2, rng, 4.0, 6.0)
+    json_dir = os.path.join(work, "json")
+    check(cli.main(["preprocess", "--data-dir", data, "--out-dir",
+                    json_dir]) == 0, "preprocess failed")
+    return data, json_dir
+
+
+def phase_train_path(torch, k, work: str, data: str, json_dir: str,
+                     pairs: bool = True):
+    """``cli train`` at the paper config, bf16, the kernels forced on, pairs
+    on or off; then ``separate`` with the best model. Per step, pairs on:
+    16 launches of B4 and of B5 and none of kernels 1 and 2; pairs off: 32
+    of kernels 1 and 2; per cv batch and per separated batch the forward
+    kernel of the state (16 B4 or 32 kernel 1). Returns the launch counts
+    of the train run."""
     from convtasnet_tpu_torch import cli
     from convtasnet_tpu_torch.infer.separate import separate
 
     n_blocks, n_cv = 32, 2
-    rng = np.random.default_rng(1)
-    data = os.path.join(work, "corpus")
-    # 16 utterances of 4.2-6 s: 2 segments of 4 s each, 4 batches of 8
-    write_corpus(data, "tr", 16, rng, 4.2, 6.0)
-    write_corpus(data, "cv", n_cv, rng, 4.0, 6.0)
-    json_dir = os.path.join(work, "json")
-    check(cli.main(["preprocess", "--data-dir", data, "--out-dir",
-                    json_dir]) == 0, "preprocess failed")
-    out = os.path.join(work, "exp")
+    state = "pairs on" if pairs else "pairs off"
+    out = os.path.join(work, f"exp_{'pairs' if pairs else 'singles'}")
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
-    tcn.fused_tcn_block.launches = 0
-    bwd.fused_tcn_block_bwd.launches = 0
-    bwd.fused_tcn_block_bwd.cln_launches = 0
+    tcn_reset(k)
     t0 = time.perf_counter()
-    rc = cli.main([
-        "train", "--train-dir", os.path.join(json_dir, "tr"),
-        "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder", out,
-        "--device", "cuda", "--compute-dtype", "bfloat16",
-        "--use-pallas", "1", "--epochs", "1", "--batch-size", "8",
-        "--print-freq", "1"])
+    with pair_switch(pairs):
+        rc = cli.main([
+            "train", "--train-dir", os.path.join(json_dir, "tr"),
+            "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
+            out, "--device", "cuda", "--compute-dtype", "bfloat16",
+            "--use-pallas", "1", "--epochs", "1", "--batch-size", "8",
+            "--print-freq", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd_n = tcn.fused_tcn_block.launches
-    bwd_n = bwd.fused_tcn_block_bwd.launches
-    check(rc == 0, f"cli train returned {rc}")
+    counts = tcn_counts(k)
+    check(rc == 0, f"cli train ({state}) returned {rc}")
     with open(os.path.join(out, "history.jsonl")) as f:
         records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in records if r["kind"] == "iter"]
     n_steps = len(losses)
-    print(f"cli train (paper config, bf16, --use-pallas 1): {n_steps} "
-          f"steps, losses {[round(x, 4) for x in losses]}, cv loss "
+    print(f"cli train (paper config, bf16, --use-pallas 1, {state}): "
+          f"{n_steps} steps, losses {[round(x, 4) for x in losses]}, cv loss "
           f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
-          f"kernel 1 launches {fwd_n}, kernel 2 launches {bwd_n}, "
-          f"{wall:.1f} s wall", flush=True)
+          f"launches {counts}, {wall:.1f} s wall", flush=True)
     check(n_steps == 4, f"{n_steps} train steps, expected 4")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    check(bwd_n == n_blocks * n_steps,
-          f"kernel 2 launched {bwd_n}x, expected {n_blocks} x {n_steps}")
-    check(bwd.fused_tcn_block_bwd.cln_launches == 0,
-          "the gLN model launched kernel 3")
-    check(fwd_n == n_blocks * (n_steps + n_cv),
-          f"kernel 1 launched {fwd_n}x, expected {n_blocks} x "
-          f"({n_steps} steps + {n_cv} cv batches)")
+    if pairs:
+        want = tcn_want(b4=n_blocks // 2 * (n_steps + n_cv),
+                        b5=n_blocks // 2 * n_steps)
+    else:
+        want = tcn_want(b1=n_blocks * (n_steps + n_cv), b2=n_blocks * n_steps)
+    check(counts == want, f"cli train ({state}) launched {counts}, expected "
+          f"{want} ({n_steps} steps + {n_cv} cv batches)")
 
     pkg = os.path.join(out, "final.ckpt")
     check(os.path.exists(pkg), "no best-model package written")
-    sep_dir = os.path.join(work, "sep_trained")
-    tcn.fused_tcn_block.launches = 0
-    n = separate(pkg, sep_dir, mix_dir=os.path.join(data, "cv", "mix"),
-                 batch_size=n_cv, device="cuda")
+    sep_dir = os.path.join(work, f"sep_trained_{'pairs' if pairs else 'singles'}")
+    tcn_reset(k)
+    with pair_switch(pairs):
+        n = separate(pkg, sep_dir, mix_dir=os.path.join(data, "cv", "mix"),
+                     batch_size=n_cv, device="cuda")
     os.environ.pop("CONVTASNET_SEGMENT_CACHE")
     torch.cuda.synchronize()
-    sep_launches = tcn.fused_tcn_block.launches
-    check(n == n_cv and sep_launches == n_blocks,
-          f"separate with the trained package: {n} utterances, "
-          f"{sep_launches} launches")
+    sep = tcn_counts(k)
+    want_sep = (tcn_want(b4=n_blocks // 2) if pairs
+                else tcn_want(b1=n_blocks))
+    check(n == n_cv and sep == want_sep,
+          f"separate with the trained package ({state}): {n} utterances, "
+          f"launches {sep}, expected {want_sep}")
     check_wavs(sep_dir, os.path.join(data, "cv", "mix"))
-    print(f"separate with the trained package: {n} utterances, kernel 1 "
-          f"launches {sep_launches} (1 batch)", flush=True)
-    return fwd_n, bwd_n, data, json_dir
+    print(f"separate with the trained package ({state}): {n} utterances, "
+          f"launches {sep} (1 batch)", flush=True)
+    return counts
 
 
-def phase_cln_train_path(torch, tcn, bwd, work: str, data: str,
-                         json_dir: str):
+def phase_cln_train_path(torch, k, work: str, data: str, json_dir: str):
     """``cli train --norm-type cLN --causal 1`` at the paper widths, bf16,
-    ``--use-pallas 1``, on the corpus ``phase_train_path`` wrote: one epoch
-    of 4 steps at batch 8 and a cv pass. Every loss finite; kernels 1 and 3
-    launched 32 times per step (kernel 2 never), kernel 1 32 times per cv
-    batch. Then the best-model package serves on the card: offline
-    ``separate`` through kernel 1 (32 launches per batch), ``cli separate
-    --streaming 1`` and ``cli stream-demo`` (the plain streaming step, no
-    kernel launch). Returns kernel 3's launches."""
+    ``--use-pallas 1``, pairs on, on the corpus of ``make_corpus``: one
+    epoch of 4 steps at batch 8 and a cv pass. Every loss finite; kernels 1
+    and 3 launched 32 times per step (kernel 2 and the pair kernels never:
+    a cLN pair trains as two blocks, as in JAX), the pair kernel B4 16
+    times per cv batch (a forward without gradients pairs its blocks). Then
+    the best-model package serves on the card: offline ``separate`` with
+    the pairs on (16 launches of B4 per batch) and off (32 of kernel 1),
+    ``cli separate --streaming 1`` and ``cli stream-demo`` (the plain
+    streaming step, no kernel launch). Returns the launch counts of the
+    train run."""
     import contextlib
     import io
 
@@ -425,21 +757,18 @@ def phase_cln_train_path(torch, tcn, bwd, work: str, data: str,
     n_blocks, n_cv = 32, 2
     out = os.path.join(work, "exp_cln")
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
-    tcn.fused_tcn_block.launches = 0
-    bwd.fused_tcn_block_bwd.launches = 0
-    bwd.fused_tcn_block_bwd.cln_launches = 0
+    tcn_reset(k)
     t0 = time.perf_counter()
-    rc = cli.main([
-        "train", "--train-dir", os.path.join(json_dir, "tr"),
-        "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder", out,
-        "--device", "cuda", "--norm-type", "cLN", "--causal", "1",
-        "--compute-dtype", "bfloat16", "--use-pallas", "1", "--epochs", "1",
-        "--batch-size", "8", "--print-freq", "1"])
+    with pair_switch(True):
+        rc = cli.main([
+            "train", "--train-dir", os.path.join(json_dir, "tr"),
+            "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
+            out, "--device", "cuda", "--norm-type", "cLN", "--causal", "1",
+            "--compute-dtype", "bfloat16", "--use-pallas", "1", "--epochs",
+            "1", "--batch-size", "8", "--print-freq", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd_n = tcn.fused_tcn_block.launches
-    gln_n = bwd.fused_tcn_block_bwd.launches
-    cln_n = bwd.fused_tcn_block_bwd.cln_launches
+    counts = tcn_counts(k)
     check(rc == 0, f"cli train --norm-type cLN --causal 1 returned {rc}")
     with open(os.path.join(out, "history.jsonl")) as f:
         records = [json.loads(line) for line in f]
@@ -448,32 +777,36 @@ def phase_cln_train_path(torch, tcn, bwd, work: str, data: str,
     print(f"cli train (paper widths, cLN causal, bf16, --use-pallas 1): "
           f"{n_steps} steps, losses {[round(x, 4) for x in losses]}, cv loss "
           f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
-          f"kernel 1 launches {fwd_n}, kernel 3 launches {cln_n}, kernel 2 "
-          f"launches {gln_n}, {wall:.1f} s wall", flush=True)
+          f"launches {counts}, {wall:.1f} s wall", flush=True)
     check(n_steps == 4, f"{n_steps} train steps, expected 4")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    check(cln_n == n_blocks * n_steps and gln_n == 0,
-          f"kernel 3 launched {cln_n}x and kernel 2 {gln_n}x, expected "
-          f"{n_blocks} x {n_steps} and 0")
-    check(fwd_n == n_blocks * (n_steps + n_cv),
-          f"kernel 1 launched {fwd_n}x, expected {n_blocks} x "
+    want = tcn_want(b1=n_blocks * n_steps, b3=n_blocks * n_steps,
+                    b4=n_blocks // 2 * n_cv)
+    check(counts == want, f"cLN cli train launched {counts}, expected {want} "
           f"({n_steps} steps + {n_cv} cv batches)")
 
     pkg = os.path.join(out, "final.ckpt")
     check(os.path.exists(pkg), "no best-model package written")
     mix_dir = os.path.join(data, "cv", "mix")
-    sep_dir = os.path.join(work, "sep_cln")
-    tcn.fused_tcn_block.launches = 0
-    n = separate(pkg, sep_dir, mix_dir=mix_dir, batch_size=n_cv,
-                 device="cuda")
-    torch.cuda.synchronize()
-    sep_launches = tcn.fused_tcn_block.launches
-    check(n == n_cv and sep_launches == n_blocks,
-          f"separate with the cLN package: {n} utterances, {sep_launches} "
-          f"launches")
-    check_wavs(sep_dir, mix_dir)
+    sep_launches = {}
+    for pairs in (True, False):
+        state = "pairs on" if pairs else "pairs off"
+        sep_dir = os.path.join(
+            work, f"sep_cln_{'pairs' if pairs else 'singles'}")
+        tcn_reset(k)
+        with pair_switch(pairs):
+            n = separate(pkg, sep_dir, mix_dir=mix_dir, batch_size=n_cv,
+                         device="cuda")
+        torch.cuda.synchronize()
+        sep_launches[state] = tcn_counts(k)
+        want_sep = (tcn_want(b4=n_blocks // 2) if pairs
+                    else tcn_want(b1=n_blocks))
+        check(n == n_cv and sep_launches[state] == want_sep,
+              f"separate with the cLN package ({state}): {n} utterances, "
+              f"launches {sep_launches[state]}, expected {want_sep}")
+        check_wavs(sep_dir, mix_dir)
     stream_dir = os.path.join(work, "sep_cln_stream")
-    tcn.fused_tcn_block.launches = 0
+    tcn_reset(k)
     check(cli.main(["separate", "--model-path", pkg, "--mix-dir", mix_dir,
                     "--out-dir", stream_dir, "--streaming", "1"]) == 0,
           "cli separate --streaming 1 failed")
@@ -489,29 +822,30 @@ def phase_cln_train_path(torch, tcn, bwd, work: str, data: str,
     torch.cuda.synchronize()
     check(rc == 0, f"cli stream-demo returned {rc}")
     stats = json.loads(buf.getvalue().strip().splitlines()[-1])
-    check(tcn.fused_tcn_block.launches == 0,
-          "the streaming step launched kernel 1")
+    check(tcn_counts(k) == tcn_want(),
+          f"the streaming step launched {tcn_counts(k)}")
     T = read_wav(wav)[0].shape[0]
     for c in (1, 2):
         y, _ = read_wav(os.path.join(demo_dir, os.path.basename(wav).replace(
             ".wav", f"_s{c}.wav")))
         check(y.shape == (T,) and np.isfinite(y).all(),
               f"bad stream-demo output s{c}")
-    print(f"the cLN package on the card: separate {n} utterances (kernel 1 "
-          f"launches {sep_launches}, 1 batch); separate --streaming 1 and "
+    print(f"the cLN package on the card: separate {n} utterances (launches "
+          f"{sep_launches}, 1 batch each); separate --streaming 1 and "
           f"stream-demo wrote finite wavs; stream-demo {stats}", flush=True)
-    return cln_n
+    return counts
 
 
-def phase_streaming(torch, tcn, work: str, card: str):
+def phase_streaming(torch, k, work: str, card: str):
     """The streaming separator on the card, f32, the paper widths with the
     causal cLN norm (random weights from seed 0): two seeded 4 s mixtures
     in chunks of 8 ms rounded down to whole hops (60 samples, 7.5 ms).
     The stream plus the flush against the offline causal forward on the
     input left-padded with L - hop zeros: the plain path within STREAM_TOL
-    (the same math in another summation order), the kernel path (32
-    launches of kernel 1) within the forward's f32 bar 2e-3. The stream
-    launches no kernel. Then ``stream_demo`` on one of the mixtures at
+    (the same math in another summation order), the kernel path within the
+    forward's f32 bar 2e-3, with the pairs on (16 launches of the pair
+    kernel B4) and off (32 of kernel 1), which give the same bits. The
+    stream launches no kernel. Then ``stream_demo`` on one of the mixtures at
     8 ms: its per-chunk latencies and real-time factor (recorded, not
     gated), and its wav against the stream."""
     import numpy as np
@@ -534,40 +868,52 @@ def phase_streaming(torch, tcn, work: str, card: str):
     x[:, :T] = 0.1 * torch.randn(2, T, generator=gen, device="cuda")
 
     sep = StreamingSeparator(cfg, sd, batch_size=2, device="cuda")
-    tcn.fused_tcn_block.launches = 0
+    tcn_reset(k)
     t0 = time.perf_counter()
     outs = [sep.process(x[:, s:s + chunk]) for s in range(0, Tp, chunk)]
     outs.append(sep.flush())
     stream = torch.cat(outs, dim=-1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(tcn.fused_tcn_block.launches == 0, "the stream launched kernel 1")
+    check(tcn_counts(k) == tcn_want(),
+          f"the stream launched {tcn_counts(k)}")
     pad = torch.nn.functional.pad(x, (cfg.kernel_size - hop, 0))
     offline = {}
-    for path, flag in (("plain", False), ("kernel", True)):
+    for path, flag, pairs, want in (
+            ("plain", False, True, tcn_want()),
+            ("kernel, pairs on", True, True, tcn_want(b4=16)),
+            ("kernel, pairs off", True, False, tcn_want(b1=32))):
         model = ConvTasNet(cfg, use_pallas=flag, device="cuda")
         model.load_state_dict(sd)
         model.eval()
-        tcn.fused_tcn_block.launches = 0
-        with torch.inference_mode():
+        tcn_reset(k)
+        with torch.inference_mode(), pair_switch(pairs):
             offline[path] = model(pad)
         torch.cuda.synchronize()
-        n = tcn.fused_tcn_block.launches
-        check(n == (32 if flag else 0), f"offline {path} path: {n} launches")
+        n = tcn_counts(k)
+        check(n == want, f"offline {path} path: launches {n}, expected "
+              f"{want}")
     check(stream.shape == offline["plain"].shape
           and torch.isfinite(stream).all().item(),
           f"stream {tuple(stream.shape)} vs offline "
           f"{tuple(offline['plain'].shape)}, or non-finite")
-    e_plain = rel_l2(stream, offline["plain"])
-    e_kernel = rel_l2(stream, offline["kernel"])
+    errs = {path: rel_l2(stream, y) for path, y in offline.items()}
+    same_bits = torch.equal(offline["kernel, pairs on"],
+                            offline["kernel, pairs off"])
     print(f"stream [2 x {SECONDS} s] f32 cLN causal in {chunk}-sample "
           f"chunks ({Tp // chunk} steps, {wall:.2f} s wall): vs offline "
-          f"plain rel_l2 {e_plain:.3e} (bar {STREAM_TOL:.0e}), vs offline "
-          f"kernel path {e_kernel:.3e} (bar {TOL['float32']:.0e})",
-          flush=True)
-    check(e_plain <= STREAM_TOL, f"stream vs offline plain {e_plain:.3e}")
-    check(e_kernel <= TOL["float32"],
-          f"stream vs offline kernel path {e_kernel:.3e}")
+          f"plain rel_l2 {errs['plain']:.3e} (bar {STREAM_TOL:.0e}), vs "
+          f"offline kernel path pairs on {errs['kernel, pairs on']:.3e}, "
+          f"pairs off {errs['kernel, pairs off']:.3e} (bar "
+          f"{TOL['float32']:.0e}); the two kernel paths the same bits "
+          f"{same_bits}", flush=True)
+    check(errs["plain"] <= STREAM_TOL,
+          f"stream vs offline plain {errs['plain']:.3e}")
+    for path in ("kernel, pairs on", "kernel, pairs off"):
+        check(errs[path] <= TOL["float32"],
+              f"stream vs offline {path} {errs[path]:.3e}")
+    check(same_bits, "the offline kernel path differs with the pairs on "
+          "and off")
 
     pkg = os.path.join(work, "cln_f32.pt")
     save_inference_package(pkg, cfg, sd)
@@ -628,21 +974,21 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
     from convtasnet_tpu_torch.models.conv_tasnet import init_params
     from convtasnet_tpu_torch.train import train_step as ts
 
-    from convtasnet_tpu_torch.ops.cuda import (
-        dpt_attention,
-        dpt_ffn,
-        dpt_intra,
-        tcn_block_bwd,
-    )
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
 
-    # the launch counters of the backward kernels of this model
+    # the launch counters of the backward kernels of a DPT model; a TCN
+    # kernel path is held to its exact counts per step
+    counters = [(f, "launches") for f in (
+        dpt_attention.fused_inter_attention_bwd,
+        dpt_intra.fused_intra_attention_bwd, dpt_ffn.fused_ffn_bwd)]
+    mods = tcn_modules()
     if separator == "dpt":
-        counters = [(f, "launches") for f in (
-            dpt_attention.fused_inter_attention_bwd,
-            dpt_intra.fused_intra_attention_bwd, dpt_ffn.fused_ffn_bwd)]
+        kernel_paths = {"kernel": (True, None)}
+    elif norm == "cLN":   # a cLN pair trains as two blocks, as in JAX
+        kernel_paths = {"kernel": (True, tcn_want(b1=32, b3=32))}
     else:
-        counters = [(tcn_block_bwd.fused_tcn_block_bwd,
-                     "cln_launches" if norm == "cLN" else "launches")]
+        kernel_paths = {"kernel": (True, tcn_want(b4=16, b5=16)),
+                        "kernel, pairs off": (False, tcn_want(b1=32, b2=32))}
     failures = []
     label = separator if norm == "gLN" else f"{separator} {norm} causal"
     for seed in (11, 12):
@@ -658,87 +1004,105 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
                                    norm_type=norm, causal=norm == "cLN")
             sd = init_params(cfg, torch.Generator().manual_seed(0))
             res = {}
-            for path, flag, chunk, b in (("kernel", True, 0, batch),
-                                         ("plain", False, 0, batch),
-                                         ("plain_c2", False, 2, batch),
-                                         ("plain_ulp", False, 0, nudged)):
+            runs = [(path, True, pairs, 0, batch) for path, (pairs, _)
+                    in kernel_paths.items()]
+            runs += [("plain", False, True, 0, batch),
+                     ("plain_c2", False, True, 2, batch),
+                     ("plain_ulp", False, True, 0, nudged)]
+            for path, flag, pairs, chunk, b in runs:
                 state = ts.create_train_state(cfg, SolverConfig(),
                                               device="cuda", use_pallas=flag,
                                               state_dict=sd)
                 before = [getattr(f, a) for f, a in counters]
-                loss = float(ts._loss_and_grads(state.model, b, chunk))
+                tcn_reset(mods)
+                with pair_switch(pairs):
+                    loss = float(ts._loss_and_grads(state.model, b, chunk))
                 torch.cuda.synchronize()
-                if flag and not all(getattr(f, a) > b for (f, a), b
-                                    in zip(counters, before)):
+                if flag and separator == "dpt" and not all(
+                        getattr(f, a) > c for (f, a), c
+                        in zip(counters, before)):
                     failures.append(f"{label} {dtype} kernel path "
                                     "launched no backward kernel")
+                if flag and separator == "tcn":
+                    want = kernel_paths[path][1]
+                    if tcn_counts(mods) != want:
+                        failures.append(f"{label} {dtype} {path} launched "
+                                        f"{tcn_counts(mods)}, expected {want}")
                 res[path] = (loss, {n: p.grad.detach().float().clone()
                                     for n, p in
                                     state.model.named_parameters()})
                 del state
-            (lk, gk), (lp, gp), (_, gc), (_, gu) = (
-                res[k] for k in ("kernel", "plain", "plain_c2", "plain_ulp"))
+            (lp, gp), (_, gc), (_, gu) = (
+                res[k] for k in ("plain", "plain_c2", "plain_ulp"))
             flat = {k: torch.cat([g.reshape(-1) for g in v.values()])
-                    for k, v in (("kernel", gk), ("plain", gp), ("c2", gc),
-                                 ("ulp", gu))}
+                    for k, (_, v) in res.items()}
             if not all(torch.isfinite(v).all().item() for v in flat.values()):
                 failures.append(f"non-finite gradients ({dtype}, seed {seed})")
-            loss_rel = abs(lk - lp) / abs(lp)
-            global_err = rel_l2(flat["kernel"], flat["plain"])
-            head = (f"train step {label} {dtype} B=4x{SECONDS}s seed "
-                    f"{seed} kernel "
-                    f"vs plain: loss {lk:.6f} vs {lp:.6f} (rel "
-                    f"{loss_rel:.3e}), global gradient rel_l2 "
-                    f"{global_err:.3e} (plain vs itself reordered "
-                    f"{rel_l2(flat['c2'], flat['plain']):.3e}, with the "
-                    f"mixture nudged by one rounding step "
-                    f"{rel_l2(flat['ulp'], flat['plain']):.3e})")
-            at = f"{label} {dtype} seed {seed}"
-            if dtype == "float32":
-                f32_grads = flat["plain"]
-                multi = [n for n in gp if gp[n].numel() > 1]
-                corr = {n: torch.corrcoef(torch.stack(
-                    [gk[n].reshape(-1), gp[n].reshape(-1)]))[0, 1].item()
-                    for n in multi}
-                # NaN (a constant leaf) counts as no correlation
-                corr = {n: c if math.isfinite(c) else -1.0
-                        for n, c in corr.items()}
-                low = min(corr, key=corr.get)
-                slopes = [n for n in gp if gp[n].numel() == 1]
-                slope_err = rel_l2(torch.stack([gk[n] for n in slopes]),
-                                   torch.stack([gp[n] for n in slopes])) \
-                    if slopes else 0.0
-                print(f"{head}; lowest leaf correlation {low} "
-                      f"{corr[low]:.7f}; the {len(slopes)} slopes as one "
-                      f"vector rel_l2 {slope_err:.3e}", flush=True)
-                if loss_rel > 1e-5:
-                    failures.append(f"{at} loss off by {loss_rel:.3e}")
-                if global_err > BWD_TOL[dtype]:
-                    failures.append(f"{at} global gradient off by "
-                                    f"{global_err:.3e}")
-                if corr[low] < 0.9999:
-                    failures.append(f"{at} gradient leaf {low} correlation "
-                                    f"{corr[low]:.7f}")
-                if slope_err > BWD_TOL[dtype]:
-                    failures.append(f"{at} slope gradients off by "
-                                    f"{slope_err:.3e}")
-            else:
-                k_f32 = rel_l2(flat["kernel"], f32_grads)
-                p_f32 = rel_l2(flat["plain"], f32_grads)
-                bar = max(BWD_TOL[dtype], 1.25 * p_f32)
-                print(f"{head}; from the f32 gradient: kernel path "
-                      f"{k_f32:.3e}, plain path {p_f32:.3e} (bar {bar:.3e})",
-                      flush=True)
-                if loss_rel > 4e-2:
-                    failures.append(f"{at} loss off by {loss_rel:.3e}")
-                if k_f32 > bar:
-                    failures.append(f"{at} kernel-path gradient {k_f32:.3e} "
-                                    f"from the f32 one, plain path "
-                                    f"{p_f32:.3e}")
+            if len(kernel_paths) == 2:
+                same = torch.equal(flat["kernel"], flat["kernel, pairs off"])
+                print(f"train step {label} {dtype} seed {seed}: pairs on and "
+                      f"off give the same gradient bits {same}", flush=True)
+                if not same:
+                    failures.append(f"{label} {dtype} seed {seed}: the pairs' "
+                                    "gradient differs from the singles'")
+            for kpath in kernel_paths:
+                lk, gk = res[kpath]
+                loss_rel = abs(lk - lp) / abs(lp)
+                global_err = rel_l2(flat[kpath], flat["plain"])
+                head = (f"train step {label} {dtype} B=4x{SECONDS}s seed "
+                        f"{seed} {kpath} "
+                        f"vs plain: loss {lk:.6f} vs {lp:.6f} (rel "
+                        f"{loss_rel:.3e}), global gradient rel_l2 "
+                        f"{global_err:.3e} (plain vs itself reordered "
+                        f"{rel_l2(flat['plain_c2'], flat['plain']):.3e}, with "
+                        f"the mixture nudged by one rounding step "
+                        f"{rel_l2(flat['plain_ulp'], flat['plain']):.3e})")
+                at = f"{label} {dtype} seed {seed} {kpath}"
+                if dtype == "float32":
+                    f32_grads = flat["plain"]
+                    multi = [n for n in gp if gp[n].numel() > 1]
+                    corr = {n: torch.corrcoef(torch.stack(
+                        [gk[n].reshape(-1), gp[n].reshape(-1)]))[0, 1].item()
+                        for n in multi}
+                    # NaN (a constant leaf) counts as no correlation
+                    corr = {n: c if math.isfinite(c) else -1.0
+                            for n, c in corr.items()}
+                    low = min(corr, key=corr.get)
+                    slopes = [n for n in gp if gp[n].numel() == 1]
+                    slope_err = rel_l2(torch.stack([gk[n] for n in slopes]),
+                                       torch.stack([gp[n] for n in slopes])) \
+                        if slopes else 0.0
+                    print(f"{head}; lowest leaf correlation {low} "
+                          f"{corr[low]:.7f}; the {len(slopes)} slopes as one "
+                          f"vector rel_l2 {slope_err:.3e}", flush=True)
+                    if loss_rel > 1e-5:
+                        failures.append(f"{at} loss off by {loss_rel:.3e}")
+                    if global_err > BWD_TOL[dtype]:
+                        failures.append(f"{at} global gradient off by "
+                                        f"{global_err:.3e}")
+                    if corr[low] < 0.9999:
+                        failures.append(f"{at} gradient leaf {low} "
+                                        f"correlation {corr[low]:.7f}")
+                    if slope_err > BWD_TOL[dtype]:
+                        failures.append(f"{at} slope gradients off by "
+                                        f"{slope_err:.3e}")
+                else:
+                    k_f32 = rel_l2(flat[kpath], f32_grads)
+                    p_f32 = rel_l2(flat["plain"], f32_grads)
+                    bar = max(BWD_TOL[dtype], 1.25 * p_f32)
+                    print(f"{head}; from the f32 gradient: kernel path "
+                          f"{k_f32:.3e}, plain path {p_f32:.3e} (bar "
+                          f"{bar:.3e})", flush=True)
+                    if loss_rel > 4e-2:
+                        failures.append(f"{at} loss off by {loss_rel:.3e}")
+                    if k_f32 > bar:
+                        failures.append(f"{at} kernel-path gradient "
+                                        f"{k_f32:.3e} from the f32 one, plain "
+                                        f"path {p_f32:.3e}")
     check(not failures, "train step, kernel vs plain: " + "; ".join(failures))
 
 
-def phase_main_path(torch, tcn, work: str):
+def phase_main_path(torch, k, work: str):
     import numpy as np
 
     from convtasnet_tpu_torch import ConvTasNetConfig
@@ -763,24 +1127,30 @@ def phase_main_path(torch, tcn, work: str):
     n_batches = -(-n_mix // batch_size)
     for dtype in ("bfloat16", "float32"):
         cfg = ConvTasNetConfig(compute_dtype=dtype)
+        n_blocks = cfg.num_repeats * cfg.num_blocks
         pkg = os.path.join(work, f"paper_{dtype}.pt")
         save_inference_package(
             pkg, cfg, init_params(cfg, torch.Generator().manual_seed(0)))
         outs = {}
-        for path, use_kernel in (("kernel", True), ("plain", False)):
+        # pairs on: blocks (x, x+1) through the pair kernel, 16 per batch;
+        # pairs off: kernel 1 per block, 32 per batch
+        for path, use_kernel, pairs, want in (
+                ("kernel", True, True,
+                 tcn_want(b4=n_blocks // 2 * n_batches)),
+                ("kernel, pairs off", True, False,
+                 tcn_want(b1=n_blocks * n_batches)),
+                ("plain", False, True, tcn_want())):
             out_dir = os.path.join(work, f"out_{dtype}_{path}")
-            tcn.fused_tcn_block.launches = 0
-            n = separate(pkg, out_dir, mix_dir=mix_dir, batch_size=batch_size,
-                         use_pallas=None if use_kernel else False,
-                         device="cuda")
+            tcn_reset(k)
+            with pair_switch(pairs):
+                n = separate(pkg, out_dir, mix_dir=mix_dir,
+                             batch_size=batch_size,
+                             use_pallas=None if use_kernel else False,
+                             device="cuda")
             torch.cuda.synchronize()
-            count = tcn.fused_tcn_block.launches
-            if use_kernel:
-                check(count == cfg.num_repeats * cfg.num_blocks * n_batches,
-                      f"{count} kernel launches, expected "
-                      f"{cfg.num_repeats * cfg.num_blocks} x {n_batches}")
-            else:
-                check(count == 0, f"plain path launched the kernel {count}x")
+            count = tcn_counts(k)
+            check(count == want, f"separate {dtype} {path}: launches {count}, "
+                  f"expected {want}")
             files = sorted(os.listdir(out_dir))
             wavs = [f for f in files if f.endswith(".wav")]
             check(n == n_mix and len(wavs) == n_mix * (1 + cfg.num_speakers),
@@ -794,13 +1164,16 @@ def phase_main_path(torch, tcn, work: str):
                     est.append(y)
             outs[path] = torch.from_numpy(np.stack(est))
             print(f"separate {dtype} {path}: {n} utterances, {len(wavs)} "
-                  f"wavs of {T} samples, kernel launches {count} "
+                  f"wavs of {T} samples, launches {count} "
                   f"({n_batches} batch)", flush=True)
-        err = rel_l2(outs["kernel"], outs["plain"])
-        print(f"separate {dtype}: kernel path vs plain path rel_l2 "
-              f"{err:.3e} (bar {TOL[dtype]:.0e})", flush=True)
-        check(err <= TOL[dtype], f"separated outputs disagree ({dtype}): "
-              f"{err:.3e}")
+        for path in ("kernel", "kernel, pairs off"):
+            err = rel_l2(outs[path], outs["plain"])
+            print(f"separate {dtype}: {path} path vs plain path rel_l2 "
+                  f"{err:.3e} (bar {TOL[dtype]:.0e})", flush=True)
+            check(err <= TOL[dtype], f"separated outputs disagree ({dtype}, "
+                  f"{path}): {err:.3e}")
+        check(torch.equal(outs["kernel"], outs["kernel, pairs off"]),
+              f"separate {dtype}: the pairs and the single blocks differ")
 
 
 DPT_S, DPT_B, DPT_F, DPT_HEADS = 128, 256, 1024, 8   # the DPT quality default
@@ -810,18 +1183,19 @@ DPT_SHAPES = ((1, 100), (25, 3199), (94, 11999))
 DPT_KINDS = ("inter", "intra", "ffn")
 
 
-def dpt_inputs(torch, kind: str, dtype, n: int, K: int, seed: int, M=8):
+def dpt_inputs(torch, kind: str, dtype, n: int, K: int, seed: int, M=8,
+               S=DPT_S, x_scale=1.0):
     """Seeded operands of one DPT sublayer on the card at the quality
-    default's widths, with the key mask of K real frames out of n*S:
-    (args, kwargs, valid [n, S])."""
+    default's widths, with the key mask of K real frames out of n*S, and x
+    of standard deviation x_scale: (args, kwargs, valid [n, S])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * scale
 
-    S, B = DPT_S, DPT_B
+    B = DPT_B
     valid = torch.arange(n * S, device="cuda").reshape(n, S) < K
-    x = rn(M, n, S, B).to(dtype)
+    x = rn(M, n, S, B, scale=x_scale).to(dtype)
     gamma, beta = 1.0 + 0.1 * rn(B), 0.1 * rn(B)
     if kind == "ffn":
         args = (x.reshape(M, n * S, B), gamma, beta,
@@ -843,21 +1217,30 @@ def dpt_fns(dpt, kind: str):
             "ffn": (dpt["ffn"].fused_ffn, dpt["ffn"].ffn_reference)}[kind]
 
 
+# rows of standard deviation 0.0316 (variance ~1e-3): there an LN eps of
+# 1e-5 put for 1e-6 moves the normalised rows by ~4.5e-3, where at unit
+# variance it moves them by 4.5e-6, under the f32 bar
+LOW_VAR_SCALE = 0.0316
+
+
 def phase_dpt_kernels_vs_twin(torch, dpt):
     """Each DPT sublayer kernel against its plain twin at the quality
     default's widths ([8, n, 128, 256], 8 heads, F=1024) with the real key
-    mask, for n = 1, 25 and 94, bf16 and f32: rel-L2 on the valid rows
-    within 4e-2 / 1e-5. Every case is printed before the phase fails;
-    returns the worst max_abs_err per kernel."""
+    mask, for n = 1, 25 and 94, bf16 and f32, and in f32 at n = 25 with
+    rows of variance ~1e-3 (which an LN eps off by 10x moves by ~4.5e-3):
+    rel-L2 on the valid rows within 4e-2 / 1e-5. Every case is printed
+    before the phase fails; returns the worst max_abs_err per kernel."""
     worst = {k: 0.0 for k in DPT_KINDS}
     failures = []
     for kind in DPT_KINDS:
         fused, twin = dpt_fns(dpt, kind)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype, x_scale in ((torch.bfloat16, 1.0), (torch.float32, 1.0),
+                               (torch.float32, LOW_VAR_SCALE)):
             name = str(dtype).split(".")[-1]
-            for n, K in DPT_SHAPES:
+            shapes = DPT_SHAPES if x_scale == 1.0 else ((25, 3199),)
+            for n, K in shapes:
                 args, kw, valid = dpt_inputs(torch, kind, dtype, n, K,
-                                             seed=3000 + n)
+                                             seed=3000 + n, x_scale=x_scale)
                 got = fused(*args, **kw)
                 torch.cuda.synchronize()
                 want = twin(*args, **kw)
@@ -870,11 +1253,12 @@ def phase_dpt_kernels_vs_twin(torch, dpt):
                 worst[kind] = max(worst[kind], abs_err)
                 finite = torch.isfinite(got_v).all().item()
                 print(f"dpt {kind} kernel vs twin [8,{n},{DPT_S},{DPT_B}] "
-                      f"K={K} {name}: rel_l2 {err:.3e} (bar "
+                      f"K={K} {name} x std {x_scale}: rel_l2 {err:.3e} (bar "
                       f"{DPT_TOL[name]:.0e}) max_abs {abs_err:.3e}",
                       flush=True)
                 if not finite or not err <= DPT_TOL[name]:
-                    failures.append(f"{kind} n={n} {name}: rel_l2 {err:.3e}"
+                    failures.append(f"{kind} n={n} {name} x std {x_scale}: "
+                                    f"rel_l2 {err:.3e}"
                                     f"{'' if finite else ', non-finite'}")
     check(not failures, "DPT kernels disagree with their twins: "
           + "; ".join(failures))
@@ -901,11 +1285,12 @@ def dpt_bwd_fns(dpt, kind: str):
                     dpt["ffn"].ffn_bwd_reference)}[kind]
 
 
-def dpt_bwd_inputs(torch, kind: str, dtype, n: int, K: int, seed: int):
+def dpt_bwd_inputs(torch, kind: str, dtype, n: int, K: int, seed: int,
+                   S=DPT_S):
     """(x, g, the f32 weights, kwargs, valid [n, S]): ``dpt_inputs`` with
     the weights in f32, as the model keeps them, and a random cotangent
     that is zero on the padded rows, as the model delivers it."""
-    args, kw, valid = dpt_inputs(torch, kind, dtype, n, K, seed)
+    args, kw, valid = dpt_inputs(torch, kind, dtype, n, K, seed, S=S)
     x = args[0]
     g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed + 1))
@@ -921,19 +1306,24 @@ def phase_dpt_bwd_vs_twin(torch, dpt):
     cotangent (dx on the valid rows) against the exact f32 cotangents of
     the twin, by relative L2; in f32 within DPT_BWD_TOL_F32; in bf16 within
     4e-2 of the bf16 twin and no further from exact than max(4e-2, 1.25x
-    the bf16 twin's own distance). Every case is printed before the phase
-    fails; returns the worst max_abs_err per kernel (against the twin in
-    the same dtype)."""
+    the bf16 twin's own distance). The intra backward also at chunks of
+    S = 256 (n = 13, 4 s), where its [S, S] tiles leave shared memory for
+    the device workspace. Every case is printed before the phase fails;
+    returns the worst max_abs_err per kernel (against the twin in the same
+    dtype)."""
     worst = {k: 0.0 for k in DPT_KINDS}
     failures = []
     for kind in DPT_KINDS:
         fused, twin = dpt_bwd_fns(dpt, kind)
         names = DPT_GRAD_NAMES[kind]
+        shapes = [(n, K, DPT_S) for n, K in DPT_SHAPES]
+        if kind == "intra":
+            shapes.append((13, 3199, 256))
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
-            for n, K in DPT_SHAPES:
+            for n, K, S in shapes:
                 x, g, w, kw, valid = dpt_bwd_inputs(torch, kind, dtype, n, K,
-                                                    seed=5000 + n)
+                                                    seed=5000 + n, S=S)
                 got = fused(x, g, *w, **kw)
                 torch.cuda.synchronize()
                 exact = twin(x.float(), g.float(), *w, **kw)
@@ -961,7 +1351,7 @@ def phase_dpt_bwd_vs_twin(torch, dpt):
                     worst[kind] = max(worst[kind], (q.float() - t.float())
                                       .abs().max().item())
                 top = max(errs, key=errs.get)
-                line = (f"dpt {kind} bwd kernel vs twin [8,{n},{DPT_S},"
+                line = (f"dpt {kind} bwd kernel vs twin [8,{n},{S},"
                         f"{DPT_B}] K={K} {name}: vs exact max {errs[top]:.3e}"
                         f" ({top}), dx {errs['dx']:.3e}")
                 if dtype == torch.float32:
@@ -1046,8 +1436,8 @@ def dpt_bwd_launches(dpt):
 
 def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     """``cli train --separator dpt`` in process at the DPT quality default,
-    bf16, ``--use-pallas 1``, on the corpus ``phase_train_path`` wrote: one
-    epoch of 4 steps at batch 8 x 4 s and a cv pass. Every loss finite;
+    bf16, ``--use-pallas 1``, on the corpus of ``make_corpus``: one epoch
+    of 4 steps at batch 8 x 4 s and a cv pass. Every loss finite;
     per step 4 / 4 / 8 launches of the inter, intra and FFN forward
     kernels and of their backward kernels; the cv batches run the forwards
     only; then ``separate`` with the best-model package on the card.
@@ -1110,6 +1500,54 @@ def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     print(f"separate with the trained DPT package: {n} utterances, "
           f"launches {sep} (1 batch)", flush=True)
     return bwd
+
+
+def phase_dpt_chunk256_step(torch, dpt):
+    """One bf16 train step (loss and gradients) of the DPT quality default
+    with 256-frame chunks (``--dpt-chunk 256``), B=4 x 4 s, kernel path
+    against plain path from the same init and batch, as
+    ``phase_step_compare`` holds bf16: the loss within 4e-2 and the kernel
+    path's gradient no further from the plain f32 gradient than max(8e-2,
+    1.25x the plain bf16 path's); the intra backward kernel runs at
+    S = 256, once per layer."""
+    import dataclasses
+
+    from convtasnet_tpu_torch import SolverConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(dpt_config(), dpt_chunk=256)
+    sd = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = train_batch(torch, 4, 13)
+    res = {}
+    intra_bwd = dpt_bwd_fns(dpt, "intra")[0]
+    for path, flag, dtype in (("kernel", True, "bfloat16"),
+                              ("plain", False, "bfloat16"),
+                              ("plain f32", False, "float32")):
+        state = ts.create_train_state(
+            dataclasses.replace(cfg, compute_dtype=dtype), SolverConfig(),
+            device="cuda", use_pallas=flag, state_dict=sd)
+        intra_bwd.launches = 0
+        loss = float(ts._loss_and_grads(state.model, batch, 0))
+        torch.cuda.synchronize()
+        check(intra_bwd.launches == (cfg.dpt_layers if flag else 0),
+              f"dpt chunk 256 {path}: {intra_bwd.launches} intra backward "
+              f"launches")
+        res[path] = (loss, torch.cat([p.grad.detach().float().reshape(-1)
+                                      for p in state.model.parameters()]))
+        del state
+    (lk, gk), (lp, gp), (_, gf) = res["kernel"], res["plain"], res["plain f32"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    k_f32, p_f32 = rel_l2(gk, gf), rel_l2(gp, gf)
+    bar = max(BWD_TOL["bfloat16"], 1.25 * p_f32)
+    print(f"train step dpt --dpt-chunk 256 bf16 B=4x{SECONDS}s kernel vs "
+          f"plain: loss {lk:.6f} vs {lp:.6f} (rel {loss_rel:.3e}); from the "
+          f"f32 gradient: kernel path {k_f32:.3e}, plain path {p_f32:.3e} "
+          f"(bar {bar:.3e})", flush=True)
+    check(torch.isfinite(gk).all().item(), "dpt chunk 256: non-finite "
+          "gradient")
+    check(loss_rel <= 4e-2 and k_f32 <= bar,
+          f"dpt chunk 256 step: loss {loss_rel:.3e}, gradient {k_f32:.3e}")
 
 
 def phase_dpt_serving(torch, dpt, work: str):
@@ -1237,15 +1675,6 @@ def tcn_bwd_work(args, g, grads) -> tuple:
     return 5 * 2 * M * K * B * H + 3 * 2 * M * K * H * P, nbytes
 
 
-def time_in_turns(torch, fns: dict, iters: int) -> dict:
-    """{name: (median ms, runs)} over the turns plain, kernel, kernel,
-    plain (``time_ms`` each)."""
-    runs = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        runs[name].append(time_ms(torch, fns[name], iters))
-    return {k: (statistics.median(v), v) for k, v in runs.items()}
-
-
 def phase_dpt_timings(torch, dpt, card: str):
     """Each DPT kernel, forward and backward, at [8, 25, 128, 256] bf16
     with the real mask, and its twin, in turns (twin, kernel, kernel,
@@ -1261,8 +1690,8 @@ def phase_dpt_timings(torch, dpt, card: str):
             fused, twin = dpt_fns(dpt, kind)
             args, kw, _ = dpt_inputs(torch, kind, torch.bfloat16, 25, 3199,
                                      seed=4000)
-            t = time_in_turns(torch, {"kernel": lambda: fused(*args, **kw),
-                                      "plain": lambda: twin(*args, **kw)}, 20)
+            t = time_turns(torch, {"plain": lambda: twin(*args, **kw),
+                                   "kernel": lambda: fused(*args, **kw)}, 20)
             (ms, runs), (plain_ms, _) = t["kernel"], t["plain"]
             bound_ms, bound_by = kernel_bound(*dpt_work(kind, args))
             rows[kind] = (ms, plain_ms, bound_ms, bound_by)
@@ -1274,9 +1703,9 @@ def phase_dpt_timings(torch, dpt, card: str):
             fused, twin = dpt_bwd_fns(dpt, kind)
             x, g, w, kw, _ = dpt_bwd_inputs(torch, kind, torch.bfloat16, 25,
                                             3199, seed=4000)
-            t = time_in_turns(torch, {"kernel": lambda: fused(x, g, *w, **kw),
-                                      "plain": lambda: twin(x, g, *w, **kw)},
-                              10)
+            t = time_turns(torch, {"plain": lambda: twin(x, g, *w, **kw),
+                                   "kernel": lambda: fused(x, g, *w, **kw)},
+                           10)
             (ms, runs), (plain_ms, _) = t["kernel"], t["plain"]
             bound_ms, bound_by = kernel_bound(*dpt_bwd_work(
                 kind, (x, g, *w), fused(x, g, *w, **kw)))
@@ -1304,31 +1733,84 @@ def phase_dpt_timings(torch, dpt, card: str):
     return rows, bwd_rows
 
 
-def phase_timings(torch, tcn, bwd, card: str):
+def time_turns(torch, fns: dict, iters: int) -> dict:
+    """{name: (median ms, runs)} over the turns of fns in order, then in
+    reverse order (``time_ms`` each)."""
+    runs = {name: [] for name in fns}
+    for name in [*fns, *reversed(list(fns))]:
+        runs[name].append(time_ms(torch, fns[name], iters))
+    return {k: (statistics.median(v), v) for k, v in runs.items()}
+
+
+def pair_work(args, out) -> tuple:
+    """(flops, bytes) one block pair forward (B4) needs on these inputs:
+    each block's two products and its depthwise conv at 2 FLOP per
+    multiply-add; x and the 18 weights read once, the output written
+    once."""
+    x, pa, pb = args
+    M, K, B = x.shape
+    P, H = pa[1].shape
+    nbytes = sum(t.numel() * t.element_size() for t in (x, *pa, *pb, out))
+    return 2 * (2 * 2 * M * K * B * H + 2 * M * K * H * P), nbytes
+
+
+def pair_bwd_work(args, g, grads) -> tuple:
+    """(flops, bytes) one gLN pair backward (B5) needs on these inputs, as
+    the Pallas kernel counts its work (``tcn_block_pair_bwd.py``'s cost
+    estimate): 13 products of 2 M K B H (block 1's input product, x1's
+    product and block 2's input product recomputed, five per block
+    backward) and six depthwise passes of 2 M K H P; x, g and the 18
+    weights read once, the 19 cotangents written once."""
+    x, pa, pb = args
+    M, K, B = x.shape
+    P, H = pa[1].shape
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (x, g, *pa, *pb, *pair_grads(grads)))
+    return 13 * 2 * M * K * B * H + 6 * 2 * M * K * H * P, nbytes
+
+
+def phase_timings(torch, k, card: str):
+    """The bf16 paper-config forward at B=8 and B=24 x 4 s and its train
+    step, plain path and kernel path with pairs on and off, in turns, with
+    peak memory; kernels 1 and 2 against their twins per dilation; the pair
+    kernels B4 and B5 against two kernel-1 (kernel-2) calls and their twins
+    per pair; each kernel's bound. Returns the per-kernel rows."""
     from convtasnet_tpu_torch import ConvTasNetConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
 
+    tcn, bwd, pair, pair_bwd = (k[n] for n in ("tcn", "bwd", "pair",
+                                               "pair_bwd"))
     cfg = ConvTasNetConfig(compute_dtype="bfloat16")
-    M = 8
-    mix = torch.randn(M, SECONDS * SAMPLE_RATE,
-                      generator=torch.Generator(device="cuda").manual_seed(7),
-                      device="cuda")
     models = {name: ConvTasNet(cfg, use_pallas=flag, device="cuda").eval()
               for name, flag in (("kernel", True), ("plain", False))}
-    runs = {"kernel": [], "plain": []}
-    with torch.inference_mode():
-        for name in ("plain", "kernel", "kernel", "plain"):
-            runs[name].append(time_ms(torch, lambda: models[name](mix), 10))
-    fwd = {k: statistics.median(v) for k, v in runs.items()}
-    audio_s = M * SECONDS
-    for name in ("kernel", "plain"):
-        print(f"timing [{card}] forward B={M}x{SECONDS}s bf16 {name} path: "
-              f"{fwd[name]:.3f} ms, {audio_s / (fwd[name] / 1e3):.1f}x "
-              f"realtime (runs {[round(r, 3) for r in runs[name]]})",
-              flush=True)
+    for M in (8, 24):
+        mix = torch.randn(M, SECONDS * SAMPLE_RATE, generator=torch.Generator(
+            device="cuda").manual_seed(7), device="cuda")
+        mem = {}
 
+        def forward(model, pairs, name):
+            def run():
+                with pair_switch(pairs):
+                    models[model](mix)
+            return name, run
+
+        fns = dict([forward("plain", True, "plain"),
+                    forward("kernel", True, "kernel, pairs on"),
+                    forward("kernel", False, "kernel, pairs off")])
+        with torch.inference_mode():
+            t = time_turns(torch, fns, 10 if M == 8 else 5)
+            for name, fn in fns.items():
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for name, (ms, runs) in t.items():
+            print(f"timing [{card}] forward B={M}x{SECONDS}s bf16 {name}: "
+                  f"{ms:.3f} ms, {M * SECONDS / (ms / 1e3):.1f}x realtime "
+                  f"(runs {[round(r, 3) for r in runs]}), peak memory "
+                  f"{mem[name]:.2f} GiB", flush=True)
     del models
-    phase_train_timings(torch, cfg, card, "tcn", big_batch=True)
+    phase_train_timings(torch, cfg, card, "tcn", big_batch=True,
+                        pair_states=(True, False))
 
     per_block = {}
     for d in DILATIONS:
@@ -1366,7 +1848,64 @@ def phase_timings(torch, tcn, bwd, card: str):
                                            (means[2], "backward")), bounds):
         print(f"bound [{card}] block {name} [8,3199,256] H=512 bf16: "
               f"{bound_ms:.4f} ms ({by}); kernel {ms:.4f} ms", flush=True)
-    return means, bounds
+    rows = {"b1": (means[0], means[1], bounds[0]),
+            "b2": (means[2], means[3], bounds[1])}
+
+    per_pair = []
+    for d1, d2 in PAIRS:
+        x, pa, pb = pair_inputs(torch, torch.bfloat16, d1)
+        g = torch.randn(x.shape, device="cuda").to(torch.bfloat16)
+        kw = dict(d1=d1, d2=d2, causal=False)
+
+        def two_blocks():
+            x1 = tcn.fused_tcn_block(x, *pa, dilation=d1, causal=False,
+                                     norm_type="gLN")
+            tcn.fused_tcn_block(x1, *pb, dilation=d2, causal=False,
+                                norm_type="gLN")
+
+        def two_bwds():
+            bwd.fused_tcn_block_bwd(x, g, *pb, dilation=d2, causal=False)
+            bwd.fused_tcn_block_bwd(x, g, *pa, dilation=d1, causal=False)
+
+        with torch.inference_mode():
+            fwd = time_turns(torch, {
+                "pair": lambda: pair.fused_tcn_block_pair(
+                    x, pa, pb, **kw, norm_type="gLN"),
+                "two kernel-1 calls": two_blocks,
+                "twin": lambda: pair.fused_tcn_block_pair_reference(
+                    x, pa, pb, **kw, norm_type="gLN")}, 20)
+        back = time_turns(torch, {
+            "pair": lambda: pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb,
+                                                              **kw),
+            "two kernel-2 calls": two_bwds,
+            "twin": lambda: pair_bwd.fused_tcn_block_pair_bwd_reference(
+                x, g, pa, pb, **kw)}, 10)
+        per_pair.append((fwd, back))
+        print(f"timing [{card}] pair [8,3199,256] H=512 gLN bf16 "
+              f"d=({d1},{d2}): forward B4 {fwd['pair'][0]:.4f} ms (runs "
+              f"{[round(r, 4) for r in fwd['pair'][1]]}), two kernel-1 calls "
+              f"{fwd['two kernel-1 calls'][0]:.4f} ms, twin "
+              f"{fwd['twin'][0]:.4f} ms; backward B5 {back['pair'][0]:.4f} ms "
+              f"(runs {[round(r, 4) for r in back['pair'][1]]}), two "
+              f"kernel-2 calls {back['two kernel-2 calls'][0]:.4f} ms, twin "
+              f"{back['twin'][0]:.4f} ms", flush=True)
+    out = pair.fused_tcn_block_pair(x, pa, pb, **kw, norm_type="gLN")
+    grads = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+    pair_bounds = (kernel_bound(*pair_work((x, pa, pb), out)),
+                   kernel_bound(*pair_bwd_work((x, pa, pb), g, grads)))
+    for i, (key, name, other) in enumerate((
+            ("b4", "forward", "two kernel-1 calls"),
+            ("b5", "backward", "two kernel-2 calls"))):
+        ms = statistics.mean(p[i]["pair"][0] for p in per_pair)
+        twin_ms = statistics.mean(p[i]["twin"][0] for p in per_pair)
+        two_ms = statistics.mean(p[i][other][0] for p in per_pair)
+        bound_ms, by = pair_bounds[i]
+        print(f"bound [{card}] pair {name} [8,3199,256] H=512 bf16: "
+              f"{bound_ms:.4f} ms ({by}); kernel {ms:.4f} ms, {other} "
+              f"{two_ms:.4f} ms, twin {twin_ms:.4f} ms (means over the "
+              f"pairs)", flush=True)
+        rows[key] = (ms, twin_ms, pair_bounds[i])
+    return rows
 
 
 def phase_cln_timings(torch, bwd, card: str):
@@ -1387,11 +1926,11 @@ def phase_cln_timings(torch, bwd, card: str):
         with torch.inference_mode():
             fwd.append(time_ms(torch, lambda: tcn.fused_tcn_block(*args, **kw),
                                20))
-        t = time_in_turns(torch, {
-            "kernel": lambda: bwd.fused_tcn_block_bwd(args[0], g, *args[1:],
-                                                      **kw),
+        t = time_turns(torch, {
             "plain": lambda: bwd.fused_tcn_block_bwd_reference(
-                args[0], g, *args[1:], **kw)}, 10)
+                args[0], g, *args[1:], **kw),
+            "kernel": lambda: bwd.fused_tcn_block_bwd(args[0], g, *args[1:],
+                                                      **kw)}, 10)
         (k_ms, runs), (p_ms, _) = t["kernel"], t["plain"]
         kernel.append(k_ms)
         plain.append(p_ms)
@@ -1413,39 +1952,49 @@ def phase_cln_timings(torch, bwd, card: str):
 
 
 def phase_train_timings(torch, cfg, card: str, label: str,
-                        big_batch: bool):
+                        big_batch: bool, pair_states=(True,)):
     """The bf16 train step (forward + backward + optimizer) at B=8 x 4 s,
-    kernel path vs plain path in turns, with each path's peak memory; with
-    ``big_batch`` also the kernel path at B=24."""
+    plain path and kernel path (for each pair switch state in
+    ``pair_states``) in turns, with each path's peak memory; with
+    ``big_batch`` also the kernel paths at B=24."""
     from convtasnet_tpu_torch import SolverConfig
     from convtasnet_tpu_torch.train import train_step as ts
 
     step = ts.make_train_step()
 
-    def step_ms(flag, M, iters):
+    def step_ms(flag, pairs, M, iters):
         state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
                                       use_pallas=flag)
         batch = train_batch(torch, M, 21)
         torch.cuda.reset_peak_memory_stats()
-        ms = time_ms(torch, lambda: step(state, batch), iters)
+        with pair_switch(pairs):
+            ms = time_ms(torch, lambda: step(state, batch), iters)
         return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
-    runs = {"kernel": [], "plain": []}
+    paths = {"plain": (False, True)}
+    for pairs in pair_states:
+        name = "kernel" if len(pair_states) == 1 else \
+            f"kernel, pairs {'on' if pairs else 'off'}"
+        paths[name] = (True, pairs)
+    runs = {name: [] for name in paths}
     mem = {}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        ms, mem[name] = step_ms(name == "kernel", 8, 10)
+    for name in [*paths, *reversed(list(paths))]:
+        ms, mem[name] = step_ms(*paths[name], 8, 10)
         runs[name].append(ms)
-    for name in ("kernel", "plain"):
+    for name in paths:
         med = statistics.median(runs[name])
         print(f"timing [{card}] {label} train step B=8x{SECONDS}s bf16 "
               f"{name} path: {med:.3f} ms (runs "
               f"{[round(r, 3) for r in runs[name]]}), peak memory "
               f"{mem[name]:.2f} GiB", flush=True)
     if big_batch:
-        ms24, mem24 = step_ms(True, 24, 5)
-        print(f"timing [{card}] {label} train step B=24x{SECONDS}s bf16 "
-              f"kernel path: {ms24:.3f} ms, peak memory {mem24:.2f} GiB",
-              flush=True)
+        for name, (flag, pairs) in paths.items():
+            if not flag:
+                continue
+            ms24, mem24 = step_ms(True, pairs, 24, 5)
+            print(f"timing [{card}] {label} train step B=24x{SECONDS}s bf16 "
+                  f"{name} path: {ms24:.3f} ms, peak memory {mem24:.2f} GiB",
+                  flush=True)
 
 
 def kernel_line(name, source, replaces, launches, max_abs, ms, plain_ms,
@@ -1468,9 +2017,9 @@ def main() -> int:
         return 1
     from convtasnet_tpu_torch.ops.cuda import build
     from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
-    from convtasnet_tpu_torch.ops.cuda import tcn_block as tcn
-    from convtasnet_tpu_torch.ops.cuda import tcn_block_bwd as bwd
 
+    k = tcn_modules()
+    tcn, bwd = k["tcn"], k["bwd"]
     dpt = {"inter": dpt_attention, "intra": dpt_intra, "ffn": dpt_ffn}
     card = card_line()
     print(card, flush=True)
@@ -1490,36 +2039,48 @@ def main() -> int:
                   phase_kernel_vs_twin(torch, tcn, "cLN", causal=True))
     max_abs_bwd = phase_bwd_vs_twin(torch, bwd)
     max_abs_cln = phase_bwd_vs_twin(torch, bwd, "cLN")
+    max_abs_pair = phase_pair_vs_twin(torch, k)
+    max_abs_pair_bwd = phase_pair_bwd_vs_twin(torch, k)
     max_abs_dpt = phase_dpt_kernels_vs_twin(torch, dpt)
     max_abs_dpt_bwd = phase_dpt_bwd_vs_twin(torch, dpt)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        phase_main_path(torch, tcn, work)
-        fwd_launches, bwd_launches, data, json_dir = phase_train_path(
-            torch, tcn, bwd, work)
-        cln_launches = phase_cln_train_path(torch, tcn, bwd, work, data,
-                                            json_dir)
+        phase_main_path(torch, k, work)
+        data, json_dir = make_corpus(work)
+        # the gLN paper config trains through kernels 1 and 2 by default
+        # (CONVTASNET_PAIR_FUSION unset or 0), through the pairs (B4, B5)
+        # with CONVTASNET_PAIR_FUSION=1: both, each with exact counts
+        pairs_on = phase_train_path(torch, k, work, data, json_dir)
+        pairs_off = phase_train_path(torch, k, work, data, json_dir,
+                                     pairs=False)
+        cln = phase_cln_train_path(torch, k, work, data, json_dir)
         phase_dpt_forward(torch, dpt)
         dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
         dpt_launches_bwd = phase_dpt_train_path(torch, dpt, work, data,
                                                 json_dir)
-        phase_streaming(torch, tcn, work, card)
+        phase_streaming(torch, k, work, card)
     phase_step_compare(torch, "tcn")
     phase_step_compare(torch, "tcn", "cLN")
     phase_step_compare(torch, "dpt")
-    (k_ms, p_ms, kb_ms, pb_ms), (fwd_bound, bwd_bound) = phase_timings(
-        torch, tcn, bwd, card)
+    phase_dpt_chunk256_step(torch, dpt)
+    rows = phase_timings(torch, k, card)
     cln_ms, cln_plain_ms, cln_bound = phase_cln_timings(torch, bwd, card)
     dpt_times, dpt_bwd_times = phase_dpt_timings(torch, dpt, card)
 
     lines = [
         kernel_line("tcn_block", "tcn_block.cu", "tcn_block.py:92",
-                    fwd_launches, max_abs, k_ms, p_ms, fwd_bound),
+                    pairs_off["b1"], max_abs, *rows["b1"]),
         kernel_line("tcn_block_bwd", "tcn_block_bwd.cu",
-                    "tcn_block_bwd.py:74", bwd_launches, max_abs_bwd, kb_ms,
-                    pb_ms, bwd_bound),
+                    "tcn_block_bwd.py:74", pairs_off["b2"], max_abs_bwd,
+                    *rows["b2"]),
         kernel_line("tcn_block_bwd_cln", "tcn_block_bwd.cu",
-                    "tcn_block_bwd.py:325", cln_launches, max_abs_cln, cln_ms,
-                    cln_plain_ms, cln_bound)]
+                    "tcn_block_bwd.py:325", cln["b3"], max_abs_cln, cln_ms,
+                    cln_plain_ms, cln_bound),
+        kernel_line("tcn_block_pair", "tcn_block_pair.cu",
+                    "tcn_block_pair.py:63", pairs_on["b4"], max_abs_pair,
+                    *rows["b4"]),
+        kernel_line("tcn_block_pair_bwd", "tcn_block_pair_bwd.cu",
+                    "tcn_block_pair_bwd.py:63", pairs_on["b5"],
+                    max_abs_pair_bwd, *rows["b5"])]
     for kind, source, replaces in (
             ("inter", "dpt_attention.cu", "dpt_attention.py:62"),
             ("intra", "dpt_intra.cu", "dpt_intra.py:53"),

@@ -31,9 +31,16 @@
 // in f32 in the forward's order, round(p) and ds into two [S, S] shared
 // tiles, a and dq out; after a block barrier each warp takes 16 key rows:
 // dv and dk from the transposed tiles (warp_mm with kAT). About 175 KB of
-// shared memory in bf16 and 208 KB in f32 at S=128, so one block per SM;
-// the wrappers take S <= 128. The round trips of qkv, dA, a, dqkv and dy
-// through device memory are the design's cost over the bound.
+// shared memory in bf16 and 208 KB in f32 at S=128, so one block per SM.
+// Where the two [S, S] tiles do not fit beside the rest (S > 128 in bf16:
+// 270 KB of them alone at S=256), they go to a device workspace instead,
+// one pair of tiles per (m, chunk, head) block, 270 KB each at S=256 in
+// bf16 (225 MB at B=8 x 4 s), and the block runs with as many warps (4, 2
+// or 1) as its per-warp scratch rows leave room for; every value and every
+// order of summation is as in shared memory. Only f32 with a head width of
+// 64 has no fit above S=208 (its four [S, d] tiles alone). The round
+// trips of qkv, dA, a, dqkv and dy through device memory are the design's
+// cost over the bound.
 
 #include "dpt_bwd_common.cuh"
 
@@ -66,18 +73,49 @@ __host__ __device__ constexpr size_t warp_scratch(int S) {
              : align128(static_cast<size_t>(16) * (D + 4) * 4);
 }
 
-template <typename T, int D>
-__host__ __device__ constexpr size_t core_bwd_smem(int S) {
-  return 4 * align128(static_cast<size_t>(S) * head_ld<T, D>() * sizeof(T)) +
-         align128(static_cast<size_t>(S) * sizeof(float)) +
-         2 * align128(static_cast<size_t>(S) * pmat_ld<T>(S) * sizeof(T)) +
-         kCoreWarps * warp_scratch<T, D>(S);
+// Bytes of one [S, S] tile of round(p) or ds.
+template <typename T>
+__host__ __device__ constexpr size_t pmat_bytes(int S) {
+  return align128(static_cast<size_t>(S) * pmat_ld<T>(S) * sizeof(T));
 }
 
-// Grid (n, M, h); kCoreWarps warps. S % 16 == 0.
+// Shared memory of the core with `warps` warps; with `spill` the two
+// [S, S] tiles live in the device workspace instead.
+template <typename T, int D>
+__host__ __device__ constexpr size_t core_bwd_smem(int S, bool spill,
+                                                   int warps) {
+  return 4 * align128(static_cast<size_t>(S) * head_ld<T, D>() * sizeof(T)) +
+         align128(static_cast<size_t>(S) * sizeof(float)) +
+         (spill ? 0 : 2 * pmat_bytes<T>(S)) + warps * warp_scratch<T, D>(S);
+}
+
+constexpr size_t kMaxCoreSmem = 232448;   // an H100 block's opt-in limit
+
+// How the core runs at chunk length S: the [S, S] tiles in shared memory
+// with kCoreWarps warps where they fit, else spilled with the most warps
+// that fit; warps 0 if nothing fits.
+struct CoreCfg {
+  bool spill;
+  int warps;
+  size_t smem;
+};
+
+template <typename T, int D>
+CoreCfg core_cfg(int S) {
+  if (core_bwd_smem<T, D>(S, false, kCoreWarps) <= kMaxCoreSmem)
+    return {false, kCoreWarps, core_bwd_smem<T, D>(S, false, kCoreWarps)};
+  for (int w = kCoreWarps; w >= 1; w /= 2)
+    if (core_bwd_smem<T, D>(S, true, w) <= kMaxCoreSmem)
+      return {true, w, core_bwd_smem<T, D>(S, true, w)};
+  return {true, 0, 0};
+}
+
+// Grid (n, M, h); blockDim.x / 32 warps. S % 16 == 0. spill: null, or the
+// device workspace of the [S, S] tiles, 2 pmat_bytes per block.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCoreWarps * 32)
-    intra_bwd_core_kernel(DptAttnBwdParams P, float scale) {
+    intra_bwd_core_kernel(DptAttnBwdParams P, float scale,
+                          unsigned char* spill) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = 16 / sizeof(T);
   constexpr int ldq = head_ld<T, D>();
@@ -87,19 +125,28 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   const int lds = scratch_ld(S, D);
   const int chunk = blockIdx.x, m = blockIdx.y, hd = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
 
   const size_t head = align128(static_cast<size_t>(S) * ldq * sizeof(T));
-  const size_t pm = align128(static_cast<size_t>(S) * ldp * sizeof(T));
+  const size_t pm = pmat_bytes<T>(S);
   T* q_s = reinterpret_cast<T*>(smem);
   T* k_s = reinterpret_cast<T*>(smem + head);
   T* v_s = reinterpret_cast<T*>(smem + 2 * head);
   T* da_s = reinterpret_cast<T*>(smem + 3 * head);
   float* b_s = reinterpret_cast<float*>(smem + 4 * head);
-  unsigned char* at =
+  unsigned char* tail =
       smem + 4 * head + align128(static_cast<size_t>(S) * sizeof(float));
+  unsigned char* at = tail;
+  if (spill) {
+    const size_t blk =
+        (static_cast<size_t>(m) * gridDim.x + chunk) * gridDim.z + hd;
+    at = spill + blk * 2 * pm;
+  } else {
+    tail += 2 * pm;
+  }
   T* p_s = reinterpret_cast<T*>(at);         // round(p), then [S, S] of p
   T* ds_s = reinterpret_cast<T*>(at + pm);   // ds (f32: dp first)
-  unsigned char* ws = at + 2 * pm + warp * warp_scratch<T, D>(S);
+  unsigned char* ws = tail + warp * warp_scratch<T, D>(S);
   float* w0 = reinterpret_cast<float*>(ws);
   float* w1 = reinterpret_cast<float*>(
       ws + align128(static_cast<size_t>(16) * lds * 4));
@@ -140,7 +187,7 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   };
 
   // query rows: p, a, dp, ds, dq
-  for (int g = warp; g < S / 16; g += kCoreWarps) {
+  for (int g = warp; g < S / 16; g += n_warps) {
     float* c;   // f32 scores, then p, of the 16 rows
     float* dd;  // f32 dp of the 16 rows
     int ldc;
@@ -200,7 +247,7 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   __syncthreads();   // every row of round(p) and ds is in place
 
   // key rows: dv = round(p)^T dA, dk = ds^T q
-  for (int g = warp; g < S / 16; g += kCoreWarps) {
+  for (int g = warp; g < S / 16; g += n_warps) {
     warp_mm<T, false, true>(p_s + g * 16, ldp, da_s, ldq, S, D, o, ldo);
     store_rows(dqkv + 2 * B, 3 * B, g * 16);
     warp_mm<T, false, true>(ds_s + g * 16, ldp, q_s, ldq, S, D, o, ldo);
@@ -208,28 +255,55 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   }
 }
 
+// Elements of T the spilled [S, S] tiles take after the attention
+// workspace (0 where they fit in shared memory); -1 where nothing fits.
 template <typename T, int D>
-int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
-  const size_t smem = core_bwd_smem<T, D>(P.f.S);
+long long spill_elems(int M, int n, int S, int h) {
+  const CoreCfg c = core_cfg<T, D>(S);
+  if (c.warps == 0) return -1;
+  if (!c.spill) return 0;
+  return static_cast<long long>(M) * n * h * 2 * pmat_bytes<T>(S) /
+         sizeof(T);
+}
+
+template <typename T>
+long long spill_elems_for(int M, int n, int S, int B, int h) {
+  const int d = B / h;
+  return d == 32 ? spill_elems<T, 32>(M, n, S, h)
+                 : spill_elems<T, 64>(M, n, S, h);
+}
+
+template <typename T, int D>
+int launch_core(const DptAttnBwdParams& P, unsigned char* spill,
+                cudaStream_t stream) {
+  const CoreCfg c = core_cfg<T, D>(P.f.S);
+  if (c.warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       intra_bwd_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(c.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  intra_bwd_core_kernel<T, D><<<dim3(P.f.n, P.f.M, P.f.h), kCoreWarps * 32,
-                                smem, stream>>>(P, scale);
+  intra_bwd_core_kernel<T, D><<<dim3(P.f.n, P.f.M, P.f.h), c.warps * 32,
+                                c.smem, stream>>>(
+      P, scale, c.spill ? spill : nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ws_act holds the attention workspace (attn_bwd_layout) and, after it,
+// the spilled tiles where the core needs them.
 template <typename T>
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
   const int d = P.f.B / P.f.h;
   if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const AttnBwdLayout L = attn_bwd_layout(P.f.R, P.f.B, P.f.h, sizeof(T));
+  unsigned char* spill =
+      reinterpret_cast<unsigned char*>(static_cast<T*>(ws_act) + L.n_act);
   return launch_attention_bwd<T>(
       P, ws_act, ws_f32, stream,
-      [d](const DptAttnBwdParams& q, cudaStream_t s) {
-        return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
+      [d, spill](const DptAttnBwdParams& q, cudaStream_t s) {
+        return d == 32 ? launch_core<T, 32>(q, spill, s)
+                       : launch_core<T, 64>(q, spill, s);
       });
 }
 
@@ -237,8 +311,22 @@ int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
 
 extern "C" {
 
+// Elements of the compute dtype (elem_bytes 2 for bf16, 4 for f32) the
+// intra backward needs after ctn_dpt_attn_bwd_workspace's n_act for its
+// spilled [S, S] tiles: 0 where they fit in shared memory, -1 where the
+// core fits no way (f32, head width 64, S > 208).
+int ctn_dpt_intra_bwd_spill(int M, int n, int S, int B, int h, int elem_bytes,
+                            long long* n_spill) {
+  if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
+  *n_spill = elem_bytes == 2
+                 ? spill_elems_for<__nv_bfloat16>(M, n, S, B, h)
+                 : spill_elems_for<float>(M, n, S, B, h);
+  return 0;
+}
+
 // One intra-chunk attention sublayer backward (CTN_DPT_ATTN_BWD_ARGS in
-// dpt_bwd_common.cuh; workspace sizes from ctn_dpt_attn_bwd_workspace);
+// dpt_bwd_common.cuh; workspace sizes from ctn_dpt_attn_bwd_workspace plus
+// ctn_dpt_intra_bwd_spill);
 // returns the first CUDA error of its launches.
 int ctn_dpt_intra_bwd_f32(CTN_DPT_ATTN_BWD_ARGS) {
   return launch_bwd<float>(CTN_DPT_ATTN_BWD_CALL);

@@ -48,128 +48,19 @@
 
 #include "tcn_block_common.cuh"
 
-// Launches A and B (in_proj_kernel, dwconv_kernel) and Params are in the
-// header, because the backward reruns them.
+// The prep launch and launches A, B and C (out_weights_kernel,
+// in_proj_kernel, dwconv_kernel, out_proj_kernel) and Params are in the
+// header, because the backward and the block pair (tcn_block_pair.cu) rerun
+// them.
 
 namespace {
-
-// Before launch A: W_eff = diag(g) W_out and its column sums (see the top
-// note). Block (32 columns) x (kPrepRowGroups row groups); grid B/32.
-constexpr int kPrepRowGroups = 16;
-
-template <typename T>
-__global__ void __launch_bounds__(32 * kPrepRowGroups)
-    out_weights_kernel(Params p) {
-  __shared__ float s_sum[2][kPrepRowGroups][32];
-  const int n = blockIdx.x * 32 + threadIdx.x;
-  const int rg = threadIdx.y;
-  const int B = p.B, H = p.H;
-  const bool bn = p.norm == kNormBN;
-  const T* w_out = static_cast<const T*>(p.w_out);
-  T* w_eff = static_cast<T*>(p.w_eff);
-  float gw = 0.f, bw = 0.f;
-  if (n < B) {
-    for (int r = rg; r < H; r += kPrepRowGroups) {
-      const size_t idx = static_cast<size_t>(r) * B + n;
-      const float wv = to_f<T>(w_out[idx]);
-      const float g = bn ? p.g2[r] * rsqrtf(p.v2[r] + kBnEps) : p.g2[r];
-      const T we = from_f<T>(wv * g);
-      w_eff[idx] = we;
-      gw += to_f<T>(we);
-      bw = fmaf(bn ? p.b2[r] - p.m2[r] * g : p.b2[r], wv, bw);
-    }
-  }
-  s_sum[0][rg][threadIdx.x] = gw;
-  s_sum[1][rg][threadIdx.x] = bw;
-  __syncthreads();
-  if (rg == 0 && n < B) {
-    for (int g = 1; g < kPrepRowGroups; ++g) {
-      gw += s_sum[0][g][threadIdx.x];
-      bw += s_sum[1][g][threadIdx.x];
-    }
-    p.wsum[n] = gw;
-    p.wsum[B + n] = bw;
-  }
-}
-
-// Launch C: out = x + rs*((y*g) @ W_out - mu*(g @ W_out)) + b @ W_out.
-// Grid (ceil(K/kBM), B/kBN, M); n_part_b as n_part_a above, for launch B.
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads) out_proj_kernel(Params p,
-                                                                int n_part_b) {
-  using S = GemmSmem<T>;
-  __shared__ S s;
-  __shared__ float s_mu[kBM];
-  __shared__ float s_rs[kBM];
-  const int m = blockIdx.z;
-  const int r0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int K = p.K, H = p.H, B = p.B;
-
-  if (p.norm == kNormGLN) {
-    sample_stats(p.part_b + 2 * static_cast<size_t>(m) * n_part_b, n_part_b,
-                 static_cast<double>(K) * H, &s_mu[0], &s_rs[0]);
-    const float mu = s_mu[0], rs = s_rs[0];
-    __syncthreads();
-    for (int r = threadIdx.x; r < kBM; r += kGemmThreads) {
-      s_mu[r] = mu;
-      s_rs[r] = rs;
-    }
-  } else if (p.norm == kNormCLN) {
-    for (int r = threadIdx.x; r < kBM; r += kGemmThreads) {
-      if (r0 + r < K)
-        row_stats(p.part_b + 2 * (static_cast<size_t>(m) * K + r0 + r) * n_part_b,
-                  n_part_b, H, &s_mu[r], &s_rs[r]);
-    }
-  } else {
-    for (int r = threadIdx.x; r < kBM; r += kGemmThreads) {
-      s_mu[r] = 0.f;
-      s_rs[r] = 1.f;
-    }
-  }
-  __syncthreads();
-
-  const T* y = static_cast<const T*>(p.y) + static_cast<size_t>(m) * K * H;
-  gemm_tile<T>(y, static_cast<const T*>(p.w_eff), K, H, B, r0, n0, s);
-  const float* gw = p.wsum + n0;
-  const float* bw = p.wsum + B + n0;
-
-  const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(m) * K * B;
-  T* out = static_cast<T*>(p.out) + static_cast<size_t>(m) * K * B;
-  for (int e = threadIdx.x; e < kBM * kBN; e += kGemmThreads) {
-    const int r = e / kBN;
-    const int c = e % kBN;
-    if (r0 + r >= K) continue;
-    const size_t idx = static_cast<size_t>(r0 + r) * B + n0 + c;
-    const float o = s_rs[r] * (s.c[r * S::kLdC + c] - s_mu[r] * gw[c]) + bw[c];
-    out[idx] = from_f<T>(to_f<T>(x[idx]) + o);
-  }
-}
-
-int part_counts(int K, int H, int norm, long long* n_a, long long* n_b) {
-  const long long kt = (K + kBM - 1) / kBM;
-  const long long nt = H / kBN;
-  const long long rt = (K + kDwRows - 1) / kDwRows;
-  const long long ct = (H + kDwThreads - 1) / kDwThreads;
-  if (norm == kNormGLN) {
-    *n_a = kt * nt;
-    *n_b = rt * ct;
-  } else if (norm == kNormCLN) {
-    *n_a = nt;
-    *n_b = ct;
-  } else {
-    *n_a = 0;
-    *n_b = 0;
-  }
-  return 0;
-}
 
 template <typename T, int kNorm>
 int launch_norm(const Params& p, cudaStream_t stream) {
   long long n_a = 0, n_b = 0;
   part_counts(p.K, p.H, kNorm, &n_a, &n_b);
   out_weights_kernel<T><<<(p.B + 31) / 32, dim3(32, kPrepRowGroups), 0,
-                          stream>>>(p);
+                          stream>>>(p, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned kt = (p.K + kBM - 1) / kBM;

@@ -126,24 +126,30 @@ struct GemmSmem {
 // s.c[0:kBM, 0:kBN] = act[r0:r0+kBM, :] @ w[:, n0:n0+kBN], rows of act at
 // or beyond `rows` read as zero. act is [rows, depth] row-major, w is
 // [depth, cols] row-major; depth % kBK == 0 and cols % kBN == 0 (checked by
-// the wrapper).
-template <typename T>
+// the wrapper). With kResA, act is instead a [kBM, lda] tile already in
+// shared memory (its ragged rows zeroed by the caller; r0 and rows unused),
+// read in place: the same fragments in the same order, so the same bits as
+// the tile copied from device memory. lda % 16 / sizeof(T) == 0.
+template <typename T, bool kResA = false>
 __device__ void gemm_tile(const T* __restrict__ act, const T* __restrict__ w,
                           int rows, int depth, int cols, int r0, int n0,
-                          GemmSmem<T>& s) {
+                          GemmSmem<T>& s, int lda = 0) {
   using S = GemmSmem<T>;
   constexpr int V = S::kVec;
   const int tid = threadIdx.x;
+  if constexpr (!kResA) lda = S::kLdA;
 
   auto load_tiles = [&](int k0) {
-    for (int v = tid; v < kBM * kBK / V; v += kGemmThreads) {
-      const int r = v / (kBK / V);
-      const int c = (v % (kBK / V)) * V;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < rows)
-        val = *reinterpret_cast<const uint4*>(
-            act + static_cast<size_t>(r0 + r) * depth + k0 + c);
-      *reinterpret_cast<uint4*>(&s.a[r * S::kLdA + c]) = val;
+    if constexpr (!kResA) {
+      for (int v = tid; v < kBM * kBK / V; v += kGemmThreads) {
+        const int r = v / (kBK / V);
+        const int c = (v % (kBK / V)) * V;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 + r < rows)
+          val = *reinterpret_cast<const uint4*>(
+              act + static_cast<size_t>(r0 + r) * depth + k0 + c);
+        *reinterpret_cast<uint4*>(&s.a[r * S::kLdA + c]) = val;
+      }
     }
     for (int v = tid; v < kBK * kBN / V; v += kGemmThreads) {
       const int r = v / (kBN / V);
@@ -167,6 +173,7 @@ __device__ void gemm_tile(const T* __restrict__ act, const T* __restrict__ w,
     for (int k0 = 0; k0 < depth; k0 += kBK) {
       load_tiles(k0);
       __syncthreads();
+      const T* a_t = kResA ? act + k0 : s.a;
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
@@ -175,8 +182,8 @@ __device__ void gemm_tile(const T* __restrict__ act, const T* __restrict__ w,
                        wmma::row_major> fb[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &s.a[(wr * 32 + i * 16) * S::kLdA + kk],
-                                 S::kLdA);
+          wmma::load_matrix_sync(fa[i], a_t + (wr * 32 + i * 16) * lda + kk,
+                                 lda);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           wmma::load_matrix_sync(fb[j], &s.b[kk * S::kLdB + wc * 32 + j * 16],
@@ -208,11 +215,12 @@ __device__ void gemm_tile(const T* __restrict__ act, const T* __restrict__ w,
     for (int k0 = 0; k0 < depth; k0 += kBK) {
       load_tiles(k0);
       __syncthreads();
+      const T* a_t = kResA ? act + k0 : s.a;
 #pragma unroll 8
       for (int kk = 0; kk < kBK; ++kk) {
         float a[8], b[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = to_f<T>(s.a[(ty * 8 + i) * S::kLdA + kk]);
+        for (int i = 0; i < 8; ++i) a[i] = to_f<T>(a_t[(ty * 8 + i) * lda + kk]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) b[j] = to_f<T>(s.b[kk * S::kLdB + tx * 4 + j]);
 #pragma unroll
@@ -281,18 +289,16 @@ __device__ __forceinline__ void row_stats(const float* part, int n, int H,
   *rs = rsqrtf(static_cast<float>(var) + kEps);
 }
 
-// Launch A: h = PReLU(x @ W_in) (kPre: x @ W_in) and norm1's partial sums,
-// taken over the f32 PReLU outputs before they are stored.
-// Grid (ceil(K/kBM), H/kBN, M).
+// Launch A's epilogue for tile (bx, by) of sample m of a grid of n_bx row
+// tiles by n_by column tiles, its product x @ W_in in s.c: h = PReLU (kPre:
+// the pre-activation) to p.h, and norm1's partial sums, taken over the f32
+// PReLU outputs before they are stored, to p.part_a.
 template <typename T, int kNorm, bool kPre>
-__global__ void __launch_bounds__(kGemmThreads) in_proj_kernel(Params p) {
+__device__ void in_proj_epilogue(const Params& p, GemmSmem<T>& s, int m,
+                                 int bx, int by, int n_bx, int n_by) {
   using S = GemmSmem<T>;
-  __shared__ S s;
-  const int m = blockIdx.z;
-  const int r0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(m) * p.K * p.B;
-  gemm_tile<T>(x, static_cast<const T*>(p.w_in), p.K, p.B, p.H, r0, n0, s);
+  const int r0 = bx * kBM;
+  const int n0 = by * kBN;
   const float a1 = *p.a1;
   T* h = static_cast<T*>(p.h) + static_cast<size_t>(m) * p.K * p.H;
   float s1 = 0.f, s2 = 0.f;
@@ -313,8 +319,7 @@ __global__ void __launch_bounds__(kGemmThreads) in_proj_kernel(Params p) {
     block_sum2(s1, s2);
     if (threadIdx.x == 0) {
       float* dst = p.part_a +
-          2 * ((static_cast<size_t>(m) * gridDim.x + blockIdx.x) * gridDim.y +
-               blockIdx.y);
+          2 * ((static_cast<size_t>(m) * n_bx + bx) * n_by + by);
       dst[0] = s1;
       dst[1] = s2;
     }
@@ -329,11 +334,24 @@ __global__ void __launch_bounds__(kGemmThreads) in_proj_kernel(Params p) {
         t2 += v * v;
       }
       float* dst = p.part_a +
-          2 * ((static_cast<size_t>(m) * p.K + r0 + r) * gridDim.y + blockIdx.y);
+          2 * ((static_cast<size_t>(m) * p.K + r0 + r) * n_by + by);
       dst[0] = t1;
       dst[1] = t2;
     }
   }
+}
+
+// Launch A: h = PReLU(x @ W_in) (kPre: x @ W_in) and norm1's partial sums.
+// Grid (ceil(K/kBM), H/kBN, M).
+template <typename T, int kNorm, bool kPre>
+__global__ void __launch_bounds__(kGemmThreads) in_proj_kernel(Params p) {
+  __shared__ GemmSmem<T> s;
+  const int m = blockIdx.z;
+  const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(m) * p.K * p.B;
+  gemm_tile<T>(x, static_cast<const T*>(p.w_in), p.K, p.B, p.H,
+               blockIdx.x * kBM, blockIdx.y * kBN, s);
+  in_proj_epilogue<T, kNorm, kPre>(p, s, m, blockIdx.x, blockIdx.y, gridDim.x,
+                                   gridDim.y);
 }
 
 // Launch B: norm1 + dilated depthwise conv + PReLU, and norm2's partials
@@ -444,6 +462,152 @@ __global__ void __launch_bounds__(kDwThreads, 8)
       dst[1] = u2;
     }
   }
+}
+
+// The prep launch before launch A: W_eff = diag(g) W_out, with g the
+// per-channel scale of norm2 (for BN the running statistics folded in), in
+// the compute dtype, and the column sums g @ W_out (of W_eff as rounded) and
+// b @ W_out, that launch C's folded product reads (tcn_block.cu's top note).
+// Block (32 columns) x (kPrepRowGroups row groups); grid (B/32, n_blocks):
+// blockIdx.y picks p0 or p1, so a block pair folds both its blocks in one
+// launch (a single block passes itself twice, grid.y 1).
+constexpr int kPrepRowGroups = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kPrepRowGroups)
+    out_weights_kernel(Params p0, Params p1) {
+  __shared__ float s_sum[2][kPrepRowGroups][32];
+  const Params& p = blockIdx.y ? p1 : p0;
+  const int n = blockIdx.x * 32 + threadIdx.x;
+  const int rg = threadIdx.y;
+  const int B = p.B, H = p.H;
+  const bool bn = p.norm == kNormBN;
+  const T* w_out = static_cast<const T*>(p.w_out);
+  T* w_eff = static_cast<T*>(p.w_eff);
+  float gw = 0.f, bw = 0.f;
+  if (n < B) {
+    for (int r = rg; r < H; r += kPrepRowGroups) {
+      const size_t idx = static_cast<size_t>(r) * B + n;
+      const float wv = to_f<T>(w_out[idx]);
+      const float g = bn ? p.g2[r] * rsqrtf(p.v2[r] + kBnEps) : p.g2[r];
+      const T we = from_f<T>(wv * g);
+      w_eff[idx] = we;
+      gw += to_f<T>(we);
+      bw = fmaf(bn ? p.b2[r] - p.m2[r] * g : p.b2[r], wv, bw);
+    }
+  }
+  s_sum[0][rg][threadIdx.x] = gw;
+  s_sum[1][rg][threadIdx.x] = bw;
+  __syncthreads();
+  if (rg == 0 && n < B) {
+    for (int g = 1; g < kPrepRowGroups; ++g) {
+      gw += s_sum[0][g][threadIdx.x];
+      bw += s_sum[1][g][threadIdx.x];
+    }
+    p.wsum[n] = gw;
+    p.wsum[B + n] = bw;
+  }
+}
+
+// Launch C's norm2 statistics for rows r0..r0+kBM of sample m, from launch
+// B's n_part_b partials: mean and rs per row into s_mu, s_rs (the sample's
+// for gLN, each row's for cLN, 0 and 1 for BN, whose statistics are folded
+// into W_eff). Called by the whole block; ends with a barrier.
+__device__ void out_proj_stats(const Params& p, int n_part_b, int m, int r0,
+                               float* s_mu, float* s_rs) {
+  const int K = p.K, H = p.H;
+  if (p.norm == kNormGLN) {
+    sample_stats(p.part_b + 2 * static_cast<size_t>(m) * n_part_b, n_part_b,
+                 static_cast<double>(K) * H, &s_mu[0], &s_rs[0]);
+    const float mu = s_mu[0], rs = s_rs[0];
+    __syncthreads();
+    for (int r = threadIdx.x; r < kBM; r += blockDim.x) {
+      s_mu[r] = mu;
+      s_rs[r] = rs;
+    }
+  } else if (p.norm == kNormCLN) {
+    for (int r = threadIdx.x; r < kBM; r += blockDim.x) {
+      if (r0 + r < K)
+        row_stats(p.part_b + 2 * (static_cast<size_t>(m) * K + r0 + r) * n_part_b,
+                  n_part_b, H, &s_mu[r], &s_rs[r]);
+    }
+  } else {
+    for (int r = threadIdx.x; r < kBM; r += blockDim.x) {
+      s_mu[r] = 0.f;
+      s_rs[r] = 1.f;
+    }
+  }
+  __syncthreads();
+}
+
+// Launch C's epilogue for the tile at rows r0, columns n0 of sample m, its
+// product (y*g) @ W_out in s.c: out = x + rs*(c - mu*(g @ W_out)) + b @ W_out,
+// rounded to the compute dtype. With res_s (a [kBM, ld_res] shared tile) the
+// rounded values also land there, rows at or beyond K as zeros, for a block
+// pair's next product (tcn_block_pair.cuh).
+template <typename T>
+__device__ void out_proj_epilogue(const Params& p, const GemmSmem<T>& s,
+                                  const float* s_mu, const float* s_rs, int m,
+                                  int r0, int n0, T* res_s = nullptr,
+                                  int ld_res = 0) {
+  using S = GemmSmem<T>;
+  const int K = p.K, B = p.B;
+  const float* gw = p.wsum + n0;
+  const float* bw = p.wsum + B + n0;
+  const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(m) * K * B;
+  T* out = static_cast<T*>(p.out) + static_cast<size_t>(m) * K * B;
+  for (int e = threadIdx.x; e < kBM * kBN; e += kGemmThreads) {
+    const int r = e / kBN;
+    const int c = e % kBN;
+    if (r0 + r >= K) {
+      if (res_s) res_s[r * ld_res + n0 + c] = from_f<T>(0.f);
+      continue;
+    }
+    const size_t idx = static_cast<size_t>(r0 + r) * B + n0 + c;
+    const float o = s_rs[r] * (s.c[r * S::kLdC + c] - s_mu[r] * gw[c]) + bw[c];
+    const T v = from_f<T>(to_f<T>(x[idx]) + o);
+    out[idx] = v;
+    if (res_s) res_s[r * ld_res + n0 + c] = v;
+  }
+}
+
+// Launch C: out = x + rs*((y*g) @ W_out - mu*(g @ W_out)) + b @ W_out.
+// Grid (ceil(K/kBM), B/kBN, M); n_part_b is the number of launch-B
+// partials per sample (gLN) or per row (cLN).
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads) out_proj_kernel(Params p,
+                                                                int n_part_b) {
+  __shared__ GemmSmem<T> s;
+  __shared__ float s_mu[kBM];
+  __shared__ float s_rs[kBM];
+  const int m = blockIdx.z;
+  const int r0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  out_proj_stats(p, n_part_b, m, r0, s_mu, s_rs);
+  const T* y = static_cast<const T*>(p.y) + static_cast<size_t>(m) * p.K * p.H;
+  gemm_tile<T>(y, static_cast<const T*>(p.w_eff), p.K, p.H, p.B, r0, n0, s);
+  out_proj_epilogue<T>(p, s, s_mu, s_rs, m, r0, n0);
+}
+
+// Number of (sum, sum of squares) partials launches A and B write per
+// sample (gLN) or per row (cLN); 0 for BN.
+inline int part_counts(int K, int H, int norm, long long* n_a,
+                       long long* n_b) {
+  const long long kt = (K + kBM - 1) / kBM;
+  const long long nt = H / kBN;
+  const long long rt = (K + kDwRows - 1) / kDwRows;
+  const long long ct = (H + kDwThreads - 1) / kDwThreads;
+  if (norm == kNormGLN) {
+    *n_a = kt * nt;
+    *n_b = rt * ct;
+  } else if (norm == kNormCLN) {
+    *n_a = nt;
+    *n_b = ct;
+  } else {
+    *n_a = 0;
+    *n_b = 0;
+  }
+  return 0;
 }
 
 // The weight gradients of the backward kernels (tcn_block_bwd.cu and the
@@ -620,6 +784,9 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part,
   for (int z = 0; z < n_chunks; ++z) acc += part[static_cast<size_t>(z) * n + i];
   out[i] = static_cast<float>(acc);
 }
+
+// n rounded up to a multiple of a (workspace segments' alignment).
+inline size_t align_up(size_t n, size_t a) { return (n + a - 1) / a * a; }
 
 // Returns the pending CUDA error, if any, from the enclosing launcher.
 #define CTN_CHECK()                                   \

@@ -19,15 +19,28 @@ sublayer) through the hand-written kernels" (``ops/cuda/``): ``None``
 ``True`` needs CUDA tensors and raises on CPU ones; ``False`` runs the
 plain ops anywhere. ``cfg.use_pallas=True`` acts as ``use_pallas=True``.
 
-Training (``model.train()`` with gradients) with the kernels in use: gLN
-and cLN blocks run the forward kernel B1 and the backward kernel of their
-norm (B2 for gLN, B3 for cLN) through ``fused_tcn_block_ad``; BN blocks
-train through the plain ops with batch statistics, as the JAX model's do
-(its fused train branch takes only gLN/cLN).
+With the kernels in use and ``CONVTASNET_PAIR_FUSION=1``
+(``pair_fusion_enabled``; off by default, as the pairs are slower on the
+card and save only memory), blocks (x, x+1) of each repeat, for even x
+with x+1 < X, run as one block pair, as the JAX separator's
+``pair_variant`` runs them: gLN and cLN forwards without gradients through
+the pair kernel B4 (``fused_tcn_block_pair``), gLN with gradients through
+B4 and the pair backward B5 (``fused_tcn_block_pair_ad``). The rule is
+fixed in code, with no probe.
+
+Every other block runs singly. Training (``model.train()`` with
+gradients) with the kernels in use: gLN and cLN single blocks run the
+forward kernel B1 and the backward kernel of their norm (B2 for gLN, B3 for
+cLN) through ``fused_tcn_block_ad``, so cLN trains as single blocks, as in
+JAX (its pair train gate takes gLN only); BN blocks train through the plain
+ops with batch statistics, as the JAX model's do (its fused train branch
+takes only gLN/cLN). An odd last block and the plain path run singly.
+Parameters stay per block under their names, paired or not.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -50,12 +63,28 @@ from convtasnet_tpu_torch.ops.cuda.tcn_block import (
     fused_tcn_block,
     fused_tcn_block_ad,
 )
+from convtasnet_tpu_torch.ops.cuda.tcn_block_pair import (
+    fused_tcn_block_pair,
+    fused_tcn_block_pair_ad,
+)
 from convtasnet_tpu_torch.ops.frames import frame_signal, overlap_and_add
 from convtasnet_tpu_torch.ops.norm import (
     batch_norm,
     channelwise_layer_norm,
     global_layer_norm,
 )
+
+
+PAIR_ENV = "CONVTASNET_PAIR_FUSION"
+
+
+def pair_fusion_enabled() -> bool:
+    """Whether the separator runs blocks (x, x+1) as pairs where the
+    kernels are in use: when ``CONVTASNET_PAIR_FUSION`` is set and not
+    ``0``, as in the JAX package, which reads it at each forward too. Off
+    by default: on the card the pairs are slower end to end than the
+    single blocks (PERF.md) and save only memory."""
+    return os.environ.get(PAIR_ENV, "0") != "0"
 
 
 def _xavier(shape, std: float, generator: torch.Generator, device):
@@ -226,7 +255,35 @@ class TemporalConvNet(nn.Module):
             self.cfg,
             {"bottleneck": self.bottleneck, "mask_conv": self.mask_conv},
             mixture_w, input_norm=self.input_norm,
-            run_block=lambda name, _, y: getattr(self, name)(y, use_kernel))
+            run_block=lambda name, _, y: getattr(self, name)(y, use_kernel),
+            run_pair=self._pair_runner(mixture_w) if use_kernel else None)
+
+    def _pair_runner(self, mixture_w: torch.Tensor):
+        """How blocks pair with the kernels in use: ``None`` (every block
+        singly) for BN, with the switch off, or for cLN with gradients;
+        else a ``run_pair`` for ``separator_forward``."""
+        cfg = self.cfg
+        if cfg.norm_type not in ("gLN", "cLN") or not pair_fusion_enabled():
+            return None
+        needs_grad = torch.is_grad_enabled() and (
+            mixture_w.requires_grad
+            or any(p.requires_grad for p in self.parameters()))
+        if needs_grad and cfg.norm_type != "gLN":
+            return None
+        pair = fused_tcn_block_pair_ad if needs_grad else fused_tcn_block_pair
+
+        def run_pair(name_a: str, name_b: str, dilation: int,
+                     y: torch.Tensor) -> torch.Tensor:
+            blocks = getattr(self, name_a), getattr(self, name_b)
+            params = [(b.conv1x1, b.dwconv, b.pwconv, b.prelu1, b.prelu2,
+                       b.norm1.gamma, b.norm1.beta, b.norm2.gamma,
+                       b.norm2.beta) for b in blocks]
+            out = pair(y.reshape(-1, *y.shape[-2:]), *params, d1=dilation,
+                       d2=blocks[1].dilation, causal=cfg.causal,
+                       norm_type=cfg.norm_type)
+            return out.reshape(y.shape)
+
+        return run_pair
 
 
 class ConvTasNet(nn.Module):

@@ -9,7 +9,7 @@ supplying how the depthwise conv and the two norms see their input.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -70,15 +70,30 @@ def separator_forward(
     *,
     input_norm: Callable[[torch.Tensor], torch.Tensor],
     run_block: Callable[[str, int, torch.Tensor], torch.Tensor],
+    run_pair: Optional[Callable[[str, str, int, torch.Tensor],
+                                torch.Tensor]] = None,
 ) -> torch.Tensor:
     """TCN separator: cLN input norm -> 1x1 bottleneck -> R x X dilated
     blocks -> mask head -> nonlinearity. ``sep`` holds ``bottleneck`` and
     ``mask_conv``; ``run_block(name, dilation, y)`` runs one block, through
-    ``block_forward`` or the CUDA kernel."""
+    ``block_forward`` or the CUDA kernel. ``run_pair(name_a, name_b,
+    dilation, y)``, where given, runs blocks x and x+1 of each repeat as
+    one pair (dilations d and 2d) for even x with x+1 < X, as the JAX
+    separator's ``pair_variant`` pairs them; an odd last block runs
+    singly."""
     y = input_norm(mixture_w)
     y = pointwise_conv(y, sep["bottleneck"].to(y.dtype))
-    for name, dilation in block_names(cfg):
-        y = run_block(name, dilation, y)
+    names = block_names(cfg)
+    i = 0
+    while i < len(names):
+        name, dilation = names[i]
+        x = i % cfg.num_blocks
+        if run_pair is not None and x % 2 == 0 and x + 1 < cfg.num_blocks:
+            y = run_pair(name, names[i + 1][0], dilation, y)
+            i += 2
+        else:
+            y = run_block(name, dilation, y)
+            i += 1
     score = pointwise_conv(y, sep["mask_conv"].to(y.dtype))
     return mask_from_scores(cfg, score)
 

@@ -41,7 +41,6 @@ NEG_INF = -1e9
 TILE = 64            # B must be a multiple of the GEMM tile
 MAX_WIDTH = 256      # B at most this (the kernels' shared-memory tiles)
 HEAD_DIMS = (32, 64)
-MAX_BWD_CHUNK = 128  # S at most this in the intra backward (its [S, S] tiles)
 _ENTRY = {
     "inter": {torch.float32: "ctn_dpt_inter_f32",
               torch.bfloat16: "ctn_dpt_inter_bf16"},
@@ -317,17 +316,23 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
     if tuple(g.shape) != tuple(xc.shape):
         raise ValueError(f"g must have x's shape {tuple(xc.shape)}, got "
                          f"{tuple(g.shape)}")
-    if kind == "intra" and S > MAX_BWD_CHUNK:
-        raise ValueError(f"the intra backward kernel takes S at most "
-                         f"{MAX_BWD_CHUNK}, got S={S}")
     g = g.detach().to(xc.dtype).contiguous()
     if g.device != xc.device or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned tensor on {xc.device}")
     n_act, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
     lib.ctn_dpt_attn_bwd_workspace(M, n, S, B, n_heads, xc.element_size(),
                                    ctypes.byref(n_act), ctypes.byref(n_f32))
+    n_spill = ctypes.c_longlong(0)
+    if kind == "intra":   # its [S, S] tiles, where shared memory cannot hold them
+        lib.ctn_dpt_intra_bwd_spill(M, n, S, B, n_heads, xc.element_size(),
+                                    ctypes.byref(n_spill))
+        if n_spill.value < 0:
+            raise ValueError(f"the intra backward kernel does not fit one "
+                             f"block's shared memory at S={S} with head "
+                             f"width {B // n_heads} in {xc.dtype}")
     f32 = dict(dtype=torch.float32, device=xc.device)
-    ws_act = torch.empty(n_act.value, dtype=xc.dtype, device=xc.device)
+    ws_act = torch.empty(n_act.value + n_spill.value, dtype=xc.dtype,
+                         device=xc.device)
     ws_f32 = torch.empty(n_f32.value, **f32)
     dx = torch.empty_like(xc)
     dgb = torch.empty((2, B), **f32)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Plant known faults in copies of the DPT sublayer kernels and of the cLN
-block backward (kernel B3), and report which checks see each one. Needs
-one CUDA GPU and nvcc.
+"""Plant known faults in copies of the DPT sublayer kernels, of the cLN
+block backward (kernel B3) and of the TCN block pair (kernels B4 and B5),
+and report which checks see each one. Needs one CUDA GPU and nvcc.
 
     python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...]
 
@@ -13,9 +13,11 @@ smoke phases of the kernel's kind (``PHASES``: for a DPT forward kernel
 ``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, for a
 DPT backward ``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch,
 "dpt")``, for B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
-``phase_step_compare(torch, "tcn", "cLN")``), then the kind's
-``cuda``-marked tests. The repository itself is never edited. A fault is caught when either run
-fails. Each run's full output goes to ``--log-dir`` (default: a new
+``phase_step_compare(torch, "tcn", "cLN")``, for the block pair
+``phase_pair_vs_twin``, ``phase_pair_bwd_vs_twin`` and
+``phase_step_compare(torch, "tcn")``), then the kind's ``cuda``-marked
+tests. The repository itself is never edited. A fault is caught when either
+run fails. Each run's full output goes to ``--log-dir`` (default: a new
 temporary directory), one file per fault.
 """
 
@@ -72,21 +74,41 @@ FAULTS = {
         "round_to<T>(pj * (dot(dav, vv) - st[2]))"),
     # the cLN block backward (B3)
     "cln_bwd_tap_stats_of_output_row": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
         "const float* sk = stat_row<kNorm>(p, m, kh);",
         "const float* sk = stat_row<kNorm>(p, m, j);"),
     "cln_bwd_g1_row_sum_one_warp_twice": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
         "dst[1] = s_row[1][w][r] + s_row[1][w + 1][r];",
         "dst[1] = s_row[1][w][r] + s_row[1][w][r];"),
     "cln_bwd_e2_row_partial_shifted": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
         "float* dst = row_slot(p.part, K, m, r0 + i);",
         "float* dst = row_slot(p.part, K, m, r0 + (i + 1) % kDwRows);"),
     "cln_bwd_row_mean_over_h_minus_1": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
         "st[slot + 1] = static_cast<float>(s2 / H);",
         "st[slot + 1] = static_cast<float>(s2 / (H - 1));"),
+    # the block pair (B4, B5): the boundary launch both run, and B5's dx1
+    # (G2b's epilogue, which B2 shares). In bf16 the shared tile holds x1
+    # in the compute dtype, so an x1 fed to W_in2 unrounded takes the form
+    # of another rounding than the stored x1's: x0 + round(o), rounded.
+    "pair_x1_rounded_otherwise": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_common.cuh",
+        "if (res_s) res_s[r * ld_res + n0 + c] = v;",
+        "if (res_s) res_s[r * ld_res + n0 + c] = "
+        "from_f<T>(to_f<T>(x[idx]) + round_to<T>(o));"),
+    "pair_block2_norm1_stats_of_block1": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_pair.cuh",
+        "in_proj_epilogue<T, kNorm, kPre>(p2, s, m, bx, by, gridDim.x, "
+        "n_tiles);",
+        "in_proj_epilogue<T, kNormBN, kPre>(p2, s, m, bx, by, gridDim.x, "
+        "n_tiles);"),
+    "pair_bwd_dx1_drops_g": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
+        "const T v = from_f<T>(to_f<T>(g[idx]) + s.c[r * S::kLdC + col]);",
+        "const T v = from_f<T>(0.f * to_f<T>(g[idx]) + "
+        "s.c[r * S::kLdC + col]);"),
 }
 # The smoke phases a fault of each kind is run through; each phase runs
 # whether or not an earlier one failed, and prints "PHASE <call>: passed"
@@ -98,9 +120,12 @@ PHASES = {
                      "phase_step_compare(torch, 'dpt')"],
     "cln_backward": ["phase_bwd_vs_twin(torch, bwd, 'cLN')",
                      "phase_step_compare(torch, 'tcn', 'cLN')"],
+    "pair": ["phase_pair_vs_twin(torch, k)",
+             "phase_pair_bwd_vs_twin(torch, k)",
+             "phase_step_compare(torch, 'tcn')"],
 }
 CARD_TESTS = {"dpt_forward": "dpt", "dpt_backward": "dpt",
-              "cln_backward": "cln"}
+              "cln_backward": "cln", "pair": "pair"}
 RUNNER = """
 import sys
 import torch
@@ -108,6 +133,7 @@ import chip_smoke
 from chip_smoke import *
 from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
 from convtasnet_tpu_torch.ops.cuda import tcn_block_bwd as bwd
+k = tcn_modules()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dpt = {'inter': dpt_attention, 'intra': dpt_intra, 'ffn': dpt_ffn}

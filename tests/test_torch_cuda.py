@@ -1,6 +1,6 @@
 """The CUDA kernels (the TCN block's forward and its gLN and cLN backwards,
-the DPT sublayers' forwards and backwards) against their plain twins, on
-the card.
+the TCN block pair's forward and gLN backward, the DPT sublayers' forwards
+and backwards) against their plain twins, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports no JAX, so it also runs on a machine with only torch and the
@@ -11,7 +11,9 @@ CUDA toolkit (``tests/conftest.py`` imports jax, hence ``--noconftest``):
 Bars: relative L2 <= 4e-2 in bf16 and <= 2e-3 in f32 for the forward,
 those of the JAX package's Pallas probe gate (``tcn_block.py``
 ``_numerics_tol``); twice that, 8e-2 and 4e-3, for the backward, the
-JAX train gate (``tcn_block.py:1148``). The DPT backward kernels hold
+JAX train gate (``tcn_block.py:1148``); 1.5x the forward's, 6e-2 and
+3e-3, for the block pair's forward, the JAX pair gate
+(``tcn_block_pair.py`` ``_pair_numerics_tol``). The DPT backward kernels hold
 every cotangent against the exact f32 cotangents of their twins: in f32
 within DPT_BWD_TOL, in bf16 within 4e-2 of the bf16 twin and no further
 from exact than max(4e-2, 1.25x the bf16 twin's own distance).
@@ -22,15 +24,18 @@ import pytest
 import torch
 
 from convtasnet_tpu_torch.config import ConvTasNetConfig
-from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+from convtasnet_tpu_torch.models.conv_tasnet import PAIR_ENV, ConvTasNet
 from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
 from convtasnet_tpu_torch.ops.cuda import tcn_block as port
 from convtasnet_tpu_torch.ops.cuda import tcn_block_bwd as port_bwd
+from convtasnet_tpu_torch.ops.cuda import tcn_block_pair as pair
+from convtasnet_tpu_torch.ops.cuda import tcn_block_pair_bwd as pair_bwd
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 4e-2}
 BWD_TOL = {torch.float32: 4e-3, torch.bfloat16: 8e-2}
+PAIR_TOL = {k: 1.5 * v for k, v in TOL.items()}
 # the DPT kernels in f32 differ from their twins only in summation order
 # (<= 4e-7 at the quality default's widths); 2e-3 would let erf-GELU for
 # tanh-GELU (~1e-4) through
@@ -80,6 +85,35 @@ def _block_args(device, dtype, norm_type, m=2, k=300, b=64, h=128, seed=0):
 def _rel_l2(got, want):
     got, want = got.float(), want.float()
     return ((got - want).norm() / want.norm()).item()
+
+
+def _tcn_launches(before=None):
+    """Launch counts of the TCN kernels B1, B2, B4, B5; with ``before``,
+    the launches since."""
+    now = {"b1": port.fused_tcn_block.launches,
+           "b2": port_bwd.fused_tcn_block_bwd.launches,
+           "b4": pair.fused_tcn_block_pair.launches,
+           "b5": pair_bwd.fused_tcn_block_pair_bwd.launches}
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+class _pair_switch:
+    """CONVTASNET_PAIR_FUSION set to 1 (pairs) or 0 inside the block."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        import os
+        self.old = os.environ.get(PAIR_ENV)
+        os.environ[PAIR_ENV] = "1" if self.on else "0"
+
+    def __exit__(self, *exc):
+        import os
+        if self.old is None:
+            os.environ.pop(PAIR_ENV, None)
+        else:
+            os.environ[PAIR_ENV] = self.old
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -324,28 +358,32 @@ def test_model_train_grads_kernel_vs_plain(cuda, dtype):
     src = torch.randn(2, 2, 8000, generator=gen).to(cuda)
     lengths = torch.full((2,), 8000, device=cuda)
 
-    def grads(compute_dtype, use):
+    def grads(compute_dtype, use, pairs=True):
         cfg = ConvTasNetConfig(n_filters=64, bottleneck=64, hidden=128,
                                num_blocks=4, num_repeats=2,
                                compute_dtype=compute_dtype)
         model = ConvTasNet(cfg, use_pallas=use, device=cuda).train()
-        f0 = port.fused_tcn_block.launches
-        b0 = port_bwd.fused_tcn_block_bwd.launches
-        snr, _ = pit_si_snr(src, model(mix), lengths)
-        (-snr.mean()).backward()
+        before = _tcn_launches()
+        with _pair_switch(pairs):
+            snr, _ = pit_si_snr(src, model(mix), lengths)
+            (-snr.mean()).backward()
         n = cfg.num_blocks * cfg.num_repeats if use else 0
-        assert port.fused_tcn_block.launches - f0 == n
-        assert port_bwd.fused_tcn_block_bwd.launches - b0 == n
+        # pairs on: blocks (0, 1) and (2, 3) of each repeat as pairs
+        want = {"b1": 0 if pairs else n, "b2": 0 if pairs else n,
+                "b4": n // 2 if pairs else 0, "b5": n // 2 if pairs else 0}
+        assert _tcn_launches(before) == want
         return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
 
-    kernel, plain = grads(dtype, True), grads(dtype, False)
-    assert torch.isfinite(kernel).all()
-    if dtype == "float32":
-        assert _rel_l2(kernel, plain) <= BWD_TOL[torch.float32]
-    else:
-        exact = grads("float32", False)
-        assert _rel_l2(kernel, exact) <= max(
-            BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))
+    plain = grads(dtype, False)
+    exact = grads("float32", False) if dtype == "bfloat16" else None
+    for pairs in (True, False):
+        kernel = grads(dtype, True, pairs)
+        assert torch.isfinite(kernel).all()
+        if dtype == "float32":
+            assert _rel_l2(kernel, plain) <= BWD_TOL[torch.float32]
+        else:
+            assert _rel_l2(kernel, exact) <= max(
+                BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -355,15 +393,241 @@ def test_model_kernel_path_matches_plain_path(cuda, dtype):
     mix = torch.randn(2, 8000, generator=torch.Generator().manual_seed(1))
     mix = mix.to(cuda)
     outs = {}
-    for use in (True, False):
+    n = cfg.num_blocks * cfg.num_repeats
+    for use, pairs in ((True, True), (True, False), (False, True)):
         model = ConvTasNet(cfg, use_pallas=use, device=cuda).eval()
-        before = port.fused_tcn_block.launches
-        with torch.inference_mode():
-            outs[use] = model(mix)
-        launched = port.fused_tcn_block.launches - before
-        assert launched == (cfg.num_blocks * cfg.num_repeats if use else 0)
-    assert outs[True].dtype == torch.float32
-    assert _rel_l2(outs[True], outs[False]) <= TOL[getattr(torch, dtype)]
+        before = _tcn_launches()
+        with torch.inference_mode(), _pair_switch(pairs):
+            outs[use, pairs] = model(mix)
+        # pairs on: blocks (0, 1) and (2, 3) of each repeat through B4
+        b4 = n // 2 if use and pairs else 0
+        assert _tcn_launches(before) == {
+            "b1": n if use and not pairs else 0, "b2": 0, "b4": b4, "b5": 0}
+    assert outs[True, True].dtype == torch.float32
+    for pairs in (True, False):
+        assert _rel_l2(outs[True, pairs], outs[False, True]) <= TOL[
+            getattr(torch, dtype)]
+    # a pair runs B1's code on the same operands: the same bits
+    assert torch.equal(outs[True, True], outs[True, False])
+
+
+def _pair_args(device, dtype, m=2, k=300, b=64, h=128, seed=0):
+    """A pair's input, its two blocks' parameters (the products' weights in
+    dtype, slopes and affines f32; block 2's second slope negative, the
+    sign flip of PReLU') and a cotangent."""
+    args_a, _ = _block_args(device, dtype, "gLN", m=m, k=k, b=b, h=h,
+                            seed=seed)
+    args_b, _ = _block_args(device, dtype, "gLN", m=m, k=k, b=b, h=h,
+                            seed=seed + 1)
+    pa, pb = list(args_a[1:]), list(args_b[1:])
+    pb[4] = torch.tensor(-0.1, device=device)
+    g = torch.randn(m, k, b, generator=torch.Generator().manual_seed(seed))
+    return args_a[0], pa, pb, g.to(device, dtype)
+
+
+PAIR_NAMES = ("dW_in", "d_dw", "dW_out", "da1", "da2", "dg1", "db1", "dg2",
+              "db2")
+
+
+def _check_pair_cotangents(got, want, dtype):
+    """All 19 cotangents of a pair at B2's bar: dx and the 14 weight and
+    affine gradients each, the four PReLU-slope gradients as one vector
+    (as tests/test_torch_train.py holds a model's): each slope gradient is
+    a sum of M*K*H cancelling terms, block 1's taken through block 2's
+    backward, and alone one reads up to 0.21 from the bf16 twin here while
+    the pair equals chained B2 calls to the bit. With every slope at 1 they
+    are held one by one (the next test)."""
+    (dx, ga, gb), (wdx, wa, wb) = got, want
+    assert len(ga) == len(gb) == 9
+    slope = [i for i, n in enumerate(PAIR_NAMES) if n in ("da1", "da2")]
+    pairs = [("dx", dx, wdx)] + [
+        (f"{blk} {n}", q, w) for blk, qs, ws in (("a", ga, wa), ("b", gb, wb))
+        for i, (n, q, w) in enumerate(zip(PAIR_NAMES, qs, ws))
+        if i not in slope]
+    pairs.append(("the slopes",
+                  torch.stack([qs[i].reshape(()) for qs in (ga, gb)
+                               for i in slope]),
+                  torch.stack([ws[i].reshape(()) for ws in (wa, wb)
+                               for i in slope])))
+    for name, q, w in pairs:
+        assert q.shape == w.shape and q.dtype == w.dtype, name
+        assert torch.isfinite(q).all(), name
+        err = _rel_l2(q, w)
+        assert err <= BWD_TOL[dtype], f"{name}: rel_l2 {err:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm_type,causal", [
+    ("gLN", False), ("gLN", True), ("cLN", False), ("cLN", True)])
+@pytest.mark.parametrize("d1", [1, 64])
+def test_pair_kernel_matches_twin(cuda, dtype, norm_type, causal, d1):
+    """B4 at the JAX pair gate; K=300 is not a multiple of any tile and
+    d2=128 reaches past both ends."""
+    x, pa, pb, _ = _pair_args(cuda, dtype)
+    kw = dict(d1=d1, d2=2 * d1, causal=causal, norm_type=norm_type)
+    before = _tcn_launches()
+    got = pair.fused_tcn_block_pair(x, pa, pb, **kw)
+    torch.cuda.synchronize()
+    assert _tcn_launches(before) == {"b1": 0, "b2": 0, "b4": 1, "b5": 0}
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    want = pair.fused_tcn_block_pair_reference(x, pa, pb, **kw)
+    assert _rel_l2(got, want) <= PAIR_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
+def test_pair_kernel_equals_two_blocks(cuda, dtype, norm_type):
+    """B4 runs B1's code on the same operands: two chained B1 calls give
+    the same bits."""
+    x, pa, pb, _ = _pair_args(cuda, dtype, m=3, k=500, seed=5)
+    got = pair.fused_tcn_block_pair(x, pa, pb, d1=4, d2=8, causal=True,
+                                    norm_type=norm_type)
+    x1 = port.fused_tcn_block(x, *pa, dilation=4, causal=True,
+                              norm_type=norm_type)
+    want = port.fused_tcn_block(x1, *pb, dilation=8, causal=True,
+                                norm_type=norm_type)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,d1", [(False, 1), (False, 64), (True, 2)])
+def test_pair_bwd_kernel_matches_twin(cuda, dtype, causal, d1):
+    """B5, all 19 cotangents at B2's bars."""
+    x, pa, pb, g = _pair_args(cuda, dtype, seed=7)
+    kw = dict(d1=d1, d2=2 * d1, causal=causal)
+    before = _tcn_launches()
+    got = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+    torch.cuda.synchronize()
+    assert _tcn_launches(before) == {"b1": 0, "b2": 0, "b4": 0, "b5": 1}
+    want = pair_bwd.fused_tcn_block_pair_bwd_reference(x, g, pa, pb, **kw)
+    _check_pair_cotangents(got, want, dtype)
+
+
+@pytest.mark.parametrize("causal,d1", [(False, 1), (True, 16)])
+def test_pair_bwd_kernel_each_slope_with_slopes_at_one(cuda, causal, d1):
+    """B5 in f32 with every PReLU slope at 1: PReLU is the identity, so a
+    pre-activation within rounding of 0 moves no slope gradient whichever
+    branch it takes, and all 19 cotangents, each slope gradient alone, hold
+    B2's f32 bar against the twin."""
+    x, pa, pb, g = _pair_args(cuda, torch.float32, seed=15)
+    for p in (pa, pb):
+        p[3] = p[4] = torch.ones_like(p[3])
+    kw = dict(d1=d1, d2=2 * d1, causal=causal)
+    got = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+    want = pair_bwd.fused_tcn_block_pair_bwd_reference(x, g, pa, pb, **kw)
+    flat = [("dx", got[0], want[0])] + [
+        (f"{blk} {n}", q, w) for blk, qs, ws in (("a", got[1], want[1]),
+                                                 ("b", got[2], want[2]))
+        for n, q, w in zip(PAIR_NAMES, qs, ws)]
+    assert len(flat) == 19
+    for name, q, w in flat:
+        assert q.shape == w.shape and torch.isfinite(q).all(), name
+        err = _rel_l2(q, w)
+        assert err <= BWD_TOL[torch.float32], f"{name}: rel_l2 {err:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_bwd_kernel_equals_chained_blocks(cuda, dtype):
+    """B5 runs B1's and B2's code on the same operands: block 2's backward
+    at the forward's x1, then block 1's at its cotangent, give the same
+    bits."""
+    x, pa, pb, g = _pair_args(cuda, dtype, m=3, k=500, seed=9)
+    dx, ga, gb = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, d1=2, d2=4,
+                                                   causal=False)
+    x1 = port.fused_tcn_block(x, *pa, dilation=2, causal=False,
+                              norm_type="gLN")
+    dx1, *wb = port_bwd.fused_tcn_block_bwd(x1, g, *pb, dilation=4,
+                                            causal=False)
+    dx0, *wa = port_bwd.fused_tcn_block_bwd(x, dx1, *pa, dilation=2,
+                                            causal=False)
+    assert torch.equal(dx, dx0)
+    assert all(torch.equal(u, v) for u, v in zip((*ga, *gb), (*wa, *wb)))
+
+
+def test_pair_bwd_kernel_is_deterministic(cuda):
+    x, pa, pb, g = _pair_args(cuda, torch.bfloat16, m=4, k=1000, seed=11)
+    a = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, d1=8, d2=16,
+                                          causal=False)
+    b = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, d1=8, d2=16,
+                                          causal=False)
+    leaves = [a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]
+    assert all(torch.equal(u, v) for u, v in zip(*leaves))
+
+
+def test_pair_kernels_check_shapes(cuda):
+    x, pa, pb, g = _pair_args(cuda, torch.float32, b=32, h=64)
+    kw = dict(d1=1, d2=2, causal=False)
+    with pytest.raises(ValueError, match="multiples"):
+        pair.fused_tcn_block_pair(x, pa, pb, **kw, norm_type="gLN")
+    with pytest.raises(ValueError, match="multiples"):
+        pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+    x, pa, pb, g = _pair_args(cuda, torch.float32)
+    with pytest.raises(ValueError, match="gLN and cLN"):
+        pair.fused_tcn_block_pair(x, pa, pb, **kw, norm_type="BN")
+    with pytest.raises(ValueError, match="gLN only"):
+        pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw,
+                                          norm_type="cLN")
+    with pytest.raises(ValueError, match="do not fit"):
+        pair.fused_tcn_block_pair(x, pa, pb[:1] + [pb[1][:2]] + pb[2:],
+                                  **kw, norm_type="gLN")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_pair_ad_gradients(cuda, dtype):
+    """Autograd through B4 and B5 against autograd through the plain
+    blocks, for x and all 18 weights (f32 weights, as the model keeps
+    them)."""
+    x, pa, pb, g = _pair_args(cuda, dtype, seed=13)
+    prims = [x] + [t.float() for t in (*pa, *pb)]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in prims]
+        out = fn(leaves[0], leaves[1:10], leaves[10:], d1=4, d2=8,
+                 causal=False, norm_type="gLN")
+        out.backward(g)
+        return out, [t.grad for t in leaves]
+
+    before = _tcn_launches()
+    out, got = grads(pair.fused_tcn_block_pair_ad)
+    torch.cuda.synchronize()
+    assert _tcn_launches(before) == {"b1": 0, "b2": 0, "b4": 1, "b5": 1}
+    ref_out, want = grads(pair.fused_tcn_block_pair_reference)
+    assert out.dtype == dtype
+    assert _rel_l2(out, ref_out) <= PAIR_TOL[dtype]
+    _check_pair_cotangents((got[0], got[1:10], got[10:]),
+                           (want[0], want[1:10], want[10:]), dtype)
+
+
+def test_model_pair_routing(cuda):
+    """A small model with an odd X (blocks 0-1 pair, block 2 singly): a
+    gLN forward runs B4 and B1, a gLN train step B4+B5 and B1+B2, a cLN
+    train step B1+B3 only, a BN forward B1 only."""
+    mix = torch.randn(2, 8000, generator=torch.Generator().manual_seed(6))
+    mix = mix.to(cuda)
+    for norm in ("gLN", "cLN", "BN"):
+        cfg = ConvTasNetConfig(n_filters=64, bottleneck=64, hidden=128,
+                               num_blocks=3, num_repeats=2, norm_type=norm,
+                               causal=norm == "cLN")
+        model = ConvTasNet(cfg, use_pallas=True, device=cuda)
+        before = _tcn_launches()
+        with torch.inference_mode(), _pair_switch(True):
+            model.eval()(mix)
+        pairs = 0 if norm == "BN" else 2
+        assert _tcn_launches(before) == {"b1": 6 - 2 * pairs, "b2": 0,
+                                         "b4": pairs, "b5": 0}, norm
+        if norm == "BN":
+            continue
+        c0 = port_bwd.fused_tcn_block_bwd.cln_launches
+        before = _tcn_launches()
+        with _pair_switch(True):
+            model.train()(mix).square().mean().backward()
+        torch.cuda.synchronize()
+        got = _tcn_launches(before)
+        if norm == "gLN":
+            assert got == {"b1": 2, "b2": 2, "b4": 2, "b5": 2}
+        else:
+            assert got == {"b1": 6, "b2": 0, "b4": 0, "b5": 0}
+            assert port_bwd.fused_tcn_block_bwd.cln_launches - c0 == 6
 
 
 DPT_FNS = {
@@ -600,9 +864,11 @@ def test_dpt_bwd_kernels_are_deterministic_and_check_shapes(cuda):
         x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.bfloat16, kind, 7, True)
         a, b = fused(x, g, *w, **kw), fused(x, g, *w, **kw)
         assert all(torch.equal(u, v) for u, v in zip(a, b)), kind
+    # f32 with a head width of 64 at S = 256: the four [S, d] tiles alone
+    # exceed a block's shared memory (any S up to 256 fits otherwise)
     x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
-                                   S=144)
-    with pytest.raises(ValueError, match="at most 128"):
+                                   S=256, heads=2)
+    with pytest.raises(ValueError, match="does not fit"):
         dpt_intra.fused_intra_attention_bwd(x, g, *w, **kw)
     x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "inter", 3, True)
     with pytest.raises(ValueError, match="shape"):
@@ -644,3 +910,72 @@ def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype):
         exact = grads("float32", False)
         assert _rel_l2(kernel, exact) <= max(
             BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [4, 2])
+def test_dpt_intra_bwd_long_chunk(cuda, dtype, heads):
+    """The intra backward at S = 256, as a ``--dpt-chunk 256`` model trains
+    it: its [S, S] tiles no longer fit in shared memory beside the rest and
+    go to the device workspace; every cotangent at the DPT bars. Head
+    widths 32 and 64 (bf16 at 64 runs with fewer warps per block)."""
+    fused, twin = DPT_BWD_FNS["intra"]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, "intra", 2, True, S=256,
+                                       heads=heads)
+    if dtype == torch.float32 and heads == 2:
+        # f32 with a head width of 64: the four [S, d] tiles alone exceed
+        # a block's shared memory
+        with pytest.raises(ValueError, match="does not fit"):
+            fused(x, g, *w, **kw)
+        return
+    got = fused(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    exact = twin(x.float(), g.float(), *w, **kw)
+    same = twin(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, same, valid, dtype)
+
+
+def test_dpt_model_trains_with_256_frame_chunks(cuda):
+    """One bf16 training forward/backward of a small DPT model with
+    256-frame chunks: the intra backward kernel runs at S = 256 in each
+    layer, and the gradient is no further from the f32 plain gradient
+    than max(8e-2, 1.25x the plain bf16 path's)."""
+    from convtasnet_tpu_torch.losses.pit import pit_si_snr
+
+    gen = torch.Generator().manual_seed(8)
+    mix = torch.randn(2, 12000, generator=gen).to(cuda)
+    src = torch.randn(2, 2, 12000, generator=gen).to(cuda)
+    lengths = torch.full((2,), 12000, device=cuda)
+
+    def grads(compute_dtype, use):
+        cfg = ConvTasNetConfig(n_filters=64, bottleneck=128, separator="dpt",
+                               dpt_chunk=256, dpt_layers=2, dpt_ff=256,
+                               compute_dtype=compute_dtype)
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).train()
+        before = DPT_BWD_FNS["intra"][0].launches
+        snr, _ = pit_si_snr(src, model(mix), lengths)
+        (-snr.mean()).backward()
+        assert DPT_BWD_FNS["intra"][0].launches - before == (2 if use else 0)
+        return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+    kernel, plain = grads("bfloat16", True), grads("bfloat16", False)
+    exact = grads("float32", False)
+    assert torch.isfinite(kernel).all()
+    assert _rel_l2(kernel, exact) <= max(
+        BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+def test_dpt_kernels_on_low_variance_rows(cuda, kind):
+    """f32 rows of variance ~1e-3, where an LN eps of 1e-5 put for 1e-6
+    would move the normalised rows by ~4.5e-3 (at unit variance by
+    4.5e-6, under the f32 bar): the forward kernels hold their twins at
+    the f32 DPT bar there too."""
+    fused, twin = DPT_FNS[kind]
+    args, kw, valid = _dpt_args(cuda, torch.float32, kind, 3, True)
+    args = (args[0] * 0.0316, *args[1:])
+    got = fused(*args, **kw)
+    want = twin(*args, **kw)
+    B = args[0].shape[-1]
+    err = _rel_l2(_valid_rows(got, valid, B), _valid_rows(want, valid, B))
+    assert err <= DPT_TOL[torch.float32], err

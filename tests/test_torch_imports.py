@@ -27,6 +27,8 @@ def test_port_imports_with_jax_blocked():
         "import convtasnet_tpu_torch.models.jax_params\n"
         "import convtasnet_tpu_torch.ops.cuda.tcn_block\n"
         "import convtasnet_tpu_torch.ops.cuda.tcn_block_bwd\n"
+        "import convtasnet_tpu_torch.ops.cuda.tcn_block_pair\n"
+        "import convtasnet_tpu_torch.ops.cuda.tcn_block_pair_bwd\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_attention\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_intra\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_ffn\n"
