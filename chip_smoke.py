@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's TCN (gLN and causal cLN, blocks singly and as
-block pairs) and dual-path (DPT) serving and training paths and its
-streaming separator on one NVIDIA GPU, and check them.
+block pairs, and gLN tensor-parallel) and dual-path (DPT) serving and
+training paths and its streaming separator on one NVIDIA GPU, and check
+them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -42,14 +43,24 @@ Phases, each raising on failure (so the script exits nonzero):
    cotangent (dx on the valid rows) against the twin's exact f32
    cotangents, in f32 within 1e-5 (the kernels read <= 1.5e-6), in bf16
    within 4e-2 of the bf16 twin and no further from exact than
-   max(4e-2, 1.25x the bf16 twin's own distance);
+   max(4e-2, 1.25x the bf16 twin's own distance); the intra forward and
+   backward in f32 with a head width of 64 at S = 256, their [S, d]
+   tiles in the device workspace, against the exact twin within 1e-5;
+   then kernel B6 (stage 2 of a TCN block under tensor parallelism)
+   against its twin at [8, 3199, Hs], Hs = 256 and 128 (two and four
+   shards of H = 512), every dilation, gLN non-causal and causal, bf16 and
+   f32: z and the gLN-2 sums within the forward bars, twice to the same
+   bits;
 6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
    through the block pairs (``CONVTASNET_PAIR_FUSION=1``: B4 16 times per
    batch), through the single blocks (``=0``: kernel 1 32 times) and
    through the plain ops: 12 wavs each, finite and of the right length,
    the kernel paths within the forward bars of the plain path and equal to
-   each other;
+   each other; ``tp_forward`` of the same config at B=8 x 4 s over two and
+   four shards on cuda:0, bf16 and f32: 32 m launches of B6 and no other
+   TCN kernel, within the forward bars of the unsharded kernel and plain
+   paths;
 7. the training path: ``cli preprocess`` and ``cli train`` in process on a
    seeded two-speaker wav corpus at the paper config, bf16,
    ``--use-pallas 1``, one epoch of 4 steps at batch 8 and a cv pass, with
@@ -63,7 +74,12 @@ Phases, each raising on failure (so the script exits nonzero):
    with pairs on, 16 launches of B4 per batch, and off, 32 of kernel 1),
    ``cli separate --streaming 1`` and ``cli
    stream-demo`` (finite wavs of the right length; the streaming step
-   launches no kernel, as the JAX one reaches no Pallas kernel);
+   launches no kernel, as the JAX one reaches no Pallas kernel); then
+   ``cli train --n-model 2 --use-pallas 1`` at the paper config, bf16, on
+   the same corpus (B6 64 times per step and per cv batch, no other TCN
+   kernel; its placement line printed) and its package served through
+   ``cli separate --tensor-parallel 2`` (64 B6 per batch) within the bf16
+   bar of the unsharded ``cli separate``;
 8. the DPT serving path: the quality-default forward in bf16 at
    B=8 x 4 s, kernel path against plain path within 4e-2, 4 inter, 4
    intra and 8 FFN launches per forward; then ``cli separate`` and
@@ -92,9 +108,10 @@ Phases, each raising on failure (so the script exits nonzero):
    as one vector (the TCN's; the DPT has no scalar leaves); in bf16 the
    loss within 4e-2 and the kernel path's gradient no further from the
    f32 gradient than max(8e-2, 1.25x the plain bf16 path's); the gLN
-   kernel path with pairs on and off (the same gradient bits), each
-   kernel's launches exact; and one bf16 DPT step with 256-frame chunks,
-   the intra backward at S = 256;
+   kernel path with pairs on and off (the same gradient bits) and the
+   tensor-parallel step over two shards (64 B6 launches), each kernel's
+   launches exact; and one bf16 DPT step with 256-frame chunks, the intra
+   backward at S = 256;
 11. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
    B=8 and B=24 x 4 s and the bf16 train step (forward + backward +
    optimizer) at B=8 x 4 s, kernel path with pairs on and off and plain
@@ -105,9 +122,12 @@ Phases, each raising on failure (so the script exits nonzero):
    pair of dilations; each DPT
    kernel, forward and backward, against its twin at [8, 25, 128, 256];
    the DPT forward and the DPT train step at B=8 x 4 s, kernel path and
-   plain path (the steps with each path's peak memory); each kernel's
-   bound (the larger of its operations at the bf16 tensor-core peak and
-   its bytes at the HBM rate).
+   plain path (the steps with each path's peak memory); B6 against its
+   twin per shard width (Hs 256 and 128), and the bf16 forward over two
+   and four shards and the train step over two against the unsharded
+   kernel path, with peak memory; each kernel's bound (the larger of its
+   operations at the bf16 tensor-core peak and its bytes at the HBM
+   rate).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits 1
@@ -153,7 +173,15 @@ TCN_COUNTERS = {"b1": ("tcn", "fused_tcn_block", "launches"),
                 "b2": ("bwd", "fused_tcn_block_bwd", "launches"),
                 "b3": ("bwd", "fused_tcn_block_bwd", "cln_launches"),
                 "b4": ("pair", "fused_tcn_block_pair", "launches"),
-                "b5": ("pair_bwd", "fused_tcn_block_pair_bwd", "launches")}
+                "b5": ("pair_bwd", "fused_tcn_block_pair_bwd", "launches"),
+                "b6": ("tp", "fused_tp_stage2", "launches")}
+# tensor-parallel shard counts of the paper config's H = 512: B6 runs at
+# Hs = 256 and 128
+TP_SHARDS = (2, 4)
+# B6 against its twin at its own rounding points (only y g2 and z rounded):
+# summation order alone, ~4.5e-5 in bf16 at these widths (emulated on the
+# CPU); a kernel with g2 folded into W_out reads ~3.6e-3
+TP_ORDER_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
 
 
 def rel_l2(got, want) -> float:
@@ -199,9 +227,10 @@ def tcn_modules():
     from convtasnet_tpu_torch.ops.cuda import tcn_block, tcn_block_bwd
     from convtasnet_tpu_torch.ops.cuda import tcn_block_pair
     from convtasnet_tpu_torch.ops.cuda import tcn_block_pair_bwd
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp
 
     return {"tcn": tcn_block, "bwd": tcn_block_bwd, "pair": tcn_block_pair,
-            "pair_bwd": tcn_block_pair_bwd}
+            "pair_bwd": tcn_block_pair_bwd, "tp": tcn_block_tp}
 
 
 def tcn_reset(k) -> None:
@@ -968,10 +997,16 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
     whole-model test's criterion) and the slopes as one vector are held;
     in bf16 the loss, and the kernel path's distance from the f32 gradient
     against the plain bf16 path's own. The DPT model has no scalar leaves, and its
-    kernel path launches each sublayer's backward kernel. Every reading is
-    printed before the phase fails."""
+    kernel path launches each sublayer's backward kernel. The gLN model's
+    kernel paths also include the tensor-parallel step over two shards on
+    cuda:0 (``tp_loss_and_grads``: 64 B6 launches, no other TCN kernel),
+    held the same way. Every reading is printed before the phase fails."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import init_params
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import (
+        tp_loss_and_grads,
+    )
     from convtasnet_tpu_torch.train import train_step as ts
 
     from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
@@ -982,13 +1017,16 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
         dpt_attention.fused_inter_attention_bwd,
         dpt_intra.fused_intra_attention_bwd, dpt_ffn.fused_ffn_bwd)]
     mods = tcn_modules()
+    # name -> (pairs, launches, tensor-parallel shards)
     if separator == "dpt":
-        kernel_paths = {"kernel": (True, None)}
+        kernel_paths = {"kernel": (True, None, 1)}
     elif norm == "cLN":   # a cLN pair trains as two blocks, as in JAX
-        kernel_paths = {"kernel": (True, tcn_want(b1=32, b3=32))}
+        kernel_paths = {"kernel": (True, tcn_want(b1=32, b3=32), 1)}
     else:
-        kernel_paths = {"kernel": (True, tcn_want(b4=16, b5=16)),
-                        "kernel, pairs off": (False, tcn_want(b1=32, b2=32))}
+        kernel_paths = {
+            "kernel": (True, tcn_want(b4=16, b5=16), 1),
+            "kernel, pairs off": (False, tcn_want(b1=32, b2=32), 1),
+            "kernel, TP m=2": (False, tcn_want(b6=64), 2)}
     failures = []
     label = separator if norm == "gLN" else f"{separator} {norm} causal"
     for seed in (11, 12):
@@ -1004,19 +1042,23 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
                                    norm_type=norm, causal=norm == "cLN")
             sd = init_params(cfg, torch.Generator().manual_seed(0))
             res = {}
-            runs = [(path, True, pairs, 0, batch) for path, (pairs, _)
+            runs = [(path, True, pairs, 0, batch, m) for path, (pairs, _, m)
                     in kernel_paths.items()]
-            runs += [("plain", False, True, 0, batch),
-                     ("plain_c2", False, True, 2, batch),
-                     ("plain_ulp", False, True, 0, nudged)]
-            for path, flag, pairs, chunk, b in runs:
+            runs += [("plain", False, True, 0, batch, 1),
+                     ("plain_c2", False, True, 2, batch, 1),
+                     ("plain_ulp", False, True, 0, nudged, 1)]
+            for path, flag, pairs, chunk, b, m in runs:
                 state = ts.create_train_state(cfg, SolverConfig(),
                                               device="cuda", use_pallas=flag,
                                               state_dict=sd)
                 before = [getattr(f, a) for f, a in counters]
                 tcn_reset(mods)
                 with pair_switch(pairs):
-                    loss = float(ts._loss_and_grads(state.model, b, chunk))
+                    loss = float(
+                        tp_loss_and_grads(cfg, state.model, b,
+                                          shard_devices(m, "cuda"))
+                        if m > 1 else
+                        ts._loss_and_grads(state.model, b, chunk))
                 torch.cuda.synchronize()
                 if flag and separator == "dpt" and not all(
                         getattr(f, a) > c for (f, a), c
@@ -1038,7 +1080,7 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
                     for k, (_, v) in res.items()}
             if not all(torch.isfinite(v).all().item() for v in flat.values()):
                 failures.append(f"non-finite gradients ({dtype}, seed {seed})")
-            if len(kernel_paths) == 2:
+            if "kernel, pairs off" in kernel_paths:
                 same = torch.equal(flat["kernel"], flat["kernel, pairs off"])
                 print(f"train step {label} {dtype} seed {seed}: pairs on and "
                       f"off give the same gradient bits {same}", flush=True)
@@ -1184,10 +1226,11 @@ DPT_KINDS = ("inter", "intra", "ffn")
 
 
 def dpt_inputs(torch, kind: str, dtype, n: int, K: int, seed: int, M=8,
-               S=DPT_S, x_scale=1.0):
+               S=DPT_S, x_scale=1.0, heads=DPT_HEADS):
     """Seeded operands of one DPT sublayer on the card at the quality
-    default's widths, with the key mask of K real frames out of n*S, and x
-    of standard deviation x_scale: (args, kwargs, valid [n, S])."""
+    default's widths (``heads`` heads), with the key mask of K real frames
+    out of n*S, and x of standard deviation x_scale: (args, kwargs, valid
+    [n, S])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, scale=1.0):
@@ -1205,7 +1248,7 @@ def dpt_inputs(torch, kind: str, dtype, n: int, K: int, seed: int, M=8,
     bias = torch.where(valid, 0.0, -1e9).to(torch.float32)
     args = (x, gamma, beta, rn(B, 3 * B, scale=B ** -0.5).to(dtype),
             rn(B, B, scale=B ** -0.5).to(dtype), bias)
-    return args, dict(n_heads=DPT_HEADS), valid
+    return args, dict(n_heads=heads), valid
 
 
 def dpt_fns(dpt, kind: str):
@@ -1286,11 +1329,12 @@ def dpt_bwd_fns(dpt, kind: str):
 
 
 def dpt_bwd_inputs(torch, kind: str, dtype, n: int, K: int, seed: int,
-                   S=DPT_S):
+                   S=DPT_S, heads=DPT_HEADS):
     """(x, g, the f32 weights, kwargs, valid [n, S]): ``dpt_inputs`` with
     the weights in f32, as the model keeps them, and a random cotangent
     that is zero on the padded rows, as the model delivers it."""
-    args, kw, valid = dpt_inputs(torch, kind, dtype, n, K, seed, S=S)
+    args, kw, valid = dpt_inputs(torch, kind, dtype, n, K, seed, S=S,
+                                 heads=heads)
     x = args[0]
     g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed + 1))
@@ -1500,6 +1544,254 @@ def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     print(f"separate with the trained DPT package: {n} utterances, "
           f"launches {sep} (1 batch)", flush=True)
     return bwd
+
+
+def phase_intra_f32_wide_heads(torch, dpt):
+    """The intra forward (B9) and backward (B10) in f32 with a head width
+    of 64 (4 heads of B = 256) at S = 256 (n = 13, 4 s), where their
+    [S, d] tiles do not fit in shared memory and go to the device
+    workspace: on the valid rows against the exact twin within the f32
+    DPT bars (1e-5 both), the backward on every cotangent."""
+    fused, twin = dpt_fns(dpt, "intra")
+    fused_b, twin_b = dpt_bwd_fns(dpt, "intra")
+    args, kw, valid = dpt_inputs(torch, "intra", torch.float32, 13, 3199,
+                                 seed=7100, S=256, heads=4)
+    rows = valid.reshape(-1)
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        torch.cuda.synchronize()
+        want = twin(*args, **kw)
+    fwd = rel_l2(got.reshape(8, -1, DPT_B)[:, rows],
+                 want.reshape(8, -1, DPT_B)[:, rows])
+    x, g, w, kw, valid = dpt_bwd_inputs(torch, "intra", torch.float32, 13,
+                                        3199, seed=7200, S=256, heads=4)
+    got_b = fused_b(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    exact = twin_b(x, g, *w, **kw)
+    errs = {}
+    for i, name in enumerate(DPT_GRAD_NAMES["intra"]):
+        q, e = got_b[i], exact[i]
+        if i == 0:
+            q, e = (v.reshape(8, -1, DPT_B)[:, rows] for v in (q, e))
+        errs[name] = rel_l2(q, e) if torch.isfinite(q).all().item() \
+            else math.inf
+    top = max(errs, key=errs.get)
+    print(f"dpt intra f32 head width 64 [8,13,256,{DPT_B}] K=3199: forward "
+          f"kernel vs twin rel_l2 {fwd:.3e} (bar {DPT_TOL['float32']:.0e}); "
+          f"backward vs exact max {errs[top]:.3e} ({top}; bar "
+          f"{DPT_BWD_TOL_F32:.0e})", flush=True)
+    check(fwd <= DPT_TOL["float32"] and errs[top] <= DPT_BWD_TOL_F32,
+          f"intra kernels at S = 256, head width 64, f32: forward "
+          f"{fwd:.3e}, backward {errs[top]:.3e} ({top})")
+
+
+def tp_stage2_inputs(torch, dtype, Hs: int, seed: int, M=8, K=3199, B=256,
+                     H=512, P=3):
+    """Seeded stage-2 operands of one shard of the paper config's H at the
+    serving shape: h as stage 1 leaves it (PReLU of unit-scale values, in
+    the compute dtype), gLN-1 statistics near h's own, paper-init weight
+    scales of the whole width, random norm affines; f32 weights, as the
+    model keeps them."""
+    g = torch.Generator(device="cuda").manual_seed(2000 + seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    h = torch.nn.functional.leaky_relu(rn(M, K, Hs), 0.25).to(dtype)
+    hf = h.float()
+    mean = hf.mean(dim=(1, 2))
+    rs = torch.rsqrt(hf.square().mean(dim=(1, 2)) - mean.square() + 1e-8)
+    stats1 = torch.stack([mean * (1 + 0.1 * rn(M)), rs * (1 + 0.1 * rn(M))],
+                         dim=-1)
+    return (h, stats1, rn(P, Hs) * (2.0 / (P + H * P)) ** 0.5,
+            rn(Hs, B) * (2.0 / (B + H)) ** 0.5,
+            torch.tensor(0.25, device="cuda"), 1.0 + 0.1 * rn(Hs),
+            0.1 * rn(Hs), 1.0 + 0.1 * rn(Hs))
+
+
+def phase_tp_stage2_vs_twin(torch, k):
+    """Kernel B6 (TP stage 2) against its twin at [8, 3199, Hs], Hs = 256
+    and 128 (two and four shards of H = 512), every dilation 1..128, gLN
+    non-causal and causal, bf16 and f32: z and the gLN-2 sums within the
+    forward bars (4e-2 / 2e-3), against the twin at B6's own rounding
+    points within TP_ORDER_TOL, finite, and two calls the same bits.
+    Every case is printed before the phase fails; returns the worst
+    max_abs_err of z."""
+    tp = k["tp"]
+    worst = 0.0
+    failures = []
+    t0 = time.perf_counter()
+    for Hs in (256, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for causal in (False, True):
+                for d in DILATIONS:
+                    args = tp_stage2_inputs(torch, dtype, Hs, d)
+                    kw = dict(dilation=d, causal=causal)
+                    with torch.inference_mode():
+                        z, sums = tp.fused_tp_stage2(*args, **kw)
+                        z2, sums2 = tp.fused_tp_stage2(*args, **kw)
+                        torch.cuda.synchronize()
+                        zw, sw = tp.tp_stage2_reference(*args, **kw)
+                        zo, so = tp.tp_stage2_reference(*args, **kw,
+                                                        rounding="pallas")
+                    same = torch.equal(z, z2) and torch.equal(sums, sums2)
+                    finite = (torch.isfinite(z).all().item()
+                              and torch.isfinite(sums).all().item())
+                    ez, es = rel_l2(z, zw), rel_l2(sums, sw)
+                    eo = max(rel_l2(z, zo), rel_l2(sums, so))
+                    abs_err = (z.float() - zw.float()).abs().max().item()
+                    worst = max(worst, abs_err)
+                    print(f"tp stage 2 (B6) vs twin [8,3199,{Hs}] B=256 gLN "
+                          f"causal={int(causal)} {name} d={d}: z rel_l2 "
+                          f"{ez:.3e}, sums rel_l2 {es:.3e} (bar "
+                          f"{TOL[name]:.0e}) max_abs {abs_err:.3e}; vs the "
+                          f"twin at B6's rounding points {eo:.3e} (bar "
+                          f"{TP_ORDER_TOL[name]:.0e}); same bits twice "
+                          f"{same}", flush=True)
+                    if not (finite and same and ez <= TOL[name]
+                            and es <= TOL[name] and eo <= TP_ORDER_TOL[name]):
+                        failures.append(
+                            f"Hs={Hs} {name} causal={int(causal)} d={d}: z "
+                            f"{ez:.3e} sums {es:.3e} rounding points {eo:.3e}"
+                            f" finite {finite} same {same}")
+    print(f"tp stage 2 (B6) vs twin: 64 cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(not failures, "TP stage-2 kernel disagrees with its twin: "
+          + "; ".join(failures))
+    return worst
+
+
+def phase_tp_forward(torch, k):
+    """``tp_forward`` of the paper config (random weights from seed 0) at
+    B=8 x 4 s over two and four shards, all on cuda:0, bf16 and f32: 32 m
+    launches of B6 and none of any other TCN kernel, finite, and within
+    the forward bars of the unsharded kernel path (blocks singly) and of
+    the plain path."""
+    from convtasnet_tpu_torch import ConvTasNetConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
+
+    t0 = time.perf_counter()
+    mix = torch.randn(8, SECONDS * SAMPLE_RATE, generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        cfg = ConvTasNetConfig(compute_dtype=dtype)
+        n_blocks = cfg.num_repeats * cfg.num_blocks
+        kernel = ConvTasNet(cfg, use_pallas=True, device="cuda").eval()
+        plain = ConvTasNet(cfg, use_pallas=False, device="cuda").eval()
+        with torch.inference_mode(), pair_switch(False):
+            want_k, want_p = kernel(mix), plain(mix)
+            sd = kernel.state_dict()
+            for m in TP_SHARDS:
+                devices = shard_devices(m, "cuda")
+                tcn_reset(k)
+                got = tp_forward(cfg, sd, mix, devices)
+                torch.cuda.synchronize()
+                counts = tcn_counts(k)
+                ek, ep = rel_l2(got, want_k), rel_l2(got, want_p)
+                print(f"tp_forward paper config B=8x{SECONDS}s {dtype} over "
+                      f"{m} shards on {sorted({str(d) for d in devices})}: "
+                      f"vs the unsharded kernel path rel_l2 {ek:.3e}, vs the "
+                      f"plain path {ep:.3e} (bar {TOL[dtype]:.0e}); launches "
+                      f"{counts}", flush=True)
+                want = tcn_want(b6=n_blocks * m)
+                check(counts == want, f"tp_forward {dtype} m={m} launched "
+                      f"{counts}, expected {want}")
+                check(torch.isfinite(got).all().item()
+                      and got.shape == want_k.shape,
+                      f"tp_forward {dtype} m={m}: bad output")
+                check(ek <= TOL[dtype] and ep <= TOL[dtype],
+                      f"tp_forward {dtype} m={m}: {ek:.3e} / {ep:.3e}")
+        del kernel, plain
+    print(f"tp_forward phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str):
+    """``cli train --n-model 2 --use-pallas 1`` at the paper config, bf16,
+    on the corpus of ``make_corpus`` (one epoch of 4 steps at batch 8 and
+    a cv pass): every loss finite, B6 launched 64 times per step and per cv
+    batch and no other TCN kernel; then its package served through ``cli
+    separate --tensor-parallel 2`` (64 B6 per batch) against the unsharded
+    ``cli separate`` (32 kernel-1 launches, pairs off): finite wavs within
+    the bf16 forward bar. Returns the launch counts of the train run."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+
+    n_blocks, n_cv, m = 32, 2, 2
+    out = os.path.join(work, "exp_tp")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    buf = io.StringIO()
+    tcn_reset(k)
+    t0 = time.perf_counter()
+    with pair_switch(False), contextlib.redirect_stdout(buf):
+        rc = cli.main([
+            "train", "--train-dir", os.path.join(json_dir, "tr"),
+            "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
+            out, "--device", "cuda", "--compute-dtype", "bfloat16",
+            "--use-pallas", "1", "--n-model", str(m), "--epochs", "1",
+            "--batch-size", "8", "--print-freq", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tcn_counts(k)
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    check(rc == 0, f"cli train --n-model {m} returned {rc}")
+    placement = buf.getvalue().splitlines()[0]
+    with open(os.path.join(out, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps = len(losses)
+    print(f"cli train --n-model {m} (paper config, bf16, --use-pallas 1; "
+          f"{placement}): {n_steps} steps, losses "
+          f"{[round(x, 4) for x in losses]}, cv loss "
+          f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
+          f"launches {counts}, {wall:.1f} s wall", flush=True)
+    check(placement.startswith(f"tensor parallel over {m} shards"),
+          f"no placement line: {placement!r}")
+    check(n_steps == 4, f"{n_steps} train steps, expected 4")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    want = tcn_want(b6=n_blocks * m * (n_steps + n_cv))
+    check(counts == want, f"cli train --n-model {m} launched {counts}, "
+          f"expected {want} ({n_steps} steps + {n_cv} cv batches)")
+
+    pkg = os.path.join(out, "final.ckpt")
+    check(os.path.exists(pkg), "no best-model package written")
+    mix_dir = os.path.join(data, "cv", "mix")
+    outs = {}
+    for label, flags, want_sep in (
+            ("tensor-parallel", ["--tensor-parallel", str(m)],
+             tcn_want(b6=n_blocks * m)),
+            ("unsharded", [], tcn_want(b1=n_blocks))):
+        sep_dir = os.path.join(work, f"sep_tp_{label}")
+        tcn_reset(k)
+        with pair_switch(False), contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["separate", "--model-path", pkg, "--mix-dir",
+                           mix_dir, "--out-dir", sep_dir, "--batch-size",
+                           str(n_cv), "--device", "cuda", *flags])
+        torch.cuda.synchronize()
+        sep = tcn_counts(k)
+        check(rc == 0 and sep == want_sep, f"cli separate ({label}): rc {rc}"
+              f", launches {sep}, expected {want_sep}")
+        check_wavs(sep_dir, mix_dir)
+        outs[label] = np.concatenate([
+            read_wav(os.path.join(sep_dir, f))[0]
+            for f in sorted(os.listdir(sep_dir)) if "_s" in f])
+    err = rel_l2(torch.from_numpy(outs["tensor-parallel"]),
+                 torch.from_numpy(outs["unsharded"]))
+    print(f"cli separate --tensor-parallel {m} with the trained package: "
+          f"launches {tcn_want(b6=n_blocks * m)} (1 batch), wavs vs the "
+          f"unsharded cli separate rel_l2 {err:.3e} (bar "
+          f"{TOL['bfloat16']:.0e}); train and separate phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(err <= TOL["bfloat16"], f"tensor-parallel separate disagrees: "
+          f"{err:.3e}")
+    return counts
 
 
 def phase_dpt_chunk256_step(torch, dpt):
@@ -1997,6 +2289,105 @@ def phase_train_timings(torch, cfg, card: str, label: str,
                   flush=True)
 
 
+def tp_stage2_work(args, outs) -> tuple:
+    """(flops, bytes) one TP stage 2 (B6) needs on these inputs: the
+    depthwise conv and the partial out product at 2 FLOP per
+    multiply-add; every input read once and z and the sums written once."""
+    h, dw, w_out = args[0], args[2], args[3]
+    M, K, Hs = h.shape
+    P, B = dw.shape[0], w_out.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
+    return 2 * M * K * Hs * B + 2 * M * K * Hs * P, nbytes
+
+
+def phase_tp_timings(torch, k, card: str):
+    """B6 against its twin, bf16, [8, 3199, Hs] for Hs = 256 and 128, in
+    turns (twin, kernel, kernel, twin) at every dilation, with its bound;
+    the bf16 paper-config forward at B=8 x 4 s over two and four shards
+    against the unsharded kernel path (blocks singly), and the bf16 train
+    step at B=8 x 4 s over two shards against the unsharded kernel step,
+    in turns, with peak memory. Returns {Hs: (mean kernel ms, mean twin ms,
+    (bound_ms, bound_by))}."""
+    from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import (
+        make_tcn_tp_train_step,
+        tp_forward,
+    )
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    tp = k["tp"]
+    rows = {}
+    for Hs in (256, 128):
+        kern, twin = [], []
+        for d in DILATIONS:
+            args = tp_stage2_inputs(torch, torch.bfloat16, Hs, d)
+            kw = dict(dilation=d, causal=False)
+            with torch.inference_mode():
+                t = time_turns(torch, {
+                    "twin": lambda: tp.tp_stage2_reference(*args, **kw),
+                    "kernel": lambda: tp.fused_tp_stage2(*args, **kw)}, 20)
+            kern.append(t["kernel"][0])
+            twin.append(t["twin"][0])
+            print(f"timing [{card}] tp stage 2 [8,3199,{Hs}] B=256 gLN bf16 "
+                  f"d={d}: B6 {t['kernel'][0]:.4f} ms (runs "
+                  f"{[round(r, 4) for r in t['kernel'][1]]}), twin "
+                  f"{t['twin'][0]:.4f} ms", flush=True)
+        with torch.inference_mode():
+            outs = tp.fused_tp_stage2(*args, **kw)
+        bound = kernel_bound(*tp_stage2_work(args, outs))
+        rows[Hs] = (statistics.mean(kern), statistics.mean(twin), bound)
+        print(f"bound [{card}] tp stage 2 [8,3199,{Hs}] B=256 bf16: "
+              f"{bound[0]:.4f} ms ({bound[1]}); B6 {rows[Hs][0]:.4f} ms "
+              f"({bound[0] / rows[Hs][0]:.1%} of the bound), twin "
+              f"{rows[Hs][1]:.4f} ms (means over d)", flush=True)
+
+    cfg = ConvTasNetConfig(compute_dtype="bfloat16")
+    model = ConvTasNet(cfg, use_pallas=True, device="cuda").eval()
+    sd = model.state_dict()
+    mix = torch.randn(8, SECONDS * SAMPLE_RATE, generator=torch.Generator(
+        device="cuda").manual_seed(7), device="cuda")
+    fns = {"unsharded kernel path": lambda: model(mix)}
+    for m in TP_SHARDS:
+        fns[f"TP m={m}"] = (lambda devs: lambda: tp_forward(
+            cfg, sd, mix, devs))(shard_devices(m, "cuda"))
+    mem = {}
+    with torch.inference_mode(), pair_switch(False):
+        t = time_turns(torch, fns, 10)
+        for name, fn in fns.items():
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, (ms, runs) in t.items():
+        print(f"timing [{card}] forward B=8x{SECONDS}s bf16 {name}: "
+              f"{ms:.3f} ms, {8 * SECONDS / (ms / 1e3):.1f}x realtime (runs "
+              f"{[round(r, 3) for r in runs]}), peak memory "
+              f"{mem[name]:.2f} GiB", flush=True)
+    del model
+
+    steps = {"unsharded kernel step": ts.make_train_step(),
+             "TP m=2 step": make_tcn_tp_train_step(
+                 cfg, shard_devices(2, "cuda"))}
+    runs = {name: [] for name in steps}
+    mem = {}
+    for name in [*steps, *reversed(list(steps))]:
+        state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
+                                      use_pallas=True)
+        batch = train_batch(torch, 8, 21)
+        torch.cuda.reset_peak_memory_stats()
+        with pair_switch(False):
+            runs[name].append(time_ms(
+                torch, lambda: steps[name](state, batch), 10))
+        mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state
+    for name, r in runs.items():
+        print(f"timing [{card}] tcn train step B=8x{SECONDS}s bf16 {name}: "
+              f"{statistics.median(r):.3f} ms (runs {[round(x, 3) for x in r]})"
+              f", peak memory {mem[name]:.2f} GiB", flush=True)
+    return rows
+
+
 def kernel_line(name, source, replaces, launches, max_abs, ms, plain_ms,
                 bound):
     return {"name": name, "route": "cuda",
@@ -2043,6 +2434,8 @@ def main() -> int:
     max_abs_pair_bwd = phase_pair_bwd_vs_twin(torch, k)
     max_abs_dpt = phase_dpt_kernels_vs_twin(torch, dpt)
     max_abs_dpt_bwd = phase_dpt_bwd_vs_twin(torch, dpt)
+    phase_intra_f32_wide_heads(torch, dpt)
+    max_abs_tp = phase_tp_stage2_vs_twin(torch, k)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_main_path(torch, k, work)
         data, json_dir = make_corpus(work)
@@ -2053,6 +2446,11 @@ def main() -> int:
         pairs_off = phase_train_path(torch, k, work, data, json_dir,
                                      pairs=False)
         cln = phase_cln_train_path(torch, k, work, data, json_dir)
+        # tensor parallelism (gLN, two and four shards on one card): the
+        # forward, then cli train --n-model 2 and its package served
+        # through cli separate --tensor-parallel 2, each with exact counts
+        phase_tp_forward(torch, k)
+        tp_train = phase_tp_train_path(torch, k, work, data, json_dir)
         phase_dpt_forward(torch, dpt)
         dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
         dpt_launches_bwd = phase_dpt_train_path(torch, dpt, work, data,
@@ -2065,6 +2463,7 @@ def main() -> int:
     rows = phase_timings(torch, k, card)
     cln_ms, cln_plain_ms, cln_bound = phase_cln_timings(torch, bwd, card)
     dpt_times, dpt_bwd_times = phase_dpt_timings(torch, dpt, card)
+    tp_rows = phase_tp_timings(torch, k, card)
 
     lines = [
         kernel_line("tcn_block", "tcn_block.cu", "tcn_block.py:92",
@@ -2080,7 +2479,10 @@ def main() -> int:
                     *rows["b4"]),
         kernel_line("tcn_block_pair_bwd", "tcn_block_pair_bwd.cu",
                     "tcn_block_pair_bwd.py:63", pairs_on["b5"],
-                    max_abs_pair_bwd, *rows["b5"])]
+                    max_abs_pair_bwd, *rows["b5"]),
+        # at two shards' width (Hs 256), as cli train --n-model 2 runs it
+        kernel_line("tcn_block_tp", "tcn_block_tp.cu", "tcn_block_tp.py:148",
+                    tp_train["b6"], max_abs_tp, *tp_rows[256])]
     for kind, source, replaces in (
             ("inter", "dpt_attention.cu", "dpt_attention.py:62"),
             ("intra", "dpt_intra.cu", "dpt_intra.py:53"),

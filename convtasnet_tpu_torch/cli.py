@@ -18,8 +18,10 @@ its meaning: -1 runs the CUDA kernels on a CUDA device, 1 insists on them,
 or the dual-path one (``--separator dpt``); ``separate`` and ``evaluate``
 take the model from the package; ``separate --streaming 1`` and
 ``stream-demo`` run a causal cLN or BN package through the streaming
-separator. Flags of what is not ported yet raise and
-name the ROADMAP item.
+separator. ``train --n-model m`` and ``separate --tensor-parallel m`` split
+a TCN's hidden width over m shards (``parallel/``; all on one card where
+there is one, with the placement printed on one line). Flags of what is
+not ported yet raise and name the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -109,14 +111,24 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
     g.add_argument("--n-data", type=int, default=-1,
                    help="data-parallel devices (> 1: not ported yet)")
     g.add_argument("--n-model", type=int, default=1,
-                   help="model-parallel devices (> 1: not ported yet)")
+                   help="tensor-parallel shards of the TCN's hidden width")
 
 
 def _check_ported(a: argparse.Namespace) -> None:
-    if a.n_data > 1 or a.n_model > 1:
+    if a.n_data > 1:
         raise NotImplementedError(
-            "data- and model-parallel training (--n-data/--n-model > 1) is "
-            "not ported yet (ROADMAP A8)")
+            "data-parallel training (--n-data > 1) is not ported yet "
+            "(ROADMAP A8c)")
+
+
+def _print_placement(n_model: int, device) -> None:
+    from convtasnet_tpu_torch.parallel.mesh import (
+        describe_placement,
+        shard_devices,
+    )
+
+    if n_model > 1:
+        print(describe_placement(shard_devices(n_model, device)), flush=True)
 
 
 def _cfg_from_args(a: argparse.Namespace):
@@ -176,6 +188,7 @@ def cmd_train(a) -> int:
 
     _check_ported(a)
     device = resolve_device(a.device)
+    _print_placement(a.n_model, device)
     cfg = _cfg_from_args(a)
     if a.auto_exp_name:
         cfg = TrainConfig(
@@ -206,8 +219,9 @@ def cmd_train(a) -> int:
 
 
 def cmd_separate(a) -> int:
-    from convtasnet_tpu_torch.infer.separate import separate
+    from convtasnet_tpu_torch.infer.separate import resolve_device, separate
 
+    _print_placement(a.tensor_parallel, resolve_device(a.device))
     n = separate(a.model_path, a.out_dir, mix_dir=a.mix_dir,
                  mix_json=a.mix_json, batch_size=a.batch_size,
                  sample_rate=a.sample_rate, streaming=bool(a.streaming),
@@ -316,7 +330,8 @@ def main(argv=None) -> int:
                         "package splits batches to fit TPU VMEM; here each "
                         "batch is one forward")
     p.add_argument("--tensor-parallel", type=int, default=0,
-                   help="model-axis size m > 1 (not ported yet)")
+                   help="split a TCN package's hidden width over m > 1 "
+                        "shards")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda raises when CUDA is absent")
     p.set_defaults(fn=cmd_separate)

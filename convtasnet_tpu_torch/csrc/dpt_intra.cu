@@ -30,6 +30,13 @@
 // The qkv round trip (78.6 MB in bf16, ~23 us) and a's (26.2 MB) are the
 // design's cost over the bound. Fusing 2 and 3, pipelined loads and wgmma
 // are the next steps when this kernel is made fast.
+//
+// Where the three [S, d] tiles do not fit in shared memory beside the
+// per-warp scratch (f32 with a head width of 64 above S=176: 200 KB of
+// them alone at S=256), they go to a device workspace after the `a`
+// workspace instead, one set per (m, chunk, head) block in the same
+// layout (ctn_dpt_intra_workspace gives its size); every value and every
+// order of summation is as in shared memory.
 
 #include "dpt_common.cuh"
 
@@ -45,20 +52,31 @@ __host__ __device__ constexpr int head_ld() {
   return kIsBf16<T> ? padded<T>(D) : D + 1;
 }
 
+// Bytes of one of the q, k, v [S, d] tiles.
 template <typename T, int D>
-constexpr size_t core_smem(int S) {
+__host__ __device__ constexpr size_t head_bytes(int S) {
+  return align128(static_cast<size_t>(S) * head_ld<T, D>() * sizeof(T));
+}
+
+// Shared memory of the core; with `spill` the q, k, v tiles live in the
+// device workspace instead.
+template <typename T, int D>
+constexpr size_t core_smem(int S, bool spill) {
   const int w = (S > D ? S : D) + 4;
-  return 3 * align128(static_cast<size_t>(S) * head_ld<T, D>() * sizeof(T)) +
+  return (spill ? 0 : 3 * head_bytes<T, D>(S)) +
          align128(static_cast<size_t>(S) * sizeof(float)) +
          kCoreWarps *
              (align128(static_cast<size_t>(16) * w * sizeof(float)) +
               align128(static_cast<size_t>(16) * padded<T>(S) * sizeof(T)));
 }
 
-// Grid (n, M, h); kCoreWarps warps. S % 16 == 0.
+constexpr size_t kMaxCoreSmem = 232448;   // an H100 block's opt-in limit
+
+// Grid (n, M, h); kCoreWarps warps. S % 16 == 0. spill: null, or the
+// device workspace of the q, k, v tiles, 3 head_bytes per block.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCoreWarps * 32)
-    intra_core_kernel(DptAttnParams p, float scale) {
+    intra_core_kernel(DptAttnParams p, float scale, unsigned char* spill) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = 16 / sizeof(T);
   constexpr int ldq = head_ld<T, D>();
@@ -68,13 +86,21 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   const int chunk = blockIdx.x, m = blockIdx.y, hd = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  const size_t tile = align128(static_cast<size_t>(S) * ldq * sizeof(T));
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = reinterpret_cast<T*>(smem + tile);
-  T* v_s = reinterpret_cast<T*>(smem + 2 * tile);
-  float* b_s = reinterpret_cast<float*>(smem + 3 * tile);
+  const size_t tile = head_bytes<T, D>(S);
+  unsigned char* heads = smem;
+  unsigned char* rest = smem + 3 * tile;
+  if (spill) {
+    heads = spill +
+            ((static_cast<size_t>(m) * gridDim.x + chunk) * gridDim.z + hd) *
+                3 * tile;
+    rest = smem;
+  }
+  T* q_s = reinterpret_cast<T*>(heads);
+  T* k_s = reinterpret_cast<T*>(heads + tile);
+  T* v_s = reinterpret_cast<T*>(heads + 2 * tile);
+  float* b_s = reinterpret_cast<float*>(rest);
   unsigned char* scratch =
-      smem + 3 * tile + align128(static_cast<size_t>(S) * sizeof(float));
+      rest + align128(static_cast<size_t>(S) * sizeof(float));
   const size_t c_bytes = align128(static_cast<size_t>(16) * ldc * sizeof(float));
   const size_t p_bytes = align128(static_cast<size_t>(16) * ldp * sizeof(T));
   float* c_s = reinterpret_cast<float*>(scratch + warp * (c_bytes + p_bytes));
@@ -132,16 +158,30 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   }
 }
 
+// Elements of T the spilled q, k, v tiles take after the `a` workspace's
+// R * B (0 where they fit in shared memory); -1 where nothing fits.
+template <typename T, int D>
+long long spill_elems(int M, int n, int S, int h) {
+  if (core_smem<T, D>(S, false) <= kMaxCoreSmem) return 0;
+  if (core_smem<T, D>(S, true) > kMaxCoreSmem) return -1;
+  return static_cast<long long>(M) * n * h * 3 * head_bytes<T, D>(S) /
+         sizeof(T);
+}
+
 template <typename T, int D>
 int launch_core(const DptAttnParams& p, cudaStream_t stream) {
-  const size_t smem = core_smem<T, D>(p.S);
+  const bool spill = core_smem<T, D>(p.S, false) > kMaxCoreSmem;
+  const size_t smem = core_smem<T, D>(p.S, spill);
+  if (smem > kMaxCoreSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       intra_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
+  unsigned char* ws = reinterpret_cast<unsigned char*>(
+      static_cast<T*>(p.a) + p.R * p.B);
   intra_core_kernel<T, D><<<dim3(p.n, p.M, p.h), kCoreWarps * 32, smem,
-                            stream>>>(p, scale);
+                            stream>>>(p, scale, spill ? ws : nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -159,8 +199,28 @@ int launch(const DptAttnParams& p, cudaStream_t stream) {
 
 extern "C" {
 
+// Elements of the compute dtype (elem_bytes 2 for bf16, 4 for f32) the
+// intra forward needs after the R * B of its `a` workspace for its spilled
+// q, k, v tiles: 0 where they fit in shared memory, -1 where the core fits
+// no way.
+int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
+                            long long* n_spill) {
+  if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
+  const int d = B / h;
+  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (elem_bytes == 2)
+    *n_spill = d == 32 ? spill_elems<__nv_bfloat16, 32>(M, n, S, h)
+                       : spill_elems<__nv_bfloat16, 64>(M, n, S, h);
+  else
+    *n_spill = d == 32 ? spill_elems<float, 32>(M, n, S, h)
+                       : spill_elems<float, 64>(M, n, S, h);
+  return 0;
+}
+
 // One intra-chunk attention sublayer (operands: DptAttnParams in
-// dpt_common.cuh); returns the first CUDA error of its three launches.
+// dpt_common.cuh; the `a` workspace holds R * B elements plus what
+// ctn_dpt_intra_workspace gives); returns the first CUDA error of its three
+// launches.
 int ctn_dpt_intra_f32(CTN_DPT_ATTN_ARGS) {
   return launch<float>(CTN_DPT_ATTN_PARAMS, static_cast<cudaStream_t>(stream));
 }

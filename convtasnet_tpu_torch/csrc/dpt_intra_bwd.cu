@@ -37,10 +37,12 @@
 // one pair of tiles per (m, chunk, head) block, 270 KB each at S=256 in
 // bf16 (225 MB at B=8 x 4 s), and the block runs with as many warps (4, 2
 // or 1) as its per-warp scratch rows leave room for; every value and every
-// order of summation is as in shared memory. Only f32 with a head width of
-// 64 has no fit above S=208 (its four [S, d] tiles alone). The round
-// trips of qkv, dA, a, dqkv and dy through device memory are the design's
-// cost over the bound.
+// order of summation is as in shared memory. Where even that does not fit
+// (f32 with a head width of 64 above S=208: its four [S, d] tiles alone
+// take 266 KB at S=256), the q, k, v and dA tiles go to the workspace too,
+// after the block's two [S, S] tiles and in the same layout, and the block
+// runs with four warps. The round trips of qkv, dA, a, dqkv and dy through
+// device memory are the design's cost over the bound.
 
 #include "dpt_bwd_common.cuh"
 
@@ -73,6 +75,12 @@ __host__ __device__ constexpr size_t warp_scratch(int S) {
              : align128(static_cast<size_t>(16) * (D + 4) * 4);
 }
 
+// Bytes of one of the q, k, v, dA [S, d] tiles.
+template <typename T, int D>
+__host__ __device__ constexpr size_t head_bytes(int S) {
+  return align128(static_cast<size_t>(S) * head_ld<T, D>() * sizeof(T));
+}
+
 // Bytes of one [S, S] tile of round(p) or ds.
 template <typename T>
 __host__ __device__ constexpr size_t pmat_bytes(int S) {
@@ -80,11 +88,13 @@ __host__ __device__ constexpr size_t pmat_bytes(int S) {
 }
 
 // Shared memory of the core with `warps` warps; with `spill` the two
-// [S, S] tiles live in the device workspace instead.
+// [S, S] tiles live in the device workspace instead, with `heads` the four
+// [S, d] tiles too.
 template <typename T, int D>
 __host__ __device__ constexpr size_t core_bwd_smem(int S, bool spill,
-                                                   int warps) {
-  return 4 * align128(static_cast<size_t>(S) * head_ld<T, D>() * sizeof(T)) +
+                                                   int warps,
+                                                   bool heads = false) {
+  return (heads ? 0 : 4 * head_bytes<T, D>(S)) +
          align128(static_cast<size_t>(S) * sizeof(float)) +
          (spill ? 0 : 2 * pmat_bytes<T>(S)) + warps * warp_scratch<T, D>(S);
 }
@@ -93,9 +103,11 @@ constexpr size_t kMaxCoreSmem = 232448;   // an H100 block's opt-in limit
 
 // How the core runs at chunk length S: the [S, S] tiles in shared memory
 // with kCoreWarps warps where they fit, else spilled with the most warps
-// that fit; warps 0 if nothing fits.
+// that fit, else the [S, d] tiles spilled too with kCoreWarps warps; warps
+// 0 if nothing fits.
 struct CoreCfg {
   bool spill;
+  bool heads;
   int warps;
   size_t smem;
 };
@@ -103,19 +115,30 @@ struct CoreCfg {
 template <typename T, int D>
 CoreCfg core_cfg(int S) {
   if (core_bwd_smem<T, D>(S, false, kCoreWarps) <= kMaxCoreSmem)
-    return {false, kCoreWarps, core_bwd_smem<T, D>(S, false, kCoreWarps)};
+    return {false, false, kCoreWarps,
+            core_bwd_smem<T, D>(S, false, kCoreWarps)};
   for (int w = kCoreWarps; w >= 1; w /= 2)
     if (core_bwd_smem<T, D>(S, true, w) <= kMaxCoreSmem)
-      return {true, w, core_bwd_smem<T, D>(S, true, w)};
-  return {true, 0, 0};
+      return {true, false, w, core_bwd_smem<T, D>(S, true, w)};
+  if (core_bwd_smem<T, D>(S, true, kCoreWarps, true) <= kMaxCoreSmem)
+    return {true, true, kCoreWarps,
+            core_bwd_smem<T, D>(S, true, kCoreWarps, true)};
+  return {true, false, 0, 0};
+}
+
+// Workspace bytes of one block's spilled tiles under c.
+template <typename T, int D>
+size_t spill_block_bytes(const CoreCfg& c, int S) {
+  return 2 * pmat_bytes<T>(S) + (c.heads ? 4 * head_bytes<T, D>(S) : 0);
 }
 
 // Grid (n, M, h); blockDim.x / 32 warps. S % 16 == 0. spill: null, or the
-// device workspace of the [S, S] tiles, 2 pmat_bytes per block.
+// device workspace of the [S, S] tiles, 2 pmat_bytes per block, followed
+// with `heads` by the block's four [S, d] tiles.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCoreWarps * 32)
     intra_bwd_core_kernel(DptAttnBwdParams P, float scale,
-                          unsigned char* spill) {
+                          unsigned char* spill, bool heads) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = 16 / sizeof(T);
   constexpr int ldq = head_ld<T, D>();
@@ -127,21 +150,28 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
 
-  const size_t head = align128(static_cast<size_t>(S) * ldq * sizeof(T));
+  const size_t head = head_bytes<T, D>(S);
   const size_t pm = pmat_bytes<T>(S);
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = reinterpret_cast<T*>(smem + head);
-  T* v_s = reinterpret_cast<T*>(smem + 2 * head);
-  T* da_s = reinterpret_cast<T*>(smem + 3 * head);
-  float* b_s = reinterpret_cast<float*>(smem + 4 * head);
-  unsigned char* tail =
-      smem + 4 * head + align128(static_cast<size_t>(S) * sizeof(float));
-  unsigned char* at = tail;
+  unsigned char* hbase = smem;              // the four [S, d] tiles
+  unsigned char* tail = smem + 4 * head;    // the bias row, then the rest
+  unsigned char* at = nullptr;              // the two [S, S] tiles
   if (spill) {
     const size_t blk =
         (static_cast<size_t>(m) * gridDim.x + chunk) * gridDim.z + hd;
-    at = spill + blk * 2 * pm;
-  } else {
+    at = spill + blk * (2 * pm + (heads ? 4 * head : 0));
+    if (heads) {
+      hbase = at + 2 * pm;
+      tail = smem;
+    }
+  }
+  T* q_s = reinterpret_cast<T*>(hbase);
+  T* k_s = reinterpret_cast<T*>(hbase + head);
+  T* v_s = reinterpret_cast<T*>(hbase + 2 * head);
+  T* da_s = reinterpret_cast<T*>(hbase + 3 * head);
+  float* b_s = reinterpret_cast<float*>(tail);
+  tail += align128(static_cast<size_t>(S) * sizeof(float));
+  if (!spill) {
+    at = tail;
     tail += 2 * pm;
   }
   T* p_s = reinterpret_cast<T*>(at);         // round(p), then [S, S] of p
@@ -262,7 +292,7 @@ long long spill_elems(int M, int n, int S, int h) {
   const CoreCfg c = core_cfg<T, D>(S);
   if (c.warps == 0) return -1;
   if (!c.spill) return 0;
-  return static_cast<long long>(M) * n * h * 2 * pmat_bytes<T>(S) /
+  return static_cast<long long>(M) * n * h * spill_block_bytes<T, D>(c, S) /
          sizeof(T);
 }
 
@@ -285,7 +315,7 @@ int launch_core(const DptAttnBwdParams& P, unsigned char* spill,
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   intra_bwd_core_kernel<T, D><<<dim3(P.f.n, P.f.M, P.f.h), c.warps * 32,
                                 c.smem, stream>>>(
-      P, scale, c.spill ? spill : nullptr);
+      P, scale, c.spill ? spill : nullptr, c.heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -313,8 +343,8 @@ extern "C" {
 
 // Elements of the compute dtype (elem_bytes 2 for bf16, 4 for f32) the
 // intra backward needs after ctn_dpt_attn_bwd_workspace's n_act for its
-// spilled [S, S] tiles: 0 where they fit in shared memory, -1 where the
-// core fits no way (f32, head width 64, S > 208).
+// spilled [S, S] (and, where needed, [S, d]) tiles: 0 where they fit in
+// shared memory, -1 where the core fits no way.
 int ctn_dpt_intra_bwd_spill(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);

@@ -6,8 +6,12 @@ if needed, batches length-sorted mixtures padded to a multiple of
 ``pad_to_multiple`` samples, and writes ``<utt>.wav`` (the mixture) plus
 ``<utt>_s{c}.wav`` per speaker. ``streaming=True`` runs the causal
 streaming separator (``models/streaming.py``) chunk by chunk instead, as
-the JAX package's ``_separate_streaming`` does. The sequence-parallel and
-tensor-parallel modes are not ported yet and raise.
+the JAX package's ``_separate_streaming`` does. ``tensor_parallel=m``
+serves a TCN package with its hidden width split over m shards
+(``parallel/tensor_parallel.tp_forward``), as the JAX package's
+``_separate_tensor_parallel`` does; the dual-path family's tensor
+parallelism (ROADMAP A8b) and the sequence-parallel mode (A8d) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from convtasnet_tpu_torch.data.audio_io import write_wav
 from convtasnet_tpu_torch.data.dataset import EvalDataset
 from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
 from convtasnet_tpu_torch.models.streaming import StreamingSeparator
+from convtasnet_tpu_torch.parallel.mesh import shard_devices
+from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
 from convtasnet_tpu_torch.train.checkpoint import load_params_for_inference
 from convtasnet_tpu_torch.utils.padding import remove_pad
 
@@ -61,25 +67,32 @@ def separate(
     as one forward call. ``streaming=True`` separates each mixture in
     chunks of ``chunk_seconds`` (whole encoder hops) through the causal
     streaming separator, which needs a causal cLN or BN package and runs
-    the plain ops, as the JAX streaming step does.
+    the plain ops, as the JAX streaming step does. ``tensor_parallel=m >
+    1`` splits a TCN package's hidden width over m shards
+    (``mesh.shard_devices(m, device)``: all on one card where there is
+    one), one ``tp_forward`` per batch, gLN blocks through kernel B6.
     """
     if sequence_parallel or ring_attention:
         raise NotImplementedError(
-            "sequence-parallel separation is not ported yet (ROADMAP "
-            "queue A, 'DP/TP/SP')")
-    if tensor_parallel > 1:
-        raise NotImplementedError(
-            "tensor-parallel separation is not ported yet (ROADMAP queue A, "
-            "'DP/TP/SP')")
+            "sequence-parallel separation is not ported yet (ROADMAP A8d)")
     device = resolve_device(device)
     cfg, state_dict = load_params_for_inference(model_path)
     if streaming:
         return _separate_streaming(cfg, state_dict, out_dir, mix_dir,
                                    mix_json, sample_rate, chunk_seconds,
                                    write_mix, device)
-    model = ConvTasNet(cfg, use_pallas=use_pallas, device=device)
-    model.load_state_dict(state_dict)
-    model.eval()
+    if tensor_parallel > 1:   # a dual-path package raises (ROADMAP A8b)
+        devices = shard_devices(tensor_parallel, device)
+        variables = {k: v.to(devices[0]) for k, v in state_dict.items()}
+
+        def forward(mixture: torch.Tensor) -> torch.Tensor:
+            return tp_forward(cfg, variables, mixture, devices,
+                              use_pallas=use_pallas)
+    else:
+        model = ConvTasNet(cfg, use_pallas=use_pallas, device=device)
+        model.load_state_dict(state_dict)
+        model.eval()
+        forward = model
     ds = EvalDataset(mix_dir=mix_dir, mix_json=mix_json,
                      batch_size=batch_size, sample_rate=sample_rate)
     os.makedirs(out_dir, exist_ok=True)
@@ -105,7 +118,7 @@ def separate(
         for bi in range(len(ds)):
             mixture, lengths, names = ds.load_batch(
                 bi, pad_to_multiple=pad_to_multiple)
-            est_dev = model(torch.from_numpy(mixture).to(device))
+            est_dev = forward(torch.from_numpy(mixture).to(device))
             if pending is not None:
                 n_written += write(*pending)
             pending = (est_dev, mixture, lengths, names)

@@ -39,6 +39,9 @@ _PAIR_ARGTYPES = [_P] * 22 + [_I] * 9 + [_P]
 # ctn_tcn_block_pair_bwd_{f32,bf16}: 29 pointers, 8 ints, the stream
 # (see tcn_block_pair_bwd.cu)
 _PAIR_BWD_ARGTYPES = [_P] * 29 + [_I] * 8 + [_P]
+# ctn_tcn_block_tp2_{f32,bf16}: 11 pointers, 7 ints, the stream
+# (see tcn_block_tp.cu)
+_TP2_ARGTYPES = [_P] * 11 + [_I] * 7 + [_P]
 # ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 5 ints, the stream
 # (dpt_common.cuh)
 _ATTN_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
@@ -134,6 +137,8 @@ def load_library() -> ctypes.CDLL:
         "ctn_tcn_block_pair_bwd_f32": _PAIR_BWD_ARGTYPES,
         "ctn_tcn_block_pair_bwd_bf16": _PAIR_BWD_ARGTYPES,
         "ctn_tcn_block_pair_bwd_workspace": [_I] * 6 + [_LL_P, _LL_P],
+        "ctn_tcn_block_tp2_f32": _TP2_ARGTYPES,
+        "ctn_tcn_block_tp2_bf16": _TP2_ARGTYPES,
         "ctn_dpt_inter_f32": _ATTN_ARGTYPES,
         "ctn_dpt_inter_bf16": _ATTN_ARGTYPES,
         "ctn_dpt_intra_f32": _ATTN_ARGTYPES,
@@ -145,6 +150,7 @@ def load_library() -> ctypes.CDLL:
         "ctn_dpt_intra_bwd_f32": _ATTN_BWD_ARGTYPES,
         "ctn_dpt_intra_bwd_bf16": _ATTN_BWD_ARGTYPES,
         "ctn_dpt_attn_bwd_workspace": [_I] * 6 + [_LL_P, _LL_P],
+        "ctn_dpt_intra_workspace": [_I] * 6 + [_LL_P],
         "ctn_dpt_intra_bwd_spill": [_I] * 6 + [_LL_P],
         "ctn_dpt_ffn_bwd_f32": _FFN_BWD_ARGTYPES,
         "ctn_dpt_ffn_bwd_bf16": _FFN_BWD_ARGTYPES,

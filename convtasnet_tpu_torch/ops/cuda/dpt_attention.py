@@ -195,8 +195,16 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
         name, kind, x, gamma, beta, w_qkv, w_out, key_bias, n_heads)
     M, n, S, B = x.shape
     R = M * n * S
+    n_spill = ctypes.c_longlong(0)
+    if kind == "intra":   # its q, k, v tiles, where shared memory cannot hold them
+        lib.ctn_dpt_intra_workspace(M, n, S, B, n_heads, x.element_size(),
+                                    ctypes.byref(n_spill))
+        if n_spill.value < 0:
+            raise ValueError(f"the intra kernel does not fit one block's "
+                             f"shared memory at S={S} with head width "
+                             f"{B // n_heads} in {x.dtype}")
     qkv = torch.empty((R, 3 * B), dtype=x.dtype, device=x.device)
-    a = torch.empty((R, B), dtype=x.dtype, device=x.device)
+    a = torch.empty(R * B + n_spill.value, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -323,7 +331,7 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
     lib.ctn_dpt_attn_bwd_workspace(M, n, S, B, n_heads, xc.element_size(),
                                    ctypes.byref(n_act), ctypes.byref(n_f32))
     n_spill = ctypes.c_longlong(0)
-    if kind == "intra":   # its [S, S] tiles, where shared memory cannot hold them
+    if kind == "intra":   # its tiles, where shared memory cannot hold them
         lib.ctn_dpt_intra_bwd_spill(M, n, S, B, n_heads, xc.element_size(),
                                     ctypes.byref(n_spill))
         if n_spill.value < 0:

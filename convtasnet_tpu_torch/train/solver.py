@@ -16,6 +16,13 @@ Counterpart of ``convtasnet_tpu/train/solver.py``:
 - per-iteration prints of loss, running average and ms per batch; the
   loss is read back every ``print_freq`` steps, not after each step.
 
+With ``cfg.mesh.model_axis`` m > 1 the TCN trains and validates with its
+hidden width split over m shards (``parallel/tensor_parallel.py``), as the
+JAX solver routes it: gLN and cLN through the TP step, BN through the
+ordinary step with a warning (its running statistics), the dual-path
+family refused (ROADMAP A8b). Parameters, optimizer state and checkpoints
+keep the canonical layout either way.
+
 The JAX solver's probe/autotune block is not ported (a TPU-relay device,
 ROADMAP "Do not port"): on the card the kernels run or raise.
 """
@@ -24,12 +31,18 @@ from __future__ import annotations
 
 import os
 import signal
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from convtasnet_tpu_torch.config import TrainConfig
+from convtasnet_tpu_torch.parallel.mesh import shard_devices
+from convtasnet_tpu_torch.parallel.tensor_parallel import (
+    make_tcn_tp_eval_step,
+    make_tcn_tp_train_step,
+)
 from convtasnet_tpu_torch.train import checkpoint as ckpt
 from convtasnet_tpu_torch.train.train_step import (
     create_train_state,
@@ -66,11 +79,28 @@ class Solver:
                 "cv loader is empty — every utterance was dropped (check "
                 "cv_maxlen vs utterance lengths and sample_rate)")
         s = cfg.solver
+        n_model = cfg.mesh.model_axis
+        if n_model > 1 and (cfg.model.separator == "dpt"
+                            or cfg.model.norm_type != "BN"):
+            # the TCN under a model split: the stage-split (gLN) or
+            # per-norm (cLN) decomposition, canonical parameter layout;
+            # the dual-path family is refused there (ROADMAP A8b)
+            if s.train_batch_chunk:
+                print("warning: --train-batch-chunk is ignored by the TP "
+                      "train step (full-batch gradients)", file=sys.stderr)
+            devices = shard_devices(n_model, device)
+            self.train_step = make_tcn_tp_train_step(cfg.model, devices)
+            self.eval_step = make_tcn_tp_eval_step(cfg.model, devices)
+        else:
+            if n_model > 1:
+                print("warning: mesh model axis > 1 with BN running stats "
+                      "— the solver trains on one shard (use gLN/cLN for "
+                      "tensor-parallel training)", file=sys.stderr)
+            self.train_step = make_train_step(s.train_batch_chunk)
+            self.eval_step = make_eval_step()
         self.logger = logger or MetricsLogger(log_dir=s.save_folder)
         self.state = create_train_state(cfg.model, s, seed=s.seed,
                                         device=device, use_pallas=use_pallas)
-        self.train_step = make_train_step(s.train_batch_chunk)
-        self.eval_step = make_eval_step()
 
         # LR / early-stop state machine
         self.start_epoch = 0

@@ -88,13 +88,18 @@ def create_train_state(
                       solver_cfg.max_grad_norm)
 
 
-def _weighted_loss(model: ConvTasNet, batch: Batch) -> torch.Tensor:
-    """-(sum of max_snr * weight) / max(sum of weights, 1): padding rows
+def weighted_loss(est: torch.Tensor, batch: Batch) -> torch.Tensor:
+    """The loss of the estimates ``est`` [B, C, T] of ``batch``'s mixtures:
+    -(sum of max_snr * weight) / max(sum of weights, 1), so padding rows
     (weight 0) contribute nothing."""
-    mixture, lengths, sources, weights = batch
-    max_snr, _ = pit_si_snr(sources, model(mixture), lengths)
+    _, lengths, sources, weights = batch
+    max_snr, _ = pit_si_snr(sources, est, lengths)
     w = weights.float()
     return -(max_snr * w).sum() / w.sum().clamp_min(1.0)
+
+
+def _weighted_loss(model: ConvTasNet, batch: Batch) -> torch.Tensor:
+    return weighted_loss(model(batch[0]), batch)
 
 
 def _loss_and_grads(model: ConvTasNet, batch: Batch,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Plant known faults in copies of the DPT sublayer kernels, of the cLN
-block backward (kernel B3) and of the TCN block pair (kernels B4 and B5),
+block backward (kernel B3), of the TCN block pair (kernels B4 and B5) and
+of the TCN's tensor parallelism (kernel B6 and the shard sum around it),
 and report which checks see each one. Needs one CUDA GPU and nvcc.
 
     python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...]
@@ -8,13 +9,16 @@ and report which checks see each one. Needs one CUDA GPU and nvcc.
 For each fault the script copies ``convtasnet_tpu_torch/`` (without its
 build directory), ``chip_smoke.py``, ``pyproject.toml`` and
 ``tests/test_torch_cuda.py`` into a temporary directory, edits one line of
-the copy's ``csrc/``, and runs there, against the edited kernels, the
+the copy (a kernel source, or a module around one), and runs there,
+against the edited code, the
 smoke phases of the kernel's kind (``PHASES``: for a DPT forward kernel
 ``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, for a
 DPT backward ``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch,
 "dpt")``, for B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
 ``phase_step_compare(torch, "tcn", "cLN")``, for the block pair
 ``phase_pair_vs_twin``, ``phase_pair_bwd_vs_twin`` and
+``phase_step_compare(torch, "tcn")``, for tensor parallelism
+``phase_tp_stage2_vs_twin``, ``phase_tp_forward`` and
 ``phase_step_compare(torch, "tcn")``), then the kind's ``cuda``-marked
 tests. The repository itself is never edited. A fault is caught when either
 run fails. Each run's full output goes to ``--log-dir`` (default: a new
@@ -109,6 +113,25 @@ FAULTS = {
         "const T v = from_f<T>(to_f<T>(g[idx]) + s.c[r * S::kLdC + col]);",
         "const T v = from_f<T>(0.f * to_f<T>(g[idx]) + "
         "s.c[r * S::kLdC + col]);"),
+    # TCN tensor parallelism: B6 with the gLN-1 shift added for taps
+    # outside [0, K) (the Pallas halo's trap), B6 with g2 folded into W_out
+    # in place of rounding y g2 (planted in its wrapper: W_eff in the
+    # compute dtype and g2 = 1; in f32 the same numbers, so only bf16 can
+    # see it), and the shard sum's epilogue without the g2 @ W_out term
+    "tp2_shift_on_out_of_range_taps": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tp.cu",
+        "if (kk < 0 || kk >= K) continue;  // zero padding after gLN-1",
+        "if (kk < 0 || kk >= K) { acc = fmaf(to_f<T>(dw[q * Hs + c]), sh, "
+        "acc); continue; }"),
+    "tp2_g2_folded_into_w_out": ("tp",
+        "convtasnet_tpu_torch/ops/cuda/tcn_block_tp.py",
+        "    dw, w_out = (t.to(dt).contiguous() for t in (dw, w_out))",
+        "    dw, w_out, gamma2 = (dw.to(dt).contiguous(), (w_out * gamma2[:, "
+        "None]).to(dt).contiguous(), torch.ones_like(gamma2))"),
+    "tp_shard_sum_drops_w1": ("tp",
+        "convtasnet_tpu_torch/parallel/tensor_parallel.py",
+        "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), w1, w0)",
+        "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), 0 * w1, w0)"),
 }
 # The smoke phases a fault of each kind is run through; each phase runs
 # whether or not an earlier one failed, and prints "PHASE <call>: passed"
@@ -123,9 +146,12 @@ PHASES = {
     "pair": ["phase_pair_vs_twin(torch, k)",
              "phase_pair_bwd_vs_twin(torch, k)",
              "phase_step_compare(torch, 'tcn')"],
+    "tp": ["phase_tp_stage2_vs_twin(torch, k)",
+           "phase_tp_forward(torch, k)",
+           "phase_step_compare(torch, 'tcn')"],
 }
 CARD_TESTS = {"dpt_forward": "dpt", "dpt_backward": "dpt",
-              "cln_backward": "cln", "pair": "pair"}
+              "cln_backward": "cln", "pair": "pair", "tp": "tp_"}
 RUNNER = """
 import sys
 import torch

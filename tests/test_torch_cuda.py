@@ -44,6 +44,10 @@ DPT_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-2}
 # order only (<= 1.5e-6 at the quality default's widths): 1e-5, under the
 # JAX package's VJP gate of 1e-4
 DPT_BWD_TOL = 1e-5
+# B6 against its twin at its own rounding points: summation order only
+# (~4.5e-5 in bf16 at the paper widths, emulated on the CPU; 3.6e-3 with
+# g2 folded into W_out)
+TP_ORDER_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
          "dg1", "db1", "dg2", "db2")
 CASES = [
@@ -864,11 +868,11 @@ def test_dpt_bwd_kernels_are_deterministic_and_check_shapes(cuda):
         x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.bfloat16, kind, 7, True)
         a, b = fused(x, g, *w, **kw), fused(x, g, *w, **kw)
         assert all(torch.equal(u, v) for u, v in zip(a, b)), kind
-    # f32 with a head width of 64 at S = 256: the four [S, d] tiles alone
-    # exceed a block's shared memory (any S up to 256 fits otherwise)
+    # a chunk longer than 256 frames (every S <= 256 runs, its tiles
+    # spilling to the workspace where shared memory cannot hold them)
     x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
-                                   S=256, heads=2)
-    with pytest.raises(ValueError, match="does not fit"):
+                                   S=272, heads=2)
+    with pytest.raises(ValueError, match="at most 256"):
         dpt_intra.fused_intra_attention_bwd(x, g, *w, **kw)
     x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "inter", 3, True)
     with pytest.raises(ValueError, match="shape"):
@@ -918,16 +922,11 @@ def test_dpt_intra_bwd_long_chunk(cuda, dtype, heads):
     """The intra backward at S = 256, as a ``--dpt-chunk 256`` model trains
     it: its [S, S] tiles no longer fit in shared memory beside the rest and
     go to the device workspace; every cotangent at the DPT bars. Head
-    widths 32 and 64 (bf16 at 64 runs with fewer warps per block)."""
+    widths 32 and 64 (bf16 at 64 runs with fewer warps per block; f32 at
+    64 spills its four [S, d] tiles too)."""
     fused, twin = DPT_BWD_FNS["intra"]
     x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, "intra", 2, True, S=256,
                                        heads=heads)
-    if dtype == torch.float32 and heads == 2:
-        # f32 with a head width of 64: the four [S, d] tiles alone exceed
-        # a block's shared memory
-        with pytest.raises(ValueError, match="does not fit"):
-            fused(x, g, *w, **kw)
-        return
     got = fused(x, g, *w, **kw)
     torch.cuda.synchronize()
     exact = twin(x.float(), g.float(), *w, **kw)
@@ -979,3 +978,152 @@ def test_dpt_kernels_on_low_variance_rows(cuda, kind):
     B = args[0].shape[-1]
     err = _rel_l2(_valid_rows(got, valid, B), _valid_rows(want, valid, B))
     assert err <= DPT_TOL[torch.float32], err
+
+
+@pytest.mark.parametrize("S", [192, 240, 256])
+def test_dpt_intra_f32_head_width_64_long_chunks(cuda, S):
+    """The intra forward (B9) and backward (B10) in f32 with a head width
+    of 64 at chunks whose [S, d] tiles do not fit in shared memory (B9
+    above S = 176, B10 above 208): the tiles go to the device workspace,
+    and both kernels hold the exact twin at the DPT f32 bar of 1e-5."""
+    fused, twin = DPT_FNS["intra"]
+    args, kw, valid = _dpt_args(cuda, torch.float32, "intra", 2, True, S=S,
+                                heads=2, seed=3)
+    with torch.inference_mode():
+        got, want = fused(*args, **kw), twin(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert _rel_l2(_valid_rows(got, valid, 128),
+                   _valid_rows(want, valid, 128)) <= DPT_TOL[torch.float32]
+    fused_b, twin_b = DPT_BWD_FNS["intra"]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
+                                       S=S, heads=2, seed=4)
+    got = fused_b(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    exact = twin_b(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, exact, valid, torch.float32)
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, fused_b(x, g, *w, **kw)))
+
+
+# --------------------------------------------------------------------------
+# Kernel B6: stage 2 of a TCN block under tensor parallelism
+# --------------------------------------------------------------------------
+
+def _tp2_args(device, dtype, Hs, seed=0, M=8, K=3199, B=256, P=3):
+    """Seeded stage-2 operands of one shard at the paper shape: h as
+    stage 1 leaves it (PReLU output), the whole width's gLN-1 statistics
+    of a mean ~0.3, rs ~1.2, f32 weights as the model keeps them."""
+    g = torch.Generator(device=device).manual_seed(100 + seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    h = torch.nn.functional.leaky_relu(rn(M, K, Hs), 0.25).to(dtype)
+    stats1 = torch.stack([0.3 + 0.05 * rn(M), 1.2 + 0.1 * rn(M)], dim=-1)
+    return (h, stats1, rn(P, Hs) * (2.0 / (P + Hs * P)) ** 0.5,
+            rn(Hs, B) * (2.0 / (2 * Hs)) ** 0.5, torch.tensor(0.25,
+                                                            device=device),
+            1.0 + 0.1 * rn(Hs), 0.1 * rn(Hs), 1.0 + 0.1 * rn(Hs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hs", [256, 128])
+@pytest.mark.parametrize("dilation", [1, 16, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tp_stage2_kernel_matches_twin(cuda, dtype, Hs, dilation, causal):
+    """B6 at [8, 3199, Hs] (Hs 256 for two shards of H = 512, 128 for
+    four): z and the gLN-2 sums against the twin at the forward bars, and
+    against the twin at B6's own rounding points (``rounding="pallas"``)
+    within TP_ORDER_TOL, where a kernel that rounds y g2 otherwise (g2
+    folded into W_out reads ~3.6e-3 in bf16) fails."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    args = _tp2_args(cuda, dtype, Hs, seed=dilation)
+    kw = dict(dilation=dilation, causal=causal)
+    before = tp.fused_tp_stage2.launches
+    with torch.inference_mode():
+        z, sums = tp.fused_tp_stage2(*args, **kw)
+        torch.cuda.synchronize()
+        z_want, s_want = tp.tp_stage2_reference(*args, **kw)
+    assert tp.fused_tp_stage2.launches == before + 1
+    assert z.dtype == dtype and z.shape == z_want.shape
+    assert sums.dtype == torch.float32 and sums.shape == (8, 2)
+    assert torch.isfinite(z).all() and torch.isfinite(sums).all()
+    assert _rel_l2(z, z_want) <= TOL[dtype], _rel_l2(z, z_want)
+    assert _rel_l2(sums, s_want) <= TOL[dtype], _rel_l2(sums, s_want)
+    with torch.inference_mode():
+        z_ord, s_ord = tp.tp_stage2_reference(*args, **kw, rounding="pallas")
+    assert _rel_l2(z, z_ord) <= TP_ORDER_TOL[dtype], _rel_l2(z, z_ord)
+    assert _rel_l2(sums, s_ord) <= TP_ORDER_TOL[dtype], _rel_l2(sums, s_ord)
+
+
+def test_tp_stage2_kernel_is_deterministic_and_refuses(cuda):
+    """Two calls give the same bits; a shard width off the 64-column tile,
+    more than 16 taps and a norm other than gLN are refused."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    args = _tp2_args(cuda, torch.bfloat16, 128, seed=5, M=2, K=700)
+    kw = dict(dilation=4, causal=False)
+    with torch.inference_mode():
+        a, b = tp.fused_tp_stage2(*args, **kw), tp.fused_tp_stage2(*args, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        narrow = _tp2_args(cuda, torch.bfloat16, 96, M=2, K=700)
+        with pytest.raises(ValueError, match="multiples of 64"):
+            tp.fused_tp_stage2(*narrow, **kw)
+        taps = _tp2_args(cuda, torch.bfloat16, 128, M=2, K=700, P=17)
+        with pytest.raises(ValueError, match="P=17"):
+            tp.fused_tp_stage2(*taps, dilation=1, causal=True)
+        with pytest.raises(ValueError, match="gLN only"):
+            tp.fused_tp_stage2(*args, **kw, norm_type="cLN")
+
+
+def _tp_launches(before=None):
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    now = {**_tcn_launches(), "b6": tp.fused_tp_stage2.launches}
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+@pytest.mark.parametrize("pairs", [False, True])
+def test_tp_forward_launches_b6_only(cuda, n_model, pairs):
+    """``tp_forward`` of the paper config (gLN, 32 blocks) over m shards on
+    the card: 32 m launches of B6 and none of B1 or B4 in either pair
+    switch state, within the forward bars of the unsharded kernel path in
+    bf16 and f32; a TP train step launches B6 32 m times too."""
+    from convtasnet_tpu_torch import SolverConfig
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import (
+        make_tcn_tp_train_step,
+        tp_forward,
+    )
+    from convtasnet_tpu_torch.train.train_step import create_train_state
+
+    devices = shard_devices(n_model, cuda)
+    assert devices == [torch.device("cuda", s % torch.cuda.device_count())
+                       for s in range(n_model)]
+    mix = torch.randn(2, 16000, generator=torch.Generator().manual_seed(
+        n_model)).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = ConvTasNetConfig(compute_dtype=str(dtype).split(".")[-1])
+        model = ConvTasNet(cfg, device=cuda).eval()
+        with torch.inference_mode(), _pair_switch(pairs):
+            want = model(mix)
+            before = _tp_launches()
+            got = tp_forward(cfg, model.state_dict(), mix, devices)
+            torch.cuda.synchronize()
+            assert _tp_launches(before) == {"b1": 0, "b2": 0, "b4": 0,
+                                            "b5": 0, "b6": 32 * n_model}
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        assert _rel_l2(got, want) <= TOL[dtype], _rel_l2(got, want)
+    state = create_train_state(cfg, SolverConfig(), device=cuda)
+    step = make_tcn_tp_train_step(cfg, devices)
+    batch = (mix, torch.full((2,), 16000, device=cuda),
+             torch.randn(2, 2, 16000, device=cuda), torch.ones(2, device=cuda))
+    before = _tp_launches()
+    with _pair_switch(pairs):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert _tp_launches(before) == {"b1": 0, "b2": 0, "b4": 0, "b5": 0,
+                                    "b6": 32 * n_model}
+    assert np.isfinite(float(metrics["loss"]))

@@ -29,6 +29,9 @@ def test_port_imports_with_jax_blocked():
         "import convtasnet_tpu_torch.ops.cuda.tcn_block_bwd\n"
         "import convtasnet_tpu_torch.ops.cuda.tcn_block_pair\n"
         "import convtasnet_tpu_torch.ops.cuda.tcn_block_pair_bwd\n"
+        "import convtasnet_tpu_torch.ops.cuda.tcn_block_tp\n"
+        "import convtasnet_tpu_torch.parallel.mesh\n"
+        "import convtasnet_tpu_torch.parallel.tensor_parallel\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_attention\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_intra\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_ffn\n"

@@ -97,11 +97,25 @@ def test_package_roundtrip_and_formats(slice_dirs, tmp_path):
 
 
 def test_separate_refuses_what_is_not_ported(slice_dirs, tmp_path):
+    """Sequence parallelism (ROADMAP A8d) and tensor parallelism of a
+    dual-path package (A8b) raise; a TCN package serves tensor-parallel
+    (tests/test_torch_tp.py)."""
+    from convtasnet_tpu_torch.config import ConvTasNetConfig as PortConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
+
     kw = dict(mix_dir=slice_dirs["mix_dir"], device="cpu")
     out = str(tmp_path / "out")
-    for flag in (dict(sequence_parallel=True), dict(tensor_parallel=2)):
-        with pytest.raises(NotImplementedError):
-            separate(slice_dirs["pkg"], out, **kw, **flag)
+    dpt_cfg = PortConfig(separator="dpt", n_filters=16, kernel_size=8,
+                         bottleneck=64, dpt_chunk=16, dpt_layers=1,
+                         dpt_heads=2, dpt_ff=128)
+    dpt_pkg = str(tmp_path / "dpt.pt")
+    save_inference_package(dpt_pkg, dpt_cfg, init_params(
+        dpt_cfg, torch.Generator().manual_seed(0)))
+    for pkg, flag, item in (
+            (slice_dirs["pkg"], dict(sequence_parallel=True), "ROADMAP A8d"),
+            (dpt_pkg, dict(tensor_parallel=2), "ROADMAP A8b")):
+        with pytest.raises(NotImplementedError, match=item):
+            separate(pkg, out, **kw, **flag)
     with pytest.raises(ValueError, match="CUDA"):
         separate(slice_dirs["pkg"], out, use_pallas=True, **kw)
 

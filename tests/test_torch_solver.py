@@ -205,15 +205,18 @@ def test_cli_train_then_separate(tmp_path):
 @pytest.mark.parametrize("flags,error,item", [
     (["--norm-type", "cLN", "--causal", "1", "--use-pallas", "1"],
      ValueError, "CUDA tensors"),
-    (["--n-data", "2"], NotImplementedError, "ROADMAP A8"),
-    (["--n-model", "2"], NotImplementedError, "ROADMAP A8"),
+    (["--n-data", "2"], NotImplementedError, "ROADMAP A8c"),
+    (["--separator", "dpt", "--n-model", "2"], NotImplementedError,
+     "ROADMAP A8b"),
 ])
 def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, error, item,
                                               monkeypatch):
-    """The mesh flags are refused before any data is read; a causal cLN
-    model with the kernels insisted on trains through them, and on CPU
-    tensors it is refused at the first step for want of CUDA tensors (no
-    fallback to the plain ops)."""
+    """Data parallelism is refused before any data is read, and tensor
+    parallelism of the dual-path separator before its model is built (the
+    TCN's trains, tests/test_torch_tp.py); a causal cLN model with the
+    kernels insisted on trains through them, and on CPU tensors it is
+    refused at the first step for want of CUDA tensors (no fallback to the
+    plain ops)."""
     from convtasnet_tpu_torch import cli
 
     monkeypatch.setenv("CONVTASNET_SEGMENT_CACHE", str(tmp_path / "cache"))
