@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's TCN (gLN and causal cLN, blocks singly and as
-block pairs, and gLN tensor-parallel) and dual-path (DPT) serving and
-training paths and its streaming separator on one NVIDIA GPU, and check
-them.
+block pairs, and gLN tensor-parallel) and dual-path (DPT, also
+tensor-parallel) serving and training paths and its streaming separator
+on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -46,7 +46,14 @@ Phases, each raising on failure (so the script exits nonzero):
    max(4e-2, 1.25x the bf16 twin's own distance); the intra forward and
    backward in f32 with a head width of 64 at S = 256, their [S, d]
    tiles in the device workspace, against the exact twin within 1e-5;
-   then kernel B6 (stage 2 of a TCN block under tensor parallelism)
+   the partial kernels B7p-B12p (one shard's head group or hidden slice,
+   the projection alone; ``partial=True``) at the quality default's shard
+   widths, m = 2 (Bq 128, 4 heads, F/m 512) and m = 4 (Bq 64, 2 heads,
+   256), at [8, 25, 128, 256], bf16 and f32, against their partial twins
+   at the DPT bars, and the Megatron identity in f32 (the shards' partials
+   summed plus the residual, plus b_down, against the full kernel, and
+   the backwards' dx, dgamma and dbeta summed against the full backward)
+   within 1e-5; then kernel B6 (stage 2 of a TCN block under tensor parallelism)
    against its twin at [8, 3199, Hs], Hs = 256 and 128 (two and four
    shards of H = 512), every dilation, gLN non-causal and causal, bf16 and
    f32: z and the gLN-2 sums within the forward bars, twice to the same
@@ -79,13 +86,20 @@ Phases, each raising on failure (so the script exits nonzero):
    the same corpus (B6 64 times per step and per cv batch, no other TCN
    kernel; its placement line printed) and its package served through
    ``cli separate --tensor-parallel 2`` (64 B6 per batch) within the bf16
-   bar of the unsharded ``cli separate``;
+   bar of the unsharded ``cli separate``; the same for the DPT quality
+   default, ``cli train --separator dpt --n-model 2`` (the partial kernels
+   2 x (4, 4, 8) times per step forward and backward, per cv batch
+   forward, no full-mode launch) and ``cli separate --tensor-parallel 2``;
 8. the DPT serving path: the quality-default forward in bf16 at
    B=8 x 4 s, kernel path against plain path within 4e-2, 4 inter, 4
    intra and 8 FFN launches per forward; then ``cli separate`` and
    ``cli evaluate`` on a DPT inference package over 8 seeded utterances
    with sources: the kernels launched per batch, the wavs finite, SI-SNRi
-   finite and the kernel path within 0.05 dB of the plain path; then
+   finite and the kernel path within 0.05 dB of the plain path;
+   ``tp_forward`` of the quality default (biases and norm affines moved
+   off their init) over two and four shards, bf16 and f32: m x (4, 4, 8)
+   partial launches and no full-mode one, within 4e-2 / 1e-5 of the
+   unsharded kernel path; then
    ``cli train --separator dpt`` at the quality default, bf16,
    ``--use-pallas 1``, on phase 7's corpus (4 steps at batch 8 and a cv
    pass): every loss finite, per step 4 / 4 / 8 launches of the inter,
@@ -110,8 +124,9 @@ Phases, each raising on failure (so the script exits nonzero):
    f32 gradient than max(8e-2, 1.25x the plain bf16 path's); the gLN
    kernel path with pairs on and off (the same gradient bits) and the
    tensor-parallel step over two shards (64 B6 launches), each kernel's
-   launches exact; and one bf16 DPT step with 256-frame chunks, the intra
-   backward at S = 256;
+   launches exact; the DPT's tensor-parallel step over two shards (the
+   partial kernels 2 x (4, 4, 8) times forward and backward); and one
+   bf16 DPT step with 256-frame chunks, the intra backward at S = 256;
 11. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
    B=8 and B=24 x 4 s and the bf16 train step (forward + backward +
    optimizer) at B=8 x 4 s, kernel path with pairs on and off and plain
@@ -125,9 +140,12 @@ Phases, each raising on failure (so the script exits nonzero):
    plain path (the steps with each path's peak memory); B6 against its
    twin per shard width (Hs 256 and 128), and the bf16 forward over two
    and four shards and the train step over two against the unsharded
-   kernel path, with peak memory; each kernel's bound (the larger of its
-   operations at the bf16 tensor-core peak and its bytes at the HBM
-   rate).
+   kernel path, with peak memory; each partial kernel, forward and
+   backward, against its twin on one shard of m = 2 and 4, and the DPT
+   forward over two and four shards and its train step over two against
+   the unsharded kernel path, with peak memory; each kernel's bound (the
+   larger of its operations at the bf16 tensor-core peak and its bytes at
+   the HBM rate).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits 1
@@ -1000,7 +1018,10 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
     kernel path launches each sublayer's backward kernel. The gLN model's
     kernel paths also include the tensor-parallel step over two shards on
     cuda:0 (``tp_loss_and_grads``: 64 B6 launches, no other TCN kernel),
-    held the same way. Every reading is printed before the phase fails."""
+    and the DPT's its tensor-parallel step over two shards (the partial
+    kernels, 2 x (4, 4, 8) forward and backward launches, no full-mode
+    one), held the same way. Every reading is printed before the phase
+    fails."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import init_params
     from convtasnet_tpu_torch.parallel.mesh import shard_devices
@@ -1012,14 +1033,17 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
     from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
 
     # the launch counters of the backward kernels of a DPT model; a TCN
-    # kernel path is held to its exact counts per step
+    # kernel path, and the DPT's tensor-parallel one, are held to their
+    # exact counts per step
     counters = [(f, "launches") for f in (
         dpt_attention.fused_inter_attention_bwd,
         dpt_intra.fused_intra_attention_bwd, dpt_ffn.fused_ffn_bwd)]
+    dpt = {"inter": dpt_attention, "intra": dpt_intra, "ffn": dpt_ffn}
     mods = tcn_modules()
     # name -> (pairs, launches, tensor-parallel shards)
     if separator == "dpt":
-        kernel_paths = {"kernel": (True, None, 1)}
+        kernel_paths = {"kernel": (True, None, 1),
+                        "kernel, TP m=2": (True, None, 2)}
     elif norm == "cLN":   # a cLN pair trains as two blocks, as in JAX
         kernel_paths = {"kernel": (True, tcn_want(b1=32, b3=32), 1)}
     else:
@@ -1051,6 +1075,8 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
                 state = ts.create_train_state(cfg, SolverConfig(),
                                               device="cuda", use_pallas=flag,
                                               state_dict=sd)
+                if separator == "dpt":
+                    reset_dpt_all(dpt)
                 before = [getattr(f, a) for f, a in counters]
                 tcn_reset(mods)
                 with pair_switch(pairs):
@@ -1060,11 +1086,17 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
                         if m > 1 else
                         ts._loss_and_grads(state.model, b, chunk))
                 torch.cuda.synchronize()
-                if flag and separator == "dpt" and not all(
+                if flag and separator == "dpt" and m == 1 and not all(
                         getattr(f, a) > c for (f, a), c
                         in zip(counters, before)):
                     failures.append(f"{label} {dtype} kernel path "
                                     "launched no backward kernel")
+                if flag and separator == "dpt" and m > 1:
+                    want = dpt_partial_want(m, cfg.dpt_layers, 1, 1)
+                    if dpt_partial_counts(dpt) != want:
+                        failures.append(f"{label} {dtype} {path} launched "
+                                        f"{dpt_partial_counts(dpt)}, "
+                                        f"expected {want}")
                 if flag and separator == "tcn":
                     want = kernel_paths[path][1]
                     if tcn_counts(mods) != want:
@@ -1374,51 +1406,65 @@ def phase_dpt_bwd_vs_twin(torch, dpt):
                 same = twin(x, g, *w, **kw) if dtype == torch.bfloat16 \
                     else exact
                 torch.cuda.synchronize()
-                rows = valid.reshape(-1)
-
-                def pick(t, i):
-                    return t.reshape(8, -1, DPT_B)[:, rows] if i == 0 else t
-
-                errs, twin_errs, same_errs = {}, {}, {}
-                for i, gname in enumerate(names):
-                    q, e, t = (pick(v[i], i) for v in (got, exact, same))
-                    if not (q.shape == t.shape and q.dtype == t.dtype):
-                        failures.append(f"{kind} {gname}: {q.shape} {q.dtype}"
-                                        f" vs {t.shape} {t.dtype}")
-                        continue
-                    if not torch.isfinite(q).all().item():
-                        failures.append(f"{kind} n={n} {name}: non-finite "
-                                        f"{gname}")
-                    errs[gname] = rel_l2(q, e)
-                    twin_errs[gname] = rel_l2(t, e)
-                    same_errs[gname] = rel_l2(q, t)
-                    worst[kind] = max(worst[kind], (q.float() - t.float())
-                                      .abs().max().item())
-                top = max(errs, key=errs.get)
-                line = (f"dpt {kind} bwd kernel vs twin [8,{n},{S},"
-                        f"{DPT_B}] K={K} {name}: vs exact max {errs[top]:.3e}"
-                        f" ({top}), dx {errs['dx']:.3e}")
-                if dtype == torch.float32:
-                    print(f"{line} (bar {DPT_BWD_TOL_F32:.0e})", flush=True)
-                    if errs[top] > DPT_BWD_TOL_F32:
-                        failures.append(f"{kind} n={n} f32: {errs[top]:.3e} "
-                                        f"({top})")
-                    continue
-                bad = [gname for gname in errs
-                       if same_errs[gname] > DPT_TOL[name]
-                       or errs[gname] > max(DPT_TOL[name],
-                                            1.25 * twin_errs[gname])]
-                top_s = max(same_errs, key=same_errs.get)
-                top_t = max(twin_errs, key=twin_errs.get)
-                print(f"{line}; vs the bf16 twin max {same_errs[top_s]:.3e} "
-                      f"({top_s}); bf16 twin vs exact max "
-                      f"{twin_errs[top_t]:.3e} ({top_t})", flush=True)
-                if bad:
-                    failures.append(f"{kind} n={n} bf16: " + ", ".join(
-                        f"{b} {errs[b]:.3e} (twin {twin_errs[b]:.3e}, vs "
-                        f"twin {same_errs[b]:.3e})" for b in bad))
+                head = (f"dpt {kind} bwd kernel vs twin [8,{n},{S},"
+                        f"{DPT_B}] K={K} {name}")
+                worst[kind] = max(worst[kind], compare_cotangents(
+                    torch, head, names, got, exact, same, valid, dtype,
+                    failures))
     check(not failures, "DPT backward kernels disagree with their twins: "
           + "; ".join(failures))
+    return worst
+
+
+def compare_cotangents(torch, head: str, names, got, exact, same, valid,
+                       dtype, failures: list) -> float:
+    """A DPT backward kernel's cotangents ``got`` against its twin's exact
+    f32 ones and its twin's in the same dtype (``same``), dx on the valid
+    rows: in f32 within DPT_BWD_TOL_F32 of exact; in bf16 within 4e-2 of
+    the bf16 twin and no further from exact than max(4e-2, 1.25x the bf16
+    twin's own distance). Prints one line headed ``head``, appends what
+    fails to ``failures`` and returns the largest absolute difference from
+    the twin in the same dtype."""
+    name = str(dtype).split(".")[-1]
+    rows = valid.reshape(-1)
+
+    def pick(t, i):
+        return t.reshape(t.shape[0], -1, DPT_B)[:, rows] if i == 0 else t
+
+    errs, twin_errs, same_errs = {}, {}, {}
+    worst = 0.0
+    for i, gname in enumerate(names):
+        q, e, t = (pick(v[i], i) for v in (got, exact, same))
+        if not (q.shape == t.shape and q.dtype == t.dtype):
+            failures.append(f"{head} {gname}: {q.shape} {q.dtype} vs "
+                            f"{t.shape} {t.dtype}")
+            continue
+        if not torch.isfinite(q).all().item():
+            failures.append(f"{head}: non-finite {gname}")
+        errs[gname] = rel_l2(q, e)
+        twin_errs[gname] = rel_l2(t, e)
+        same_errs[gname] = rel_l2(q, t)
+        worst = max(worst, (q.float() - t.float()).abs().max().item())
+    top = max(errs, key=errs.get)
+    line = (f"{head}: vs exact max {errs[top]:.3e} ({top}), dx "
+            f"{errs['dx']:.3e}")
+    if dtype == torch.float32:
+        print(f"{line} (bar {DPT_BWD_TOL_F32:.0e})", flush=True)
+        if errs[top] > DPT_BWD_TOL_F32:
+            failures.append(f"{head}: {errs[top]:.3e} ({top})")
+        return worst
+    bad = [gname for gname in errs
+           if same_errs[gname] > DPT_TOL[name]
+           or errs[gname] > max(DPT_TOL[name], 1.25 * twin_errs[gname])]
+    top_s = max(same_errs, key=same_errs.get)
+    top_t = max(twin_errs, key=twin_errs.get)
+    print(f"{line}; vs the bf16 twin max {same_errs[top_s]:.3e} ({top_s}); "
+          f"bf16 twin vs exact max {twin_errs[top_t]:.3e} ({top_t})",
+          flush=True)
+    if bad:
+        failures.append(f"{head}: " + ", ".join(
+            f"{b} {errs[b]:.3e} (twin {twin_errs[b]:.3e}, vs twin "
+            f"{same_errs[b]:.3e})" for b in bad))
     return worst
 
 
@@ -1428,11 +1474,6 @@ def dpt_config(dtype: str = "bfloat16"):
     from convtasnet_tpu_torch import ConvTasNetConfig
 
     return ConvTasNetConfig(separator="dpt", compute_dtype=dtype)
-
-
-def reset_dpt(dpt):
-    for kind in DPT_KINDS:
-        dpt_fns(dpt, kind)[0].launches = 0
 
 
 def dpt_launches(dpt):
@@ -1453,7 +1494,7 @@ def phase_dpt_forward(torch, dpt):
     for path, flag in (("kernel", None), ("plain", False)):
         model = ConvTasNet(cfg, use_pallas=flag, device="cuda",
                            generator=torch.Generator().manual_seed(0)).eval()
-        reset_dpt(dpt)
+        reset_dpt_all(dpt)
         with torch.inference_mode():
             outs[path] = model(mix)
         torch.cuda.synchronize()
@@ -1495,9 +1536,7 @@ def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     n_cv = 2
     out = os.path.join(work, "exp_dpt")
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
-    reset_dpt(dpt)
-    for kind in DPT_KINDS:
-        dpt_bwd_fns(dpt, kind)[0].launches = 0
+    reset_dpt_all(dpt)
     t0 = time.perf_counter()
     rc = cli.main([
         "train", "--train-dir", os.path.join(json_dir, "tr"),
@@ -1531,7 +1570,7 @@ def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     check(os.path.exists(pkg), "no best-model package written")
     sep_dir = os.path.join(work, "sep_trained_dpt")
     mix_dir = os.path.join(data, "cv", "mix")
-    reset_dpt(dpt)
+    reset_dpt_all(dpt)
     n = separate(pkg, sep_dir, mix_dir=mix_dir, batch_size=n_cv,
                  device="cuda")
     os.environ.pop("CONVTASNET_SEGMENT_CACHE")
@@ -1870,7 +1909,7 @@ def phase_dpt_serving(torch, dpt, work: str):
                     json_dir]) == 0, "preprocess failed")
     mix_dir = os.path.join(data, "tt", "mix")
     out_dir = os.path.join(work, "dpt_sep")
-    reset_dpt(dpt)
+    reset_dpt_all(dpt)
     check(cli.main(["separate", "--model-path", pkg, "--mix-dir", mix_dir,
                     "--out-dir", out_dir, "--batch-size", str(batch)]) == 0,
           "cli separate failed")
@@ -1886,7 +1925,7 @@ def phase_dpt_serving(torch, dpt, work: str):
 
     results = {}
     for path, flag in (("kernel", "-1"), ("plain", "0")):
-        reset_dpt(dpt)
+        reset_dpt_all(dpt)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["evaluate", "--model-path", pkg, "--data-dir",
@@ -1907,6 +1946,311 @@ def phase_dpt_serving(torch, dpt, work: str):
     return sep_counts
 
 
+# dual-path tensor parallelism at the quality default: its 8 heads and FFN
+# width 1024 over m shards, so the partial kernels run at Bq = 256 / m with
+# 8 / m heads and F/m = 1024 / m (m = 2: 128, 4 heads, 512; m = 4: 64, 2
+# heads, 256)
+DPT_TP_SHARDS = (2, 4)
+
+
+def dpt_shard(torch, args, kind: str, m: int, s: int):
+    """Shard s of m of a full sublayer's operands, cut as
+    ``parallel/dpt_tp.dpt_tp_variables`` cuts the weights: the q, k and v
+    columns of head group s and those rows of W_out; the FFN's hidden
+    slice s (W_up's columns with b_up, W_down's rows)."""
+    if kind == "ffn":
+        x, g_, b_, w_up, b_up, w_down, b_down = args
+        fq = w_up.shape[1] // m
+        cut = slice(s * fq, (s + 1) * fq)
+        return (x, g_, b_, w_up[:, cut].contiguous(), b_up[cut].contiguous(),
+                w_down[cut].contiguous(), b_down)
+    x, g_, b_, w_qkv, w_out, bias = args
+    B = x.shape[-1]
+    bq = B // m
+    cut = slice(s * bq, (s + 1) * bq)
+    q, k, v = w_qkv.split(B, dim=1)
+    return (x, g_, b_, torch.cat([q[:, cut], k[:, cut], v[:, cut]], dim=1),
+            w_out[cut].contiguous(), bias)
+
+
+def dpt_partial_kw(kind: str, m: int) -> dict:
+    return dict(partial=True, **({} if kind == "ffn"
+                                 else {"n_heads": DPT_HEADS // m}))
+
+
+def reset_dpt_all(dpt):
+    """Every DPT kernel's counts, full and partial, forward and backward,
+    to 0."""
+    for kind in DPT_KINDS:
+        for fn in (dpt_fns(dpt, kind)[0], dpt_bwd_fns(dpt, kind)[0]):
+            fn.launches = fn.partial_launches = 0
+
+
+def dpt_partial_counts(dpt) -> dict:
+    """The partial kernels' launches by name, and every full-mode launch of
+    the DPT kernels summed (``full``)."""
+    out = {}
+    full = 0
+    for kind in DPT_KINDS:
+        for sfx, fn in (("", dpt_fns(dpt, kind)[0]),
+                        ("_bwd", dpt_bwd_fns(dpt, kind)[0])):
+            out[kind + sfx] = fn.partial_launches
+            full += fn.launches
+    out["full"] = full
+    return out
+
+
+def dpt_partial_want(m: int, layers: int, fwd: int, bwd: int) -> dict:
+    """Expected partial launches over m shards of ``layers`` layers: ``fwd``
+    forwards and ``bwd`` backwards, each with m launches per attention
+    sublayer of a kind and 2m per FFN; no full-mode launch."""
+    per = {"inter": layers, "intra": layers, "ffn": 2 * layers}
+    return {**{k: m * v * fwd for k, v in per.items()},
+            **{f"{k}_bwd": m * v * bwd for k, v in per.items()}, "full": 0}
+
+
+def phase_dpt_partial_vs_twin(torch, dpt):
+    """The partial kernels B7p-B12p (``partial=True``: one shard's head
+    group or hidden slice, the projection alone) against their partial
+    twins at [8, 25, 128, 256] with the real key mask, on the last shard of
+    m = 2 and 4, bf16 and f32, at the DPT bars (forward 4e-2 / 1e-5 on the
+    valid rows; backward as ``compare_cotangents``, the FFN's db_down all
+    zero); then the Megatron identity in f32: the m shards' partials
+    summed plus the residual (plus b_down) against the full kernel, and
+    their backwards' dx summed plus g, dgamma and dbeta summed, against
+    the full backward, within 1e-5. Every case is printed before the phase
+    fails; returns the worst max_abs_err per partial kernel."""
+    worst = {f"{k}{sfx}": 0.0 for k in DPT_KINDS for sfx in ("", "_bwd")}
+    failures = []
+    t0 = time.perf_counter()
+    for m in DPT_TP_SHARDS:
+        for kind in DPT_KINDS:
+            fused, twin = dpt_fns(dpt, kind)
+            fused_b, twin_b = dpt_bwd_fns(dpt, kind)
+            kwp = dpt_partial_kw(kind, m)
+            names = DPT_GRAD_NAMES[kind]
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[-1]
+                args, _, valid = dpt_inputs(torch, kind, dtype, 25, 3199,
+                                            seed=6000 + m)
+                sh = dpt_shard(torch, args, kind, m, m - 1)
+                with torch.inference_mode():
+                    got = fused(*sh, **kwp)
+                    torch.cuda.synchronize()
+                    want = twin(*sh, **kwp)
+                rows = valid.reshape(-1)
+                got_v = got.reshape(8, -1, DPT_B)[:, rows]
+                want_v = want.reshape(8, -1, DPT_B)[:, rows]
+                err = rel_l2(got_v, want_v)
+                worst[kind] = max(worst[kind], (got_v.float() - want_v.float())
+                                  .abs().max().item())
+                finite = torch.isfinite(got_v).all().item()
+                print(f"dpt {kind} partial kernel vs twin, shard {m - 1} of "
+                      f"{m} [8,25,{DPT_S},{DPT_B}] {name}: rel_l2 {err:.3e} "
+                      f"(bar {DPT_TOL[name]:.0e})", flush=True)
+                if not finite or not err <= DPT_TOL[name]:
+                    failures.append(f"{kind} m={m} {name}: {err:.3e}")
+                x, g, w, _, valid = dpt_bwd_inputs(torch, kind, dtype, 25,
+                                                   3199, seed=6100 + m)
+                x, *w = dpt_shard(torch, (x, *w), kind, m, m - 1)
+                got = fused_b(x, g, *w, **kwp)
+                torch.cuda.synchronize()
+                exact = twin_b(x.float(), g.float(), *w, **kwp)
+                same = twin_b(x, g, *w, **kwp) if dtype == torch.bfloat16 \
+                    else exact
+                n_g = len(names)
+                if kind == "ffn":   # db_down: zero, not a column sum
+                    if got[-1].any().item():
+                        failures.append(f"ffn m={m} {name}: db_down not 0")
+                    n_g -= 1
+                worst[kind + "_bwd"] = max(
+                    worst[kind + "_bwd"], compare_cotangents(
+                        torch, f"dpt {kind} partial bwd kernel vs twin, shard "
+                        f"{m - 1} of {m} [8,25,{DPT_S},{DPT_B}] {name}",
+                        names[:n_g], got[:n_g], exact[:n_g], same[:n_g],
+                        valid, dtype, failures))
+            # the Megatron identity, f32
+            args, kw, valid = dpt_inputs(torch, kind, torch.float32, 25,
+                                         3199, seed=6200 + m)
+            rows = valid.reshape(-1)
+            with torch.inference_mode():
+                full = fused(*args, **kw)
+                acc = args[0] + sum(fused(*dpt_shard(torch, args, kind, m, s),
+                                          **kwp) for s in range(m))
+            if kind == "ffn":
+                acc = acc + args[-1]
+            e_fwd = rel_l2(acc.reshape(8, -1, DPT_B)[:, rows],
+                           full.reshape(8, -1, DPT_B)[:, rows])
+            x, g, w, kw, valid = dpt_bwd_inputs(torch, kind, torch.float32,
+                                                25, 3199, seed=6300 + m)
+            full = fused_b(x, g, *w, **kw)
+            parts = [fused_b(x, g, *dpt_shard(torch, (x, *w), kind, m, s)[1:],
+                             **kwp) for s in range(m)]
+            dx = g + sum(p[0] for p in parts)
+            e_bwd = max([rel_l2(dx.reshape(8, -1, DPT_B)[:, rows],
+                                full[0].reshape(8, -1, DPT_B)[:, rows])]
+                        + [rel_l2(sum(p[i] for p in parts), full[i])
+                           for i in (1, 2)])
+            print(f"dpt {kind} Megatron identity over {m} shards f32: the "
+                  f"partials summed + residual vs the full kernel rel_l2 "
+                  f"{e_fwd:.3e}; dx, dgamma, dbeta summed vs the full "
+                  f"backward max {e_bwd:.3e} (bar {DPT_TOL['float32']:.0e})",
+                  flush=True)
+            if not (e_fwd <= DPT_TOL["float32"] and e_bwd <= DPT_BWD_TOL_F32):
+                failures.append(f"{kind} m={m} identity: forward {e_fwd:.3e}"
+                                f", backward {e_bwd:.3e}")
+    print(f"dpt partial kernels vs twins: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(not failures, "DPT partial kernels disagree: " + "; ".join(failures))
+    return worst
+
+
+def randomize_affines(torch, model) -> None:
+    """Moves every bias and norm affine of ``model`` off its init (biases
+    0, gamma 1, beta 0) by 0.1 x a seeded normal."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("bias", "gamma", "beta")):
+                p.add_(0.1 * torch.randn(p.shape, generator=g, device="cuda"))
+
+
+def phase_dpt_tp_forward(torch, dpt):
+    """``tp_forward`` of the DPT quality default (random weights from seed
+    0, with every bias and norm affine moved off its init by 0.1 x a
+    normal, so a down bias added once per shard shows) at B=8 x 4 s over
+    two and four shards on cuda:0, bf16 and f32, routed to
+    ``dpt_tp_forward``: per forward m x (4 B7p, 4 B9p, 8 B11p) and no
+    full-mode launch, finite, within 4e-2 (bf16) and 1e-5 (f32) of the
+    unsharded kernel path."""
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
+
+    t0 = time.perf_counter()
+    mix = torch.randn(8, SECONDS * SAMPLE_RATE, generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        cfg = dpt_config(dtype)
+        model = ConvTasNet(cfg, use_pallas=True, device="cuda",
+                           generator=torch.Generator().manual_seed(0)).eval()
+        randomize_affines(torch, model)
+        with torch.inference_mode():
+            want = model(mix)
+            sd = model.state_dict()
+            for m in DPT_TP_SHARDS:
+                devices = shard_devices(m, "cuda")
+                reset_dpt_all(dpt)
+                got = tp_forward(cfg, sd, mix, devices)
+                torch.cuda.synchronize()
+                counts = dpt_partial_counts(dpt)
+                err = rel_l2(got, want)
+                exp = dpt_partial_want(m, cfg.dpt_layers, 1, 0)
+                print(f"tp_forward DPT quality default B=8x{SECONDS}s {dtype} "
+                      f"over {m} shards on "
+                      f"{sorted({str(d) for d in devices})}: vs the unsharded "
+                      f"kernel path rel_l2 {err:.3e} (bar "
+                      f"{DPT_TOL[dtype]:.0e}); launches {counts}", flush=True)
+                check(counts == exp, f"dpt tp_forward {dtype} m={m} launched "
+                      f"{counts}, expected {exp}")
+                check(torch.isfinite(got).all().item()
+                      and got.shape == want.shape,
+                      f"dpt tp_forward {dtype} m={m}: bad output")
+                check(err <= DPT_TOL[dtype], f"dpt tp_forward {dtype} m={m}: "
+                      f"{err:.3e}")
+        del model
+    print(f"dpt tp_forward phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
+    """``cli train --separator dpt --n-model 2 --use-pallas 1`` at the DPT
+    quality default, bf16, on the corpus of ``make_corpus`` (one epoch of 4
+    steps at batch 8 and a cv pass): every loss finite, its placement line
+    printed, the partial kernels launched 2 x (4, 4, 8) times per step
+    (forward and backward) and per cv batch (forward), no full-mode launch;
+    then its package served through ``cli separate --tensor-parallel 2``
+    (2 x (4, 4, 8) partial forwards per batch) against the unsharded
+    ``cli separate`` (4, 4, 8 full-mode launches): finite wavs within the
+    bf16 forward bar. Returns the partial launch counts of the train run."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+
+    cfg = dpt_config()
+    n_cv, m = 2, 2
+    out = os.path.join(work, "exp_dpt_tp")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    buf = io.StringIO()
+    reset_dpt_all(dpt)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([
+            "train", "--train-dir", os.path.join(json_dir, "tr"),
+            "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
+            out, "--device", "cuda", "--separator", "dpt", "--compute-dtype",
+            "bfloat16", "--use-pallas", "1", "--n-model", str(m), "--epochs",
+            "1", "--batch-size", "8", "--print-freq", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dpt_partial_counts(dpt)
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    check(rc == 0, f"cli train --separator dpt --n-model {m} returned {rc}")
+    placement = buf.getvalue().splitlines()[0]
+    with open(os.path.join(out, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps = len(losses)
+    print(f"cli train --separator dpt --n-model {m} (quality default, bf16, "
+          f"--use-pallas 1; {placement}): {n_steps} steps, losses "
+          f"{[round(x, 4) for x in losses]}, cv loss "
+          f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
+          f"partial launches {counts}, {wall:.1f} s wall", flush=True)
+    check(placement.startswith(f"tensor parallel over {m} shards"),
+          f"no placement line: {placement!r}")
+    check(n_steps == 4, f"{n_steps} train steps, expected 4")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    want = dpt_partial_want(m, cfg.dpt_layers, n_steps + n_cv, n_steps)
+    check(counts == want, f"cli train --separator dpt --n-model {m} launched "
+          f"{counts}, expected {want}")
+
+    pkg = os.path.join(out, "final.ckpt")
+    check(os.path.exists(pkg), "no best-model package written")
+    mix_dir = os.path.join(data, "cv", "mix")
+    outs = {}
+    for label, flags in (("tensor-parallel", ["--tensor-parallel", str(m)]),
+                         ("unsharded", [])):
+        sep_dir = os.path.join(work, f"sep_dpt_tp_{label}")
+        reset_dpt_all(dpt)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["separate", "--model-path", pkg, "--mix-dir",
+                           mix_dir, "--out-dir", sep_dir, "--batch-size",
+                           str(n_cv), "--device", "cuda", *flags])
+        torch.cuda.synchronize()
+        sep = dpt_partial_counts(dpt)
+        want_sep = (dpt_partial_want(m, cfg.dpt_layers, 1, 0) if flags else
+                    {**dict.fromkeys(sep, 0), "full": 4 * cfg.dpt_layers})
+        check(rc == 0 and sep == want_sep, f"cli separate ({label}): rc {rc}"
+              f", launches {sep}, expected {want_sep}")
+        check_wavs(sep_dir, mix_dir)
+        outs[label] = np.concatenate([
+            read_wav(os.path.join(sep_dir, f))[0]
+            for f in sorted(os.listdir(sep_dir)) if "_s" in f])
+    err = rel_l2(torch.from_numpy(outs["tensor-parallel"]),
+                 torch.from_numpy(outs["unsharded"]))
+    print(f"cli separate --tensor-parallel {m} with the trained DPT package: "
+          f"partial launches {dpt_partial_want(m, cfg.dpt_layers, 1, 0)} (1 "
+          f"batch), wavs vs the unsharded cli separate rel_l2 {err:.3e} (bar "
+          f"{TOL['bfloat16']:.0e}); train and separate phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(err <= TOL["bfloat16"], f"tensor-parallel DPT separate disagrees: "
+          f"{err:.3e}")
+    return counts
+
 def kernel_bound(flops: float, nbytes: float):
     """(bound_ms, bound_by): the larger of the bf16 tensor-core time and the
     memory time at an H100 SXM's published peaks."""
@@ -1917,16 +2261,18 @@ def kernel_bound(flops: float, nbytes: float):
 
 def dpt_work(kind: str, args) -> tuple:
     """(flops, bytes) one DPT sublayer call needs on these inputs: every
-    product of the Pallas kernel's cost estimate; each input read once and
-    the output written once."""
+    product of the Pallas kernel's cost estimate, at the heads' width Bq
+    (B, or B / m for a partial kernel) and the FFN's hidden width; each
+    input read once and the output written once."""
     nbytes = sum(t.numel() * t.element_size() for t in args
                  if hasattr(t, "numel")) + args[0].numel() * args[0].element_size()
     if kind == "ffn":
         M, K, B = args[0].shape
         return 2 * M * K * B * args[3].shape[1] * 2, nbytes
     M, n, S, B = args[0].shape
+    Bq = args[3].shape[1] // 3
     mix = S * S if kind == "intra" else n * S
-    return 2 * M * n * S * B * 4 * B + 4 * M * n * mix * B, nbytes
+    return 2 * M * n * S * B * 4 * Bq + 4 * M * n * mix * Bq, nbytes
 
 
 def dpt_bwd_work(kind: str, tensors, grads) -> tuple:
@@ -1941,7 +2287,8 @@ def dpt_bwd_work(kind: str, tensors, grads) -> tuple:
     and dW_out = a^T g (B^2 each), dW_qkv = y^T dqkv and dy = dqkv W_qkv^T
     (3 B^2 each), 11 products of 2 R B^2; and in the core six of 2 R keys B
     (s = q k^T and a = p v recomputed, dp = dA v^T, dv = p^T dA, dq = ds k,
-    dk = ds^T q), with keys = S (intra) or n (inter) per query row."""
+    dk = ds^T q), with keys = S (intra) or n (inter) per query row. For a
+    partial kernel B^2 is B Bq and the core's B is Bq, and F is F/m."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*tensors, *grads) if t is not None)
     x = tensors[0]
@@ -1949,8 +2296,9 @@ def dpt_bwd_work(kind: str, tensors, grads) -> tuple:
     R = x.numel() // B
     if kind == "ffn":
         return 5 * 2 * R * B * tensors[4].shape[1], nbytes
+    Bq = tensors[4].shape[1] // 3
     keys = x.shape[2] if kind == "intra" else x.shape[1]
-    return 11 * 2 * R * B * B + 6 * 2 * R * keys * B, nbytes
+    return 11 * 2 * R * B * Bq + 6 * 2 * R * keys * Bq, nbytes
 
 
 def tcn_bwd_work(args, g, grads) -> tuple:
@@ -2388,6 +2736,99 @@ def phase_tp_timings(torch, k, card: str):
     return rows
 
 
+def phase_dpt_tp_timings(torch, dpt, card: str):
+    """Each partial kernel (B7p-B12p), forward and backward, at [8, 25, 128,
+    256] bf16 with the real mask on one shard of m = 2 and 4, and its twin,
+    in turns (twin, kernel, kernel, twin), with its bound; then the DPT
+    forward at B=8 x 4 s bf16 over two and four shards against the
+    unsharded kernel path, and the DPT train step over two shards against
+    the unsharded kernel step, in turns, with peak memory. Returns {m:
+    {name: (ms, plain_ms, bound_ms, bound_by)}} for the partial kernels."""
+    from convtasnet_tpu_torch import SolverConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.parallel.dpt_tp import make_dpt_tp_train_step
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    rows = {}
+    for m in DPT_TP_SHARDS:
+        rows[m] = {}
+        for kind in DPT_KINDS:
+            kwp = dpt_partial_kw(kind, m)
+            fused, twin = dpt_fns(dpt, kind)
+            args, _, _ = dpt_inputs(torch, kind, torch.bfloat16, 25, 3199,
+                                    seed=4000)
+            sh = dpt_shard(torch, args, kind, m, 0)
+            with torch.inference_mode():
+                t = time_turns(torch, {"plain": lambda: twin(*sh, **kwp),
+                                       "kernel": lambda: fused(*sh, **kwp)},
+                               20)
+            bound = kernel_bound(*dpt_work(kind, sh))
+            rows[m][kind] = (t["kernel"][0], t["plain"][0], *bound)
+            fused_b, twin_b = dpt_bwd_fns(dpt, kind)
+            x, g, w, _, _ = dpt_bwd_inputs(torch, kind, torch.bfloat16, 25,
+                                           3199, seed=4000)
+            x, *w = dpt_shard(torch, (x, *w), kind, m, 0)
+            tb = time_turns(torch, {
+                "plain": lambda: twin_b(x, g, *w, **kwp),
+                "kernel": lambda: fused_b(x, g, *w, **kwp)}, 10)
+            bound_b = kernel_bound(*dpt_bwd_work(
+                kind, (x, g, *w), fused_b(x, g, *w, **kwp)))
+            rows[m][kind + "_bwd"] = (tb["kernel"][0], tb["plain"][0],
+                                      *bound_b)
+            for label, tt, bd in (("", t, bound), (" backward", tb, bound_b)):
+                print(f"timing [{card}] dpt {kind}{label} partial, one of {m}"
+                      f" shards [8,25,128,256] bf16: kernel "
+                      f"{tt['kernel'][0]:.4f} ms (runs "
+                      f"{[round(r, 4) for r in tt['kernel'][1]]}), twin "
+                      f"{tt['plain'][0]:.4f} ms, bound {bd[0]:.4f} ms "
+                      f"({bd[1]}, {bd[0] / tt['kernel'][0]:.1%} of it)",
+                      flush=True)
+
+    cfg = dpt_config()
+    model = ConvTasNet(cfg, use_pallas=True, device="cuda").eval()
+    sd = model.state_dict()
+    mix = torch.randn(8, SECONDS * SAMPLE_RATE, generator=torch.Generator(
+        device="cuda").manual_seed(7), device="cuda")
+    fns = {"unsharded kernel path": lambda: model(mix)}
+    for m in DPT_TP_SHARDS:
+        fns[f"TP m={m}"] = (lambda devs: lambda: tp_forward(
+            cfg, sd, mix, devs))(shard_devices(m, "cuda"))
+    mem = {}
+    with torch.inference_mode():
+        t = time_turns(torch, fns, 10)
+        for name, fn in fns.items():
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, (ms, runs) in t.items():
+        print(f"timing [{card}] dpt forward B=8x{SECONDS}s bf16 {name}: "
+              f"{ms:.3f} ms, {8 * SECONDS / (ms / 1e3):.1f}x realtime (runs "
+              f"{[round(r, 3) for r in runs]}), peak memory "
+              f"{mem[name]:.2f} GiB", flush=True)
+    del model
+
+    steps = {"unsharded kernel step": ts.make_train_step(),
+             "TP m=2 step": make_dpt_tp_train_step(
+                 cfg, shard_devices(2, "cuda"))}
+    runs = {name: [] for name in steps}
+    mem = {}
+    for name in [*steps, *reversed(list(steps))]:
+        state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
+                                      use_pallas=True)
+        batch = train_batch(torch, 8, 21)
+        torch.cuda.reset_peak_memory_stats()
+        runs[name].append(time_ms(torch, lambda: steps[name](state, batch),
+                                  10))
+        mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state
+    for name, r in runs.items():
+        print(f"timing [{card}] dpt train step B=8x{SECONDS}s bf16 {name}: "
+              f"{statistics.median(r):.3f} ms (runs {[round(x, 3) for x in r]})"
+              f", peak memory {mem[name]:.2f} GiB", flush=True)
+    return rows
+
 def kernel_line(name, source, replaces, launches, max_abs, ms, plain_ms,
                 bound):
     return {"name": name, "route": "cuda",
@@ -2434,6 +2875,7 @@ def main() -> int:
     max_abs_pair_bwd = phase_pair_bwd_vs_twin(torch, k)
     max_abs_dpt = phase_dpt_kernels_vs_twin(torch, dpt)
     max_abs_dpt_bwd = phase_dpt_bwd_vs_twin(torch, dpt)
+    max_abs_partial = phase_dpt_partial_vs_twin(torch, dpt)
     phase_intra_f32_wide_heads(torch, dpt)
     max_abs_tp = phase_tp_stage2_vs_twin(torch, k)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -2455,6 +2897,13 @@ def main() -> int:
         dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
         dpt_launches_bwd = phase_dpt_train_path(torch, dpt, work, data,
                                                 json_dir)
+        # dual-path tensor parallelism (two and four shards on one card):
+        # the forward, then cli train --separator dpt --n-model 2 and its
+        # package served through cli separate --tensor-parallel 2, each
+        # with exact counts of the partial kernels
+        phase_dpt_tp_forward(torch, dpt)
+        dpt_tp_train = phase_dpt_tp_train_path(torch, dpt, work, data,
+                                               json_dir)
         phase_streaming(torch, k, work, card)
     phase_step_compare(torch, "tcn")
     phase_step_compare(torch, "tcn", "cLN")
@@ -2464,6 +2913,7 @@ def main() -> int:
     cln_ms, cln_plain_ms, cln_bound = phase_cln_timings(torch, bwd, card)
     dpt_times, dpt_bwd_times = phase_dpt_timings(torch, dpt, card)
     tp_rows = phase_tp_timings(torch, k, card)
+    dpt_tp_rows = phase_dpt_tp_timings(torch, dpt, card)
 
     lines = [
         kernel_line("tcn_block", "tcn_block.cu", "tcn_block.py:92",
@@ -2499,6 +2949,20 @@ def main() -> int:
         lines.append(kernel_line(
             f"dpt_{kind}_bwd", source, replaces, dpt_launches_bwd[kind],
             max_abs_dpt_bwd[kind], ms, plain_ms, (bound_ms, bound_by)))
+    # the partial kernels on the TP path (cli train --n-model 2), timed at
+    # two shards' widths, as that run launches them
+    for name, source, replaces in (
+            ("inter", "dpt_attention.cu", "dpt_attention.py:133"),
+            ("intra", "dpt_intra.cu", "dpt_intra.py:121"),
+            ("ffn", "dpt_ffn.cu", "dpt_ffn.py:78"),
+            ("inter_bwd", "dpt_attention_bwd.cu", "dpt_attention.py:397"),
+            ("intra_bwd", "dpt_intra_bwd.cu", "dpt_intra.py:368"),
+            ("ffn_bwd", "dpt_ffn_bwd.cu", "dpt_ffn.py:228")):
+        ms, plain_ms, bound_ms, bound_by = dpt_tp_rows[2][name]
+        lines.append(kernel_line(
+            f"dpt_{name}_partial", source, replaces,
+            dpt_tp_train[name], max_abs_partial[name], ms, plain_ms,
+            (bound_ms, bound_by)))
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,9 @@ or the dual-path one (``--separator dpt``); ``separate`` and ``evaluate``
 take the model from the package; ``separate --streaming 1`` and
 ``stream-demo`` run a causal cLN or BN package through the streaming
 separator. ``train --n-model m`` and ``separate --tensor-parallel m`` split
-a TCN's hidden width over m shards (``parallel/``; all on one card where
-there is one, with the placement printed on one line). Flags of what is
+a TCN's hidden width, or a dual-path model's heads and FFN width, over m
+shards (``parallel/``; all on one card where there is one, with the
+placement printed on one line). Flags of what is
 not ported yet raise and name the ROADMAP item.
 """
 
@@ -111,7 +112,9 @@ def _add_solver_flags(p: argparse.ArgumentParser) -> None:
     g.add_argument("--n-data", type=int, default=-1,
                    help="data-parallel devices (> 1: not ported yet)")
     g.add_argument("--n-model", type=int, default=1,
-                   help="tensor-parallel shards of the TCN's hidden width")
+                   help="tensor-parallel shards: of the TCN's hidden "
+                        "width, or of the dual-path model's heads and FFN "
+                        "width")
 
 
 def _check_ported(a: argparse.Namespace) -> None:
@@ -330,7 +333,8 @@ def main(argv=None) -> int:
                         "package splits batches to fit TPU VMEM; here each "
                         "batch is one forward")
     p.add_argument("--tensor-parallel", type=int, default=0,
-                   help="split a TCN package's hidden width over m > 1 "
+                   help="split a TCN package's hidden width, or a "
+                        "dual-path package's heads and FFN width, over m > 1 "
                         "shards")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda raises when CUDA is absent")

@@ -29,6 +29,13 @@
 // rounding of the normalised p and take any n >= 1; with n <= 32 the key
 // tile is loaded once. The qkv round trip (78.6 MB in bf16) is the design's
 // cost over the bound.
+//
+// Under tensor parallelism (partial, the Pallas kernel's partial=True) the
+// block runs the h heads of one shard's head group, of width Bq = h * d:
+// qkv and a are [R, 3Bq] and [R, Bq], and the last launch writes
+// round(a @ W_out[Bq, B]) with no residual. At the quality default's m = 2
+// shards (Bq 128, 4 heads) that is 7.0 GFLOP, under the 7.8 us of x in and
+// out: bytes-bound.
 
 #include "dpt_common.cuh"
 
@@ -37,18 +44,19 @@ namespace {
 constexpr int kKeyTile = 32;   // key chunks staged per shared-memory load
 
 template <typename T>
-size_t core_smem(int B) {
-  return align128(static_cast<size_t>(kKeyTile) * 2 * B * sizeof(T)) +
+size_t core_smem(int Bq) {
+  return align128(static_cast<size_t>(kKeyTile) * 2 * Bq * sizeof(T)) +
          kKeyTile * sizeof(float);
 }
 
-// Grid (S, M); 32 * h threads, warp = head.
+// Grid (S, M); 32 * h threads, warp = head. B below is the heads' width
+// Bq: the rows of qkv hold 3Bq values, those of a Bq.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     inter_core_kernel(DptAttnParams p, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = 16 / sizeof(T);
-  const int n = p.n, S = p.S, B = p.B;
+  const int n = p.n, S = p.S, B = p.Bq;
   T* kv_s = reinterpret_cast<T*>(smem);
   float* b_s = reinterpret_cast<float*>(
       smem + align128(static_cast<size_t>(kKeyTile) * 2 * B * sizeof(T)));
@@ -140,7 +148,7 @@ __global__ void __launch_bounds__(256)
 
 template <typename T, int D>
 int launch_core(const DptAttnParams& p, cudaStream_t stream) {
-  const size_t smem = core_smem<T>(p.B);
+  const size_t smem = core_smem<T>(p.Bq);
   cudaError_t err = cudaFuncSetAttribute(
       inter_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -153,8 +161,8 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
 
 template <typename T>
 int launch(const DptAttnParams& p, cudaStream_t stream) {
-  const int d = p.B / p.h;
-  if ((d != 32 && d != 64) || p.h > 8)
+  const int d = p.Bq / p.h;
+  if ((d != 32 && d != 64) || p.h > 8 || p.Bq % 64 || p.Bq > p.B)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
                                             cudaStream_t s) {

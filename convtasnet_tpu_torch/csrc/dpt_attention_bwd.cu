@@ -36,6 +36,11 @@
 //     summed over the query chunks.
 // Any n >= 1; with n <= 32 each side loads its tile once. When n = 1
 // every row has one key and p = 1, masked or not, as in the reference.
+//
+// Under tensor parallelism (partial, the backward of the Pallas kernel's
+// partial=True) the core runs one shard's h heads of width Bq = h * d
+// (qkv, dqkv [R, 3Bq], dA and a [R, Bq]), the products take Bq
+// (dpt_bwd_common.cuh) and dx has no g term.
 
 #include "dpt_bwd_common.cuh"
 
@@ -44,19 +49,20 @@ namespace {
 constexpr int kTile = 32;   // chunks staged per shared-memory load
 
 template <typename T>
-size_t core_bwd_smem(int B) {
-  return align128(static_cast<size_t>(kTile) * 2 * B * sizeof(T)) +
+size_t core_bwd_smem(int Bq) {
+  return align128(static_cast<size_t>(kTile) * 2 * Bq * sizeof(T)) +
          kTile * sizeof(float);
 }
 
-// Grid (S, M); 32 * h threads, warp = head.
+// Grid (S, M); 32 * h threads, warp = head. B below is the heads' width Bq:
+// the rows of qkv and dqkv hold 3Bq values, those of dA and a Bq.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     inter_bwd_core_kernel(DptAttnBwdParams P, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = 16 / sizeof(T);
   const DptAttnParams& p = P.f;
-  const int n = p.n, S = p.S, B = p.B, h = p.h;
+  const int n = p.n, S = p.S, B = p.Bq, h = p.h;
   T* tile_s = reinterpret_cast<T*>(smem);   // [kTile][2B]
   float* b_s = reinterpret_cast<float*>(
       smem + align128(static_cast<size_t>(kTile) * 2 * B * sizeof(T)));
@@ -229,7 +235,7 @@ __global__ void __launch_bounds__(256)
 
 template <typename T, int D>
 int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
-  const size_t smem = core_bwd_smem<T>(P.f.B);
+  const size_t smem = core_bwd_smem<T>(P.f.Bq);
   cudaError_t err = cudaFuncSetAttribute(
       inter_bwd_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -243,8 +249,8 @@ int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
 template <typename T>
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
-  const int d = P.f.B / P.f.h;
-  if ((d != 32 && d != 64) || P.f.h > 8)
+  const int d = P.f.Bq / P.f.h;
+  if ((d != 32 && d != 64) || P.f.h > 8 || P.f.Bq % 64 || P.f.Bq > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention_bwd<T>(
       P, ws_act, ws_f32, stream,
@@ -258,12 +264,13 @@ int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
 extern "C" {
 
 // Workspace of either attention backward: n_act elements of the compute
-// dtype (elem_bytes 2 for bf16, 4 for f32) and n_f32 floats.
-int ctn_dpt_attn_bwd_workspace(int M, int n, int S, int B, int h,
+// dtype (elem_bytes 2 for bf16, 4 for f32) and n_f32 floats; Bq the heads'
+// width (B for the full sublayer).
+int ctn_dpt_attn_bwd_workspace(int M, int n, int S, int B, int h, int Bq,
                                int elem_bytes, long long* n_act,
                                long long* n_f32) {
   const AttnBwdLayout L = attn_bwd_layout(static_cast<long long>(M) * n * S,
-                                          B, h, elem_bytes);
+                                          B, h, Bq, elem_bytes);
   *n_act = static_cast<long long>(L.n_act);
   *n_f32 = static_cast<long long>(L.n_f32);
   return 0;

@@ -28,6 +28,12 @@
 // - launch_attention_bwd: the launches both attention backwards share
 //   around their cores (the recompute of qkv by the forward's launch 1, dA,
 //   the weight gradients, dy = dqkv @ W_qkv^T, the LN backward).
+//
+// Each also runs the backward of a tensor-parallel shard (partial, the
+// Pallas kernels' partial=True): the products take the shard's widths
+// (Bq = h * d for the attention, dW_qkv [B, 3Bq] and dW_out [Bq, B]; F/m
+// for the FFN), and since the partial forward added no residual, dx is
+// round(dx_ln) with no g term (ln_bwd_kernel<T, false>).
 
 #pragma once
 
@@ -180,10 +186,11 @@ int launch_colsum(const void* src, int rows, int cols, float* part,
 }
 
 // The LN backward and the residual for kRowTile rows per block, one warp
-// per row: dx = round(g + dx_ln) and part[tile][0:B] = sum dy*xhat,
+// per row: dx = round(g + dx_ln) (kResidual; without it, the backward of a
+// partial forward, dx = round(dx_ln)) and part[tile][0:B] = sum dy*xhat,
 // part[tile][B:2B] = sum dy over the tile's rows (the warps' column sums
 // added in warp order).
-template <typename T>
+template <typename T, bool kResidual>
 __global__ void __launch_bounds__(kDptThreads)
     ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   const float* __restrict__ dy,
@@ -225,8 +232,11 @@ __global__ void __launch_bounds__(kDptThreads)
       if (c < B) {
         const float xh = (to_f<T>(x[base + c]) - mean) * rs;
         const float dxh = dy[base + c] * gamma[c];
-        dx[base + c] = from_f<T>(to_f<T>(g[base + c]) +
-                                 rs * (dxh - mean_d - xh * mean_xd));
+        if constexpr (kResidual)
+          dx[base + c] = from_f<T>(to_f<T>(g[base + c]) +
+                                   rs * (dxh - mean_d - xh * mean_xd));
+        else
+          dx[base + c] = from_f<T>(rs * (dxh - mean_d - xh * mean_xd));
       }
     }
   }
@@ -251,13 +261,14 @@ int n_row_tiles(long long rows) {
 }
 
 // dx and dgb [2, B] = (dgamma, dbeta); part holds n_row_tiles(rows) * 2 * B
-// floats.
+// floats. residual: dx carries the g term (false for a partial forward).
 template <typename T>
 int launch_ln_bwd(const void* x, const void* g, const float* dy,
                   const float* gamma, int rows, int B, void* dx, float* part,
-                  float* dgb, cudaStream_t stream) {
+                  float* dgb, bool residual, cudaStream_t stream) {
   const int tiles = n_row_tiles(rows);
-  ln_bwd_kernel<T><<<tiles, kDptThreads, 0, stream>>>(
+  auto* kernel = residual ? ln_bwd_kernel<T, true> : ln_bwd_kernel<T, false>;
+  kernel<<<tiles, kDptThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), dy, gamma, rows, B,
       static_cast<T*>(dx), part);
   CTN_CHECK();
@@ -277,10 +288,11 @@ int launch_ln_rows(const void* x, int rows, int B, const float* gamma,
 // Operands of one attention sublayer backward (see the wrappers in
 // ops/cuda/dpt_attention.py). f: the forward's operands, with its qkv and a
 // workspaces (the recomputed qkv; the core writes a); g [R, B] in T. The
-// workspace in T: y, dA [R, B], dqkv [R, 3B], w_qkv_t [3B, B], w_out_t
-// [B, B]; in f32: dy [R, B], stats [R, h, kNumRowStats] (the inter core's
-// per-query max, denominator and rowsum), wpart, lnpart. Outputs: dx [R, B]
-// in T; dgb [2, B], dw_qkv [B, 3B], dw_out [B, B] in f32.
+// workspace in T: y [R, B], dA [R, Bq], dqkv [R, 3Bq], w_qkv_t [3Bq, B],
+// w_out_t [B, Bq]; in f32: dy [R, B], stats [R, h, kNumRowStats] (the inter
+// core's per-query max, denominator and rowsum), wpart, lnpart. Outputs:
+// dx [R, B] in T; dgb [2, B], dw_qkv [B, 3Bq], dw_out [Bq, B] in f32. Bq ==
+// B for the full sublayer.
 struct DptAttnBwdParams {
   DptAttnParams f;
   const void* g;
@@ -309,15 +321,16 @@ struct AttnBwdLayout {
 
 inline size_t align_elems(size_t n, size_t a) { return (n + a - 1) / a * a; }
 
-AttnBwdLayout attn_bwd_layout(long long R, int B, int h, size_t elem_bytes) {
+AttnBwdLayout attn_bwd_layout(long long R, int B, int h, int Bq,
+                              size_t elem_bytes) {
   AttnBwdLayout L;
   const size_t rb = static_cast<size_t>(R) * B;
-  const size_t act[7] = {3 * rb, rb, rb, rb, 3 * rb,
-                         3 * static_cast<size_t>(B) * B,
-                         static_cast<size_t>(B) * B};
+  const size_t rq = static_cast<size_t>(R) * Bq;
+  const size_t bq = static_cast<size_t>(B) * Bq;
+  const size_t act[7] = {3 * rq, rq, rb, rq, 3 * rq, 3 * bq, bq};
   const size_t f32[4] = {
       rb, static_cast<size_t>(R) * h * kNumRowStats,
-      static_cast<size_t>(n_row_chunks(R)) * 3 * B * B,
+      static_cast<size_t>(n_row_chunks(R)) * 3 * bq,
       static_cast<size_t>(n_row_tiles(R)) * 2 * B};
   size_t off = 0;
   for (int i = 0; i < 7; ++i) {
@@ -337,7 +350,8 @@ AttnBwdLayout attn_bwd_layout(long long R, int B, int h, size_t elem_bytes) {
 // Points the workspaces of P at their segments of ws_act and ws_f32.
 template <typename T>
 void attn_bwd_carve(DptAttnBwdParams& P, void* ws_act, float* ws_f32) {
-  const AttnBwdLayout L = attn_bwd_layout(P.f.R, P.f.B, P.f.h, sizeof(T));
+  const AttnBwdLayout L =
+      attn_bwd_layout(P.f.R, P.f.B, P.f.h, P.f.Bq, sizeof(T));
   T* act = static_cast<T*>(ws_act);
   P.f.qkv = act + L.act[0];
   P.f.a = act + L.act[1];
@@ -363,7 +377,8 @@ void attn_bwd_carve(DptAttnBwdParams& P, void* ws_act, float* ws_f32) {
 //   launch 1) and y = round(LN(x));  A  dA = round(g @ W_out^T);
 //   C  the core: a = round(round(p) v) and dqkv = (dq | dk | dv);
 //   W  dW_qkv = y^T dqkv, dW_out = a^T g;  D  dy = dqkv @ W_qkv^T (f32);
-//   N  the LN backward and the residual: dx, dgamma, dbeta.
+//   N  the LN backward and the residual (none for a partial forward): dx,
+//      dgamma, dbeta.
 // Returns the first CUDA error.
 template <typename T, typename Core>
 int launch_attention_bwd(DptAttnBwdParams P, void* ws_act, float* ws_f32,
@@ -372,33 +387,34 @@ int launch_attention_bwd(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   const DptAttnParams& f = P.f;
   const int R = static_cast<int>(f.R);
   const int B = f.B;
-  CTN_RETURN_IF(launch_transpose<T>(f.w_qkv, P.w_qkv_t, B, 3 * B, stream));
-  CTN_RETURN_IF(launch_transpose<T>(f.w_out, P.w_out_t, B, B, stream));
+  const int Bq = f.Bq;
+  CTN_RETURN_IF(launch_transpose<T>(f.w_qkv, P.w_qkv_t, B, 3 * Bq, stream));
+  CTN_RETURN_IF(launch_transpose<T>(f.w_out, P.w_out_t, Bq, B, stream));
   CTN_RETURN_IF(launch_ln_qkv<T>(f, stream));
   CTN_RETURN_IF(launch_ln_rows<T>(f.x, R, B, f.gamma, f.beta, P.y, stream));
   CTN_RETURN_IF(launch_gemm_rows<T>(
-      static_cast<const T*>(P.g), static_cast<const T*>(P.w_out_t), R, B, B,
+      static_cast<const T*>(P.g), static_cast<const T*>(P.w_out_t), R, B, Bq,
       StoreRounded<T>{static_cast<T*>(P.dA)}, stream));
   CTN_RETURN_IF(core(P, stream));
-  CTN_RETURN_IF(launch_wgrad<T>(P.y, P.dqkv, R, B, 3 * B, P.wpart, P.dw_qkv,
-                                stream));
-  CTN_RETURN_IF(launch_wgrad<T>(f.a, P.g, R, B, B, P.wpart, P.dw_out,
+  CTN_RETURN_IF(launch_wgrad<T>(P.y, P.dqkv, R, B, 3 * Bq, P.wpart,
+                                P.dw_qkv, stream));
+  CTN_RETURN_IF(launch_wgrad<T>(f.a, P.g, R, Bq, B, P.wpart, P.dw_out,
                                 stream));
   CTN_RETURN_IF(launch_gemm_rows<T>(
       static_cast<const T*>(P.dqkv), static_cast<const T*>(P.w_qkv_t), R,
-      3 * B, B, StoreF32{P.dy}, stream));
+      3 * Bq, B, StoreF32{P.dy}, stream));
   return launch_ln_bwd<T>(f.x, P.g, P.dy, f.gamma, R, B, P.dx, P.lnpart,
-                          P.dgb, stream);
+                          P.dgb, !f.partial, stream);
 }
 
 inline DptAttnBwdParams make_attn_bwd_params(
     const void* x, const void* g, const void* gamma, const void* beta,
     const void* w_qkv, const void* w_out, const void* bias, void* dx,
     void* dgb, void* dw_qkv, void* dw_out, int M, int n, int S, int B,
-    int h) {
+    int h, int Bq, int partial) {
   DptAttnBwdParams P = {};
   P.f = make_attn_params(x, gamma, beta, w_qkv, w_out, bias, nullptr, nullptr,
-                         nullptr, M, n, S, B, h);
+                         nullptr, M, n, S, B, h, Bq, partial);
   P.g = g;
   P.dx = dx;
   P.dgb = static_cast<float*>(dgb);
@@ -411,13 +427,14 @@ inline DptAttnBwdParams make_attn_bwd_params(
 
 // The C interface of both attention backwards: every pointer is device
 // memory; x, g, w_qkv, w_out, dx and ws_act in the compute dtype, the rest
-// f32 (bias [n, S] or null); dgb [2, B] = dgamma, dbeta.
+// f32 (bias [n, S] or null); dgb [2, B] = dgamma, dbeta. Bq and partial as
+// in DptAttnParams.
 #define CTN_DPT_ATTN_BWD_ARGS                                                 \
   const void *x, const void *g, const void *gamma, const void *beta,         \
       const void *w_qkv, const void *w_out, const void *bias, void *ws_act,  \
       void *ws_f32, void *dx, void *dgb, void *dw_qkv, void *dw_out, int M,  \
-      int n, int S, int B, int h, void *stream
+      int n, int S, int B, int h, int Bq, int partial, void *stream
 #define CTN_DPT_ATTN_BWD_CALL                                               \
   make_attn_bwd_params(x, g, gamma, beta, w_qkv, w_out, bias, dx, dgb,     \
-                       dw_qkv, dw_out, M, n, S, B, h),                     \
+                       dw_qkv, dw_out, M, n, S, B, h, Bq, partial),        \
       ws_act, static_cast<float*>(ws_f32), static_cast<cudaStream_t>(stream)

@@ -22,6 +22,13 @@
 //   rounded once, + residual (out_proj_bf16_kernel on tile_mma; for f32
 //   out_proj_residual_kernel, on the TCN kernels' gemm_tile). Only the
 //   attention core between them differs.
+// - Both launches and both cores also run a tensor-parallel shard (the
+//   Pallas kernels' partial=True, parallel/dpt_tp.py): the h heads of the
+//   shard's head group, of local width Bq = h * d < B, with w_qkv
+//   [B, 3Bq] and w_out [Bq, B]; the out launch then writes round(a @ W_out)
+//   alone, with no residual (the caller sums the shards' partials and adds
+//   x once). In the full sublayer Bq == B and every value, and every order
+//   of summation, is as before the partial mode existed.
 
 #pragma once
 
@@ -323,9 +330,11 @@ __device__ void warp_mm(const T* a, int lda, const T* b, int ldb, int depth,
 }
 
 // Operands of one attention sublayer (see the wrappers in
-// ops/cuda/dpt_attention.py): x and out [M, n, S, B], w_qkv [B, 3B],
-// w_out [B, B] in T; gamma, beta [B] and the additive key bias [n, S] (or
-// null) in f32; the workspaces qkv [R, 3B] and a [R, B] in T, R = M*n*S.
+// ops/cuda/dpt_attention.py): x and out [M, n, S, B], w_qkv [B, 3Bq],
+// w_out [Bq, B] in T; gamma, beta [B] and the additive key bias [n, S] (or
+// null) in f32; the workspaces qkv [R, 3Bq] and a [R, Bq] in T, R = M*n*S.
+// Bq = h * d is the width of the h heads (B in the full sublayer); partial:
+// out = round(a @ W_out) without the residual (a tensor-parallel shard).
 struct DptAttnParams {
   const void* x;
   const float* gamma;
@@ -336,11 +345,12 @@ struct DptAttnParams {
   void* qkv;
   void* a;
   void* out;
-  int M, n, S, B, h;
+  int M, n, S, B, h, Bq, partial;
   long long R;
 };
 
-// Launch 1: qkv = round(LN(x) @ W_qkv), one 64-row tile per block.
+// Launch 1: qkv = round(LN(x) @ W_qkv), one 64-row tile per block; qkv has
+// 3Bq columns (3Bq % 192 == 0 for bf16: Bq % 64 == 0).
 template <typename T>
 __host__ __device__ constexpr size_t ln_qkv_smem(int B) {
   return align128(static_cast<size_t>(kRowTile) * padded<T>(B) * sizeof(T)) +
@@ -365,39 +375,41 @@ __global__ void __launch_bounds__(kDptThreads) ln_qkv_kernel(DptAttnParams p) {
   __syncthreads();
   T* qkv = static_cast<T*>(p.qkv);
   const T* w_qkv = static_cast<const T*>(p.w_qkv);
+  const int W3 = 3 * p.Bq;   // qkv columns
   if constexpr (kIsBf16<T>) {
     T* w_s = reinterpret_cast<T*>(next);
     float* scratch = reinterpret_cast<float*>(next + 2 * wstage_bytes<kQkvWN>());
-    for (int n0 = 0; n0 < 3 * B; n0 += 64 * kQkvWN) {
+    for (int n0 = 0; n0 < W3; n0 += 64 * kQkvWN) {
       TileAcc<kQkvWN> acc;
       acc.zero();
-      tile_mma<kQkvWN>(acc, y_s, ldy, w_qkv, 3 * B, B, n0, w_s);
+      tile_mma<kQkvWN>(acc, y_s, ldy, w_qkv, W3, B, n0, w_s);
       tile_epilogue<kQkvWN>(acc, scratch, [&](int r, int c, const float* v) {
         if (r0 + r < rows)
-          store8_bf16(qkv + static_cast<size_t>(r0 + r) * 3 * B + n0 + c, v);
+          store8_bf16(qkv + static_cast<size_t>(r0 + r) * W3 + n0 + c, v);
       });
     }
   } else {
     constexpr int ldc = kQkvCols + 4;
     float* w_s = reinterpret_cast<float*>(next);
     float* c_s = reinterpret_cast<float*>(next + kStageBytes);
-    for (int n0 = 0; n0 < 3 * B; n0 += kQkvCols) {
-      const int nc = min(kQkvCols, 3 * B - n0);
-      block_gemm<false>(y_s, ldy, w_qkv, 3 * B, B, n0, nc, w_s, c_s, ldc);
+    for (int n0 = 0; n0 < W3; n0 += kQkvCols) {
+      const int nc = min(kQkvCols, W3 - n0);
+      block_gemm<false>(y_s, ldy, w_qkv, W3, B, n0, nc, w_s, c_s, ldc);
       for (int e = threadIdx.x; e < kRowTile * nc; e += kDptThreads) {
         const int r = e / nc;
         const int c = e % nc;
         if (r0 + r < rows)
-          qkv[static_cast<size_t>(r0 + r) * 3 * B + n0 + c] = c_s[r * ldc + c];
+          qkv[static_cast<size_t>(r0 + r) * W3 + n0 + c] = c_s[r * ldc + c];
       }
       __syncthreads();  // c_s is rewritten by the next step
     }
   }
 }
 
-// Launch 3: out = x + round(a @ W_out). f32: the TCN kernels' 64x64
-// gemm_tile; bf16: tile_mma on a 64 x B tile (WN = B / 64), the rows of a
-// copied to shared memory by cp.async.
+// Launch 3: out = x + round(a @ W_out), a product of depth Bq into B
+// columns; with partial, out = round(a @ W_out). f32: the TCN kernels' 64x64
+// gemm_tile; bf16: tile_mma on a 64 x B output tile (WN = B / 64), the
+// [64, Bq] rows of a copied to shared memory by cp.async.
 template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
     out_proj_residual_kernel(DptAttnParams p) {
@@ -408,7 +420,7 @@ __global__ void __launch_bounds__(kGemmThreads)
   const int r0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   gemm_tile<T>(static_cast<const T*>(p.a), static_cast<const T*>(p.w_out),
-               rows, B, B, r0, n0, s);
+               rows, p.Bq, B, r0, n0, s);
   const T* x = static_cast<const T*>(p.x);
   T* out = static_cast<T*>(p.out);
   for (int e = threadIdx.x; e < kBM * kBN; e += kGemmThreads) {
@@ -416,15 +428,15 @@ __global__ void __launch_bounds__(kGemmThreads)
     const int c = e % kBN;
     if (r0 + r >= rows) continue;
     const size_t idx = static_cast<size_t>(r0 + r) * B + n0 + c;
-    out[idx] = from_f<T>(to_f<T>(x[idx]) +
-                         round_to<T>(s.c[r * S::kLdC + c]));
+    const float proj = round_to<T>(s.c[r * S::kLdC + c]);
+    out[idx] = from_f<T>(p.partial ? proj : to_f<T>(x[idx]) + proj);
   }
 }
 
 template <int WN>
-constexpr size_t out_proj_bf16_smem() {
-  return align128(static_cast<size_t>(kRowTile) *
-                  padded<__nv_bfloat16>(64 * WN) * 2) +
+size_t out_proj_bf16_smem(int Bq) {
+  return align128(static_cast<size_t>(kRowTile) * padded<__nv_bfloat16>(Bq) *
+                  2) +
          2 * wstage_bytes<WN>() + kEpilogueBytes;
 }
 
@@ -434,7 +446,8 @@ __global__ void __launch_bounds__(kDptThreads)
   using T = __nv_bfloat16;
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int B = 64 * WN;
-  constexpr int lda = padded<T>(B);
+  const int Bq = p.Bq;
+  const int lda = padded<T>(Bq);
   T* a_s = reinterpret_cast<T*>(smem);
   unsigned char* next =
       smem + align128(static_cast<size_t>(kRowTile) * lda * 2);
@@ -443,36 +456,41 @@ __global__ void __launch_bounds__(kDptThreads)
   const int rows = static_cast<int>(p.R);
   const int r0 = blockIdx.x * kRowTile;
   const T* a = static_cast<const T*>(p.a);
-  for (int v = threadIdx.x; v < kRowTile * (B / 8); v += kDptThreads) {
-    const int r = v / (B / 8);
-    const int c = (v % (B / 8)) * 8;
+  for (int v = threadIdx.x; v < kRowTile * (Bq / 8); v += kDptThreads) {
+    const int r = v / (Bq / 8);
+    const int c = (v % (Bq / 8)) * 8;
     if (r0 + r < rows)
       __pipeline_memcpy_async(a_s + r * lda + c,
-                              a + static_cast<size_t>(r0 + r) * B + c, 16);
+                              a + static_cast<size_t>(r0 + r) * Bq + c, 16);
     else
       *reinterpret_cast<uint4*>(a_s + r * lda + c) = make_uint4(0, 0, 0, 0);
   }
   __pipeline_commit();  // tile_mma's first wait covers this group too
   TileAcc<WN> acc;
   acc.zero();
-  tile_mma<WN>(acc, a_s, lda, static_cast<const T*>(p.w_out), B, B, 0, w_s);
+  tile_mma<WN>(acc, a_s, lda, static_cast<const T*>(p.w_out), B, Bq, 0, w_s);
   const T* x = static_cast<const T*>(p.x);
   T* out = static_cast<T*>(p.out);
   tile_epilogue<WN>(acc, scratch, [&](int r, int c, const float* v) {
     if (r0 + r >= rows) return;
     const size_t idx = static_cast<size_t>(r0 + r) * B + c;
-    alignas(16) T xv[8];
-    *reinterpret_cast<uint4*>(xv) = *reinterpret_cast<const uint4*>(x + idx);
     float o[8];
+    if (p.partial) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = to_f<T>(xv[e]) + round_to<T>(v[e]);
+      for (int e = 0; e < 8; ++e) o[e] = round_to<T>(v[e]);
+    } else {
+      alignas(16) T xv[8];
+      *reinterpret_cast<uint4*>(xv) = *reinterpret_cast<const uint4*>(x + idx);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = to_f<T>(xv[e]) + round_to<T>(v[e]);
+    }
     store8_bf16(out + idx, o);
   });
 }
 
 template <int WN>
 int launch_out_proj_bf16(const DptAttnParams& p, cudaStream_t stream) {
-  constexpr size_t smem = out_proj_bf16_smem<WN>();
+  const size_t smem = out_proj_bf16_smem<WN>(p.Bq);
   const cudaError_t err = cudaFuncSetAttribute(
       out_proj_bf16_kernel<WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -524,7 +542,8 @@ inline DptAttnParams make_attn_params(const void* x, const void* gamma,
                                       const void* beta, const void* w_qkv,
                                       const void* w_out, const void* bias,
                                       void* qkv, void* a, void* out, int M,
-                                      int n, int S, int B, int h) {
+                                      int n, int S, int B, int h, int Bq,
+                                      int partial) {
   DptAttnParams p;
   p.x = x;
   p.gamma = static_cast<const float*>(gamma);
@@ -540,16 +559,20 @@ inline DptAttnParams make_attn_params(const void* x, const void* gamma,
   p.S = S;
   p.B = B;
   p.h = h;
+  p.Bq = Bq;
+  p.partial = partial;
   p.R = static_cast<long long>(M) * n * S;
   return p;
 }
 
 }  // namespace
 
+// The C interface of both attention forwards; Bq and partial as in
+// DptAttnParams (Bq == B and partial 0 for the full sublayer).
 #define CTN_DPT_ATTN_ARGS                                                    \
   const void *x, const void *gamma, const void *beta, const void *w_qkv,    \
       const void *w_out, const void *bias, void *qkv, void *a, void *out,  \
-      int M, int n, int S, int B, int h, void *stream
+      int M, int n, int S, int B, int h, int Bq, int partial, void *stream
 #define CTN_DPT_ATTN_PARAMS                                                   \
   make_attn_params(x, gamma, beta, w_qkv, w_out, bias, qkv, a, out, M, n, S, \
-                   B, h)
+                   B, h, Bq, partial)

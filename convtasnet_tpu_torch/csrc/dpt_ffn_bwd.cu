@@ -29,6 +29,11 @@
 //   D  dy = dpre W_up^T (f32);  N  the LN backward: dx, dgamma, dbeta.
 // The [R, F] round trips (~210 MB in bf16, ~63 us) and the 64 x 64 tiles'
 // rate are the design's cost over the bound.
+//
+// Under tensor parallelism (partial, the backward of the Pallas kernel's
+// partial=True) the weights are one shard's hidden slice (F is F/m here),
+// the forward added neither b_down nor the residual, so db_down is zero
+// and dx = round(dx_ln) has no g term.
 
 #include "dpt_bwd_common.cuh"
 
@@ -82,7 +87,7 @@ struct FfnBwdParams {
   float* db_up;     // [F]
   float* dw_down;   // [F, B]
   float* db_down;   // [B]
-  int R, B, F;
+  int R, B, F, partial;
 };
 
 // Workspace: n_act elements of T (w_up_t [F, B], w_down_t [B, F], y [R, B],
@@ -144,18 +149,22 @@ int launch_bwd(const FfnBwdParams& p, void* ws_act, float* ws_f32,
   CTN_RETURN_IF(launch_wgrad<T>(y, dpre, R, B, F, wpart, p.dw_up, stream));
   // the column sums' partials (ceil(R/kColRows) * F floats) fit in wpart
   CTN_RETURN_IF(launch_colsum<T>(dpre, R, F, wpart, p.db_up, stream));
-  CTN_RETURN_IF(launch_colsum<T>(g, R, B, wpart, p.db_down, stream));
+  if (p.partial)   // the partial forward added no down bias
+    CTN_RETURN_IF(static_cast<int>(cudaMemsetAsync(
+        p.db_down, 0, static_cast<size_t>(B) * sizeof(float), stream)));
+  else
+    CTN_RETURN_IF(launch_colsum<T>(g, R, B, wpart, p.db_down, stream));
   CTN_RETURN_IF(launch_gemm_rows<T>(dpre, w_up_t, R, F, B, StoreF32{dy},
                                     stream));
   return launch_ln_bwd<T>(p.x, g, dy, p.gamma, R, B, p.dx, lnpart, p.dgb,
-                          stream);
+                          !p.partial, stream);
 }
 
 FfnBwdParams make_params(const void* x, const void* g, const void* gamma,
                          const void* beta, const void* w_up, const void* b_up,
                          const void* w_down, void* dx, void* dgb, void* dw_up,
                          void* db_up, void* dw_down, void* db_down, int R,
-                         int B, int F) {
+                         int B, int F, int partial) {
   FfnBwdParams p;
   p.x = x;
   p.g = g;
@@ -173,6 +182,7 @@ FfnBwdParams make_params(const void* x, const void* g, const void* gamma,
   p.R = R;
   p.B = B;
   p.F = F;
+  p.partial = partial;
   return p;
 }
 
@@ -182,10 +192,11 @@ FfnBwdParams make_params(const void* x, const void* g, const void* gamma,
   const void *x, const void *g, const void *gamma, const void *beta,        \
       const void *w_up, const void *b_up, const void *w_down, void *ws_act, \
       void *ws_f32, void *dx, void *dgb, void *dw_up, void *db_up,          \
-      void *dw_down, void *db_down, int R, int B, int F, void *stream
+      void *dw_down, void *db_down, int R, int B, int F, int partial,     \
+      void *stream
 #define CTN_FFN_BWD_CALL                                                    \
   make_params(x, g, gamma, beta, w_up, b_up, w_down, dx, dgb, dw_up, db_up, \
-              dw_down, db_down, R, B, F),                                   \
+              dw_down, db_down, R, B, F, partial),                          \
       ws_act, static_cast<float*>(ws_f32), static_cast<cudaStream_t>(stream)
 
 extern "C" {
@@ -202,7 +213,8 @@ int ctn_dpt_ffn_bwd_workspace(int R, int B, int F, int elem_bytes,
 
 // One FFN sublayer backward; every pointer is device memory: x, g, w_up,
 // w_down, dx and ws_act in the compute dtype, the rest f32; dgb [2, B] =
-// dgamma, dbeta. Returns the first CUDA error of its launches.
+// dgamma, dbeta; partial: the backward of a shard's partial forward.
+// Returns the first CUDA error of its launches.
 int ctn_dpt_ffn_bwd_f32(CTN_FFN_BWD_ARGS) {
   return launch_bwd<float>(CTN_FFN_BWD_CALL);
 }

@@ -43,6 +43,11 @@
 // after the block's two [S, S] tiles and in the same layout, and the block
 // runs with four warps. The round trips of qkv, dA, a, dqkv and dy through
 // device memory are the design's cost over the bound.
+//
+// Under tensor parallelism (partial, the backward of the Pallas kernel's
+// partial=True) the core runs one shard's h heads of width Bq = h * d
+// (qkv, dqkv [R, 3Bq], dA and a [R, Bq]), the products take Bq
+// (dpt_bwd_common.cuh) and dx has no g term.
 
 #include "dpt_bwd_common.cuh"
 
@@ -143,7 +148,7 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
   constexpr int V = 16 / sizeof(T);
   constexpr int ldq = head_ld<T, D>();
   const DptAttnParams& p = P.f;
-  const int S = p.S, B = p.B;
+  const int S = p.S, B = p.Bq;   // the heads' width: qkv rows hold 3Bq
   const int ldp = pmat_ld<T>(S);
   const int lds = scratch_ld(S, D);
   const int chunk = blockIdx.x, m = blockIdx.y, hd = blockIdx.z;
@@ -324,9 +329,11 @@ int launch_core(const DptAttnBwdParams& P, unsigned char* spill,
 template <typename T>
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
-  const int d = P.f.B / P.f.h;
-  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const AttnBwdLayout L = attn_bwd_layout(P.f.R, P.f.B, P.f.h, sizeof(T));
+  const int d = P.f.Bq / P.f.h;
+  if ((d != 32 && d != 64) || P.f.Bq % 64 || P.f.Bq > P.f.B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AttnBwdLayout L =
+      attn_bwd_layout(P.f.R, P.f.B, P.f.h, P.f.Bq, sizeof(T));
   unsigned char* spill =
       reinterpret_cast<unsigned char*>(static_cast<T*>(ws_act) + L.n_act);
   return launch_attention_bwd<T>(
@@ -344,7 +351,8 @@ extern "C" {
 // Elements of the compute dtype (elem_bytes 2 for bf16, 4 for f32) the
 // intra backward needs after ctn_dpt_attn_bwd_workspace's n_act for its
 // spilled [S, S] (and, where needed, [S, d]) tiles: 0 where they fit in
-// shared memory, -1 where the core fits no way.
+// shared memory, -1 where the core fits no way. B here is the heads' width
+// Bq = h * d.
 int ctn_dpt_intra_bwd_spill(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);

@@ -7,11 +7,11 @@ if needed, batches length-sorted mixtures padded to a multiple of
 ``<utt>_s{c}.wav`` per speaker. ``streaming=True`` runs the causal
 streaming separator (``models/streaming.py``) chunk by chunk instead, as
 the JAX package's ``_separate_streaming`` does. ``tensor_parallel=m``
-serves a TCN package with its hidden width split over m shards
-(``parallel/tensor_parallel.tp_forward``), as the JAX package's
-``_separate_tensor_parallel`` does; the dual-path family's tensor
-parallelism (ROADMAP A8b) and the sequence-parallel mode (A8d) are not
-ported yet and raise.
+serves a package split over m shards (``parallel/tensor_parallel.
+tp_forward``): a TCN's hidden width, a dual-path model's heads and FFN
+width (``parallel/dpt_tp.py``), as the JAX package's
+``_separate_tensor_parallel`` does; the sequence-parallel mode (ROADMAP
+A8d) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -68,9 +68,11 @@ def separate(
     chunks of ``chunk_seconds`` (whole encoder hops) through the causal
     streaming separator, which needs a causal cLN or BN package and runs
     the plain ops, as the JAX streaming step does. ``tensor_parallel=m >
-    1`` splits a TCN package's hidden width over m shards
-    (``mesh.shard_devices(m, device)``: all on one card where there is
-    one), one ``tp_forward`` per batch, gLN blocks through kernel B6.
+    1`` splits a TCN package's hidden width, or a dual-path package's heads
+    and FFN width, over m shards (``mesh.shard_devices(m, device)``: all on
+    one card where there is one), one ``tp_forward`` per batch: gLN blocks
+    through kernel B6, the dual-path sublayers through the partial
+    kernels.
     """
     if sequence_parallel or ring_attention:
         raise NotImplementedError(
@@ -81,7 +83,7 @@ def separate(
         return _separate_streaming(cfg, state_dict, out_dir, mix_dir,
                                    mix_json, sample_rate, chunk_seconds,
                                    write_mix, device)
-    if tensor_parallel > 1:   # a dual-path package raises (ROADMAP A8b)
+    if tensor_parallel > 1:
         devices = shard_devices(tensor_parallel, device)
         variables = {k: v.to(devices[0]) for k, v in state_dict.items()}
 

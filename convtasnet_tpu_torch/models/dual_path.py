@@ -100,6 +100,25 @@ class _Dense(_Kernel):
         self.bias = nn.Parameter(torch.zeros(shape[1], device=device))
 
 
+# each sublayer's (plain twin, forward kernel, differentiable kernel pair)
+_SUBLAYER_FNS = {
+    "intra": (intra_attention_reference, fused_intra_attention,
+              fused_intra_attention_ad),
+    "inter": (inter_attention_reference, fused_inter_attention,
+              fused_inter_attention_ad),
+    "ffn": (ffn_reference, fused_ffn, fused_ffn_ad),
+}
+
+
+def sublayer_fn(kind: str, use_kernel: bool, args):
+    """What runs one sublayer (``kind`` "intra", "inter" or "ffn") on
+    ``args``: its plain twin, or with ``use_kernel`` its CUDA kernel, the
+    differentiable ``fused_*_ad`` where a gradient is needed."""
+    plain, fused, fused_ad = _SUBLAYER_FNS[kind]
+    return (plain if not use_kernel
+            else fused_ad if needs_grad(*args) else fused)
+
+
 class _AttentionSublayer(nn.Module):
     """Pre-LN multi-head self-attention + residual on [M, n, S, B]:
     ``attend_axis`` 2 mixes within each chunk (intra), 1 across chunks at
@@ -117,14 +136,9 @@ class _AttentionSublayer(nn.Module):
     def forward(self, x, key_bias, use_kernel: bool):
         args = (x, self.norm.gamma, self.norm.beta, self.qkv.kernel,
                 self.out.kernel, key_bias)
-        plain, fused, fused_ad = (
-            (intra_attention_reference, fused_intra_attention,
-             fused_intra_attention_ad) if self.attend_axis == 2 else
-            (inter_attention_reference, fused_inter_attention,
-             fused_inter_attention_ad))
-        fn = (plain if not use_kernel
-              else fused_ad if needs_grad(*args) else fused)
-        return fn(*args, n_heads=self.n_heads)
+        kind = "intra" if self.attend_axis == 2 else "inter"
+        return sublayer_fn(kind, use_kernel, args)(*args,
+                                                   n_heads=self.n_heads)
 
 
 class _FFNSublayer(nn.Module):
@@ -141,9 +155,8 @@ class _FFNSublayer(nn.Module):
         args = (x.reshape(M, n * S, B), self.norm.gamma, self.norm.beta,
                 self.up.kernel, self.up.bias, self.down.kernel,
                 self.down.bias)
-        fn = (ffn_reference if not use_kernel
-              else fused_ffn_ad if needs_grad(*args) else fused_ffn)
-        return fn(*args).reshape(M, n, S, B)
+        return sublayer_fn("ffn", use_kernel, args)(*args).reshape(
+            M, n, S, B)
 
 
 class DualPathLayer(nn.Module):
@@ -186,23 +199,40 @@ class DualPathSeparator(nn.Module):
 
     def forward(self, mixture_w: torch.Tensor,
                 use_kernel: bool) -> torch.Tensor:
-        cfg = self.cfg
-        B, S = cfg.bottleneck, cfg.dpt_chunk
-        M, K, _ = mixture_w.shape
-        y = self.input_norm(mixture_w)
-        y = y @ self.bottleneck.kernel.to(y.dtype)
-        n = -(-K // S)
-        Kp = n * S
-        y = torch.nn.functional.pad(y, (0, 0, 0, Kp - K))
-        x = y.reshape(M, n, S, B)
-        dev = x.device
-        valid = torch.arange(Kp, device=dev).reshape(n, S) < K
-        key_bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
-        intra_pos = torch.from_numpy(sinusoid_encoding(S, B)).to(dev, x.dtype)
-        inter_pos = torch.from_numpy(sinusoid_encoding(n, B)).to(dev, x.dtype)
-        x = x + intra_pos[None, None] + inter_pos[None, :, None]
-        for i in range(cfg.dpt_layers):
-            x = getattr(self, f"layer_{i}")(x, key_bias, use_kernel)
-        x = self.output_norm(x).reshape(M, Kp, B)[:, :K]
-        score = pointwise_conv(torch.relu(x), self.mask_conv.to(x.dtype))
-        return mask_from_scores(cfg, score)
+        leaves = {name: p for name, p in self.named_parameters()
+                  if not name.startswith("layer_")}
+        return dual_path_forward(
+            self.cfg, leaves, mixture_w,
+            lambda i, x, key_bias: getattr(self, f"layer_{i}")(
+                x, key_bias, use_kernel))
+
+
+def dual_path_forward(cfg: ConvTasNetConfig, leaves, mixture_w: torch.Tensor,
+                      run_layer) -> torch.Tensor:
+    """The separator around its layers: encoder frames [M, K, N] -> masks
+    [M, K, C, N]. ``leaves`` maps the separator's own leaves
+    (``input_norm.gamma``, ``bottleneck.kernel``, ``output_norm.beta``,
+    ``mask_conv``, ...); ``run_layer(i, x, key_bias)`` runs dual-path layer
+    i on x [M, n, S, B], whole (``DualPathSeparator``) or split over shards
+    (``parallel/dpt_tp.py``)."""
+    B, S = cfg.bottleneck, cfg.dpt_chunk
+    M, K, _ = mixture_w.shape
+    y = layer_norm(mixture_w, leaves["input_norm.gamma"],
+                   leaves["input_norm.beta"])
+    y = y @ leaves["bottleneck.kernel"].to(y.dtype)
+    n = -(-K // S)
+    Kp = n * S
+    y = torch.nn.functional.pad(y, (0, 0, 0, Kp - K))
+    x = y.reshape(M, n, S, B)
+    dev = x.device
+    valid = torch.arange(Kp, device=dev).reshape(n, S) < K
+    key_bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    intra_pos = torch.from_numpy(sinusoid_encoding(S, B)).to(dev, x.dtype)
+    inter_pos = torch.from_numpy(sinusoid_encoding(n, B)).to(dev, x.dtype)
+    x = x + intra_pos[None, None] + inter_pos[None, :, None]
+    for i in range(cfg.dpt_layers):
+        x = run_layer(i, x, key_bias)
+    x = layer_norm(x, leaves["output_norm.gamma"],
+                   leaves["output_norm.beta"]).reshape(M, Kp, B)[:, :K]
+    score = pointwise_conv(torch.relu(x), leaves["mask_conv"].to(x.dtype))
+    return mask_from_scores(cfg, score)

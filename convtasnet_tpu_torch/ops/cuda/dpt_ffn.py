@@ -18,6 +18,13 @@ The backward is kernel B12 (``csrc/dpt_ffn_bwd.cu``) behind
 dtypes, the twin ``ffn_bwd_reference`` on CPU tensors. ``fused_ffn_ad``
 joins the two kernels in an autograd Function that saves only the
 primals.
+
+Every function here takes ``partial``, as the JAX wrappers do: with
+``partial=True`` the weights are a tensor-parallel shard of the hidden
+width (w_up [B, F/m], b_up [F/m], w_down [F/m, B]; ``parallel/dpt_tp.py``)
+and the sublayer returns the down projection alone, with neither the down
+bias nor the residual; in its backward dx has no residual term and
+db_down is zero. A partial launch counts in ``partial_launches``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from convtasnet_tpu_torch.ops.cuda.build import load_library
 from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
     MAX_WIDTH,
     TILE,
+    count_launch,
     needs_grad,
     raise_on_error,
 )
@@ -46,31 +54,36 @@ _GELU_A = 0.044715
 
 def ffn_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w_up: torch.Tensor, b_up: torch.Tensor,
-                  w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+                  w_down: torch.Tensor, b_down: torch.Tensor,
+                  partial: bool = False) -> torch.Tensor:
     """The pre-LN GELU MLP + residual in plain PyTorch (the math of
     ``xla_ffn``): products and bias adds in x's dtype, LN statistics in
-    f32."""
+    f32. ``partial``: a hidden-width shard's down projection alone
+    (``b_down`` unused)."""
     dt = x.dtype
     y = layer_norm(x, gamma, beta)
     y = y @ w_up.to(dt) + b_up.to(dt)
     y = F.gelu(y, approximate="tanh")
+    if partial:
+        return y @ w_down.to(dt)
     y = y @ w_down.to(dt) + b_down.to(dt)
     return x + y
 
 
 def fused_ffn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               w_up: torch.Tensor, b_up: torch.Tensor, w_down: torch.Tensor,
-              b_down: torch.Tensor) -> torch.Tensor:
+              b_down: torch.Tensor, partial: bool = False) -> torch.Tensor:
     """FFN sublayer -> [M, K, B] in x's dtype."""
     args = (x, gamma, beta, w_up, b_up, w_down, b_down)
     if x.device.type == "cpu":
-        return ffn_reference(*args)
-    out = _launch_cuda(*args)
-    fused_ffn.launches += 1
+        return ffn_reference(*args, partial=partial)
+    out = _launch_cuda(*args, partial=partial)
+    count_launch(fused_ffn, partial)
     return out
 
 
 fused_ffn.launches = 0
+fused_ffn.partial_launches = 0
 
 
 def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
@@ -90,8 +103,8 @@ def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
     Fw = w_up.shape[-1]
     if B % TILE or B > MAX_WIDTH or Fw % (2 * TILE):
         raise ValueError(f"the kernel needs B a multiple of {TILE} and at "
-                         f"most {MAX_WIDTH}, and F a multiple of {2 * TILE}, "
-                         f"got B={B} F={Fw}")
+                         f"most {MAX_WIDTH}, and F (F/m for a shard of m) a "
+                         f"multiple of {2 * TILE}, got B={B} F={Fw}")
     if tuple(w_up.shape) != (B, Fw) or tuple(w_down.shape) != (Fw, B):
         raise ValueError(f"weight shapes {tuple(w_up.shape)}, "
                          f"{tuple(w_down.shape)} do not fit x {tuple(x.shape)}")
@@ -113,7 +126,8 @@ def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
     return x, g_, b_, w_up, bu, w_down, bd
 
 
-def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down):
+def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down,
+                 partial: bool = False):
     """The CUDA branch of ``fused_ffn``: builds the kernels at first use,
     checks, allocates, launches on the current stream, and raises on
     anything the kernel does not take."""
@@ -133,7 +147,7 @@ def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down):
         err = getattr(lib, _ENTRY[x.dtype])(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), w_up.data_ptr(),
             bu.data_ptr(), w_down.data_ptr(), bd.data_ptr(), out.data_ptr(),
-            M * K, B, w_up.shape[1], stream)
+            M * K, B, w_up.shape[1], int(partial), stream)
     raise_on_error(lib, err, "dpt ffn kernel")
     return out
 
@@ -147,14 +161,17 @@ def _gelu_and_grad(v: torch.Tensor):
             + 0.5 * v * (1.0 - t * t) * _GELU_C * (1.0 + 3 * _GELU_A * v * v))
 
 
-def ffn_bwd_reference(x, g, gamma, beta, w_up, b_up, w_down, b_down):
+def ffn_bwd_reference(x, g, gamma, beta, w_up, b_up, w_down, b_down,
+                      partial: bool = False):
     """The FFN sublayer's backward in plain PyTorch: the explicit math of
     the Pallas body ``_ffn_bwd_kernel`` with its rounding points. Products
     in f32 on values of x's dtype; pre = round(round(y W_up) +
     round(b_up)), h = round(gelu(pre)), dpre = round(dh gelu'(pre)) with
     the tanh-GELU and its derivative in f32; dh, dy and the LN backward in
-    f32, dx = round(g + dx_ln). Returns ``(dx, dgamma, dbeta, dw_up, db_up,
-    dw_down, db_down)`` in the primals' dtypes."""
+    f32, dx = round(g + dx_ln). With ``partial`` (the backward of a shard's
+    down projection alone) dx = round(dx_ln) and db_down is zero. Returns
+    ``(dx, dgamma, dbeta, dw_up, db_up, dw_down, db_down)`` in the primals'
+    dtypes."""
     dt = x.dtype
     B = x.shape[-1]
 
@@ -176,29 +193,33 @@ def ffn_bwd_reference(x, g, gamma, beta, w_up, b_up, w_down, b_down):
     dxhat = dy * gamma.float()
     dx_ln = rs * (dxhat - dxhat.mean(-1, keepdim=True)
                   - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return ((gf + dx_ln).to(dt).reshape(x.shape),
+    db_down = torch.zeros_like(gf[0]) if partial else gf.sum(0)
+    return ((dx_ln if partial else gf + dx_ln).to(dt).reshape(x.shape),
             (dy * xhat).sum(0).to(gamma.dtype), dy.sum(0).to(beta.dtype),
             (y.T @ dpre).to(w_up.dtype), dpre.sum(0).to(b_up.dtype),
-            (h.T @ gf).to(w_down.dtype), gf.sum(0).to(b_down.dtype))
+            (h.T @ gf).to(w_down.dtype), db_down.to(b_down.dtype))
 
 
 def fused_ffn_bwd(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
-                  w_down: torch.Tensor, b_down: torch.Tensor):
+                  w_down: torch.Tensor, b_down: torch.Tensor,
+                  partial: bool = False):
     """Backward of the FFN sublayer (x, g [M, K, B]) -> ``(dx, dgamma,
     dbeta, dw_up, db_up, dw_down, db_down)`` in the primals' dtypes."""
     args = (x, g, gamma, beta, w_up, b_up, w_down, b_down)
     if x.device.type == "cpu":
-        return ffn_bwd_reference(*args)
-    grads = _launch_cuda_bwd(*args)
-    fused_ffn_bwd.launches += 1
+        return ffn_bwd_reference(*args, partial=partial)
+    grads = _launch_cuda_bwd(*args, partial=partial)
+    count_launch(fused_ffn_bwd, partial)
     return grads
 
 
 fused_ffn_bwd.launches = 0
+fused_ffn_bwd.partial_launches = 0
 
 
-def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down):
+def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down,
+                     partial: bool = False):
     """The CUDA branch of ``fused_ffn_bwd``: builds the kernels at first
     use, checks, allocates the workspace and the outputs, launches on the
     current stream, and raises on anything the kernel does not take."""
@@ -232,7 +253,8 @@ def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down):
             w_up_c.data_ptr(), bu.data_ptr(), w_down_c.data_ptr(),
             ws_act.data_ptr(), ws_f32.data_ptr(), dx.data_ptr(),
             dgb.data_ptr(), dw_up.data_ptr(), db_up.data_ptr(),
-            dw_down.data_ptr(), db_down.data_ptr(), M * K, B, Fw, stream)
+            dw_down.data_ptr(), db_down.data_ptr(), M * K, B, Fw,
+            int(partial), stream)
     raise_on_error(lib, err, "dpt ffn backward kernel")
     return (dx, dgb[0].to(gamma.dtype), dgb[1].to(beta.dtype),
             dw_up.to(w_up.dtype), db_up.reshape(b_up.shape).to(b_up.dtype),
@@ -243,23 +265,28 @@ def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down):
 class _FusedFfnFn(torch.autograd.Function):
     """The FFN sublayer, forward kernel + backward kernel; saves only the
     primals and recomputes the rest in the backward (remat, as the JAX rule
-    ``_fused_ffn_fwd`` does)."""
+    ``_fused_ffn_fwd`` does); ``partial`` runs both in their partial
+    mode."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w_up, b_up, w_down, b_down):
+    def forward(ctx, x, gamma, beta, w_up, b_up, w_down, b_down, partial):
         ctx.save_for_backward(x, gamma, beta, w_up, b_up, w_down, b_down)
-        return fused_ffn(x, gamma, beta, w_up, b_up, w_down, b_down)
+        ctx.partial = partial
+        return fused_ffn(x, gamma, beta, w_up, b_up, w_down, b_down,
+                         partial=partial)
 
     @staticmethod
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
-        return fused_ffn_bwd(x, g.contiguous(), *weights)
+        return (*fused_ffn_bwd(x, g.contiguous(), *weights,
+                               partial=ctx.partial), None)
 
 
 def fused_ffn_ad(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  w_up: torch.Tensor, b_up: torch.Tensor, w_down: torch.Tensor,
-                 b_down: torch.Tensor) -> torch.Tensor:
+                 b_down: torch.Tensor, partial: bool = False) -> torch.Tensor:
     """Differentiable FFN sublayer -> [M, K, B] in x's dtype: ``fused_ffn``
     forward, ``fused_ffn_bwd`` backward. Gradients come back in each
     primal's dtype."""
-    return _FusedFfnFn.apply(x, gamma, beta, w_up, b_up, w_down, b_down)
+    return _FusedFfnFn.apply(x, gamma, beta, w_up, b_up, w_down, b_down,
+                             partial)

@@ -1,2 +1,3 @@
-"""Model parallelism of the port: the TCN's hidden width split over shard
-devices (``tensor_parallel.py``), placed by ``mesh.py``."""
+"""Model parallelism of the port: the TCN's hidden width
+(``tensor_parallel.py``) or the dual-path separator's heads and FFN width
+(``dpt_tp.py``) split over shard devices, placed by ``mesh.py``."""

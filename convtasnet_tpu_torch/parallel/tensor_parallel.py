@@ -39,12 +39,15 @@ in JAX, whose B6 is gLN only. Every norm runs in the model's compute
 dtype, as the unsharded model does (JAX's per-norm path keeps the
 mixture's f32).
 
+``tp_forward`` sends the dual-path family to ``dpt_tp.dpt_tp_forward``
+(heads and FFN hidden width split, the partial kernels), as JAX's does;
+the train and eval steps here run either family through ``tp_forward``.
+
 Not ported (ROADMAP "Do not port"): the probe, race and degrade machinery
 around the fused stage 2 (``ensure_probed_tcn_tp`` and the train step's
 retrace on failure), since here B6 runs or raises, and the GSPMD entries
-(``make_gspmd_forward``, ``demote_pallas_for_model_parallel``). The
-dual-path family's tensor parallelism is ROADMAP A8b and data parallelism
-A8c; both raise.
+(``make_gspmd_forward``, ``demote_pallas_for_model_parallel``). Data
+parallelism is ROADMAP A8c and raises.
 """
 
 from __future__ import annotations
@@ -248,33 +251,45 @@ def _tp_forward_generic(cfg, variables, shards, devices, mixture):
     return _decode(cfg, variables, w, mask, mixture.shape[-1])
 
 
-def tp_forward(cfg: ConvTasNetConfig, variables: Variables,
-               mixture: torch.Tensor, devices: Sequence[torch.device],
-               use_pallas: Optional[bool] = None) -> torch.Tensor:
-    """The TCN's forward with its hidden width split over ``devices``
-    (``mesh.shard_devices``): mixture [M, T] -> est_source [M, C, T] in
-    f32 on shard 0's device, as ``ConvTasNet`` returns it.
-
-    ``variables`` is a state_dict of the canonical model (for training,
-    ``model.state_dict(keep_vars=True)``). ``use_pallas`` as the model's:
-    None runs the kernel (B6, gLN) for CUDA tensors, True (or None with
-    ``cfg.use_pallas``) insists on it, False runs the plain ops. gLN with
-    gradients runs B6 through ``tp_stage2_ad``.
-    """
-    if cfg.separator == "dpt":
-        raise NotImplementedError(
-            "tensor parallelism of the dual-path separator is not ported "
-            "yet (ROADMAP A8b: the partial variants of its sublayer "
-            "kernels); serve or train it on one shard")
-    if cfg.separator != "tcn":
-        raise ValueError(f"unsupported separator family: {cfg.separator}")
-    mixture = mixture.to(devices[0])
+def use_kernels(cfg: ConvTasNetConfig, mixture: torch.Tensor,
+                use_pallas: Optional[bool]) -> bool:
+    """Whether a tensor-parallel forward runs the CUDA kernels:
+    ``use_pallas`` as the model's (None: for CUDA tensors; None with
+    ``cfg.use_pallas`` or True: always, and then the mixture must be on a
+    CUDA device)."""
     if use_pallas is None and cfg.use_pallas:
         use_pallas = True
     use_kernel = mixture.is_cuda if use_pallas is None else use_pallas
     if use_kernel and not mixture.is_cuda:
         raise ValueError("use_pallas=True runs the CUDA kernels and needs "
                          f"CUDA tensors; the mixture is on {mixture.device}")
+    return use_kernel
+
+
+def tp_forward(cfg: ConvTasNetConfig, variables: Variables,
+               mixture: torch.Tensor, devices: Sequence[torch.device],
+               use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """The separator's forward with its hidden width (the TCN's) or its
+    heads and FFN width (the dual-path family's, ``dpt_tp_forward``) split
+    over ``devices`` (``mesh.shard_devices``): mixture [M, T] ->
+    est_source [M, C, T] in f32 on shard 0's device, as ``ConvTasNet``
+    returns it.
+
+    ``variables`` is a state_dict of the canonical model (for training,
+    ``model.state_dict(keep_vars=True)``). ``use_pallas`` as the model's:
+    None runs the kernels (B6 for gLN; the DPT's partial kernels) for CUDA
+    tensors, True (or None with ``cfg.use_pallas``) insists on them, False
+    runs the plain ops. gLN with gradients runs B6 through
+    ``tp_stage2_ad``.
+    """
+    if cfg.separator == "dpt":
+        from convtasnet_tpu_torch.parallel.dpt_tp import dpt_tp_forward
+
+        return dpt_tp_forward(cfg, variables, mixture, devices, use_pallas)
+    if cfg.separator != "tcn":
+        raise ValueError(f"unsupported separator family: {cfg.separator}")
+    mixture = mixture.to(devices[0])
+    use_kernel = use_kernels(cfg, mixture, use_pallas)
     shards = shard_variables(cfg, variables, devices)
     if cfg.norm_type != "gLN":
         return _tp_forward_generic(cfg, variables, shards, devices, mixture)
@@ -300,22 +315,29 @@ def tp_loss_and_grads(cfg: ConvTasNetConfig, model: torch.nn.Module, batch,
 
 def make_tcn_tp_train_step(cfg: ConvTasNetConfig,
                            devices: Sequence[torch.device]):
-    """The train step through ``tp_forward``: ``(state, batch) -> (state,
-    {"loss", "grad_norm"})`` with ``train_step.make_train_step``'s
-    contract (the same loss, clipping and optimizer), plus ``.multi``,
-    several steps in turn with ``make_multi_train_step``'s contract.
-
-    Parameters, gradients and optimizer state keep the canonical layout.
-    gLN trains through ``tp_stage2_ad`` (B6 forward) where the kernels are
-    in use, cLN through the plain per-norm path. BN is refused, as in JAX:
-    its running statistics are updated by the model's own forward."""
+    """The TCN's train step through ``tp_forward``
+    (``make_tp_train_step``). gLN trains through ``tp_stage2_ad`` (B6
+    forward) where the kernels are in use, cLN through the plain per-norm
+    path. BN is refused, as in JAX: its running statistics are updated by
+    the model's own forward. The dual-path family is refused too, as in
+    JAX: it has ``dpt_tp.make_dpt_tp_train_step``."""
     if cfg.separator != "tcn":
-        raise NotImplementedError(
-            "tensor-parallel training of the dual-path separator is not "
-            "ported yet (ROADMAP A8b); train it with --n-model 1")
+        raise ValueError("make_tcn_tp_train_step is the TCN's; the dual-path "
+                         "family has dpt_tp.make_dpt_tp_train_step")
     if cfg.norm_type == "BN":
         raise ValueError("BN running-stat updates are not supported by the "
                          "TP train step; use gLN/cLN or train on one shard")
+    return make_tp_train_step(cfg, devices)
+
+
+def make_tp_train_step(cfg: ConvTasNetConfig,
+                       devices: Sequence[torch.device]):
+    """The train step through ``tp_forward``, for either family:
+    ``(state, batch) -> (state, {"loss", "grad_norm"})`` with
+    ``train_step.make_train_step``'s contract (the same loss, clipping and
+    optimizer), plus ``.multi``, several steps in turn with
+    ``make_multi_train_step``'s contract. Parameters, gradients and
+    optimizer state keep the canonical layout."""
 
     def step(state: TrainState, batch):
         model = state.model
@@ -339,11 +361,12 @@ def make_tcn_tp_train_step(cfg: ConvTasNetConfig,
     return step
 
 
-def make_tcn_tp_eval_step(cfg: ConvTasNetConfig,
-                          devices: Sequence[torch.device]):
+def make_tp_eval_step(cfg: ConvTasNetConfig,
+                      devices: Sequence[torch.device]):
     """``(state, batch) -> loss`` through ``tp_forward`` without gradients
-    (``train_step.make_eval_step``'s contract); so the cv pass launches B6
-    as the train steps do."""
+    (``train_step.make_eval_step``'s contract), for either family; so the
+    cv pass launches the TP kernels (B6, the DPT's partial kernels) as the
+    train steps do."""
 
     def step(state: TrainState, batch) -> torch.Tensor:
         model = state.model

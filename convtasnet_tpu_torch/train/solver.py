@@ -16,12 +16,13 @@ Counterpart of ``convtasnet_tpu/train/solver.py``:
 - per-iteration prints of loss, running average and ms per batch; the
   loss is read back every ``print_freq`` steps, not after each step.
 
-With ``cfg.mesh.model_axis`` m > 1 the TCN trains and validates with its
-hidden width split over m shards (``parallel/tensor_parallel.py``), as the
-JAX solver routes it: gLN and cLN through the TP step, BN through the
-ordinary step with a warning (its running statistics), the dual-path
-family refused (ROADMAP A8b). Parameters, optimizer state and checkpoints
-keep the canonical layout either way.
+With ``cfg.mesh.model_axis`` m > 1 the model trains and validates split
+over m shards, as the JAX solver routes it: the dual-path family with its
+heads and FFN width split (``parallel/dpt_tp.py``), the TCN with its
+hidden width split (``parallel/tensor_parallel.py``), gLN and cLN through
+the TP step, BN through the ordinary step with a warning (its running
+statistics). Parameters, optimizer state and checkpoints keep the
+canonical layout either way.
 
 The JAX solver's probe/autotune block is not ported (a TPU-relay device,
 ROADMAP "Do not port"): on the card the kernels run or raise.
@@ -38,10 +39,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from convtasnet_tpu_torch.config import TrainConfig
+from convtasnet_tpu_torch.parallel.dpt_tp import make_dpt_tp_train_step
 from convtasnet_tpu_torch.parallel.mesh import shard_devices
 from convtasnet_tpu_torch.parallel.tensor_parallel import (
-    make_tcn_tp_eval_step,
     make_tcn_tp_train_step,
+    make_tp_eval_step,
 )
 from convtasnet_tpu_torch.train import checkpoint as ckpt
 from convtasnet_tpu_torch.train.train_step import (
@@ -82,15 +84,17 @@ class Solver:
         n_model = cfg.mesh.model_axis
         if n_model > 1 and (cfg.model.separator == "dpt"
                             or cfg.model.norm_type != "BN"):
-            # the TCN under a model split: the stage-split (gLN) or
-            # per-norm (cLN) decomposition, canonical parameter layout;
-            # the dual-path family is refused there (ROADMAP A8b)
+            # a model split: the dual-path head-group split, or the TCN's
+            # stage-split (gLN) or per-norm (cLN) decomposition; canonical
+            # parameter layout
             if s.train_batch_chunk:
                 print("warning: --train-batch-chunk is ignored by the TP "
                       "train step (full-batch gradients)", file=sys.stderr)
             devices = shard_devices(n_model, device)
-            self.train_step = make_tcn_tp_train_step(cfg.model, devices)
-            self.eval_step = make_tcn_tp_eval_step(cfg.model, devices)
+            self.train_step = (make_dpt_tp_train_step
+                               if cfg.model.separator == "dpt" else
+                               make_tcn_tp_train_step)(cfg.model, devices)
+            self.eval_step = make_tp_eval_step(cfg.model, devices)
         else:
             if n_model > 1:
                 print("warning: mesh model axis > 1 with BN running stats "

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""The DPT intra kernels (B9 forward, B10 backward) of this tree against
+"""The DPT sublayer kernels in full mode (B7-B12) of this tree against
 those of another checkout, bit for bit, on one NVIDIA GPU.
 
-    python3 scripts/intra_vs_parent.py --other DIR
+    python3 scripts/dpt_vs_parent.py --other DIR
 
 DIR holds another checkout's ``convtasnet_tpu_torch/`` (for example the
 parent commit, unpacked with ``git archive``). Each tree's package runs in
 a subprocess of its own (``--dump``), builds its kernels from its own
-sources and writes its outputs at the shapes both trees take; this
-process compares them with ``torch.equal``. A change that moves tiles
-between shared memory and a device workspace must leave these bits as
-they were. Exits nonzero if any output differs.
+sources and writes its outputs at shapes both trees take: each sublayer's
+forward and backward at the DPT quality default's widths ([8, 25, 128,
+256], 8 heads, F=1024, the real key mask), bf16 and f32, and the intra
+kernels at the chunk lengths whose tiles sit in shared memory or spill to
+the device workspace. This process compares them with ``torch.equal``. A
+change to the kernels' shared pieces (a width parameter, a mode flag, a
+tile moved to the workspace) must leave the full sublayers' bits as they
+were. Exits nonzero if any output differs.
 """
 
 from __future__ import annotations
@@ -22,48 +26,59 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (dtype, S, heads at B = 256, run the forward, run the backward): shapes
+# (kind, dtype, S, heads at B = 256, run the forward, run the backward):
+# every sublayer at the quality default, and the intra kernels at shapes
 # whose tiles fitted in shared memory before the workspace spill of the
 # [S, d] tiles, or spilled only the backward's [S, S] tiles
-CASES = [("bfloat16", 128, 8, True, True),
-         ("bfloat16", 256, 4, True, True),
-         ("float32", 128, 8, True, True),
-         ("float32", 176, 4, True, True),
-         ("float32", 208, 4, False, True)]
+CASES = [(kind, dtype, 128, 8, True, True)
+         for kind in ("inter", "intra", "ffn")
+         for dtype in ("bfloat16", "float32")]
+CASES += [("intra", "bfloat16", 256, 4, True, True),
+          ("intra", "float32", 176, 4, True, True),
+          ("intra", "float32", 208, 4, False, True)]
 
 
 def dump(path: str) -> None:
     import torch
 
-    from convtasnet_tpu_torch.ops.cuda import dpt_intra
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
 
+    fns = {"inter": (dpt_attention.fused_inter_attention,
+                     dpt_attention.fused_inter_attention_bwd),
+           "intra": (dpt_intra.fused_intra_attention,
+                     dpt_intra.fused_intra_attention_bwd),
+           "ffn": (dpt_ffn.fused_ffn, dpt_ffn.fused_ffn_bwd)}
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for dtype, S, heads, fwd, bwd in CASES:
+    for kind, dtype, S, heads, fwd, bwd in CASES:
         g = torch.Generator(device="cuda").manual_seed(S + heads)
 
         def rn(*shape, scale=1.0):
             return torch.randn(*shape, generator=g, device="cuda") * scale
 
-        B, n, M = 256, 3199 // S + 1, 8
+        B, F, n, M = 256, 1024, 3199 // S + 1, 8
         dt = getattr(torch, dtype)
         valid = torch.arange(n * S, device="cuda").reshape(n, S) < 3199
         x = rn(M, n, S, B).to(dt)
-        w = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, 3 * B, scale=B ** -0.5),
-             rn(B, B, scale=B ** -0.5),
-             torch.where(valid, 0.0, -1e9).to(torch.float32))
-        key = f"{dtype} S={S} heads={heads}"
+        if kind == "ffn":
+            x = x.reshape(M, n * S, B)
+            w = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, F, scale=B ** -0.5),
+                 0.1 * rn(F), rn(F, B, scale=F ** -0.5), 0.1 * rn(B))
+            kw = {}
+        else:
+            w = (1.0 + 0.1 * rn(B), 0.1 * rn(B),
+                 rn(B, 3 * B, scale=B ** -0.5), rn(B, B, scale=B ** -0.5),
+                 torch.where(valid, 0.0, -1e9).to(torch.float32))
+            kw = dict(n_heads=heads)
+        key = f"{kind} {dtype} S={S} heads={heads}"
+        fused, fused_bwd = fns[kind]
         if fwd:
             with torch.inference_mode():
-                out[f"{key} forward"] = dpt_intra.fused_intra_attention(
-                    x, w[0], w[1], w[2].to(dt), w[3].to(dt), w[4],
-                    n_heads=heads).cpu()
+                out[f"{key} forward"] = fused(x, *w, **kw).cpu()
         if bwd:
             gr = (rn(M, n * S, B) * valid.reshape(1, -1, 1)).reshape(
                 x.shape).to(dt)
-            grads = dpt_intra.fused_intra_attention_bwd(x, gr, *w,
-                                                        n_heads=heads)
-            for i, t in enumerate(grads):
+            for i, t in enumerate(fused_bwd(x, gr, *w, **kw)):
                 out[f"{key} backward {i}"] = t.cpu()
         torch.cuda.synchronize()
     torch.save(out, path)
@@ -92,7 +107,7 @@ def main() -> int:
     mine, other = outs["this tree"], outs["other"]
     differ = [k for k in other if not torch.equal(mine[k], other[k])]
     for k in other:
-        print(f"intra kernels vs the other checkout, {k}: "
+        print(f"DPT kernels vs the other checkout, {k}: "
               f"{'same bits' if k not in differ else 'DIFFERENT'}",
               flush=True)
     print(f"{len(other) - len(differ)} of {len(other)} outputs the same bits",

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Plant known faults in copies of the DPT sublayer kernels, of the cLN
-block backward (kernel B3), of the TCN block pair (kernels B4 and B5) and
-of the TCN's tensor parallelism (kernel B6 and the shard sum around it),
-and report which checks see each one. Needs one CUDA GPU and nvcc.
+block backward (kernel B3), of the TCN block pair (kernels B4 and B5), of
+the TCN's tensor parallelism (kernel B6 and the shard sum around it) and
+of the dual-path tensor parallelism (the partial kernels B7p-B12p and
+the shard sums around them), and report which checks see each one. Needs
+one CUDA GPU and nvcc.
 
     python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...]
 
@@ -19,7 +21,9 @@ DPT backward ``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch,
 ``phase_pair_vs_twin``, ``phase_pair_bwd_vs_twin`` and
 ``phase_step_compare(torch, "tcn")``, for tensor parallelism
 ``phase_tp_stage2_vs_twin``, ``phase_tp_forward`` and
-``phase_step_compare(torch, "tcn")``), then the kind's ``cuda``-marked
+``phase_step_compare(torch, "tcn")``, for dual-path tensor parallelism
+``phase_dpt_partial_vs_twin``, ``phase_dpt_tp_forward`` and
+``phase_step_compare(torch, "dpt")``), then the kind's ``cuda``-marked
 tests. The repository itself is never edited. A fault is caught when either
 run fails. Each run's full output goes to ``--log-dir`` (default: a new
 temporary directory), one file per fault.
@@ -132,6 +136,28 @@ FAULTS = {
         "convtasnet_tpu_torch/parallel/tensor_parallel.py",
         "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), w1, w0)",
         "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), 0 * w1, w0)"),
+    # dual-path tensor parallelism: the residual kept in a partial (bf16)
+    # attention forward, so the m shards' residuals are summed; the down
+    # bias added once per shard; a contiguous column split of W_qkv in
+    # place of the head-aligned one; g kept in a partial backward's dx
+    "dpt_partial_keeps_residual": ("dpt_tp",
+        "convtasnet_tpu_torch/csrc/dpt_common.cuh",
+        "      for (int e = 0; e < 8; ++e) o[e] = round_to<T>(v[e]);",
+        "      for (int e = 0; e < 8; ++e) o[e] = to_f<T>(x[idx + e]) + "
+        "round_to<T>(v[e]);"),
+    "dpt_tp_b_down_per_shard": ("dpt_tp",
+        "convtasnet_tpu_torch/parallel/dpt_tp.py",
+        "    return (x3 + all_reduce(parts) + b_down.to(x.dtype))",
+        "    return (x3 + all_reduce(parts) + len(parts) * b_down.to(x.dtype))"),
+    "dpt_tp_qkv_contiguous_split": ("dpt_tp",
+        "convtasnet_tpu_torch/parallel/dpt_tp.py",
+        "[q[:, heads], k[:, heads], v[:, heads]], dim=1)",
+        "[variables[pre + 'qkv.kernel'][:, 3 * heads.start:3 * heads.stop]],"
+        " dim=1)"),
+    "dpt_partial_bwd_keeps_g": ("dpt_tp",
+        "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
+        "P.dgb, !f.partial, stream);",
+        "P.dgb, true, stream);"),
 }
 # The smoke phases a fault of each kind is run through; each phase runs
 # whether or not an earlier one failed, and prints "PHASE <call>: passed"
@@ -149,9 +175,13 @@ PHASES = {
     "tp": ["phase_tp_stage2_vs_twin(torch, k)",
            "phase_tp_forward(torch, k)",
            "phase_step_compare(torch, 'tcn')"],
+    "dpt_tp": ["phase_dpt_partial_vs_twin(torch, dpt)",
+               "phase_dpt_tp_forward(torch, dpt)",
+               "phase_step_compare(torch, 'dpt')"],
 }
 CARD_TESTS = {"dpt_forward": "dpt", "dpt_backward": "dpt",
-              "cln_backward": "cln", "pair": "pair", "tp": "tp_"}
+              "cln_backward": "cln", "pair": "pair", "tp": "tp_",
+              "dpt_tp": "partial or dpt_tp"}
 RUNNER = """
 import sys
 import torch

@@ -1127,3 +1127,238 @@ def test_tp_forward_launches_b6_only(cuda, n_model, pairs):
     assert _tp_launches(before) == {"b1": 0, "b2": 0, "b4": 0, "b5": 0,
                                     "b6": 32 * n_model}
     assert np.isfinite(float(metrics["loss"]))
+
+
+# the DPT quality default's widths (B=256, 8 heads of 32, F=1024), split
+# into m shards as dual-path tensor parallelism splits them
+SHARDS = (2, 4)
+
+
+def _shard(args, kind, m, s):
+    """Shard s of m of a full sublayer's operands: q, k and v columns of
+    head group s, the rows of W_out; or the hidden slice s of the FFN."""
+    if kind == "ffn":
+        x, g_, b_, w_up, b_up, w_down, b_down = args
+        fq = w_up.shape[1] // m
+        cut = slice(s * fq, (s + 1) * fq)
+        return (x, g_, b_, w_up[:, cut].contiguous(), b_up[cut].contiguous(),
+                w_down[cut].contiguous(), b_down)
+    x, g_, b_, w_qkv, w_out, bias = args
+    B = x.shape[-1]
+    bq = B // m
+    cut = slice(s * bq, (s + 1) * bq)
+    q, k, v = w_qkv.split(B, dim=1)
+    return (x, g_, b_, torch.cat([q[:, cut], k[:, cut], v[:, cut]], dim=1),
+            w_out[cut].contiguous(), bias)
+
+
+def _partial_kw(kind, m):
+    return {} if kind == "ffn" else dict(n_heads=8 // m)
+
+
+def _full_width_args(device, dtype, kind, seed=0):
+    return _dpt_args(device, dtype, kind, 5, True, S=128, B=256, heads=8,
+                     F=1024, seed=seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("m", SHARDS)
+def test_dpt_partial_kernel_matches_twin(cuda, dtype, kind, m):
+    """Kernels B7p, B9p and B11p on the last shard of m at the quality
+    default's widths (Bq 128 with 4 heads and F/m 512 at m = 2; Bq 64, 2
+    heads and 256 at m = 4) against their partial twins; a partial launch
+    counts in ``partial_launches`` only."""
+    fused, twin = DPT_FNS[kind]
+    args, _, valid = _full_width_args(cuda, dtype, kind)
+    args, kw = _shard(args, kind, m, m - 1), _partial_kw(kind, m)
+    before = (fused.launches, fused.partial_launches)
+    with torch.inference_mode():
+        got = fused(*args, **kw, partial=True)
+        torch.cuda.synchronize()
+        want = twin(*args, **kw, partial=True)
+    assert (fused.launches, fused.partial_launches) == (before[0],
+                                                        before[1] + 1)
+    assert got.dtype == dtype and got.shape == want.shape
+    got, want = _valid_rows(got, valid, 256), _valid_rows(want, valid, 256)
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, want) <= DPT_TOL[dtype], _rel_l2(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("m", SHARDS)
+def test_dpt_partial_bwd_kernel_matches_twin(cuda, dtype, kind, m):
+    """Kernels B8p, B10p and B12p on the last shard of m: every cotangent
+    against the partial twin's (dx with no residual term); the FFN's
+    db_down is zero."""
+    fused, twin = DPT_BWD_FNS[kind]
+    x, g, w, _, valid = _dpt_bwd_args(cuda, dtype, kind, 5, True, S=128,
+                                      B=256, heads=8, F=1024)
+    x, *w = _shard((x, *w), kind, m, m - 1)
+    kw = dict(_partial_kw(kind, m), partial=True)
+    before = fused.partial_launches
+    got = fused(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    assert fused.partial_launches == before + 1
+    exact = twin(x.float(), g.float(), *w, **kw)
+    same = twin(x, g, *w, **kw)
+    if kind == "ffn":
+        assert not got[-1].any()
+        got, exact, same = got[:-1], exact[:-1], same[:-1]
+    _check_dpt_cotangents(got, exact, same, valid, dtype)
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("m", SHARDS)
+def test_dpt_partial_kernels_sum_to_the_full_kernel(cuda, kind, m):
+    """The Megatron identity in f32: the m shards' partial kernels summed,
+    plus the residual (plus b_down), equal the full kernel within 1e-5; and
+    their backwards' dx summed plus g, dgamma and dbeta summed, equal the
+    full backward's."""
+    fused, _ = DPT_FNS[kind]
+    fused_b, _ = DPT_BWD_FNS[kind]
+    args, kw, valid = _full_width_args(cuda, torch.float32, kind, seed=3)
+    x = args[0]
+    with torch.inference_mode():
+        full = fused(*args, **kw)
+        parts = [fused(*_shard(args, kind, m, s), **_partial_kw(kind, m),
+                       partial=True) for s in range(m)]
+    acc = x + sum(parts) + (args[-1] if kind == "ffn" else 0)
+    assert _rel_l2(_valid_rows(acc, valid, 256),
+                   _valid_rows(full, valid, 256)) <= DPT_TOL[torch.float32]
+    xb, g, w, _, valid = _dpt_bwd_args(cuda, torch.float32, kind, 5, True,
+                                       S=128, B=256, heads=8, F=1024)
+    full = fused_b(xb, g, *w, **kw)
+    parts = [fused_b(xb, g, *_shard((xb, *w), kind, m, s)[1:],
+                     **_partial_kw(kind, m), partial=True) for s in range(m)]
+    dx = g + sum(p[0] for p in parts)
+    assert _rel_l2(_valid_rows(dx, valid, 256),
+                   _valid_rows(full[0], valid, 256)) <= DPT_BWD_TOL
+    for i in (1, 2):
+        assert _rel_l2(sum(p[i] for p in parts), full[i]) <= DPT_BWD_TOL, i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+def test_dpt_full_and_partial_modes_share_their_arithmetic(cuda, dtype,
+                                                           kind):
+    """The full kernel is the partial kernel of one shard with the residual
+    (and b_down) added at its rounding points, to the bit: for the
+    attention round(x + partial), for the FFN round(x + round(partial +
+    round(b_down)))."""
+    fused, _ = DPT_FNS[kind]
+    args, kw, _ = _full_width_args(cuda, dtype, kind, seed=5)
+    with torch.inference_mode():
+        full = fused(*args, **kw)
+        part = fused(*args, **kw, partial=True)
+    x = args[0].float()
+    if kind == "ffn":
+        part = (part.float() + args[-1].to(dtype).float()).to(dtype)
+    assert torch.equal(full, (x + part.float()).to(dtype))
+
+
+def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
+                                                            monkeypatch):
+    """On CUDA tensors the partial wrappers launch or raise: a shard width
+    that is not a multiple of 64 (eight shards of B=256) names the shard
+    counts that fit, a head width outside {32, 64} and F/m not a multiple
+    of 128 raise, a shard's weights without ``partial=True`` raise, and
+    with the kernel library made to fail the wrapper raises and counts no
+    launch."""
+    from convtasnet_tpu_torch.ops.cuda import build
+    from convtasnet_tpu_torch.parallel.dpt_tp import dpt_tp_forward
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+
+    args, kw, _ = _full_width_args(cuda, torch.bfloat16, "inter")
+    with pytest.raises(ValueError, match=r"fit: \[1, 2, 4\]"):
+        dpt_attention.fused_inter_attention(*_shard(args, "inter", 8, 0),
+                                            n_heads=1, partial=True)
+    with pytest.raises(ValueError, match="head width"):
+        dpt_intra.fused_intra_attention(*_shard(args, "intra", 2, 0),
+                                        n_heads=8, partial=True)
+    with pytest.raises(ValueError, match="partial=True"):
+        dpt_attention.fused_inter_attention(*_shard(args, "inter", 2, 0),
+                                            n_heads=4)
+    fargs, _, _ = _full_width_args(cuda, torch.bfloat16, "ffn")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        dpt_ffn.fused_ffn(*_shard(fargs, "ffn", 16, 0), partial=True)
+    cfg = ConvTasNetConfig(separator="dpt")
+    with pytest.raises(ValueError, match=r"fit: \[1, 2, 4\]"):
+        dpt_tp_forward(cfg, {}, torch.zeros(1, 8000, device=cuda),
+                       shard_devices(8, cuda))
+
+    def broken_loader():
+        raise RuntimeError("kernel library unavailable")
+
+    for mod in (build, dpt_attention, dpt_ffn):
+        monkeypatch.setattr(mod, "load_library", broken_loader)
+    for kind, (fused, _) in DPT_FNS.items():
+        a, _, _ = _full_width_args(cuda, torch.bfloat16, kind)
+        before = fused.partial_launches
+        with torch.inference_mode(), pytest.raises(RuntimeError,
+                                                   match="unavailable"):
+            fused(*_shard(a, kind, 2, 0), **_partial_kw(kind, 2),
+                  partial=True)
+        assert fused.partial_launches == before
+
+
+def _partial_launches(before=None):
+    now = {f"{k}{'' if i == 0 else '_bwd'}": fns[k][0].partial_launches
+           for i, fns in enumerate((DPT_FNS, DPT_BWD_FNS)) for k in fns}
+    full = sum(fns[k][0].launches for fns in (DPT_FNS, DPT_BWD_FNS)
+               for k in fns)
+    now["full"] = full
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+@pytest.mark.parametrize("n_model", SHARDS)
+def test_dpt_tp_forward_and_step_launch_the_partial_kernels(cuda, n_model):
+    """``dpt_tp_forward`` of a two-layer model at the quality default's
+    widths (its biases and norm affines moved off their init, so a down
+    bias added once per shard shows) over m shards on the card: per
+    forward m x (2 B7p, 2 B9p, 4 B11p) and no full-mode launch, within
+    4e-2 (bf16) and 1e-5 (f32) of the unsharded kernel path; a TP train
+    step launches the partial backwards m x (2, 2, 4) times, finite."""
+    from convtasnet_tpu_torch import SolverConfig
+    from convtasnet_tpu_torch.parallel.dpt_tp import (
+        dpt_tp_forward,
+        make_dpt_tp_train_step,
+    )
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.train.train_step import create_train_state
+
+    devices = shard_devices(n_model, cuda)
+    mix = torch.randn(2, 16000, generator=torch.Generator().manual_seed(
+        n_model)).to(cuda)
+    per = {"inter": 2, "intra": 2, "ffn": 4}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = ConvTasNetConfig(separator="dpt", dpt_layers=2,
+                               compute_dtype=str(dtype).split(".")[-1])
+        model = ConvTasNet(cfg, device=cuda).eval()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(("bias", "gamma", "beta")):
+                    p.add_(0.1 * torch.randn(p.shape, device=cuda))
+        with torch.inference_mode():
+            want = model(mix)
+            before = _partial_launches()
+            got = dpt_tp_forward(cfg, model.state_dict(), mix, devices)
+            torch.cuda.synchronize()
+        counts = _partial_launches(before)
+        assert counts == {**{k: n_model * v for k, v in per.items()},
+                          **{f"{k}_bwd": 0 for k in per}, "full": 0}
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        bar = TOL[dtype] if dtype == torch.bfloat16 else DPT_TOL[dtype]
+        assert _rel_l2(got, want) <= bar, _rel_l2(got, want)
+    state = create_train_state(cfg, SolverConfig(), device=cuda)
+    batch = (mix, torch.full((2,), 16000, device=cuda),
+             torch.randn(2, 2, 16000, device=cuda), torch.ones(2, device=cuda))
+    before = _partial_launches()
+    state, metrics = make_dpt_tp_train_step(cfg, devices)(state, batch)
+    torch.cuda.synchronize()
+    counts = _partial_launches(before)
+    assert counts == {**{k: n_model * v for k, v in per.items()},
+                      **{f"{k}_bwd": n_model * v for k, v in per.items()},
+                      "full": 0}
+    assert np.isfinite(float(metrics["loss"]))

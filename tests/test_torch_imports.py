@@ -32,6 +32,7 @@ def test_port_imports_with_jax_blocked():
         "import convtasnet_tpu_torch.ops.cuda.tcn_block_tp\n"
         "import convtasnet_tpu_torch.parallel.mesh\n"
         "import convtasnet_tpu_torch.parallel.tensor_parallel\n"
+        "import convtasnet_tpu_torch.parallel.dpt_tp\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_attention\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_intra\n"
         "import convtasnet_tpu_torch.ops.cuda.dpt_ffn\n"

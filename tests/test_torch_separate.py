@@ -97,9 +97,9 @@ def test_package_roundtrip_and_formats(slice_dirs, tmp_path):
 
 
 def test_separate_refuses_what_is_not_ported(slice_dirs, tmp_path):
-    """Sequence parallelism (ROADMAP A8d) and tensor parallelism of a
-    dual-path package (A8b) raise; a TCN package serves tensor-parallel
-    (tests/test_torch_tp.py)."""
+    """Sequence parallelism (ROADMAP A8d) raises; a dual-path package
+    serves tensor-parallel, as a TCN package does (tests/test_torch_tp.py;
+    parity with JAX: tests/test_torch_dpt_tp.py)."""
     from convtasnet_tpu_torch.config import ConvTasNetConfig as PortConfig
     from convtasnet_tpu_torch.models.conv_tasnet import init_params
 
@@ -111,11 +111,12 @@ def test_separate_refuses_what_is_not_ported(slice_dirs, tmp_path):
     dpt_pkg = str(tmp_path / "dpt.pt")
     save_inference_package(dpt_pkg, dpt_cfg, init_params(
         dpt_cfg, torch.Generator().manual_seed(0)))
-    for pkg, flag, item in (
-            (slice_dirs["pkg"], dict(sequence_parallel=True), "ROADMAP A8d"),
-            (dpt_pkg, dict(tensor_parallel=2), "ROADMAP A8b")):
-        with pytest.raises(NotImplementedError, match=item):
-            separate(pkg, out, **kw, **flag)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
+        separate(slice_dirs["pkg"], out, sequence_parallel=True, **kw)
+    assert separate(dpt_pkg, out, tensor_parallel=2, **kw) == 3
+    est = read_wav(os.path.join(out, sorted(
+        f for f in os.listdir(out) if f.endswith("_s1.wav"))[0]))[0]
+    assert np.isfinite(est).all() and np.abs(est).max() > 0
     with pytest.raises(ValueError, match="CUDA"):
         separate(slice_dirs["pkg"], out, use_pallas=True, **kw)
 

@@ -206,17 +206,14 @@ def test_cli_train_then_separate(tmp_path):
     (["--norm-type", "cLN", "--causal", "1", "--use-pallas", "1"],
      ValueError, "CUDA tensors"),
     (["--n-data", "2"], NotImplementedError, "ROADMAP A8c"),
-    (["--separator", "dpt", "--n-model", "2"], NotImplementedError,
-     "ROADMAP A8b"),
 ])
 def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, error, item,
                                               monkeypatch):
-    """Data parallelism is refused before any data is read, and tensor
-    parallelism of the dual-path separator before its model is built (the
-    TCN's trains, tests/test_torch_tp.py); a causal cLN model with the
-    kernels insisted on trains through them, and on CPU tensors it is
-    refused at the first step for want of CUDA tensors (no fallback to the
-    plain ops)."""
+    """Data parallelism is refused before any data is read (tensor
+    parallelism trains: the TCN's in tests/test_torch_tp.py, the dual-path
+    separator's below); a causal cLN model with the kernels insisted on
+    trains through them, and on CPU tensors it is refused at the first step
+    for want of CUDA tensors (no fallback to the plain ops)."""
     from convtasnet_tpu_torch import cli
 
     monkeypatch.setenv("CONVTASNET_SEGMENT_CACHE", str(tmp_path / "cache"))
@@ -232,3 +229,33 @@ def test_cli_train_refuses_what_is_not_ported(tmp_path, flags, error, item,
                   "--N", "16", "--L", "8", "--B", "12", "--H", "24", "--X",
                   "2", "--R", "1", "--segment", "0.5", "--batch-size", "2",
                   "--epochs", "1", "--num-workers", "0", *flags])
+
+
+def test_cli_train_dpt_n_model_trains(tmp_path, monkeypatch):
+    """``--separator dpt --n-model 2``, once refused, trains one tiny epoch
+    on the CPU with the dual-path heads and FFN width split over two shards
+    (parity with JAX: tests/test_torch_dpt_tp.py): finite losses, a
+    best-model package."""
+    import json
+
+    from convtasnet_tpu_torch import cli
+
+    monkeypatch.setenv("CONVTASNET_SEGMENT_CACHE", str(tmp_path / "cache"))
+    root, json_dir = str(tmp_path / "wavs"), str(tmp_path / "json")
+    _write_corpus(root, [4000] * 2, split="tr", seed=0)
+    _write_corpus(root, [4000], split="cv", seed=1)
+    assert cli.main(["preprocess", "--data-dir", root, "--out-dir",
+                     json_dir]) == 0
+    out = str(tmp_path / "exp")
+    assert cli.main([
+        "train", "--train-dir", os.path.join(json_dir, "tr"),
+        "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder", out,
+        "--device", "cpu", "--N", "16", "--L", "8", "--B", "64",
+        "--dpt-chunk", "16", "--dpt-layers", "1", "--dpt-heads", "2",
+        "--dpt-ff", "128", "--segment", "0.5", "--batch-size", "2",
+        "--epochs", "1", "--num-workers", "0", "--separator", "dpt",
+        "--n-model", "2"]) == 0
+    with open(os.path.join(out, "history.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    assert losses and all(np.isfinite(losses))
+    assert os.path.exists(os.path.join(out, "final.ckpt"))

@@ -193,7 +193,9 @@ def test_tp_train_step_matches_jax(step_case):
 
 def test_tp_train_step_multi_and_refusals():
     """``.multi`` runs its batches in turn; BN and the dual-path family
-    are refused, as in JAX (the latter names ROADMAP A8b)."""
+    are refused, as in JAX (the latter names its own step,
+    ``make_dpt_tp_train_step``), and ``tp_forward`` serves a dual-path
+    config through ``dpt_tp_forward``."""
     devices = shard_devices(2, "cpu")
     ps = pts.create_train_state(TINY, SolverConfig(), use_pallas=False)
     step = ptp.make_tcn_tp_train_step(TINY, devices)
@@ -205,11 +207,16 @@ def test_tp_train_step_multi_and_refusals():
     with pytest.raises(ValueError, match="BN"):
         ptp.make_tcn_tp_train_step(
             dataclasses.replace(TINY, norm_type="BN"), devices)
-    dpt = dataclasses.replace(TINY, separator="dpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+    dpt = dataclasses.replace(TINY, separator="dpt", bottleneck=64,
+                              dpt_chunk=16, dpt_layers=1, dpt_heads=2,
+                              dpt_ff=128)
+    with pytest.raises(ValueError, match="make_dpt_tp_train_step"):
         ptp.make_tcn_tp_train_step(dpt, devices)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        ptp.tp_forward(dpt, {}, torch.zeros(1, T), devices)
+    sd = ConvTasNet(dpt, generator=torch.Generator().manual_seed(0)
+                    ).state_dict()
+    with torch.no_grad():
+        est = ptp.tp_forward(dpt, sd, torch.ones(1, T), devices)
+    assert est.shape == (1, 2, T) and torch.isfinite(est).all()
     with pytest.raises(ValueError, match="does not split"):
         ptp.shard_variables(TINY, {}, shard_devices(3, "cpu"))
 
