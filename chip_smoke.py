@@ -29,8 +29,10 @@ Phases, each raising on failure (so the script exits nonzero):
    the JAX pair gate (6e-2 / 3e-3), and kernel B5 (the gLN pair backward)
    at kernel 2's gates on all 19 cotangents (the four PReLU slopes as one
    vector; one by one in f32 with every slope at 1, where no PReLU branch
-   can flip), twice to the same bits; B4 equals two chained kernel-1 calls
-   and B5 chained kernels 1 + 2 + 2, to the bit;
+   can flip), twice to the same bits; B4 against two chained kernel-1
+   calls and B5 against chained kernels 1 + 2 + 2: in f32 to the bit (the
+   same code), in bf16, where kernels 1 and 2 run the Hopper core and the
+   pairs the first design, within the pair gate and kernel 2's bar;
 5. the three DPT sublayer kernels (inter, intra, FFN) against their twins
    at the DPT quality default's widths ([8, n, 128, 256], 8 heads, F=1024)
    with the real key mask, n = 1 (100 real frames), 25 (4 s) and 94
@@ -64,7 +66,7 @@ Phases, each raising on failure (so the script exits nonzero):
    batch), through the single blocks (``=0``: kernel 1 32 times) and
    through the plain ops: 12 wavs each, finite and of the right length,
    the kernel paths within the forward bars of the plain path and equal to
-   each other; ``tp_forward`` of the same config at B=8 x 4 s over two and
+   each other (in bf16 within the pair gate); ``tp_forward`` of the same config at B=8 x 4 s over two and
    four shards on cuda:0, bf16 and f32: 32 m launches of B6 and no other
    TCN kernel, within the forward bars of the unsharded kernel and plain
    paths;
@@ -122,7 +124,8 @@ Phases, each raising on failure (so the script exits nonzero):
    as one vector (the TCN's; the DPT has no scalar leaves); in bf16 the
    loss within 4e-2 and the kernel path's gradient no further from the
    f32 gradient than max(8e-2, 1.25x the plain bf16 path's); the gLN
-   kernel path with pairs on and off (the same gradient bits) and the
+   kernel path with pairs on and off (in f32 the same gradient bits, in
+   bf16 each within the gate, and within it of each other) and the
    tensor-parallel step over two shards (64 B6 launches), each kernel's
    launches exact; the DPT's tensor-parallel step over two shards (the
    partial kernels 2 x (4, 4, 8) times forward and backward); and one
@@ -430,9 +433,11 @@ def phase_pair_vs_twin(torch, k):
     each pair (1, 2), (4, 8), (16, 32), (64, 128): gLN non-causal and cLN
     causal, plus gLN causal and cLN non-causal at (4, 8), bf16 and f32, at
     the JAX pair gate (1.5x the block's: 6e-2 / 3e-3). Beside it, B4
-    against two chained kernel-1 calls, which run the same code on the same
-    operands: the same bits. Every case is printed before the phase fails;
-    returns the worst max_abs_err against the twin."""
+    against two chained kernel-1 calls: in f32 they run the same code on
+    the same operands, the same bits; in bf16 kernel 1 runs the Hopper core
+    and B4 the first design's launches, within the pair gate. Every case is
+    printed before the phase fails; returns the worst max_abs_err against
+    the twin."""
     pair, tcn = k["pair"], k["tcn"]
     cases = ([(d1, d2, "gLN", False) for d1, d2 in PAIRS]
              + [(d1, d2, "cLN", True) for d1, d2 in PAIRS]
@@ -454,17 +459,22 @@ def phase_pair_vs_twin(torch, k):
             err = rel_l2(got, want)
             abs_err = (got.float() - want.float()).abs().max().item()
             vs_two = (got.float() - two.float()).abs().max().item()
+            rel_two = rel_l2(got, two)
             worst = max(worst, abs_err)
             print(f"pair kernel vs twin [8,3199,256] H=512 {norm} causal="
                   f"{int(causal)} {name} d=({d1},{d2}): rel_l2 {err:.3e} (bar "
                   f"{PAIR_TOL[name]:.0e}) max_abs {abs_err:.3e}; vs two "
-                  f"kernel-1 calls max_abs {vs_two:.3e}", flush=True)
+                  f"kernel-1 calls max_abs {vs_two:.3e} rel_l2 "
+                  f"{rel_two:.3e}", flush=True)
             if not torch.isfinite(got).all().item() or err > PAIR_TOL[name]:
                 failures.append(f"{norm} causal={int(causal)} {name} "
                                 f"d=({d1},{d2}): {err:.3e}")
-            if vs_two != 0.0:
+            if dtype == torch.float32 and vs_two != 0.0:
                 failures.append(f"{norm} {name} d=({d1},{d2}): not the bits "
                                 f"of two kernel-1 calls ({vs_two:.3e})")
+            if dtype == torch.bfloat16 and rel_two > PAIR_TOL[name]:
+                failures.append(f"{norm} {name} d=({d1},{d2}): two kernel-1 "
+                                f"calls rel_l2 {rel_two:.3e}")
     check(not failures, "pair kernel disagrees: " + "; ".join(failures))
     return worst
 
@@ -516,9 +526,12 @@ def phase_pair_bwd_vs_twin(torch, k):
     no branch flip moves a slope gradient, all 19 one by one against exact
     f32 and against float64, at 4e-3.
     B5 run twice gives the same bits, and equals chained kernel 1 + 2 + 2
-    (block 2's backward at x1, then block 1's at its cotangent) to the bit:
-    kernel 2's own gates hold each block. Every case is printed before the
-    phase fails; returns the worst max_abs_err against the twin (g = 1)."""
+    (block 2's backward at x1, then block 1's at its cotangent): in f32 to
+    the bit (the same code), in bf16, where kernels 1 and 2 run the Hopper
+    core and B5 the first design's launches, within kernel 2's bar, held as
+    the random cotangent is held; kernel 2's own gates hold each block.
+    Every case is printed before the phase fails; returns the worst
+    max_abs_err against the twin (g = 1)."""
     pair_bwd, tcn, bwd = k["pair_bwd"], k["tcn"], k["bwd"]
     cases = ([(d1, d2, False, 0.25) for d1, d2 in PAIRS]
              + [(4, 8, True, 0.25), (1, 2, False, -0.1)])
@@ -588,6 +601,7 @@ def phase_pair_bwd_vs_twin(torch, k):
                          for u, v in zip(flat, pair_grads(again)))
             vs_chain = max((u.float() - v.float()).abs().max().item()
                            for u, v in zip(flat, chained))
+            chain_err = errors(got, (dx0, wa, wb))
             if not all(torch.isfinite(q).all().item() for q in flat):
                 failures.append(f"non-finite cotangent at d=({d1},{d2}) "
                                 f"{name}")
@@ -609,7 +623,8 @@ def phase_pair_bwd_vs_twin(torch, k):
                      f"{per_slope(twin, exact)})"
                      if dtype == torch.bfloat16 else "")
                   + f"; twice the same bits {repeat}; vs chained kernels "
-                  f"1+2+2 max_abs {vs_chain:.3e}", flush=True)
+                  f"1+2+2 max_abs {vs_chain:.3e}, {fmt(chain_err)}",
+                  flush=True)
             if max(gate.values()) > BWD_TOL[name]:
                 failures.append(f"g=1 gate at d=({d1},{d2}) {name}: "
                                 f"{fmt(gate)}")
@@ -618,9 +633,13 @@ def phase_pair_bwd_vs_twin(torch, k):
                                 f"{fmt(held)}")
             if not repeat:
                 failures.append(f"two runs differ at d=({d1},{d2}) {name}")
-            if vs_chain != 0.0:
+            if dtype == torch.float32 and vs_chain != 0.0:
                 failures.append(f"not the bits of chained kernels 1+2+2 at "
                                 f"d=({d1},{d2}) {name} ({vs_chain:.3e})")
+            if dtype == torch.bfloat16 and max(
+                    chain_err.values()) > BWD_TOL[name]:
+                failures.append(f"chained kernels 1+2+2 at d=({d1},{d2}) "
+                                f"{name}: {fmt(chain_err)}")
     for d1, d2 in PAIRS:
         # every slope at 1: PReLU is the identity, so no branch flip moves a
         # slope gradient, and all 19 are held one by one in f32
@@ -1113,12 +1132,24 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
             if not all(torch.isfinite(v).all().item() for v in flat.values()):
                 failures.append(f"non-finite gradients ({dtype}, seed {seed})")
             if "kernel, pairs off" in kernel_paths:
+                # f32: the pairs run the singles' code, the same bits. bf16:
+                # the singles run the Hopper core and the pairs the first
+                # design; two bf16 evaluations of the step's gradient sit
+                # 0.05-0.2 apart (the plain path against itself reordered),
+                # so the two paths are held to each other by the gate that
+                # holds each of them to the f32 gradient below
                 same = torch.equal(flat["kernel"], flat["kernel, pairs off"])
+                apart = rel_l2(flat["kernel"], flat["kernel, pairs off"])
+                pbar = (max(BWD_TOL[dtype], 1.25 * rel_l2(flat["plain"],
+                                                          f32_grads))
+                        if dtype == "bfloat16" else 0.0)
                 print(f"train step {label} {dtype} seed {seed}: pairs on and "
-                      f"off give the same gradient bits {same}", flush=True)
-                if not same:
+                      f"off give the same gradient bits {same}, rel_l2 "
+                      f"{apart:.3e} (bar {pbar:.3e})", flush=True)
+                if (not same if dtype == "float32" else apart > pbar):
                     failures.append(f"{label} {dtype} seed {seed}: the pairs' "
-                                    "gradient differs from the singles'")
+                                    f"gradient differs from the singles' "
+                                    f"({apart:.3e})")
             for kpath in kernel_paths:
                 lk, gk = res[kpath]
                 loss_rel = abs(lk - lp) / abs(lp)
@@ -1246,8 +1277,13 @@ def phase_main_path(torch, k, work: str):
                   f"{err:.3e} (bar {TOL[dtype]:.0e})", flush=True)
             check(err <= TOL[dtype], f"separated outputs disagree ({dtype}, "
                   f"{path}): {err:.3e}")
-        check(torch.equal(outs["kernel"], outs["kernel, pairs off"]),
-              f"separate {dtype}: the pairs and the single blocks differ")
+        # f32: the pairs run the singles' code, the same bits; bf16: the
+        # singles run the Hopper core, within the pair gate
+        apart = rel_l2(outs["kernel"], outs["kernel, pairs off"])
+        check(torch.equal(outs["kernel"], outs["kernel, pairs off"])
+              if dtype == "float32" else apart <= PAIR_TOL[dtype],
+              f"separate {dtype}: the pairs and the single blocks differ "
+              f"({apart:.3e})")
 
 
 DPT_S, DPT_B, DPT_F, DPT_HEADS = 128, 256, 1024, 8   # the DPT quality default

@@ -9,49 +9,61 @@
 //   out = x + norm2(y) @ W_out                     W_out [H,B]
 //
 // What bounds it on the card. At the paper shape (M=8 rows of 4 s, K=3199
-// frames, B=256, H=512) the two products are about 13 GFLOP per block, and
-// the [K,H] intermediates h and y are about 26 MB each per round trip in bf16.
-// The Pallas kernel kept one sample's whole [K,H] activation in VMEM (3.3 MB
-// in bf16); an SM has at most 227 KB of shared memory, so that design does
-// not carry over. gLN needs a statistic over the whole sample before the
-// normalised values can be used, twice per block, so the block is split at
-// those two points into three launches, each over a grid of
-// (row tile, column tile, sample):
+// frames, B=256, H=512) the two products are 13.5 GFLOP per block (13.6 us
+// at the bf16 tensor-core peak) and x, h, y and out are 13, 26, 26 and 13
+// MB in bf16. The Pallas kernel kept one sample's whole [K,H] activation in
+// VMEM (3.3 MB in bf16); an SM has at most 227 KB of shared memory, so that
+// design does not carry over. gLN needs a statistic over the whole sample
+// before the normalised values can be used, twice per block, so the block
+// is split at those two points.
 //
-//   A  h = PReLU(x @ W_in) -> h in the compute dtype, plus per-tile partial
-//      sums of h and h^2 in f32 (per tile for gLN, per row for cLN).
-//   B  reduce A's partials to the statistics of norm1, apply norm1 inside the
-//      dilated depthwise conv (a tap outside [0,K) contributes zero after
-//      normalisation, as zero padding of the normalised input does), PReLU
-//      -> y, plus partial sums of y and y^2.
-//   C  reduce B's partials and fold norm2 into the output product:
-//        out = x + rs*((y*g) @ W_out - mu*(g @ W_out)) + b @ W_out
-//      with g, b the per-channel scale and shift of norm2 (for BN the running
-//      statistics are folded into them and mu=0, rs=1). The sample-free part
-//      of that fold, W_eff = diag(g) W_out in the compute dtype and the
-//      column sums g @ W_out (of W_eff as rounded) and b @ W_out, is made
-//      once per call by a small launch before A, so C's product reads W_eff
-//      as it is.
+// bf16, the speed path (tcn_block_hopper.cuh, on hopper_gemm.cuh's wgmma
+// core): prep + A' + B' + C', and y never reaches device memory, as in the
+// Pallas kernel's gLN "recompute" variant:
+//
+//   prep (gLN, BN) W_eff = diag(g2) W_out in bf16 and partials of the
+//      column sums g2 @ W_out (of W_eff as rounded) and b2 @ W_out (for BN
+//      the running statistics folded in), once per call, over the whole
+//      card (out_weights_wg_kernel).
+//   A' h = PReLU(x @ W_in) in bf16 and norm1's partial sums. A CTA holds
+//      128 rows of x resident and streams W_in past them for all H columns,
+//      so x is read once.
+//   B' (gLN only) norm1 inside the dilated depthwise conv (a tap outside
+//      [0,K) contributes zero after normalisation, as zero padding of the
+//      normalised input does) + PReLU -> the partial sums of y and y^2
+//      only; y is not stored.
+//   C' per 128-row tile: y recomputed from h rows [r0 - left, r0 + 128 +
+//      right) into shared memory, rounded to bf16 there where the Pallas
+//      kernel rounds it. gLN and BN (its emit_raw, y.astype(w_out.dtype)):
+//      y as it is, then the output product with norm2 folded in:
+//        out = x + rs*((y*g) @ W_out - mu*(g @ W_out)) + b @ W_out.
+//      cLN (its emit_tile): C' holds whole rows of y, so it takes each
+//      row's statistics as it computes the row and rounds the normalised
+//      row, out = x + norm2(y) @ W_out, with no fold and no W_eff.
+//
+// Bytes: x twice, h written once and read twice (C' reads its halo rows
+// through the 50 MB L2, which holds the whole 26 MB h), out once: ~117 MB
+// against ~330 MB for the launches below. cLN has no B' and no prep, BN no
+// B' (its statistics are folded).
+//
+// f32 keeps exact f32 products on the first design (tcn_block_common.cuh):
+// prep + A + B + C on a 64x64 tile (FMA in f32, WMMA in bf16), y through
+// device memory. bf16 runs it too at the widths the Hopper stages do not
+// take (wg_widths_ok), and the block pair (B4) runs it in both dtypes.
 //
 // Statistics are reduced deterministically: every tile writes its own
 // partial and the next launch sums them in a fixed order (in double), so no
 // atomics are used and a rerun gives the same bits. Each launch masks the
 // ragged row edge itself; x is not padded.
-//
-// The products are a plain tiled shared-memory GEMM (64x64 output tile,
-// depth 32, 4 warps; tcn_block_common.cuh): WMMA bf16 tensor-core fragments
-// with f32 accumulation for bf16, FMA for f32. It is written for correctness
-// first: there is no cp.async/TMA pipelining and no wgmma yet, so the
-// products run well below the card's tensor-core rate; A and C also re-read
-// x (or y) once per column tile. Those are the next steps when this kernel
-// is made fast.
 
 #include "tcn_block_common.cuh"
+#include "tcn_block_hopper.cuh"
 
-// The prep launch and launches A, B and C (out_weights_kernel,
-// in_proj_kernel, dwconv_kernel, out_proj_kernel) and Params are in the
-// header, because the backward and the block pair (tcn_block_pair.cu) rerun
-// them.
+// The prep launch and the f32 launches A, B and C (out_weights_kernel,
+// in_proj_kernel, dwconv_kernel, out_proj_kernel) and Params are in
+// tcn_block_common.cuh, because the f32 backward and the block pair
+// (tcn_block_pair.cu) rerun them; A' and C' are in tcn_block_hopper.cuh,
+// because the bf16 backward reruns A'.
 
 namespace {
 
@@ -79,17 +91,39 @@ int launch_norm(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 block: prep (gLN, BN), A', B' (gLN), C'.
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  if (!dw_layout_ok(p.H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.norm != kNormCLN) {
+    out_weights_wg_kernel<<<dim3(p.B / 32, p.H / kSlabK), dim3(32, 8), 0,
+                            stream>>>(p);
+    CTN_CHECK();
+  }
+  int err = launch_in_proj_wg<false>(p, stream);
+  if (err != 0) return err;
+  const int n_a = in_proj_wg_parts(p.K, p.H, p.norm);
+  const int kt = (p.K + kWgRows - 1) / kWgRows;
+  if (p.norm == kNormGLN) {
+    dw_stats_kernel<<<dim3(kt, p.M), kWgCta, 0, stream>>>(p, n_a);
+    CTN_CHECK();
+  }
+  return launch_out_proj_wg(p, n_a, kt, stream);
+}
+
 template <typename T>
 int launch(const Params& p, cudaStream_t stream) {
+  if (p.norm < kNormGLN || p.norm > kNormBN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (wg_widths_ok(p.B, p.H)) return launch_bf16(p, stream);
+  }
   switch (p.norm) {
     case kNormGLN:
       return launch_norm<T, kNormGLN>(p, stream);
     case kNormCLN:
       return launch_norm<T, kNormCLN>(p, stream);
-    case kNormBN:
-      return launch_norm<T, kNormBN>(p, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_norm<T, kNormBN>(p, stream);
 }
 
 Params make_params(const void* x, const void* w_in, const void* dw,
@@ -160,6 +194,14 @@ const char* ctn_error_string(int err) {
 int ctn_tcn_block_partials(int K, int H, int norm, long long* n_a,
                            long long* n_b) {
   return part_counts(K, H, norm, n_a, n_b);
+}
+
+// 1 if the forward of a block of these widths (is_bf16: 1 for bf16, 0 for
+// f32) keeps y in device memory, in the caller's buffer of M * K * H
+// elements (the first design); 0 if it recomputes y and never touches the
+// buffer (the Hopper stages: bf16 at wg_widths_ok).
+int ctn_tcn_block_stores_y(int B, int H, int is_bf16) {
+  return is_bf16 && wg_widths_ok(B, H) ? 0 : 1;
 }
 
 // Forward of one block; every pointer is device memory, `stream` is a

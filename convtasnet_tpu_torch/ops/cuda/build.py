@@ -126,6 +126,7 @@ def load_library() -> ctypes.CDLL:
         "ctn_tcn_block_f32": _BLOCK_ARGTYPES,
         "ctn_tcn_block_bf16": _BLOCK_ARGTYPES,
         "ctn_tcn_block_partials": [_I, _I, _I, _LL_P, _LL_P],
+        "ctn_tcn_block_stores_y": [_I, _I, _I],
         "ctn_tcn_block_bwd_f32": _BWD_ARGTYPES,
         "ctn_tcn_block_bwd_bf16": _BWD_ARGTYPES,
         "ctn_tcn_block_bwd_cln_f32": _BWD_ARGTYPES,
@@ -155,6 +156,8 @@ def load_library() -> ctypes.CDLL:
         "ctn_dpt_ffn_bwd_f32": _FFN_BWD_ARGTYPES,
         "ctn_dpt_ffn_bwd_bf16": _FFN_BWD_ARGTYPES,
         "ctn_dpt_ffn_bwd_workspace": [_I] * 4 + [_LL_P, _LL_P],
+        "ctn_wg_matmul_check": [_P] * 3 + [_I] * 5 + [_P],
+        "ctn_wg_wgrad_check": [_P] * 2 + [_I] * 4 + [_P] * 2,
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

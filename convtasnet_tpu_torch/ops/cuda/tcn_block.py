@@ -113,6 +113,14 @@ fused_tcn_block.launches = 0
 
 
 @functools.lru_cache(maxsize=64)
+def _stores_y(B: int, H: int, bf16: bool) -> bool:
+    """Whether the kernel at these widths keeps y in device memory (the
+    first design) or recomputes it (the bf16 Hopper stages; which widths
+    they take lives in tcn_block.cu)."""
+    return bool(load_library().ctn_tcn_block_stores_y(B, H, int(bf16)))
+
+
+@functools.lru_cache(maxsize=64)
 def _partials(K: int, H: int, norm_code: int) -> Tuple[int, int]:
     """(sum, sum of squares) partials per sample (gLN) or per row (cLN)
     that launches A and B write; the tile sizes live in tcn_block.cu."""
@@ -169,18 +177,22 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
     if any(v.numel() != 1 for v in vecs[:2]) or any(
             v.numel() != H for v in vecs[2:]):
         raise ValueError("PReLU slopes must be scalars and norm vectors [H]")
-    for t in (x, w_in, w_out):
+    for t in (x, w_in, dw, w_out):
         if t.data_ptr() % 16:
-            raise ValueError("the kernel needs 16-byte aligned x, w_in, w_out")
+            raise ValueError("the kernel needs 16-byte aligned x, w_in, dw, "
+                             "w_out")
 
     code = NORM_CODES[norm_type]
     n_a, n_b = _partials(K, H, code)
     rows = M if norm_type == "gLN" else M * K   # partials per sample or row
     f32 = dict(dtype=torch.float32, device=x.device)
     h = torch.empty((M, K, H), dtype=dt, device=x.device)
-    y = torch.empty((M, K, H), dtype=dt, device=x.device)
+    # the bf16 Hopper stages recompute y inside the output launch
+    y = (torch.empty((M, K, H), dtype=dt, device=x.device)
+         if _stores_y(B, H, dt == torch.bfloat16) else None)
     w_eff = torch.empty((H, B), dtype=dt, device=x.device)
-    wsum = torch.empty(2 * B, **f32)
+    # the column sums g2 @ W_out and b2 @ W_out, per 64-row block in bf16
+    wsum = torch.empty(2 * B * (H // TILE), **f32)
     part_a = torch.empty(2 * rows * n_a, **f32) if n_a else None
     part_b = torch.empty(2 * rows * n_b, **f32) if n_b else None
     out = torch.empty_like(x)
@@ -195,7 +207,7 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
         err = getattr(lib, _ENTRY[dt])(
             x.data_ptr(), w_in.data_ptr(), dw.data_ptr(), w_out.data_ptr(),
             *[v.data_ptr() for v in vecs[:6]], *bn_ptrs,
-            h.data_ptr(), y.data_ptr(), w_eff.data_ptr(), wsum.data_ptr(),
+            h.data_ptr(), ptr(y), w_eff.data_ptr(), wsum.data_ptr(),
             ptr(part_a), ptr(part_b), out.data_ptr(),
             M, K, B, H, P, dilation, int(causal), code, stream)
     if err != 0:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Plant known faults in copies of the DPT sublayer kernels, of the cLN
-block backward (kernel B3), of the TCN block pair (kernels B4 and B5), of
+"""Plant known faults in copies of the TCN block forward (kernel B1) and
+its gLN backward (B2) on the Hopper core, of the DPT sublayer kernels, of
+the cLN block backward (B3), of the TCN block pair (B4 and B5), of
 the TCN's tensor parallelism (kernel B6 and the shard sum around it) and
 of the dual-path tensor parallelism (the partial kernels B7p-B12p and
 the shard sums around them), and report which checks see each one. Needs
@@ -13,7 +14,10 @@ build directory), ``chip_smoke.py``, ``pyproject.toml`` and
 ``tests/test_torch_cuda.py`` into a temporary directory, edits one line of
 the copy (a kernel source, or a module around one), and runs there,
 against the edited code, the
-smoke phases of the kernel's kind (``PHASES``: for a DPT forward kernel
+smoke phases of the kernel's kind (``PHASES``: for B1
+``chip_smoke.phase_kernel_vs_twin`` gLN and cLN causal and
+``phase_step_compare(torch, "tcn")``, for B2 ``phase_bwd_vs_twin(torch,
+bwd)`` and ``phase_step_compare(torch, "tcn")``, for a DPT forward kernel
 ``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, for a
 DPT backward ``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch,
 "dpt")``, for B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
@@ -80,19 +84,60 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
         "round_to<T>(pj * (dot(dav, vv) - st[2]) * scale)",
         "round_to<T>(pj * (dot(dav, vv) - st[2]))"),
-    # the cLN block backward (B3)
+    # the TCN block forward (B1) on the Hopper core: C' recomputing y with
+    # its taps one row off (the halo shifted by one), and B' writing
+    # sample m's norm2 partials into the next sample's slots
+    "b1_c_halo_off_by_one": ("block_forward",
+        "convtasnet_tpu_torch/csrc/tcn_block_hopper.cuh",
+        "static_cast<const bf16*>(p.dw), K, H, P, d, left, r0, cg, rg,",
+        "static_cast<const bf16*>(p.dw), K, H, P, d, left + 1, r0, cg, rg,"),
+    "b1_b_stats_of_next_sample": ("block_forward",
+        "convtasnet_tpu_torch/csrc/tcn_block_hopper.cuh",
+        "    float* dst = p.part_b + 2 * (static_cast<size_t>(m) * gridDim.x + "
+        "blockIdx.x);",
+        "    float* dst = p.part_b + 2 * (static_cast<size_t>((m + 1) % "
+        "gridDim.y) * gridDim.x + blockIdx.x);"),
+    # B1's cLN path in C': the normalised row rounded without norm2's
+    # shift b2 (the b2 @ W_out term of the fold it replaced, forgotten),
+    # and the row's two warps at H = 512 not waiting for each other's half
+    # of the row sums (a race)
+    "b1_cln_shift_dropped": ("block_forward",
+        "convtasnet_tpu_torch/csrc/tcn_block_hopper.cuh",
+        "yv[j] = k < K ? (yv[j] - mu) * rs * g2[j] + b2[j] : 0.f;",
+        "yv[j] = k < K ? (yv[j] - mu) * rs * g2[j] : 0.f;"),
+    "b1_cln_row_halves_unsynced": ("block_forward",
+        "convtasnet_tpu_torch/csrc/tcn_block_hopper.cuh",
+        "if (n_seg > 1)",
+        "if (n_seg < 1)"),
+    # the gLN block backward (B2): G1' writing F3's partials (t1, t2) into
+    # the next sample's slots, and the split-row weight gradients summing
+    # the rows past the last one (read beyond the operands, not zeros)
+    "b2_f3_stats_of_next_sample": ("block_backward",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "      float* dst = p.part + 2 * (static_cast<size_t>(m) * gridDim.x + "
+        "bx);",
+        "      float* dst = p.part + 2 * (static_cast<size_t>((m + 1) % "
+        "gridDim.y) * gridDim.x + bx);"),
+    "b2_wgrad_rows_past_the_end": ("block_backward",
+        "convtasnet_tpu_torch/csrc/hopper_gemm.cuh",
+        "  const int r_end = min(rows, r0 + chunk);",
+        "  const int r_end = r0 + chunk;"),
+    # the cLN block backward (B3), in bf16 on the Hopper stages
+    # (tcn_block_bwd.cu: E2' as it runs at P = 3, e2_dc_kernel) and, for the
+    # row finaliser both dtypes run, in tcn_block_bwd_common.cuh
     "cln_bwd_tap_stats_of_output_row": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
-        "const float* sk = stat_row<kNorm>(p, m, kh);",
-        "const float* sk = stat_row<kNorm>(p, m, j);"),
-    "cln_bwd_g1_row_sum_one_warp_twice": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
-        "dst[1] = s_row[1][w][r] + s_row[1][w + 1][r];",
-        "dst[1] = s_row[1][w][r] + s_row[1][w][r];"),
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "              const float* sk = stat_at(p, true, m, kh);",
+        "              const float* sk = stat_at(p, true, m, j);"),
+    "cln_bwd_g1_row_sum_half_twice": ("cln_backward",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "            q2 = group_sum(q2, kSeg);",
+        "            q2 = 2.f * group_sum(q2, kSeg / 2);"),
     "cln_bwd_e2_row_partial_shifted": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
-        "float* dst = row_slot(p.part, K, m, r0 + i);",
-        "float* dst = row_slot(p.part, K, m, r0 + (i + 1) % kDwRows);"),
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "2 * ((static_cast<size_t>(m) * K + j) * gridDim.y + blockIdx.y);",
+        "2 * ((static_cast<size_t>(m) * K + (j + 1) % K) * gridDim.y + "
+        "blockIdx.y);"),
     "cln_bwd_row_mean_over_h_minus_1": ("cln_backward",
         "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
         "st[slot + 1] = static_cast<float>(s2 / H);",
@@ -163,6 +208,11 @@ FAULTS = {
 # whether or not an earlier one failed, and prints "PHASE <call>: passed"
 # or "PHASE <call>: FAILED <reason>"; then the card tests that -k selects.
 PHASES = {
+    "block_forward": ["phase_kernel_vs_twin(torch, k['tcn'])",
+                      "phase_kernel_vs_twin(torch, k['tcn'], 'cLN', True)",
+                      "phase_step_compare(torch, 'tcn')"],
+    "block_backward": ["phase_bwd_vs_twin(torch, bwd)",
+                       "phase_step_compare(torch, 'tcn')"],
     "dpt_forward": ["phase_dpt_kernels_vs_twin(torch, dpt)",
                     "phase_dpt_forward(torch, dpt)"],
     "dpt_backward": ["phase_dpt_bwd_vs_twin(torch, dpt)",
@@ -179,7 +229,11 @@ PHASES = {
                "phase_dpt_tp_forward(torch, dpt)",
                "phase_step_compare(torch, 'dpt')"],
 }
-CARD_TESTS = {"dpt_forward": "dpt", "dpt_backward": "dpt",
+CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
+                               "or fused_block_ad or rounding_points",
+              "block_backward": "bwd or fused_block_ad or train_grads or "
+                                "wgmma",
+              "dpt_forward": "dpt", "dpt_backward": "dpt",
               "cln_backward": "cln", "pair": "pair", "tp": "tp_",
               "dpt_tp": "partial or dpt_tp"}
 RUNNER = """

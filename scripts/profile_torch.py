@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Device time by CUDA kernel for the PyTorch port's DPT forward or train
-step, on one GPU.
+"""Device time by CUDA kernel for the PyTorch port's TCN or DPT forward or
+train step, on one GPU.
 
-    PYTHONPATH=. python3 scripts/profile_dpt_torch.py [forward|train] \\
-        [--batch 8] [--seconds 4] [--iters 10]
+    PYTHONPATH=. python3 scripts/profile_torch.py {tcn,dpt} [forward|train] \\
+        [--norm gLN|cLN] [--batch 8] [--seconds 4] [--iters 10]
 
-Runs the dual-path quality default (``--separator dpt``, bf16, random
-weights from seed 0) at [batch, seconds * 8 kHz] through the hand-written
-kernels: ``forward`` (the default) a forward under inference mode,
+Runs a model in bf16 with random weights from seed 0 at [batch, seconds *
+8 kHz] through the hand-written kernels: ``tcn`` the paper config (gLN;
+``--norm cLN`` its causal cLN variant) with block pairs off, the default
+(``CONVTASNET_PAIR_FUSION=0``), ``dpt`` the dual-path quality default
+(``--separator dpt``). ``forward`` (the default) a forward under inference mode,
 ``train`` one train step (forward, uPIT loss, backward, clip, Adam) on a
 seeded batch. It warms up, then traces ``--iters`` calls with
 ``torch.profiler`` and prints each CUDA kernel's device time per call and
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import subprocess
 import sys
 
@@ -51,8 +54,11 @@ def _train(torch, cfg, batch: int, T: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("model", choices=["tcn", "dpt"])
     ap.add_argument("mode", nargs="?", default="forward",
                     choices=["forward", "train"])
+    ap.add_argument("--norm", default="gLN", choices=["gLN", "cLN"],
+                    help="the TCN's norm; cLN runs it causal")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=4.0)
     ap.add_argument("--iters", type=int, default=10)
@@ -64,12 +70,21 @@ def main() -> int:
     from convtasnet_tpu_torch import ConvTasNetConfig
 
     if not torch.cuda.is_available():
-        print("profile_dpt_torch: no CUDA device", file=sys.stderr)
+        print("profile_torch: no CUDA device", file=sys.stderr)
         return 1
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16")
+    from convtasnet_tpu_torch.models.conv_tasnet import PAIR_ENV
+
+    os.environ[PAIR_ENV] = "0"
+    if a.model == "dpt":
+        cfg = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16")
+        label = "dpt"
+    else:
+        cfg = ConvTasNetConfig(norm_type=a.norm, causal=a.norm == "cLN",
+                               compute_dtype="bfloat16")
+        label = f"tcn {a.norm}"
     build = _forward if a.mode == "forward" else _train
     call, ctx = build(torch, cfg, a.batch, int(a.seconds * cfg.sample_rate))
     with ctx:
@@ -95,7 +110,7 @@ def main() -> int:
     total = sum(e.self_device_time_total for e in rows) / a.iters
     unit = "forward" if a.mode == "forward" else "step"
     print(card)
-    print(f"dpt {a.mode} [{a.batch} x {a.seconds} s] bf16 kernel path: "
+    print(f"{label} {a.mode} [{a.batch} x {a.seconds} s] bf16 kernel path: "
           f"{wall_ms:.3f} ms per {unit} (CUDA events), device kernels "
           f"{total / 1e3:.3f} ms per {unit} (profiler), idle share "
           f"{1 - total / 1e3 / wall_ms:.3f}")

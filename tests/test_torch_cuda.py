@@ -120,6 +120,54 @@ class _pair_switch:
             os.environ[PAIR_ENV] = self.old
 
 
+# B1's two products at the paper shape, [M*K, B] @ [B, H] and [M*K, H] @
+# [H, B] (M=8, K=3199, B=256, H=512), as (rows, depth, columns)
+WG_SHAPES = [(25592, 256, 512), (25592, 512, 256)]
+
+
+def _wg_lib_call(name, *args):
+    from convtasnet_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.ctn_error_string(err).decode()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ta,tb", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("rows,depth,cols", WG_SHAPES)
+def test_wgmma_core_matches_matmul(cuda, rows, depth, cols, ta, tb):
+    """The Hopper product core (csrc/hopper_gemm.cuh) alone against exact
+    f32 products of the same bf16 operands, each operand K-major (ta, tb
+    0) or MN-major (1: read through wgmma's transpose bit): a swizzle or
+    descriptor fault shows here first. Only summation order differs."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + depth + cols)
+    a = torch.randn(rows, depth, device=cuda, generator=gen).bfloat16()
+    b = torch.randn(depth, cols, device=cuda, generator=gen).bfloat16()
+    a_st = a.t().contiguous() if ta else a
+    b_st = b if tb else b.t().contiguous()
+    c = torch.empty(rows, cols, device=cuda)
+    _wg_lib_call("ctn_wg_matmul_check", a_st.data_ptr(), b_st.data_ptr(),
+                 c.data_ptr(), rows, cols, depth, ta, tb)
+    assert _rel_l2(c, a.float() @ b.float()) <= 1e-5
+
+
+@pytest.mark.parametrize("ca,cb", [(512, 256), (256, 512)])
+def test_wgmma_wgrad_core_matches_matmul(cuda, ca, cb):
+    """The weight gradients' split-row product on the core, a^T @ b over
+    M*K = 25592 rows in chunks of 1024 (the last one ragged), against the
+    exact f32 product: dW_out = hn2^T g (ca = H) and dW_in = x^T dh_pre
+    (ca = B)."""
+    rows, chunk = 25592, 1024
+    gen = torch.Generator(device="cuda").manual_seed(ca)
+    a = torch.randn(rows, ca, device=cuda, generator=gen).bfloat16()
+    b = torch.randn(rows, cb, device=cuda, generator=gen).bfloat16()
+    part = torch.empty(-(-rows // chunk), ca, cb, device=cuda)
+    _wg_lib_call("ctn_wg_wgrad_check", a.data_ptr(), b.data_ptr(), rows, ca,
+                 cb, chunk, part.data_ptr())
+    assert _rel_l2(part.sum(0), a.float().t() @ b.float()) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm_type,causal,dilation", CASES)
 def test_kernel_matches_twin(cuda, dtype, norm_type, causal, dilation):
@@ -134,6 +182,136 @@ def test_kernel_matches_twin(cuda, dtype, norm_type, causal, dilation):
     assert got.dtype == dtype and torch.isfinite(got).all()
     want = port.fused_tcn_block_reference(*args, **kw)
     assert _rel_l2(got, want) <= TOL[dtype]
+
+
+def _samples_apart(x):
+    """x with sample i smoothed over 4**i frames, at scale 2**i and offset
+    i / 2: each sample's norm statistics far from its neighbours' (the
+    smoothing survives norm1, so the dilated conv gives y, and norm2, a
+    different spread per sample), so a statistic that a kernel reads from
+    another sample's slots shows."""
+    out = []
+    for i, xi in enumerate(x.float()):
+        w = 4 ** i
+        if w > 1:   # a moving average over w frames, back to unit spread
+            xi = torch.nn.functional.avg_pool1d(
+                xi.t()[None], w, 1, padding=w // 2,
+                count_include_pad=False)[0, :, :xi.shape[0]].t()
+            xi = xi / xi.std()
+        out.append(xi * 2.0 ** i + 0.5 * i)
+    return torch.stack(out).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
+def test_kernel_matches_twin_with_samples_apart(cuda, dtype, norm_type):
+    """Three samples whose statistics differ by factors of 2 and 4, each
+    sample held against its twin on its own at the forward bar."""
+    args, _ = _block_args(cuda, dtype, norm_type, m=3)
+    args = (_samples_apart(args[0]), *args[1:])
+    kw = dict(dilation=4, causal=norm_type == "cLN", norm_type=norm_type)
+    got = port.fused_tcn_block(*args, **kw)
+    want = port.fused_tcn_block_reference(*args, **kw)
+    for i in range(3):
+        assert _rel_l2(got[i], want[i]) <= TOL[dtype], i
+
+
+def _b1_at_its_rounding_points(x, w_in, dw, w_out, a1, a2, g1, b1, g2, b2,
+                               *, dilation, causal, norm_type="gLN"):
+    """The bf16 gLN or cLN block as csrc/tcn_block_hopper.cuh rounds it: h
+    = bf16(PReLU(x W_in)), norm1 from the f32 PReLU outputs inside the taps
+    (out-of-range taps skipped), y = PReLU(conv) with norm2 from the f32
+    values; gLN: y and W_eff = bf16(g2 W_out) rounded, the fold out =
+    bf16(x + rs2 (y W_eff - mu2 g2 W_out) + b2 W_out); cLN: the normalised
+    row rounded, out = bf16(x + bf16(norm2(y)) W_out), as the Pallas
+    kernel's cLN path rounds it; products and sums in f64."""
+    from convtasnet_tpu_torch.ops.conv import depthwise_conv1d
+
+    f64, bf = torch.float64, torch.bfloat16
+    dims = (1, 2) if norm_type == "gLN" else (2,)
+
+    def stats(v):
+        n = v[0].numel() if norm_type == "gLN" else v.shape[2]
+        s1 = v.sum(dim=dims, keepdim=True)
+        s2 = (v * v).sum(dim=dims, keepdim=True)
+        mean = s1 / n
+        return mean, torch.rsqrt((s2 / n - mean * mean).clamp_min(0) + 1e-8)
+
+    def prelu(t, a):
+        return torch.where(t >= 0, t, a.to(f64) * t)
+
+    v = prelu(x.to(f64) @ w_in.to(f64), a1)
+    h = v.float().to(bf).to(f64)
+    mean1, rs1 = stats(v.float().to(f64))
+    hn = h * (rs1 * g1.to(f64)) + (b1.to(f64) - mean1 * rs1 * g1.to(f64))
+    y = prelu(depthwise_conv1d(hn, dw.to(f64), dilation, causal), a2)
+    mean2, rs2 = stats(y.float().to(f64))
+    if norm_type == "cLN":
+        yn = (y - mean2) * rs2 * g2.to(f64) + b2.to(f64)
+        o = yn.float().to(bf).to(f64) @ w_out.to(f64)
+        return (x.to(f64) + o).to(bf)
+    w_eff = (w_out.to(f64) * g2.to(f64)[:, None]).float().to(bf).to(f64)
+    o = rs2 * (y.float().to(bf).to(f64) @ w_eff
+               - mean2 * w_eff.sum(dim=0)) + b2.to(f64) @ w_out.to(f64)
+    return (x.to(f64) + o).to(bf)
+
+
+def test_kernel_at_its_rounding_points(cuda):
+    """bf16 gLN B1 against its twin at its own rounding points
+    (``_b1_at_its_rounding_points``), sample by sample within 1e-3
+    (summation order only), on the samples-apart input with its middle
+    sample near-constant per channel: norm1 renormalises every sample, so
+    norm2's statistics differ little between samples (a statistic read
+    from the neighbouring sample's slots moves the output ~3%, under the
+    forward bar of 4e-2) and only this bar sees such a fault."""
+    args, _ = _block_args(cuda, torch.bfloat16, "gLN", m=3)
+    x = _samples_apart(args[0]).float()
+    rng = np.random.default_rng(11)
+    x[1] = torch.from_numpy(rng.standard_normal((1, x.shape[2])).astype(
+        np.float32)).to(cuda) + 0.05 * x[1]
+    args = (x.to(torch.bfloat16), *args[1:])
+    kw = dict(dilation=4, causal=False)
+    got = port.fused_tcn_block(*args, norm_type="gLN", **kw)
+    want = _b1_at_its_rounding_points(*args, **kw)
+    for i in range(3):
+        assert _rel_l2(got[i], want[i]) <= TP_ORDER_TOL[torch.bfloat16], i
+
+
+@pytest.mark.parametrize("causal,dilation", [(True, 4), (False, 16)])
+def test_cln_kernel_at_its_rounding_points(cuda, causal, dilation):
+    """bf16 cLN B1 against its twin at its own rounding points, where the
+    Pallas kernel's cLN path rounds (the normalised y, times W_out, no
+    fold), sample by sample within 1e-3 (summation order only), on the
+    samples-apart input with its middle sample near-constant per channel."""
+    args, _ = _block_args(cuda, torch.bfloat16, "cLN", m=3)
+    x = _samples_apart(args[0]).float()
+    rng = np.random.default_rng(11)
+    x[1] = torch.from_numpy(rng.standard_normal((1, x.shape[2])).astype(
+        np.float32)).to(cuda) + 0.05 * x[1]
+    args = (x.to(torch.bfloat16), *args[1:])
+    kw = dict(dilation=dilation, causal=causal)
+    got = port.fused_tcn_block(*args, norm_type="cLN", **kw)
+    want = _b1_at_its_rounding_points(*args, norm_type="cLN", **kw)
+    for i in range(3):
+        assert _rel_l2(got[i], want[i]) <= TP_ORDER_TOL[torch.bfloat16], i
+
+
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
+@pytest.mark.parametrize("b,h", [(64, 192), (576, 128)])
+def test_bf16_kernels_at_other_widths(cuda, norm_type, b, h):
+    """bf16 widths the Hopper stages do not take (H not a power of two,
+    B above 512) run the first design's launches: B1 against its twin at
+    the forward bar, its backward against exact f32 as
+    test_kernels_with_five_taps holds it."""
+    args, _ = _block_args(cuda, torch.bfloat16, norm_type, b=b, h=h)
+    kw = dict(dilation=4, causal=norm_type == "cLN", norm_type=norm_type)
+    got = port.fused_tcn_block(*args, **kw)
+    assert _rel_l2(got, port.fused_tcn_block_reference(*args, **kw)) <= \
+        TOL[torch.bfloat16]
+    bargs, g = _bwd_args(cuda, torch.bfloat16, b=b, h=h, norm_type=norm_type)
+    got = port_bwd.fused_tcn_block_bwd(bargs[0], g, *bargs[1:], **kw)
+    torch.cuda.synchronize()
+    _check_against_exact(got, bargs, g, kw, torch.bfloat16)
 
 
 def test_kernel_is_deterministic(cuda):
@@ -184,6 +362,25 @@ def _check_cotangents(got, want, dtype):
         assert err <= BWD_TOL[dtype], f"{name}: rel_l2 {err:.3e}"
 
 
+def _check_against_exact(got, args, g, kw, dtype):
+    """The ten cotangents against the exact f32 ones: in f32 within B2's
+    bar, in bf16 no further than max(bar, 1.25x the bf16 twin's own
+    distance), for the slope gradients that the bf16 twin itself carries
+    far from exact. Returns (exact, twin)."""
+    f32 = [t.float() for t in args]
+    exact = port_bwd.fused_tcn_block_bwd_reference(f32[0], g.float(),
+                                                   *f32[1:], **kw)
+    twin = port_bwd.fused_tcn_block_bwd_reference(args[0], g, *args[1:],
+                                                  **kw)
+    for name, q, e, w in zip(NAMES, got, exact, twin):
+        assert torch.isfinite(q).all(), name
+        bar = BWD_TOL[dtype]
+        if dtype == torch.bfloat16:
+            bar = max(bar, 1.25 * _rel_l2(w, e))
+        assert _rel_l2(q, e) <= bar, f"{name}: rel_l2 {_rel_l2(q, e):.3e}"
+    return exact, twin
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,dilation", [
     (False, 1), (False, 4), (False, 128), (True, 2), (True, 128)])
@@ -199,6 +396,50 @@ def test_bwd_kernel_matches_twin(cuda, dtype, causal, dilation):
     want = port_bwd.fused_tcn_block_bwd_reference(args[0], g, *args[1:],
                                                   norm_type="gLN", **kw)
     _check_cotangents(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+def test_kernels_with_five_taps(cuda, dtype, norm_type, causal):
+    """A depthwise kernel of P = 5 taps: the bf16 kernels' general depthwise
+    walk and their E2' that forms dc at every tap (the P = 3 paths keep the
+    taps in registers and dc in shared memory); d = 64 reaches past both
+    ends of K = 300. The forward against its twin; the ten cotangents
+    against the exact f32 ones, in f32 within B2's bar, in bf16 no further
+    than max(bar, 1.25x the bf16 twin's own distance): here the bf16 twin's
+    slope gradient da1 reads up to 0.19 from exact (cLN), the kernel's
+    0.02."""
+    args, g = _bwd_args(cuda, dtype, norm_type=norm_type)
+    rng = np.random.default_rng(7)
+    args[2] = torch.from_numpy(rng.standard_normal((5, 128)).astype(
+        np.float32)).to(cuda, dtype)
+    kw = dict(dilation=64, causal=causal, norm_type=norm_type)
+    got = port.fused_tcn_block(*args, **kw)
+    assert _rel_l2(got, port.fused_tcn_block_reference(*args, **kw)) <= TOL[
+        dtype]
+    got = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    torch.cuda.synchronize()
+    _check_against_exact(got, args, g, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+def test_bwd_kernel_matches_twin_with_samples_apart(cuda, dtype, norm_type,
+                                                    causal):
+    """The backward on three samples whose statistics differ by factors of 2
+    and 4: dx sample by sample, and the ten cotangents as
+    test_kernels_with_five_taps holds them against exact f32."""
+    args, g = _bwd_args(cuda, dtype, m=3, norm_type=norm_type)
+    args[0] = _samples_apart(args[0])
+    kw = dict(dilation=4, causal=causal, norm_type=norm_type)
+    got = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    torch.cuda.synchronize()
+    exact, twin = _check_against_exact(got, args, g, kw, dtype)
+    for i in range(3):
+        bar = BWD_TOL[dtype]
+        if dtype == torch.bfloat16:
+            bar = max(bar, 1.25 * _rel_l2(twin[0][i], exact[0][i]))
+        assert _rel_l2(got[0][i], exact[0][i]) <= bar, f"dx of sample {i}"
 
 
 def test_bwd_kernel_is_deterministic(cuda):
@@ -411,8 +652,13 @@ def test_model_kernel_path_matches_plain_path(cuda, dtype):
     for pairs in (True, False):
         assert _rel_l2(outs[True, pairs], outs[False, True]) <= TOL[
             getattr(torch, dtype)]
-    # a pair runs B1's code on the same operands: the same bits
-    assert torch.equal(outs[True, True], outs[True, False])
+    if dtype == "float32":
+        # in f32 a pair runs B1's code on the same operands: the same bits
+        assert torch.equal(outs[True, True], outs[True, False])
+    else:
+        # bf16 B1 runs the Hopper core, B4 the first design: the pair bar
+        assert _rel_l2(outs[True, True], outs[True, False]) <= PAIR_TOL[
+            torch.bfloat16]
 
 
 def _pair_args(device, dtype, m=2, k=300, b=64, h=128, seed=0):
@@ -439,7 +685,7 @@ def _check_pair_cotangents(got, want, dtype):
     (as tests/test_torch_train.py holds a model's): each slope gradient is
     a sum of M*K*H cancelling terms, block 1's taken through block 2's
     backward, and alone one reads up to 0.21 from the bf16 twin here while
-    the pair equals chained B2 calls to the bit. With every slope at 1 they
+    the pair equalled chained B2 calls to the bit. With every slope at 1 they
     are held one by one (the next test)."""
     (dx, ga, gb), (wdx, wa, wb) = got, want
     assert len(ga) == len(gb) == 9
@@ -481,8 +727,10 @@ def test_pair_kernel_matches_twin(cuda, dtype, norm_type, causal, d1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
 def test_pair_kernel_equals_two_blocks(cuda, dtype, norm_type):
-    """B4 runs B1's code on the same operands: two chained B1 calls give
-    the same bits."""
+    """In f32 B4 runs B1's code on the same operands: two chained B1 calls
+    give the same bits. In bf16 B1 runs the Hopper core (csrc/
+    tcn_block_hopper.cuh) and B4 the first design's launches, so the two
+    agree at the pair bar."""
     x, pa, pb, _ = _pair_args(cuda, dtype, m=3, k=500, seed=5)
     got = pair.fused_tcn_block_pair(x, pa, pb, d1=4, d2=8, causal=True,
                                     norm_type=norm_type)
@@ -490,7 +738,11 @@ def test_pair_kernel_equals_two_blocks(cuda, dtype, norm_type):
                               norm_type=norm_type)
     want = port.fused_tcn_block(x1, *pb, dilation=8, causal=True,
                                 norm_type=norm_type)
-    assert torch.equal(got, want)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, want) <= PAIR_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -532,9 +784,11 @@ def test_pair_bwd_kernel_each_slope_with_slopes_at_one(cuda, causal, d1):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_bwd_kernel_equals_chained_blocks(cuda, dtype):
-    """B5 runs B1's and B2's code on the same operands: block 2's backward
-    at the forward's x1, then block 1's at its cotangent, give the same
-    bits."""
+    """In f32 B5 runs B1's and B2's code on the same operands: block 2's
+    backward at the forward's x1, then block 1's at its cotangent, give the
+    same bits. In bf16 B1 and B2 run the Hopper core and B5 the first
+    design's launches, so the 19 cotangents agree at B2's bars, held as
+    ``_check_pair_cotangents`` holds them against the twin."""
     x, pa, pb, g = _pair_args(cuda, dtype, m=3, k=500, seed=9)
     dx, ga, gb = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, d1=2, d2=4,
                                                    causal=False)
@@ -544,8 +798,11 @@ def test_pair_bwd_kernel_equals_chained_blocks(cuda, dtype):
                                             causal=False)
     dx0, *wa = port_bwd.fused_tcn_block_bwd(x, dx1, *pa, dilation=2,
                                             causal=False)
-    assert torch.equal(dx, dx0)
-    assert all(torch.equal(u, v) for u, v in zip((*ga, *gb), (*wa, *wb)))
+    if dtype == torch.float32:
+        assert torch.equal(dx, dx0)
+        assert all(torch.equal(u, v) for u, v in zip((*ga, *gb), (*wa, *wb)))
+    else:
+        _check_pair_cotangents((dx, ga, gb), (dx0, wa, wb), dtype)
 
 
 def test_pair_bwd_kernel_is_deterministic(cuda):
