@@ -49,7 +49,7 @@
 // f32 keeps exact f32 products on the first design (tcn_block_common.cuh):
 // prep + A + B + C on a 64x64 tile (FMA in f32, WMMA in bf16), y through
 // device memory. bf16 runs it too at the widths the Hopper stages do not
-// take (wg_widths_ok), and the block pair (B4) runs it in both dtypes.
+// take (wg_widths_ok).
 //
 // Statistics are reduced deterministically: every tile writes its own
 // partial and the next launch sums them in a fixed order (in double), so no
@@ -59,72 +59,14 @@
 #include "tcn_block_common.cuh"
 #include "tcn_block_hopper.cuh"
 
-// The prep launch and the f32 launches A, B and C (out_weights_kernel,
-// in_proj_kernel, dwconv_kernel, out_proj_kernel) and Params are in
-// tcn_block_common.cuh, because the f32 backward and the block pair
-// (tcn_block_pair.cu) rerun them; A' and C' are in tcn_block_hopper.cuh,
-// because the bf16 backward reruns A'.
+// The first design's launches (launch_block_first) and Params are in
+// tcn_block_common.cuh, because the f32 backward reruns them; the bf16
+// stages (launch_block_wg) and the choice between the two designs
+// (launch_block) are in tcn_block_hopper.cuh, because the bf16 backward
+// reruns A' and the block pair (B4, B5) runs each of its blocks through
+// launch_block.
 
 namespace {
-
-template <typename T, int kNorm>
-int launch_norm(const Params& p, cudaStream_t stream) {
-  long long n_a = 0, n_b = 0;
-  part_counts(p.K, p.H, kNorm, &n_a, &n_b);
-  out_weights_kernel<T><<<(p.B + 31) / 32, dim3(32, kPrepRowGroups), 0,
-                          stream>>>(p, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned kt = (p.K + kBM - 1) / kBM;
-  in_proj_kernel<T, kNorm, false>
-      <<<dim3(kt, p.H / kBN, p.M), kGemmThreads, 0, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned rt = (p.K + kDwRows - 1) / kDwRows;
-  const unsigned ct = (p.H + kDwThreads - 1) / kDwThreads;
-  dwconv_kernel<T, kNorm, false><<<dim3(rt, ct, p.M), kDwThreads, 0, stream>>>(
-      p, static_cast<int>(n_a));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out_proj_kernel<T><<<dim3(kt, p.B / kBN, p.M), kGemmThreads, 0, stream>>>(
-      p, static_cast<int>(n_b));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The bf16 block: prep (gLN, BN), A', B' (gLN), C'.
-int launch_bf16(const Params& p, cudaStream_t stream) {
-  if (!dw_layout_ok(p.H)) return static_cast<int>(cudaErrorInvalidValue);
-  if (p.norm != kNormCLN) {
-    out_weights_wg_kernel<<<dim3(p.B / 32, p.H / kSlabK), dim3(32, 8), 0,
-                            stream>>>(p);
-    CTN_CHECK();
-  }
-  int err = launch_in_proj_wg<false>(p, stream);
-  if (err != 0) return err;
-  const int n_a = in_proj_wg_parts(p.K, p.H, p.norm);
-  const int kt = (p.K + kWgRows - 1) / kWgRows;
-  if (p.norm == kNormGLN) {
-    dw_stats_kernel<<<dim3(kt, p.M), kWgCta, 0, stream>>>(p, n_a);
-    CTN_CHECK();
-  }
-  return launch_out_proj_wg(p, n_a, kt, stream);
-}
-
-template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  if (p.norm < kNormGLN || p.norm > kNormBN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (wg_widths_ok(p.B, p.H)) return launch_bf16(p, stream);
-  }
-  switch (p.norm) {
-    case kNormGLN:
-      return launch_norm<T, kNormGLN>(p, stream);
-    case kNormCLN:
-      return launch_norm<T, kNormCLN>(p, stream);
-  }
-  return launch_norm<T, kNormBN>(p, stream);
-}
 
 Params make_params(const void* x, const void* w_in, const void* dw,
                    const void* w_out, const void* a1, const void* a2,
@@ -207,11 +149,11 @@ int ctn_tcn_block_stores_y(int B, int H, int is_bf16) {
 // Forward of one block; every pointer is device memory, `stream` is a
 // cudaStream_t. Returns cudaGetLastError() after the launches.
 int ctn_tcn_block_f32(CTN_BLOCK_ARGS) {
-  return launch<float>(CTN_BLOCK_CALL);
+  return launch_block<float>(CTN_BLOCK_CALL);
 }
 
 int ctn_tcn_block_bf16(CTN_BLOCK_ARGS) {
-  return launch<__nv_bfloat16>(CTN_BLOCK_CALL);
+  return launch_block<__nv_bfloat16>(CTN_BLOCK_CALL);
 }
 
 }  // extern "C"

@@ -1,10 +1,9 @@
-// Pieces of the TCN block backward (tcn_block_bwd.cu: B2 for gLN, B3 for
-// cLN) that the gLN block-pair backward (tcn_block_pair_bwd.cu, B5) reruns
-// for each of its two blocks: the parameters, the statistic finalisers and
-// the launches G1, E1, E2, G2a, G2b and the channel reductions, each
-// described in tcn_block_bwd.cu's top note. G1 and G2b keep their
-// epilogues apart (g1_epilogue, g2b_epilogue) so that the pair backward can
-// run them on a tile it holds in shared memory.
+// The TCN block backward's first design (tcn_block_bwd.cu: B2 for gLN, B3
+// for cLN; f32 and the bf16 widths the Hopper stages do not take): the
+// parameters, the statistic finalisers and the launches T, R1, R2, G1, E1,
+// E2, G2a, G2b and the channel reductions, each described in
+// tcn_block_bwd.cu's top note. The bf16 stages (tcn_block_bwd_hopper.cuh)
+// share the parameters, finalisers and reductions.
 
 #pragma once
 
@@ -382,13 +381,10 @@ __global__ void __launch_bounds__(kDwThreads) g2a_kernel(BwdParams p) {
 }
 
 // G2b's epilogue for the tile at rows r0, columns n0 of sample m, its
-// product dh_pre @ W_in^T in s.c: dx = g + that, rounded. With res_s (a
-// [kBM, ld_res] shared tile) the rounded values also land there, rows at or
-// beyond K as zeros, for a block pair's next product (tcn_block_pair_bwd.cu).
+// product dh_pre @ W_in^T in s.c: dx = g + that, rounded.
 template <typename T>
 __device__ void g2b_epilogue(const BwdParams& p, const GemmSmem<T>& s, int m,
-                             int r0, int n0, T* res_s = nullptr,
-                             int ld_res = 0) {
+                             int r0, int n0) {
   using S = GemmSmem<T>;
   const int K = p.K, B = p.B;
   const T* g = static_cast<const T*>(p.g) + static_cast<size_t>(m) * K * B;
@@ -396,14 +392,9 @@ __device__ void g2b_epilogue(const BwdParams& p, const GemmSmem<T>& s, int m,
   for (int e = threadIdx.x; e < kBM * kBN; e += kGemmThreads) {
     const int r = e / kBN;
     const int col = e % kBN;
-    if (r0 + r >= K) {
-      if (res_s) res_s[r * ld_res + n0 + col] = from_f<T>(0.f);
-      continue;
-    }
+    if (r0 + r >= K) continue;
     const size_t idx = static_cast<size_t>(r0 + r) * B + n0 + col;
-    const T v = from_f<T>(to_f<T>(g[idx]) + s.c[r * S::kLdC + col]);
-    dx[idx] = v;
-    if (res_s) res_s[r * ld_res + n0 + col] = v;
+    dx[idx] = from_f<T>(to_f<T>(g[idx]) + s.c[r * S::kLdC + col]);
   }
 }
 
@@ -477,16 +468,8 @@ __global__ void reduce_slopes_kernel(BwdParams p) {
   }
 }
 
-// Returns the error of a launcher call, if any, from the enclosing one.
-#define CTN_TRY(...)                   \
-  do {                                 \
-    const int err_ = (__VA_ARGS__);    \
-    if (err_ != 0) return err_;        \
-  } while (0)
-
 // The stages of one block's backward, in tcn_block_bwd.cu's order, on the
-// workspace p points at (p.left set). A pair backward runs them for each of
-// its blocks.
+// workspace p points at (p.left set).
 
 inline int row_tiles(int K) { return (K + kBM - 1) / kBM; }
 inline int dw_row_tiles(int K) { return (K + kDwRows - 1) / kDwRows; }

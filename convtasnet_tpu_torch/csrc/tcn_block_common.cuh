@@ -123,6 +123,13 @@ struct GemmSmem {
   alignas(32) float c[kBM * kLdC];
 };
 
+// Leading dimension of a resident [kBM, cols] left operand of gemm_tile
+// (kResA): 16 bytes of pad per row.
+template <typename T>
+__host__ __device__ constexpr int res_ld(int cols) {
+  return cols + 16 / static_cast<int>(sizeof(T));
+}
+
 // s.c[0:kBM, 0:kBN] = act[r0:r0+kBM, :] @ w[:, n0:n0+kBN], rows of act at
 // or beyond `rows` read as zero. act is [rows, depth] row-major, w is
 // [depth, cols] row-major; depth % kBK == 0 and cols % kBN == 0 (checked by
@@ -468,16 +475,13 @@ __global__ void __launch_bounds__(kDwThreads, 8)
 // per-channel scale of norm2 (for BN the running statistics folded in), in
 // the compute dtype, and the column sums g @ W_out (of W_eff as rounded) and
 // b @ W_out, that launch C's folded product reads (tcn_block.cu's top note).
-// Block (32 columns) x (kPrepRowGroups row groups); grid (B/32, n_blocks):
-// blockIdx.y picks p0 or p1, so a block pair folds both its blocks in one
-// launch (a single block passes itself twice, grid.y 1).
+// Block (32 columns) x (kPrepRowGroups row groups); grid B/32.
 constexpr int kPrepRowGroups = 16;
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kPrepRowGroups)
-    out_weights_kernel(Params p0, Params p1) {
+    out_weights_kernel(Params p) {
   __shared__ float s_sum[2][kPrepRowGroups][32];
-  const Params& p = blockIdx.y ? p1 : p0;
   const int n = blockIdx.x * 32 + threadIdx.x;
   const int rg = threadIdx.y;
   const int B = p.B, H = p.H;
@@ -542,14 +546,11 @@ __device__ void out_proj_stats(const Params& p, int n_part_b, int m, int r0,
 
 // Launch C's epilogue for the tile at rows r0, columns n0 of sample m, its
 // product (y*g) @ W_out in s.c: out = x + rs*(c - mu*(g @ W_out)) + b @ W_out,
-// rounded to the compute dtype. With res_s (a [kBM, ld_res] shared tile) the
-// rounded values also land there, rows at or beyond K as zeros, for a block
-// pair's next product (tcn_block_pair.cuh).
+// rounded to the compute dtype.
 template <typename T>
 __device__ void out_proj_epilogue(const Params& p, const GemmSmem<T>& s,
                                   const float* s_mu, const float* s_rs, int m,
-                                  int r0, int n0, T* res_s = nullptr,
-                                  int ld_res = 0) {
+                                  int r0, int n0) {
   using S = GemmSmem<T>;
   const int K = p.K, B = p.B;
   const float* gw = p.wsum + n0;
@@ -559,15 +560,10 @@ __device__ void out_proj_epilogue(const Params& p, const GemmSmem<T>& s,
   for (int e = threadIdx.x; e < kBM * kBN; e += kGemmThreads) {
     const int r = e / kBN;
     const int c = e % kBN;
-    if (r0 + r >= K) {
-      if (res_s) res_s[r * ld_res + n0 + c] = from_f<T>(0.f);
-      continue;
-    }
+    if (r0 + r >= K) continue;
     const size_t idx = static_cast<size_t>(r0 + r) * B + n0 + c;
     const float o = s_rs[r] * (s.c[r * S::kLdC + c] - s_mu[r] * gw[c]) + bw[c];
-    const T v = from_f<T>(to_f<T>(x[idx]) + o);
-    out[idx] = v;
-    if (res_s) res_s[r * ld_res + n0 + c] = v;
+    out[idx] = from_f<T>(to_f<T>(x[idx]) + o);
   }
 }
 
@@ -794,5 +790,34 @@ inline size_t align_up(size_t n, size_t a) { return (n + a - 1) / a * a; }
     cudaError_t err_ = cudaGetLastError();            \
     if (err_ != cudaSuccess) return static_cast<int>(err_); \
   } while (0)
+
+// Returns the error of a launcher call, if any, from the enclosing one.
+#define CTN_TRY(...)                   \
+  do {                                 \
+    const int err_ = (__VA_ARGS__);    \
+    if (err_ != 0) return err_;        \
+  } while (0)
+
+// The first design's block (tcn_block.cu's top note): prep, A, B, C.
+template <typename T, int kNorm>
+int launch_block_first(const Params& p, cudaStream_t stream) {
+  long long n_a = 0, n_b = 0;
+  part_counts(p.K, p.H, kNorm, &n_a, &n_b);
+  out_weights_kernel<T><<<(p.B + 31) / 32, dim3(32, kPrepRowGroups), 0,
+                          stream>>>(p);
+  CTN_CHECK();
+  const unsigned kt = (p.K + kBM - 1) / kBM;
+  in_proj_kernel<T, kNorm, false>
+      <<<dim3(kt, p.H / kBN, p.M), kGemmThreads, 0, stream>>>(p);
+  CTN_CHECK();
+  const unsigned rt = (p.K + kDwRows - 1) / kDwRows;
+  const unsigned ct = (p.H + kDwThreads - 1) / kDwThreads;
+  dwconv_kernel<T, kNorm, false><<<dim3(rt, ct, p.M), kDwThreads, 0, stream>>>(
+      p, static_cast<int>(n_a));
+  CTN_CHECK();
+  out_proj_kernel<T><<<dim3(kt, p.B / kBN, p.M), kGemmThreads, 0, stream>>>(
+      p, static_cast<int>(n_b));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace

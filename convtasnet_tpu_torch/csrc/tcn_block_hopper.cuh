@@ -87,6 +87,18 @@ inline bool wg_widths_ok(int B, int H) {
   return dw_layout_ok(H) && H <= 512 && B % 64 == 0 && B <= 512;
 }
 
+// Whether a block of these widths in a compute dtype of elem_bytes runs
+// these stages (bf16 at wg_widths_ok) or the first design.
+inline bool runs_wg(int B, int H, size_t elem_bytes) {
+  return elem_bytes == 2 && wg_widths_ok(B, H);
+}
+
+// One block's column-sum partials (floats): 2 x B for the first design's
+// prep, 2 x B per 64-row block of W_out for these stages' (wsum).
+inline size_t wsum_size(int B, int H, bool wg) {
+  return 2 * static_cast<size_t>(B) * (wg ? H / kSlabK : 1);
+}
+
 // One thread's rows of the dilated depthwise conv, norm1 applied inside the
 // taps and a tap outside [0, K) skipped (zero padding after the norm): for
 // each of its rows rl (k = r0 + rl) it calls emit(rl, k, acc) with acc[8]
@@ -681,6 +693,45 @@ int launch_out_proj_wg(const Params& p, int n_part_a, int n_part_b,
                : launch_out_proj_bn<128, false>(p, n_part_a, n_part_b, stream);
   return cln ? launch_out_proj_bn<64, true>(p, n_part_a, n_part_b, stream)
              : launch_out_proj_bn<64, false>(p, n_part_a, n_part_b, stream);
+}
+
+// The bf16 block on these stages (tcn_block.cu's top note): prep (gLN,
+// BN), A', B' (gLN), C'.
+inline int launch_block_wg(const Params& p, cudaStream_t stream) {
+  if (!dw_layout_ok(p.H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.norm != kNormCLN) {
+    out_weights_wg_kernel<<<dim3(p.B / 32, p.H / kSlabK), dim3(32, 8), 0,
+                            stream>>>(p);
+    CTN_CHECK();
+  }
+  const int err = launch_in_proj_wg<false>(p, stream);
+  if (err != 0) return err;
+  const int n_a = in_proj_wg_parts(p.K, p.H, p.norm);
+  const int kt = (p.K + kWgRows - 1) / kWgRows;
+  if (p.norm == kNormGLN) {
+    dw_stats_kernel<<<dim3(kt, p.M), kWgCta, 0, stream>>>(p, n_a);
+    CTN_CHECK();
+  }
+  return launch_out_proj_wg(p, n_a, kt, stream);
+}
+
+// One block forward (B1) in the design of its dtype and widths: these
+// stages for bf16 at wg_widths_ok, else the first design's launches. The
+// block pair (B4, B5) runs each of its blocks through this.
+template <typename T>
+int launch_block(const Params& p, cudaStream_t stream) {
+  if (p.norm < kNormGLN || p.norm > kNormBN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (wg_widths_ok(p.B, p.H)) return launch_block_wg(p, stream);
+  }
+  switch (p.norm) {
+    case kNormGLN:
+      return launch_block_first<T, kNormGLN>(p, stream);
+    case kNormCLN:
+      return launch_block_first<T, kNormCLN>(p, stream);
+  }
+  return launch_block_first<T, kNormBN>(p, stream);
 }
 
 }  // namespace

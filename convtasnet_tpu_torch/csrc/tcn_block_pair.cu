@@ -9,54 +9,44 @@
 //   out = x1 + block_2(x1)
 //
 // What bounds it on the card. At the paper shape (M=8, K=3199, B=256,
-// H=512) a pair is four products and two depthwise convs, 27.0 GFLOP, and
-// each [K, H] intermediate is ~26 MB per round trip in bf16; the bound is
-// the products at the tensor-core rate (27 us). The Pallas kernel keeps
-// one sample's x1 ([K, B], 1.6 MB in bf16) and its [K, H] activation in
-// VMEM through both blocks; an SM has 227 KB of shared memory, so here, as
-// in B1, every statistic that spans a sample (gLN) or a row (cLN) ends a
-// launch, and the pair fuses what it can: the block boundary. Six launches,
-// against two B1 calls' eight:
+// H=512) a pair is four products and two depthwise convs, 27.0 GFLOP: 27
+// us at the bf16 tensor-core rate. The Pallas kernel keeps one sample's x1
+// ([K, B], 1.6 MB in bf16) and its [K, H] activation in VMEM through both
+// blocks; an SM has 227 KB of shared memory, so here, as in B1, every
+// statistic that spans a sample (gLN) or a row (cLN) ends a launch, and a
+// pair costs what two single blocks cost, held by B1's output launch C'
+// and its depthwise taps (PERF.md). The first design of this kernel (a
+// 64x64 WMMA tile, a fused boundary launch of 400 CTAs at 3 per SM) took
+// 1.02 ms in bf16 on an H100 (700 W), against 0.31 for two B1 calls.
 //
-//   P     W_eff = diag(g2) W_out and its column sums, for both blocks at
-//         once (out_weights_kernel, grid.y 2);
-//   A1    h1 = PReLU(x0 @ W_in1), norm1 partials   (B1's launch A);
-//   B1    y1 = PReLU(dwconv(norm1(h1))), partials (B1's launch B);
-//   C1A2  one block per row tile of 64 rows and all B columns
-//         (tcn_block_pair.cuh): x1 = x0 + the folded y1 @ W_eff1, rounded,
-//         written once for block 2's residual and kept in shared memory,
-//         then h2 = PReLU(x1 @ W_in2) and its norm1 partials from there.
-//         Block 2's launch A never reads x1 back: one [M, K, B] read and
-//         one launch fewer;
-//   B2    y2 (B1's launch B);
-//   C2    out = x1 + the folded y2 @ W_eff2 (B1's launch C).
+// So the pair runs each block through launch_block (tcn_block_hopper.cuh),
+// the launches a single block of its dtype and widths runs (bf16 at
+// wg_widths_ok: prep, A', B', C' on the Hopper core; f32 and the other bf16
+// widths: the first design's prep, A, B, C), block 1 writing x1 to the
+// workspace as B1 writes its output and block 2 reading it. The pair
+// equals two chained B1 calls bit for bit in either dtype, and makes their
+// launches: 8 for bf16 gLN, 4 for cLN. Fusing the boundary was tried in
+// bf16 and did not pay: one launch for C' of block 1 and A' of block 2
+// (each CTA running A' on the x1 rows its C' half had just written, read
+// back from L2) gave the same bits and took 130 us against 79 + 42 for the
+// two launches, since both halves run 200 CTAs of one per SM in two waves
+// either way, so no tail is saved; one prep launch for both blocks saved
+// 3 us of 0.31 ms (PERF.md).
 //
-// Every launch runs B1's own code on the same operands in the same order,
-// and C1A2's partials land in launch A's slots, so a pair's output equals
-// two chained B1 calls bit for bit; x1 is the first call's output rounded
-// to the compute dtype, as the twin holds it. C1A2's grid is M*K/64 blocks
-// (400 at the paper shape), each with the 64 x 256 x1 tile in dynamic
-// shared memory (33 KB in bf16, 65 KB in f32) beside the GEMM tile; rows at
-// or beyond K are zero there and add nothing to any partial. Taps outside
-// [0, K) are skipped, as in B1's launch B, so d2 = 2 d1 = 256 needs no halo
-// rows. Statistics are summed in a fixed order without atomics, so two
-// calls give the same bits. The products are B1's 64x64 WMMA tile without
-// cp.async/TMA or wgmma. On an H100 (700 W) a pair takes 1.00 ms against
-// two B1 calls' 0.79 (PERF.md): C1A2's 400 blocks of 62 KB of shared memory
-// (bf16) fit 3 per SM, one wave and a 4-block tail, where B1's launches run
-// thousands of one-tile blocks; the model runs pairs only when asked.
+// Statistics are summed in a fixed order without atomics, so two calls
+// give the same bits.
 //
-// Workspace: h and y [M, K, H] shared by both blocks (each is consumed
-// before the next block overwrites it), x1 [M, K, B], both W_eff in the
-// compute dtype; wsum and the two partial sets in f32.
+// Workspace: one block's h [M, K, H] and y [M, K, H] (the first design
+// only), W_eff in the compute dtype, and its wsum and partials in f32, each
+// block using them in turn, and x1 [M, K, B].
 
-#include "tcn_block_pair.cuh"
+#include "tcn_block_hopper.cuh"
 
 namespace {
 
 struct PairLayout {
-  size_t act[4];   // h, y, x1, w_eff (2 blocks)
-  size_t f32[3];   // wsum (2 blocks), part_a, part_b
+  size_t act[4];   // h, y, x1, w_eff
+  size_t f32[3];   // wsum, part_a, part_b
   size_t n_act, n_f32;
 };
 
@@ -64,12 +54,13 @@ PairLayout pair_layout(int M, int K, int B, int H, size_t act_bytes,
                        int norm) {
   long long n_a = 0, n_b = 0;
   part_counts(K, H, norm, &n_a, &n_b);
+  const bool wg = runs_wg(B, H, act_bytes);
   const size_t rows = norm == kNormCLN ? static_cast<size_t>(M) * K : M;
   const size_t mkh = static_cast<size_t>(M) * K * H;
-  const size_t act[4] = {mkh, mkh, static_cast<size_t>(M) * K * B,
-                         2 * static_cast<size_t>(H) * B};
-  const size_t f32[3] = {4 * static_cast<size_t>(B), 2 * rows * n_a,
-                         2 * rows * n_b};
+  // the bf16 stages recompute y in C' and keep no y buffer
+  const size_t act[4] = {mkh, wg ? 0 : mkh, static_cast<size_t>(M) * K * B,
+                         static_cast<size_t>(H) * B};
+  const size_t f32[3] = {wsum_size(B, H, wg), 2 * rows * n_a, 2 * rows * n_b};
   PairLayout L;
   size_t off = 0;
   for (int i = 0; i < 4; ++i) {
@@ -84,34 +75,6 @@ PairLayout pair_layout(int M, int K, int B, int H, size_t act_bytes,
   }
   L.n_f32 = off;
   return L;
-}
-
-template <typename T, int kNorm>
-int launch_pair(Params p1, Params p2, cudaStream_t stream) {
-  long long n_a = 0, n_b = 0;
-  part_counts(p1.K, p1.H, kNorm, &n_a, &n_b);
-  out_weights_kernel<T><<<dim3((p1.B + 31) / 32, 2), dim3(32, kPrepRowGroups),
-                          0, stream>>>(p1, p2);
-  CTN_CHECK();
-  const unsigned kt = (p1.K + kBM - 1) / kBM;
-  const unsigned rt = (p1.K + kDwRows - 1) / kDwRows;
-  const unsigned ct = (p1.H + kDwThreads - 1) / kDwThreads;
-  in_proj_kernel<T, kNorm, false>
-      <<<dim3(kt, p1.H / kBN, p1.M), kGemmThreads, 0, stream>>>(p1);
-  CTN_CHECK();
-  dwconv_kernel<T, kNorm, false><<<dim3(rt, ct, p1.M), kDwThreads, 0, stream>>>(
-      p1, static_cast<int>(n_a));
-  CTN_CHECK();
-  const int err = launch_boundary<T, kNorm, false>(p1, p2,
-                                                   static_cast<int>(n_b), stream);
-  if (err != 0) return err;
-  dwconv_kernel<T, kNorm, false><<<dim3(rt, ct, p2.M), kDwThreads, 0, stream>>>(
-      p2, static_cast<int>(n_a));
-  CTN_CHECK();
-  out_proj_kernel<T><<<dim3(kt, p2.B / kBN, p2.M), kGemmThreads, 0, stream>>>(
-      p2, static_cast<int>(n_b));
-  CTN_CHECK();
-  return 0;
 }
 
 // One block's Params: its weights (w[0..8] = w_in, dw, w_out, a1, a2, g1,
@@ -153,6 +116,8 @@ template <typename T>
 int launch(const void* x, const void* const* wa, const void* const* wb,
            void* ws_act, float* ws_f32, void* out, int M, int K, int B, int H,
            int P, int d1, int d2, int causal, int norm, cudaStream_t stream) {
+  if (norm != kNormGLN && norm != kNormCLN)
+    return static_cast<int>(cudaErrorInvalidValue);
   const PairLayout L = pair_layout(M, K, B, H, sizeof(T), norm);
   T* act = static_cast<T*>(ws_act);
   T* h = act + L.act[0];
@@ -162,19 +127,12 @@ int launch(const void* x, const void* const* wa, const void* const* wb,
   float* wsum = ws_f32 + L.f32[0];
   float* part_a = ws_f32 + L.f32[1];
   float* part_b = ws_f32 + L.f32[2];
-  const size_t hb = static_cast<size_t>(H) * B;
   const Params p1 = block_params(wa, x, x1, h, y, w_eff, wsum, part_a, part_b,
                                  M, K, B, H, P, d1, causal, norm);
-  const Params p2 = block_params(wb, x1, out, h, y, w_eff + hb, wsum + 2 * B,
-                                 part_a, part_b, M, K, B, H, P, d2, causal,
-                                 norm);
-  switch (norm) {
-    case kNormGLN:
-      return launch_pair<T, kNormGLN>(p1, p2, stream);
-    case kNormCLN:
-      return launch_pair<T, kNormCLN>(p1, p2, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Params p2 = block_params(wb, x1, out, h, y, w_eff, wsum, part_a,
+                                 part_b, M, K, B, H, P, d2, causal, norm);
+  CTN_TRY(launch_block<T>(p1, stream));
+  return launch_block<T>(p2, stream);
 }
 
 }  // namespace

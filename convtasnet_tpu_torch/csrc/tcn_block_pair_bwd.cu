@@ -10,123 +10,73 @@
 //   dx1 = g + J_2(x1)^T g;   dx0 = dx1 + J_1(x0)^T dx1
 //
 // What bounds it on the card. At the paper shape (M=8, K=3199, B=256,
-// H=512) the pair backward is 87.7 GFLOP: 13 products (block 1's input
-// product twice, the x1 product, block 2's input product, five per block
-// backward) and six depthwise passes, 89 us at the tensor-core rate. The
-// Pallas kernel keeps x1, dx1 and four [K, H] activations of one sample in
-// VMEM; an SM has 227 KB, so here, as in B2 (tcn_block_bwd.cu), every
-// intermediate lives in device memory and every per-sample statistic or
-// backward sum ends a launch. The passes:
+// H=512) the pair backward is 87.7 GFLOP as the Pallas kernel's cost
+// estimate counts it (13 products of 2 M K B H and six depthwise passes):
+// 89 us at the tensor-core rate. The Pallas kernel keeps x1, dx1 and four
+// [K, H] activations of one sample in VMEM; an SM has 227 KB, so here, as
+// in B2 (tcn_block_bwd.cu), every intermediate lives in device memory and
+// every per-sample statistic or backward sum ends a launch, and a pair
+// backward costs what B1 + B2 + B2 cost, held by B2's E2', G2b', G1' and
+// the forward's C' (PERF.md). The first design of this kernel (40
+// launches on a 64x64 WMMA tile, block 1's input product run twice, two
+// fused launches of 400 CTAs at 3 per SM) took 3.06 ms in bf16 on an H100
+// (700 W), against 0.96 for B1 + 2 x B2.
 //
-//   T      W_in^T, W_out^T of both blocks;  P  W_eff1 (B1's prep launch).
-//   A1 B1  block 1 forward as B1 runs it (post-activations): h1, y1.
-//   C1A2   the pair forward's boundary launch (tcn_block_pair.cuh) with
-//          kPre: x1 once to device memory, and block 2's pre-activation
-//          x1 @ W_in2 with its norm1 partials. x1 is re-formed by the code
-//          that formed it in the forward, on the same operands, so the
-//          backward sees the forward's x1 bit for bit.
-//   block 2's backward, B2's stages on (x1, g): R2 (its dwconv, kPre), F1,
-//          F2, G1, F3, dW_out2, E1, E2, F4, G2a, dW_in2 = x1^T dh2, sums.
-//   block 1 recomputed as B2 does (R1, R2 with kPre, F1, F2).
-//   G2b2G1 one block per row tile of 64 rows and all B columns: dx1 = g +
-//          dh2 @ W_in2^T, rounded, written once (block 1's cotangent and
-//          residual) and kept in shared memory, then block 1's first
-//          backward product e1 = dx1 @ W_out1^T and G1's epilogue from
-//          there: dx1 is never read back for that product.
-//   block 1's backward, B2's remaining stages on (x0, dx1): F3, dW_out1,
-//          E1, E2, F4, G2a, G2b (dx0 = dx1 + dh1 @ W_in1^T), dW_in1, sums.
+// So the pair runs the chained single blocks' launches in their order, each
+// in the design of its dtype and widths (bf16 at wg_widths_ok: B1's four
+// and B2's 15 bf16 stages; f32 and the other bf16 widths: the first
+// design's), on one workspace:
 //
-// Workspace. Block 1 is recomputed after block 2's backward rather than
-// kept live beside it, so one set of B2's five [M, K, H] buffers (hp, c, e,
-// hn2, dh) serves both blocks: 131 MB at the paper shape in bf16, plus x1
-// and dx1 (13 MB each) and the f32 partials; the peak is B2's workspace
-// plus 26 MB. The price is block 1's input product and dwconv run twice
-// (once as the forward runs them, for x1; once keeping pre-activations,
-// for its backward); that is the 13th product above.
+//   x1 = B1(x0)                       launch_block (tcn_block_hopper.cuh)
+//   dx1, block 2's gradients = B2(x1, g)     launch_block_bwd
+//   dx0, block 1's gradients = B2(x0, dx1)   (tcn_block_bwd_hopper.cuh)
 //
-// Every stage is B2's code on the same operands, the fused launch runs G2b's
-// and G1's epilogues on the same GEMM tile, so dx0 and every gradient equal
-// B1 + B2 + B2 chained bit for bit. Sums are taken in a fixed order in
-// double without atomics; two calls give the same bits. P <= 16 (B2's tap
-// limit), B and H multiples of 64. The products are B2's 64x64 WMMA tile,
-// without cp.async/TMA or wgmma. On an H100 (700 W) a pair backward takes
-// 3.03 ms against two B2 calls' 1.99 (PERF.md): block 1's forward runs once
-// more than in chained B2 calls, and both fused launches run 400 blocks, 3
-// per SM; pairs trade that time for the memory of one saved input per pair.
+// and equals them bit for bit in either dtype: 34 launches in bf16 (4 + 15
+// + 15). Tried in bf16 and taken out, as not worth their code: A' of block
+// 1's forward storing the pre-activation beside h, so that block 1's
+// backward skips its R1 (33 launches, 0.94 ms against 0.96, for a 26 MB
+// buffer live through block 2's backward, and saving memory is what pairs
+// are for); C' of block 1 and R1 of block 2 in one launch (the same bits,
+// 129 us against 79 + 45; PERF.md).
+//
+// Sums are taken in a fixed order in double without atomics; two calls
+// give the same bits.
+//
+// Workspace: one block backward's (tcn_block_bwd_hopper.cuh, bwd_layout),
+// which block 2's backward and then block 1's use, and whose hp and c the
+// forward's h and y (the first design only) borrow first; x1 and dx1
+// [M, K, B]; the forward's W_eff, column sums and partials.
 
-#include "tcn_block_bwd_common.cuh"
-#include "tcn_block_pair.cuh"
+#include "tcn_block_bwd_hopper.cuh"
 
 namespace {
 
-// dx1 = g + dh2 @ W_in2^T over a row tile, then block 1's G1 on it.
-// Grid (ceil(K/kBM), 1, M).
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-    dx1_g1_kernel(BwdParams q2, BwdParams q1) {
-  __shared__ GemmSmem<T> s;
-  extern __shared__ __align__(128) unsigned char dyn_smem[];
-  T* dx1_s = reinterpret_cast<T*>(dyn_smem);
-  const int ld = res_ld<T>(q2.B);
-  const int m = blockIdx.z;
-  const int bx = blockIdx.x;
-  const int r0 = bx * kBM;
-  const T* dh2 = static_cast<const T*>(q2.dh) + static_cast<size_t>(m) * q2.K * q2.H;
-  for (int n0 = 0; n0 < q2.B; n0 += kBN) {
-    gemm_tile<T>(dh2, static_cast<const T*>(q2.w_in_t), q2.K, q2.H, q2.B, r0,
-                 n0, s);
-    g2b_epilogue<T>(q2, s, m, r0, n0, dx1_s, ld);
-    __syncthreads();   // s.c is read before the next product writes it
-  }
-  const int n_tiles = q1.H / kBN;
-  for (int by = 0; by < n_tiles; ++by) {
-    gemm_tile<T, true>(dx1_s, static_cast<const T*>(q1.w_out_t), 0, q1.B,
-                       q1.H, 0, by * kBN, s, ld);
-    g1_epilogue<T, kNormGLN>(q1, s, m, bx, by, gridDim.x, n_tiles);
-  }
-}
-
 struct PairBwdLayout {
-  int n_part, n_dw, n_chunks;
-  size_t act[12];  // w_in_t, w_out_t (x2 blocks), w_eff1, hp, c, e, hn2,
-                   // dh, x1, dx1
-  size_t f32[9];   // stats, part, part2, pch_g1, pch_e1, pch_e2, pch_g2,
-                   // wpart, wsum1
+  BwdLayout bwd;   // at the start of both workspaces
+  size_t act[3];   // x1, dx1, w_eff
+  size_t f32[3];   // wsum, part_a, part_b of block 1's forward
   size_t n_act, n_f32;
 };
 
 PairBwdLayout pair_bwd_layout(int M, int K, int B, int H, int P,
                               size_t act_bytes) {
   PairBwdLayout L;
-  const size_t kt = row_tiles(K), rt = dw_row_tiles(K), ct = dw_col_tiles(H);
-  const size_t n_r1 = kt * (H / kBN);
-  L.n_dw = static_cast<int>(rt * ct);
-  L.n_part = static_cast<int>(n_r1 > rt * ct ? n_r1 : rt * ct);
-  const long long rows = static_cast<long long>(M) * K;
-  L.n_chunks = static_cast<int>((rows + kChunkRows - 1) / kChunkRows);
-  const size_t hb = static_cast<size_t>(H) * B;
-  const size_t mkh = static_cast<size_t>(M) * K * H;
+  L.bwd = bwd_layout(M, K, B, H, P, act_bytes, kNormGLN);
+  long long n_a = 0, n_b = 0;
+  part_counts(K, H, kNormGLN, &n_a, &n_b);
   const size_t mkb = static_cast<size_t>(M) * K * B;
-  const size_t act[12] = {hb, hb, hb, hb, hb, mkh, mkh, mkh, mkh, mkh, mkb,
-                          mkb};
-  size_t off = 0;
-  for (int i = 0; i < 12; ++i) {
+  const size_t act[3] = {mkb, mkb, static_cast<size_t>(H) * B};
+  const size_t f32[3] = {wsum_size(B, H, runs_wg(B, H, act_bytes)),
+                         2 * static_cast<size_t>(M) * n_a,
+                         2 * static_cast<size_t>(M) * n_b};
+  size_t off = L.bwd.n_act;
+  for (int i = 0; i < 3; ++i) {
     L.act[i] = off;
     off += align_up(act[i], 256 / act_bytes);
   }
   L.n_act = off;
-  const size_t f32[9] = {
-      static_cast<size_t>(M) * kNumStats,
-      2 * static_cast<size_t>(M) * L.n_part,
-      2 * static_cast<size_t>(M) * L.n_dw,
-      2 * static_cast<size_t>(M) * kt * H,
-      static_cast<size_t>(M) * rt * H,
-      static_cast<size_t>(M) * rt * (P + 2) * H,
-      static_cast<size_t>(M) * rt * H,
-      static_cast<size_t>(L.n_chunks) * B * H,
-      2 * static_cast<size_t>(B)};
-  off = 0;
-  for (int i = 0; i < 9; ++i) {
+  off = L.bwd.n_f32;
+  for (int i = 0; i < 3; ++i) {
     L.f32[i] = off;
     off += align_up(f32[i], 64);
   }
@@ -134,14 +84,12 @@ PairBwdLayout pair_bwd_layout(int M, int K, int B, int H, int P,
   return L;
 }
 
-// One block's backward parameters on the pair's workspace: w[0..8] = w_in,
-// dw, w_out, a1, a2, g1, b1, g2, b2 (compute dtype, then f32).
-template <typename T>
+// One block's backward parameters: w[0..8] = w_in, dw, w_out, a1, a2, g1,
+// b1, g2, b2 (compute dtype, then f32); its input x, cotangent g and
+// outputs.
 BwdParams block_bwd_params(const void* const* w, const void* x, const void* g,
-                           void* dx, void* dw_in, void* dw_out, void* aux,
-                           void* w_in_t, void* w_out_t, T* act,
-                           float* ws_f32, const PairBwdLayout& L, int M, int K,
-                           int B, int H, int P, int dilation, int causal) {
+                           void* dx, void* const* out, int M, int K, int B,
+                           int H, int P, int dilation, int causal) {
   BwdParams p = {};
   p.x = x;
   p.g = g;
@@ -154,25 +102,10 @@ BwdParams block_bwd_params(const void* const* w, const void* x, const void* g,
   p.b1 = static_cast<const float*>(w[6]);
   p.g2 = static_cast<const float*>(w[7]);
   p.b2 = static_cast<const float*>(w[8]);
-  p.w_in_t = w_in_t;
-  p.w_out_t = w_out_t;
-  p.hp = act + L.act[5];
-  p.c = act + L.act[6];
-  p.e = act + L.act[7];
-  p.hn2 = act + L.act[8];
-  p.dh = act + L.act[9];
-  p.stats = ws_f32 + L.f32[0];
-  p.part = ws_f32 + L.f32[1];
-  p.part2 = ws_f32 + L.f32[2];
-  p.pch_g1 = ws_f32 + L.f32[3];
-  p.pch_e1 = ws_f32 + L.f32[4];
-  p.pch_e2 = ws_f32 + L.f32[5];
-  p.pch_g2 = ws_f32 + L.f32[6];
-  p.wpart = ws_f32 + L.f32[7];
   p.dx = dx;
-  p.dw_in = static_cast<float*>(dw_in);
-  p.dw_out = static_cast<float*>(dw_out);
-  p.aux = static_cast<float*>(aux);
+  p.dw_in = static_cast<float*>(out[0]);
+  p.dw_out = static_cast<float*>(out[1]);
+  p.aux = static_cast<float*>(out[2]);
   p.M = M;
   p.K = K;
   p.B = B;
@@ -183,11 +116,10 @@ BwdParams block_bwd_params(const void* const* w, const void* x, const void* g,
   return p;
 }
 
-// Forward Params of block 1 (A1, B1 and the boundary's first half) or of
-// block 2 (the boundary's second half and its dwconv): launch A writes
-// q.hp, launch B q.c, their partials go to q.part and q.part2.
-Params forward_params(const BwdParams& q, const void* out, void* w_eff,
-                      float* wsum) {
+// Block 1's forward Params (gLN): x0 to x1, h and y in the backward's hp
+// and c.
+Params forward_params(const BwdParams& q, void* x1, void* w_eff, float* wsum,
+                      float* part_a, float* part_b) {
   Params p = {};
   p.x = q.x;
   p.w_in = q.w_in;
@@ -203,9 +135,9 @@ Params forward_params(const BwdParams& q, const void* out, void* w_eff,
   p.y = q.c;
   p.w_eff = w_eff;
   p.wsum = wsum;
-  p.part_a = q.part;
-  p.part_b = q.part2;
-  p.out = const_cast<void*>(out);
+  p.part_a = part_a;
+  p.part_b = part_b;
+  p.out = x1;
   p.M = q.M;
   p.K = q.K;
   p.B = q.B;
@@ -225,63 +157,22 @@ int launch_pair_bwd(const void* x, const void* g, const void* const* wa,
                     cudaStream_t stream) {
   const PairBwdLayout L = pair_bwd_layout(M, K, B, H, P, sizeof(T));
   T* act = static_cast<T*>(ws_act);
-  T* x1 = act + L.act[10];
-  T* dx1 = act + L.act[11];
+  T* x1 = act + L.act[0];
+  T* dx1 = act + L.act[1];
   // block 1: input x0, cotangent dx1, writes dx0; block 2: input x1,
   // cotangent g, writes dx1
-  const BwdParams q1 = block_bwd_params<T>(
-      wa, x, dx1, dx, out_a[0], out_a[1], out_a[2], act + L.act[0],
-      act + L.act[1], act, ws_f32, L, M, K, B, H, P, d1, causal);
-  const BwdParams q2 = block_bwd_params<T>(
-      wb, x1, g, dx1, out_b[0], out_b[1], out_b[2], act + L.act[2],
-      act + L.act[3], act, ws_f32, L, M, K, B, H, P, d2, causal);
-  const Params p1 = forward_params(q1, x1, act + L.act[4], ws_f32 + L.f32[8]);
-  const Params p2 = forward_params(q2, nullptr, nullptr, nullptr);
-  const unsigned kt = row_tiles(K);
-  const dim3 rows(dw_row_tiles(K), dw_col_tiles(H), M);
-  const double count = static_cast<double>(K) * H;
-
-  CTN_TRY(launch_transposes<T>(q1, stream));
-  CTN_TRY(launch_transposes<T>(q2, stream));
-  out_weights_kernel<T><<<(B + 31) / 32, dim3(32, kPrepRowGroups), 0,
-                          stream>>>(p1, p1);
-  CTN_CHECK();
-  // block 1 as the forward runs it, then x1 and block 2's pre-activation
-  in_proj_kernel<T, kNormGLN, false>
-      <<<dim3(kt, H / kBN, M), kGemmThreads, 0, stream>>>(p1);
-  CTN_CHECK();
-  dwconv_kernel<T, kNormGLN, false><<<rows, kDwThreads, 0, stream>>>(
-      p1, static_cast<int>(kt * (H / kBN)));
-  CTN_CHECK();
-  CTN_TRY(launch_boundary<T, kNormGLN, true>(p1, p2, L.n_dw, stream));
-  // block 2's R2 and statistics (R1's partials came from the boundary)
-  const int n_r1 = static_cast<int>(kt * (H / kBN));
-  finalize_kernel<<<M, kDwThreads, 0, stream>>>(q2.part, n_r1, count,
-                                                q2.stats, kMean1, 0);
-  CTN_CHECK();
-  dwconv_kernel<T, kNormGLN, true><<<rows, kDwThreads, 0, stream>>>(p2, n_r1);
-  CTN_CHECK();
-  finalize_kernel<<<M, kGemmThreads, 0, stream>>>(q2.part2, L.n_dw, count,
-                                                  q2.stats, kMean2, 0);
-  CTN_CHECK();
-  // block 2's backward up to dh2; its weight gradients and sums
-  g1_kernel<T, kNormGLN><<<dim3(kt, H / kBN, M), kGemmThreads, 0, stream>>>(q2);
-  CTN_CHECK();
-  CTN_TRY(block_bwd_middle<T, kNormGLN>(q2, L.n_chunks, stream));
-  CTN_TRY(block_bwd_tail<T>(q2, L.n_chunks, stream));
-  // block 1 recomputed for its backward; dx1 and block 1's G1 in one launch
-  CTN_TRY(recompute_block<T, kNormGLN>(q1, stream));
-  const size_t smem = boundary_smem<T>(B);
-  cudaError_t err = cudaFuncSetAttribute(
-      dx1_g1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dx1_g1_kernel<T><<<dim3(kt, 1, M), kGemmThreads, smem, stream>>>(q2, q1);
-  CTN_CHECK();
-  CTN_TRY(block_bwd_middle<T, kNormGLN>(q1, L.n_chunks, stream));
-  g2b_kernel<T><<<dim3(kt, B / kBN, M), kGemmThreads, 0, stream>>>(q1);
-  CTN_CHECK();
-  return block_bwd_tail<T>(q1, L.n_chunks, stream);
+  BwdParams q1 = block_bwd_params(wa, x, dx1, dx, out_a, M, K, B, H, P, d1,
+                                  causal);
+  BwdParams q2 = block_bwd_params(wb, x1, g, dx1, out_b, M, K, B, H, P, d2,
+                                  causal);
+  bind_bwd_workspace<T>(&q1, L.bwd, ws_act, ws_f32);
+  bind_bwd_workspace<T>(&q2, L.bwd, ws_act, ws_f32);
+  CTN_TRY(launch_block<T>(forward_params(q1, x1, act + L.act[2],
+                                         ws_f32 + L.f32[0], ws_f32 + L.f32[1],
+                                         ws_f32 + L.f32[2]),
+                          stream));
+  CTN_TRY(launch_block_bwd<T, kNormGLN>(q2, stream));
+  return launch_block_bwd<T, kNormGLN>(q1, stream);
 }
 
 }  // namespace

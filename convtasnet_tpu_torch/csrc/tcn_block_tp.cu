@@ -31,13 +31,13 @@
 // memory (B1's launch B: gLN-1 applied per element inside the taps), keeps
 // round(y g2) in shared memory (32 KB at Hs=256 in bf16, 64 KB in f32) as
 // the resident left operand of the B/64 products with W_out_s
-// (gemm_tile, as B4's boundary launch), and writes z once. Its partial sums
+// (gemm_tile with kResA), and writes z once. Its partial sums
 // land in one slot per tile; a second launch sums them in a fixed order in
 // double, so there are no atomics and a rerun gives the same bits. The
 // grid is M*K/64 blocks (400 at the paper shape); the products are B1's
 // 64x64 WMMA tile (FMA in f32) without cp.async/TMA or wgmma.
 
-#include "tcn_block_pair.cuh"
+#include "tcn_block_common.cuh"
 
 namespace {
 

@@ -20,8 +20,10 @@ sublayer) through the hand-written kernels" (``ops/cuda/``): ``None``
 plain ops anywhere. ``cfg.use_pallas=True`` acts as ``use_pallas=True``.
 
 With the kernels in use and ``CONVTASNET_PAIR_FUSION=1``
-(``pair_fusion_enabled``; off by default, as the pairs are slower on the
-card and save only memory), blocks (x, x+1) of each repeat, for even x
+(``pair_fusion_enabled``; off by default: a pair gives the bits of two
+single blocks, but its backward reruns block 1's forward, so a training
+step with pairs trades time for memory), blocks (x, x+1) of each repeat,
+for even x
 with x+1 < X, run as one block pair, as the JAX separator's
 ``pair_variant`` runs them: gLN and cLN forwards without gradients through
 the pair kernel B4 (``fused_tcn_block_pair``), gLN with gradients through
@@ -82,8 +84,10 @@ def pair_fusion_enabled() -> bool:
     """Whether the separator runs blocks (x, x+1) as pairs where the
     kernels are in use: when ``CONVTASNET_PAIR_FUSION`` is set and not
     ``0``, as in the JAX package, which reads it at each forward too. Off
-    by default: on the card the pairs are slower end to end than the
-    single blocks (PERF.md) and save only memory."""
+    by default: on the card a pair gives the bits of two single blocks and
+    its forward saves a launch, but its backward (B5, which keeps only the
+    pair input) reruns block 1's forward, so a training step with pairs
+    saves memory and costs time where the card is busy (PERF.md)."""
     return os.environ.get(PAIR_ENV, "0") != "0"
 
 

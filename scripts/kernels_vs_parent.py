@@ -14,22 +14,32 @@ from its own sources and writes its outputs at shapes both trees take:
   (B7-B12) at the quality default's widths ([8, 25, 128, 256], 8 heads,
   F=1024, the real key mask), bf16 and f32, the intra kernels also at the
   chunk lengths whose tiles sit in shared memory or spill to the device
-  workspace, and the TCN TP stage 2 (B6) at [8, 3199, Hs], Hs = 256 and
-  128. A change to the kernels' shared pieces must leave these bits as
-  they were;
-- by distance: the TCN block forward (B1, gLN and cLN causal), the gLN
-  block backward (B2) and the cLN one (B3) at the paper shape [8, 3199,
-  256], H=512, bf16 and f32, d = 1, 16, 128: the relative L2 between the
-  two trees and each tree's own distance from its plain twin.
+  workspace, the TCN TP stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128,
+  and the TCN block forward (B1, gLN and cLN causal), the gLN block
+  backward (B2) and the cLN one (B3) at the paper shape [8, 3199, 256],
+  H=512, bf16 and f32, d = 1, 16, 128. A change to the kernels' shared
+  pieces must leave these bits as they were;
+- by distance: the block pair forward (B4, gLN and cLN causal) and the gLN
+  pair backward (B5) at the paper shape, bf16 and f32, (d1, d2) = (1, 2),
+  (16, 32), (64, 128): the relative L2 between the two trees and each
+  tree's own distance from its plain twin (B5's evaluated in exact f32),
+  held at the pair bars.
+
+Every TCN output also prints each tree's distance from its twin.
 
 ``--time`` then times both trees in turns (other, this, this, other; one
-subprocess each, on the same card): B1 (gLN and cLN causal), B2 and B3 in
-bf16 per dilation 1..128 at the paper shape, the bf16 paper-config
-forward at B=8 x 4 s with pairs off, and the gLN and cLN causal train
-steps at B=8 x 4 s, and beside them ``torch.matmul`` at each of the
-blocks' products' shapes (a yardstick of the product core alone; no
-kernel calls it). ``--out`` writes every number as JSON. Exits nonzero if a bit-for-bit output
-differs or a kernel is further from its twin than its bar.
+subprocess each, on the same card), in bf16 at the paper shape unless
+named: B1 (gLN and cLN causal), B2 and B3 per dilation 1..128; B4 (gLN
+and cLN causal) and B5 per pair of dilations (1, 2) .. (64, 128), and
+beside each in the same turn two chained B1 calls and B1 + 2 x B2; the
+gLN B4 and B5 beside the same also in f32 ("f32") and in bf16 at H=192
+("H=192"), which run the first design's launches; the paper-config
+forward and gLN train step at B=8 and B=24 x 4 s with pairs on and off,
+with the peak device memory of each, and the cLN causal step at B=8;
+and ``torch.matmul`` at each of the blocks' products' shapes (a yardstick
+of the product core alone; no kernel calls it). ``--out`` writes every
+number as JSON. Exits nonzero if a bit-for-bit output differs or a kernel
+is further from its twin than its bar.
 """
 
 from __future__ import annotations
@@ -60,10 +70,21 @@ TCN_KERNELS = [("b1", "gLN", False), ("b1", "cLN", True),
 TCN_CASES = [(kern, norm, causal, dtype, d)
              for kern, norm, causal in TCN_KERNELS
              for dtype in ("bfloat16", "float32") for d in (1, 16, 128)]
-# the forward bars and the backward's (the JAX probe and train gates)
+# (kernel, norm, causal): B4 gLN and cLN causal, B5 gLN
+PAIR_KERNELS = [("b4", "gLN", False), ("b4", "cLN", True),
+                ("b5", "gLN", False)]
+PAIR_CASES = [(kern, norm, causal, dtype, d1)
+              for kern, norm, causal in PAIR_KERNELS
+              for dtype in ("bfloat16", "float32") for d1 in (1, 16, 64)]
+# the twin bars: the forward's and the backward's (the JAX probe and train
+# gates), the pair forward at 1.5x the block's (the JAX pair gate)
 TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
+           ("b4", "bfloat16"): 6e-2, ("b4", "float32"): 3e-3,
            ("bwd", "bfloat16"): 8e-2, ("bwd", "float32"): 4e-3}
+# outputs held bit for bit against the other tree; the rest by distance
+BIT_KEYS = ("dpt ", "b6 ", "b1 ", "b2 ", "b3 ")
 DILATIONS = [2 ** i for i in range(8)]
+PAIRS = [(2 ** i, 2 ** (i + 1)) for i in range(0, 8, 2)]
 M, K, B, H, P = 8, 3199, 256, 512, 3
 # the blocks' products as (rows, depth, columns) of a row-major [rows,
 # depth] @ [depth, columns]: B1's two, then B2's three others (g W_out^T
@@ -82,33 +103,38 @@ def rel_l2(got, want) -> float:
 
 def _tcn_tol(key: str) -> float:
     kern, dtype = key.split()[:2]
-    return TCN_TOL["b1" if kern == "b1" else "bwd", dtype]
+    return TCN_TOL[kern if kern in ("b1", "b4") else "bwd", dtype]
 
 
 def compare(mine: dict, other: dict):
-    """Lines to print and the keys at fault: ``dpt``/``b6`` outputs must
-    equal the other tree's bit for bit; each ``b1``/``b2``/``b3`` output
-    reports its relative L2 to the other tree's, and is at fault when this
-    tree's distance from its twin (the ``twin `` entry) exceeds its bar."""
+    """Lines to print and the keys at fault: the outputs under
+    ``BIT_KEYS`` (DPT, B6, B1-B3) must equal the other tree's bit for bit;
+    each ``b4``/``b5`` output reports its relative L2 to the other tree's,
+    and is at fault when this tree's distance from its twin (the ``twin ``
+    entry) exceeds its bar. Every output with a twin entry prints both
+    trees' distances from their twins."""
     lines, bad = [], []
     for key in sorted(k for k in other if not k.startswith("twin ")):
         if key not in mine:
             lines.append(f"{key}: missing in this tree")
             bad.append(key)
             continue
-        if key.startswith(("dpt ", "b6 ")):
-            same = bool((mine[key] == other[key]).all()) and (
-                mine[key].shape == other[key].shape)
-            lines.append(f"{key}: {'same bits' if same else 'DIFFERENT'}")
+        twin = ""
+        if f"twin {key}" in mine and f"twin {key}" in other:
+            mt, ot = mine[f"twin {key}"], other[f"twin {key}"]
+            twin = (f"; from the twin this tree {mt:.3e}, other {ot:.3e} "
+                    f"(bar {_tcn_tol(key):.0e})")
+        if key.startswith(BIT_KEYS):
+            same = mine[key].shape == other[key].shape and bool(
+                (mine[key] == other[key]).all())
+            lines.append(f"{key}: {'same bits' if same else 'DIFFERENT'}"
+                         + twin)
             if not same:
                 bad.append(key)
             continue
-        tol = _tcn_tol(key)
-        mt, ot = mine[f"twin {key}"], other[f"twin {key}"]
-        lines.append(f"{key}: trees apart rel_l2 {rel_l2(mine[key], other[key]):.3e}; "
-                     f"from the twin this tree {mt:.3e}, other {ot:.3e} "
-                     f"(bar {tol:.0e})")
-        if not mt <= tol:
+        lines.append(f"{key}: trees apart rel_l2 "
+                     f"{rel_l2(mine[key], other[key]):.3e}" + twin)
+        if not mine[f"twin {key}"] <= _tcn_tol(key):
             bad.append(key)
     return lines, bad
 
@@ -126,22 +152,32 @@ def summarize(turns: list) -> list:
                 per.setdefault(tree, []).append(res[metric])
         if set(per) != {"this", "other"}:
             continue
+        unit = "GiB" if metric.startswith("peak ") else "ms"
         mean = {t: sum(v) / len(v) for t, v in per.items()}
         lines.append(f"{metric}: other {' '.join(f'{v:.4f}' for v in per['other'])}"
-                     f" | this {' '.join(f'{v:.4f}' for v in per['this'])} ms; "
-                     f"means {mean['other']:.4f} -> {mean['this']:.4f} "
-                     f"(x{mean['this'] / mean['other']:.3f})")
-    for metric in ("b1 gLN", "b1 cLN causal", "b2 gLN", "b3 cLN causal"):
+                     f" | this {' '.join(f'{v:.4f}' for v in per['this'])} "
+                     f"{unit}; means {mean['other']:.4f} -> "
+                     f"{mean['this']:.4f} (x{mean['this'] / mean['other']:.3f})")
+    series = [(m, [f"d={d}" for d in DILATIONS])
+              for m in ("b1 gLN", "b1 cLN causal", "b2 gLN", "b3 cLN causal")]
+    series += [(m, [f"d=({d1},{d2})" for d1, d2 in PAIRS])
+               for m in ("b4 gLN", "2 x b1 gLN", "b4 cLN causal",
+                         "2 x b1 cLN causal", "b5 gLN", "b1 + 2 x b2 gLN")]
+    series += [(f"{m}{tag}", [f"d=({d1},{d2})" for d1, d2 in PAIRS])
+               for tag in (" f32", " H=192")
+               for m in ("b4 gLN", "2 x b1 gLN", "b5 gLN", "b1 + 2 x b2 gLN")]
+    for metric, at in series:
         for tree in ("other", "this"):
-            vals = [res[f"{metric} d={d}"] for t, res in turns if t == tree
-                    for d in DILATIONS if f"{metric} d={d}" in res]
+            vals = [res[f"{metric} {a}"] for t, res in turns if t == tree
+                    for a in at if f"{metric} {a}" in res]
             if vals:
-                lines.append(f"{metric} mean over d, {tree}: "
+                lines.append(f"{metric} mean over "
+                             f"{'pairs' if '(' in at[0] else 'd'}, {tree}: "
                              f"{sum(vals) / len(vals):.4f} ms")
     return lines
 
 
-def _block_inputs(torch, dtype, seed: int, norm: str):
+def _block_inputs(torch, dtype, seed: int, norm: str, H=H):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, scale=1.0):
@@ -165,6 +201,8 @@ def dump(path: str) -> None:
         dpt_intra,
         tcn_block,
         tcn_block_bwd,
+        tcn_block_pair,
+        tcn_block_pair_bwd,
         tcn_block_tp,
     )
 
@@ -244,6 +282,37 @@ def dump(path: str) -> None:
             out[f"{key} {name}"] = got[i].cpu()
             out[f"twin {key} {name}"] = rel_l2(got[i], want[i])
         torch.cuda.synchronize()
+    for kern, norm, causal, dtype, d1 in PAIR_CASES:
+        pa, g = _block_inputs(torch, dtype, 200 + d1, norm)
+        pb, _ = _block_inputs(torch, dtype, 300 + d1, norm)
+        x, pa, pb = pa[0], list(pa[1:]), list(pb[1:])
+        key = f"{kern} {dtype} {norm} causal={int(causal)} d=({d1},{2 * d1})"
+        kw = dict(d1=d1, d2=2 * d1, causal=causal)
+        if kern == "b4":
+            with torch.inference_mode():
+                got = tcn_block_pair.fused_tcn_block_pair(
+                    x, pa, pb, norm_type=norm, **kw)
+                want = tcn_block_pair.fused_tcn_block_pair_reference(
+                    x, pa, pb, norm_type=norm, **kw)
+            out[key] = got.cpu()
+            out[f"twin {key}"] = rel_l2(got, want)
+            continue
+        got = tcn_block_pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+        # the twin in exact f32, as the smoke holds B5 with a random
+        # cotangent: a bf16 twin is itself ~8e-2 from it in dW_in
+        want = tcn_block_pair_bwd.fused_tcn_block_pair_bwd_reference(
+            x.float(), g.float(), [t.float() for t in pa],
+            [t.float() for t in pb], **kw)
+        # dx and each block's weight gradients, as for B2 above
+        outs = [("dx", got[0], want[0])] + [
+            (f"{blk} {name}", q[i], w[i])
+            for blk, q, w in (("a", got[1], want[1]), ("b", got[2], want[2]))
+            for name, i in (("dW_in", 0), ("d_dw", 1), ("dW_out", 2),
+                            ("dg1", 5), ("db1", 6), ("dg2", 7), ("db2", 8))]
+        for name, q, w in outs:
+            out[f"{key} {name}"] = q.cpu()
+            out[f"twin {key} {name}"] = rel_l2(q, w)
+        torch.cuda.synchronize()
     torch.save(out, path)
 
 
@@ -259,6 +328,56 @@ def _ms(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _peak_gib(torch, fn) -> float:
+    """The peak device memory of one call of fn, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _time_pairs(torch, res: dict, tag: str, x, g, pa, pb, norms) -> None:
+    """Times B4 (each of norms: (label, norm, causal)) beside two chained
+    B1 calls, and B5 beside B1 + 2 x B2, per pair of dilations, into res
+    under names that end in tag."""
+    from convtasnet_tpu_torch.ops.cuda import (
+        tcn_block,
+        tcn_block_bwd,
+        tcn_block_pair,
+        tcn_block_pair_bwd,
+    )
+
+    for d1, d2 in PAIRS:
+        at = f"d=({d1},{d2})"
+        for label, norm, causal in norms:
+            with torch.inference_mode():
+                res[f"b4 {label}{tag} {at}"] = _ms(
+                    torch, lambda: tcn_block_pair.fused_tcn_block_pair(
+                        x, pa, pb, d1=d1, d2=d2, causal=causal,
+                        norm_type=norm), 20)
+                res[f"2 x b1 {label}{tag} {at}"] = _ms(
+                    torch, lambda: tcn_block.fused_tcn_block(
+                        tcn_block.fused_tcn_block(
+                            x, *pa, dilation=d1, causal=causal,
+                            norm_type=norm),
+                        *pb, dilation=d2, causal=causal, norm_type=norm), 20)
+        res[f"b5 gLN{tag} {at}"] = _ms(
+            torch, lambda: tcn_block_pair_bwd.fused_tcn_block_pair_bwd(
+                x, g, pa, pb, d1=d1, d2=d2, causal=False), 20)
+
+        def chained():
+            with torch.no_grad():
+                x1 = tcn_block.fused_tcn_block(x, *pa, dilation=d1,
+                                               causal=False, norm_type="gLN")
+            dx1 = tcn_block_bwd.fused_tcn_block_bwd(
+                x1, g, *pb, dilation=d2, causal=False)[0]
+            tcn_block_bwd.fused_tcn_block_bwd(x, dx1, *pa, dilation=d1,
+                                              causal=False)
+
+        res[f"b1 + 2 x b2 gLN{tag} {at}"] = _ms(torch, chained, 20)
 
 
 def time_tree(path: str) -> None:
@@ -286,25 +405,53 @@ def time_tree(path: str) -> None:
                 torch, lambda: tcn_block_bwd.fused_tcn_block_bwd(
                     args[0], g, *args[1:], dilation=d, causal=causal,
                     norm_type=norm), 20)
+    pb = list(_block_inputs(torch, "bfloat16", 8, "gLN")[0][1:])
+    _time_pairs(torch, res, "", args[0], g, list(args[1:]), pb,
+                (("gLN", "gLN", False), ("cLN causal", "cLN", True)))
+    # f32, and bf16 at a width the Hopper stages do not take: the first
+    # design's launches
+    f32 = [t.float() for t in (args[0], g)]
+    _time_pairs(torch, res, " f32", *f32, [t.float() for t in args[1:]],
+                [t.float() for t in pb], (("gLN", "gLN", False),))
+    narrow, g192 = _block_inputs(torch, "bfloat16", 9, "gLN", H=192)
+    pb192 = list(_block_inputs(torch, "bfloat16", 10, "gLN", H=192)[0][1:])
+    _time_pairs(torch, res, " H=192", narrow[0], g192, list(narrow[1:]),
+                pb192, (("gLN", "gLN", False),))
     T = 4 * 8000
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    mix = torch.randn(8, T, generator=gen, device="cuda")
     cfg = ConvTasNetConfig(compute_dtype="bfloat16")
-    model = ConvTasNet(cfg, device="cuda").eval()
-    with torch.inference_mode():
-        res["forward B=8 x 4 s"] = _ms(torch, lambda: model(mix), 10)
-    del model
-    data = (mix, torch.full((8,), T, dtype=torch.int32, device="cuda"),
-            torch.randn(8, 2, T, generator=gen, device="cuda"),
-            torch.ones(8, device="cuda"))
-    for label, c in (("gLN", cfg), ("cLN causal", ConvTasNetConfig(
-            compute_dtype="bfloat16", norm_type="cLN", causal=True))):
-        state = ts.create_train_state(c, SolverConfig(), device="cuda",
-                                      use_pallas=True)
-        step = ts.make_train_step()
-        res[f"train step {label} B=8 x 4 s"] = _ms(
-            torch, lambda: step(state, data), 10)
-        del state
+    for batch in (8, 24):
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        mix = torch.randn(batch, T, generator=gen, device="cuda")
+        data = (mix, torch.full((batch,), T, dtype=torch.int32,
+                                device="cuda"),
+                torch.randn(batch, 2, T, generator=gen, device="cuda"),
+                torch.ones(batch, device="cuda"))
+        for pairs in ("off", "on"):
+            os.environ[PAIR_ENV] = "1" if pairs == "on" else "0"
+            at = f"B={batch} x 4 s pairs {pairs}"
+            model = ConvTasNet(cfg, device="cuda").eval()
+            with torch.inference_mode():
+                res[f"forward {at}"] = _ms(torch, lambda: model(mix), 10)
+                res[f"peak GiB forward {at}"] = _peak_gib(
+                    torch, lambda: model(mix))
+            del model
+            state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
+                                          use_pallas=True)
+            step = ts.make_train_step()
+            res[f"train step gLN {at}"] = _ms(
+                torch, lambda: step(state, data), 10)
+            res[f"peak GiB train step gLN {at}"] = _peak_gib(
+                torch, lambda: step(state, data))
+            del state
+        os.environ[PAIR_ENV] = "0"
+        if batch == 8:
+            state = ts.create_train_state(ConvTasNetConfig(
+                compute_dtype="bfloat16", norm_type="cLN", causal=True),
+                SolverConfig(), device="cuda", use_pallas=True)
+            step = ts.make_train_step()
+            res["train step cLN causal B=8 x 4 s"] = _ms(
+                torch, lambda: step(state, data), 10)
+            del state
     for name, (r, k, n) in PRODUCTS.items():
         a = torch.randn(r, k, device="cuda").bfloat16()
         b = torch.randn(k, n, device="cuda").bfloat16()
@@ -351,8 +498,8 @@ def main() -> int:
         lines, bad = compare(outs["this"], outs["other"])
         for line in lines:
             print(f"kernels vs the other checkout, {line}", flush=True)
-        n_bits = sum(1 for k in outs["other"] if k.startswith(("dpt ", "b6 ")))
-        n_diff = sum(1 for k in bad if k.startswith(("dpt ", "b6 ")))
+        n_bits = sum(1 for k in outs["other"] if k.startswith(BIT_KEYS))
+        n_diff = sum(1 for k in bad if k.startswith(BIT_KEYS))
         print(f"{n_bits - n_diff} of {n_bits} bit-for-bit outputs the same "
               f"bits; {len(bad) - n_diff} TCN outputs past their bars",
               flush=True)
@@ -364,7 +511,7 @@ def main() -> int:
                 _run("--time-dump", roots[tree], path, tmp)
                 turns.append((tree, torch.load(path)))
             for line in summarize(turns):
-                print(f"timing (bf16): {line}", flush=True)
+                print(f"timing: {line}", flush=True)
             report["turns"] = turns
     if a.out:
         with open(a.out, "w") as f:

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Plant known faults in copies of the TCN block forward (kernel B1) and
 its gLN backward (B2) on the Hopper core, of the DPT sublayer kernels, of
-the cLN block backward (B3), of the TCN block pair (B4 and B5), of
+the cLN block backward (B3), of the TCN block pair (B4 and B5, which run
+each block through the single block's launches), of
 the TCN's tensor parallelism (kernel B6 and the shard sum around it) and
 of the dual-path tensor parallelism (the partial kernels B7p-B12p and
 the shard sums around them), and report which checks see each one. Needs
 one CUDA GPU and nvcc.
 
-    python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...]
+    python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...] \\
+        [--jobs N]
 
 For each fault the script copies ``convtasnet_tpu_torch/`` (without its
 build directory), ``chip_smoke.py``, ``pyproject.toml`` and
@@ -29,13 +31,15 @@ DPT backward ``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch,
 ``phase_dpt_partial_vs_twin``, ``phase_dpt_tp_forward`` and
 ``phase_step_compare(torch, "dpt")``), then the kind's ``cuda``-marked
 tests. The repository itself is never edited. A fault is caught when either
-run fails. Each run's full output goes to ``--log-dir`` (default: a new
-temporary directory), one file per fault.
+run fails. ``--jobs N`` runs N faults at once on the one card. Each run's
+full output goes to ``--log-dir`` (default: a new temporary directory),
+one file per fault.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import os
 import shutil
 import subprocess
@@ -113,7 +117,7 @@ FAULTS = {
     # the next sample's slots, and the split-row weight gradients summing
     # the rows past the last one (read beyond the operands, not zeros)
     "b2_f3_stats_of_next_sample": ("block_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
         "      float* dst = p.part + 2 * (static_cast<size_t>(m) * gridDim.x + "
         "bx);",
         "      float* dst = p.part + 2 * (static_cast<size_t>((m + 1) % "
@@ -123,18 +127,19 @@ FAULTS = {
         "  const int r_end = min(rows, r0 + chunk);",
         "  const int r_end = r0 + chunk;"),
     # the cLN block backward (B3), in bf16 on the Hopper stages
-    # (tcn_block_bwd.cu: E2' as it runs at P = 3, e2_dc_kernel) and, for the
-    # row finaliser both dtypes run, in tcn_block_bwd_common.cuh
+    # (tcn_block_bwd_hopper.cuh: E2' as it runs at P = 3, e2_dc_kernel)
+    # and, for the row finaliser both dtypes run, in
+    # tcn_block_bwd_common.cuh
     "cln_bwd_tap_stats_of_output_row": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
         "              const float* sk = stat_at(p, true, m, kh);",
         "              const float* sk = stat_at(p, true, m, j);"),
     "cln_bwd_g1_row_sum_half_twice": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
         "            q2 = group_sum(q2, kSeg);",
         "            q2 = 2.f * group_sum(q2, kSeg / 2);"),
     "cln_bwd_e2_row_partial_shifted": ("cln_backward",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd.cu",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
         "2 * ((static_cast<size_t>(m) * K + j) * gridDim.y + blockIdx.y);",
         "2 * ((static_cast<size_t>(m) * K + (j + 1) % K) * gridDim.y + "
         "blockIdx.y);"),
@@ -142,26 +147,37 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
         "st[slot + 1] = static_cast<float>(s2 / H);",
         "st[slot + 1] = static_cast<float>(s2 / (H - 1));"),
-    # the block pair (B4, B5): the boundary launch both run, and B5's dx1
-    # (G2b's epilogue, which B2 shares). In bf16 the shared tile holds x1
-    # in the compute dtype, so an x1 fed to W_in2 unrounded takes the form
-    # of another rounding than the stored x1's: x0 + round(o), rounded.
+    # the block pair (B4, B5), which runs each block through the single
+    # block's launches: B5 re-forming x1 on the first design's launches in
+    # bf16 (another rounding than B4's x1; in f32 the same code), block 2
+    # of B4 normalised with block 1's norm1 affine, run at block 1's
+    # dilation, or reading the x1 rows of the neighbouring 128-row tile,
+    # block 1's backward in B5 on g in place of dx1, and B5 keeping x1 in
+    # the segment where block 2's backward writes dx1
     "pair_x1_rounded_otherwise": ("pair",
-        "convtasnet_tpu_torch/csrc/tcn_block_common.cuh",
-        "if (res_s) res_s[r * ld_res + n0 + c] = v;",
-        "if (res_s) res_s[r * ld_res + n0 + c] = "
-        "from_f<T>(to_f<T>(x[idx]) + round_to<T>(o));"),
-    "pair_block2_norm1_stats_of_block1": ("pair",
-        "convtasnet_tpu_torch/csrc/tcn_block_pair.cuh",
-        "in_proj_epilogue<T, kNorm, kPre>(p2, s, m, bx, by, gridDim.x, "
-        "n_tiles);",
-        "in_proj_epilogue<T, kNormBN, kPre>(p2, s, m, bx, by, gridDim.x, "
-        "n_tiles);"),
-    "pair_bwd_dx1_drops_g": ("pair",
-        "convtasnet_tpu_torch/csrc/tcn_block_bwd_common.cuh",
-        "const T v = from_f<T>(to_f<T>(g[idx]) + s.c[r * S::kLdC + col]);",
-        "const T v = from_f<T>(0.f * to_f<T>(g[idx]) + "
-        "s.c[r * S::kLdC + col]);"),
+        "convtasnet_tpu_torch/csrc/tcn_block_pair_bwd.cu",
+        "  CTN_TRY(launch_block<T>(forward_params(",
+        "  CTN_TRY(launch_block_first<T, kNormGLN>(forward_params("),
+    "pair_block2_norm1_of_block1": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_pair.cu",
+        "{w_in2, dw2, w_out2, a1b, a2b, g1b, b1b, g2b, b2b};",
+        "{w_in2, dw2, w_out2, a1b, a2b, g1a, b1a, g2b, b2b};"),
+    "pair_block2_dilation_of_block1": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_pair.cu",
+        "part_b, M, K, B, H, P, d2, causal, norm);",
+        "part_b, M, K, B, H, P, d1, causal, norm);"),
+    "pair_block2_x1_of_neighbouring_tile": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_pair.cu",
+        "  const Params p2 = block_params(wb, x1, out,",
+        "  const Params p2 = block_params(wb, x1 + 128 * B, out,"),
+    "pair_bwd_block1_cotangent_g": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_pair_bwd.cu",
+        "BwdParams q1 = block_bwd_params(wa, x, dx1, dx,",
+        "BwdParams q1 = block_bwd_params(wa, x, g, dx,"),
+    "pair_bwd_x1_on_dx1": ("pair",
+        "convtasnet_tpu_torch/csrc/tcn_block_pair_bwd.cu",
+        "  T* x1 = act + L.act[0];",
+        "  T* x1 = act + L.act[1];"),
     # TCN tensor parallelism: B6 with the gLN-1 shift added for taps
     # outside [0, K) (the Pallas halo's trap), B6 with g2 folded into W_out
     # in place of rounding y g2 (planted in its wrapper: W_eff in the
@@ -280,43 +296,52 @@ def plant(root: str, name: str) -> str:
     return d
 
 
+def run_fault(root: str, name: str, log_dir: str) -> list:
+    """Plants fault ``name``, runs its kind's smoke phases and card tests
+    against it, writes the full log and returns the lines to print."""
+    d = plant(root, name)
+    env = dict(os.environ, PYTHONPATH=d)
+    kind = FAULTS[name][0]
+    smoke = subprocess.run([sys.executable, "-c", RUNNER, *PHASES[kind]],
+                           cwd=d, env=env, capture_output=True, text=True)
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+         "tests/test_torch_cuda.py", "-q", "-k", CARD_TESTS[kind],
+         "-p", "no:cacheprovider"], cwd=d, env=env,
+        capture_output=True, text=True)
+    with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
+        f.write(smoke.stdout + smoke.stderr + "\n=== card tests\n"
+                + tests.stdout + tests.stderr)
+    summary = (tests.stdout.strip().splitlines() or [""])[-1]
+    caught = smoke.returncode != 0 or tests.returncode != 0
+    lines = [f"== {name}: {'CAUGHT' if caught else 'not caught'}; "
+             f"smoke phases rc={smoke.returncode}, card tests "
+             f"rc={tests.returncode} ({summary})"]
+    lines += ["    " + line for line in smoke.stdout.splitlines()
+              if line.startswith("PHASE") or "dpt forward B" in line]
+    lines += ["    " + line[:300] for line in smoke.stderr.splitlines()[-3:]]
+    lines += ["    " + line[:200] for line in tests.stdout.splitlines()
+              if line.startswith("FAILED")]
+    shutil.rmtree(d, ignore_errors=True)
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None)
     ap.add_argument("--only", nargs="*", choices=sorted(FAULTS))
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="faults run at once on the one card (each builds "
+                         "its own copy of the kernels)")
     a = ap.parse_args()
     log_dir = a.log_dir or tempfile.mkdtemp(prefix="faults_logs_")
     os.makedirs(log_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="faults_") as root:
-        for name in a.only or FAULTS:
-            d = plant(root, name)
-            env = dict(os.environ, PYTHONPATH=d)
-            kind = FAULTS[name][0]
-            smoke = subprocess.run([sys.executable, "-c", RUNNER,
-                                    *PHASES[kind]],
-                                   cwd=d, env=env, capture_output=True,
-                                   text=True)
-            tests = subprocess.run(
-                [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-                 "tests/test_torch_cuda.py", "-q", "-k", CARD_TESTS[kind],
-                 "-p", "no:cacheprovider"], cwd=d, env=env,
-                capture_output=True, text=True)
-            with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
-                f.write(smoke.stdout + smoke.stderr + "\n=== card tests\n"
-                        + tests.stdout + tests.stderr)
-            summary = (tests.stdout.strip().splitlines() or [""])[-1]
-            caught = smoke.returncode != 0 or tests.returncode != 0
-            print(f"== {name}: {'CAUGHT' if caught else 'not caught'}; "
-                  f"smoke phases rc={smoke.returncode}, card tests "
-                  f"rc={tests.returncode} ({summary})", flush=True)
-            for line in smoke.stdout.splitlines():
-                if line.startswith("PHASE") or "dpt forward B" in line:
-                    print("   ", line)
-            for line in smoke.stderr.splitlines()[-3:]:
-                print("   ", line[:300])
-            for line in tests.stdout.splitlines():
-                if line.startswith("FAILED"):
-                    print("   ", line[:200])
+    with tempfile.TemporaryDirectory(prefix="faults_") as root, \
+            concurrent.futures.ThreadPoolExecutor(a.jobs) as pool:
+        runs = [pool.submit(run_fault, root, name, log_dir)
+                for name in a.only or FAULTS]
+        for run in runs:
+            print("\n".join(run.result()), flush=True)
     print(f"logs in {log_dir}")
     return 0
 

@@ -3,12 +3,14 @@
 train step, on one GPU.
 
     PYTHONPATH=. python3 scripts/profile_torch.py {tcn,dpt} [forward|train] \\
-        [--norm gLN|cLN] [--batch 8] [--seconds 4] [--iters 10]
+        [--norm gLN|cLN] [--pairs] [--batch 8] [--seconds 4] [--iters 10]
 
 Runs a model in bf16 with random weights from seed 0 at [batch, seconds *
 8 kHz] through the hand-written kernels: ``tcn`` the paper config (gLN;
 ``--norm cLN`` its causal cLN variant) with block pairs off, the default
-(``CONVTASNET_PAIR_FUSION=0``), ``dpt`` the dual-path quality default
+(``CONVTASNET_PAIR_FUSION=0``), or with ``--pairs`` on (blocks (x, x+1)
+through the pair kernels: the forward's pairs through B4, a gLN step's
+through B4 and B5), ``dpt`` the dual-path quality default
 (``--separator dpt``). ``forward`` (the default) a forward under inference mode,
 ``train`` one train step (forward, uPIT loss, backward, clip, Adam) on a
 seeded batch. It warms up, then traces ``--iters`` calls with
@@ -59,6 +61,9 @@ def main() -> int:
                     choices=["forward", "train"])
     ap.add_argument("--norm", default="gLN", choices=["gLN", "cLN"],
                     help="the TCN's norm; cLN runs it causal")
+    ap.add_argument("--pairs", action="store_true",
+                    help="run the TCN's blocks as pairs "
+                         "(CONVTASNET_PAIR_FUSION=1)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=4.0)
     ap.add_argument("--iters", type=int, default=10)
@@ -77,14 +82,14 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     from convtasnet_tpu_torch.models.conv_tasnet import PAIR_ENV
 
-    os.environ[PAIR_ENV] = "0"
+    os.environ[PAIR_ENV] = "1" if a.pairs else "0"
     if a.model == "dpt":
         cfg = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16")
         label = "dpt"
     else:
         cfg = ConvTasNetConfig(norm_type=a.norm, causal=a.norm == "cLN",
                                compute_dtype="bfloat16")
-        label = f"tcn {a.norm}"
+        label = f"tcn {a.norm}" + (" pairs" if a.pairs else "")
     build = _forward if a.mode == "forward" else _train
     call, ctx = build(torch, cfg, a.batch, int(a.seconds * cfg.sample_rate))
     with ctx:
@@ -104,8 +109,11 @@ def main() -> int:
             for _ in range(a.iters):
                 call()
             torch.cuda.synchronize()
+    # the device's own work only: a user annotation's span (such as
+    # "Optimizer.step#Adam.step") also reports device time, and is skipped
     rows = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and "#" not in e.key]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total = sum(e.self_device_time_total for e in rows) / a.iters
     unit = "forward" if a.mode == "forward" else "step"
@@ -114,7 +122,7 @@ def main() -> int:
           f"{wall_ms:.3f} ms per {unit} (CUDA events), device kernels "
           f"{total / 1e3:.3f} ms per {unit} (profiler), idle share "
           f"{1 - total / 1e3 / wall_ms:.3f}")
-    for e in rows[:40]:
+    for e in rows[:60]:
         us = e.self_device_time_total / a.iters
         print(f"{us:10.1f} us {e.count / a.iters:6.1f} launches  "
               f"{100 * us / total:5.1f}%  {e.key[:110]}")

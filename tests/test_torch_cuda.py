@@ -652,13 +652,9 @@ def test_model_kernel_path_matches_plain_path(cuda, dtype):
     for pairs in (True, False):
         assert _rel_l2(outs[True, pairs], outs[False, True]) <= TOL[
             getattr(torch, dtype)]
-    if dtype == "float32":
-        # in f32 a pair runs B1's code on the same operands: the same bits
-        assert torch.equal(outs[True, True], outs[True, False])
-    else:
-        # bf16 B1 runs the Hopper core, B4 the first design: the pair bar
-        assert _rel_l2(outs[True, True], outs[True, False]) <= PAIR_TOL[
-            torch.bfloat16]
+    # a pair runs B1's stages of its dtype and widths on the same
+    # operands: the same bits in bf16 and f32
+    assert torch.equal(outs[True, True], outs[True, False])
 
 
 def _pair_args(device, dtype, m=2, k=300, b=64, h=128, seed=0):
@@ -727,10 +723,9 @@ def test_pair_kernel_matches_twin(cuda, dtype, norm_type, causal, d1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
 def test_pair_kernel_equals_two_blocks(cuda, dtype, norm_type):
-    """In f32 B4 runs B1's code on the same operands: two chained B1 calls
-    give the same bits. In bf16 B1 runs the Hopper core (csrc/
-    tcn_block_hopper.cuh) and B4 the first design's launches, so the two
-    agree at the pair bar."""
+    """B4 runs B1's stages of its dtype and widths on the same operands (in
+    bf16 the Hopper stages of csrc/tcn_block_hopper.cuh, in f32 the first
+    design's launches): two chained B1 calls give the same bits."""
     x, pa, pb, _ = _pair_args(cuda, dtype, m=3, k=500, seed=5)
     got = pair.fused_tcn_block_pair(x, pa, pb, d1=4, d2=8, causal=True,
                                     norm_type=norm_type)
@@ -738,11 +733,8 @@ def test_pair_kernel_equals_two_blocks(cuda, dtype, norm_type):
                               norm_type=norm_type)
     want = port.fused_tcn_block(x1, *pb, dilation=8, causal=True,
                                 norm_type=norm_type)
-    if dtype == torch.float32:
-        assert torch.equal(got, want)
-    else:
-        assert torch.isfinite(got).all()
-        assert _rel_l2(got, want) <= PAIR_TOL[dtype]
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -784,11 +776,9 @@ def test_pair_bwd_kernel_each_slope_with_slopes_at_one(cuda, causal, d1):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_bwd_kernel_equals_chained_blocks(cuda, dtype):
-    """In f32 B5 runs B1's and B2's code on the same operands: block 2's
-    backward at the forward's x1, then block 1's at its cotangent, give the
-    same bits. In bf16 B1 and B2 run the Hopper core and B5 the first
-    design's launches, so the 19 cotangents agree at B2's bars, held as
-    ``_check_pair_cotangents`` holds them against the twin."""
+    """B5 runs B1's and B2's stages of its dtype and widths on the same
+    operands: block 2's backward at the forward's x1, then block 1's at its
+    cotangent, give the same bits in bf16 and f32."""
     x, pa, pb, g = _pair_args(cuda, dtype, m=3, k=500, seed=9)
     dx, ga, gb = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, d1=2, d2=4,
                                                    causal=False)
@@ -798,11 +788,42 @@ def test_pair_bwd_kernel_equals_chained_blocks(cuda, dtype):
                                             causal=False)
     dx0, *wa = port_bwd.fused_tcn_block_bwd(x, dx1, *pa, dilation=2,
                                             causal=False)
-    if dtype == torch.float32:
-        assert torch.equal(dx, dx0)
-        assert all(torch.equal(u, v) for u, v in zip((*ga, *gb), (*wa, *wb)))
-    else:
-        _check_pair_cotangents((dx, ga, gb), (dx0, wa, wb), dtype)
+    assert torch.equal(dx, dx0)
+    assert all(torch.equal(u, v) for u, v in zip((*ga, *gb), (*wa, *wb)))
+
+
+@pytest.mark.parametrize("dtype,b,h", [
+    (torch.bfloat16, 64, 192), (torch.bfloat16, 128, 512),
+    (torch.float32, 128, 512)])
+def test_pairs_equal_chained_blocks_at_each_width(cuda, dtype, b, h):
+    """A pair runs the design a single block of its dtype and widths runs:
+    in bf16 at H = 192 (outside the Hopper stages) the first design's
+    launches, at H = 512 the Hopper stages, in f32 the first design. B4
+    equals two chained B1 calls (gLN and cLN) and B5 chained B1 + B2 + B2
+    to the bit at each. Block 1's slopes are off the powers of two, where
+    a PReLU output rounded before or after the slope is the same number,
+    so that a rounding of h that differs from B1's shows."""
+    x, pa, pb, g = _pair_args(cuda, dtype, m=2, k=333, b=b, h=h, seed=13)
+    pa[3] = torch.tensor(0.3, device=cuda)
+    pa[4] = torch.tensor(0.2, device=cuda)
+    for norm_type in ("gLN", "cLN"):
+        got = pair.fused_tcn_block_pair(x, pa, pb, d1=2, d2=4, causal=False,
+                                        norm_type=norm_type)
+        x1 = port.fused_tcn_block(x, *pa, dilation=2, causal=False,
+                                  norm_type=norm_type)
+        want = port.fused_tcn_block(x1, *pb, dilation=4, causal=False,
+                                    norm_type=norm_type)
+        assert torch.equal(got, want), norm_type
+    dx, ga, gb = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, d1=2, d2=4,
+                                                   causal=True)
+    x1 = port.fused_tcn_block(x, *pa, dilation=2, causal=True,
+                              norm_type="gLN")
+    dx1, *wb = port_bwd.fused_tcn_block_bwd(x1, g, *pb, dilation=4,
+                                            causal=True)
+    dx0, *wa = port_bwd.fused_tcn_block_bwd(x, dx1, *pa, dilation=2,
+                                            causal=True)
+    assert torch.equal(dx, dx0)
+    assert all(torch.equal(u, v) for u, v in zip((*ga, *gb), (*wa, *wb)))
 
 
 def test_pair_bwd_kernel_is_deterministic(cuda):
