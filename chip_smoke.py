@@ -54,11 +54,18 @@ Phases, each raising on failure (so the script exits nonzero):
    at the DPT bars, and the Megatron identity in f32 (the shards' partials
    summed plus the residual, plus b_down, against the full kernel, and
    the backwards' dx, dgamma and dbeta summed against the full backward)
-   within 1e-5; then kernel B6 (stage 2 of a TCN block under tensor parallelism)
-   against its twin at [8, 3199, Hs], Hs = 256 and 128 (two and four
-   shards of H = 512), every dilation, gLN non-causal and causal, bf16 and
-   f32: z and the gLN-2 sums within the forward bars, twice to the same
-   bits;
+   within 1e-5; B12 and B12p (m = 2, 4) at x [8, 3199, 256], whose last
+   128-row tile is partial, bf16 and f32, at the same bars; then kernel B6
+   (stage 2 of a TCN block under tensor parallelism) against its twin at
+   [8, 3199, Hs], Hs = 256 and 128 (two and four shards of H = 512), every
+   dilation, gLN non-causal and causal, bf16 and f32, and in bf16 at Hs =
+   512 and 64 (the other widths of its wgmma stage): z and the gLN-2 sums
+   within the forward bars, twice to the same bits; then auto mode
+   (``use_pallas=None``, the CLI's default): a paper-config TCN at B = H =
+   96 and a DPT quality default with 100-frame chunks and F = 1000, widths
+   off the kernels' tiles, each serve a batch and train a step through the
+   kernels, padded, within the bf16 forward bar of the plain model, and a
+   DPT at B = 320, which no kernel takes, raises before any launch;
 6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
    through the block pairs (``CONVTASNET_PAIR_FUSION=1``: B4 16 times per
@@ -1615,6 +1622,133 @@ def phase_dpt_train_path(torch, dpt, work: str, data: str, json_dir: str):
     return bwd
 
 
+def phase_ffn_bwd_tail_tiles(torch, dpt):
+    """B12 and B12p (one shard of m = 2 and 4) at rows that fill no whole
+    number of 128-row tiles: x [8, 3199, 256] (R = 25,592, the last tile
+    120 rows), F = 1024 (/ m), the biases off 0, a random cotangent, bf16
+    and f32; every cotangent against the twin's exact f32 ones as
+    ``phase_dpt_bwd_vs_twin`` holds them, db_down zero in partial mode.
+    Every case is printed before the phase fails."""
+    fused, twin = dpt_bwd_fns(dpt, "ffn")
+    failures = []
+    valid = torch.ones(3199, dtype=torch.bool, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        args, _, _ = dpt_inputs(torch, "ffn", dtype, 1, 3199, seed=7100,
+                                S=3199)
+        x = args[0]
+        w = [a.float() for a in args[1:]]
+        g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(7101)).to(dtype)
+        for m in (1,) + DPT_TP_SHARDS:
+            kw = {} if m == 1 else dict(partial=True)
+            ws = w if m == 1 else list(dpt_shard(
+                torch, (x, *w), "ffn", m, m - 1)[1:])
+            got = fused(x, g, *ws, **kw)
+            torch.cuda.synchronize()
+            exact = twin(x.float(), g.float(), *ws, **kw)
+            same = twin(x, g, *ws, **kw) if dtype == torch.bfloat16 \
+                else exact
+            names = DPT_GRAD_NAMES["ffn"]
+            head = (f"dpt ffn bwd kernel vs twin [8,3199,{DPT_B}] "
+                    f"F={DPT_F // m}{'' if m == 1 else f' partial m={m}'} "
+                    f"{name}")
+            if m > 1:
+                if got[-1].any().item():
+                    failures.append(f"{head}: db_down not zero")
+                got, exact, same, names = (got[:-1], exact[:-1], same[:-1],
+                                           names[:-1])
+            compare_cotangents(torch, head, names, got, exact, same, valid,
+                               dtype, failures)
+    check(not failures, "B12 at a tail tile disagrees with its twin: "
+          + "; ".join(failures))
+
+
+def phase_auto_padded(torch, k, dpt):
+    """Under ``use_pallas=None`` (the CLI's ``--use-pallas -1``), widths off
+    the kernels' tiles run padded through the kernels: the paper config at
+    B = H = 96 (B1 and B2 pad both to 128, their norms over the block's
+    own 96 channels) and the DPT quality default with 100-frame chunks and
+    F = 1000 (B9 and B10 pad S to 112 with masked frames, B11 and B12 F to
+    1024), bf16, random weights from seed 0. One model of each serves a
+    B=8 x 4 s batch and trains a step on another: every block or sublayer
+    launches its kernel (TCN: 32 B1 in each forward, 32 B2; DPT: 4 B7, 4
+    B9 and 8 B11 in each forward, 4 B8, 4 B10 and 8 B12), the served
+    output finite and within the bf16 forward bar of the plain model, the
+    step's loss finite. A shape no kernel takes (the DPT at B = 320)
+    raises under auto as with ``use_pallas=True``, before any launch."""
+    from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.ops.cuda import shapes
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    mix = train_batch(torch, 8, 61)[0]
+    batch = train_batch(torch, 8, 62)
+    none = dict.fromkeys(DPT_KINDS, 0)
+    cases = (
+        # forward: the served batch and the step's forward; backward: the
+        # step's
+        ("tcn B=H=96", ConvTasNetConfig(compute_dtype="bfloat16",
+                                        bottleneck=96, hidden=96),
+         tcn_want(b1=2 * 32, b2=32), none, none),
+        ("dpt chunk 100, F=1000", ConvTasNetConfig(
+            separator="dpt", compute_dtype="bfloat16", dpt_chunk=100,
+            dpt_ff=1000), tcn_want(),
+         {"inter": 2 * 4, "intra": 2 * 4, "ffn": 2 * 8},
+         {"inter": 4, "intra": 4, "ffn": 8}))
+    for label, cfg, want_tcn, want_fwd, want_bwd in cases:
+        check(not shapes.refusals(cfg), f"auto mode {label}: refused "
+              f"{shapes.refusals(cfg)}")
+        plain = ConvTasNet(cfg, use_pallas=False, device="cuda").eval()
+        state = ts.create_train_state(cfg, SolverConfig(), device="cuda")
+        state.model.load_state_dict(plain.state_dict())
+        tcn_reset(k)
+        reset_dpt_all(dpt)
+        with pair_switch(False):
+            state.model.eval()
+            with torch.inference_mode():
+                got, want = state.model(mix), plain(mix)
+            state, metrics = ts.make_train_step()(state, batch)
+            torch.cuda.synchronize()
+        tcn = tcn_counts(k)
+        fwd = {kind: dpt_fns(dpt, kind)[0].launches for kind in DPT_KINDS}
+        bwd = {kind: dpt_bwd_fns(dpt, kind)[0].launches for kind in DPT_KINDS}
+        err = rel_l2(got, want)
+        loss = float(metrics["loss"])
+        print(f"auto mode, {label}: TCN launches {tcn}, DPT forward {fwd} "
+              f"backward {bwd}; served vs plain rel_l2 {err:.3e} (bar "
+              f"{TOL['bfloat16']:.0e}); step loss {loss:.4f}", flush=True)
+        check(tcn == want_tcn, f"auto mode {label}: TCN launches {tcn}")
+        check(fwd == want_fwd and bwd == want_bwd, f"auto mode {label}: DPT "
+              f"launches {fwd} / {bwd}, expected {want_fwd} / {want_bwd}")
+        check(torch.isfinite(got).all().item() and err <= TOL["bfloat16"]
+              and math.isfinite(loss), f"auto mode {label}: {err:.3e}, "
+              f"loss {loss}")
+        del plain, state
+    wide = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16",
+                            bottleneck=320, dpt_heads=5)
+    tcn_reset(k)
+    reset_dpt_all(dpt)
+    for use_pallas in (None, True):
+        model = ConvTasNet(wide, use_pallas=use_pallas, device="cuda").eval()
+        try:
+            with torch.inference_mode():
+                model(mix)
+            raised = "nothing"
+        except ValueError as e:
+            raised = str(e)
+        print(f"auto mode, dpt B=320: use_pallas={use_pallas} raises "
+              f"{raised!r}", flush=True)
+        check("at most 256" in raised,
+              f"dpt B=320 use_pallas={use_pallas} raised {raised!r}")
+        del model
+    launched = {**tcn_counts(k), **{kind: dpt_fns(dpt, kind)[0].launches
+                                    for kind in DPT_KINDS}}
+    check(not any(launched.values()), f"dpt B=320 launched {launched}")
+    print(f"auto mode phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_intra_f32_wide_heads(torch, dpt):
     """The intra forward (B9) and backward (B10) in f32 with a head width
     of 64 (4 heads of B = 256) at S = 256 (n = 13, 4 s), where their
@@ -1678,23 +1812,33 @@ def tp_stage2_inputs(torch, dtype, Hs: int, seed: int, M=8, K=3199, B=256,
             0.1 * rn(Hs), 1.0 + 0.1 * rn(Hs))
 
 
+# B6's cases beyond two and four shards of H = 512: the other shard
+# widths its bf16 wgmma stage takes, (Hs, dilations), bf16 only
+TP_WG_WIDTHS = ((512, (1, 16, 128)), (64, (1, 16, 128)))
+
+
 def phase_tp_stage2_vs_twin(torch, k):
-    """Kernel B6 (TP stage 2) against its twin at [8, 3199, Hs], Hs = 256
-    and 128 (two and four shards of H = 512), every dilation 1..128, gLN
-    non-causal and causal, bf16 and f32: z and the gLN-2 sums within the
-    forward bars (4e-2 / 2e-3), against the twin at B6's own rounding
-    points within TP_ORDER_TOL, finite, and two calls the same bits.
-    Every case is printed before the phase fails; returns the worst
-    max_abs_err of z."""
+    """Kernel B6 (TP stage 2) against its twin at [8, 3199, Hs] (the last
+    128-row tile holds 127 rows), Hs = 256 and 128 (two and four shards of
+    H = 512), every dilation 1..128, gLN non-causal and causal, bf16 and
+    f32, and in bf16 at the wgmma stage's other widths, Hs = 512 and 64,
+    d = 1, 16, 128: z and the gLN-2 sums within the forward bars (4e-2 /
+    2e-3), against the twin at B6's own rounding points within
+    TP_ORDER_TOL, finite, and two calls the same bits. Every case is
+    printed before the phase fails; returns the worst max_abs_err of z."""
     tp = k["tp"]
     worst = 0.0
     failures = []
     t0 = time.perf_counter()
-    for Hs in (256, 128):
-        for dtype in (torch.bfloat16, torch.float32):
+    cases = [(Hs, dtype, DILATIONS) for Hs in (256, 128)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(Hs, torch.bfloat16, ds) for Hs, ds in TP_WG_WIDTHS]
+    n_cases = 0
+    for Hs, dtype, dilations in cases:
             name = str(dtype).split(".")[-1]
             for causal in (False, True):
-                for d in DILATIONS:
+                for d in dilations:
+                    n_cases += 1
                     args = tp_stage2_inputs(torch, dtype, Hs, d)
                     kw = dict(dilation=d, causal=causal)
                     with torch.inference_mode():
@@ -1724,7 +1868,7 @@ def phase_tp_stage2_vs_twin(torch, k):
                             f"Hs={Hs} {name} causal={int(causal)} d={d}: z "
                             f"{ez:.3e} sums {es:.3e} rounding points {eo:.3e}"
                             f" finite {finite} same {same}")
-    print(f"tp stage 2 (B6) vs twin: 64 cases in "
+    print(f"tp stage 2 (B6) vs twin: {n_cases} cases in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(not failures, "TP stage-2 kernel disagrees with its twin: "
           + "; ".join(failures))
@@ -2907,7 +3051,9 @@ def main() -> int:
     max_abs_dpt_bwd = phase_dpt_bwd_vs_twin(torch, dpt)
     max_abs_partial = phase_dpt_partial_vs_twin(torch, dpt)
     phase_intra_f32_wide_heads(torch, dpt)
+    phase_ffn_bwd_tail_tiles(torch, dpt)
     max_abs_tp = phase_tp_stage2_vs_twin(torch, k)
+    phase_auto_padded(torch, k, dpt)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_main_path(torch, k, work)
         data, json_dir = make_corpus(work)

@@ -38,6 +38,7 @@
 #pragma once
 
 #include "dpt_common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -283,6 +284,333 @@ int launch_ln_rows(const void* x, int rows, int B, const float* gamma,
   ln_rows_kernel<T><<<n_row_tiles(rows), kDptThreads, 0, stream>>>(
       static_cast<const T*>(x), rows, B, gamma, beta, static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- Pieces on the wgmma core (hopper_gemm.cuh), bf16 ----
+//
+// The FFN backward's bf16 design (dpt_ffn_bwd.cu) runs on these; they sit
+// beside the first design's pieces above, which B8, B10 and the f32
+// backwards keep.
+//
+// - launch_wgrad_parts_wg: the chunk partials of a^T @ b on
+//   wgrad_wg_kernel (both operands MN-major, as they are stored), in
+//   chunks of rows small enough that the grid fills the card;
+// - reduce_jobs_kernel: up to kMaxReduceJobs sums of chunk or tile
+//   partials in one launch, each in a fixed order in double;
+// - warp_col_sums: a CTA's column sums of a value in the accumulator
+//   layout, over its 128 rows, in a fixed order;
+// - dy_ln_bwd_wg_kernel: dy = a @ w^T on the core with a column tile as
+//   wide as the row (B <= 256), and the LN backward and the residual in its
+//   epilogue, so dy never reaches device memory.
+
+constexpr int kWgradStagesDpt = 4;
+// The SM count the chunking below is tuned for: an H100 SXM's 132. It is
+// a constant, not the device's count, so that the chunks, and with them
+// the order of the sums and the bits, are the same on every card; on a
+// card with another SM count (an H100 PCIe has 114) the grid fills
+// another share of a wave, and only the speed moves.
+constexpr int kSmCount = 132;
+
+// Rows per chunk of a^T @ b ([rows, ca], [rows, cb]) on the core: the
+// most, up to 8192, that still gives three quarters of a wave of CTAs (one
+// CTA per SM) on kSmCount SMs: a wave's time goes as the chunk, so fewer,
+// longer chunks cost the product nothing and halve the partials written
+// and summed.
+inline int wg_wgrad_chunk(long long rows, int ca, int cb) {
+  const long long per_chunk =
+      static_cast<long long>(ca / (ca % 128 == 0 ? 128 : 64)) * (cb / wg_bn(cb));
+  int chunk = 8192;
+  while (chunk > 256 &&
+         4 * per_chunk * ((rows + chunk - 1) / chunk) < 3 * kSmCount)
+    chunk /= 2;
+  return chunk;
+}
+
+inline int wg_wgrad_chunks(long long rows, int ca, int cb) {
+  const int chunk = wg_wgrad_chunk(rows, ca, cb);
+  return static_cast<int>((rows + chunk - 1) / chunk);
+}
+
+template <int kWG, int BN>
+int launch_wgrad_parts_bn(const bf16* a, const bf16* b, int rows, int ca,
+                          int cb, int chunk, float* part,
+                          cudaStream_t stream) {
+  constexpr size_t smem = wgrad_wg_smem<kWG, BN, kWgradStagesDpt>();
+  auto kernel = wgrad_wg_kernel<kWG, BN, kWgradStagesDpt>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(ca / (64 * kWG), cb / BN, (rows + chunk - 1) / chunk),
+           kWG * kWgThreads, smem, stream>>>(a, b, rows, ca, cb, chunk, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kWG>
+int launch_wgrad_parts_tile(const bf16* a, const bf16* b, int rows, int ca,
+                            int cb, int chunk, float* part,
+                            cudaStream_t stream) {
+  switch (wg_bn(cb)) {
+    case 256:
+      return launch_wgrad_parts_bn<kWG, 256>(a, b, rows, ca, cb, chunk, part, stream);
+    case 128:
+      return launch_wgrad_parts_bn<kWG, 128>(a, b, rows, ca, cb, chunk, part, stream);
+    default:
+      return launch_wgrad_parts_bn<kWG, 64>(a, b, rows, ca, cb, chunk, part, stream);
+  }
+}
+
+// part [wg_wgrad_chunks(rows, ca, cb), ca, cb] = the chunk partials of
+// a^T @ b over all rows (a [rows, ca], b [rows, cb], bf16, ca and cb
+// multiples of 64), in f32; a reduce job adds them in chunk order.
+inline int launch_wgrad_parts_wg(const void* a, const void* b, int rows,
+                                 int ca, int cb, float* part,
+                                 cudaStream_t stream) {
+  const bf16* pa = static_cast<const bf16*>(a);
+  const bf16* pb = static_cast<const bf16*>(b);
+  const int chunk = wg_wgrad_chunk(rows, ca, cb);
+  if (ca % 128 == 0)
+    return launch_wgrad_parts_tile<2>(pa, pb, rows, ca, cb, chunk, part, stream);
+  return launch_wgrad_parts_tile<1>(pa, pb, rows, ca, cb, chunk, part, stream);
+}
+
+// out[i] = the n_parts partials part[z * n + i] added in order of z, in
+// double, for i < n; n_parts == 0 writes zeros.
+struct ReduceJob {
+  const float* part;
+  int n_parts;
+  int n;
+  float* out;
+};
+constexpr int kMaxReduceJobs = 6;
+struct ReduceJobs {
+  ReduceJob job[kMaxReduceJobs];
+};
+
+// Grid (ceil(largest n / 256), jobs), block 256: job blockIdx.y.
+__global__ void __launch_bounds__(256) reduce_jobs_kernel(ReduceJobs jobs) {
+  const ReduceJob J = jobs.job[blockIdx.y];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= J.n) return;
+  double acc = 0.0;
+  int z = 0;
+  for (; z + 8 <= J.n_parts; z += 8) {   // 8 loads in flight, added in order
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = J.part[static_cast<size_t>(z + u) * J.n + i];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += v[u];
+  }
+  for (; z < J.n_parts; ++z) acc += J.part[static_cast<size_t>(z) * J.n + i];
+  J.out[i] = static_cast<float>(acc);
+}
+
+inline int launch_reduce_jobs(const ReduceJob* jobs, int count,
+                              cudaStream_t stream) {
+  if (count < 1 || count > kMaxReduceJobs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ReduceJobs js = {};
+  int max_n = 0;
+  for (int i = 0; i < count; ++i) {
+    js.job[i] = jobs[i];
+    if (jobs[i].n > max_n) max_n = jobs[i].n;
+  }
+  reduce_jobs_kernel<<<dim3((max_n + 255) / 256, count), 256, 0, stream>>>(js);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The column sums, over this thread's two rows and then the 8 row groups
+// of its warp (shuffles over lane bits 2-4), of v in the accumulator layout
+// of a BN-wide tile: lanes 0-3 of warp w write s_col[w * BN + column]. A
+// CTA's sum is then the 8 warps' entries added in order, after a barrier.
+template <int BN>
+__device__ __forceinline__ void warp_col_sums(const float (&v)[BN / 2],
+                                              float* s_col, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int q = 0; q < BN / 8; ++q) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = v[4 * q + e] + v[4 * q + 2 + e];   // rows r and r + 8
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 4) s_col[warp * BN + 8 * q + 2 * lane + e] = s;
+    }
+  }
+}
+
+// dy = a @ w^T and the LN backward with the residual, for 128-row tiles.
+struct DyLnParams {
+  const bf16* a;        // [R, depth] the last product's input cotangent
+  const bf16* w;        // [B, depth] its weight, read K-major: dy = a @ w^T
+  const bf16* x;        // [R, B] the sublayer input
+  const bf16* g;        // [R, B] the output cotangent (the residual's)
+  const float* gamma;   // [B]
+  const float* lnstat;  // [R, 2] each row's LN mean and rs
+  bf16* dx;             // [R, B]
+  float* part;          // [ceil(R / 128), 2B]: dgamma, dbeta per tile
+  int R, B, depth;
+};
+
+constexpr int kDyStages = 4;
+
+template <int BN>
+constexpr size_t dy_ln_smem() {
+  return 1024 + static_cast<size_t>(kDyStages) * (kWgRows + BN) * kLine +
+         2 * 8 * static_cast<size_t>(BN) * sizeof(float);
+}
+// x's and g's tiles, copied over the ring after the product, fit in it
+static_assert(2 * kWgRows * (64 + 8) * sizeof(bf16) <=
+                  kDyStages * (kWgRows + 64) * kLine &&
+              2 * kWgRows * (256 + 8) * sizeof(bf16) <=
+                  kDyStages * (kWgRows + 256) * kLine,
+              "dy_ln_bwd_wg_kernel's staged tiles");
+
+// For rows [r0, r0 + 128): dy (f32, in registers) = a @ w^T over depth in
+// 64-deep slabs through the ring, both operands K-major, a BN-wide tile
+// (BN >= B; columns at or beyond B read w as zeros); then x's tile (and
+// g's, kResidual) is copied over the ring in 16-byte rows, and per row,
+// over the quad of threads that holds it, ln_bwd_kernel's arithmetic:
+// dx = round(g + rs (dy gamma - mean(dy gamma) - xhat mean(dy gamma
+// xhat))) (kResidual; without it round(dx_ln)), and the tile's column sums
+// of dy xhat and dy into part. Grid (ceil(R / 128)), block 256.
+template <int BN, bool kResidual>
+__global__ void __launch_bounds__(kWgCta, 1) dy_ln_bwd_wg_kernel(DyLnParams q) {
+  extern __shared__ uint8_t wg_smem[];
+  constexpr uint32_t kA = kWgRows * kLine, kSlot = kA + BN * kLine;
+  const uint32_t ring = align_1024(wg_smem);
+  float* s_col = reinterpret_cast<float*>(
+      smem_ptr(wg_smem, ring + kDyStages * kSlot));   // [2][8][BN]
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int r0 = blockIdx.x * kWgRows, R = q.R, B = q.B;
+  float acc[BN / 2];
+  ring_run<kDyStages>(
+      q.depth / kSlabK, ring, kSlot,
+      [&](int s, uint32_t slot) {
+        load_k_panel(slot, q.a, q.depth, r0, kWgRows, R, s * kSlabK, tid,
+                     kWgCta);
+        load_k_panel(slot + kA, q.w, q.depth, 0, BN, B, s * kSlabK, tid,
+                     kWgCta);
+      },
+      [] {},
+      [&](int s, uint32_t slot) {
+        mma_begin(acc);
+        mma_slab<BN, false, false>(acc, slot + wg * 64 * kLine, slot + kA,
+                                   s > 0);
+        mma_end(acc);
+      });
+  // x's (and g's) tile over the ring, once every warpgroup is done with it;
+  // rows at or beyond R as zeros
+  constexpr int kLdX = BN + 8;   // 16 bytes of pad: conflict-free pairs
+  const bf16* xs = reinterpret_cast<const bf16*>(smem_ptr(wg_smem, ring));
+  const bf16* gs = xs + kWgRows * kLdX;
+  __syncthreads();
+  for (int v = tid; v < kWgRows * (B / 8); v += kWgCta) {
+    const int rl = v / (B / 8), c = 8 * (v % (B / 8));
+    const bool ok = r0 + rl < R;
+    const size_t src = ok ? static_cast<size_t>(r0 + rl) * B + c : 0;
+    cp_async16(smem_u32(xs + rl * kLdX + c), q.x + src, ok);
+    if (kResidual) cp_async16(smem_u32(gs + rl * kLdX + c), q.g + src, ok);
+  }
+  cp_async_commit();
+  // dbeta's partials: dy as it is (zero on rows at or beyond R)
+  warp_col_sums<BN>(acc, s_col + 8 * BN, tid);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int c_lane = 2 * (t & 3);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int rl = 64 * wg + acc_row(t, 2 * u), row = r0 + rl;
+    const bool ok = row < R;
+    const float mean = ok ? q.lnstat[2 * row] : 0.f;
+    const float rs = ok ? q.lnstat[2 * row + 1] : 0.f;
+    const size_t base = static_cast<size_t>(ok ? row : 0) * B;
+    const bf16* xr = xs + rl * kLdX;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + c_lane;
+      if (c >= B) continue;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xr + c));
+      const float xh0 = (xv.x - mean) * rs, xh1 = (xv.y - mean) * rs;
+      const float d0 = acc[4 * j + 2 * u] * q.gamma[c];
+      const float d1 = acc[4 * j + 2 * u + 1] * q.gamma[c + 1];
+      s1 += d0 + d1;
+      s2 += d0 * xh0 + d1 * xh1;
+    }
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
+    const float mean_d = s1 / B, mean_xd = s2 / B;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + c_lane;
+      const int i0 = 4 * j + 2 * u;
+      if (c >= B || !ok) {
+        acc[i0] = acc[i0 + 1] = 0.f;
+        continue;
+      }
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xr + c));
+      const float xh0 = (xv.x - mean) * rs, xh1 = (xv.y - mean) * rs;
+      float o0 = rs * (acc[i0] * q.gamma[c] - mean_d - xh0 * mean_xd);
+      float o1 = rs * (acc[i0 + 1] * q.gamma[c + 1] - mean_d - xh1 * mean_xd);
+      if constexpr (kResidual) {
+        const float2 gv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gs + rl * kLdX + c));
+        o0 += gv.x;
+        o1 += gv.y;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(q.dx + base + c) =
+          __floats2bfloat162_rn(o0, o1);
+      acc[i0] *= xh0;   // dgamma's term from here on
+      acc[i0 + 1] *= xh1;
+    }
+  }
+  warp_col_sums<BN>(acc, s_col, tid);
+  __syncthreads();
+  for (int e = tid; e < 2 * B; e += kWgCta) {
+    const int which = e / B, c = e % B;
+    float sum = 0.f;
+    for (int w = 0; w < 8; ++w) sum += s_col[(which * 8 + w) * BN + c];
+    q.part[static_cast<size_t>(blockIdx.x) * 2 * B + e] = sum;
+  }
+}
+
+template <int BN, bool kResidual>
+int launch_dy_ln_bn(const DyLnParams& q, cudaStream_t stream) {
+  constexpr size_t smem = dy_ln_smem<BN>();
+  static_assert(smem <= kMaxDynSmem, "dy_ln_bwd_wg_kernel's shared memory");
+  auto kernel = dy_ln_bwd_wg_kernel<BN, kResidual>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(q.R + kWgRows - 1) / kWgRows, kWgCta, smem, stream>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx and the tiles' (dgamma, dbeta) partials (q.part) from a @ w^T, B a
+// multiple of 64 up to 256 (the tile's width: 64, 128, or 256 with the
+// columns beyond B zero), depth a multiple of 64. residual: dx carries the
+// g term (false for a partial forward).
+template <bool kResidual>
+int launch_dy_ln_res(const DyLnParams& q, cudaStream_t stream) {
+  if (q.B <= 64) return launch_dy_ln_bn<64, kResidual>(q, stream);
+  if (q.B <= 128) return launch_dy_ln_bn<128, kResidual>(q, stream);
+  return launch_dy_ln_bn<256, kResidual>(q, stream);
+}
+
+inline int launch_dy_ln_wg(const DyLnParams& q, bool residual,
+                           cudaStream_t stream) {
+  if (q.B % 64 || q.B > kMaxWidth || q.depth % kSlabK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return residual ? launch_dy_ln_res<true>(q, stream)
+                  : launch_dy_ln_res<false>(q, stream);
 }
 
 // Operands of one attention sublayer backward (see the wrappers in

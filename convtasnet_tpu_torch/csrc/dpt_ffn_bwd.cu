@@ -17,18 +17,39 @@
 // What bounds it on the card. At the DPT quality default (B=256, F=1024)
 // and B=8 x 4 s (R = 25,600 rows) the five products of 2 R B F (pre
 // recomputed, dh, dy, dW_up, dW_down) are 67.1 GFLOP: 68 us at 989 TFLOP/s,
-// against 39 MB of x, g and dx (12 us at 3.35 TB/s): compute-bound. The Pallas kernel kept a [kt, F]
-// hidden tile in VMEM and summed the weight gradients across its sequential
-// grid. Here (dpt_bwd_common.cuh for the shared launches):
+// against 39 MB of x, g and dx (12 us at 3.35 TB/s): compute-bound. The
+// Pallas kernel kept a [kt, F] hidden tile in VMEM and summed the weight
+// gradients across its sequential grid; an SM holds 227 KB, so here the
+// [R, F] intermediates h and dpre pass through device memory once, and
+// every sum over rows is taken in fixed chunks or tiles whose f32 partials
+// are added in a fixed order (no atomics: two runs give the same bits).
+//
+// bf16: five launches on the wgmma core (hopper_gemm.cuh; the generic
+// pieces in dpt_bwd_common.cuh):
+//   UG  per 128-row tile: the LN of x in ln_rows_kernel's order into a
+//       resident K-major y tile (y and each row's mean and rs also to
+//       device memory, for W and DN), g's tile resident beside it; the
+//       columns of F stream through a cp.async ring, W_up as an MN-major
+//       right operand and W_down read K-major as W_down^T (no transpose),
+//       into two accumulators, pre and dh of the same (row, column); the
+//       epilogue writes h and dpre (never pre) and the tile's column sums
+//       of dpre and of g (db_up, db_down);
+//   DN  dy = dpre W_up^T on the core with a tile as wide as the row, the
+//       LN backward and the residual in its epilogue, with the tile's
+//       dgamma and dbeta partials: dy never reaches device memory;
+//   W   dW_down = h^T g and dW_up = y^T dpre on wgrad_wg_kernel, in chunks
+//       of rows (two launches);
+//   S   one launch adds every set of partials in order, in double.
+// What remains over the bound: h and dpre, 52 MB each, written by UG and
+// read by DN and W, and W's chunk partials.
+//
+// f32: the first design, 16 launches (dpt_bwd_common.cuh's first pieces):
 //   T  W_up^T, W_down^T;  L  y;
 //   U  pre, from the 64 x 64 tile's epilogue;
 //   G  dh = g W_down^T on the same tile, whose epilogue turns pre into h in
-//      place and writes dpre: h and dpre [R, F] (52 MB each in bf16) go
-//      through device memory once;
+//      place and writes dpre;
 //   W  dW_down, dW_up over fixed row chunks, db_up, db_down by column sums;
 //   D  dy = dpre W_up^T (f32);  N  the LN backward: dx, dgamma, dbeta.
-// The [R, F] round trips (~210 MB in bf16, ~63 us) and the 64 x 64 tiles'
-// rate are the design's cost over the bound.
 //
 // Under tensor parallelism (partial, the backward of the Pallas kernel's
 // partial=True) the weights are one shard's hidden slice (F is F/m here),
@@ -48,6 +69,21 @@ __device__ __forceinline__ void gelu_and_grad(float x, float* y, float* dy) {
   const float t = tanhf(c * (x + a * x3));
   *y = 0.5f * x * (1.f + t);
   *dy = 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * a * x * x);
+}
+
+// The same on the fast exponential, for the bf16 design: tanh(u) as
+// 1 - 2 / (exp(2u) + 1), within a few f32 ulps of tanhf in absolute terms
+// (the f32 design keeps tanhf), far under the bf16 rounding of h and dpre
+// that follows; a quarter of tanhf's instructions.
+__device__ __forceinline__ void gelu_and_grad_fast(float x, float* y,
+                                                   float* dy) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float a = 0.044715f;
+  const float t = 1.f - __fdividef(2.f, __expf(2.f * c * (x + a * x * x * x))
+                                             + 1.f);
+  const float half = 0.5f * (1.f + t);
+  *y = x * half;
+  *dy = half + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * a * x * x);
 }
 
 // U: pre = round(round(y W_up) + round(b_up)).
@@ -160,6 +196,275 @@ int launch_bwd(const FfnBwdParams& p, void* ws_act, float* ws_f32,
                           !p.partial, stream);
 }
 
+// ---- bf16: the design on the wgmma core (top note) ----
+
+constexpr int kUgBN = 64;       // UG's column tile of F
+constexpr int kUgStages = 3;    // UG's ring depth (slots of W_up and W_down)
+
+// UG's shared memory: the y and g tiles, the ring, the stage tiles of h
+// and dpre and the warps' column sums.
+inline size_t ug_smem(int B) {
+  return 1024 + 2 * static_cast<size_t>(B / kSlabK) * kWgRows * kLine +
+         static_cast<size_t>(kUgStages) * 2 * kUgBN * kLine +
+         2 * stage_bytes<kUgBN>() + 8 * kUgBN * sizeof(float);
+}
+
+// The bf16 workspace: y [R, B], h [R, F], dpre [R, F] in bf16; in f32 each
+// row's (mean, rs), the two weight gradients' chunk partials, the UG
+// tiles' column sums of dpre [tiles, F] and of g [tiles, B], and the DN
+// tiles' (dgamma, dbeta) [tiles, 2B]; each segment on a 256-byte boundary.
+struct FfnWgLayout {
+  size_t act[3];
+  size_t f32[6];
+  size_t n_act, n_f32;
+  int chunks_down, chunks_up, tiles;
+};
+
+FfnWgLayout ffn_wg_layout(int R, int B, int F) {
+  FfnWgLayout L;
+  const size_t bf = static_cast<size_t>(B) * F;
+  L.chunks_down = wg_wgrad_chunks(R, F, B);
+  L.chunks_up = wg_wgrad_chunks(R, B, F);
+  L.tiles = (R + kWgRows - 1) / kWgRows;
+  const size_t act[3] = {static_cast<size_t>(R) * B, static_cast<size_t>(R) * F,
+                         static_cast<size_t>(R) * F};
+  const size_t f32[6] = {2 * static_cast<size_t>(R), L.chunks_down * bf,
+                         L.chunks_up * bf, static_cast<size_t>(L.tiles) * F,
+                         static_cast<size_t>(L.tiles) * B,
+                         static_cast<size_t>(L.tiles) * 2 * B};
+  size_t off = 0;
+  for (int i = 0; i < 3; ++i) {
+    L.act[i] = off;
+    off += align_elems(act[i], 128);
+  }
+  L.n_act = off;
+  off = 0;
+  for (int i = 0; i < 6; ++i) {
+    L.f32[i] = off;
+    off += align_elems(f32[i], 64);
+  }
+  L.n_f32 = off;
+  return L;
+}
+
+// The workspace segments UG writes.
+struct UgOut {
+  bf16* y;
+  bf16* h;
+  bf16* dpre;
+  float* lnstat;     // [R, 2]
+  float* col_up;     // [tiles, F]: sum of dpre over the tile's rows
+  float* col_down;   // [tiles, B]: sum of g (full mode)
+};
+
+// Launch UG (top note) for rows [r0, r0 + 128), grid (ceil(R / 128)),
+// block 256: x's and g's tiles copied in (K-major, B / 64 panels each) with
+// the ring's first slab, y computed over x's in place; the ring over
+// (column tile of F, depth slab of B), acc_p = y W_up and acc_d = g W_down^T
+// for the same 64 columns; after the last slab of a column tile,
+// pre = round(round(acc_p) + round(b_up)), h = round(gelu(pre)) and
+// dpre = round(acc_d gelu'(pre)) leave through two stage tiles after one
+// barrier, and the tile's column sums of dpre go to col_up. Rows at or
+// beyond R read x and g as zeros, so their dpre is zero; h and dpre are not
+// stored there.
+__global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
+                                                           UgOut o) {
+  extern __shared__ uint8_t wg_smem[];
+  constexpr uint32_t kHalf = kUgBN * kLine;   // one operand's slab
+  const int R = p.R, B = p.B, F = p.F;
+  const int nk = B / kSlabK, n_tiles = F / kUgBN;
+  const uint32_t ys = align_1024(wg_smem);
+  const uint32_t gs = ys + nk * kWgRows * kLine;
+  const uint32_t ring = gs + nk * kWgRows * kLine;
+  uint8_t* y_gen = smem_ptr(wg_smem, ys);
+  bf16* st_h = reinterpret_cast<bf16*>(
+      smem_ptr(wg_smem, ring + kUgStages * 2 * kHalf));
+  bf16* st_d = st_h + kWgRows * stage_ld<kUgBN>();
+  float* s_col = reinterpret_cast<float*>(st_d + kWgRows * stage_ld<kUgBN>());
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * kWgRows;
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* w_up = static_cast<const bf16*>(p.w_up);
+  const bf16* w_down = static_cast<const bf16*>(p.w_down);
+  for (int s = 0; s < nk; ++s) {   // in the ring's first copy group
+    load_k_panel(gs + s * kWgRows * kLine, static_cast<const bf16*>(p.g), B,
+                 r0, kWgRows, R, s * kSlabK, tid, kWgCta);
+    load_k_panel(ys + s * kWgRows * kLine, x, B, r0, kWgRows, R, s * kSlabK,
+                 tid, kWgCta);
+  }
+
+  // y = round(LN(x) gamma + beta) over x's tile in place, one warp per row,
+  // kLnRows rows of a warp at once, each in ln_row_stats' order (so y has
+  // ln_rows_kernel's bits), also to device memory with each row's (mean,
+  // rs); rows at or beyond R stay zero
+  auto ln_tile = [&] {
+    constexpr int kWarps = kWgCta / 32, kLnRows = 4;
+    cp_async_wait<kUgStages - 2>();   // the first copy group has landed
+    __syncthreads();
+    for (int r = warp; r < kWgRows; r += kWarps * kLnRows) {
+      auto at = [&](int u, int c) {
+        return reinterpret_cast<bf16*>(
+            y_gen + (c >> 6) * kWgRows * kLine +
+            swz(r + kWarps * u, (c & 63) >> 3) + 2 * (c & 7));
+      };
+      float mean[kLnRows], rs[kLnRows];
+#pragma unroll
+      for (int u = 0; u < kLnRows; ++u) mean[u] = rs[u] = 0.f;
+      for (int c = lane; c < B; c += 32) {
+#pragma unroll
+        for (int u = 0; u < kLnRows; ++u) mean[u] += __bfloat162float(*at(u, c));
+      }
+#pragma unroll
+      for (int u = 0; u < kLnRows; ++u) mean[u] = warp_sum(mean[u]) / B;
+      for (int c = lane; c < B; c += 32) {
+#pragma unroll
+        for (int u = 0; u < kLnRows; ++u) {
+          const float d = __bfloat162float(*at(u, c)) - mean[u];
+          rs[u] += d * d;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLnRows; ++u) {
+        rs[u] = rsqrtf(warp_sum(rs[u]) / B + kLnEps);
+        const int row = r0 + r + kWarps * u;
+        if (lane == 0 && row < R) {
+          o.lnstat[2 * row] = mean[u];
+          o.lnstat[2 * row + 1] = rs[u];
+        }
+      }
+      for (int c = lane; c < B; c += 32) {
+        const float gm = p.gamma[c], bt = p.beta[c];
+#pragma unroll
+        for (int u = 0; u < kLnRows; ++u) {
+          const int row = r0 + r + kWarps * u;
+          if (row >= R) continue;
+          bf16* e = at(u, c);
+          const bf16 v = from_f<bf16>((__bfloat162float(*e) - mean[u]) *
+                                      rs[u] * gm + bt);
+          *e = v;
+          o.y[static_cast<size_t>(row) * B + c] = v;
+        }
+      }
+    }
+    // the ring's next barrier publishes the tile
+  };
+
+  float acc_p[kUgBN / 2], acc_d[kUgBN / 2];
+  ring_run<kUgStages>(
+      n_tiles * nk, ring, 2 * kHalf,
+      [&](int i, uint32_t slot) {
+        const int s = i % nk, n0 = (i / nk) * kUgBN;
+        load_mn_slab(slot, w_up, F, s * kSlabK, B, n0, kUgBN, F, tid, kWgCta);
+        load_k_panel(slot + kHalf, w_down, B, n0, kUgBN, F, s * kSlabK, tid,
+                     kWgCta);
+      },
+      ln_tile,
+      [&](int i, uint32_t slot) {
+        const int s = i % nk;
+        fence_acc(acc_p);
+        fence_acc(acc_d);
+        wgmma_fence();
+        mma_slab<kUgBN, false, true>(
+            acc_p, ys + s * kWgRows * kLine + wg * 64 * kLine, slot, s > 0);
+        mma_slab<kUgBN, false, false>(
+            acc_d, gs + s * kWgRows * kLine + wg * 64 * kLine, slot + kHalf,
+            s > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc_p);
+        fence_acc(acc_d);
+        if (s != nk - 1) return;
+        const int n0 = (i / nk) * kUgBN;
+#pragma unroll
+        for (int j = 0; j < kUgBN / 2; j += 2) {
+          const float2 bu =
+              *reinterpret_cast<const float2*>(p.b_up + n0 + acc_col(t, j));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pre = round_to<bf16>(round_to<bf16>(acc_p[j + e]) +
+                                             round_to<bf16>(e ? bu.y : bu.x));
+            float hv, dg;
+            gelu_and_grad_fast(pre, &hv, &dg);
+            acc_p[j + e] = hv;
+            acc_d[j + e] = round_to<bf16>(acc_d[j + e] * dg);
+          }
+        }
+        stage_acc<kUgBN>(st_h, wg, t, acc_p);
+        stage_acc<kUgBN>(st_d, wg, t, acc_d);
+        warp_col_sums<kUgBN>(acc_d, s_col, tid);
+        __syncthreads();
+        stage_store<kUgBN>(st_h, o.h, F, r0, R, n0, tid);
+        stage_store<kUgBN>(st_d, o.dpre, F, r0, R, n0, tid);
+        if (tid < kUgBN) {
+          float sum = 0.f;
+          for (int w = 0; w < kWgCta / 32; ++w) sum += s_col[w * kUgBN + tid];
+          o.col_up[static_cast<size_t>(blockIdx.x) * F + n0 + tid] = sum;
+        }
+        // the ring's next barrier comes before the stages and s_col are
+        // written again
+      });
+  if (p.partial) return;   // db_down is zero
+  // the tile's column sums of g, from its resident copy (zeros past R)
+  const uint8_t* g_gen = smem_ptr(wg_smem, gs);
+  for (int c = tid; c < B; c += kWgCta) {
+    const uint8_t* col = g_gen + (c >> 6) * kWgRows * kLine + 2 * (c & 7);
+    float sum = 0.f;
+    for (int rl = 0; rl < kWgRows; ++rl)
+      sum += __bfloat162float(
+          *reinterpret_cast<const bf16*>(col + swz(rl, (c & 63) >> 3)));
+    o.col_down[static_cast<size_t>(blockIdx.x) * B + c] = sum;
+  }
+}
+
+// The bf16 backward (top note): UG, DN, W (two launches), S.
+int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
+                  cudaStream_t stream) {
+  const int R = p.R, B = p.B, F = p.F;
+  if (B % kSlabK || B > kMaxWidth || F % kUgBN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FfnWgLayout L = ffn_wg_layout(R, B, F);
+  bf16* act = static_cast<bf16*>(ws_act);
+  UgOut o;
+  o.y = act + L.act[0];
+  o.h = act + L.act[1];
+  o.dpre = act + L.act[2];
+  o.lnstat = ws_f32 + L.f32[0];
+  float* part_down = ws_f32 + L.f32[1];
+  float* part_up = ws_f32 + L.f32[2];
+  o.col_up = ws_f32 + L.f32[3];
+  o.col_down = ws_f32 + L.f32[4];
+  float* lnpart = ws_f32 + L.f32[5];
+  const size_t smem = ug_smem(B);
+  CTN_RETURN_IF(static_cast<int>(cudaFuncSetAttribute(
+      ffn_ug_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem))));
+  ffn_ug_kernel<<<L.tiles, kWgCta, smem, stream>>>(p, o);
+  CTN_CHECK();
+  DyLnParams q;
+  q.a = o.dpre;
+  q.w = static_cast<const bf16*>(p.w_up);
+  q.x = static_cast<const bf16*>(p.x);
+  q.g = static_cast<const bf16*>(p.g);
+  q.gamma = p.gamma;
+  q.lnstat = o.lnstat;
+  q.dx = static_cast<bf16*>(p.dx);
+  q.part = lnpart;
+  q.R = R;
+  q.B = B;
+  q.depth = F;
+  CTN_RETURN_IF(launch_dy_ln_wg(q, !p.partial, stream));
+  CTN_RETURN_IF(launch_wgrad_parts_wg(o.h, p.g, R, F, B, part_down, stream));
+  CTN_RETURN_IF(launch_wgrad_parts_wg(o.y, o.dpre, R, B, F, part_up, stream));
+  const ReduceJob jobs[5] = {
+      {part_down, L.chunks_down, B * F, p.dw_down},
+      {part_up, L.chunks_up, B * F, p.dw_up},
+      {o.col_up, L.tiles, F, p.db_up},
+      {o.col_down, p.partial ? 0 : L.tiles, B, p.db_down},
+      {lnpart, L.tiles, 2 * B, p.dgb}};
+  return launch_reduce_jobs(jobs, 5, stream);
+}
+
 FfnBwdParams make_params(const void* x, const void* g, const void* gamma,
                          const void* beta, const void* w_up, const void* b_up,
                          const void* w_down, void* dx, void* dgb, void* dw_up,
@@ -205,6 +510,12 @@ extern "C" {
 // (elem_bytes 2 for bf16, 4 for f32) and n_f32 floats.
 int ctn_dpt_ffn_bwd_workspace(int R, int B, int F, int elem_bytes,
                               long long* n_act, long long* n_f32) {
+  if (elem_bytes == 2) {   // bf16: the design on the wgmma core
+    const FfnWgLayout L = ffn_wg_layout(R, B, F);
+    *n_act = static_cast<long long>(L.n_act);
+    *n_f32 = static_cast<long long>(L.n_f32);
+    return 0;
+  }
   const FfnBwdLayout L = ffn_bwd_layout(R, B, F, elem_bytes);
   *n_act = static_cast<long long>(L.n_act);
   *n_f32 = static_cast<long long>(L.n_f32);
@@ -220,7 +531,7 @@ int ctn_dpt_ffn_bwd_f32(CTN_FFN_BWD_ARGS) {
 }
 
 int ctn_dpt_ffn_bwd_bf16(CTN_FFN_BWD_ARGS) {
-  return launch_bwd<__nv_bfloat16>(CTN_FFN_BWD_CALL);
+  return launch_bwd_wg(CTN_FFN_BWD_CALL);
 }
 
 }  // extern "C"

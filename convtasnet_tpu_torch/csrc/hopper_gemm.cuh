@@ -1,7 +1,10 @@
-// The Hopper product core of the TCN block kernels (B1, B2, B3): bf16
-// wgmma.mma_async products with f32 accumulation, fed from shared memory
-// through a ring of cp.async slabs. Everything here is inline PTX, so the
-// build needs no header beyond the CUDA runtime's.
+// The Hopper product core of the bf16 kernels redesigned for it (the TCN
+// block kernels B1, B2, B3, the pairs B4, B5 through them, TP stage 2 B6,
+// and the DPT FFN backward B12): bf16 wgmma.mma_async products with f32
+// accumulation, fed from shared memory through a ring of cp.async slabs,
+// and the CTA of two warpgroups with its staged output tile that the
+// stages built on it share. Everything here is inline PTX, so the build
+// needs no header beyond the CUDA runtime's.
 //
 // Shared-memory operands use the 128-byte swizzle. A "panel" is a run of
 // 128-byte lines whose base is 1024-byte aligned; 16-byte chunk c of line l
@@ -405,6 +408,110 @@ __global__ void __launch_bounds__(2 * kWgThreads)
       *reinterpret_cast<float2*>(
           &c[static_cast<size_t>(r) * N + n0 + acc_col(t, i)]) =
           make_float2(acc[i], acc[i + 1]);
+  }
+}
+
+// ---- CTAs of two warpgroups, and their staged output tiles ----
+//
+// The stages built on this core (tcn_block_hopper.cuh, the TCN block
+// kernels; dpt_bwd_common.cuh, the DPT backwards) run CTAs of two
+// warpgroups over kWgRows = 128 rows and hand each output tile through a
+// bf16 tile in shared memory, so that device memory sees 16-byte rows.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgRows = 128;                   // rows per CTA: two groups
+constexpr int kWgCta = 2 * kWgThreads;         // threads per CTA
+constexpr size_t kMaxDynSmem = 232448;         // 227 KB, an H100 block's
+
+// The widest column tile of the core that divides n (a multiple of 64).
+inline int wg_bn(int n) { return n % 256 == 0 ? 256 : n % 128 == 0 ? 128 : 64; }
+
+// 8 bf16 values in 16 bytes <-> 8 floats.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h2[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = p[i];
+}
+
+// The generic pointer to shared address a of a block whose dynamic shared
+// memory starts at base.
+__device__ __forceinline__ uint8_t* smem_ptr(uint8_t* base, uint32_t a) {
+  return base + (a - smem_u32(base));
+}
+
+__device__ __forceinline__ uint4 ldg16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// A [128, BN] bf16 tile staged in shared memory for coalesced stores: rows
+// padded by 16 bytes, so that the accumulator layout's bf16 pairs land in
+// 32 distinct banks.
+template <int BN>
+__host__ __device__ constexpr int stage_ld() { return BN + 8; }
+template <int BN>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return static_cast<size_t>(kWgRows) * stage_ld<BN>() * sizeof(bf16);
+}
+
+// This thread's accumulator pairs, as bf16, into the staged tile.
+template <int BN>
+__device__ __forceinline__ void stage_acc(bf16* st, int wg, int t,
+                                          const float (&v)[BN / 2]) {
+#pragma unroll
+  for (int j = 0; j < BN / 2; j += 2)
+    *reinterpret_cast<__nv_bfloat162*>(
+        &st[(64 * wg + acc_row(t, j)) * stage_ld<BN>() + acc_col(t, j)]) =
+        __floats2bfloat162_rn(v[j], v[j + 1]);
+}
+
+// Rows [r0, r0 + 128) x columns [n0, n0 + BN) of a row-major [K, ld] bf16
+// matrix into the staged tile by cp.async in 16-byte chunks (rows at or
+// beyond K as zeros), then a barrier: the residual (or cotangent) an
+// epilogue adds, read coalesced. It waits for every cp.async in flight,
+// the ring's prefetches too.
+template <int BN>
+__device__ __forceinline__ void stage_load(bf16* st, const bf16* src, int ld,
+                                           int r0, int K, int n0, int tid) {
+  constexpr int kCpr = BN / 8;
+  for (int v = tid; v < kWgRows * kCpr; v += kWgCta) {
+    const int rl = v / kCpr, c = v % kCpr;
+    const bool ok = r0 + rl < K;
+    cp_async16(smem_u32(st + rl * stage_ld<BN>() + 8 * c),
+               src + (ok ? static_cast<size_t>(r0 + rl) * ld + n0 + 8 * c : 0),
+               ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The staged tile's rows below K to a row-major [K, ld] bf16 matrix at
+// (r0, n0), in 16-byte chunks; a barrier before it publishes the tile.
+template <int BN>
+__device__ __forceinline__ void stage_store(const bf16* st, bf16* dst, int ld,
+                                            int r0, int K, int n0, int tid) {
+  constexpr int kCpr = BN / 8;
+  for (int v = tid; v < kWgRows * kCpr; v += kWgCta) {
+    const int rl = v / kCpr, c = v % kCpr;
+    if (r0 + rl < K)
+      *reinterpret_cast<uint4*>(&dst[static_cast<size_t>(r0 + rl) * ld + n0 + 8 * c]) =
+          *reinterpret_cast<const uint4*>(&st[rl * stage_ld<BN>() + 8 * c]);
   }
 }
 

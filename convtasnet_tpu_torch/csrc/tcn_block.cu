@@ -75,7 +75,7 @@ Params make_params(const void* x, const void* w_in, const void* dw,
                    const void* m2, const void* v2, void* h, void* y,
                    void* w_eff, void* wsum, void* part_a, void* part_b,
                    void* out, int M, int K, int B,
-                   int H, int P, int dilation, int causal, int norm) {
+                   int H, int Hn, int P, int dilation, int causal, int norm) {
   Params p;
   p.x = x;
   p.w_in = w_in;
@@ -102,6 +102,7 @@ Params make_params(const void* x, const void* w_in, const void* dw,
   p.K = K;
   p.B = B;
   p.H = H;
+  p.Hn = Hn;
   p.P = P;
   p.dilation = dilation;
   p.left = causal ? (P - 1) * dilation : ((P - 1) * dilation) / 2;
@@ -117,10 +118,11 @@ Params make_params(const void* x, const void* w_in, const void* dw,
       const void *g2, const void *b2, const void *m1, const void *v1,      \
       const void *m2, const void *v2, void *h, void *y, void *w_eff,      \
       void *wsum, void *part_a, void *part_b, void *out, int M, int K,     \
-      int B, int H, int P, int dilation, int causal, int norm, void *stream
+      int B, int H, int Hn, int P, int dilation, int causal, int norm,     \
+      void *stream
 #define CTN_BLOCK_CALL                                                      \
   make_params(x, w_in, dw, w_out, a1, a2, g1, b1, g2, b2, m1, v1, m2, v2, \
-              h, y, w_eff, wsum, part_a, part_b, out, M, K, B, H, P,      \
+              h, y, w_eff, wsum, part_a, part_b, out, M, K, B, H, Hn, P,  \
               dilation, causal, norm),                                    \
       static_cast<cudaStream_t>(stream)
 

@@ -99,7 +99,7 @@ BwdParams make_bwd_params(const void* x, const void* g, const void* w_in,
                           const void* a2, const void* g1, const void* b1,
                           const void* g2, const void* b2, void* dx,
                           void* dw_in, void* dw_out, void* aux, int M, int K,
-                          int B, int H, int P, int dilation) {
+                          int B, int H, int Hn, int P, int dilation) {
   BwdParams p = {};
   p.x = x;
   p.g = g;
@@ -120,6 +120,7 @@ BwdParams make_bwd_params(const void* x, const void* g, const void* w_in,
   p.K = K;
   p.B = B;
   p.H = H;
+  p.Hn = Hn;
   p.P = P;
   p.dilation = dilation;
   return p;
@@ -132,10 +133,11 @@ BwdParams make_bwd_params(const void* x, const void* g, const void* w_in,
       const void *w_out, const void *a1, const void *a2, const void *g1,   \
       const void *b1, const void *g2, const void *b2, void *ws_act,        \
       void *ws_f32, void *dx, void *dw_in, void *dw_out, void *aux, int M, \
-      int K, int B, int H, int P, int dilation, int causal, void *stream
+      int K, int B, int H, int Hn, int P, int dilation, int causal,         \
+      void *stream
 #define CTN_BWD_CALL                                                       \
   make_bwd_params(x, g, w_in, dw, w_out, a1, a2, g1, b1, g2, b2, dx, dw_in, \
-                  dw_out, aux, M, K, B, H, P, dilation),                  \
+                  dw_out, aux, M, K, B, H, Hn, P, dilation),              \
       ws_act, static_cast<float*>(ws_f32), causal,                        \
       static_cast<cudaStream_t>(stream)
 

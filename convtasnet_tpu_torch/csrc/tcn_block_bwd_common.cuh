@@ -54,6 +54,7 @@ struct BwdParams {
   float* dw_out;       // [H, B]
   float* aux;          // [P + 6, H] then 2: see the C interface below
   int M, K, B, H, P, dilation, left;
+  int Hn;              // the norms' channel count (Params::Hn)
 };
 
 // The statistics row k of sample m reads.
@@ -111,7 +112,7 @@ __global__ void finalize_kernel(const float* __restrict__ part, int n_part,
 
 // F, cLN: per-row scalars from n_part partials per row, one thread per row
 // of the M*K. mode 0: the cLN mean and rs by the forward's row_stats;
-// mode 1: the two sums divided by H.
+// mode 1: the two sums divided by H (the norm's channel count, Hn).
 __global__ void finalize_rows_kernel(const float* __restrict__ part,
                                      int n_part, int rows, int H,
                                      float* __restrict__ stats, int slot,
@@ -493,7 +494,7 @@ template <typename T, int kNorm>
 int recompute_block(const BwdParams& p, cudaStream_t stream) {
   constexpr bool kCln = kNorm == kNormCLN;
   const int M = p.M, K = p.K, H = p.H;
-  const double count = static_cast<double>(K) * H;
+  const double count = static_cast<double>(K) * p.Hn;
   const dim3 gemm_h(row_tiles(K), H / kBN, M);
   const dim3 rows(dw_row_tiles(K), dw_col_tiles(H), M);
   // cLN: the row finalisers, one thread per row of the M*K
@@ -516,6 +517,7 @@ int recompute_block(const BwdParams& p, cudaStream_t stream) {
   fp.K = K;
   fp.B = p.B;
   fp.H = H;
+  fp.Hn = p.Hn;
   fp.P = p.P;
   fp.dilation = p.dilation;
   fp.left = p.left;
@@ -529,10 +531,10 @@ int recompute_block(const BwdParams& p, cudaStream_t stream) {
     CTN_CHECK();
     // cLN1 as launch B reduces each row, cLN2 as launch C does
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part, n_r1, n_rows, H, p.stats, kMean1, 0);
+        p.part, n_r1, n_rows, p.Hn, p.stats, kMean1, 0);
     CTN_CHECK();
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part2, rows.y, n_rows, H, p.stats, kMean2, 0);
+        p.part2, rows.y, n_rows, p.Hn, p.stats, kMean2, 0);
     CTN_CHECK();
   } else {
     // gLN1 as launch B reduces it (kDwThreads), gLN2 as launch C does
@@ -553,14 +555,14 @@ template <typename T, int kNorm>
 int block_bwd_middle(const BwdParams& p, int n_chunks, cudaStream_t stream) {
   constexpr bool kCln = kNorm == kNormCLN;
   const int M = p.M, K = p.K, B = p.B, H = p.H;
-  const double count = static_cast<double>(K) * H;
+  const double count = static_cast<double>(K) * p.Hn;
   const dim3 gemm_h(row_tiles(K), H / kBN, M);
   const dim3 rows(dw_row_tiles(K), dw_col_tiles(H), M);
   const int n_rows = M * K;
   const int fin_blocks = (n_rows + 255) / 256;
   if constexpr (kCln)
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part, gemm_h.y, n_rows, H, p.stats, kT1, 1);
+        p.part, gemm_h.y, n_rows, p.Hn, p.stats, kT1, 1);
   else
     finalize_kernel<<<M, 256, 0, stream>>>(p.part, gemm_h.x * gemm_h.y,
                                            count, p.stats, kT1, 1);
@@ -580,7 +582,7 @@ int block_bwd_middle(const BwdParams& p, int n_chunks, cudaStream_t stream) {
   CTN_CHECK();
   if constexpr (kCln)
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part, rows.y, n_rows, H, p.stats, kU1, 1);
+        p.part, rows.y, n_rows, p.Hn, p.stats, kU1, 1);
   else
     finalize_kernel<<<M, 256, 0, stream>>>(p.part, rows.x * rows.y, count,
                                            p.stats, kU1, 1);

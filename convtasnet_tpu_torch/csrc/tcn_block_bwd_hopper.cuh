@@ -98,7 +98,7 @@ template <int kNorm>
 int recompute_block_wg(const BwdParams& p, cudaStream_t stream) {
   constexpr bool kCln = kNorm == kNormCLN;
   const int M = p.M, K = p.K, H = p.H;
-  const double count = static_cast<double>(K) * H;
+  const double count = static_cast<double>(K) * p.Hn;
   const int kt = (K + kWgRows - 1) / kWgRows;
   const int n_rows = M * K;
   const int fin_blocks = (n_rows + 255) / 256;
@@ -112,13 +112,14 @@ int recompute_block_wg(const BwdParams& p, cudaStream_t stream) {
   fp.K = K;
   fp.B = p.B;
   fp.H = H;
+  fp.Hn = p.Hn;
   fp.norm = kNorm;
   CTN_TRY(launch_in_proj_wg<true>(fp, stream));
   const int n_r1 = in_proj_wg_parts(K, H, kNorm);
   const int cg = H / 8, n_seg = cg < 32 ? 1 : cg / 32;
   if constexpr (kCln)
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part, n_r1, n_rows, H, p.stats, kMean1, 0);
+        p.part, n_r1, n_rows, p.Hn, p.stats, kMean1, 0);
   else
     finalize_kernel<<<M, kWgCta, 0, stream>>>(p.part, n_r1, count, p.stats,
                                               kMean1, 0);
@@ -127,7 +128,7 @@ int recompute_block_wg(const BwdParams& p, cudaStream_t stream) {
   CTN_CHECK();
   if constexpr (kCln)
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part2, n_seg, n_rows, H, p.stats, kMean2, 0);
+        p.part2, n_seg, n_rows, p.Hn, p.stats, kMean2, 0);
   else
     finalize_kernel<<<M, kWgCta, 0, stream>>>(p.part2, kt, count, p.stats,
                                               kMean2, 0);
@@ -926,7 +927,7 @@ int launch_bwd_wg(const BwdParams& p, cudaStream_t stream) {
   constexpr bool kCln = kNorm == kNormCLN;
   const int M = p.M, K = p.K, B = p.B, H = p.H;
   if (!dw_layout_ok(H)) return static_cast<int>(cudaErrorInvalidValue);
-  const double count = static_cast<double>(K) * H;
+  const double count = static_cast<double>(K) * p.Hn;
   const int n_rows = M * K;
   const int fin_blocks = (n_rows + 255) / 256;
   const int kt = (K + kWgRows - 1) / kWgRows;
@@ -935,7 +936,7 @@ int launch_bwd_wg(const BwdParams& p, cudaStream_t stream) {
   CTN_TRY(launch_g1_wg(p, kCln, stream));
   if constexpr (kCln)
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part, g1_row_parts(H), n_rows, H, p.stats, kT1, 1);
+        p.part, g1_row_parts(H), n_rows, p.Hn, p.stats, kT1, 1);
   else
     finalize_kernel<<<M, 256, 0, stream>>>(p.part, kt, count, p.stats, kT1, 1);
   CTN_CHECK();
@@ -958,7 +959,7 @@ int launch_bwd_wg(const BwdParams& p, cudaStream_t stream) {
   CTN_CHECK();
   if constexpr (kCln)
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
-        p.part, n_u, n_rows, H, p.stats, kU1, 1);
+        p.part, n_u, n_rows, p.Hn, p.stats, kU1, 1);
   else
     finalize_kernel<<<M, 256, 0, stream>>>(p.part, kt * n_u, count, p.stats,
                                            kU1, 1);

@@ -279,9 +279,12 @@ struct Params {
   float* part_b;
   void* out;
   int M, K, B, H, P, dilation, left, norm;
+  int Hn;          // the norms' channel count: H, or the block's own width
+                   // where the caller zero-pads H (ops/cuda/tcn_block.py)
 };
 
 // Mean and reciprocal std of one row of H channels from n per-row partials.
+// (H: the norm's channel count, Params::Hn.)
 __device__ __forceinline__ void row_stats(const float* part, int n, int H,
                                           float* mu, float* rs) {
   double s1 = 0.0, s2 = 0.0;
@@ -382,7 +385,7 @@ __global__ void __launch_bounds__(kDwThreads, 8)
 
   if constexpr (kNorm == kNormGLN) {
     sample_stats(p.part_a + 2 * static_cast<size_t>(m) * n_part_a, n_part_a,
-                 static_cast<double>(K) * H, &s_mu[0], &s_rs[0]);
+                 static_cast<double>(K) * p.Hn, &s_mu[0], &s_rs[0]);
   } else if constexpr (kNorm == kNormCLN) {
     // statistics of every input row a tap of this tile reads
     for (int t = threadIdx.x; t < P * kDwRows; t += kDwThreads) {
@@ -390,7 +393,7 @@ __global__ void __launch_bounds__(kDwThreads, 8)
       const int kk = r0 + (t % kDwRows) + q * d - p.left;
       if (kk >= 0 && kk < K)
         row_stats(p.part_a + 2 * (static_cast<size_t>(m) * K + kk) * n_part_a,
-                  n_part_a, H, &s_mu[t], &s_rs[t]);
+                  n_part_a, p.Hn, &s_mu[t], &s_rs[t]);
     }
     __syncthreads();
   }
@@ -522,7 +525,7 @@ __device__ void out_proj_stats(const Params& p, int n_part_b, int m, int r0,
   const int K = p.K, H = p.H;
   if (p.norm == kNormGLN) {
     sample_stats(p.part_b + 2 * static_cast<size_t>(m) * n_part_b, n_part_b,
-                 static_cast<double>(K) * H, &s_mu[0], &s_rs[0]);
+                 static_cast<double>(K) * p.Hn, &s_mu[0], &s_rs[0]);
     const float mu = s_mu[0], rs = s_rs[0];
     __syncthreads();
     for (int r = threadIdx.x; r < kBM; r += blockDim.x) {
@@ -533,7 +536,7 @@ __device__ void out_proj_stats(const Params& p, int n_part_b, int m, int r0,
     for (int r = threadIdx.x; r < kBM; r += blockDim.x) {
       if (r0 + r < K)
         row_stats(p.part_b + 2 * (static_cast<size_t>(m) * K + r0 + r) * n_part_b,
-                  n_part_b, H, &s_mu[r], &s_rs[r]);
+                  n_part_b, p.Hn, &s_mu[r], &s_rs[r]);
     }
   } else {
     for (int r = threadIdx.x; r < kBM; r += blockDim.x) {

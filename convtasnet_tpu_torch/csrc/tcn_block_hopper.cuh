@@ -25,48 +25,6 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kWgRows = 128;                   // rows per CTA: two groups
-constexpr int kWgCta = 2 * kWgThreads;         // threads per CTA
-constexpr size_t kMaxDynSmem = 232448;         // 227 KB, an H100 block's
-
-// The widest column tile of the core that divides n (a multiple of 64).
-inline int wg_bn(int n) { return n % 256 == 0 ? 256 : n % 128 == 0 ? 128 : 64; }
-
-// 8 bf16 values in 16 bytes <-> 8 floats.
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h2[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  uint4 u;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = p[i];
-}
-
-// The generic pointer to shared address a of a block whose dynamic shared
-// memory starts at base.
-__device__ __forceinline__ uint8_t* smem_ptr(uint8_t* base, uint32_t a) {
-  return base + (a - smem_u32(base));
-}
-
-__device__ __forceinline__ uint4 ldg16(const bf16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-
 // ---- The depthwise walk shared by C', B' and the backward's R2 ----
 //
 // A 128-row tile of one sample is walked by 256 threads, 8 channels (16
@@ -201,62 +159,6 @@ inline int in_proj_wg_parts(int K, int H, int norm) {
   if (norm == kNormGLN) return (K + kWgRows - 1) / kWgRows;
   if (norm == kNormCLN) return H / staged_bn(H);
   return 0;
-}
-
-// A [128, BN] bf16 tile staged in shared memory for coalesced stores: rows
-// padded by 16 bytes, so that the accumulator layout's bf16 pairs land in
-// 32 distinct banks.
-template <int BN>
-__host__ __device__ constexpr int stage_ld() { return BN + 8; }
-template <int BN>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return static_cast<size_t>(kWgRows) * stage_ld<BN>() * sizeof(bf16);
-}
-
-// This thread's accumulator pairs, as bf16, into the staged tile.
-template <int BN>
-__device__ __forceinline__ void stage_acc(bf16* st, int wg, int t,
-                                          const float (&v)[BN / 2]) {
-#pragma unroll
-  for (int j = 0; j < BN / 2; j += 2)
-    *reinterpret_cast<__nv_bfloat162*>(
-        &st[(64 * wg + acc_row(t, j)) * stage_ld<BN>() + acc_col(t, j)]) =
-        __floats2bfloat162_rn(v[j], v[j + 1]);
-}
-
-// Rows [r0, r0 + 128) x columns [n0, n0 + BN) of a row-major [K, ld] bf16
-// matrix into the staged tile by cp.async in 16-byte chunks (rows at or
-// beyond K as zeros), then a barrier: the residual (or cotangent) an
-// epilogue adds, read coalesced. It waits for every cp.async in flight,
-// the ring's prefetches too.
-template <int BN>
-__device__ __forceinline__ void stage_load(bf16* st, const bf16* src, int ld,
-                                           int r0, int K, int n0, int tid) {
-  constexpr int kCpr = BN / 8;
-  for (int v = tid; v < kWgRows * kCpr; v += kWgCta) {
-    const int rl = v / kCpr, c = v % kCpr;
-    const bool ok = r0 + rl < K;
-    cp_async16(smem_u32(st + rl * stage_ld<BN>() + 8 * c),
-               src + (ok ? static_cast<size_t>(r0 + rl) * ld + n0 + 8 * c : 0),
-               ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// The staged tile's rows below K to a row-major [K, ld] bf16 matrix at
-// (r0, n0), in 16-byte chunks; a barrier before it publishes the tile.
-template <int BN>
-__device__ __forceinline__ void stage_store(const bf16* st, bf16* dst, int ld,
-                                            int r0, int K, int n0, int tid) {
-  constexpr int kCpr = BN / 8;
-  for (int v = tid; v < kWgRows * kCpr; v += kWgCta) {
-    const int rl = v / kCpr, c = v % kCpr;
-    if (r0 + rl < K)
-      *reinterpret_cast<uint4*>(&dst[static_cast<size_t>(r0 + rl) * ld + n0 + 8 * c]) =
-          *reinterpret_cast<const uint4*>(&st[rl * stage_ld<BN>() + 8 * c]);
-  }
 }
 
 // A' ring depth: 4 slabs, or 2 where the resident x leaves no room (B
@@ -449,7 +351,7 @@ __global__ void __launch_bounds__(kWgCta, 2) dw_stats_kernel(Params p,
   const int tid = threadIdx.x, cg = tid % CG, rg = tid / CG;
   const int m = blockIdx.y, r0 = blockIdx.x * kWgRows;
   sample_stats(p.part_a + 2 * static_cast<size_t>(m) * n_part_a, n_part_a,
-               static_cast<double>(K) * H, &s_st[0], &s_st[1]);
+               static_cast<double>(K) * p.Hn, &s_st[0], &s_st[1]);
   float g[8], b[8], sc[8], sh[8];
   norm1_channels(p, 8 * cg, s_st[0], s_st[1], g, b, sc, sh);
   const float a2 = *p.a2;
@@ -560,14 +462,14 @@ __global__ void __launch_bounds__(kWgCta)
     }
     if (!kCln && norm == kNormGLN) {
       sample_stats(p.part_a + 2 * static_cast<size_t>(m) * n_part_a, n_part_a,
-                   static_cast<double>(K) * H, &s_st[0], &s_st[1]);
+                   static_cast<double>(K) * p.Hn, &s_st[0], &s_st[1]);
       sample_stats(p.part_b + 2 * static_cast<size_t>(m) * n_part_b, n_part_b,
-                   static_cast<double>(K) * H, &s_st[2], &s_st[3]);
+                   static_cast<double>(K) * p.Hn, &s_st[2], &s_st[3]);
     } else if (kCln) {
       const int n_halo = min(out_proj_halo(K, P, d), K - lo);
       for (int i = tid; i < n_halo; i += kWgCta)
         row_stats(p.part_a + 2 * (static_cast<size_t>(m) * K + lo + i) * n_part_a,
-                  n_part_a, H, &s_halo[2 * i], &s_halo[2 * i + 1]);
+                  n_part_a, p.Hn, &s_halo[2 * i], &s_halo[2 * i + 1]);
       __syncthreads();
     }
     const int cg = tid % CG, rg = tid / CG;
@@ -610,7 +512,7 @@ __global__ void __launch_bounds__(kWgCta)
             else
               __syncwarp();
             float mu, rs;
-            row_stats(s_part + 2 * rl * n_seg, n_seg, H, &mu, &rs);
+            row_stats(s_part + 2 * rl * n_seg, n_seg, p.Hn, &mu, &rs);
 #pragma unroll
             for (int j = 0; j < 8; ++j)
               yv[j] = k < K ? (yv[j] - mu) * rs * g2[j] + b2[j] : 0.f;

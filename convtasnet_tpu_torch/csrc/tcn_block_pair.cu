@@ -81,8 +81,8 @@ PairLayout pair_layout(int M, int K, int B, int H, size_t act_bytes,
 // b1, g2, b2), its input x and output out, and the shared workspace.
 Params block_params(const void* const* w, const void* x, void* out, void* h,
                     void* y, void* w_eff, float* wsum, float* part_a,
-                    float* part_b, int M, int K, int B, int H, int P,
-                    int dilation, int causal, int norm) {
+                    float* part_b, int M, int K, int B, int H, int Hn,
+                    int P, int dilation, int causal, int norm) {
   Params p = {};
   p.x = x;
   p.w_in = w[0];
@@ -105,6 +105,7 @@ Params block_params(const void* const* w, const void* x, void* out, void* h,
   p.K = K;
   p.B = B;
   p.H = H;
+  p.Hn = Hn;
   p.P = P;
   p.dilation = dilation;
   p.left = causal ? (P - 1) * dilation : ((P - 1) * dilation) / 2;
@@ -115,7 +116,8 @@ Params block_params(const void* const* w, const void* x, void* out, void* h,
 template <typename T>
 int launch(const void* x, const void* const* wa, const void* const* wb,
            void* ws_act, float* ws_f32, void* out, int M, int K, int B, int H,
-           int P, int d1, int d2, int causal, int norm, cudaStream_t stream) {
+           int Hn, int P, int d1, int d2, int causal, int norm,
+           cudaStream_t stream) {
   if (norm != kNormGLN && norm != kNormCLN)
     return static_cast<int>(cudaErrorInvalidValue);
   const PairLayout L = pair_layout(M, K, B, H, sizeof(T), norm);
@@ -128,9 +130,9 @@ int launch(const void* x, const void* const* wa, const void* const* wb,
   float* part_a = ws_f32 + L.f32[1];
   float* part_b = ws_f32 + L.f32[2];
   const Params p1 = block_params(wa, x, x1, h, y, w_eff, wsum, part_a, part_b,
-                                 M, K, B, H, P, d1, causal, norm);
+                                 M, K, B, H, Hn, P, d1, causal, norm);
   const Params p2 = block_params(wb, x1, out, h, y, w_eff, wsum, part_a,
-                                 part_b, M, K, B, H, P, d2, causal, norm);
+                                 part_b, M, K, B, H, Hn, P, d2, causal, norm);
   CTN_TRY(launch_block<T>(p1, stream));
   return launch_block<T>(p2, stream);
 }
@@ -143,8 +145,8 @@ int launch(const void* x, const void* const* wa, const void* const* wb,
       const void *g2a, const void *b2a, const void *w_in2, const void *dw2,   \
       const void *w_out2, const void *a1b, const void *a2b, const void *g1b,  \
       const void *b1b, const void *g2b, const void *b2b, void *ws_act,        \
-      void *ws_f32, void *out, int M, int K, int B, int H, int P, int d1,     \
-      int d2, int causal, int norm, void *stream
+      void *ws_f32, void *out, int M, int K, int B, int H, int Hn, int P,     \
+      int d1, int d2, int causal, int norm, void *stream
 #define CTN_PAIR_CALL                                                          \
   const void* wa[9] = {w_in1, dw1, w_out1, a1a, a2a, g1a, b1a, g2a, b2a};     \
   const void* wb[9] = {w_in2, dw2, w_out2, a1b, a2b, g1b, b1b, g2b, b2b};
@@ -169,14 +171,14 @@ int ctn_tcn_block_pair_workspace(int M, int K, int B, int H, int elem_bytes,
 int ctn_tcn_block_pair_f32(CTN_PAIR_ARGS) {
   CTN_PAIR_CALL
   return launch<float>(x, wa, wb, ws_act, static_cast<float*>(ws_f32), out, M,
-                       K, B, H, P, d1, d2, causal, norm,
+                       K, B, H, Hn, P, d1, d2, causal, norm,
                        static_cast<cudaStream_t>(stream));
 }
 
 int ctn_tcn_block_pair_bf16(CTN_PAIR_ARGS) {
   CTN_PAIR_CALL
   return launch<__nv_bfloat16>(x, wa, wb, ws_act, static_cast<float*>(ws_f32),
-                               out, M, K, B, H, P, d1, d2, causal, norm,
+                               out, M, K, B, H, Hn, P, d1, d2, causal, norm,
                                static_cast<cudaStream_t>(stream));
 }
 

@@ -89,7 +89,7 @@ PairBwdLayout pair_bwd_layout(int M, int K, int B, int H, int P,
 // outputs.
 BwdParams block_bwd_params(const void* const* w, const void* x, const void* g,
                            void* dx, void* const* out, int M, int K, int B,
-                           int H, int P, int dilation, int causal) {
+                           int H, int Hn, int P, int dilation, int causal) {
   BwdParams p = {};
   p.x = x;
   p.g = g;
@@ -110,6 +110,7 @@ BwdParams block_bwd_params(const void* const* w, const void* x, const void* g,
   p.K = K;
   p.B = B;
   p.H = H;
+  p.Hn = Hn;
   p.P = P;
   p.dilation = dilation;
   p.left = causal ? (P - 1) * dilation : ((P - 1) * dilation) / 2;
@@ -142,6 +143,7 @@ Params forward_params(const BwdParams& q, void* x1, void* w_eff, float* wsum,
   p.K = q.K;
   p.B = q.B;
   p.H = q.H;
+  p.Hn = q.Hn;
   p.P = q.P;
   p.dilation = q.dilation;
   p.left = q.left;
@@ -153,7 +155,8 @@ template <typename T>
 int launch_pair_bwd(const void* x, const void* g, const void* const* wa,
                     const void* const* wb, void* ws_act, float* ws_f32,
                     void* dx, void* const* out_a, void* const* out_b, int M,
-                    int K, int B, int H, int P, int d1, int d2, int causal,
+                    int K, int B, int H, int Hn, int P, int d1, int d2,
+                    int causal,
                     cudaStream_t stream) {
   const PairBwdLayout L = pair_bwd_layout(M, K, B, H, P, sizeof(T));
   T* act = static_cast<T*>(ws_act);
@@ -161,10 +164,10 @@ int launch_pair_bwd(const void* x, const void* g, const void* const* wa,
   T* dx1 = act + L.act[1];
   // block 1: input x0, cotangent dx1, writes dx0; block 2: input x1,
   // cotangent g, writes dx1
-  BwdParams q1 = block_bwd_params(wa, x, dx1, dx, out_a, M, K, B, H, P, d1,
-                                  causal);
-  BwdParams q2 = block_bwd_params(wb, x1, g, dx1, out_b, M, K, B, H, P, d2,
-                                  causal);
+  BwdParams q1 = block_bwd_params(wa, x, dx1, dx, out_a, M, K, B, H, Hn, P,
+                                  d1, causal);
+  BwdParams q2 = block_bwd_params(wb, x1, g, dx1, out_b, M, K, B, H, Hn, P,
+                                  d2, causal);
   bind_bwd_workspace<T>(&q1, L.bwd, ws_act, ws_f32);
   bind_bwd_workspace<T>(&q2, L.bwd, ws_act, ws_f32);
   CTN_TRY(launch_block<T>(forward_params(q1, x1, act + L.act[2],
@@ -185,7 +188,7 @@ int launch_pair_bwd(const void* x, const void* g, const void* const* wa,
       const void *g1b, const void *b1b, const void *g2b, const void *b2b,     \
       void *ws_act, void *ws_f32, void *dx, void *dw_in1, void *dw_out1,      \
       void *aux1, void *dw_in2, void *dw_out2, void *aux2, int M, int K,      \
-      int B, int H, int P, int d1, int d2, int causal, void *stream
+      int B, int H, int Hn, int P, int d1, int d2, int causal, void *stream
 #define CTN_PAIR_BWD_CALL(T)                                                   \
   const void* wa[9] = {w_in1, dw1, w_out1, a1a, a2a, g1a, b1a, g2a, b2a};     \
   const void* wb[9] = {w_in2, dw2, w_out2, a1b, a2b, g1b, b1b, g2b, b2b};     \
@@ -193,7 +196,7 @@ int launch_pair_bwd(const void* x, const void* g, const void* const* wa,
   void* ob[3] = {dw_in2, dw_out2, aux2};                                      \
   return launch_pair_bwd<T>(x, g, wa, wb, ws_act,                             \
                             static_cast<float*>(ws_f32), dx, oa, ob, M, K, B, \
-                            H, P, d1, d2, causal,                             \
+                            H, Hn, P, d1, d2, causal,                         \
                             static_cast<cudaStream_t>(stream));
 
 extern "C" {

@@ -26,18 +26,35 @@
 // two shards (Hs=256) a call reads h (13.1 MB in bf16) and writes z (13.1
 // MB): 7.8 us at 3.35 TB/s, where the product is 3.35 GFLOP (3.4 us at 989
 // TFLOP/s): bytes-bound. Four shards (Hs=128) read half of h. The Pallas
-// kernel keeps a sample's whole [K, Hs] h in VMEM; here one block per
-// (64-row tile, sample) builds its [64, Hs] tile of y from h in device
-// memory (B1's launch B: gLN-1 applied per element inside the taps), keeps
-// round(y g2) in shared memory (32 KB at Hs=256 in bf16, 64 KB in f32) as
-// the resident left operand of the B/64 products with W_out_s
-// (gemm_tile with kResA), and writes z once. Its partial sums
-// land in one slot per tile; a second launch sums them in a fixed order in
-// double, so there are no atomics and a rerun gives the same bits. The
-// grid is M*K/64 blocks (400 at the paper shape); the products are B1's
-// 64x64 WMMA tile (FMA in f32) without cp.async/TMA or wgmma.
+// kernel keeps a sample's whole [K, Hs] h in VMEM; here a CTA builds one
+// tile of y from h in device memory and keeps round(y g2) in shared memory
+// as the resident left operand of the product with W_out_s. Its partial
+// sums land in one slot per tile; a second launch (tp_sums_kernel) sums
+// them in a fixed order in double, so there are no atomics and a rerun
+// gives the same bits.
+//
+// bf16 at the Hopper widths (wg_widths_ok: Hs in {64, 128, 256, 512}, B a
+// multiple of 64 up to 512): one launch of B1's stage C' with a plainer
+// epilogue (tp_stage2_wg_kernel). A CTA of two warpgroups takes 128 rows
+// of one sample; the depthwise walk of tcn_block_hopper.cuh (dw_rows:
+// 16-byte loads of h rows [r0 - left, r0 + 128 + right), gLN-1's scale and
+// shift applied per element inside the taps, a tap outside [0, K) skipped)
+// gives y, whose f32 sums it takes in the same pass and whose round(y g2)
+// it writes into the resident K-major operand; W_out_s [Hs, B] streams
+// MN-major through the cp.async ring (ring_run) into wgmma, 64 columns at a
+// time, and z = round(acc) leaves through the stage tile in 16-byte rows:
+// no residual, no W_eff and no gLN-2 fold. At Hs <= 256 the shared memory
+// (y 64 KB at Hs 256, a 3-slab ring of 24 KB, the 18 KB stage) lets two
+// CTAs share an SM, so the paper shape's 200 tiles run in one wave.
+//
+// f32, and bf16 at other widths: the first design, one CTA per (64-row
+// tile, sample) that builds its [64, Hs] tile of y one channel per thread
+// (gemm_tile's resident operand, 32 KB at Hs=256 in bf16, 64 KB in f32)
+// and runs B1's 64x64 WMMA tile (FMA in f32) over W_out_s without cp.async
+// or wgmma; 400 CTAs at the paper shape.
 
 #include "tcn_block_common.cuh"
+#include "tcn_block_hopper.cuh"
 
 namespace {
 
@@ -145,15 +162,122 @@ __global__ void tp_sums_kernel(const float* __restrict__ part, int n_tiles,
   }
 }
 
+constexpr int kTpStages = 3;   // the wgmma stage's ring depth
+constexpr int kTpBN = 64;      // its column tile
+
+// The wgmma stage's shared memory: y, the ring and the stage tile.
+inline size_t tp_wg_smem(int Hs) {
+  return 1024 + static_cast<size_t>(Hs / kSlabK) * kWgRows * kLine +
+         static_cast<size_t>(kTpStages) * kTpBN * kLine + stage_bytes<kTpBN>();
+}
+
+// bf16 stage 2 on the wgmma core (top note): for rows [r0, r0 + 128) of
+// sample blockIdx.y, y = PReLU_a2(dwconv(gLN-1(h))) by the depthwise walk,
+// its f32 (sum, sum of squares) into part[m * gridDim.x + blockIdx.x], and
+// round(y g2) into the resident K-major operand (rows at or beyond K as
+// zeros); then z = round(round(y g2) @ W_out_s). Grid (ceil(K / 128), M),
+// block 256; wg_widths_ok(B, Hs).
+__global__ void __launch_bounds__(kWgCta, 2) tp_stage2_wg_kernel(TpParams p) {
+  extern __shared__ uint8_t wg_smem[];
+  const int K = p.K, Hs = p.Hs, B = p.B, CG = Hs / 8;
+  const int nk = Hs / kSlabK, n_tiles = B / kTpBN;
+  const uint32_t ys = align_1024(wg_smem);
+  const uint32_t ring = ys + nk * kWgRows * kLine;
+  uint8_t* y_gen = smem_ptr(wg_smem, ys);
+  bf16* st = reinterpret_cast<bf16*>(
+      smem_ptr(wg_smem, ring + kTpStages * kTpBN * kLine));
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int m = blockIdx.y, r0 = blockIdx.x * kWgRows;
+  const bf16* w_out = static_cast<const bf16*>(p.w_out);
+  bf16* z = static_cast<bf16*>(p.z) + static_cast<size_t>(m) * K * B;
+  float s1 = 0.f, s2 = 0.f;
+
+  auto compute_y = [&] {
+    const int cg = tid % CG, rg = tid / CG, c0 = 8 * cg;
+    const float mean1 = p.stats1[2 * m], rs1 = p.stats1[2 * m + 1];
+    float g[8], b[8], sc[8], sh[8], g2[8];
+    load8(p.g1 + c0, g);
+    load8(p.b1 + c0, b);
+    load8(p.g2 + c0, g2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sc[j] = rs1 * g[j];
+      sh[j] = b[j] - mean1 * sc[j];
+    }
+    const float a2 = *p.a2;
+    dw_rows<false, 4>(
+        static_cast<const bf16*>(p.h) + static_cast<size_t>(m) * K * Hs,
+        static_cast<const bf16*>(p.dw), K, Hs, p.P, p.dilation, p.left, r0,
+        cg, rg, kWgCta / CG, 0.f, false, g, b, sc, sh,
+        [](int, float&, float&) {},
+        [&](int rl, int, const float (&acc)[8]) {
+          float yg[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float v = prelu(acc[j], a2);   // 0 for rows at or beyond K
+            s1 += v;
+            s2 += v * v;
+            yg[j] = v * g2[j];
+          }
+          *reinterpret_cast<uint4*>(y_gen + (cg >> 3) * kWgRows * kLine +
+                                    swz(rl, cg & 7)) = pack8(yg);
+        });
+    // the ring's next barrier publishes the operand
+  };
+
+  float acc[kTpBN / 2];
+  ring_run<kTpStages>(
+      n_tiles * nk, ring, kTpBN * kLine,
+      [&](int i, uint32_t slot) {
+        load_mn_slab(slot, w_out, B, (i % nk) * kSlabK, Hs, (i / nk) * kTpBN,
+                     kTpBN, B, tid, kWgCta);
+      },
+      compute_y,
+      [&](int i, uint32_t slot) {
+        const int s = i % nk;
+        mma_begin(acc);
+        mma_slab<kTpBN, false, true>(
+            acc, ys + s * kWgRows * kLine + wg * 64 * kLine, slot, s > 0);
+        mma_end(acc);
+        if (s != nk - 1) return;
+        stage_acc<kTpBN>(st, wg, t, acc);
+        __syncthreads();
+        stage_store<kTpBN>(st, z, B, r0, K, (i / nk) * kTpBN, tid);
+        // the ring's next barrier comes before the stage is written again
+      });
+  block_sum2(s1, s2);
+  if (tid == 0) {
+    float* dst = p.part + 2 * (static_cast<size_t>(m) * gridDim.x + blockIdx.x);
+    dst[0] = s1;
+    dst[1] = s2;
+  }
+}
+
 template <typename T>
 int launch_tp(const TpParams& p, cudaStream_t stream) {
-  const size_t smem = tp_smem<T>(p.Hs);
-  cudaError_t err = cudaFuncSetAttribute(
-      tp_stage2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned kt = (p.K + kBM - 1) / kBM;
-  tp_stage2_kernel<T><<<dim3(kt, p.M), kGemmThreads, smem, stream>>>(p);
+  unsigned kt;
+  if (runs_wg(p.B, p.Hs, sizeof(T))) {   // bf16 at wg_widths_ok
+    const size_t smem = tp_wg_smem(p.Hs);
+    cudaError_t err = cudaFuncSetAttribute(
+        tp_stage2_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    // all of the SM's 228 KB as shared memory, so that two CTAs fit
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(tp_stage2_wg_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 100);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kt = (p.K + kWgRows - 1) / kWgRows;
+    tp_stage2_wg_kernel<<<dim3(kt, p.M), kWgCta, smem, stream>>>(p);
+  } else {
+    const size_t smem = tp_smem<T>(p.Hs);
+    cudaError_t err = cudaFuncSetAttribute(
+        tp_stage2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kt = (p.K + kBM - 1) / kBM;
+    tp_stage2_kernel<T><<<dim3(kt, p.M), kGemmThreads, smem, stream>>>(p);
+  }
   CTN_CHECK();
   tp_sums_kernel<<<p.M, 256, 0, stream>>>(p.part, static_cast<int>(kt),
                                           p.sums);
@@ -203,8 +327,9 @@ TpParams make_tp_params(const void* h, const void* stats1, const void* dw,
 extern "C" {
 
 // Stage 2 of one shard's block; every pointer is device memory, `part`
-// holds 2 * M * ceil(K / 64) floats of workspace, `stream` is a
-// cudaStream_t. Returns the first CUDA error of its two launches.
+// holds 2 * M * ceil(K / 64) floats of workspace (enough for either
+// design's tiles), `stream` is a cudaStream_t. Returns the first CUDA
+// error of its two launches.
 int ctn_tcn_block_tp2_f32(CTN_TP_ARGS) {
   return launch_tp<float>(CTN_TP_CALL);
 }

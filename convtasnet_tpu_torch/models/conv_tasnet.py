@@ -18,6 +18,10 @@ sublayer) through the hand-written kernels" (``ops/cuda/``): ``None``
 (auto) runs the kernels for CUDA tensors and the plain ops for CPU tensors;
 ``True`` needs CUDA tensors and raises on CPU ones; ``False`` runs the
 plain ops anywhere. ``cfg.use_pallas=True`` acts as ``use_pallas=True``.
+With the kernels in use, a configuration whose widths a kernel does not
+take (``ops/cuda/shapes.py``: a TCN whose B or H is not a multiple of 64,
+...) raises before anything is launched, naming every refused block or
+sublayer and its rule; ``False`` runs it through the plain ops.
 
 With the kernels in use and ``CONVTASNET_PAIR_FUSION=1``
 (``pair_fusion_enabled``; off by default: a pair gives the bits of two
@@ -61,6 +65,7 @@ from convtasnet_tpu_torch.ops.conv import (
     depthwise_conv1d,
     torch_conv_xavier_normal,
 )
+from convtasnet_tpu_torch.ops.cuda.shapes import use_kernels
 from convtasnet_tpu_torch.ops.cuda.tcn_block import (
     fused_tcn_block,
     fused_tcn_block_ad,
@@ -316,12 +321,8 @@ class ConvTasNet(nn.Module):
 
     def forward(self, mixture: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        use_kernel = mixture.is_cuda if self.use_pallas is None \
-            else self.use_pallas
-        if use_kernel and not mixture.is_cuda:
-            raise ValueError(
-                "use_pallas=True runs the CUDA kernels and needs CUDA "
-                f"tensors; the mixture is on {mixture.device}")
+        use_kernel = use_kernels(cfg, self.use_pallas, mixture.device,
+                                 pairs=pair_fusion_enabled())
         x = mixture.to(getattr(torch, cfg.compute_dtype))
         mixture_w = self.encoder(x)
         est_mask = self.separator(mixture_w, use_kernel)

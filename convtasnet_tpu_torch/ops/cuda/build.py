@@ -28,17 +28,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL_P = ctypes.POINTER(ctypes.c_longlong)
-# ctn_tcn_block_{f32,bf16}: 21 pointers, 8 ints, the stream (see tcn_block.cu)
-_BLOCK_ARGTYPES = [_P] * 21 + [_I] * 8 + [_P]
-# ctn_tcn_block_bwd[_cln]_{f32,bf16}: 17 pointers, 7 ints, the stream
+# ctn_tcn_block_{f32,bf16}: 21 pointers, 9 ints, the stream (see tcn_block.cu)
+_BLOCK_ARGTYPES = [_P] * 21 + [_I] * 9 + [_P]
+# ctn_tcn_block_bwd[_cln]_{f32,bf16}: 17 pointers, 8 ints, the stream
 # (see tcn_block_bwd.cu)
-_BWD_ARGTYPES = [_P] * 17 + [_I] * 7 + [_P]
-# ctn_tcn_block_pair_{f32,bf16}: 22 pointers, 9 ints, the stream
+_BWD_ARGTYPES = [_P] * 17 + [_I] * 8 + [_P]
+# ctn_tcn_block_pair_{f32,bf16}: 22 pointers, 10 ints, the stream
 # (see tcn_block_pair.cu)
-_PAIR_ARGTYPES = [_P] * 22 + [_I] * 9 + [_P]
-# ctn_tcn_block_pair_bwd_{f32,bf16}: 29 pointers, 8 ints, the stream
+_PAIR_ARGTYPES = [_P] * 22 + [_I] * 10 + [_P]
+# ctn_tcn_block_pair_bwd_{f32,bf16}: 29 pointers, 9 ints, the stream
 # (see tcn_block_pair_bwd.cu)
-_PAIR_BWD_ARGTYPES = [_P] * 29 + [_I] * 8 + [_P]
+_PAIR_BWD_ARGTYPES = [_P] * 29 + [_I] * 9 + [_P]
 # ctn_tcn_block_tp2_{f32,bf16}: 11 pointers, 7 ints, the stream
 # (see tcn_block_tp.cu)
 _TP2_ARGTYPES = [_P] * 11 + [_I] * 7 + [_P]

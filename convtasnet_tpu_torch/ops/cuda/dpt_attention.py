@@ -50,6 +50,8 @@ NEG_INF = -1e9
 TILE = 64            # B must be a multiple of the GEMM tile
 MAX_WIDTH = 256      # B at most this (the kernels' shared-memory tiles)
 HEAD_DIMS = (32, 64)
+INTRA_ROWS = 16      # the intra kernels' row tile: S pads up to a multiple
+INTRA_MAX_S = 256    # S at most this (one chunk's tiles in shared memory)
 _ENTRY = {
     "inter": {torch.float32: "ctn_dpt_inter_f32",
               torch.bfloat16: "ctn_dpt_inter_bf16"},
@@ -65,13 +67,51 @@ _BWD_ENTRY = {
 _KERNEL_NO = {"inter": "B8", "intra": "B10"}
 
 
-def fitting_shards(B: int, n_heads: int, ff: Optional[int] = None) -> list:
-    """The shard counts m whose partial kernels take a sublayer of width B
-    with ``n_heads`` heads (and an FFN of hidden width ``ff``): m divides
-    the heads, B / m is a multiple of 64 and F / m one of 128."""
+def fitting_shards(B: int, n_heads: int) -> list:
+    """The shard counts m whose partial attention kernels take a sublayer
+    of width B with ``n_heads`` heads: m divides the heads and B / m is a
+    multiple of 64."""
     return [m for m in range(1, n_heads + 1)
-            if n_heads % m == 0 and B % m == 0 and (B // m) % TILE == 0
-            and (ff is None or (ff % m == 0 and (ff // m) % (2 * TILE) == 0))]
+            if n_heads % m == 0 and B % m == 0 and (B // m) % TILE == 0]
+
+
+def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int
+                  ) -> Optional[str]:
+    """Why the attention kernels of ``kind`` ("inter": B7, B8; "intra": B9,
+    B10; and their partial modes) refuse a sublayer of width B over chunks
+    of S frames whose heads, ``n_heads`` of them, span Bq channels (Bq ==
+    B, or B / m for a head-group shard of m), or None where they take it."""
+    if B % TILE or B > MAX_WIDTH:
+        return (f"the kernel needs B a multiple of {TILE} and at most "
+                f"{MAX_WIDTH}, got B={B}")
+    if Bq % TILE:
+        m = B // Bq if B % Bq == 0 else None
+        fits = fitting_shards(B, n_heads * m) if m else []
+        return (f"the partial kernel needs the shard's width B/m a multiple "
+                f"of {TILE}, got {Bq} of B={B}; shard counts that fit: "
+                f"{fits}")
+    if Bq % n_heads or Bq // n_heads not in HEAD_DIMS:
+        return (f"the kernel needs a head width in {HEAD_DIMS}, got {Bq} "
+                f"channels with {n_heads} heads")
+    if kind == "intra" and S > INTRA_MAX_S:
+        return (f"the intra kernel needs a chunk length S of at most "
+                f"{INTRA_MAX_S}, got S={S}")
+    return None
+
+
+def pad_chunks(x: torch.Tensor, key_bias: Optional[torch.Tensor],
+               Sp: int):
+    """x [M, n, S, B] with zero frames appended to each chunk up to Sp, and
+    the key bias [n, Sp] with the appended frames masked (``NEG_INF``):
+    what the intra kernels run where S is not a multiple of their row
+    tile. An appended frame takes no weight as a key, so the real frames'
+    outputs and every gradient are the unpadded sublayer's; its own output
+    rows are dropped."""
+    n, S = x.shape[1], x.shape[2]
+    if key_bias is None:
+        key_bias = torch.zeros((n, S), dtype=torch.float32, device=x.device)
+    return (torch.nn.functional.pad(x, (0, 0, 0, Sp - S)),
+            torch.nn.functional.pad(key_bias, (0, Sp - S), value=NEG_INF))
 
 
 def attention_reference(x: torch.Tensor, gamma: torch.Tensor,
@@ -173,8 +213,7 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
         raise ValueError(f"x must be [M, n, S, B], got {tuple(x.shape)}")
     M, n, S, B = x.shape
     if B % TILE or B > MAX_WIDTH:
-        raise ValueError(f"the kernel needs B a multiple of {TILE} and at "
-                         f"most {MAX_WIDTH}, got B={B}")
+        raise ValueError(shape_refusal(kind, B, S, B, 1))
     Bq = w_qkv.shape[-1] // 3
     if (tuple(w_qkv.shape) != (B, 3 * Bq) or tuple(w_out.shape) != (Bq, B)
             or not 0 < Bq <= B or (Bq != B and not partial)):
@@ -182,18 +221,9 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
                          f"{tuple(w_out.shape)} do not fit x {tuple(x.shape)}"
                          + ("" if partial else " (a head-group shard's "
                             "weights need partial=True)"))
-    if Bq % n_heads or Bq // n_heads not in HEAD_DIMS:
-        raise ValueError(f"the kernel needs a head width in {HEAD_DIMS}, got "
-                         f"{Bq} channels with {n_heads} heads")
-    if Bq % TILE:
-        m = B // Bq if B % Bq == 0 else None
-        fits = fitting_shards(B, n_heads * m) if m else []
-        raise ValueError(
-            f"the partial kernel needs the shard's width B/m a multiple of "
-            f"{TILE}, got {Bq} of B={B}; shard counts that fit: {fits}")
-    if kind == "intra" and (S % 16 or S > 256):
-        raise ValueError(f"the intra kernel needs a chunk length S that is a "
-                         f"multiple of 16 and at most 256, got S={S}")
+    refusal = shape_refusal(kind, B, S, Bq, n_heads)
+    if refusal:
+        raise ValueError(refusal)
     if key_bias is not None and tuple(key_bias.shape) != (n, S):
         raise ValueError(f"key_bias must be [n, S] = {(n, S)}, got "
                          f"{tuple(key_bias.shape)}")
@@ -238,6 +268,10 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
     lib = load_library()
     x, gamma, beta, w_qkv, w_out, key_bias, Bq = _prepare(
         name, kind, x, gamma, beta, w_qkv, w_out, key_bias, n_heads, partial)
+    S_in = x.shape[2]
+    if kind == "intra" and S_in % INTRA_ROWS:
+        x, key_bias = pad_chunks(x, key_bias, -(-S_in // INTRA_ROWS)
+                                 * INTRA_ROWS)
     M, n, S, B = x.shape
     R = M * n * S
     n_spill = ctypes.c_longlong(0)
@@ -259,7 +293,7 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
             qkv.data_ptr(), a.data_ptr(), out.data_ptr(), M, n, S, B, n_heads,
             Bq, int(partial), stream)
     raise_on_error(lib, err, f"dpt {kind} attention kernel")
-    return out
+    return out if S == S_in else out[:, :, :S_in].contiguous()
 
 
 def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
@@ -373,13 +407,18 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
     prims = _prepare(name, kind, x, gamma, beta, w_qkv, w_out, key_bias,
                      n_heads, partial)
     xc, gamma_c, beta_c, w_qkv_c, w_out_c, bias_c, Bq = prims
-    M, n, S, B = xc.shape
     if tuple(g.shape) != tuple(xc.shape):
         raise ValueError(f"g must have x's shape {tuple(xc.shape)}, got "
                          f"{tuple(g.shape)}")
     g = g.detach().to(xc.dtype).contiguous()
     if g.device != xc.device or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned tensor on {xc.device}")
+    S_in = xc.shape[2]
+    if kind == "intra" and S_in % INTRA_ROWS:
+        Sp = -(-S_in // INTRA_ROWS) * INTRA_ROWS
+        xc, bias_c = pad_chunks(xc, bias_c, Sp)
+        g = torch.nn.functional.pad(g, (0, 0, 0, Sp - S_in))
+    M, n, S, B = xc.shape
     n_act, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
     lib.ctn_dpt_attn_bwd_workspace(M, n, S, B, n_heads, Bq,
                                    xc.element_size(), ctypes.byref(n_act),
@@ -410,6 +449,8 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
             dw_qkv.data_ptr(), dw_out.data_ptr(), M, n, S, B, n_heads, Bq,
             int(partial), stream)
     raise_on_error(lib, err, f"dpt {kind} attention backward kernel")
+    if S != S_in:
+        dx = dx[:, :, :S_in].contiguous()
     return (dx, dgb[0].to(gamma.dtype), dgb[1].to(beta.dtype),
             dw_qkv.to(w_qkv.dtype), dw_out.to(w_out.dtype))
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,8 +49,20 @@ from convtasnet_tpu_torch.ops.norm import LN_EPS, layer_norm
 _ENTRY = {torch.float32: "ctn_dpt_ffn_f32", torch.bfloat16: "ctn_dpt_ffn_bf16"}
 _BWD_ENTRY = {torch.float32: "ctn_dpt_ffn_bwd_f32",
               torch.bfloat16: "ctn_dpt_ffn_bwd_bf16"}
+F_TILE = 2 * TILE   # the kernels run F at a multiple of this (zero-padded)
 _GELU_C = math.sqrt(2.0 / math.pi)
 _GELU_A = 0.044715
+
+
+def shape_refusal(B: int) -> Optional[str]:
+    """Why the FFN kernels (B11, B12, and their partial modes) refuse a
+    sublayer of width B, or None where they take it. Any hidden width F
+    (F / m for a shard of m): the wrappers zero-pad it to a multiple of
+    ``F_TILE`` (``pad_hidden``)."""
+    if B % TILE or B > MAX_WIDTH:
+        return (f"the kernel needs B a multiple of {TILE} and at most "
+                f"{MAX_WIDTH}, got B={B}")
+    return None
 
 
 def ffn_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -86,6 +99,19 @@ fused_ffn.launches = 0
 fused_ffn.partial_launches = 0
 
 
+def pad_hidden(w_up: torch.Tensor, b_up: torch.Tensor,
+               w_down: torch.Tensor):
+    """(w_up [B, F], b_up [F], w_down [F, B]) with F zero-padded up to a
+    multiple of ``F_TILE``, as the kernels run it: a padded hidden unit
+    has pre = 0, h = gelu(0) = 0 and dpre = 0, so it adds nothing to the
+    output or to any gradient, and its own gradients are dropped."""
+    df = -w_up.shape[-1] % F_TILE
+    if not df:
+        return w_up, b_up, w_down
+    return (F.pad(w_up, (0, df)), F.pad(b_up, (0, df)),
+            F.pad(w_down, (0, 0, 0, df)))
+
+
 def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
     """Checks the operands of the FFN kernels (forward or backward) and
     returns them as the kernels take them: x and the weights contiguous in
@@ -101,10 +127,9 @@ def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
         raise ValueError(f"x must be [M, K, B], got {tuple(x.shape)}")
     M, K, B = x.shape
     Fw = w_up.shape[-1]
-    if B % TILE or B > MAX_WIDTH or Fw % (2 * TILE):
-        raise ValueError(f"the kernel needs B a multiple of {TILE} and at "
-                         f"most {MAX_WIDTH}, and F (F/m for a shard of m) a "
-                         f"multiple of {2 * TILE}, got B={B} F={Fw}")
+    refusal = shape_refusal(B)
+    if refusal:
+        raise ValueError(refusal)
     if tuple(w_up.shape) != (B, Fw) or tuple(w_down.shape) != (Fw, B):
         raise ValueError(f"weight shapes {tuple(w_up.shape)}, "
                          f"{tuple(w_down.shape)} do not fit x {tuple(x.shape)}")
@@ -119,10 +144,11 @@ def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
         if t.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, one is on "
                              f"{t.device}")
+    g_, b_, bu, bd = vecs
+    w_up, bu, w_down = pad_hidden(w_up, bu, w_down)
     for t in (x, w_up, w_down):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, w_up, w_down")
-    g_, b_, bu, bd = vecs
     return x, g_, b_, w_up, bu, w_down, bd
 
 
@@ -256,9 +282,11 @@ def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down,
             dw_down.data_ptr(), db_down.data_ptr(), M * K, B, Fw,
             int(partial), stream)
     raise_on_error(lib, err, "dpt ffn backward kernel")
+    F_in = w_up.shape[-1]
     return (dx, dgb[0].to(gamma.dtype), dgb[1].to(beta.dtype),
-            dw_up.to(w_up.dtype), db_up.reshape(b_up.shape).to(b_up.dtype),
-            dw_down.to(w_down.dtype),
+            dw_up[:, :F_in].to(w_up.dtype),
+            db_up[:F_in].reshape(b_up.shape).to(b_up.dtype),
+            dw_down[:F_in].to(w_down.dtype),
             db_down.reshape(b_down.shape).to(b_down.dtype))
 
 

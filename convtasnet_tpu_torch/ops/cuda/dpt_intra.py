@@ -35,6 +35,18 @@ from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
     launch_attention,
     launch_attention_bwd,
 )
+from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
+    shape_refusal as attention_shape_refusal,
+)
+
+
+def shape_refusal(B: int, S: int, Bq: int, n_heads: int) -> Optional[str]:
+    """Why the intra kernels (B9, B10, and their partial modes) refuse a
+    sublayer of width B over chunks of S frames with ``n_heads`` heads over
+    Bq channels, or None where they take it: the attention kernels' rules
+    and S at most 256 (the wrappers pad S up to a multiple of 16 with
+    masked frames: ``dpt_attention.pad_chunks``)."""
+    return attention_shape_refusal("intra", B, S, Bq, n_heads)
 
 
 def intra_attention_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,

@@ -40,7 +40,41 @@ NORM_CODES = {"gLN": 0, "cLN": 1, "BN": 2}
 _ENTRY = {torch.float32: "ctn_tcn_block_f32",
           torch.bfloat16: "ctn_tcn_block_bf16"}
 MAX_TAPS = 16      # kMaxTaps in tcn_block.cu
-TILE = 64          # B and H must be multiples of the GEMM tile (kBM = kBN)
+TILE = 64          # the kernels run B and H at multiples of the GEMM tile
+                   # (kBM = kBN); other widths are zero-padded up to one
+
+
+def shape_refusal(B: int, H: int, P: int, causal: bool) -> Optional[str]:
+    """Why the TCN block kernels (B1, and the backwards B2 and B3, which
+    take the same widths) refuse a block of bottleneck width B, hidden
+    width H and P depthwise taps, or None where they take it (any B and H:
+    ``pad_block``). The wrappers raise it on a CUDA tensor;
+    ``ops/cuda/shapes.py`` applies it to a whole configuration."""
+    if P > MAX_TAPS or (not causal and P % 2 == 0):
+        return f"unsupported depthwise kernel size P={P}"
+    return None
+
+
+def padded(n: int) -> int:
+    """n rounded up to a multiple of the GEMM tile."""
+    return -(-n // TILE) * TILE
+
+
+def pad_block(mats, vecs):
+    """One block's operands at the widths the kernels run it: ``mats`` =
+    (w_in [B, H], dw [P, H], w_out [H, B]) zero-padded to ``padded(B)``
+    and ``padded(H)``, and each of ``vecs`` (norm affines, BN statistics,
+    all [H]) to ``padded(H)``. A padded hidden channel has no weights, so
+    its activations are 0 and add nothing to the norms' sums, which the
+    kernels divide by the block's own H (their ``Hn``): the real channels
+    see the unpadded block's statistics. A padded bottleneck channel has no
+    weights either; its output is 0, and the caller drops it."""
+    w_in, dw, w_out = mats
+    B, H = w_in.shape
+    db, dh = padded(B) - B, padded(H) - H
+    pad = torch.nn.functional.pad
+    return ([pad(w_in, (0, dh, 0, db)), pad(dw, (0, dh)),
+             pad(w_out, (0, db, 0, dh))], [pad(v, (0, dh)) for v in vecs])
 
 
 def fused_tcn_block_reference(
@@ -158,11 +192,9 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
     if tuple(w_in.shape) != (B, H) or tuple(w_out.shape) != (H, B):
         raise ValueError(f"weight shapes {tuple(w_in.shape)}, {tuple(dw.shape)}, "
                          f"{tuple(w_out.shape)} do not fit x {tuple(x.shape)}")
-    if B % TILE or H % TILE:
-        raise ValueError(f"the kernel needs B and H multiples of {TILE}, "
-                         f"got B={B} H={H}")
-    if P > MAX_TAPS or (not causal and P % 2 == 0):
-        raise ValueError(f"unsupported depthwise kernel size P={P}")
+    refusal = shape_refusal(B, H, P, causal)
+    if refusal:
+        raise ValueError(refusal)
     dt = x.dtype
     x = x.contiguous()
     w_in, dw, w_out = (t.to(dt).contiguous() for t in (w_in, dw, w_out))
@@ -177,6 +209,11 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
     if any(v.numel() != 1 for v in vecs[:2]) or any(
             v.numel() != H for v in vecs[2:]):
         raise ValueError("PReLU slopes must be scalars and norm vectors [H]")
+    B_in, Hn = B, H
+    if (padded(B), padded(H)) != (B, H):
+        (w_in, dw, w_out), vecs[2:] = pad_block((w_in, dw, w_out), vecs[2:])
+        B, H = padded(B), padded(H)
+        x = torch.nn.functional.pad(x, (0, B - B_in))
     for t in (x, w_in, dw, w_out):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, w_in, dw, "
@@ -209,13 +246,13 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
             *[v.data_ptr() for v in vecs[:6]], *bn_ptrs,
             h.data_ptr(), ptr(y), w_eff.data_ptr(), wsum.data_ptr(),
             ptr(part_a), ptr(part_b), out.data_ptr(),
-            M, K, B, H, P, dilation, int(causal), code, stream)
+            M, K, B, H, Hn, P, dilation, int(causal), code, stream)
     if err != 0:
         msg = lib.ctn_error_string(err).decode()
         raise RuntimeError(f"tcn_block kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     fused_tcn_block.launches += 1
-    return out
+    return out if B == B_in else out[..., :B_in].contiguous()
 
 
 class _FusedBlockFn(torch.autograd.Function):

@@ -27,10 +27,11 @@ import torch
 
 from convtasnet_tpu_torch.ops.cuda.build import load_library
 from convtasnet_tpu_torch.ops.cuda.tcn_block import (
-    MAX_TAPS,
     NORM_CODES,
-    TILE,
     fused_tcn_block_reference,
+    pad_block,
+    padded,
+    shape_refusal,
 )
 
 _ENTRY = {("gLN", torch.float32): "ctn_tcn_block_bwd_f32",
@@ -108,11 +109,9 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
     if tuple(w_in.shape) != (B, H) or tuple(w_out.shape) != (H, B):
         raise ValueError(f"weight shapes {tuple(w_in.shape)}, {tuple(dw.shape)}, "
                          f"{tuple(w_out.shape)} do not fit x {tuple(x.shape)}")
-    if B % TILE or H % TILE:
-        raise ValueError(f"the kernel needs B and H multiples of {TILE}, "
-                         f"got B={B} H={H}")
-    if P > MAX_TAPS or (not causal and P % 2 == 0):
-        raise ValueError(f"unsupported depthwise kernel size P={P}")
+    refusal = shape_refusal(B, H, P, causal)
+    if refusal:
+        raise ValueError(refusal)
     dt = x.dtype
     x = x.contiguous()
     g = g.to(dt).contiguous()
@@ -127,6 +126,12 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
     if any(v.numel() != 1 for v in vecs[:2]) or any(
             v.numel() != H for v in vecs[2:]):
         raise ValueError("PReLU slopes must be scalars and norm vectors [H]")
+    B_in, Hn = B, H
+    if (padded(B), padded(H)) != (B, H):   # as the forward runs it
+        (w_in_c, dw_c, w_out_c), vecs[2:] = pad_block(
+            (w_in_c, dw_c, w_out_c), vecs[2:])
+        B, H = padded(B), padded(H)
+        x, g = (torch.nn.functional.pad(t, (0, B - B_in)) for t in (x, g))
     for t in (x, g, w_in_c, w_out_c):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, g, w_in, "
@@ -150,7 +155,7 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
             w_out_c.data_ptr(), *[v.data_ptr() for v in vecs],
             ws_act.data_ptr(), ws_f32.data_ptr(), dx.data_ptr(),
             dwin.data_ptr(), dwout.data_ptr(), aux.data_ptr(),
-            M, K, B, H, P, dilation, int(causal), stream)
+            M, K, B, H, Hn, P, dilation, int(causal), stream)
     if err != 0:
         msg = lib.ctn_error_string(err).decode()
         raise RuntimeError(f"tcn_block_bwd kernel launch failed: CUDA error "
@@ -159,13 +164,13 @@ def _launch_cuda(x, g, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2,
         fused_tcn_block_bwd.cln_launches += 1
     else:
         fused_tcn_block_bwd.launches += 1
-    rows = aux[: (P + 6) * H].view(P + 6, H)
+    rows = aux[: (P + 6) * H].view(P + 6, H)[:, :Hn]
     da1, da2 = aux[(P + 6) * H:]
     return (
-        dx,
-        dwin.to(w_in.dtype),
+        dx if B == B_in else dx[..., :B_in].contiguous(),
+        dwin[:B_in, :Hn].to(w_in.dtype),
         rows[:P].to(dw.dtype),
-        dwout.to(w_out.dtype),
+        dwout[:Hn, :B_in].to(w_out.dtype),
         da1.reshape(a1.shape).to(a1.dtype),
         da2.reshape(a2.shape).to(a2.dtype),
         rows[P].to(gamma1.dtype),

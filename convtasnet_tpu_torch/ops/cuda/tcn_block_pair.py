@@ -25,19 +25,29 @@ Which blocks run as pairs is the model's rule
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from convtasnet_tpu_torch.ops.cuda.build import load_library
 from convtasnet_tpu_torch.ops.cuda.tcn_block import (
-    MAX_TAPS,
     NORM_CODES,
-    TILE,
     fused_tcn_block_reference,
+    pad_block,
+    padded,
+    shape_refusal as block_shape_refusal,
 )
 
 MAX_PAIR_WIDTH = 512   # B at most this: the boundary launch's [64, B] tile
+
+
+def shape_refusal(B: int, H: int, P: int, causal: bool) -> Optional[str]:
+    """Why the pair kernels (B4, B5) refuse a pair of blocks of these
+    widths, or None where they take it: the single block's rules, and B
+    (padded as a block pads it) at most ``MAX_PAIR_WIDTH``."""
+    if padded(B) > MAX_PAIR_WIDTH:
+        return (f"the kernel needs B at most {MAX_PAIR_WIDTH}, got B={B}")
+    return block_shape_refusal(B, H, P, causal)
 _ENTRY = {torch.float32: "ctn_tcn_block_pair_f32",
           torch.bfloat16: "ctn_tcn_block_pair_bf16"}
 
@@ -85,11 +95,13 @@ fused_tcn_block_pair.launches = 0
 
 
 def prepare_pair(name: str, x: torch.Tensor, params_a, params_b,
-                 causal: bool) -> Tuple[torch.Tensor, list]:
+                 causal: bool) -> Tuple[torch.Tensor, list, int]:
     """Checks a pair's operands for the CUDA kernels (B4, B5) and returns x
-    contiguous and the 18 parameters as the kernels take them: the
-    products' weights contiguous in x's dtype, the slopes and norm affines
-    contiguous in f32. Raises on anything the kernels do not take."""
+    contiguous, the 18 parameters as the kernels take them (the products'
+    weights contiguous in x's dtype, the slopes and norm affines
+    contiguous in f32), both at the widths the kernels run them
+    (``tcn_block.pad_block``), and the blocks' own H. Raises on anything
+    the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got "
                          f"{x.device}")
@@ -109,11 +121,9 @@ def prepare_pair(name: str, x: torch.Tensor, params_a, params_b,
             raise ValueError(f"weight shapes {tuple(w_in.shape)}, "
                              f"{tuple(dw.shape)}, {tuple(w_out.shape)} do not "
                              f"fit x {tuple(x.shape)} and P={P}, H={H}")
-    if B % TILE or H % TILE or B > MAX_PAIR_WIDTH:
-        raise ValueError(f"the kernel needs B and H multiples of {TILE} and "
-                         f"B at most {MAX_PAIR_WIDTH}, got B={B} H={H}")
-    if P > MAX_TAPS or (not causal and P % 2 == 0):
-        raise ValueError(f"unsupported depthwise kernel size P={P}")
+    refusal = shape_refusal(B, H, P, causal)
+    if refusal:
+        raise ValueError(refusal)
     dt = x.dtype
     x = x.detach().contiguous()
     prepared = []
@@ -125,15 +135,18 @@ def prepare_pair(name: str, x: torch.Tensor, params_a, params_b,
                 v.numel() != H for v in vecs[2:]):
             raise ValueError("PReLU slopes must be scalars and norm vectors "
                              "[H]")
+        if (padded(B), padded(H)) != (B, H):
+            mats, vecs[2:] = pad_block(mats, vecs[2:])
         prepared += mats + vecs
     for t in prepared:
         if t.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, one is on "
                              f"{t.device}")
+    x = torch.nn.functional.pad(x, (0, padded(B) - B)) if padded(B) != B else x
     for t in (x, *prepared[0:3:2], *prepared[9:12:2]):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, w_in, w_out")
-    return x, prepared
+    return x, prepared, H
 
 
 def _launch_cuda(x, params_a, params_b, *, d1, d2, causal, norm_type):
@@ -149,8 +162,9 @@ def _launch_cuda(x, params_a, params_b, *, d1, d2, causal, norm_type):
             "kernel, or run inference under torch.inference_mode() or "
             "torch.no_grad()")
     lib = load_library()
-    x, prepared = prepare_pair("fused_tcn_block_pair", x, params_a, params_b,
-                               causal)
+    B_in = x.shape[-1]
+    x, prepared, Hn = prepare_pair("fused_tcn_block_pair", x, params_a,
+                                   params_b, causal)
     M, K, B = x.shape
     P, H = prepared[1].shape
     n_act, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
@@ -165,13 +179,14 @@ def _launch_cuda(x, params_a, params_b, *, d1, d2, causal, norm_type):
         err = getattr(lib, _ENTRY[x.dtype])(
             x.data_ptr(), *[t.data_ptr() for t in prepared],
             ws_act.data_ptr(), ws_f32.data_ptr(), out.data_ptr(),
-            M, K, B, H, P, d1, d2, int(causal), NORM_CODES[norm_type], stream)
+            M, K, B, H, Hn, P, d1, d2, int(causal), NORM_CODES[norm_type],
+            stream)
     if err != 0:
         msg = lib.ctn_error_string(err).decode()
         raise RuntimeError(f"tcn_block_pair kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     fused_tcn_block_pair.launches += 1
-    return out
+    return out if B == B_in else out[..., :B_in].contiguous()
 
 
 class _FusedPairFn(torch.autograd.Function):

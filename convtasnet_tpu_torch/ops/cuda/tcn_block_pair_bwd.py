@@ -80,12 +80,15 @@ def _launch_cuda(x, g, params_a, params_b, *, d1, d2, causal):
     first use, checks, allocates, launches on the current stream, and
     raises on anything the kernel does not take."""
     lib = load_library()
-    xc, prepared = prepare_pair("fused_tcn_block_pair_bwd", x, params_a,
-                                params_b, causal)
-    if tuple(g.shape) != tuple(xc.shape):
+    if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"x and g must both be [M, K, B], got "
-                         f"{tuple(xc.shape)} and {tuple(g.shape)}")
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    B_in = x.shape[-1]
+    xc, prepared, Hn = prepare_pair("fused_tcn_block_pair_bwd", x, params_a,
+                                    params_b, causal)
     g = g.detach().to(xc.dtype).contiguous()
+    if xc.shape[-1] != B_in:   # as prepare_pair pads x
+        g = torch.nn.functional.pad(g, (0, xc.shape[-1] - B_in))
     if g.device != xc.device or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned tensor on {xc.device}")
     M, K, B = xc.shape
@@ -107,27 +110,30 @@ def _launch_cuda(x, g, params_a, params_b, *, d1, d2, causal):
         err = getattr(lib, _ENTRY[xc.dtype])(
             xc.data_ptr(), g.data_ptr(), *[t.data_ptr() for t in prepared],
             ws_act.data_ptr(), ws_f32.data_ptr(), dx.data_ptr(),
-            *[t.data_ptr() for t in outs], M, K, B, H, P, d1, d2,
+            *[t.data_ptr() for t in outs], M, K, B, H, Hn, P, d1, d2,
             int(causal), stream)
     if err != 0:
         msg = lib.ctn_error_string(err).decode()
         raise RuntimeError(f"tcn_block_pair_bwd kernel launch failed: CUDA "
                            f"error {err} ({msg})")
     fused_tcn_block_pair_bwd.launches += 1
-    return (dx, _unpack(outs[:3], params_a, P, H),
-            _unpack(outs[3:], params_b, P, H))
+    if B != B_in:
+        dx = dx[..., :B_in].contiguous()
+    return (dx, _unpack(outs[:3], params_a, P, H, B_in, Hn),
+            _unpack(outs[3:], params_b, P, H, B_in, Hn))
 
 
-def _unpack(out, params, P: int, H: int) -> Grads:
+def _unpack(out, params, P: int, H: int, B_in: int, Hn: int) -> Grads:
     """One block's (dw_in, dw_out, aux) as JAX's 9-tuple in the primals'
-    dtypes; aux as B2's: d_dw [P, H], dg1, db1, dg2, db2, the per-channel
+    dtypes, at the block's own widths B_in and Hn (of the kernels' padded
+    H); aux as B2's: d_dw [P, H], dg1, db1, dg2, db2, the per-channel
     slope parts, then da1 and da2."""
     dwin, dwout, aux = out
     w_in, dw, w_out, a1, a2, g1, b1, g2, b2 = params
-    rows = aux[: (P + 6) * H].view(P + 6, H)
+    rows = aux[: (P + 6) * H].view(P + 6, H)[:, :Hn]
     da1, da2 = aux[(P + 6) * H:]
-    return (dwin.to(w_in.dtype), rows[:P].to(dw.dtype),
-            dwout.to(w_out.dtype),
+    return (dwin[:B_in, :Hn].to(w_in.dtype), rows[:P].to(dw.dtype),
+            dwout[:Hn, :B_in].to(w_out.dtype),
             da1.reshape(a1.shape).to(a1.dtype),
             da2.reshape(a2.shape).to(a2.dtype),
             rows[P].to(g1.dtype), rows[P + 1].to(b1.dtype),

@@ -27,19 +27,53 @@ JAX package has no backward kernel for stage 2, so neither has the port.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from convtasnet_tpu_torch.ops.conv import depthwise_conv1d
 from convtasnet_tpu_torch.ops.cuda.build import load_library
+from convtasnet_tpu_torch.ops.cuda.tcn_block import padded
 from convtasnet_tpu_torch.ops.norm import EPS
 
 _ENTRY = {torch.float32: "ctn_tcn_block_tp2_f32",
           torch.bfloat16: "ctn_tcn_block_tp2_bf16"}
-TILE = 64          # Hs and B multiples of the GEMM tile; rows per partial
+TILE = 64          # the kernel runs Hs and B at multiples of the GEMM tile
+                   # (others zero-padded up); the partials' workspace holds
+                   # a slot per 64 rows (either design's tiles)
 MAX_TAPS = 16      # as B1 (ops/cuda/tcn_block.py)
 MAX_WIDTH = 512    # Hs at most this (the kernel's shared [64, Hs] tile)
+
+
+def shape_refusal(Hs: int, B: int, P: int, causal: bool) -> Optional[str]:
+    """Why B6 refuses stage 2 of a gLN block at shard width Hs (H / m),
+    bottleneck width B and P taps, or None where it takes it. (B6 is gLN
+    only; ``fused_tp_stage2`` refuses another norm on any device.) Hs and
+    B need not be multiples of 64: the wrapper zero-pads them, and a
+    padded channel (no gLN-1 affine, no taps, no weights) adds 0 to z and
+    to the gLN-2 sums."""
+    if padded(Hs) > MAX_WIDTH:
+        return (f"the kernel needs Hs at most {MAX_WIDTH}, got Hs={Hs}")
+    if P > MAX_TAPS or (not causal and P % 2 == 0):
+        return f"unsupported depthwise kernel size P={P}"
+    return None
+
+
+def pad_shard(h: torch.Tensor, dw: torch.Tensor, w_out: torch.Tensor,
+              gamma1: torch.Tensor, beta1: torch.Tensor,
+              gamma2: torch.Tensor):
+    """Stage 2's operands with Hs and B zero-padded up to multiples of
+    64, as B6 runs them: h [M, K, Hs], dw [P, Hs], w_out [Hs, B] and the
+    affines [Hs]. A padded channel has no gLN-1 affine and no taps, so its
+    y is 0: it adds nothing to z or to the gLN-2 sums; a padded column of
+    z is dropped."""
+    Hs, B = w_out.shape
+    dh, db = padded(Hs) - Hs, padded(B) - B
+    if not dh and not db:
+        return h, dw, w_out, gamma1, beta1, gamma2
+    pad = torch.nn.functional.pad
+    return (pad(h, (0, dh)), pad(dw, (0, dh)), pad(w_out, (0, db, 0, dh)),
+            *(pad(v, (0, dh)) for v in (gamma1, beta1, gamma2)))
 
 
 def tp_stage1(x: torch.Tensor, w_in: torch.Tensor,
@@ -167,11 +201,9 @@ def _launch_cuda(h, stats1, dw, w_out, a2, gamma1, beta1, gamma2, *,
                          f"{tuple(w_out.shape)}, stats1 "
                          f"{tuple(stats1.shape)} do not fit h "
                          f"{tuple(h.shape)}")
-    if Hs % TILE or B % TILE or Hs > MAX_WIDTH:
-        raise ValueError(f"the kernel needs Hs and B multiples of {TILE} and "
-                         f"Hs at most {MAX_WIDTH}, got Hs={Hs} B={B}")
-    if P > MAX_TAPS or (not causal and P % 2 == 0):
-        raise ValueError(f"unsupported depthwise kernel size P={P}")
+    refusal = shape_refusal(Hs, B, P, causal)
+    if refusal:
+        raise ValueError(refusal)
     dt = h.dtype
     h = h.contiguous()
     dw, w_out = (t.to(dt).contiguous() for t in (dw, w_out))
@@ -184,6 +216,10 @@ def _launch_cuda(h, stats1, dw, w_out, a2, gamma1, beta1, gamma2, *,
     if vecs[1].numel() != 1 or any(v.numel() != Hs for v in vecs[2:]):
         raise ValueError("the PReLU slope must be a scalar and the norm "
                          "vectors [Hs]")
+    B_in = B
+    h, dw, w_out, g1, b1, g2 = pad_shard(h, dw, w_out, *vecs[2:])
+    vecs[2:] = [g1, b1, g2]
+    Hs, B = w_out.shape
     if w_out.data_ptr() % 16:
         raise ValueError("the kernel needs a 16-byte aligned w_out")
     f32 = dict(dtype=torch.float32, device=h.device)
@@ -202,7 +238,7 @@ def _launch_cuda(h, stats1, dw, w_out, a2, gamma1, beta1, gamma2, *,
         raise RuntimeError(f"tcn_block_tp kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     fused_tp_stage2.launches += 1
-    return z, sums
+    return (z if B == B_in else z[..., :B_in].contiguous()), sums
 
 
 class _TpStage2Fn(torch.autograd.Function):

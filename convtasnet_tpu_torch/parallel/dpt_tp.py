@@ -43,14 +43,13 @@ import torch
 
 from convtasnet_tpu_torch.config import ConvTasNetConfig
 from convtasnet_tpu_torch.models.dual_path import dual_path_forward, sublayer_fn
-from convtasnet_tpu_torch.ops.cuda.dpt_attention import fitting_shards
+from convtasnet_tpu_torch.ops.cuda import shapes
 from convtasnet_tpu_torch.parallel.tensor_parallel import (
     Variables,
     _decode,
     _encode,
     all_reduce,
     make_tp_train_step,
-    use_kernels,
 )
 
 SUBLAYERS = ("intra_att", "intra_ffn", "inter_att", "inter_ffn")
@@ -148,7 +147,7 @@ def dpt_tp_forward(cfg: ConvTasNetConfig, variables: Variables,
     ``tp_forward``'s rule: None runs the partial kernels for CUDA tensors,
     True (or None with ``cfg.use_pallas``) insists on them, False runs
     their plain twins. With the kernels, a shard count whose widths they do
-    not take raises, naming the counts that fit.
+    not take raises (``ops/cuda/shapes.py``), naming the counts that fit.
     """
     if cfg.separator != "dpt":
         raise ValueError("dpt_tp_forward is the dual-path separator's "
@@ -156,16 +155,8 @@ def dpt_tp_forward(cfg: ConvTasNetConfig, variables: Variables,
                          "tensor_parallel.tp_forward")
     mixture = mixture.to(devices[0])
     m = len(devices)
-    B, h, ff = cfg.bottleneck, cfg.dpt_num_heads, cfg.dpt_ff
-    fits = fitting_shards(B, h, ff)
-    wants_kernel = use_pallas is not False and (
-        use_pallas or cfg.use_pallas or mixture.is_cuda)
-    if wants_kernel and m not in fits:
-        raise ValueError(
-            f"the partial kernels do not take {m} shards of B={B}, {h} "
-            f"heads, F={ff}: they need B/m a multiple of 64 and F/m one of "
-            f"128; shard counts that fit: {fits}")
-    use_kernel = use_kernels(cfg, mixture, use_pallas)
+    h = cfg.dpt_num_heads
+    use_kernel = shapes.use_kernels(cfg, use_pallas, mixture.device, m)
     shards = dpt_tp_variables(cfg, variables, devices)
 
     def run_layer(i: int, x: torch.Tensor, key_bias: torch.Tensor):

@@ -65,6 +65,7 @@ from convtasnet_tpu_torch.models.functional import (
     separator_forward,
 )
 from convtasnet_tpu_torch.ops.conv import depthwise_conv1d, pointwise_conv, prelu
+from convtasnet_tpu_torch.ops.cuda import shapes
 from convtasnet_tpu_torch.ops.cuda.tcn_block_tp import (
     fused_tp_stage2,
     stats_from_sums,
@@ -251,21 +252,6 @@ def _tp_forward_generic(cfg, variables, shards, devices, mixture):
     return _decode(cfg, variables, w, mask, mixture.shape[-1])
 
 
-def use_kernels(cfg: ConvTasNetConfig, mixture: torch.Tensor,
-                use_pallas: Optional[bool]) -> bool:
-    """Whether a tensor-parallel forward runs the CUDA kernels:
-    ``use_pallas`` as the model's (None: for CUDA tensors; None with
-    ``cfg.use_pallas`` or True: always, and then the mixture must be on a
-    CUDA device)."""
-    if use_pallas is None and cfg.use_pallas:
-        use_pallas = True
-    use_kernel = mixture.is_cuda if use_pallas is None else use_pallas
-    if use_kernel and not mixture.is_cuda:
-        raise ValueError("use_pallas=True runs the CUDA kernels and needs "
-                         f"CUDA tensors; the mixture is on {mixture.device}")
-    return use_kernel
-
-
 def tp_forward(cfg: ConvTasNetConfig, variables: Variables,
                mixture: torch.Tensor, devices: Sequence[torch.device],
                use_pallas: Optional[bool] = None) -> torch.Tensor:
@@ -289,7 +275,8 @@ def tp_forward(cfg: ConvTasNetConfig, variables: Variables,
     if cfg.separator != "tcn":
         raise ValueError(f"unsupported separator family: {cfg.separator}")
     mixture = mixture.to(devices[0])
-    use_kernel = use_kernels(cfg, mixture, use_pallas)
+    use_kernel = shapes.use_kernels(cfg, use_pallas, mixture.device,
+                                    len(devices))
     shards = shard_variables(cfg, variables, devices)
     if cfg.norm_type != "gLN":
         return _tp_forward_generic(cfg, variables, shards, devices, mixture)

@@ -11,21 +11,25 @@ Each tree's package runs in a subprocess of its own, builds its kernels
 from its own sources and writes its outputs at shapes both trees take:
 
 - bit for bit (``torch.equal``): the DPT sublayer kernels in full mode
-  (B7-B12) at the quality default's widths ([8, 25, 128, 256], 8 heads,
-  F=1024, the real key mask), bf16 and f32, the intra kernels also at the
-  chunk lengths whose tiles sit in shared memory or spill to the device
-  workspace, the TCN TP stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128,
-  and the TCN block forward (B1, gLN and cLN causal), the gLN block
-  backward (B2) and the cLN one (B3) at the paper shape [8, 3199, 256],
-  H=512, bf16 and f32, d = 1, 16, 128. A change to the kernels' shared
-  pieces must leave these bits as they were;
-- by distance: the block pair forward (B4, gLN and cLN causal) and the gLN
-  pair backward (B5) at the paper shape, bf16 and f32, (d1, d2) = (1, 2),
-  (16, 32), (64, 128): the relative L2 between the two trees and each
-  tree's own distance from its plain twin (B5's evaluated in exact f32),
-  held at the pair bars.
+  (B7-B12) and in partial mode over m = 2 and 4 shards (B7p-B12p) at the
+  quality default's widths ([8, 25, 128, 256], 8 heads, F=1024, the real
+  key mask), bf16 and f32, the intra kernels also at the chunk lengths
+  whose tiles sit in shared memory or spill to the device workspace, the
+  TCN TP stage 2 (B6) in f32 at [8, 3199, Hs], Hs = 256 and 128, and the
+  TCN block forward (B1, gLN and cLN causal), the gLN block backward (B2)
+  and the cLN one (B3) at the paper shape [8, 3199, 256], H=512, bf16 and
+  f32, d = 1, 16, 128. A change to the kernels' shared pieces must leave
+  these bits as they were;
+- by distance: B6 in bf16 and B12/B12p in bf16 (their wgmma designs,
+  which sum in another order than the first designs), held at B6's own
+  rounding points within 1e-3 (``chip_smoke.TP_ORDER_TOL``) and within
+  4e-2 of B12's bf16 twin; the block pair forward (B4, gLN and cLN causal)
+  and the gLN pair backward (B5) at the paper shape, bf16 and f32, (d1,
+  d2) = (1, 2), (16, 32), (64, 128), each tree's own distance from its
+  plain twin (B5's evaluated in exact f32) held at the pair bars. Each
+  prints the relative L2 between the two trees.
 
-Every TCN output also prints each tree's distance from its twin.
+Every output held by distance prints each tree's distance from its twin.
 
 ``--time`` then times both trees in turns (other, this, this, other; one
 subprocess each, on the same card), in bf16 at the paper shape unless
@@ -33,10 +37,14 @@ named: B1 (gLN and cLN causal), B2 and B3 per dilation 1..128; B4 (gLN
 and cLN causal) and B5 per pair of dilations (1, 2) .. (64, 128), and
 beside each in the same turn two chained B1 calls and B1 + 2 x B2; the
 gLN B4 and B5 beside the same also in f32 ("f32") and in bf16 at H=192
-("H=192"), which run the first design's launches; the paper-config
-forward and gLN train step at B=8 and B=24 x 4 s with pairs on and off,
-with the peak device memory of each, and the cLN causal step at B=8;
-and ``torch.matmul`` at each of the blocks' products' shapes (a yardstick
+("H=192"), which run the first design's launches; B6 at [8, 3199, Hs],
+Hs = 256 and 128, per dilation; B12 at [8, 3200, 256], F=1024, and B12p
+on one shard of m = 2 and 4; the paper-config forward and gLN train
+step at B=8 and B=24 x 4 s with pairs on and off, with the peak device
+memory of each, and the cLN causal step at B=8; the paper config's
+forward over two shards (``tp_forward``), and the DPT quality default's
+train step unsharded and over two shards, at B=8 x 4 s; and
+``torch.matmul`` at each of the kernels' products' shapes (a yardstick
 of the product core alone; no kernel calls it). ``--out`` writes every
 number as JSON. Exits nonzero if a bit-for-bit output differs or a kernel
 is further from its twin than its bar.
@@ -64,6 +72,8 @@ CASES += [("intra", "bfloat16", 256, 4, True, True),
           ("intra", "float32", 208, 4, False, True)]
 B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
             for hs in (256, 128) for d in (1, 128)]
+# the partial modes: one shard of m of the quality default's widths
+PARTIAL_SHARDS = (2, 4)
 # (kernel, norm, causal): B1 gLN and cLN causal, B2 gLN, B3 cLN causal
 TCN_KERNELS = [("b1", "gLN", False), ("b1", "cLN", True),
                ("b2", "gLN", False), ("b3", "cLN", True)]
@@ -77,12 +87,43 @@ PAIR_CASES = [(kern, norm, causal, dtype, d1)
               for kern, norm, causal in PAIR_KERNELS
               for dtype in ("bfloat16", "float32") for d1 in (1, 16, 64)]
 # the twin bars: the forward's and the backward's (the JAX probe and train
-# gates), the pair forward at 1.5x the block's (the JAX pair gate)
+# gates), the pair forward at 1.5x the block's (the JAX pair gate); B6 in
+# bf16 at its own rounding points (chip_smoke.TP_ORDER_TOL), B12 in bf16
+# against its bf16 twin (chip_smoke.DPT_TOL)
 TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
            ("b4", "bfloat16"): 6e-2, ("b4", "float32"): 3e-3,
-           ("bwd", "bfloat16"): 8e-2, ("bwd", "float32"): 4e-3}
-# outputs held bit for bit against the other tree; the rest by distance
+           ("bwd", "bfloat16"): 8e-2, ("bwd", "float32"): 4e-3,
+           ("b6", "bfloat16"): 1e-3, ("dpt", "bfloat16"): 4e-2}
+# outputs held bit for bit against the other tree (the rest by distance):
+# every output of these kernels but the bf16 ones of B6 and B12 (and
+# B12p), whose wgmma designs sum in another order
 BIT_KEYS = ("dpt ", "b6 ", "b1 ", "b2 ", "b3 ")
+
+
+def bitwise(key: str) -> bool:
+    """Whether an output is held bit for bit against the other tree."""
+    return key.startswith(BIT_KEYS) and not (
+        key.startswith("b6 bfloat16 ")
+        or (key.startswith("dpt ffn bfloat16 ") and " backward" in key))
+
+
+def _shard(args, kind: str, m: int, s: int):
+    """Shard s of m of a full sublayer's operands, as
+    ``parallel/dpt_tp.dpt_tp_variables`` cuts the weights."""
+    import torch
+
+    if kind == "ffn":
+        x, g_, b_, w_up, b_up, w_down, b_down = args
+        fq = w_up.shape[1] // m
+        cut = slice(s * fq, (s + 1) * fq)
+        return (x, g_, b_, w_up[:, cut].contiguous(), b_up[cut].contiguous(),
+                w_down[cut].contiguous(), b_down)
+    x, g_, b_, w_qkv, w_out, bias = args
+    bq = x.shape[-1] // m
+    cut = slice(s * bq, (s + 1) * bq)
+    q, k, v = w_qkv.split(x.shape[-1], dim=1)
+    return (x, g_, b_, torch.cat([q[:, cut], k[:, cut], v[:, cut]], dim=1),
+            w_out[cut].contiguous(), bias)
 DILATIONS = [2 ** i for i in range(8)]
 PAIRS = [(2 ** i, 2 ** (i + 1)) for i in range(0, 8, 2)]
 M, K, B, H, P = 8, 3199, 256, 512, 3
@@ -94,6 +135,18 @@ PRODUCTS = {"x @ W_in, g @ W_out^T": (M * K, B, H),
             "y @ W_eff, dh_pre @ W_in^T": (M * K, H, B),
             "hn2^T @ g": (H, M * K, B),
             "x^T @ dh_pre": (B, M * K, H)}
+# B6's product round(y g2) @ W_out_s over two and four shards of H, and
+# B12's five at [8, 3200, 256], F = 1024 / m for one shard of m: y @ W_up
+# and g @ W_down^T, dpre @ W_up^T, h^T @ g, y^T @ dpre
+R_DPT, F_DPT = 8 * 3200, 1024
+PRODUCTS.update({f"b6 (y g2) @ W_out Hs={hs}": (M * K, hs, B)
+                 for hs in (256, 128)})
+for _m in (1, 2, 4):
+    _f, _t = F_DPT // _m, "" if _m == 1 else f" m={_m}"
+    PRODUCTS.update({f"b12 y @ W_up, g @ W_down^T{_t}": (R_DPT, B, _f),
+                     f"b12 dpre @ W_up^T{_t}": (R_DPT, _f, B),
+                     f"b12 h^T @ g{_t}": (_f, R_DPT, B),
+                     f"b12 y^T @ dpre{_t}": (B, R_DPT, _f)})
 
 
 def rel_l2(got, want) -> float:
@@ -103,16 +156,18 @@ def rel_l2(got, want) -> float:
 
 def _tcn_tol(key: str) -> float:
     kern, dtype = key.split()[:2]
-    return TCN_TOL[kern if kern in ("b1", "b4") else "bwd", dtype]
+    if kern == "dpt":
+        return TCN_TOL["dpt", key.split()[2]]
+    return TCN_TOL[kern if kern in ("b1", "b4", "b6") else "bwd", dtype]
 
 
 def compare(mine: dict, other: dict):
-    """Lines to print and the keys at fault: the outputs under
-    ``BIT_KEYS`` (DPT, B6, B1-B3) must equal the other tree's bit for bit;
-    each ``b4``/``b5`` output reports its relative L2 to the other tree's,
-    and is at fault when this tree's distance from its twin (the ``twin ``
-    entry) exceeds its bar. Every output with a twin entry prints both
-    trees' distances from their twins."""
+    """Lines to print and the keys at fault: the ``bitwise`` outputs (DPT,
+    B6, B1-B3 but for B6 and B12 in bf16) must equal the other tree's bit
+    for bit; every other output reports its relative L2 to the other
+    tree's, and is at fault when this tree's distance from its twin (the
+    ``twin `` entry) exceeds its bar. Every output with a twin entry
+    prints both trees' distances from their twins."""
     lines, bad = [], []
     for key in sorted(k for k in other if not k.startswith("twin ")):
         if key not in mine:
@@ -124,7 +179,7 @@ def compare(mine: dict, other: dict):
             mt, ot = mine[f"twin {key}"], other[f"twin {key}"]
             twin = (f"; from the twin this tree {mt:.3e}, other {ot:.3e} "
                     f"(bar {_tcn_tol(key):.0e})")
-        if key.startswith(BIT_KEYS):
+        if bitwise(key):
             same = mine[key].shape == other[key].shape and bool(
                 (mine[key] == other[key]).all())
             lines.append(f"{key}: {'same bits' if same else 'DIFFERENT'}"
@@ -144,7 +199,7 @@ def summarize(turns: list) -> list:
     run: each metric's times per tree in turn order, the means and the
     ratio this / other."""
     lines = []
-    metrics = [m for m in turns[0][1]]
+    metrics = [m for m in turns[0][1] if not m.startswith("kernels ")]
     for metric in metrics:
         per = {}
         for tree, res in turns:
@@ -166,6 +221,22 @@ def summarize(turns: list) -> list:
     series += [(f"{m}{tag}", [f"d=({d1},{d2})" for d1, d2 in PAIRS])
                for tag in (" f32", " H=192")
                for m in ("b4 gLN", "2 x b1 gLN", "b5 gLN", "b1 + 2 x b2 gLN")]
+    series += [(f"b6 Hs={hs}", [f"d={d}" for d in DILATIONS])
+               for hs in (256, 128)]
+    series += [(f"device b6 Hs={hs}", [f"d={d}" for d in (1, 16, 128)])
+               for hs in (256, 128)]
+    for tree in ("other", "this"):   # each tree's kernels, by name
+        per = {}
+        for t, res in turns:
+            if t == tree:
+                for key, us in res.items():
+                    if key.startswith("kernels "):
+                        per.setdefault(key, []).append(us)
+        for key, v in per.items():
+            head, kernel = key[len("kernels "):].split(" :: ", 1)
+            kernel, count = kernel.rsplit(" x", 1)
+            lines.append(f"{head} :: {kernel[:60]} x{count} ({tree}): "
+                         f"{sum(v) / len(v):.1f} us per call")
     for metric, at in series:
         for tree in ("other", "this"):
             vals = [res[f"{metric} {a}"] for t, res in turns if t == tree
@@ -211,6 +282,18 @@ def dump(path: str) -> None:
            "intra": (dpt_intra.fused_intra_attention,
                      dpt_intra.fused_intra_attention_bwd),
            "ffn": (dpt_ffn.fused_ffn, dpt_ffn.fused_ffn_bwd)}
+
+    def ffn_twins(key, got, x, gr, w, **kw):
+        """The bf16 FFN backward's distance from its bf16 twin, per
+        cotangent (its outputs are held by distance)."""
+        if x.dtype != torch.bfloat16:
+            return
+        want = dpt_ffn.ffn_bwd_reference(x, gr, *w, **kw)
+        for i, (q, t) in enumerate(zip(got, want)):
+            if t.any():
+                out[f"twin {key} backward {i}"] = rel_l2(q, t)
+            else:   # db_down of a partial backward: zero in both
+                out[f"twin {key} backward {i}"] = float(q.any())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
@@ -242,8 +325,25 @@ def dump(path: str) -> None:
         if bwd:
             gr = (rn(M, n * S, Bd) * valid.reshape(1, -1, 1)).reshape(
                 x.shape).to(dt)
-            for i, t in enumerate(fused_bwd(x, gr, *w, **kw)):
+            got = fused_bwd(x, gr, *w, **kw)
+            for i, t in enumerate(got):
                 out[f"{key} backward {i}"] = t.cpu()
+            if kind == "ffn":
+                ffn_twins(key, got, x, gr, w)
+            # the partial modes on the last shard of m (S = 128 only)
+            for m in PARTIAL_SHARDS if S == 128 else ():
+                xs, *ws = _shard((x, *w), kind, m, m - 1)
+                pkw = dict(kw, partial=True)
+                if kind != "ffn":
+                    pkw["n_heads"] = heads // m
+                pkey = f"{key} partial m={m}"
+                with torch.inference_mode():
+                    out[f"{pkey} forward"] = fused(xs, *ws, **pkw).cpu()
+                got = fused_bwd(xs, gr, *ws, **pkw)
+                for i, t in enumerate(got):
+                    out[f"{pkey} backward {i}"] = t.cpu()
+                if kind == "ffn":
+                    ffn_twins(pkey, got, xs, gr, ws, partial=True)
         torch.cuda.synchronize()
     for dtype, hs, d in B6_CASES:
         g = torch.Generator(device="cuda").manual_seed(hs + d)
@@ -254,13 +354,20 @@ def dump(path: str) -> None:
         h = torch.nn.functional.leaky_relu(rn(M, K, hs), 0.25).to(
             getattr(torch, dtype))
         stats1 = torch.stack([0.1 * rn(M), 1.0 + 0.1 * rn(M)], dim=-1)
-        with torch.inference_mode():
-            z, sums = tcn_block_tp.fused_tp_stage2(
-                h, stats1, rn(P, hs) * 0.1, rn(hs, B) * hs ** -0.5,
+        args = (h, stats1, rn(P, hs) * 0.1, rn(hs, B) * hs ** -0.5,
                 torch.tensor(0.25, device="cuda"), 1.0 + 0.1 * rn(hs),
-                0.1 * rn(hs), 1.0 + 0.1 * rn(hs), dilation=d, causal=False)
-        out[f"b6 {dtype} Hs={hs} d={d} z"] = z.cpu()
-        out[f"b6 {dtype} Hs={hs} d={d} sums"] = sums.cpu()
+                0.1 * rn(hs), 1.0 + 0.1 * rn(hs))
+        key = f"b6 {dtype} Hs={hs} d={d}"
+        with torch.inference_mode():
+            z, sums = tcn_block_tp.fused_tp_stage2(*args, dilation=d,
+                                                   causal=False)
+            zw, sw = tcn_block_tp.tp_stage2_reference(
+                *args, dilation=d, causal=False, rounding="pallas")
+        out[f"{key} z"] = z.cpu()
+        out[f"{key} sums"] = sums.cpu()
+        if dtype == "bfloat16":   # held by distance, at B6's rounding points
+            out[f"twin {key} z"] = rel_l2(z, zw)
+            out[f"twin {key} sums"] = rel_l2(sums, sw)
     for kern, norm, causal, dtype, d in TCN_CASES:
         args, g = _block_inputs(torch, dtype, 100 + d, norm)
         kw = dict(dilation=d, causal=causal, norm_type=norm)
@@ -330,6 +437,30 @@ def _ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(torch, res: dict, name: str, fn, iters: int = 20) -> None:
+    """The device time of one call of fn (its kernels' durations summed,
+    from torch.profiler, so the host's time between launches is left
+    out) under ``device <name>``, and each kernel's share under
+    ``kernels <name> :: <kernel>`` (us per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and "#" not in e.key]
+    res[f"device {name}"] = sum(e.self_device_time_total
+                                for e in rows) / iters / 1e3
+    for e in rows:   # keyed by the whole name: templates share a prefix
+        res[f"kernels {name} :: {e.key} x{e.count / iters:g}"] = (
+            e.self_device_time_total / iters)
+
+
 def _peak_gib(torch, fn) -> float:
     """The peak device memory of one call of fn, in GiB."""
     torch.cuda.synchronize()
@@ -378,6 +509,80 @@ def _time_pairs(torch, res: dict, tag: str, x, g, pa, pb, norms) -> None:
                                               causal=False)
 
         res[f"b1 + 2 x b2 gLN{tag} {at}"] = _ms(torch, chained, 20)
+
+
+def _time_tp_and_ffn(torch, res: dict) -> None:
+    """B6 at [8, 3199, Hs], Hs = 256 and 128, per dilation; B12 at [8,
+    3200, 256], F = 1024, and B12p on the last shard of m = 2 and 4; the
+    paper config's forward over two shards; the DPT quality default's
+    train step, unsharded and over two shards; bf16, B=8 x 4 s."""
+    from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.ops.cuda import dpt_ffn, tcn_block_tp
+    from convtasnet_tpu_torch.parallel.dpt_tp import make_dpt_tp_train_step
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    for hs in (256, 128):
+        args = (torch.nn.functional.leaky_relu(rn(M, K, hs), 0.25).bfloat16(),
+                torch.stack([0.1 * rn(M), 1.0 + 0.1 * rn(M)], dim=-1),
+                rn(P, hs, scale=0.1), rn(hs, B, scale=hs ** -0.5),
+                torch.tensor(0.25, device="cuda"), 1.0 + 0.1 * rn(hs),
+                0.1 * rn(hs), 1.0 + 0.1 * rn(hs))
+        for d in DILATIONS:
+            with torch.inference_mode():
+                res[f"b6 Hs={hs} d={d}"] = _ms(
+                    torch, lambda: tcn_block_tp.fused_tp_stage2(
+                        *args, dilation=d, causal=False), 20)
+                if d in (1, 16, 128):
+                    _device_ms(torch, res, f"b6 Hs={hs} d={d}",
+                               lambda: tcn_block_tp.fused_tp_stage2(
+                                   *args, dilation=d, causal=False))
+    x = rn(M, R_DPT // M, B).bfloat16()
+    gr = rn(M, R_DPT // M, B).bfloat16()
+    w = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, F_DPT, scale=B ** -0.5),
+         0.1 * rn(F_DPT), rn(F_DPT, B, scale=F_DPT ** -0.5), 0.1 * rn(B))
+    res["b12 [8,3200,256] F=1024"] = _ms(
+        torch, lambda: dpt_ffn.fused_ffn_bwd(x, gr, *w), 20)
+    _device_ms(torch, res, "b12 [8,3200,256] F=1024",
+               lambda: dpt_ffn.fused_ffn_bwd(x, gr, *w))
+    for m in (2, 4):
+        ws = _shard((x, *w), "ffn", m, m - 1)[1:]
+        name = f"b12p m={m} [8,3200,256] F={F_DPT // m}"
+        res[name] = _ms(
+            torch, lambda: dpt_ffn.fused_ffn_bwd(x, gr, *ws, partial=True),
+            20)
+        _device_ms(torch, res, name, lambda: dpt_ffn.fused_ffn_bwd(
+            x, gr, *ws, partial=True))
+    T = 4 * 8000
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    mix = torch.randn(M, T, generator=gen, device="cuda")
+    data = (mix, torch.full((M,), T, dtype=torch.int32, device="cuda"),
+            torch.randn(M, 2, T, generator=gen, device="cuda"),
+            torch.ones(M, device="cuda"))
+    cfg = ConvTasNetConfig(compute_dtype="bfloat16")
+    sd = ConvTasNet(cfg, device="cuda").state_dict()
+    with torch.inference_mode():
+        res["tcn tp forward m=2 B=8 x 4 s"] = _ms(
+            torch, lambda: tp_forward(cfg, sd, mix, shard_devices(2, "cuda")),
+            5)
+    del sd
+    dcfg = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16")
+    state = ts.create_train_state(dcfg, SolverConfig(), device="cuda",
+                                  use_pallas=True)
+    step = ts.make_train_step()
+    res["dpt train step B=8 x 4 s"] = _ms(torch, lambda: step(state, data),
+                                          10)
+    tp_step = make_dpt_tp_train_step(dcfg, shard_devices(2, "cuda"))
+    res["dpt tp train step m=2 B=8 x 4 s"] = _ms(
+        torch, lambda: tp_step(state, data), 5)
+    del state
 
 
 def time_tree(path: str) -> None:
@@ -452,6 +657,7 @@ def time_tree(path: str) -> None:
             res["train step cLN causal B=8 x 4 s"] = _ms(
                 torch, lambda: step(state, data), 10)
             del state
+    _time_tp_and_ffn(torch, res)
     for name, (r, k, n) in PRODUCTS.items():
         a = torch.randn(r, k, device="cuda").bfloat16()
         b = torch.randn(k, n, device="cuda").bfloat16()
@@ -498,11 +704,12 @@ def main() -> int:
         lines, bad = compare(outs["this"], outs["other"])
         for line in lines:
             print(f"kernels vs the other checkout, {line}", flush=True)
-        n_bits = sum(1 for k in outs["other"] if k.startswith(BIT_KEYS))
-        n_diff = sum(1 for k in bad if k.startswith(BIT_KEYS))
+        n_bits = sum(1 for k in outs["other"]
+                     if bitwise(k) and not k.startswith("twin "))
+        n_diff = sum(1 for k in bad if bitwise(k))
         print(f"{n_bits - n_diff} of {n_bits} bit-for-bit outputs the same "
-              f"bits; {len(bad) - n_diff} TCN outputs past their bars",
-              flush=True)
+              f"bits; {len(bad) - n_diff} outputs held by distance past "
+              f"their bars", flush=True)
         report["compare"] = lines
         if a.time:
             turns = []

@@ -5,7 +5,8 @@ the cLN block backward (B3), of the TCN block pair (B4 and B5, which run
 each block through the single block's launches), of
 the TCN's tensor parallelism (kernel B6 and the shard sum around it) and
 of the dual-path tensor parallelism (the partial kernels B7p-B12p and
-the shard sums around them), and report which checks see each one. Needs
+the shard sums around them) and of the padding that runs widths off the
+kernels' tiles, and report which checks see each one. Needs
 one CUDA GPU and nvcc.
 
     python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...] \\
@@ -21,15 +22,16 @@ smoke phases of the kernel's kind (``PHASES``: for B1
 ``phase_step_compare(torch, "tcn")``, for B2 ``phase_bwd_vs_twin(torch,
 bwd)`` and ``phase_step_compare(torch, "tcn")``, for a DPT forward kernel
 ``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, for a
-DPT backward ``phase_dpt_bwd_vs_twin`` and ``phase_step_compare(torch,
-"dpt")``, for B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
+DPT backward ``phase_dpt_bwd_vs_twin``, ``phase_ffn_bwd_tail_tiles`` and
+``phase_step_compare(torch, "dpt")``, for B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
 ``phase_step_compare(torch, "tcn", "cLN")``, for the block pair
 ``phase_pair_vs_twin``, ``phase_pair_bwd_vs_twin`` and
 ``phase_step_compare(torch, "tcn")``, for tensor parallelism
 ``phase_tp_stage2_vs_twin``, ``phase_tp_forward`` and
 ``phase_step_compare(torch, "tcn")``, for dual-path tensor parallelism
 ``phase_dpt_partial_vs_twin``, ``phase_dpt_tp_forward`` and
-``phase_step_compare(torch, "dpt")``), then the kind's ``cuda``-marked
+``phase_step_compare(torch, "dpt")``, for the padding
+``phase_auto_padded``), then the kind's ``cuda``-marked
 tests. The repository itself is never edited. A fault is caught when either
 run fails. ``--jobs N`` runs N faults at once on the one card. Each run's
 full output goes to ``--log-dir`` (default: a new temporary directory),
@@ -84,6 +86,18 @@ FAULTS = {
         "(1.f + 3.f * a * x * x);",
         "*dy = 0.5f * (1.f + erff(x * 0.70710678118654752f)) + "
         "x * 0.3989422804014327f * expf(-0.5f * x * x) + 0.f * a;"),
+    # B12's bf16 design: UG taking gelu' of the rounded h in place of
+    # pre's, and DN dropping the last (partial) row tile's dgamma partials
+    "b12_gelu_grad_of_h": ("dpt_backward",
+        "convtasnet_tpu_torch/csrc/dpt_ffn_bwd.cu",
+        "gelu_and_grad_fast(pre, &hv, &dg);",
+        "gelu_and_grad_fast(pre, &hv, &dg); float h_; "
+        "gelu_and_grad_fast(round_to<bf16>(hv), &h_, &dg);"),
+    "b12_dn_dgamma_dropped_for_tail_tile": ("dpt_backward",
+        "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
+        "    q.part[static_cast<size_t>(blockIdx.x) * 2 * B + e] = sum;",
+        "    q.part[static_cast<size_t>(blockIdx.x) * 2 * B + e] = "
+        "(e < B && r0 + kWgRows > R) ? 0.f : sum;"),
     "inter_bwd_dk_unscaled": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
         "round_to<T>(pj * (dot(dav, vv) - st[2]) * scale)",
@@ -193,6 +207,33 @@ FAULTS = {
         "    dw, w_out = (t.to(dt).contiguous() for t in (dw, w_out))",
         "    dw, w_out, gamma2 = (dw.to(dt).contiguous(), (w_out * gamma2[:, "
         "None]).to(dt).contiguous(), torch.ones_like(gamma2))"),
+    # B6's wgmma stage (bf16): a tile's y partials written into the next
+    # tile's slot (the sample's first slot never written, its last tile's
+    # in the next sample's), and z stored one 64-column tile on
+    "b6_wg_sums_in_next_tile_slot": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tp.cu",
+        "float* dst = p.part + 2 * (static_cast<size_t>(m) * gridDim.x + "
+        "blockIdx.x);",
+        "float* dst = p.part + 2 * (static_cast<size_t>(m) * gridDim.x + "
+        "blockIdx.x + 1);"),
+    "b6_wg_z_one_column_tile_on": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tp.cu",
+        "stage_store<kTpBN>(st, z, B, r0, K, (i / nk) * kTpBN, tid);",
+        "stage_store<kTpBN>(st, z, B, r0, K, ((i / nk + 1) % n_tiles) * "
+        "kTpBN, tid);"),
+    # the padding of widths off the tiles: B1's wgmma gLN-1 statistics
+    # over the padded H in place of the block's own, and the intra
+    # kernels' appended frames left unmasked as keys
+    "tcn_gln_count_of_padded_h": ("padded",
+        "convtasnet_tpu_torch/csrc/tcn_block_hopper.cuh",
+        "n_part_a,\n               static_cast<double>(K) * p.Hn, "
+        "&s_st[0], &s_st[1]);",
+        "n_part_a,\n               static_cast<double>(K) * H, "
+        "&s_st[0], &s_st[1]);"),
+    "intra_padded_frames_unmasked": ("padded",
+        "convtasnet_tpu_torch/ops/cuda/dpt_attention.py",
+        "torch.nn.functional.pad(key_bias, (0, Sp - S), value=NEG_INF))",
+        "torch.nn.functional.pad(key_bias, (0, Sp - S), value=0.0))"),
     "tp_shard_sum_drops_w1": ("tp",
         "convtasnet_tpu_torch/parallel/tensor_parallel.py",
         "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), w1, w0)",
@@ -232,6 +273,7 @@ PHASES = {
     "dpt_forward": ["phase_dpt_kernels_vs_twin(torch, dpt)",
                     "phase_dpt_forward(torch, dpt)"],
     "dpt_backward": ["phase_dpt_bwd_vs_twin(torch, dpt)",
+                     "phase_ffn_bwd_tail_tiles(torch, dpt)",
                      "phase_step_compare(torch, 'dpt')"],
     "cln_backward": ["phase_bwd_vs_twin(torch, bwd, 'cLN')",
                      "phase_step_compare(torch, 'tcn', 'cLN')"],
@@ -244,14 +286,16 @@ PHASES = {
     "dpt_tp": ["phase_dpt_partial_vs_twin(torch, dpt)",
                "phase_dpt_tp_forward(torch, dpt)",
                "phase_step_compare(torch, 'dpt')"],
+    "padded": ["phase_auto_padded(torch, k, dpt)"],
 }
 CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
                                "or fused_block_ad or rounding_points",
               "block_backward": "bwd or fused_block_ad or train_grads or "
                                 "wgmma",
-              "dpt_forward": "dpt", "dpt_backward": "dpt",
+              "dpt_forward": "dpt", "dpt_backward": "dpt or ffn_bwd",
               "cln_backward": "cln", "pair": "pair", "tp": "tp_",
-              "dpt_tp": "partial or dpt_tp"}
+              "dpt_tp": "partial or dpt_tp",
+              "padded": "untiled or check_shapes or auto_mode"}
 RUNNER = """
 import sys
 import torch

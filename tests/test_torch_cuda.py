@@ -323,10 +323,27 @@ def test_kernel_is_deterministic(cuda):
 
 
 def test_kernel_rejects_untiled_widths(cuda):
-    args, _ = _block_args(cuda, torch.float32, "gLN", b=32, h=64)
-    with pytest.raises(ValueError, match="multiples"):
-        port.fused_tcn_block(*args, dilation=1, causal=False,
-                             norm_type="gLN")
+    """Widths off the 64-column tile are padded, not refused: B = 32 and
+    H = 96 run the kernel zero-padded to 64 and 128, with the norms taken
+    over the block's own 96 channels, within the forward bar of the twin
+    in every norm and dtype; more than 16 taps are still refused."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for norm_type in ("gLN", "cLN", "BN"):
+            args, bn = _block_args(cuda, dtype, norm_type, b=32, h=96)
+            kw = dict(dilation=4, causal=norm_type == "cLN",
+                      norm_type=norm_type, bn_stats=bn)
+            before = port.fused_tcn_block.launches
+            got = port.fused_tcn_block(*args, **kw)
+            assert port.fused_tcn_block.launches == before + 1
+            want = port.fused_tcn_block_reference(*args, **kw)
+            assert got.shape == want.shape
+            err = _rel_l2(got, want)
+            assert err <= TOL[dtype], (dtype, norm_type, err)
+    args, _ = _block_args(cuda, torch.float32, "gLN")
+    dw17 = torch.zeros(17, args[2].shape[1], device=cuda)
+    with pytest.raises(ValueError, match="kernel size"):
+        port.fused_tcn_block(args[0], args[1], dw17, *args[3:], dilation=1,
+                             causal=True, norm_type="gLN")
 
 
 def test_kernel_path_refuses_autograd(cuda):
@@ -452,10 +469,16 @@ def test_bwd_kernel_is_deterministic(cuda):
 
 
 def test_bwd_kernel_rejects_untiled_widths(cuda):
-    args, g = _bwd_args(cuda, torch.float32, b=32, h=64)
-    with pytest.raises(ValueError, match="multiples"):
-        port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], dilation=1,
-                                     causal=False)
+    """B2 at widths off the tile (B = 32, H = 96), padded as the forward
+    pads them: every cotangent at the block's own widths, against the
+    exact f32 ones as test_bf16_kernels_at_other_widths holds them."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args, g = _bwd_args(cuda, dtype, b=32, h=96)
+        kw = dict(dilation=4, causal=False, norm_type="gLN")
+        got = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+        torch.cuda.synchronize()
+        assert [q.shape for q in got] == [a.shape for a in args]
+        _check_against_exact(got, args, g, kw, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -514,10 +537,14 @@ def test_cln_bwd_kernel_is_deterministic(cuda, dtype):
 
 
 def test_cln_bwd_kernel_checks_shapes(cuda):
-    args, g = _bwd_args(cuda, torch.float32, b=32, h=64, norm_type="cLN")
-    with pytest.raises(ValueError, match="multiples"):
-        port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], dilation=1,
-                                     causal=True, norm_type="cLN")
+    """B3 pads widths off the tile (B = 32, H = 96; every cotangent
+    against the exact f32 ones) and refuses an even tap count outside the
+    causal mode."""
+    args, g = _bwd_args(cuda, torch.float32, b=32, h=96, norm_type="cLN")
+    kw = dict(dilation=2, causal=True, norm_type="cLN")
+    got = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    assert [q.shape for q in got] == [a.shape for a in args]
+    _check_against_exact(got, args, g, kw, torch.float32)
     args, g = _bwd_args(cuda, torch.float32, norm_type="cLN")
     dw4 = torch.zeros(4, args[2].shape[1], device=cuda)
     with pytest.raises(ValueError, match="kernel size"):
@@ -837,12 +864,20 @@ def test_pair_bwd_kernel_is_deterministic(cuda):
 
 
 def test_pair_kernels_check_shapes(cuda):
-    x, pa, pb, g = _pair_args(cuda, torch.float32, b=32, h=64)
+    """B4 and B5 pad widths off the tile (B = 32, H = 96) as a block does,
+    within the pair bars of their twins; a norm or weights they do not
+    take raise."""
+    x, pa, pb, g = _pair_args(cuda, torch.float32, b=32, h=96)
     kw = dict(d1=1, d2=2, causal=False)
-    with pytest.raises(ValueError, match="multiples"):
-        pair.fused_tcn_block_pair(x, pa, pb, **kw, norm_type="gLN")
-    with pytest.raises(ValueError, match="multiples"):
-        pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+    got = pair.fused_tcn_block_pair(x, pa, pb, **kw, norm_type="gLN")
+    want = pair.fused_tcn_block_pair_reference(x, pa, pb, **kw,
+                                               norm_type="gLN")
+    assert got.shape == want.shape
+    assert _rel_l2(got, want) <= PAIR_TOL[torch.float32]
+    _check_pair_cotangents(
+        pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw),
+        pair_bwd.fused_tcn_block_pair_bwd_reference(x, g, pa, pb, **kw),
+        torch.float32)
     x, pa, pb, g = _pair_args(cuda, torch.float32)
     with pytest.raises(ValueError, match="gLN and cLN"):
         pair.fused_tcn_block_pair(x, pa, pb, **kw, norm_type="BN")
@@ -1000,9 +1035,14 @@ def test_dpt_kernels_are_deterministic_and_check_shapes(cuda):
     args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=8)
     with pytest.raises(ValueError, match="head width"):
         dpt_attention.fused_inter_attention(*args, **kw)
-    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, S=24)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        dpt_intra.fused_intra_attention(*args, **kw)
+    # a chunk off the 16-row tile runs padded with masked frames
+    args, kw, valid = _dpt_args(cuda, torch.float32, "intra", 3, True, S=24)
+    with torch.inference_mode():
+        got = dpt_intra.fused_intra_attention(*args, **kw)
+        want = dpt_intra.intra_attention_reference(*args, **kw)
+    assert got.shape == want.shape
+    assert _rel_l2(_valid_rows(got, valid, 128),
+                   _valid_rows(want, valid, 128)) <= DPT_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1112,6 +1152,57 @@ def test_dpt_bwd_kernel_matches_twin_at_full_width(cuda, dtype, kind):
     exact = twin(x.float(), g.float(), *w, **kw)
     same = twin(x, g, *w, **kw)
     _check_dpt_cotangents(got, exact, same, valid, dtype)
+
+
+def _ffn_bwd_args(device, B, F, M=2, K=700, seed=0):
+    """Seeded bf16 FFN operands at width B and hidden width F over M x K
+    rows, the biases off 0, and a random cotangent."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    x = t(rng.standard_normal((M, K, B)), torch.bfloat16)
+    g = t(rng.standard_normal((M, K, B)), torch.bfloat16)
+    w = (t(1 + 0.1 * rng.standard_normal(B)), t(0.1 * rng.standard_normal(B)),
+         t(rng.standard_normal((B, F)) / np.sqrt(B)),
+         t(0.3 * rng.standard_normal(F)),
+         t(rng.standard_normal((F, B)) / np.sqrt(F)),
+         t(0.3 * rng.standard_normal(B)))
+    return x, g, w
+
+
+@pytest.mark.parametrize("B", [64, 128, 192, 256])
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_ffn_bwd_wgmma_design_matches_twin(cuda, B, m):
+    """B12 (m = 1) and B12p (the last shard of m) in bf16 on the wgmma
+    design at B in {64, 128, 192, 256}, F = 1024 / m, over 2 x 700 rows
+    (the last 128-row tile holds 120 rows), b_up and b_down off 0: all
+    seven cotangents within DPT_TOL of the bf16 twin and no further from
+    exact than max(DPT_TOL, 1.25x the twin's own distance); db_down zero in
+    partial mode; two calls the same bits."""
+    x, g, w = _ffn_bwd_args(cuda, B, 1024)
+    partial = m > 1
+    if partial:
+        x, *w = _shard((x, *w), "ffn", m, m - 1)
+    before = (dpt_ffn.fused_ffn_bwd.launches,
+              dpt_ffn.fused_ffn_bwd.partial_launches)
+    got = dpt_ffn.fused_ffn_bwd(x, g, *w, partial=partial)
+    again = dpt_ffn.fused_ffn_bwd(x, g, *w, partial=partial)
+    torch.cuda.synchronize()
+    after = (dpt_ffn.fused_ffn_bwd.launches,
+             dpt_ffn.fused_ffn_bwd.partial_launches)
+    assert after == ((before[0], before[1] + 2) if partial
+                     else (before[0] + 2, before[1]))
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    exact = dpt_ffn.ffn_bwd_reference(x.float(), g.float(), *w,
+                                      partial=partial)
+    same = dpt_ffn.ffn_bwd_reference(x, g, *w, partial=partial)
+    if partial:
+        assert not got[-1].any()
+        got, exact, same = got[:-1], exact[:-1], same[:-1]
+    valid = torch.ones(x.shape[1], dtype=torch.bool, device=cuda)
+    _check_dpt_cotangents(got, exact, same, valid, torch.bfloat16)
 
 
 @pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
@@ -1336,8 +1427,9 @@ def test_tp_stage2_kernel_matches_twin(cuda, dtype, Hs, dilation, causal):
 
 
 def test_tp_stage2_kernel_is_deterministic_and_refuses(cuda):
-    """Two calls give the same bits; a shard width off the 64-column tile,
-    more than 16 taps and a norm other than gLN are refused."""
+    """Two calls give the same bits; a shard width off the 64-column tile
+    runs padded; a shard wider than 512, more than 16 taps and a norm
+    other than gLN are refused."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
 
     args = _tp2_args(cuda, torch.bfloat16, 128, seed=5, M=2, K=700)
@@ -1345,14 +1437,73 @@ def test_tp_stage2_kernel_is_deterministic_and_refuses(cuda):
     with torch.inference_mode():
         a, b = tp.fused_tp_stage2(*args, **kw), tp.fused_tp_stage2(*args, **kw)
         assert all(torch.equal(u, v) for u, v in zip(a, b))
-        narrow = _tp2_args(cuda, torch.bfloat16, 96, M=2, K=700)
-        with pytest.raises(ValueError, match="multiples of 64"):
-            tp.fused_tp_stage2(*narrow, **kw)
+        # shard and bottleneck widths off the tile run padded
+        narrow = _tp2_args(cuda, torch.bfloat16, 96, M=2, K=700, B=96)
+        z, sums = tp.fused_tp_stage2(*narrow, **kw)
+        z_want, s_want = tp.tp_stage2_reference(*narrow, **kw)
+        assert z.shape == z_want.shape
+        assert _rel_l2(z, z_want) <= TOL[torch.bfloat16]
+        assert _rel_l2(sums, s_want) <= TOL[torch.bfloat16]
+        wide = _tp2_args(cuda, torch.bfloat16, 576, M=2, K=700)
+        with pytest.raises(ValueError, match="at most 512"):
+            tp.fused_tp_stage2(*wide, **kw)
         taps = _tp2_args(cuda, torch.bfloat16, 128, M=2, K=700, P=17)
         with pytest.raises(ValueError, match="P=17"):
             tp.fused_tp_stage2(*taps, dilation=1, causal=True)
         with pytest.raises(ValueError, match="gLN only"):
             tp.fused_tp_stage2(*args, **kw, norm_type="cLN")
+
+
+@pytest.mark.parametrize("Hs", [64, 128, 256, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dilation", [1, 16, 128])
+def test_tp_stage2_wgmma_stage_matches_twin(cuda, Hs, causal, dilation):
+    """B6 in bf16 on its wgmma stage, at every shard width the stage takes
+    (Hs 64 to 512, B = 256), at K = 1199 (the last 128-row tile holds 47
+    rows): z and the gLN-2 sums against the twin at the forward bars and
+    at B6's rounding points within TP_ORDER_TOL, and two calls the same
+    bits."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    args = _tp2_args(cuda, torch.bfloat16, Hs, seed=Hs + dilation, M=4,
+                     K=1199)
+    kw = dict(dilation=dilation, causal=causal)
+    with torch.inference_mode():
+        z, sums = tp.fused_tp_stage2(*args, **kw)
+        z2, sums2 = tp.fused_tp_stage2(*args, **kw)
+        torch.cuda.synchronize()
+        z_want, s_want = tp.tp_stage2_reference(*args, **kw)
+        z_ord, s_ord = tp.tp_stage2_reference(*args, **kw, rounding="pallas")
+    assert torch.equal(z, z2) and torch.equal(sums, sums2)
+    assert torch.isfinite(z).all() and torch.isfinite(sums).all()
+    assert _rel_l2(z, z_want) <= TOL[torch.bfloat16], _rel_l2(z, z_want)
+    assert _rel_l2(sums, s_want) <= TOL[torch.bfloat16]
+    assert _rel_l2(z, z_ord) <= TP_ORDER_TOL[torch.bfloat16], \
+        _rel_l2(z, z_ord)
+    assert _rel_l2(sums, s_ord) <= TP_ORDER_TOL[torch.bfloat16], \
+        _rel_l2(sums, s_ord)
+
+
+@pytest.mark.parametrize("dtype,Hs", [(torch.float32, 192),
+                                      (torch.bfloat16, 192),
+                                      (torch.float32, 512)])
+def test_tp_stage2_first_design_widths(cuda, dtype, Hs):
+    """B6 where it runs its first design (f32, and bf16 at a shard width
+    the wgmma stage does not take) against the twin at both rounding
+    points, at K = 1199."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    args = _tp2_args(cuda, dtype, Hs, seed=7, M=4, K=1199)
+    kw = dict(dilation=8, causal=False)
+    with torch.inference_mode():
+        z, sums = tp.fused_tp_stage2(*args, **kw)
+        torch.cuda.synchronize()
+        z_want, s_want = tp.tp_stage2_reference(*args, **kw)
+        z_ord, s_ord = tp.tp_stage2_reference(*args, **kw, rounding="pallas")
+    assert _rel_l2(z, z_want) <= TOL[dtype], _rel_l2(z, z_want)
+    assert _rel_l2(sums, s_want) <= TOL[dtype]
+    assert _rel_l2(z, z_ord) <= TP_ORDER_TOL[dtype], _rel_l2(z, z_ord)
+    assert _rel_l2(sums, s_ord) <= TP_ORDER_TOL[dtype]
 
 
 def _tp_launches(before=None):
@@ -1540,9 +1691,11 @@ def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
                                                             monkeypatch):
     """On CUDA tensors the partial wrappers launch or raise: a shard width
     that is not a multiple of 64 (eight shards of B=256) names the shard
-    counts that fit, a head width outside {32, 64} and F/m not a multiple
-    of 128 raise, a shard's weights without ``partial=True`` raise, and
-    with the kernel library made to fail the wrapper raises and counts no
+    counts that fit, a head width outside {32, 64} raises, a shard's
+    weights without ``partial=True`` raise, and with the kernel library
+    made to fail the wrapper raises and counts no launch; F/m off the
+    128-column tile (F/16 = 64) runs padded. ``dpt_tp_forward`` over eight
+    shards raises, under auto as with ``use_pallas=True``, before any
     launch."""
     from convtasnet_tpu_torch.ops.cuda import build
     from convtasnet_tpu_torch.parallel.dpt_tp import dpt_tp_forward
@@ -1558,13 +1711,22 @@ def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
     with pytest.raises(ValueError, match="partial=True"):
         dpt_attention.fused_inter_attention(*_shard(args, "inter", 2, 0),
                                             n_heads=4)
-    fargs, _, _ = _full_width_args(cuda, torch.bfloat16, "ffn")
-    with pytest.raises(ValueError, match="multiple of 128"):
-        dpt_ffn.fused_ffn(*_shard(fargs, "ffn", 16, 0), partial=True)
-    cfg = ConvTasNetConfig(separator="dpt")
-    with pytest.raises(ValueError, match=r"fit: \[1, 2, 4\]"):
-        dpt_tp_forward(cfg, {}, torch.zeros(1, 8000, device=cuda),
-                       shard_devices(8, cuda))
+    fargs, _, valid = _full_width_args(cuda, torch.bfloat16, "ffn")
+    narrow = _shard(fargs, "ffn", 16, 0)
+    with torch.inference_mode():
+        got = dpt_ffn.fused_ffn(*narrow, partial=True)
+        want = dpt_ffn.ffn_reference(*narrow, partial=True)
+    assert _rel_l2(_valid_rows(got, valid, 256), _valid_rows(
+        want, valid, 256)) <= DPT_TOL[torch.bfloat16]
+    cfg = ConvTasNetConfig(separator="dpt", dpt_layers=1)
+    mix = torch.randn(1, 8000, generator=torch.Generator().manual_seed(4))
+    mix = mix.to(cuda)
+    before = _partial_launches()
+    for use_pallas in (True, None):
+        with pytest.raises(ValueError, match=r"fit: \[1, 2, 4\]"):
+            dpt_tp_forward(cfg, {}, mix, shard_devices(8, cuda),
+                           use_pallas=use_pallas)
+    assert not any(_partial_launches(before).values())
 
     def broken_loader():
         raise RuntimeError("kernel library unavailable")
@@ -1640,3 +1802,138 @@ def test_dpt_tp_forward_and_step_launch_the_partial_kernels(cuda, n_model):
                       **{f"{k}_bwd": n_model * v for k, v in per.items()},
                       "full": 0}
     assert np.isfinite(float(metrics["loss"]))
+
+
+# --------------------------------------------------------------------------
+# Auto mode: widths off the kernels' tiles run padded through the kernels;
+# a shape no kernel takes raises before any launch
+# --------------------------------------------------------------------------
+
+# a TCN at B = H = 96 and a DPT with 100-frame chunks and F = 192, all of
+# which JAX runs with its kernels on
+AUTO_PADDED = {
+    "tcn": dict(n_filters=64, kernel_size=16, bottleneck=96, hidden=96,
+                num_blocks=2, num_repeats=1),
+    "dpt": dict(separator="dpt", n_filters=64, kernel_size=16,
+                bottleneck=64, dpt_chunk=100, dpt_layers=1, dpt_heads=2,
+                dpt_ff=192),
+}
+# (config, the rule the error names): 17 causal taps, a DPT wider than 256
+AUTO_REFUSED = {
+    "tcn": (dict(n_filters=64, kernel_size=16, bottleneck=64, hidden=128,
+                 conv_kernel=17, causal=True, num_blocks=2, num_repeats=1),
+            "P=17"),
+    "dpt": (dict(separator="dpt", n_filters=64, kernel_size=16,
+                 bottleneck=320, dpt_layers=1, dpt_heads=5, dpt_ff=256),
+            "at most 256"),
+}
+
+
+def _dpt_launch_counts(before=None):
+    now = {f"{k}{sfx}": fns[k][0].launches
+           for sfx, fns in (("", DPT_FNS), ("_bwd", DPT_BWD_FNS)) for k in fns}
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+@pytest.mark.parametrize("family", ["tcn", "dpt"])
+def test_auto_mode_runs_padded_widths_through_the_kernels(cuda, family):
+    """Under use_pallas=None on the card, one model serves a batch and
+    trains a step at widths off the kernels' tiles (a TCN at B = H = 96, a
+    DPT with 100-frame chunks and F = 192): every block or sublayer
+    launches its kernel, the served output is within the f32 forward bar
+    of the plain model and the step's loss is finite."""
+    from convtasnet_tpu_torch.config import SolverConfig
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    cfg = ConvTasNetConfig(**AUTO_PADDED[family])
+    gen = torch.Generator().manual_seed(3)
+    mix = torch.randn(2, 8000, generator=gen).to(cuda)
+    data = (mix, torch.full((2,), 8000, dtype=torch.int32, device=cuda),
+            torch.randn(2, 2, 8000, generator=gen).to(cuda),
+            torch.ones(2, device=cuda))
+    plain = ConvTasNet(cfg, use_pallas=False, device=cuda).eval()
+    state = ts.create_train_state(cfg, SolverConfig(), device=cuda)
+    state.model.load_state_dict(plain.state_dict())
+    tcn0, dpt0 = _tcn_launches(), _dpt_launch_counts()
+    state.model.eval()
+    with torch.inference_mode():
+        got, want = state.model(mix), plain(mix)
+    state, metrics = ts.make_train_step()(state, data)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert _rel_l2(got, want) <= TOL[torch.float32], _rel_l2(got, want)
+    tcn, dpt = _tcn_launches(tcn0), _dpt_launch_counts(dpt0)
+    if family == "tcn":   # serve 2 B1, step 2 B1 + 2 B2
+        assert tcn == {"b1": 4, "b2": 2, "b4": 0, "b5": 0}, tcn
+        assert not any(dpt.values()), dpt
+    else:
+        assert not any(tcn.values()), tcn
+        assert dpt == {"inter": 2, "intra": 2, "ffn": 4, "inter_bwd": 1,
+                       "intra_bwd": 1, "ffn_bwd": 2}, dpt
+
+
+@pytest.mark.parametrize("family", ["tcn", "dpt"])
+def test_auto_mode_raises_where_no_kernel_takes_the_shape(cuda, family):
+    """A shape no kernel takes (a TCN with 17 causal taps, a DPT at
+    B = 320) raises under auto on the card as with
+    use_pallas=True, naming the rule, before any launch; use_pallas=False
+    serves it through the plain ops."""
+    kw, rule = AUTO_REFUSED[family]
+    cfg = ConvTasNetConfig(**kw)
+    mix = torch.randn(2, 8000, generator=torch.Generator().manual_seed(3))
+    mix = mix.to(cuda)
+    tcn0, dpt0 = _tcn_launches(), _dpt_launch_counts()
+    for use_pallas in (None, True):
+        model = ConvTasNet(cfg, use_pallas=use_pallas, device=cuda).eval()
+        with torch.inference_mode(), pytest.raises(ValueError, match=rule):
+            model(mix)
+    assert not any(_tcn_launches(tcn0).values())
+    assert not any(_dpt_launch_counts(dpt0).values())
+    with torch.inference_mode():
+        out = ConvTasNet(cfg, use_pallas=False, device=cuda).eval()(mix)
+    assert out.shape == (2, 2, 8000) and torch.isfinite(out).all()
+
+
+def test_tp_forward_pads_untiled_shard_widths(cuda):
+    """``tp_forward`` of a gLN TCN whose shard width is off the tile (H =
+    192 over two shards: Hs = 96) under auto: B6 launches for every block
+    and shard, padded, within the f32 forward bar of the unsharded plain
+    model."""
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
+
+    cfg = ConvTasNetConfig(n_filters=64, kernel_size=16, bottleneck=64,
+                           hidden=192, num_blocks=2, num_repeats=1)
+    model = ConvTasNet(cfg, use_pallas=False, device=cuda).eval()
+    mix = torch.randn(2, 8000, generator=torch.Generator().manual_seed(5))
+    mix = mix.to(cuda)
+    before = _tp_launches()
+    with torch.inference_mode():
+        got = tp_forward(cfg, model.state_dict(), mix, shard_devices(2, cuda))
+        want = model(mix)
+    assert _tp_launches(before) == {"b1": 0, "b2": 0, "b4": 0, "b5": 0,
+                                    "b6": 2 * 2}
+    assert _rel_l2(got, want) <= TOL[torch.float32], _rel_l2(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dpt_kernels_pad_untiled_widths(cuda, dtype):
+    """A chunk of S = 100 frames (off the intra kernels' 16-row tile) and
+    an FFN hidden width of F = 192 (off the 128-column tile) run B9, B10
+    and B11, B12 padded: the forwards within DPT_TOL of their twins on the
+    valid rows, every cotangent as test_dpt_bwd_kernel_matches_twin holds
+    it."""
+    for kind, extra in (("intra", dict(S=100)), ("ffn", dict(F=192))):
+        fused, twin = DPT_FNS[kind]
+        args, kw, valid = _dpt_args(cuda, dtype, kind, 3, True, **extra)
+        with torch.inference_mode():
+            got, want = fused(*args, **kw), twin(*args, **kw)
+        assert got.shape == want.shape, kind
+        assert _rel_l2(_valid_rows(got, valid, 128), _valid_rows(
+            want, valid, 128)) <= DPT_TOL[dtype], kind
+        fused_bwd, twin_bwd = DPT_BWD_FNS[kind]
+        x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, kind, 3, True,
+                                           **extra)
+        got = fused_bwd(x, g, *w, **kw)
+        _check_dpt_cotangents(got, twin_bwd(x.float(), g.float(), *w, **kw),
+                              twin_bwd(x, g, *w, **kw), valid, dtype)

@@ -1,0 +1,375 @@
+"""The CUDA kernels' shape rules, the padding that widens them, and the
+configuration-level check built on them.
+
+Each kernel's rule is one pure function beside its wrapper
+(``shape_refusal``); ``ops/cuda/shapes.py`` applies the rules to a whole
+configuration, and a model with its kernels in use raises on a refused
+one before anything launches. Widths off a kernel's tile are not refused:
+the wrappers zero-pad them (B and H of the TCN blocks, Hs and B of TP
+stage 2, the DPT FFN's F) or pad the chunk with masked frames (the intra
+kernels' S). These tests hold each rule against the limits written out
+here, the configuration-level check against the rules, the padding of
+each family against the unpadded plain math on the CPU (the kernels run
+the same math at the padded widths), and, at two configurations the
+kernels take only padded (a TCN with H = 96, a DPT with 100-frame chunks),
+the port's forward through its kernels' CPU twins against the JAX model's
+on the same weights, in f32. Nothing here needs a card: the CUDA device
+below is only a ``torch.device`` whose type the check reads.
+"""
+
+import dataclasses
+import functools
+import types
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from convtasnet_tpu.config import ConvTasNetConfig as JaxConfig
+from convtasnet_tpu.models import conv_tasnet as jmodel
+from convtasnet_tpu_torch.config import ConvTasNetConfig
+from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+from convtasnet_tpu_torch.models.jax_params import state_dict_from_jax
+from convtasnet_tpu_torch.ops.cuda import (
+    dpt_attention,
+    dpt_ffn,
+    dpt_intra,
+    shapes,
+    tcn_block,
+    tcn_block_pair,
+    tcn_block_tp,
+)
+
+CUDA = torch.device("cuda")   # read for its type only
+
+
+def _tcn_ok(B, H, P, causal):
+    return P <= 16 and (causal or P % 2)
+
+
+@pytest.mark.parametrize("B,H", [(64, 64), (256, 512), (96, 128), (128, 96),
+                                 (576, 512), (640, 192), (500, 100)])
+@pytest.mark.parametrize("P,causal", [(3, False), (4, False), (4, True),
+                                      (17, True)])
+def test_tcn_block_and_pair_rules(B, H, P, causal):
+    """B1-B3 take any B and H (padded to multiples of 64) and P <= 16, odd
+    unless causal; the pair (B4, B5) also B <= 512 once padded."""
+    got = tcn_block.shape_refusal(B, H, P, causal)
+    assert (got is None) == bool(_tcn_ok(B, H, P, causal)), got
+    pair = tcn_block_pair.shape_refusal(B, H, P, causal)
+    assert (pair is None) == bool(_tcn_ok(B, H, P, causal)
+                                  and -(-B // 64) * 64 <= 512), pair
+
+
+@pytest.mark.parametrize("Hs", [64, 96, 192, 500, 512, 576])
+@pytest.mark.parametrize("B", [64, 96, 256])
+def test_tp_stage2_rule(Hs, B):
+    """B6 takes any Hs = H / m and B (padded to multiples of 64) while the
+    padded Hs is at most 512."""
+    got = tcn_block_tp.shape_refusal(Hs, B, 3, False)
+    assert (got is None) == (-(-Hs // 64) * 64 <= 512), got
+
+
+def _attention_ok(kind, B, S, Bq, heads):
+    return (B % 64 == 0 and B <= 256 and Bq % heads == 0
+            and Bq // heads in (32, 64) and Bq % 64 == 0
+            and (kind == "inter" or S <= 256))
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+@pytest.mark.parametrize("B,Bq,heads", [
+    (256, 256, 8), (256, 128, 4), (256, 32, 1), (256, 256, 16),
+    (320, 320, 10), (96, 96, 3), (64, 64, 2)])
+@pytest.mark.parametrize("S", [100, 128, 272])
+def test_attention_rules(kind, B, Bq, heads, S):
+    """B7-B10 (and partial modes) take B a multiple of 64 and <= 256, a
+    head width of 32 or 64 and the heads' width Bq a multiple of 64; the
+    intra kernels also S <= 256 (padded to a multiple of 16)."""
+    got = dpt_attention.shape_refusal(kind, B, S, Bq, heads)
+    assert (got is None) == _attention_ok(kind, B, S, Bq, heads), got
+    if kind == "intra":
+        assert dpt_intra.shape_refusal(B, S, Bq, heads) == got
+
+
+@pytest.mark.parametrize("B", [64, 256, 320, 96])
+def test_ffn_rule(B):
+    """B11, B12 (and partial modes) take B a multiple of 64 and <= 256, and
+    any F (F / m), padded to a multiple of 128."""
+    got = dpt_ffn.shape_refusal(B)
+    assert (got is None) == (B % 64 == 0 and B <= 256), got
+
+
+@pytest.mark.parametrize("overrides,n_model,pairs,want", [
+    (dict(), 1, False, {}),
+    (dict(hidden=96), 1, False, {}),
+    (dict(hidden=96), 1, True, {}),
+    (dict(bottleneck=576), 1, True, {"pair"}),
+    (dict(bottleneck=576), 1, False, {}),
+    (dict(conv_kernel=4), 1, False, {"block"}),
+    (dict(conv_kernel=4, causal=True, norm_type="cLN"), 1, True, {}),
+    (dict(hidden=192), 2, False, {}),
+    (dict(hidden=192, norm_type="cLN"), 2, False, {}),
+    (dict(separator="dpt"), 1, False, {}),
+    (dict(separator="dpt", dpt_chunk=100), 1, False, {}),
+    (dict(separator="dpt", bottleneck=320), 1, False,
+     {"intra", "inter", "ffn"}),
+    (dict(separator="dpt"), 8, False, {"intra", "inter"}),
+    (dict(separator="dpt", dpt_ff=1280), 4, False, {}),
+    (dict(hidden=1152), 2, False, {"stage2"}),
+    (dict(separator="dpt", dpt_chunk=272), 1, False, {"intra"}),
+], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
+        "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-tp8",
+        "dpt-tp4-F320", "tp-Hs576", "dpt-S272"])
+def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
+                                                 want):
+    """The kinds a configuration's kernels refuse, each with its wrapper's
+    own words; with the kernels in use (auto on a CUDA device, or
+    use_pallas=True) a refused configuration raises naming every refused
+    kind, and a taken one runs them; use_pallas=False runs none."""
+    cfg = ConvTasNetConfig(**overrides)
+    got = shapes.refusals(cfg, n_model, pairs)
+    assert set(got) == set(want)
+    B, H, P, causal = (cfg.bottleneck, cfg.hidden, cfg.conv_kernel,
+                       cfg.causal)
+    m = n_model
+    rules = {
+        "block": lambda: tcn_block.shape_refusal(B, H, P, causal),
+        "pair": lambda: tcn_block_pair.shape_refusal(B, H, P, causal),
+        "stage2": lambda: tcn_block_tp.shape_refusal(H // m, B, P, causal),
+        "intra": lambda: dpt_intra.shape_refusal(
+            B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m),
+        "inter": lambda: dpt_attention.shape_refusal(
+            "inter", B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m),
+        "ffn": lambda: dpt_ffn.shape_refusal(B)}
+    for kind, reason in got.items():
+        assert reason == rules[kind]()
+    for use_pallas in (None, True):
+        if want:
+            with pytest.raises(ValueError) as err:
+                shapes.use_kernels(cfg, use_pallas, CUDA, n_model, pairs)
+            assert all(shapes.LABELS[k] in str(err.value) and
+                       got[k] in str(err.value) for k in want)
+        else:
+            assert shapes.use_kernels(cfg, use_pallas, CUDA, n_model, pairs)
+    assert not shapes.use_kernels(cfg, False, CUDA, n_model, pairs)
+
+
+def test_model_refuses_before_launching_and_keeps_false():
+    """A model whose kernels refuse its configuration (17 causal taps)
+    raises under auto on a CUDA input as with
+    use_pallas=True, naming the TCN blocks and the rule, before it touches
+    the input; with use_pallas=False, or auto on a CPU input, it serves
+    through the plain ops without a warning; use_pallas=True refuses a CPU
+    input."""
+    cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=64,
+                           hidden=96, conv_kernel=17, causal=True,
+                           num_blocks=2, num_repeats=1)
+    on_card = types.SimpleNamespace(device=CUDA)   # read for its device
+    for use_pallas in (None, True):
+        with pytest.raises(ValueError, match=r"TCN blocks \(B1-B3\): "
+                           r"unsupported depthwise kernel size P=17"):
+            ConvTasNet(cfg, use_pallas=use_pallas)(on_card)
+    mix = torch.randn(1, 80, generator=torch.Generator().manual_seed(0))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for use_pallas in (None, False):
+            with torch.no_grad():
+                out = ConvTasNet(cfg, use_pallas=use_pallas)(mix)
+            assert out.shape == (1, 2, 80) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="unsupported depthwise"):
+        ConvTasNet(cfg, use_pallas=True)(mix)
+    taken = dataclasses.replace(cfg, conv_kernel=3)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ConvTasNet(taken, use_pallas=True)(mix)
+
+
+def _jax_variables(cfg, seed=0):
+    """Seeded numpy weights in the JAX model's variables tree, every norm
+    affine, slope and bias moved off its init."""
+    tree = jax.eval_shape(
+        lambda k: jmodel.init_params(JaxConfig(**cfg.to_dict()), k,
+                                     example_len=400),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = path[-1].key
+        r = rng.standard_normal(s.shape).astype(np.float32)
+        if name == "gamma":
+            return (1.0 + 0.1 * r).astype(np.float32)
+        if name in ("beta", "bias"):
+            return 0.1 * r
+        if not s.shape:                        # PReLU slope
+            return np.float32(0.25) + 0.05 * r
+        return r / np.float32(np.sqrt(s.shape[0]))
+
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+@pytest.mark.parametrize("overrides,jax_pallas", [
+    (dict(n_filters=32, kernel_size=8, bottleneck=64, hidden=96,
+          num_blocks=3, num_repeats=1), True),
+    (dict(n_filters=32, kernel_size=8, bottleneck=64, separator="dpt",
+          dpt_chunk=100, dpt_layers=1, dpt_heads=2, dpt_ff=128), False),
+], ids=["tcn-H96", "dpt-S100"])
+def test_padded_configuration_matches_jax(overrides, jax_pallas):
+    """At a configuration the kernels take only padded, the port's
+    forward through its kernels (their CPU twins here) matches the JAX
+    model within 5e-4 in f32, on the same weights. JAX runs as its own CPU
+    tests run each family: the TCN with its kernels on (interpret mode),
+    the DPT on its XLA path."""
+    cfg = ConvTasNetConfig(**overrides)
+    assert shapes.refusals(cfg) == {}
+    variables = _jax_variables(cfg)
+    model = ConvTasNet(cfg).eval()
+    model.load_state_dict(state_dict_from_jax(variables, cfg))
+    T = 800   # 199 frames: two 100-frame chunks, the second padded
+    mix = np.random.default_rng(1).standard_normal((2, T)).astype(np.float32)
+    with torch.no_grad():
+        w = model.encoder(torch.from_numpy(mix))
+        got = model.decoder(w, model.separator(w, True)).numpy()
+    jcfg = dataclasses.replace(JaxConfig(**cfg.to_dict()),
+                               use_pallas=jax_pallas)
+    apply = jax.jit(functools.partial(jmodel.ConvTasNet(jcfg).apply,
+                                      train=False))
+    want = np.asarray(apply(variables, jnp.asarray(mix)))
+    assert got.shape == want.shape == (2, 2, T)
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
+
+
+def _close(got, want, atol=1e-5):
+    for q, w in zip(got, want):
+        assert q.shape == w.shape
+        torch.testing.assert_close(q, w, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("S", [100, 37])
+@pytest.mark.parametrize("partial", [False, True])
+def test_intra_chunk_padding_is_exact(S, partial):
+    """The intra kernels run a chunk of S frames padded to a multiple of
+    16 with the new frames masked as keys (``pad_chunks``): the sublayer's
+    math at the padded length, sliced back, is the unpadded sublayer's, in
+    the forward and in every cotangent, in f32."""
+    gen = torch.Generator().manual_seed(S)
+    M, n, B, heads = 2, 3, 64, 2
+    Bq = B // 2 if partial else B
+    x = torch.randn(M, n, S, B, generator=gen)
+    g = torch.randn(M, n, S, B, generator=gen)
+    w = (1 + 0.1 * torch.randn(B, generator=gen),
+         0.1 * torch.randn(B, generator=gen),
+         torch.randn(B, 3 * Bq, generator=gen) / B ** 0.5,
+         torch.randn(Bq, B, generator=gen) / Bq ** 0.5)
+    key_bias = torch.where(torch.arange(n * S).reshape(n, S) < n * S - 13,
+                           0.0, dpt_attention.NEG_INF)
+    kw = dict(n_heads=heads // 2 if partial else heads, partial=partial)
+    Sp = -(-S // dpt_attention.INTRA_ROWS) * dpt_attention.INTRA_ROWS
+    xp, bp = dpt_attention.pad_chunks(x, key_bias, Sp)
+    gp = torch.nn.functional.pad(g, (0, 0, 0, Sp - S))
+    assert xp.shape[2] == bp.shape[1] == Sp and (bp[:, S:] < -1e8).all()
+    got = dpt_intra.intra_attention_reference(xp, *w, bp, **kw)[:, :, :S]
+    want = dpt_intra.intra_attention_reference(x, *w, key_bias, **kw)
+    _close([got], [want])
+    got = list(dpt_intra.intra_attention_bwd_reference(xp, gp, *w, bp, **kw))
+    got[0] = got[0][:, :, :S]
+    _close(got, dpt_intra.intra_attention_bwd_reference(x, g, *w, key_bias,
+                                                        **kw))
+
+
+@pytest.mark.parametrize("F", [192, 100])
+@pytest.mark.parametrize("partial", [False, True])
+def test_ffn_hidden_padding_is_exact(F, partial):
+    """The FFN kernels run a hidden width off the 128-column tile padded
+    with zero units (``pad_hidden``): the sublayer's math at the padded
+    width is the unpadded one's, in the forward and in every cotangent
+    (the padded units' own gradients dropped), in f32."""
+    gen = torch.Generator().manual_seed(F)
+    B = 64
+    x = torch.randn(2, 50, B, generator=gen)
+    g = torch.randn(2, 50, B, generator=gen)
+    gamma = 1 + 0.1 * torch.randn(B, generator=gen)
+    beta = 0.1 * torch.randn(B, generator=gen)
+    w_up = torch.randn(B, F, generator=gen) / B ** 0.5
+    b_up = 0.1 * torch.randn(F, generator=gen)
+    w_down = torch.randn(F, B, generator=gen) / F ** 0.5
+    b_down = 0.1 * torch.randn(B, generator=gen)
+    pu, pb, pd = dpt_ffn.pad_hidden(w_up, b_up, w_down)
+    assert pu.shape[1] % dpt_ffn.F_TILE == 0 and pd.shape[0] == pu.shape[1]
+    _close([dpt_ffn.ffn_reference(x, gamma, beta, pu, pb, pd, b_down,
+                                  partial=partial)],
+           [dpt_ffn.ffn_reference(x, gamma, beta, w_up, b_up, w_down, b_down,
+                                  partial=partial)])
+    got = list(dpt_ffn.ffn_bwd_reference(x, g, gamma, beta, pu, pb, pd,
+                                         b_down, partial=partial))
+    got[3], got[4], got[5] = got[3][:, :F], got[4][:F], got[5][:F]
+    _close(got, dpt_ffn.ffn_bwd_reference(x, g, gamma, beta, w_up, b_up,
+                                          w_down, b_down, partial=partial))
+
+
+@pytest.mark.parametrize("Hs,B", [(96, 64), (64, 96), (100, 40)])
+def test_tp_stage2_padding_is_exact(Hs, B):
+    """B6 runs a shard width or bottleneck off the 64-column tile padded
+    with zero channels (``pad_shard``): stage 2's math at the padded
+    widths gives the unpadded z and gLN-2 sums, in f32."""
+    gen = torch.Generator().manual_seed(Hs + B)
+    M, K, P = 2, 90, 3
+    h = torch.nn.functional.leaky_relu(torch.randn(M, K, Hs, generator=gen),
+                                       0.25)
+    stats1 = torch.stack([0.3 + 0.05 * torch.randn(M, generator=gen),
+                          1.2 + 0.1 * torch.randn(M, generator=gen)], -1)
+    dw = torch.randn(P, Hs, generator=gen) / 3
+    w_out = torch.randn(Hs, B, generator=gen) / Hs ** 0.5
+    g1, b1, g2 = (1 + 0.1 * torch.randn(Hs, generator=gen),
+                  0.1 * torch.randn(Hs, generator=gen),
+                  1 + 0.1 * torch.randn(Hs, generator=gen))
+    a2 = torch.tensor(0.25)
+    hp, dwp, wp, g1p, b1p, g2p = tcn_block_tp.pad_shard(h, dw, w_out, g1, b1,
+                                                        g2)
+    assert wp.shape == (-(-Hs // 64) * 64, -(-B // 64) * 64)
+    kw = dict(dilation=2, causal=False)
+    z, sums = tcn_block_tp.tp_stage2_reference(hp, stats1, dwp, wp, a2, g1p,
+                                               b1p, g2p, **kw)
+    want = tcn_block_tp.tp_stage2_reference(h, stats1, dw, w_out, a2, g1, b1,
+                                            g2, **kw)
+    _close([z[..., :B], sums], want)
+
+
+@pytest.mark.parametrize("B,H", [(32, 96), (96, 64), (100, 100)])
+def test_block_padding_is_exact_per_channel(B, H):
+    """``pad_block`` puts a block's weights in the top-left corner of the
+    padded ones, zeros elsewhere. With BN (per-channel statistics, nothing
+    summed over channels) the block's math at the padded widths, sliced
+    back, is the unpadded block's; the gLN and cLN kernels divide their
+    sums by the block's own H, which the card tests hold."""
+    gen = torch.Generator().manual_seed(B + H)
+    M, K, P = 2, 50, 3
+    x = torch.randn(M, K, B, generator=gen)
+    mats = (torch.randn(B, H, generator=gen) / B ** 0.5,
+            torch.randn(P, H, generator=gen) / 3,
+            torch.randn(H, B, generator=gen) / H ** 0.5)
+    vecs = [1 + 0.1 * torch.randn(H, generator=gen),
+            0.1 * torch.randn(H, generator=gen),
+            1 + 0.1 * torch.randn(H, generator=gen),
+            0.1 * torch.randn(H, generator=gen)]
+    bn = [0.1 * torch.randn(H, generator=gen),
+          1 + torch.rand(H, generator=gen),
+          0.1 * torch.randn(H, generator=gen),
+          1 + torch.rand(H, generator=gen)]
+    (pw_in, pdw, pw_out), pv = tcn_block.pad_block(mats, vecs + bn)
+    Bp, Hp = tcn_block.padded(B), tcn_block.padded(H)
+    assert pw_in.shape == (Bp, Hp) and pdw.shape == (P, Hp)
+    assert pw_out.shape == (Hp, Bp) and all(v.shape == (Hp,) for v in pv)
+    assert torch.equal(pw_in[:B, :H], mats[0]) and not pw_in[B:].any()
+    assert not pw_in[:, H:].any() and not pw_out[H:].any()
+    assert not pw_out[:, B:].any() and not pdw[:, H:].any()
+    a1, a2 = torch.tensor(0.25), torch.tensor(-0.1)
+    kw = dict(dilation=2, causal=False, norm_type="BN")
+    got = tcn_block.fused_tcn_block_reference(
+        torch.nn.functional.pad(x, (0, Bp - B)), pw_in, pdw, pw_out, a1, a2,
+        *pv[:4], **kw, bn_stats=tuple(pv[4:]))
+    want = tcn_block.fused_tcn_block_reference(x, *mats, a1, a2, *vecs, **kw,
+                                               bn_stats=tuple(bn))
+    assert not got[..., B:].any()
+    _close([got[..., :B]], [want])
