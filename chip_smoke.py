@@ -1420,8 +1420,11 @@ def phase_dpt_bwd_vs_twin(torch, dpt):
     the twin, by relative L2; in f32 within DPT_BWD_TOL_F32; in bf16 within
     4e-2 of the bf16 twin and no further from exact than max(4e-2, 1.25x
     the bf16 twin's own distance). The intra backward also at chunks of
-    S = 256 (n = 13, 4 s), where its [S, S] tiles leave shared memory for
-    the device workspace. Every case is printed before the phase fails;
+    S = 256 (n = 13, 4 s): in bf16 the core of B8 and B10
+    (``csrc/dpt_attn_bwd_wg.cuh``) keeps no [S, S] tile at any length, in
+    f32 the first design's [S, S] tiles leave shared memory for the device
+    workspace there; n = 94 runs the bf16 inter core over six 16-row
+    tiles. Every case is printed before the phase fails;
     returns the worst max_abs_err per kernel (against the twin in the same
     dtype)."""
     worst = {k: 0.0 for k in DPT_KINDS}

@@ -15,13 +15,25 @@
 //   ds = round(p * (dp - rowsum(p * dp)) * scale)
 //   dq = round(ds k);  dk = round(ds^T q)
 //
-// then the launches both attention backwards share (dpt_bwd_common.cuh).
+// then the launches both attention backwards share.
 //
 // What bounds it on the card. At the DPT quality default (B=256, h=8, d=32,
 // S=128) and B=8 x 4 s (n=25) the backward is 38.9 GFLOP (11 projection
 // products of 2 R B^2, QKV recomputed, and 6 core products of 2 R n B): 39
 // us at 989 TFLOP/s, against 39 MB of x, g and dx (12 us at 3.35 TB/s):
-// compute-bound. The core is tiny per
+// compute-bound, the projections 37 of the 39 GFLOP.
+//
+// bf16: the design of dpt_attn_bwd_wg.cuh, six launches (LQ, the core, two
+// weight gradients, DN, the sums) on the wgmma core, the core on
+// mma.sync with this kernel's gather (the n rows of the chunks at one
+// position s, strided by S rows; the key bias per (key chunk, s)): one CTA
+// per (m, s, head) of ceil(n / 16) 16-row tiles (two warps at n = 25), the
+// keys staged in blocks of up to 256 rows, so any n runs; what stands over
+// the bound is the frame's round trips through device memory and the
+// core's small tiles (n = 25 fills two of its 16-row tiles 78%).
+//
+// f32: the first design, 13 launches (launch_attention_bwd in
+// dpt_bwd_common.cuh around inter_bwd_core_kernel). The core is tiny per
 // (m, s, head) (n x n, n=25 at 4 s, 94 at 15 s) and strided by S*3B in
 // memory, so, as in the forward (dpt_attention.cu), one block per (m, s)
 // stages rows of up to 32 chunks at a time in shared memory and each warp
@@ -42,7 +54,7 @@
 // (qkv, dqkv [R, 3Bq], dA and a [R, Bq]), the products take Bq
 // (dpt_bwd_common.cuh) and dx has no g term.
 
-#include "dpt_bwd_common.cuh"
+#include "dpt_attn_bwd_wg.cuh"
 
 namespace {
 
@@ -259,6 +271,16 @@ int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
       });
 }
 
+// bf16: the design in dpt_attn_bwd_wg.cuh, with the core's inter gather.
+int launch_bwd_wg(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
+                  cudaStream_t stream) {
+  const int d = P.f.Bq / P.f.h;
+  if ((d != 32 && d != 64) || P.f.Bq % 64 || P.f.Bq > P.f.B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_attention_bwd_wg(P, ws_act, ws_f32, stream,
+                                 launch_core_wg_d<true>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -269,6 +291,13 @@ extern "C" {
 int ctn_dpt_attn_bwd_workspace(int M, int n, int S, int B, int h, int Bq,
                                int elem_bytes, long long* n_act,
                                long long* n_f32) {
+  if (elem_bytes == 2) {   // bf16: the design in dpt_attn_bwd_wg.cuh
+    const AttnWgLayout L =
+        attn_wg_layout(static_cast<long long>(M) * n * S, B, h, Bq);
+    *n_act = static_cast<long long>(L.n_act);
+    *n_f32 = static_cast<long long>(L.n_f32);
+    return 0;
+  }
   const AttnBwdLayout L = attn_bwd_layout(static_cast<long long>(M) * n * S,
                                           B, h, Bq, elem_bytes);
   *n_act = static_cast<long long>(L.n_act);
@@ -283,7 +312,7 @@ int ctn_dpt_inter_bwd_f32(CTN_DPT_ATTN_BWD_ARGS) {
 }
 
 int ctn_dpt_inter_bwd_bf16(CTN_DPT_ATTN_BWD_ARGS) {
-  return launch_bwd<__nv_bfloat16>(CTN_DPT_ATTN_BWD_CALL);
+  return launch_bwd_wg(CTN_DPT_ATTN_BWD_CALL);
 }
 
 }  // extern "C"

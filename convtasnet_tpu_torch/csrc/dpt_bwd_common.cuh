@@ -26,8 +26,9 @@
 //   mean(dy*gamma*xhat))), with per-tile partials of dgamma = sum dy*xhat
 //   and dbeta = sum dy.
 // - launch_attention_bwd: the launches both attention backwards share
-//   around their cores (the recompute of qkv by the forward's launch 1, dA,
-//   the weight gradients, dy = dqkv @ W_qkv^T, the LN backward).
+//   around their cores in f32 (the recompute of qkv by the forward's launch
+//   1, dA, the weight gradients, dy = dqkv @ W_qkv^T, the LN backward); in
+//   bf16 they run the design of dpt_attn_bwd_wg.cuh on the pieces below.
 //
 // Each also runs the backward of a tensor-parallel shard (partial, the
 // Pallas kernels' partial=True): the products take the shard's widths
@@ -45,7 +46,7 @@ namespace {
 constexpr int kMaxWidth = 256;            // B at most this (checked by the wrappers)
 constexpr int kColThreads = 256;          // colsum_kernel: columns per block
 constexpr int kColRows = 128;             // colsum_kernel: rows per block
-constexpr int kNumRowStats = 3;           // inter core: max, denominator, rowsum
+constexpr int kNumRowStats = 3;           // attention cores: max, denominator, rowsum
 
 // The pre-LN statistics of one row, by one warp, in ln_rows_to_smem's order.
 template <typename T>
@@ -288,10 +289,15 @@ int launch_ln_rows(const void* x, int rows, int B, const float* gamma,
 
 // ---- Pieces on the wgmma core (hopper_gemm.cuh), bf16 ----
 //
-// The FFN backward's bf16 design (dpt_ffn_bwd.cu) runs on these; they sit
-// beside the first design's pieces above, which B8, B10 and the f32
-// backwards keep.
+// The bf16 designs of the FFN backward (dpt_ffn_bwd.cu) and of both
+// attention backwards (dpt_attn_bwd_wg.cuh) run on these; they sit beside
+// the first design's pieces above, which the f32 backwards keep. What
+// bounds them: the products run on wgmma at B <= 256 (kMaxWidth: DN's tile
+// is as wide as the row) and one CTA of two warpgroups per SM where a
+// 128-row tile of x or g stays resident (LQ, UG, DN: 179-214 KB).
 //
+// - ln_resident_tile: the LN of a resident K-major tile in place, in
+//   ln_rows_kernel's order (LQ's and UG's y);
 // - launch_wgrad_parts_wg: the chunk partials of a^T @ b on
 //   wgrad_wg_kernel (both operands MN-major, as they are stored), in
 //   chunks of rows small enough that the grid fills the card;
@@ -437,6 +443,66 @@ __device__ __forceinline__ void warp_col_sums(const float (&v)[BN / 2],
       s += __shfl_xor_sync(0xffffffffu, s, 8);
       s += __shfl_xor_sync(0xffffffffu, s, 16);
       if (lane < 4) s_col[warp * BN + 8 * q + 2 * lane + e] = s;
+    }
+  }
+}
+
+// y = round(LN(x) gamma + beta) over a CTA's resident K-major tile of 128
+// rows (B / 64 panels at y_gen) in place, one warp per row, kLnRows rows of
+// a warp at once, each in ln_row_stats' order (so y has ln_rows_kernel's
+// bits); also to y_out [R, B], and each row's (mean, rs) to lnstat [R, 2];
+// rows at or beyond R stay zero. The caller's barrier (and, for wgmma, the
+// async-proxy fence before it) publishes the tile.
+__device__ __forceinline__ void ln_resident_tile(uint8_t* y_gen,
+                                                 const float* gamma,
+                                                 const float* beta, int r0,
+                                                 int R, int B, bf16* y_out,
+                                                 float* lnstat) {
+  constexpr int kWarps = kWgCta / 32, kLnRows = 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < kWgRows; r += kWarps * kLnRows) {
+    auto at = [&](int u, int c) {
+      return reinterpret_cast<bf16*>(y_gen + (c >> 6) * kWgRows * kLine +
+                                     swz(r + kWarps * u, (c & 63) >> 3) +
+                                     2 * (c & 7));
+    };
+    float mean[kLnRows], rs[kLnRows];
+#pragma unroll
+    for (int u = 0; u < kLnRows; ++u) mean[u] = rs[u] = 0.f;
+    for (int c = lane; c < B; c += 32) {
+#pragma unroll
+      for (int u = 0; u < kLnRows; ++u) mean[u] += __bfloat162float(*at(u, c));
+    }
+#pragma unroll
+    for (int u = 0; u < kLnRows; ++u) mean[u] = warp_sum(mean[u]) / B;
+    for (int c = lane; c < B; c += 32) {
+#pragma unroll
+      for (int u = 0; u < kLnRows; ++u) {
+        const float d = __bfloat162float(*at(u, c)) - mean[u];
+        rs[u] += d * d;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLnRows; ++u) {
+      rs[u] = rsqrtf(warp_sum(rs[u]) / B + kLnEps);
+      const int row = r0 + r + kWarps * u;
+      if (lane == 0 && row < R) {
+        lnstat[2 * row] = mean[u];
+        lnstat[2 * row + 1] = rs[u];
+      }
+    }
+    for (int c = lane; c < B; c += 32) {
+      const float gm = gamma[c], bt = beta[c];
+#pragma unroll
+      for (int u = 0; u < kLnRows; ++u) {
+        const int row = r0 + r + kWarps * u;
+        if (row >= R) continue;
+        bf16* e = at(u, c);
+        const bf16 v = from_f<bf16>((__bfloat162float(*e) - mean[u]) *
+                                    rs[u] * gm + bt);
+        *e = v;
+        y_out[static_cast<size_t>(row) * B + c] = v;
+      }
     }
   }
 }

@@ -282,7 +282,6 @@ __global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
   bf16* st_d = st_h + kWgRows * stage_ld<kUgBN>();
   float* s_col = reinterpret_cast<float*>(st_d + kWgRows * stage_ld<kUgBN>());
   const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
-  const int lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * kWgRows;
   const bf16* x = static_cast<const bf16*>(p.x);
   const bf16* w_up = static_cast<const bf16*>(p.w_up);
@@ -294,59 +293,12 @@ __global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
                  tid, kWgCta);
   }
 
-  // y = round(LN(x) gamma + beta) over x's tile in place, one warp per row,
-  // kLnRows rows of a warp at once, each in ln_row_stats' order (so y has
-  // ln_rows_kernel's bits), also to device memory with each row's (mean,
-  // rs); rows at or beyond R stay zero
+  // y over x's tile in place (ln_resident_tile), also to device memory
+  // with each row's (mean, rs)
   auto ln_tile = [&] {
-    constexpr int kWarps = kWgCta / 32, kLnRows = 4;
     cp_async_wait<kUgStages - 2>();   // the first copy group has landed
     __syncthreads();
-    for (int r = warp; r < kWgRows; r += kWarps * kLnRows) {
-      auto at = [&](int u, int c) {
-        return reinterpret_cast<bf16*>(
-            y_gen + (c >> 6) * kWgRows * kLine +
-            swz(r + kWarps * u, (c & 63) >> 3) + 2 * (c & 7));
-      };
-      float mean[kLnRows], rs[kLnRows];
-#pragma unroll
-      for (int u = 0; u < kLnRows; ++u) mean[u] = rs[u] = 0.f;
-      for (int c = lane; c < B; c += 32) {
-#pragma unroll
-        for (int u = 0; u < kLnRows; ++u) mean[u] += __bfloat162float(*at(u, c));
-      }
-#pragma unroll
-      for (int u = 0; u < kLnRows; ++u) mean[u] = warp_sum(mean[u]) / B;
-      for (int c = lane; c < B; c += 32) {
-#pragma unroll
-        for (int u = 0; u < kLnRows; ++u) {
-          const float d = __bfloat162float(*at(u, c)) - mean[u];
-          rs[u] += d * d;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLnRows; ++u) {
-        rs[u] = rsqrtf(warp_sum(rs[u]) / B + kLnEps);
-        const int row = r0 + r + kWarps * u;
-        if (lane == 0 && row < R) {
-          o.lnstat[2 * row] = mean[u];
-          o.lnstat[2 * row + 1] = rs[u];
-        }
-      }
-      for (int c = lane; c < B; c += 32) {
-        const float gm = p.gamma[c], bt = p.beta[c];
-#pragma unroll
-        for (int u = 0; u < kLnRows; ++u) {
-          const int row = r0 + r + kWarps * u;
-          if (row >= R) continue;
-          bf16* e = at(u, c);
-          const bf16 v = from_f<bf16>((__bfloat162float(*e) - mean[u]) *
-                                      rs[u] * gm + bt);
-          *e = v;
-          o.y[static_cast<size_t>(row) * B + c] = v;
-        }
-      }
-    }
+    ln_resident_tile(y_gen, p.gamma, p.beta, r0, R, B, o.y, o.lnstat);
     // the ring's next barrier publishes the tile
   };
 

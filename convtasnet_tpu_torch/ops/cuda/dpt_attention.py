@@ -16,7 +16,9 @@ twin; on CUDA tensors it launches the kernel or raises, with no fallback.
 ``fused_inter_attention.launches`` counts the calls that launched it.
 
 The backward (kernel B8, ``csrc/dpt_attention_bwd.cu``; the intra
-sublayer's B10 shares its launcher) is ``fused_inter_attention_bwd``, the
+sublayer's B10 shares its launcher, and in bf16 its design,
+``csrc/dpt_attn_bwd_wg.cuh``: six launches around one tensor-core
+attention core) is ``fused_inter_attention_bwd``, the
 counterpart of the JAX wrapper of the same name: ``(dx, dgamma, dbeta,
 dw_qkv, dw_out)`` in the primals' dtypes, the twin
 ``inter_attention_bwd_reference`` on CPU tensors (the explicit math of
@@ -424,7 +426,8 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
                                    xc.element_size(), ctypes.byref(n_act),
                                    ctypes.byref(n_f32))
     n_spill = ctypes.c_longlong(0)
-    if kind == "intra":   # its tiles, where shared memory cannot hold them
+    if kind == "intra":   # f32: its tiles, where shared memory cannot hold
+        # them; the bf16 design keeps no [S, S] tile (0)
         lib.ctn_dpt_intra_bwd_spill(M, n, S, Bq, n_heads, xc.element_size(),
                                     ctypes.byref(n_spill))
         if n_spill.value < 0:

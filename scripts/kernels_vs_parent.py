@@ -13,17 +13,19 @@ from its own sources and writes its outputs at shapes both trees take:
 - bit for bit (``torch.equal``): the DPT sublayer kernels in full mode
   (B7-B12) and in partial mode over m = 2 and 4 shards (B7p-B12p) at the
   quality default's widths ([8, 25, 128, 256], 8 heads, F=1024, the real
-  key mask), bf16 and f32, the intra kernels also at the chunk lengths
+  key mask), the forwards in bf16 and f32 and the backwards in f32, the
+  intra kernels also at the chunk lengths
   whose tiles sit in shared memory or spill to the device workspace, the
   TCN TP stage 2 (B6) in f32 at [8, 3199, Hs], Hs = 256 and 128, and the
   TCN block forward (B1, gLN and cLN causal), the gLN block backward (B2)
   and the cLN one (B3) at the paper shape [8, 3199, 256], H=512, bf16 and
   f32, d = 1, 16, 128. A change to the kernels' shared pieces must leave
   these bits as they were;
-- by distance: B6 in bf16 and B12/B12p in bf16 (their wgmma designs,
-  which sum in another order than the first designs), held at B6's own
-  rounding points within 1e-3 (``chip_smoke.TP_ORDER_TOL``) and within
-  4e-2 of B12's bf16 twin; the block pair forward (B4, gLN and cLN causal)
+- by distance: B6 in bf16 and B8, B10 and B12 (and their partial modes)
+  in bf16 (their Hopper designs, which sum in another order than the
+  first designs), held at B6's own rounding points within 1e-3
+  (``chip_smoke.TP_ORDER_TOL``) and within 4e-2 of the backwards' bf16
+  twins; the block pair forward (B4, gLN and cLN causal)
   and the gLN pair backward (B5) at the paper shape, bf16 and f32, (d1,
   d2) = (1, 2), (16, 32), (64, 128), each tree's own distance from its
   plain twin (B5's evaluated in exact f32) held at the pair bars. Each
@@ -39,14 +41,19 @@ beside each in the same turn two chained B1 calls and B1 + 2 x B2; the
 gLN B4 and B5 beside the same also in f32 ("f32") and in bf16 at H=192
 ("H=192"), which run the first design's launches; B6 at [8, 3199, Hs],
 Hs = 256 and 128, per dilation; B12 at [8, 3200, 256], F=1024, and B12p
-on one shard of m = 2 and 4; the paper-config forward and gLN train
+on one shard of m = 2 and 4; B8 and B10 at [8, 25, 128, 256], 8 heads, the
+real key mask, B8p and B10p on one shard of m = 2 and 4, B10 also at
+S = 256 (n = 13) and B8 at n = 94 (15 s), each with
+``scaled_dot_product_attention`` forward and backward at its core's
+shapes beside it (a yardstick; no kernel calls it); the paper-config forward and gLN train
 step at B=8 and B=24 x 4 s with pairs on and off, with the peak device
 memory of each, and the cLN causal step at B=8; the paper config's
 forward over two shards (``tp_forward``), and the DPT quality default's
 train step unsharded and over two shards, at B=8 x 4 s; and
 ``torch.matmul`` at each of the kernels' products' shapes (a yardstick
 of the product core alone; no kernel calls it). ``--out`` writes every
-number as JSON. Exits nonzero if a bit-for-bit output differs or a kernel
+number as JSON. Every timed kernel also reads its device time per call
+from ``torch.profiler`` ("device ...") with each kernel's share. Exits nonzero if a bit-for-bit output differs or a kernel
 is further from its twin than its bar.
 """
 
@@ -95,16 +102,19 @@ TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
            ("bwd", "bfloat16"): 8e-2, ("bwd", "float32"): 4e-3,
            ("b6", "bfloat16"): 1e-3, ("dpt", "bfloat16"): 4e-2}
 # outputs held bit for bit against the other tree (the rest by distance):
-# every output of these kernels but the bf16 ones of B6 and B12 (and
-# B12p), whose wgmma designs sum in another order
+# every output of these kernels but the bf16 ones of B6 and of the DPT
+# backwards B8, B10 and B12 (and their partial modes), whose Hopper designs
+# sum in another order
 BIT_KEYS = ("dpt ", "b6 ", "b1 ", "b2 ", "b3 ")
+BWD_BY_DISTANCE = tuple(f"dpt {kind} bfloat16 "
+                        for kind in ("ffn", "inter", "intra"))
 
 
 def bitwise(key: str) -> bool:
     """Whether an output is held bit for bit against the other tree."""
     return key.startswith(BIT_KEYS) and not (
         key.startswith("b6 bfloat16 ")
-        or (key.startswith("dpt ffn bfloat16 ") and " backward" in key))
+        or (key.startswith(BWD_BY_DISTANCE) and " backward" in key))
 
 
 def _shard(args, kind: str, m: int, s: int):
@@ -141,12 +151,27 @@ PRODUCTS = {"x @ W_in, g @ W_out^T": (M * K, B, H),
 R_DPT, F_DPT = 8 * 3200, 1024
 PRODUCTS.update({f"b6 (y g2) @ W_out Hs={hs}": (M * K, hs, B)
                  for hs in (256, 128)})
+# B8's and B10's 11 projection products at [8, 25, 128, 256], Bq = 256 / m
+# for one shard of m: y @ W_qkv (recomputed), g @ W_out^T, y^T @ dqkv,
+# a^T @ g and dqkv @ W_qkv^T
+R_ATTN = 8 * 25 * 128
 for _m in (1, 2, 4):
     _f, _t = F_DPT // _m, "" if _m == 1 else f" m={_m}"
     PRODUCTS.update({f"b12 y @ W_up, g @ W_down^T{_t}": (R_DPT, B, _f),
                      f"b12 dpre @ W_up^T{_t}": (R_DPT, _f, B),
                      f"b12 h^T @ g{_t}": (_f, R_DPT, B),
                      f"b12 y^T @ dpre{_t}": (B, R_DPT, _f)})
+    _q = B // _m
+    PRODUCTS.update({f"b8/b10 y @ W_qkv{_t}": (R_ATTN, B, 3 * _q),
+                     f"b8/b10 g @ W_out^T{_t}": (R_ATTN, B, _q),
+                     f"b8/b10 y^T @ dqkv{_t}": (B, R_ATTN, 3 * _q),
+                     f"b8/b10 a^T @ g{_t}": (_q, R_ATTN, B),
+                     f"b8/b10 dqkv @ W_qkv^T{_t}": (R_ATTN, 3 * _q, B)})
+# the attention backwards timed: (kernel, kind, n, S, shards m; 1 = full)
+ATTN_TIMED = [("b10", "intra", 25, 128, 1), ("b8", "inter", 25, 128, 1),
+              ("b10p", "intra", 25, 128, 2), ("b8p", "inter", 25, 128, 2),
+              ("b10p", "intra", 25, 128, 4), ("b8p", "inter", 25, 128, 4),
+              ("b10", "intra", 13, 256, 1), ("b8", "inter", 94, 128, 1)]
 
 
 def rel_l2(got, want) -> float:
@@ -283,12 +308,16 @@ def dump(path: str) -> None:
                      dpt_intra.fused_intra_attention_bwd),
            "ffn": (dpt_ffn.fused_ffn, dpt_ffn.fused_ffn_bwd)}
 
-    def ffn_twins(key, got, x, gr, w, **kw):
-        """The bf16 FFN backward's distance from its bf16 twin, per
-        cotangent (its outputs are held by distance)."""
+    twins = {"inter": dpt_attention.inter_attention_bwd_reference,
+             "intra": dpt_intra.intra_attention_bwd_reference,
+             "ffn": dpt_ffn.ffn_bwd_reference}
+
+    def bwd_twins(kind, key, got, x, gr, w, **kw):
+        """A bf16 DPT backward's distance from its bf16 twin, per cotangent
+        (its outputs are held by distance)."""
         if x.dtype != torch.bfloat16:
             return
-        want = dpt_ffn.ffn_bwd_reference(x, gr, *w, **kw)
+        want = twins[kind](x, gr, *w, **kw)
         for i, (q, t) in enumerate(zip(got, want)):
             if t.any():
                 out[f"twin {key} backward {i}"] = rel_l2(q, t)
@@ -328,8 +357,7 @@ def dump(path: str) -> None:
             got = fused_bwd(x, gr, *w, **kw)
             for i, t in enumerate(got):
                 out[f"{key} backward {i}"] = t.cpu()
-            if kind == "ffn":
-                ffn_twins(key, got, x, gr, w)
+            bwd_twins(kind, key, got, x, gr, w, **kw)
             # the partial modes on the last shard of m (S = 128 only)
             for m in PARTIAL_SHARDS if S == 128 else ():
                 xs, *ws = _shard((x, *w), kind, m, m - 1)
@@ -342,8 +370,7 @@ def dump(path: str) -> None:
                 got = fused_bwd(xs, gr, *ws, **pkw)
                 for i, t in enumerate(got):
                     out[f"{pkey} backward {i}"] = t.cpu()
-                if kind == "ffn":
-                    ffn_twins(pkey, got, xs, gr, ws, partial=True)
+                bwd_twins(kind, pkey, got, xs, gr, ws, **pkw)
         torch.cuda.synchronize()
     for dtype, hs, d in B6_CASES:
         g = torch.Generator(device="cuda").manual_seed(hs + d)
@@ -511,6 +538,44 @@ def _time_pairs(torch, res: dict, tag: str, x, g, pa, pb, norms) -> None:
         res[f"b1 + 2 x b2 gLN{tag} {at}"] = _ms(torch, chained, 20)
 
 
+def _time_attention_bwd(torch, res: dict, rn) -> None:
+    """B8, B10 and their partial modes at ``ATTN_TIMED``'s shapes in bf16
+    with the real key mask (3199 frames of 4 s, 11999 of 15 s at n = 94), a
+    cotangent zero on the padded rows, and beside each
+    ``scaled_dot_product_attention`` forward + backward at its core's
+    shapes (problems x heads, attended length, d = 32; no mask)."""
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_intra
+
+    bwd = {"inter": dpt_attention.fused_inter_attention_bwd,
+           "intra": dpt_intra.fused_intra_attention_bwd}
+    for name, kind, n, S, m in ATTN_TIMED:
+        frames = 3199 if n * S < 11999 else 11999
+        valid = torch.arange(n * S, device="cuda").reshape(n, S) < frames
+        x = rn(M, n, S, B).bfloat16()
+        gr = (rn(M, n * S, B) * valid.reshape(1, -1, 1)).reshape(
+            x.shape).bfloat16()
+        w = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, 3 * B, scale=B ** -0.5),
+             rn(B, B, scale=B ** -0.5),
+             torch.where(valid, 0.0, -1e9).to(torch.float32))
+        kw = dict(n_heads=8)
+        if m > 1:
+            w = _shard((x, *w), kind, m, m - 1)[1:]
+            kw = dict(n_heads=8 // m, partial=True)
+        at = f"{name} [8,{n},{S},256]" + (f" m={m}" if m > 1 else "")
+        res[at] = _ms(torch, lambda: bwd[kind](x, gr, *w, **kw), 20)
+        _device_ms(torch, res, at, lambda: bwd[kind](x, gr, *w, **kw))
+        problems, length = (M * n, S) if kind == "intra" else (M * S, n)
+        qkv = [rn(problems, 8 // m, length, 32).bfloat16().requires_grad_()
+               for _ in range(3)]
+        go = rn(problems, 8 // m, length, 32).bfloat16()
+
+        def sdpa():
+            out = torch.nn.functional.scaled_dot_product_attention(*qkv)
+            torch.autograd.grad(out, qkv, go)
+
+        res[f"sdpa fwd+bwd {at}"] = _ms(torch, sdpa, 20)
+
+
 def _time_tp_and_ffn(torch, res: dict) -> None:
     """B6 at [8, 3199, Hs], Hs = 256 and 128, per dilation; B12 at [8,
     3200, 256], F = 1024, and B12p on the last shard of m = 2 and 4; the
@@ -544,6 +609,7 @@ def _time_tp_and_ffn(torch, res: dict) -> None:
                     _device_ms(torch, res, f"b6 Hs={hs} d={d}",
                                lambda: tcn_block_tp.fused_tp_stage2(
                                    *args, dilation=d, causal=False))
+    _time_attention_bwd(torch, res, rn)
     x = rn(M, R_DPT // M, B).bfloat16()
     gr = rn(M, R_DPT // M, B).bfloat16()
     w = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, F_DPT, scale=B ** -0.5),

@@ -74,8 +74,8 @@ FAULTS = {
     # the backward kernels
     "intra_bwd_rowsum_dropped": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_intra_bwd.cu",
-        "from_f<T>(prow[k] * (drow[k] - rs) * scale)",
-        "from_f<T>(prow[k] * drow[k] * scale + 0.f * rs)"),
+        "drow[k] = prow[k] * (drow[k] - rs) * scale;",
+        "drow[k] = prow[k] * drow[k] * scale + 0.f * rs;"),
     "inter_bwd_bias_transposed": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
         "p.bias[static_cast<size_t>(c) * S + s]",
@@ -102,6 +102,33 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/dpt_attention_bwd.cu",
         "round_to<T>(pj * (dot(dav, vv) - st[2]) * scale)",
         "round_to<T>(pj * (dot(dav, vv) - st[2]))"),
+    # B8's and B10's bf16 design (dpt_attn_bwd_wg.cuh): the core's key side
+    # reading the stats of the next query row, its rowsum taken from
+    # round(p), its keys past the length of the last 16-row tile left
+    # unmasked (bias 0 for -inf), LQ's LN (shared with B12's UG) without
+    # its eps, and DN adding the residual in partial mode
+    "attn_wg_key_side_stats_of_next_row": ("dpt_backward",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "const float* st = P.stats + (G.row(q) * h + hd) * kNumRowStats;",
+        "const float* st = P.stats + (G.row((q + 1) % L) * h + hd) * "
+        "kNumRowStats;"),
+    "attn_wg_rowsum_of_rounded_p": ("dpt_backward",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "for (int e = 0; e < 4; ++e) rsum[e >> 1] += p[j][e] * dp[j][e];",
+        "for (int e = 0; e < 4; ++e) rsum[e >> 1] += "
+        "round_to<bf16>(p[j][e]) * dp[j][e];"),
+    "attn_wg_padded_keys_unmasked": ("dpt_backward",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "s_vec[i] = k < L ? G.key_bias(k) : -INFINITY;",
+        "s_vec[i] = k < L ? G.key_bias(k) : 0.f;"),
+    "attn_wg_lq_ln_without_eps": ("dpt_backward",
+        "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
+        "rs[u] = rsqrtf(warp_sum(rs[u]) / B + kLnEps);",
+        "rs[u] = rsqrtf(warp_sum(rs[u]) / B);"),
+    "attn_wg_dn_residual_in_partial": ("dpt_tp",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "CTN_RETURN_IF(launch_dy_ln_wg(q, !f.partial, stream));",
+        "CTN_RETURN_IF(launch_dy_ln_wg(q, true, stream));"),
     # the TCN block forward (B1) on the Hopper core: C' recomputing y with
     # its taps one row off (the halo shifted by one), and B' writing
     # sample m's norm2 partials into the next sample's slots
@@ -178,8 +205,8 @@ FAULTS = {
         "{w_in2, dw2, w_out2, a1b, a2b, g1a, b1a, g2b, b2b};"),
     "pair_block2_dilation_of_block1": ("pair",
         "convtasnet_tpu_torch/csrc/tcn_block_pair.cu",
-        "part_b, M, K, B, H, P, d2, causal, norm);",
-        "part_b, M, K, B, H, P, d1, causal, norm);"),
+        "part_b, M, K, B, H, Hn, P, d2, causal, norm);",
+        "part_b, M, K, B, H, Hn, P, d1, causal, norm);"),
     "pair_block2_x1_of_neighbouring_tile": ("pair",
         "convtasnet_tpu_torch/csrc/tcn_block_pair.cu",
         "  const Params p2 = block_params(wb, x1, out,",

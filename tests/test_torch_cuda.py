@@ -1374,6 +1374,111 @@ def test_dpt_intra_f32_head_width_64_long_chunks(cuda, S):
                for u, v in zip(got, fused_b(x, g, *w, **kw)))
 
 
+# The bf16 design of B8 and B10 (csrc/dpt_attn_bwd_wg.cuh): (kind, the
+# attended length) at the intra chunk lengths 16, 100 (run padded to 112)
+# and 256 and the inter chunk counts 1, 25 and 94
+ATTN_WG_LENGTHS = [("intra", 16), ("intra", 100), ("intra", 256),
+                   ("inter", 1), ("inter", 25), ("inter", 94)]
+
+
+def _attn_wg_args(device, kind, length, d, m, seed):
+    """bf16 operands of an attention sublayer at B = 128 with heads of
+    width d, on shard m - 1 of m (m = 1: the full sublayer): a masked tail
+    in the next-to-last chunk and the whole last chunk masked (where there
+    is more than one), the key bias of the real frames drawn from
+    [-1, 1], LN beta off 0, and a cotangent zero on the masked rows.
+    -> (x, g, weights, kwargs, valid)."""
+    rng = np.random.default_rng(seed)
+    M, B = 2, 128
+    n, S = (3, length) if kind == "intra" else (length, 24)
+    valid = np.ones((n, S), bool)
+    if n > 1:
+        valid[-1] = False
+        valid[-2, S // 2:] = False
+    else:
+        valid[0, S - 5:] = False
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    bias = np.where(valid, rng.uniform(-1, 1, (n, S)), -1e9)
+    x = t(rng.standard_normal((M, n, S, B)), torch.bfloat16)
+    g = t(rng.standard_normal((M, n, S, B)) * valid[None, :, :, None],
+          torch.bfloat16)
+    args = (x, t(1 + 0.2 * rng.standard_normal(B)),
+            t(0.5 + 0.3 * rng.standard_normal(B)),
+            t(rng.standard_normal((B, 3 * B)) / np.sqrt(B)),
+            t(rng.standard_normal((B, B)) / np.sqrt(B)), t(bias))
+    kw = dict(n_heads=B // d)
+    if m > 1:
+        args = _shard(args, kind, m, m - 1)
+        kw = dict(n_heads=B // d // m, partial=True)
+    return args[0], g, list(args[1:]), kw, torch.from_numpy(valid).to(device)
+
+
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("kind,length", ATTN_WG_LENGTHS,
+                         ids=[f"{k}-{n}" for k, n in ATTN_WG_LENGTHS])
+def test_dpt_attn_bwd_bf16_design_matches_twin(cuda, kind, length, d, m):
+    """B8 and B10 in bf16 (m = 1) and B8p and B10p on the last shard of two
+    (m = 2) at head widths 32 and 64, over masked frames and a masked
+    chunk with the key bias and LN beta off 0: every cotangent at the DPT
+    bars against the exact f32 twin and the bf16 twin, launched once in
+    the wrapper's count of its mode; two calls give the same bits."""
+    fused, twin = DPT_BWD_FNS[kind]
+    x, g, w, kw, valid = _attn_wg_args(cuda, kind, length, d, m,
+                                       seed=length + d + m)
+    counter = "partial_launches" if m > 1 else "launches"
+    before = getattr(fused, counter)
+    got = fused(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fused, counter) == before + 1
+    exact = twin(x.float(), g.float(), *w, **kw)
+    same = twin(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, same, valid, torch.bfloat16)
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, fused(x, g, *w, **kw)))
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_dpt_attn_bwd_bf16_at_its_rounding_points(cuda, kind):
+    """B8 and B10 in bf16 at the quality default's widths, with LN gamma 3
+    (sharper attention), against the bf16 twin, which rounds where the
+    kernels round: they differ in summation order only (the CPU model of
+    the core's schedule reads 1e-5 to 9e-5), so every cotangent holds
+    1e-3 (B6's order bar, TP_ORDER_TOL), which a rowsum of round(p) in
+    place of p (4.5e-3 in that model) does not."""
+    fused, twin = DPT_BWD_FNS[kind]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.bfloat16, kind, 25, True,
+                                       M=4, S=128, B=256, heads=8)
+    w[0] = 3.0 * w[0]
+    got = fused(x, g, *w, **kw)
+    same = twin(x, g, *w, **kw)
+    for i, (q, t) in enumerate(zip(got, same)):
+        if i == 0:
+            q, t = (_valid_rows(v, valid, 256) for v in (q, t))
+        assert _rel_l2(q, t) <= TP_ORDER_TOL[torch.bfloat16], (
+            i, _rel_l2(q, t))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+def test_dpt_bwd_kernels_on_low_variance_rows(cuda, dtype, kind):
+    """Rows of variance ~1e-6, where the LN's eps of 1e-6 halves the
+    normalised rows' scale: the backward kernels (B8, B10, B12; their LN
+    statistics in LQ, UG or the first design's rows) hold their twins at
+    the DPT bars there, which an LN without its eps (or with another)
+    cannot."""
+    fused, twin = DPT_BWD_FNS[kind]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, kind, 3, True)
+    x = (x.float() * 1e-3).to(dtype)
+    got = fused(x, g, *w, **kw)
+    exact = twin(x.float(), g.float(), *w, **kw)
+    same = twin(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, same, valid, dtype)
+
+
 # --------------------------------------------------------------------------
 # Kernel B6: stage 2 of a TCN block under tensor parallelism
 # --------------------------------------------------------------------------

@@ -80,6 +80,26 @@ def test_compare_holds_the_tcn_kernels_at_their_bars():
     assert kvp._tcn_tol("b3 float32 cLN causal=1 d=1 dx") == 4e-3
 
 
+@pytest.mark.parametrize("key,bits", [
+    ("dpt inter bfloat16 S=128 heads=8 backward 0", False),
+    ("dpt intra bfloat16 S=256 heads=4 backward 3", False),
+    ("dpt intra bfloat16 S=128 heads=8 partial m=2 backward 1", False),
+    ("dpt ffn bfloat16 S=128 heads=8 partial m=4 backward 0", False),
+    ("dpt inter float32 S=128 heads=8 partial m=2 backward 0", True),
+    ("dpt intra float32 S=208 heads=4 backward 4", True),
+    ("dpt inter bfloat16 S=128 heads=8 partial m=2 forward", True),
+    ("b6 bfloat16 Hs=256 d=1 z", False),
+    ("b6 float32 Hs=128 d=16 sums", True)])
+def test_bitwise_holds_the_redesigned_bf16_outputs_by_distance(key, bits):
+    """The bf16 backwards of B8, B10 and B12 (and their partial modes) and
+    B6 in bf16 sum in another order than the first designs: held by
+    distance at their twins' bars; the forwards and every f32 output bit
+    for bit."""
+    assert kvp.bitwise(key) is bits
+    if not bits and key.startswith("dpt "):
+        assert kvp._tcn_tol(key) == 4e-2
+
+
 def test_compare_flags_a_missing_output():
     mine, other = _outs(0), _outs(0)
     del mine["b6 float32 Hs=256 d=1 z"]
