@@ -1,9 +1,23 @@
 // The bf16 design of both attention sublayer backwards for Hopper (sm_90a):
 // the intra-chunk one (B10, dpt_intra_bwd.cu) and the inter-chunk one (B8,
-// dpt_attention_bwd.cu), each also in partial mode (B10p, B8p). f32 keeps
-// the first design (launch_attention_bwd in dpt_bwd_common.cuh).
+// dpt_attention_bwd.cu), each also in partial mode (B10p, B8p); and the
+// forward frame built from its pieces, which the intra-chunk forward (B9,
+// B9p, dpt_intra.cu) runs (the inter-chunk forward B7 keeps the first
+// design for now). f32 keeps the first designs (launch_attention_bwd in
+// dpt_bwd_common.cuh, launch_attention in dpt_common.cuh).
 //
-// Six launches, on one stream:
+// The forward (launch_attention_fwd_wg), three launches:
+//   F1   attn_lq_kernel<BN, false>: LQ below without g's tile, dA, y or the
+//        LN statistics: qkv = round(LN(x) @ W_qkv);
+//   C    attn_fwd_core_kernel: the core's query side, passes 1 and 2 alone
+//        (core_row_stats and core_probs_pass, the device functions the
+//        backward's query side also calls): a = round(round(p) v) on
+//        mma.sync, the keys past L masked with -inf;
+//   out  attn_out_wg_kernel: x + round(a @ W_out) (partial: the product
+//        alone) per 128-row tile, a's panels and W_out's MN-major slabs
+//        through a ring, x's tile and the output staged over the ring.
+//
+// The backward, six launches, on one stream:
 //   LQ  one launch, per 128-row tile on the wgmma core (hopper_gemm.cuh):
 //       x's and g's tiles resident K-major, the LN of x in ln_rows_kernel's
 //       order over x's tile in place (so y has its bits; y and each row's
@@ -60,7 +74,7 @@
 // the softmax backward on the FMA units. What remains over the bound: the
 // qkv, dA, a, dqkv and y round trips through device memory (about 300 MB
 // written and read at the default), W's chunk partials, and the core's
-// recompute.
+// recompute. The forward's bounds are in dpt_intra.cu's note.
 
 #pragma once
 
@@ -68,21 +82,32 @@
 
 namespace {
 
-// ---- LQ ----
+// ---- LQ (and the forward's F1) ----
 
 // LQ's column tile: 128 where Bq (and so 3Bq) is a multiple of 128, else
-// 64; its ring depth (the 128-wide slots and stage tile leave room for 3).
-template <int BN>
-__host__ __device__ constexpr int lq_stages() { return BN == 128 ? 3 : 4; }
-
-template <int BN>
-constexpr size_t lq_smem(int B) {
-  return 1024 + 2 * static_cast<size_t>(B / kSlabK) * kWgRows * kLine +
-         static_cast<size_t>(lq_stages<BN>()) * BN * kLine + stage_bytes<BN>();
+// 64; its ring depth: the backward's 128-wide slots and stage tile beside
+// x's and g's tiles leave room for 3 (64-wide: 4); the forward (no g tile)
+// takes 4 at 128 wide (164 KB, one CTA per SM) and 3 at 64 wide, where
+// that leaves 108 KB, so that two CTAs share an SM and its 200 tiles run
+// in one wave (its LN and x's load are as long as at 128 wide, its
+// product a quarter).
+template <int BN, bool kBwd>
+__host__ __device__ constexpr int lq_stages() {
+  return kBwd ? (BN == 128 ? 3 : 4) : (BN == 128 ? 4 : 3);
 }
-static_assert(lq_smem<128>(256) <= kMaxDynSmem, "LQ's shared memory");
 
-// The workspace segments LQ writes.
+template <int BN, bool kBwd>
+constexpr size_t lq_smem(int B) {
+  return 1024 +
+         (kBwd ? 2 : 1) * static_cast<size_t>(B / kSlabK) * kWgRows * kLine +
+         static_cast<size_t>(lq_stages<BN, kBwd>()) * BN * kLine +
+         stage_bytes<BN>();
+}
+static_assert(lq_smem<128, true>(256) <= kMaxDynSmem, "LQ's shared memory");
+static_assert(2 * lq_smem<64, false>(256) <= 233472 - 2048,
+              "two forward LQ CTAs at 64 wide share an SM");
+
+// The workspace segments LQ writes (the forward: qkv alone, the rest null).
 struct LqOut {
   bf16* qkv;       // [R, 3Bq]
   bf16* dA;        // [R, Bq]
@@ -96,7 +121,7 @@ struct LqOut {
 // read MN-major; else w [cols, B] read K-major as w^T); after a tile's
 // last slab it leaves through the stage tile. pre() runs once with the
 // ring's first copies in flight.
-template <int BN, bool kTB, class Pre>
+template <int BN, int kStages, bool kTB, class Pre>
 __device__ __forceinline__ void lq_product(float (&acc)[BN / 2], int cols,
                                            int B, uint32_t a_tile,
                                            const bf16* w, bf16* out,
@@ -104,7 +129,7 @@ __device__ __forceinline__ void lq_product(float (&acc)[BN / 2], int cols,
                                            int R, Pre pre) {
   const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
   const int nk = B / kSlabK;
-  ring_run<lq_stages<BN>()>(
+  ring_run<kStages>(
       (cols / BN) * nk, ring, BN * kLine,
       [&](int i, uint32_t slot) {
         const int n0 = (i / nk) * BN, k0 = (i % nk) * kSlabK;
@@ -128,53 +153,60 @@ __device__ __forceinline__ void lq_product(float (&acc)[BN / 2], int cols,
       });
 }
 
-// Launch LQ (top note) for rows [r0, r0 + 128), grid (ceil(R / 128)), block
-// 256: x's and g's tiles copied in with the first ring's first slab, y over
-// x's tile in place; then qkv = round(y @ W_qkv) and dA = round(g @
-// W_out^T), one ring each. Rows at or beyond R read x and g as zeros and
-// are not stored.
-template <int BN>
+// Launch LQ (top note; kBwd) or the forward's F1 for rows [r0, r0 + 128),
+// grid (ceil(R / 128)), block 256: x's tile (and g's, kBwd) copied in with
+// the first ring's first slab, y over x's tile in place; then qkv =
+// round(y @ W_qkv), and with kBwd dA = round(g @ W_out^T), one ring each.
+// The forward writes neither y nor the LN statistics (o.y, o.lnstat null)
+// and reads no g. Rows at or beyond R read x and g as zeros and are not
+// stored.
+template <int BN, bool kBwd>
 __global__ void __launch_bounds__(kWgCta, 1)
     attn_lq_kernel(DptAttnParams f, const bf16* __restrict__ g, LqOut o) {
   extern __shared__ uint8_t wg_smem[];
+  constexpr int kStages = lq_stages<BN, kBwd>();
   const int R = static_cast<int>(f.R), B = f.B, Bq = f.Bq;
   const int nk = B / kSlabK;
   const uint32_t ys = align_1024(wg_smem);
-  const uint32_t gs = ys + nk * kWgRows * kLine;
-  const uint32_t ring = gs + nk * kWgRows * kLine;
+  const uint32_t gs = ys + nk * kWgRows * kLine;   // kBwd only
+  const uint32_t ring = ys + (kBwd ? 2 : 1) * nk * kWgRows * kLine;
   bf16* st = reinterpret_cast<bf16*>(
-      smem_ptr(wg_smem, ring + lq_stages<BN>() * BN * kLine));
+      smem_ptr(wg_smem, ring + kStages * BN * kLine));
   const int tid = threadIdx.x, r0 = blockIdx.x * kWgRows;
   for (int s = 0; s < nk; ++s) {   // in the first ring's first copy group
     load_k_panel(ys + s * kWgRows * kLine, static_cast<const bf16*>(f.x), B,
                  r0, kWgRows, R, s * kSlabK, tid, kWgCta);
-    load_k_panel(gs + s * kWgRows * kLine, g, B, r0, kWgRows, R, s * kSlabK,
-                 tid, kWgCta);
+    if constexpr (kBwd)
+      load_k_panel(gs + s * kWgRows * kLine, g, B, r0, kWgRows, R,
+                   s * kSlabK, tid, kWgCta);
   }
   float acc[BN / 2];
-  lq_product<BN, true>(
+  lq_product<BN, kStages, true>(
       acc, 3 * Bq, B, ys, static_cast<const bf16*>(f.w_qkv), o.qkv, ring, st,
       r0, R, [&] {
-        cp_async_wait<lq_stages<BN>() - 2>();   // the first group has landed
+        cp_async_wait<kStages - 2>();   // the first group has landed
         __syncthreads();
         ln_resident_tile(smem_ptr(wg_smem, ys), f.gamma, f.beta, r0, R, B,
                          o.y, o.lnstat);
         // the ring's next barrier publishes the tile
       });
-  __syncthreads();   // the first ring's slots and the stage are free
-  lq_product<BN, false>(acc, Bq, B, gs, static_cast<const bf16*>(f.w_out),
-                        o.dA, ring, st, r0, R, [] {});
+  if constexpr (kBwd) {
+    __syncthreads();   // the first ring's slots and the stage are free
+    lq_product<BN, kStages, false>(acc, Bq, B, gs,
+                                   static_cast<const bf16*>(f.w_out), o.dA,
+                                   ring, st, r0, R, [] {});
+  }
 }
 
-template <int BN>
+template <int BN, bool kBwd>
 int launch_lq(const DptAttnParams& f, const bf16* g, const LqOut& o,
               int tiles, cudaStream_t stream) {
-  const size_t smem = lq_smem<BN>(f.B);
+  const size_t smem = lq_smem<BN, kBwd>(f.B);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_lq_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_lq_kernel<BN, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_lq_kernel<BN><<<tiles, kWgCta, smem, stream>>>(f, g, o);
+  attn_lq_kernel<BN, kBwd><<<tiles, kWgCta, smem, stream>>>(f, g, o);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,9 +342,159 @@ struct Gather {
   }
 };
 
-// Shared memory of a core CTA: two staged [T, D + 8] tiles, T * 3 floats
-// (the keys' bias, or the queries' stats) and each warp's two [16, D + 8]
-// tiles of its own rows.
+// ---- The core's pieces, shared by the forward core and the backward's ----
+
+// Rows [r0, r0 + rows) of the problem, columns [c1, c1 + D) of s1 (rows of
+// ld1) into d1 ([rows][D + 8]), and likewise (s2, c2, ld2) into d2 unless
+// d2 is null, by cp.async, by the nt threads from t0; positions at or
+// beyond the length as zeros; one commit group.
+template <int D, bool kInter>
+__device__ __forceinline__ void core_copy_rows(
+    const Gather<kInter>& G, bf16* d1, const bf16* s1, int ld1, int c1,
+    bf16* d2, const bf16* s2, int ld2, int c2, int r0, int rows, int t0,
+    int nt) {
+  constexpr int LD = core_ld<D>(), kC = D / 8;   // 16-byte chunks of a row
+  const int L = G.length();
+  for (int e = t0; e < (d2 ? 2 : 1) * rows * kC; e += nt) {
+    const int two = e / (rows * kC), i = (e / kC) % rows, c = 8 * (e % kC);
+    const bool ok = r0 + i < L;
+    const size_t row = G.row(ok ? r0 + i : 0);
+    const bf16* src = two ? s2 + row * ld2 + c2 + c : s1 + row * ld1 + c1 + c;
+    cp_async16(smem_u32((two ? d2 : d1) + i * LD + c), src, ok);
+  }
+  cp_async_commit();
+}
+
+// Block b of T rows of the problem (of Lp, the length padded to the 16-row
+// tile) of (s1, c1, ld1) and (s2, c2, ld2) into x1, x2, and fill(i,
+// position) for each of its rows; every thread calls it, and it ends with
+// the block published.
+template <int D, bool kInter, class Fill>
+__device__ __forceinline__ void core_stage_block(
+    const Gather<kInter>& G, int Lp, int T, int b, bf16* x1, const bf16* s1,
+    int ld1, int c1, bf16* x2, const bf16* s2, int ld2, int c2, Fill fill) {
+  __syncthreads();   // the previous block's readers are done
+  const int r0 = b * T, rows = min(T, Lp - r0);
+  core_copy_rows<D>(G, x1, s1, ld1, c1, x2, s2, ld2, c2, r0, rows,
+                    threadIdx.x, blockDim.x);
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) fill(i, r0 + i);
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The calling warp's accumulated 16 x D rows [r0, r0 + 16), rounded once,
+// to columns [col, col + D) of dst (rows of ld); positions beyond the
+// length dropped.
+template <int D, bool kInter>
+__device__ __forceinline__ void core_store_rows(const Gather<kInter>& G,
+                                                bf16* dst, int ld, int col,
+                                                int r0,
+                                                const float (&acc)[D / 8][4],
+                                                int lane) {
+  const int L = G.length(), g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = r0 + g + 8 * half;
+    if (i >= L) continue;
+    bf16* d = dst + G.row(i) * ld + col + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(d + 8 * nt) =
+          pack_bf16(acc[nt][2 * half], acc[nt][2 * half + 1]);
+  }
+}
+
+// The logits of the warp's 16 query rows (A fragments qa) against key tile
+// k0 of the staged block (keys, their bias in bias): rows g, g + 8 of the
+// tile, key 8 j + 2 t4 + (e & 1) in s[j][e].
+template <int D>
+__device__ __forceinline__ void core_logits(float (&s)[2][4],
+                                            const uint32_t (&qa)[D / 16][4],
+                                            const bf16* keys,
+                                            const float* bias, int k0,
+                                            float scale, int lane) {
+  const int t4 = lane & 3;
+  mm_rows_t<D>(s, qa, keys, k0, lane);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = s[j][e] * scale + bias[k0 + 8 * j + 2 * t4 + (e & 1)];
+}
+
+// Pass 1 of the query side: the row max and denominator of the warp's 16
+// query rows, online over the key tiles of every staged block (stage(b)
+// stages block b, and every thread of the CTA calls it; an inactive warp
+// only stages). On return den and inv hold the whole quad's sums.
+template <int D, class Stage>
+__device__ __forceinline__ void core_row_stats(
+    const uint32_t (&qa)[D / 16][4], bool active, int Lp, int T,
+    const bf16* keys, const float* bias, float scale, int lane, Stage stage,
+    float (&mx)[2], float (&den)[2], float (&inv)[2]) {
+  const int n_blocks = (Lp + T - 1) / T;
+  mx[0] = mx[1] = -INFINITY;
+  den[0] = den[1] = 0.f;
+  for (int b = 0; b < n_blocks; ++b) {
+    stage(b);
+    if (!active) continue;
+    const int rows = min(T, Lp - b * T);
+    for (int k0 = 0; k0 < rows; k0 += 16) {
+      float s[2][4];
+      core_logits<D>(s, qa, keys, bias, k0, scale, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float tm = fmaxf(fmaxf(s[0][2 * half], s[0][2 * half + 1]),
+                         fmaxf(s[1][2 * half], s[1][2 * half + 1]));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+        const float mn = fmaxf(mx[half], tm);
+        float sum = den[half] * __expf(mx[half] - mn);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          sum += __expf(s[j][2 * half] - mn) + __expf(s[j][2 * half + 1] - mn);
+        den[half] = sum;
+        mx[half] = mn;
+      }
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    den[half] += __shfl_xor_sync(0xffffffffu, den[half], 1);
+    den[half] += __shfl_xor_sync(0xffffffffu, den[half], 2);
+    inv[half] = 1.f / den[half];
+  }
+}
+
+// A pass of the query side over the key tiles of every staged block with
+// the rows' stats: p = exp(s - max) / den in f32 for each key tile k0 of
+// the staged block, handed to tile(p, k0) (pass 2 of both cores, pass 3 of
+// the backward's).
+template <int D, class Stage, class Tile>
+__device__ __forceinline__ void core_probs_pass(
+    const uint32_t (&qa)[D / 16][4], bool active, int Lp, int T,
+    const bf16* keys, const float* bias, float scale, int lane, Stage stage,
+    const float (&mx)[2], const float (&inv)[2], Tile tile) {
+  const int n_blocks = (Lp + T - 1) / T;
+  for (int b = 0; b < n_blocks; ++b) {
+    stage(b);
+    if (!active) continue;
+    const int rows = min(T, Lp - b * T);
+    for (int k0 = 0; k0 < rows; k0 += 16) {
+      float p[2][4];
+      core_logits<D>(p, qa, keys, bias, k0, scale, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[j][e] = __expf(p[j][e] - mx[e >> 1]) * inv[e >> 1];
+      tile(p, k0);
+    }
+  }
+}
+
+// Shared memory of a backward core CTA: two staged [T, D + 8] tiles, T * 3
+// floats (the keys' bias, or the queries' stats) and each warp's two
+// [16, D + 8] tiles of its own rows.
 template <int D>
 __host__ __device__ constexpr size_t core_wg_smem(int T, int warps) {
   return (2 * static_cast<size_t>(T) + 2 * 16 * warps) * core_ld<D>() *
@@ -327,7 +509,6 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
     attn_bwd_core_kernel(DptAttnBwdParams P, float scale, int T) {
   extern __shared__ __align__(128) uint8_t core_smem[];
   constexpr int LD = core_ld<D>();
-  constexpr int kC = D / 8;   // 16-byte chunks of a head's row
   const DptAttnParams& f = P.f;
   const Gather<kInter> G{f};
   const int L = G.length(), Lp = (L + 15) & ~15;
@@ -343,28 +524,14 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
   bf16* dqkv = static_cast<bf16*>(P.dqkv);
   const int W3 = 3 * Bq, cq = hd * D, ck = Bq + hd * D, cv = 2 * Bq + hd * D;
 
-  // rows [r0, r0 + rows) of (s1 from column c1, rows of ld1) and (s2, c2,
-  // ld2) into d1, d2 by cp.async, by the n threads from t0; positions at or
-  // beyond L as zeros; one commit group
-  auto copy_rows = [&](bf16* d1, const bf16* s1, int ld1, int c1, bf16* d2,
-                       const bf16* s2, int ld2, int c2, int r0, int rows,
-                       int t0, int nt) {
-    for (int e = t0; e < 2 * rows * kC; e += nt) {
-      const int two = e / (rows * kC), i = (e / kC) % rows, c = 8 * (e % kC);
-      const bool ok = r0 + i < L;
-      const size_t row = G.row(ok ? r0 + i : 0);
-      const bf16* src = two ? s2 + row * ld2 + c2 + c : s1 + row * ld1 + c1 + c;
-      cp_async16(smem_u32((two ? d2 : d1) + i * LD + c), src, ok);
-    }
-    cp_async_commit();
-  };
   // the A fragments of this warp's rows [r0, r0 + 16) of (s1, c1, ld1) and
   // (s2, c2, ld2)
   auto own_frags = [&](uint32_t (&a1)[D / 16][4], uint32_t (&a2)[D / 16][4],
                        const bf16* s1, int ld1, int c1, const bf16* s2,
                        int ld2, int c2, int r0) {
     __syncwarp();   // the previous tile's fragments are read
-    copy_rows(own, s1, ld1, c1, own + 16 * LD, s2, ld2, c2, r0, 16, lane, 32);
+    core_copy_rows<D>(G, own, s1, ld1, c1, own + 16 * LD, s2, ld2, c2, r0,
+                      16, lane, 32);
     cp_async_wait<0>();
     __syncwarp();
 #pragma unroll
@@ -373,43 +540,17 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
       frag_a<D>(a2[kk], own + 16 * LD, 0, 16 * kk, lane);
     }
   };
-  // this warp's accumulated 16 x D rows [r0, r0 + 16), rounded once, to
-  // columns [col, col + D) of dst (rows of ld); positions beyond L dropped
-  auto store_rows = [&](bf16* dst, int ld, int col, int r0,
-                        const float (&acc)[D / 8][4]) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = r0 + g + 8 * half;
-      if (i >= L) continue;
-      bf16* d = dst + G.row(i) * ld + col + 2 * t4;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(d + 8 * nt) =
-            pack_bf16(acc[nt][2 * half], acc[nt][2 * half + 1]);
-    }
-  };
   const int n_tiles = Lp / 16, n_blocks = (Lp + T - 1) / T;
   int staged = -1;   // the block in shared memory (uniform over the CTA)
-  // block b's rows of (s1, c1, ld1) and (s2, c2, ld2) into x1, x2 and
-  // fill(i, position) into s_vec, unless it is there; every thread calls it
-  auto stage = [&](int b, const bf16* s1, int ld1, int c1, const bf16* s2,
-                   int ld2, int c2, auto fill) {
-    if (staged == b) return;
-    __syncthreads();   // the previous block's readers are done
-    const int r0 = b * T, rows = min(T, Lp - r0);
-    copy_rows(x1, s1, ld1, c1, x2, s2, ld2, c2, r0, rows, threadIdx.x,
-              blockDim.x);
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) fill(i, r0 + i);
-    cp_async_wait<0>();
-    __syncthreads();
-    staged = b;
-  };
   // the keys' bias, -inf beyond L
   auto key_fill = [&](int i, int k) {
     s_vec[i] = k < L ? G.key_bias(k) : -INFINITY;
   };
   auto stage_keys = [&](int b) {
-    stage(b, qkv, W3, ck, qkv, W3, cv, key_fill);
+    if (staged == b) return;
+    core_stage_block<D>(G, Lp, T, b, x1, qkv, W3, ck, x2, qkv, W3, cv,
+                        key_fill);
+    staged = b;
   };
 
   // ---- query side: a warp per 16 query rows ----
@@ -418,86 +559,36 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
     const bool active = rnd + warp < n_tiles;
     uint32_t qa[D / 16][4], da[D / 16][4];
     if (active) own_frags(qa, da, qkv, W3, cq, dA, Bq, hd * D, q0);
-    // the logits of key tile k0 of the staged block (rows g, g + 8)
-    auto logits = [&](float (&s)[2][4], int k0) {
-      mm_rows_t<D>(s, qa, x1, k0, lane);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = s[j][e] * scale + s_vec[k0 + 8 * j + 2 * t4 + (e & 1)];
-    };
-    // pass 1: the row max and denominator, online over the key tiles
-    float mx[2] = {-INFINITY, -INFINITY}, den[2] = {0.f, 0.f};
-    for (int b = 0; b < n_blocks; ++b) {
-      stage_keys(b);
-      if (!active) continue;
-      const int rows = min(T, Lp - b * T);
-      for (int k0 = 0; k0 < rows; k0 += 16) {
-        float s[2][4];
-        logits(s, k0);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float tm = fmaxf(fmaxf(s[0][2 * half], s[0][2 * half + 1]),
-                           fmaxf(s[1][2 * half], s[1][2 * half + 1]));
-          tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-          tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
-          const float mn = fmaxf(mx[half], tm);
-          float sum = den[half] * __expf(mx[half] - mn);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            sum += __expf(s[j][2 * half] - mn) + __expf(s[j][2 * half + 1] - mn);
-          den[half] = sum;
-          mx[half] = mn;
-        }
-      }
-    }
-    float inv[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      den[half] += __shfl_xor_sync(0xffffffffu, den[half], 1);
-      den[half] += __shfl_xor_sync(0xffffffffu, den[half], 2);
-      inv[half] = 1.f / den[half];
-    }
-    // p (f32) of the logits s, in place
-    auto probs = [&](float (&s)[2][4]) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = __expf(s[j][e] - mx[e >> 1]) * inv[e >> 1];
-    };
+    // pass 1: the row max and denominator
+    float mx[2], den[2], inv[2];
+    core_row_stats<D>(qa, active, Lp, T, x1, s_vec, scale, lane, stage_keys,
+                      mx, den, inv);
     // pass 2: a = round(round(p) v), rowsum = sum p dp
     float acc[D / 8][4], rsum[2] = {0.f, 0.f};
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    for (int b = 0; b < n_blocks; ++b) {
-      stage_keys(b);
-      if (!active) continue;
-      const int rows = min(T, Lp - b * T);
-      for (int k0 = 0; k0 < rows; k0 += 16) {
-        float p[2][4], dp[2][4];
-        logits(p, k0);
-        probs(p);
-        uint32_t pa[4];
-        acc_to_a(pa, p);
-        mm_acc<D>(acc, pa, x2, k0, lane);
-        mm_rows_t<D>(dp, da, x2, k0, lane);
+    core_probs_pass<D>(qa, active, Lp, T, x1, s_vec, scale, lane, stage_keys,
+                       mx, inv, [&](float (&p)[2][4], int k0) {
+      float dp[2][4];
+      uint32_t pa[4];
+      acc_to_a(pa, p);
+      mm_acc<D>(acc, pa, x2, k0, lane);
+      mm_rows_t<D>(dp, da, x2, k0, lane);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) rsum[e >> 1] += p[j][e] * dp[j][e];
-      }
-    }
+        for (int e = 0; e < 4; ++e) rsum[e >> 1] += p[j][e] * dp[j][e];
+    });
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       rsum[half] += __shfl_xor_sync(0xffffffffu, rsum[half], 1);
       rsum[half] += __shfl_xor_sync(0xffffffffu, rsum[half], 2);
     }
     if (active) {
-      store_rows(static_cast<bf16*>(f.a), Bq, hd * D, q0, acc);
+      core_store_rows<D>(G, static_cast<bf16*>(f.a), Bq, hd * D, q0, acc,
+                         lane);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = q0 + g + 8 * half;
@@ -513,30 +604,24 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
     for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    for (int b = 0; b < n_blocks; ++b) {
-      stage_keys(b);
-      if (!active) continue;
-      const int rows = min(T, Lp - b * T);
-      for (int k0 = 0; k0 < rows; k0 += 16) {
-        float p[2][4], dp[2][4];
-        logits(p, k0);
-        probs(p);
-        mm_rows_t<D>(dp, da, x2, k0, lane);
+    core_probs_pass<D>(qa, active, Lp, T, x1, s_vec, scale, lane, stage_keys,
+                       mx, inv, [&](float (&p)[2][4], int k0) {
+      float dp[2][4];
+      mm_rows_t<D>(dp, da, x2, k0, lane);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            p[j][e] = p[j][e] * (dp[j][e] - rsum[e >> 1]) * scale;
-        uint32_t dsa[4];
-        acc_to_a(dsa, p);
-        mm_acc<D>(acc, dsa, x1, k0, lane);
-      }
-    }
-    if (active) store_rows(dqkv, W3, cq, q0, acc);
+        for (int e = 0; e < 4; ++e)
+          p[j][e] = p[j][e] * (dp[j][e] - rsum[e >> 1]) * scale;
+      uint32_t dsa[4];
+      acc_to_a(dsa, p);
+      mm_acc<D>(acc, dsa, x1, k0, lane);
+    });
+    if (active) core_store_rows<D>(G, dqkv, W3, cq, q0, acc, lane);
   }
 
   // ---- key side: a warp per 16 key rows ----
-  staged = -1;   // stage()'s first barrier also publishes the stats above
+  staged = -1;   // the first staging barrier also publishes the stats above
   // the queries' (max, 1 / denominator, rowsum); +inf, 0, 0 beyond L
   auto stat_fill = [&](int i, int q) {
     float m = INFINITY, iv = 0.f, rs = 0.f;
@@ -551,7 +636,10 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
     s_vec[3 * i + 2] = rs;
   };
   auto stage_queries = [&](int b) {
-    stage(b, qkv, W3, cq, dA, Bq, hd * D, stat_fill);
+    if (staged == b) return;
+    core_stage_block<D>(G, Lp, T, b, x1, qkv, W3, cq, x2, dA, Bq, hd * D,
+                        stat_fill);
+    staged = b;
   };
   for (int rnd = 0; rnd < n_tiles; rnd += n_warps) {
     const int k0 = (rnd + warp) * 16;
@@ -597,18 +685,25 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
       }
     }
     if (active) {
-      store_rows(dqkv, W3, ck, k0, dk);
-      store_rows(dqkv, W3, cv, k0, dv);
+      core_store_rows<D>(G, dqkv, W3, ck, k0, dk, lane);
+      core_store_rows<D>(G, dqkv, W3, cv, k0, dv, lane);
     }
   }
 }
 
+// The staged block's rows and the CTA's warps for a problem of length L:
+// the length padded to the 16-row tile, at most kCoreBlock; one warp per
+// 16-row tile, at most kCoreWarpsWg.
+inline void core_shape(int L, int* T, int* warps) {
+  const int Lp = (L + 15) & ~15;
+  *T = Lp < kCoreBlock ? Lp : kCoreBlock;
+  *warps = Lp / 16 < kCoreWarpsWg ? Lp / 16 : kCoreWarpsWg;
+}
+
 template <int D, bool kInter>
 int launch_core_wg(const DptAttnBwdParams& P, cudaStream_t stream) {
-  const int L = kInter ? P.f.n : P.f.S;
-  const int Lp = (L + 15) & ~15;
-  const int T = Lp < kCoreBlock ? Lp : kCoreBlock;
-  const int warps = Lp / 16 < kCoreWarpsWg ? Lp / 16 : kCoreWarpsWg;
+  int T, warps;
+  core_shape(kInter ? P.f.n : P.f.S, &T, &warps);
   const size_t smem = core_wg_smem<D>(T, warps);
   auto kernel = attn_bwd_core_kernel<D, kInter>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -618,6 +713,98 @@ int launch_core_wg(const DptAttnBwdParams& P, cudaStream_t stream) {
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   kernel<<<dim3(kInter ? P.f.S : P.f.n, P.f.M, P.f.h), 32 * warps, smem,
            stream>>>(P, scale, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- The forward core: the query side's passes 1 and 2 alone ----
+
+// Shared memory of a forward core CTA: the staged keys' k and v [T, D + 8],
+// each warp's [16, D + 8] tile of its q rows, and the keys' bias.
+template <int D>
+__host__ __device__ constexpr size_t core_fwd_smem(int T, int warps) {
+  return (2 * static_cast<size_t>(T) + 16 * warps) * core_ld<D>() *
+             sizeof(bf16) +
+         static_cast<size_t>(T) * sizeof(float);
+}
+
+// a = round(round(softmax(q k^T scale + bias)) v) for one problem (grid
+// (intra: n, inter: S; M; h), 32 * warps threads): a warp per 16 query
+// rows, its q fragments in registers; pass 1 the row max and denominator
+// (online), pass 2 p = exp(s - max) / den, rounded, and a in f32 on
+// mma.sync, over key tiles of 16 of blocks of up to T keys staged in
+// shared memory (keys beyond L: zero rows with bias -inf, p exactly 0).
+template <int D, bool kInter>
+__global__ void __launch_bounds__(kCoreWarpsWg * 32)
+    attn_fwd_core_kernel(DptAttnParams f, float scale, int T) {
+  extern __shared__ __align__(128) uint8_t core_smem[];
+  constexpr int LD = core_ld<D>();
+  const Gather<kInter> G{f};
+  const int L = G.length(), Lp = (L + 15) & ~15;
+  const int Bq = f.Bq, hd = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  bf16* ks = reinterpret_cast<bf16*>(core_smem);
+  bf16* vs = ks + T * LD;
+  bf16* own = vs + T * LD + warp * 16 * LD;
+  float* bias = reinterpret_cast<float*>(ks + (2 * T + 16 * n_warps) * LD);
+  const bf16* qkv = static_cast<const bf16*>(f.qkv);
+  const int W3 = 3 * Bq;
+  const int n_tiles = Lp / 16;
+  int staged = -1;   // the block in shared memory (uniform over the CTA)
+  auto stage_keys = [&](int b) {
+    if (staged == b) return;
+    core_stage_block<D>(G, Lp, T, b, ks, qkv, W3, Bq + hd * D, vs, qkv, W3,
+                        2 * Bq + hd * D, [&](int i, int k) {
+                          bias[i] = k < L ? G.key_bias(k) : -INFINITY;
+                        });
+    staged = b;
+  };
+  for (int rnd = 0; rnd < n_tiles; rnd += n_warps) {
+    const int q0 = (rnd + warp) * 16;
+    const bool active = rnd + warp < n_tiles;
+    uint32_t qa[D / 16][4];
+    if (active) {
+      __syncwarp();   // the previous tile's fragments are read
+      core_copy_rows<D>(G, own, qkv, W3, hd * D, nullptr, nullptr, 0, 0, q0,
+                        16, lane, 32);
+      cp_async_wait<0>();
+      __syncwarp();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) frag_a<D>(qa[kk], own, 0, 16 * kk, lane);
+    }
+    float mx[2], den[2], inv[2];
+    core_row_stats<D>(qa, active, Lp, T, ks, bias, scale, lane, stage_keys,
+                      mx, den, inv);
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    core_probs_pass<D>(qa, active, Lp, T, ks, bias, scale, lane, stage_keys,
+                       mx, inv, [&](float (&p)[2][4], int k0) {
+      uint32_t pa[4];
+      acc_to_a(pa, p);
+      mm_acc<D>(acc, pa, vs, k0, lane);
+    });
+    if (active)
+      core_store_rows<D>(G, static_cast<bf16*>(f.a), Bq, hd * D, q0, acc,
+                         lane);
+  }
+}
+
+template <int D, bool kInter>
+int launch_fwd_core(const DptAttnParams& f, cudaStream_t stream) {
+  int T, warps;
+  core_shape(kInter ? f.n : f.S, &T, &warps);
+  const size_t smem = core_fwd_smem<D>(T, warps);
+  auto kernel = attn_fwd_core_kernel<D, kInter>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  kernel<<<dim3(kInter ? f.S : f.n, f.M, f.h), 32 * warps, smem, stream>>>(
+      f, scale, T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -686,8 +873,8 @@ int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   float* part_out = ws_f32 + L.f32[3];
   float* lnpart = ws_f32 + L.f32[4];
   const bf16* g = static_cast<const bf16*>(P.g);
-  CTN_RETURN_IF(Bq % 128 ? launch_lq<64>(f, g, o, L.tiles, stream)
-                         : launch_lq<128>(f, g, o, L.tiles, stream));
+  CTN_RETURN_IF((Bq % 128 ? launch_lq<64, true>(f, g, o, L.tiles, stream)
+                          : launch_lq<128, true>(f, g, o, L.tiles, stream)));
   CTN_RETURN_IF(core(P, stream));
   CTN_RETURN_IF(launch_wgrad_parts_wg(o.y, P.dqkv, R, B, 3 * Bq, part_qkv,
                                       stream));
@@ -718,6 +905,135 @@ int launch_core_wg_d(const DptAttnBwdParams& P, cudaStream_t stream) {
   const int d = P.f.Bq / P.f.h;
   return d == 32 ? launch_core_wg<32, kInter>(P, stream)
                  : launch_core_wg<64, kInter>(P, stream);
+}
+
+// ---- The forward's frame (F1, the core, out) ----
+
+constexpr int kOutStages = 4;   // out's ring depth
+
+// out's shared memory: the ring of (a's panel, W_out's slab); x's tile and
+// the output, staged after the product, fit in it.
+template <int BN>
+constexpr size_t out_wg_smem() {
+  return 1024 + static_cast<size_t>(kOutStages) * (kWgRows + BN) * kLine;
+}
+static_assert(kWgRows * (64 + 8) * sizeof(bf16) <=
+                  kOutStages * (kWgRows + 64) * kLine &&
+              kWgRows * (256 + 8) * sizeof(bf16) <=
+                  kOutStages * (kWgRows + 256) * kLine,
+              "out's staged tile");
+
+// out = x + round(a @ W_out) for rows [r0, r0 + 128) (partial:
+// round(a @ W_out) alone), grid (ceil(R / 128)), block 256: a's 64-deep
+// panels (K-major, rows at or beyond R as zeros) and W_out's [64, BN]
+// slabs (MN-major, columns at or beyond B as zeros; BN >= B) through the
+// ring into a BN-wide accumulator; then x's tile over the ring, the
+// epilogue in place over it, and 16-byte rows out.
+template <int BN>
+__global__ void __launch_bounds__(kWgCta, 1) attn_out_wg_kernel(DptAttnParams f) {
+  extern __shared__ uint8_t wg_smem[];
+  constexpr uint32_t kA = kWgRows * kLine, kSlot = kA + BN * kLine;
+  constexpr int kLd = BN + 8;   // 16 bytes of pad: conflict-free pairs
+  const uint32_t ring = align_1024(wg_smem);
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int r0 = blockIdx.x * kWgRows, R = static_cast<int>(f.R), B = f.B;
+  const int Bq = f.Bq;
+  const bf16* a = static_cast<const bf16*>(f.a);
+  const bf16* w = static_cast<const bf16*>(f.w_out);
+  const bool residual = !f.partial;
+  float acc[BN / 2];
+  ring_run<kOutStages>(
+      Bq / kSlabK, ring, kSlot,
+      [&](int s, uint32_t slot) {
+        load_k_panel(slot, a, Bq, r0, kWgRows, R, s * kSlabK, tid, kWgCta);
+        load_mn_slab(slot + kA, w, B, s * kSlabK, Bq, 0, BN, B, tid, kWgCta);
+      },
+      [] {},
+      [&](int s, uint32_t slot) {
+        mma_begin(acc);
+        mma_slab<BN, false, true>(acc, slot + wg * 64 * kLine, slot + kA,
+                                  s > 0);
+        mma_end(acc);
+      });
+  bf16* st = reinterpret_cast<bf16*>(smem_ptr(wg_smem, ring));
+  const bf16* x = static_cast<const bf16*>(f.x);
+  bf16* out = static_cast<bf16*>(f.out);
+  __syncthreads();   // every warpgroup is done with the ring
+  if (residual) {
+    for (int v = tid; v < kWgRows * (B / 8); v += kWgCta) {
+      const int rl = v / (B / 8), c = 8 * (v % (B / 8));
+      const bool ok = r0 + rl < R;
+      cp_async16(smem_u32(st + rl * kLd + c),
+                 x + (ok ? static_cast<size_t>(r0 + rl) * B + c : 0), ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 2; j += 2) {
+    const int c = acc_col(t, j);
+    if (c >= B) continue;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(
+        st + (64 * wg + acc_row(t, j)) * kLd + c);
+    float o0 = round_to<bf16>(acc[j]), o1 = round_to<bf16>(acc[j + 1]);
+    if (residual) {
+      const float2 xv = __bfloat1622float2(*e);
+      o0 += xv.x;
+      o1 += xv.y;
+    }
+    *e = __floats2bfloat162_rn(o0, o1);
+  }
+  __syncthreads();
+  for (int v = tid; v < kWgRows * (B / 8); v += kWgCta) {
+    const int rl = v / (B / 8), c = 8 * (v % (B / 8));
+    if (r0 + rl < R)
+      *reinterpret_cast<uint4*>(&out[static_cast<size_t>(r0 + rl) * B + c]) =
+          *reinterpret_cast<const uint4*>(&st[rl * kLd + c]);
+  }
+}
+
+template <int BN>
+int launch_out_bn(const DptAttnParams& f, int tiles, cudaStream_t stream) {
+  constexpr size_t smem = out_wg_smem<BN>();
+  static_assert(smem <= kMaxDynSmem, "out's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_out_wg_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_out_wg_kernel<BN><<<tiles, kWgCta, smem, stream>>>(f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 attention forward: F1 (LQ without its dA product, y and
+// statistics: qkv = round(LN(x) @ W_qkv) into f.qkv), the core
+// (core(f, stream): a into f.a) and out (x + round(a @ W_out), or the
+// product alone in partial mode). B a multiple of 64 up to 256 (out's tile
+// as wide as the row, 256 at B = 192), Bq a multiple of 64. Returns the
+// first CUDA error.
+template <typename Core>
+int launch_attention_fwd_wg(const DptAttnParams& f, cudaStream_t stream,
+                            Core core) {
+  const int B = f.B, Bq = f.Bq;
+  if (B % kSlabK || B > kMaxWidth || Bq % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = static_cast<int>((f.R + kWgRows - 1) / kWgRows);
+  LqOut o = {static_cast<bf16*>(f.qkv), nullptr, nullptr, nullptr};
+  CTN_RETURN_IF((Bq % 128
+                     ? launch_lq<64, false>(f, nullptr, o, tiles, stream)
+                     : launch_lq<128, false>(f, nullptr, o, tiles, stream)));
+  CTN_RETURN_IF(core(f, stream));
+  if (B <= 64) return launch_out_bn<64>(f, tiles, stream);
+  if (B <= 128) return launch_out_bn<128>(f, tiles, stream);
+  return launch_out_bn<256>(f, tiles, stream);
+}
+
+// The forward core for head width d (32 or 64).
+template <bool kInter>
+int launch_fwd_core_d(const DptAttnParams& f, cudaStream_t stream) {
+  const int d = f.Bq / f.h;
+  return d == 32 ? launch_fwd_core<32, kInter>(f, stream)
+                 : launch_fwd_core<64, kInter>(f, stream);
 }
 
 }  // namespace

@@ -290,14 +290,18 @@ int launch_ln_rows(const void* x, int rows, int B, const float* gamma,
 // ---- Pieces on the wgmma core (hopper_gemm.cuh), bf16 ----
 //
 // The bf16 designs of the FFN backward (dpt_ffn_bwd.cu) and of both
-// attention backwards (dpt_attn_bwd_wg.cuh) run on these; they sit beside
-// the first design's pieces above, which the f32 backwards keep. What
-// bounds them: the products run on wgmma at B <= 256 (kMaxWidth: DN's tile
-// is as wide as the row) and one CTA of two warpgroups per SM where a
-// 128-row tile of x or g stays resident (LQ, UG, DN: 179-214 KB).
+// attention backwards (dpt_attn_bwd_wg.cuh) run on these, and so do the
+// bf16 FFN forward (dpt_ffn.cu) and intra attention forward (dpt_intra.cu);
+// they sit beside the first design's pieces above, which the f32 kernels
+// keep. What bounds them: the products run on wgmma at B <= 256
+// (kMaxWidth: DN's tile is as wide as the row) and one CTA of two
+// warpgroups per SM where a 128-row tile of x or g stays resident (LQ, UG,
+// DN: 179-214 KB).
 //
+// - gelu_and_grad_fast, gelu_tanh_fast: the tanh-GELU (and its
+//   derivative) on the fast exponential (B12's UG, B11's forward);
 // - ln_resident_tile: the LN of a resident K-major tile in place, in
-//   ln_rows_kernel's order (LQ's and UG's y);
+//   ln_rows_kernel's order (LQ's and UG's y, B11's);
 // - launch_wgrad_parts_wg: the chunk partials of a^T @ b on
 //   wgrad_wg_kernel (both operands MN-major, as they are stored), in
 //   chunks of rows small enough that the grid fills the card;
@@ -447,12 +451,38 @@ __device__ __forceinline__ void warp_col_sums(const float (&v)[BN / 2],
   }
 }
 
+// tanh-GELU and its derivative in f32 on the fast exponential, for the
+// bf16 designs: tanh(u) as 1 - 2 / (exp(2u) + 1), within a few f32 ulps of
+// tanhf in absolute terms (the f32 designs keep tanhf), far under the bf16
+// rounding of h (and dpre) that follows; a quarter of tanhf's
+// instructions.
+__device__ __forceinline__ void gelu_and_grad_fast(float x, float* y,
+                                                   float* dy) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float a = 0.044715f;
+  const float t = 1.f - __fdividef(2.f, __expf(2.f * c * (x + a * x * x * x))
+                                             + 1.f);
+  const float half = 0.5f * (1.f + t);
+  *y = x * half;
+  *dy = half + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * a * x * x);
+}
+
+// The value alone, in the same arithmetic.
+__device__ __forceinline__ float gelu_tanh_fast(float x) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float a = 0.044715f;
+  const float t = 1.f - __fdividef(2.f, __expf(2.f * c * (x + a * x * x * x))
+                                             + 1.f);
+  return x * (0.5f * (1.f + t));
+}
+
 // y = round(LN(x) gamma + beta) over a CTA's resident K-major tile of 128
 // rows (B / 64 panels at y_gen) in place, one warp per row, kLnRows rows of
 // a warp at once, each in ln_row_stats' order (so y has ln_rows_kernel's
-// bits); also to y_out [R, B], and each row's (mean, rs) to lnstat [R, 2];
-// rows at or beyond R stay zero. The caller's barrier (and, for wgmma, the
-// async-proxy fence before it) publishes the tile.
+// bits); also to y_out [R, B], and each row's (mean, rs) to lnstat [R, 2],
+// where those are not null (a forward needs neither); rows at or beyond R
+// stay zero. The caller's barrier (and, for wgmma, the async-proxy fence
+// before it) publishes the tile.
 __device__ __forceinline__ void ln_resident_tile(uint8_t* y_gen,
                                                  const float* gamma,
                                                  const float* beta, int r0,
@@ -486,7 +516,7 @@ __device__ __forceinline__ void ln_resident_tile(uint8_t* y_gen,
     for (int u = 0; u < kLnRows; ++u) {
       rs[u] = rsqrtf(warp_sum(rs[u]) / B + kLnEps);
       const int row = r0 + r + kWarps * u;
-      if (lane == 0 && row < R) {
+      if (lnstat && lane == 0 && row < R) {
         lnstat[2 * row] = mean[u];
         lnstat[2 * row + 1] = rs[u];
       }
@@ -501,7 +531,7 @@ __device__ __forceinline__ void ln_resident_tile(uint8_t* y_gen,
         const bf16 v = from_f<bf16>((__bfloat162float(*e) - mean[u]) *
                                     rs[u] * gm + bt);
         *e = v;
-        y_out[static_cast<size_t>(row) * B + c] = v;
+        if (y_out) y_out[static_cast<size_t>(row) * B + c] = v;
       }
     }
   }

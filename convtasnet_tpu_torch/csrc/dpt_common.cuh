@@ -1,6 +1,8 @@
-// Pieces shared by the dual-path (DPT) sublayer kernels for Hopper (sm_90a):
-// the FFN (dpt_ffn.cu), the intra-chunk attention (dpt_intra.cu) and the
-// inter-chunk attention (dpt_attention.cu), bf16 or f32.
+// Pieces shared by the first designs of the dual-path (DPT) sublayer
+// forwards for Hopper (sm_90a): the inter-chunk attention
+// (dpt_attention.cu, bf16 and f32), and in f32 the FFN (dpt_ffn.cu) and the
+// intra-chunk attention (dpt_intra.cu), whose bf16 forwards run on the
+// wgmma core (dpt_bwd_common.cuh, dpt_attn_bwd_wg.cuh).
 //
 // - ln_rows_to_smem: the pre-LN of a 64-row tile (f32 statistics, eps
 //   1e-6, E[(x - mean)^2]) written to shared memory in the compute dtype,
@@ -16,10 +18,11 @@
 //   block_gemm: FMA into an f32 tile in shared memory, as the TCN kernels
 //   compute f32.
 // - warp_mm: one warp's 16-row product of two shared-memory operands (the
-//   second one optionally transposed), for the attention scores and mix.
-// - The two attention sublayers share their first and last launch:
-//   ln_qkv_kernel (pre-LN + QKV product, rounded once) and the out product,
-//   rounded once, + residual (out_proj_bf16_kernel on tile_mma; for f32
+//   second one optionally transposed), for the f32 intra cores' scores and
+//   mix.
+// - The two attention sublayers' first designs share their first and last
+//   launch: ln_qkv_kernel (pre-LN + QKV product, rounded once) and the out
+//   product, rounded once, + residual (out_proj_bf16_kernel on tile_mma; for f32
 //   out_proj_residual_kernel, on the TCN kernels' gemm_tile). Only the
 //   attention core between them differs.
 // - Both launches and both cores also run a tensor-parallel shard (the
@@ -281,49 +284,29 @@ __device__ __forceinline__ void store8_bf16(__nv_bfloat16* dst,
 // One warp: c[0:16, 0:NC] (f32, ldc) = a[0:16, 0:depth] (lda) @ b, with b
 // [depth][NC] row-major (ldb), or with kBT b^T stored as [NC][depth]
 // row-major (ldb); with kAT the left operand is a^T, a stored as
-// [depth][16] row-major (lda). All three in shared memory; depth % 16 == 0
-// and NC % 16 == 0. For f32, an odd ldb keeps the kBT reads off shared
-// banks.
+// [depth][16] row-major (lda). All three in shared memory, f32 (the first
+// designs' f32 intra kernels; their bf16 designs run on mma.sync). An odd
+// ldb keeps the kBT reads off shared banks.
 template <typename T, bool kBT, bool kAT = false>
 __device__ void warp_mm(const T* a, int lda, const T* b, int ldb, int depth,
                         int NC, float* c, int ldc) {
-  if constexpr (kIsBf16<T>) {
-    using namespace nvcuda;
-    using ALayout = typename std::conditional<kAT, wmma::col_major,
-                                              wmma::row_major>::type;
-    using BLayout = typename std::conditional<kBT, wmma::col_major,
-                                              wmma::row_major>::type;
-    for (int n0 = 0; n0 < NC; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < depth; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb;
-        wmma::load_matrix_sync(fa, kAT ? a + k0 * lda : a + k0, lda);
-        wmma::load_matrix_sync(fb, kBT ? b + n0 * ldb + k0 : b + k0 * ldb + n0,
-                               ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
+  static_assert(!kIsBf16<T>, "warp_mm is the f32 cores' product");
+  const int lane = threadIdx.x & 31;
+  for (int n0 = 0; n0 < NC; n0 += 32) {
+    const int col = n0 + lane;
+    float acc[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) acc[r] = 0.f;
+    if (col < NC) {
+      for (int k = 0; k < depth; ++k) {
+        const float bv = to_f<T>(kBT ? b[col * ldb + k] : b[k * ldb + col]);
+#pragma unroll
+        for (int r = 0; r < 16; ++r)
+          acc[r] = fmaf(to_f<T>(a[kAT ? k * lda + r : r * lda + k]), bv,
+                        acc[r]);
       }
-      wmma::store_matrix_sync(c + n0, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x & 31;
-    for (int n0 = 0; n0 < NC; n0 += 32) {
-      const int col = n0 + lane;
-      float acc[16];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) acc[r] = 0.f;
-      if (col < NC) {
-        for (int k = 0; k < depth; ++k) {
-          const float bv = to_f<T>(kBT ? b[col * ldb + k] : b[k * ldb + col]);
-#pragma unroll
-          for (int r = 0; r < 16; ++r)
-            acc[r] = fmaf(to_f<T>(a[kAT ? k * lda + r : r * lda + k]), bv,
-                          acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < 16; ++r) c[r * ldc + col] = acc[r];
-      }
+      for (int r = 0; r < 16; ++r) c[r * ldc + col] = acc[r];
     }
   }
   __syncwarp();

@@ -16,20 +16,49 @@
 // bf16 tensor-core peak of 989 TFLOP/s, against 26.2 MB of x in and out
 // (7.8 us at 3.35 TB/s): compute-bound. The [R, F] hidden is 52 MB in bf16,
 // which the Pallas kernel kept in VMEM ([kt, F] per grid step); this kernel
-// keeps it on chip too. One block takes 64 rows: the LN over B is also the
-// up product's contraction, so the block normalises its whole [64, B] tile
-// into shared memory once (f32 statistics), then streams F in slabs:
-// h_slab = gelu(round(y @ W_up[:, slab]) + b_up) into shared memory, and the
-// down product accumulates out += h_slab @ W_down[slab, :] in f32. x and
-// out each cross device memory once; the weights are re-read per block from
-// L2.
+// keeps it on chip too, one launch per sublayer.
 //
-// bf16 (ffn_kernel_bf16, templated on B / 64): the products are tile_mma
-// (dpt_common.cuh), WMMA fragments with the weights streamed through two
-// cp.async stages; slabs of 128 hidden columns; the [64, B] output
-// accumulates in registers across the slabs; about 93 KB of shared memory.
-// f32 (ffn_kernel): FMA products (block_gemm) into f32 tiles in shared
-// memory, slabs of 64; about 185 KB. Neither uses wgmma or TMA yet.
+// bf16 (ffn_wg_kernel, on the wgmma core of hopper_gemm.cuh, with B12's UG
+// pieces from dpt_bwd_common.cuh): a CTA of two warpgroups takes 128 rows.
+// x's tile goes resident K-major and ln_resident_tile normalises it in
+// place (ln_rows_kernel's order). F then streams in slabs of 64 hidden
+// columns: pre = round(round(y @ W_up[:, slab]) + round(b_up)) on wgmma
+// (W_up an MN-major right operand), h = round(gelu_tanh(pre)) written from
+// the accumulator registers straight into a swizzled K-major h slab in
+// shared memory, and out += h_slab @ W_down[slab, :] on wgmma (W_down
+// MN-major), a [64, B] accumulator per warpgroup in registers across all
+// slabs. The epilogue stages x's tile over the ring and writes x +
+// round(round(out) + round(b_down)) (partial: round(out) alone) in 16-byte
+// rows. GELU is tanh through the fast exponential (gelu_tanh_fast, the
+// value half of B12's gelu_and_grad_fast), held at the kernel's rounding
+// points by the card tests.
+//   Registers: the down accumulator is BN / 2 floats a thread (128 at
+// B = 256), the up accumulator 32 (a 64-column slab) beside it; one CTA of
+// 256 threads per SM, so up to 255 registers a thread.
+//   Shared memory at B = 256: x's tile 64 KB, two h slabs (16 KB each) and
+// a ring of four 32 KB slots, each one operand's slab (W_up's [B, 64] or
+// W_down's [64, B]): 225 KB, one CTA per SM.
+//   The schedule of slab j: after one barrier (the slabs of W_up(j) and
+// W_down(j - 1) have landed, h(j - 1) is published, the slots read by the
+// previous slab's products are free) the copies of W_down(j) and W_up(j +
+// 1) are issued (one slab ahead), then the up product of slab j and the
+// down product of slab j - 1 are committed in that order; the warpgroup
+// waits for the up product only, and its GELU of slab j runs on the FMA
+// and SFU pipes while the down product of slab j - 1 runs on the tensor
+// cores; h(j) goes to the other h slab, and the down product is waited
+// for before the next barrier.
+//   Waves: 200 tiles at one CTA per SM are 1.52 waves on 132 SMs, as B12's
+// UG; per tile the products are 134 MFLOP, 18 us at an SM's share of the
+// peak. Two CTAs per SM would need half the registers (the down
+// accumulator alone is 128) and half the shared memory (x's tile alone is
+// 64 KB), so the second wave holds 68 tiles; what this design does better
+// than UG is that the h never leaves the SM and the down product is as
+// wide as the row. On an NVIDIA H100 80GB HBM3 at 700 W a tile takes
+// 73-78 us whether 33 or 264 tiles run at once: each CTA's own slab
+// pipeline, not the weights' L2 traffic (1 MB a tile), holds the kernel.
+//
+// f32 (ffn_kernel): the first design, FMA products (block_gemm) into f32
+// tiles in shared memory, one block per 64 rows, slabs of 64; about 185 KB.
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // weights are one shard's slice of the hidden width, W_up [B, F/m] and
@@ -39,12 +68,11 @@
 // the kernel is the same; at the quality default's m = 2 (F/m 512) it is
 // 13.4 GFLOP, 13.6 us at 989 TFLOP/s against 7.8 us of x in and out.
 
-#include "dpt_common.cuh"
+#include "dpt_bwd_common.cuh"
 
 namespace {
 
 constexpr int kSlab = 64;   // f32: hidden columns per step
-constexpr int kUpWN = 2;    // bf16: 128 hidden columns per step
 
 struct FfnParams {
   const void* x;
@@ -122,82 +150,197 @@ __global__ void __launch_bounds__(kDptThreads) ffn_kernel(FfnParams p) {
   }
 }
 
-template <int WN>
-constexpr size_t ffn_bf16_smem() {
-  constexpr int B = 64 * WN;
-  constexpr size_t stage = wstage_bytes<WN>() > wstage_bytes<kUpWN>()
-                               ? wstage_bytes<WN>()
-                               : wstage_bytes<kUpWN>();
-  return align128(static_cast<size_t>(kRowTile) *
-                  padded<__nv_bfloat16>(B) * 2) +
-         align128(static_cast<size_t>(kRowTile) *
-                  padded<__nv_bfloat16>(64 * kUpWN) * 2) +
-         2 * stage + kEpilogueBytes;
+// ---- bf16: the design on the wgmma core (top note) ----
+
+constexpr int kFfnSlab = 64;     // hidden columns per slab
+constexpr int kFfnStages = 4;    // ring slots, one operand's slab each
+
+// The down product's width for B = 64 NK: the core's tile that holds B
+// (256 at B = 192, the columns past B zero).
+template <int NK>
+__host__ __device__ constexpr int ffn_bn() { return NK == 3 ? 256 : 64 * NK; }
+
+// Shared memory: x's tile (NK panels), two h slabs, the ring, whose slot
+// holds W_up's [B, 64] slab or W_down's [64, BN].
+template <int NK>
+constexpr size_t ffn_wg_smem() {
+  return 1024 + static_cast<size_t>(NK) * kWgRows * kLine +
+         2 * static_cast<size_t>(kWgRows) * kLine +
+         static_cast<size_t>(kFfnStages) * ffn_bn<NK>() * kLine;
+}
+static_assert(ffn_wg_smem<4>() <= kMaxDynSmem, "the FFN's shared memory");
+// the epilogue's staged [128, BN + 8] tile fits in the ring
+static_assert(kWgRows * (64 + 8) * sizeof(bf16) <= kFfnStages * 64 * kLine &&
+                  kWgRows * (256 + 8) * sizeof(bf16) <=
+                      kFfnStages * 256 * kLine,
+              "the FFN's staged tile");
+
+// Rows [r0, r0 + 128), grid (ceil(R / 128)), block 256, B = 64 NK (top
+// note). The ring's item i is W_up's slab i / 2 (i even) or W_down's (i
+// odd), in slot i % kFfnStages. Slab 0's up product and slab n - 1's down
+// product are peeled off the loop, so that each commit group in it is one
+// product with no branch between its wgmmas. Rows at or beyond R read x
+// as zeros and are not stored.
+template <int NK>
+__global__ void __launch_bounds__(kWgCta, 1) ffn_wg_kernel(FfnParams p) {
+  extern __shared__ uint8_t wg_smem[];
+  constexpr int BN = ffn_bn<NK>(), B = 64 * NK;
+  constexpr uint32_t kSlot = BN * kLine, kH = kWgRows * kLine;
+  constexpr int kLd = BN + 8;   // the staged tile's row: conflict-free pairs
+  const int R = p.R, F = p.F, n = F / kFfnSlab;
+  const uint32_t xs = align_1024(wg_smem);
+  const uint32_t hs = xs + NK * kWgRows * kLine;
+  const uint32_t ring = hs + 2 * kH;
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int r0 = blockIdx.x * kWgRows;
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* w_up = static_cast<const bf16*>(p.w_up);
+  const bf16* w_down = static_cast<const bf16*>(p.w_down);
+  const bool residual = !p.partial;
+  auto issue = [&](int i) {   // one commit group
+    if (i < 2 * n) {
+      const uint32_t slot = ring + (i % kFfnStages) * kSlot;
+      const int f0 = (i / 2) * kFfnSlab;
+      if (i % 2 == 0) {
+#pragma unroll
+        for (int s = 0; s < NK; ++s)
+          load_mn_slab(slot + s * kMnPanel, w_up, F, s * kSlabK, B, f0,
+                       kFfnSlab, F, tid, kWgCta);
+      } else {
+        load_mn_slab(slot, w_down, B, f0, F, 0, BN, B, tid, kWgCta);
+      }
+    }
+    cp_async_commit();
+  };
+  float acc_o[BN / 2], acc_u[kFfnSlab / 2];
+  // the top of slab j's step: W_up(j) and W_down(j - 1), issued a step
+  // ago, have landed; this thread's copies, and the LN or h(j - 1), are
+  // published to wgmma; every product of the previous steps is done, so
+  // W_down(j) and W_up(j + 1) go into the slots of W_down(j - 2) and
+  // W_up(j - 1)
+  auto top = [&](int j) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    issue(2 * j + 1);
+    issue(2 * j + 2);
+    fence_acc(acc_u);
+    fence_acc(acc_o);
+    wgmma_fence();
+  };
+  auto up = [&](int j) {   // acc_u = y @ W_up(j), one commit group
+    const uint32_t slot = ring + ((2 * j) % kFfnStages) * kSlot;
+#pragma unroll
+    for (int s = 0; s < NK; ++s)
+      mma_slab<kFfnSlab, false, true>(
+          acc_u, xs + s * kWgRows * kLine + wg * 64 * kLine,
+          slot + s * kMnPanel, s > 0);
+    wgmma_commit();
+  };
+  auto down = [&](int j) {   // acc_o += h(j) @ W_down(j), one commit group
+    mma_slab<BN, false, true>(acc_o, hs + (j & 1) * kH + wg * 64 * kLine,
+                              ring + ((2 * j + 1) % kFfnStages) * kSlot,
+                              j > 0);
+    wgmma_commit();
+  };
+  // h(j) = round(gelu(pre)), pre = round(round(acc_u) + round(b_up)), into
+  // this warpgroup's rows of h slab j % 2
+  auto gelu = [&](int j) {
+    fence_acc(acc_u);
+    uint8_t* h_gen = smem_ptr(wg_smem, hs + (j & 1) * kH);
+    const float* b_up = p.b_up + j * kFfnSlab;
+    auto h_of = [](float acc, float b) {
+      return gelu_tanh_fast(round_to<bf16>(round_to<bf16>(acc) +
+                                           round_to<bf16>(b)));
+    };
+#pragma unroll
+    for (int i = 0; i < kFfnSlab / 2; i += 2) {
+      const int c = acc_col(t, i), l = 64 * wg + acc_row(t, i);
+      const float2 bu = *reinterpret_cast<const float2*>(b_up + c);
+      *reinterpret_cast<__nv_bfloat162*>(h_gen + swz(l, c >> 3) +
+                                         2 * (c & 7)) =
+          __floats2bfloat162_rn(h_of(acc_u[i], bu.x),
+                                h_of(acc_u[i + 1], bu.y));
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < NK; ++s)   // x's tile, in the first group
+    load_k_panel(xs + s * kWgRows * kLine, x, B, r0, kWgRows, R, s * kSlabK,
+                 tid, kWgCta);
+  issue(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  ln_resident_tile(smem_ptr(wg_smem, xs), p.gamma, p.beta, r0, R, B, nullptr,
+                   nullptr);
+  top(0);
+  up(0);
+  wgmma_wait<0>();
+  gelu(0);
+#pragma unroll 1
+  for (int j = 1; j < n; ++j) {
+    top(j);
+    up(j);
+    down(j - 1);
+    wgmma_wait<1>();   // the up product; the down one may still run
+    gelu(j);
+    wgmma_wait<0>();
+    fence_acc(acc_o);
+  }
+  top(n);
+  down(n - 1);
+  wgmma_wait<0>();
+  fence_acc(acc_o);
+
+  // the epilogue over the ring (every copy has landed: the last groups
+  // were empty)
+  bf16* st = reinterpret_cast<bf16*>(smem_ptr(wg_smem, ring));
+  bf16* out = static_cast<bf16*>(p.out);
+  __syncthreads();   // every warpgroup is done with the ring
+  if (residual) {
+    for (int v = tid; v < kWgRows * (B / 8); v += kWgCta) {
+      const int rl = v / (B / 8), c = 8 * (v % (B / 8));
+      const bool ok = r0 + rl < R;
+      cp_async16(smem_u32(st + rl * kLd + c),
+                 x + (ok ? static_cast<size_t>(r0 + rl) * B + c : 0), ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int c = acc_col(t, i);
+    if (c >= B) continue;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(
+        st + (64 * wg + acc_row(t, i)) * kLd + c);
+    float o0 = acc_o[i], o1 = acc_o[i + 1];
+    if (residual) {
+      const float2 bd = *reinterpret_cast<const float2*>(p.b_down + c);
+      const float2 xv = __bfloat1622float2(*e);
+      o0 = xv.x + round_to<bf16>(round_to<bf16>(o0) + round_to<bf16>(bd.x));
+      o1 = xv.y + round_to<bf16>(round_to<bf16>(o1) + round_to<bf16>(bd.y));
+    }
+    *e = __floats2bfloat162_rn(o0, o1);
+  }
+  __syncthreads();
+  for (int v = tid; v < kWgRows * (B / 8); v += kWgCta) {
+    const int rl = v / (B / 8), c = 8 * (v % (B / 8));
+    if (r0 + rl < R)
+      *reinterpret_cast<uint4*>(&out[static_cast<size_t>(r0 + rl) * B + c]) =
+          *reinterpret_cast<const uint4*>(&st[rl * kLd + c]);
+  }
 }
 
-// At most 128 registers, so two blocks share an SM.
-template <int WN>
-__global__ void __launch_bounds__(kDptThreads, 2)
-    ffn_kernel_bf16(FfnParams p) {
-  using T = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int B = 64 * WN;
-  constexpr int kUp = 64 * kUpWN;
-  constexpr int ldy = padded<T>(B);
-  constexpr int ldh = padded<T>(kUp);
-  constexpr size_t stage = wstage_bytes<WN>() > wstage_bytes<kUpWN>()
-                               ? wstage_bytes<WN>()
-                               : wstage_bytes<kUpWN>();
-  const int F = p.F, R = p.R;
-  unsigned char* at = smem;
-  T* y_s = reinterpret_cast<T*>(at);
-  at += align128(static_cast<size_t>(kRowTile) * ldy * 2);
-  T* h_s = reinterpret_cast<T*>(at);
-  at += align128(static_cast<size_t>(kRowTile) * ldh * 2);
-  T* w_s = reinterpret_cast<T*>(at);
-  at += 2 * stage;
-  float* scratch = reinterpret_cast<float*>(at);
-
-  const int r0 = blockIdx.x * kRowTile;
-  const T* x = static_cast<const T*>(p.x);
-  ln_rows_to_smem<T>(x, r0, R, B, p.gamma, p.beta, y_s, ldy);
-  const T* w_up = static_cast<const T*>(p.w_up);
-  const T* w_down = static_cast<const T*>(p.w_down);
-  TileAcc<WN> acc;
-  acc.zero();
-  for (int f0 = 0; f0 < F; f0 += kUp) {
-    TileAcc<kUpWN> up;
-    up.zero();
-    tile_mma<kUpWN>(up, y_s, ldy, w_up, F, B, f0, w_s);
-    tile_epilogue<kUpWN>(up, scratch, [&](int r, int c, const float* v) {
-      float h[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        h[e] = gelu_tanh(round_to<T>(round_to<T>(v[e]) +
-                                     round_to<T>(p.b_up[f0 + c + e])));
-      store8_bf16(h_s + r * ldh + c, h);
-    });
-    tile_mma<WN>(acc, h_s, ldh, w_down + static_cast<size_t>(f0) * B, B, kUp,
-                 0, w_s);
-  }
-  T* out = static_cast<T*>(p.out);
-  tile_epilogue<WN>(acc, scratch, [&](int r, int c, const float* v) {
-    if (r0 + r >= R) return;
-    const size_t idx = static_cast<size_t>(r0 + r) * B + c;
-    float o[8];
-    if (p.partial) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = round_to<T>(v[e]);
-    } else {
-      alignas(16) T xv[8];
-      *reinterpret_cast<uint4*>(xv) = *reinterpret_cast<const uint4*>(x + idx);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        o[e] = to_f<T>(xv[e]) +
-               round_to<T>(round_to<T>(v[e]) + round_to<T>(p.b_down[c + e]));
-    }
-    store8_bf16(out + idx, o);
-  });
+template <int NK>
+int run_wg(const FfnParams& p, cudaStream_t stream) {
+  constexpr size_t smem = ffn_wg_smem<NK>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_wg_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_wg_kernel<NK><<<(p.R + kWgRows - 1) / kWgRows, kWgCta, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename K>
@@ -214,11 +357,12 @@ int run(K kernel, size_t smem, const FfnParams& p, cudaStream_t stream) {
 template <typename T>
 int launch(const FfnParams& p, cudaStream_t stream) {
   if constexpr (kIsBf16<T>) {
-    switch (p.B / 64) {
-      case 1: return run(ffn_kernel_bf16<1>, ffn_bf16_smem<1>(), p, stream);
-      case 2: return run(ffn_kernel_bf16<2>, ffn_bf16_smem<2>(), p, stream);
-      case 3: return run(ffn_kernel_bf16<3>, ffn_bf16_smem<3>(), p, stream);
-      case 4: return run(ffn_kernel_bf16<4>, ffn_bf16_smem<4>(), p, stream);
+    if (p.F % kFfnSlab) return static_cast<int>(cudaErrorInvalidValue);
+    switch (p.B) {
+      case 64: return run_wg<1>(p, stream);
+      case 128: return run_wg<2>(p, stream);
+      case 192: return run_wg<3>(p, stream);
+      case 256: return run_wg<4>(p, stream);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   } else {

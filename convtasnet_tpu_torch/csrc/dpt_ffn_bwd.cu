@@ -71,21 +71,6 @@ __device__ __forceinline__ void gelu_and_grad(float x, float* y, float* dy) {
   *dy = 0.5f * (1.f + t) + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * a * x * x);
 }
 
-// The same on the fast exponential, for the bf16 design: tanh(u) as
-// 1 - 2 / (exp(2u) + 1), within a few f32 ulps of tanhf in absolute terms
-// (the f32 design keeps tanhf), far under the bf16 rounding of h and dpre
-// that follows; a quarter of tanhf's instructions.
-__device__ __forceinline__ void gelu_and_grad_fast(float x, float* y,
-                                                   float* dy) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float a = 0.044715f;
-  const float t = 1.f - __fdividef(2.f, __expf(2.f * c * (x + a * x * x * x))
-                                             + 1.f);
-  const float half = 0.5f * (1.f + t);
-  *y = x * half;
-  *dy = half + 0.5f * x * (1.f - t * t) * c * (1.f + 3.f * a * x * x);
-}
-
 // U: pre = round(round(y W_up) + round(b_up)).
 template <typename T>
 struct UpBias {

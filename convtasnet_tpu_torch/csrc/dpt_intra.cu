@@ -19,44 +19,68 @@
 // scores and mix 3.4, out 3.4): 17 us at 989 TFLOP/s, against 26.2 MB of x
 // in and out (7.8 us at 3.35 TB/s): compute-bound. The Pallas kernel kept a
 // chunk tile's [ct*S, 3B] qkv in VMEM; an SM has 227 KB, so the sublayer is
-// three launches:
-//   1. ln_qkv_kernel (dpt_common.cuh): LN + the QKV product per 64-row tile,
-//      qkv [M*n*S, 3B] to device memory;
-//   2. intra_core_kernel (here): one block per (m, chunk, head) loads that
-//      head's q, k, v [S, d] into shared memory; each warp takes 16 query
-//      rows: scores [16, S] in f32 (WMMA for bf16), the masked softmax in
-//      f32 (two lanes per row), p rounded to the compute dtype, then p @ v;
-//   3. out_proj_residual_kernel (dpt_common.cuh): the out product + x.
-// The qkv round trip (78.6 MB in bf16, ~23 us) and a's (26.2 MB) are the
-// design's cost over the bound. Fusing 2 and 3, pipelined loads and wgmma
-// are the next steps when this kernel is made fast.
+// three launches, with qkv (78.6 MB in bf16) and a (26.2 MB) through device
+// memory between them.
+//
+// bf16: the forward frame of dpt_attn_bwd_wg.cuh (launch_attention_fwd_wg),
+// with this kernel's gather (the S rows of one chunk, the key bias per
+// (chunk, key)):
+//   F1  LQ's template without its dA product and its y and statistics
+//       writes: per 128-row tile, x resident K-major, the LN in place,
+//       qkv = round(y @ W_qkv) on wgmma in 128-column tiles (64 where Bq is
+//       not a multiple of 128), W_qkv MN-major through a ring: 164 KB and
+//       one CTA per SM at 128 wide, 108 KB and two at 64 wide (200 tiles);
+//   C   the query side of the attention core (passes 1 and 2, shared with
+//       the backward's attn_bwd_core_kernel): a CTA per (m, chunk, head)
+//       of up to four warps, a warp per 16 query rows with its q fragments
+//       in registers, k and v staged in blocks of up to 256 keys; pass 1
+//       the row max and denominator, pass 2 p, round(p) and a on
+//       mma.sync. No [S, S] or [16, S] tile exists, so any S runs in the
+//       same shared memory (26 KB at S = 128, d = 32);
+//   out x + round(a @ W_out) on wgmma per 128-row tile, a's panels and
+//       W_out's MN-major slabs through a ring, x's tile and the output
+//       staged over the ring after the product.
+// Registers (ptxas, sm_90a): F1 146 (88 at 64 wide), the core 56 at d = 32
+// (96 at 64), out 182 at a 256-wide tile; no spills. Waves: F1 and out
+// 200 tiles of 128 rows (F1 at 64 wide two per SM, one wave), the core
+// 1600 CTAs of four warps, several per SM.
+// The core and out are not fused: a's round trip is 26 MB written and read
+// (~8 us at 3.35 TB/s), and a fused CTA would hold one chunk's rows for
+// all heads. What stands over the bound: F1 and out at one CTA per SM in
+// 1.52 waves, the core on mma.sync (its scores twice, 52 M exponentials)
+// and the qkv and a round trips.
+//
+// f32: the first design, three launches: ln_qkv_kernel (dpt_common.cuh,
+// FMA products); intra_core_kernel (here): one block per (m, chunk, head)
+// loads that head's q, k, v [S, d] into shared memory, each warp takes 16
+// query rows, scores [16, S] in f32 by FMA (warp_mm), the masked softmax
+// (two lanes per row), p, then p @ v; out_proj_residual_kernel
+// (dpt_common.cuh). Where the three [S, d] tiles do not fit in shared
+// memory beside the per-warp scratch (a head width of 64 above S=176:
+// 200 KB of them alone at S=256), they go to a device workspace after the
+// `a` workspace instead, one set per (m, chunk, head) block in the same
+// layout (ctn_dpt_intra_workspace gives its size); every value and every
+// order of summation is as in shared memory. The per-warp [16, S] rows
+// bound f32 to S <= 256 (the wrapper's INTRA_MAX_S).
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // sublayer runs the h heads of one shard's head group, of width
-// Bq = h * d: qkv and a are [R, 3Bq] and [R, Bq], and launch 3 writes
-// round(a @ W_out[Bq, B]) with no residual (dpt_common.cuh). At the quality
+// Bq = h * d: qkv and a are [R, 3Bq] and [R, Bq], and the out launch
+// writes round(a @ W_out[Bq, B]) with no residual. At the quality
 // default's m = 2 shards (Bq 128, 4 heads) that is 8.4 GFLOP, 8.5 us at
 // 989 TFLOP/s, against 7.8 us of x in and out.
-//
-// Where the three [S, d] tiles do not fit in shared memory beside the
-// per-warp scratch (f32 with a head width of 64 above S=176: 200 KB of
-// them alone at S=256), they go to a device workspace after the `a`
-// workspace instead, one set per (m, chunk, head) block in the same
-// layout (ctn_dpt_intra_workspace gives its size); every value and every
-// order of summation is as in shared memory.
 
-#include "dpt_common.cuh"
+#include "dpt_attn_bwd_wg.cuh"
 
 namespace {
 
 constexpr int kCoreWarps = 4;
 
-// Leading dimensions of the per-head q, k, v tiles: the WMMA pad for bf16;
-// for f32 an odd stride, so the transposed k reads of warp_mm hit distinct
-// banks.
+// Leading dimension of the per-head q, k, v tiles: an odd stride, so the
+// transposed k reads of warp_mm hit distinct banks.
 template <typename T, int D>
 __host__ __device__ constexpr int head_ld() {
-  return kIsBf16<T> ? padded<T>(D) : D + 1;
+  return D + 1;
 }
 
 // Bytes of one of the q, k, v [S, d] tiles.
@@ -68,7 +92,7 @@ __host__ __device__ constexpr size_t head_bytes(int S) {
 // Shared memory of the core; with `spill` the q, k, v tiles live in the
 // device workspace instead.
 template <typename T, int D>
-constexpr size_t core_smem(int S, bool spill) {
+constexpr size_t intra_core_smem(int S, bool spill) {
   const int w = (S > D ? S : D) + 4;
   return (spill ? 0 : 3 * head_bytes<T, D>(S)) +
          align128(static_cast<size_t>(S) * sizeof(float)) +
@@ -79,8 +103,9 @@ constexpr size_t core_smem(int S, bool spill) {
 
 constexpr size_t kMaxCoreSmem = 232448;   // an H100 block's opt-in limit
 
-// Grid (n, M, h); kCoreWarps warps. S % 16 == 0. spill: null, or the
-// device workspace of the q, k, v tiles, 3 head_bytes per block.
+// The f32 core (the first design). Grid (n, M, h); kCoreWarps warps.
+// S % 16 == 0. spill: null, or the device workspace of the q, k, v tiles,
+// 3 head_bytes per block.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCoreWarps * 32)
     intra_core_kernel(DptAttnParams p, float scale, unsigned char* spill) {
@@ -169,16 +194,16 @@ __global__ void __launch_bounds__(kCoreWarps * 32)
 // R * Bq (0 where they fit in shared memory); -1 where nothing fits.
 template <typename T, int D>
 long long spill_elems(int M, int n, int S, int h) {
-  if (core_smem<T, D>(S, false) <= kMaxCoreSmem) return 0;
-  if (core_smem<T, D>(S, true) > kMaxCoreSmem) return -1;
+  if (intra_core_smem<T, D>(S, false) <= kMaxCoreSmem) return 0;
+  if (intra_core_smem<T, D>(S, true) > kMaxCoreSmem) return -1;
   return static_cast<long long>(M) * n * h * 3 * head_bytes<T, D>(S) /
          sizeof(T);
 }
 
 template <typename T, int D>
 int launch_core(const DptAttnParams& p, cudaStream_t stream) {
-  const bool spill = core_smem<T, D>(p.S, false) > kMaxCoreSmem;
-  const size_t smem = core_smem<T, D>(p.S, spill);
+  const bool spill = intra_core_smem<T, D>(p.S, false) > kMaxCoreSmem;
+  const size_t smem = intra_core_smem<T, D>(p.S, spill);
   if (smem > kMaxCoreSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       intra_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -197,10 +222,14 @@ int launch(const DptAttnParams& p, cudaStream_t stream) {
   const int d = p.Bq / p.h;
   if ((d != 32 && d != 64) || p.Bq % 64 || p.Bq > p.B)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
-                                            cudaStream_t s) {
-    return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
-  });
+  if constexpr (kIsBf16<T>) {
+    return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<false>);
+  } else {
+    return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
+                                              cudaStream_t s) {
+      return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
+    });
+  }
 }
 
 }  // namespace
@@ -209,16 +238,16 @@ extern "C" {
 
 // Elements of the compute dtype (elem_bytes 2 for bf16, 4 for f32) the
 // intra forward needs after the R * Bq of its `a` workspace for its spilled
-// q, k, v tiles: 0 where they fit in shared memory, -1 where the core fits
-// no way. B here is the heads' width Bq = h * d.
+// q, k, v tiles: 0 where they fit in shared memory (always in bf16, whose
+// core keeps no per-head tile), -1 where the f32 core fits no way. B here
+// is the heads' width Bq = h * d.
 int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
   const int d = B / h;
   if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
   if (elem_bytes == 2)
-    *n_spill = d == 32 ? spill_elems<__nv_bfloat16, 32>(M, n, S, h)
-                       : spill_elems<__nv_bfloat16, 64>(M, n, S, h);
+    *n_spill = 0;
   else
     *n_spill = d == 32 ? spill_elems<float, 32>(M, n, S, h)
                        : spill_elems<float, 64>(M, n, S, h);
@@ -228,7 +257,7 @@ int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
 // One intra-chunk attention sublayer (operands: DptAttnParams in
 // dpt_common.cuh; the `a` workspace holds R * Bq elements plus what
 // ctn_dpt_intra_workspace gives); returns the first CUDA error of its three
-// launches.
+// launches. bf16 takes any S (a multiple of 16); f32 S <= 256.
 int ctn_dpt_intra_f32(CTN_DPT_ATTN_ARGS) {
   return launch<float>(CTN_DPT_ATTN_PARAMS, static_cast<cudaStream_t>(stream));
 }

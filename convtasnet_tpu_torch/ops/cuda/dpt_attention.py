@@ -53,7 +53,8 @@ TILE = 64            # B must be a multiple of the GEMM tile
 MAX_WIDTH = 256      # B at most this (the kernels' shared-memory tiles)
 HEAD_DIMS = (32, 64)
 INTRA_ROWS = 16      # the intra kernels' row tile: S pads up to a multiple
-INTRA_MAX_S = 256    # S at most this (one chunk's tiles in shared memory)
+INTRA_MAX_S = 256    # f32: S at most this (one chunk's tiles in shared
+                     # memory); the bf16 kernels take any S
 _ENTRY = {
     "inter": {torch.float32: "ctn_dpt_inter_f32",
               torch.bfloat16: "ctn_dpt_inter_bf16"},
@@ -77,12 +78,13 @@ def fitting_shards(B: int, n_heads: int) -> list:
             if n_heads % m == 0 and B % m == 0 and (B // m) % TILE == 0]
 
 
-def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int
-                  ) -> Optional[str]:
+def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
+                  dtype="float32") -> Optional[str]:
     """Why the attention kernels of ``kind`` ("inter": B7, B8; "intra": B9,
     B10; and their partial modes) refuse a sublayer of width B over chunks
     of S frames whose heads, ``n_heads`` of them, span Bq channels (Bq ==
-    B, or B / m for a head-group shard of m), or None where they take it."""
+    B, or B / m for a head-group shard of m), in the compute ``dtype`` (a
+    torch dtype or its name), or None where they take it."""
     if B % TILE or B > MAX_WIDTH:
         return (f"the kernel needs B a multiple of {TILE} and at most "
                 f"{MAX_WIDTH}, got B={B}")
@@ -95,7 +97,8 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int
     if Bq % n_heads or Bq // n_heads not in HEAD_DIMS:
         return (f"the kernel needs a head width in {HEAD_DIMS}, got {Bq} "
                 f"channels with {n_heads} heads")
-    if kind == "intra" and S > INTRA_MAX_S:
+    if (kind == "intra" and S > INTRA_MAX_S
+            and str(dtype).replace("torch.", "") != "bfloat16"):
         return (f"the intra kernel needs a chunk length S of at most "
                 f"{INTRA_MAX_S}, got S={S}")
     return None
@@ -105,10 +108,11 @@ def pad_chunks(x: torch.Tensor, key_bias: Optional[torch.Tensor],
                Sp: int):
     """x [M, n, S, B] with zero frames appended to each chunk up to Sp, and
     the key bias [n, Sp] with the appended frames masked (``NEG_INF``):
-    what the intra kernels run where S is not a multiple of their row
-    tile. An appended frame takes no weight as a key, so the real frames'
-    outputs and every gradient are the unpadded sublayer's; its own output
-    rows are dropped."""
+    what the intra backwards and the f32 intra forward run where S is not
+    a multiple of their row tile (the bf16 forward masks the keys of its
+    last 16-row tile itself). An appended frame takes no weight as a key,
+    so the real frames' outputs and every gradient are the unpadded
+    sublayer's; its own output rows are dropped."""
     n, S = x.shape[1], x.shape[2]
     if key_bias is None:
         key_bias = torch.zeros((n, S), dtype=torch.float32, device=x.device)
@@ -223,7 +227,7 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
                          f"{tuple(w_out.shape)} do not fit x {tuple(x.shape)}"
                          + ("" if partial else " (a head-group shard's "
                             "weights need partial=True)"))
-    refusal = shape_refusal(kind, B, S, Bq, n_heads)
+    refusal = shape_refusal(kind, B, S, Bq, n_heads, x.dtype)
     if refusal:
         raise ValueError(refusal)
     if key_bias is not None and tuple(key_bias.shape) != (n, S):
@@ -271,7 +275,7 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
     x, gamma, beta, w_qkv, w_out, key_bias, Bq = _prepare(
         name, kind, x, gamma, beta, w_qkv, w_out, key_bias, n_heads, partial)
     S_in = x.shape[2]
-    if kind == "intra" and S_in % INTRA_ROWS:
+    if kind == "intra" and S_in % INTRA_ROWS and x.dtype != torch.bfloat16:
         x, key_bias = pad_chunks(x, key_bias, -(-S_in // INTRA_ROWS)
                                  * INTRA_ROWS)
     M, n, S, B = x.shape
@@ -298,6 +302,62 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
     return out if S == S_in else out[:, :, :S_in].contiguous()
 
 
+def _rounded_attention(x, gamma, beta, w_qkv, key_bias, n_heads: int,
+                       attend_axis: int):
+    """The forward pieces of the kernels' rounding points, in f32 on values
+    of x's dtype: the LN's (xhat, rs), y, the rounded W_qkv, q, k, v with
+    the attended axis next to last, p (f32) and the permutation back."""
+    if attend_axis not in (1, 2):
+        raise ValueError(f"attend_axis must be 1 or 2, got {attend_axis}")
+    dt = x.dtype
+    M, n, S, B = x.shape
+    h = n_heads
+    Bq = w_qkv.shape[1] // 3
+    d = Bq // h
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rs = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + LN_EPS)
+    xhat = (xf - mean) * rs
+    y = rnd(xhat * gamma.float() + beta.float())
+    wq = rnd(w_qkv.float())
+    # heads out: [M, n, S, h, d] -> the attended axis next to last
+    perm = (0, 1, 3, 2, 4) if attend_axis == 2 else (0, 2, 3, 1, 4)
+    q, k, v = (t.reshape(M, n, S, h, d).permute(perm)
+               for t in rnd(y @ wq).split(Bq, dim=-1))
+    logits = q @ k.transpose(-1, -2) * (1.0 / math.sqrt(d))
+    if key_bias is not None:
+        kb = key_bias.float()
+        logits = logits + (kb[None, :, None, None, :] if attend_axis == 2
+                           else kb.T[None, :, None, None, :])
+    p = torch.softmax(logits, dim=-1)
+    inv = (0, 1, 3, 2, 4) if attend_axis == 2 else (0, 3, 1, 2, 4)
+    return xhat, rs, y, wq, q, k, v, p, inv
+
+
+def attention_rounded_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,
+                                n_heads: int, attend_axis: int,
+                                partial: bool = False) -> torch.Tensor:
+    """The sublayer forward in plain PyTorch with the rounding points of
+    the Pallas bodies and of the bf16 forward kernels' Hopper design: every
+    product in f32 on values of x's dtype, rounded once (qkv, round(p)
+    before the mix, a, the out product); the scores and the softmax in f32.
+    The bf16 twin (``attention_reference``) also rounds the scores. Returns
+    x + round(a @ W_out), or with ``partial`` round(a @ W_out), in x's
+    dtype."""
+    dt = x.dtype
+    M, n, S, B = x.shape
+    *_, v, p, inv = _rounded_attention(x, gamma, beta, w_qkv, key_bias,
+                                       n_heads, attend_axis)
+    a = (p.to(dt).float() @ v).to(dt).float()
+    a = a.permute(inv).reshape(M, n, S, -1)
+    proj = (a @ w_out.to(dt).float()).to(dt)
+    return proj if partial else (x.float() + proj.float()).to(dt)
+
+
 def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
                             n_heads: int, attend_axis: int,
                             partial: bool = False):
@@ -310,8 +370,6 @@ def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
     dx = round(g + dx_ln), or with ``partial`` (the backward of a
     head-group shard's projection) round(dx_ln). Returns ``(dx, dgamma,
     dbeta, dw_qkv, dw_out)`` in the primals' dtypes."""
-    if attend_axis not in (1, 2):
-        raise ValueError(f"attend_axis must be 1 or 2, got {attend_axis}")
     dt = x.dtype
     M, n, S, B = x.shape
     h = n_heads
@@ -322,31 +380,18 @@ def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
     def rnd(t):
         return t.to(dt).float()
 
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    rs = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + LN_EPS)
-    xhat = (xf - mean) * rs
-    y = rnd(xhat * gamma.float() + beta.float())
-    wq, wo = rnd(w_qkv.float()), rnd(w_out.float())
+    xhat, rs, y, wq, q, k, v, p, inv = _rounded_attention(
+        x, gamma, beta, w_qkv, key_bias, n_heads, attend_axis)
+    wo = rnd(w_out.float())
     gf = g.float()
-    # heads out: [M, n, S, h, d] -> the attended axis next to last
     perm = (0, 1, 3, 2, 4) if attend_axis == 2 else (0, 2, 3, 1, 4)
-    q, k, v = (t.reshape(M, n, S, h, d).permute(perm)
-               for t in rnd(y @ wq).split(Bq, dim=-1))
     dA = rnd(gf @ wo.T).reshape(M, n, S, h, d).permute(perm)
-    logits = q @ k.transpose(-1, -2) * scale
-    if key_bias is not None:
-        kb = key_bias.float()
-        logits = logits + (kb[None, :, None, None, :] if attend_axis == 2
-                           else kb.T[None, :, None, None, :])
-    p = torch.softmax(logits, dim=-1)
     pc = rnd(p)
     a = rnd(pc @ v)
     dp = dA @ v.transpose(-1, -2)
     dv = rnd(pc.transpose(-1, -2) @ dA)
     ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
     dq, dk = rnd(ds @ k), rnd(ds.transpose(-1, -2) @ q)
-    inv = (0, 1, 3, 2, 4) if attend_axis == 2 else (0, 3, 1, 2, 4)
     dqkv = torch.cat([t.permute(inv).reshape(M, n, S, Bq)
                       for t in (dq, dk, dv)], dim=-1).reshape(-1, 3 * Bq)
     a = a.permute(inv).reshape(-1, Bq)

@@ -40,13 +40,15 @@ from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
 )
 
 
-def shape_refusal(B: int, S: int, Bq: int, n_heads: int) -> Optional[str]:
+def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
+                  dtype="float32") -> Optional[str]:
     """Why the intra kernels (B9, B10, and their partial modes) refuse a
     sublayer of width B over chunks of S frames with ``n_heads`` heads over
-    Bq channels, or None where they take it: the attention kernels' rules
-    and S at most 256 (the wrappers pad S up to a multiple of 16 with
-    masked frames: ``dpt_attention.pad_chunks``)."""
-    return attention_shape_refusal("intra", B, S, Bq, n_heads)
+    Bq channels in the compute ``dtype``, or None where they take it: the
+    attention kernels' rules, and in f32 S at most 256 (bf16 takes any S;
+    the wrappers pad S up to a multiple of 16 with masked frames:
+    ``dpt_attention.pad_chunks``)."""
+    return attention_shape_refusal("intra", B, S, Bq, n_heads, dtype)
 
 
 def intra_attention_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,

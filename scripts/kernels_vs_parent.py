@@ -2,59 +2,64 @@
 """The port's kernels in this tree against those of another checkout, on
 one NVIDIA GPU.
 
-    python3 scripts/kernels_vs_parent.py --other DIR [--time] \\
-        [--out FILE]
+    python3 scripts/kernels_vs_parent.py --other DIR \\
+        [--time [all|dpt-forward]] [--out FILE]
 
 DIR holds another checkout's ``convtasnet_tpu_torch/`` (for example the
 parent commit, unpacked with ``git archive HEAD convtasnet_tpu_torch``).
 Each tree's package runs in a subprocess of its own, builds its kernels
 from its own sources and writes its outputs at shapes both trees take:
+the DPT sublayer kernels in full mode (B7-B12) and in partial mode over
+m = 2 and 4 shards (B7p-B12p) at the quality default's widths ([8, 25,
+128, 256], 8 heads, F=1024, the real key mask), forwards and backwards in
+bf16 and f32, the intra kernels also at other chunk lengths; the TCN TP
+stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128; the TCN block forward
+(B1, gLN and cLN causal), the gLN block backward (B2) and the cLN one
+(B3) at the paper shape [8, 3199, 256], H=512, d = 1, 16, 128; the block
+pair forward (B4, gLN and cLN causal) and the gLN pair backward (B5),
+(d1, d2) = (1, 2), (16, 32), (64, 128); bf16 and f32.
 
-- bit for bit (``torch.equal``): the DPT sublayer kernels in full mode
-  (B7-B12) and in partial mode over m = 2 and 4 shards (B7p-B12p) at the
-  quality default's widths ([8, 25, 128, 256], 8 heads, F=1024, the real
-  key mask), the forwards in bf16 and f32 and the backwards in f32, the
-  intra kernels also at the chunk lengths
-  whose tiles sit in shared memory or spill to the device workspace, the
-  TCN TP stage 2 (B6) in f32 at [8, 3199, Hs], Hs = 256 and 128, and the
-  TCN block forward (B1, gLN and cLN causal), the gLN block backward (B2)
-  and the cLN one (B3) at the paper shape [8, 3199, 256], H=512, bf16 and
-  f32, d = 1, 16, 128. A change to the kernels' shared pieces must leave
-  these bits as they were;
-- by distance: B6 in bf16 and B8, B10 and B12 (and their partial modes)
-  in bf16 (their Hopper designs, which sum in another order than the
-  first designs), held at B6's own rounding points within 1e-3
-  (``chip_smoke.TP_ORDER_TOL``) and within 4e-2 of the backwards' bf16
-  twins; the block pair forward (B4, gLN and cLN causal)
-  and the gLN pair backward (B5) at the paper shape, bf16 and f32, (d1,
-  d2) = (1, 2), (16, 32), (64, 128), each tree's own distance from its
-  plain twin (B5's evaluated in exact f32) held at the pair bars. Each
-  prints the relative L2 between the two trees.
-
-Every output held by distance prints each tree's distance from its twin.
+- by distance: the bf16 forwards of B9 and B11 (and of B9p, B11p), whose
+  Hopper designs sum in another order than the first designs: each tree's
+  distance from the forward at the kernel's rounding points (``twin``,
+  held within 1e-3, B6's order bar ``chip_smoke.TP_ORDER_TOL``; the FFN's
+  bf16 twin rounds where B11 rounds, the attention's is
+  ``attention_rounded_reference``) and from its bf16 twin (``bf16
+  twin``, within 4e-2), and the relative L2 between the two trees;
+- bit for bit (``torch.equal``): every other output. A change to the
+  kernels' shared pieces must leave these bits as they were. Where a
+  tree carries a twin distance for one of them (the B1-B6 and backward
+  twins), both trees' distances are printed beside it.
 
 ``--time`` then times both trees in turns (other, this, this, other; one
-subprocess each, on the same card), in bf16 at the paper shape unless
-named: B1 (gLN and cLN causal), B2 and B3 per dilation 1..128; B4 (gLN
-and cLN causal) and B5 per pair of dilations (1, 2) .. (64, 128), and
-beside each in the same turn two chained B1 calls and B1 + 2 x B2; the
-gLN B4 and B5 beside the same also in f32 ("f32") and in bf16 at H=192
-("H=192"), which run the first design's launches; B6 at [8, 3199, Hs],
-Hs = 256 and 128, per dilation; B12 at [8, 3200, 256], F=1024, and B12p
-on one shard of m = 2 and 4; B8 and B10 at [8, 25, 128, 256], 8 heads, the
-real key mask, B8p and B10p on one shard of m = 2 and 4, B10 also at
-S = 256 (n = 13) and B8 at n = 94 (15 s), each with
-``scaled_dot_product_attention`` forward and backward at its core's
-shapes beside it (a yardstick; no kernel calls it); the paper-config forward and gLN train
+subprocess each, on the same card), in bf16: first the DPT forwards B7,
+B9 and B11 (and their partial modes on one shard of m = 2 and 4) at
+[8, 25, 128, 256] with the real key mask (B11 at [8, 3200, 256],
+F=1024), with ``scaled_dot_product_attention``'s forward at B7's and B9's
+cores' shapes beside them (a yardstick; no kernel calls it), and the DPT
+quality default's forward at B=8 x 4 s; ``--time dpt-forward`` stops
+there, with ``torch.matmul`` at the forwards' products' shapes. ``--time``
+(all) goes on, at the paper shape unless named: B1 (gLN and cLN causal),
+B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
+of dilations (1, 2) .. (64, 128), and beside each in the same turn two
+chained B1 calls and B1 + 2 x B2; the gLN B4 and B5 beside the same also
+in f32 ("f32") and in bf16 at H=192 ("H=192"), which run the first
+design's launches; B6 at [8, 3199, Hs], Hs = 256 and 128, per dilation;
+B12 at [8, 3200, 256], F=1024, and B12p on one shard of m = 2 and 4; B8
+and B10 at [8, 25, 128, 256], 8 heads, the real key mask, B8p and B10p on
+one shard of m = 2 and 4, B10 also at S = 256 (n = 13) and B8 at n = 94
+(15 s), each with ``scaled_dot_product_attention`` forward and backward
+at its core's shapes beside it; the paper-config forward and gLN train
 step at B=8 and B=24 x 4 s with pairs on and off, with the peak device
 memory of each, and the cLN causal step at B=8; the paper config's
 forward over two shards (``tp_forward``), and the DPT quality default's
 train step unsharded and over two shards, at B=8 x 4 s; and
-``torch.matmul`` at each of the kernels' products' shapes (a yardstick
-of the product core alone; no kernel calls it). ``--out`` writes every
+``torch.matmul`` at each of the kernels' products' shapes (a yardstick of
+the product core alone; no kernel calls it). ``--out`` writes every
 number as JSON. Every timed kernel also reads its device time per call
-from ``torch.profiler`` ("device ...") with each kernel's share. Exits nonzero if a bit-for-bit output differs or a kernel
-is further from its twin than its bar.
+from ``torch.profiler`` ("device ...") with each kernel's share. Exits
+nonzero if a bit-for-bit output differs or an output held by distance is
+further from a twin than its bar.
 """
 
 from __future__ import annotations
@@ -100,21 +105,20 @@ PAIR_CASES = [(kern, norm, causal, dtype, d1)
 TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
            ("b4", "bfloat16"): 6e-2, ("b4", "float32"): 3e-3,
            ("bwd", "bfloat16"): 8e-2, ("bwd", "float32"): 4e-3,
-           ("b6", "bfloat16"): 1e-3, ("dpt", "bfloat16"): 4e-2}
-# outputs held bit for bit against the other tree (the rest by distance):
-# every output of these kernels but the bf16 ones of B6 and of the DPT
-# backwards B8, B10 and B12 (and their partial modes), whose Hopper designs
-# sum in another order
-BIT_KEYS = ("dpt ", "b6 ", "b1 ", "b2 ", "b3 ")
-BWD_BY_DISTANCE = tuple(f"dpt {kind} bfloat16 "
-                        for kind in ("ffn", "inter", "intra"))
+           ("b6", "bfloat16"): 1e-3, ("dpt", "bfloat16"): 4e-2,
+           ("dpt forward", "bfloat16"): 1e-3}
+# outputs held by distance against the other tree (every other output bit
+# for bit): the bf16 forwards of B9 and B11 and of their partial modes,
+# whose Hopper designs sum in another order than the first designs; each
+# within 1e-3 of the forward at its rounding points ("twin", B6's order
+# bar) and within 4e-2 of its bf16 twin ("bf16 twin")
+FWD_BY_DISTANCE = tuple(f"dpt {kind} bfloat16 " for kind in ("intra", "ffn"))
+TWINS = ("twin ", "bf16 twin ")
 
 
 def bitwise(key: str) -> bool:
     """Whether an output is held bit for bit against the other tree."""
-    return key.startswith(BIT_KEYS) and not (
-        key.startswith("b6 bfloat16 ")
-        or (key.startswith(BWD_BY_DISTANCE) and " backward" in key))
+    return not (key.startswith(FWD_BY_DISTANCE) and key.endswith(" forward"))
 
 
 def _shard(args, kind: str, m: int, s: int):
@@ -151,22 +155,30 @@ PRODUCTS = {"x @ W_in, g @ W_out^T": (M * K, B, H),
 R_DPT, F_DPT = 8 * 3200, 1024
 PRODUCTS.update({f"b6 (y g2) @ W_out Hs={hs}": (M * K, hs, B)
                  for hs in (256, 128)})
+# the attention forwards' two products (B7, B9: y @ W_qkv, a @ W_out) and
 # B8's and B10's 11 projection products at [8, 25, 128, 256], Bq = 256 / m
 # for one shard of m: y @ W_qkv (recomputed), g @ W_out^T, y^T @ dqkv,
-# a^T @ g and dqkv @ W_qkv^T
+# a^T @ g and dqkv @ W_qkv^T; B11's two are B12's first two shapes
 R_ATTN = 8 * 25 * 128
 for _m in (1, 2, 4):
     _f, _t = F_DPT // _m, "" if _m == 1 else f" m={_m}"
-    PRODUCTS.update({f"b12 y @ W_up, g @ W_down^T{_t}": (R_DPT, B, _f),
-                     f"b12 dpre @ W_up^T{_t}": (R_DPT, _f, B),
+    PRODUCTS.update({f"b11/b12 y @ W_up, g @ W_down^T{_t}": (R_DPT, B, _f),
+                     f"b11/b12 h @ W_down, dpre @ W_up^T{_t}": (R_DPT, _f, B),
                      f"b12 h^T @ g{_t}": (_f, R_DPT, B),
                      f"b12 y^T @ dpre{_t}": (B, R_DPT, _f)})
     _q = B // _m
-    PRODUCTS.update({f"b8/b10 y @ W_qkv{_t}": (R_ATTN, B, 3 * _q),
+    PRODUCTS.update({f"b7/b9 a @ W_out{_t}": (R_ATTN, _q, B),
+                     f"b7-b10 y @ W_qkv{_t}": (R_ATTN, B, 3 * _q),
                      f"b8/b10 g @ W_out^T{_t}": (R_ATTN, B, _q),
                      f"b8/b10 y^T @ dqkv{_t}": (B, R_ATTN, 3 * _q),
                      f"b8/b10 a^T @ g{_t}": (_q, R_ATTN, B),
                      f"b8/b10 dqkv @ W_qkv^T{_t}": (R_ATTN, 3 * _q, B)})
+# the forwards timed: (kernel, kind, shards m; 1 = full), at [8, 25, 128,
+# 256] (the FFN at [8, 3200, 256], F = 1024)
+FWD_TIMED = [(f"{name}{'p' if m > 1 else ''}", kind, m)
+             for m in (1, 2, 4)
+             for name, kind in (("b7", "inter"), ("b9", "intra"),
+                                ("b11", "ffn"))]
 # the attention backwards timed: (kernel, kind, n, S, shards m; 1 = full)
 ATTN_TIMED = [("b10", "intra", 25, 128, 1), ("b8", "inter", 25, 128, 1),
               ("b10p", "intra", 25, 128, 2), ("b8p", "inter", 25, 128, 2),
@@ -182,28 +194,37 @@ def rel_l2(got, want) -> float:
 def _tcn_tol(key: str) -> float:
     kern, dtype = key.split()[:2]
     if kern == "dpt":
-        return TCN_TOL["dpt", key.split()[2]]
+        at = "dpt forward" if key.endswith(" forward") else "dpt"
+        return TCN_TOL[at, key.split()[2]]
     return TCN_TOL[kern if kern in ("b1", "b4", "b6") else "bwd", dtype]
 
 
 def compare(mine: dict, other: dict):
-    """Lines to print and the keys at fault: the ``bitwise`` outputs (DPT,
-    B6, B1-B3 but for B6 and B12 in bf16) must equal the other tree's bit
-    for bit; every other output reports its relative L2 to the other
-    tree's, and is at fault when this tree's distance from its twin (the
-    ``twin `` entry) exceeds its bar. Every output with a twin entry
-    prints both trees' distances from their twins."""
+    """Lines to print and the keys at fault: the ``bitwise`` outputs (all
+    but the bf16 forwards of B9 and B11 and their partial modes) must
+    equal the other tree's bit for bit; every other output reports its
+    relative L2 to the other tree's, and is at fault when this tree's
+    distance from a twin (the ``twin `` and ``bf16 twin `` entries)
+    exceeds its bar. Every output with a twin entry prints the distances
+    from its twins of both trees that have them."""
     lines, bad = [], []
-    for key in sorted(k for k in other if not k.startswith("twin ")):
+    for key in sorted(k for k in other if not k.startswith(TWINS)):
         if key not in mine:
             lines.append(f"{key}: missing in this tree")
             bad.append(key)
             continue
-        twin = ""
-        if f"twin {key}" in mine and f"twin {key}" in other:
-            mt, ot = mine[f"twin {key}"], other[f"twin {key}"]
-            twin = (f"; from the twin this tree {mt:.3e}, other {ot:.3e} "
-                    f"(bar {_tcn_tol(key):.0e})")
+        twin, far = "", False
+        for prefix in TWINS:
+            if f"{prefix}{key}" not in mine:
+                continue
+            bar = (_tcn_tol(key) if prefix == "twin "
+                   else TCN_TOL["dpt", "bfloat16"])
+            mt = mine[f"{prefix}{key}"]
+            ot = other.get(f"{prefix}{key}")
+            twin += (f"; from the {prefix}this tree {mt:.3e}"
+                     + ("" if ot is None else f", other {ot:.3e}")
+                     + f" (bar {bar:.0e})")
+            far = far or not mt <= bar
         if bitwise(key):
             same = mine[key].shape == other[key].shape and bool(
                 (mine[key] == other[key]).all())
@@ -214,7 +235,7 @@ def compare(mine: dict, other: dict):
             continue
         lines.append(f"{key}: trees apart rel_l2 "
                      f"{rel_l2(mine[key], other[key]):.3e}" + twin)
-        if not mine[f"twin {key}"] <= _tcn_tol(key):
+        if far or f"twin {key}" not in mine:
             bad.append(key)
     return lines, bad
 
@@ -311,6 +332,27 @@ def dump(path: str) -> None:
     twins = {"inter": dpt_attention.inter_attention_bwd_reference,
              "intra": dpt_intra.intra_attention_bwd_reference,
              "ffn": dpt_ffn.ffn_bwd_reference}
+    fwd_twins = {"intra": dpt_intra.intra_attention_reference,
+                 "ffn": dpt_ffn.ffn_reference}
+    # the attention forward at its rounding points (a tree older than the
+    # Hopper forward designs has none: it holds its forwards by bits)
+    rounded_attn = getattr(dpt_attention, "attention_rounded_reference", None)
+
+    def forward(kind, key, x, w, **kw):
+        """A forward's output; a bf16 B9 or B11 (or partial) output also
+        its distances from the forward at its rounding points and from its
+        bf16 twin."""
+        with torch.inference_mode():
+            got = fns[kind][0](x, *w, **kw)
+            if x.dtype == torch.bfloat16 and kind in fwd_twins:
+                same = fwd_twins[kind](x, *w, **kw)
+                if kind == "ffn":   # its bf16 twin rounds where it rounds
+                    out[f"twin {key} forward"] = rel_l2(got, same)
+                elif rounded_attn is not None:
+                    out[f"twin {key} forward"] = rel_l2(got, rounded_attn(
+                        x, *w, attend_axis=2, **kw))
+                out[f"bf16 twin {key} forward"] = rel_l2(got, same)
+        out[f"{key} forward"] = got.cpu()
 
     def bwd_twins(kind, key, got, x, gr, w, **kw):
         """A bf16 DPT backward's distance from its bf16 twin, per cotangent
@@ -347,10 +389,9 @@ def dump(path: str) -> None:
                  torch.where(valid, 0.0, -1e9).to(torch.float32))
             kw = dict(n_heads=heads)
         key = f"dpt {kind} {dtype} S={S} heads={heads}"
-        fused, fused_bwd = fns[kind]
+        fused_bwd = fns[kind][1]
         if fwd:
-            with torch.inference_mode():
-                out[f"{key} forward"] = fused(x, *w, **kw).cpu()
+            forward(kind, key, x, w, **kw)
         if bwd:
             gr = (rn(M, n * S, Bd) * valid.reshape(1, -1, 1)).reshape(
                 x.shape).to(dt)
@@ -365,8 +406,7 @@ def dump(path: str) -> None:
                 if kind != "ffn":
                     pkw["n_heads"] = heads // m
                 pkey = f"{key} partial m={m}"
-                with torch.inference_mode():
-                    out[f"{pkey} forward"] = fused(xs, *ws, **pkw).cpu()
+                forward(kind, pkey, xs, ws, **pkw)
                 got = fused_bwd(xs, gr, *ws, **pkw)
                 for i, t in enumerate(got):
                     out[f"{pkey} backward {i}"] = t.cpu()
@@ -576,6 +616,58 @@ def _time_attention_bwd(torch, res: dict, rn) -> None:
         res[f"sdpa fwd+bwd {at}"] = _ms(torch, sdpa, 20)
 
 
+def _time_dpt_forwards(torch, res: dict, rn) -> None:
+    """B7, B9, B11 and their partial modes (``FWD_TIMED``) in bf16 with the
+    real key mask (3199 frames of 4 s), each with its device time per call
+    and per kernel; beside B7 and B9 (and their partial modes)
+    ``scaled_dot_product_attention``'s forward at its core's shapes
+    (problems x heads, attended length, d = 32; no mask), a yardstick no
+    kernel calls; and the DPT quality default's forward at B=8 x 4 s."""
+    from convtasnet_tpu_torch import ConvTasNetConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
+
+    fwd = {"inter": dpt_attention.fused_inter_attention,
+           "intra": dpt_intra.fused_intra_attention,
+           "ffn": dpt_ffn.fused_ffn}
+    n, S = 25, 128
+    valid = torch.arange(n * S, device="cuda").reshape(n, S) < 3199
+    x = rn(M, n, S, B).bfloat16()
+    attn = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, 3 * B, scale=B ** -0.5),
+            rn(B, B, scale=B ** -0.5),
+            torch.where(valid, 0.0, -1e9).to(torch.float32))
+    ffn = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, F_DPT, scale=B ** -0.5),
+           0.1 * rn(F_DPT), rn(F_DPT, B, scale=F_DPT ** -0.5), 0.1 * rn(B))
+    with torch.inference_mode():
+        for name, kind, m in FWD_TIMED:
+            xs, w = ((x.reshape(M, n * S, B), ffn) if kind == "ffn"
+                     else (x, attn))
+            kw = {} if kind == "ffn" else dict(n_heads=8)
+            if m > 1:
+                w = _shard((xs, *w), kind, m, m - 1)[1:]
+                kw = dict(kw, partial=True)
+                if kind != "ffn":
+                    kw["n_heads"] = 8 // m
+            at = (f"{name} [8,{n},{S},256]" if kind != "ffn"
+                  else f"{name} [8,3200,256] F={F_DPT // m}")
+            at += f" m={m}" if m > 1 else ""
+            res[at] = _ms(torch, lambda: fwd[kind](xs, *w, **kw), 20)
+            _device_ms(torch, res, at, lambda: fwd[kind](xs, *w, **kw))
+            if kind == "ffn":
+                continue
+            problems, length = (M * n, S) if kind == "intra" else (M * S, n)
+            q, k, v = (rn(problems, 8 // m, length, 32).bfloat16()
+                       for _ in range(3))
+            res[f"sdpa fwd {at}"] = _ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v), 20)
+        cfg = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16")
+        model = ConvTasNet(cfg, device="cuda").eval()
+        mix = rn(M, 4 * 8000)
+        res["dpt forward B=8 x 4 s"] = _ms(torch, lambda: model(mix), 10)
+        del model
+
+
 def _time_tp_and_ffn(torch, res: dict) -> None:
     """B6 at [8, 3199, Hs], Hs = 256 and 128, per dilation; B12 at [8,
     3200, 256], F = 1024, and B12p on the last shard of m = 2 and 4; the
@@ -651,7 +743,10 @@ def _time_tp_and_ffn(torch, res: dict) -> None:
     del state
 
 
-def time_tree(path: str) -> None:
+def time_tree(path: str, what: str) -> None:
+    """Times one tree into path: everything (``what`` "all") or the DPT
+    forwards alone ("dpt-forward": ``_time_dpt_forwards`` and the
+    forwards' products)."""
     import torch
 
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
@@ -662,6 +757,16 @@ def time_tree(path: str) -> None:
     os.environ[PAIR_ENV] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
+    gen = torch.Generator(device="cuda").manual_seed(33)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    _time_dpt_forwards(torch, res, rn)
+    if what == "dpt-forward":
+        _time_products(torch, res, ("b7/b9 ", "b7-b10 ", "b11/b12 y", "b11/b12 h"))
+        torch.save(res, path)
+        return
     args, g = _block_inputs(torch, "bfloat16", 7, "gLN")
     for d in DILATIONS:
         for label, norm, causal in (("b1 gLN", "gLN", False),
@@ -724,34 +829,46 @@ def time_tree(path: str) -> None:
                 torch, lambda: step(state, data), 10)
             del state
     _time_tp_and_ffn(torch, res)
+    _time_products(torch, res, ("",))
+    torch.save(res, path)
+
+
+def _time_products(torch, res: dict, prefixes: tuple) -> None:
+    """torch.matmul at the shapes of the ``PRODUCTS`` whose names start
+    with one of prefixes."""
     for name, (r, k, n) in PRODUCTS.items():
+        if not name.startswith(prefixes):
+            continue
         a = torch.randn(r, k, device="cuda").bfloat16()
         b = torch.randn(k, n, device="cuda").bfloat16()
         res[f"torch.matmul {name} [{r},{k}]x[{k},{n}]"] = _ms(
             torch, lambda: torch.matmul(a, b), 20)
-    torch.save(res, path)
 
 
-def _run(mode: str, root: str, path: str, cwd: str) -> None:
-    subprocess.run([sys.executable, os.path.abspath(__file__), mode, path],
-                   check=True, cwd=cwd, env=dict(os.environ, PYTHONPATH=root))
+def _run(mode: str, root: str, path: str, cwd: str, *extra) -> None:
+    subprocess.run([sys.executable, os.path.abspath(__file__), mode, path,
+                    *extra], check=True, cwd=cwd,
+                   env=dict(os.environ, PYTHONPATH=root))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="directory holding the other checkout's "
                                     "convtasnet_tpu_torch/")
-    ap.add_argument("--time", action="store_true",
-                    help="also time both trees in turns")
+    ap.add_argument("--time", nargs="?", const="all",
+                    choices=["all", "dpt-forward"],
+                    help="also time both trees in turns: everything (the "
+                         "default) or the DPT forwards alone")
     ap.add_argument("--out", help="write every number here as JSON")
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     ap.add_argument("--time-dump", help=argparse.SUPPRESS)
+    ap.add_argument("--time-what", default="all", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.dump:
         dump(a.dump)
         return 0
     if a.time_dump:
-        time_tree(a.time_dump)
+        time_tree(a.time_dump, a.time_what)
         return 0
     import torch
 
@@ -781,7 +898,8 @@ def main() -> int:
             turns = []
             for i, tree in enumerate(("other", "this", "this", "other")):
                 path = os.path.join(tmp, f"time{i}.pt")
-                _run("--time-dump", roots[tree], path, tmp)
+                _run("--time-dump", roots[tree], path, tmp, "--time-what",
+                     a.time)
                 turns.append((tree, torch.load(path)))
             for line in summarize(turns):
                 print(f"timing: {line}", flush=True)

@@ -71,6 +71,45 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/dpt_common.cuh",
         "constexpr float kLnEps = 1e-6f;",
         "constexpr float kLnEps = 1e-5f;"),
+    # B11's and B9's bf16 Hopper forwards (and their partial modes): GELU
+    # by erf for tanh, pre added to GELU unrounded, the h slab truncated
+    # instead of rounded, the core's padded keys (past the chunk in its
+    # last 16-key tile) left unmasked, the max pass (shared with the
+    # backward core) one key tile short, the partial out product and the
+    # partial FFN adding the residual
+    "b11_gelu_erf": ("dpt_forward",
+        "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
+        "  return x * (0.5f * (1.f + t));",
+        "  return x * (0.5f * (1.f + erff(x * 0.70710678118654752f))) + "
+        "0.f * t;"),
+    "b11_pre_unrounded": ("dpt_forward",
+        "convtasnet_tpu_torch/csrc/dpt_ffn.cu",
+        "      return gelu_tanh_fast(round_to<bf16>(round_to<bf16>(acc) +\n"
+        "                                           round_to<bf16>(b)));",
+        "      return gelu_tanh_fast(round_to<bf16>(acc) + "
+        "round_to<bf16>(b));"),
+    "b11_h_slab_truncated": ("dpt_forward",
+        "convtasnet_tpu_torch/csrc/dpt_ffn.cu",
+        "__floats2bfloat162_rn(h_of(acc_u[i], bu.x),\n"
+        "                                h_of(acc_u[i + 1], bu.y));",
+        "__halves2bfloat162(__float2bfloat16_rz(h_of(acc_u[i], bu.x)),\n"
+        "                    __float2bfloat16_rz(h_of(acc_u[i + 1], bu.y)));"),
+    "b9_padded_keys_unmasked": ("dpt_forward",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "bias[i] = k < L ? G.key_bias(k) : -INFINITY;",
+        "bias[i] = k < L ? G.key_bias(k) : 0.f;"),
+    "core_max_pass_one_tile_short": ("dpt_forward",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "    for (int k0 = 0; k0 < rows; k0 += 16) {\n      float s[2][4];",
+        "    for (int k0 = 0; k0 < rows - 16; k0 += 16) {\n      float s[2][4];"),
+    "b9_partial_adds_residual": ("dpt_tp",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "  const bool residual = !f.partial;",
+        "  const bool residual = true;"),
+    "b11_partial_adds_residual": ("dpt_tp",
+        "convtasnet_tpu_torch/csrc/dpt_ffn.cu",
+        "  const bool residual = !p.partial;",
+        "  const bool residual = true;"),
     # the backward kernels
     "intra_bwd_rowsum_dropped": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_intra_bwd.cu",

@@ -1462,6 +1462,169 @@ def test_dpt_attn_bwd_bf16_at_its_rounding_points(cuda, kind):
             i, _rel_l2(q, t))
 
 
+# B9 and B11 (and B9p, B11p) in bf16 run the Hopper forward designs
+# (csrc/dpt_attn_bwd_wg.cuh's forward frame, csrc/dpt_ffn.cu's ffn_wg_kernel):
+# (kind, chunk length S for intra, hidden width F for the FFN)
+FWD_WG_SIZES = [("intra", 16), ("intra", 100), ("intra", 128),
+                ("intra", 320), ("ffn", 1000), ("ffn", 1024)]
+
+
+def _fwd_rounded(kind, args, kw):
+    """The forward at the bf16 kernels' rounding points: the FFN's bf16
+    twin rounds where the kernel rounds; the attention's rounds the scores
+    too, so ``attention_rounded_reference`` stands in for it."""
+    if kind == "ffn":
+        return dpt_ffn.ffn_reference(*args, **kw)
+    return dpt_attention.attention_rounded_reference(*args, attend_axis=2,
+                                                     **kw)
+
+
+def _fwd_wg_args(device, kind, size, m, seed, M=2, B=256):
+    """bf16 operands of a forward at B = 256 (8 heads of 32; F = size),
+    on shard m - 1 of m (m = 1: the full sublayer): for intra three chunks
+    of S = size frames, the next-to-last half masked and the last one
+    masked whole, the real frames' key bias drawn from [-1, 1]; LN beta
+    and the biases off 0. -> (args, kwargs, valid rows [K])."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    gamma, beta = (t(1 + 0.2 * rng.standard_normal(B)),
+                   t(0.5 + 0.3 * rng.standard_normal(B)))
+    if kind == "ffn":
+        K = 777
+        args = (t(rng.standard_normal((M, K, B)), torch.bfloat16), gamma,
+                beta, t(rng.standard_normal((B, size)) / np.sqrt(B)),
+                t(0.3 * rng.standard_normal(size)),
+                t(rng.standard_normal((size, B)) / np.sqrt(size)),
+                t(0.3 * rng.standard_normal(B)))
+        valid = torch.ones(K, dtype=torch.bool, device=device)
+        kw = {}
+    else:
+        n, S = 3, size
+        ok = np.ones((n, S), bool)
+        ok[-1] = False
+        ok[-2, S // 2:] = False
+        args = (t(rng.standard_normal((M, n, S, B)), torch.bfloat16), gamma,
+                beta, t(rng.standard_normal((B, 3 * B)) / np.sqrt(B)),
+                t(rng.standard_normal((B, B)) / np.sqrt(B)),
+                t(np.where(ok, rng.uniform(-1, 1, (n, S)), -1e9)))
+        valid = torch.from_numpy(ok.reshape(-1)).to(device)
+        kw = dict(n_heads=8)
+    if m > 1:
+        args = _shard(args, kind, m, m - 1)
+        kw = dict(_partial_kw(kind, m), partial=True)
+    return args, kw, valid
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("kind,size", FWD_WG_SIZES,
+                         ids=[f"{k}-{n}" for k, n in FWD_WG_SIZES])
+def test_dpt_fwd_bf16_design_matches_twin(cuda, kind, size, m):
+    """B9 and B11 in bf16 (m = 1) and B9p and B11p on the last shard of
+    m = 2 and 4: chunks of 16, 100 (padded to 112), 128 and 320 frames
+    (any S in bf16) with masked frames and a masked chunk and the key bias
+    off 0, and hidden widths 1000 (padded to 1024) and 1024, on the valid
+    rows within 4e-2 of the bf16 twin and within 1e-3 of the forward at
+    the kernels' rounding points (summation order only), launched once in
+    the wrapper's count of its mode; two calls give the same bits."""
+    fused = DPT_FNS[kind][0]
+    args, kw, valid = _fwd_wg_args(cuda, kind, size, m, seed=size + m)
+    counter = "partial_launches" if m > 1 else "launches"
+    before = getattr(fused, counter)
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert getattr(fused, counter) == before + 1
+        same = DPT_FNS[kind][1](*args, **kw)
+        rounded = _fwd_rounded(kind, args, kw)
+        assert torch.equal(got, fused(*args, **kw))
+    assert got.dtype == torch.bfloat16 and got.shape == same.shape
+    got, same, rounded = (_valid_rows(v, valid, 256)
+                          for v in (got, same, rounded))
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, same) <= DPT_TOL[torch.bfloat16], _rel_l2(got, same)
+    assert _rel_l2(got, rounded) <= TP_ORDER_TOL[torch.bfloat16], (
+        _rel_l2(got, rounded))
+
+
+@pytest.mark.parametrize("B", [64, 128, 192])
+@pytest.mark.parametrize("kind", ["intra", "ffn"])
+def test_dpt_fwd_bf16_design_at_other_widths(cuda, kind, B):
+    """B9 and B11 in bf16 at the other widths they take (heads of 32; at
+    B = 192 the out and down products run a 256-wide tile with its last
+    64 columns zero, and F1 64-wide column tiles): within 4e-2 of the bf16
+    twin and 1e-3 of the forward at their rounding points."""
+    fused, twin = DPT_FNS[kind]
+    args, kw, valid = _dpt_args(cuda, torch.bfloat16, kind, 4, True, M=2,
+                                S=48, B=B, heads=B // 32, F=320, seed=B)
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        same, rounded = twin(*args, **kw), _fwd_rounded(kind, args, kw)
+    got, same, rounded = (_valid_rows(v, valid, B)
+                          for v in (got, same, rounded))
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, same) <= DPT_TOL[torch.bfloat16], _rel_l2(got, same)
+    assert _rel_l2(got, rounded) <= TP_ORDER_TOL[torch.bfloat16], (
+        _rel_l2(got, rounded))
+
+
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("kind", ["intra", "ffn"])
+def test_dpt_fwd_bf16_at_its_rounding_points(cuda, kind, m):
+    """B9 and B11 (m = 1) and B9p and B11p (m = 2) in bf16 at the quality
+    default's widths ([4, 25, 128, 256], 8 heads, F = 1024) with LN gamma
+    3 (sharper attention, wider GELU inputs), against the forward that
+    rounds where the kernels round: they differ in summation order and in
+    the fast exponential only, so the output holds 1e-3 (B6's order bar),
+    which h used unrounded, or round(p) skipped, does not."""
+    fused = DPT_FNS[kind][0]
+    args, kw, valid = _dpt_args(cuda, torch.bfloat16, kind, 25, True, M=4,
+                                S=128, B=256, heads=8, F=1024, seed=5)
+    args = list(args)
+    args[1] = 3.0 * args[1]
+    if m > 1:
+        args = _shard(args, kind, m, m - 1)
+        kw = dict(_partial_kw(kind, m), partial=True)
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        want = _fwd_rounded(kind, args, kw)
+    got, want = (_valid_rows(v, valid, 256) for v in (got, want))
+    assert _rel_l2(got, want) <= TP_ORDER_TOL[torch.bfloat16], (
+        _rel_l2(got, want))
+
+
+def test_dpt_intra_bf16_takes_chunks_past_256(cuda):
+    """bf16 chunks of 320 frames run through B9 and B10 (neither keeps a
+    per-chunk tile), within the DPT bars of their twins; f32 at S = 320
+    raises before any launch, naming its rule."""
+    fused, twin = DPT_FNS["intra"]
+    args, kw, valid = _dpt_args(cuda, torch.bfloat16, "intra", 2, True,
+                                S=320)
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        want = twin(*args, **kw)
+    assert _rel_l2(_valid_rows(got, valid, 128),
+                   _valid_rows(want, valid, 128)) <= DPT_TOL[torch.bfloat16]
+    bwd, bwd_twin = DPT_BWD_FNS["intra"]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.bfloat16, "intra", 2,
+                                       True, S=320)
+    got = bwd(x, g, *w, **kw)
+    _check_dpt_cotangents(got, bwd_twin(x.float(), g.float(), *w, **kw),
+                          bwd_twin(x, g, *w, **kw), valid, torch.bfloat16)
+    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 2, True, S=320)
+    counts = (fused.launches, bwd.launches)
+    with pytest.raises(ValueError, match="chunk length S of at most 256"):
+        with torch.inference_mode():
+            fused(*args, **kw)
+    x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
+                                   S=320)
+    with pytest.raises(ValueError, match="chunk length S of at most 256"):
+        bwd(x, g, *w, **kw)
+    assert (fused.launches, bwd.launches) == counts
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
 def test_dpt_bwd_kernels_on_low_variance_rows(cuda, dtype, kind):

@@ -94,6 +94,24 @@ def test_attention_rules(kind, B, Bq, heads, S):
         assert dpt_intra.shape_refusal(B, S, Bq, heads) == got
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("S", [100, 256, 320, 1024])
+def test_intra_chunk_limit_is_f32_only(dtype, S):
+    """The intra chunk limit S <= 256 holds in f32 alone (the f32 kernels'
+    per-warp [16, S] rows and [S, S] tiles); the bf16 B9 and B10 keep no
+    per-chunk tile and take any S. The compute dtype comes as a name (a
+    configuration's) or a torch dtype (a wrapper's)."""
+    got = dpt_intra.shape_refusal(256, S, 256, 8, dtype)
+    f32 = str(dtype).replace("torch.", "") == "float32"
+    if f32 and S > 256:
+        assert got == ("the intra kernel needs a chunk length S of at most "
+                       f"256, got S={S}")
+    else:
+        assert got is None
+    assert dpt_attention.shape_refusal("inter", 256, S, 256, 8, dtype) is None
+
+
 @pytest.mark.parametrize("B", [64, 256, 320, 96])
 def test_ffn_rule(B):
     """B11, B12 (and partial modes) take B a multiple of 64 and <= 256, and
@@ -120,9 +138,17 @@ def test_ffn_rule(B):
     (dict(separator="dpt", dpt_ff=1280), 4, False, {}),
     (dict(hidden=1152), 2, False, {"stage2"}),
     (dict(separator="dpt", dpt_chunk=272), 1, False, {"intra"}),
+    (dict(separator="dpt", dpt_chunk=320), 1, False, {"intra"}),
+    (dict(separator="dpt", dpt_chunk=320, compute_dtype="bfloat16"), 1,
+     False, {}),
+    (dict(separator="dpt", dpt_chunk=320, compute_dtype="bfloat16"), 2,
+     False, {}),
+    (dict(separator="dpt", dpt_chunk=100, compute_dtype="bfloat16"), 1,
+     False, {}),
 ], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-tp8",
-        "dpt-tp4-F320", "tp-Hs576", "dpt-S272"])
+        "dpt-tp4-F320", "tp-Hs576", "dpt-S272", "dpt-S320", "dpt-S320-bf16",
+        "dpt-tp2-S320-bf16", "dpt-S100-bf16"])
 def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
                                                  want):
     """The kinds a configuration's kernels refuse, each with its wrapper's
@@ -140,7 +166,8 @@ def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
         "pair": lambda: tcn_block_pair.shape_refusal(B, H, P, causal),
         "stage2": lambda: tcn_block_tp.shape_refusal(H // m, B, P, causal),
         "intra": lambda: dpt_intra.shape_refusal(
-            B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m),
+            B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m,
+            cfg.compute_dtype),
         "inter": lambda: dpt_attention.shape_refusal(
             "inter", B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m),
         "ffn": lambda: dpt_ffn.shape_refusal(B)}
