@@ -17,40 +17,63 @@
 // What bounds it on the card. At the DPT quality default (B=256, h=8, d=32,
 // S=128) and B=8 x 4 s (n=25) the sublayer is 14.1 GFLOP (QKV 10.1, out
 // 3.4, scores and mix 0.7): 14 us at 989 TFLOP/s, against 26.2 MB of x in
-// and out (7.8 us at 3.35 TB/s): compute-bound. Launches 1 and 3 are the
-// intra sublayer's (dpt_common.cuh); the core between them is tiny
-// (25 x 25 per (m, s, head)) and strided by S*3B in memory, and n varies
-// with the input (15 s gives n=94). So one block per (m, s) stages the k and
-// v rows of all heads for up to 32 key chunks at a time in shared memory,
-// and each warp takes one head with one query chunk per lane: pass 1 runs
-// the key tiles for the row's max and softmax denominator (online), pass 2
-// recomputes each score, rounds p = exp(score - max) / sum to the compute
-// dtype and accumulates p v in f32. Two passes keep the reference's
-// rounding of the normalised p and take any n >= 1; with n <= 32 the key
-// tile is loaded once. The qkv round trip (78.6 MB in bf16) is the design's
-// cost over the bound.
+// and out (7.8 us at 3.35 TB/s): compute-bound. The core between the two
+// products is tiny (25 x 25 per (m, s, head)), its rows strided by S rows
+// in memory, and n varies with the input (15 s gives n=94).
+//
+// bf16: the forward frame of dpt_attn_bwd_wg.cuh (launch_attention_fwd_wg),
+// as the intra forward B9 runs it, with the core's inter gather (the row of
+// each of the n chunks at position s, S rows apart; the key bias per (key
+// chunk, s)):
+//   F1  per 128-row tile, x resident K-major and normalised in place,
+//       qkv = round(y @ W_qkv) on wgmma in 128-column tiles (64 where Bq
+//       is not a multiple of 128), W_qkv MN-major through a ring;
+//   C   a CTA per (m, s, head), a warp per 16 query chunks with its q
+//       fragments in registers, the n chunks' k and v rows of its head
+//       staged by cp.async in blocks of up to 256 (at n = 25 one block of
+//       32 rows, 2 warps): pass 1 the row max and denominator, pass 2 p,
+//       round(p) and a on mma.sync; keys past n in the last 16-key tile
+//       masked with -inf, so any n >= 1 runs (n = 1: p = 1);
+//   out x + round(a @ W_out) on wgmma per 128-row tile (partial: the
+//       product alone).
+// At the default the core's 8,192 CTAs read qkv once (39.3 MB, each CTA a
+// 64-byte head slice of 25 rows 196 KB apart) and write a (13.1 MB), a
+// floor of ~16 us; it reads ~30 us (PERF.md), under the ~35 us at which a
+// CTA per (m, s) over all heads, staging each row's 3Bq columns
+// contiguously, would be worth its shared memory. What stands over the
+// bound: F1 and out (their LN, x's tile and one CTA per SM, as B9's) and
+// the qkv and a round trips (~105 MB).
+//
+// f32: the first design, three launches: ln_qkv_kernel (dpt_common.cuh,
+// FMA products); inter_core_kernel (here): one block per (m, s) stages the
+// k and v rows of all heads for up to 32 key chunks at a time in shared
+// memory, and each warp takes one head with one query chunk per lane: pass
+// 1 the row's max and softmax denominator (online), pass 2 recomputes each
+// score, rounds p = exp(score - max) / sum and accumulates p v in f32; and
+// out_proj_residual_kernel (dpt_common.cuh). Head widths 32 and 64, h <= 8.
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
-// block runs the h heads of one shard's head group, of width Bq = h * d:
+// sublayer runs the h heads of one shard's head group, of width Bq = h * d:
 // qkv and a are [R, 3Bq] and [R, Bq], and the last launch writes
 // round(a @ W_out[Bq, B]) with no residual. At the quality default's m = 2
 // shards (Bq 128, 4 heads) that is 7.0 GFLOP, under the 7.8 us of x in and
 // out: bytes-bound.
 
-#include "dpt_common.cuh"
+#include "dpt_attn_bwd_wg.cuh"
 
 namespace {
 
 constexpr int kKeyTile = 32;   // key chunks staged per shared-memory load
 
 template <typename T>
-size_t core_smem(int Bq) {
+size_t inter_core_smem(int Bq) {
   return align128(static_cast<size_t>(kKeyTile) * 2 * Bq * sizeof(T)) +
          kKeyTile * sizeof(float);
 }
 
-// Grid (S, M); 32 * h threads, warp = head. B below is the heads' width
-// Bq: the rows of qkv hold 3Bq values, those of a Bq.
+// f32's core (the first design, top note). Grid (S, M); 32 * h threads,
+// warp = head. B below is the heads' width Bq: the rows of qkv hold 3Bq
+// values, those of a Bq.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     inter_core_kernel(DptAttnParams p, float scale) {
@@ -148,7 +171,7 @@ __global__ void __launch_bounds__(256)
 
 template <typename T, int D>
 int launch_core(const DptAttnParams& p, cudaStream_t stream) {
-  const size_t smem = core_smem<T>(p.Bq);
+  const size_t smem = inter_core_smem<T>(p.Bq);
   cudaError_t err = cudaFuncSetAttribute(
       inter_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -159,15 +182,23 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16: the forward frame of dpt_attn_bwd_wg.cuh with the core's inter
+// gather; f32: the first design.
 template <typename T>
 int launch(const DptAttnParams& p, cudaStream_t stream) {
   const int d = p.Bq / p.h;
-  if ((d != 32 && d != 64) || p.h > 8 || p.Bq % 64 || p.Bq > p.B)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
-                                            cudaStream_t s) {
-    return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
-  });
+  if (p.Bq % 64 || p.Bq > p.B) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kIsBf16<T>) {
+    if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<true>);
+  } else {
+    if ((d != 32 && d != 64) || p.h > 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
+                                              cudaStream_t s) {
+      return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
+    });
+  }
 }
 
 }  // namespace

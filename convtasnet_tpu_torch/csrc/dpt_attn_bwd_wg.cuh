@@ -1,10 +1,12 @@
 // The bf16 design of both attention sublayer backwards for Hopper (sm_90a):
 // the intra-chunk one (B10, dpt_intra_bwd.cu) and the inter-chunk one (B8,
 // dpt_attention_bwd.cu), each also in partial mode (B10p, B8p); and the
-// forward frame built from its pieces, which the intra-chunk forward (B9,
-// B9p, dpt_intra.cu) runs (the inter-chunk forward B7 keeps the first
-// design for now). f32 keeps the first designs (launch_attention_bwd in
-// dpt_bwd_common.cuh, launch_attention in dpt_common.cuh).
+// forward frame built from its pieces, which both forwards run: the
+// intra-chunk one (B9, B9p, dpt_intra.cu) and the inter-chunk one (B7,
+// B7p, dpt_attention.cu), each with its row gather. Head widths d = 16,
+// 32, 64 and 128 (core_head_width). f32 keeps the first designs
+// (launch_attention_bwd in dpt_bwd_common.cuh, launch_attention in
+// dpt_common.cuh) at d = 32 and 64.
 //
 // The forward (launch_attention_fwd_wg), three launches:
 //   F1   attn_lq_kernel<BN, false>: LQ below without g's tile, dA, y or the
@@ -58,7 +60,9 @@
 //               fragments in registers) and walks the queries in tiles of
 //               16, their q and dA rows and stats staged likewise; it
 //               rebuilds p and ds with the same arithmetic and accumulates
-//               dv = round(round(p)^T dA) and dk = round(ds^T q).
+//               dv = round(round(p)^T dA) and dk = round(ds^T q) (at d =
+//               128 in a walk each: the fragments and both accumulators
+//               would not fit in 255 registers).
 // Keys beyond L read as zero rows with bias -inf (p exactly 0), queries
 // beyond L as zero rows with stats (max +inf, 1 / denominator 0): they
 // contribute exactly 0 and are not stored. With L = 1 every row has one
@@ -214,6 +218,14 @@ int launch_lq(const DptAttnParams& f, const bf16* g, const LqOut& o,
 
 constexpr int kCoreWarpsWg = 4;       // warps of a core CTA, at most
 constexpr int kCoreBlock = 256;       // rows of a staged block, at most
+
+// The head widths d the core takes: one 16-deep A fragment step (16) up
+// to eight (128). At 16 a row is 32 bytes, two cp.async chunks, and
+// core_ld<16>() = 24 keeps each ldmatrix row 16-byte aligned and the 8
+// rows of a matrix in distinct banks.
+inline bool core_head_width(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 128;
+}
 
 // One m16n8k16 product, bf16 in, f32 accumulated in c.
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
@@ -501,6 +513,8 @@ __host__ __device__ constexpr size_t core_wg_smem(int T, int warps) {
              sizeof(bf16) +
          static_cast<size_t>(T) * 3 * sizeof(float);
 }
+static_assert(core_wg_smem<128>(kCoreBlock, kCoreWarpsWg) <= kMaxDynSmem,
+              "the backward core's shared memory at d = 128");
 
 // Grid (intra: n, inter: S; M; h), 32 * warps threads; T the staged
 // block's rows (a multiple of 16, at most kCoreBlock). Top note.
@@ -644,49 +658,70 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
   for (int rnd = 0; rnd < n_tiles; rnd += n_warps) {
     const int k0 = (rnd + warp) * 16;
     const bool active = rnd + warp < n_tiles;
-    uint32_t ka[D / 16][4], va[D / 16][4];
-    float kb[2] = {0.f, 0.f};
-    if (active) {
-      own_frags(ka, va, qkv, W3, ck, qkv, W3, cv, k0);
+    // one walk over the queries accumulating dv (with_dv) and dk (with_dk)
+    auto key_pass = [&](auto with_dv, auto with_dk) {
+      constexpr bool kDv = decltype(with_dv)::value;
+      constexpr bool kDk = decltype(with_dk)::value;
+      uint32_t ka[D / 16][4], va[D / 16][4];
+      float kb[2] = {0.f, 0.f};
+      if (active) {
+        own_frags(ka, va, qkv, W3, ck, qkv, W3, cv, k0);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int k = k0 + g + 8 * half;
-        kb[half] = k < L ? G.key_bias(k) : 0.f;
+        for (int half = 0; half < 2; ++half) {
+          const int k = k0 + g + 8 * half;
+          kb[half] = k < L ? G.key_bias(k) : 0.f;
+        }
       }
-    }
-    float dk[D / 8][4], dv[D / 8][4];
+      float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+      for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-    for (int b = 0; b < n_blocks; ++b) {
-      stage_queries(b);
-      if (!active) continue;
-      const int rows = min(T, Lp - b * T);
-      for (int q0 = 0; q0 < rows; q0 += 16) {
-        float p[2][4], dp[2][4];
-        mm_rows_t<D>(p, ka, x1, q0, lane);    // s^T: keys x queries
-        mm_rows_t<D>(dp, va, x2, q0, lane);   // dp^T
+        for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+      for (int b = 0; b < n_blocks; ++b) {
+        stage_queries(b);
+        if (!active) continue;
+        const int rows = min(T, Lp - b * T);
+        for (int q0 = 0; q0 < rows; q0 += 16) {
+          float p[2][4], dp[2][4];
+          mm_rows_t<D>(p, ka, x1, q0, lane);    // s^T: keys x queries
+          if constexpr (kDk) mm_rows_t<D>(dp, va, x2, q0, lane);   // dp^T
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float* st = s_vec + 3 * (q0 + 8 * j + 2 * t4 + (e & 1));
-            const float pv =
-                __expf(p[j][e] * scale + kb[e >> 1] - st[0]) * st[1];
-            p[j][e] = pv;
-            dp[j][e] = pv * (dp[j][e] - st[2]) * scale;
+            for (int e = 0; e < 4; ++e) {
+              const float* st = s_vec + 3 * (q0 + 8 * j + 2 * t4 + (e & 1));
+              const float pv =
+                  __expf(p[j][e] * scale + kb[e >> 1] - st[0]) * st[1];
+              p[j][e] = pv;
+              if constexpr (kDk) dp[j][e] = pv * (dp[j][e] - st[2]) * scale;
+            }
+          if constexpr (kDv) {
+            uint32_t pa[4];
+            acc_to_a(pa, p);
+            mm_acc<D>(dv, pa, x2, q0, lane);
           }
-        uint32_t pa[4], dsa[4];
-        acc_to_a(pa, p);
-        acc_to_a(dsa, dp);
-        mm_acc<D>(dv, pa, x2, q0, lane);
-        mm_acc<D>(dk, dsa, x1, q0, lane);
+          if constexpr (kDk) {
+            uint32_t dsa[4];
+            acc_to_a(dsa, dp);
+            mm_acc<D>(dk, dsa, x1, q0, lane);
+          }
+        }
       }
-    }
-    if (active) {
-      core_store_rows<D>(G, dqkv, W3, ck, k0, dk, lane);
-      core_store_rows<D>(G, dqkv, W3, cv, k0, dv, lane);
+      if (active) {
+        if constexpr (kDk) core_store_rows<D>(G, dqkv, W3, ck, k0, dk, lane);
+        if constexpr (kDv) core_store_rows<D>(G, dqkv, W3, cv, k0, dv, lane);
+      }
+    };
+    using Yes = std::true_type;
+    using No = std::false_type;
+    if constexpr (D == 128) {
+      // the k and v fragments and both 16 x 128 accumulators spill (ptxas,
+      // sm_90a): dv and dk in a walk each, p rebuilt in both, the same
+      // arithmetic in the same order
+      key_pass(Yes{}, No{});
+      key_pass(No{}, Yes{});
+    } else {
+      key_pass(Yes{}, Yes{});
     }
   }
 }
@@ -726,6 +761,8 @@ __host__ __device__ constexpr size_t core_fwd_smem(int T, int warps) {
              sizeof(bf16) +
          static_cast<size_t>(T) * sizeof(float);
 }
+static_assert(core_fwd_smem<128>(kCoreBlock, kCoreWarpsWg) <= kMaxDynSmem,
+              "the forward core's shared memory at d = 128");
 
 // a = round(round(softmax(q k^T scale + bias)) v) for one problem (grid
 // (intra: n, inter: S; M; h), 32 * warps threads): a warp per 16 query
@@ -899,12 +936,16 @@ int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   return launch_reduce_jobs(jobs, 3, stream);
 }
 
-// The core for head width d (32 or 64).
+// The core for head width d (core_head_width).
 template <bool kInter>
 int launch_core_wg_d(const DptAttnBwdParams& P, cudaStream_t stream) {
-  const int d = P.f.Bq / P.f.h;
-  return d == 32 ? launch_core_wg<32, kInter>(P, stream)
-                 : launch_core_wg<64, kInter>(P, stream);
+  switch (P.f.Bq / P.f.h) {
+    case 16: return launch_core_wg<16, kInter>(P, stream);
+    case 32: return launch_core_wg<32, kInter>(P, stream);
+    case 64: return launch_core_wg<64, kInter>(P, stream);
+    case 128: return launch_core_wg<128, kInter>(P, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---- The forward's frame (F1, the core, out) ----
@@ -1028,12 +1069,16 @@ int launch_attention_fwd_wg(const DptAttnParams& f, cudaStream_t stream,
   return launch_out_bn<256>(f, tiles, stream);
 }
 
-// The forward core for head width d (32 or 64).
+// The forward core for head width d (core_head_width).
 template <bool kInter>
 int launch_fwd_core_d(const DptAttnParams& f, cudaStream_t stream) {
-  const int d = f.Bq / f.h;
-  return d == 32 ? launch_fwd_core<32, kInter>(f, stream)
-                 : launch_fwd_core<64, kInter>(f, stream);
+  switch (f.Bq / f.h) {
+    case 16: return launch_fwd_core<16, kInter>(f, stream);
+    case 32: return launch_fwd_core<32, kInter>(f, stream);
+    case 64: return launch_fwd_core<64, kInter>(f, stream);
+    case 128: return launch_fwd_core<128, kInter>(f, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

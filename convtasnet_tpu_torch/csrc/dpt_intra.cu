@@ -40,8 +40,9 @@
 //   out x + round(a @ W_out) on wgmma per 128-row tile, a's panels and
 //       W_out's MN-major slabs through a ring, x's tile and the output
 //       staged over the ring after the product.
-// Registers (ptxas, sm_90a): F1 146 (88 at 64 wide), the core 56 at d = 32
-// (96 at 64), out 182 at a 256-wide tile; no spills. Waves: F1 and out
+// Registers (ptxas, sm_90a): F1 146 (88 at 64 wide), the core 47, 56, 96
+// and 128 at d = 16, 32, 64 and 128, out 182 at a 256-wide tile; no
+// spills. Waves: F1 and out
 // 200 tiles of 128 rows (F1 at 64 wide two per SM, one wave), the core
 // 1600 CTAs of four warps, several per SM.
 // The core and out are not fused: a's round trip is 26 MB written and read
@@ -220,11 +221,12 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
 template <typename T>
 int launch(const DptAttnParams& p, cudaStream_t stream) {
   const int d = p.Bq / p.h;
-  if ((d != 32 && d != 64) || p.Bq % 64 || p.Bq > p.B)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.Bq % 64 || p.Bq > p.B) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kIsBf16<T>) {
+    if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
     return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<false>);
   } else {
+    if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
     return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
                                               cudaStream_t s) {
       return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
@@ -245,12 +247,14 @@ int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
   const int d = B / h;
-  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (elem_bytes == 2)
+  if (elem_bytes == 2) {
+    if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
     *n_spill = 0;
-  else
-    *n_spill = d == 32 ? spill_elems<float, 32>(M, n, S, h)
-                       : spill_elems<float, 64>(M, n, S, h);
+    return 0;
+  }
+  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  *n_spill = d == 32 ? spill_elems<float, 32>(M, n, S, h)
+                     : spill_elems<float, 64>(M, n, S, h);
   return 0;
 }
 

@@ -51,7 +51,10 @@ from convtasnet_tpu_torch.ops.norm import LN_EPS, layer_norm
 NEG_INF = -1e9
 TILE = 64            # B must be a multiple of the GEMM tile
 MAX_WIDTH = 256      # B at most this (the kernels' shared-memory tiles)
-HEAD_DIMS = (32, 64)
+# the head widths d = Bq / h the kernels take, by compute dtype: the bf16
+# designs share one tensor-core core, templated on d; the f32 first
+# designs keep d in {32, 64}
+HEAD_DIMS = {"bfloat16": (16, 32, 64, 128), "float32": (32, 64)}
 INTRA_ROWS = 16      # the intra kernels' row tile: S pads up to a multiple
 INTRA_MAX_S = 256    # f32: S at most this (one chunk's tiles in shared
                      # memory); the bf16 kernels take any S
@@ -84,7 +87,9 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
     B10; and their partial modes) refuse a sublayer of width B over chunks
     of S frames whose heads, ``n_heads`` of them, span Bq channels (Bq ==
     B, or B / m for a head-group shard of m), in the compute ``dtype`` (a
-    torch dtype or its name), or None where they take it."""
+    torch dtype or its name), or None where they take it: B a multiple of
+    64 up to 256, Bq a multiple of 64, a head width Bq / n_heads in
+    ``HEAD_DIMS`` of the dtype, and for the f32 intra kernels S <= 256."""
     if B % TILE or B > MAX_WIDTH:
         return (f"the kernel needs B a multiple of {TILE} and at most "
                 f"{MAX_WIDTH}, got B={B}")
@@ -94,11 +99,12 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
         return (f"the partial kernel needs the shard's width B/m a multiple "
                 f"of {TILE}, got {Bq} of B={B}; shard counts that fit: "
                 f"{fits}")
-    if Bq % n_heads or Bq // n_heads not in HEAD_DIMS:
-        return (f"the kernel needs a head width in {HEAD_DIMS}, got {Bq} "
+    name = str(dtype).replace("torch.", "")
+    dims = HEAD_DIMS.get(name, HEAD_DIMS["float32"])
+    if Bq % n_heads or Bq // n_heads not in dims:
+        return (f"the {name} kernel needs a head width in {dims}, got {Bq} "
                 f"channels with {n_heads} heads")
-    if (kind == "intra" and S > INTRA_MAX_S
-            and str(dtype).replace("torch.", "") != "bfloat16"):
+    if kind == "intra" and S > INTRA_MAX_S and name != "bfloat16":
         return (f"the intra kernel needs a chunk length S of at most "
                 f"{INTRA_MAX_S}, got S={S}")
     return None

@@ -55,7 +55,8 @@ def refusals(cfg: ConvTasNetConfig, n_model: int = 1,
         Bq, heads, S = cfg.bottleneck // m, cfg.dpt_num_heads // m, cfg.dpt_chunk
         out["intra"] = dpt_intra.shape_refusal(B, S, Bq, heads,
                                                cfg.compute_dtype)
-        out["inter"] = dpt_attention.shape_refusal("inter", B, S, Bq, heads)
+        out["inter"] = dpt_attention.shape_refusal("inter", B, S, Bq, heads,
+                                                   cfg.compute_dtype)
         out["ffn"] = dpt_ffn.shape_refusal(B)
     elif n_model > 1:
         if cfg.norm_type == "gLN":

@@ -19,13 +19,13 @@ stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128; the TCN block forward
 pair forward (B4, gLN and cLN causal) and the gLN pair backward (B5),
 (d1, d2) = (1, 2), (16, 32), (64, 128); bf16 and f32.
 
-- by distance: the bf16 forwards of B9 and B11 (and of B9p, B11p), whose
-  Hopper designs sum in another order than the first designs: each tree's
-  distance from the forward at the kernel's rounding points (``twin``,
-  held within 1e-3, B6's order bar ``chip_smoke.TP_ORDER_TOL``; the FFN's
-  bf16 twin rounds where B11 rounds, the attention's is
-  ``attention_rounded_reference``) and from its bf16 twin (``bf16
-  twin``, within 4e-2), and the relative L2 between the two trees;
+- by distance: the bf16 forward of B7 (and of B7p), whose Hopper design
+  sums in another order than the first design: each tree's distance from
+  the forward at the kernel's rounding points (``twin``, held within
+  1e-3, B6's order bar ``chip_smoke.TP_ORDER_TOL``; the attention's is
+  ``attention_rounded_reference``, and a tree older than it holds only
+  its bf16 twin) and from its bf16 twin (``bf16 twin``, within 4e-2),
+  and the relative L2 between the two trees;
 - bit for bit (``torch.equal``): every other output. A change to the
   kernels' shared pieces must leave these bits as they were. Where a
   tree carries a twin distance for one of them (the B1-B6 and backward
@@ -108,11 +108,11 @@ TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
            ("b6", "bfloat16"): 1e-3, ("dpt", "bfloat16"): 4e-2,
            ("dpt forward", "bfloat16"): 1e-3}
 # outputs held by distance against the other tree (every other output bit
-# for bit): the bf16 forwards of B9 and B11 and of their partial modes,
-# whose Hopper designs sum in another order than the first designs; each
-# within 1e-3 of the forward at its rounding points ("twin", B6's order
-# bar) and within 4e-2 of its bf16 twin ("bf16 twin")
-FWD_BY_DISTANCE = tuple(f"dpt {kind} bfloat16 " for kind in ("intra", "ffn"))
+# for bit): the bf16 forward of B7 and of its partial mode, whose Hopper
+# design sums in another order than the first design; each within 1e-3 of
+# the forward at its rounding points ("twin", B6's order bar) and within
+# 4e-2 of its bf16 twin ("bf16 twin")
+FWD_BY_DISTANCE = ("dpt inter bfloat16 ",)
 TWINS = ("twin ", "bf16 twin ")
 
 
@@ -201,7 +201,7 @@ def _tcn_tol(key: str) -> float:
 
 def compare(mine: dict, other: dict):
     """Lines to print and the keys at fault: the ``bitwise`` outputs (all
-    but the bf16 forwards of B9 and B11 and their partial modes) must
+    but the bf16 forward of B7 and its partial mode) must
     equal the other tree's bit for bit; every other output reports its
     relative L2 to the other tree's, and is at fault when this tree's
     distance from a twin (the ``twin `` and ``bf16 twin `` entries)
@@ -332,15 +332,16 @@ def dump(path: str) -> None:
     twins = {"inter": dpt_attention.inter_attention_bwd_reference,
              "intra": dpt_intra.intra_attention_bwd_reference,
              "ffn": dpt_ffn.ffn_bwd_reference}
-    fwd_twins = {"intra": dpt_intra.intra_attention_reference,
+    fwd_twins = {"inter": dpt_attention.inter_attention_reference,
+                 "intra": dpt_intra.intra_attention_reference,
                  "ffn": dpt_ffn.ffn_reference}
     # the attention forward at its rounding points (a tree older than the
     # Hopper forward designs has none: it holds its forwards by bits)
     rounded_attn = getattr(dpt_attention, "attention_rounded_reference", None)
 
     def forward(kind, key, x, w, **kw):
-        """A forward's output; a bf16 B9 or B11 (or partial) output also
-        its distances from the forward at its rounding points and from its
+        """A forward's output; a bf16 output (full or partial) also its
+        distances from the forward at its rounding points and from its
         bf16 twin."""
         with torch.inference_mode():
             got = fns[kind][0](x, *w, **kw)
@@ -350,7 +351,8 @@ def dump(path: str) -> None:
                     out[f"twin {key} forward"] = rel_l2(got, same)
                 elif rounded_attn is not None:
                     out[f"twin {key} forward"] = rel_l2(got, rounded_attn(
-                        x, *w, attend_axis=2, **kw))
+                        x, *w, attend_axis=1 if kind == "inter" else 2,
+                        **kw))
                 out[f"bf16 twin {key} forward"] = rel_l2(got, same)
         out[f"{key} forward"] = got.cpu()
 
@@ -621,8 +623,9 @@ def _time_dpt_forwards(torch, res: dict, rn) -> None:
     real key mask (3199 frames of 4 s), each with its device time per call
     and per kernel; beside B7 and B9 (and their partial modes)
     ``scaled_dot_product_attention``'s forward at its core's shapes
-    (problems x heads, attended length, d = 32; no mask), a yardstick no
-    kernel calls; and the DPT quality default's forward at B=8 x 4 s."""
+    (problems x heads, attended length, d = 32; no mask; CUDA events and
+    device time), a yardstick no kernel calls; and the DPT quality
+    default's forward at B=8 x 4 s."""
     from convtasnet_tpu_torch import ConvTasNetConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
@@ -658,9 +661,12 @@ def _time_dpt_forwards(torch, res: dict, rn) -> None:
             problems, length = (M * n, S) if kind == "intra" else (M * S, n)
             q, k, v = (rn(problems, 8 // m, length, 32).bfloat16()
                        for _ in range(3))
-            res[f"sdpa fwd {at}"] = _ms(
-                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v), 20)
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v)
+
+            res[f"sdpa fwd {at}"] = _ms(torch, sdpa, 20)
+            _device_ms(torch, res, f"sdpa fwd {at}", sdpa)
         cfg = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16")
         model = ConvTasNet(cfg, device="cuda").eval()
         mix = rn(M, 4 * 8000)

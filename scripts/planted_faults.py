@@ -22,8 +22,9 @@ smoke phases of the kernel's kind (``PHASES``: for B1
 ``phase_step_compare(torch, "tcn")``, for B2 ``phase_bwd_vs_twin(torch,
 bwd)`` and ``phase_step_compare(torch, "tcn")``, for a DPT forward kernel
 ``chip_smoke.phase_dpt_kernels_vs_twin`` and ``phase_dpt_forward``, for a
-DPT backward ``phase_dpt_bwd_vs_twin``, ``phase_ffn_bwd_tail_tiles`` and
-``phase_step_compare(torch, "dpt")``, for B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
+DPT backward ``phase_dpt_bwd_vs_twin``, ``phase_ffn_bwd_tail_tiles``,
+``phase_step_compare(torch, "dpt")`` and ``phase_dpt_head_widths``, for
+B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
 ``phase_step_compare(torch, "tcn", "cLN")``, for the block pair
 ``phase_pair_vs_twin``, ``phase_pair_bwd_vs_twin`` and
 ``phase_step_compare(torch, "tcn")``, for tensor parallelism
@@ -102,6 +103,24 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
         "    for (int k0 = 0; k0 < rows; k0 += 16) {\n      float s[2][4];",
         "    for (int k0 = 0; k0 < rows - 16; k0 += 16) {\n      float s[2][4];"),
+    # B7's bf16 design (the forward frame with the core's inter gather):
+    # the key mask dropped, the key bias of the next position (in bounds;
+    # B8 reads the same gather); and the core at d = 128 without its dk
+    # walk (dk left as the workspace held it)
+    "b7_key_mask_dropped": ("dpt_forward",
+        "convtasnet_tpu_torch/csrc/dpt_attention.cu",
+        "return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<true>);",
+        "DptAttnParams q = p; q.bias = nullptr; "
+        "return launch_attention_fwd_wg(q, stream, launch_fwd_core_d<true>);"),
+    "b7_key_bias_of_next_position": ("dpt_forward",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "return kInter ? f.bias[static_cast<size_t>(k) * f.S + blockIdx.x]",
+        "return kInter ? f.bias[static_cast<size_t>(k) * f.S + "
+        "(blockIdx.x + 1) % f.S]"),
+    "core_d128_dk_walk_dropped": ("dpt_backward",
+        "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
+        "      key_pass(No{}, Yes{});",
+        "      (void)0;"),
     "b9_partial_adds_residual": ("dpt_tp",
         "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
         "  const bool residual = !f.partial;",
@@ -304,15 +323,14 @@ FAULTS = {
         "convtasnet_tpu_torch/parallel/tensor_parallel.py",
         "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), w1, w0)",
         "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), 0 * w1, w0)"),
-    # dual-path tensor parallelism: the residual kept in a partial (bf16)
+    # dual-path tensor parallelism: the residual kept in a partial (f32)
     # attention forward, so the m shards' residuals are summed; the down
     # bias added once per shard; a contiguous column split of W_qkv in
     # place of the head-aligned one; g kept in a partial backward's dx
     "dpt_partial_keeps_residual": ("dpt_tp",
         "convtasnet_tpu_torch/csrc/dpt_common.cuh",
-        "      for (int e = 0; e < 8; ++e) o[e] = round_to<T>(v[e]);",
-        "      for (int e = 0; e < 8; ++e) o[e] = to_f<T>(x[idx + e]) + "
-        "round_to<T>(v[e]);"),
+        "out[idx] = from_f<T>(p.partial ? proj : to_f<T>(x[idx]) + proj);",
+        "out[idx] = from_f<T>(to_f<T>(x[idx]) + proj);"),
     "dpt_tp_b_down_per_shard": ("dpt_tp",
         "convtasnet_tpu_torch/parallel/dpt_tp.py",
         "    return (x3 + all_reduce(parts) + b_down.to(x.dtype))",
@@ -340,7 +358,8 @@ PHASES = {
                     "phase_dpt_forward(torch, dpt)"],
     "dpt_backward": ["phase_dpt_bwd_vs_twin(torch, dpt)",
                      "phase_ffn_bwd_tail_tiles(torch, dpt)",
-                     "phase_step_compare(torch, 'dpt')"],
+                     "phase_step_compare(torch, 'dpt')",
+                     "phase_dpt_head_widths(torch, dpt)"],
     "cln_backward": ["phase_bwd_vs_twin(torch, bwd, 'cLN')",
                      "phase_step_compare(torch, 'tcn', 'cLN')"],
     "pair": ["phase_pair_vs_twin(torch, k)",

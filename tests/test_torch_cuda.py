@@ -1253,16 +1253,22 @@ def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype):
     """One training forward/backward of a small DPT model (B=128, 4 heads,
     2 layers, a padded tail): every sublayer runs both kernels, and the
     gradients agree with the plain path's as chip_smoke.py holds them: in
-    f32 to 4e-3 globally; in bf16 the kernel path no further from the f32
-    gradient than max(8e-2, 1.25x the plain bf16 path)."""
+    f32 to 4e-3 globally (batch seed 6); in bf16 over batch seeds 0-7 the
+    median distance of the kernel path from the f32 gradient no larger
+    than max(8e-2, 1.25x the plain bf16 path's median), as the smoke holds
+    its S = 320 step: at random init each seed's distance is one draw of
+    1 / c of the least correlated (estimate, source) pair (PERF.md §6), and
+    a single seed reads the kernel/plain ratio from 0.65 to 1.46."""
     from convtasnet_tpu_torch.losses.pit import pit_si_snr
 
-    gen = torch.Generator().manual_seed(6)
-    mix = torch.randn(2, 10400, generator=gen).to(cuda)
-    src = torch.randn(2, 2, 10400, generator=gen).to(cuda)
-    lengths = torch.full((2,), 10400, device=cuda)
+    def batch(seed):
+        gen = torch.Generator().manual_seed(seed)
+        mix = torch.randn(2, 10400, generator=gen).to(cuda)
+        src = torch.randn(2, 2, 10400, generator=gen).to(cuda)
+        return mix, src, torch.full((2,), 10400, device=cuda)
 
-    def grads(compute_dtype, use):
+    def grads(compute_dtype, use, data):
+        mix, src, lengths = data
         cfg = ConvTasNetConfig(n_filters=64, bottleneck=128, separator="dpt",
                                dpt_chunk=32, dpt_layers=2, dpt_ff=256,
                                compute_dtype=compute_dtype)
@@ -1275,14 +1281,23 @@ def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype):
         assert launched == ([2, 2, 4] if use else [0, 0, 0])
         return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
 
-    kernel, plain = grads(dtype, True), grads(dtype, False)
-    assert torch.isfinite(kernel).all()
     if dtype == "float32":
+        data = batch(6)
+        kernel, plain = grads(dtype, True, data), grads(dtype, False, data)
+        assert torch.isfinite(kernel).all()
         assert _rel_l2(kernel, plain) <= BWD_TOL[torch.float32]
-    else:
-        exact = grads("float32", False)
-        assert _rel_l2(kernel, exact) <= max(
-            BWD_TOL[torch.bfloat16], 1.25 * _rel_l2(plain, exact))
+        return
+    dists = []
+    for seed in range(8):
+        data = batch(seed)
+        kernel = grads(dtype, True, data)
+        assert torch.isfinite(kernel).all(), seed
+        exact = grads("float32", False, data)
+        dists.append((_rel_l2(kernel, exact),
+                      _rel_l2(grads(dtype, False, data), exact)))
+    k_med = float(np.median([k for k, _ in dists]))
+    p_med = float(np.median([p for _, p in dists]))
+    assert k_med <= max(BWD_TOL[torch.bfloat16], 1.25 * p_med), dists
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1389,7 +1404,7 @@ def _attn_wg_args(device, kind, length, d, m, seed):
     [-1, 1], LN beta off 0, and a cotangent zero on the masked rows.
     -> (x, g, weights, kwargs, valid)."""
     rng = np.random.default_rng(seed)
-    M, B = 2, 128
+    M, B = 2, max(128, d * m)   # d = 128 on a shard of two: B = 256
     n, S = (3, length) if kind == "intra" else (length, 24)
     valid = np.ones((n, S), bool)
     if n > 1:
@@ -1417,12 +1432,13 @@ def _attn_wg_args(device, kind, length, d, m, seed):
 
 
 @pytest.mark.parametrize("m", [1, 2])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 16, 128])
 @pytest.mark.parametrize("kind,length", ATTN_WG_LENGTHS,
                          ids=[f"{k}-{n}" for k, n in ATTN_WG_LENGTHS])
 def test_dpt_attn_bwd_bf16_design_matches_twin(cuda, kind, length, d, m):
     """B8 and B10 in bf16 (m = 1) and B8p and B10p on the last shard of two
-    (m = 2) at head widths 32 and 64, over masked frames and a masked
+    (m = 2) at head widths 16, 32, 64 and 128 (the core's instances; at
+    d = 128 its key side walks the queries twice), over masked frames and a masked
     chunk with the key bias and LN beta off 0: every cotangent at the DPT
     bars against the exact f32 twin and the bf16 twin, launched once in
     the wrapper's count of its mode; two calls give the same bits."""
@@ -1462,11 +1478,13 @@ def test_dpt_attn_bwd_bf16_at_its_rounding_points(cuda, kind):
             i, _rel_l2(q, t))
 
 
-# B9 and B11 (and B9p, B11p) in bf16 run the Hopper forward designs
-# (csrc/dpt_attn_bwd_wg.cuh's forward frame, csrc/dpt_ffn.cu's ffn_wg_kernel):
-# (kind, chunk length S for intra, hidden width F for the FFN)
+# B7, B9 and B11 (and B7p, B9p, B11p) in bf16 run the Hopper forward
+# designs (csrc/dpt_attn_bwd_wg.cuh's forward frame with either gather,
+# csrc/dpt_ffn.cu's ffn_wg_kernel): (kind, chunk length S for intra, chunk
+# count n for inter, hidden width F for the FFN)
 FWD_WG_SIZES = [("intra", 16), ("intra", 100), ("intra", 128),
-                ("intra", 320), ("ffn", 1000), ("ffn", 1024)]
+                ("intra", 320), ("ffn", 1000), ("ffn", 1024),
+                ("inter", 1), ("inter", 25), ("inter", 94)]
 
 
 def _fwd_rounded(kind, args, kw):
@@ -1475,14 +1493,15 @@ def _fwd_rounded(kind, args, kw):
     too, so ``attention_rounded_reference`` stands in for it."""
     if kind == "ffn":
         return dpt_ffn.ffn_reference(*args, **kw)
-    return dpt_attention.attention_rounded_reference(*args, attend_axis=2,
-                                                     **kw)
+    return dpt_attention.attention_rounded_reference(
+        *args, attend_axis=1 if kind == "inter" else 2, **kw)
 
 
 def _fwd_wg_args(device, kind, size, m, seed, M=2, B=256):
     """bf16 operands of a forward at B = 256 (8 heads of 32; F = size),
     on shard m - 1 of m (m = 1: the full sublayer): for intra three chunks
-    of S = size frames, the next-to-last half masked and the last one
+    of S = size frames, for inter n = size chunks of 24 frames (one of 24,
+    the last 5 masked), the next-to-last half masked and the last one
     masked whole, the real frames' key bias drawn from [-1, 1]; LN beta
     and the biases off 0. -> (args, kwargs, valid rows [K])."""
     rng = np.random.default_rng(seed)
@@ -1502,10 +1521,13 @@ def _fwd_wg_args(device, kind, size, m, seed, M=2, B=256):
         valid = torch.ones(K, dtype=torch.bool, device=device)
         kw = {}
     else:
-        n, S = 3, size
+        n, S = (3, size) if kind == "intra" else (size, 24)
         ok = np.ones((n, S), bool)
-        ok[-1] = False
-        ok[-2, S // 2:] = False
+        if n > 1:
+            ok[-1] = False
+            ok[-2, S // 2:] = False
+        else:
+            ok[0, S - 5:] = False
         args = (t(rng.standard_normal((M, n, S, B)), torch.bfloat16), gamma,
                 beta, t(rng.standard_normal((B, 3 * B)) / np.sqrt(B)),
                 t(rng.standard_normal((B, B)) / np.sqrt(B)),
@@ -1522,10 +1544,11 @@ def _fwd_wg_args(device, kind, size, m, seed, M=2, B=256):
 @pytest.mark.parametrize("kind,size", FWD_WG_SIZES,
                          ids=[f"{k}-{n}" for k, n in FWD_WG_SIZES])
 def test_dpt_fwd_bf16_design_matches_twin(cuda, kind, size, m):
-    """B9 and B11 in bf16 (m = 1) and B9p and B11p on the last shard of
-    m = 2 and 4: chunks of 16, 100 (padded to 112), 128 and 320 frames
-    (any S in bf16) with masked frames and a masked chunk and the key bias
-    off 0, and hidden widths 1000 (padded to 1024) and 1024, on the valid
+    """B9, B11 and B7 in bf16 (m = 1) and B9p, B11p and B7p on the last
+    shard of m = 2 and 4: chunks of 16, 100 (padded to 112), 128 and 320
+    frames (any S in bf16), 1, 25 and 94 chunks (any n), with masked
+    frames and a masked chunk and the key bias off 0, and hidden widths
+    1000 (padded to 1024) and 1024, on the valid
     rows within 4e-2 of the bf16 twin and within 1e-3 of the forward at
     the kernels' rounding points (summation order only), launched once in
     the wrapper's count of its mode; two calls give the same bits."""
@@ -1571,9 +1594,9 @@ def test_dpt_fwd_bf16_design_at_other_widths(cuda, kind, B):
 
 
 @pytest.mark.parametrize("m", [1, 2])
-@pytest.mark.parametrize("kind", ["intra", "ffn"])
+@pytest.mark.parametrize("kind", ["intra", "ffn", "inter"])
 def test_dpt_fwd_bf16_at_its_rounding_points(cuda, kind, m):
-    """B9 and B11 (m = 1) and B9p and B11p (m = 2) in bf16 at the quality
+    """B9, B11 and B7 (m = 1) and B9p, B11p and B7p (m = 2) in bf16 at the quality
     default's widths ([4, 25, 128, 256], 8 heads, F = 1024) with LN gamma
     3 (sharper attention, wider GELU inputs), against the forward that
     rounds where the kernels round: they differ in summation order and in
@@ -1593,6 +1616,40 @@ def test_dpt_fwd_bf16_at_its_rounding_points(cuda, kind, m):
     got, want = (_valid_rows(v, valid, 256) for v in (got, want))
     assert _rel_l2(got, want) <= TP_ORDER_TOL[torch.bfloat16], (
         _rel_l2(got, want))
+
+
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_dpt_fwd_bf16_head_widths_16_and_128(cuda, kind, d, m):
+    """B7 and B9 (m = 1) and B7p and B9p (the last shard of two) in bf16 at
+    B = 256 with 16 heads (d = 16) and 2 (d = 128): within 4e-2 of the
+    bf16 twin and 1e-3 of the forward at the rounding points, on the valid
+    rows; f32 refuses these widths before any launch, naming the rule."""
+    fused, twin = DPT_FNS[kind]
+    args, kw, valid = _dpt_args(cuda, torch.bfloat16, kind, 25 if kind ==
+                                "inter" else 3, True, M=2, S=64, B=256,
+                                heads=256 // d, seed=d + m)
+    if m > 1:
+        args = _shard(args, kind, m, m - 1)
+        kw = dict(n_heads=256 // d // m, partial=True)
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        same, rounded = twin(*args, **kw), _fwd_rounded(kind, args, kw)
+    got, same, rounded = (_valid_rows(v, valid, 256)
+                          for v in (got, same, rounded))
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, same) <= DPT_TOL[torch.bfloat16], _rel_l2(got, same)
+    assert _rel_l2(got, rounded) <= TP_ORDER_TOL[torch.bfloat16], (
+        _rel_l2(got, rounded))
+    f32 = [a.float() if a is not None and a.dtype == torch.bfloat16 else a
+           for a in args]
+    before = (fused.launches, fused.partial_launches)
+    with pytest.raises(ValueError, match=r"the float32 kernel needs a head "
+                       r"width in \(32, 64\)"):
+        with torch.inference_mode():
+            fused(*f32, **kw)
+    assert (fused.launches, fused.partial_launches) == before
 
 
 def test_dpt_intra_bf16_takes_chunks_past_256(cuda):
@@ -1959,7 +2016,8 @@ def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
                                                             monkeypatch):
     """On CUDA tensors the partial wrappers launch or raise: a shard width
     that is not a multiple of 64 (eight shards of B=256) names the shard
-    counts that fit, a head width outside {32, 64} raises, a shard's
+    counts that fit, a head width outside the bf16 kernels' {16, 32, 64,
+    128} (8: 16 heads on a shard of 128 channels) raises, a shard's
     weights without ``partial=True`` raise, and with the kernel library
     made to fail the wrapper raises and counts no launch; F/m off the
     128-column tile (F/16 = 64) runs padded. ``dpt_tp_forward`` over eight
@@ -1975,7 +2033,7 @@ def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
                                             n_heads=1, partial=True)
     with pytest.raises(ValueError, match="head width"):
         dpt_intra.fused_intra_attention(*_shard(args, "intra", 2, 0),
-                                        n_heads=8, partial=True)
+                                        n_heads=16, partial=True)
     with pytest.raises(ValueError, match="partial=True"):
         dpt_attention.fused_inter_attention(*_shard(args, "inter", 2, 0),
                                             n_heads=4)

@@ -35,7 +35,7 @@ from convtasnet_tpu_torch.ops.cuda import dpt_attention as port_attn
 from convtasnet_tpu_torch.ops.norm import LN_EPS
 
 TILE = 16                       # the core's row and key tiles
-B = 64                          # small, so that interpret mode stays fast
+WIDTH = 64                      # small, so that interpret mode stays fast
 TOL = {"float32": 1e-5, "bfloat16": 4e-2}
 GRADS = ("dx", "dgamma", "dbeta", "dw_qkv", "dw_out")
 # (kind, attended length): intra chunks of S frames, inter n chunks
@@ -166,6 +166,7 @@ def _case(kind, length, d, partial, seed):
     the heads of the (sharded) weights; the valid frames [n, S]."""
     rng = np.random.default_rng(seed)
     M, n, S = (1, 2, length) if kind == "intra" else (1, length, 6)
+    B = max(WIDTH, d)   # one head of 128 at d = 128
     h = B // d
     frames = n * S - (3 if n * S > 3 else 0)
     valid = np.arange(n * S).reshape(n, S) < frames
@@ -205,13 +206,16 @@ def _compare(got, want, dtype, valid, against):
 
 
 # (head width, partial): B = 64 holds one head of 64, which no shard of
-# m = 2 splits, so the partial mode runs at d = 32
-MODES = [(32, False), (64, False), (32, True)]
+# m = 2 splits, so the partial mode runs at d = 32 and 16; d = 128 at
+# B = 128 (the bf16 core's other widths)
+MODES = [(32, False), (64, False), (32, True), (16, False), (16, True),
+         (128, False)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,partial", MODES,
-                         ids=["d32-full", "d64-full", "d32-partial"])
+                         ids=["d32-full", "d64-full", "d32-partial",
+                              "d16-full", "d16-partial", "d128-full"])
 @pytest.mark.parametrize("kind,length", LENGTHS,
                          ids=[f"{k}-{n}" for k, n in LENGTHS])
 def test_core_schedule_matches_twin_and_pallas(kind, length, d, partial,

@@ -1,29 +1,37 @@
 """The schedules of the bf16 DPT forward kernels B11 (the FFN sublayer,
-``csrc/dpt_ffn.cu``'s ``ffn_wg_kernel``) and B9 (the intra-chunk attention
-sublayer, ``csrc/dpt_attn_bwd_wg.cuh``'s forward frame and core), and of
-their partial modes, as plain PyTorch models, against the port's twins
-(``ffn_reference``, ``intra_attention_reference``, and the forward at the
-kernels' rounding points ``attention_rounded_reference``) and the JAX
-package's Pallas kernels (``_ffn_kernel``, ``_intra_kernel``) in interpret
-mode, on the CPU, with inputs from a numpy seed.
+``csrc/dpt_ffn.cu``'s ``ffn_wg_kernel``), B9 and B7 (the intra- and
+inter-chunk attention sublayers, ``csrc/dpt_attn_bwd_wg.cuh``'s forward
+frame and core with either row gather), and of their partial modes, as
+plain PyTorch models, against the port's twins (``ffn_reference``,
+``attention_reference``, and the forward at the kernels' rounding points
+``attention_rounded_reference``) and the JAX package's Pallas kernels
+(``_ffn_kernel``, ``_intra_kernel``, ``_inter_kernel``) in interpret mode,
+on the CPU, with inputs from a numpy seed.
 
 The FFN model walks the hidden width in slabs of 64 columns (F zero-padded
 to a multiple of 128, as the wrapper pads it): pre = round(round(y W_up) +
 round(b_up)) and h = round(gelu(pre)) per slab, with tanh through the
 exponential as the kernel computes it, and the down product summed in f32
-across the slabs, rounded once in the epilogue. The attention model takes
-per (chunk, head) the queries in tiles of 16 and walks the keys in tiles
-of 16 of staged blocks of up to 256 keys, the keys past the chunk's
-length in its last tile masked with a bias of -inf: pass 1 the row max and
-denominator online, pass 2 p = exp(s - max) / den and a = round(sum
-round(p) v) in f32. The card holds the kernels themselves
-against the twins (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+across the slabs, rounded once in the epilogue. The attention model
+gathers each problem's rows from qkv [R, 3Bq] as the core's ``Gather``
+does (intra: the S rows of chunk c, contiguous, the key bias [c, key];
+inter: the row of each of the n chunks at position s, S rows apart, the
+key bias [key chunk, s]), takes per (problem, head) the queries in tiles
+of 16 and walks the keys in tiles of 16 of staged blocks of up to 256
+keys, the keys past the problem's length in its last tile masked with a
+bias of -inf: pass 1 the row max and denominator online, pass 2 p =
+exp(s - max) / den and a = round(sum round(p) v) in f32. Head widths 16
+to 128 (B = 128 with 8 heads and with 1) run as the bf16 core takes them.
+The card holds the kernels themselves against the twins
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Bars, by relative L2 over the valid rows: f32 within 1e-5 of the f32 twin
 and of JAX's f32 kernel (summation order only); bf16 within 4e-2 of the
 bf16 twin and of JAX's bf16 kernel, and within 1e-3 of the forward that
-rounds where the kernels round. Two faults planted in the models (the
-stats of the next query row in pass 2, b_up added unrounded) are seen.
+rounds where the kernels round. Faults planted in the models are seen:
+the stats of the next query row in pass 2, b_up added unrounded, and on
+the inter gather the intra key bias indexing, the keys past n unmasked
+and round(p) skipped.
 """
 
 import math
@@ -33,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from convtasnet_tpu.ops.pallas import dpt_attention as jax_inter
 from convtasnet_tpu.ops.pallas import dpt_ffn as jax_ffn
 from convtasnet_tpu.ops.pallas import dpt_intra as jax_intra
 from convtasnet_tpu_torch.ops.cuda import dpt_attention as port_attn
@@ -95,7 +104,8 @@ def core_schedule(q, k, v, bias, scale, rnd, fault=None):
     [P, L, d] in f32 (values of the compute dtype), bias [P, L] the key
     bias, ``rnd`` the rounding to the compute dtype; ``fault``
     "stats_of_next_row" takes each query row's max and denominator from
-    the next row in pass 2."""
+    the next row in pass 2, "keys_unmasked" gives the keys past L a bias
+    of 0, "p_unrounded" mixes v with p unrounded."""
     L = q.shape[1]
     Lp = -(-L // TILE) * TILE
     T = min(Lp, BLOCK)
@@ -104,7 +114,9 @@ def core_schedule(q, k, v, bias, scale, rnd, fault=None):
         return torch.nn.functional.pad(t, (0, 0, 0, Lp - L))
 
     q, k, v = map(pad, (q, k, v))
-    kb = torch.nn.functional.pad(bias, (0, Lp - L), value=-math.inf)
+    kb = torch.nn.functional.pad(
+        bias, (0, Lp - L),
+        value=0.0 if fault == "keys_unmasked" else -math.inf)
     tiles = [slice(j, min(j + TILE, b0 + T))
              for b0 in range(0, Lp, T)
              for j in range(b0, min(b0 + T, Lp), TILE)]
@@ -126,15 +138,35 @@ def core_schedule(q, k, v, bias, scale, rnd, fault=None):
     # pass 2: a = round(sum round(p) v) in f32
     a = torch.zeros_like(q)
     for j in tiles:
-        a = a + rnd(torch.exp(logits(j) - mx) * inv) @ v[:, j]
+        p = torch.exp(logits(j) - mx) * inv
+        a = a + (p if fault == "p_unrounded" else rnd(p)) @ v[:, j]
     return rnd(a[:, :L])
 
 
-def intra_schedule(x, gamma, beta, w_qkv, w_out, key_bias, *, n_heads,
-                   partial=False, fault=None):
-    """B9's output as its three launches compute it: qkv = round(LN(x)
-    W_qkv), the core of ``core_schedule`` per (m, chunk, head), and x +
-    round(a W_out) (partial: round(a W_out))."""
+def gather(kind, M, n, S, fault=None):
+    """The core's ``Gather`` for every problem of its grid (blockIdx.x,
+    blockIdx.y = m): the global rows [M, X, L] of each problem's positions
+    0 .. L - 1 and their keys' indices into the flat key bias [n * S].
+    Intra: X = n chunks of L = S contiguous rows, the bias [chunk, key];
+    inter: X = S positions, L = n rows S apart, the bias [key chunk,
+    position]. ``fault`` "intra_bias_on_inter" indexes the inter bias as
+    the intra gather does ([blockIdx.x, key])."""
+    m = torch.arange(M)[:, None, None]
+    if kind == "intra":
+        c, i = torch.arange(n)[None, :, None], torch.arange(S)[None, None, :]
+        return (m * n + c) * S + i, (c * S + i).expand(M, n, S)
+    s, i = torch.arange(S)[None, :, None], torch.arange(n)[None, None, :]
+    bias_idx = s * S + i if fault == "intra_bias_on_inter" else i * S + s
+    return (m * n + i) * S + s, bias_idx.expand(M, S, n)
+
+
+def attention_schedule(x, gamma, beta, w_qkv, w_out, key_bias, *, n_heads,
+                       kind, partial=False, fault=None):
+    """B9's (``kind`` "intra") or B7's ("inter") output as the three
+    launches compute it: qkv = round(LN(x) W_qkv) [R, 3Bq], the core of
+    ``core_schedule`` per (problem, head) on the rows of ``gather``, a
+    [R, Bq] stored back at the same rows, and x + round(a W_out) (partial:
+    round(a W_out))."""
     dt = x.dtype
     M, n, S, Bx = x.shape
     h = n_heads
@@ -145,17 +177,26 @@ def intra_schedule(x, gamma, beta, w_qkv, w_out, key_bias, *, n_heads,
         return t.to(dt).float()
 
     y = _ln(x, gamma, beta, rnd)
-    qkv = rnd(y @ rnd(w_qkv.float()))
+    qkv = rnd(y @ rnd(w_qkv.float())).reshape(-1, 3 * Bq)
+    rows, bias_idx = gather(kind, M, n, S, fault)
+    L = rows.shape[-1]
+    flat_bias = key_bias.float().reshape(-1)
+    # an index past the bias reads what lies beyond it: zeros here
+    flat_bias = torch.nn.functional.pad(flat_bias, (0, S * S))
+    bias = flat_bias[bias_idx]                              # [M, X, L]
+    g = qkv[rows.reshape(-1)].reshape(*rows.shape, 3, h, d)
 
-    def heads(t):   # [M, n, S, Bq] -> [M n h, S, d]
-        return t.reshape(M, n, S, h, d).permute(0, 1, 3, 2, 4).reshape(
-            -1, S, d)
+    def heads(t):   # [M, X, L, h, d] -> [M X h, L, d]
+        return t.permute(0, 1, 3, 2, 4).reshape(-1, L, d)
 
-    q, k, v = (heads(t) for t in qkv.split(Bq, dim=-1))
-    bias = key_bias.float()[None, :, None, :].expand(M, n, h, S).reshape(-1, S)
-    a = core_schedule(q, k, v, bias, 1.0 / math.sqrt(d), rnd, fault)
-    a = a.reshape(M, n, h, S, d).permute(0, 1, 3, 2, 4).reshape(M, n, S, Bq)
-    proj = rnd(a @ rnd(w_out.float()))
+    q, k, v = (heads(g[..., i, :, :]) for i in range(3))
+    bias = bias[:, :, None, :].expand(-1, -1, h, -1).reshape(-1, L)
+    a = core_schedule(q, k, v, bias, 1.0 / math.sqrt(d), rnd,
+                      None if fault == "intra_bias_on_inter" else fault)
+    a_rows = torch.zeros(M * n * S, Bq)
+    a_rows[rows.reshape(-1)] = a.reshape(*rows.shape[:2], h, L, d).permute(
+        0, 1, 3, 2, 4).reshape(-1, Bq)
+    proj = rnd(a_rows.reshape(M, n, S, Bq) @ rnd(w_out.float()))
     return (proj if partial else rnd(x.float() + proj)).to(dt)
 
 
@@ -255,7 +296,7 @@ def test_intra_schedule_matches_twin_and_pallas(S, m, dtype):
     arrs, h, valid = _intra_case(S, m, seed=S + m)
     t = _to(arrs, ATTN_NAMES, getattr(torch, dtype), "torch")
     kw = dict(n_heads=h, partial=m > 1)
-    got = intra_schedule(*t, **kw)
+    got = attention_schedule(*t, kind="intra", **kw)
     assert got.dtype == getattr(torch, dtype) and got.shape == t[0].shape
     rows = got.float()[:, valid]
     twin = port_attn.attention_reference(*t, attend_axis=2, **kw)
@@ -268,6 +309,82 @@ def test_intra_schedule_matches_twin_and_pallas(S, m, dtype):
         rounded = port_attn.attention_rounded_reference(*t, attend_axis=2,
                                                         **kw)
         assert _rel(rows, rounded.float()[:, valid]) <= ROUNDED_TOL
+
+
+def _attn_case(kind, n, S, Bw, heads, m, seed):
+    """numpy operands of one attention sublayer at width Bw with ``heads``
+    heads (the last head group of m with m > 1): x [1, n, S, Bw], the
+    last 3 frames masked (at n = 1 every key of those positions), the key
+    bias of the real frames drawn from [-1, 1]. -> (arrs, local heads,
+    valid [n, S])."""
+    rng = np.random.default_rng(seed)
+    valid = np.arange(n * S).reshape(n, S) < n * S - 3
+    arrs = dict(x=rng.standard_normal((1, n, S, Bw)),
+                gamma=1 + 0.2 * rng.standard_normal(Bw),
+                beta=0.3 * rng.standard_normal(Bw),
+                w_qkv=rng.standard_normal((Bw, 3 * Bw)) / np.sqrt(Bw),
+                w_out=rng.standard_normal((Bw, Bw)) / np.sqrt(Bw),
+                bias=np.where(valid, rng.uniform(-1, 1, (n, S)), -1e9))
+    if m > 1:
+        bq = Bw // m
+        cols = np.concatenate([np.arange((i + 1) * Bw - bq, (i + 1) * Bw)
+                               for i in range(3)])
+        arrs["w_qkv"], arrs["w_out"] = arrs["w_qkv"][:, cols], \
+            arrs["w_out"][-bq:]
+        heads //= m
+    return {k_: v_.astype(np.float32) for k_, v_ in arrs.items()}, heads, \
+        valid
+
+
+def _check_attention(kind, arrs, h, valid, m, dtype):
+    """The schedule against the twin, JAX's Pallas kernel of ``kind`` in
+    interpret mode and, in bf16, the forward at the rounding points."""
+    axis = 2 if kind == "intra" else 1
+    t = _to(arrs, ATTN_NAMES, getattr(torch, dtype), "torch")
+    kw = dict(n_heads=h, partial=m > 1)
+    got = attention_schedule(*t, kind=kind, **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == t[0].shape
+    rows = got.float()[:, valid]
+    twin = port_attn.attention_reference(*t, attend_axis=axis, **kw)
+    assert _rel(rows, twin.float()[:, valid]) <= TOL[dtype]
+    j = _to(arrs, ATTN_NAMES, getattr(jnp, dtype), "jax")
+    fused = (jax_intra.fused_intra_attention if kind == "intra"
+             else jax_inter.fused_inter_attention)
+    want = np.asarray(fused(*j, interpret=True, **kw), np.float32)
+    assert _rel(rows, want[:, valid]) <= TOL[dtype]
+    if dtype == "bfloat16":
+        rounded = port_attn.attention_rounded_reference(*t, attend_axis=axis,
+                                                        **kw)
+        assert _rel(rows, rounded.float()[:, valid]) <= ROUNDED_TOL
+
+
+INTER_S = 8      # positions per chunk: each is one inter problem per head
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 3, 25])
+def test_inter_schedule_matches_twin_and_pallas(n, m, dtype):
+    """B7 (m = 1) and B7p (the last head group of m = 2, 4) at B = 128, 4
+    heads of 32: one chunk (p = 1 at every position, its last 3 masked
+    too), 3 chunks (13 masked keys in the 16-key tile) and 25 (a second
+    key tile of 9), a padded tail and the key bias off 0."""
+    arrs, h, valid = _attn_case("inter", n, INTER_S, 128, 4, m,
+                                seed=100 + 10 * n + m)
+    _check_attention("inter", arrs, h, valid, m, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [8, 1], ids=["d16", "d128"])
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_schedule_at_head_widths_16_and_128(kind, heads, dtype):
+    """Both gathers at the head widths the bf16 core takes beyond 32 and
+    64: B = 128 with 8 heads (d = 16, one 16-deep fragment step) and with
+    1 (d = 128), against JAX's kernels at the same heads."""
+    n, S = (25, INTER_S) if kind == "inter" else (2, 48)
+    arrs, h, valid = _attn_case(kind, n, S, 128, heads, 1,
+                                seed=200 + heads)
+    _check_attention(kind, arrs, h, valid, 1, dtype)
 
 
 def test_rounded_reference_is_the_twin_in_f32():
@@ -290,7 +407,8 @@ def test_planted_faults_are_seen():
     points, where the residual does not hide it)."""
     arrs, h, valid = _intra_case(128, 1, seed=7)
     t = _to(arrs, ATTN_NAMES, torch.float32, "torch")
-    got = intra_schedule(*t, n_heads=h, fault="stats_of_next_row")
+    got = attention_schedule(*t, n_heads=h, kind="intra",
+                             fault="stats_of_next_row")
     twin = port_attn.attention_reference(*t, n_heads=h, attend_axis=2)
     assert _rel(got[:, valid], twin[:, valid]) > TOL["float32"]
     arrs = _ffn_case(256, 2, seed=8)
@@ -298,3 +416,29 @@ def test_planted_faults_are_seen():
     got = ffn_schedule(*t, partial=True, fault="b_up_unrounded")
     want = port_ffn.ffn_reference(*t, partial=True)
     assert _rel(got.float(), want.float()) > ROUNDED_TOL
+
+
+@pytest.mark.parametrize("fault", ["intra_bias_on_inter", "keys_unmasked",
+                                   "p_unrounded"])
+def test_planted_inter_faults_are_seen(fault):
+    """Faults planted in the inter schedule fail the checks that hold the
+    inter tests above, and the model without them passes: the intra key
+    bias indexing ([position, key] for [key chunk, position]) and keys
+    past n unmasked (f32, against the twin), round(p) skipped (bf16
+    partial on one shard of 2, against the forward at the rounding
+    points)."""
+    dtype = "bfloat16" if fault == "p_unrounded" else "float32"
+    m = 2 if fault == "p_unrounded" else 1
+    arrs, h, valid = _attn_case("inter", 25, INTER_S, 128, 4, m, seed=9)
+    t = _to(arrs, ATTN_NAMES, getattr(torch, dtype), "torch")
+    kw = dict(n_heads=h, partial=m > 1)
+    if fault == "p_unrounded":
+        want, bar = port_attn.attention_rounded_reference(
+            *t, attend_axis=1, **kw), ROUNDED_TOL
+    else:
+        want, bar = port_attn.attention_reference(
+            *t, attend_axis=1, **kw), TOL[dtype]
+    errs = [_rel(attention_schedule(*t, kind="inter", fault=f, **kw)
+                 .float()[:, valid], want.float()[:, valid])
+            for f in (None, fault)]
+    assert errs[0] <= bar < errs[1], errs

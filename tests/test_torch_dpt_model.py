@@ -60,10 +60,17 @@ def _forwards(cfg, T, seed=0):
     return got, want
 
 
+# the head widths the bf16 attention kernels take beyond 32 and 64: B = 256
+# with 2 heads (d = 128) and with 16 (d = 16), one layer
+HEAD_WIDTHS = {"d128": dict(bottleneck=256, dpt_layers=1, dpt_heads=2),
+               "d16": dict(bottleneck=256, dpt_layers=1, dpt_heads=16)}
+
+
 @pytest.mark.parametrize("overrides,T", [
     (dict(), 800),
     (dict(num_speakers=3, mask_nonlinear="softmax", dpt_heads=0), 600),
-], ids=["relu-K199", "C3-softmax-auto-heads"])
+    (HEAD_WIDTHS["d128"], 800), (HEAD_WIDTHS["d16"], 800),
+], ids=["relu-K199", "C3-softmax-auto-heads", "B256-d128", "B256-d16"])
 def test_dpt_model_matches_jax(overrides, T):
     """K = 199 (T=800) or 149 frames: neither a multiple of the chunk, so
     the padded tail and its key mask are on the path."""
@@ -76,6 +83,16 @@ def test_dpt_model_matches_jax(overrides, T):
 def test_dpt_model_bf16_is_close_to_jax():
     cfg = ConvTasNetConfig(**SMALL, compute_dtype="bfloat16")
     got, want = _forwards(cfg, 800, seed=2)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert np.isfinite(got).all() and rel <= 4e-2
+
+
+@pytest.mark.parametrize("width", list(HEAD_WIDTHS))
+def test_dpt_model_head_widths_bf16_is_close_to_jax(width):
+    cfg = ConvTasNetConfig(**{**SMALL, **HEAD_WIDTHS[width]},
+                           compute_dtype="bfloat16")
+    assert cfg.bottleneck // cfg.dpt_num_heads == int(width[1:])
+    got, want = _forwards(cfg, 800, seed=4)
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert np.isfinite(got).all() and rel <= 4e-2
 

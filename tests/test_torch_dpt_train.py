@@ -21,6 +21,7 @@ Adam's update is close to a sign step, every gradient leaf is also held
 against ``jax.grad`` at the shared weights, to 1e-5 relative L2.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -28,6 +29,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from convtasnet_tpu.config import ConvTasNetConfig, SolverConfig
@@ -64,16 +66,16 @@ _jax_grads = jax.jit(
     lambda p, s, b: jts._loss_and_grads(_MODEL, p, s, b, 0)[2])
 
 
-def _assert_grads_match(js, ps, b):
+def _assert_grads_match(js, ps, b, cfg=TINY_DPT, jax_grads=_jax_grads):
     """Every gradient leaf of the port, at the shared weights, against
     ``jax.grad`` of the JAX step's loss: relative L2 <= 1e-5 per leaf, so
     the gradient is held directly, not only through Adam's normalised
     update."""
-    jgrads = _jax_grads(js.params, js.batch_stats,
-                        tuple(jnp.asarray(a) for a in b))
+    jgrads = jax_grads(js.params, js.batch_stats,
+                       tuple(jnp.asarray(a) for a in b))
     want = state_dict_from_jax(
         jax.device_get({"params": jgrads, "batch_stats": js.batch_stats}),
-        TINY_DPT)
+        cfg)
     pts._loss_and_grads(ps.model, tuple(torch.from_numpy(np.array(a))
                                         for a in b), 0)
     got = {k: p.grad for k, p in ps.model.named_parameters()}
@@ -113,6 +115,23 @@ def test_dpt_adam_steps_match_jax():
         ps.model.load_state_dict(want)
     assert float(jm["grad_norm"]) > SOLVER.max_grad_norm
     assert ps.step == int(js.step) == 3
+
+
+@pytest.mark.parametrize("heads", [2, 16], ids=["d128", "d16"])
+def test_dpt_grads_match_jax_at_head_widths(heads):
+    """B = 256 with 2 heads (d = 128) and with 16 (d = 16), one layer:
+    every gradient leaf against ``jax.grad`` at the same weights, as in
+    the Adam steps above."""
+    cfg = dataclasses.replace(TINY_DPT, bottleneck=256, dpt_layers=1,
+                              dpt_heads=heads)
+    js, _ = jts.create_train_state(cfg, SOLVER, jax.random.PRNGKey(1), 1600)
+    ps = pts.create_train_state(cfg, SOLVER, state_dict=state_dict_from_jax(
+        jax.device_get({"params": js.params,
+                        "batch_stats": js.batch_stats}), cfg),
+        use_pallas=False)
+    model = JaxConvTasNet(cfg)
+    grads = jax.jit(lambda p, s, b: jts._loss_and_grads(model, p, s, b, 0)[2])
+    _assert_grads_match(js, ps, _batch(70), cfg, grads)
 
 
 def test_cli_train_dpt_then_separate_and_evaluate(tmp_path):

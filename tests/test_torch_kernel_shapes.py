@@ -94,6 +94,35 @@ def test_attention_rules(kind, B, Bq, heads, S):
         assert dpt_intra.shape_refusal(B, S, Bq, heads) == got
 
 
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("B,heads,m", [
+    (256, 16, 1), (256, 2, 1), (128, 1, 1), (128, 8, 1), (256, 16, 2),
+    (256, 2, 2), (256, 4, 4), (256, 32, 1), (256, 1, 1)])
+def test_attention_head_widths_by_dtype(kind, dtype, B, heads, m):
+    """The bf16 kernels (one tensor-core core, templated on the head width)
+    take d = 16, 32, 64 and 128, the f32 first designs d = 32 and 64: B =
+    256 with 16 heads (d = 16) or 2 (d = 128), B = 128 with 1 head or 8,
+    their head-group shards of m = 2 and 4; d = 8 and 256 no kernel takes.
+    A refusal names the rule and the dtype."""
+    bf16 = str(dtype).replace("torch.", "") == "bfloat16"
+    d = B // heads
+    got = dpt_attention.shape_refusal(kind, B, 128, B // m, heads // m,
+                                      dtype)
+    takes = d in ((16, 32, 64, 128) if bf16 else (32, 64))
+    if takes:
+        assert got is None, got
+    else:
+        dims = (16, 32, 64, 128) if bf16 else (32, 64)
+        name = "bfloat16" if bf16 else "float32"
+        assert got == (f"the {name} kernel needs a head width in {dims}, "
+                       f"got {B // m} channels with {heads // m} heads")
+    if kind == "intra":
+        assert dpt_intra.shape_refusal(B, 128, B // m, heads // m,
+                                       dtype) == got
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", torch.float32,
                                    torch.bfloat16])
 @pytest.mark.parametrize("S", [100, 256, 320, 1024])
@@ -145,10 +174,22 @@ def test_ffn_rule(B):
      False, {}),
     (dict(separator="dpt", dpt_chunk=100, compute_dtype="bfloat16"), 1,
      False, {}),
+    (dict(separator="dpt", dpt_heads=16), 1, False, {"intra", "inter"}),
+    (dict(separator="dpt", dpt_heads=2), 1, False, {"intra", "inter"}),
+    (dict(separator="dpt", dpt_heads=16, compute_dtype="bfloat16"), 1,
+     False, {}),
+    (dict(separator="dpt", dpt_heads=2, compute_dtype="bfloat16"), 1,
+     False, {}),
+    (dict(separator="dpt", dpt_heads=2, compute_dtype="bfloat16"), 2,
+     False, {}),
+    (dict(separator="dpt", bottleneck=128, dpt_heads=1,
+          compute_dtype="bfloat16"), 1, False, {}),
 ], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-tp8",
         "dpt-tp4-F320", "tp-Hs576", "dpt-S272", "dpt-S320", "dpt-S320-bf16",
-        "dpt-tp2-S320-bf16", "dpt-S100-bf16"])
+        "dpt-tp2-S320-bf16", "dpt-S100-bf16", "dpt-d16", "dpt-d128",
+        "dpt-d16-bf16", "dpt-d128-bf16", "dpt-tp2-d128-bf16",
+        "dpt-B128-d128-bf16"])
 def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
                                                  want):
     """The kinds a configuration's kernels refuse, each with its wrapper's
@@ -169,7 +210,8 @@ def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
             B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m,
             cfg.compute_dtype),
         "inter": lambda: dpt_attention.shape_refusal(
-            "inter", B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m),
+            "inter", B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m,
+            cfg.compute_dtype),
         "ffn": lambda: dpt_ffn.shape_refusal(B)}
     for kind, reason in got.items():
         assert reason == rules[kind]()

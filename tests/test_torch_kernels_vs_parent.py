@@ -1,8 +1,7 @@
 """The pure helpers of ``scripts/kernels_vs_parent.py`` (the comparison of
 the port's kernels with another checkout's, which runs on the card only):
-``compare`` holds every output bit for bit but the bf16 forwards of B9 and
-B11 (and their partial modes), which it reports by distance, at their
-twins' bars; ``summarize`` lays the timed turns out per metric and tree.
+``compare`` holds every output bit for bit but the bf16 forward of B7 (and
+its partial mode), which it reports by distance, at its twins' bars; ``summarize`` lays the timed turns out per metric and tree.
 On the CPU, with small tensors."""
 
 import importlib.util
@@ -17,14 +16,14 @@ kvp = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(kvp)
 
 
-FFN_FWD = "dpt ffn bfloat16 S=128 heads=8 forward"
+INTER_FWD = "dpt inter bfloat16 S=128 heads=8 forward"
 
 
 def _outs(seed, twin=1e-3, fwd_twin=5e-4):
     g = torch.Generator().manual_seed(seed)
-    out = {"dpt inter bfloat16 S=128 heads=8 forward": torch.randn(
+    out = {"dpt ffn bfloat16 S=128 heads=8 forward": torch.randn(
                4, 8, generator=g),
-           FFN_FWD: torch.randn(4, 8, generator=g),
+           INTER_FWD: torch.randn(4, 8, generator=g),
            "b6 float32 Hs=256 d=1 z": torch.randn(3, 5, generator=g),
            "b1 bfloat16 gLN causal=0 d=1": torch.randn(6, 7, generator=g),
            "b2 float32 gLN causal=0 d=16 dx": torch.randn(6, 7, generator=g),
@@ -36,8 +35,8 @@ def _outs(seed, twin=1e-3, fwd_twin=5e-4):
                 "b4 bfloat16 gLN causal=0 d=(1,2)",
                 "b5 float32 gLN causal=0 d=(16,32) dx"):
         out[f"twin {key}"] = twin
-    out[f"twin {FFN_FWD}"] = fwd_twin          # at its rounding points
-    out[f"bf16 twin {FFN_FWD}"] = 10 * fwd_twin
+    out[f"twin {INTER_FWD}"] = fwd_twin          # at its rounding points
+    out[f"bf16 twin {INTER_FWD}"] = 10 * fwd_twin
     return out
 
 
@@ -50,13 +49,13 @@ def test_compare_same_trees_has_no_fault():
     # every output with a twin prints both trees' distances from it
     assert sum("from the twin this tree 1.000e-03, other 1.000e-03"
                in line for line in lines) == 4
-    ffn = next(line for line in lines if line.startswith(FFN_FWD))
+    inter = next(line for line in lines if line.startswith(INTER_FWD))
     assert ("from the twin this tree 5.000e-04, other 5.000e-04 (bar 1e-03)"
-            in ffn and "from the bf16 twin this tree 5.000e-03, other "
-            "5.000e-03 (bar 4e-02)" in ffn)
+            in inter and "from the bf16 twin this tree 5.000e-03, other "
+            "5.000e-03 (bar 4e-02)" in inter)
 
 
-@pytest.mark.parametrize("key", ["dpt inter bfloat16 S=128 heads=8 forward",
+@pytest.mark.parametrize("key", ["dpt ffn bfloat16 S=128 heads=8 forward",
                                  "b6 float32 Hs=256 d=1 z",
                                  "b1 bfloat16 gLN causal=0 d=1",
                                  "b2 float32 gLN causal=0 d=16 dx"])
@@ -72,14 +71,14 @@ def test_compare_flags_a_bit_difference(key):
 def test_compare_holds_the_tcn_kernels_at_their_bars():
     """The TCN kernels, blocks (B1-B3) and pairs (B4, B5) alike, are held
     bit for bit whatever their twin distance; the outputs held by distance
-    (the bf16 B9 and B11 forwards) may differ from the other tree's and are
+    (the bf16 B7 forward) may differ from the other tree's and are
     at fault only when a distance from a twin passes its bar: 1e-3 at the
     kernel's rounding points, 4e-2 from the bf16 twin, or when this tree
     has no rounding-points twin to hold them."""
     other = _outs(0)
     mine = _outs(0, twin=3.9e-2)
     for key in ("b4 bfloat16 gLN causal=0 d=(1,2)",
-                "b5 float32 gLN causal=0 d=(16,32) dx", FFN_FWD):
+                "b5 float32 gLN causal=0 d=(16,32) dx", INTER_FWD):
         mine[key] = mine[key] * 1.01
     lines, bad = kvp.compare(mine, other)
     assert sum("trees apart rel_l2 1.000e-02" in line for line in lines) == 1
@@ -89,17 +88,17 @@ def test_compare_holds_the_tcn_kernels_at_their_bars():
                 "b5 float32 gLN causal=0 d=(16,32) dx"):
         mine[key] = other[key]
     assert kvp.compare(mine, other)[1] == []
-    mine[f"twin {FFN_FWD}"] = 1.1e-3
-    assert kvp.compare(mine, other)[1] == [FFN_FWD]
-    mine[f"twin {FFN_FWD}"] = 9e-4
-    mine[f"bf16 twin {FFN_FWD}"] = 4.1e-2
-    assert kvp.compare(mine, other)[1] == [FFN_FWD]
-    del mine[f"twin {FFN_FWD}"]
-    mine[f"bf16 twin {FFN_FWD}"] = 1e-3
-    assert kvp.compare(mine, other)[1] == [FFN_FWD]
+    mine[f"twin {INTER_FWD}"] = 1.1e-3
+    assert kvp.compare(mine, other)[1] == [INTER_FWD]
+    mine[f"twin {INTER_FWD}"] = 9e-4
+    mine[f"bf16 twin {INTER_FWD}"] = 4.1e-2
+    assert kvp.compare(mine, other)[1] == [INTER_FWD]
+    del mine[f"twin {INTER_FWD}"]
+    mine[f"bf16 twin {INTER_FWD}"] = 1e-3
+    assert kvp.compare(mine, other)[1] == [INTER_FWD]
     assert kvp._tcn_tol("b1 bfloat16 gLN causal=0 d=1") == 4e-2
     assert kvp._tcn_tol("b3 float32 cLN causal=1 d=1 dx") == 4e-3
-    assert kvp._tcn_tol(FFN_FWD) == 1e-3
+    assert kvp._tcn_tol(INTER_FWD) == 1e-3
 
 
 @pytest.mark.parametrize("key,bits", [
@@ -109,22 +108,24 @@ def test_compare_holds_the_tcn_kernels_at_their_bars():
     ("dpt ffn bfloat16 S=128 heads=8 partial m=4 backward 0", True),
     ("dpt inter float32 S=128 heads=8 partial m=2 backward 0", True),
     ("dpt intra float32 S=208 heads=4 backward 4", True),
-    ("dpt inter bfloat16 S=128 heads=8 partial m=2 forward", True),
+    ("dpt inter bfloat16 S=128 heads=8 partial m=2 forward", False),
     ("dpt intra float32 S=176 heads=4 forward", True),
     ("dpt ffn float32 S=128 heads=8 forward", True),
-    ("dpt intra bfloat16 S=128 heads=8 forward", False),
-    ("dpt intra bfloat16 S=256 heads=4 forward", False),
-    ("dpt intra bfloat16 S=128 heads=8 partial m=4 forward", False),
-    ("dpt ffn bfloat16 S=128 heads=8 forward", False),
-    ("dpt ffn bfloat16 S=128 heads=8 partial m=2 forward", False),
+    ("dpt intra bfloat16 S=128 heads=8 forward", True),
+    ("dpt intra bfloat16 S=256 heads=4 forward", True),
+    ("dpt intra bfloat16 S=128 heads=8 partial m=4 forward", True),
+    ("dpt ffn bfloat16 S=128 heads=8 forward", True),
+    ("dpt ffn bfloat16 S=128 heads=8 partial m=2 forward", True),
+    ("dpt inter bfloat16 S=128 heads=8 forward", False),
+    ("dpt inter float32 S=128 heads=8 forward", True),
     ("b6 bfloat16 Hs=256 d=1 z", True),
     ("b4 bfloat16 gLN causal=0 d=(1,2)", True),
     ("b6 float32 Hs=128 d=16 sums", True)])
 def test_bitwise_holds_the_redesigned_bf16_outputs_by_distance(key, bits):
-    """The bf16 forwards of B9 and B11 (and their partial modes) sum in
-    another order than the first designs: held by distance at their
-    twins' bars; every other output, the inter forward B7, the backwards
-    and every f32 output among them, bit for bit."""
+    """The bf16 forward of B7 (and its partial mode) sums in another
+    order than the first design: held by distance at its twins' bars;
+    every other output, the bf16 forwards of B9 and B11 (which keep their
+    bits), the backwards and every f32 output among them, bit for bit."""
     assert kvp.bitwise(key) is bits
     if not bits:
         assert kvp._tcn_tol(key) == 1e-3

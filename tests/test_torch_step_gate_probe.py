@@ -76,3 +76,56 @@ def test_rename_package_rewrites_only_its_own_imports(tmp_path):
         sys.path.remove(str(root))
         for name in [n for n in sys.modules if n.startswith("ctn_probe_pkg")]:
             del sys.modules[name]
+
+
+@pytest.mark.parametrize("text,want", [
+    ("11,12", [11, 12]), ("13", [13]), ("11-18", list(range(11, 19)))])
+def test_parse_seeds(text, want):
+    assert probe.parse_seeds(text) == want
+
+
+def test_reference_operands_round_only_the_dpt_matrices():
+    """The DPT's weight matrices reach its kernels in x's dtype, so their
+    f64 twin takes them rounded; its vectors, the key bias's -inf and the
+    TCN's operands stay as they are, and None stays None."""
+    x = torch.zeros(2, 3, dtype=torch.bfloat16)
+    w = torch.tensor([[1.0 + 2.0 ** -12, 3.0]])
+    v = torch.tensor([1.0 + 2.0 ** -12])
+    bias = torch.tensor([[0.0, float("-inf")]])
+    got = probe.reference_operands("dpt", x, [v, w, None])
+    assert got[0].dtype == got[1].dtype == torch.float64 and got[2] is None
+    assert got[0].item() == 1.0 + 2.0 ** -12
+    assert got[1].tolist() == [[1.0, 3.0]]
+    assert probe.reference_operands("dpt", x, [bias])[0].tolist() == [
+        [0.0, float("-inf")]]
+    assert probe.reference_operands("tcn", x, [w])[0].tolist() == [
+        [1.0 + 2.0 ** -12, 3.0]]
+
+
+def test_sites_name_the_wrappers_and_their_twins():
+    """Every site the probe swaps names a wrapper that counts its launches
+    and a twin of the same module, and as many gradient names as the
+    twin's backward returns on a small input."""
+    import importlib
+
+    for separator, sites in probe.SITES.items():
+        for kind, fmod, fname, fref, bmod, bname, bref, names in sites:
+            fm = importlib.import_module(f"convtasnet_tpu_torch.{fmod}")
+            bm = importlib.import_module(f"convtasnet_tpu_torch.{bmod}")
+            for mod, name in ((fm, fname), (bm, bname)):
+                assert hasattr(getattr(mod, name), "launches"), name
+            assert callable(getattr(fm, fref)) and callable(getattr(bm, bref))
+            assert len(set(names)) == len(names) and names[0] == "dx"
+    rng = np.random.default_rng(5)
+
+    def t(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn
+    x, g = t(1, 2, 4, 64), t(1, 2, 4, 64)
+    got = dpt_attention.inter_attention_bwd_reference(
+        x, g, t(64), t(64), t(64, 192), t(64, 64), None, n_heads=2)
+    assert len(got) == len(probe.SITES["dpt"][0][-1])
+    got = dpt_ffn.ffn_bwd_reference(x, g, t(64), t(64), t(64, 128), t(128),
+                                    t(128, 64), t(64))
+    assert len(got) == len(probe.SITES["dpt"][2][-1])
