@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's TCN (gLN and causal cLN, blocks singly and as
 block pairs, and gLN tensor-parallel) and dual-path (DPT, also
-tensor-parallel) serving and training paths and its streaming separator
-on one NVIDIA GPU, and check them.
+tensor-parallel) serving and training paths, its streaming separator and
+its ways in (reference packages, JAX checkpoints, a raw shorten corpus
+through stage 0 and the recipe) on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -124,7 +125,21 @@ Phases, each raising on failure (so the script exits nonzero):
    the kernel path within 2e-3 with pairs on (16 B4) and off (32 kernel
    1), the two the same bits; ``stream_demo`` at 8 ms, its wav against the
    stream within one PCM-16 step, and its latencies;
-10. one train step's loss and gradients, kernel path against plain path,
+10. the ways in, each through the kernels with exact launch counts: a
+   reference PyTorch package at the paper config (gLN) and a cLN causal
+   one (8 blocks; k = 3 in the reference layout), random weights from
+   ``tests/torch_oracle.make_state_dict``, through ``cli import-torch``,
+   then ``cli separate`` in f32 and bf16, pairs on and off, against
+   ``torch_oracle.forward`` on the card (4e-2 / 2e-3), and ``cli
+   export-torch`` back bit for bit; the committed JAX fixtures
+   (``tests/fixtures``, a small TCN and DPT, f32) served plain within 5e-4
+   and through the kernels within 2e-3 of JAX's stored estimates and by
+   ``cli separate``, and ``cli train --continue-from`` the TCN one, whose
+   step counts continue from the fixture's; a WSJ0-like tree of shorten
+   ``.wv1`` files through ``cli prepare --wsj0-root`` (each decoded source
+   equal to its samples) and ``cli recipe`` stages 1-4 at the paper
+   config;
+11. one train step's loss and gradients, kernel path against plain path,
    from the same init and batch (B=4 x 4 s, batch seeds 11 and 12 for the
    TCN, 11-13 for the DPT), for the TCN paper config, its causal cLN
    variant and the DPT quality default, per seed: in f32 the loss within
@@ -150,7 +165,7 @@ Phases, each raising on failure (so the script exits nonzero):
    over three batch seeds through B8 and B10, as the S = 320 step is held,
    with exact launch counts, and the f32 model at those widths raising,
    naming the head width rule, before any launch;
-11. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
+12. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
    B=8 and B=24 x 4 s and the bf16 train step (forward + backward +
    optimizer) at B=8 x 4 s, kernel path with pairs on and off and plain
    path, with peak memory, for the paper config, and the kernel and plain
@@ -3237,6 +3252,384 @@ def phase_dpt_tp_timings(torch, dpt, card: str):
               f", peak memory {mem[name]:.2f} GiB", flush=True)
     return rows
 
+def torch_oracle():
+    """``tests/torch_oracle.py`` (the independent torch model of the
+    reference layout), loaded from its file: another package named
+    ``tests`` may sit on the path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_oracle", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "torch_oracle.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def reference_package(torch, cfg, seed: int, path: str):
+    """A reference-layout package of ``cfg`` at ``path``, as the reference
+    repo's ``torch.save`` writes it (the hyperparameters, ``state_dict``,
+    ``optim_dict`` and epoch), with random weights from
+    ``tests/torch_oracle.make_state_dict``; returns the state dict."""
+    sd = torch_oracle().make_state_dict(cfg, seed=seed)
+    torch.save({"N": cfg.n_filters, "L": cfg.kernel_size,
+                "B": cfg.bottleneck, "H": cfg.hidden, "P": cfg.conv_kernel,
+                "X": cfg.num_blocks, "R": cfg.num_repeats,
+                "C": cfg.num_speakers, "norm_type": cfg.norm_type,
+                "causal": cfg.causal, "mask_nonlinear": cfg.mask_nonlinear,
+                "state_dict": sd, "optim_dict": {}, "epoch": 0}, path)
+    return sd
+
+
+def read_estimates(out_dir: str, names) -> "list":
+    import numpy as np
+
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+
+    return np.stack([np.stack([read_wav(os.path.join(
+        out_dir, n.replace(".wav", f"_s{c}.wav")))[0] for c in (1, 2)])
+        for n in names])
+
+
+def phase_reference_import(torch, k, work: str):
+    """Reference PyTorch packages through the port's entry points on the
+    card: a paper-config package (gLN) and a cLN causal one (k = 3 in the
+    reference layout) at the paper widths with one repeat of 8 blocks,
+    random weights from ``tests/torch_oracle.make_state_dict``. Each goes
+    through ``cli import-torch``, then ``cli separate`` on the card of the
+    four seeded 4 s mixtures of ``phase_main_path`` (one batch) in f32 and
+    in bf16 (the imported package re-saved with ``compute_dtype``
+    bfloat16), pairs on (B4, blocks / 2 per batch) and off (B1, one per
+    block), with exact launch counts; the written wavs against
+    ``torch_oracle.forward`` of the same mixtures on the card, written the
+    same way, within 4e-2 (bf16) and 2e-3 (f32) by relative L2; then ``cli
+    export-torch`` of the imported package gives back every tensor of the
+    input bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from convtasnet_tpu_torch import ConvTasNetConfig, cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav, write_wav
+    from convtasnet_tpu_torch.train.checkpoint import (
+        load_params_for_inference,
+        save_inference_package,
+    )
+    oracle_forward = torch_oracle().forward
+    mix_dir = os.path.join(work, "mix")
+    names = sorted(f for f in os.listdir(mix_dir) if f.endswith(".wav"))
+    mix = torch.from_numpy(np.stack([read_wav(os.path.join(mix_dir, n))[0]
+                                     for n in names])).cuda()
+    for label, cfg in (
+            ("paper config gLN", ConvTasNetConfig()),
+            ("cLN causal, 8 blocks", ConvTasNetConfig(
+                norm_type="cLN", causal=True, num_repeats=1))):
+        tag = "gln" if cfg.norm_type == "gLN" else "cln"
+        n_blocks = cfg.num_blocks * cfg.num_repeats
+        ref_path = os.path.join(work, f"reference_{tag}.pth.tar")
+        ref = reference_package(torch, cfg, 21, ref_path)
+        pkg = os.path.join(work, f"imported_{tag}.pt")
+        check(cli.main(["import-torch", "--torch-path", ref_path,
+                        "--out-path", pkg]) == 0, "cli import-torch failed")
+        # the oracle's estimates, written and read back as separate does
+        with torch.no_grad():
+            want = oracle_forward({n: t.cuda() for n, t in ref.items()},
+                                  cfg, mix).cpu().numpy()
+        oracle_dir = os.path.join(work, f"oracle_{tag}")
+        os.makedirs(oracle_dir)
+        for i, n in enumerate(names):
+            for c in (1, 2):
+                write_wav(os.path.join(oracle_dir, n.replace(
+                    ".wav", f"_s{c}.wav")), want[i, c - 1], SAMPLE_RATE)
+        want = torch.from_numpy(read_estimates(oracle_dir, names))
+        imported_cfg, sd = load_params_for_inference(pkg)
+        for dtype in ("float32", "bfloat16"):
+            path = pkg
+            if dtype != imported_cfg.compute_dtype:
+                path = os.path.join(work, f"imported_{tag}_{dtype}.pt")
+                save_inference_package(path, dataclasses.replace(
+                    imported_cfg, compute_dtype=dtype), sd)
+            for pairs in (True, False):
+                out_dir = os.path.join(
+                    work, f"sep_ref_{tag}_{dtype}_{int(pairs)}")
+                tcn_reset(k)
+                with pair_switch(pairs):
+                    rc = cli.main(["separate", "--model-path", path,
+                                   "--mix-dir", mix_dir, "--out-dir",
+                                   out_dir, "--batch-size", str(len(names))])
+                torch.cuda.synchronize()
+                counts = tcn_counts(k)
+                want_counts = (tcn_want(b4=n_blocks // 2) if pairs
+                               else tcn_want(b1=n_blocks))
+                check(rc == 0 and counts == want_counts,
+                      f"cli separate of the imported {label} package "
+                      f"({dtype}, pairs {pairs}): rc {rc}, launches "
+                      f"{counts}, expected {want_counts}")
+                check_wavs(out_dir, mix_dir)
+                err = rel_l2(torch.from_numpy(read_estimates(out_dir, names)),
+                             want)
+                print(f"imported reference package ({label}), cli separate "
+                      f"{dtype}, pairs {'on' if pairs else 'off'}: launches "
+                      f"{counts}, vs torch_oracle.forward rel_l2 {err:.3e} "
+                      f"(bar {TOL[dtype]:.0e})", flush=True)
+                check(err <= TOL[dtype], f"imported {label} ({dtype}) parts "
+                      f"from the oracle: {err:.3e}")
+        back = os.path.join(work, f"exported_{tag}.pth.tar")
+        check(cli.main(["export-torch", "--ckpt-path", pkg, "--out-path",
+                        back]) == 0, "cli export-torch failed")
+        out = torch.load(back, map_location="cpu", weights_only=True)
+        same = all(torch.equal(out["state_dict"][n], t)
+                   for n, t in ref.items())
+        print(f"cli export-torch of the imported {label} package: "
+              f"{len(ref)} tensors, bit for bit {same}", flush=True)
+        check(same, f"export-torch of the imported {label} package differs "
+              "from its reference input")
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+
+
+def phase_jax_checkpoint(torch, k, dpt, work: str, json_dir: str):
+    """The JAX package's checkpoints on the card (the committed fixtures of
+    ``scripts/make_jax_fixtures.py``: a small TCN and a small DPT after two
+    JAX Adam steps, f32): each ``.ckpt`` loaded as ``separate`` loads it,
+    its forward on the fixture's 1 s mixture against the JAX estimates
+    stored beside it, the plain path within 5e-4 and the kernel path within
+    2e-3 (max abs), and ``cli separate`` of the ``.ckpt`` through the
+    kernels with exact launch counts; then ``cli train --continue-from``
+    the TCN fixture, f32, ``--use-pallas 1``, pairs off, on the corpus of
+    ``make_corpus`` (the fixture is at epoch 1, so ``--epochs 2`` runs one
+    epoch of 4 steps at batch 8 and a cv pass): B1 and B2 launched per step
+    and B1 per cv batch, and the checkpoint of that epoch holds the step
+    count and the Adam steps continued from the fixture's 2."""
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import write_wav
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_params_for_inference,
+    )
+
+    z = np.load(os.path.join(FIXTURES, "jax_fixtures.npz"))
+    mix = torch.from_numpy(z["mixture"]).cuda()
+    mix_dir = os.path.join(work, "jax_fixture_mix")
+    os.makedirs(mix_dir)
+    write_wav(os.path.join(mix_dir, "fixture.wav"), z["mixture"][0],
+              SAMPLE_RATE)
+    for name in ("tcn", "dpt"):
+        path = os.path.join(FIXTURES, f"jax_{name}.ckpt")
+        cfg, sd = load_params_for_inference(path, device="cuda")
+        want = torch.from_numpy(z[f"{name}_est"]).cuda()
+        n_blocks = cfg.num_blocks * cfg.num_repeats
+        per_forward = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                        "ffn": 2 * cfg.dpt_layers} if name == "dpt"
+                       else tcn_want(b1=n_blocks))
+        for path_name, flag, bar in (("plain", False, 5e-4),
+                                     ("kernel", None, 2e-3)):
+            model = ConvTasNet(cfg, use_pallas=flag, device="cuda")
+            model.load_state_dict(sd)
+            model.eval()
+            tcn_reset(k)
+            reset_dpt_all(dpt)
+            with pair_switch(False), torch.inference_mode():
+                est = model(mix)
+            torch.cuda.synchronize()
+            counts = dpt_launches(dpt) if name == "dpt" else tcn_counts(k)
+            expected = per_forward if flag is None else (
+                dict.fromkeys(DPT_KINDS, 0) if name == "dpt" else tcn_want())
+            err = (est - want).abs().max().item()
+            print(f"JAX {name} checkpoint on the card, f32, {path_name} "
+                  f"path: max abs {err:.3e} from the JAX estimates (bar "
+                  f"{bar:.0e}), launches {counts}", flush=True)
+            check(counts == expected, f"JAX {name} checkpoint, {path_name} "
+                  f"path: launches {counts}, expected {expected}")
+            check(err <= bar, f"JAX {name} checkpoint, {path_name} path: "
+                  f"{err:.3e} from the JAX estimates")
+        out_dir = os.path.join(work, f"jax_{name}_sep")
+        tcn_reset(k)
+        reset_dpt_all(dpt)
+        with pair_switch(False):
+            rc = cli.main(["separate", "--model-path", path, "--mix-dir",
+                           mix_dir, "--out-dir", out_dir])
+        torch.cuda.synchronize()
+        counts = dpt_launches(dpt) if name == "dpt" else tcn_counts(k)
+        check(rc == 0 and counts == per_forward,
+              f"cli separate of the JAX {name} checkpoint: rc {rc}, "
+              f"launches {counts}, expected {per_forward}")
+        check_wavs(out_dir, mix_dir)
+        print(f"cli separate of the JAX {name} checkpoint: launches "
+              f"{counts}", flush=True)
+
+    path = os.path.join(FIXTURES, "jax_tcn.ckpt")
+    tree, meta = load_checkpoint(path)
+    m = meta["model"]
+    n_blocks, n_cv = m["num_blocks"] * m["num_repeats"], 2
+    out = os.path.join(work, "exp_jax_resume")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    tcn_reset(k)
+    with pair_switch(False):
+        rc = cli.main([
+            "train", "--train-dir", os.path.join(json_dir, "tr"),
+            "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
+            out, "--device", "cuda", "--N", str(m["n_filters"]), "--L",
+            str(m["kernel_size"]), "--B", str(m["bottleneck"]), "--H",
+            str(m["hidden"]), "--X", str(m["num_blocks"]), "--R",
+            str(m["num_repeats"]), "--use-pallas", "1", "--epochs", "2",
+            "--batch-size", "8", "--print-freq", "1", "--enable-checkpoint",
+            "1", "--continue-from", path])
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    torch.cuda.synchronize()
+    counts = tcn_counts(k)
+    check(rc == 0, f"cli train --continue-from the JAX checkpoint: rc {rc}")
+    with open(os.path.join(out, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps = len(losses)
+    want = tcn_want(b1=n_blocks * (n_steps + n_cv), b2=n_blocks * n_steps)
+    package, pmeta = load_checkpoint(os.path.join(
+        out, "checkpoint_models", "epoch2.ckpt"))
+    adam_steps = sorted({float(s["step"])
+                         for s in package["optimizer"]["state"].values()})
+    start = int(tree["step"])
+    print(f"cli train --continue-from the JAX TCN checkpoint (step {start}, "
+          f"epoch {meta['epoch']}), f32, --use-pallas 1: {n_steps} steps, "
+          f"losses {[round(x, 4) for x in losses]}, launches {counts}; the "
+          f"epoch-2 checkpoint at step {package['step']}, Adam steps "
+          f"{adam_steps}", flush=True)
+    check(n_steps == 4 and all(math.isfinite(x) for x in losses),
+          f"resumed training: {n_steps} steps, losses {losses}")
+    check(counts == want, f"resumed training launched {counts}, expected "
+          f"{want}")
+    check(package["step"] == start + n_steps
+          and adam_steps == [float(start + n_steps)]
+          and pmeta["epoch"] == 2, "the step count did not continue from "
+          "the JAX checkpoint's")
+
+
+WSJ0_SETS = {"tr": "si_tr_s", "cv": "si_dt_05", "tt": "si_et_05"}
+
+
+def write_wsj0_tree(root: str, lists_dir: str, per_split) -> dict:
+    """A small WSJ0-like disc tree: 16 kHz shorten-compressed NIST SPHERE
+    ``.wv1`` files, written with the port's encoder from seeded signals (a
+    modulated tone and noise per utterance, 1.2-2 s), in the layout
+    ``disc/wsj0/<set>/<speaker>/<utt>.wv1``, and MERL-style
+    ``mix_2_spk_<split>.txt`` lists pairing them (``per_split`` mixtures
+    per split, two speakers each). Returns {decoded wav path relative to
+    the prepared tree: int16 samples}."""
+    import numpy as np
+
+    from convtasnet_tpu_torch.data import shorten
+
+    rng = np.random.default_rng(15)
+    sr = 16000
+    samples = {}
+    os.makedirs(lists_dir)
+    for split, set_ in WSJ0_SETS.items():
+        rows = []
+        for i in range(per_split[split]):
+            entries = []
+            for s in range(2):
+                spk = f"{split}{i}{s}"
+                utt = f"{spk}c020{s}"
+                t = np.arange(int(rng.uniform(1.2, 2.0) * sr)) / sr
+                x = (6000 * np.sin(2 * np.pi * rng.uniform(150, 900) * t)
+                     * (1 + 0.5 * np.sin(2 * np.pi * rng.uniform(1, 3) * t))
+                     + rng.normal(0, 300, t.size)).astype(np.int16)
+                payload = shorten.encode(x, ftype=shorten.TYPE_S16HL)
+                header = ("NIST_1A\n   1024\n"
+                          f"sample_count -i {len(x)}\n"
+                          f"sample_rate -i {sr}\n"
+                          "channel_count -i 1\n"
+                          "sample_n_bytes -i 2\n"
+                          "sample_byte_format -s2 10\n"
+                          "sample_coding -s24 pcm,embedded-shorten-v2\n"
+                          "end_head\n").encode()
+                d = os.path.join(root, "disc11_1", "wsj0", set_, spk)
+                os.makedirs(d)
+                with open(os.path.join(d, utt + ".wv1"), "wb") as f:
+                    f.write(header + b" " * (1024 - len(header)) + payload)
+                samples[os.path.join("wsj0-wav", set_, spk, utt + ".wav")] = x
+                entries.append(f"wsj0/{set_}/{spk}/{utt}.wv1")
+            snr = round(float(rng.uniform(0.01, 2.5)), 4)
+            rows.append(f"{entries[0]} {snr} {entries[1]} {-snr}\n")
+        with open(os.path.join(lists_dir, f"mix_2_spk_{split}.txt"),
+                  "w") as f:
+            f.writelines(rows)
+    return samples
+
+
+def phase_corpus(torch, k, work: str):
+    """Stage 0 to stage 4 from a raw corpus on the card: a WSJ0-like disc
+    tree (``write_wsj0_tree``: 6 tr, 2 cv and 2 tt mixtures) through ``cli
+    prepare --wsj0-root`` (every decoded source equal to the samples that
+    were encoded), then ``cli recipe --stage 1 --stop-stage 4`` on its
+    wav8k/min tree at the paper config, f32, ``--use-pallas 1``, pairs
+    off, one epoch at batch 3 x 1 s: B1 32 times per step, per cv batch,
+    per evaluated and per separated tt mixture (batch 1), B2 32 times per
+    step; SI-SNRi finite and the separated wavs finite and of the
+    mixtures' lengths."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+
+    per_split = {"tr": 6, "cv": 2, "tt": 2}
+    disc = os.path.join(work, "wsj0_discs")
+    lists = os.path.join(work, "merl_lists")
+    samples = write_wsj0_tree(disc, lists, per_split)
+    prepared = os.path.join(work, "wsj0_2mix")
+    check(cli.main(["prepare", "--wsj0-root", disc, "--lists-dir", lists,
+                    "--out-dir", prepared]) == 0, "cli prepare failed")
+    same = all(np.array_equal(read_wav(os.path.join(prepared, rel))[0]
+                              * 32768.0, x.astype(np.float32))
+               for rel, x in samples.items())
+    tree = os.path.join(prepared, "wav8k", "min")
+    counts_by_split = {s: len(os.listdir(os.path.join(tree, s, "mix")))
+                       for s in per_split}
+    print(f"cli prepare --wsj0-root: {len(samples)} shorten sources decoded, "
+          f"each equal to its encoded samples: {same}; wav8k/min mixtures "
+          f"{counts_by_split}", flush=True)
+    check(same, "a decoded WSJ0 source differs from its encoded samples")
+    check(counts_by_split == per_split, f"prepare wrote {counts_by_split}")
+
+    work_dir = os.path.join(work, "recipe")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    tcn_reset(k)
+    buf = io.StringIO()
+    with pair_switch(False), contextlib.redirect_stdout(buf):
+        rc = cli.main(["recipe", "--data-dir", tree, "--work-dir", work_dir,
+                       "--stage", "1", "--stop-stage", "4", "--use-pallas",
+                       "1", "--segment", "1", "--batch-size", "3",
+                       "--epochs", "1", "--print-freq", "1"])
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    torch.cuda.synchronize()
+    counts = tcn_counts(k)
+    check(rc == 0, f"cli recipe returned {rc}")
+    (exp,) = os.listdir(os.path.join(work_dir, "exp"))
+    with open(os.path.join(work_dir, "exp", exp, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps, n_cv, n_tt = len(losses), per_split["cv"], per_split["tt"]
+    res = json.loads([line for line in buf.getvalue().splitlines()
+                      if line.startswith("{")][-1])
+    want = tcn_want(b1=32 * (n_steps + n_cv + 2 * n_tt), b2=32 * n_steps)
+    print(f"cli recipe stages 1-4 (paper config, f32, --use-pallas 1): "
+          f"{n_steps} steps, losses {[round(x, 4) for x in losses]}, "
+          f"evaluate {res}, launches {counts} (expected {want})", flush=True)
+    check(n_steps >= 2 and all(math.isfinite(x) for x in losses),
+          f"recipe training: {n_steps} steps, losses {losses}")
+    check(math.isfinite(res["si_snri"]), f"recipe evaluate: {res}")
+    check(counts == want, f"cli recipe launched {counts}, expected {want}")
+    check_wavs(os.path.join(work_dir, "separate"), os.path.join(tree, "tt",
+                                                                 "mix"))
+
+
 def kernel_line(name, source, replaces, launches, max_abs, ms, plain_ms,
                 bound):
     return {"name": name, "route": "cuda",
@@ -3315,6 +3708,12 @@ def main() -> int:
         dpt_tp_train = phase_dpt_tp_train_path(torch, dpt, work, data,
                                                json_dir)
         phase_streaming(torch, k, work, card)
+        # the ways in: reference PyTorch packages, the JAX package's
+        # checkpoints, and a raw shorten-compressed corpus through stage 0
+        # and the staged recipe, each on the kernels with exact counts
+        phase_reference_import(torch, k, work)
+        phase_jax_checkpoint(torch, k, dpt, work, json_dir)
+        phase_corpus(torch, k, work)
     phase_step_compare(torch, "tcn")
     phase_step_compare(torch, "tcn", "cLN")
     phase_step_compare(torch, "dpt")

@@ -1,5 +1,7 @@
 """Command line of the PyTorch port.
 
+    python -m convtasnet_tpu_torch.cli prepare --wsj0-root DISCS \\
+        --lists-dir MERL_LISTS --out-dir DATA     # or --pair-list FILE
     python -m convtasnet_tpu_torch.cli preprocess --data-dir WAVS --out-dir JSON
     python -m convtasnet_tpu_torch.cli train --train-dir JSON/tr \\
         --valid-dir JSON/cv --save-folder OUT [--device cuda]
@@ -9,6 +11,12 @@
         --data-dir JSON/tt [--cal-sdr 1] [--device cuda]
     python -m convtasnet_tpu_torch.cli stream-demo --model-path PKG \\
         --wav MIX.wav [--chunk-ms 8] [--device cuda]
+    python -m convtasnet_tpu_torch.cli import-torch --torch-path REF.pth \\
+        --out-path PKG
+    python -m convtasnet_tpu_torch.cli export-torch --ckpt-path PKG \\
+        --out-path REF.pth
+    python -m convtasnet_tpu_torch.cli recipe --data-dir WAVS \\
+        --work-dir WORK [--stage 1] [--stop-stage 4] [--device cuda]
 
 Each subcommand takes the JAX package's flags (``convtasnet_tpu/cli.py``)
 plus ``--device`` (default ``cuda``; it raises when CUDA is absent, and
@@ -16,7 +24,13 @@ plus ``--device`` (default ``cuda``; it raises when CUDA is absent, and
 its meaning: -1 runs the CUDA kernels on a CUDA device, 1 insists on them,
 0 runs the plain ops. ``train`` trains either separator family, the TCN
 or the dual-path one (``--separator dpt``); ``separate`` and ``evaluate``
-take the model from the package; ``separate --streaming 1`` and
+take the model from the package (the port's own, or a JAX package's
+``.ckpt``; ``train --continue-from`` resumes from either); ``import-torch``
+turns a reference PyTorch package into the port's, and ``export-torch`` a
+TCN package back; ``prepare`` is stage 0 (the mixture corpus from a pair
+list, or from a raw WSJ0 disc tree and the MERL lists); ``recipe`` runs
+stages 1-4 (preprocess, train, evaluate, separate) under ``--stage`` and
+``--stop-stage``; ``separate --streaming 1`` and
 ``stream-demo`` run a causal cLN or BN package through the streaming
 separator. ``train --n-model m`` and ``separate --tensor-parallel m`` split
 a TCN's hidden width, or a dual-path model's heads and FFN width, over m
@@ -173,6 +187,47 @@ def _cfg_from_args(a: argparse.Namespace):
     )
 
 
+def cmd_prepare(a) -> int:
+    from convtasnet_tpu_torch.tools.mixture import (
+        create_mixtures,
+        create_mixtures_multi,
+        read_pair_list,
+    )
+
+    if a.wsj0_root:
+        # one-command stage 0: raw sphere disc tree + MERL lists ->
+        # wav{8,16}k/{min,max}/{tr,cv,tt} trees
+        from convtasnet_tpu_torch.tools.wsj0 import prepare_wsj0
+
+        if not a.lists_dir:
+            print("--wsj0-root requires --lists-dir "
+                  "(the MERL mix_2_spk_{tr,cv,tt}.txt directory)",
+                  file=sys.stderr)
+            return 2
+        summary = prepare_wsj0(a.wsj0_root, a.lists_dir, a.out_dir,
+                               num_speakers=a.C)
+        total = sum(summary.values())
+        print(f"wsj0 stage 0 complete: {total} mixtures "
+              f"({', '.join(f'{k}={v}' for k, v in summary.items())}) "
+              f"x 4 variants in {a.out_dir}")
+        return 0
+    if not a.pair_list:
+        print("either --pair-list or --wsj0-root is required",
+              file=sys.stderr)
+        return 2
+    rows = read_pair_list(a.pair_list)
+    if a.all_variants:
+        names = create_mixtures_multi(rows, a.out_dir,
+                                      source_root=a.source_root)
+        print(f"generated {len(names)} mixtures x 4 variants "
+              f"(wav8k/wav16k x min/max) in {a.out_dir}")
+    else:
+        names = create_mixtures(rows, a.out_dir, a.sample_rate, mode=a.mode,
+                                source_root=a.source_root)
+        print(f"generated {len(names)} mixtures in {a.out_dir}")
+    return 0
+
+
 def cmd_preprocess(a) -> int:
     from convtasnet_tpu_torch.data.manifest import build_manifests
 
@@ -218,6 +273,8 @@ def cmd_train(a) -> int:
     use_pallas = None if a.use_pallas < 0 else bool(a.use_pallas)
     result = Solver(cfg, tr, cv, device=device, use_pallas=use_pallas).train()
     print(f"best cv loss: {result['best_val_loss']:.3f}")
+    # the exp dir this run used, for cmd_recipe's later stages
+    a.resolved_save_folder = cfg.solver.save_folder
     return 0
 
 
@@ -261,11 +318,97 @@ def cmd_stream_demo(a) -> int:
     return 0
 
 
+def cmd_import_torch(a) -> int:
+    from convtasnet_tpu_torch.models.torch_import import import_to_checkpoint
+
+    cfg = import_to_checkpoint(a.torch_path, a.out_path)
+    print(f"imported {a.torch_path} -> {a.out_path} ({cfg.to_dict()})")
+    return 0
+
+
+def cmd_export_torch(a) -> int:
+    from convtasnet_tpu_torch.models.torch_import import export_to_torch
+
+    export_to_torch(a.ckpt_path, a.out_path)
+    print(f"exported {a.ckpt_path} -> {a.out_path}")
+    return 0
+
+
+def cmd_recipe(a) -> int:
+    """Stages 1-4 under --stage/--stop-stage: preprocess the wav tree,
+    train into an exp dir named from the config, evaluate on tt and
+    separate tt's mixtures."""
+    data_json = os.path.join(a.work_dir, "json")
+    exp_dir = os.path.join(a.work_dir, "exp")
+    if a.stage <= 1 <= a.stop_stage:
+        ns = argparse.Namespace(**vars(a))
+        ns.out_dir = data_json
+        cmd_preprocess(ns)
+    model = None
+    if a.stage <= 2 <= a.stop_stage:
+        ns = argparse.Namespace(**vars(a))
+        ns.train_dir = os.path.join(data_json, "tr")
+        ns.valid_dir = os.path.join(data_json, "cv")
+        ns.save_folder = exp_dir
+        ns.auto_exp_name = True
+        cmd_train(ns)
+        model = os.path.join(ns.resolved_save_folder, a.model_path)
+    if model is None and a.stop_stage >= 3 and a.stage >= 3:
+        # a standalone stage 3 or 4 on an earlier run: the newest checkpoint
+        # under the exp dir (training writes into auto-named subdirs)
+        cands = []
+        for root, _, files in os.walk(exp_dir):
+            if a.model_path in files:
+                cands.append(os.path.join(root, a.model_path))
+        if not cands:
+            print(f"error: no {a.model_path} found under {exp_dir}; "
+                  "run stage 2 first or pass --model-path",
+                  file=sys.stderr)
+            return 1
+        model = max(cands, key=os.path.getmtime)
+    if a.stage <= 3 <= a.stop_stage:
+        ns = argparse.Namespace(
+            model_path=model, data_dir=os.path.join(data_json, "tt"),
+            batch_size=1, sample_rate=a.sample_rate, cal_sdr=a.cal_sdr,
+            max_batches=None, use_pallas=a.use_pallas, device=a.device)
+        cmd_evaluate(ns)
+    if a.stage <= 4 <= a.stop_stage:
+        ns = argparse.Namespace(
+            model_path=model, out_dir=os.path.join(a.work_dir, "separate"),
+            mix_dir=os.path.join(a.data_dir, "tt", "mix"), mix_json=None,
+            batch_size=1, sample_rate=a.sample_rate, streaming=0,
+            chunk_seconds=0.5, sequence_parallel=0, ring_attention=0,
+            use_pallas=a.use_pallas, tensor_parallel=0, device=a.device)
+        cmd_separate(ns)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="convtasnet-tpu-torch",
         description="Conv-TasNet speech separation, PyTorch port")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("prepare", help="generate mixture corpus (stage 0)")
+    p.add_argument("--pair-list", default="")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--source-root", default="")
+    p.add_argument("--sample-rate", type=int, default=8000)
+    p.add_argument("--mode", default="min", choices=["min", "max"])
+    p.add_argument("--all-variants", type=int, default=0,
+                   help="emit 8k+16k x min+max trees in one pass "
+                        "(MATLAB generator parity)")
+    p.add_argument("--wsj0-root", default="",
+                   help="raw WSJ0 sphere disc tree: decode .wv1/.wv2 "
+                        "and build the full wsj0-2mix corpus (with "
+                        "--lists-dir; replaces sph2pipe + MATLAB)")
+    p.add_argument("--lists-dir", default="",
+                   help="directory containing the MERL "
+                        "mix_2_spk_{tr,cv,tt}.txt pairing lists")
+    p.add_argument("--C", type=int, default=2,
+                   help="speakers per mixture (list files named "
+                        "mix_<C>_spk_*.txt for C != 2)")
+    p.set_defaults(fn=cmd_prepare)
 
     p = sub.add_parser("preprocess", help="build JSON manifests")
     p.add_argument("--data-dir", required=True,
@@ -351,6 +494,32 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda raises when CUDA is absent")
     p.set_defaults(fn=cmd_stream_demo)
+
+    p = sub.add_parser("import-torch",
+                       help="convert a reference PyTorch package")
+    p.add_argument("--torch-path", required=True)
+    p.add_argument("--out-path", required=True)
+    p.set_defaults(fn=cmd_import_torch)
+
+    p = sub.add_parser("export-torch",
+                       help="convert a TCN package (the port's or a JAX "
+                            ".ckpt) to a reference-style torch package")
+    p.add_argument("--ckpt-path", required=True)
+    p.add_argument("--out-path", required=True)
+    p.set_defaults(fn=cmd_export_torch)
+
+    p = sub.add_parser("recipe", help="staged pipeline (stages 1-4)")
+    p.add_argument("--data-dir", required=True, help="wav tree root")
+    p.add_argument("--work-dir", required=True)
+    p.add_argument("--stage", type=int, default=1)
+    p.add_argument("--stop-stage", type=int, default=4)
+    p.add_argument("--cal-sdr", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda raises when CUDA is absent")
+    _add_model_flags(p)
+    _add_data_flags(p)
+    _add_solver_flags(p)
+    p.set_defaults(fn=cmd_recipe)
 
     args = parser.parse_args(argv)
     return args.fn(args)

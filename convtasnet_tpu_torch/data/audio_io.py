@@ -1,10 +1,11 @@
-"""WAV input and output on numpy, with no audio library.
+"""WAV and NIST SPHERE input, WAV output, on numpy, with no audio library.
 
-Counterpart of ``convtasnet_tpu/data/audio_io.py`` for RIFF/WAVE files
-(PCM 8/16/24/32 and IEEE float, WAVE_FORMAT_EXTENSIBLE) and polyphase
-resampling. NIST SPHERE files are recognised but not decoded yet: their
-shorten codec is still to be ported (ROADMAP queue A, "shorten.py and
-SPHERE").
+Counterpart of ``convtasnet_tpu/data/audio_io.py``: RIFF/WAVE files (PCM
+8/16/24/32 and IEEE float, WAVE_FORMAT_EXTENSIBLE), NIST SPHERE files with
+PCM payloads or shorten-compressed ones (``.wv1``/``.wv2``, the WSJ0
+distribution format, decoded by the port's ``data/shorten.py``; no
+sph2pipe), and polyphase resampling. The JAX package's C++ shorten decoder
+(``native/``) is not bound here: the numpy decoder gives the same samples.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 
 def read_wav(path: str,
              sample_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """Read a WAV file -> (float32 mono signal in [-1, 1], sample_rate).
+    """Read a WAV or NIST SPHERE file -> (float32 mono signal in [-1, 1],
+    sample_rate).
 
     Multi-channel audio is averaged to mono. If ``sample_rate`` is given and
     differs from the file's rate, the signal is resampled.
@@ -28,9 +30,7 @@ def read_wav(path: str,
                 and header[8:12] == b"WAVE":
             data, sr = _read_riff(f)
         elif header[:8] == b"NIST_1A\n":
-            raise NotImplementedError(
-                f"{path}: NIST SPHERE input is not ported yet (ROADMAP "
-                "queue A, 'shorten.py and SPHERE')")
+            data, sr = _read_sphere(f, header)
         else:
             raise ValueError(f"not a RIFF/WAVE or NIST SPHERE file: {path}")
     if data.ndim == 2:
@@ -99,6 +99,57 @@ def _read_riff(f) -> Tuple[np.ndarray, int]:
             raise ValueError(f"unsupported PCM bit depth: {bits}")
     else:
         raise ValueError(f"unsupported WAV format code: {audio_format}")
+    if n_channels > 1:
+        x = x.reshape(-1, n_channels)
+    return x, sr
+
+
+def _read_sphere(f, header12: bytes) -> Tuple[np.ndarray, int]:
+    """Parse a NIST SPHERE file whose first 12 bytes were read: its 1024-byte
+    ASCII header, then a PCM payload or a shorten-compressed one
+    (``sample_coding`` ``pcm,embedded-shorten-v2``). A malformed header or
+    a truncated shorten payload raises ``ValueError``."""
+    rest = f.read(1024 - len(header12))
+    head = (header12 + rest).decode("ascii", errors="replace")
+    lines = head.split("\n")
+    try:
+        header_bytes = int(lines[1].strip())
+    except (IndexError, ValueError):
+        raise ValueError("malformed SPHERE header")
+    fields = {}
+    for line in lines[2:]:
+        parts = line.split()
+        if len(parts) >= 3 and parts[1].startswith("-"):
+            fields[parts[0]] = parts[2]
+        if line.strip() == "end_head":
+            break
+    coding = fields.get("sample_coding", "pcm")
+    sr = int(fields.get("sample_rate", 16000))
+    n_channels = int(fields.get("channel_count", 1))
+    n_samples = int(fields["sample_count"])
+    n_bytes = int(fields.get("sample_n_bytes", 2))
+    byte_format = fields.get("sample_byte_format", "01")
+    f.seek(header_bytes)
+    if "shorten" in coding or "embedded" in coding:
+        from convtasnet_tpu_torch.data.shorten import decode, samples_to_float
+
+        try:
+            samples, ftype, _ = decode(f.read(), max_samples=n_samples)
+        except EOFError as e:
+            raise ValueError(f"truncated shorten payload: {e}") from e
+        x = samples_to_float(samples[:n_samples], ftype)
+        if n_channels == 1 and x.shape[1] == 1:
+            x = x[:, 0]
+        return x, sr
+    raw = f.read(n_samples * n_channels * n_bytes)
+    if n_bytes == 2:
+        dtype = "<i2" if byte_format == "01" else ">i2"
+        x = np.frombuffer(raw, dtype=dtype).astype(np.float32) / 32768.0
+    elif n_bytes == 1:
+        x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32)
+             - 128.0) / 128.0
+    else:
+        raise ValueError(f"unsupported SPHERE sample width: {n_bytes}")
     if n_channels > 1:
         x = x.reshape(-1, n_channels)
     return x, sr

@@ -19,7 +19,8 @@ Counterpart of ``convtasnet_tpu/data/dataset.py``:
   directory when one is given.
 
 Decoding is the numpy ``read_wav``; the JAX package's native C++ decoder
-is not ported, and it falls back to the same codec itself.
+is not ported (a host-speed path, ROADMAP A13), and it falls back to the
+same codec itself.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ The JAX model keeps its weights as ``{'params': {...}, 'batch_stats':
 {...}}`` nested dicts whose leaves have the same names and shapes as this
 package's state_dict entries (``models/conv_tasnet.py``), so the bridge
 joins the nested names with dots and copies each leaf. It reads the leaves
-through numpy and does not import jax.
+through numpy (a bfloat16 leaf, which ``train/flax_msgpack.py`` returns as
+a torch tensor, through torch) and does not import jax.
 """
 
 from __future__ import annotations
@@ -28,6 +29,21 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, Any]) -> None:
             out[name] = value
 
 
+def flatten_tree(tree: Mapping) -> Dict[str, Any]:
+    """A nested dict's leaves under their dotted names (``a.b.c``)."""
+    out: Dict[str, Any] = {}
+    _flatten(tree, "", out)
+    return out
+
+
+def leaf_tensor(value) -> torch.Tensor:
+    """A leaf (numpy array, scalar or torch tensor) as a float32 CPU
+    tensor."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().float().cpu()
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
 def state_dict_from_jax(variables: Dict[str, Any],
                         cfg: ConvTasNetConfig) -> Dict[str, torch.Tensor]:
     """flax variables (leaves as numpy arrays, or anything ``np.asarray``
@@ -36,11 +52,9 @@ def state_dict_from_jax(variables: Dict[str, Any],
     Raises ``KeyError`` naming the missing or unexpected keys when the tree
     does not describe ``cfg``'s model.
     """
-    leaves: Dict[str, Any] = {}
-    _flatten(variables.get("params", {}), "", leaves)
-    _flatten(variables.get("batch_stats", {}), "", leaves)
-    sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-          for k, v in leaves.items()}
+    leaves = flatten_tree(variables.get("params", {}))
+    leaves.update(flatten_tree(variables.get("batch_stats", {})))
+    sd = {k: leaf_tensor(v) for k, v in leaves.items()}
     want = ConvTasNet(cfg).state_dict()
     missing = sorted(set(want) - set(sd))
     unexpected = sorted(set(sd) - set(want))

@@ -19,6 +19,8 @@ within DPT_BWD_TOL, in bf16 within 4e-2 of the bf16 twin and no further
 from exact than max(4e-2, 1.25x the bf16 twin's own distance).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2263,3 +2265,93 @@ def test_dpt_kernels_pad_untiled_widths(cuda, dtype):
         got = fused_bwd(x, g, *w, **kw)
         _check_dpt_cotangents(got, twin_bwd(x.float(), g.float(), *w, **kw),
                               twin_bwd(x, g, *w, **kw), valid, dtype)
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+
+
+@pytest.mark.parametrize("name", ["tcn", "dpt"])
+def test_jax_fixture_served_through_the_kernels(cuda, name):
+    """A committed JAX training checkpoint (``scripts/make_jax_fixtures.py``,
+    f32) loaded as ``separate`` loads it and served on the card: the plain
+    path within 5e-4 and the kernel path within 2e-3 (max abs) of the JAX
+    estimates stored beside it, the kernels launched once per block, or
+    per sublayer."""
+    from convtasnet_tpu_torch.train.checkpoint import (
+        load_params_for_inference,
+    )
+
+    z = np.load(os.path.join(FIXTURES, "jax_fixtures.npz"))
+    cfg, sd = load_params_for_inference(
+        os.path.join(FIXTURES, f"jax_{name}.ckpt"), device=cuda)
+    mix = torch.from_numpy(z["mixture"]).to(cuda)
+    want = torch.from_numpy(z[f"{name}_est"]).to(cuda)
+    fns = ([DPT_FNS[k][0] for k in ("inter", "intra", "ffn")]
+           if name == "dpt" else [port.fused_tcn_block])
+    for flag, bar in ((False, 5e-4), (None, 2e-3)):
+        model = ConvTasNet(cfg, use_pallas=flag, device=cuda)
+        model.load_state_dict(sd)
+        before = [fn.launches for fn in fns]
+        with _pair_switch(False), torch.inference_mode():
+            est = model.eval()(mix)
+        launched = [fn.launches - b for fn, b in zip(fns, before)]
+        if flag is None:
+            assert launched == ([cfg.dpt_layers, cfg.dpt_layers,
+                                 2 * cfg.dpt_layers] if name == "dpt"
+                                else [cfg.num_blocks * cfg.num_repeats])
+        else:
+            assert launched == [0] * len(fns)
+        assert (est - want).abs().max().item() <= bar, (flag, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+def test_imported_reference_package_through_b1(cuda, tmp_path, dtype,
+                                               norm_type, causal):
+    """A reference-layout package (``tests/torch_oracle.make_state_dict``)
+    through ``import_to_checkpoint`` and served on the card through B1,
+    once per block, within the forward bars of ``torch_oracle.forward`` on
+    the card."""
+    import dataclasses
+
+    from convtasnet_tpu_torch.models.torch_import import import_to_checkpoint
+    from convtasnet_tpu_torch.train.checkpoint import (
+        load_params_for_inference,
+    )
+    import importlib.util
+
+    # from its file: another package named ``tests`` may sit on the path
+    spec = importlib.util.spec_from_file_location("torch_oracle", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "torch_oracle.py"))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    cfg = ConvTasNetConfig(n_filters=64, kernel_size=16, bottleneck=64,
+                           hidden=128, num_blocks=4, num_repeats=1,
+                           norm_type=norm_type, causal=causal)
+    ref = oracle.make_state_dict(cfg, seed=4)
+    path = str(tmp_path / "ref.pth.tar")
+    torch.save({"N": cfg.n_filters, "L": cfg.kernel_size,
+                "B": cfg.bottleneck, "H": cfg.hidden, "P": cfg.conv_kernel,
+                "X": cfg.num_blocks, "R": cfg.num_repeats,
+                "C": cfg.num_speakers, "norm_type": cfg.norm_type,
+                "causal": cfg.causal, "mask_nonlinear": cfg.mask_nonlinear,
+                "state_dict": ref}, path)
+    pkg = str(tmp_path / "imported.pt")
+    import_to_checkpoint(path, pkg)
+    got_cfg, sd = load_params_for_inference(pkg, device=cuda)
+    model = ConvTasNet(dataclasses.replace(got_cfg, compute_dtype=dtype),
+                       device=cuda)
+    model.load_state_dict(sd)
+    mix = torch.randn(2, 16000, generator=torch.Generator().manual_seed(3))
+    mix = mix.to(cuda)
+    before = _tcn_launches()
+    with _pair_switch(False), torch.inference_mode():
+        est = model.eval()(mix)
+    assert _tcn_launches(before) == {"b1": cfg.num_blocks, "b2": 0, "b4": 0,
+                                     "b5": 0}
+    with torch.no_grad():
+        want = oracle.forward({k: v.to(cuda) for k, v in ref.items()}, cfg,
+                              mix)
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    assert _rel_l2(est, want) <= TOL[dt], _rel_l2(est, want)

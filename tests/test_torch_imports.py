@@ -1,6 +1,7 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package: the
-machine with the GPU has no JAX, and the port keeps its own copy of what
-it needs (``convtasnet_tpu_torch/config.py``)."""
+"""The PyTorch port imports no JAX, flax, msgpack or orbax and nothing of
+the JAX package: the machine with the GPU has none of them, and the port
+keeps its own copy of what it needs (``convtasnet_tpu_torch/config.py``,
+its msgpack decoder ``train/flax_msgpack.py``)."""
 
 import os
 import pathlib
@@ -17,6 +18,8 @@ def test_port_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['orbax'] = None\n"
         "sys.modules['convtasnet_tpu'] = None\n"
         "import convtasnet_tpu_torch, convtasnet_tpu_torch.cli\n"
         "import convtasnet_tpu_torch.config\n"
@@ -39,8 +42,19 @@ def test_port_imports_with_jax_blocked():
         "import convtasnet_tpu_torch.train.solver\n"
         "import convtasnet_tpu_torch.data.loader\n"
         "import convtasnet_tpu_torch.data.segment_cache\n"
+        "import convtasnet_tpu_torch.data.shorten\n"
+        "import convtasnet_tpu_torch.data.audio_io\n"
+        "import convtasnet_tpu_torch.train.flax_msgpack\n"
+        "import convtasnet_tpu_torch.train.checkpoint\n"
+        "import convtasnet_tpu_torch.models.torch_import\n"
+        "import convtasnet_tpu_torch.tools.activlev\n"
+        "import convtasnet_tpu_torch.tools.mixture\n"
+        "import convtasnet_tpu_torch.tools.wsj0\n"
+        "import convtasnet_tpu_torch.utils.jobs\n"
+        "import convtasnet_tpu_torch.utils.plot\n"
         "print(sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('convtasnet_tpu', 'jax', 'flax')\n"
+        "             if m.split('.')[0] in ('convtasnet_tpu', 'jax', 'flax',\n"
+        "                                    'msgpack', 'orbax', 'matplotlib')\n"
         "             and sys.modules[m] is not None))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -48,13 +62,14 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # with the JAX package blocked every import above succeeds, and no
-    # module of it (nor of jax or flax) is loaded
+    # module of it (nor of jax, flax, msgpack or orbax) is loaded, nor
+    # matplotlib (utils/plot.py imports it only to draw)
     assert proc.stdout.strip() == "[]"
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+flax|"
-                         r"from\s+flax)\b", re.MULTILINE)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|orbax)\b",
+                         re.MULTILINE)
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert sources
     offenders = [str(p.relative_to(REPO)) for p in sources

@@ -88,8 +88,10 @@ def test_package_roundtrip_and_formats(slice_dirs, tmp_path):
     cfg, sd = load_params_for_inference(slice_dirs["pkg"])
     assert cfg.to_dict() == CFG.to_dict()
     assert sd["encoder.w"].shape == (CFG.kernel_size, CFG.n_filters)
-    with pytest.raises(NotImplementedError, match="JAX"):
-        load_params_for_inference(slice_dirs["jax_ckpt"])
+    # the JAX checkpoint of the same weights reads to the same state dict
+    jcfg, jsd = load_params_for_inference(slice_dirs["jax_ckpt"])
+    assert jcfg.to_dict() == CFG.to_dict() and set(jsd) == set(sd)
+    assert all(torch.equal(jsd[k], sd[k]) for k in sd)
     other = str(tmp_path / "other.pt")
     torch.save({"state_dict": {}}, other)
     with pytest.raises(ValueError, match="inference package"):
