@@ -163,8 +163,10 @@ Phases, each raising on failure (so the script exits nonzero):
    launch; the bf16 DPT at head widths 128 (2 heads) and 16 (16 heads):
    one forward through B7, B9 and B11 against the plain path and one step
    over three batch seeds through B8 and B10, as the S = 320 step is held,
-   with exact launch counts, and the f32 model at those widths raising,
-   naming the head width rule, before any launch;
+   with exact launch counts; and the f32 model at those widths through
+   the f32 kernels: one forward against the plain path within the f32
+   forward bar (2e-3) and one train step's gradient within the f32 step
+   bar (4e-3), with exact launch counts;
 12. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
    B=8 and B=24 x 4 s and the bf16 train step (forward + backward +
    optimizer) at B=8 x 4 s, kernel path with pairs on and off and plain
@@ -174,7 +176,9 @@ Phases, each raising on failure (so the script exits nonzero):
    B4 and B5 against two kernel-1 (kernel-2) calls and their twins per
    pair of dilations; each DPT
    kernel, forward and backward, against its twin at [8, 25, 128, 256],
-   and the attention kernels alone at head widths 16 and 128; the DPT
+   and the attention kernels alone at head widths 16 and 128, and in f32
+   at head widths 16, 32, 64 and 128 in device time (torch.profiler); the
+   DPT
    forward and the DPT train step at B=8 x 4 s, kernel path and
    plain path (the steps with each path's peak memory); B6 against its
    twin per shard width (Hs 256 and 128), and the bf16 forward over two
@@ -2158,62 +2162,94 @@ def dpt_step_medians(torch, dpt, cfg, sd, seeds, label: str, kinds,
 
 
 def phase_dpt_head_widths(torch, dpt):
-    """The bf16 DPT quality default at the head widths the bf16 attention
-    kernels took beyond 32 and 64: 2 heads of 128 and 16 heads of 16 (B =
-    256), random weights from seed 0, B=4 x 4 s. One forward, kernel path
-    against plain path within the bf16 forward bar, with B7 and B9 once
-    per layer (and B11 twice); one train step over three batch seeds as
-    ``dpt_step_medians`` holds it, with B8 and B10 once per layer; and the
-    f32 model at each width raises, naming the head width rule, before any
-    launch."""
+    """The DPT quality default at the head widths beyond 32 and 64: 2 heads
+    of 128 and 16 heads of 16 (B = 256), random weights from seed 0, B=4 x
+    4 s. In bf16: one forward, kernel path against plain path within the
+    bf16 forward bar, with B7 and B9 once per layer (and B11 twice); one
+    train step over three batch seeds as ``dpt_step_medians`` holds it,
+    with B8 and B10 once per layer. In f32 (the default compute dtype):
+    one forward, kernel path against plain path within the f32 forward bar
+    (2e-3), with the same launch counts; and one train step, the kernel
+    path's gradient against the plain path's within the f32 step bar
+    (``BWD_TOL``, 4e-3, as ``tests/test_torch_cuda.py``'s
+    ``test_dpt_model_train_grads_kernel_vs_plain`` holds it), with B8 and
+    B10 once per layer (and B12 twice)."""
     import dataclasses
 
+    from convtasnet_tpu_torch import SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet, init_params
+    from convtasnet_tpu_torch.train import train_step as ts
 
     batch = train_batch(torch, 4, 23)
     for heads in (2, 16):
         d = DPT_B // heads
-        cfg = dataclasses.replace(dpt_config(), dpt_heads=heads)
-        sd = init_params(cfg, torch.Generator().manual_seed(0))
-        outs = {}
-        for path, flag in (("kernel", True), ("plain", False)):
-            model = ConvTasNet(cfg, use_pallas=flag, device="cuda").eval()
-            model.load_state_dict(sd)
-            reset_dpt_all(dpt)
-            with torch.inference_mode():
-                outs[path] = model(batch[0])
-            torch.cuda.synchronize()
-            counts = dpt_launches(dpt)
-            want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
-                     "ffn": 2 * cfg.dpt_layers} if flag
-                    else dict.fromkeys(DPT_KINDS, 0))
-            print(f"dpt forward d={d} ({heads} heads) {path} path bf16: "
-                  f"launches {counts} (expected {want})", flush=True)
-            check(counts == want, f"dpt d={d} forward {path}: {counts}")
-            del model
-        err = rel_l2(outs["kernel"], outs["plain"])
-        print(f"forward dpt d={d} bf16 B=4x{SECONDS}s kernel vs plain: "
-              f"rel_l2 {err:.3e} (bar {TOL['bfloat16']:.0e})", flush=True)
-        check(torch.isfinite(outs["kernel"]).all().item()
-              and tuple(outs["kernel"].shape) == (4, 2, SECONDS * SAMPLE_RATE)
-              and err <= TOL["bfloat16"], f"dpt d={d} forward: {err:.3e}")
-        dpt_step_medians(torch, dpt, cfg, sd, (23, 24, 25),
-                         f"d={d} ({heads} heads)", ("inter", "intra"), batch)
-        f32 = dataclasses.replace(dpt_config("float32"), dpt_heads=heads)
-        reset_dpt_all(dpt)
-        try:
-            with torch.inference_mode():
-                ConvTasNet(f32, use_pallas=True, device="cuda").eval()(
-                    batch[0])
-            raised = "nothing"
-        except ValueError as e:
-            raised = str(e)
-        launched = dpt_launches(dpt)
-        print(f"dpt d={d} f32: raises {raised!r}; launches {launched}",
-              flush=True)
-        check("the float32 kernel needs a head width in (32, 64)" in raised
-              and not any(launched.values()),
-              f"dpt d={d} f32: raised {raised!r}, launched {launched}")
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(dpt_config(dtype), dpt_heads=heads)
+            sd = init_params(cfg, torch.Generator().manual_seed(0))
+            outs = {}
+            for path, flag in (("kernel", True), ("plain", False)):
+                model = ConvTasNet(cfg, use_pallas=flag, device="cuda").eval()
+                model.load_state_dict(sd)
+                reset_dpt_all(dpt)
+                with torch.inference_mode():
+                    outs[path] = model(batch[0])
+                torch.cuda.synchronize()
+                counts = dpt_launches(dpt)
+                want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                         "ffn": 2 * cfg.dpt_layers} if flag
+                        else dict.fromkeys(DPT_KINDS, 0))
+                print(f"dpt forward d={d} ({heads} heads) {path} path "
+                      f"{dtype}: launches {counts} (expected {want})",
+                      flush=True)
+                check(counts == want,
+                      f"dpt d={d} {dtype} forward {path}: {counts}")
+                del model
+            err = rel_l2(outs["kernel"], outs["plain"])
+            print(f"forward dpt d={d} {dtype} B=4x{SECONDS}s kernel vs "
+                  f"plain: rel_l2 {err:.3e} (bar {TOL[dtype]:.0e})",
+                  flush=True)
+            check(torch.isfinite(outs["kernel"]).all().item()
+                  and tuple(outs["kernel"].shape)
+                  == (4, 2, SECONDS * SAMPLE_RATE)
+                  and err <= TOL[dtype], f"dpt d={d} {dtype} forward: "
+                  f"{err:.3e}")
+            if dtype == "bfloat16":
+                dpt_step_medians(torch, dpt, cfg, sd, (23, 24, 25),
+                                 f"d={d} ({heads} heads)",
+                                 ("inter", "intra"), batch)
+                continue
+            res = {}
+            for path, flag in (("kernel", True), ("plain", False)):
+                state = ts.create_train_state(cfg, SolverConfig(),
+                                              device="cuda", use_pallas=flag,
+                                              state_dict=sd)
+                reset_dpt_all(dpt)
+                loss = float(ts._loss_and_grads(state.model, batch, 0))
+                torch.cuda.synchronize()
+                counts = {k: dpt_bwd_fns(dpt, k)[0].launches
+                          for k in DPT_KINDS}
+                want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                         "ffn": 2 * cfg.dpt_layers} if flag
+                        else dict.fromkeys(DPT_KINDS, 0))
+                check(counts == want,
+                      f"dpt d={d} f32 step {path}: backward launches "
+                      f"{counts}")
+                if flag:
+                    launched = counts
+                res[path] = (loss, torch.cat([
+                    p.grad.detach().reshape(-1)
+                    for p in state.model.parameters()]))
+                del state
+            (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+            err = rel_l2(gk, gp)
+            print(f"train step dpt d={d} ({heads} heads) f32 B=4x{SECONDS}s "
+                  f"seed 23 kernel vs plain: loss {lk:.6f} vs {lp:.6f}; "
+                  f"gradient rel_l2 {err:.3e} (bar "
+                  f"{BWD_TOL['float32']:.0e}); kernel path's backward "
+                  f"launches {launched}", flush=True)
+            check(torch.isfinite(gk).all().item()
+                  and err <= BWD_TOL["float32"],
+                  f"dpt d={d} f32 step: gradient {err:.3e}")
 
 
 def phase_dpt_chunk256_step(torch, dpt):
@@ -2723,8 +2759,10 @@ def phase_dpt_timings(torch, dpt, card: str):
     """Each DPT kernel, forward and backward, at [8, 25, 128, 256] bf16
     with the real mask, and its twin, in turns (twin, kernel, kernel,
     twin); the attention kernels (B7-B10) also at head widths 16 and 128,
-    the kernel alone; then the DPT forward at B=8 x 4 s bf16, kernel path and plain
-    path in turns, and the DPT train step. Returns {kind: (ms, plain_ms,
+    the kernel alone, and in f32 (their first designs) at head widths 16,
+    32, 64 and 128, device time per call and the core's share; then the
+    DPT forward at B=8 x 4 s bf16, kernel path and plain path in turns,
+    and the DPT train step. Returns {kind: (ms, plain_ms,
     bound_ms, bound_by)} for the forwards and {kind: ...} for the
     backwards."""
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
@@ -2778,6 +2816,32 @@ def phase_dpt_timings(torch, dpt, card: str):
                       f"{bwd_ms:.4f} ms (d=32 {bwd_rows[kind][0]:.4f})",
                       flush=True)
 
+        # the f32 attention kernels (the first designs) at every head width
+        # they take: d = 16, 32, 64 and 128 (16, 8, 4 and 2 heads)
+        for kind in ("inter", "intra"):
+            for heads in (16, 8, 4, 2):
+                args, kw, _ = dpt_inputs(torch, kind, torch.float32, 25,
+                                         3199, seed=4000, heads=heads)
+                fused = dpt_fns(dpt, kind)[0]
+                fwd_ms, fwd_k = device_ms(torch, lambda: fused(*args, **kw),
+                                          10)
+                fwd_ev = time_ms(torch, lambda: fused(*args, **kw), 10)
+                fused = dpt_bwd_fns(dpt, kind)[0]
+                x, g, w, kw, _ = dpt_bwd_inputs(torch, kind, torch.float32,
+                                                25, 3199, seed=4000,
+                                                heads=heads)
+                bwd_ms, bwd_k = device_ms(
+                    torch, lambda: fused(x, g, *w, **kw), 5)
+                bwd_ev = time_ms(torch, lambda: fused(x, g, *w, **kw), 5)
+                core = [sum(v for key, v in ks.items() if "core" in key)
+                        for ks in (fwd_k, bwd_k)]
+                print(f"timing [{card}] dpt {kind} [8,25,128,256] f32 d="
+                      f"{DPT_B // heads} ({heads} heads): forward device "
+                      f"{fwd_ms:.4f} ms (core {core[0]:.4f}; events "
+                      f"{fwd_ev:.4f}), backward device {bwd_ms:.4f} ms "
+                      f"(core {core[1]:.4f}; events {bwd_ev:.4f})",
+                      flush=True)
+
         cfg = dpt_config()
         mix = torch.randn(8, SECONDS * SAMPLE_RATE, device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(8))
@@ -2794,6 +2858,26 @@ def phase_dpt_timings(torch, dpt, card: str):
     del models
     phase_train_timings(torch, cfg, card, "dpt", big_batch=False)
     return rows, bwd_rows
+
+
+def device_ms(torch, fn, iters: int):
+    """(ms, {kernel: ms}) of one call of fn on the device: its kernels'
+    durations from torch.profiler summed per call, the host's time between
+    launches left out, after two warm-up calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = {e.key: e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and "#" not in e.key}
+    return sum(rows.values()), rows
 
 
 def time_turns(torch, fns: dict, iters: int) -> dict:

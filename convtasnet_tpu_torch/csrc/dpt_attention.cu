@@ -50,7 +50,15 @@
 // memory, and each warp takes one head with one query chunk per lane: pass
 // 1 the row's max and softmax denominator (online), pass 2 recomputes each
 // score, rounds p = exp(score - max) / sum and accumulates p v in f32; and
-// out_proj_residual_kernel (dpt_common.cuh). Head widths 32 and 64, h <= 8.
+// out_proj_residual_kernel (dpt_common.cuh). Head widths 16, 32, 64 and
+// 128. A block has at most 8 warps: with more heads than that (16 heads of
+// 16 at B = 256; only d = 16 has them) each warp takes the heads warp,
+// warp + warps, ... in turn (core_warps). At d = 128 a lane's q, acc and k
+// or v rows would not fit
+// in registers, so two lanes share a query chunk (InterLanes: G = 2), each
+// holding 64 of its dimensions, and each dot product is the two halves'
+// sums added by one shuffle; 16 query chunks per warp pass. At d <= 64
+// (G = 1) every value and every order of summation is as before.
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // sublayer runs the h heads of one shard's head group, of width Bq = h * d:
@@ -71,20 +79,24 @@ size_t inter_core_smem(int Bq) {
          kKeyTile * sizeof(float);
 }
 
-// f32's core (the first design, top note). Grid (S, M); 32 * h threads,
-// warp = head. B below is the heads' width Bq: the rows of qkv hold 3Bq
-// values, those of a Bq.
+// f32's core (the first design, top note). Grid (S, M); 32 * core_warps(h)
+// threads, warp = head (heads warp, warp + warps, ... when h > 8, d = 16),
+// G lanes per query chunk. B below is the heads' width Bq: the rows of qkv
+// hold 3Bq values, those of a Bq.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     inter_core_kernel(DptAttnParams p, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = 16 / sizeof(T);
+  constexpr int G = InterLanes<D>::G;
+  constexpr int DL = InterLanes<D>::DL;
   const int n = p.n, S = p.S, B = p.Bq;
   T* kv_s = reinterpret_cast<T*>(smem);
   float* b_s = reinterpret_cast<float*>(
       smem + align128(static_cast<size_t>(kKeyTile) * 2 * B * sizeof(T)));
   const int s = blockIdx.x, m = blockIdx.y;
-  const int lane = threadIdx.x & 31, hd = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane % G;   // which DL dimensions of the head
   const size_t stride = static_cast<size_t>(S) * 3 * B;  // chunk to chunk
   const T* base = static_cast<const T*>(p.qkv) +
                   (static_cast<size_t>(m) * n * S + s) * 3 * B;
@@ -103,69 +115,80 @@ __global__ void __launch_bounds__(256)
       b_s[j] = p.bias ? p.bias[static_cast<size_t>(k0 + j) * S + s] : 0.f;
     __syncthreads();
   };
-  // D values of T from 16-byte loads into f32
+  // DL values of T from 16-byte loads into f32
   auto load_row = [](const T* src, float* dst) {
 #pragma unroll
-    for (int t = 0; t < D; t += V) {
+    for (int t = 0; t < DL; t += V) {
       const uint4 u = *reinterpret_cast<const uint4*>(src + t);
       const T* vals = reinterpret_cast<const T*>(&u);
 #pragma unroll
       for (int e = 0; e < V; ++e) dst[t + e] = to_f<T>(vals[e]);
     }
   };
-  auto score = [&](const float* q, int j) {
-    float k[D];
-    load_row(kv_s + j * 2 * B + hd * D, k);
-    float dot = 0.f;
+
+  // one head: warp = head, or with more than 8 heads (only at d = 16,
+  // Bq being at most 256) heads warp, warp + warps, ... in turn
+  auto run_head = [&](const int hd) {
+    const int col0 = hd * D + sub * DL;   // this lane's columns of the head
+    auto score = [&](const float* q, int j) {
+      float k[DL];
+      load_row(kv_s + j * 2 * B + col0, k);
+      float dot = 0.f;
 #pragma unroll
-    for (int t = 0; t < D; ++t) dot = fmaf(q[t], k[t], dot);
-    return dot * scale + b_s[j];
+      for (int t = 0; t < DL; ++t) dot = fmaf(q[t], k[t], dot);
+      return lanes_sum<G>(dot) * scale + b_s[j];
+    };
+
+    for (int q0 = 0; q0 < n; q0 += 32 / G) {
+      const int qc = q0 + lane / G;
+      const bool valid = qc < n;
+      float q[DL];
+      load_row(base + static_cast<size_t>(valid ? qc : 0) * stride + col0, q);
+
+      float mx = -INFINITY, sum = 0.f;
+      for (int k0 = 0; k0 < n; k0 += kKeyTile) {
+        const int kt = min(kKeyTile, n - k0);
+        load_tile(k0, kt);
+        for (int j = 0; j < kt; ++j) {
+          const float sc = score(q, j);
+          const float mn = fmaxf(mx, sc);
+          sum = sum * expf(mx - mn) + expf(sc - mn);
+          mx = mn;
+        }
+      }
+
+      float acc[DL];
+#pragma unroll
+      for (int t = 0; t < DL; ++t) acc[t] = 0.f;
+      for (int k0 = 0; k0 < n; k0 += kKeyTile) {
+        const int kt = min(kKeyTile, n - k0);
+        if (!one_tile) load_tile(k0, kt);
+        for (int j = 0; j < kt; ++j) {
+          const float w = round_to<T>(expf(score(q, j) - mx) / sum);
+          float v[DL];
+          load_row(kv_s + j * 2 * B + B + col0, v);
+#pragma unroll
+          for (int t = 0; t < DL; ++t) acc[t] = fmaf(w, v[t], acc[t]);
+        }
+      }
+      if (valid) {
+        T* dst = static_cast<T*>(p.a) +
+                 ((static_cast<size_t>(m) * n + qc) * S + s) * B + col0;
+#pragma unroll
+        for (int t = 0; t < DL; t += V) {
+          alignas(16) T vals[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) vals[e] = from_f<T>(acc[t + e]);
+          *reinterpret_cast<uint4*>(dst + t) =
+              *reinterpret_cast<const uint4*>(vals);
+        }
+      }
+    }
   };
-
-  for (int q0 = 0; q0 < n; q0 += 32) {
-    const int qc = q0 + lane;
-    const bool valid = qc < n;
-    float q[D];
-    load_row(base + static_cast<size_t>(valid ? qc : 0) * stride + hd * D, q);
-
-    float mx = -INFINITY, sum = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kKeyTile) {
-      const int kt = min(kKeyTile, n - k0);
-      load_tile(k0, kt);
-      for (int j = 0; j < kt; ++j) {
-        const float sc = score(q, j);
-        const float mn = fmaxf(mx, sc);
-        sum = sum * expf(mx - mn) + expf(sc - mn);
-        mx = mn;
-      }
-    }
-
-    float acc[D];
-#pragma unroll
-    for (int t = 0; t < D; ++t) acc[t] = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kKeyTile) {
-      const int kt = min(kKeyTile, n - k0);
-      if (!one_tile) load_tile(k0, kt);
-      for (int j = 0; j < kt; ++j) {
-        const float w = round_to<T>(expf(score(q, j) - mx) / sum);
-        float v[D];
-        load_row(kv_s + j * 2 * B + B + hd * D, v);
-#pragma unroll
-        for (int t = 0; t < D; ++t) acc[t] = fmaf(w, v[t], acc[t]);
-      }
-    }
-    if (valid) {
-      T* dst = static_cast<T*>(p.a) +
-               ((static_cast<size_t>(m) * n + qc) * S + s) * B + hd * D;
-#pragma unroll
-      for (int t = 0; t < D; t += V) {
-        alignas(16) T vals[V];
-#pragma unroll
-        for (int e = 0; e < V; ++e) vals[e] = from_f<T>(acc[t + e]);
-        *reinterpret_cast<uint4*>(dst + t) =
-            *reinterpret_cast<const uint4*>(vals);
-      }
-    }
+  if constexpr (D == 16) {
+    for (int hd = warp; hd < p.h; hd += blockDim.x >> 5) run_head(hd);
+  } else {
+    run_head(warp);
   }
 }
 
@@ -177,27 +200,35 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  inter_core_kernel<T, D><<<dim3(p.S, p.M), 32 * p.h, smem, stream>>>(p,
-                                                                     scale);
+  inter_core_kernel<T, D><<<dim3(p.S, p.M), 32 * core_warps(p.h), smem,
+                            stream>>>(p, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// f32's core for head width d (core_head_width).
+template <typename T>
+int launch_core_d(const DptAttnParams& p, cudaStream_t stream) {
+  switch (p.Bq / p.h) {
+    case 16: return launch_core<T, 16>(p, stream);
+    case 32: return launch_core<T, 32>(p, stream);
+    case 64: return launch_core<T, 64>(p, stream);
+    case 128: return launch_core<T, 128>(p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16: the forward frame of dpt_attn_bwd_wg.cuh with the core's inter
 // gather; f32: the first design.
 template <typename T>
 int launch(const DptAttnParams& p, cudaStream_t stream) {
-  const int d = p.Bq / p.h;
-  if (p.Bq % 64 || p.Bq > p.B) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.Bq % 64 || p.Bq > p.B || !core_head_width(p.Bq / p.h))
+    return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kIsBf16<T>) {
-    if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
     return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<true>);
   } else {
-    if ((d != 32 && d != 64) || p.h > 8)
+    if (p.h > 8 && p.Bq / p.h != 16)   // a warp per head from d = 32 up
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
-                                              cudaStream_t s) {
-      return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
-    });
+    return launch_attention<T>(p, stream, launch_core_d<T>);
   }
 }
 

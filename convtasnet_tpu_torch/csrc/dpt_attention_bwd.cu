@@ -48,6 +48,14 @@
 //     summed over the query chunks.
 // Any n >= 1; with n <= 32 each side loads its tile once. When n = 1
 // every row has one key and p = 1, masked or not, as in the reference.
+// Head widths 16, 32, 64 and 128, as in the forward: with more than 8
+// heads (d = 16) each warp takes its heads in turn (core_warps), both
+// sides of one head before the next, and at d = 128 two lanes share a
+// query (key) chunk, 64 dimensions each, their dot products summed by one
+// shuffle (InterLanes, dpt_common.cuh); at d <= 64 every value and order
+// is as before. The key side's four rows (k, v, dk, dv) spill at 64
+// dimensions a lane, at d = 64 as before and at d = 128; four lanes of 32
+// at d = 128 spill nothing but ran 1.12x slower (PERF.md §6).
 //
 // Under tensor parallelism (partial, the backward of the Pallas kernel's
 // partial=True) the core runs one shard's h heads of width Bq = h * d
@@ -66,20 +74,25 @@ size_t core_bwd_smem(int Bq) {
          kTile * sizeof(float);
 }
 
-// Grid (S, M); 32 * h threads, warp = head. B below is the heads' width Bq:
-// the rows of qkv and dqkv hold 3Bq values, those of dA and a Bq.
+// Grid (S, M); 32 * core_warps(h) threads, warp = head (heads warp,
+// warp + warps, ... when h > 8, d = 16), G lanes per chunk. B below is the
+// heads' width Bq: the rows of qkv and dqkv hold 3Bq values, those of dA
+// and a Bq.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     inter_bwd_core_kernel(DptAttnBwdParams P, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = 16 / sizeof(T);
+  constexpr int G = InterLanes<D>::G;
+  constexpr int DL = InterLanes<D>::DL;
   const DptAttnParams& p = P.f;
   const int n = p.n, S = p.S, B = p.Bq, h = p.h;
   T* tile_s = reinterpret_cast<T*>(smem);   // [kTile][2B]
   float* b_s = reinterpret_cast<float*>(
       smem + align128(static_cast<size_t>(kTile) * 2 * B * sizeof(T)));
   const int s = blockIdx.x, m = blockIdx.y;
-  const int lane = threadIdx.x & 31, hd = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane % G;   // which DL dimensions of the head
   const T* qkv = static_cast<const T*>(p.qkv);
   const T* dA = static_cast<const T*>(P.dA);
   const bool one_tile = n <= kTile;
@@ -107,25 +120,26 @@ __global__ void __launch_bounds__(256)
       b_s[j] = key_bias(c0 + j);
     __syncthreads();
   };
-  // D values of T from 16-byte loads into f32
+  // DL values of T from 16-byte loads into f32
   auto load_row = [](const T* src, float* dst) {
 #pragma unroll
-    for (int t = 0; t < D; t += V) {
+    for (int t = 0; t < DL; t += V) {
       const uint4 u = *reinterpret_cast<const uint4*>(src + t);
       const T* vals = reinterpret_cast<const T*>(&u);
 #pragma unroll
       for (int e = 0; e < V; ++e) dst[t + e] = to_f<T>(vals[e]);
     }
   };
+  // the whole head's dot product of two rows, DL values in each lane
   auto dot = [](const float* a, const float* b) {
     float acc = 0.f;
 #pragma unroll
-    for (int t = 0; t < D; ++t) acc = fmaf(a[t], b[t], acc);
-    return acc;
+    for (int t = 0; t < DL; ++t) acc = fmaf(a[t], b[t], acc);
+    return lanes_sum<G>(acc);
   };
   auto store_row = [](T* dst, const float* v) {
 #pragma unroll
-    for (int t = 0; t < D; t += V) {
+    for (int t = 0; t < DL; t += V) {
       alignas(16) T vals[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) vals[e] = from_f<T>(v[t + e]);
@@ -135,113 +149,126 @@ __global__ void __launch_bounds__(256)
   };
   T* dqkv = static_cast<T*>(P.dqkv);
 
-  // query side: lanes are query chunks; the staged tiles hold (k | v)
-  for (int q0 = 0; q0 < n; q0 += 32) {
-    const int qc = q0 + lane;
-    const bool valid = qc < n;
-    const size_t qrow = row_of(valid ? qc : 0);
-    float q[D], da[D], acc[D];
-    load_row(qkv + qrow * 3 * B + hd * D, q);
-    load_row(dA + qrow * B + hd * D, da);
-    auto score = [&](int j) {
-      float k[D];
-      load_row(tile_s + j * 2 * B + hd * D, k);
-      return dot(q, k) * scale + b_s[j];
-    };
-    auto dp_of = [&](int j) {
-      float v[D];
-      load_row(tile_s + j * 2 * B + B + hd * D, v);
-      return dot(da, v);
-    };
+  // one head: warp = head, or with more than 8 heads (only at d = 16,
+  // Bq being at most 256) heads warp, warp + warps, ... in turn
+  auto run_head = [&](const int hd) {
+    const int col0 = hd * D + sub * DL;   // this lane's columns of the head
+    // query side: lanes are query chunks; the staged tiles hold (k | v)
+    for (int q0 = 0; q0 < n; q0 += 32 / G) {
+      const int qc = q0 + lane / G;
+      const bool valid = qc < n;
+      const size_t qrow = row_of(valid ? qc : 0);
+      float q[DL], da[DL], acc[DL];
+      load_row(qkv + qrow * 3 * B + col0, q);
+      load_row(dA + qrow * B + col0, da);
+      auto score = [&](int j) {
+        float k[DL];
+        load_row(tile_s + j * 2 * B + col0, k);
+        return dot(q, k) * scale + b_s[j];
+      };
+      auto dp_of = [&](int j) {
+        float v[DL];
+        load_row(tile_s + j * 2 * B + B + col0, v);
+        return dot(da, v);
+      };
 
-    float mx = -INFINITY, sum = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kTile) {
-      const int kt = min(kTile, n - k0);
-      load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
-      for (int j = 0; j < kt; ++j) {
-        const float sc = score(j);
-        const float mn = fmaxf(mx, sc);
-        sum = sum * expf(mx - mn) + expf(sc - mn);
-        mx = mn;
+      float mx = -INFINITY, sum = 0.f;
+      for (int k0 = 0; k0 < n; k0 += kTile) {
+        const int kt = min(kTile, n - k0);
+        load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
+        for (int j = 0; j < kt; ++j) {
+          const float sc = score(j);
+          const float mn = fmaxf(mx, sc);
+          sum = sum * expf(mx - mn) + expf(sc - mn);
+          mx = mn;
+        }
       }
-    }
 
 #pragma unroll
-    for (int t = 0; t < D; ++t) acc[t] = 0.f;
-    float rowsum = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kTile) {
-      const int kt = min(kTile, n - k0);
-      if (!one_tile) load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
-      for (int j = 0; j < kt; ++j) {
-        const float pj = expf(score(j) - mx) / sum;
-        const float w = round_to<T>(pj);
-        float v[D];
-        load_row(tile_s + j * 2 * B + B + hd * D, v);
+      for (int t = 0; t < DL; ++t) acc[t] = 0.f;
+      float rowsum = 0.f;
+      for (int k0 = 0; k0 < n; k0 += kTile) {
+        const int kt = min(kTile, n - k0);
+        if (!one_tile) load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
+        for (int j = 0; j < kt; ++j) {
+          const float pj = expf(score(j) - mx) / sum;
+          const float w = round_to<T>(pj);
+          float v[DL];
+          load_row(tile_s + j * 2 * B + B + col0, v);
 #pragma unroll
-        for (int t = 0; t < D; ++t) acc[t] = fmaf(w, v[t], acc[t]);
-        rowsum = fmaf(pj, dot(da, v), rowsum);
+          for (int t = 0; t < DL; ++t) acc[t] = fmaf(w, v[t], acc[t]);
+          rowsum = fmaf(pj, dot(da, v), rowsum);
+        }
       }
-    }
-    if (valid) store_row(static_cast<T*>(p.a) + qrow * B + hd * D, acc);
+      if (valid) store_row(static_cast<T*>(p.a) + qrow * B + col0, acc);
 
 #pragma unroll
-    for (int t = 0; t < D; ++t) acc[t] = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kTile) {
-      const int kt = min(kTile, n - k0);
-      if (!one_tile) load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
-      for (int j = 0; j < kt; ++j) {
-        const float pj = expf(score(j) - mx) / sum;
-        const float ds = round_to<T>(pj * (dp_of(j) - rowsum) * scale);
-        float k[D];
-        load_row(tile_s + j * 2 * B + hd * D, k);
+      for (int t = 0; t < DL; ++t) acc[t] = 0.f;
+      for (int k0 = 0; k0 < n; k0 += kTile) {
+        const int kt = min(kTile, n - k0);
+        if (!one_tile) load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
+        for (int j = 0; j < kt; ++j) {
+          const float pj = expf(score(j) - mx) / sum;
+          const float ds = round_to<T>(pj * (dp_of(j) - rowsum) * scale);
+          float k[DL];
+          load_row(tile_s + j * 2 * B + col0, k);
 #pragma unroll
-        for (int t = 0; t < D; ++t) acc[t] = fmaf(ds, k[t], acc[t]);
+          for (int t = 0; t < DL; ++t) acc[t] = fmaf(ds, k[t], acc[t]);
+        }
       }
-    }
-    if (valid) {
-      store_row(dqkv + qrow * 3 * B + hd * D, acc);
-      float* st = P.stats + (qrow * h + hd) * kNumRowStats;
-      st[0] = mx;
-      st[1] = sum;
-      st[2] = rowsum;
-    }
-  }
-
-  // key side: lanes are key chunks; the staged tiles hold (q | dA). The
-  // statistics written above are read after load_tile's barrier.
-  for (int k0 = 0; k0 < n; k0 += 32) {
-    const int kc = k0 + lane;
-    const bool valid = kc < n;
-    const size_t krow = row_of(valid ? kc : 0);
-    const float kb = key_bias(valid ? kc : 0);
-    float kk[D], vv[D], dk[D], dv[D];
-    load_row(qkv + krow * 3 * B + B + hd * D, kk);
-    load_row(qkv + krow * 3 * B + 2 * B + hd * D, vv);
-#pragma unroll
-    for (int t = 0; t < D; ++t) dk[t] = dv[t] = 0.f;
-    for (int c0 = 0; c0 < n; c0 += kTile) {
-      const int ct = min(kTile, n - c0);
-      load_tile(qkv, 3 * B, dA, B, c0, ct);
-      for (int i = 0; i < ct; ++i) {
-        const float* st = P.stats + (row_of(c0 + i) * h + hd) * kNumRowStats;
-        float qv[D], dav[D];
-        load_row(tile_s + i * 2 * B + hd * D, qv);
-        load_row(tile_s + i * 2 * B + B + hd * D, dav);
-        const float pj = expf(dot(qv, kk) * scale + kb - st[0]) / st[1];
-        const float ds =
-            round_to<T>(pj * (dot(dav, vv) - st[2]) * scale);
-        const float w = round_to<T>(pj);
-#pragma unroll
-        for (int t = 0; t < D; ++t) {
-          dv[t] = fmaf(w, dav[t], dv[t]);
-          dk[t] = fmaf(ds, qv[t], dk[t]);
+      if (valid) {
+        store_row(dqkv + qrow * 3 * B + col0, acc);
+        if (sub == 0) {
+          float* st = P.stats + (qrow * h + hd) * kNumRowStats;
+          st[0] = mx;
+          st[1] = sum;
+          st[2] = rowsum;
         }
       }
     }
-    if (valid) {
-      store_row(dqkv + krow * 3 * B + B + hd * D, dk);
-      store_row(dqkv + krow * 3 * B + 2 * B + hd * D, dv);
+
+    // key side: lanes are key chunks; the staged tiles hold (q | dA). The
+    // statistics written above are read after load_tile's barrier.
+    for (int k0 = 0; k0 < n; k0 += 32 / G) {
+      const int kc = k0 + lane / G;
+      const bool valid = kc < n;
+      const size_t krow = row_of(valid ? kc : 0);
+      const float kb = key_bias(valid ? kc : 0);
+      float kk[DL], vv[DL], dk[DL], dv[DL];
+      load_row(qkv + krow * 3 * B + B + col0, kk);
+      load_row(qkv + krow * 3 * B + 2 * B + col0, vv);
+#pragma unroll
+      for (int t = 0; t < DL; ++t) dk[t] = dv[t] = 0.f;
+      for (int c0 = 0; c0 < n; c0 += kTile) {
+        const int ct = min(kTile, n - c0);
+        load_tile(qkv, 3 * B, dA, B, c0, ct);
+        for (int i = 0; i < ct; ++i) {
+          const float* st =
+              P.stats + (row_of(c0 + i) * h + hd) * kNumRowStats;
+          float qv[DL], dav[DL];
+          load_row(tile_s + i * 2 * B + col0, qv);
+          load_row(tile_s + i * 2 * B + B + col0, dav);
+          const float pj = expf(dot(qv, kk) * scale + kb - st[0]) / st[1];
+          const float ds =
+              round_to<T>(pj * (dot(dav, vv) - st[2]) * scale);
+          const float w = round_to<T>(pj);
+#pragma unroll
+          for (int t = 0; t < DL; ++t) {
+            dv[t] = fmaf(w, dav[t], dv[t]);
+            dk[t] = fmaf(ds, qv[t], dk[t]);
+          }
+        }
+      }
+      if (valid) {
+        store_row(dqkv + krow * 3 * B + B + col0, dk);
+        store_row(dqkv + krow * 3 * B + 2 * B + col0, dv);
+      }
     }
+  };
+  if constexpr (D == 16) {
+    for (int hd = warp; hd < h; hd += blockDim.x >> 5) run_head(hd);
+  } else {
+    run_head(warp);
   }
 }
 
@@ -253,22 +280,31 @@ int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  inter_bwd_core_kernel<T, D><<<dim3(P.f.S, P.f.M), 32 * P.f.h, smem,
-                                stream>>>(P, scale);
+  inter_bwd_core_kernel<T, D><<<dim3(P.f.S, P.f.M), 32 * core_warps(P.f.h),
+                                smem, stream>>>(P, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The core for head width d (core_head_width).
+template <typename T>
+int launch_core_d(const DptAttnBwdParams& P, cudaStream_t stream) {
+  switch (P.f.Bq / P.f.h) {
+    case 16: return launch_core<T, 16>(P, stream);
+    case 32: return launch_core<T, 32>(P, stream);
+    case 64: return launch_core<T, 64>(P, stream);
+    case 128: return launch_core<T, 128>(P, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
   const int d = P.f.Bq / P.f.h;
-  if ((d != 32 && d != 64) || P.f.h > 8 || P.f.Bq % 64 || P.f.Bq > P.f.B)
+  if (!core_head_width(d) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
+      (P.f.h > 8 && d != 16))   // a warp per head from d = 32 up
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention_bwd<T>(
-      P, ws_act, ws_f32, stream,
-      [d](const DptAttnBwdParams& q, cudaStream_t st) {
-        return d == 32 ? launch_core<T, 32>(q, st) : launch_core<T, 64>(q, st);
-      });
+  return launch_attention_bwd<T>(P, ws_act, ws_f32, stream, launch_core_d<T>);
 }
 
 // bf16: the design in dpt_attn_bwd_wg.cuh, with the core's inter gather.

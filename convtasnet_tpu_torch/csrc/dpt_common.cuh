@@ -66,6 +66,37 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The f32 inter cores (dpt_attention.cu, dpt_attention_bwd.cu): G lanes
+// share a query (or key) chunk of a head of width D, each holding DL = D / G
+// of its dimensions. Up to D = 64 one lane holds the whole row (the first
+// design's arithmetic); at D = 128, whose rows would spill, two lanes of 64.
+template <int D>
+struct InterLanes {
+  static constexpr int G = D > 64 ? D / 64 : 1;
+  static constexpr int DL = D / G;
+};
+
+// A dot product whose G lanes (adjacent, G a power of two) each hold a
+// partial sum: every lane gets the whole by a butterfly, in the same bits
+// (each add's operands are the same two values in either order). G = 1
+// returns v as it is.
+template <int G>
+__device__ __forceinline__ float lanes_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Warps of an f32 inter core's block for h heads, a warp per head: h up to
+// 8, else (only at d = 16: Bq is at most 256) the most, at most 8, that
+// divide h, each warp taking h / warps heads in turn (every warp meets the
+// block's barriers equally often).
+inline int core_warps(int h) {
+  int w = h < 8 ? h : 8;
+  while (h % w) --w;
+  return w;
+}
+
 // y_s[r][0:B] = LN(x[r0 + r]) * gamma + beta in T for the 64 rows of a tile
 // (rows at or beyond `rows` are zero). One warp per row; called by the whole
 // block, and the caller synchronises before reading y_s.

@@ -56,13 +56,15 @@
 // loads that head's q, k, v [S, d] into shared memory, each warp takes 16
 // query rows, scores [16, S] in f32 by FMA (warp_mm), the masked softmax
 // (two lanes per row), p, then p @ v; out_proj_residual_kernel
-// (dpt_common.cuh). Where the three [S, d] tiles do not fit in shared
+// (dpt_common.cuh). Head widths 16, 32, 64 and 128 (warp_mm at 16 runs
+// half a warp's lanes). Where the three [S, d] tiles do not fit in shared
 // memory beside the per-warp scratch (a head width of 64 above S=176:
-// 200 KB of them alone at S=256), they go to a device workspace after the
-// `a` workspace instead, one set per (m, chunk, head) block in the same
-// layout (ctn_dpt_intra_workspace gives its size); every value and every
-// order of summation is as in shared memory. The per-warp [16, S] rows
-// bound f32 to S <= 256 (the wrapper's INTRA_MAX_S).
+// 200 KB of them alone at S=256; 128 from S=112 up, 198 KB of them at
+// S=128), they go to a device workspace after the `a` workspace instead,
+// one set per (m, chunk, head) block in the same layout
+// (ctn_dpt_intra_workspace gives its size); every value and every order of
+// summation is as in shared memory. The per-warp [16, S] rows bound f32 to
+// S <= 256 (the wrapper's INTRA_MAX_S).
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // sublayer runs the h heads of one shard's head group, of width
@@ -218,20 +220,26 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f32 core for head width d (core_head_width).
+template <typename T>
+int launch_core_d(const DptAttnParams& p, cudaStream_t stream) {
+  switch (p.Bq / p.h) {
+    case 16: return launch_core<T, 16>(p, stream);
+    case 32: return launch_core<T, 32>(p, stream);
+    case 64: return launch_core<T, 64>(p, stream);
+    case 128: return launch_core<T, 128>(p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int launch(const DptAttnParams& p, cudaStream_t stream) {
-  const int d = p.Bq / p.h;
-  if (p.Bq % 64 || p.Bq > p.B) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kIsBf16<T>) {
-    if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.Bq % 64 || p.Bq > p.B || !core_head_width(p.Bq / p.h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kIsBf16<T>)
     return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<false>);
-  } else {
-    if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_attention<T>(p, stream, [d](const DptAttnParams& q,
-                                              cudaStream_t s) {
-      return d == 32 ? launch_core<T, 32>(q, s) : launch_core<T, 64>(q, s);
-    });
-  }
+  else
+    return launch_attention<T>(p, stream, launch_core_d<T>);
 }
 
 }  // namespace
@@ -252,10 +260,13 @@ int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
     *n_spill = 0;
     return 0;
   }
-  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
-  *n_spill = d == 32 ? spill_elems<float, 32>(M, n, S, h)
-                     : spill_elems<float, 64>(M, n, S, h);
-  return 0;
+  switch (d) {
+    case 16: *n_spill = spill_elems<float, 16>(M, n, S, h); return 0;
+    case 32: *n_spill = spill_elems<float, 32>(M, n, S, h); return 0;
+    case 64: *n_spill = spill_elems<float, 64>(M, n, S, h); return 0;
+    case 128: *n_spill = spill_elems<float, 128>(M, n, S, h); return 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // One intra-chunk attention sublayer (operands: DptAttnParams in

@@ -53,8 +53,10 @@
 // (a head width of 64 above S=208: its four [S, d] tiles alone take 266 KB
 // at S=256), the q, k, v and dA tiles go to the workspace too, after the
 // block's two [S, S] tiles and in the same layout, and the block runs with
-// four warps. The round trips of qkv, dA, a, dqkv and dy through
-// device memory are the design's cost over the bound.
+// four warps (a head width of 128 from S=112 up: its four [S, d] tiles
+// take 264 KB at S=128). Head widths 16, 32, 64 and 128. The round
+// trips of qkv, dA, a, dqkv and dy through device memory are the design's
+// cost over the bound.
 //
 // Under tensor parallelism (partial, the backward of the Pallas kernel's
 // partial=True) the core runs one shard's h heads of width Bq = h * d
@@ -300,8 +302,7 @@ int launch_core(const DptAttnBwdParams& P, unsigned char* spill,
 // it, the spilled tiles where the core needs them.
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
-  const int d = P.f.Bq / P.f.h;
-  if ((d != 32 && d != 64) || P.f.Bq % 64 || P.f.Bq > P.f.B)
+  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnBwdLayout L =
       attn_bwd_layout(P.f.R, P.f.B, P.f.h, P.f.Bq, sizeof(float));
@@ -309,9 +310,14 @@ int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
       reinterpret_cast<unsigned char*>(static_cast<float*>(ws_act) + L.n_act);
   return launch_attention_bwd<float>(
       P, ws_act, ws_f32, stream,
-      [d, spill](const DptAttnBwdParams& q, cudaStream_t s) {
-        return d == 32 ? launch_core<32>(q, spill, s)
-                       : launch_core<64>(q, spill, s);
+      [spill](const DptAttnBwdParams& q, cudaStream_t s) {
+        switch (q.f.Bq / q.f.h) {
+          case 16: return launch_core<16>(q, spill, s);
+          case 32: return launch_core<32>(q, spill, s);
+          case 64: return launch_core<64>(q, spill, s);
+          case 128: return launch_core<128>(q, spill, s);
+        }
+        return static_cast<int>(cudaErrorInvalidValue);
       });
 }
 
@@ -337,11 +343,17 @@ extern "C" {
 int ctn_dpt_intra_bwd_spill(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
-  // bf16: the core on mma.sync (dpt_attn_bwd_wg.cuh) keeps no [S, S] tile
-  *n_spill = elem_bytes == 2 ? 0
-             : B / h == 32   ? spill_elems<32>(M, n, S, h)
-                             : spill_elems<64>(M, n, S, h);
-  return 0;
+  if (elem_bytes == 2) {   // bf16: the core on mma.sync
+    *n_spill = 0;          // (dpt_attn_bwd_wg.cuh) keeps no [S, S] tile
+    return 0;
+  }
+  switch (B / h) {
+    case 16: *n_spill = spill_elems<16>(M, n, S, h); return 0;
+    case 32: *n_spill = spill_elems<32>(M, n, S, h); return 0;
+    case 64: *n_spill = spill_elems<64>(M, n, S, h); return 0;
+    case 128: *n_spill = spill_elems<128>(M, n, S, h); return 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // One intra-chunk attention sublayer backward (CTN_DPT_ATTN_BWD_ARGS in

@@ -53,8 +53,8 @@ TILE = 64            # B must be a multiple of the GEMM tile
 MAX_WIDTH = 256      # B at most this (the kernels' shared-memory tiles)
 # the head widths d = Bq / h the kernels take, by compute dtype: the bf16
 # designs share one tensor-core core, templated on d; the f32 first
-# designs keep d in {32, 64}
-HEAD_DIMS = {"bfloat16": (16, 32, 64, 128), "float32": (32, 64)}
+# designs are templated on d too
+HEAD_DIMS = {"bfloat16": (16, 32, 64, 128), "float32": (16, 32, 64, 128)}
 INTRA_ROWS = 16      # the intra kernels' row tile: S pads up to a multiple
 INTRA_MAX_S = 256    # f32: S at most this (one chunk's tiles in shared
                      # memory); the bf16 kernels take any S
@@ -288,8 +288,9 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
     R = M * n * S
     n_spill = ctypes.c_longlong(0)
     if kind == "intra":   # its q, k, v tiles, where shared memory cannot hold them
-        lib.ctn_dpt_intra_workspace(M, n, S, Bq, n_heads, x.element_size(),
-                                    ctypes.byref(n_spill))
+        raise_on_error(lib, lib.ctn_dpt_intra_workspace(
+            M, n, S, Bq, n_heads, x.element_size(), ctypes.byref(n_spill)),
+            "dpt intra workspace query")
         if n_spill.value < 0:
             raise ValueError(f"the intra kernel does not fit one block's "
                              f"shared memory at S={S} with head width "
@@ -479,8 +480,9 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
     n_spill = ctypes.c_longlong(0)
     if kind == "intra":   # f32: its tiles, where shared memory cannot hold
         # them; the bf16 design keeps no [S, S] tile (0)
-        lib.ctn_dpt_intra_bwd_spill(M, n, S, Bq, n_heads, xc.element_size(),
-                                    ctypes.byref(n_spill))
+        raise_on_error(lib, lib.ctn_dpt_intra_bwd_spill(
+            M, n, S, Bq, n_heads, xc.element_size(), ctypes.byref(n_spill)),
+            "dpt intra backward workspace query")
         if n_spill.value < 0:
             raise ValueError(f"the intra backward kernel does not fit one "
                              f"block's shared memory at S={S} with head "

@@ -45,8 +45,8 @@ def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
     """Why the intra kernels (B9, B10, and their partial modes) refuse a
     sublayer of width B over chunks of S frames with ``n_heads`` heads over
     Bq channels in the compute ``dtype``, or None where they take it: the
-    attention kernels' rules (head widths by dtype: bf16 16, 32, 64 and
-    128, f32 32 and 64), and in f32 S at most 256 (bf16 takes any S;
+    attention kernels' rules (head widths 16, 32, 64 and 128 in either
+    dtype), and in f32 S at most 256 (bf16 takes any S;
     the wrappers pad S up to a multiple of 16 with masked frames:
     ``dpt_attention.pad_chunks``)."""
     return attention_shape_refusal("intra", B, S, Bq, n_heads, dtype)

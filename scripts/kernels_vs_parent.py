@@ -12,7 +12,8 @@ from its own sources and writes its outputs at shapes both trees take:
 the DPT sublayer kernels in full mode (B7-B12) and in partial mode over
 m = 2 and 4 shards (B7p-B12p) at the quality default's widths ([8, 25,
 128, 256], 8 heads, F=1024, the real key mask), forwards and backwards in
-bf16 and f32, the intra kernels also at other chunk lengths; the TCN TP
+bf16 and f32, the f32 attention kernels also at 4 heads (head width 64),
+the intra kernels also at other chunk lengths; the TCN TP
 stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128; the TCN block forward
 (B1, gLN and cLN causal), the gLN block backward (B2) and the cLN one
 (B3) at the paper shape [8, 3199, 256], H=512, d = 1, 16, 128; the block
@@ -38,7 +39,11 @@ B9 and B11 (and their partial modes on one shard of m = 2 and 4) at
 F=1024), with ``scaled_dot_product_attention``'s forward at B7's and B9's
 cores' shapes beside them (a yardstick; no kernel calls it), and the DPT
 quality default's forward at B=8 x 4 s; ``--time dpt-forward`` stops
-there, with ``torch.matmul`` at the forwards' products' shapes. ``--time``
+there, with ``torch.matmul`` at the forwards' products' shapes.
+``--time f32-attention`` times only B7-B10 in f32 (their first designs)
+at [8, 25, 128, 256] with the real key mask at head widths 16, 32, 64 and
+128, forward and backward, each width a tree takes (a width only one tree
+takes is printed for that tree alone). ``--time``
 (all) goes on, at the paper shape unless named: B1 (gLN and cLN causal),
 B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
 of dilations (1, 2) .. (64, 128), and beside each in the same turn two
@@ -73,12 +78,15 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (kind, dtype, S, heads at B = 256, run the forward, run the backward):
-# every sublayer at the quality default, and the intra kernels at shapes
+# every sublayer at the quality default (head width 32), the f32 attention
+# kernels also at head width 64 (4 heads), and the intra kernels at shapes
 # whose tiles fitted in shared memory before the workspace spill of the
 # [S, d] tiles, or spilled only the backward's [S, S] tiles
 CASES = [(kind, dtype, 128, 8, True, True)
          for kind in ("inter", "intra", "ffn")
          for dtype in ("bfloat16", "float32")]
+CASES += [(kind, "float32", 128, 4, True, True)
+          for kind in ("inter", "intra")]
 CASES += [("intra", "bfloat16", 256, 4, True, True),
           ("intra", "float32", 176, 4, True, True),
           ("intra", "float32", 208, 4, False, True)]
@@ -245,15 +253,19 @@ def summarize(turns: list) -> list:
     run: each metric's times per tree in turn order, the means and the
     ratio this / other."""
     lines = []
-    metrics = [m for m in turns[0][1] if not m.startswith("kernels ")]
+    metrics = dict.fromkeys(m for _, res in turns for m in res
+                            if not m.startswith("kernels "))
     for metric in metrics:
         per = {}
         for tree, res in turns:
             if metric in res:
                 per.setdefault(tree, []).append(res[metric])
-        if set(per) != {"this", "other"}:
-            continue
         unit = "GiB" if metric.startswith("peak ") else "ms"
+        if set(per) != {"this", "other"}:   # a shape one tree refuses
+            for tree, v in per.items():
+                lines.append(f"{metric}: {tree} tree only "
+                             f"{' '.join(f'{t:.4f}' for t in v)} {unit}")
+            continue
         mean = {t: sum(v) / len(v) for t, v in per.items()}
         lines.append(f"{metric}: other {' '.join(f'{v:.4f}' for v in per['other'])}"
                      f" | this {' '.join(f'{v:.4f}' for v in per['this'])} "
@@ -618,6 +630,46 @@ def _time_attention_bwd(torch, res: dict, rn) -> None:
         res[f"sdpa fwd+bwd {at}"] = _ms(torch, sdpa, 20)
 
 
+def _time_f32_attention(torch, res: dict, rn) -> None:
+    """B7-B10 in f32 (their first designs) at [8, 25, 128, 256] with the
+    real key mask, a cotangent zero on the padded rows, at head widths 16,
+    32, 64 and 128 (16, 8, 4 and 2 heads), forward and backward, each with
+    its device time per call and per kernel; a width the tree refuses is
+    left out."""
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_intra
+
+    fns = {"inter": (dpt_attention.fused_inter_attention,
+                     dpt_attention.fused_inter_attention_bwd),
+           "intra": (dpt_intra.fused_intra_attention,
+                     dpt_intra.fused_intra_attention_bwd)}
+    n, S = 25, 128
+    valid = torch.arange(n * S, device="cuda").reshape(n, S) < 3199
+    x = rn(M, n, S, B)
+    gr = (rn(M, n * S, B) * valid.reshape(1, -1, 1)).reshape(x.shape)
+    w = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, 3 * B, scale=B ** -0.5),
+         rn(B, B, scale=B ** -0.5),
+         torch.where(valid, 0.0, -1e9).to(torch.float32))
+    for name, kind in (("b7/b8", "inter"), ("b9/b10", "intra")):
+        fwd, bwd = fns[kind]
+        for heads in (16, 8, 4, 2):
+            kw = dict(n_heads=heads)
+            try:
+                with torch.inference_mode():
+                    fwd(x, *w, **kw)
+            except ValueError:   # a head width this tree does not take
+                continue
+            at = f"[8,{n},{S},256] f32 d={B // heads}"
+            with torch.inference_mode():
+                res[f"{name} forward {at}"] = _ms(
+                    torch, lambda: fwd(x, *w, **kw), 10)
+                _device_ms(torch, res, f"{name} forward {at}",
+                           lambda: fwd(x, *w, **kw), 10)
+            res[f"{name} backward {at}"] = _ms(
+                torch, lambda: bwd(x, gr, *w, **kw), 5)
+            _device_ms(torch, res, f"{name} backward {at}",
+                       lambda: bwd(x, gr, *w, **kw), 5)
+
+
 def _time_dpt_forwards(torch, res: dict, rn) -> None:
     """B7, B9, B11 and their partial modes (``FWD_TIMED``) in bf16 with the
     real key mask (3199 frames of 4 s), each with its device time per call
@@ -768,6 +820,10 @@ def time_tree(path: str, what: str) -> None:
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
+    if what == "f32-attention":
+        _time_f32_attention(torch, res, rn)
+        torch.save(res, path)
+        return
     _time_dpt_forwards(torch, res, rn)
     if what == "dpt-forward":
         _time_products(torch, res, ("b7/b9 ", "b7-b10 ", "b11/b12 y", "b11/b12 h"))
@@ -862,9 +918,10 @@ def main() -> int:
     ap.add_argument("--other", help="directory holding the other checkout's "
                                     "convtasnet_tpu_torch/")
     ap.add_argument("--time", nargs="?", const="all",
-                    choices=["all", "dpt-forward"],
+                    choices=["all", "dpt-forward", "f32-attention"],
                     help="also time both trees in turns: everything (the "
-                         "default) or the DPT forwards alone")
+                         "default), the DPT forwards alone, or the f32 "
+                         "attention kernels at every head width")
     ap.add_argument("--out", help="write every number here as JSON")
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     ap.add_argument("--time-dump", help=argparse.SUPPRESS)

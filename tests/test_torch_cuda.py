@@ -989,16 +989,29 @@ def _valid_rows(out, valid, B):
     return out.reshape(out.shape[0], -1, B)[:, valid.reshape(-1)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
-@pytest.mark.parametrize("n,masked", [(1, True), (1, False), (25, True),
-                                      (25, False), (94, True), (94, False)])
-def test_dpt_kernel_matches_twin(cuda, dtype, kind, n, masked):
+# (dtype, kind, n, masked, heads at B = 128): every sublayer at head width
+# 32 in both dtypes; the f32 attention kernels also at head widths 16 (8
+# heads) and 128 (1 head)
+DPT_KERNEL_CASES = [
+    (dtype, kind, n, masked, 4) for dtype in (torch.float32, torch.bfloat16)
+    for kind in ("inter", "intra", "ffn")
+    for n, masked in ((1, True), (1, False), (25, True), (25, False),
+                      (94, True), (94, False))]
+DPT_KERNEL_CASES += [
+    (torch.float32, kind, n, masked, heads) for kind in ("inter", "intra")
+    for heads in (8, 1)
+    for n, masked in ((1, True), (25, True), (25, False), (94, True))]
+
+
+@pytest.mark.parametrize("dtype,kind,n,masked,heads", DPT_KERNEL_CASES)
+def test_dpt_kernel_matches_twin(cuda, dtype, kind, n, masked, heads):
     """n = 1 with 10 real frames puts every inter key at s >= 10 under the
     mask (a uniform softmax); n = 94 is a 15 s utterance's chunk count, more
-    than one inter key tile."""
+    than one inter key tile; in f32 also head widths 16 and 128 (the inter
+    cores with two heads per warp at 8 heads, two lanes per chunk at d =
+    128)."""
     fused, twin = DPT_FNS[kind]
-    args, kw, valid = _dpt_args(cuda, dtype, kind, n, masked)
+    args, kw, valid = _dpt_args(cuda, dtype, kind, n, masked, heads=heads)
     before = fused.launches
     with torch.inference_mode():
         got = fused(*args, **kw)
@@ -1034,8 +1047,8 @@ def test_dpt_kernels_are_deterministic_and_check_shapes(cuda):
                             heads=3)
     with pytest.raises(ValueError, match="multiple of 64"):
         dpt_intra.fused_intra_attention(*args, **kw)
-    args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=8)
-    with pytest.raises(ValueError, match="head width"):
+    args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=16)
+    with pytest.raises(ValueError, match="head width"):   # d = 8
         dpt_attention.fused_inter_attention(*args, **kw)
     # a chunk off the 16-row tile runs padded with masked frames
     args, kw, valid = _dpt_args(cuda, torch.float32, "intra", 3, True, S=24)
@@ -1123,16 +1136,25 @@ def _check_dpt_cotangents(got, exact, same, valid, dtype):
                                         1.25 * _rel_l2(t, e)), i
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
-@pytest.mark.parametrize("n,masked", [(1, True), (25, True), (25, False),
-                                      (94, True)])
-def test_dpt_bwd_kernel_matches_twin(cuda, dtype, kind, n, masked):
+DPT_BWD_KERNEL_CASES = [
+    (dtype, kind, n, masked, 4) for dtype in (torch.float32, torch.bfloat16)
+    for kind in ("inter", "intra", "ffn")
+    for n, masked in ((1, True), (25, True), (25, False), (94, True))]
+DPT_BWD_KERNEL_CASES += [
+    (torch.float32, kind, n, masked, heads) for kind in ("inter", "intra")
+    for heads in (8, 1)
+    for n, masked in ((1, True), (25, True), (25, False), (94, True))]
+
+
+@pytest.mark.parametrize("dtype,kind,n,masked,heads", DPT_BWD_KERNEL_CASES)
+def test_dpt_bwd_kernel_matches_twin(cuda, dtype, kind, n, masked, heads):
     """Every cotangent of the backward kernels B8, B10 and B12 (dx on the
     valid rows); n = 1 with 10 real frames, n = 94 more than one inter
-    tile of 32 chunks."""
+    tile of 32 chunks; in f32 also head widths 16 (8 heads of B = 128) and
+    128 (1 head)."""
     fused, twin = DPT_BWD_FNS[kind]
-    x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, kind, n, masked)
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, kind, n, masked,
+                                       heads=heads)
     before = fused.launches
     got = fused(x, g, *w, **kw)
     torch.cuda.synchronize()
@@ -1250,10 +1272,12 @@ def test_dpt_bwd_kernels_are_deterministic_and_check_shapes(cuda):
         dpt_attention.fused_inter_attention_bwd(x, g[:, :2], *w, **kw)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype):
-    """One training forward/backward of a small DPT model (B=128, 4 heads,
-    2 layers, a padded tail): every sublayer runs both kernels, and the
+@pytest.mark.parametrize("dtype,heads", [("float32", 0), ("bfloat16", 0),
+                                         ("float32", 8), ("float32", 1)])
+def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype, heads):
+    """One training forward/backward of a small DPT model (B=128, 4 heads
+    of 32 by default, in f32 also 8 of 16 and 1 of 128; 2 layers, a padded
+    tail): every sublayer runs both kernels, and the
     gradients agree with the plain path's as chip_smoke.py holds them: in
     f32 to 4e-3 globally (batch seed 6); in bf16 over batch seeds 0-7 the
     median distance of the kernel path from the f32 gradient no larger
@@ -1273,14 +1297,17 @@ def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype):
         mix, src, lengths = data
         cfg = ConvTasNetConfig(n_filters=64, bottleneck=128, separator="dpt",
                                dpt_chunk=32, dpt_layers=2, dpt_ff=256,
-                               compute_dtype=compute_dtype)
+                               dpt_heads=heads, compute_dtype=compute_dtype)
         model = ConvTasNet(cfg, use_pallas=use, device=cuda).train()
         before = [DPT_BWD_FNS[k][0].launches for k in DPT_BWD_FNS]
+        f_before = [DPT_FNS[k][0].launches for k in DPT_FNS]
         snr, _ = pit_si_snr(src, model(mix), lengths)
         (-snr.mean()).backward()
         launched = [DPT_BWD_FNS[k][0].launches - b
                     for k, b in zip(DPT_BWD_FNS, before)]
         assert launched == ([2, 2, 4] if use else [0, 0, 0])
+        assert [DPT_FNS[k][0].launches - b for k, b in zip(
+            DPT_FNS, f_before)] == ([2, 2, 4] if use else [0, 0, 0])
         return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
 
     if dtype == "float32":
@@ -1303,13 +1330,13 @@ def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads", [4, 2])
+@pytest.mark.parametrize("heads", [4, 2, 1])
 def test_dpt_intra_bwd_long_chunk(cuda, dtype, heads):
     """The intra backward at S = 256, as a ``--dpt-chunk 256`` model trains
     it: its [S, S] tiles no longer fit in shared memory beside the rest and
     go to the device workspace; every cotangent at the DPT bars. Head
-    widths 32 and 64 (bf16 at 64 runs with fewer warps per block; f32 at
-    64 spills its four [S, d] tiles too)."""
+    widths 32, 64 and 128 (bf16 at 64 runs with fewer warps per block; f32
+    at 64 and 128 spills its four [S, d] tiles too)."""
     fused, twin = DPT_BWD_FNS["intra"]
     x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, "intra", 2, True, S=256,
                                        heads=heads)
@@ -1383,6 +1410,34 @@ def test_dpt_intra_f32_head_width_64_long_chunks(cuda, S):
     fused_b, twin_b = DPT_BWD_FNS["intra"]
     x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
                                        S=S, heads=2, seed=4)
+    got = fused_b(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    exact = twin_b(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, exact, valid, torch.float32)
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, fused_b(x, g, *w, **kw)))
+
+
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("heads", [8, 1])
+def test_dpt_intra_f32_head_widths_16_and_128(cuda, heads, S):
+    """The intra forward (B9) and backward (B10) in f32 at head widths 16
+    (8 heads of B = 128) and 128 (1 head) at S = 128 and 256: at d = 128
+    B9's three [S, d] tiles and B10's four go to the device workspace
+    (from S = 112), and at S = 256 B10's [S, S] tiles too; at d = 16 only
+    B10's [S, S] tiles spill, from S = 160. Both hold the exact twin at
+    the DPT f32 bars of 1e-5, and the backward gives the same bits twice."""
+    fused, twin = DPT_FNS["intra"]
+    args, kw, valid = _dpt_args(cuda, torch.float32, "intra", 2, True, S=S,
+                                heads=heads, seed=13)
+    with torch.inference_mode():
+        got, want = fused(*args, **kw), twin(*args, **kw)
+    assert torch.isfinite(got).all()
+    err = _rel_l2(_valid_rows(got, valid, 128), _valid_rows(want, valid, 128))
+    assert err <= DPT_TOL[torch.float32], err
+    fused_b, twin_b = DPT_BWD_FNS["intra"]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
+                                       S=S, heads=heads, seed=14)
     got = fused_b(x, g, *w, **kw)
     torch.cuda.synchronize()
     exact = twin_b(x, g, *w, **kw)
@@ -1627,7 +1682,8 @@ def test_dpt_fwd_bf16_head_widths_16_and_128(cuda, kind, d, m):
     """B7 and B9 (m = 1) and B7p and B9p (the last shard of two) in bf16 at
     B = 256 with 16 heads (d = 16) and 2 (d = 128): within 4e-2 of the
     bf16 twin and 1e-3 of the forward at the rounding points, on the valid
-    rows; f32 refuses these widths before any launch, naming the rule."""
+    rows; in f32 the same operands launch the f32 kernels, within the f32
+    DPT bar (1e-5) of the exact twin."""
     fused, twin = DPT_FNS[kind]
     args, kw, valid = _dpt_args(cuda, torch.bfloat16, kind, 25 if kind ==
                                 "inter" else 3, True, M=2, S=64, B=256,
@@ -1647,11 +1703,12 @@ def test_dpt_fwd_bf16_head_widths_16_and_128(cuda, kind, d, m):
     f32 = [a.float() if a is not None and a.dtype == torch.bfloat16 else a
            for a in args]
     before = (fused.launches, fused.partial_launches)
-    with pytest.raises(ValueError, match=r"the float32 kernel needs a head "
-                       r"width in \(32, 64\)"):
-        with torch.inference_mode():
-            fused(*f32, **kw)
-    assert (fused.launches, fused.partial_launches) == before
+    with torch.inference_mode():
+        got, want = fused(*f32, **kw), twin(*f32, **kw)
+    assert (fused.launches, fused.partial_launches) == (
+        (before[0], before[1] + 1) if m > 1 else (before[0] + 1, before[1]))
+    err = _rel_l2(_valid_rows(got, valid, 256), _valid_rows(want, valid, 256))
+    assert err <= DPT_TOL[torch.float32], err
 
 
 def test_dpt_intra_bf16_takes_chunks_past_256(cuda):
@@ -1908,26 +1965,36 @@ def _shard(args, kind, m, s):
             w_out[cut].contiguous(), bias)
 
 
-def _partial_kw(kind, m):
-    return {} if kind == "ffn" else dict(n_heads=8 // m)
+def _partial_kw(kind, m, heads=8):
+    return {} if kind == "ffn" else dict(n_heads=heads // m)
 
 
-def _full_width_args(device, dtype, kind, seed=0):
-    return _dpt_args(device, dtype, kind, 5, True, S=128, B=256, heads=8,
+def _full_width_args(device, dtype, kind, seed=0, heads=8):
+    return _dpt_args(device, dtype, kind, 5, True, S=128, B=256, heads=heads,
                      F=1024, seed=seed)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
-@pytest.mark.parametrize("m", SHARDS)
-def test_dpt_partial_kernel_matches_twin(cuda, dtype, kind, m):
+# (dtype, kind, m, heads at B = 256): the quality default's 8 heads of 32
+# in both dtypes; the f32 attention kernels also at 16 heads of 16 (8 a
+# shard of m = 2, 4 of m = 4) and 2 heads of 128 (1 a shard of m = 2)
+PARTIAL_CASES = [(dtype, kind, m, 8)
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for kind in ("inter", "intra", "ffn") for m in SHARDS]
+PARTIAL_CASES += [(torch.float32, kind, m, heads)
+                  for kind in ("inter", "intra")
+                  for m, heads in ((2, 16), (2, 2), (4, 16))]
+
+
+@pytest.mark.parametrize("dtype,kind,m,heads", PARTIAL_CASES)
+def test_dpt_partial_kernel_matches_twin(cuda, dtype, kind, m, heads):
     """Kernels B7p, B9p and B11p on the last shard of m at the quality
     default's widths (Bq 128 with 4 heads and F/m 512 at m = 2; Bq 64, 2
-    heads and 256 at m = 4) against their partial twins; a partial launch
-    counts in ``partial_launches`` only."""
+    heads and 256 at m = 4) against their partial twins, in f32 also at
+    head widths 16 and 128; a partial launch counts in
+    ``partial_launches`` only."""
     fused, twin = DPT_FNS[kind]
-    args, _, valid = _full_width_args(cuda, dtype, kind)
-    args, kw = _shard(args, kind, m, m - 1), _partial_kw(kind, m)
+    args, _, valid = _full_width_args(cuda, dtype, kind, heads=heads)
+    args, kw = _shard(args, kind, m, m - 1), _partial_kw(kind, m, heads)
     before = (fused.launches, fused.partial_launches)
     with torch.inference_mode():
         got = fused(*args, **kw, partial=True)
@@ -1941,18 +2008,16 @@ def test_dpt_partial_kernel_matches_twin(cuda, dtype, kind, m):
     assert _rel_l2(got, want) <= DPT_TOL[dtype], _rel_l2(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
-@pytest.mark.parametrize("m", SHARDS)
-def test_dpt_partial_bwd_kernel_matches_twin(cuda, dtype, kind, m):
+@pytest.mark.parametrize("dtype,kind,m,heads", PARTIAL_CASES)
+def test_dpt_partial_bwd_kernel_matches_twin(cuda, dtype, kind, m, heads):
     """Kernels B8p, B10p and B12p on the last shard of m: every cotangent
-    against the partial twin's (dx with no residual term); the FFN's
-    db_down is zero."""
+    against the partial twin's (dx with no residual term), in f32 also at
+    head widths 16 and 128; the FFN's db_down is zero."""
     fused, twin = DPT_BWD_FNS[kind]
     x, g, w, _, valid = _dpt_bwd_args(cuda, dtype, kind, 5, True, S=128,
-                                      B=256, heads=8, F=1024)
+                                      B=256, heads=heads, F=1024)
     x, *w = _shard((x, *w), kind, m, m - 1)
-    kw = dict(_partial_kw(kind, m), partial=True)
+    kw = dict(_partial_kw(kind, m, heads), partial=True)
     before = fused.partial_launches
     got = fused(x, g, *w, **kw)
     torch.cuda.synchronize()
@@ -1965,29 +2030,35 @@ def test_dpt_partial_bwd_kernel_matches_twin(cuda, dtype, kind, m):
     _check_dpt_cotangents(got, exact, same, valid, dtype)
 
 
-@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
-@pytest.mark.parametrize("m", SHARDS)
-def test_dpt_partial_kernels_sum_to_the_full_kernel(cuda, kind, m):
+@pytest.mark.parametrize("kind,m,heads", [
+    (kind, m, 8) for kind in ("inter", "intra", "ffn") for m in SHARDS] + [
+    (kind, m, heads) for kind in ("inter", "intra")
+    for m, heads in ((2, 16), (2, 2), (4, 16))])
+def test_dpt_partial_kernels_sum_to_the_full_kernel(cuda, kind, m, heads):
     """The Megatron identity in f32: the m shards' partial kernels summed,
     plus the residual (plus b_down), equal the full kernel within 1e-5; and
     their backwards' dx summed plus g, dgamma and dbeta summed, equal the
-    full backward's."""
+    full backward's. The attention kernels also at head widths 16 and 128
+    (16 and 2 heads of B = 256)."""
     fused, _ = DPT_FNS[kind]
     fused_b, _ = DPT_BWD_FNS[kind]
-    args, kw, valid = _full_width_args(cuda, torch.float32, kind, seed=3)
+    args, kw, valid = _full_width_args(cuda, torch.float32, kind, seed=3,
+                                       heads=heads)
     x = args[0]
     with torch.inference_mode():
         full = fused(*args, **kw)
-        parts = [fused(*_shard(args, kind, m, s), **_partial_kw(kind, m),
-                       partial=True) for s in range(m)]
+        parts = [fused(*_shard(args, kind, m, s),
+                       **_partial_kw(kind, m, heads), partial=True)
+                 for s in range(m)]
     acc = x + sum(parts) + (args[-1] if kind == "ffn" else 0)
     assert _rel_l2(_valid_rows(acc, valid, 256),
                    _valid_rows(full, valid, 256)) <= DPT_TOL[torch.float32]
     xb, g, w, _, valid = _dpt_bwd_args(cuda, torch.float32, kind, 5, True,
-                                       S=128, B=256, heads=8, F=1024)
+                                       S=128, B=256, heads=heads, F=1024)
     full = fused_b(xb, g, *w, **kw)
     parts = [fused_b(xb, g, *_shard((xb, *w), kind, m, s)[1:],
-                     **_partial_kw(kind, m), partial=True) for s in range(m)]
+                     **_partial_kw(kind, m, heads), partial=True)
+             for s in range(m)]
     dx = g + sum(p[0] for p in parts)
     assert _rel_l2(_valid_rows(dx, valid, 256),
                    _valid_rows(full[0], valid, 256)) <= DPT_BWD_TOL

@@ -116,6 +116,48 @@ def test_attention_bwd_twin_matches_pallas_interpret(kind, shape, dtype):
     _check(got, want, ATTN_GRADS, dtype, valid)
 
 
+@pytest.mark.parametrize("d,partial", [(16, False), (128, False),
+                                       (16, True), (128, True)],
+                         ids=["d16-full", "d128-full", "d16-partial",
+                              "d128-partial"])
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_attention_bwd_twins_at_head_widths_16_and_128(kind, d, partial):
+    """The f32 backward twins of B8 and B10 (and of B8p and B10p) at head
+    widths 16 and 128, which the f32 kernels take, against the Pallas
+    backwards in interpret mode on the operands of
+    tests/test_torch_dpt_ops.py's head-width cases (B = 128 with 8 heads or
+    1; partial, the last shard of m = 2 of B = 128 with 8 heads or of
+    B = 256 with 2), the cotangent zero on the padded rows: every
+    cotangent within 1e-4 (TOL), dx on the valid rows."""
+    width = 256 if d == 128 and partial else 128
+    rng = np.random.default_rng(60 + d)
+    arrs = dict(
+        x=rng.standard_normal((2, 3, 16, width)),
+        g=rng.standard_normal((2, 3, 16, width)),
+        gamma=1 + 0.1 * rng.standard_normal(width),
+        beta=0.1 * rng.standard_normal(width),
+        w_qkv=rng.standard_normal((width, 3 * width)) / np.sqrt(width),
+        w_out=rng.standard_normal((width, width)) / np.sqrt(width))
+    heads = width // d
+    if partial:
+        bq = width // 2
+        arrs["w_qkv"] = np.concatenate(
+            [arrs["w_qkv"][:, i * width + bq:(i + 1) * width]
+             for i in range(3)], axis=1)
+        arrs["w_out"] = arrs["w_out"][bq:]
+        heads //= 2
+    valid = np.arange(3 * 16).reshape(3, 16) < 3 * 16 - 11
+    arrs["bias"] = np.where(valid, 0.0, -1e9)
+    arrs["g"] = arrs["g"] * valid[None, :, :, None]
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    j, t = _both(arrs, "float32", ATTN)
+    jax_bwd, port_bwd, _, _ = KINDS[kind]
+    want = jax_bwd(*j, n_heads=heads, interpret=True, partial=partial)
+    got = port_bwd(*t, n_heads=heads, partial=partial)
+    assert got[0].dtype == torch.float32
+    _check(got, want, ATTN_GRADS, "float32", valid)
+
+
 def _ffn_inputs(rows, seed):
     rng = np.random.default_rng(seed)
     arrs = dict(

@@ -104,6 +104,56 @@ def test_intra_twin_matches_pallas_interpret(shape, dtype):
     _check(got, want, dtype, valid)
 
 
+# (head width, partial) of the f32 attention kernels' widths beyond 32 and
+# 64: B = 128 with 8 heads of 16 or 1 of 128; partial, the last shard of
+# m = 2: 4 heads of 16 (B = 128), or 1 head of 128 (B = 256, 2 heads)
+HEAD_WIDTHS = [(16, False), (128, False), (16, True), (128, True)]
+HEAD_WIDTH_IDS = ["d16-full", "d128-full", "d16-partial", "d128-partial"]
+
+
+def head_width_inputs(d, partial, seed):
+    """Masked attention operands ([2, 3, 16, B], the last 11 frames padded)
+    whose heads are d wide, with ``partial`` the last shard of m = 2 as
+    parallel/dpt_tp.py cuts the weights; -> (arrays, heads, valid)."""
+    width = 256 if d == 128 and partial else 128
+    rng = np.random.default_rng(seed)
+    arrs = dict(
+        x=rng.standard_normal((2, 3, 16, width)),
+        gamma=1 + 0.1 * rng.standard_normal(width),
+        beta=0.1 * rng.standard_normal(width),
+        w_qkv=rng.standard_normal((width, 3 * width)) / np.sqrt(width),
+        w_out=rng.standard_normal((width, width)) / np.sqrt(width))
+    heads = width // d
+    if partial:
+        bq = width // 2
+        arrs["w_qkv"] = np.concatenate(
+            [arrs["w_qkv"][:, i * width + bq:(i + 1) * width]
+             for i in range(3)], axis=1)
+        arrs["w_out"] = arrs["w_out"][bq:]
+        heads //= 2
+    valid = np.arange(3 * 16).reshape(3, 16) < 3 * 16 - 11
+    arrs["bias"] = np.where(valid, 0.0, -1e9)
+    return {k: v.astype(np.float32) for k, v in arrs.items()}, heads, valid
+
+
+@pytest.mark.parametrize("d,partial", HEAD_WIDTHS, ids=HEAD_WIDTH_IDS)
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+def test_attention_twins_at_head_widths_16_and_128(kind, d, partial):
+    """The f32 twins of B7 and B9 (and of B7p and B9p) at head widths 16
+    and 128, which the f32 kernels take, against the Pallas kernels in
+    interpret mode: relative L2 within 1e-4 (TOL) on the valid rows."""
+    arrs, heads, valid = head_width_inputs(d, partial, seed=50 + d)
+    j, t = _both(arrs, "float32", ATTN)
+    jax_mod, port_fn = ((jax_inter, port_inter.fused_inter_attention)
+                        if kind == "inter" else
+                        (jax_intra, port_intra.fused_intra_attention))
+    want = getattr(jax_mod, f"fused_{kind}_attention")(
+        *j, n_heads=heads, interpret=True, partial=partial)
+    got = port_fn(*t, n_heads=heads, partial=partial)
+    assert got.dtype == torch.float32
+    _check(got, want, "float32", valid)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows", [48, 5], ids=["rows48", "rows5"])
 def test_ffn_twin_matches_pallas_interpret(rows, dtype):

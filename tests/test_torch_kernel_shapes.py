@@ -75,7 +75,7 @@ def test_tp_stage2_rule(Hs, B):
 
 def _attention_ok(kind, B, S, Bq, heads):
     return (B % 64 == 0 and B <= 256 and Bq % heads == 0
-            and Bq // heads in (32, 64) and Bq % 64 == 0
+            and Bq // heads in (16, 32, 64, 128) and Bq % 64 == 0
             and (kind == "inter" or S <= 256))
 
 
@@ -86,8 +86,9 @@ def _attention_ok(kind, B, S, Bq, heads):
 @pytest.mark.parametrize("S", [100, 128, 272])
 def test_attention_rules(kind, B, Bq, heads, S):
     """B7-B10 (and partial modes) take B a multiple of 64 and <= 256, a
-    head width of 32 or 64 and the heads' width Bq a multiple of 64; the
-    intra kernels also S <= 256 (padded to a multiple of 16)."""
+    head width of 16, 32, 64 or 128 and the heads' width Bq a multiple of
+    64; the f32 intra kernels also S <= 256 (padded to a multiple of
+    16)."""
     got = dpt_attention.shape_refusal(kind, B, S, Bq, heads)
     assert (got is None) == _attention_ok(kind, B, S, Bq, heads), got
     if kind == "intra":
@@ -102,19 +103,19 @@ def test_attention_rules(kind, B, Bq, heads, S):
     (256, 2, 2), (256, 4, 4), (256, 32, 1), (256, 1, 1)])
 def test_attention_head_widths_by_dtype(kind, dtype, B, heads, m):
     """The bf16 kernels (one tensor-core core, templated on the head width)
-    take d = 16, 32, 64 and 128, the f32 first designs d = 32 and 64: B =
-    256 with 16 heads (d = 16) or 2 (d = 128), B = 128 with 1 head or 8,
-    their head-group shards of m = 2 and 4; d = 8 and 256 no kernel takes.
-    A refusal names the rule and the dtype."""
+    and the f32 first designs (templated on it too) take d = 16, 32, 64
+    and 128: B = 256 with 16 heads (d = 16) or 2 (d = 128), B = 128 with 1
+    head or 8, their head-group shards of m = 2 and 4; d = 8 and 256 no
+    kernel takes. A refusal names the rule and the dtype."""
     bf16 = str(dtype).replace("torch.", "") == "bfloat16"
     d = B // heads
     got = dpt_attention.shape_refusal(kind, B, 128, B // m, heads // m,
                                       dtype)
-    takes = d in ((16, 32, 64, 128) if bf16 else (32, 64))
-    if takes:
+    dims = (16, 32, 64, 128)
+    assert dpt_attention.HEAD_DIMS == {"bfloat16": dims, "float32": dims}
+    if d in dims:
         assert got is None, got
     else:
-        dims = (16, 32, 64, 128) if bf16 else (32, 64)
         name = "bfloat16" if bf16 else "float32"
         assert got == (f"the {name} kernel needs a head width in {dims}, "
                        f"got {B // m} channels with {heads // m} heads")
@@ -139,6 +140,21 @@ def test_intra_chunk_limit_is_f32_only(dtype, S):
     else:
         assert got is None
     assert dpt_attention.shape_refusal("inter", 256, S, 256, 8, dtype) is None
+
+
+@pytest.mark.parametrize("heads", [2, 16])
+def test_f32_dpt_head_widths_refuse_only_long_chunks(heads):
+    """An f32 DPT at B = 256 with 2 heads (d = 128) or 16 (d = 16) passes
+    every kernel's rule at the quality default's 128-frame chunks; at 272
+    frames it is refused for the intra chunk length alone, in those words
+    (C2), and the inter kernels still take it."""
+    cfg = ConvTasNetConfig(separator="dpt", dpt_heads=heads)
+    assert cfg.compute_dtype == "float32"
+    assert shapes.refusals(cfg) == {}
+    long = dataclasses.replace(cfg, dpt_chunk=272)
+    assert shapes.refusals(long) == {
+        "intra": "the intra kernel needs a chunk length S of at most 256, "
+                 "got S=272"}
 
 
 @pytest.mark.parametrize("B", [64, 256, 320, 96])
@@ -174,8 +190,15 @@ def test_ffn_rule(B):
      False, {}),
     (dict(separator="dpt", dpt_chunk=100, compute_dtype="bfloat16"), 1,
      False, {}),
-    (dict(separator="dpt", dpt_heads=16), 1, False, {"intra", "inter"}),
-    (dict(separator="dpt", dpt_heads=2), 1, False, {"intra", "inter"}),
+    (dict(separator="dpt", dpt_heads=16), 1, False, {}),
+    (dict(separator="dpt", dpt_heads=2), 1, False, {}),
+    (dict(separator="dpt", dpt_heads=16), 2, False, {}),
+    (dict(separator="dpt", dpt_heads=2), 2, False, {}),
+    (dict(separator="dpt", dpt_heads=16), 4, False, {}),
+    (dict(separator="dpt", dpt_heads=16, dpt_chunk=272), 1, False,
+     {"intra"}),
+    (dict(separator="dpt", dpt_heads=2, dpt_chunk=272), 1, False,
+     {"intra"}),
     (dict(separator="dpt", dpt_heads=16, compute_dtype="bfloat16"), 1,
      False, {}),
     (dict(separator="dpt", dpt_heads=2, compute_dtype="bfloat16"), 1,
@@ -188,7 +211,8 @@ def test_ffn_rule(B):
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-tp8",
         "dpt-tp4-F320", "tp-Hs576", "dpt-S272", "dpt-S320", "dpt-S320-bf16",
         "dpt-tp2-S320-bf16", "dpt-S100-bf16", "dpt-d16", "dpt-d128",
-        "dpt-d16-bf16", "dpt-d128-bf16", "dpt-tp2-d128-bf16",
+        "dpt-tp2-d16", "dpt-tp2-d128", "dpt-tp4-d16", "dpt-d16-S272",
+        "dpt-d128-S272", "dpt-d16-bf16", "dpt-d128-bf16", "dpt-tp2-d128-bf16",
         "dpt-B128-d128-bf16"])
 def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
                                                  want):

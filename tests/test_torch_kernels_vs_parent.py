@@ -150,6 +150,20 @@ def test_summarize_turns():
     assert "b1 gLN mean over d, this: 0.1500 ms" in lines
 
 
+def test_summarize_keeps_a_shape_one_tree_refuses():
+    """A metric only one tree has (a head width the other refuses) is laid
+    out for that tree alone, in the order the turns first show it."""
+    other = {"b7/b8 forward [8,25,128,256] f32 d=32": 1.0}
+    this = {"b7/b8 forward [8,25,128,256] f32 d=16": 2.0,
+            "b7/b8 forward [8,25,128,256] f32 d=32": 1.1}
+    lines = kvp.summarize([("other", other), ("this", this), ("this", this),
+                           ("other", other)])
+    assert lines[0].startswith("b7/b8 forward [8,25,128,256] f32 d=32: "
+                               "other 1.0000 1.0000 | this 1.1000 1.1000")
+    assert lines[1] == ("b7/b8 forward [8,25,128,256] f32 d=16: this tree "
+                        "only 2.0000 2.0000 ms")
+
+
 def test_summarize_pairs_and_peak_memory():
     """The pair timings are averaged over the pairs of dilations beside the
     chained singles of the same turns, and a peak-memory metric is laid
