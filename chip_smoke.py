@@ -32,7 +32,8 @@ Phases, each raising on failure (so the script exits nonzero):
    vector; one by one in f32 with every slope at 1, where no PReLU branch
    can flip), twice to the same bits; B4 against two chained kernel-1
    calls and B5 against chained kernels 1 + 2 + 2, to the bit in bf16 and
-   f32 (a pair runs the singles' stages of its dtype and widths);
+   f32 (a pair runs the singles' stages of its dtype and widths), B4 also
+   at B = 1024;
 5. the three DPT sublayer kernels (inter, intra, FFN) against their twins
    at the DPT quality default's widths ([8, n, 128, 256], 8 heads, F=1024)
    with the real key mask, n = 1 (100 real frames), 25 (4 s) and 94
@@ -50,7 +51,11 @@ Phases, each raising on failure (so the script exits nonzero):
    max(4e-2, 1.25x the bf16 twin's own distance); the intra forward and
    backward in f32 with a head width of 64 at S = 256, their [S, d]
    tiles in the device workspace, against the exact twin within 1e-5;
-   the partial kernels B7p-B12p (one shard's head group or hidden slice,
+   and above 256 frames, on their row-statistics core
+   (``csrc/dpt_intra_rowstat.cuh``): head width 32 at S = 320 and 512,
+   16 and 128 at S = 320, and B9p / B10p on one shard of m = 2 at S =
+   320, within 1e-5 of the exact twin, each backward twice to the same
+   bits; the partial kernels B7p-B12p (one shard's head group or hidden slice,
    the projection alone; ``partial=True``) at the quality default's shard
    widths, m = 2 (Bq 128, 4 heads, F/m 512) and m = 4 (Bq 64, 2 heads,
    256), at [8, 25, 128, 256], bf16 and f32, against their partial twins
@@ -117,7 +122,10 @@ Phases, each raising on failure (so the script exits nonzero):
    pass): every loss finite, per step 4 / 4 / 8 launches of the inter,
    intra and FFN forward kernels and of their backward kernels, the cv
    batches forward only, and the best-model package separating a mixture
-   on the card;
+   on the card; then the same in f32 with 512-frame chunks (``--dpt-chunk
+   512``, B9 and B10 on their row-statistics core), its package through
+   ``separate`` on the kernels (4 / 4 / 8 launches) and on the plain ops,
+   the wavs within 2e-3 of each other;
 9. the streaming separator on the card, f32, the paper widths with the
    causal cLN norm: two 4 s mixtures in 8 ms chunks rounded down to whole
    hops (7.5 ms), the stream plus its flush against the offline causal
@@ -156,11 +164,12 @@ Phases, each raising on failure (so the script exits nonzero):
    launches exact; the DPT's tensor-parallel step over two shards (the
    partial kernels 2 x (4, 4, 8) times forward and backward); and one
    bf16 DPT step each with 256-frame and with 320-frame chunks (past the
-   f32 limit; the bf16 intra kernels take any S) over batch seeds 13-15,
+   f32 intra kernels' first designs) over batch seeds 13-15,
    held as the DPT step above is, the intra backward at
    S = 256 and 320, with one bf16 forward at S = 320 through B9 against
-   the plain path, and the f32 model at S = 320 raising before any
-   launch; the bf16 DPT at head widths 128 (2 heads) and 16 (16 heads):
+   the plain path, and the f32 model at S = 320 (B9 and B10 on their
+   row-statistics core): one forward against the plain path within 2e-3
+   and one train step's gradient within 4e-3, launches exact; the bf16 DPT at head widths 128 (2 heads) and 16 (16 heads):
    one forward through B7, B9 and B11 against the plain path and one step
    over three batch seeds through B8 and B10, as the S = 320 step is held,
    with exact launch counts; and the f32 model at those widths through
@@ -514,6 +523,27 @@ def phase_pair_vs_twin(torch, k):
             if not torch.equal(got, two):
                 failures.append(f"{norm} {name} d=({d1},{d2}): not the bits "
                                 f"of two kernel-1 calls ({vs_two:.3e})")
+    # a pair at B = 1024, past the bf16 Hopper stages' widths (the pair
+    # kernels take any B the single block takes): two kernel-1 calls' bits
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        x, *pa = block_inputs(torch, dtype, 4, B=1024)
+        _, *pb = block_inputs(torch, dtype, 504, B=1024)
+        kw = dict(causal=False, norm_type="gLN")
+        before = pair.fused_tcn_block_pair.launches
+        got = pair.fused_tcn_block_pair(x, pa, pb, d1=4, d2=8, **kw)
+        launched = pair.fused_tcn_block_pair.launches - before
+        two = tcn.fused_tcn_block(tcn.fused_tcn_block(x, *pa, dilation=4,
+                                                      **kw),
+                                  *pb, dilation=8, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, two)
+        print(f"pair kernel [8,3199,1024] H=512 gLN {name} d=(4,8): "
+              f"{launched} launch, the bits of two kernel-1 calls: {same}",
+              flush=True)
+        if not (same and launched == 1 and torch.isfinite(got).all().item()):
+            failures.append(f"B=1024 {name}: same bits {same}, launches "
+                            f"{launched}")
     check(not failures, "pair kernel disagrees: " + "; ".join(failures))
     return worst
 
@@ -2161,6 +2191,79 @@ def dpt_step_medians(torch, dpt, cfg, sd, seeds, label: str, kinds,
           f"dpt {label} step: gradient {k_f32:.3e}, ratio {worst:.3f}")
 
 
+def dpt_forward_vs_plain(torch, dpt, cfg, sd, mix, label: str):
+    """One forward of the DPT ``cfg`` from the state dict ``sd`` on ``mix``
+    [M, T], kernel path against plain path: B7 and B9 once per layer and
+    B11 twice on the kernel path, no launch on the plain path, and the
+    kernel path's output finite, of the mixture's shape and within the
+    forward bar of ``cfg``'s compute dtype (``TOL``)."""
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+
+    dtype = cfg.compute_dtype
+    outs = {}
+    for path, flag in (("kernel", True), ("plain", False)):
+        model = ConvTasNet(cfg, use_pallas=flag, device="cuda").eval()
+        model.load_state_dict(sd)
+        reset_dpt_all(dpt)
+        with torch.inference_mode():
+            outs[path] = model(mix)
+        torch.cuda.synchronize()
+        counts = dpt_launches(dpt)
+        want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                 "ffn": 2 * cfg.dpt_layers} if flag
+                else dict.fromkeys(DPT_KINDS, 0))
+        print(f"dpt forward {label} {path} path {dtype}: launches {counts} "
+              f"(expected {want})", flush=True)
+        check(counts == want, f"dpt {label} {dtype} forward {path}: "
+              f"{counts}")
+        del model
+    err = rel_l2(outs["kernel"], outs["plain"])
+    print(f"forward dpt {label} {dtype} B={mix.shape[0]}x{SECONDS}s kernel "
+          f"vs plain: rel_l2 {err:.3e} (bar {TOL[dtype]:.0e})", flush=True)
+    check(torch.isfinite(outs["kernel"]).all().item()
+          and tuple(outs["kernel"].shape) == (mix.shape[0], 2, mix.shape[1])
+          and err <= TOL[dtype], f"dpt {label} {dtype} forward: {err:.3e}")
+
+
+def dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label: str):
+    """One f32 train step (loss and gradients) of the DPT ``cfg`` from the
+    state dict ``sd`` on ``batch``, kernel path against plain path: the
+    kernel path's gradient finite and within the f32 step bar
+    (``BWD_TOL``, 4e-3, as ``tests/test_torch_cuda.py``'s
+    ``test_dpt_model_train_grads_kernel_vs_plain`` holds it), B8 and B10
+    once per layer and B12 twice on the kernel path, none on the plain
+    path."""
+    from convtasnet_tpu_torch import SolverConfig
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    res = {}
+    for path, flag in (("kernel", True), ("plain", False)):
+        state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
+                                      use_pallas=flag, state_dict=sd)
+        reset_dpt_all(dpt)
+        loss = float(ts._loss_and_grads(state.model, batch, 0))
+        torch.cuda.synchronize()
+        counts = dpt_bwd_launches(dpt)
+        want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                 "ffn": 2 * cfg.dpt_layers} if flag
+                else dict.fromkeys(DPT_KINDS, 0))
+        check(counts == want, f"dpt {label} f32 step {path}: backward "
+              f"launches {counts}")
+        if flag:
+            launched = counts
+        res[path] = (loss, torch.cat([p.grad.detach().reshape(-1)
+                                      for p in state.model.parameters()]))
+        del state
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    err = rel_l2(gk, gp)
+    print(f"train step dpt {label} f32 B={batch[0].shape[0]}x{SECONDS}s "
+          f"kernel vs plain: loss {lk:.6f} vs {lp:.6f}; gradient rel_l2 "
+          f"{err:.3e} (bar {BWD_TOL['float32']:.0e}); kernel path's backward "
+          f"launches {launched}", flush=True)
+    check(torch.isfinite(gk).all().item() and err <= BWD_TOL["float32"],
+          f"dpt {label} f32 step: gradient {err:.3e}")
+
+
 def phase_dpt_head_widths(torch, dpt):
     """The DPT quality default at the head widths beyond 32 and 64: 2 heads
     of 128 and 16 heads of 16 (B = 256), random weights from seed 0, B=4 x
@@ -2171,145 +2274,193 @@ def phase_dpt_head_widths(torch, dpt):
     one forward, kernel path against plain path within the f32 forward bar
     (2e-3), with the same launch counts; and one train step, the kernel
     path's gradient against the plain path's within the f32 step bar
-    (``BWD_TOL``, 4e-3, as ``tests/test_torch_cuda.py``'s
-    ``test_dpt_model_train_grads_kernel_vs_plain`` holds it), with B8 and
-    B10 once per layer (and B12 twice)."""
+    (``dpt_f32_step_vs_plain``)."""
     import dataclasses
 
-    from convtasnet_tpu_torch import SolverConfig
-    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet, init_params
-    from convtasnet_tpu_torch.train import train_step as ts
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
 
     batch = train_batch(torch, 4, 23)
     for heads in (2, 16):
-        d = DPT_B // heads
+        label = f"d={DPT_B // heads} ({heads} heads)"
         for dtype in ("bfloat16", "float32"):
             cfg = dataclasses.replace(dpt_config(dtype), dpt_heads=heads)
             sd = init_params(cfg, torch.Generator().manual_seed(0))
-            outs = {}
-            for path, flag in (("kernel", True), ("plain", False)):
-                model = ConvTasNet(cfg, use_pallas=flag, device="cuda").eval()
-                model.load_state_dict(sd)
-                reset_dpt_all(dpt)
-                with torch.inference_mode():
-                    outs[path] = model(batch[0])
-                torch.cuda.synchronize()
-                counts = dpt_launches(dpt)
-                want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
-                         "ffn": 2 * cfg.dpt_layers} if flag
-                        else dict.fromkeys(DPT_KINDS, 0))
-                print(f"dpt forward d={d} ({heads} heads) {path} path "
-                      f"{dtype}: launches {counts} (expected {want})",
-                      flush=True)
-                check(counts == want,
-                      f"dpt d={d} {dtype} forward {path}: {counts}")
-                del model
-            err = rel_l2(outs["kernel"], outs["plain"])
-            print(f"forward dpt d={d} {dtype} B=4x{SECONDS}s kernel vs "
-                  f"plain: rel_l2 {err:.3e} (bar {TOL[dtype]:.0e})",
-                  flush=True)
-            check(torch.isfinite(outs["kernel"]).all().item()
-                  and tuple(outs["kernel"].shape)
-                  == (4, 2, SECONDS * SAMPLE_RATE)
-                  and err <= TOL[dtype], f"dpt d={d} {dtype} forward: "
-                  f"{err:.3e}")
+            dpt_forward_vs_plain(torch, dpt, cfg, sd, batch[0], label)
             if dtype == "bfloat16":
-                dpt_step_medians(torch, dpt, cfg, sd, (23, 24, 25),
-                                 f"d={d} ({heads} heads)",
+                dpt_step_medians(torch, dpt, cfg, sd, (23, 24, 25), label,
                                  ("inter", "intra"), batch)
-                continue
-            res = {}
-            for path, flag in (("kernel", True), ("plain", False)):
-                state = ts.create_train_state(cfg, SolverConfig(),
-                                              device="cuda", use_pallas=flag,
-                                              state_dict=sd)
-                reset_dpt_all(dpt)
-                loss = float(ts._loss_and_grads(state.model, batch, 0))
-                torch.cuda.synchronize()
-                counts = {k: dpt_bwd_fns(dpt, k)[0].launches
-                          for k in DPT_KINDS}
-                want = ({"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
-                         "ffn": 2 * cfg.dpt_layers} if flag
-                        else dict.fromkeys(DPT_KINDS, 0))
-                check(counts == want,
-                      f"dpt d={d} f32 step {path}: backward launches "
-                      f"{counts}")
-                if flag:
-                    launched = counts
-                res[path] = (loss, torch.cat([
-                    p.grad.detach().reshape(-1)
-                    for p in state.model.parameters()]))
-                del state
-            (lk, gk), (lp, gp) = res["kernel"], res["plain"]
-            err = rel_l2(gk, gp)
-            print(f"train step dpt d={d} ({heads} heads) f32 B=4x{SECONDS}s "
-                  f"seed 23 kernel vs plain: loss {lk:.6f} vs {lp:.6f}; "
-                  f"gradient rel_l2 {err:.3e} (bar "
-                  f"{BWD_TOL['float32']:.0e}); kernel path's backward "
-                  f"launches {launched}", flush=True)
-            check(torch.isfinite(gk).all().item()
-                  and err <= BWD_TOL["float32"],
-                  f"dpt d={d} f32 step: gradient {err:.3e}")
+            else:
+                dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
 
 
 def phase_dpt_chunk256_step(torch, dpt):
     """One bf16 train step (loss and gradients) of the DPT quality default
     with 256-frame chunks (``--dpt-chunk 256``) and with 320-frame chunks
-    (past the f32 intra kernels' limit; bf16 takes any S), B=4 x 4 s,
-    kernel path against plain path from the same init and batches, over
-    three batch seeds as ``dpt_step_medians`` holds them; the intra
-    backward kernel runs at S = 256 and 320, once per layer. One seed's
-    distance is a draw: at S = 320 and seed 13 it reads 0.164 on the
-    kernel path and 0.204 with B9 replaced by its plain twin (an NVIDIA
-    H100 80GB HBM3 at 700 W). Also at S = 320
-    one bf16 forward, kernel path against plain path within the bf16
-    forward bar, the intra forward kernel once per layer; and the f32
-    model raises, naming the chunk rule, before any launch."""
+    (past the f32 intra kernels' first designs), B=4 x 4 s, kernel path
+    against plain path from the same init and batches, over three batch
+    seeds as ``dpt_step_medians`` holds them; the intra backward kernel
+    runs at S = 256 and 320, once per layer. One seed's distance is a
+    draw: at S = 320 and seed 13 it reads 0.164 on the kernel path and
+    0.204 with B9 replaced by its plain twin (an NVIDIA H100 80GB HBM3 at
+    700 W). Also at S = 320 one bf16 forward, kernel path against plain
+    path within the bf16 forward bar (``dpt_forward_vs_plain``); and the
+    f32 model (the default compute dtype) at S = 320, whose intra kernels
+    run on their row-statistics core: one forward within the f32 forward
+    bar (2e-3) and one train step's gradient within the f32 step bar
+    (``dpt_f32_step_vs_plain``), exact launch counts."""
     import dataclasses
 
-    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet, init_params
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
 
     batch = train_batch(torch, 4, 13)
-    intra_fwd = dpt_fns(dpt, "intra")[0]
-    for chunk in (256, 320):
-        cfg = dataclasses.replace(dpt_config(), dpt_chunk=chunk)
+    for chunk, dtype in ((256, "bfloat16"), (320, "bfloat16"),
+                         (320, "float32")):
+        cfg = dataclasses.replace(dpt_config(dtype), dpt_chunk=chunk)
         sd = init_params(cfg, torch.Generator().manual_seed(0))
+        label = f"--dpt-chunk {chunk}"
         if chunk == 320:
-            outs = {}
-            for path, flag in (("kernel", True), ("plain", False)):
-                model = ConvTasNet(cfg, use_pallas=flag, device="cuda").eval()
-                model.load_state_dict(sd)
-                intra_fwd.launches = 0
-                with torch.inference_mode():
-                    outs[path] = model(batch[0])
-                torch.cuda.synchronize()
-                check(intra_fwd.launches == (cfg.dpt_layers if flag else 0),
-                      f"dpt chunk {chunk} {path}: {intra_fwd.launches} intra "
-                      f"forward launches")
-                del model
-            err = rel_l2(outs["kernel"], outs["plain"])
-            print(f"forward dpt --dpt-chunk {chunk} bf16 B=4x{SECONDS}s "
-                  f"kernel vs plain: rel_l2 {err:.3e} (bar "
-                  f"{TOL['bfloat16']:.0e})", flush=True)
-            check(torch.isfinite(outs["kernel"]).all().item()
-                  and err <= TOL["bfloat16"],
-                  f"dpt chunk {chunk} forward: {err:.3e}")
-        dpt_step_medians(torch, dpt, cfg, sd, (13, 14, 15),
-                         f"--dpt-chunk {chunk}", ("intra",), batch)
-    f32 = dataclasses.replace(dpt_config("float32"), dpt_chunk=320)
-    reset_dpt_all(dpt)
-    try:
+            dpt_forward_vs_plain(torch, dpt, cfg, sd, batch[0], label)
+        if dtype == "bfloat16":
+            dpt_step_medians(torch, dpt, cfg, sd, (13, 14, 15), label,
+                             ("intra",), batch)
+        else:
+            dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
+
+
+def phase_intra_f32_long(torch, dpt):
+    """B9 and B10 in f32 above 256 frames, on their row-statistics core
+    (``csrc/dpt_intra_rowstat.cuh``), against their exact twins at the
+    quality default's widths with the key mask of 3199 real frames (4 s):
+    head width 32 at S = 320 ([8, 10, 320, 256]) and 512 ([8, 7, 512,
+    256]), head widths 16 and 128 at S = 320, and B9p / B10p on the last
+    shard of m = 2 at S = 320; the forward and every cotangent (dx on the
+    valid rows) within the f32 DPT bars (1e-5), and each backward twice to
+    the same bits. Every case is printed before the phase fails."""
+    fused, twin = dpt_fns(dpt, "intra")
+    fused_b, twin_b = dpt_bwd_fns(dpt, "intra")
+    failures = []
+    for S, heads, m in ((320, 8, 1), (512, 8, 1), (320, 16, 1), (320, 2, 1),
+                        (320, 8, 2)):
+        n = -(-3199 // S)
+        args, kw, valid = dpt_inputs(torch, "intra", torch.float32, n, 3199,
+                                     seed=7300 + S + heads, S=S, heads=heads)
+        x, g, w, bkw, _ = dpt_bwd_inputs(torch, "intra", torch.float32, n,
+                                         3199, seed=7400 + S + heads, S=S,
+                                         heads=heads)
+        if m > 1:
+            args = dpt_shard(torch, args, "intra", m, m - 1)
+            w = list(dpt_shard(torch, (x, *w), "intra", m, m - 1)[1:])
+            kw = bkw = dict(n_heads=heads // m, partial=True)
+        rows = valid.reshape(-1)
         with torch.inference_mode():
-            ConvTasNet(f32, use_pallas=True, device="cuda").eval()(batch[0])
-        raised = "nothing"
-    except ValueError as e:
-        raised = str(e)
-    launched = {kind: dpt_fns(dpt, kind)[0].launches for kind in DPT_KINDS}
-    print(f"dpt --dpt-chunk 320 f32: raises {raised!r}; launches {launched}",
-          flush=True)
-    check("chunk length S of at most 256" in raised
-          and not any(launched.values()),
-          f"dpt chunk 320 f32: raised {raised!r}, launched {launched}")
+            got = fused(*args, **kw)
+            torch.cuda.synchronize()
+            want = twin(*args, **kw)
+        fwd = rel_l2(got.reshape(8, -1, DPT_B)[:, rows],
+                     want.reshape(8, -1, DPT_B)[:, rows])
+        got_b = fused_b(x, g, *w, **bkw)
+        again = fused_b(x, g, *w, **bkw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(got_b, again))
+        exact = twin_b(x, g, *w, **bkw)
+        errs = {}
+        for i, name in enumerate(DPT_GRAD_NAMES["intra"]):
+            q, e = got_b[i], exact[i]
+            if i == 0:
+                q, e = (v.reshape(8, -1, DPT_B)[:, rows] for v in (q, e))
+            errs[name] = (rel_l2(q, e) if torch.isfinite(q).all().item()
+                          else math.inf)
+        top = max(errs, key=errs.get)
+        label = (f"dpt intra f32 row-statistics core [8,{n},{S},{DPT_B}] "
+                 f"d={DPT_B // heads}" + (f" m={m}" if m > 1 else ""))
+        print(f"{label}: forward kernel vs twin rel_l2 {fwd:.3e} (bar "
+              f"{DPT_TOL['float32']:.0e}); backward vs exact "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (bar {DPT_BWD_TOL_F32:.0e}); backward twice the same "
+              f"bits: {same}", flush=True)
+        if not (fwd <= DPT_TOL["float32"] and errs[top] <= DPT_BWD_TOL_F32
+                and same):
+            failures.append(f"{label}: forward {fwd:.3e}, backward "
+                            f"{errs[top]:.3e} ({top}), same bits {same}")
+    check(not failures, "f32 intra kernels above 256 frames: "
+          + "; ".join(failures))
+
+
+def phase_dpt_chunk512_f32(torch, dpt, work: str, data: str, json_dir: str):
+    """The DPT quality default in f32 (the default compute dtype) with
+    512-frame chunks (``--dpt-chunk 512``; at 4 s, n = 7 chunks), whose
+    intra sublayers run B9 and B10 on their row-statistics core:
+    ``cli train`` in process on the corpus of ``make_corpus``, one epoch
+    of 4 steps at batch 8 x 4 s and a cv pass, every loss finite, per step
+    4 / 4 / 8 launches of the inter, intra and FFN forward kernels and of
+    their backward kernels, the cv batches forward only; then ``separate``
+    with its package on the cv mixtures through the kernels (one batch,
+    4 / 4 / 8 launches) and through the plain ops, the separated wavs
+    within the f32 forward bar (2e-3) of each other."""
+    import numpy as np
+
+    from convtasnet_tpu_torch import cli
+    from convtasnet_tpu_torch.data.audio_io import read_wav
+    from convtasnet_tpu_torch.infer.separate import separate
+
+    cfg = dpt_config("float32")
+    per_step = {"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                "ffn": 2 * cfg.dpt_layers}
+    n_cv = 2
+    out = os.path.join(work, "exp_dpt_chunk512")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    reset_dpt_all(dpt)
+    t0 = time.perf_counter()
+    rc = cli.main([
+        "train", "--train-dir", os.path.join(json_dir, "tr"),
+        "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder", out,
+        "--device", "cuda", "--separator", "dpt", "--compute-dtype",
+        "float32", "--dpt-chunk", "512", "--use-pallas", "1", "--epochs",
+        "1", "--batch-size", "8", "--print-freq", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = dpt_launches(dpt), dpt_bwd_launches(dpt)
+    check(rc == 0, f"cli train --dpt-chunk 512 f32 returned {rc}")
+    with open(os.path.join(out, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps = len(losses)
+    print(f"cli train --separator dpt --dpt-chunk 512 (f32, --use-pallas 1):"
+          f" {n_steps} steps, losses {[round(x, 4) for x in losses]}, "
+          f"forward launches {fwd}, backward launches {bwd}, {wall:.1f} s "
+          f"wall", flush=True)
+    check(n_steps == 4, f"{n_steps} train steps, expected 4")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    want_bwd = {k: v * n_steps for k, v in per_step.items()}
+    want_fwd = {k: v * (n_steps + n_cv) for k, v in per_step.items()}
+    check(bwd == want_bwd and fwd == want_fwd,
+          f"--dpt-chunk 512 f32: forward launches {fwd} (expected "
+          f"{want_fwd}), backward {bwd} (expected {want_bwd})")
+    pkg = os.path.join(out, "final.ckpt")
+    mix_dir = os.path.join(data, "cv", "mix")
+    wavs = {}
+    for path, flag in (("kernel", None), ("plain", False)):
+        sep_dir = os.path.join(work, f"sep_chunk512_{path}")
+        reset_dpt_all(dpt)
+        n = separate(pkg, sep_dir, mix_dir=mix_dir, batch_size=n_cv,
+                     device="cuda", use_pallas=flag)
+        torch.cuda.synchronize()
+        sep = dpt_launches(dpt)
+        want = per_step if flag is None else dict.fromkeys(DPT_KINDS, 0)
+        print(f"separate --dpt-chunk 512 f32 {path} path: {n} utterances, "
+              f"launches {sep} (expected {want})", flush=True)
+        check(n == n_cv and sep == want,
+              f"separate --dpt-chunk 512 {path}: {n} utterances, {sep}")
+        check_wavs(sep_dir, mix_dir)
+        wavs[path] = np.concatenate([
+            read_wav(os.path.join(sep_dir, f))[0]
+            for f in sorted(os.listdir(sep_dir)) if "_s" in f])
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    err = float(np.linalg.norm(wavs["kernel"] - wavs["plain"])
+                / np.linalg.norm(wavs["plain"]))
+    print(f"separate --dpt-chunk 512 f32: kernel vs plain wavs rel_l2 "
+          f"{err:.3e} (bar {TOL['float32']:.0e})", flush=True)
+    check(err <= TOL["float32"], f"--dpt-chunk 512 f32 wavs: {err:.3e}")
 
 
 def phase_dpt_serving(torch, dpt, work: str):
@@ -3762,6 +3913,7 @@ def main() -> int:
     max_abs_dpt_bwd = phase_dpt_bwd_vs_twin(torch, dpt)
     max_abs_partial = phase_dpt_partial_vs_twin(torch, dpt)
     phase_intra_f32_wide_heads(torch, dpt)
+    phase_intra_f32_long(torch, dpt)
     phase_ffn_bwd_tail_tiles(torch, dpt)
     max_abs_tp = phase_tp_stage2_vs_twin(torch, k)
     phase_auto_padded(torch, k, dpt)
@@ -3784,6 +3936,7 @@ def main() -> int:
         dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
         dpt_launches_bwd = phase_dpt_train_path(torch, dpt, work, data,
                                                 json_dir)
+        phase_dpt_chunk512_f32(torch, dpt, work, data, json_dir)
         # dual-path tensor parallelism (two and four shards on one card):
         # the forward, then cli train --separator dpt --n-model 2 and its
         # package served through cli separate --tensor-parallel 2, each

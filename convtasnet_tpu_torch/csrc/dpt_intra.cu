@@ -63,8 +63,22 @@
 // S=128), they go to a device workspace after the `a` workspace instead,
 // one set per (m, chunk, head) block in the same layout
 // (ctn_dpt_intra_workspace gives its size); every value and every order of
-// summation is as in shared memory. The per-warp [16, S] rows bound f32 to
-// S <= 256 (the wrapper's INTRA_MAX_S).
+// summation is as in shared memory. The first design runs S <= 256.
+//
+// f32 above 256 frames: the per-warp [16, S] rows and the [S, d] tiles
+// would not fit, so the core launch takes the row-statistics core of
+// dpt_intra_rowstat.cuh instead (ln_qkv_kernel and out_proj_residual_kernel
+// around it as above): one CTA of four warps per (m, chunk, head), the
+// keys' k and v staged as f32 in blocks of 4096 / d rows, a warp per 16
+// query rows, pass 1 the online row max and denominator (per lane, then a
+// butterfly), pass 2 p and a by FMA; no [16, S] or [S, S] tile, so its
+// shared memory is fixed by d (65-118 KB), and it needs no workspace past
+// `a`. Registers (ptxas, sm_90a): 96, 96, 95 and 145 at d = 16, 32, 64
+// and 128, no spills. Waves at [8, 7, 512, 256], d = 32: 448 CTAs of 71
+// KB, three per SM by shared memory, 1.13 waves. What stands over the
+// bound: q k^T computed twice, the dot products and the mix fed from
+// shared memory (a float4 broadcast per four FMAs of a row), and S / 16
+// query tiles on four warps re-walking every staged key block.
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // sublayer runs the h heads of one shard's head group, of width
@@ -73,7 +87,7 @@
 // default's m = 2 shards (Bq 128, 4 heads) that is 8.4 GFLOP, 8.5 us at
 // 989 TFLOP/s, against 7.8 us of x in and out.
 
-#include "dpt_attn_bwd_wg.cuh"
+#include "dpt_intra_rowstat.cuh"
 
 namespace {
 
@@ -220,9 +234,12 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The f32 core for head width d (core_head_width).
+// The f32 core for head width d (core_head_width): the first design at
+// S <= 256, the row-statistics core above.
 template <typename T>
 int launch_core_d(const DptAttnParams& p, cudaStream_t stream) {
+  if (p.S > kFirstDesignMaxS)
+    return launch_rs_core_d<false>(p, nullptr, nullptr, nullptr, stream);
   switch (p.Bq / p.h) {
     case 16: return launch_core<T, 16>(p, stream);
     case 32: return launch_core<T, 32>(p, stream);
@@ -249,13 +266,19 @@ extern "C" {
 // Elements of the compute dtype (elem_bytes 2 for bf16, 4 for f32) the
 // intra forward needs after the R * Bq of its `a` workspace for its spilled
 // q, k, v tiles: 0 where they fit in shared memory (always in bf16, whose
-// core keeps no per-head tile), -1 where the f32 core fits no way. B here
-// is the heads' width Bq = h * d.
+// core keeps no per-head tile, and in f32 above S = 256, whose
+// row-statistics core keeps none either), -1 where the f32 core fits no
+// way. B here is the heads' width Bq = h * d.
 int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
   const int d = B / h;
   if (elem_bytes == 2) {
+    if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
+    *n_spill = 0;
+    return 0;
+  }
+  if (S > kFirstDesignMaxS) {   // the row-statistics core keeps no tile
     if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
     *n_spill = 0;
     return 0;
@@ -272,7 +295,8 @@ int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
 // One intra-chunk attention sublayer (operands: DptAttnParams in
 // dpt_common.cuh; the `a` workspace holds R * Bq elements plus what
 // ctn_dpt_intra_workspace gives); returns the first CUDA error of its three
-// launches. bf16 takes any S (a multiple of 16); f32 S <= 256.
+// launches. Either dtype takes any S (f32 a multiple of 16: the wrapper
+// pads), f32 above 256 on the row-statistics core.
 int ctn_dpt_intra_f32(CTN_DPT_ATTN_ARGS) {
   return launch<float>(CTN_DPT_ATTN_PARAMS, static_cast<cudaStream_t>(stream));
 }

@@ -31,9 +31,9 @@
 // weight gradients, DN, the sums) on the wgmma core, the core on
 // mma.sync with this kernel's gather (the S rows of one chunk, the key
 // bias per (chunk, key)). Its core recomputes p from per-row statistics
-// instead of keeping [S, S] tiles, so every S <= 256 runs in the same
-// shared memory (at most 95 KB at S = 256 and d = 64), with no device
-// workspace for tiles; it recomputes q k^T four times and dA v^T three
+// instead of keeping [S, S] tiles, so every S runs in the same shared
+// memory (at most 95 KB at S = 256 and d = 64), with no device workspace
+// for tiles; it recomputes q k^T four times and dA v^T three
 // (18.5 GFLOP of core products at the default, on mma.sync at a fraction
 // of wgmma's rate): the core and the qkv, dA, a and dqkv round trips
 // through device memory are what stand over the bound.
@@ -56,14 +56,32 @@
 // four warps (a head width of 128 from S=112 up: its four [S, d] tiles
 // take 264 KB at S=128). Head widths 16, 32, 64 and 128. The round
 // trips of qkv, dA, a, dqkv and dy through device memory are the design's
-// cost over the bound.
+// cost over the bound. The first design runs S <= 256.
+//
+// f32 above 256 frames: the two [S, S] tiles (2.1 MB a block at S = 512)
+// give way to the row-statistics core of dpt_intra_rowstat.cuh, in the
+// same 13 launches: one CTA of four warps per (m, chunk, head), a warp per
+// 16 query rows (passes 1-3 over the keys staged in blocks of 4096 / d
+// rows: the online max and denominator, then p, a, dp and rowsum, then ds
+// and dq, by FMA), the (max, denominator, rowsum) of each query to the
+// stats segment of the workspace; after a block barrier a warp per 16 key
+// rows rebuilds p and ds from those statistics over the staged queries
+// and sums dv and dk (at d = 128 in a walk each). Shared memory is fixed
+// by d (65-118 KB) and no tile goes to the workspace. Registers (ptxas,
+// sm_90a): 128, 166, 168 and 236 at d = 16, 32, 64 and 128 (48 and 24
+// bytes of spill stores at 16 and 64); at d = 32 three CTAs per SM, by
+// registers and by shared memory alike. What stands over the bound: q k^T four
+// times (five at d = 128) and dA v^T three (with p v, ds k, p^T dA and
+// ds^T q, 11 S^2 d FMA products per head against the bound's 6), fed from
+// shared memory, and
+// the staged blocks re-walked per round of four query or key tiles.
 //
 // Under tensor parallelism (partial, the backward of the Pallas kernel's
 // partial=True) the core runs one shard's h heads of width Bq = h * d
 // (qkv, dqkv [R, 3Bq], dA and a [R, Bq]), the products take Bq
 // (dpt_bwd_common.cuh) and dx has no g term.
 
-#include "dpt_attn_bwd_wg.cuh"
+#include "dpt_intra_rowstat.cuh"
 
 namespace {
 
@@ -311,6 +329,10 @@ int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
   return launch_attention_bwd<float>(
       P, ws_act, ws_f32, stream,
       [spill](const DptAttnBwdParams& q, cudaStream_t s) {
+        if (q.f.S > kFirstDesignMaxS)   // the row-statistics core
+          return launch_rs_core_d<true>(
+              q.f, static_cast<const float*>(q.dA),
+              static_cast<float*>(q.dqkv), q.stats, s);
         switch (q.f.Bq / q.f.h) {
           case 16: return launch_core<16>(q, spill, s);
           case 32: return launch_core<32>(q, spill, s);
@@ -338,13 +360,21 @@ extern "C" {
 // Elements of the compute dtype (elem_bytes 2 for bf16, 4 for f32) the
 // intra backward needs after ctn_dpt_attn_bwd_workspace's n_act for its
 // spilled [S, S] (and, where needed, [S, d]) tiles: 0 where they fit in
-// shared memory, -1 where the core fits no way. B here is the heads' width
-// Bq = h * d.
+// shared memory, and in f32 above S = 256 (the row-statistics core keeps
+// no tile; its statistics have their segment in attn_bwd_layout), -1
+// where the core fits no way. B here is the heads' width Bq = h * d.
 int ctn_dpt_intra_bwd_spill(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
   if (elem_bytes == 2) {   // bf16: the core on mma.sync
     *n_spill = 0;          // (dpt_attn_bwd_wg.cuh) keeps no [S, S] tile
+    return 0;
+  }
+  if (S > kFirstDesignMaxS) {   // the row-statistics core: no tiles; its
+    // statistics have their segment in attn_bwd_layout (stats)
+    if (!core_head_width(B / h))
+      return static_cast<int>(cudaErrorInvalidValue);
+    *n_spill = 0;
     return 0;
   }
   switch (B / h) {

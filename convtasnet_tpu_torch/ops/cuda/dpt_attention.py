@@ -56,8 +56,6 @@ MAX_WIDTH = 256      # B at most this (the kernels' shared-memory tiles)
 # designs are templated on d too
 HEAD_DIMS = {"bfloat16": (16, 32, 64, 128), "float32": (16, 32, 64, 128)}
 INTRA_ROWS = 16      # the intra kernels' row tile: S pads up to a multiple
-INTRA_MAX_S = 256    # f32: S at most this (one chunk's tiles in shared
-                     # memory); the bf16 kernels take any S
 _ENTRY = {
     "inter": {torch.float32: "ctn_dpt_inter_f32",
               torch.bfloat16: "ctn_dpt_inter_bf16"},
@@ -88,8 +86,9 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
     of S frames whose heads, ``n_heads`` of them, span Bq channels (Bq ==
     B, or B / m for a head-group shard of m), in the compute ``dtype`` (a
     torch dtype or its name), or None where they take it: B a multiple of
-    64 up to 256, Bq a multiple of 64, a head width Bq / n_heads in
-    ``HEAD_DIMS`` of the dtype, and for the f32 intra kernels S <= 256."""
+    64 up to 256, Bq a multiple of 64 and a head width Bq / n_heads in
+    ``HEAD_DIMS`` of the dtype. Any S runs (the f32 intra kernels above
+    256 frames on their row-statistics core, ``csrc/dpt_intra_rowstat.cuh``)."""
     if B % TILE or B > MAX_WIDTH:
         return (f"the kernel needs B a multiple of {TILE} and at most "
                 f"{MAX_WIDTH}, got B={B}")
@@ -104,9 +103,6 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
     if Bq % n_heads or Bq // n_heads not in dims:
         return (f"the {name} kernel needs a head width in {dims}, got {Bq} "
                 f"channels with {n_heads} heads")
-    if kind == "intra" and S > INTRA_MAX_S and name != "bfloat16":
-        return (f"the intra kernel needs a chunk length S of at most "
-                f"{INTRA_MAX_S}, got S={S}")
     return None
 
 

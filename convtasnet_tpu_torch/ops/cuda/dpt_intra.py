@@ -46,9 +46,10 @@ def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
     sublayer of width B over chunks of S frames with ``n_heads`` heads over
     Bq channels in the compute ``dtype``, or None where they take it: the
     attention kernels' rules (head widths 16, 32, 64 and 128 in either
-    dtype), and in f32 S at most 256 (bf16 takes any S;
-    the wrappers pad S up to a multiple of 16 with masked frames:
-    ``dpt_attention.pad_chunks``)."""
+    dtype). Any S runs: in f32 the first designs up to 256 frames and the
+    row-statistics core above (``csrc/dpt_intra_rowstat.cuh``); the f32
+    kernels and the bf16 backward run S padded up to a multiple of 16 with
+    masked frames (``dpt_attention.pad_chunks``)."""
     return attention_shape_refusal("intra", B, S, Bq, n_heads, dtype)
 
 

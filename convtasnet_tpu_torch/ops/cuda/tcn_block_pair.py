@@ -38,16 +38,14 @@ from convtasnet_tpu_torch.ops.cuda.tcn_block import (
     shape_refusal as block_shape_refusal,
 )
 
-MAX_PAIR_WIDTH = 512   # B at most this: the boundary launch's [64, B] tile
-
 
 def shape_refusal(B: int, H: int, P: int, causal: bool) -> Optional[str]:
     """Why the pair kernels (B4, B5) refuse a pair of blocks of these
-    widths, or None where they take it: the single block's rules, and B
-    (padded as a block pads it) at most ``MAX_PAIR_WIDTH``."""
-    if padded(B) > MAX_PAIR_WIDTH:
-        return (f"the kernel needs B at most {MAX_PAIR_WIDTH}, got B={B}")
+    widths, or None where they take it: the single block's rules (each
+    block of a pair runs through the single block's launchers)."""
     return block_shape_refusal(B, H, P, causal)
+
+
 _ENTRY = {torch.float32: "ctn_tcn_block_pair_f32",
           torch.bfloat16: "ctn_tcn_block_pair_bf16"}
 

@@ -43,7 +43,13 @@ there, with ``torch.matmul`` at the forwards' products' shapes.
 ``--time f32-attention`` times only B7-B10 in f32 (their first designs)
 at [8, 25, 128, 256] with the real key mask at head widths 16, 32, 64 and
 128, forward and backward, each width a tree takes (a width only one tree
-takes is printed for that tree alone). ``--time``
+takes is printed for that tree alone); then B9 and B10 in f32 at d = 32
+at [8, 13, 256, 256] (the first design) and above 256 frames, on the
+row-statistics core, at [8, 10, 320, 256] and [8, 7, 512, 256], each with
+its bound (FMA products at 67 TFLOP/s, the larger of that and its bytes at
+3.35 TB/s) and ``scaled_dot_product_attention`` in f32 at its core's
+shapes ([8 n, 8, S, 32], no mask; forward, and forward + backward) as the
+library time. ``--time``
 (all) goes on, at the paper shape unless named: B1 (gLN and cLN causal),
 B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
 of dilations (1, 2) .. (64, 128), and beside each in the same turn two
@@ -81,7 +87,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every sublayer at the quality default (head width 32), the f32 attention
 # kernels also at head width 64 (4 heads), and the intra kernels at shapes
 # whose tiles fitted in shared memory before the workspace spill of the
-# [S, d] tiles, or spilled only the backward's [S, S] tiles
+# [S, d] tiles, or spilled only the backward's [S, S] tiles, and the f32
+# ones at S = 256 (the longest chunk of their first designs)
 CASES = [(kind, dtype, 128, 8, True, True)
          for kind in ("inter", "intra", "ffn")
          for dtype in ("bfloat16", "float32")]
@@ -89,7 +96,8 @@ CASES += [(kind, "float32", 128, 4, True, True)
           for kind in ("inter", "intra")]
 CASES += [("intra", "bfloat16", 256, 4, True, True),
           ("intra", "float32", 176, 4, True, True),
-          ("intra", "float32", 208, 4, False, True)]
+          ("intra", "float32", 208, 4, False, True),
+          ("intra", "float32", 256, 8, True, True)]
 B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
             for hs in (256, 128) for d in (1, 128)]
 # the partial modes: one shard of m of the quality default's widths
@@ -801,6 +809,75 @@ def _time_tp_and_ffn(torch, res: dict) -> None:
     del state
 
 
+# the f32 intra kernels' chunk lengths timed: the first design's longest
+# (n = 13 chunks of 4 s) and the row-statistics core's (n = 10, 7)
+F32_INTRA_LONG = ((13, 256), (10, 320), (7, 512))
+PEAK_F32_FMA = 67e12     # an H100 SXM's f32 rate outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+
+
+def _f32_intra_bound_ms(n: int, S: int, bwd: bool) -> float:
+    """The least time of B9 (or B10) in f32 at [8, n, S, 256], 8 heads of
+    32: its products (QKV, the core's q k^T and p v, out; the backward's
+    11 projection products and 6 core products, QKV recomputed) at the f32
+    FMA rate, or its x in and out (and g, dx) at the HBM rate."""
+    R, core = M * n * S, 2.0 * M * n * 8 * S * S * 32
+    flops = (11 * 2.0 * R * B * B + 6 * core if bwd
+             else 2.0 * R * B * 4 * B + 2 * core)
+    nbytes = (3 if bwd else 2) * R * B * 4
+    return max(flops / PEAK_F32_FMA, nbytes / PEAK_BYTES_S) * 1e3
+
+
+def _time_f32_intra_long(torch, res: dict, rn) -> None:
+    """B9 and B10 in f32 at d = 32 at ``F32_INTRA_LONG``'s shapes with the
+    real key mask, their bounds, and ``scaled_dot_product_attention`` in
+    f32 at their cores' shapes; a shape the tree refuses is left out
+    (the bound and the library time are printed all the same)."""
+    from convtasnet_tpu_torch.ops.cuda import dpt_intra
+
+    fwd, bwd = (dpt_intra.fused_intra_attention,
+                dpt_intra.fused_intra_attention_bwd)
+    kw = dict(n_heads=8)
+    for n, S in F32_INTRA_LONG:
+        valid = torch.arange(n * S, device="cuda").reshape(n, S) < 3199
+        x = rn(M, n, S, B)
+        gr = (rn(M, n * S, B) * valid.reshape(1, -1, 1)).reshape(x.shape)
+        w = (1.0 + 0.1 * rn(B), 0.1 * rn(B), rn(B, 3 * B, scale=B ** -0.5),
+             rn(B, B, scale=B ** -0.5),
+             torch.where(valid, 0.0, -1e9).to(torch.float32))
+        at = f"[8,{n},{S},256] f32 d=32"
+        res[f"bound b9 forward {at}"] = _f32_intra_bound_ms(n, S, False)
+        res[f"bound b10 backward {at}"] = _f32_intra_bound_ms(n, S, True)
+        qkv = [rn(M * n, 8, S, 32).requires_grad_() for _ in range(3)]
+        go = rn(M * n, 8, S, 32)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(*qkv)
+
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa(), qkv, go)
+
+        with torch.inference_mode():
+            _device_ms(torch, res, f"sdpa f32 forward [{8 * n},8,{S},32]",
+                       sdpa, 10)
+        _device_ms(torch, res, f"sdpa f32 fwd+bwd [{8 * n},8,{S},32]",
+                   sdpa_bwd, 5)
+        del qkv, go
+        try:
+            with torch.inference_mode():
+                fwd(x, *w, **kw)
+        except ValueError:   # a chunk length this tree does not take
+            continue
+        with torch.inference_mode():
+            res[f"b9 forward {at}"] = _ms(torch, lambda: fwd(x, *w, **kw), 10)
+            _device_ms(torch, res, f"b9 forward {at}",
+                       lambda: fwd(x, *w, **kw), 10)
+        res[f"b10 backward {at}"] = _ms(
+            torch, lambda: bwd(x, gr, *w, **kw), 5)
+        _device_ms(torch, res, f"b10 backward {at}",
+                   lambda: bwd(x, gr, *w, **kw), 5)
+
+
 def time_tree(path: str, what: str) -> None:
     """Times one tree into path: everything (``what`` "all") or the DPT
     forwards alone ("dpt-forward": ``_time_dpt_forwards`` and the
@@ -822,6 +899,7 @@ def time_tree(path: str, what: str) -> None:
 
     if what == "f32-attention":
         _time_f32_attention(torch, res, rn)
+        _time_f32_intra_long(torch, res, rn)
         torch.save(res, path)
         return
     _time_dpt_forwards(torch, res, rn)

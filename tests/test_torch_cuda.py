@@ -749,13 +749,16 @@ def test_pair_kernel_matches_twin(cuda, dtype, norm_type, causal, d1):
     assert _rel_l2(got, want) <= PAIR_TOL[dtype]
 
 
+@pytest.mark.parametrize("b", [64, 576, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
-def test_pair_kernel_equals_two_blocks(cuda, dtype, norm_type):
+def test_pair_kernel_equals_two_blocks(cuda, dtype, norm_type, b):
     """B4 runs B1's stages of its dtype and widths on the same operands (in
     bf16 the Hopper stages of csrc/tcn_block_hopper.cuh, in f32 the first
-    design's launches): two chained B1 calls give the same bits."""
-    x, pa, pb, _ = _pair_args(cuda, dtype, m=3, k=500, seed=5)
+    design's launches): two chained B1 calls give the same bits; also at
+    B = 576 (padded to 640) and 1024, past the Hopper stages' widths,
+    where the pair kernels take any B the single block takes."""
+    x, pa, pb, _ = _pair_args(cuda, dtype, m=3, k=500, b=b, seed=5)
     got = pair.fused_tcn_block_pair(x, pa, pb, d1=4, d2=8, causal=True,
                                     norm_type=norm_type)
     x1 = port.fused_tcn_block(x, *pa, dilation=4, causal=True,
@@ -1261,12 +1264,15 @@ def test_dpt_bwd_kernels_are_deterministic_and_check_shapes(cuda):
         x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.bfloat16, kind, 7, True)
         a, b = fused(x, g, *w, **kw), fused(x, g, *w, **kw)
         assert all(torch.equal(u, v) for u, v in zip(a, b)), kind
-    # a chunk longer than 256 frames (every S <= 256 runs, its tiles
-    # spilling to the workspace where shared memory cannot hold them)
-    x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
-                                   S=272, heads=2)
-    with pytest.raises(ValueError, match="at most 256"):
-        dpt_intra.fused_intra_attention_bwd(x, g, *w, **kw)
+    # a chunk longer than 256 frames runs on the f32 row-statistics core,
+    # against the exact twin and to the same bits twice
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.float32, "intra", 2,
+                                       True, S=272, heads=2)
+    a = dpt_intra.fused_intra_attention_bwd(x, g, *w, **kw)
+    b = dpt_intra.fused_intra_attention_bwd(x, g, *w, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    exact = DPT_BWD_FNS["intra"][1](x, g, *w, **kw)
+    _check_dpt_cotangents(a, exact, exact, valid, torch.float32)
     x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "inter", 3, True)
     with pytest.raises(ValueError, match="shape"):
         dpt_attention.fused_inter_attention_bwd(x, g[:, :2], *w, **kw)
@@ -1327,6 +1333,43 @@ def test_dpt_model_train_grads_kernel_vs_plain(cuda, dtype, heads):
     k_med = float(np.median([k for k, _ in dists]))
     p_med = float(np.median([p for _, p in dists]))
     assert k_med <= max(BWD_TOL[torch.bfloat16], 1.25 * p_med), dists
+
+
+@pytest.mark.parametrize("chunk", [272, 512])
+def test_dpt_model_f32_long_chunks(cuda, chunk):
+    """A small f32 DPT model (B=128, 4 heads of 32, 2 layers) with chunks
+    of 272 and 512 frames: no kernel's rule refuses it, every sublayer runs
+    both kernels (the intra ones on their row-statistics core), and one
+    training forward/backward agrees with the plain path's, the output
+    within the f32 forward bar and the gradient within the f32 step bar."""
+    from convtasnet_tpu_torch.losses.pit import pit_si_snr
+    from convtasnet_tpu_torch.ops.cuda import shapes
+
+    gen = torch.Generator().manual_seed(9)
+    mix = torch.randn(2, 10400, generator=gen).to(cuda)
+    src = torch.randn(2, 2, 10400, generator=gen).to(cuda)
+    lengths = torch.full((2,), 10400, device=cuda)
+    cfg = ConvTasNetConfig(n_filters=64, bottleneck=128, separator="dpt",
+                           dpt_chunk=chunk, dpt_layers=2, dpt_ff=256)
+    assert cfg.compute_dtype == "float32" and shapes.refusals(cfg) == {}
+
+    def run(use):
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).train()
+        before = _dpt_launch_counts()
+        est = model(mix)
+        snr, _ = pit_si_snr(src, est, lengths)
+        (-snr.mean()).backward()
+        launched = _dpt_launch_counts(before)
+        assert launched == {k: (n if use else 0) for k, n in (
+            ("inter", 2), ("intra", 2), ("ffn", 4), ("inter_bwd", 2),
+            ("intra_bwd", 2), ("ffn_bwd", 4))}, launched
+        return est.detach(), torch.cat([p.grad.reshape(-1)
+                                        for p in model.parameters()])
+
+    (out_k, grad_k), (out_p, grad_p) = run(True), run(False)
+    assert torch.isfinite(grad_k).all()
+    assert _rel_l2(out_k, out_p) <= TOL[torch.float32]
+    assert _rel_l2(grad_k, grad_p) <= BWD_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1713,8 +1756,8 @@ def test_dpt_fwd_bf16_head_widths_16_and_128(cuda, kind, d, m):
 
 def test_dpt_intra_bf16_takes_chunks_past_256(cuda):
     """bf16 chunks of 320 frames run through B9 and B10 (neither keeps a
-    per-chunk tile), within the DPT bars of their twins; f32 at S = 320
-    raises before any launch, naming its rule."""
+    per-chunk tile), within the DPT bars of their twins; so do f32 ones,
+    on the f32 row-statistics core, one launch each."""
     fused, twin = DPT_FNS["intra"]
     args, kw, valid = _dpt_args(cuda, torch.bfloat16, "intra", 2, True,
                                 S=320)
@@ -1729,16 +1772,63 @@ def test_dpt_intra_bf16_takes_chunks_past_256(cuda):
     got = bwd(x, g, *w, **kw)
     _check_dpt_cotangents(got, bwd_twin(x.float(), g.float(), *w, **kw),
                           bwd_twin(x, g, *w, **kw), valid, torch.bfloat16)
-    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 2, True, S=320)
+    args, kw, valid = _dpt_args(cuda, torch.float32, "intra", 2, True,
+                                S=320)
     counts = (fused.launches, bwd.launches)
-    with pytest.raises(ValueError, match="chunk length S of at most 256"):
-        with torch.inference_mode():
-            fused(*args, **kw)
-    x, g, w, kw, _ = _dpt_bwd_args(cuda, torch.float32, "intra", 2, True,
-                                   S=320)
-    with pytest.raises(ValueError, match="chunk length S of at most 256"):
-        bwd(x, g, *w, **kw)
-    assert (fused.launches, bwd.launches) == counts
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        want = twin(*args, **kw)
+    assert _rel_l2(_valid_rows(got, valid, 128),
+                   _valid_rows(want, valid, 128)) <= DPT_TOL[torch.float32]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.float32, "intra", 2,
+                                       True, S=320)
+    got = bwd(x, g, *w, **kw)
+    exact = bwd_twin(x, g, *w, **kw)
+    _check_dpt_cotangents(got, exact, exact, valid, torch.float32)
+    assert (fused.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+
+
+# The f32 intra kernels above 256 frames (csrc/dpt_intra_rowstat.cuh):
+# (S, heads at B = 128, shards m): head widths 16, 32 and 128 at S = 272
+# (half a 32-key sweep in the last tile), 320 and 512, and one head-group
+# shard of m = 2
+ROWSTAT_CASES = [(S, heads, 1) for S in (272, 320, 512) for heads in (8, 4, 1)]
+ROWSTAT_CASES += [(320, 4, 2)]
+
+
+@pytest.mark.parametrize("S,heads,m", ROWSTAT_CASES)
+def test_dpt_intra_f32_rowstat_core(cuda, S, heads, m):
+    """B9 and B10 (B9p and B10p on the last shard of m = 2) in f32 above
+    256 frames, on the row-statistics core: the forward and every
+    cotangent (dx on the valid rows) within the DPT f32 bars (1e-5) of the
+    exact twin, one launch each, and the same bits twice."""
+    fused, twin = DPT_FNS["intra"]
+    fused_b, twin_b = DPT_BWD_FNS["intra"]
+    args, kw, valid = _dpt_args(cuda, torch.float32, "intra", 3, True, S=S,
+                                heads=heads, seed=S + heads)
+    x, g, w, bkw, _ = _dpt_bwd_args(cuda, torch.float32, "intra", 3, True,
+                                    S=S, heads=heads, seed=S + heads + 1)
+    if m > 1:
+        args = _shard(args, "intra", m, m - 1)
+        w = list(_shard((x, *w), "intra", m, m - 1)[1:])
+        kw = bkw = dict(n_heads=heads // m, partial=True)
+    counter = "partial_launches" if m > 1 else "launches"
+    before = (getattr(fused, counter), getattr(fused_b, counter))
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        again = fused(*args, **kw)
+        want = twin(*args, **kw)
+    assert torch.equal(got, again)
+    err = _rel_l2(_valid_rows(got, valid, 128), _valid_rows(want, valid, 128))
+    assert err <= DPT_TOL[torch.float32], err
+    got = fused_b(x, g, *w, **bkw)
+    again = fused_b(x, g, *w, **bkw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    exact = twin_b(x, g, *w, **bkw)
+    _check_dpt_cotangents(got, exact, exact, valid, torch.float32)
+    assert (getattr(fused, counter), getattr(fused_b, counter)) == (
+        before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

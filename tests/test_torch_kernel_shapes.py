@@ -56,12 +56,12 @@ def _tcn_ok(B, H, P, causal):
                                       (17, True)])
 def test_tcn_block_and_pair_rules(B, H, P, causal):
     """B1-B3 take any B and H (padded to multiples of 64) and P <= 16, odd
-    unless causal; the pair (B4, B5) also B <= 512 once padded."""
+    unless causal; the pair (B4, B5), which runs each block through the
+    single block's launchers, has the same rule at any B."""
     got = tcn_block.shape_refusal(B, H, P, causal)
     assert (got is None) == bool(_tcn_ok(B, H, P, causal)), got
     pair = tcn_block_pair.shape_refusal(B, H, P, causal)
-    assert (pair is None) == bool(_tcn_ok(B, H, P, causal)
-                                  and -(-B // 64) * 64 <= 512), pair
+    assert pair == got
 
 
 @pytest.mark.parametrize("Hs", [64, 96, 192, 500, 512, 576])
@@ -75,8 +75,7 @@ def test_tp_stage2_rule(Hs, B):
 
 def _attention_ok(kind, B, S, Bq, heads):
     return (B % 64 == 0 and B <= 256 and Bq % heads == 0
-            and Bq // heads in (16, 32, 64, 128) and Bq % 64 == 0
-            and (kind == "inter" or S <= 256))
+            and Bq // heads in (16, 32, 64, 128) and Bq % 64 == 0)
 
 
 @pytest.mark.parametrize("kind", ["inter", "intra"])
@@ -87,7 +86,7 @@ def _attention_ok(kind, B, S, Bq, heads):
 def test_attention_rules(kind, B, Bq, heads, S):
     """B7-B10 (and partial modes) take B a multiple of 64 and <= 256, a
     head width of 16, 32, 64 or 128 and the heads' width Bq a multiple of
-    64; the f32 intra kernels also S <= 256 (padded to a multiple of
+    64, at any chunk length S (the intra kernels pad it to a multiple of
     16)."""
     got = dpt_attention.shape_refusal(kind, B, S, Bq, heads)
     assert (got is None) == _attention_ok(kind, B, S, Bq, heads), got
@@ -128,33 +127,27 @@ def test_attention_head_widths_by_dtype(kind, dtype, B, heads, m):
                                    torch.bfloat16])
 @pytest.mark.parametrize("S", [100, 256, 320, 1024])
 def test_intra_chunk_limit_is_f32_only(dtype, S):
-    """The intra chunk limit S <= 256 holds in f32 alone (the f32 kernels'
-    per-warp [16, S] rows and [S, S] tiles); the bf16 B9 and B10 keep no
-    per-chunk tile and take any S. The compute dtype comes as a name (a
-    configuration's) or a torch dtype (a wrapper's)."""
-    got = dpt_intra.shape_refusal(256, S, 256, 8, dtype)
-    f32 = str(dtype).replace("torch.", "") == "float32"
-    if f32 and S > 256:
-        assert got == ("the intra kernel needs a chunk length S of at most "
-                       f"256, got S={S}")
-    else:
-        assert got is None
+    """No dtype limits the intra chunk length any more: the f32 B9 and B10
+    run S above 256 on their row-statistics core (no [16, S] or [S, S]
+    tile), and the bf16 ones keep no per-chunk tile either. The compute
+    dtype comes as a name (a configuration's) or a torch dtype (a
+    wrapper's)."""
+    assert not hasattr(dpt_attention, "INTRA_MAX_S")
+    assert dpt_intra.shape_refusal(256, S, 256, 8, dtype) is None
     assert dpt_attention.shape_refusal("inter", 256, S, 256, 8, dtype) is None
 
 
 @pytest.mark.parametrize("heads", [2, 16])
 def test_f32_dpt_head_widths_refuse_only_long_chunks(heads):
     """An f32 DPT at B = 256 with 2 heads (d = 128) or 16 (d = 16) passes
-    every kernel's rule at the quality default's 128-frame chunks; at 272
-    frames it is refused for the intra chunk length alone, in those words
-    (C2), and the inter kernels still take it."""
+    every kernel's rule at the quality default's 128-frame chunks, and at
+    272 frames too: the f32 intra kernels take chunks above 256 frames on
+    their row-statistics core, so no kind is refused."""
     cfg = ConvTasNetConfig(separator="dpt", dpt_heads=heads)
     assert cfg.compute_dtype == "float32"
     assert shapes.refusals(cfg) == {}
     long = dataclasses.replace(cfg, dpt_chunk=272)
-    assert shapes.refusals(long) == {
-        "intra": "the intra kernel needs a chunk length S of at most 256, "
-                 "got S=272"}
+    assert shapes.refusals(long) == {}
 
 
 @pytest.mark.parametrize("B", [64, 256, 320, 96])
@@ -169,7 +162,7 @@ def test_ffn_rule(B):
     (dict(), 1, False, {}),
     (dict(hidden=96), 1, False, {}),
     (dict(hidden=96), 1, True, {}),
-    (dict(bottleneck=576), 1, True, {"pair"}),
+    (dict(bottleneck=576), 1, True, {}),
     (dict(bottleneck=576), 1, False, {}),
     (dict(conv_kernel=4), 1, False, {"block"}),
     (dict(conv_kernel=4, causal=True, norm_type="cLN"), 1, True, {}),
@@ -182,8 +175,8 @@ def test_ffn_rule(B):
     (dict(separator="dpt"), 8, False, {"intra", "inter"}),
     (dict(separator="dpt", dpt_ff=1280), 4, False, {}),
     (dict(hidden=1152), 2, False, {"stage2"}),
-    (dict(separator="dpt", dpt_chunk=272), 1, False, {"intra"}),
-    (dict(separator="dpt", dpt_chunk=320), 1, False, {"intra"}),
+    (dict(separator="dpt", dpt_chunk=272), 1, False, {}),
+    (dict(separator="dpt", dpt_chunk=320), 1, False, {}),
     (dict(separator="dpt", dpt_chunk=320, compute_dtype="bfloat16"), 1,
      False, {}),
     (dict(separator="dpt", dpt_chunk=320, compute_dtype="bfloat16"), 2,
@@ -195,10 +188,8 @@ def test_ffn_rule(B):
     (dict(separator="dpt", dpt_heads=16), 2, False, {}),
     (dict(separator="dpt", dpt_heads=2), 2, False, {}),
     (dict(separator="dpt", dpt_heads=16), 4, False, {}),
-    (dict(separator="dpt", dpt_heads=16, dpt_chunk=272), 1, False,
-     {"intra"}),
-    (dict(separator="dpt", dpt_heads=2, dpt_chunk=272), 1, False,
-     {"intra"}),
+    (dict(separator="dpt", dpt_heads=16, dpt_chunk=272), 1, False, {}),
+    (dict(separator="dpt", dpt_heads=2, dpt_chunk=272), 1, False, {}),
     (dict(separator="dpt", dpt_heads=16, compute_dtype="bfloat16"), 1,
      False, {}),
     (dict(separator="dpt", dpt_heads=2, compute_dtype="bfloat16"), 1,
@@ -307,19 +298,25 @@ def _jax_variables(cfg, seed=0):
           num_blocks=3, num_repeats=1), True),
     (dict(n_filters=32, kernel_size=8, bottleneck=64, separator="dpt",
           dpt_chunk=100, dpt_layers=1, dpt_heads=2, dpt_ff=128), False),
-], ids=["tcn-H96", "dpt-S100"])
+    (dict(n_filters=32, kernel_size=8, bottleneck=64, separator="dpt",
+          dpt_chunk=272, dpt_layers=1, dpt_heads=2, dpt_ff=128), False),
+], ids=["tcn-H96", "dpt-S100", "dpt-S272"])
 def test_padded_configuration_matches_jax(overrides, jax_pallas):
     """At a configuration the kernels take only padded, the port's
     forward through its kernels (their CPU twins here) matches the JAX
-    model within 5e-4 in f32, on the same weights. JAX runs as its own CPU
-    tests run each family: the TCN with its kernels on (interpret mode),
-    the DPT on its XLA path."""
+    model within 5e-4 in f32, on the same weights; and an f32 DPT with
+    272-frame chunks, which the f32 intra kernels take on their
+    row-statistics core (above 256 frames). JAX runs as its own CPU tests
+    run each family: the TCN with its kernels on (interpret mode), the
+    DPT on its XLA path."""
     cfg = ConvTasNetConfig(**overrides)
     assert shapes.refusals(cfg) == {}
     variables = _jax_variables(cfg)
     model = ConvTasNet(cfg).eval()
     model.load_state_dict(state_dict_from_jax(variables, cfg))
-    T = 800   # 199 frames: two 100-frame chunks, the second padded
+    # 199 frames: two 100-frame chunks, the second padded; at 272-frame
+    # chunks 299 frames, the second chunk padded
+    T = 1200 if cfg.dpt_chunk > 256 else 800
     mix = np.random.default_rng(1).standard_normal((2, T)).astype(np.float32)
     with torch.no_grad():
         w = model.encoder(torch.from_numpy(mix))

@@ -212,3 +212,18 @@ def test_summarize_pairs_of_the_first_design():
     assert "b4 gLN mean over pairs, this: 0.3100 ms" in lines
     row = next(line for line in lines if line.startswith("b4 gLN f32 d=(1,2)"))
     assert row.endswith("means 2.4000 -> 2.0000 (x0.833)")
+
+
+@pytest.mark.parametrize("n,S,fwd_ms,bwd_ms", [(10, 320, 0.326, 0.927),
+                                               (7, 512, 0.449, 1.290)])
+def test_f32_intra_bounds(n, S, fwd_ms, bwd_ms):
+    """The least times of B9 and B10 in f32 at [8, n, S, 256], 8 heads of
+    32, that ``--time f32-attention`` prints beside their device times:
+    B9's QKV, q k^T, p v and out products (30.1 GFLOP at S = 512) and
+    B10's 11 projection and 6 core products (86.4 GFLOP) at 67 TFLOP/s,
+    where their bytes take less."""
+    assert kvp._f32_intra_bound_ms(n, S, False) == pytest.approx(fwd_ms,
+                                                                 abs=5e-4)
+    assert kvp._f32_intra_bound_ms(n, S, True) == pytest.approx(bwd_ms,
+                                                                abs=5e-4)
+    assert (n, S) in kvp.F32_INTRA_LONG
