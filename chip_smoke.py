@@ -74,7 +74,7 @@ Phases, each raising on failure (so the script exits nonzero):
    96 and a DPT quality default with 100-frame chunks and F = 1000, widths
    off the kernels' tiles, each serve a batch and train a step through the
    kernels, padded, within the bf16 forward bar of the plain model, and a
-   DPT at B = 320, which no kernel takes, raises before any launch;
+   DPT at B = 576, which no kernel takes, raises before any launch;
 6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
    through the block pairs (``CONVTASNET_PAIR_FUSION=1``: B4 16 times per
@@ -125,7 +125,15 @@ Phases, each raising on failure (so the script exits nonzero):
    on the card; then the same in f32 with 512-frame chunks (``--dpt-chunk
    512``, B9 and B10 on their row-statistics core), its package through
    ``separate`` on the kernels (4 / 4 / 8 launches) and on the plain ops,
-   the wavs within 2e-3 of each other;
+   the wavs within 2e-3 of each other; then the DPT at ``--B 512`` (16
+   heads of 32, F = 1024; its kernels on their wide routes above 256,
+   ``phase_dpt_wide``): B7-B12 alone at [8, 25, 128, 512] and 320, and
+   B7p-B12p at 512 on one shard of two, against their twins (4e-2 / 1e-5;
+   bf16 also at its rounding points), one forward and one train step in
+   bf16 and f32 kernel path against plain path (the forward and step
+   bars; exact launch counts), ``cli train --B 512 --n-model 2`` through
+   B7p-B12p and its package through ``cli separate --tensor-parallel 2``,
+   and each kernel's device time there beside its twin's and its bound;
 9. the streaming separator on the card, f32, the paper widths with the
    causal cLN norm: two 4 s mixtures in 8 ms chunks rounded down to whole
    hops (7.5 ms), the stream plus its flush against the offline causal
@@ -229,6 +237,7 @@ DILATIONS = [2 ** i for i in range(8)]
 # an H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth (at
 # its full 700 W power limit): the floors that bound_ms is taken against
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores (FMA)
 PEAK_BYTES_S = 3.35e12
 GRAD_NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
               "dg1", "db1", "dg2", "db2")
@@ -1390,24 +1399,23 @@ DPT_KINDS = ("inter", "intra", "ffn")
 
 
 def dpt_inputs(torch, kind: str, dtype, n: int, K: int, seed: int, M=8,
-               S=DPT_S, x_scale=1.0, heads=DPT_HEADS):
+               S=DPT_S, x_scale=1.0, heads=DPT_HEADS, B=DPT_B, F=DPT_F):
     """Seeded operands of one DPT sublayer on the card at the quality
-    default's widths (``heads`` heads), with the key mask of K real frames
-    out of n*S, and x of standard deviation x_scale: (args, kwargs, valid
-    [n, S])."""
+    default's widths (or width B, hidden width F; ``heads`` heads), with
+    the key mask of K real frames out of n*S, and x of standard deviation
+    x_scale: (args, kwargs, valid [n, S])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * scale
 
-    B = DPT_B
     valid = torch.arange(n * S, device="cuda").reshape(n, S) < K
     x = rn(M, n, S, B, scale=x_scale).to(dtype)
     gamma, beta = 1.0 + 0.1 * rn(B), 0.1 * rn(B)
     if kind == "ffn":
         args = (x.reshape(M, n * S, B), gamma, beta,
-                rn(B, DPT_F, scale=B ** -0.5).to(dtype), 0.1 * rn(DPT_F),
-                rn(DPT_F, B, scale=DPT_F ** -0.5).to(dtype), 0.1 * rn(B))
+                rn(B, F, scale=B ** -0.5).to(dtype), 0.1 * rn(F),
+                rn(F, B, scale=F ** -0.5).to(dtype), 0.1 * rn(B))
         return args, {}, valid
     bias = torch.where(valid, 0.0, -1e9).to(torch.float32)
     args = (x, gamma, beta, rn(B, 3 * B, scale=B ** -0.5).to(dtype),
@@ -1515,16 +1523,16 @@ def dpt_bwd_fns(dpt, kind: str):
 
 
 def dpt_bwd_inputs(torch, kind: str, dtype, n: int, K: int, seed: int,
-                   S=DPT_S, heads=DPT_HEADS):
+                   S=DPT_S, heads=DPT_HEADS, B=DPT_B, F=DPT_F):
     """(x, g, the f32 weights, kwargs, valid [n, S]): ``dpt_inputs`` with
     the weights in f32, as the model keeps them, and a random cotangent
     that is zero on the padded rows, as the model delivers it."""
     args, kw, valid = dpt_inputs(torch, kind, dtype, n, K, seed, S=S,
-                                 heads=heads)
+                                 heads=heads, B=B, F=F)
     x = args[0]
     g = torch.randn(x.shape, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed + 1))
-    g = (g.reshape(8, -1, DPT_B) * valid.reshape(1, -1, 1)).reshape(x.shape)
+    g = (g.reshape(8, -1, B) * valid.reshape(1, -1, 1)).reshape(x.shape)
     weights = [None if a is None else a.float() for a in args[1:]]
     return x, g.to(dtype), weights, kw, valid
 
@@ -1586,7 +1594,8 @@ def compare_cotangents(torch, head: str, names, got, exact, same, valid,
     rows = valid.reshape(-1)
 
     def pick(t, i):
-        return t.reshape(t.shape[0], -1, DPT_B)[:, rows] if i == 0 else t
+        return t.reshape(t.shape[0], -1, t.shape[-1])[:, rows] if i == 0 \
+            else t
 
     errs, twin_errs, same_errs = {}, {}, {}
     worst = 0.0
@@ -1795,8 +1804,9 @@ def phase_auto_padded(torch, k, dpt):
     launches its kernel (TCN: 32 B1 in each forward, 32 B2; DPT: 4 B7, 4
     B9 and 8 B11 in each forward, 4 B8, 4 B10 and 8 B12), the served
     output finite and within the bf16 forward bar of the plain model, the
-    step's loss finite. A shape no kernel takes (the DPT at B = 320)
-    raises under auto as with ``use_pallas=True``, before any launch."""
+    step's loss finite. A shape no kernel takes (the DPT at B = 576, above
+    the kernels' 512) raises under auto as with ``use_pallas=True``, before
+    any launch."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.ops.cuda import shapes
@@ -1847,7 +1857,7 @@ def phase_auto_padded(torch, k, dpt):
               f"loss {loss}")
         del plain, state
     wide = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16",
-                            bottleneck=320, dpt_heads=5)
+                            bottleneck=576, dpt_heads=18)
     tcn_reset(k)
     reset_dpt_all(dpt)
     for use_pallas in (None, True):
@@ -1858,14 +1868,14 @@ def phase_auto_padded(torch, k, dpt):
             raised = "nothing"
         except ValueError as e:
             raised = str(e)
-        print(f"auto mode, dpt B=320: use_pallas={use_pallas} raises "
+        print(f"auto mode, dpt B=576: use_pallas={use_pallas} raises "
               f"{raised!r}", flush=True)
-        check("at most 256" in raised,
-              f"dpt B=320 use_pallas={use_pallas} raised {raised!r}")
+        check("at most 512" in raised,
+              f"dpt B=576 use_pallas={use_pallas} raised {raised!r}")
         del model
     launched = {**tcn_counts(k), **{kind: dpt_fns(dpt, kind)[0].launches
                                     for kind in DPT_KINDS}}
-    check(not any(launched.values()), f"dpt B=320 launched {launched}")
+    check(not any(launched.values()), f"dpt B=576 launched {launched}")
     print(f"auto mode phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -2138,8 +2148,8 @@ def dpt_step_medians(torch, dpt, cfg, sd, seeds, label: str, kinds,
     seeds, within max(8e-2, 1.25x): at random init each seed's distance is
     one draw of 1 / c of the least correlated (estimate, source) pair
     (PERF.md §6). The backward kernels
-    of ``kinds`` launch once per layer on the kernel path, none on the
-    plain paths."""
+    of ``kinds`` launch once per layer (the FFN's twice) on the kernel
+    path, none on the plain paths."""
     import dataclasses
 
     from convtasnet_tpu_torch import SolverConfig
@@ -2161,8 +2171,8 @@ def dpt_step_medians(torch, dpt, cfg, sd, seeds, label: str, kinds,
             loss = float(ts._loss_and_grads(state.model, step_batch, 0))
             torch.cuda.synchronize()
             counts = {k: dpt_bwd_fns(dpt, k)[0].launches for k in kinds}
-            check(counts == dict.fromkeys(kinds, cfg.dpt_layers if flag
-                                          else 0),
+            check(counts == {k: (2 if k == "ffn" else 1) * cfg.dpt_layers
+                             if flag else 0 for k in kinds},
                   f"dpt {label} {path}: backward launches {counts}")
             res[path] = (loss, torch.cat([
                 p.grad.detach().float().reshape(-1)
@@ -2291,6 +2301,206 @@ def phase_dpt_head_widths(torch, dpt):
                                  ("inter", "intra"), batch)
             else:
                 dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
+
+
+WIDE_B = 512   # the widest DPT the kernels take (dpt_attention.MAX_WIDTH)
+# (width, shards): the kernels alone at [8, 25, 128, B], B / 32 heads: B7-B12
+# at 512 and 320, and B7p-B12p on the last shard of two at 512
+WIDE_CASES = ((WIDE_B, 1), (WIDE_B, 2), (320, 1))
+
+
+# the bf16 forwards at their rounding points above 256: B6's order bar,
+# 1e-3, in full mode; twice that for a partial output, which lacks x: the
+# same order noise weighs about twice as much in it (at B = 256
+# phase_dpt_partial_vs_twin reads 6.1e-4 on one shard of two of B9, and
+# phase_dpt_kernels_vs_twin 3.0e-4 in full mode)
+WIDE_ORDER_TOL = {False: 1e-3, True: 2e-3}
+
+
+def wide_kernels_vs_twins(torch, dpt, failures: list) -> dict:
+    """Each of B7-B12 alone (and B7p-B12p on the last shard of two) at
+    ``WIDE_CASES``' widths, [8, 25, 128, B] with the real key mask, B / 32
+    heads, F = 1024, bf16 and f32, against its twin: the forward within
+    4e-2 / 1e-5 on the valid rows (bf16 also at its rounding points,
+    ``WIDE_ORDER_TOL``), the backward as ``compare_cotangents``. Appends
+    what fails; returns the worst max_abs_err per kernel name."""
+    worst = {}
+    for B, m in WIDE_CASES:
+        heads = B // 32
+        for kind in DPT_KINDS:
+            fused, twin = dpt_fns(dpt, kind)
+            fused_b, twin_b = dpt_bwd_fns(dpt, kind)
+            kw = ({} if kind == "ffn" else {"n_heads": heads // m})
+            if m > 1:
+                kw["partial"] = True
+            names = DPT_GRAD_NAMES[kind]
+            tag = f"dpt {kind}{' partial' if m > 1 else ''}"
+            shard = f", shard {m - 1} of {m}" if m > 1 else ""
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype).split(".")[-1]
+                args, _, valid = dpt_inputs(torch, kind, dtype, 25, 3199,
+                                            seed=7000 + B + m, heads=heads,
+                                            B=B)
+                if m > 1:
+                    args = dpt_shard(torch, args, kind, m, m - 1)
+                with torch.inference_mode():
+                    got = fused(*args, **kw)
+                    torch.cuda.synchronize()
+                    want = twin(*args, **kw)
+                rows = valid.reshape(-1)
+                got_v = got.reshape(8, -1, B)[:, rows]
+                want_v = want.reshape(8, -1, B)[:, rows]
+                err = rel_l2(got_v, want_v)
+                worst[tag] = max(worst.get(tag, 0.0), (
+                    got_v.float() - want_v.float()).abs().max().item())
+                at, ok = "", err <= DPT_TOL[name]
+                if dtype == torch.bfloat16:
+                    with torch.inference_mode():
+                        rounded = rounded_forward(dpt, kind, args, kw)
+                    order = rel_l2(got_v, rounded.reshape(8, -1, B)[:, rows])
+                    bar = WIDE_ORDER_TOL[m > 1]
+                    at = (f", at its rounding points {order:.3e} (bar "
+                          f"{bar:.0e})")
+                    ok = ok and order <= bar
+                print(f"{tag} kernel vs twin [8,25,{DPT_S},{B}]{shard} "
+                      f"{name}: rel_l2 {err:.3e} (bar {DPT_TOL[name]:.0e})"
+                      f"{at}", flush=True)
+                if not (ok and torch.isfinite(got_v).all().item()):
+                    failures.append(f"{tag} B={B} {name}: {err:.3e}{at}")
+                x, g, w, _, valid = dpt_bwd_inputs(torch, kind, dtype, 25,
+                                                   3199, seed=7100 + B + m,
+                                                   heads=heads, B=B)
+                if m > 1:
+                    x, *w = dpt_shard(torch, (x, *w), kind, m, m - 1)
+                got = fused_b(x, g, *w, **kw)
+                torch.cuda.synchronize()
+                exact = twin_b(x.float(), g.float(), *w, **kw)
+                same = twin_b(x, g, *w, **kw) if dtype == torch.bfloat16 \
+                    else exact
+                n_g = len(names)
+                if kind == "ffn" and m > 1:   # db_down: zero
+                    if got[-1].any().item():
+                        failures.append(f"{tag} B={B} {name}: db_down not 0")
+                    n_g -= 1
+                worst[tag + " bwd"] = max(
+                    worst.get(tag + " bwd", 0.0), compare_cotangents(
+                        torch, f"{tag} bwd kernel vs twin [8,25,{DPT_S},{B}]"
+                        f"{shard} {name}", names[:n_g], got[:n_g],
+                        exact[:n_g], same[:n_g], valid, dtype, failures))
+    return worst
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name with its template arguments, without
+    its namespaces and parameters ("attn_lq_kernel<128, false, true>")."""
+    import re
+
+    key = key.replace("(anonymous namespace)::", "")
+    for name, targs in re.findall(r"(\w+)\s*(<[^()]*>)?\s*\(", key):
+        if name != "void":
+            return name + targs
+    return key
+
+
+def wide_timings(torch, dpt, card: str) -> None:
+    """Device time per call of each DPT kernel at [8, 25, 128, 512] (16
+    heads of 32; the FFN at [8, 3200, 512], F = 1024) with the real key
+    mask, forward and backward, full and on one shard of two, bf16 and
+    f32, beside its twin's time (CUDA events) and its bound (the FLOP at
+    989 TFLOP/s bf16 or 67 TFLOP/s f32 FMA, or the bytes at 3.35 TB/s)
+    and each launch's share; and the f32 B11 and B12 at the quality
+    default's width [8, 3200, 256]."""
+    cases = [(WIDE_B, m, dtype) for dtype in (torch.bfloat16, torch.float32)
+             for m in (1, 2)]
+    cases += [(DPT_B, 1, torch.float32)]
+    for B, m, dtype in cases:
+        name = str(dtype).split(".")[-1]
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        heads = B // 32
+        kinds = DPT_KINDS if B == WIDE_B else ("ffn",)
+        for kind in kinds:
+            kw = ({} if kind == "ffn" else {"n_heads": heads // m})
+            if m > 1:
+                kw["partial"] = True
+            fused, twin = dpt_fns(dpt, kind)
+            fused_b, twin_b = dpt_bwd_fns(dpt, kind)
+            args, _, _ = dpt_inputs(torch, kind, dtype, 25, 3199, seed=7300,
+                                    heads=heads, B=B)
+            x, g, w, _, _ = dpt_bwd_inputs(torch, kind, dtype, 25, 3199,
+                                           seed=7300, heads=heads, B=B)
+            if m > 1:
+                args = dpt_shard(torch, args, kind, m, m - 1)
+                x, *w = dpt_shard(torch, (x, *w), kind, m, m - 1)
+            with torch.inference_mode():
+                ms, split = device_ms(torch, lambda: fused(*args, **kw), 10)
+                plain_ms = time_ms(torch, lambda: twin(*args, **kw), 5)
+            bound = kernel_bound(*dpt_work(kind, args), peak=peak)
+            bms, bsplit = device_ms(torch, lambda: fused_b(x, g, *w, **kw),
+                                    5)
+            bplain_ms = time_ms(torch, lambda: twin_b(x, g, *w, **kw), 3)
+            bbound = kernel_bound(*dpt_bwd_work(
+                kind, (x, g, *w), fused_b(x, g, *w, **kw)), peak=peak)
+            shape = (f"[8,3200,{B}] F={DPT_F // m}" if kind == "ffn"
+                     else f"[8,25,{DPT_S},{B}]")
+            mode = f" partial m={m}" if m > 1 else ""
+            for what, t, tp, (b, by), parts in (
+                    ("forward", ms, plain_ms, bound, split),
+                    ("backward", bms, bplain_ms, bbound, bsplit)):
+                top = "; ".join(
+                    f"{kernel_name(k)} {1e3 * v:.1f}"
+                    for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
+                print(f"timing [{card}] dpt {kind}{mode} {what} {shape} "
+                      f"{name}: device {t:.4f} ms, twin {tp:.4f} ms, bound "
+                      f"{b:.4f} ms ({by}); us by launch: {top}", flush=True)
+
+
+def phase_dpt_wide(torch, dpt, work: str, data: str, json_dir: str,
+                   card: str):
+    """The DPT at ``--B 512``: 16 heads of 32, F = 1024, 128-frame chunks,
+    4 layers, otherwise the quality default, random weights from seed 0;
+    its sublayer kernels run their wide routes above 256
+    (``csrc/dpt_attn_bwd_wg.cuh``, ``dpt_ffn.cu``, ``dpt_ffn_bwd.cu``, the
+    f32 inter cores taking more than 8 heads in turn). Each kernel alone
+    against its twin (``wide_kernels_vs_twins``: B7-B12 at B = 512 and
+    320, B7p-B12p at 512); in bf16 and f32 one forward (B=4 x 4 s) kernel
+    path against plain path within the forward bar, B7 and B9 once per
+    layer and B11 twice (``dpt_forward_vs_plain``), and one train step,
+    bf16 as ``dpt_step_medians`` holds it over three seeds, f32 within the
+    f32 step bar (``dpt_f32_step_vs_plain``), exact launch counts; then
+    ``cli train --B 512 --n-model 2`` through B7p-B12p and its package
+    through ``cli separate --tensor-parallel 2``
+    (``phase_dpt_tp_train_path``); and ``wide_timings``."""
+    import dataclasses
+
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
+    from convtasnet_tpu_torch.ops.cuda import shapes
+
+    t0 = time.perf_counter()
+    failures = []
+    worst = wide_kernels_vs_twins(torch, dpt, failures)
+    check(not failures, "DPT kernels above 256 disagree with their twins: "
+          + "; ".join(failures))
+    batch = train_batch(torch, 4, 31)
+    label = f"--B {WIDE_B}"
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(dpt_config(dtype), bottleneck=WIDE_B)
+        check(cfg.dpt_num_heads == 16 and not shapes.refusals(cfg),
+              f"dpt {label}: heads {cfg.dpt_num_heads}, refused "
+              f"{shapes.refusals(cfg)}")
+        sd = init_params(cfg, torch.Generator().manual_seed(0))
+        dpt_forward_vs_plain(torch, dpt, cfg, sd, batch[0], label)
+        if dtype == "bfloat16":
+            dpt_step_medians(torch, dpt, cfg, sd, (31, 32, 33), label,
+                             DPT_KINDS, batch)
+        else:
+            dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
+    tp = phase_dpt_tp_train_path(torch, dpt, work, data, json_dir,
+                                 width=WIDE_B)
+    wide_timings(torch, dpt, card)
+    print(f"dpt {label} phase: worst max_abs_err vs twins "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }, TP train "
+          f"partial launches {tp}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def phase_dpt_chunk256_step(torch, dpt):
@@ -2754,9 +2964,11 @@ def phase_dpt_tp_forward(torch, dpt):
           flush=True)
 
 
-def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
+def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str,
+                            width: int = DPT_B):
     """``cli train --separator dpt --n-model 2 --use-pallas 1`` at the DPT
-    quality default, bf16, on the corpus of ``make_corpus`` (one epoch of 4
+    quality default (or at ``--B width``, B / 32 heads), bf16, on the
+    corpus of ``make_corpus`` (one epoch of 4
     steps at batch 8 and a cv pass): every loss finite, its placement line
     printed, the partial kernels launched 2 x (4, 4, 8) times per step
     (forward and backward) and per cv batch (forward), no full-mode launch;
@@ -2772,9 +2984,11 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
     from convtasnet_tpu_torch import cli
     from convtasnet_tpu_torch.data.audio_io import read_wav
 
-    cfg = dpt_config()
+    import dataclasses
+
+    cfg = dataclasses.replace(dpt_config(), bottleneck=width)
     n_cv, m = 2, 2
-    out = os.path.join(work, "exp_dpt_tp")
+    out = os.path.join(work, f"exp_dpt_tp_B{width}")
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
     buf = io.StringIO()
     reset_dpt_all(dpt)
@@ -2784,8 +2998,9 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
             "train", "--train-dir", os.path.join(json_dir, "tr"),
             "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
             out, "--device", "cuda", "--separator", "dpt", "--compute-dtype",
-            "bfloat16", "--use-pallas", "1", "--n-model", str(m), "--epochs",
-            "1", "--batch-size", "8", "--print-freq", "1"])
+            "bfloat16", "--use-pallas", "1", "--n-model", str(m), "--B",
+            str(width), "--epochs", "1", "--batch-size", "8",
+            "--print-freq", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dpt_partial_counts(dpt)
@@ -2796,7 +3011,7 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
         records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in records if r["kind"] == "iter"]
     n_steps = len(losses)
-    print(f"cli train --separator dpt --n-model {m} (quality default, bf16, "
+    print(f"cli train --separator dpt --n-model {m} --B {width} (bf16, "
           f"--use-pallas 1; {placement}): {n_steps} steps, losses "
           f"{[round(x, 4) for x in losses]}, cv loss "
           f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
@@ -2815,7 +3030,7 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
     outs = {}
     for label, flags in (("tensor-parallel", ["--tensor-parallel", str(m)]),
                          ("unsharded", [])):
-        sep_dir = os.path.join(work, f"sep_dpt_tp_{label}")
+        sep_dir = os.path.join(work, f"sep_dpt_tp_B{width}_{label}")
         reset_dpt_all(dpt)
         with contextlib.redirect_stdout(io.StringIO()):
             rc = cli.main(["separate", "--model-path", pkg, "--mix-dir",
@@ -2833,7 +3048,8 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
             for f in sorted(os.listdir(sep_dir)) if "_s" in f])
     err = rel_l2(torch.from_numpy(outs["tensor-parallel"]),
                  torch.from_numpy(outs["unsharded"]))
-    print(f"cli separate --tensor-parallel {m} with the trained DPT package: "
+    print(f"cli separate --tensor-parallel {m} with the trained DPT package "
+          f"(B={width}): "
           f"partial launches {dpt_partial_want(m, cfg.dpt_layers, 1, 0)} (1 "
           f"batch), wavs vs the unsharded cli separate rel_l2 {err:.3e} (bar "
           f"{TOL['bfloat16']:.0e}); train and separate phase "
@@ -2842,10 +3058,11 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str):
           f"{err:.3e}")
     return counts
 
-def kernel_bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the bf16 tensor-core time and the
-    memory time at an H100 SXM's published peaks."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+def kernel_bound(flops: float, nbytes: float, peak=PEAK_BF16_FLOPS):
+    """(bound_ms, bound_by): the larger of the operations' time (at the
+    bf16 tensor-core peak, or ``peak``: PEAK_F32_FLOPS for FMA products in
+    f32) and the memory time at an H100 SXM's published peaks."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -3944,6 +4161,10 @@ def main() -> int:
         phase_dpt_tp_forward(torch, dpt)
         dpt_tp_train = phase_dpt_tp_train_path(torch, dpt, work, data,
                                                json_dir)
+        # the DPT at --B 512, its kernels on their wide routes: each alone
+        # against its twin, served and stepped against plain, cli train
+        # --n-model 2 through B7p-B12p, and their device times
+        phase_dpt_wide(torch, dpt, work, data, json_dir, card)
         phase_streaming(torch, k, work, card)
         # the ways in: reference PyTorch packages, the JAX package's
         # checkpoints, and a raw shorten-compressed corpus through stage 0

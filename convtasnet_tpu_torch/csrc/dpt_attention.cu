@@ -35,7 +35,9 @@
 //       round(p) and a on mma.sync; keys past n in the last 16-key tile
 //       masked with -inf, so any n >= 1 runs (n = 1: p = 1);
 //   out x + round(a @ W_out) on wgmma per 128-row tile (partial: the
-//       product alone).
+//       product alone; rows_wg_kernel).
+// Above B = 256 (to 512) F1 keeps one resident tile and out runs
+// 256-column tiles, as B9 does (dpt_attn_bwd_wg.cuh's note).
 // At the default the core's 8,192 CTAs read qkv once (39.3 MB, each CTA a
 // 64-byte head slice of 25 rows 196 KB apart) and write a (13.1 MB), a
 // floor of ~16 us; it reads ~30 us (PERF.md), under the ~35 us at which a
@@ -52,9 +54,10 @@
 // score, rounds p = exp(score - max) / sum and accumulates p v in f32; and
 // out_proj_residual_kernel (dpt_common.cuh). Head widths 16, 32, 64 and
 // 128. A block has at most 8 warps: with more heads than that (16 heads of
-// 16 at B = 256; only d = 16 has them) each warp takes the heads warp,
-// warp + warps, ... in turn (core_warps). At d = 128 a lane's q, acc and k
-// or v rows would not fit
+// 16 at B = 256, 10 to 16 heads of 32 at B = 320 to 512) each warp takes
+// the heads warp, warp + warps, ... in turn (core_warps); with 8 heads or
+// fewer that is one head a warp, as before. At d = 128 a lane's q, acc and
+// k or v rows would not fit
 // in registers, so two lanes share a query chunk (InterLanes: G = 2), each
 // holding 64 of its dimensions, and each dot product is the two halves'
 // sums added by one shuffle; 16 query chunks per warp pass. At d <= 64
@@ -80,10 +83,10 @@ size_t inter_core_smem(int Bq) {
 }
 
 // f32's core (the first design, top note). Grid (S, M); 32 * core_warps(h)
-// threads, warp = head (heads warp, warp + warps, ... when h > 8, d = 16),
-// G lanes per query chunk. B below is the heads' width Bq: the rows of qkv
+// threads, warp = head (kTurns: heads warp, warp + warps, ... in turn), G
+// lanes per query chunk. B below is the heads' width Bq: the rows of qkv
 // hold 3Bq values, those of a Bq.
-template <typename T, int D>
+template <typename T, int D, bool kTurns>
 __global__ void __launch_bounds__(256)
     inter_core_kernel(DptAttnParams p, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -126,8 +129,8 @@ __global__ void __launch_bounds__(256)
     }
   };
 
-  // one head: warp = head, or with more than 8 heads (only at d = 16,
-  // Bq being at most 256) heads warp, warp + warps, ... in turn
+  // one head: warp = head, or with more than 8 heads heads warp,
+  // warp + warps, ... in turn
   auto run_head = [&](const int hd) {
     const int col0 = hd * D + sub * DL;   // this lane's columns of the head
     auto score = [&](const float* q, int j) {
@@ -185,24 +188,32 @@ __global__ void __launch_bounds__(256)
       }
     }
   };
-  if constexpr (D == 16) {
+  if constexpr (kTurns) {
     for (int hd = warp; hd < p.h; hd += blockDim.x >> 5) run_head(hd);
   } else {
     run_head(warp);
   }
 }
 
-template <typename T, int D>
-int launch_core(const DptAttnParams& p, cudaStream_t stream) {
+template <typename T, int D, bool kTurns>
+int launch_core_turns(const DptAttnParams& p, cudaStream_t stream) {
   const size_t smem = inter_core_smem<T>(p.Bq);
+  auto kernel = inter_core_kernel<T, D, kTurns>;
   cudaError_t err = cudaFuncSetAttribute(
-      inter_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  inter_core_kernel<T, D><<<dim3(p.S, p.M), 32 * core_warps(p.h), smem,
-                            stream>>>(p, scale);
+  kernel<<<dim3(p.S, p.M), 32 * core_warps(p.h), smem, stream>>>(p, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A warp a head (kTurns false) up to 8 heads at d >= 32; each warp its
+// heads in turn otherwise (core_warps), as at d = 16 at every head count.
+template <typename T, int D>
+int launch_core(const DptAttnParams& p, cudaStream_t stream) {
+  return D == 16 || p.h > 8 ? launch_core_turns<T, D, true>(p, stream)
+                            : launch_core_turns<T, D, false>(p, stream);
 }
 
 // f32's core for head width d (core_head_width).
@@ -226,8 +237,6 @@ int launch(const DptAttnParams& p, cudaStream_t stream) {
   if constexpr (kIsBf16<T>) {
     return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<true>);
   } else {
-    if (p.h > 8 && p.Bq / p.h != 16)   // a warp per head from d = 32 up
-      return static_cast<int>(cudaErrorInvalidValue);
     return launch_attention<T>(p, stream, launch_core_d<T>);
   }
 }

@@ -49,7 +49,8 @@
 // Any n >= 1; with n <= 32 each side loads its tile once. When n = 1
 // every row has one key and p = 1, masked or not, as in the reference.
 // Head widths 16, 32, 64 and 128, as in the forward: with more than 8
-// heads (d = 16) each warp takes its heads in turn (core_warps), both
+// heads (d = 16 at B = 256, d = 32 from B = 320) each warp takes its heads
+// in turn (core_warps), both
 // sides of one head before the next, and at d = 128 two lanes share a
 // query (key) chunk, 64 dimensions each, their dot products summed by one
 // shuffle (InterLanes, dpt_common.cuh); at d <= 64 every value and order
@@ -74,11 +75,11 @@ size_t core_bwd_smem(int Bq) {
          kTile * sizeof(float);
 }
 
-// Grid (S, M); 32 * core_warps(h) threads, warp = head (heads warp,
-// warp + warps, ... when h > 8, d = 16), G lanes per chunk. B below is the
+// Grid (S, M); 32 * core_warps(h) threads, warp = head (kTurns: heads
+// warp, warp + warps, ... in turn), G lanes per chunk. B below is the
 // heads' width Bq: the rows of qkv and dqkv hold 3Bq values, those of dA
 // and a Bq.
-template <typename T, int D>
+template <typename T, int D, bool kTurns>
 __global__ void __launch_bounds__(256)
     inter_bwd_core_kernel(DptAttnBwdParams P, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -149,8 +150,8 @@ __global__ void __launch_bounds__(256)
   };
   T* dqkv = static_cast<T*>(P.dqkv);
 
-  // one head: warp = head, or with more than 8 heads (only at d = 16,
-  // Bq being at most 256) heads warp, warp + warps, ... in turn
+  // one head: warp = head, or with more than 8 heads heads warp,
+  // warp + warps, ... in turn
   auto run_head = [&](const int hd) {
     const int col0 = hd * D + sub * DL;   // this lane's columns of the head
     // query side: lanes are query chunks; the staged tiles hold (k | v)
@@ -265,24 +266,33 @@ __global__ void __launch_bounds__(256)
       }
     }
   };
-  if constexpr (D == 16) {
+  if constexpr (kTurns) {
     for (int hd = warp; hd < h; hd += blockDim.x >> 5) run_head(hd);
   } else {
     run_head(warp);
   }
 }
 
-template <typename T, int D>
-int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
+template <typename T, int D, bool kTurns>
+int launch_core_turns(const DptAttnBwdParams& P, cudaStream_t stream) {
   const size_t smem = core_bwd_smem<T>(P.f.Bq);
+  auto kernel = inter_bwd_core_kernel<T, D, kTurns>;
   cudaError_t err = cudaFuncSetAttribute(
-      inter_bwd_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  inter_bwd_core_kernel<T, D><<<dim3(P.f.S, P.f.M), 32 * core_warps(P.f.h),
-                                smem, stream>>>(P, scale);
+  kernel<<<dim3(P.f.S, P.f.M), 32 * core_warps(P.f.h), smem, stream>>>(
+      P, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A warp a head (kTurns false) up to 8 heads at d >= 32; each warp its
+// heads in turn otherwise (core_warps), as at d = 16 at every head count.
+template <typename T, int D>
+int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
+  return D == 16 || P.f.h > 8 ? launch_core_turns<T, D, true>(P, stream)
+                              : launch_core_turns<T, D, false>(P, stream);
 }
 
 // The core for head width d (core_head_width).
@@ -301,8 +311,7 @@ template <typename T>
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
   const int d = P.f.Bq / P.f.h;
-  if (!core_head_width(d) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
-      (P.f.h > 8 && d != 16))   // a warp per head from d = 32 up
+  if (!core_head_width(d) || P.f.Bq % 64 || P.f.Bq > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention_bwd<T>(P, ws_act, ws_f32, stream, launch_core_d<T>);
 }

@@ -15,9 +15,11 @@
 //        (core_row_stats and core_probs_pass, the device functions the
 //        backward's query side also calls): a = round(round(p) v) on
 //        mma.sync, the keys past L masked with -inf;
-//   out  attn_out_wg_kernel: x + round(a @ W_out) (partial: the product
-//        alone) per 128-row tile, a's panels and W_out's MN-major slabs
-//        through a ring, x's tile and the output staged over the ring.
+//   out  rows_wg_kernel (dpt_bwd_common.cuh) with AttnOutEpi:
+//        x + round(a @ W_out) (partial: the product alone) per 128-row
+//        tile, a's panels and W_out's MN-major slabs through a ring, x's
+//        tile and the output staged over the ring; one column tile as wide
+//        as the row up to B = 256, 256-column tiles above.
 //
 // The backward, six launches, on one stream:
 //   LQ  one launch, per 128-row tile on the wgmma core (hopper_gemm.cuh):
@@ -38,6 +40,15 @@
 //       rs): dy never reaches device memory;
 //   S   one launch adds the chunk and tile partials of dW_qkv, dW_out and
 //       (dgamma, dbeta), each in a fixed order in double.
+//
+// Above B = 256 (up to 512; every launch path is chosen by B alone, so a
+// width up to 256 runs as before): LQ and F1 keep one resident 128-row
+// tile (the backward copies g's over y's between its two products), and
+// DN, whose tile as wide as the row would not fit, writes dy to device
+// memory on the core and finishes each row in ln_bwd_kernel
+// (launch_dy_ln_wide, dpt_bwd_common.cuh): seven launches. The core works
+// per head and takes any head count (10 to 16 heads of 32 at B = 320 to
+// 512, a CTA each).
 //
 // The core (attn_bwd_core_kernel) is one kernel for both kinds, templated
 // on the row gather: a CTA takes one problem, the L rows that attend to
@@ -95,20 +106,37 @@ namespace {
 // that leaves 108 KB, so that two CTAs share an SM and its 200 tiles run
 // in one wave (its LN and x's load are as long as at 128 wide, its
 // product a quarter).
-template <int BN, bool kBwd>
+//   Above B = 256 (kWide) one 128-row tile of x is 16 KB a 64-column panel,
+// 128 KB at B = 512, so x's and g's tiles no longer fit side by side: the
+// backward copies g's tile over y's once the qkv product is done (y is in
+// device memory by then), and both the forward and the backward keep one
+// resident tile and a ring of 3 slots at 128 wide (216 KB at B = 512), 4
+// at 64 wide (183 KB). The products, and every bit they give, are those
+// of the narrow layout.
+template <int BN, bool kBwd, bool kWide>
 __host__ __device__ constexpr int lq_stages() {
-  return kBwd ? (BN == 128 ? 3 : 4) : (BN == 128 ? 4 : 3);
+  return kWide ? (BN == 128 ? 3 : 4)
+               : kBwd ? (BN == 128 ? 3 : 4) : (BN == 128 ? 4 : 3);
 }
 
-template <int BN, bool kBwd>
+// The resident tiles: x's (y's), and g's beside it in the narrow backward.
+template <bool kBwd, bool kWide>
+__host__ __device__ constexpr int lq_tiles() { return kBwd && !kWide ? 2 : 1; }
+
+template <int BN, bool kBwd, bool kWide>
 constexpr size_t lq_smem(int B) {
   return 1024 +
-         (kBwd ? 2 : 1) * static_cast<size_t>(B / kSlabK) * kWgRows * kLine +
-         static_cast<size_t>(lq_stages<BN, kBwd>()) * BN * kLine +
+         lq_tiles<kBwd, kWide>() * static_cast<size_t>(B / kSlabK) * kWgRows *
+             kLine +
+         static_cast<size_t>(lq_stages<BN, kBwd, kWide>()) * BN * kLine +
          stage_bytes<BN>();
 }
-static_assert(lq_smem<128, true>(256) <= kMaxDynSmem, "LQ's shared memory");
-static_assert(2 * lq_smem<64, false>(256) <= 233472 - 2048,
+static_assert(lq_smem<128, true, false>(kMaxWidth) <= kMaxDynSmem,
+              "LQ's shared memory");
+static_assert(lq_smem<128, true, true>(kWideMax) <= kMaxDynSmem &&
+                  lq_smem<64, true, true>(kWideMax) <= kMaxDynSmem,
+              "LQ's shared memory above 256");
+static_assert(2 * lq_smem<64, false, false>(256) <= 233472 - 2048,
               "two forward LQ CTAs at 64 wide share an SM");
 
 // The workspace segments LQ writes (the forward: qkv alone, the rest null).
@@ -160,30 +188,34 @@ __device__ __forceinline__ void lq_product(float (&acc)[BN / 2], int cols,
 // Launch LQ (top note; kBwd) or the forward's F1 for rows [r0, r0 + 128),
 // grid (ceil(R / 128)), block 256: x's tile (and g's, kBwd) copied in with
 // the first ring's first slab, y over x's tile in place; then qkv =
-// round(y @ W_qkv), and with kBwd dA = round(g @ W_out^T), one ring each.
+// round(y @ W_qkv), and with kBwd dA = round(g @ W_out^T), one ring each
+// (kWide: g's tile copied over y's with the second ring's first slab).
 // The forward writes neither y nor the LN statistics (o.y, o.lnstat null)
 // and reads no g. Rows at or beyond R read x and g as zeros and are not
 // stored.
-template <int BN, bool kBwd>
+template <int BN, bool kBwd, bool kWide>
 __global__ void __launch_bounds__(kWgCta, 1)
     attn_lq_kernel(DptAttnParams f, const bf16* __restrict__ g, LqOut o) {
   extern __shared__ uint8_t wg_smem[];
-  constexpr int kStages = lq_stages<BN, kBwd>();
+  constexpr int kStages = lq_stages<BN, kBwd, kWide>();
   const int R = static_cast<int>(f.R), B = f.B, Bq = f.Bq;
   const int nk = B / kSlabK;
   const uint32_t ys = align_1024(wg_smem);
-  const uint32_t gs = ys + nk * kWgRows * kLine;   // kBwd only
-  const uint32_t ring = ys + (kBwd ? 2 : 1) * nk * kWgRows * kLine;
+  // g's tile: beside y's (the narrow backward), or over it (kWide)
+  const uint32_t gs = ys + (kWide ? 0 : nk * kWgRows * kLine);
+  const uint32_t ring = ys + lq_tiles<kBwd, kWide>() * nk * kWgRows * kLine;
   bf16* st = reinterpret_cast<bf16*>(
       smem_ptr(wg_smem, ring + kStages * BN * kLine));
   const int tid = threadIdx.x, r0 = blockIdx.x * kWgRows;
-  for (int s = 0; s < nk; ++s) {   // in the first ring's first copy group
-    load_k_panel(ys + s * kWgRows * kLine, static_cast<const bf16*>(f.x), B,
-                 r0, kWgRows, R, s * kSlabK, tid, kWgCta);
-    if constexpr (kBwd)
+  auto load_g = [&] {
+    for (int s = 0; s < nk; ++s)
       load_k_panel(gs + s * kWgRows * kLine, g, B, r0, kWgRows, R,
                    s * kSlabK, tid, kWgCta);
-  }
+  };
+  for (int s = 0; s < nk; ++s)   // in the first ring's first copy group
+    load_k_panel(ys + s * kWgRows * kLine, static_cast<const bf16*>(f.x), B,
+                 r0, kWgRows, R, s * kSlabK, tid, kWgCta);
+  if constexpr (kBwd && !kWide) load_g();
   float acc[BN / 2];
   lq_product<BN, kStages, true>(
       acc, 3 * Bq, B, ys, static_cast<const bf16*>(f.w_qkv), o.qkv, ring, st,
@@ -195,23 +227,38 @@ __global__ void __launch_bounds__(kWgCta, 1)
         // the ring's next barrier publishes the tile
       });
   if constexpr (kBwd) {
-    __syncthreads();   // the first ring's slots and the stage are free
+    __syncthreads();   // the first ring's slots, the stage (and y's tile) are free
+    if constexpr (kWide) load_g();   // in the second ring's first copy group
     lq_product<BN, kStages, false>(acc, Bq, B, gs,
                                    static_cast<const bf16*>(f.w_out), o.dA,
                                    ring, st, r0, R, [] {});
   }
 }
 
-template <int BN, bool kBwd>
-int launch_lq(const DptAttnParams& f, const bf16* g, const LqOut& o,
-              int tiles, cudaStream_t stream) {
-  const size_t smem = lq_smem<BN, kBwd>(f.B);
+template <int BN, bool kBwd, bool kWide>
+int launch_lq_bn(const DptAttnParams& f, const bf16* g, const LqOut& o,
+                 int tiles, cudaStream_t stream) {
+  const size_t smem = lq_smem<BN, kBwd, kWide>(f.B);
+  auto kernel = attn_lq_kernel<BN, kBwd, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_lq_kernel<BN, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_lq_kernel<BN, kBwd><<<tiles, kWgCta, smem, stream>>>(f, g, o);
+  kernel<<<tiles, kWgCta, smem, stream>>>(f, g, o);
   return static_cast<int>(cudaGetLastError());
+}
+
+// LQ (kBwd) or F1 at its column tile (128 where Bq is a multiple of 128,
+// else 64) and its layout (kWide above B = 256).
+template <bool kBwd>
+int launch_lq(const DptAttnParams& f, const bf16* g, const LqOut& o,
+              int tiles, cudaStream_t stream) {
+  const bool wide = f.B > kMaxWidth;
+  if (f.Bq % 128)
+    return wide ? launch_lq_bn<64, kBwd, true>(f, g, o, tiles, stream)
+                : launch_lq_bn<64, kBwd, false>(f, g, o, tiles, stream);
+  return wide ? launch_lq_bn<128, kBwd, true>(f, g, o, tiles, stream)
+              : launch_lq_bn<128, kBwd, false>(f, g, o, tiles, stream);
 }
 
 // ---- The core on mma.sync ----
@@ -849,27 +896,32 @@ int launch_fwd_core(const DptAttnParams& f, cudaStream_t stream) {
 
 // The bf16 workspace: qkv [R, 3Bq], a [R, Bq], y [R, B], dA [R, Bq], dqkv
 // [R, 3Bq] in bf16; in f32 each row's (mean, rs), the core's stats [R, h,
-// kNumRowStats], the chunk partials of dW_qkv and dW_out and DN's tile
-// partials of (dgamma, dbeta); each segment on a 256-byte boundary.
+// kNumRowStats], the chunk partials of dW_qkv and dW_out, DN's tile
+// partials of (dgamma, dbeta) (128-row tiles; above B = 256 ln_bwd_kernel's
+// 64-row ones, ln_tiles of them) and, above 256 only, dy [R, B]; each
+// segment on a 256-byte boundary.
 struct AttnWgLayout {
   size_t act[5];
-  size_t f32[5];
+  size_t f32[6];
   size_t n_act, n_f32;
-  int chunks_qkv, chunks_out, tiles;
+  int chunks_qkv, chunks_out, tiles, ln_tiles;
 };
 
 AttnWgLayout attn_wg_layout(long long R, int B, int h, int Bq) {
   AttnWgLayout L;
+  const bool wide = B > kMaxWidth;
   L.chunks_qkv = wg_wgrad_chunks(R, B, 3 * Bq);
   L.chunks_out = wg_wgrad_chunks(R, Bq, B);
   L.tiles = static_cast<int>((R + kWgRows - 1) / kWgRows);
+  L.ln_tiles = wide ? n_row_tiles(R) : L.tiles;
   const size_t rq = static_cast<size_t>(R) * Bq;
   const size_t bq = static_cast<size_t>(B) * Bq;
   const size_t act[5] = {3 * rq, rq, static_cast<size_t>(R) * B, rq, 3 * rq};
-  const size_t f32[5] = {2 * static_cast<size_t>(R),
+  const size_t f32[6] = {2 * static_cast<size_t>(R),
                          static_cast<size_t>(R) * h * kNumRowStats,
                          L.chunks_qkv * 3 * bq, L.chunks_out * bq,
-                         static_cast<size_t>(L.tiles) * 2 * B};
+                         static_cast<size_t>(L.ln_tiles) * 2 * B,
+                         wide ? static_cast<size_t>(R) * B : 0};
   size_t off = 0;
   for (int i = 0; i < 5; ++i) {
     L.act[i] = off;
@@ -877,7 +929,7 @@ AttnWgLayout attn_wg_layout(long long R, int B, int h, int Bq) {
   }
   L.n_act = off;
   off = 0;
-  for (int i = 0; i < 5; ++i) {
+  for (int i = 0; i < 6; ++i) {
     L.f32[i] = off;
     off += align_elems(f32[i], 64);
   }
@@ -886,13 +938,15 @@ AttnWgLayout attn_wg_layout(long long R, int B, int h, int Bq) {
 }
 
 // The bf16 attention backward (top note): LQ, C (core(P, stream)), W (two
-// launches), DN, S. Returns the first CUDA error.
+// launches), DN, S; above B = 256 LQ's wide layout and DN's wide route
+// (launch_dy_ln_wide: dy through device memory, ln_bwd_kernel), the rest
+// as at 256. Returns the first CUDA error.
 template <typename Core>
 int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
                             cudaStream_t stream, Core core) {
   DptAttnParams& f = P.f;
   const int R = static_cast<int>(f.R), B = f.B, Bq = f.Bq;
-  if (B % kSlabK || B > kMaxWidth || Bq % 64)
+  if (B % kSlabK || B > kWideMax || Bq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnWgLayout L = attn_wg_layout(f.R, B, f.h, Bq);
   bf16* act = static_cast<bf16*>(ws_act);
@@ -910,8 +964,7 @@ int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   float* part_out = ws_f32 + L.f32[3];
   float* lnpart = ws_f32 + L.f32[4];
   const bf16* g = static_cast<const bf16*>(P.g);
-  CTN_RETURN_IF((Bq % 128 ? launch_lq<64, true>(f, g, o, L.tiles, stream)
-                          : launch_lq<128, true>(f, g, o, L.tiles, stream)));
+  CTN_RETURN_IF(launch_lq<true>(f, g, o, L.tiles, stream));
   CTN_RETURN_IF(core(P, stream));
   CTN_RETURN_IF(launch_wgrad_parts_wg(o.y, P.dqkv, R, B, 3 * Bq, part_qkv,
                                       stream));
@@ -928,11 +981,13 @@ int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   q.R = R;
   q.B = B;
   q.depth = 3 * Bq;
-  CTN_RETURN_IF(launch_dy_ln_wg(q, !f.partial, stream));
+  CTN_RETURN_IF(B > kMaxWidth
+                    ? launch_dy_ln_wide(q, ws_f32 + L.f32[5], !f.partial, stream)
+                    : launch_dy_ln_wg(q, !f.partial, stream));
   const ReduceJob jobs[3] = {
       {part_qkv, L.chunks_qkv, 3 * B * Bq, P.dw_qkv},
       {part_out, L.chunks_out, B * Bq, P.dw_out},
-      {lnpart, L.tiles, 2 * B, P.dgb}};
+      {lnpart, L.ln_tiles, 2 * B, P.dgb}};
   return launch_reduce_jobs(jobs, 3, stream);
 }
 
@@ -950,123 +1005,42 @@ int launch_core_wg_d(const DptAttnBwdParams& P, cudaStream_t stream) {
 
 // ---- The forward's frame (F1, the core, out) ----
 
-constexpr int kOutStages = 4;   // out's ring depth
-
-// out's shared memory: the ring of (a's panel, W_out's slab); x's tile and
-// the output, staged after the product, fit in it.
-template <int BN>
-constexpr size_t out_wg_smem() {
-  return 1024 + static_cast<size_t>(kOutStages) * (kWgRows + BN) * kLine;
-}
-static_assert(kWgRows * (64 + 8) * sizeof(bf16) <=
-                  kOutStages * (kWgRows + 64) * kLine &&
-              kWgRows * (256 + 8) * sizeof(bf16) <=
-                  kOutStages * (kWgRows + 256) * kLine,
-              "out's staged tile");
-
-// out = x + round(a @ W_out) for rows [r0, r0 + 128) (partial:
-// round(a @ W_out) alone), grid (ceil(R / 128)), block 256: a's 64-deep
-// panels (K-major, rows at or beyond R as zeros) and W_out's [64, BN]
-// slabs (MN-major, columns at or beyond B as zeros; BN >= B) through the
-// ring into a BN-wide accumulator; then x's tile over the ring, the
-// epilogue in place over it, and 16-byte rows out.
-template <int BN>
-__global__ void __launch_bounds__(kWgCta, 1) attn_out_wg_kernel(DptAttnParams f) {
-  extern __shared__ uint8_t wg_smem[];
-  constexpr uint32_t kA = kWgRows * kLine, kSlot = kA + BN * kLine;
-  constexpr int kLd = BN + 8;   // 16 bytes of pad: conflict-free pairs
-  const uint32_t ring = align_1024(wg_smem);
-  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
-  const int r0 = blockIdx.x * kWgRows, R = static_cast<int>(f.R), B = f.B;
-  const int Bq = f.Bq;
-  const bf16* a = static_cast<const bf16*>(f.a);
-  const bf16* w = static_cast<const bf16*>(f.w_out);
-  const bool residual = !f.partial;
-  float acc[BN / 2];
-  ring_run<kOutStages>(
-      Bq / kSlabK, ring, kSlot,
-      [&](int s, uint32_t slot) {
-        load_k_panel(slot, a, Bq, r0, kWgRows, R, s * kSlabK, tid, kWgCta);
-        load_mn_slab(slot + kA, w, B, s * kSlabK, Bq, 0, BN, B, tid, kWgCta);
-      },
-      [] {},
-      [&](int s, uint32_t slot) {
-        mma_begin(acc);
-        mma_slab<BN, false, true>(acc, slot + wg * 64 * kLine, slot + kA,
-                                  s > 0);
-        mma_end(acc);
-      });
-  bf16* st = reinterpret_cast<bf16*>(smem_ptr(wg_smem, ring));
-  const bf16* x = static_cast<const bf16*>(f.x);
-  bf16* out = static_cast<bf16*>(f.out);
-  __syncthreads();   // every warpgroup is done with the ring
-  if (residual) {
-    for (int v = tid; v < kWgRows * (B / 8); v += kWgCta) {
-      const int rl = v / (B / 8), c = 8 * (v % (B / 8));
-      const bool ok = r0 + rl < R;
-      cp_async16(smem_u32(st + rl * kLd + c),
-                 x + (ok ? static_cast<size_t>(r0 + rl) * B + c : 0), ok);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+// out's epilogue: round(a @ W_out), plus x where the launch stages it (the
+// full sublayer; partial: the product alone).
+struct AttnOutEpi {
+  __device__ float operator()(float acc, int, float x, bool residual) const {
+    float o = round_to<bf16>(acc);
+    if (residual) o += x;
+    return o;
   }
-#pragma unroll
-  for (int j = 0; j < BN / 2; j += 2) {
-    const int c = acc_col(t, j);
-    if (c >= B) continue;
-    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(
-        st + (64 * wg + acc_row(t, j)) * kLd + c);
-    float o0 = round_to<bf16>(acc[j]), o1 = round_to<bf16>(acc[j + 1]);
-    if (residual) {
-      const float2 xv = __bfloat1622float2(*e);
-      o0 += xv.x;
-      o1 += xv.y;
-    }
-    *e = __floats2bfloat162_rn(o0, o1);
-  }
-  __syncthreads();
-  for (int v = tid; v < kWgRows * (B / 8); v += kWgCta) {
-    const int rl = v / (B / 8), c = 8 * (v % (B / 8));
-    if (r0 + rl < R)
-      *reinterpret_cast<uint4*>(&out[static_cast<size_t>(r0 + rl) * B + c]) =
-          *reinterpret_cast<const uint4*>(&st[rl * kLd + c]);
-  }
-}
-
-template <int BN>
-int launch_out_bn(const DptAttnParams& f, int tiles, cudaStream_t stream) {
-  constexpr size_t smem = out_wg_smem<BN>();
-  static_assert(smem <= kMaxDynSmem, "out's shared memory");
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_out_wg_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_out_wg_kernel<BN><<<tiles, kWgCta, smem, stream>>>(f);
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 // The bf16 attention forward: F1 (LQ without its dA product, y and
 // statistics: qkv = round(LN(x) @ W_qkv) into f.qkv), the core
 // (core(f, stream): a into f.a) and out (x + round(a @ W_out), or the
-// product alone in partial mode). B a multiple of 64 up to 256 (out's tile
-// as wide as the row, 256 at B = 192), Bq a multiple of 64. Returns the
-// first CUDA error.
+// product alone in partial mode, on rows_wg_kernel: one column tile as
+// wide as the row up to B = 256, 256 at B = 192; 256-column tiles above).
+// B a multiple of 64 up to 512, Bq a multiple of 64. Returns the first
+// CUDA error.
 template <typename Core>
 int launch_attention_fwd_wg(const DptAttnParams& f, cudaStream_t stream,
                             Core core) {
   const int B = f.B, Bq = f.Bq;
-  if (B % kSlabK || B > kMaxWidth || Bq % 64)
+  if (B % kSlabK || B > kWideMax || Bq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = static_cast<int>((f.R + kWgRows - 1) / kWgRows);
   LqOut o = {static_cast<bf16*>(f.qkv), nullptr, nullptr, nullptr};
-  CTN_RETURN_IF((Bq % 128
-                     ? launch_lq<64, false>(f, nullptr, o, tiles, stream)
-                     : launch_lq<128, false>(f, nullptr, o, tiles, stream)));
+  CTN_RETURN_IF(launch_lq<false>(f, nullptr, o, tiles, stream));
   CTN_RETURN_IF(core(f, stream));
-  if (B <= 64) return launch_out_bn<64>(f, tiles, stream);
-  if (B <= 128) return launch_out_bn<128>(f, tiles, stream);
-  return launch_out_bn<256>(f, tiles, stream);
+  RowsWgParams q;
+  q.a = static_cast<const bf16*>(f.a);
+  q.w = static_cast<const bf16*>(f.w_out);
+  q.res = f.partial ? nullptr : static_cast<const bf16*>(f.x);
+  q.out = static_cast<bf16*>(f.out);
+  q.R = static_cast<int>(f.R);
+  q.N = B;
+  q.depth = Bq;
+  return launch_rows_wg(q, AttnOutEpi{}, stream);
 }
 
 // The forward core for head width d (core_head_width).

@@ -24,7 +24,9 @@
 // - ln_bwd_kernel: the LN backward of one row in f32 and the residual,
 //   dx = round(g + rs * (dy*gamma - mean(dy*gamma) - xhat *
 //   mean(dy*gamma*xhat))), with per-tile partials of dgamma = sum dy*xhat
-//   and dbeta = sum dy.
+//   and dbeta = sum dy; rows up to kMaxWidth = 256 wide, or kLnBwdWidth =
+//   512 in its wide instantiation (the bf16 designs' DN above 256 runs it
+//   too).
 // - launch_attention_bwd: the launches both attention backwards share
 //   around their cores in f32 (the recompute of qkv by the forward's launch
 //   1, dA, the weight gradients, dy = dqkv @ W_qkv^T, the LN backward); in
@@ -43,7 +45,13 @@
 
 namespace {
 
-constexpr int kMaxWidth = 256;            // B at most this (checked by the wrappers)
+// The widest B of the bf16 designs' one-tile pieces (DN's tile as wide as
+// the row, LQ's and UG's two resident 128-row tiles, B11's one launch);
+// above it, up to kWideMax, they run the wide routes (dpt_attn_bwd_wg.cuh,
+// dpt_ffn.cu, dpt_ffn_bwd.cu), chosen by B alone.
+constexpr int kMaxWidth = 256;
+constexpr int kWideMax = 512;             // B at most this (checked by the wrappers)
+constexpr int kLnBwdWidth = 512;          // ln_bwd_kernel's widest row
 constexpr int kColThreads = 256;          // colsum_kernel: columns per block
 constexpr int kColRows = 128;             // colsum_kernel: rows per block
 constexpr int kNumRowStats = 3;           // attention cores: max, denominator, rowsum
@@ -191,16 +199,21 @@ int launch_colsum(const void* src, int rows, int cols, float* part,
 // per row: dx = round(g + dx_ln) (kResidual; without it, the backward of a
 // partial forward, dx = round(dx_ln)) and part[tile][0:B] = sum dy*xhat,
 // part[tile][B:2B] = sum dy over the tile's rows (the warps' column sums
-// added in warp order).
-template <typename T, bool kResidual>
+// added in warp order). Lane l holds columns l, l + 32, ... below B, and
+// each row's sums run over them in that order, then over the lanes by
+// warp_sum's butterfly: B <= kWidth; the loops stop at c < B, so a row sums
+// in the same order at either instantiation. The 512-wide one (rows above
+// 256) holds twice the registers and a 32 KB s_col, and runs 1.5x as long
+// at B = 256 (PERF.md §6, PR 19), so rows up to 256 keep the 256-wide one.
+template <typename T, bool kResidual, int kWidth>
 __global__ void __launch_bounds__(kDptThreads)
     ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   const float* __restrict__ dy,
                   const float* __restrict__ gamma, int rows, int B,
                   T* __restrict__ dx, float* __restrict__ part) {
   constexpr int kWarps = kDptThreads / 32;
-  constexpr int kPer = kMaxWidth / 32;    // columns per lane
-  __shared__ float s_col[kWarps][2][kMaxWidth];
+  constexpr int kPer = kWidth / 32;    // columns per lane
+  __shared__ float s_col[kWarps][2][kWidth];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float cg[kPer], cb[kPer];
@@ -268,8 +281,13 @@ template <typename T>
 int launch_ln_bwd(const void* x, const void* g, const float* dy,
                   const float* gamma, int rows, int B, void* dx, float* part,
                   float* dgb, bool residual, cudaStream_t stream) {
+  if (B > kLnBwdWidth) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = n_row_tiles(rows);
-  auto* kernel = residual ? ln_bwd_kernel<T, true> : ln_bwd_kernel<T, false>;
+  auto* kernel = B > kMaxWidth
+      ? (residual ? ln_bwd_kernel<T, true, kLnBwdWidth>
+                  : ln_bwd_kernel<T, false, kLnBwdWidth>)
+      : (residual ? ln_bwd_kernel<T, true, kMaxWidth>
+                  : ln_bwd_kernel<T, false, kMaxWidth>);
   kernel<<<tiles, kDptThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), dy, gamma, rows, B,
       static_cast<T*>(dx), part);
@@ -293,10 +311,10 @@ int launch_ln_rows(const void* x, int rows, int B, const float* gamma,
 // attention backwards (dpt_attn_bwd_wg.cuh) run on these, and so do the
 // bf16 FFN forward (dpt_ffn.cu) and intra attention forward (dpt_intra.cu);
 // they sit beside the first design's pieces above, which the f32 kernels
-// keep. What bounds them: the products run on wgmma at B <= 256
-// (kMaxWidth: DN's tile is as wide as the row) and one CTA of two
-// warpgroups per SM where a 128-row tile of x or g stays resident (LQ, UG,
-// DN: 179-214 KB).
+// keep. What bounds them: the products run on wgmma, DN's tile as wide as
+// the row up to B = 256 (kMaxWidth; above it the wide routes' pieces
+// below), and one CTA of two warpgroups per SM where a 128-row tile of x
+// or g stays resident (LQ, UG, DN: 179-214 KB at B = 256).
 //
 // - gelu_and_grad_fast, gelu_tanh_fast: the tanh-GELU (and its
 //   derivative) on the fast exponential (B12's UG, B11's forward);
@@ -311,7 +329,8 @@ int launch_ln_rows(const void* x, int rows, int B, const float* gamma,
 //   layout, over its 128 rows, in a fixed order;
 // - dy_ln_bwd_wg_kernel: dy = a @ w^T on the core with a column tile as
 //   wide as the row (B <= 256), and the LN backward and the residual in its
-//   epilogue, so dy never reaches device memory.
+//   epilogue, so dy never reaches device memory (above 256:
+//   launch_dy_ln_wide, below).
 
 constexpr int kWgradStagesDpt = 4;
 // The SM count the chunking below is tuned for: an H100 SXM's 132. It is
@@ -707,6 +726,179 @@ inline int launch_dy_ln_wg(const DyLnParams& q, bool residual,
     return static_cast<int>(cudaErrorInvalidValue);
   return residual ? launch_dy_ln_res<true>(q, stream)
                   : launch_dy_ln_res<false>(q, stream);
+}
+
+// ---- The wide routes' pieces (B above kMaxWidth), bf16 ----
+//
+// - launch_dy_wide: above 256 DN's tile as wide as the row does not fit
+//   (its ring and staged x and g tiles would take 300 KB at B = 512), and
+//   the LN backward needs sums over the whole row; so dy = a @ w^T goes to
+//   device memory in f32 on wg_matmul_kernel (hopper_gemm.cuh: 128-row x
+//   BN-column tiles over the row's columns, BN = wg_bn(B)), and
+//   ln_bwd_kernel above, the f32 designs' LN backward, reads it back: it
+//   finishes each row (its sums of dy gamma and dy gamma xhat over the
+//   row, lane by lane, then warp_sum's butterfly; dx with the residual)
+//   and writes its 64-row tiles' (dgamma, dbeta) partials. dy's round trip
+//   is 4 R B bytes each way.
+// - rows_wg_kernel: out = epi(a @ w) over 128-row x BN-column tiles (BN
+//   as wide as the row up to 256, then 256-column tiles), a's K-major
+//   panels and w's MN-major slabs through a ring, a residual tile staged
+//   over the ring after the product: the attention forwards' out launch
+//   at every width, and B11's two products above 256.
+
+// dy [R, B] (f32) = a [R, depth] @ w [B, depth]^T, both K-major.
+template <int BN>
+int launch_dy_wide_bn(const bf16* a, const bf16* w, float* dy, int R, int B,
+                      int depth, cudaStream_t stream) {
+  constexpr size_t smem = 1024 + 4 * static_cast<size_t>(kWgRows + BN) * kLine;
+  static_assert(smem <= kMaxDynSmem, "wg_matmul_kernel's shared memory");
+  auto kernel = wg_matmul_kernel<BN, false, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((R + kWgRows - 1) / kWgRows, B / BN), kWgCta, smem,
+           stream>>>(a, w, dy, R, B, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// DN above 256 (top of this section): dy = a @ w^T to q.dy, then dx and
+// the tiles' (dgamma, dbeta) partials by ln_bwd_kernel into q.part
+// (n_row_tiles(R) 64-row tiles), which the caller sums in tile order.
+// residual: dx carries the g term (false for a partial forward).
+inline int launch_dy_ln_wide(const DyLnParams& q, float* dy, bool residual,
+                             cudaStream_t stream) {
+  if (q.B % 64 || q.B > kLnBwdWidth || q.depth % kSlabK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  switch (wg_bn(q.B)) {
+    case 256: err = launch_dy_wide_bn<256>(q.a, q.w, dy, q.R, q.B, q.depth, stream); break;
+    case 128: err = launch_dy_wide_bn<128>(q.a, q.w, dy, q.R, q.B, q.depth, stream); break;
+    default: err = launch_dy_wide_bn<64>(q.a, q.w, dy, q.R, q.B, q.depth, stream);
+  }
+  if (err != 0) return err;
+  auto* kernel = residual ? ln_bwd_kernel<bf16, true, kLnBwdWidth>
+                          : ln_bwd_kernel<bf16, false, kLnBwdWidth>;
+  kernel<<<n_row_tiles(q.R), kDptThreads, 0, stream>>>(q.x, q.g, dy, q.gamma,
+                                                      q.R, q.B, q.dx, q.part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Operands of rows_wg_kernel: out [R, N] = epi(a [R, depth] @ w [depth,
+// N]), with res [R, N] (or null) handed to epi.
+struct RowsWgParams {
+  const bf16* a;
+  const bf16* w;
+  const bf16* res;
+  bf16* out;
+  int R, N, depth;
+};
+
+constexpr int kRowsStages = 4;   // rows_wg_kernel's ring depth
+
+// The ring of (a's panel, w's slab); the staged output tile fits in it.
+template <int BN>
+constexpr size_t rows_wg_smem() {
+  return 1024 + static_cast<size_t>(kRowsStages) * (kWgRows + BN) * kLine;
+}
+static_assert(kWgRows * (64 + 8) * sizeof(bf16) <=
+                  kRowsStages * (kWgRows + 64) * kLine &&
+              kWgRows * (256 + 8) * sizeof(bf16) <=
+                  kRowsStages * (kWgRows + 256) * kLine,
+              "rows_wg_kernel's staged tile");
+
+// Rows [r0, r0 + 128) x columns [n0, n0 + BN) of out (grid (ceil(R / 128),
+// ceil(N / BN)), block 256): a's 64-deep panels (rows at or beyond R as
+// zeros) and w's [64, BN] slabs (columns at or beyond N as zeros) through
+// the ring into a BN-wide accumulator; then res's tile over the ring
+// (where res is not null), out = epi(acc, column, res, has_res) per
+// element in place over it, and 16-byte rows of the tile's columns below
+// N out. N a multiple of 8, depth of 64.
+template <int BN, class Epi>
+__global__ void __launch_bounds__(kWgCta, 1)
+    rows_wg_kernel(RowsWgParams q, Epi epi) {
+  extern __shared__ uint8_t wg_smem[];
+  constexpr uint32_t kA = kWgRows * kLine, kSlot = kA + BN * kLine;
+  constexpr int kLd = BN + 8;   // 16 bytes of pad: conflict-free pairs
+  const uint32_t ring = align_1024(wg_smem);
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  const int r0 = blockIdx.x * kWgRows, n0 = blockIdx.y * BN;
+  const int R = q.R, N = q.N;
+  const int nb = min(BN, N - n0);   // the tile's columns below N
+  float acc[BN / 2];
+  ring_run<kRowsStages>(
+      q.depth / kSlabK, ring, kSlot,
+      [&](int s, uint32_t slot) {
+        load_k_panel(slot, q.a, q.depth, r0, kWgRows, R, s * kSlabK, tid,
+                     kWgCta);
+        load_mn_slab(slot + kA, q.w, N, s * kSlabK, q.depth, n0, BN, N, tid,
+                     kWgCta);
+      },
+      [] {},
+      [&](int s, uint32_t slot) {
+        mma_begin(acc);
+        mma_slab<BN, false, true>(acc, slot + wg * 64 * kLine, slot + kA,
+                                  s > 0);
+        mma_end(acc);
+      });
+  bf16* st = reinterpret_cast<bf16*>(smem_ptr(wg_smem, ring));
+  const bool has_res = q.res != nullptr;
+  __syncthreads();   // every warpgroup is done with the ring
+  if (has_res) {
+    for (int v = tid; v < kWgRows * (nb / 8); v += kWgCta) {
+      const int rl = v / (nb / 8), c = 8 * (v % (nb / 8));
+      const bool ok = r0 + rl < R;
+      cp_async16(smem_u32(st + rl * kLd + c),
+                 q.res + (ok ? static_cast<size_t>(r0 + rl) * N + n0 + c : 0),
+                 ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 2; j += 2) {
+    const int c = acc_col(t, j);
+    if (c >= nb) continue;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(
+        st + (64 * wg + acc_row(t, j)) * kLd + c);
+    const float2 rv = has_res ? __bfloat1622float2(*e) : make_float2(0.f, 0.f);
+    *e = __floats2bfloat162_rn(epi(acc[j], n0 + c, rv.x, has_res),
+                               epi(acc[j + 1], n0 + c + 1, rv.y, has_res));
+  }
+  __syncthreads();
+  for (int v = tid; v < kWgRows * (nb / 8); v += kWgCta) {
+    const int rl = v / (nb / 8), c = 8 * (v % (nb / 8));
+    if (r0 + rl < R)
+      *reinterpret_cast<uint4*>(&q.out[static_cast<size_t>(r0 + rl) * N + n0 + c]) =
+          *reinterpret_cast<const uint4*>(&st[rl * kLd + c]);
+  }
+}
+
+template <int BN, class Epi>
+int launch_rows_bn(const RowsWgParams& q, Epi epi, cudaStream_t stream) {
+  constexpr size_t smem = rows_wg_smem<BN>();
+  static_assert(smem <= kMaxDynSmem, "rows_wg_kernel's shared memory");
+  auto kernel = rows_wg_kernel<BN, Epi>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((q.R + kWgRows - 1) / kWgRows, (q.N + BN - 1) / BN), kWgCta,
+           smem, stream>>>(q, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = epi(a @ w) (RowsWgParams) in one column tile as wide as the row
+// up to N = 256 (64, 128, or 256 with the columns past N zero), in
+// 256-column tiles above.
+template <class Epi>
+int launch_rows_wg(const RowsWgParams& q, Epi epi, cudaStream_t stream) {
+  if (q.N % 8 || q.N <= 0 || q.depth % kSlabK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q.N <= 64) return launch_rows_bn<64>(q, epi, stream);
+  if (q.N <= 128) return launch_rows_bn<128>(q, epi, stream);
+  return launch_rows_bn<256>(q, epi, stream);
 }
 
 // Operands of one attention sublayer backward (see the wrappers in

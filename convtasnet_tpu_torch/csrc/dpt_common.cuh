@@ -88,9 +88,9 @@ __device__ __forceinline__ float lanes_sum(float v) {
 }
 
 // Warps of an f32 inter core's block for h heads, a warp per head: h up to
-// 8, else (only at d = 16: Bq is at most 256) the most, at most 8, that
-// divide h, each warp taking h / warps heads in turn (every warp meets the
-// block's barriers equally often).
+// 8, else the most, at most 8, that divide h (16 heads of 16 at B = 256;
+// 10 to 16 heads of 32 at B = 320 to 512), each warp taking h / warps heads
+// in turn (every warp meets the block's barriers equally often).
 inline int core_warps(int h) {
   int w = h < 8 ? h : 8;
   while (h % w) --w;
@@ -233,6 +233,8 @@ struct DptAttnParams {
 
 // Launch 1: qkv = round(LN(x) @ W_qkv), one 64-row tile per block; qkv has
 // 3Bq columns. f32 (the bf16 forwards and backwards run LQ's tiles).
+// Shared memory: 256 (B + 4) + 83,968 bytes, 216 KB at B = 512; it fits up
+// to B = 576.
 template <typename T>
 __host__ __device__ constexpr size_t ln_qkv_smem(int B) {
   return align128(static_cast<size_t>(kRowTile) * padded<T>(B) * sizeof(T)) +

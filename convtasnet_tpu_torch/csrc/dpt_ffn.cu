@@ -58,7 +58,21 @@
 // pipeline, not the weights' L2 traffic (1 MB a tile), holds the kernel.
 //
 // f32 (ffn_kernel): the first design, FMA products (block_gemm) into f32
-// tiles in shared memory, one block per 64 rows, slabs of 64; about 185 KB.
+// tiles in shared memory, one block per 64 rows, slabs of 64; about 185 KB
+// at B = 256 (512 (B + 4) + 52,224 bytes: it fits up to B = 348).
+//
+// Above B = 256 (up to 512), in either dtype, the one-launch designs do not
+// fit: the bf16 one's down accumulator (BN / 2 floats a thread) and ring
+// slot grow with the row, and x's resident tile alone is 128 KB at B =
+// 512; the f32 one's y and output tiles are 264 KB there. So the sublayer
+// runs three launches through a workspace (ctn_dpt_ffn_workspace: y [R, B]
+// and h [R, F] in the compute dtype): y = round(LN(x) gamma + beta)
+// (ln_rows_kernel, the bits of ln_resident_tile and ln_rows_to_smem); h =
+// round(gelu(pre)) (bf16: rows_wg_kernel, the same epilogue arithmetic as
+// the one launch; f32: the 64 x 64 FMA tile of gemm_rows_kernel); and out
+// = x + round(round(h @ W_down) + round(b_down)) (partial: round(h @
+// W_down)) in 256-column tiles (bf16) or 64-column ones (f32). h's round
+// trip is 2 R F elements more than the one launch moves.
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // weights are one shard's slice of the hidden width, W_up [B, F/m] and
@@ -354,8 +368,97 @@ int run(K kernel, size_t smem, const FfnParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- Above B = 256: three launches through a workspace (top note) ----
+
+// The workspace above 256: y [R, B], then h [R, F] on a 256-byte boundary,
+// in elements of the compute dtype; none at B <= 256.
+inline size_t ffn_ws_h(int R, int B) {
+  return align_up(static_cast<size_t>(R) * B, 128);
+}
+inline size_t ffn_ws_elems(int R, int B, int F) {
+  return B > kMaxWidth ? ffn_ws_h(R, B) + static_cast<size_t>(R) * F : 0;
+}
+
+// bf16: h = round(gelu_tanh_fast(round(round(y W_up) + round(b_up)))), as
+// ffn_wg_kernel's gelu step rounds.
+struct UpGeluEpi {
+  const float* b_up;
+  __device__ float operator()(float acc, int col, float, bool) const {
+    return gelu_tanh_fast(round_to<bf16>(round_to<bf16>(acc) +
+                                         round_to<bf16>(b_up[col])));
+  }
+};
+
+// bf16: out = x + round(round(h W_down) + round(b_down)); partial:
+// round(h W_down), as ffn_wg_kernel's epilogue rounds.
+struct DownResEpi {
+  const float* b_down;
+  __device__ float operator()(float acc, int col, float x,
+                              bool residual) const {
+    if (!residual) return acc;
+    return x + round_to<bf16>(round_to<bf16>(acc) + round_to<bf16>(b_down[col]));
+  }
+};
+
+// f32: h = gelu_tanh(y W_up + b_up), as ffn_kernel.
+struct UpGeluF32 {
+  float* h;
+  const float* b_up;
+  __device__ void operator()(size_t i, int col, float v) const {
+    h[i] = gelu_tanh(v + b_up[col]);
+  }
+};
+
+// f32: out = x + (h W_down + b_down); partial: h W_down, as ffn_kernel.
+struct DownResF32 {
+  float* out;
+  const float* x;
+  const float* b_down;
+  int partial;
+  __device__ void operator()(size_t i, int col, float v) const {
+    out[i] = partial ? v : x[i] + (v + b_down[col]);
+  }
+};
+
 template <typename T>
-int launch(const FfnParams& p, cudaStream_t stream) {
+int launch_wide(const FfnParams& p, void* ws, cudaStream_t stream) {
+  if (p.B % 64 || p.B > kWideMax || p.F % (2 * kFfnSlab))
+    return static_cast<int>(cudaErrorInvalidValue);
+  T* y = static_cast<T*>(ws);
+  T* h = y + ffn_ws_h(p.R, p.B);
+  CTN_RETURN_IF(launch_ln_rows<T>(p.x, p.R, p.B, p.gamma, p.beta, y, stream));
+  if constexpr (kIsBf16<T>) {
+    RowsWgParams q;
+    q.a = y;
+    q.w = static_cast<const bf16*>(p.w_up);
+    q.res = nullptr;
+    q.out = h;
+    q.R = p.R;
+    q.N = p.F;
+    q.depth = p.B;
+    CTN_RETURN_IF(launch_rows_wg(q, UpGeluEpi{p.b_up}, stream));
+    q.a = h;
+    q.w = static_cast<const bf16*>(p.w_down);
+    q.res = p.partial ? nullptr : static_cast<const bf16*>(p.x);
+    q.out = static_cast<bf16*>(p.out);
+    q.N = p.B;
+    q.depth = p.F;
+    return launch_rows_wg(q, DownResEpi{p.b_down}, stream);
+  } else {
+    CTN_RETURN_IF(launch_gemm_rows<float>(
+        y, static_cast<const float*>(p.w_up), p.R, p.B, p.F,
+        UpGeluF32{h, p.b_up}, stream));
+    return launch_gemm_rows<float>(
+        h, static_cast<const float*>(p.w_down), p.R, p.F, p.B,
+        DownResF32{static_cast<float*>(p.out),
+                   static_cast<const float*>(p.x), p.b_down, p.partial},
+        stream);
+  }
+}
+
+template <typename T>
+int launch(const FfnParams& p, void* ws, cudaStream_t stream) {
+  if (p.B > kMaxWidth) return launch_wide<T>(p, ws, stream);
   if constexpr (kIsBf16<T>) {
     if (p.F % kFfnSlab) return static_cast<int>(cudaErrorInvalidValue);
     switch (p.B) {
@@ -395,26 +498,34 @@ FfnParams make_params(const void* x, const void* gamma, const void* beta,
 #define CTN_FFN_ARGS                                                        \
   const void *x, const void *gamma, const void *beta, const void *w_up,    \
       const void *b_up, const void *w_down, const void *b_down, void *out, \
-      int R, int B, int F, int partial, void *stream
+      void *ws, int R, int B, int F, int partial, void *stream
 
 extern "C" {
 
+// Elements of the compute dtype the FFN forward's workspace holds: 0 at
+// B <= 256 (one launch), y [R, B] and h [R, F] above.
+int ctn_dpt_ffn_workspace(int R, int B, int F, long long* n) {
+  *n = static_cast<long long>(ffn_ws_elems(R, B, F));
+  return 0;
+}
+
 // One FFN sublayer; every pointer is device memory (gamma, beta, b_up and
-// b_down f32, the rest in the compute dtype), `stream` a cudaStream_t;
-// partial: a shard's down projection alone (b_down is not read). Returns
-// the first CUDA error of the launch.
+// b_down f32, the rest in the compute dtype; ws as ctn_dpt_ffn_workspace
+// sizes it), `stream` a cudaStream_t; partial: a shard's down projection
+// alone (b_down is not read). Returns the first CUDA error of its
+// launches.
 int ctn_dpt_ffn_f32(CTN_FFN_ARGS) {
   return launch<float>(
       make_params(x, gamma, beta, w_up, b_up, w_down, b_down, out, R, B, F,
                   partial),
-      static_cast<cudaStream_t>(stream));
+      ws, static_cast<cudaStream_t>(stream));
 }
 
 int ctn_dpt_ffn_bf16(CTN_FFN_ARGS) {
   return launch<__nv_bfloat16>(
       make_params(x, gamma, beta, w_up, b_up, w_down, b_down, out, R, B, F,
                   partial),
-      static_cast<cudaStream_t>(stream));
+      ws, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

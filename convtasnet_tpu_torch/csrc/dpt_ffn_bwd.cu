@@ -42,6 +42,14 @@
 //   S   one launch adds every set of partials in order, in double.
 // What remains over the bound: h and dpre, 52 MB each, written by UG and
 // read by DN and W, and W's chunk partials.
+//   Above B = 256 (up to 512) UG's y and g tiles (256 KB at B = 512) and
+// DN's tile as wide as the row do not fit: y comes from ln_rows_kernel
+// (ln_resident_tile's bits), UG streams y's and g's 64-deep panels through
+// its ring beside the weights' slabs (kStream: a slot of 48 KB, three of
+// them), the tiles' column sums of g come from colsum_kernel (over the same
+// 128-row tiles, in the same row order), and DN takes the wide route
+// (launch_dy_ln_wide: dy through device memory, ln_bwd_kernel): seven
+// launches.
 //
 // f32: the first design, 16 launches (dpt_bwd_common.cuh's first pieces):
 //   T  W_up^T, W_down^T;  L  y;
@@ -186,37 +194,51 @@ int launch_bwd(const FfnBwdParams& p, void* ws_act, float* ws_f32,
 constexpr int kUgBN = 64;       // UG's column tile of F
 constexpr int kUgStages = 3;    // UG's ring depth (slots of W_up and W_down)
 
-// UG's shared memory: the y and g tiles, the ring, the stage tiles of h
-// and dpre and the warps' column sums.
-inline size_t ug_smem(int B) {
-  return 1024 + 2 * static_cast<size_t>(B / kSlabK) * kWgRows * kLine +
-         static_cast<size_t>(kUgStages) * 2 * kUgBN * kLine +
+// UG's ring slot: W_up's and W_down's slabs, and with kStream y's and g's
+// 64-deep panels of the tile's rows.
+template <bool kStream>
+__host__ __device__ constexpr uint32_t ug_slot() {
+  return 2 * kUgBN * kLine + (kStream ? 2 * kWgRows * kLine : 0);
+}
+
+// UG's shared memory: the y and g tiles (resident unless kStream), the
+// ring, the stage tiles of h and dpre and the warps' column sums.
+template <bool kStream>
+size_t ug_smem(int B) {
+  return 1024 +
+         (kStream ? 0 : 2 * static_cast<size_t>(B / kSlabK) * kWgRows * kLine) +
+         static_cast<size_t>(kUgStages) * ug_slot<kStream>() +
          2 * stage_bytes<kUgBN>() + 8 * kUgBN * sizeof(float);
 }
 
 // The bf16 workspace: y [R, B], h [R, F], dpre [R, F] in bf16; in f32 each
 // row's (mean, rs), the two weight gradients' chunk partials, the UG
 // tiles' column sums of dpre [tiles, F] and of g [tiles, B], and the DN
-// tiles' (dgamma, dbeta) [tiles, 2B]; each segment on a 256-byte boundary.
+// tiles' (dgamma, dbeta) [ln_tiles, 2B] (128-row tiles; above B = 256
+// ln_bwd_kernel's 64-row ones) and, above 256 only, dy [R, B]; each
+// segment on a 256-byte boundary.
 struct FfnWgLayout {
   size_t act[3];
-  size_t f32[6];
+  size_t f32[7];
   size_t n_act, n_f32;
-  int chunks_down, chunks_up, tiles;
+  int chunks_down, chunks_up, tiles, ln_tiles;
 };
 
 FfnWgLayout ffn_wg_layout(int R, int B, int F) {
   FfnWgLayout L;
+  const bool wide = B > kMaxWidth;
   const size_t bf = static_cast<size_t>(B) * F;
   L.chunks_down = wg_wgrad_chunks(R, F, B);
   L.chunks_up = wg_wgrad_chunks(R, B, F);
   L.tiles = (R + kWgRows - 1) / kWgRows;
+  L.ln_tiles = wide ? n_row_tiles(R) : L.tiles;
   const size_t act[3] = {static_cast<size_t>(R) * B, static_cast<size_t>(R) * F,
                          static_cast<size_t>(R) * F};
-  const size_t f32[6] = {2 * static_cast<size_t>(R), L.chunks_down * bf,
+  const size_t f32[7] = {2 * static_cast<size_t>(R), L.chunks_down * bf,
                          L.chunks_up * bf, static_cast<size_t>(L.tiles) * F,
                          static_cast<size_t>(L.tiles) * B,
-                         static_cast<size_t>(L.tiles) * 2 * B};
+                         static_cast<size_t>(L.ln_tiles) * 2 * B,
+                         wide ? static_cast<size_t>(R) * B : 0};
   size_t off = 0;
   for (int i = 0; i < 3; ++i) {
     L.act[i] = off;
@@ -224,7 +246,7 @@ FfnWgLayout ffn_wg_layout(int R, int B, int F) {
   }
   L.n_act = off;
   off = 0;
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < 7; ++i) {
     L.f32[i] = off;
     off += align_elems(f32[i], 64);
   }
@@ -251,19 +273,25 @@ struct UgOut {
 // dpre = round(acc_d gelu'(pre)) leave through two stage tiles after one
 // barrier, and the tile's column sums of dpre go to col_up. Rows at or
 // beyond R read x and g as zeros, so their dpre is zero; h and dpre are not
-// stored there.
+// stored there. kStream (above B = 256): y [R, B] is in device memory
+// already (o.y), and each slot also carries y's and g's panels of the
+// slab's depth, so no tile is resident and nothing computes y or g's
+// column sums here.
+template <bool kStream>
 __global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
                                                            UgOut o) {
   extern __shared__ uint8_t wg_smem[];
   constexpr uint32_t kHalf = kUgBN * kLine;   // one operand's slab
+  constexpr uint32_t kSlot = ug_slot<kStream>();
+  constexpr uint32_t kPanel = kWgRows * kLine;   // kStream: y's, g's panel
   const int R = p.R, B = p.B, F = p.F;
   const int nk = B / kSlabK, n_tiles = F / kUgBN;
   const uint32_t ys = align_1024(wg_smem);
-  const uint32_t gs = ys + nk * kWgRows * kLine;
-  const uint32_t ring = gs + nk * kWgRows * kLine;
+  const uint32_t gs = ys + (kStream ? 0 : nk * kWgRows * kLine);
+  const uint32_t ring = gs + (kStream ? 0 : nk * kWgRows * kLine);
   uint8_t* y_gen = smem_ptr(wg_smem, ys);
   bf16* st_h = reinterpret_cast<bf16*>(
-      smem_ptr(wg_smem, ring + kUgStages * 2 * kHalf));
+      smem_ptr(wg_smem, ring + kUgStages * kSlot));
   bf16* st_d = st_h + kWgRows * stage_ld<kUgBN>();
   float* s_col = reinterpret_cast<float*>(st_d + kWgRows * stage_ld<kUgBN>());
   const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
@@ -271,42 +299,56 @@ __global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
   const bf16* x = static_cast<const bf16*>(p.x);
   const bf16* w_up = static_cast<const bf16*>(p.w_up);
   const bf16* w_down = static_cast<const bf16*>(p.w_down);
-  for (int s = 0; s < nk; ++s) {   // in the ring's first copy group
-    load_k_panel(gs + s * kWgRows * kLine, static_cast<const bf16*>(p.g), B,
-                 r0, kWgRows, R, s * kSlabK, tid, kWgCta);
-    load_k_panel(ys + s * kWgRows * kLine, x, B, r0, kWgRows, R, s * kSlabK,
-                 tid, kWgCta);
+  if constexpr (!kStream) {
+    for (int s = 0; s < nk; ++s) {   // in the ring's first copy group
+      load_k_panel(gs + s * kWgRows * kLine, static_cast<const bf16*>(p.g), B,
+                   r0, kWgRows, R, s * kSlabK, tid, kWgCta);
+      load_k_panel(ys + s * kWgRows * kLine, x, B, r0, kWgRows, R, s * kSlabK,
+                   tid, kWgCta);
+    }
   }
 
   // y over x's tile in place (ln_resident_tile), also to device memory
   // with each row's (mean, rs)
   auto ln_tile = [&] {
-    cp_async_wait<kUgStages - 2>();   // the first copy group has landed
-    __syncthreads();
-    ln_resident_tile(y_gen, p.gamma, p.beta, r0, R, B, o.y, o.lnstat);
-    // the ring's next barrier publishes the tile
+    if constexpr (!kStream) {
+      cp_async_wait<kUgStages - 2>();   // the first copy group has landed
+      __syncthreads();
+      ln_resident_tile(y_gen, p.gamma, p.beta, r0, R, B, o.y, o.lnstat);
+      // the ring's next barrier publishes the tile
+    }
   };
 
   float acc_p[kUgBN / 2], acc_d[kUgBN / 2];
   ring_run<kUgStages>(
-      n_tiles * nk, ring, 2 * kHalf,
+      n_tiles * nk, ring, kSlot,
       [&](int i, uint32_t slot) {
         const int s = i % nk, n0 = (i / nk) * kUgBN;
         load_mn_slab(slot, w_up, F, s * kSlabK, B, n0, kUgBN, F, tid, kWgCta);
         load_k_panel(slot + kHalf, w_down, B, n0, kUgBN, F, s * kSlabK, tid,
                      kWgCta);
+        if constexpr (kStream) {
+          load_k_panel(slot + 2 * kHalf, o.y, B, r0, kWgRows, R, s * kSlabK,
+                       tid, kWgCta);
+          load_k_panel(slot + 2 * kHalf + kPanel,
+                       static_cast<const bf16*>(p.g), B, r0, kWgRows, R,
+                       s * kSlabK, tid, kWgCta);
+        }
       },
       ln_tile,
       [&](int i, uint32_t slot) {
         const int s = i % nk;
+        const uint32_t y0 = kStream ? slot + 2 * kHalf
+                                    : ys + s * kWgRows * kLine;
+        const uint32_t g0 = kStream ? slot + 2 * kHalf + kPanel
+                                    : gs + s * kWgRows * kLine;
         fence_acc(acc_p);
         fence_acc(acc_d);
         wgmma_fence();
-        mma_slab<kUgBN, false, true>(
-            acc_p, ys + s * kWgRows * kLine + wg * 64 * kLine, slot, s > 0);
-        mma_slab<kUgBN, false, false>(
-            acc_d, gs + s * kWgRows * kLine + wg * 64 * kLine, slot + kHalf,
-            s > 0);
+        mma_slab<kUgBN, false, true>(acc_p, y0 + wg * 64 * kLine, slot,
+                                     s > 0);
+        mma_slab<kUgBN, false, false>(acc_d, g0 + wg * 64 * kLine,
+                                      slot + kHalf, s > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_acc(acc_p);
@@ -341,7 +383,7 @@ __global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
         // the ring's next barrier comes before the stages and s_col are
         // written again
       });
-  if (p.partial) return;   // db_down is zero
+  if (kStream || p.partial) return;   // colsum_kernel's, or zero
   // the tile's column sums of g, from its resident copy (zeros past R)
   const uint8_t* g_gen = smem_ptr(wg_smem, gs);
   for (int c = tid; c < B; c += kWgCta) {
@@ -354,11 +396,25 @@ __global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
   }
 }
 
-// The bf16 backward (top note): UG, DN, W (two launches), S.
+template <bool kStream>
+int launch_ug(const FfnBwdParams& p, const UgOut& o, int tiles,
+              cudaStream_t stream) {
+  const size_t smem = ug_smem<kStream>(p.B);
+  CTN_RETURN_IF(static_cast<int>(cudaFuncSetAttribute(
+      ffn_ug_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem))));
+  ffn_ug_kernel<kStream><<<tiles, kWgCta, smem, stream>>>(p, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 backward (top note): UG, DN, W (two launches), S; above B = 256
+// y by ln_rows_kernel, UG streaming y and g, g's column sums by
+// colsum_kernel and DN's wide route.
 int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
                   cudaStream_t stream) {
   const int R = p.R, B = p.B, F = p.F;
-  if (B % kSlabK || B > kMaxWidth || F % kUgBN)
+  const bool wide = B > kMaxWidth;
+  if (B % kSlabK || B > kWideMax || F % kUgBN)
     return static_cast<int>(cudaErrorInvalidValue);
   const FfnWgLayout L = ffn_wg_layout(R, B, F);
   bf16* act = static_cast<bf16*>(ws_act);
@@ -372,11 +428,18 @@ int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
   o.col_up = ws_f32 + L.f32[3];
   o.col_down = ws_f32 + L.f32[4];
   float* lnpart = ws_f32 + L.f32[5];
-  const size_t smem = ug_smem(B);
-  CTN_RETURN_IF(static_cast<int>(cudaFuncSetAttribute(
-      ffn_ug_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem))));
-  ffn_ug_kernel<<<L.tiles, kWgCta, smem, stream>>>(p, o);
+  const bf16* g = static_cast<const bf16*>(p.g);
+  if (wide) {
+    CTN_RETURN_IF(launch_ln_rows<bf16>(p.x, R, B, p.gamma, p.beta, o.y,
+                                       stream));
+    CTN_RETURN_IF(launch_ug<true>(p, o, L.tiles, stream));
+    if (!p.partial)   // [tiles, B]: colsum_kernel's chunks are UG's tiles
+      colsum_kernel<bf16><<<dim3((B + kColThreads - 1) / kColThreads,
+                                 L.tiles), kColThreads, 0, stream>>>(
+          g, R, B, o.col_down);
+  } else {
+    CTN_RETURN_IF(launch_ug<false>(p, o, L.tiles, stream));
+  }
   CTN_CHECK();
   DyLnParams q;
   q.a = o.dpre;
@@ -390,7 +453,9 @@ int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
   q.R = R;
   q.B = B;
   q.depth = F;
-  CTN_RETURN_IF(launch_dy_ln_wg(q, !p.partial, stream));
+  CTN_RETURN_IF(wide ? launch_dy_ln_wide(q, ws_f32 + L.f32[6], !p.partial,
+                                         stream)
+                     : launch_dy_ln_wg(q, !p.partial, stream));
   CTN_RETURN_IF(launch_wgrad_parts_wg(o.h, p.g, R, F, B, part_down, stream));
   CTN_RETURN_IF(launch_wgrad_parts_wg(o.y, o.dpre, R, B, F, part_up, stream));
   const ReduceJob jobs[5] = {
@@ -398,7 +463,7 @@ int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
       {part_up, L.chunks_up, B * F, p.dw_up},
       {o.col_up, L.tiles, F, p.db_up},
       {o.col_down, p.partial ? 0 : L.tiles, B, p.db_down},
-      {lnpart, L.tiles, 2 * B, p.dgb}};
+      {lnpart, L.ln_tiles, 2 * B, p.dgb}};
   return launch_reduce_jobs(jobs, 5, stream);
 }
 

@@ -37,9 +37,12 @@
 //       the row max and denominator, pass 2 p, round(p) and a on
 //       mma.sync. No [S, S] or [16, S] tile exists, so any S runs in the
 //       same shared memory (26 KB at S = 128, d = 32);
-//   out x + round(a @ W_out) on wgmma per 128-row tile, a's panels and
-//       W_out's MN-major slabs through a ring, x's tile and the output
-//       staged over the ring after the product.
+//   out x + round(a @ W_out) on wgmma per 128-row tile (rows_wg_kernel),
+//       a's panels and W_out's MN-major slabs through a ring, x's tile and
+//       the output staged over the ring after the product.
+// Above B = 256 (to 512) F1 keeps one resident tile with a ring of 3 (4 at
+// 64 wide) and out runs 256-column tiles (dpt_attn_bwd_wg.cuh's note);
+// the core is per head and unchanged.
 // Registers (ptxas, sm_90a): F1 146 (88 at 64 wide), the core 47, 56, 96
 // and 128 at d = 16, 32, 64 and 128, out 182 at a 256-wide tile; no
 // spills. Waves: F1 and out

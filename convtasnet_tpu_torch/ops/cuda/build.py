@@ -45,8 +45,9 @@ _TP2_ARGTYPES = [_P] * 11 + [_I] * 7 + [_P]
 # ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 7 ints, the stream
 # (dpt_common.cuh)
 _ATTN_ARGTYPES = [_P] * 9 + [_I] * 7 + [_P]
-# ctn_dpt_ffn_{f32,bf16}: 8 pointers, 4 ints, the stream (dpt_ffn.cu)
-_FFN_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
+# ctn_dpt_ffn_{f32,bf16}: 9 pointers (the last the workspace), 4 ints, the
+# stream (dpt_ffn.cu)
+_FFN_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P]
 # ctn_dpt_{inter,intra}_bwd_{f32,bf16}: 13 pointers, 7 ints, the stream
 # (dpt_bwd_common.cuh)
 _ATTN_BWD_ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
@@ -146,6 +147,7 @@ def load_library() -> ctypes.CDLL:
         "ctn_dpt_intra_bf16": _ATTN_ARGTYPES,
         "ctn_dpt_ffn_f32": _FFN_ARGTYPES,
         "ctn_dpt_ffn_bf16": _FFN_ARGTYPES,
+        "ctn_dpt_ffn_workspace": [_I] * 3 + [_LL_P],
         "ctn_dpt_inter_bwd_f32": _ATTN_BWD_ARGTYPES,
         "ctn_dpt_inter_bwd_bf16": _ATTN_BWD_ARGTYPES,
         "ctn_dpt_intra_bwd_f32": _ATTN_BWD_ARGTYPES,

@@ -50,7 +50,10 @@ from convtasnet_tpu_torch.ops.norm import LN_EPS, layer_norm
 
 NEG_INF = -1e9
 TILE = 64            # B must be a multiple of the GEMM tile
-MAX_WIDTH = 256      # B at most this (the kernels' shared-memory tiles)
+# B at most this, in every DPT kernel (B7-B12 and their partial modes): up
+# to 256 the bf16 designs keep tiles as wide as the row, from 320 to 512
+# they take their wide routes (csrc/dpt_bwd_common.cuh, kWideMax)
+MAX_WIDTH = 512
 # the head widths d = Bq / h the kernels take, by compute dtype: the bf16
 # designs share one tensor-core core, templated on d; the f32 first
 # designs are templated on d too
@@ -86,9 +89,10 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
     of S frames whose heads, ``n_heads`` of them, span Bq channels (Bq ==
     B, or B / m for a head-group shard of m), in the compute ``dtype`` (a
     torch dtype or its name), or None where they take it: B a multiple of
-    64 up to 256, Bq a multiple of 64 and a head width Bq / n_heads in
-    ``HEAD_DIMS`` of the dtype. Any S runs (the f32 intra kernels above
-    256 frames on their row-statistics core, ``csrc/dpt_intra_rowstat.cuh``)."""
+    64 up to ``MAX_WIDTH`` (512), Bq a multiple of 64 and a head width Bq /
+    n_heads in ``HEAD_DIMS`` of the dtype, at any head count. Any S runs
+    (the f32 intra kernels above 256 frames on their row-statistics core,
+    ``csrc/dpt_intra_rowstat.cuh``)."""
     if B % TILE or B > MAX_WIDTH:
         return (f"the kernel needs B a multiple of {TILE} and at most "
                 f"{MAX_WIDTH}, got B={B}")

@@ -56,7 +56,9 @@ _GELU_A = 0.044715
 
 def shape_refusal(B: int) -> Optional[str]:
     """Why the FFN kernels (B11, B12, and their partial modes) refuse a
-    sublayer of width B, or None where they take it. Any hidden width F
+    sublayer of width B, or None where they take it: B a multiple of 64 up
+    to ``MAX_WIDTH`` (512; above 256 B11 runs three launches through a
+    workspace, ``csrc/dpt_ffn.cu``). Any hidden width F
     (F / m for a shard of m): the wrappers zero-pad it to a multiple of
     ``F_TILE`` (``pad_hidden``)."""
     if B % TILE or B > MAX_WIDTH:
@@ -167,13 +169,17 @@ def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down,
     x, g, b, w_up, bu, w_down, bd = _prepare("fused_ffn", x, gamma, beta,
                                              w_up, b_up, w_down, b_down)
     M, K, B = x.shape
+    Fw = w_up.shape[1]
+    n_ws = ctypes.c_longlong()   # y and h above B = 256; none below
+    lib.ctn_dpt_ffn_workspace(M * K, B, Fw, ctypes.byref(n_ws))
+    ws = torch.empty(n_ws.value, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, _ENTRY[x.dtype])(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), w_up.data_ptr(),
             bu.data_ptr(), w_down.data_ptr(), bd.data_ptr(), out.data_ptr(),
-            M * K, B, w_up.shape[1], int(partial), stream)
+            ws.data_ptr(), M * K, B, Fw, int(partial), stream)
     raise_on_error(lib, err, "dpt ffn kernel")
     return out
 

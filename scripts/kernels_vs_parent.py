@@ -13,7 +13,10 @@ the DPT sublayer kernels in full mode (B7-B12) and in partial mode over
 m = 2 and 4 shards (B7p-B12p) at the quality default's widths ([8, 25,
 128, 256], 8 heads, F=1024, the real key mask), forwards and backwards in
 bf16 and f32, the f32 attention kernels also at 4 heads (head width 64),
-the intra kernels also at other chunk lengths; the TCN TP
+the intra kernels also at other chunk lengths, and every DPT kernel also
+at B = 128 and 192 (B / 32 heads, F = 4B, full and on the last shard of
+2 and 3: the widths below 256 whose out and DN tiles are 128 wide, or 256
+wide with the columns past B zero); the TCN TP
 stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128; the TCN block forward
 (B1, gLN and cLN causal), the gLN block backward (B2) and the cLN one
 (B3) at the paper shape [8, 3199, 256], H=512, d = 1, 16, 128; the block
@@ -31,6 +34,9 @@ pair forward (B4, gLN and cLN causal) and the gLN pair backward (B5),
   kernels' shared pieces must leave these bits as they were. Where a
   tree carries a twin distance for one of them (the B1-B6 and backward
   twins), both trees' distances are printed beside it.
+
+A last line counts the outputs, those held by distance too, that are the
+other tree's bits ("n of n outputs in all the same bits").
 
 ``--time`` then times both trees in turns (other, this, this, other; one
 subprocess each, on the same card), in bf16: first the DPT forwards B7,
@@ -98,6 +104,14 @@ CASES += [("intra", "bfloat16", 256, 4, True, True),
           ("intra", "float32", 176, 4, True, True),
           ("intra", "float32", 208, 4, False, True),
           ("intra", "float32", 256, 8, True, True)]
+# the DPT kernels at the narrower widths both trees take, B / 32 heads:
+# B = 128 (out's and DN's tiles 128 wide) and 192 (out's and DN's 256-wide
+# tiles with the columns past B zero), forward and backward, full and on
+# the last shard of m (m = 2 at 128; 3 at 192, a 64-channel shard)
+WIDTH_CASES = [(kind, dtype, B, m)
+               for kind in ("inter", "intra", "ffn")
+               for dtype in ("bfloat16", "float32")
+               for B, m in ((128, 2), (192, 3))]
 B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
             for hs in (256, 128) for d in (1, 128)]
 # the partial modes: one shard of m of the quality default's widths
@@ -256,6 +270,16 @@ def compare(mine: dict, other: dict):
     return lines, bad
 
 
+def same_bits(mine: dict, other: dict):
+    """(n, of): how many of the other tree's outputs, those held by
+    distance too (the twin distances aside), this tree gives bit for
+    bit."""
+    keys = [k for k in other if not k.startswith(TWINS)]
+    n = sum(1 for k in keys if k in mine and mine[k].shape == other[k].shape
+            and bool((mine[k] == other[k]).all()))
+    return n, len(keys)
+
+
 def summarize(turns: list) -> list:
     """Lines for the timed turns [(tree, {metric: ms}), ...] in the order
     run: each metric's times per tree in turn order, the means and the
@@ -390,13 +414,18 @@ def dump(path: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
-    for kind, dtype, S, heads, fwd, bwd in CASES:
-        g = torch.Generator(device="cuda").manual_seed(S + heads)
+    cases = [(kind, dtype, S, heads, fwd, bwd, 256, None)
+             for kind, dtype, S, heads, fwd, bwd in CASES]
+    cases += [(kind, dtype, 128, B // 32, True, True, B, m)
+              for kind, dtype, B, m in WIDTH_CASES]
+    for kind, dtype, S, heads, fwd, bwd, Bd, width_m in cases:
+        g = torch.Generator(device="cuda").manual_seed(
+            S + heads + (0 if Bd == 256 else Bd))
 
         def rn(*shape, scale=1.0):
             return torch.randn(*shape, generator=g, device="cuda") * scale
 
-        Bd, F, n = 256, 1024, 3199 // S + 1
+        F, n = 4 * Bd, 3199 // S + 1
         dt = getattr(torch, dtype)
         valid = torch.arange(n * S, device="cuda").reshape(n, S) < 3199
         x = rn(M, n, S, Bd).to(dt)
@@ -411,6 +440,8 @@ def dump(path: str) -> None:
                  torch.where(valid, 0.0, -1e9).to(torch.float32))
             kw = dict(n_heads=heads)
         key = f"dpt {kind} {dtype} S={S} heads={heads}"
+        if Bd != 256:
+            key = f"dpt {kind} {dtype} B={Bd} S={S} heads={heads}"
         fused_bwd = fns[kind][1]
         if fwd:
             forward(kind, key, x, w, **kw)
@@ -422,7 +453,8 @@ def dump(path: str) -> None:
                 out[f"{key} backward {i}"] = t.cpu()
             bwd_twins(kind, key, got, x, gr, w, **kw)
             # the partial modes on the last shard of m (S = 128 only)
-            for m in PARTIAL_SHARDS if S == 128 else ():
+            for m in ((width_m,) if width_m else
+                      PARTIAL_SHARDS if S == 128 else ()):
                 xs, *ws = _shard((x, *w), kind, m, m - 1)
                 pkw = dict(kw, partial=True)
                 if kind != "ffn":
@@ -1029,11 +1061,13 @@ def main() -> int:
         for line in lines:
             print(f"kernels vs the other checkout, {line}", flush=True)
         n_bits = sum(1 for k in outs["other"]
-                     if bitwise(k) and not k.startswith("twin "))
+                     if bitwise(k) and not k.startswith(TWINS))
         n_diff = sum(1 for k in bad if bitwise(k))
         print(f"{n_bits - n_diff} of {n_bits} bit-for-bit outputs the same "
               f"bits; {len(bad) - n_diff} outputs held by distance past "
               f"their bars", flush=True)
+        n_same, n_all = same_bits(outs["this"], outs["other"])
+        print(f"{n_same} of {n_all} outputs in all the same bits", flush=True)
         report["compare"] = lines
         if a.time:
             turns = []

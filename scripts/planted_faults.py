@@ -123,8 +123,8 @@ FAULTS = {
         "      (void)0;"),
     "b9_partial_adds_residual": ("dpt_tp",
         "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
-        "  const bool residual = !f.partial;",
-        "  const bool residual = true;"),
+        "  q.res = f.partial ? nullptr : static_cast<const bf16*>(f.x);",
+        "  q.res = static_cast<const bf16*>(f.x);"),
     "b11_partial_adds_residual": ("dpt_tp",
         "convtasnet_tpu_torch/csrc/dpt_ffn.cu",
         "  const bool residual = !p.partial;",
@@ -185,8 +185,8 @@ FAULTS = {
         "rs[u] = rsqrtf(warp_sum(rs[u]) / B);"),
     "attn_wg_dn_residual_in_partial": ("dpt_tp",
         "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
-        "CTN_RETURN_IF(launch_dy_ln_wg(q, !f.partial, stream));",
-        "CTN_RETURN_IF(launch_dy_ln_wg(q, true, stream));"),
+        ": launch_dy_ln_wg(q, !f.partial, stream));",
+        ": launch_dy_ln_wg(q, true, stream));"),
     # the TCN block forward (B1) on the Hopper core: C' recomputing y with
     # its taps one row off (the halo shifted by one), and B' writing
     # sample m's norm2 partials into the next sample's slots

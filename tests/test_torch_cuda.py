@@ -2307,14 +2307,14 @@ AUTO_PADDED = {
                 bottleneck=64, dpt_chunk=100, dpt_layers=1, dpt_heads=2,
                 dpt_ff=192),
 }
-# (config, the rule the error names): 17 causal taps, a DPT wider than 256
+# (config, the rule the error names): 17 causal taps, a DPT wider than 512
 AUTO_REFUSED = {
     "tcn": (dict(n_filters=64, kernel_size=16, bottleneck=64, hidden=128,
                  conv_kernel=17, causal=True, num_blocks=2, num_repeats=1),
             "P=17"),
     "dpt": (dict(separator="dpt", n_filters=64, kernel_size=16,
-                 bottleneck=320, dpt_layers=1, dpt_heads=5, dpt_ff=256),
-            "at most 256"),
+                 bottleneck=576, dpt_layers=1, dpt_heads=18, dpt_ff=256),
+            "at most 512"),
 }
 
 
@@ -2364,7 +2364,7 @@ def test_auto_mode_runs_padded_widths_through_the_kernels(cuda, family):
 @pytest.mark.parametrize("family", ["tcn", "dpt"])
 def test_auto_mode_raises_where_no_kernel_takes_the_shape(cuda, family):
     """A shape no kernel takes (a TCN with 17 causal taps, a DPT at
-    B = 320) raises under auto on the card as with
+    B = 576) raises under auto on the card as with
     use_pallas=True, naming the rule, before any launch; use_pallas=False
     serves it through the plain ops."""
     kw, rule = AUTO_REFUSED[family]
@@ -2516,3 +2516,179 @@ def test_imported_reference_package_through_b1(cuda, tmp_path, dtype,
                               mix)
     dt = torch.float32 if dtype == "float32" else torch.bfloat16
     assert _rel_l2(est, want) <= TOL[dt], _rel_l2(est, want)
+
+
+# --------------------------------------------------------------------------
+# DPT widths above 256 (B = 320 to 512): every sublayer kernel on its wide
+# route (LQ's one resident tile, out in 256-column tiles, DN through dy in
+# device memory and ln_bwd_kernel, UG streaming y and g, B11 in three
+# launches; the f32 inter cores with more than 8 heads taking them in turn)
+# --------------------------------------------------------------------------
+
+WIDE_WIDTHS = (320, 384, 448, 512)
+
+
+def _wide_shards(B):
+    """The least shard count m > 1 whose head-group shard of B (B / 32
+    heads) is a multiple of 64 wide: 5, 2, 7, 2 at B = 320, 384, 448,
+    512."""
+    return dpt_attention.fitting_shards(B, B // 32)[1]
+
+
+def _wide_case(cuda, dtype, kind, B, m, heads=None, seed=0):
+    """Operands of one sublayer at width B (B / 32 heads unless ``heads``;
+    F = 2B) over [2, 5, 32] rows (320, the last 128-row tile half full)
+    with a masked tail, and of its last shard of m (m > 1)."""
+    heads = heads or B // 32
+    args, kw, valid = _dpt_args(cuda, dtype, kind, 5, True, S=32, B=B,
+                                heads=heads, F=2 * B, seed=seed)
+    if m > 1:
+        args = _shard(args, kind, m, m - 1)
+        kw = dict(_partial_kw(kind, m, heads), partial=True)
+    return args, kw, valid
+
+
+# the bf16 forwards at their rounding points above 256: B6's order bar,
+# 1e-3, in full mode; twice that for a partial output, which lacks x: the
+# same order noise weighs about twice as much in it (at B = 256 the smoke
+# reads 3.0e-4 full against 6.1e-4 on one shard of two for B9, 2.7e-4
+# against 4.1e-4 for B7)
+WIDE_ORDER_TOL = {False: 1e-3, True: 2e-3}
+
+
+@pytest.mark.parametrize("m", ["full", "partial"])
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", WIDE_WIDTHS)
+def test_dpt_wide_kernels_match_twins(cuda, B, dtype, kind, m):
+    """B7-B12 (full) and B7p-B12p (the last shard of ``_wide_shards``) at
+    B = 320, 384, 448 and 512 with B / 32 heads (10 to 16 heads of 32; a
+    shard 2 to 8 of them), F = 2B: the forward within DPT_TOL of its twin
+    on the valid rows (bf16 also within 1e-3 of the forward at its
+    rounding points, ``WIDE_ORDER_TOL``) and two calls the same bits;
+    every cotangent of the
+    backward as test_dpt_bwd_kernel_matches_twin holds it; one launch per
+    call, counted in its mode."""
+    fused, twin = DPT_FNS[kind]
+    fused_bwd, twin_bwd = DPT_BWD_FNS[kind]
+    shards = 1 if m == "full" else _wide_shards(B)
+    args, kw, valid = _wide_case(cuda, dtype, kind, B, shards, seed=B)
+    count = "partial_launches" if shards > 1 else "launches"
+    before = getattr(fused, count)
+    with torch.inference_mode():
+        got, again = fused(*args, **kw), fused(*args, **kw)
+        torch.cuda.synchronize()
+        same = twin(*args, **kw)
+    assert getattr(fused, count) == before + 2
+    assert torch.equal(got, again)
+    got_v, same_v = (_valid_rows(v, valid, B) for v in (got, same))
+    assert torch.isfinite(got_v).all()
+    assert _rel_l2(got_v, same_v) <= DPT_TOL[dtype], _rel_l2(got_v, same_v)
+    if dtype == torch.bfloat16:
+        with torch.inference_mode():
+            rounded = _valid_rows(_fwd_rounded(kind, args, kw), valid, B)
+        assert _rel_l2(got_v, rounded) <= WIDE_ORDER_TOL[shards > 1], (
+            _rel_l2(got_v, rounded))
+    x = args[0]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(B))
+    g = (g.to(cuda).reshape(x.shape[0], -1, B)
+         * valid.reshape(1, -1, 1)).reshape(x.shape).to(dtype)
+    w = [None if a is None else a.float() for a in args[1:]]
+    before = getattr(fused_bwd, count)
+    grads = fused_bwd(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fused_bwd, count) == before + 1
+    exact = twin_bwd(x.float(), g.float(), *w, **kw)
+    same = twin_bwd(x, g, *w, **kw)
+    if kind == "ffn" and shards > 1:   # db_down of a partial backward
+        assert not grads[-1].any()
+        grads, exact, same = grads[:-1], exact[:-1], same[:-1]
+    _check_dpt_cotangents(grads, exact, same, valid, dtype)
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [32, 8, 4])
+def test_dpt_wide_attention_head_widths(cuda, heads, dtype, kind):
+    """B7-B10 at B = 512 with 32 heads (d = 16: four a warp in the f32
+    inter cores), 8 (d = 64) and 4 (d = 128): the forward within DPT_TOL
+    of its twin on the valid rows and every cotangent as
+    test_dpt_bwd_kernel_matches_twin holds it."""
+    fused, twin = DPT_FNS[kind]
+    fused_bwd, twin_bwd = DPT_BWD_FNS[kind]
+    args, kw, valid = _wide_case(cuda, dtype, kind, 512, 1, heads=heads,
+                                 seed=heads)
+    with torch.inference_mode():
+        got, same = fused(*args, **kw), twin(*args, **kw)
+    err = _rel_l2(_valid_rows(got, valid, 512), _valid_rows(same, valid, 512))
+    assert err <= DPT_TOL[dtype], err
+    x = args[0]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(heads))
+    g = (g.to(cuda).reshape(x.shape[0], -1, 512)
+         * valid.reshape(1, -1, 1)).reshape(x.shape).to(dtype)
+    w = [None if a is None else a.float() for a in args[1:]]
+    grads = fused_bwd(x, g, *w, **kw)
+    _check_dpt_cotangents(grads, twin_bwd(x.float(), g.float(), *w, **kw),
+                          twin_bwd(x, g, *w, **kw), valid, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [384, 512])
+def test_dpt_wide_model_kernel_path_matches_plain_path(cuda, B, dtype):
+    """A DPT at B = 384 (12 heads) and 512 (16 heads), one layer, 32-frame
+    chunks, F = 2B, serving a 1.3 s mixture: auto mode takes it (no
+    refusal), each sublayer launches its kernel, the output within the
+    forward bar of the plain path's; a backward through the kernel path
+    launches each backward kernel once (the FFN's twice), every gradient
+    finite, in f32 within the f32 step bar of the plain path's."""
+    from convtasnet_tpu_torch.ops.cuda import shapes
+
+    cfg = ConvTasNetConfig(n_filters=64, bottleneck=B, separator="dpt",
+                           dpt_chunk=32, dpt_layers=1, dpt_ff=2 * B,
+                           compute_dtype=dtype)
+    assert shapes.refusals(cfg) == {}
+    mix = torch.randn(2, 10400, generator=torch.Generator().manual_seed(B))
+    mix = mix.to(cuda)
+    sd = ConvTasNet(cfg, use_pallas=False, device=cuda).state_dict()
+    outs, grads = {}, {}
+    for use in (None, False):
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).eval()
+        model.load_state_dict(sd)
+        before = [DPT_FNS[k][0].launches for k in DPT_FNS]
+        with torch.inference_mode():
+            outs[use] = model(mix)
+        assert [DPT_FNS[k][0].launches - b
+                for k, b in zip(DPT_FNS, before)] == (
+            [1, 1, 2] if use is None else [0, 0, 0])
+        model.train()
+        before = [DPT_BWD_FNS[k][0].launches for k in DPT_BWD_FNS]
+        model(mix).square().mean().backward()
+        torch.cuda.synchronize()
+        assert [DPT_BWD_FNS[k][0].launches - b
+                for k, b in zip(DPT_BWD_FNS, before)] == (
+            [1, 1, 2] if use is None else [0, 0, 0])
+        grads[use] = torch.cat([p.grad.reshape(-1).float()
+                                for p in model.parameters()])
+    assert torch.isfinite(outs[None]).all() and torch.isfinite(
+        grads[None]).all()
+    assert _rel_l2(outs[None], outs[False]) <= TOL[getattr(torch, dtype)]
+    if dtype == "float32":
+        err = _rel_l2(grads[None], grads[False])
+        assert err <= 2 * TOL[torch.float32], err
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+def test_dpt_wide_partial_kernels_sum_to_the_full_kernel(cuda, kind):
+    """At B = 512 (16 heads, F = 1024) the two shards' partial forwards
+    summed, plus x (and the down bias), give the full kernel's output
+    within the f32 DPT bar: the Megatron identity on the wide routes."""
+    fused = DPT_FNS[kind][0]
+    args, kw, valid = _wide_case(cuda, torch.float32, kind, 512, 1, seed=7)
+    with torch.inference_mode():
+        full = fused(*args, **kw)
+        parts = sum(fused(*_shard(args, kind, 2, s),
+                          **dict(_partial_kw(kind, 2, 16), partial=True))
+                    for s in range(2))
+    total = args[0] + parts + (args[-1] if kind == "ffn" else 0)
+    err = _rel_l2(_valid_rows(total, valid, 512), _valid_rows(full, valid, 512))
+    assert err <= DPT_TOL[torch.float32], err

@@ -19,8 +19,10 @@ below is only a ``torch.device`` whose type the check reads.
 
 import dataclasses
 import functools
+import re
 import types
 import warnings
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -74,24 +76,118 @@ def test_tp_stage2_rule(Hs, B):
 
 
 def _attention_ok(kind, B, S, Bq, heads):
-    return (B % 64 == 0 and B <= 256 and Bq % heads == 0
+    return (B % 64 == 0 and B <= 512 and Bq % heads == 0
             and Bq // heads in (16, 32, 64, 128) and Bq % 64 == 0)
 
 
 @pytest.mark.parametrize("kind", ["inter", "intra"])
 @pytest.mark.parametrize("B,Bq,heads", [
     (256, 256, 8), (256, 128, 4), (256, 32, 1), (256, 256, 16),
-    (320, 320, 10), (96, 96, 3), (64, 64, 2)])
+    (320, 320, 10), (96, 96, 3), (64, 64, 2), (512, 512, 16),
+    (512, 256, 8), (448, 64, 2), (576, 576, 18)])
 @pytest.mark.parametrize("S", [100, 128, 272])
 def test_attention_rules(kind, B, Bq, heads, S):
-    """B7-B10 (and partial modes) take B a multiple of 64 and <= 256, a
+    """B7-B10 (and partial modes) take B a multiple of 64 and <= 512, a
     head width of 16, 32, 64 or 128 and the heads' width Bq a multiple of
     64, at any chunk length S (the intra kernels pad it to a multiple of
-    16)."""
+    16); B = 320 to 512 on their wide routes, B = 576 and 96 refused."""
     got = dpt_attention.shape_refusal(kind, B, S, Bq, heads)
     assert (got is None) == _attention_ok(kind, B, S, Bq, heads), got
     if kind == "intra":
         assert dpt_intra.shape_refusal(B, S, Bq, heads) == got
+
+
+CSRC = Path(dpt_attention.__file__).resolve().parents[2] / "csrc"
+
+
+def _csrc_int(name, file):
+    """The value of ``constexpr int name = ...;`` in csrc/file."""
+    found = re.search(rf"constexpr int {name} = (\d+);",
+                      (CSRC / file).read_text())
+    assert found, (name, file)
+    return int(found.group(1))
+
+
+def _f32_inter_launchers_take(B, Bq, h):
+    """What the f32 inter launchers (B7's ``launch`` in csrc/dpt_attention.cu,
+    B8's ``launch_bwd`` in csrc/dpt_attention_bwd.cu, with their partial
+    modes) check and ask for, written out: Bq a multiple of 64 and at most
+    B, a head width in core_head_width, B within the LN backward's rows
+    (kLnBwdWidth) and the widest row (kWideMax), a core block of
+    core_warps(h) warps (at most 8, each taking h / warps heads in turn)
+    and the dynamic shared memory of ln_qkv_kernel (ln_qkv_smem<float>)
+    and of the inter cores (inter_core_smem, core_bwd_smem) within an
+    H100 block's 232,448 bytes."""
+    def align128(n):
+        return (n + 127) // 128 * 128
+
+    d = Bq // h
+    warps = min(h, 8)
+    while h % warps:
+        warps -= 1
+    ln_qkv = (align128(64 * (B + 4) * 4) + align128(64 * 68 * 4)
+              + 64 * (256 + 4) * 4)
+    core = align128(32 * 2 * Bq * 4) + 32 * 4
+    return (Bq % 64 == 0 and Bq <= B and Bq % h == 0
+            and d in (16, 32, 64, 128)
+            and B <= _csrc_int("kLnBwdWidth", "dpt_bwd_common.cuh")
+            and B <= _csrc_int("kWideMax", "dpt_bwd_common.cuh")
+            and warps <= 8 and h % warps == 0
+            and max(ln_qkv, core) <= 232448)
+
+
+def test_every_taken_f32_inter_shape_launches():
+    """Every shape the attention rule takes in f32 at B <= 512 with 10 to
+    16 heads (a head-group shard of m of them too) is one the f32 inter
+    launchers take: no launcher keeps a refusal the rule does not state
+    (the one-warp-a-head limit above 8 heads is gone from both), and the
+    shapes the rule refuses are B off 64 or above 512."""
+    for name in ("dpt_attention.cu", "dpt_attention_bwd.cu"):
+        assert not re.search(r"\bh > 8 &&", (CSRC / name).read_text()), name
+    taken = 0
+    for B in range(64, 577, 32):
+        for heads in range(10, 17):
+            for m in range(1, heads + 1):
+                if heads % m or B % m:
+                    continue
+                Bq, h = B // m, heads // m
+                got = dpt_attention.shape_refusal("inter", B, 128, Bq, h,
+                                                  "float32")
+                if got is None:
+                    taken += 1
+                    assert _f32_inter_launchers_take(B, Bq, h), (B, Bq, h)
+                elif B % 64 or B > 512:
+                    assert "at most 512" in got, (B, got)
+    assert taken >= 8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [320, 384, 448, 512])
+def test_wide_widths_take_every_head_width_and_shard(B, dtype):
+    """At B = 320 to 512 the attention kernels (inter and intra) take every
+    head width of their dtype, on the full sublayer and on every head-group
+    shard whose width B / m is a multiple of 64, and the FFN kernels take
+    B; B + 64 past 512 and B - 32 off the tile are refused."""
+    taken = 0
+    for d in dpt_attention.HEAD_DIMS[dtype]:
+        heads = B // d
+        if B % d:
+            continue
+        for m in range(1, heads + 1):
+            if heads % m or (B // m) % 64:
+                continue
+            for kind in ("inter", "intra"):
+                assert dpt_attention.shape_refusal(
+                    kind, B, 128, B // m, heads // m, dtype) is None
+            assert dpt_intra.shape_refusal(B, 128, B // m, heads // m,
+                                           dtype) is None
+            taken += 1
+    assert taken >= 4
+    assert dpt_ffn.shape_refusal(B) is None
+    assert dpt_ffn.shape_refusal(B - 32) and dpt_attention.shape_refusal(
+        "inter", B - 32, 128, B - 32, (B - 32) // 32, dtype)
+    if B == 512:
+        assert dpt_ffn.shape_refusal(B + 64)
 
 
 @pytest.mark.parametrize("kind", ["inter", "intra"])
@@ -150,12 +246,17 @@ def test_f32_dpt_head_widths_refuse_only_long_chunks(heads):
     assert shapes.refusals(long) == {}
 
 
-@pytest.mark.parametrize("B", [64, 256, 320, 96])
+@pytest.mark.parametrize("B", [64, 256, 320, 96, 448, 512, 576])
 def test_ffn_rule(B):
-    """B11, B12 (and partial modes) take B a multiple of 64 and <= 256, and
-    any F (F / m), padded to a multiple of 128."""
+    """B11, B12 (and partial modes) take B a multiple of 64 and <= 512
+    (320 to 512 on their wide routes), and any F (F / m), padded to a
+    multiple of 128; B = 576 and 96 are refused."""
     got = dpt_ffn.shape_refusal(B)
-    assert (got is None) == (B % 64 == 0 and B <= 256), got
+    assert (got is None) == (B % 64 == 0 and B <= 512), got
+    assert dpt_ffn.MAX_WIDTH is dpt_attention.MAX_WIDTH == 512
+    if got:
+        assert got == (f"the kernel needs B a multiple of 64 and at most "
+                       f"512, got B={B}")
 
 
 @pytest.mark.parametrize("overrides,n_model,pairs,want", [
@@ -170,8 +271,14 @@ def test_ffn_rule(B):
     (dict(hidden=192, norm_type="cLN"), 2, False, {}),
     (dict(separator="dpt"), 1, False, {}),
     (dict(separator="dpt", dpt_chunk=100), 1, False, {}),
-    (dict(separator="dpt", bottleneck=320), 1, False,
+    (dict(separator="dpt", bottleneck=320), 1, False, {}),
+    (dict(separator="dpt", bottleneck=576), 1, False,
      {"intra", "inter", "ffn"}),
+    (dict(separator="dpt", bottleneck=512), 1, False, {}),
+    (dict(separator="dpt", bottleneck=512), 2, False, {}),
+    (dict(separator="dpt", bottleneck=448, compute_dtype="bfloat16"), 7,
+     False, {}),
+    (dict(separator="dpt", bottleneck=384), 4, False, {"intra", "inter"}),
     (dict(separator="dpt"), 8, False, {"intra", "inter"}),
     (dict(separator="dpt", dpt_ff=1280), 4, False, {}),
     (dict(hidden=1152), 2, False, {"stage2"}),
@@ -199,7 +306,9 @@ def test_ffn_rule(B):
     (dict(separator="dpt", bottleneck=128, dpt_heads=1,
           compute_dtype="bfloat16"), 1, False, {}),
 ], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
-        "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-tp8",
+        "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-B576",
+        "dpt-B512", "dpt-tp2-B512", "dpt-tp7-B448-bf16", "dpt-tp4-B384",
+        "dpt-tp8",
         "dpt-tp4-F320", "tp-Hs576", "dpt-S272", "dpt-S320", "dpt-S320-bf16",
         "dpt-tp2-S320-bf16", "dpt-S100-bf16", "dpt-d16", "dpt-d128",
         "dpt-tp2-d16", "dpt-tp2-d128", "dpt-tp4-d16", "dpt-d16-S272",

@@ -227,3 +227,30 @@ def test_f32_intra_bounds(n, S, fwd_ms, bwd_ms):
     assert kvp._f32_intra_bound_ms(n, S, True) == pytest.approx(bwd_ms,
                                                                 abs=5e-4)
     assert (n, S) in kvp.F32_INTRA_LONG
+
+
+def test_same_bits_counts_every_output():
+    """``same_bits`` counts the outputs this tree gives bit for bit among
+    all the other tree's, those held by distance (the bf16 B7 forward)
+    included and the twin distances left out: the count the bit proof
+    prints as "n of n outputs in all the same bits"."""
+    mine, other = _outs(0), _outs(0)
+    assert kvp.same_bits(mine, other) == (7, 7)
+    mine[INTER_FWD] = mine[INTER_FWD] * 1.01
+    del mine["b6 float32 Hs=256 d=1 z"]
+    assert kvp.same_bits(mine, other) == (5, 7)
+
+
+def test_width_cases_cover_the_narrow_tiles():
+    """The bit proof also runs every DPT kernel at B = 128 and 192 (B / 32
+    heads; out's and DN's 128-wide tiles, and their 256-wide tiles with
+    the columns past B zero), full and on a 64-channel shard, in both
+    dtypes, each output held bit for bit but the bf16 B7 forward's."""
+    assert {(B, m) for _, _, B, m in kvp.WIDTH_CASES} == {(128, 2), (192, 3)}
+    assert {(k, d) for k, d, _, _ in kvp.WIDTH_CASES} == {
+        (k, d) for k in ("inter", "intra", "ffn")
+        for d in ("bfloat16", "float32")}
+    assert kvp.bitwise("dpt intra bfloat16 B=192 S=128 heads=6 forward")
+    assert kvp.bitwise("dpt ffn float32 B=128 S=128 heads=4 partial m=2 "
+                       "backward 0")
+    assert not kvp.bitwise("dpt inter bfloat16 B=192 S=128 heads=6 forward")
