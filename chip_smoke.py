@@ -73,8 +73,10 @@ Phases, each raising on failure (so the script exits nonzero):
    (``use_pallas=None``, the CLI's default): a paper-config TCN at B = H =
    96 and a DPT quality default with 100-frame chunks and F = 1000, widths
    off the kernels' tiles, each serve a batch and train a step through the
-   kernels, padded, within the bf16 forward bar of the plain model, and a
-   DPT at B = 576, which no kernel takes, raises before any launch;
+   kernels, padded, within the bf16 forward bar of the plain model, and so
+   does a DPT at ``--B 96`` (3 heads of 32; B and every head group off 64,
+   padded with zero columns and a zero head); a DPT at B = 576, which no
+   kernel takes, raises before any launch;
 6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
    through the block pairs (``CONVTASNET_PAIR_FUSION=1``: B4 16 times per
@@ -134,6 +136,16 @@ Phases, each raising on failure (so the script exits nonzero):
    bars; exact launch counts), ``cli train --B 512 --n-model 2`` through
    B7p-B12p and its package through ``cli separate --tensor-parallel 2``,
    and each kernel's device time there beside its twin's and its bound;
+   then the DPT widths off the kernels' 64-column tile, which the wrappers
+   zero-pad (zero columns, zero heads; each LN over the sublayer's own B,
+   ``phase_dpt_padded``): B7-B12 alone at [8, 25, 128, B], B = 96, 160
+   and 480, and B7p-B12p on shards of 32 channels (B = 256 over 8) and 96
+   (B = 192 over 2), against their twins (4e-2 / 1e-5; bf16 also at its
+   rounding points; each backward twice to the same bits), the DPT at
+   ``--B 96`` (3 heads of 32) served in bf16 and f32 and stepped in f32
+   kernel path against plain path, and ``cli train --B 192 --n-model 2``
+   through B7p-B12p on 96-channel shards and its package through ``cli
+   separate --tensor-parallel 2``, launches exact;
 9. the streaming separator on the card, f32, the paper widths with the
    causal cLN norm: two 4 s mixtures in 8 ms chunks rounded down to whole
    hops (7.5 ms), the stream plus its flush against the offline causal
@@ -1804,9 +1816,11 @@ def phase_auto_padded(torch, k, dpt):
     launches its kernel (TCN: 32 B1 in each forward, 32 B2; DPT: 4 B7, 4
     B9 and 8 B11 in each forward, 4 B8, 4 B10 and 8 B12), the served
     output finite and within the bf16 forward bar of the plain model, the
-    step's loss finite. A shape no kernel takes (the DPT at B = 576, above
-    the kernels' 512) raises under auto as with ``use_pallas=True``, before
-    any launch."""
+    step's loss finite; so does the DPT quality default at ``--B 96`` (3
+    heads of 32: B7-B12 pad B to 128 with zero columns and the heads with a
+    zero head, each LN over the real 96 columns), with the same counts. A
+    shape no kernel takes (the DPT at B = 576, above the kernels' 512)
+    raises under auto as with ``use_pallas=True``, before any launch."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.ops.cuda import shapes
@@ -1826,6 +1840,10 @@ def phase_auto_padded(torch, k, dpt):
             separator="dpt", compute_dtype="bfloat16", dpt_chunk=100,
             dpt_ff=1000), tcn_want(),
          {"inter": 2 * 4, "intra": 2 * 4, "ffn": 2 * 8},
+         {"inter": 4, "intra": 4, "ffn": 8}),
+        ("dpt --B 96", ConvTasNetConfig(
+            separator="dpt", compute_dtype="bfloat16", bottleneck=96),
+         tcn_want(), {"inter": 2 * 4, "intra": 2 * 4, "ffn": 2 * 8},
          {"inter": 4, "intra": 4, "ffn": 8}))
     for label, cfg, want_tcn, want_fwd, want_bwd in cases:
         check(not shapes.refusals(cfg), f"auto mode {label}: refused "
@@ -2317,15 +2335,18 @@ WIDE_CASES = ((WIDE_B, 1), (WIDE_B, 2), (320, 1))
 WIDE_ORDER_TOL = {False: 1e-3, True: 2e-3}
 
 
-def wide_kernels_vs_twins(torch, dpt, failures: list) -> dict:
-    """Each of B7-B12 alone (and B7p-B12p on the last shard of two) at
-    ``WIDE_CASES``' widths, [8, 25, 128, B] with the real key mask, B / 32
-    heads, F = 1024, bf16 and f32, against its twin: the forward within
+def wide_kernels_vs_twins(torch, dpt, failures: list,
+                          cases=WIDE_CASES) -> dict:
+    """Each of B7-B12 alone (and B7p-B12p on the last shard of m) at the
+    ``cases``' (B, m) ([8, 25, 128, B] with the real key mask, B / 32
+    heads, F = 1024), bf16 and f32, against its twin: the forward within
     4e-2 / 1e-5 on the valid rows (bf16 also at its rounding points,
-    ``WIDE_ORDER_TOL``), the backward as ``compare_cotangents``. Appends
-    what fails; returns the worst max_abs_err per kernel name."""
+    ``WIDE_ORDER_TOL``: 2e-3 for a partial output above B = 256), the
+    backward as ``compare_cotangents``, and a second backward the same
+    bits. Appends what fails; returns the worst max_abs_err per kernel
+    name."""
     worst = {}
-    for B, m in WIDE_CASES:
+    for B, m in cases:
         heads = B // 32
         for kind in DPT_KINDS:
             fused, twin = dpt_fns(dpt, kind)
@@ -2358,7 +2379,7 @@ def wide_kernels_vs_twins(torch, dpt, failures: list) -> dict:
                     with torch.inference_mode():
                         rounded = rounded_forward(dpt, kind, args, kw)
                     order = rel_l2(got_v, rounded.reshape(8, -1, B)[:, rows])
-                    bar = WIDE_ORDER_TOL[m > 1]
+                    bar = WIDE_ORDER_TOL[m > 1 and B > 256]
                     at = (f", at its rounding points {order:.3e} (bar "
                           f"{bar:.0e})")
                     ok = ok and order <= bar
@@ -2373,7 +2394,11 @@ def wide_kernels_vs_twins(torch, dpt, failures: list) -> dict:
                 if m > 1:
                     x, *w = dpt_shard(torch, (x, *w), kind, m, m - 1)
                 got = fused_b(x, g, *w, **kw)
+                again = fused_b(x, g, *w, **kw)
                 torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    failures.append(f"{tag} B={B} {name}: two backwards "
+                                    f"apart")
                 exact = twin_b(x.float(), g.float(), *w, **kw)
                 same = twin_b(x, g, *w, **kw) if dtype == torch.bfloat16 \
                     else exact
@@ -2500,6 +2525,59 @@ def phase_dpt_wide(torch, dpt, work: str, data: str, json_dir: str,
     print(f"dpt {label} phase: worst max_abs_err vs twins "
           f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }, TP train "
           f"partial launches {tp}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+# (width, shards): the widths off 64 that the wrappers zero-pad
+# (dpt_attention.pad_attention, dpt_ffn.pad_ffn), B / 32 heads: B7-B12 at
+# B = 96, 160 and 480 (480 pads to 512, the wide routes), and B7p-B12p on
+# the last shard of B = 256 over 8 (32 channels, one head) and of B = 192
+# over 2 (96 channels, 3 heads)
+PADDED_CASES = ((96, 1), (160, 1), (480, 1), (256, 8), (192, 2))
+PADDED_B = 96
+
+
+def phase_dpt_padded(torch, dpt, work: str, data: str, json_dir: str):
+    """The DPT widths off the kernels' 64-column tile: the wrappers pad B
+    with zero columns (x, gamma, beta and the weights' rows and columns
+    that meet them) and a head group's width B / m with whole zero heads,
+    and the kernels take each LN's width (their ``Bn``) apart from the
+    padded one. Each kernel alone against its unpadded twin
+    (``wide_kernels_vs_twins`` at ``PADDED_CASES``); the DPT quality
+    default at ``--B 96`` (3 heads of 32, random weights from seed 0, B=4
+    x 4 s): one forward in bf16 and f32, kernel path against plain path
+    within the forward bar with B7 and B9 once per layer and B11 twice
+    (``dpt_forward_vs_plain``), and one f32 train step within the f32 step
+    bar (``dpt_f32_step_vs_plain``; auto mode steps it in bf16,
+    ``phase_auto_padded``); then ``cli train --B 192 --n-model 2`` (6
+    heads, 3 a shard of 96 channels) through B7p-B12p and its package
+    through ``cli separate --tensor-parallel 2``
+    (``phase_dpt_tp_train_path``), launches exact."""
+    import dataclasses
+
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
+    from convtasnet_tpu_torch.ops.cuda import shapes
+
+    t0 = time.perf_counter()
+    failures = []
+    worst = wide_kernels_vs_twins(torch, dpt, failures, PADDED_CASES)
+    check(not failures, "DPT kernels at widths off 64 disagree with their "
+          "twins: " + "; ".join(failures))
+    batch = train_batch(torch, 4, 41)
+    label = f"--B {PADDED_B}"
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(dpt_config(dtype), bottleneck=PADDED_B)
+        check(cfg.dpt_num_heads == 3 and not shapes.refusals(cfg),
+              f"dpt {label}: heads {cfg.dpt_num_heads}, refused "
+              f"{shapes.refusals(cfg)}")
+        sd = init_params(cfg, torch.Generator().manual_seed(0))
+        dpt_forward_vs_plain(torch, dpt, cfg, sd, batch[0], label)
+        if dtype == "float32":
+            dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
+    tp = phase_dpt_tp_train_path(torch, dpt, work, data, json_dir, width=192)
+    print(f"dpt widths off 64 phase: worst max_abs_err vs twins "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }, TP train "
+          f"at B=192 partial launches {tp}; {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
@@ -4165,6 +4243,10 @@ def main() -> int:
         # against its twin, served and stepped against plain, cli train
         # --n-model 2 through B7p-B12p, and their device times
         phase_dpt_wide(torch, dpt, work, data, json_dir, card)
+        # the DPT widths off 64, zero-padded with each LN over its own B:
+        # each kernel alone against its twin, --B 96 served and stepped
+        # against plain, cli train --B 192 --n-model 2 through B7p-B12p
+        phase_dpt_padded(torch, dpt, work, data, json_dir)
         phase_streaming(torch, k, work, card)
         # the ways in: reference PyTorch packages, the JAX package's
         # checkpoints, and a raw shorten-compressed corpus through stage 0

@@ -311,7 +311,8 @@ template <typename T>
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
   const int d = P.f.Bq / P.f.h;
-  if (!core_head_width(d) || P.f.Bq % 64 || P.f.Bq > P.f.B)
+  if (!core_head_width(d) || P.f.Bq % 64 || P.f.Bq > P.f.B || P.f.Bn < 1 ||
+      P.f.Bn > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention_bwd<T>(P, ws_act, ws_f32, stream, launch_core_d<T>);
 }
@@ -319,7 +320,8 @@ int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
 // bf16: the design in dpt_attn_bwd_wg.cuh, with the core's inter gather.
 int launch_bwd_wg(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                   cudaStream_t stream) {
-  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B)
+  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
+      P.f.Bn < 1 || P.f.Bn > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention_bwd_wg(P, ws_act, ws_f32, stream,
                                  launch_core_wg_d<true>);

@@ -223,7 +223,7 @@ __global__ void __launch_bounds__(kWgCta, 1)
         cp_async_wait<kStages - 2>();   // the first group has landed
         __syncthreads();
         ln_resident_tile(smem_ptr(wg_smem, ys), f.gamma, f.beta, r0, R, B,
-                         o.y, o.lnstat);
+                         f.Bn, o.y, o.lnstat);
         // the ring's next barrier publishes the tile
       });
   if constexpr (kBwd) {
@@ -980,6 +980,7 @@ int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   q.part = lnpart;
   q.R = R;
   q.B = B;
+  q.Bn = f.Bn;
   q.depth = 3 * Bq;
   CTN_RETURN_IF(B > kMaxWidth
                     ? launch_dy_ln_wide(q, ws_f32 + L.f32[5], !f.partial, stream)

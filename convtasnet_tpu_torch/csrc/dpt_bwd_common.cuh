@@ -32,6 +32,16 @@
 //   1, dA, the weight gradients, dy = dqkv @ W_qkv^T, the LN backward); in
 //   bf16 they run the design of dpt_attn_bwd_wg.cuh on the pieces below.
 //
+// Every LN here (ln_row_stats, ln_rows_kernel, ln_bwd_kernel,
+// ln_resident_tile, dy_ln_bwd_wg_kernel) takes the sublayer's own width Bn
+// apart from the row's width B: the wrappers pad a B off the 64-column tile
+// with zero columns (gamma and beta zero there too, and the weights' rows
+// and columns that meet them), so the mean and the variance sweep the
+// first Bn columns alone and every mean divides by Bn. The backward's row
+// sums of dy gamma and dy gamma xhat still run over B: on a padded column
+// dy and gamma are both zero, so each adds an exact zero. At Bn == B every
+// sum and every bit is as before.
+//
 // Each also runs the backward of a tensor-parallel shard (partial, the
 // Pallas kernels' partial=True): the products take the shard's widths
 // (Bq = h * d for the attention, dW_qkv [B, 3Bq] and dW_out [Bq, B]; F/m
@@ -56,28 +66,29 @@ constexpr int kColThreads = 256;          // colsum_kernel: columns per block
 constexpr int kColRows = 128;             // colsum_kernel: rows per block
 constexpr int kNumRowStats = 3;           // attention cores: max, denominator, rowsum
 
-// The pre-LN statistics of one row, by one warp, in ln_rows_to_smem's order.
+// The pre-LN statistics of one row over its first Bn columns, by one warp,
+// in ln_rows_to_smem's order.
 template <typename T>
-__device__ __forceinline__ void ln_row_stats(const T* src, int B, float* mean,
+__device__ __forceinline__ void ln_row_stats(const T* src, int Bn, float* mean,
                                              float* rs) {
   const int lane = threadIdx.x & 31;
   float s = 0.f;
-  for (int c = lane; c < B; c += 32) s += to_f<T>(src[c]);
-  const float mu = warp_sum(s) / B;
+  for (int c = lane; c < Bn; c += 32) s += to_f<T>(src[c]);
+  const float mu = warp_sum(s) / Bn;
   float v = 0.f;
-  for (int c = lane; c < B; c += 32) {
+  for (int c = lane; c < Bn; c += 32) {
     const float d = to_f<T>(src[c]) - mu;
     v += d * d;
   }
   *mean = mu;
-  *rs = rsqrtf(warp_sum(v) / B + kLnEps);
+  *rs = rsqrtf(warp_sum(v) / Bn + kLnEps);
 }
 
-// y[r] = round(LN(x[r]) * gamma + beta), one warp per row, kRowTile rows per
-// block.
+// y[r] = round(LN(x[r]) * gamma + beta), the statistics over the first Bn
+// of the row's B columns, one warp per row, kRowTile rows per block.
 template <typename T>
 __global__ void __launch_bounds__(kDptThreads)
-    ln_rows_kernel(const T* __restrict__ x, int rows, int B,
+    ln_rows_kernel(const T* __restrict__ x, int rows, int B, int Bn,
                    const float* __restrict__ gamma,
                    const float* __restrict__ beta, T* __restrict__ y) {
   const int lane = threadIdx.x & 31;
@@ -86,7 +97,7 @@ __global__ void __launch_bounds__(kDptThreads)
     if (row >= rows) break;
     const T* src = x + static_cast<size_t>(row) * B;
     float mean, rs;
-    ln_row_stats<T>(src, B, &mean, &rs);
+    ln_row_stats<T>(src, Bn, &mean, &rs);
     T* dst = y + static_cast<size_t>(row) * B;
     for (int c = lane; c < B; c += 32)
       dst[c] = from_f<T>((to_f<T>(src[c]) - mean) * rs * gamma[c] + beta[c]);
@@ -205,11 +216,13 @@ int launch_colsum(const void* src, int rows, int cols, float* part,
 // in the same order at either instantiation. The 512-wide one (rows above
 // 256) holds twice the registers and a 32 KB s_col, and runs 1.5x as long
 // at B = 256 (PERF.md §6, PR 19), so rows up to 256 keep the 256-wide one.
+// The statistics and both means are over the row's first Bn columns (top
+// note).
 template <typename T, bool kResidual, int kWidth>
 __global__ void __launch_bounds__(kDptThreads)
     ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   const float* __restrict__ dy,
-                  const float* __restrict__ gamma, int rows, int B,
+                  const float* __restrict__ gamma, int rows, int B, int Bn,
                   T* __restrict__ dx, float* __restrict__ part) {
   constexpr int kWarps = kDptThreads / 32;
   constexpr int kPer = kWidth / 32;    // columns per lane
@@ -224,7 +237,7 @@ __global__ void __launch_bounds__(kDptThreads)
     if (row >= rows) break;
     const size_t base = static_cast<size_t>(row) * B;
     float mean, rs;
-    ln_row_stats<T>(x + base, B, &mean, &rs);
+    ln_row_stats<T>(x + base, Bn, &mean, &rs);
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -239,8 +252,8 @@ __global__ void __launch_bounds__(kDptThreads)
         cb[i] += d;
       }
     }
-    const float mean_d = warp_sum(s1) / B;
-    const float mean_xd = warp_sum(s2) / B;
+    const float mean_d = warp_sum(s1) / Bn;
+    const float mean_xd = warp_sum(s2) / Bn;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int c = lane + 32 * i;
@@ -276,11 +289,13 @@ int n_row_tiles(long long rows) {
 }
 
 // dx and dgb [2, B] = (dgamma, dbeta); part holds n_row_tiles(rows) * 2 * B
-// floats. residual: dx carries the g term (false for a partial forward).
+// floats. residual: dx carries the g term (false for a partial forward);
+// Bn the LN's width.
 template <typename T>
 int launch_ln_bwd(const void* x, const void* g, const float* dy,
-                  const float* gamma, int rows, int B, void* dx, float* part,
-                  float* dgb, bool residual, cudaStream_t stream) {
+                  const float* gamma, int rows, int B, int Bn, void* dx,
+                  float* part, float* dgb, bool residual,
+                  cudaStream_t stream) {
   if (B > kLnBwdWidth) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = n_row_tiles(rows);
   auto* kernel = B > kMaxWidth
@@ -290,7 +305,7 @@ int launch_ln_bwd(const void* x, const void* g, const float* dy,
                   : ln_bwd_kernel<T, false, kMaxWidth>);
   kernel<<<tiles, kDptThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), dy, gamma, rows, B,
-      static_cast<T*>(dx), part);
+      Bn, static_cast<T*>(dx), part);
   CTN_CHECK();
   reduce_chunks_kernel<<<(2 * B + 255) / 256, 256, 0, stream>>>(part, tiles,
                                                                 2 * B, dgb);
@@ -298,10 +313,10 @@ int launch_ln_bwd(const void* x, const void* g, const float* dy,
 }
 
 template <typename T>
-int launch_ln_rows(const void* x, int rows, int B, const float* gamma,
+int launch_ln_rows(const void* x, int rows, int B, int Bn, const float* gamma,
                    const float* beta, void* y, cudaStream_t stream) {
   ln_rows_kernel<T><<<n_row_tiles(rows), kDptThreads, 0, stream>>>(
-      static_cast<const T*>(x), rows, B, gamma, beta, static_cast<T*>(y));
+      static_cast<const T*>(x), rows, B, Bn, gamma, beta, static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -497,16 +512,16 @@ __device__ __forceinline__ float gelu_tanh_fast(float x) {
 
 // y = round(LN(x) gamma + beta) over a CTA's resident K-major tile of 128
 // rows (B / 64 panels at y_gen) in place, one warp per row, kLnRows rows of
-// a warp at once, each in ln_row_stats' order (so y has ln_rows_kernel's
-// bits); also to y_out [R, B], and each row's (mean, rs) to lnstat [R, 2],
-// where those are not null (a forward needs neither); rows at or beyond R
-// stay zero. The caller's barrier (and, for wgmma, the async-proxy fence
-// before it) publishes the tile.
+// a warp at once, each in ln_row_stats' order over the first Bn columns
+// (so y has ln_rows_kernel's bits); also to y_out [R, B], and each row's
+// (mean, rs) to lnstat [R, 2], where those are not null (a forward needs
+// neither); rows at or beyond R stay zero. The caller's barrier (and, for
+// wgmma, the async-proxy fence before it) publishes the tile.
 __device__ __forceinline__ void ln_resident_tile(uint8_t* y_gen,
                                                  const float* gamma,
                                                  const float* beta, int r0,
-                                                 int R, int B, bf16* y_out,
-                                                 float* lnstat) {
+                                                 int R, int B, int Bn,
+                                                 bf16* y_out, float* lnstat) {
   constexpr int kWarps = kWgCta / 32, kLnRows = 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < kWgRows; r += kWarps * kLnRows) {
@@ -518,13 +533,13 @@ __device__ __forceinline__ void ln_resident_tile(uint8_t* y_gen,
     float mean[kLnRows], rs[kLnRows];
 #pragma unroll
     for (int u = 0; u < kLnRows; ++u) mean[u] = rs[u] = 0.f;
-    for (int c = lane; c < B; c += 32) {
+    for (int c = lane; c < Bn; c += 32) {
 #pragma unroll
       for (int u = 0; u < kLnRows; ++u) mean[u] += __bfloat162float(*at(u, c));
     }
 #pragma unroll
-    for (int u = 0; u < kLnRows; ++u) mean[u] = warp_sum(mean[u]) / B;
-    for (int c = lane; c < B; c += 32) {
+    for (int u = 0; u < kLnRows; ++u) mean[u] = warp_sum(mean[u]) / Bn;
+    for (int c = lane; c < Bn; c += 32) {
 #pragma unroll
       for (int u = 0; u < kLnRows; ++u) {
         const float d = __bfloat162float(*at(u, c)) - mean[u];
@@ -533,7 +548,7 @@ __device__ __forceinline__ void ln_resident_tile(uint8_t* y_gen,
     }
 #pragma unroll
     for (int u = 0; u < kLnRows; ++u) {
-      rs[u] = rsqrtf(warp_sum(rs[u]) / B + kLnEps);
+      rs[u] = rsqrtf(warp_sum(rs[u]) / Bn + kLnEps);
       const int row = r0 + r + kWarps * u;
       if (lnstat && lane == 0 && row < R) {
         lnstat[2 * row] = mean[u];
@@ -567,6 +582,7 @@ struct DyLnParams {
   bf16* dx;             // [R, B]
   float* part;          // [ceil(R / 128), 2B]: dgamma, dbeta per tile
   int R, B, depth;
+  int Bn;               // the LN's width (top note): the means divide by it
 };
 
 constexpr int kDyStages = 4;
@@ -660,7 +676,7 @@ __global__ void __launch_bounds__(kWgCta, 1) dy_ln_bwd_wg_kernel(DyLnParams q) {
     s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
     s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
     s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
-    const float mean_d = s1 / B, mean_xd = s2 / B;
+    const float mean_d = s1 / q.Bn, mean_xd = s2 / q.Bn;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int c = 8 * j + c_lane;
@@ -779,8 +795,8 @@ inline int launch_dy_ln_wide(const DyLnParams& q, float* dy, bool residual,
   if (err != 0) return err;
   auto* kernel = residual ? ln_bwd_kernel<bf16, true, kLnBwdWidth>
                           : ln_bwd_kernel<bf16, false, kLnBwdWidth>;
-  kernel<<<n_row_tiles(q.R), kDptThreads, 0, stream>>>(q.x, q.g, dy, q.gamma,
-                                                      q.R, q.B, q.dx, q.part);
+  kernel<<<n_row_tiles(q.R), kDptThreads, 0, stream>>>(
+      q.x, q.g, dy, q.gamma, q.R, q.B, q.Bn, q.dx, q.part);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1007,7 +1023,8 @@ int launch_attention_bwd(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   CTN_RETURN_IF(launch_transpose<T>(f.w_qkv, P.w_qkv_t, B, 3 * Bq, stream));
   CTN_RETURN_IF(launch_transpose<T>(f.w_out, P.w_out_t, Bq, B, stream));
   CTN_RETURN_IF(launch_ln_qkv<T>(f, stream));
-  CTN_RETURN_IF(launch_ln_rows<T>(f.x, R, B, f.gamma, f.beta, P.y, stream));
+  CTN_RETURN_IF(launch_ln_rows<T>(f.x, R, B, f.Bn, f.gamma, f.beta, P.y,
+                                  stream));
   CTN_RETURN_IF(launch_gemm_rows<T>(
       static_cast<const T*>(P.g), static_cast<const T*>(P.w_out_t), R, B, Bq,
       StoreRounded<T>{static_cast<T*>(P.dA)}, stream));
@@ -1019,18 +1036,18 @@ int launch_attention_bwd(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   CTN_RETURN_IF(launch_gemm_rows<T>(
       static_cast<const T*>(P.dqkv), static_cast<const T*>(P.w_qkv_t), R,
       3 * Bq, B, StoreF32{P.dy}, stream));
-  return launch_ln_bwd<T>(f.x, P.g, P.dy, f.gamma, R, B, P.dx, P.lnpart,
-                          P.dgb, !f.partial, stream);
+  return launch_ln_bwd<T>(f.x, P.g, P.dy, f.gamma, R, B, f.Bn, P.dx,
+                          P.lnpart, P.dgb, !f.partial, stream);
 }
 
 inline DptAttnBwdParams make_attn_bwd_params(
     const void* x, const void* g, const void* gamma, const void* beta,
     const void* w_qkv, const void* w_out, const void* bias, void* dx,
     void* dgb, void* dw_qkv, void* dw_out, int M, int n, int S, int B,
-    int h, int Bq, int partial) {
+    int Bn, int h, int Bq, int partial) {
   DptAttnBwdParams P = {};
   P.f = make_attn_params(x, gamma, beta, w_qkv, w_out, bias, nullptr, nullptr,
-                         nullptr, M, n, S, B, h, Bq, partial);
+                         nullptr, M, n, S, B, Bn, h, Bq, partial);
   P.g = g;
   P.dx = dx;
   P.dgb = static_cast<float*>(dgb);
@@ -1043,14 +1060,14 @@ inline DptAttnBwdParams make_attn_bwd_params(
 
 // The C interface of both attention backwards: every pointer is device
 // memory; x, g, w_qkv, w_out, dx and ws_act in the compute dtype, the rest
-// f32 (bias [n, S] or null); dgb [2, B] = dgamma, dbeta. Bq and partial as
-// in DptAttnParams.
+// f32 (bias [n, S] or null); dgb [2, B] = dgamma, dbeta. Bn, Bq and
+// partial as in DptAttnParams.
 #define CTN_DPT_ATTN_BWD_ARGS                                                 \
   const void *x, const void *g, const void *gamma, const void *beta,         \
       const void *w_qkv, const void *w_out, const void *bias, void *ws_act,  \
       void *ws_f32, void *dx, void *dgb, void *dw_qkv, void *dw_out, int M,  \
-      int n, int S, int B, int h, int Bq, int partial, void *stream
+      int n, int S, int B, int Bn, int h, int Bq, int partial, void *stream
 #define CTN_DPT_ATTN_BWD_CALL                                               \
   make_attn_bwd_params(x, g, gamma, beta, w_qkv, w_out, bias, dx, dgb,     \
-                       dw_qkv, dw_out, M, n, S, B, h, Bq, partial),        \
+                       dw_qkv, dw_out, M, n, S, B, Bn, h, Bq, partial),    \
       ws_act, static_cast<float*>(ws_f32), static_cast<cudaStream_t>(stream)

@@ -7,7 +7,10 @@
 // - ln_rows_to_smem: the pre-LN of a 64-row tile (f32 statistics, eps
 //   1e-6, E[(x - mean)^2]) written to shared memory in the compute dtype,
 //   as the Pallas kernels normalise their VMEM block before the first
-//   product.
+//   product. Its statistics span the sublayer's own width Bn, the first Bn
+//   of the row's B columns (B is Bn zero-padded up to the 64-column tile by
+//   the wrappers, with gamma and beta zero on the padded columns, so y is
+//   zero there); at Bn == B every sum and every bit is as before.
 // - block_gemm: the product of a 64-row tile whose left operand already
 //   sits in shared memory with a weight matrix streamed from device
 //   memory, 8 warps, by FMA into an f32 tile in shared memory, as the TCN
@@ -98,11 +101,12 @@ inline int core_warps(int h) {
 }
 
 // y_s[r][0:B] = LN(x[r0 + r]) * gamma + beta in T for the 64 rows of a tile
-// (rows at or beyond `rows` are zero). One warp per row; called by the whole
-// block, and the caller synchronises before reading y_s.
+// (rows at or beyond `rows` are zero), the mean and the variance over the
+// first Bn columns. One warp per row; called by the whole block, and the
+// caller synchronises before reading y_s.
 template <typename T>
 __device__ void ln_rows_to_smem(const T* __restrict__ x, int r0, int rows,
-                                int B, const float* __restrict__ gamma,
+                                int B, int Bn, const float* __restrict__ gamma,
                                 const float* __restrict__ beta, T* y_s,
                                 int ld) {
   const int lane = threadIdx.x & 31;
@@ -115,14 +119,14 @@ __device__ void ln_rows_to_smem(const T* __restrict__ x, int r0, int rows,
     }
     const T* src = x + static_cast<size_t>(r0 + r) * B;
     float s = 0.f;
-    for (int c = lane; c < B; c += 32) s += to_f<T>(src[c]);
-    const float mean = warp_sum(s) / B;
+    for (int c = lane; c < Bn; c += 32) s += to_f<T>(src[c]);
+    const float mean = warp_sum(s) / Bn;
     float v = 0.f;
-    for (int c = lane; c < B; c += 32) {
+    for (int c = lane; c < Bn; c += 32) {
       const float d = to_f<T>(src[c]) - mean;
       v += d * d;
     }
-    const float rs = rsqrtf(warp_sum(v) / B + kLnEps);
+    const float rs = rsqrtf(warp_sum(v) / Bn + kLnEps);
     for (int c = lane; c < B; c += 32)
       dst[c] = from_f<T>((to_f<T>(src[c]) - mean) * rs * gamma[c] + beta[c]);
   }
@@ -217,6 +221,10 @@ __device__ void warp_mm(const T* a, int lda, const T* b, int ldb, int depth,
 // null) in f32; the workspaces qkv [R, 3Bq] and a [R, Bq] in T, R = M*n*S.
 // Bq = h * d is the width of the h heads (B in the full sublayer); partial:
 // out = round(a @ W_out) without the residual (a tensor-parallel shard).
+// Bn <= B is the LN's width, the sublayer's own B: the wrappers pad B off
+// the 64-column tile with zero columns (and Bq with zero heads), and every
+// LN statistic spans the first Bn columns alone. Bn sits in the padding
+// before R, so every other field keeps its offset.
 struct DptAttnParams {
   const void* x;
   const float* gamma;
@@ -227,7 +235,7 @@ struct DptAttnParams {
   void* qkv;
   void* a;
   void* out;
-  int M, n, S, B, h, Bq, partial;
+  int M, n, S, B, h, Bq, partial, Bn;
   long long R;
 };
 
@@ -253,7 +261,7 @@ __global__ void __launch_bounds__(kDptThreads) ln_qkv_kernel(DptAttnParams p) {
   unsigned char* next =
       smem + align128(static_cast<size_t>(kRowTile) * ldy * sizeof(T));
   const int r0 = blockIdx.x * kRowTile;
-  ln_rows_to_smem<T>(static_cast<const T*>(p.x), r0, rows, B, p.gamma,
+  ln_rows_to_smem<T>(static_cast<const T*>(p.x), r0, rows, B, p.Bn, p.gamma,
                      p.beta, y_s, ldy);
   __syncthreads();
   T* qkv = static_cast<T*>(p.qkv);
@@ -333,8 +341,8 @@ inline DptAttnParams make_attn_params(const void* x, const void* gamma,
                                       const void* beta, const void* w_qkv,
                                       const void* w_out, const void* bias,
                                       void* qkv, void* a, void* out, int M,
-                                      int n, int S, int B, int h, int Bq,
-                                      int partial) {
+                                      int n, int S, int B, int Bn, int h,
+                                      int Bq, int partial) {
   DptAttnParams p;
   p.x = x;
   p.gamma = static_cast<const float*>(gamma);
@@ -349,6 +357,7 @@ inline DptAttnParams make_attn_params(const void* x, const void* gamma,
   p.n = n;
   p.S = S;
   p.B = B;
+  p.Bn = Bn;
   p.h = h;
   p.Bq = Bq;
   p.partial = partial;
@@ -358,12 +367,14 @@ inline DptAttnParams make_attn_params(const void* x, const void* gamma,
 
 }  // namespace
 
-// The C interface of both attention forwards; Bq and partial as in
-// DptAttnParams (Bq == B and partial 0 for the full sublayer).
+// The C interface of both attention forwards; Bn, Bq and partial as in
+// DptAttnParams (Bn == Bq == B and partial 0 for the full sublayer at a
+// width on the tile).
 #define CTN_DPT_ATTN_ARGS                                                    \
   const void *x, const void *gamma, const void *beta, const void *w_qkv,    \
       const void *w_out, const void *bias, void *qkv, void *a, void *out,  \
-      int M, int n, int S, int B, int h, int Bq, int partial, void *stream
+      int M, int n, int S, int B, int Bn, int h, int Bq, int partial,      \
+      void *stream
 #define CTN_DPT_ATTN_PARAMS                                                   \
   make_attn_params(x, gamma, beta, w_qkv, w_out, bias, qkv, a, out, M, n, S, \
-                   B, h, Bq, partial)
+                   B, Bn, h, Bq, partial)

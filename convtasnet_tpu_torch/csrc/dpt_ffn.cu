@@ -98,6 +98,7 @@ struct FfnParams {
   const float* b_down;
   void* out;
   int R, B, F, partial;
+  int Bn;   // the LN's width: B off the 64-column tile, zero-padded to B
 };
 
 __device__ __forceinline__ float gelu_tanh(float v) {
@@ -134,7 +135,7 @@ __global__ void __launch_bounds__(kDptThreads) ffn_kernel(FfnParams p) {
 
   const int r0 = blockIdx.x * kRowTile;
   const float* x = static_cast<const float*>(p.x);
-  ln_rows_to_smem<float>(x, r0, R, B, p.gamma, p.beta, y_s, ldy);
+  ln_rows_to_smem<float>(x, r0, R, B, p.Bn, p.gamma, p.beta, y_s, ldy);
   for (int e = threadIdx.x; e < kRowTile * B; e += kDptThreads)
     o_s[(e / B) * ldo + e % B] = 0.f;
   __syncthreads();
@@ -285,8 +286,15 @@ __global__ void __launch_bounds__(kWgCta, 1) ffn_wg_kernel(FfnParams p) {
   issue(0);
   cp_async_wait<0>();
   __syncthreads();
-  ln_resident_tile(smem_ptr(wg_smem, xs), p.gamma, p.beta, r0, R, B, nullptr,
-                   nullptr);
+  // B is a constant here: at Bn == B the LN's loops keep their constant
+  // bounds, unrolled as before Bn existed (a runtime bound made the launch
+  // 7-11% slower on an H100, PERF.md §6); only a padded row takes Bn
+  if (p.Bn == B)
+    ln_resident_tile(smem_ptr(wg_smem, xs), p.gamma, p.beta, r0, R, B, B,
+                     nullptr, nullptr);
+  else
+    ln_resident_tile(smem_ptr(wg_smem, xs), p.gamma, p.beta, r0, R, B, p.Bn,
+                     nullptr, nullptr);
   top(0);
   up(0);
   wgmma_wait<0>();
@@ -426,7 +434,8 @@ int launch_wide(const FfnParams& p, void* ws, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   T* y = static_cast<T*>(ws);
   T* h = y + ffn_ws_h(p.R, p.B);
-  CTN_RETURN_IF(launch_ln_rows<T>(p.x, p.R, p.B, p.gamma, p.beta, y, stream));
+  CTN_RETURN_IF(
+      launch_ln_rows<T>(p.x, p.R, p.B, p.Bn, p.gamma, p.beta, y, stream));
   if constexpr (kIsBf16<T>) {
     RowsWgParams q;
     q.a = y;
@@ -458,6 +467,7 @@ int launch_wide(const FfnParams& p, void* ws, cudaStream_t stream) {
 
 template <typename T>
 int launch(const FfnParams& p, void* ws, cudaStream_t stream) {
+  if (p.Bn < 1 || p.Bn > p.B) return static_cast<int>(cudaErrorInvalidValue);
   if (p.B > kMaxWidth) return launch_wide<T>(p, ws, stream);
   if constexpr (kIsBf16<T>) {
     if (p.F % kFfnSlab) return static_cast<int>(cudaErrorInvalidValue);
@@ -475,8 +485,8 @@ int launch(const FfnParams& p, void* ws, cudaStream_t stream) {
 
 FfnParams make_params(const void* x, const void* gamma, const void* beta,
                       const void* w_up, const void* b_up, const void* w_down,
-                      const void* b_down, void* out, int R, int B, int F,
-                      int partial) {
+                      const void* b_down, void* out, int R, int B, int Bn,
+                      int F, int partial) {
   FfnParams p;
   p.x = x;
   p.gamma = static_cast<const float*>(gamma);
@@ -488,6 +498,7 @@ FfnParams make_params(const void* x, const void* gamma, const void* beta,
   p.out = out;
   p.R = R;
   p.B = B;
+  p.Bn = Bn;
   p.F = F;
   p.partial = partial;
   return p;
@@ -498,7 +509,7 @@ FfnParams make_params(const void* x, const void* gamma, const void* beta,
 #define CTN_FFN_ARGS                                                        \
   const void *x, const void *gamma, const void *beta, const void *w_up,    \
       const void *b_up, const void *w_down, const void *b_down, void *out, \
-      void *ws, int R, int B, int F, int partial, void *stream
+      void *ws, int R, int B, int Bn, int F, int partial, void *stream
 
 extern "C" {
 
@@ -512,19 +523,20 @@ int ctn_dpt_ffn_workspace(int R, int B, int F, long long* n) {
 // One FFN sublayer; every pointer is device memory (gamma, beta, b_up and
 // b_down f32, the rest in the compute dtype; ws as ctn_dpt_ffn_workspace
 // sizes it), `stream` a cudaStream_t; partial: a shard's down projection
-// alone (b_down is not read). Returns the first CUDA error of its
-// launches.
+// alone (b_down is not read); Bn <= B the LN's width (B == Bn unless the
+// wrapper padded B up to the 64-column tile). Returns the first CUDA error
+// of its launches.
 int ctn_dpt_ffn_f32(CTN_FFN_ARGS) {
   return launch<float>(
-      make_params(x, gamma, beta, w_up, b_up, w_down, b_down, out, R, B, F,
-                  partial),
+      make_params(x, gamma, beta, w_up, b_up, w_down, b_down, out, R, B, Bn,
+                  F, partial),
       ws, static_cast<cudaStream_t>(stream));
 }
 
 int ctn_dpt_ffn_bf16(CTN_FFN_ARGS) {
   return launch<__nv_bfloat16>(
-      make_params(x, gamma, beta, w_up, b_up, w_down, b_down, out, R, B, F,
-                  partial),
+      make_params(x, gamma, beta, w_up, b_up, w_down, b_down, out, R, B, Bn,
+                  F, partial),
       ws, static_cast<cudaStream_t>(stream));
 }
 

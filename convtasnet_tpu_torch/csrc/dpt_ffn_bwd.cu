@@ -117,6 +117,7 @@ struct FfnBwdParams {
   float* dw_down;   // [F, B]
   float* db_down;   // [B]
   int R, B, F, partial;
+  int Bn;           // the LN's width (dpt_bwd_common.cuh's top note)
 };
 
 // Workspace: n_act elements of T (w_up_t [F, B], w_down_t [B, F], y [R, B],
@@ -169,7 +170,8 @@ int launch_bwd(const FfnBwdParams& p, void* ws_act, float* ws_f32,
   const T* g = static_cast<const T*>(p.g);
   CTN_RETURN_IF(launch_transpose<T>(p.w_up, w_up_t, B, F, stream));
   CTN_RETURN_IF(launch_transpose<T>(p.w_down, w_down_t, F, B, stream));
-  CTN_RETURN_IF(launch_ln_rows<T>(p.x, R, B, p.gamma, p.beta, y, stream));
+  CTN_RETURN_IF(
+      launch_ln_rows<T>(p.x, R, B, p.Bn, p.gamma, p.beta, y, stream));
   CTN_RETURN_IF(launch_gemm_rows<T>(y, static_cast<const T*>(p.w_up), R, B, F,
                                     UpBias<T>{h, p.b_up}, stream));
   CTN_RETURN_IF(launch_gemm_rows<T>(g, w_down_t, R, B, F,
@@ -185,7 +187,7 @@ int launch_bwd(const FfnBwdParams& p, void* ws_act, float* ws_f32,
     CTN_RETURN_IF(launch_colsum<T>(g, R, B, wpart, p.db_down, stream));
   CTN_RETURN_IF(launch_gemm_rows<T>(dpre, w_up_t, R, F, B, StoreF32{dy},
                                     stream));
-  return launch_ln_bwd<T>(p.x, g, dy, p.gamma, R, B, p.dx, lnpart, p.dgb,
+  return launch_ln_bwd<T>(p.x, g, dy, p.gamma, R, B, p.Bn, p.dx, lnpart, p.dgb,
                           !p.partial, stream);
 }
 
@@ -314,7 +316,8 @@ __global__ void __launch_bounds__(kWgCta, 1) ffn_ug_kernel(FfnBwdParams p,
     if constexpr (!kStream) {
       cp_async_wait<kUgStages - 2>();   // the first copy group has landed
       __syncthreads();
-      ln_resident_tile(y_gen, p.gamma, p.beta, r0, R, B, o.y, o.lnstat);
+      ln_resident_tile(y_gen, p.gamma, p.beta, r0, R, B, p.Bn, o.y,
+                       o.lnstat);
       // the ring's next barrier publishes the tile
     }
   };
@@ -430,8 +433,8 @@ int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
   float* lnpart = ws_f32 + L.f32[5];
   const bf16* g = static_cast<const bf16*>(p.g);
   if (wide) {
-    CTN_RETURN_IF(launch_ln_rows<bf16>(p.x, R, B, p.gamma, p.beta, o.y,
-                                       stream));
+    CTN_RETURN_IF(launch_ln_rows<bf16>(p.x, R, B, p.Bn, p.gamma, p.beta,
+                                       o.y, stream));
     CTN_RETURN_IF(launch_ug<true>(p, o, L.tiles, stream));
     if (!p.partial)   // [tiles, B]: colsum_kernel's chunks are UG's tiles
       colsum_kernel<bf16><<<dim3((B + kColThreads - 1) / kColThreads,
@@ -452,6 +455,7 @@ int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
   q.part = lnpart;
   q.R = R;
   q.B = B;
+  q.Bn = p.Bn;
   q.depth = F;
   CTN_RETURN_IF(wide ? launch_dy_ln_wide(q, ws_f32 + L.f32[6], !p.partial,
                                          stream)
@@ -471,7 +475,7 @@ FfnBwdParams make_params(const void* x, const void* g, const void* gamma,
                          const void* beta, const void* w_up, const void* b_up,
                          const void* w_down, void* dx, void* dgb, void* dw_up,
                          void* db_up, void* dw_down, void* db_down, int R,
-                         int B, int F, int partial) {
+                         int B, int Bn, int F, int partial) {
   FfnBwdParams p;
   p.x = x;
   p.g = g;
@@ -488,6 +492,7 @@ FfnBwdParams make_params(const void* x, const void* g, const void* gamma,
   p.db_down = static_cast<float*>(db_down);
   p.R = R;
   p.B = B;
+  p.Bn = Bn;
   p.F = F;
   p.partial = partial;
   return p;
@@ -499,11 +504,11 @@ FfnBwdParams make_params(const void* x, const void* g, const void* gamma,
   const void *x, const void *g, const void *gamma, const void *beta,        \
       const void *w_up, const void *b_up, const void *w_down, void *ws_act, \
       void *ws_f32, void *dx, void *dgb, void *dw_up, void *db_up,          \
-      void *dw_down, void *db_down, int R, int B, int F, int partial,     \
-      void *stream
+      void *dw_down, void *db_down, int R, int B, int Bn, int F,          \
+      int partial, void *stream
 #define CTN_FFN_BWD_CALL                                                    \
   make_params(x, g, gamma, beta, w_up, b_up, w_down, dx, dgb, dw_up, db_up, \
-              dw_down, db_down, R, B, F, partial),                          \
+              dw_down, db_down, R, B, Bn, F, partial),                      \
       ws_act, static_cast<float*>(ws_f32), static_cast<cudaStream_t>(stream)
 
 extern "C" {
@@ -526,13 +531,16 @@ int ctn_dpt_ffn_bwd_workspace(int R, int B, int F, int elem_bytes,
 
 // One FFN sublayer backward; every pointer is device memory: x, g, w_up,
 // w_down, dx and ws_act in the compute dtype, the rest f32; dgb [2, B] =
-// dgamma, dbeta; partial: the backward of a shard's partial forward.
-// Returns the first CUDA error of its launches.
+// dgamma, dbeta; partial: the backward of a shard's partial forward; Bn <=
+// B the LN's width, as in the forward. Returns the first CUDA error of its
+// launches.
 int ctn_dpt_ffn_bwd_f32(CTN_FFN_BWD_ARGS) {
+  if (Bn < 1 || Bn > B) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd<float>(CTN_FFN_BWD_CALL);
 }
 
 int ctn_dpt_ffn_bwd_bf16(CTN_FFN_BWD_ARGS) {
+  if (Bn < 1 || Bn > B) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd_wg(CTN_FFN_BWD_CALL);
 }
 

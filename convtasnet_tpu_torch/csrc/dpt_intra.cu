@@ -254,7 +254,8 @@ int launch_core_d(const DptAttnParams& p, cudaStream_t stream) {
 
 template <typename T>
 int launch(const DptAttnParams& p, cudaStream_t stream) {
-  if (p.Bq % 64 || p.Bq > p.B || !core_head_width(p.Bq / p.h))
+  if (p.Bq % 64 || p.Bq > p.B || !core_head_width(p.Bq / p.h) ||
+      p.Bn < 1 || p.Bn > p.B)
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (kIsBf16<T>)
     return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<false>);

@@ -320,7 +320,8 @@ int launch_core(const DptAttnBwdParams& P, unsigned char* spill,
 // it, the spilled tiles where the core needs them.
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                cudaStream_t stream) {
-  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B)
+  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
+      P.f.Bn < 1 || P.f.Bn > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnBwdLayout L =
       attn_bwd_layout(P.f.R, P.f.B, P.f.h, P.f.Bq, sizeof(float));
@@ -347,7 +348,7 @@ int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
 int launch_bwd_wg(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
                   cudaStream_t stream) {
   if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
-      P.f.S % 16)
+      P.f.Bn < 1 || P.f.Bn > P.f.B || P.f.S % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention_bwd_wg(P, ws_act, ws_f32, stream,
                                  launch_core_wg_d<false>);

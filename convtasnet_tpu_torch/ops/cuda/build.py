@@ -42,17 +42,17 @@ _PAIR_BWD_ARGTYPES = [_P] * 29 + [_I] * 9 + [_P]
 # ctn_tcn_block_tp2_{f32,bf16}: 11 pointers, 7 ints, the stream
 # (see tcn_block_tp.cu)
 _TP2_ARGTYPES = [_P] * 11 + [_I] * 7 + [_P]
-# ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 7 ints, the stream
+# ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 8 ints, the stream
 # (dpt_common.cuh)
-_ATTN_ARGTYPES = [_P] * 9 + [_I] * 7 + [_P]
-# ctn_dpt_ffn_{f32,bf16}: 9 pointers (the last the workspace), 4 ints, the
+_ATTN_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
+# ctn_dpt_ffn_{f32,bf16}: 9 pointers (the last the workspace), 5 ints, the
 # stream (dpt_ffn.cu)
-_FFN_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P]
-# ctn_dpt_{inter,intra}_bwd_{f32,bf16}: 13 pointers, 7 ints, the stream
+_FFN_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
+# ctn_dpt_{inter,intra}_bwd_{f32,bf16}: 13 pointers, 8 ints, the stream
 # (dpt_bwd_common.cuh)
-_ATTN_BWD_ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
-# ctn_dpt_ffn_bwd_{f32,bf16}: 15 pointers, 4 ints, the stream (dpt_ffn_bwd.cu)
-_FFN_BWD_ARGTYPES = [_P] * 15 + [_I] * 4 + [_P]
+_ATTN_BWD_ARGTYPES = [_P] * 13 + [_I] * 8 + [_P]
+# ctn_dpt_ffn_bwd_{f32,bf16}: 15 pointers, 5 ints, the stream (dpt_ffn_bwd.cu)
+_FFN_BWD_ARGTYPES = [_P] * 15 + [_I] * 5 + [_P]
 
 
 def _sources() -> list:

@@ -35,6 +35,16 @@ output projection alone, with no residual; its backward's dx has no
 residual term. The same kernels run both modes (their design note is in
 ``csrc/dpt_common.cuh``); a partial launch counts in the wrapper's
 ``partial_launches``, a full one in ``launches``.
+
+The kernels run B and Bq at multiples of their 64-column tile. Other
+widths are zero-padded by the wrappers (``pad_attention``): B up to the
+next multiple of 64 with zero columns, Bq with whole zero heads of the
+real head width, and the kernels' LN takes the sublayer's own width
+(their ``Bn``) apart from the padded one, so its statistics span the real
+columns alone. Outputs and cotangents are sliced back
+(``unpad_attention_grads``). The twins take the same ``Bn`` (an LN over
+the first Bn columns), so the padded plain path can be held against the
+unpadded one on the CPU.
 """
 
 from __future__ import annotations
@@ -44,15 +54,19 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from convtasnet_tpu_torch.ops.cuda.build import load_library
+from convtasnet_tpu_torch.ops.cuda.tcn_block import padded
 from convtasnet_tpu_torch.ops.norm import LN_EPS, layer_norm
 
 NEG_INF = -1e9
-TILE = 64            # B must be a multiple of the GEMM tile
-# B at most this, in every DPT kernel (B7-B12 and their partial modes): up
-# to 256 the bf16 designs keep tiles as wide as the row, from 320 to 512
-# they take their wide routes (csrc/dpt_bwd_common.cuh, kWideMax)
+TILE = 64            # the kernels run B and Bq at multiples of the GEMM
+                     # tile; the wrappers zero-pad other widths up to one
+# B at most this once padded, in every DPT kernel (B7-B12 and their
+# partial modes): up to 256 the bf16 designs keep tiles as wide as the
+# row, from 320 to 512 they take their wide routes
+# (csrc/dpt_bwd_common.cuh, kWideMax)
 MAX_WIDTH = 512
 # the head widths d = Bq / h the kernels take, by compute dtype: the bf16
 # designs share one tensor-core core, templated on d; the f32 first
@@ -76,10 +90,10 @@ _KERNEL_NO = {"inter": "B8", "intra": "B10"}
 
 def fitting_shards(B: int, n_heads: int) -> list:
     """The shard counts m whose partial attention kernels take a sublayer
-    of width B with ``n_heads`` heads: m divides the heads and B / m is a
-    multiple of 64."""
+    of width B with ``n_heads`` heads: m divides the heads (and so B). A
+    shard's width B / m off 64 runs with zero heads (``pad_attention``)."""
     return [m for m in range(1, n_heads + 1)
-            if n_heads % m == 0 and B % m == 0 and (B // m) % TILE == 0]
+            if n_heads % m == 0 and B % m == 0]
 
 
 def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
@@ -88,26 +102,91 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
     B10; and their partial modes) refuse a sublayer of width B over chunks
     of S frames whose heads, ``n_heads`` of them, span Bq channels (Bq ==
     B, or B / m for a head-group shard of m), in the compute ``dtype`` (a
-    torch dtype or its name), or None where they take it: B a multiple of
-    64 up to ``MAX_WIDTH`` (512), Bq a multiple of 64 and a head width Bq /
-    n_heads in ``HEAD_DIMS`` of the dtype, at any head count. Any S runs
-    (the f32 intra kernels above 256 frames on their row-statistics core,
-    ``csrc/dpt_intra_rowstat.cuh``)."""
-    if B % TILE or B > MAX_WIDTH:
-        return (f"the kernel needs B a multiple of {TILE} and at most "
-                f"{MAX_WIDTH}, got B={B}")
-    if Bq % TILE:
-        m = B // Bq if B % Bq == 0 else None
-        fits = fitting_shards(B, n_heads * m) if m else []
-        return (f"the partial kernel needs the shard's width B/m a multiple "
-                f"of {TILE}, got {Bq} of B={B}; shard counts that fit: "
-                f"{fits}")
+    torch dtype or its name), or None where they take it: B at most
+    ``MAX_WIDTH`` (512) once padded up to a multiple of 64, Bq dividing B
+    (m a whole shard count) and a head width Bq / n_heads in ``HEAD_DIMS``
+    of the dtype, at any head count. B and Bq off 64 run zero-padded
+    (``pad_attention``). Any S runs (the f32 intra kernels above 256
+    frames on their row-statistics core, ``csrc/dpt_intra_rowstat.cuh``)."""
+    if not 0 < B <= MAX_WIDTH:
+        return (f"the kernel needs B at most {MAX_WIDTH} (B is zero-padded "
+                f"up to a multiple of {TILE}), got B={B}")
+    if not 0 < Bq <= B or B % Bq:
+        return (f"the partial kernel needs the shard's width B/m to divide "
+                f"B, got {Bq} of B={B}")
     name = str(dtype).replace("torch.", "")
     dims = HEAD_DIMS.get(name, HEAD_DIMS["float32"])
     if Bq % n_heads or Bq // n_heads not in dims:
         return (f"the {name} kernel needs a head width in {dims}, got {Bq} "
                 f"channels with {n_heads} heads")
     return None
+
+
+def ln_stats(xf: torch.Tensor, Bn: Optional[int] = None):
+    """The pre-LN's f32 (mean, rs) of each row of ``xf`` over its first Bn
+    columns (all of them where Bn is None): the kernels' statistics over
+    the sublayer's own width, whatever columns were padded after it."""
+    xr = xf if Bn is None else xf[..., :Bn]
+    mean = xr.mean(-1, keepdim=True)
+    return mean, torch.rsqrt((xr - mean).square().mean(-1, keepdim=True)
+                             + LN_EPS)
+
+
+def row_mean(t: torch.Tensor, Bn: Optional[int] = None) -> torch.Tensor:
+    """Each row's mean over its first Bn columns (all where Bn is None)."""
+    return (t if Bn is None else t[..., :Bn]).mean(-1, keepdim=True)
+
+
+def pre_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+           Bn: Optional[int] = None) -> torch.Tensor:
+    """The pre-LN (``layer_norm``) with its statistics over the first Bn
+    columns, applied to every column, in x's dtype."""
+    if Bn is None or Bn == x.shape[-1]:
+        return layer_norm(x, gamma, beta)
+    xf = x.float()
+    mean, rs = ln_stats(xf, Bn)
+    return ((xf - mean) * rs * gamma.float() + beta.float()).to(x.dtype)
+
+
+def pad_attention(x, gamma, beta, w_qkv, w_out, n_heads: int):
+    """One attention sublayer's operands at the widths the kernels run it:
+    x [..., B], gamma and beta [B] with zero columns up to Bp =
+    ``padded(B)``; w_qkv [B, 3Bq] with zero rows up to Bp and, inside each
+    of q, k and v, whole zero heads of the real head width d up to Bqp =
+    ``padded(Bq)``; w_out [Bq, B] with zero rows up to Bqp and zero
+    columns up to Bp. Returns those and the padded head count Bqp / d.
+
+    The 64 - Bq % 64 padded channels are whole heads: d divides 64 up to
+    d = 64, and Bq is a multiple of 128 at d = 128. A padded column of x
+    is zero, and with gamma and beta zero there so is y. A zero head's q,
+    k and v are zero: it scores 0 against every key and averages v = 0,
+    and its W_out rows are zero, so it adds nothing to the output, and
+    its cotangents are zero. Every real output and cotangent is the
+    unpadded sublayer's, given an LN whose statistics span the first B
+    columns alone (the kernels' Bn, the twins' ``Bn``)."""
+    B = x.shape[-1]
+    Bq = w_qkv.shape[-1] // 3
+    db, dq = padded(B) - B, padded(Bq) - Bq
+    if not (db or dq):
+        return x, gamma, beta, w_qkv, w_out, n_heads
+    d = Bq // n_heads
+    qkv = torch.cat([F.pad(t, (0, dq, 0, db))
+                     for t in w_qkv.split(Bq, dim=-1)], dim=-1)
+    return (F.pad(x, (0, db)), F.pad(gamma, (0, db)), F.pad(beta, (0, db)),
+            qkv, F.pad(w_out, (0, db, 0, dq)), n_heads + dq // d)
+
+
+def unpad_attention_grads(grads, B: int, Bq: int):
+    """The backward's ``(dx, dgamma, dbeta, dw_qkv, dw_out)`` at the
+    padded widths of ``pad_attention``, sliced back to the B real columns
+    and rows and the Bq real channels of each of q, k and v."""
+    dx, dgamma, dbeta, dw_qkv, dw_out = grads
+    Bqp = dw_qkv.shape[-1] // 3
+    if dx.shape[-1] == B and Bqp == Bq:
+        return grads
+    dw_qkv = torch.cat([t[:B, :Bq] for t in dw_qkv.split(Bqp, dim=-1)],
+                       dim=-1)
+    return (dx[..., :B], dgamma[:B], dbeta[:B], dw_qkv, dw_out[:Bq, :B])
 
 
 def pad_chunks(x: torch.Tensor, key_bias: Optional[torch.Tensor],
@@ -130,18 +209,20 @@ def attention_reference(x: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, w_qkv: torch.Tensor,
                         w_out: torch.Tensor,
                         key_bias: Optional[torch.Tensor], *, n_heads: int,
-                        attend_axis: int, partial: bool = False
-                        ) -> torch.Tensor:
+                        attend_axis: int, partial: bool = False,
+                        Bn: Optional[int] = None) -> torch.Tensor:
     """The pre-LN MHA sublayer + residual in plain PyTorch (the math of
     ``xla_inter_attention`` / ``xla_intra_attention``): products in x's
     dtype, LN statistics and the softmax in f32. ``attend_axis`` 2 mixes
     within each chunk (over S), 1 across chunks (over n). ``partial``:
-    a head-group shard's projection alone (w_qkv [B, 3Bq], w_out [Bq, B])."""
+    a head-group shard's projection alone (w_qkv [B, 3Bq], w_out [Bq, B]).
+    ``Bn``: the LN's statistics over the first Bn columns alone (the
+    operands of ``pad_attention``; None: all of them)."""
     M, n, S, B = x.shape
     h = n_heads
     Bq = w_qkv.shape[1] // 3
     d = Bq // h
-    y = layer_norm(x, gamma, beta)
+    y = pre_ln(x, gamma, beta, Bn)
     q, k, v = (t.reshape(M, n, S, h, d)
                for t in (y @ w_qkv.to(x.dtype)).split(Bq, dim=-1))
     if attend_axis == 2:
@@ -163,12 +244,12 @@ def attention_reference(x: torch.Tensor, gamma: torch.Tensor,
 
 
 def inter_attention_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,
-                              n_heads: int, partial: bool = False
-                              ) -> torch.Tensor:
+                              n_heads: int, partial: bool = False,
+                              Bn: Optional[int] = None) -> torch.Tensor:
     """The inter-chunk sublayer's plain twin (``xla_inter_attention``)."""
     return attention_reference(x, gamma, beta, w_qkv, w_out, key_bias,
                                n_heads=n_heads, attend_axis=1,
-                               partial=partial)
+                               partial=partial, Bn=Bn)
 
 
 def fused_inter_attention(
@@ -214,8 +295,10 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
              n_heads: int, partial: bool):
     """Checks the operands of either attention kernel (forward or backward)
     and returns them as the kernels take them: x and the weights contiguous
-    in x's dtype, gamma, beta and the bias contiguous in f32, and the
-    heads' width Bq. Raises on anything the kernels do not take."""
+    in x's dtype, gamma, beta and the bias contiguous in f32, B and Bq
+    zero-padded up to the tile (``pad_attention``); then the heads' padded
+    width Bq, their padded count and the LN's width Bn (the real B).
+    Raises on anything the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
     if x.dtype not in _ENTRY[kind]:
@@ -224,7 +307,7 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
     if x.dim() != 4:
         raise ValueError(f"x must be [M, n, S, B], got {tuple(x.shape)}")
     M, n, S, B = x.shape
-    if B % TILE or B > MAX_WIDTH:
+    if not 0 < B <= MAX_WIDTH:
         raise ValueError(shape_refusal(kind, B, S, B, 1))
     Bq = w_qkv.shape[-1] // 3
     if (tuple(w_qkv.shape) != (B, 3 * Bq) or tuple(w_out.shape) != (Bq, B)
@@ -252,10 +335,13 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
                              f"{t.device}")
     if gamma.numel() != B or beta.numel() != B:
         raise ValueError("LN gamma and beta must be [B]")
+    x, gamma, beta, w_qkv, w_out, n_heads = pad_attention(
+        x, gamma, beta, w_qkv, w_out, n_heads)
     for t in (x, w_qkv, w_out):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, w_qkv, w_out")
-    return x, gamma, beta, w_qkv, w_out, key_bias, Bq
+    return (x, gamma, beta, w_qkv, w_out, key_bias, w_qkv.shape[1] // 3,
+            n_heads, B)
 
 
 def raise_on_error(lib, err: int, what: str) -> None:
@@ -278,7 +364,7 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
             f"backward is the {_KERNEL_NO[kind]} kernel, or run inference "
             "under torch.inference_mode() or torch.no_grad()")
     lib = load_library()
-    x, gamma, beta, w_qkv, w_out, key_bias, Bq = _prepare(
+    x, gamma, beta, w_qkv, w_out, key_bias, Bq, n_heads, Bn = _prepare(
         name, kind, x, gamma, beta, w_qkv, w_out, key_bias, n_heads, partial)
     S_in = x.shape[2]
     if kind == "intra" and S_in % INTRA_ROWS and x.dtype != torch.bfloat16:
@@ -303,17 +389,20 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
         err = getattr(lib, _ENTRY[kind][x.dtype])(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_qkv.data_ptr(),
             w_out.data_ptr(), None if key_bias is None else key_bias.data_ptr(),
-            qkv.data_ptr(), a.data_ptr(), out.data_ptr(), M, n, S, B, n_heads,
-            Bq, int(partial), stream)
+            qkv.data_ptr(), a.data_ptr(), out.data_ptr(), M, n, S, B, Bn,
+            n_heads, Bq, int(partial), stream)
     raise_on_error(lib, err, f"dpt {kind} attention kernel")
-    return out if S == S_in else out[:, :, :S_in].contiguous()
+    if (S, B) == (S_in, Bn):
+        return out
+    return out[:, :, :S_in, :Bn].contiguous()
 
 
 def _rounded_attention(x, gamma, beta, w_qkv, key_bias, n_heads: int,
-                       attend_axis: int):
+                       attend_axis: int, Bn: Optional[int] = None):
     """The forward pieces of the kernels' rounding points, in f32 on values
-    of x's dtype: the LN's (xhat, rs), y, the rounded W_qkv, q, k, v with
-    the attended axis next to last, p (f32) and the permutation back."""
+    of x's dtype: the LN's (xhat, rs) over the first Bn columns, y, the
+    rounded W_qkv, q, k, v with the attended axis next to last, p (f32)
+    and the permutation back."""
     if attend_axis not in (1, 2):
         raise ValueError(f"attend_axis must be 1 or 2, got {attend_axis}")
     dt = x.dtype
@@ -326,8 +415,7 @@ def _rounded_attention(x, gamma, beta, w_qkv, key_bias, n_heads: int,
         return t.to(dt).float()
 
     xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    rs = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + LN_EPS)
+    mean, rs = ln_stats(xf, Bn)
     xhat = (xf - mean) * rs
     y = rnd(xhat * gamma.float() + beta.float())
     wq = rnd(w_qkv.float())
@@ -347,18 +435,19 @@ def _rounded_attention(x, gamma, beta, w_qkv, key_bias, n_heads: int,
 
 def attention_rounded_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,
                                 n_heads: int, attend_axis: int,
-                                partial: bool = False) -> torch.Tensor:
+                                partial: bool = False,
+                                Bn: Optional[int] = None) -> torch.Tensor:
     """The sublayer forward in plain PyTorch with the rounding points of
     the Pallas bodies and of the bf16 forward kernels' Hopper design: every
     product in f32 on values of x's dtype, rounded once (qkv, round(p)
     before the mix, a, the out product); the scores and the softmax in f32.
     The bf16 twin (``attention_reference``) also rounds the scores. Returns
     x + round(a @ W_out), or with ``partial`` round(a @ W_out), in x's
-    dtype."""
+    dtype; ``Bn`` as in ``attention_reference``."""
     dt = x.dtype
     M, n, S, B = x.shape
     *_, v, p, inv = _rounded_attention(x, gamma, beta, w_qkv, key_bias,
-                                       n_heads, attend_axis)
+                                       n_heads, attend_axis, Bn)
     a = (p.to(dt).float() @ v).to(dt).float()
     a = a.permute(inv).reshape(M, n, S, -1)
     proj = (a @ w_out.to(dt).float()).to(dt)
@@ -367,7 +456,7 @@ def attention_rounded_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,
 
 def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
                             n_heads: int, attend_axis: int,
-                            partial: bool = False):
+                            partial: bool = False, Bn: Optional[int] = None):
     """The attention sublayer's backward in plain PyTorch: the explicit math
     of the Pallas bodies (``_inter_bwd_kernel``, ``_intra_bwd_kernel``) with
     their rounding points. Every product is taken in f32 on values of x's
@@ -375,8 +464,10 @@ def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
     the mix and before dv, a, dA, ds = round(p (dp - rowsum) scale), dq,
     dk, dv; scores, p, dp, dy and the LN backward stay in f32, and
     dx = round(g + dx_ln), or with ``partial`` (the backward of a
-    head-group shard's projection) round(dx_ln). Returns ``(dx, dgamma,
-    dbeta, dw_qkv, dw_out)`` in the primals' dtypes."""
+    head-group shard's projection) round(dx_ln). ``Bn``: the LN's
+    statistics and the means of its backward over the first Bn columns
+    (``attention_reference``). Returns ``(dx, dgamma, dbeta, dw_qkv,
+    dw_out)`` in the primals' dtypes."""
     dt = x.dtype
     M, n, S, B = x.shape
     h = n_heads
@@ -388,7 +479,7 @@ def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
         return t.to(dt).float()
 
     xhat, rs, y, wq, q, k, v, p, inv = _rounded_attention(
-        x, gamma, beta, w_qkv, key_bias, n_heads, attend_axis)
+        x, gamma, beta, w_qkv, key_bias, n_heads, attend_axis, Bn)
     wo = rnd(w_out.float())
     gf = g.float()
     perm = (0, 1, 3, 2, 4) if attend_axis == 2 else (0, 2, 3, 1, 4)
@@ -409,19 +500,20 @@ def attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias, *,
     dgamma = (dy * xhat).sum(dim=(0, 1, 2))
     dbeta = dy.sum(dim=(0, 1, 2))
     dxhat = dy * gamma.float()
-    dx_ln = rs * (dxhat - dxhat.mean(-1, keepdim=True)
-                  - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dx_ln = rs * (dxhat - row_mean(dxhat, Bn)
+                  - xhat * row_mean(dxhat * xhat, Bn))
     return ((dx_ln if partial else gf + dx_ln).to(dt), dgamma.to(gamma.dtype),
             dbeta.to(beta.dtype), dw_qkv.to(w_qkv.dtype),
             dw_out.to(w_out.dtype))
 
 
 def inter_attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias,
-                                  *, n_heads: int, partial: bool = False):
+                                  *, n_heads: int, partial: bool = False,
+                                  Bn: Optional[int] = None):
     """The inter-chunk sublayer backward's plain twin."""
     return attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out,
                                    key_bias, n_heads=n_heads, attend_axis=1,
-                                   partial=partial)
+                                   partial=partial, Bn=Bn)
 
 
 def fused_inter_attention_bwd(
@@ -460,11 +552,14 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
     lib = load_library()
     prims = _prepare(name, kind, x, gamma, beta, w_qkv, w_out, key_bias,
                      n_heads, partial)
-    xc, gamma_c, beta_c, w_qkv_c, w_out_c, bias_c, Bq = prims
-    if tuple(g.shape) != tuple(xc.shape):
-        raise ValueError(f"g must have x's shape {tuple(xc.shape)}, got "
+    xc, gamma_c, beta_c, w_qkv_c, w_out_c, bias_c, Bq, n_heads, Bn = prims
+    if tuple(g.shape) != tuple(x.shape):
+        raise ValueError(f"g must have x's shape {tuple(x.shape)}, got "
                          f"{tuple(g.shape)}")
-    g = g.detach().to(xc.dtype).contiguous()
+    g = g.detach().to(xc.dtype)
+    if xc.shape[-1] != Bn:
+        g = F.pad(g, (0, xc.shape[-1] - Bn))
+    g = g.contiguous()
     if g.device != xc.device or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned tensor on {xc.device}")
     S_in = xc.shape[2]
@@ -502,12 +597,13 @@ def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
             beta_c.data_ptr(), w_qkv_c.data_ptr(), w_out_c.data_ptr(),
             None if bias_c is None else bias_c.data_ptr(), ws_act.data_ptr(),
             ws_f32.data_ptr(), dx.data_ptr(), dgb.data_ptr(),
-            dw_qkv.data_ptr(), dw_out.data_ptr(), M, n, S, B, n_heads, Bq,
-            int(partial), stream)
+            dw_qkv.data_ptr(), dw_out.data_ptr(), M, n, S, B, Bn, n_heads,
+            Bq, int(partial), stream)
     raise_on_error(lib, err, f"dpt {kind} attention backward kernel")
-    if S != S_in:
-        dx = dx[:, :, :S_in].contiguous()
-    return (dx, dgb[0].to(gamma.dtype), dgb[1].to(beta.dtype),
+    dx, dgamma, dbeta, dw_qkv, dw_out = unpad_attention_grads(
+        (dx[:, :, :S_in], dgb[0], dgb[1], dw_qkv, dw_out), Bn,
+        w_qkv.shape[-1] // 3)
+    return (dx.contiguous(), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
             dw_qkv.to(w_qkv.dtype), dw_out.to(w_out.dtype))
 
 

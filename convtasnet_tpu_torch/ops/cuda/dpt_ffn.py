@@ -25,6 +25,11 @@ width (w_up [B, F/m], b_up [F/m], w_down [F/m, B]; ``parallel/dpt_tp.py``)
 and the sublayer returns the down projection alone, with neither the down
 bias nor the residual; in its backward dx has no residual term and
 db_down is zero. A partial launch counts in ``partial_launches``.
+
+A width B off the kernels' 64-column tile runs zero-padded (``pad_ffn``),
+with the kernels' LN over the sublayer's own B (their ``Bn``; the twins
+take the same ``Bn``), and the outputs and cotangents sliced back
+(``unpad_ffn_grads``), as in ``dpt_attention.py``.
 """
 
 from __future__ import annotations
@@ -41,10 +46,13 @@ from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
     MAX_WIDTH,
     TILE,
     count_launch,
+    ln_stats,
     needs_grad,
+    padded,
+    pre_ln,
     raise_on_error,
+    row_mean,
 )
-from convtasnet_tpu_torch.ops.norm import LN_EPS, layer_norm
 
 _ENTRY = {torch.float32: "ctn_dpt_ffn_f32", torch.bfloat16: "ctn_dpt_ffn_bf16"}
 _BWD_ENTRY = {torch.float32: "ctn_dpt_ffn_bwd_f32",
@@ -56,27 +64,29 @@ _GELU_A = 0.044715
 
 def shape_refusal(B: int) -> Optional[str]:
     """Why the FFN kernels (B11, B12, and their partial modes) refuse a
-    sublayer of width B, or None where they take it: B a multiple of 64 up
-    to ``MAX_WIDTH`` (512; above 256 B11 runs three launches through a
-    workspace, ``csrc/dpt_ffn.cu``). Any hidden width F
-    (F / m for a shard of m): the wrappers zero-pad it to a multiple of
-    ``F_TILE`` (``pad_hidden``)."""
-    if B % TILE or B > MAX_WIDTH:
-        return (f"the kernel needs B a multiple of {TILE} and at most "
-                f"{MAX_WIDTH}, got B={B}")
+    sublayer of width B, or None where they take it: B at most
+    ``MAX_WIDTH`` (512) once zero-padded up to a multiple of 64
+    (``pad_ffn``; above 256 B11 runs three launches through a workspace,
+    ``csrc/dpt_ffn.cu``). Any hidden width F (F / m for a shard of m): the
+    wrappers zero-pad it to a multiple of ``F_TILE`` (``pad_hidden``)."""
+    if not 0 < B <= MAX_WIDTH:
+        return (f"the kernel needs B at most {MAX_WIDTH} (B is zero-padded "
+                f"up to a multiple of {TILE}), got B={B}")
     return None
 
 
 def ffn_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w_up: torch.Tensor, b_up: torch.Tensor,
                   w_down: torch.Tensor, b_down: torch.Tensor,
-                  partial: bool = False) -> torch.Tensor:
+                  partial: bool = False,
+                  Bn: Optional[int] = None) -> torch.Tensor:
     """The pre-LN GELU MLP + residual in plain PyTorch (the math of
     ``xla_ffn``): products and bias adds in x's dtype, LN statistics in
     f32. ``partial``: a hidden-width shard's down projection alone
-    (``b_down`` unused)."""
+    (``b_down`` unused). ``Bn``: the LN's statistics over the first Bn
+    columns alone (the operands of ``pad_ffn``; None: all of them)."""
     dt = x.dtype
-    y = layer_norm(x, gamma, beta)
+    y = pre_ln(x, gamma, beta, Bn)
     y = y @ w_up.to(dt) + b_up.to(dt)
     y = F.gelu(y, approximate="tanh")
     if partial:
@@ -114,11 +124,41 @@ def pad_hidden(w_up: torch.Tensor, b_up: torch.Tensor,
             F.pad(w_down, (0, 0, 0, df)))
 
 
+def pad_ffn(x, gamma, beta, w_up, w_down, b_down):
+    """One FFN sublayer's operands at the width the kernels run it: x
+    [..., B], gamma, beta and b_down [B] with zero columns up to Bp =
+    ``padded(B)``, w_up [B, F] with zero rows and w_down [F, B] with zero
+    columns to match. A padded column of x is zero, and with gamma and
+    beta zero there so is y; it meets only zero weights, so every real
+    output and cotangent is the unpadded sublayer's, given an LN whose
+    statistics span the first B columns alone (the kernels' Bn, the
+    twins' ``Bn``); the padded columns' own outputs are zero and dropped."""
+    db = padded(x.shape[-1]) - x.shape[-1]
+    if not db:
+        return x, gamma, beta, w_up, w_down, b_down
+    return (F.pad(x, (0, db)), F.pad(gamma, (0, db)), F.pad(beta, (0, db)),
+            F.pad(w_up, (0, 0, 0, db)), F.pad(w_down, (0, db)),
+            F.pad(b_down, (0, db)))
+
+
+def unpad_ffn_grads(grads, B: int):
+    """The backward's ``(dx, dgamma, dbeta, dw_up, db_up, dw_down,
+    db_down)`` at the padded width of ``pad_ffn``, sliced back to the B
+    real columns and rows."""
+    dx, dgamma, dbeta, dw_up, db_up, dw_down, db_down = grads
+    if dx.shape[-1] == B:
+        return grads
+    return (dx[..., :B], dgamma[:B], dbeta[:B], dw_up[:B], db_up,
+            dw_down[:, :B], db_down[:B])
+
+
 def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
     """Checks the operands of the FFN kernels (forward or backward) and
     returns them as the kernels take them: x and the weights contiguous in
-    x's dtype, the LN affines and biases contiguous in f32. Raises on
-    anything the kernels do not take."""
+    x's dtype, the LN affines and biases contiguous in f32, B zero-padded
+    to the tile (``pad_ffn``) and F to ``F_TILE`` (``pad_hidden``); then
+    the LN's width Bn (the real B). Raises on anything the kernels do not
+    take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got "
                          f"{x.device}")
@@ -148,10 +188,11 @@ def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
                              f"{t.device}")
     g_, b_, bu, bd = vecs
     w_up, bu, w_down = pad_hidden(w_up, bu, w_down)
+    x, g_, b_, w_up, w_down, bd = pad_ffn(x, g_, b_, w_up, w_down, bd)
     for t in (x, w_up, w_down):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, w_up, w_down")
-    return x, g_, b_, w_up, bu, w_down, bd
+    return x, g_, b_, w_up, bu, w_down, bd, B
 
 
 def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down,
@@ -166,8 +207,8 @@ def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down,
             "is the B12 kernel, or run inference under "
             "torch.inference_mode() or torch.no_grad()")
     lib = load_library()
-    x, g, b, w_up, bu, w_down, bd = _prepare("fused_ffn", x, gamma, beta,
-                                             w_up, b_up, w_down, b_down)
+    x, g, b, w_up, bu, w_down, bd, Bn = _prepare(
+        "fused_ffn", x, gamma, beta, w_up, b_up, w_down, b_down)
     M, K, B = x.shape
     Fw = w_up.shape[1]
     n_ws = ctypes.c_longlong()   # y and h above B = 256; none below
@@ -179,9 +220,9 @@ def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down,
         err = getattr(lib, _ENTRY[x.dtype])(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), w_up.data_ptr(),
             bu.data_ptr(), w_down.data_ptr(), bd.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), M * K, B, Fw, int(partial), stream)
+            ws.data_ptr(), M * K, B, Bn, Fw, int(partial), stream)
     raise_on_error(lib, err, "dpt ffn kernel")
-    return out
+    return out if B == Bn else out[..., :Bn].contiguous()
 
 
 def _gelu_and_grad(v: torch.Tensor):
@@ -194,16 +235,17 @@ def _gelu_and_grad(v: torch.Tensor):
 
 
 def ffn_bwd_reference(x, g, gamma, beta, w_up, b_up, w_down, b_down,
-                      partial: bool = False):
+                      partial: bool = False, Bn: Optional[int] = None):
     """The FFN sublayer's backward in plain PyTorch: the explicit math of
     the Pallas body ``_ffn_bwd_kernel`` with its rounding points. Products
     in f32 on values of x's dtype; pre = round(round(y W_up) +
     round(b_up)), h = round(gelu(pre)), dpre = round(dh gelu'(pre)) with
     the tanh-GELU and its derivative in f32; dh, dy and the LN backward in
     f32, dx = round(g + dx_ln). With ``partial`` (the backward of a shard's
-    down projection alone) dx = round(dx_ln) and db_down is zero. Returns
-    ``(dx, dgamma, dbeta, dw_up, db_up, dw_down, db_down)`` in the primals'
-    dtypes."""
+    down projection alone) dx = round(dx_ln) and db_down is zero. ``Bn``:
+    the LN's statistics and the means of its backward over the first Bn
+    columns (``ffn_reference``). Returns ``(dx, dgamma, dbeta, dw_up,
+    db_up, dw_down, db_down)`` in the primals' dtypes."""
     dt = x.dtype
     B = x.shape[-1]
 
@@ -211,8 +253,7 @@ def ffn_bwd_reference(x, g, gamma, beta, w_up, b_up, w_down, b_down,
         return t.to(dt).float()
 
     xf = x.float().reshape(-1, B)
-    mean = xf.mean(-1, keepdim=True)
-    rs = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + LN_EPS)
+    mean, rs = ln_stats(xf, Bn)
     xhat = (xf - mean) * rs
     y = rnd(xhat * gamma.float() + beta.float())
     wu, wd = rnd(w_up.float()), rnd(w_down.float())
@@ -223,8 +264,8 @@ def ffn_bwd_reference(x, g, gamma, beta, w_up, b_up, w_down, b_down,
     dpre = rnd((gf @ wd.T) * dgelu)
     dy = dpre @ wu.T
     dxhat = dy * gamma.float()
-    dx_ln = rs * (dxhat - dxhat.mean(-1, keepdim=True)
-                  - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dx_ln = rs * (dxhat - row_mean(dxhat, Bn)
+                  - xhat * row_mean(dxhat * xhat, Bn))
     db_down = torch.zeros_like(gf[0]) if partial else gf.sum(0)
     return ((dx_ln if partial else gf + dx_ln).to(dt).reshape(x.shape),
             (dy * xhat).sum(0).to(gamma.dtype), dy.sum(0).to(beta.dtype),
@@ -256,14 +297,17 @@ def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down,
     use, checks, allocates the workspace and the outputs, launches on the
     current stream, and raises on anything the kernel does not take."""
     lib = load_library()
-    xc, g_, b_, w_up_c, bu, w_down_c, bd = _prepare(
+    xc, g_, b_, w_up_c, bu, w_down_c, bd, Bn = _prepare(
         "fused_ffn_bwd", x, gamma, beta, w_up, b_up, w_down, b_down)
     M, K, B = xc.shape
     Fw = w_up_c.shape[1]
-    if tuple(g.shape) != tuple(xc.shape):
-        raise ValueError(f"g must have x's shape {tuple(xc.shape)}, got "
+    if tuple(g.shape) != tuple(x.shape):
+        raise ValueError(f"g must have x's shape {tuple(x.shape)}, got "
                          f"{tuple(g.shape)}")
-    g = g.detach().to(xc.dtype).contiguous()
+    g = g.detach().to(xc.dtype)
+    if B != Bn:
+        g = F.pad(g, (0, B - Bn))
+    g = g.contiguous()
     if g.device != xc.device or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned tensor on {xc.device}")
     n_act, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
@@ -285,14 +329,16 @@ def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down,
             w_up_c.data_ptr(), bu.data_ptr(), w_down_c.data_ptr(),
             ws_act.data_ptr(), ws_f32.data_ptr(), dx.data_ptr(),
             dgb.data_ptr(), dw_up.data_ptr(), db_up.data_ptr(),
-            dw_down.data_ptr(), db_down.data_ptr(), M * K, B, Fw,
+            dw_down.data_ptr(), db_down.data_ptr(), M * K, B, Bn, Fw,
             int(partial), stream)
     raise_on_error(lib, err, "dpt ffn backward kernel")
     F_in = w_up.shape[-1]
-    return (dx, dgb[0].to(gamma.dtype), dgb[1].to(beta.dtype),
-            dw_up[:, :F_in].to(w_up.dtype),
-            db_up[:F_in].reshape(b_up.shape).to(b_up.dtype),
-            dw_down[:F_in].to(w_down.dtype),
+    dx, dgamma, dbeta, dw_up_, db_up_, dw_down_, db_down = unpad_ffn_grads(
+        (dx, dgb[0], dgb[1], dw_up[:, :F_in], db_up[:F_in],
+         dw_down[:F_in], db_down), Bn)
+    return (dx.contiguous(), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+            dw_up_.to(w_up.dtype), db_up_.reshape(b_up.shape).to(b_up.dtype),
+            dw_down_.to(w_down.dtype),
             db_down.reshape(b_down.shape).to(b_down.dtype))
 
 

@@ -45,8 +45,9 @@ def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
     """Why the intra kernels (B9, B10, and their partial modes) refuse a
     sublayer of width B over chunks of S frames with ``n_heads`` heads over
     Bq channels in the compute ``dtype``, or None where they take it: the
-    attention kernels' rules (head widths 16, 32, 64 and 128 in either
-    dtype). Any S runs: in f32 the first designs up to 256 frames and the
+    attention kernels' rules (B at most 512 once padded, B and Bq off 64
+    zero-padded, head widths 16, 32, 64 and 128 in either dtype). Any S
+    runs: in f32 the first designs up to 256 frames and the
     row-statistics core above (``csrc/dpt_intra_rowstat.cuh``); the f32
     kernels and the bf16 backward run S padded up to a multiple of 16 with
     masked frames (``dpt_attention.pad_chunks``)."""
@@ -54,12 +55,13 @@ def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
 
 
 def intra_attention_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,
-                              n_heads: int, partial: bool = False
-                              ) -> torch.Tensor:
-    """The intra-chunk sublayer's plain twin (``xla_intra_attention``)."""
+                              n_heads: int, partial: bool = False,
+                              Bn: Optional[int] = None) -> torch.Tensor:
+    """The intra-chunk sublayer's plain twin (``xla_intra_attention``);
+    ``Bn`` as in ``dpt_attention.attention_reference``."""
     return attention_reference(x, gamma, beta, w_qkv, w_out, key_bias,
                                n_heads=n_heads, attend_axis=2,
-                               partial=partial)
+                               partial=partial, Bn=Bn)
 
 
 def fused_intra_attention(
@@ -89,11 +91,12 @@ fused_intra_attention.partial_launches = 0
 
 
 def intra_attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias,
-                                  *, n_heads: int, partial: bool = False):
+                                  *, n_heads: int, partial: bool = False,
+                                  Bn: Optional[int] = None):
     """The intra-chunk sublayer backward's plain twin."""
     return attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out,
                                    key_bias, n_heads=n_heads, attend_axis=2,
-                                   partial=partial)
+                                   partial=partial, Bn=Bn)
 
 
 def fused_intra_attention_bwd(

@@ -51,12 +51,19 @@ def refusals(cfg: ConvTasNetConfig, n_model: int = 1,
     out: Dict[str, Optional[str]] = {}
     B, P, causal = cfg.bottleneck, cfg.conv_kernel, cfg.causal
     if cfg.separator == "dpt":
-        m = n_model
-        Bq, heads, S = cfg.bottleneck // m, cfg.dpt_num_heads // m, cfg.dpt_chunk
-        out["intra"] = dpt_intra.shape_refusal(B, S, Bq, heads,
-                                               cfg.compute_dtype)
-        out["inter"] = dpt_attention.shape_refusal("inter", B, S, Bq, heads,
+        m, h = n_model, cfg.dpt_num_heads
+        if h % m or B % m:
+            fits = dpt_attention.fitting_shards(B, h)
+            out["intra"] = out["inter"] = (
+                f"the partial kernels need a shard count m that divides the "
+                f"{h} heads and B={B}, got m={m}; shard counts that fit: "
+                f"{fits}")
+        else:
+            Bq, heads, S = B // m, h // m, cfg.dpt_chunk
+            out["intra"] = dpt_intra.shape_refusal(B, S, Bq, heads,
                                                    cfg.compute_dtype)
+            out["inter"] = dpt_attention.shape_refusal(
+                "inter", B, S, Bq, heads, cfg.compute_dtype)
         out["ffn"] = dpt_ffn.shape_refusal(B)
     elif n_model > 1:
         if cfg.norm_type == "gLN":

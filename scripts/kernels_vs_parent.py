@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 scripts/kernels_vs_parent.py --other DIR \\
-        [--time [all|dpt-forward]] [--out FILE]
+        [--time [all|dpt-forward|f32-attention|padded]] [--out FILE]
 
 DIR holds another checkout's ``convtasnet_tpu_torch/`` (for example the
 parent commit, unpacked with ``git archive HEAD convtasnet_tpu_torch``).
@@ -16,7 +16,8 @@ bf16 and f32, the f32 attention kernels also at 4 heads (head width 64),
 the intra kernels also at other chunk lengths, and every DPT kernel also
 at B = 128 and 192 (B / 32 heads, F = 4B, full and on the last shard of
 2 and 3: the widths below 256 whose out and DN tiles are 128 wide, or 256
-wide with the columns past B zero); the TCN TP
+wide with the columns past B zero) and at B = 320 and 512 (their wide
+routes; on the last shard of 5 and 2); the TCN TP
 stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128; the TCN block forward
 (B1, gLN and cLN causal), the gLN block backward (B2) and the cLN one
 (B3) at the paper shape [8, 3199, 256], H=512, d = 1, 16, 128; the block
@@ -55,7 +56,16 @@ row-statistics core, at [8, 10, 320, 256] and [8, 7, 512, 256], each with
 its bound (FMA products at 67 TFLOP/s, the larger of that and its bytes at
 3.35 TB/s) and ``scaled_dot_product_attention`` in f32 at its core's
 shapes ([8 n, 8, S, 32], no mask; forward, and forward + backward) as the
-library time. ``--time``
+library time. ``--time padded`` times only B7-B12 in bf16 and f32 at
+[8, 25, 128, 96] (3 heads of 32, F = 384: B and the heads run padded to
+128 with each LN over the real 96 columns) beside [8, 25, 128, 128] (4
+heads, F = 512), and B7p-B12p on one shard of two at B = 192 (96
+channels, 3 heads, padded to 128) beside B = 256 (128 channels), forward
+and backward, with each one's device time per call and per kernel (a
+width a tree refuses is printed for the other alone), and by CUDA events
+what the padding copies add per call (the operands padded as the
+wrappers pad them, the output, or the cotangents, sliced back).
+``--time``
 (all) goes on, at the paper shape unless named: B1 (gLN and cLN causal),
 B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
 of dilations (1, 2) .. (64, 128), and beside each in the same turn two
@@ -104,14 +114,15 @@ CASES += [("intra", "bfloat16", 256, 4, True, True),
           ("intra", "float32", 176, 4, True, True),
           ("intra", "float32", 208, 4, False, True),
           ("intra", "float32", 256, 8, True, True)]
-# the DPT kernels at the narrower widths both trees take, B / 32 heads:
+# the DPT kernels at the other widths both trees take, B / 32 heads:
 # B = 128 (out's and DN's tiles 128 wide) and 192 (out's and DN's 256-wide
-# tiles with the columns past B zero), forward and backward, full and on
-# the last shard of m (m = 2 at 128; 3 at 192, a 64-channel shard)
+# tiles with the columns past B zero), and 320 and 512 (the wide routes),
+# forward and backward, full and on the last shard of m (m = 2 at 128; 3
+# at 192 and 5 at 320, a 64-channel shard; 2 at 512)
 WIDTH_CASES = [(kind, dtype, B, m)
                for kind in ("inter", "intra", "ffn")
                for dtype in ("bfloat16", "float32")
-               for B, m in ((128, 2), (192, 3))]
+               for B, m in ((128, 2), (192, 3), (320, 5), (512, 2))]
 B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
             for hs in (256, 128) for d in (1, 128)]
 # the partial modes: one shard of m of the quality default's widths
@@ -910,6 +921,136 @@ def _time_f32_intra_long(torch, res: dict, rn) -> None:
                    lambda: bwd(x, gr, *w, **kw), 5)
 
 
+# the padded widths timed beside the next one on the tile: (B, shards m),
+# B / 32 heads, F = 4B
+PADDED_TIMED = [(96, 1), (128, 1), (192, 2), (256, 2)]
+
+
+def _time_padded(torch, res: dict, rn) -> None:
+    """B7-B12 (``PADDED_TIMED``: full at B = 96 and 128, on one shard of
+    two at B = 192 and 256) in bf16 and f32 at [8, 25, 128, B] with the
+    real key mask (the FFN at [8, 3200, B]), forward and backward, each
+    with its device time per call and per kernel; a width the tree refuses
+    is left out. Where the tree pads (``pad_attention``, ``pad_ffn``), the
+    padding copies alone by CUDA events: the forward's (the operands
+    padded, the output sliced back) and the backward's (the operands and
+    the cotangent padded, the cotangents sliced back)."""
+    import torch.nn.functional as F
+
+    from convtasnet_tpu_torch.ops.cuda import dpt_attention, dpt_ffn, dpt_intra
+
+    fns = {"inter": (dpt_attention.fused_inter_attention,
+                     dpt_attention.fused_inter_attention_bwd),
+           "intra": (dpt_intra.fused_intra_attention,
+                     dpt_intra.fused_intra_attention_bwd),
+           "ffn": (dpt_ffn.fused_ffn, dpt_ffn.fused_ffn_bwd)}
+    names = {"inter": "b7/b8", "intra": "b9/b10", "ffn": "b11/b12"}
+    pads = hasattr(dpt_attention, "pad_attention")
+    n, S = 25, 128
+    valid = torch.arange(n * S, device="cuda").reshape(n, S) < 3199
+    for dtype in (torch.bfloat16, torch.float32):
+        for Bd, m in PADDED_TIMED:
+            heads, F_ = Bd // 32, 4 * Bd
+            x = rn(M, n, S, Bd).to(dtype)
+            gr = (rn(M, n * S, Bd) * valid.reshape(1, -1, 1)).reshape(
+                x.shape).to(dtype)
+            w_attn = (1.0 + 0.1 * rn(Bd), 0.1 * rn(Bd),
+                      rn(Bd, 3 * Bd, scale=Bd ** -0.5),
+                      rn(Bd, Bd, scale=Bd ** -0.5),
+                      torch.where(valid, 0.0, -1e9).to(torch.float32))
+            w_ffn = (1.0 + 0.1 * rn(Bd), 0.1 * rn(Bd),
+                     rn(Bd, F_, scale=Bd ** -0.5), 0.1 * rn(F_),
+                     rn(F_, Bd, scale=F_ ** -0.5), 0.1 * rn(Bd))
+            for kind in ("inter", "intra", "ffn"):
+                fwd, bwd = fns[kind]
+                xs, gs, w = ((x.reshape(M, n * S, Bd),
+                              gr.reshape(M, n * S, Bd), w_ffn)
+                             if kind == "ffn" else (x, gr, w_attn))
+                kw = {} if kind == "ffn" else dict(n_heads=heads // m)
+                if m > 1:
+                    w = _shard((xs, *w), kind, m, m - 1)[1:]
+                    kw["partial"] = True
+                try:
+                    with torch.inference_mode():
+                        fwd(xs, *w, **kw)
+                except ValueError:   # a width this tree does not take
+                    continue
+                name = str(dtype).split(".")[-1]
+                at = (f"[8,3200,{Bd}] F={F_ // m}" if kind == "ffn"
+                      else f"[8,{n},{S},{Bd}]")
+                shard = f" m={m}" if m > 1 else ""
+                at = f"{names[kind]} {{}} {at}{shard} {name}"
+                with torch.inference_mode():
+                    res[at.format("forward")] = _ms(
+                        torch, lambda: fwd(xs, *w, **kw), 10)
+                    _device_ms(torch, res, at.format("forward"),
+                               lambda: fwd(xs, *w, **kw), 10)
+                res[at.format("backward")] = _ms(
+                    torch, lambda: bwd(xs, gs, *w, **kw), 5)
+                _device_ms(torch, res, at.format("backward"),
+                           lambda: bwd(xs, gs, *w, **kw), 5)
+                Bp = -(-Bd // 64) * 64
+                Bq = Bd // m
+                if not pads or (Bp == Bd and (kind == "ffn" or Bq % 64 == 0)):
+                    continue   # this tree, or this sublayer, pads nothing
+                # the copies the wrappers add: the operands as _prepare
+                # hands them to the pad (weights in x's dtype, the LN
+                # affines and biases in f32), then the outputs' slices
+                if kind == "ffn":
+                    g_, b_, w_up, _, w_down, b_down = w
+                    w_up, w_down = w_up.to(dtype), w_down.to(dtype)
+
+                    def pad():
+                        return dpt_ffn.pad_ffn(xs, g_, b_, w_up, w_down,
+                                               b_down)
+                    out_p = torch.empty(M, n * S, Bp, dtype=dtype,
+                                        device="cuda")
+                    grads_p = (out_p, torch.empty(Bp, device="cuda"),
+                               torch.empty(Bp, device="cuda"),
+                               torch.empty(Bp, F_ // m, device="cuda"),
+                               torch.empty(F_ // m, device="cuda"),
+                               torch.empty(F_ // m, Bp, device="cuda"),
+                               torch.empty(Bp, device="cuda"))
+
+                    def unpad():
+                        return [t.contiguous() for t in
+                                dpt_ffn.unpad_ffn_grads(grads_p, Bd)]
+                else:
+                    g_, b_, w_qkv, w_out, _ = w
+                    w_qkv, w_out = w_qkv.to(dtype), w_out.to(dtype)
+
+                    def pad():
+                        return dpt_attention.pad_attention(
+                            xs, g_, b_, w_qkv, w_out, kw["n_heads"])
+                    Bqp = -(-Bq // 64) * 64
+                    out_p = torch.empty(M, n, S, Bp, dtype=dtype,
+                                        device="cuda")
+                    grads_p = (out_p, torch.empty(Bp, device="cuda"),
+                               torch.empty(Bp, device="cuda"),
+                               torch.empty(Bp, 3 * Bqp, device="cuda"),
+                               torch.empty(Bqp, Bp, device="cuda"))
+
+                    def unpad():
+                        return [t.contiguous() for t in
+                                dpt_attention.unpad_attention_grads(
+                                    grads_p, Bd, Bq)]
+
+                def fwd_copies():
+                    pad()
+                    return out_p[..., :Bd].contiguous()
+
+                def bwd_copies():
+                    pad()
+                    if Bp != Bd:
+                        F.pad(gs, (0, Bp - Bd))
+                    return unpad()
+
+                res[at.format("forward padding copies")] = _ms(
+                    torch, fwd_copies, 20)
+                res[at.format("backward padding copies")] = _ms(
+                    torch, bwd_copies, 20)
+
+
 def time_tree(path: str, what: str) -> None:
     """Times one tree into path: everything (``what`` "all") or the DPT
     forwards alone ("dpt-forward": ``_time_dpt_forwards`` and the
@@ -932,6 +1073,10 @@ def time_tree(path: str, what: str) -> None:
     if what == "f32-attention":
         _time_f32_attention(torch, res, rn)
         _time_f32_intra_long(torch, res, rn)
+        torch.save(res, path)
+        return
+    if what == "padded":
+        _time_padded(torch, res, rn)
         torch.save(res, path)
         return
     _time_dpt_forwards(torch, res, rn)
@@ -1028,10 +1173,13 @@ def main() -> int:
     ap.add_argument("--other", help="directory holding the other checkout's "
                                     "convtasnet_tpu_torch/")
     ap.add_argument("--time", nargs="?", const="all",
-                    choices=["all", "dpt-forward", "f32-attention"],
+                    choices=["all", "dpt-forward", "f32-attention",
+                             "padded"],
                     help="also time both trees in turns: everything (the "
-                         "default), the DPT forwards alone, or the f32 "
-                         "attention kernels at every head width")
+                         "default), the DPT forwards alone, the f32 "
+                         "attention kernels at every head width, or the DPT "
+                         "kernels at widths off 64 beside the next one on "
+                         "the tile")
     ap.add_argument("--out", help="write every number here as JSON")
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     ap.add_argument("--time-dump", help=argparse.SUPPRESS)

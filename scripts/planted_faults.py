@@ -181,8 +181,8 @@ FAULTS = {
         "s_vec[i] = k < L ? G.key_bias(k) : 0.f;"),
     "attn_wg_lq_ln_without_eps": ("dpt_backward",
         "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
-        "rs[u] = rsqrtf(warp_sum(rs[u]) / B + kLnEps);",
-        "rs[u] = rsqrtf(warp_sum(rs[u]) / B);"),
+        "rs[u] = rsqrtf(warp_sum(rs[u]) / Bn + kLnEps);",
+        "rs[u] = rsqrtf(warp_sum(rs[u]) / Bn);"),
     "attn_wg_dn_residual_in_partial": ("dpt_tp",
         "convtasnet_tpu_torch/csrc/dpt_attn_bwd_wg.cuh",
         ": launch_dy_ln_wg(q, !f.partial, stream));",
@@ -307,8 +307,10 @@ FAULTS = {
         "stage_store<kTpBN>(st, z, B, r0, K, ((i / nk + 1) % n_tiles) * "
         "kTpBN, tid);"),
     # the padding of widths off the tiles: B1's wgmma gLN-1 statistics
-    # over the padded H in place of the block's own, and the intra
-    # kernels' appended frames left unmasked as keys
+    # over the padded H in place of the block's own, the intra kernels'
+    # appended frames left unmasked as keys, and the bf16 DPT LN's mean
+    # over the padded B in place of the sublayer's own (ln_resident_tile:
+    # LQ/F1, UG, B11)
     "tcn_gln_count_of_padded_h": ("padded",
         "convtasnet_tpu_torch/csrc/tcn_block_hopper.cuh",
         "n_part_a,\n               static_cast<double>(K) * p.Hn, "
@@ -319,6 +321,10 @@ FAULTS = {
         "convtasnet_tpu_torch/ops/cuda/dpt_attention.py",
         "torch.nn.functional.pad(key_bias, (0, Sp - S), value=NEG_INF))",
         "torch.nn.functional.pad(key_bias, (0, Sp - S), value=0.0))"),
+    "dpt_ln_mean_over_padded_b": ("padded",
+        "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
+        "for (int u = 0; u < kLnRows; ++u) mean[u] = warp_sum(mean[u]) / Bn;",
+        "for (int u = 0; u < kLnRows; ++u) mean[u] = warp_sum(mean[u]) / B;"),
     "tp_shard_sum_drops_w1": ("tp",
         "convtasnet_tpu_torch/parallel/tensor_parallel.py",
         "        y = tp_epilogue(y, z, stats_from_sums(sums2, n), w1, w0)",
@@ -380,7 +386,7 @@ CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
               "dpt_forward": "dpt", "dpt_backward": "dpt or ffn_bwd",
               "cln_backward": "cln", "pair": "pair", "tp": "tp_",
               "dpt_tp": "partial or dpt_tp",
-              "padded": "untiled or check_shapes or auto_mode"}
+              "padded": "untiled or check_shapes or auto_mode or padded"}
 RUNNER = """
 import sys
 import torch

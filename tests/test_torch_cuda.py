@@ -1046,9 +1046,9 @@ def test_dpt_kernels_are_deterministic_and_check_shapes(cuda):
         args, kw, _ = _dpt_args(cuda, torch.bfloat16, kind, 7, True, seed=2)
         with torch.inference_mode():
             assert torch.equal(fused(*args, **kw), fused(*args, **kw))
-    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, B=96,
-                            heads=3)
-    with pytest.raises(ValueError, match="multiple of 64"):
+    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, B=576,
+                            heads=18)
+    with pytest.raises(ValueError, match="at most 512"):
         dpt_intra.fused_intra_attention(*args, **kw)
     args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=16)
     with pytest.raises(ValueError, match="head width"):   # d = 8
@@ -2177,23 +2177,26 @@ def test_dpt_full_and_partial_modes_share_their_arithmetic(cuda, dtype,
 
 def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
                                                             monkeypatch):
-    """On CUDA tensors the partial wrappers launch or raise: a shard width
-    that is not a multiple of 64 (eight shards of B=256) names the shard
-    counts that fit, a head width outside the bf16 kernels' {16, 32, 64,
+    """On CUDA tensors the partial wrappers launch or raise: a shard whose
+    width does not divide B (a third of B=256's q, k and v columns) names
+    the rule, a head width outside the bf16 kernels' {16, 32, 64,
     128} (8: 16 heads on a shard of 128 channels) raises, a shard's
     weights without ``partial=True`` raise, and with the kernel library
     made to fail the wrapper raises and counts no launch; F/m off the
-    128-column tile (F/16 = 64) runs padded. ``dpt_tp_forward`` over eight
-    shards raises, under auto as with ``use_pallas=True``, before any
-    launch."""
+    128-column tile (F/16 = 64) runs padded. ``dpt_tp_forward`` over three
+    shards of 8 heads raises, under auto as with ``use_pallas=True``,
+    before any launch, naming the shard counts that fit."""
     from convtasnet_tpu_torch.ops.cuda import build
     from convtasnet_tpu_torch.parallel.dpt_tp import dpt_tp_forward
     from convtasnet_tpu_torch.parallel.mesh import shard_devices
 
     args, kw, _ = _full_width_args(cuda, torch.bfloat16, "inter")
-    with pytest.raises(ValueError, match=r"fit: \[1, 2, 4\]"):
-        dpt_attention.fused_inter_attention(*_shard(args, "inter", 8, 0),
-                                            n_heads=1, partial=True)
+    x, g_, b_, w_qkv, w_out, bias = args
+    third = torch.cat([t[:, :85] for t in w_qkv.split(256, dim=1)], dim=1)
+    with pytest.raises(ValueError, match="divide B"):
+        dpt_attention.fused_inter_attention(
+            x, g_, b_, third, w_out[:85].contiguous(), bias, n_heads=1,
+            partial=True)
     with pytest.raises(ValueError, match="head width"):
         dpt_intra.fused_intra_attention(*_shard(args, "intra", 2, 0),
                                         n_heads=16, partial=True)
@@ -2212,8 +2215,8 @@ def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
     mix = mix.to(cuda)
     before = _partial_launches()
     for use_pallas in (True, None):
-        with pytest.raises(ValueError, match=r"fit: \[1, 2, 4\]"):
-            dpt_tp_forward(cfg, {}, mix, shard_devices(8, cuda),
+        with pytest.raises(ValueError, match=r"fit: \[1, 2, 4, 8\]"):
+            dpt_tp_forward(cfg, {}, mix, shard_devices(3, cuda),
                            use_pallas=use_pallas)
     assert not any(_partial_launches(before).values())
 
@@ -2532,7 +2535,8 @@ def _wide_shards(B):
     """The least shard count m > 1 whose head-group shard of B (B / 32
     heads) is a multiple of 64 wide: 5, 2, 7, 2 at B = 320, 384, 448,
     512."""
-    return dpt_attention.fitting_shards(B, B // 32)[1]
+    return [m for m in dpt_attention.fitting_shards(B, B // 32)
+            if (B // m) % 64 == 0][1]
 
 
 def _wide_case(cuda, dtype, kind, B, m, heads=None, seed=0):
@@ -2692,3 +2696,164 @@ def test_dpt_wide_partial_kernels_sum_to_the_full_kernel(cuda, kind):
     total = args[0] + parts + (args[-1] if kind == "ffn" else 0)
     err = _rel_l2(_valid_rows(total, valid, 512), _valid_rows(full, valid, 512))
     assert err <= DPT_TOL[torch.float32], err
+
+
+# --------------------------------------------------------------------------
+# Widths off 64: B and the shard width B / m run zero-padded, each LN over
+# the sublayer's own B
+# --------------------------------------------------------------------------
+
+# (B, m, heads): full sublayers at B = 96, 160 and 480 (3, 5 and 15 heads of
+# 32; 480 pads to 512 and takes the wide routes) and shards of 32 channels
+# (B = 256 over 8), of 96 (B = 192 over 2) and of 32 at d = 16 (B = 96, 6
+# heads, over 3: B and B / m both off 64)
+PADDED_CASES = [(96, 1, 3), (160, 1, 5), (480, 1, 15), (256, 8, 8),
+                (192, 2, 6), (96, 3, 6)]
+
+
+def _padded_case(cuda, dtype, kind, B, m, heads, seed=0):
+    """Operands of one sublayer at width B (``heads`` heads; F = 2B, a
+    multiple of m) over [2, 5, 32] rows with a masked tail, and of its last
+    shard of m (m > 1)."""
+    args, kw, valid = _dpt_args(cuda, dtype, kind, 5, True, S=32, B=B,
+                                heads=heads, F=2 * B, seed=seed)
+    if m > 1:
+        args = _shard(args, kind, m, m - 1)
+        kw = dict(_partial_kw(kind, m, heads), partial=True)
+    return args, kw, valid
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,m,heads", PADDED_CASES)
+def test_dpt_padded_kernels_match_twins(cuda, B, m, heads, dtype, kind):
+    """B7-B12 at B = 96, 160 and 480 and B7p-B12p on shards of 32 and 96
+    channels (``PADDED_CASES``), which the wrappers pad to the 64-column
+    tile (zero columns, zero heads) with the kernels' LN over the real B:
+    the forward within DPT_TOL of the unpadded twin on the valid rows (bf16
+    also within 1e-3 of the forward at its rounding points, 2e-3 for a
+    partial output above B = 256), two calls the same bits, one launch per
+    call in its mode; every cotangent as test_dpt_bwd_kernel_matches_twin
+    holds it, and a second backward the same bits."""
+    fused, twin = DPT_FNS[kind]
+    fused_bwd, twin_bwd = DPT_BWD_FNS[kind]
+    args, kw, valid = _padded_case(cuda, dtype, kind, B, m, heads, seed=B + m)
+    count = "partial_launches" if m > 1 else "launches"
+    before = getattr(fused, count)
+    with torch.inference_mode():
+        got, again = fused(*args, **kw), fused(*args, **kw)
+        torch.cuda.synchronize()
+        same = twin(*args, **kw)
+    assert getattr(fused, count) == before + 2
+    assert got.shape == same.shape and torch.equal(got, again)
+    got_v, same_v = (_valid_rows(v, valid, B) for v in (got, same))
+    assert torch.isfinite(got_v).all()
+    assert _rel_l2(got_v, same_v) <= DPT_TOL[dtype], _rel_l2(got_v, same_v)
+    if dtype == torch.bfloat16:
+        with torch.inference_mode():
+            rounded = _valid_rows(_fwd_rounded(kind, args, kw), valid, B)
+        bar = WIDE_ORDER_TOL[m > 1 and B > 256]
+        assert _rel_l2(got_v, rounded) <= bar, _rel_l2(got_v, rounded)
+    x = args[0]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(B))
+    g = (g.to(cuda).reshape(x.shape[0], -1, B)
+         * valid.reshape(1, -1, 1)).reshape(x.shape).to(dtype)
+    w = [None if a is None else a.float() for a in args[1:]]
+    before = getattr(fused_bwd, count)
+    grads = fused_bwd(x, g, *w, **kw)
+    again = fused_bwd(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fused_bwd, count) == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    exact = twin_bwd(x.float(), g.float(), *w, **kw)
+    same = twin_bwd(x, g, *w, **kw)
+    if kind == "ffn" and m > 1:   # db_down of a partial backward
+        assert not grads[-1].any()
+        grads, exact, same = grads[:-1], exact[:-1], same[:-1]
+    _check_dpt_cotangents(grads, exact, same, valid, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dpt_padded_model_serves_and_trains_through_the_kernels(cuda, dtype):
+    """A DPT at --B 96 (3 heads of 32; two layers, 32-frame chunks, F =
+    192) under auto mode on the card: no refusal, each forward launches
+    2 B7, 2 B9 and 4 B11 and each step 2 B8, 2 B10 and 4 B12 besides, the
+    served output within the forward bar of the plain path's, and in f32
+    every gradient within the f32 step bar of the plain path's."""
+    from convtasnet_tpu_torch.ops.cuda import shapes
+
+    cfg = ConvTasNetConfig(n_filters=64, bottleneck=96, separator="dpt",
+                           dpt_chunk=32, dpt_layers=2, dpt_ff=192,
+                           compute_dtype=dtype)
+    assert cfg.dpt_num_heads == 3 and shapes.refusals(cfg) == {}
+    mix = torch.randn(2, 10400, generator=torch.Generator().manual_seed(96))
+    mix = mix.to(cuda)
+    sd = ConvTasNet(cfg, use_pallas=False, device=cuda).state_dict()
+    outs, grads = {}, {}
+    for use in (None, False):
+        model = ConvTasNet(cfg, use_pallas=use, device=cuda).eval()
+        model.load_state_dict(sd)
+        before = _dpt_launch_counts()
+        with torch.inference_mode():
+            outs[use] = model(mix)
+        model.train()
+        model(mix).square().mean().backward()
+        torch.cuda.synchronize()
+        counts = _dpt_launch_counts(before)
+        want = ({"inter": 4, "intra": 4, "ffn": 8, "inter_bwd": 2,
+                 "intra_bwd": 2, "ffn_bwd": 4} if use is None
+                else dict.fromkeys(counts, 0))
+        assert counts == want, counts
+        grads[use] = torch.cat([p.grad.reshape(-1).float()
+                                for p in model.parameters()])
+    assert torch.isfinite(outs[None]).all() and torch.isfinite(
+        grads[None]).all()
+    assert _rel_l2(outs[None], outs[False]) <= TOL[getattr(torch, dtype)]
+    if dtype == "float32":
+        err = _rel_l2(grads[None], grads[False])
+        assert err <= 2 * TOL[torch.float32], err
+
+
+@pytest.mark.parametrize("B,n_model,heads", [(192, 2, 0), (256, 8, 0),
+                                             (96, 3, 6)])
+def test_dpt_tp_forward_pads_untiled_shard_widths(cuda, B, n_model, heads):
+    """``dpt_tp_forward`` of a one-layer DPT whose shard width B / m is
+    off 64 (192 over 2, 256 over 8; 96 with 6 heads over 3, B off 64
+    too) under auto, f32: m x (1 B7p, 1 B9p, 2 B11p) and no full-mode
+    launch, within the f32 DPT bar of the unsharded plain model."""
+    from convtasnet_tpu_torch.parallel.dpt_tp import dpt_tp_forward
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+
+    cfg = ConvTasNetConfig(n_filters=64, bottleneck=B, separator="dpt",
+                           dpt_chunk=32, dpt_layers=1, dpt_heads=heads,
+                           dpt_ff=2 * B)
+    model = ConvTasNet(cfg, use_pallas=False, device=cuda).eval()
+    mix = torch.randn(2, 8000, generator=torch.Generator().manual_seed(B))
+    mix = mix.to(cuda)
+    before = _partial_launches()
+    with torch.inference_mode():
+        got = dpt_tp_forward(cfg, model.state_dict(), mix,
+                             shard_devices(n_model, cuda))
+        want = model(mix)
+    torch.cuda.synchronize()
+    counts = _partial_launches(before)
+    per = {"inter": 1, "intra": 1, "ffn": 2}
+    assert counts == {**{k: n_model * v for k, v in per.items()},
+                      **{f"{k}_bwd": 0 for k in per}, "full": 0}, counts
+    assert _rel_l2(got, want) <= DPT_TOL[torch.float32], _rel_l2(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dpt_head_widths_off_the_cores_raise(cuda, dtype):
+    """A head width no core takes (48: B = 96 with 2 heads; 8: B = 64 with
+    8 heads) raises on the card before any launch, naming the rule, in
+    either dtype."""
+    before = _dpt_launch_counts()
+    for B, heads in ((96, 2), (64, 8)):
+        args, kw, _ = _dpt_args(cuda, dtype, "inter", 2, True, B=B,
+                                heads=heads)
+        for kind in ("inter", "intra"):
+            with torch.inference_mode(), pytest.raises(ValueError,
+                                                       match="head width"):
+                DPT_FNS[kind][0](*args, **kw)
+    assert not any(_dpt_launch_counts(before).values())

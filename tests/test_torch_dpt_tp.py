@@ -373,11 +373,13 @@ def test_dpt_tp_train_step_matches_jax():
 
 def test_partial_kernels_refuse_shard_widths_they_do_not_take():
     """With the kernels insisted on, a shard count whose widths they do not
-    take raises before any launch and names the counts that fit (B=64:
-    only one shard's width is a multiple of 64)."""
+    take raises before any launch and names the counts that fit (B=64, 4
+    heads: a shard count must divide the heads; a shard of 32 or 16
+    channels runs padded with zero heads)."""
     mix = torch.zeros(1, T)
-    with pytest.raises(ValueError, match=r"shard counts that fit: \[1\]"):
-        pdtp.dpt_tp_forward(TINY, {}, mix, shard_devices(2, "cpu"),
+    with pytest.raises(ValueError,
+                       match=r"shard counts that fit: \[1, 2, 4\]"):
+        pdtp.dpt_tp_forward(TINY, {}, mix, shard_devices(3, "cpu"),
                             use_pallas=True)
 
 

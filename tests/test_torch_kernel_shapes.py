@@ -6,8 +6,9 @@ Each kernel's rule is one pure function beside its wrapper
 configuration, and a model with its kernels in use raises on a refused
 one before anything launches. Widths off a kernel's tile are not refused:
 the wrappers zero-pad them (B and H of the TCN blocks, Hs and B of TP
-stage 2, the DPT FFN's F) or pad the chunk with masked frames (the intra
-kernels' S). These tests hold each rule against the limits written out
+stage 2, the DPT's B, its head groups' B / m with zero heads, and the
+FFN's F) or pad the chunk with masked frames (the intra kernels' S); the
+DPT's own padding is held in ``tests/test_torch_dpt_padded.py``. These tests hold each rule against the limits written out
 here, the configuration-level check against the rules, the padding of
 each family against the unpadded plain math on the CPU (the kernels run
 the same math at the padded widths), and, at two configurations the
@@ -76,8 +77,8 @@ def test_tp_stage2_rule(Hs, B):
 
 
 def _attention_ok(kind, B, S, Bq, heads):
-    return (B % 64 == 0 and B <= 512 and Bq % heads == 0
-            and Bq // heads in (16, 32, 64, 128) and Bq % 64 == 0)
+    return (B <= 512 and B % Bq == 0 and Bq % heads == 0
+            and Bq // heads in (16, 32, 64, 128))
 
 
 @pytest.mark.parametrize("kind", ["inter", "intra"])
@@ -87,10 +88,11 @@ def _attention_ok(kind, B, S, Bq, heads):
     (512, 256, 8), (448, 64, 2), (576, 576, 18)])
 @pytest.mark.parametrize("S", [100, 128, 272])
 def test_attention_rules(kind, B, Bq, heads, S):
-    """B7-B10 (and partial modes) take B a multiple of 64 and <= 512, a
-    head width of 16, 32, 64 or 128 and the heads' width Bq a multiple of
-    64, at any chunk length S (the intra kernels pad it to a multiple of
-    16); B = 320 to 512 on their wide routes, B = 576 and 96 refused."""
+    """B7-B10 (and partial modes) take B <= 512, a head width of 16, 32,
+    64 or 128 and a head group's width Bq dividing B, at any chunk length
+    S (the intra kernels pad it to a multiple of 16); B = 320 to 512 on
+    their wide routes, B = 96 and a shard of 32 channels zero-padded to
+    the 64-column tile, B = 576 refused."""
     got = dpt_attention.shape_refusal(kind, B, S, Bq, heads)
     assert (got is None) == _attention_ok(kind, B, S, Bq, heads), got
     if kind == "intra":
@@ -111,8 +113,9 @@ def _csrc_int(name, file):
 def _f32_inter_launchers_take(B, Bq, h):
     """What the f32 inter launchers (B7's ``launch`` in csrc/dpt_attention.cu,
     B8's ``launch_bwd`` in csrc/dpt_attention_bwd.cu, with their partial
-    modes) check and ask for, written out: Bq a multiple of 64 and at most
-    B, a head width in core_head_width, B within the LN backward's rows
+    modes) check and ask for, written out, at the widths the wrappers hand
+    them (B, Bq and h as ``dpt_attention.pad_attention`` pads them): Bq a
+    multiple of 64 and at most B, a head width in core_head_width, B within the LN backward's rows
     (kLnBwdWidth) and the widest row (kWideMax), a core block of
     core_warps(h) warps (at most 8, each taking h / warps heads in turn)
     and the dynamic shared memory of ln_qkv_kernel (ln_qkv_smem<float>)
@@ -138,10 +141,11 @@ def _f32_inter_launchers_take(B, Bq, h):
 
 def test_every_taken_f32_inter_shape_launches():
     """Every shape the attention rule takes in f32 at B <= 512 with 10 to
-    16 heads (a head-group shard of m of them too) is one the f32 inter
-    launchers take: no launcher keeps a refusal the rule does not state
-    (the one-warp-a-head limit above 8 heads is gone from both), and the
-    shapes the rule refuses are B off 64 or above 512."""
+    16 heads (a head-group shard of m of them too), padded as the wrappers
+    pad it, is one the f32 inter launchers take: no launcher keeps a
+    refusal the rule does not state (the one-warp-a-head limit above 8
+    heads is gone from both), and the shapes the rule refuses are B above
+    512 or a head width no core takes."""
     for name in ("dpt_attention.cu", "dpt_attention_bwd.cu"):
         assert not re.search(r"\bh > 8 &&", (CSRC / name).read_text()), name
     taken = 0
@@ -155,9 +159,16 @@ def test_every_taken_f32_inter_shape_launches():
                                                   "float32")
                 if got is None:
                     taken += 1
-                    assert _f32_inter_launchers_take(B, Bq, h), (B, Bq, h)
-                elif B % 64 or B > 512:
+                    x = torch.zeros(1, 1, 1, B)
+                    w_qkv, w_out = torch.zeros(B, 3 * Bq), torch.zeros(Bq, B)
+                    xp, _, _, wq, _, hp = dpt_attention.pad_attention(
+                        x, x[0, 0, 0], x[0, 0, 0], w_qkv, w_out, h)
+                    assert _f32_inter_launchers_take(
+                        xp.shape[-1], wq.shape[1] // 3, hp), (B, Bq, h)
+                elif B > 512:
                     assert "at most 512" in got, (B, got)
+                else:
+                    assert "head width" in got, (B, Bq, h, got)
     assert taken >= 8
 
 
@@ -166,15 +177,15 @@ def test_every_taken_f32_inter_shape_launches():
 def test_wide_widths_take_every_head_width_and_shard(B, dtype):
     """At B = 320 to 512 the attention kernels (inter and intra) take every
     head width of their dtype, on the full sublayer and on every head-group
-    shard whose width B / m is a multiple of 64, and the FFN kernels take
-    B; B + 64 past 512 and B - 32 off the tile are refused."""
+    shard (a width B / m off 64 zero-padded), and the FFN kernels take
+    B; B + 64 past 512 is refused and B - 32, off the tile, taken."""
     taken = 0
     for d in dpt_attention.HEAD_DIMS[dtype]:
         heads = B // d
         if B % d:
             continue
         for m in range(1, heads + 1):
-            if heads % m or (B // m) % 64:
+            if heads % m:
                 continue
             for kind in ("inter", "intra"):
                 assert dpt_attention.shape_refusal(
@@ -184,8 +195,9 @@ def test_wide_widths_take_every_head_width_and_shard(B, dtype):
             taken += 1
     assert taken >= 4
     assert dpt_ffn.shape_refusal(B) is None
-    assert dpt_ffn.shape_refusal(B - 32) and dpt_attention.shape_refusal(
-        "inter", B - 32, 128, B - 32, (B - 32) // 32, dtype)
+    assert dpt_ffn.shape_refusal(B - 32) is None
+    assert dpt_attention.shape_refusal(
+        "inter", B - 32, 128, B - 32, (B - 32) // 32, dtype) is None
     if B == 512:
         assert dpt_ffn.shape_refusal(B + 64)
 
@@ -195,13 +207,15 @@ def test_wide_widths_take_every_head_width_and_shard(B, dtype):
                                    torch.bfloat16])
 @pytest.mark.parametrize("B,heads,m", [
     (256, 16, 1), (256, 2, 1), (128, 1, 1), (128, 8, 1), (256, 16, 2),
-    (256, 2, 2), (256, 4, 4), (256, 32, 1), (256, 1, 1)])
+    (256, 2, 2), (256, 4, 4), (256, 32, 1), (256, 1, 1), (96, 2, 1),
+    (64, 8, 1)])
 def test_attention_head_widths_by_dtype(kind, dtype, B, heads, m):
     """The bf16 kernels (one tensor-core core, templated on the head width)
     and the f32 first designs (templated on it too) take d = 16, 32, 64
     and 128: B = 256 with 16 heads (d = 16) or 2 (d = 128), B = 128 with 1
-    head or 8, their head-group shards of m = 2 and 4; d = 8 and 256 no
-    kernel takes. A refusal names the rule and the dtype."""
+    head or 8, their head-group shards of m = 2 and 4; d = 8 (also B = 64
+    with 8 heads), 48 (B = 96 with 2 heads) and 256 no kernel takes,
+    though JAX runs them. A refusal names the rule and the dtype."""
     bf16 = str(dtype).replace("torch.", "") == "bfloat16"
     d = B // heads
     got = dpt_attention.shape_refusal(kind, B, 128, B // m, heads // m,
@@ -248,15 +262,15 @@ def test_f32_dpt_head_widths_refuse_only_long_chunks(heads):
 
 @pytest.mark.parametrize("B", [64, 256, 320, 96, 448, 512, 576])
 def test_ffn_rule(B):
-    """B11, B12 (and partial modes) take B a multiple of 64 and <= 512
-    (320 to 512 on their wide routes), and any F (F / m), padded to a
-    multiple of 128; B = 576 and 96 are refused."""
+    """B11, B12 (and partial modes) take B <= 512 (320 to 512 on their
+    wide routes; B = 96 zero-padded to 128) and any F (F / m), padded to a
+    multiple of 128; B = 576 is refused."""
     got = dpt_ffn.shape_refusal(B)
-    assert (got is None) == (B % 64 == 0 and B <= 512), got
+    assert (got is None) == (B <= 512), got
     assert dpt_ffn.MAX_WIDTH is dpt_attention.MAX_WIDTH == 512
     if got:
-        assert got == (f"the kernel needs B a multiple of 64 and at most "
-                       f"512, got B={B}")
+        assert got == (f"the kernel needs B at most 512 (B is zero-padded "
+                       f"up to a multiple of 64), got B={B}")
 
 
 @pytest.mark.parametrize("overrides,n_model,pairs,want", [
@@ -278,8 +292,8 @@ def test_ffn_rule(B):
     (dict(separator="dpt", bottleneck=512), 2, False, {}),
     (dict(separator="dpt", bottleneck=448, compute_dtype="bfloat16"), 7,
      False, {}),
-    (dict(separator="dpt", bottleneck=384), 4, False, {"intra", "inter"}),
-    (dict(separator="dpt"), 8, False, {"intra", "inter"}),
+    (dict(separator="dpt", bottleneck=384), 4, False, {}),
+    (dict(separator="dpt"), 8, False, {}),
     (dict(separator="dpt", dpt_ff=1280), 4, False, {}),
     (dict(hidden=1152), 2, False, {"stage2"}),
     (dict(separator="dpt", dpt_chunk=272), 1, False, {}),
@@ -305,6 +319,17 @@ def test_ffn_rule(B):
      False, {}),
     (dict(separator="dpt", bottleneck=128, dpt_heads=1,
           compute_dtype="bfloat16"), 1, False, {}),
+    (dict(separator="dpt", bottleneck=96), 1, False, {}),
+    (dict(separator="dpt", bottleneck=192), 2, False, {}),
+    (dict(separator="dpt", bottleneck=96, dpt_heads=6, dpt_ff=192), 3,
+     False, {}),
+    (dict(separator="dpt", bottleneck=480, compute_dtype="bfloat16"), 1,
+     False, {}),
+    (dict(separator="dpt", bottleneck=96, dpt_heads=2), 1, False,
+     {"intra", "inter"}),
+    (dict(separator="dpt", bottleneck=64, dpt_heads=8), 1, False,
+     {"intra", "inter"}),
+    (dict(separator="dpt"), 3, False, {"intra", "inter"}),
 ], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-B576",
         "dpt-B512", "dpt-tp2-B512", "dpt-tp7-B448-bf16", "dpt-tp4-B384",
@@ -313,7 +338,8 @@ def test_ffn_rule(B):
         "dpt-tp2-S320-bf16", "dpt-S100-bf16", "dpt-d16", "dpt-d128",
         "dpt-tp2-d16", "dpt-tp2-d128", "dpt-tp4-d16", "dpt-d16-S272",
         "dpt-d128-S272", "dpt-d16-bf16", "dpt-d128-bf16", "dpt-tp2-d128-bf16",
-        "dpt-B128-d128-bf16"])
+        "dpt-B128-d128-bf16", "dpt-B96", "dpt-tp2-B192", "dpt-tp3-B96-d16",
+        "dpt-B480-bf16", "dpt-B96-d48", "dpt-B64-d8", "dpt-tp3"])
 def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
                                                  want):
     """The kinds a configuration's kernels refuse, each with its wrapper's
@@ -326,16 +352,25 @@ def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
     B, H, P, causal = (cfg.bottleneck, cfg.hidden, cfg.conv_kernel,
                        cfg.causal)
     m = n_model
+
+    def attention(kind):
+        h = cfg.dpt_num_heads
+        if h % m:
+            return (f"the partial kernels need a shard count m that divides "
+                    f"the {h} heads and B={B}, got m={m}; shard counts that "
+                    f"fit: {dpt_attention.fitting_shards(B, h)}")
+        if kind == "intra":
+            return dpt_intra.shape_refusal(B, cfg.dpt_chunk, B // m, h // m,
+                                           cfg.compute_dtype)
+        return dpt_attention.shape_refusal("inter", B, cfg.dpt_chunk, B // m,
+                                           h // m, cfg.compute_dtype)
+
     rules = {
         "block": lambda: tcn_block.shape_refusal(B, H, P, causal),
         "pair": lambda: tcn_block_pair.shape_refusal(B, H, P, causal),
         "stage2": lambda: tcn_block_tp.shape_refusal(H // m, B, P, causal),
-        "intra": lambda: dpt_intra.shape_refusal(
-            B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m,
-            cfg.compute_dtype),
-        "inter": lambda: dpt_attention.shape_refusal(
-            "inter", B, cfg.dpt_chunk, B // m, cfg.dpt_num_heads // m,
-            cfg.compute_dtype),
+        "intra": lambda: attention("intra"),
+        "inter": lambda: attention("inter"),
         "ffn": lambda: dpt_ffn.shape_refusal(B)}
     for kind, reason in got.items():
         assert reason == rules[kind]()

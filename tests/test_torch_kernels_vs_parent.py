@@ -244,9 +244,11 @@ def test_same_bits_counts_every_output():
 def test_width_cases_cover_the_narrow_tiles():
     """The bit proof also runs every DPT kernel at B = 128 and 192 (B / 32
     heads; out's and DN's 128-wide tiles, and their 256-wide tiles with
-    the columns past B zero), full and on a 64-channel shard, in both
-    dtypes, each output held bit for bit but the bf16 B7 forward's."""
-    assert {(B, m) for _, _, B, m in kvp.WIDTH_CASES} == {(128, 2), (192, 3)}
+    the columns past B zero) and at 320 and 512 (the wide routes), full
+    and on a shard of 64 channels (256 at B = 512), in both dtypes, each
+    output held bit for bit but the bf16 B7 forward's."""
+    assert {(B, m) for _, _, B, m in kvp.WIDTH_CASES} == {
+        (128, 2), (192, 3), (320, 5), (512, 2)}
     assert {(k, d) for k, d, _, _ in kvp.WIDTH_CASES} == {
         (k, d) for k in ("inter", "intra", "ffn")
         for d in ("bfloat16", "float32")}
