@@ -196,7 +196,26 @@ Phases, each raising on failure (so the script exits nonzero):
    the f32 kernels: one forward against the plain path within the f32
    forward bar (2e-3) and one train step's gradient within the f32 step
    bar (4e-3), with exact launch counts;
-12. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
+12. the TCN at more than 16 depthwise taps (``phase_tcn_taps``; the JAX
+   package runs any P causal and any odd P otherwise, and the kernels
+   take them past the 16 taps of their first routes): each TCN kernel
+   alone at [8, 3199, 256], H = 512, at P = 17 and 33, d = 1 and 128,
+   bf16 and f32, against its twin (B1 gLN, cLN causal and BN at the
+   forward bars, B2 and B3 at a random cotangent against the exact f32
+   cotangents at phase 4's gate, B4 and B5 at (64, 128) at the pair gate
+   and phase 4's B5 gate, B6 at Hs = 256 at the forward bars and its
+   rounding points), at P = 16 causal (the old limit), and the bf16 cLN
+   B1 at P = 47, d = 128 on one sample of K = 6,000 frames (its C' halo
+   of statistics past shared memory); a block of 17 taps whose extra taps
+   are zero against the block of 16 (causal) or 15 taps on the first
+   routes, B1 (gLN, cLN, BN), B2, B3, B5 and B6 the same bits; the paper
+   config at P = 17 served at B=8 x 4 s kernel path against plain path at
+   the forward bars (gLN pairs off, 32 B1, and on, 16 B4; cLN causal, 32
+   B1; gLN over two shards, 64 B6) and one train step as phase 11 holds
+   it (batch seed 11: gLN pairs on, 16 B4 and 16 B5, off, 32 B1 and 32
+   B2, over two shards, 64 B6; cLN causal, 32 B1 and 32 B3), launches
+   exact;
+13. timings (CUDA events, warm-ups excluded): the bf16 TCN forward at
    B=8 and B=24 x 4 s and the bf16 train step (forward + backward +
    optimizer) at B=8 x 4 s, kernel path with pairs on and off and plain
    path, with peak memory, for the paper config, and the kernel and plain
@@ -1117,7 +1136,8 @@ STEP_SEEDS = {"tcn": (11, 12), "dpt": (11, 12, 13)}
 SEED_CEILING = 2.0
 
 
-def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
+def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN",
+                       conv_kernel: int = 3, seeds=None):
     """Loss and gradients of one train step, kernel path vs plain path,
     from the same init and batch, per batch seed (``STEP_SEEDS``: two
     for the TCN, three for the DPT), for the paper config (``separator``
@@ -1146,8 +1166,9 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
     cuda:0 (``tp_loss_and_grads``: 64 B6 launches, no other TCN kernel),
     and the DPT's its tensor-parallel step over two shards (the partial
     kernels, 2 x (4, 4, 8) forward and backward launches, no full-mode
-    one), held the same way. Every reading is printed before the phase
-    fails."""
+    one), held the same way. ``conv_kernel`` sets the model's depthwise
+    taps P (``phase_tcn_taps``), ``seeds`` the batch seeds. Every reading
+    is printed before the phase fails."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import init_params
     from convtasnet_tpu_torch.parallel.mesh import shard_devices
@@ -1179,8 +1200,10 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
             "kernel, TP m=2": (False, tcn_want(b6=64), 2)}
     failures = []
     label = separator if norm == "gLN" else f"{separator} {norm} causal"
+    if conv_kernel != 3:
+        label += f" P={conv_kernel}"
     dists = {kpath: [] for kpath in kernel_paths}   # the DPT's, bf16
-    for seed in STEP_SEEDS[separator]:
+    for seed in seeds or STEP_SEEDS[separator]:
         batch = train_batch(torch, 4, seed)
         # the mixture with most samples moved by one or two f32 rounding
         # steps: how far the model itself carries such a difference
@@ -1190,7 +1213,8 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
             .manual_seed(seed), device="cuda"), *batch[1:])
         for dtype in ("float32", "bfloat16"):
             cfg = ConvTasNetConfig(separator=separator, compute_dtype=dtype,
-                                   norm_type=norm, causal=norm == "cLN")
+                                   norm_type=norm, causal=norm == "cLN",
+                                   conv_kernel=conv_kernel)
             sd = init_params(cfg, torch.Generator().manual_seed(0))
             res = {}
             runs = [(path, True, pairs, 0, batch, m) for path, (pairs, _, m)
@@ -1321,6 +1345,278 @@ def phase_step_compare(torch, separator: str = "tcn", norm: str = "gLN"):
                             f"{k_f32:.3e} from the f32 one (median), plain "
                             f"path {p_f32:.3e}")
     check(not failures, "train step, kernel vs plain: " + "; ".join(failures))
+
+
+# phase_tcn_taps: (P, dilation) of each kernel alone past the 16 taps of
+# the TCN kernels' first routes; at P = 33, d = 128 the halo (4,096 rows)
+# is longer than K = 3199, so most rows skip most taps
+TAPS_CASES = [(17, 1), (17, 128), (33, 1), (33, 128)]
+SLOPES = ("da1", "da2")
+
+
+def taps_bwd_errors(torch, bwd, x, w, kw, seed: int):
+    """B2 or B3 at a random cotangent against the exact f32 cotangents
+    (the twin in f32 on the same values): {name: rel_l2}."""
+    g = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda").to(x.dtype)
+    got = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+    exact = bwd.fused_tcn_block_bwd_reference(
+        x.float(), g.float(), *[t.float() for t in w], **kw)
+    return {n: rel_l2(q, r) for n, q, r in zip(GRAD_NAMES, got, exact)}
+
+
+def taps_pair_bwd_errors(torch, pair_bwd, x, pa, pb, kw, seed: int):
+    """B5 at a random cotangent against the exact f32 cotangents: dx and
+    the 14 weight and affine gradients each, the four slopes as one
+    vector ("slopes")."""
+    g = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda").to(x.dtype)
+    got = pair_grads(pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw))
+    exact = pair_grads(pair_bwd.fused_tcn_block_pair_bwd_reference(
+        x.float(), g.float(), [t.float() for t in pa],
+        [t.float() for t in pb], **kw))
+    q, r = dict(zip(PAIR_GRAD_NAMES, got)), dict(zip(PAIR_GRAD_NAMES, exact))
+    slopes = [n for n in PAIR_GRAD_NAMES if n.startswith(SLOPES)]
+    errs = {n: rel_l2(q[n], r[n]) for n in PAIR_GRAD_NAMES if n not in slopes}
+    errs["slopes"] = rel_l2(torch.stack([q[n].reshape(()) for n in slopes]),
+                            torch.stack([r[n].reshape(()) for n in slopes]))
+    return errs
+
+
+def taps_kernels_vs_twins(torch, k, failures: list) -> None:
+    """Each TCN kernel alone at [8, 3199, 256], H = 512, P = 17 and 33 at
+    d = 1 and 128 (``TAPS_CASES``), bf16 and f32: B1 in gLN (non-causal),
+    cLN (causal) and BN (non-causal, running statistics) against its twin
+    at the forward bars; B2 (gLN) and B3 (cLN causal) at a random
+    cotangent against the exact f32 cotangents, ``phase_bwd_vs_twin``'s
+    gate (all ten within 4e-3 in f32, the eight besides the PReLU slopes
+    within 8e-2 in bf16); B4 and B5 at (d1, d2) = (64, 128), B4 at the
+    pair gate and B5 at ``phase_pair_bwd_vs_twin``'s (the 15 besides the
+    slopes within 8e-2 in bf16, all 19 within 4e-3 in f32, the slopes as
+    one vector); B6 at Hs = 256 at the forward bars and at its rounding
+    points (``TP_ORDER_TOL``). Then P = 16 causal (the old limit) through
+    B1 and B2 (gLN) and B1 and B3 (cLN) at d = 1 and 128, and the bf16
+    cLN B1 at P = 47, d = 128 on one sample of K = 6,000, whose C' halo of
+    statistics (6,000 rows) does not fit beside its resident operands in
+    shared memory."""
+    tcn, bwd = k["tcn"], k["bwd"]
+    pair, pair_bwd, tp = k["pair"], k["pair_bwd"], k["tp"]
+    bn = tuple(torch.rand(512, generator=torch.Generator(device="cuda")
+                          .manual_seed(5), device="cuda") + 0.5
+               for _ in range(4))
+
+    def fwd(name, label, got, want, bar):
+        err = rel_l2(got, want)
+        print(f"taps {label} {name}: rel_l2 {err:.3e} (bar {bar:.0e})",
+              flush=True)
+        if not (torch.isfinite(got).all().item() and err <= bar):
+            failures.append(f"{label} {name}: {err:.3e}")
+
+    def bwd_gate(name, label, errs):
+        held = {n: v for n, v in errs.items()
+                if name == "float32" or n not in SLOPES + ("slopes",)}
+        top = max(held, key=held.get)
+        print(f"taps {label} {name}: random g vs exact, held {held[top]:.3e} "
+              f"({top}; bar {BWD_TOL[name]:.0e}), dx {errs['dx']:.3e}, "
+              f"slopes " + " ".join(f"{n} {errs[n]:.2e}" for n in errs
+                                    if n in SLOPES + ("slopes",)), flush=True)
+        if held[top] > BWD_TOL[name]:
+            failures.append(f"{label} {name}: {top} {held[top]:.3e}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        cases = [(P, d, norms) for P, d in TAPS_CASES
+                 for norms in (("gLN", False), ("cLN", True), ("BN", False))]
+        cases += [(16, d, norms) for d in (1, 128)
+                  for norms in (("gLN", True), ("cLN", True))]
+        for P, d, (norm, causal) in cases:
+            x, *w = block_inputs(torch, dtype, 300 + P + d, P=P, a2=-0.1)
+            kw = dict(dilation=d, causal=causal, norm_type=norm)
+            bkw = dict(kw, bn_stats=bn) if norm == "BN" else kw
+            label = (f"[8,3199,256] H=512 P={P} d={d} {norm} causal="
+                     f"{int(causal)}")
+            with torch.inference_mode():
+                got = tcn.fused_tcn_block(x, *w, **bkw)
+                want = tcn.fused_tcn_block_reference(x, *w, **bkw)
+            fwd(name, f"B1 {label}", got, want, TOL[name])
+            if norm != "BN":
+                bwd_gate(name, f"B{2 if norm == 'gLN' else 3} {label}",
+                         taps_bwd_errors(torch, bwd, x, w, kw, 400 + P + d))
+        for P, _ in TAPS_CASES[::2]:
+            x, *pa = block_inputs(torch, dtype, 500 + P, P=P)
+            _, *pb = block_inputs(torch, dtype, 600 + P, P=P, a2=-0.1)
+            kw = dict(d1=64, d2=128, causal=False)
+            label = f"[8,3199,256] H=512 P={P} d=(64,128) gLN"
+            with torch.inference_mode():
+                got = pair.fused_tcn_block_pair(x, pa, pb, norm_type="gLN",
+                                                **kw)
+                want = pair.fused_tcn_block_pair_reference(
+                    x, pa, pb, norm_type="gLN", **kw)
+            fwd(name, f"B4 {label}", got, want, PAIR_TOL[name])
+            bwd_gate(name, f"B5 {label}",
+                     taps_pair_bwd_errors(torch, pair_bwd, x, pa, pb, kw,
+                                          700 + P))
+        for P, d in TAPS_CASES:
+            args = tp_stage2_inputs(torch, dtype, 256, 800 + P + d, P=P)
+            kw = dict(dilation=d, causal=False)
+            label = f"B6 [8,3199,256] P={P} d={d}"
+            with torch.inference_mode():
+                z, sums = tp.fused_tp_stage2(*args, **kw)
+                z_want, s_want = tp.tp_stage2_reference(*args, **kw)
+                z_ord, s_ord = tp.tp_stage2_reference(*args, **kw,
+                                                      rounding="pallas")
+            fwd(name, f"{label} z", z, z_want, TOL[name])
+            fwd(name, f"{label} sums", sums, s_want, TOL[name])
+            fwd(name, f"{label} z at its rounding points", z, z_ord,
+                TP_ORDER_TOL[name])
+    x, *w = block_inputs(torch, torch.bfloat16, 47, M=1, K=6000, P=47)
+    kw = dict(dilation=128, causal=True, norm_type="cLN")
+    with torch.inference_mode():
+        got = tcn.fused_tcn_block(x, *w, **kw)
+        want = tcn.fused_tcn_block_reference(x, *w, **kw)
+    fwd("bfloat16", "B1 [1,6000,256] H=512 P=47 d=128 cLN causal=1 (C' "
+        "halo statistics from device memory)", got, want, TOL["bfloat16"])
+
+
+def taps_zero_taps_same_bits(torch, k, failures: list) -> None:
+    """The routes past 16 taps against the first routes, bit for bit: a
+    block of P = 17 taps whose extra taps are zero (tap 0 causal, taps 0
+    and 16 otherwise, so that every other tap reads the rows it reads at
+    P = 16 or 15) sums the same products in the same order as the block
+    of 16 (causal) or 15 taps on the first routes, so B1 (gLN, cLN, BN),
+    B2, B3, B5 and B6 give the same bits, d_dw's extra rows aside; at the
+    paper shape, d = 4, bf16 and f32."""
+    tcn, bwd, pair_bwd, tp = k["tcn"], k["bwd"], k["pair_bwd"], k["tp"]
+
+    def widen(dw, causal):
+        zero = torch.zeros_like(dw[:1])
+        return torch.cat([zero, dw] + ([] if causal else [zero]))
+
+    def same(label, a, b):
+        ok = all(torch.equal(u, v) for u, v in zip(a, b))
+        print(f"taps P=17 with zero taps vs the first route, {label}: same "
+              f"bits {ok}", flush=True)
+        if not ok:
+            failures.append(f"P=17 with zero taps differs from the first "
+                            f"route: {label}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for norm, causal in (("gLN", False), ("cLN", True), ("BN", False),
+                             ("gLN", True)):
+            P = 16 if causal else 15
+            x, *w = block_inputs(torch, dtype, 900 + P, P=P, a2=-0.1)
+            w17 = list(w)
+            w17[1] = widen(w[1], causal)
+            kw = dict(dilation=4, causal=causal, norm_type=norm)
+            if norm == "BN":
+                kw["bn_stats"] = tuple(torch.ones(512, device="cuda")
+                                       for _ in range(4))
+            with torch.inference_mode():
+                a = tcn.fused_tcn_block(x, *w, **kw)
+                b = tcn.fused_tcn_block(x, *w17, **kw)
+            label = f"{name} {norm} causal={int(causal)}"
+            same(f"B1 {label}", [a], [b])
+            if norm == "BN":
+                continue
+            g = torch.randn(x.shape, generator=torch.Generator(
+                device="cuda").manual_seed(P), device="cuda").to(dtype)
+            ga = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+            gb = list(bwd.fused_tcn_block_bwd(x, g, *w17, **kw))
+            gb[2] = gb[2][1:1 + P]   # d_dw of the taps both blocks have
+            same(f"B{2 if norm == 'gLN' else 3} {label}", ga, gb)
+        x, *pa = block_inputs(torch, dtype, 915, P=15)
+        _, *pb = block_inputs(torch, dtype, 916, P=15, a2=-0.1)
+        pa17, pb17 = list(pa), list(pb)
+        pa17[1], pb17[1] = widen(pa[1], False), widen(pb[1], False)
+        g = torch.randn(x.shape, generator=torch.Generator(
+            device="cuda").manual_seed(15), device="cuda").to(dtype)
+        kw = dict(d1=4, d2=8, causal=False)
+        a = pair_grads(pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw))
+        b = list(pair_grads(pair_bwd.fused_tcn_block_pair_bwd(
+            x, g, pa17, pb17, **kw)))
+        for i in (2, 11):   # d_dw of blocks a and b
+            b[i] = b[i][1:16]
+        same(f"B5 {name} gLN", a, b)
+        args = list(tp_stage2_inputs(torch, dtype, 256, 15, P=15))
+        args17 = list(args)
+        args17[2] = widen(args[2], False)
+        with torch.inference_mode():
+            a = tp.fused_tp_stage2(*args, dilation=4, causal=False)
+            b = tp.fused_tp_stage2(*args17, dilation=4, causal=False)
+        same(f"B6 {name} Hs=256", a, b)
+
+
+def taps_serve(torch, k, failures: list) -> None:
+    """The paper config at P = 17 served at B = 8 x 4 s in bf16 and f32
+    through the kernels against the plain path at the forward bars, with
+    exact launch counts: gLN with pairs off (32 B1) and on (16 B4), cLN
+    causal (32 B1, pairs off), and gLN over two shards (``tp_forward``:
+    32 x 2 B6)."""
+    from convtasnet_tpu_torch import ConvTasNetConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
+
+    mix = torch.randn(8, SECONDS * SAMPLE_RATE, generator=torch.Generator(
+        device="cuda").manual_seed(17), device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        for norm in ("gLN", "cLN"):
+            cfg = ConvTasNetConfig(compute_dtype=dtype, conv_kernel=17,
+                                   norm_type=norm, causal=norm == "cLN")
+            n = cfg.num_blocks * cfg.num_repeats
+            kernel = ConvTasNet(cfg, device="cuda").eval()
+            plain = ConvTasNet(cfg, use_pallas=False, device="cuda").eval()
+            plain.load_state_dict(kernel.state_dict())
+            with torch.inference_mode():
+                want = plain(mix)
+                paths = [("pairs off", False, tcn_want(b1=n))]
+                if norm == "gLN":
+                    paths += [("pairs on", True, tcn_want(b4=n // 2)),
+                              ("two shards", False, tcn_want(b6=2 * n))]
+                for path, pairs, launches in paths:
+                    tcn_reset(k)
+                    with pair_switch(pairs):
+                        got = (tp_forward(cfg, kernel.state_dict(), mix,
+                                          shard_devices(2, "cuda"))
+                               if path == "two shards" else kernel(mix))
+                    torch.cuda.synchronize()
+                    counts, err = tcn_counts(k), rel_l2(got, want)
+                    print(f"taps serve paper config P=17 {norm} causal="
+                          f"{int(cfg.causal)} {dtype} B=8x{SECONDS}s {path}: "
+                          f"vs plain rel_l2 {err:.3e} (bar {TOL[dtype]:.0e});"
+                          f" launches {counts}", flush=True)
+                    if counts != launches:
+                        failures.append(f"serve P=17 {norm} {dtype} {path} "
+                                        f"launched {counts}, expected "
+                                        f"{launches}")
+                    if not (torch.isfinite(got).all().item()
+                            and err <= TOL[dtype]):
+                        failures.append(f"serve P=17 {norm} {dtype} {path}: "
+                                        f"{err:.3e}")
+            del kernel, plain
+
+
+def phase_tcn_taps(torch, k):
+    """TCN blocks with more than 16 depthwise taps, which the JAX package
+    runs (any P causal, any odd P otherwise) and the kernels take past
+    the 16 taps of their first routes: each kernel alone against its twin
+    (``taps_kernels_vs_twins``), the routes past 16 taps against the
+    first routes bit for bit (``taps_zero_taps_same_bits``), the paper
+    config at P = 17 served (``taps_serve``) and one train step, kernel
+    paths against the plain path at ``phase_step_compare``'s gates (batch
+    seed 11): gLN with pairs on (16 B4, 16 B5) and off (32 B1, 32 B2) and
+    over two shards (64 B6), and cLN causal (32 B1, 32 B3), launches
+    exact. Every reading is printed before the phase fails."""
+    t0 = time.perf_counter()
+    failures = []
+    taps_kernels_vs_twins(torch, k, failures)
+    taps_zero_taps_same_bits(torch, k, failures)
+    taps_serve(torch, k, failures)
+    check(not failures, "TCN at more than 16 taps: " + "; ".join(failures))
+    phase_step_compare(torch, "tcn", conv_kernel=17, seeds=(11,))
+    phase_step_compare(torch, "tcn", "cLN", conv_kernel=17, seeds=(11,))
+    print(f"tcn taps phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_main_path(torch, k, work: str):
@@ -4257,6 +4553,7 @@ def main() -> int:
     phase_step_compare(torch, "tcn")
     phase_step_compare(torch, "tcn", "cLN")
     phase_step_compare(torch, "dpt")
+    phase_tcn_taps(torch, k)
     phase_dpt_chunk256_step(torch, dpt)
     phase_dpt_head_widths(torch, dpt)
     rows = phase_timings(torch, k, card)

@@ -51,6 +51,18 @@
 // device memory. bf16 runs it too at the widths the Hopper stages do not
 // take (wg_widths_ok).
 //
+// Any number of taps P (the JAX package's: any P causal, odd P
+// otherwise). Where a per-tap state is sized for kMaxTaps = 16 taps, a
+// route beside it takes P > 16 and the P <= 16 code is compiled as it was:
+// the first design's cLN launch B (dwconv_cln_taps_kernel: its per-(tap,
+// row) statistics filled chunk by chunk of 16 taps, each row's sum carried
+// in shared memory), and C' under cLN where the halo's min(128 + (P - 1)
+// d, K) rows of statistics do not fit in shared memory (kHaloDev: each tap
+// takes its row's statistics by row_stats from A's partials in device
+// memory). gLN and BN read one statistic per sample or channel and take any
+// P as they are; so do the depthwise walks. Every sum runs over the taps
+// in the order q = 0..P-1, as at P <= 16.
+//
 // Statistics are reduced deterministically: every tile writes its own
 // partial and the next launch sums them in a fixed order (in double), so no
 // atomics are used and a rerun gives the same bits. Each launch masks the

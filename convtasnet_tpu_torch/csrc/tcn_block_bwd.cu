@@ -56,6 +56,15 @@
 // passes of their own); bf16 runs them (on WMMA) at the widths the Hopper
 // stages do not take (wg_widths_ok).
 //
+// Any number of taps P: E2 (e2_kernel) and E2' at P != 3 (e2_wg_kernel)
+// hold d_dw (and E2' the taps' weights and rows) in per-thread arrays of
+// kMaxTaps = 16 taps; at P > 16 they run beside that code
+// (kTapChunks): one walk over the rows forms dhn1, dg1, db1, da2 and the
+// norm1 sums over all P taps in order, and d_dw follows in chunks of 16
+// taps, each a walk over the same rows in the same order, so every sum is
+// formed in the order it is at P <= 16. The launches per call do not
+// change.
+//
 // gLN and cLN differ only in what a statistic spans. gLN: the sums of F1-F4
 // run over a sample's K*H elements (n = K*H), one (mean, rs, t1, t2, u1,
 // u2) per sample. cLN: they run over one row's H channels (n = H), one set

@@ -252,8 +252,12 @@ __global__ void __launch_bounds__(kDwThreads) e1_kernel(BwdParams p) {
 }
 
 // E2: the transposed dilated conv dhn1, d_dw, dg1/db1 and the norm1
-// backward sums.
-template <typename T, int kNorm>
+// backward sums. kTapChunks (P > kMaxTaps; ddw holds kMaxTaps taps): the
+// walk over the rows forms dhn1, dg1/db1 and the norm1 sums alone, and
+// d_dw follows in chunks of kMaxTaps taps, each a walk over the same rows
+// in the same order, so every sum is formed in the order it is at P <=
+// kMaxTaps.
+template <typename T, int kNorm, bool kTapChunks = false>
 __global__ void __launch_bounds__(kDwThreads) e2_kernel(BwdParams p) {
   __shared__ float s_row[2][kDwThreads / 32][kDwRows];
   const int m = blockIdx.z;
@@ -275,7 +279,8 @@ __global__ void __launch_bounds__(kDwThreads) e2_kernel(BwdParams p) {
   const float sc = st_m[kRs1] * gam;
   const float sh = bet - st_m[kMean1] * sc;
   float ddw[kMaxTaps];
-  for (int q = 0; q < P; ++q) ddw[q] = 0.f;
+  if constexpr (!kTapChunks)
+    for (int q = 0; q < P; ++q) ddw[q] = 0.f;
   float u1 = 0.f, u2 = 0.f, dg = 0.f, db = 0.f;
   for (int i = 0; i < kDwRows; ++i) {
     const int j = r0 + i;
@@ -289,6 +294,7 @@ __global__ void __launch_bounds__(kDwThreads) e2_kernel(BwdParams p) {
         if (kk >= 0 && kk < K)
           acc = fmaf(to_f<T>(dw[q * H + ch]),
                      to_f<T>(dc[static_cast<size_t>(kk) * H + ch]), acc);
+        if constexpr (kTapChunks) continue;
         const int kh = j + q * d - left;   // input row tap q of j read
         if (kh >= 0 && kh < K) {
           const float h1 =
@@ -326,9 +332,36 @@ __global__ void __launch_bounds__(kDwThreads) e2_kernel(BwdParams p) {
   if (active) {
     float* dst = p.pch_e2 +
         (static_cast<size_t>(m) * gridDim.x + blockIdx.x) * (P + 2) * H + ch;
-    for (int q = 0; q < P; ++q) dst[static_cast<size_t>(q) * H] = ddw[q];
+    if constexpr (!kTapChunks)
+      for (int q = 0; q < P; ++q) dst[static_cast<size_t>(q) * H] = ddw[q];
     dst[static_cast<size_t>(P) * H] = dg;
     dst[static_cast<size_t>(P + 1) * H] = db;
+    // d_dw by chunks of taps: tap q's sum over the rows in the order above
+    if constexpr (kTapChunks) for (int q0 = 0; q0 < P; q0 += kMaxTaps) {
+      const int nq = P - q0 < kMaxTaps ? P - q0 : kMaxTaps;
+      for (int q = 0; q < nq; ++q) ddw[q] = 0.f;
+      for (int i = 0; i < kDwRows; ++i) {
+        const int j = r0 + i;
+        if (j >= K) break;
+        const float dcj = to_f<T>(dc[static_cast<size_t>(j) * H + ch]);
+        for (int q = 0; q < nq; ++q) {
+          const int kh = j + (q0 + q) * d - left;   // input row tap q read
+          if (kh < 0 || kh >= K) continue;
+          const float h1 =
+              prelu(to_f<T>(hp[static_cast<size_t>(kh) * H + ch]), a1);
+          float hn;
+          if constexpr (kNorm == kNormCLN) {
+            const float* sk = stat_row<kNorm>(p, m, kh);
+            hn = (h1 - sk[kMean1]) * sk[kRs1] * gam + bet;
+          } else {
+            hn = h1 * sc + sh;
+          }
+          ddw[q] = fmaf(dcj, hn, ddw[q]);
+        }
+      }
+      for (int q = 0; q < nq; ++q)
+        dst[static_cast<size_t>(q0 + q) * H] = ddw[q];
+    }
   }
   if constexpr (kNorm == kNormCLN) {
     __syncthreads();
@@ -527,7 +560,7 @@ int recompute_block(const BwdParams& p, cudaStream_t stream) {
   in_proj_kernel<T, kNorm, true><<<gemm_h, kGemmThreads, 0, stream>>>(fp);
   CTN_CHECK();
   if constexpr (kCln) {
-    dwconv_kernel<T, kNorm, true><<<rows, kDwThreads, 0, stream>>>(fp, n_r1);
+    launch_dwconv<T, kNorm, true>(fp, rows, n_r1, stream);
     CTN_CHECK();
     // cLN1 as launch B reduces each row, cLN2 as launch C does
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(
@@ -578,7 +611,10 @@ int block_bwd_middle(const BwdParams& p, int n_chunks, cudaStream_t stream) {
   CTN_CHECK();
   e1_kernel<T, kNorm><<<rows, kDwThreads, 0, stream>>>(p);
   CTN_CHECK();
-  e2_kernel<T, kNorm><<<rows, kDwThreads, 0, stream>>>(p);
+  if (p.P > kMaxTaps)
+    e2_kernel<T, kNorm, true><<<rows, kDwThreads, 0, stream>>>(p);
+  else
+    e2_kernel<T, kNorm><<<rows, kDwThreads, 0, stream>>>(p);
   CTN_CHECK();
   if constexpr (kCln)
     finalize_rows_kernel<<<fin_blocks, 256, 0, stream>>>(

@@ -328,7 +328,13 @@ int launch_g1_wg(const BwdParams& p, int cln, cudaStream_t stream) {
 // added in order through s_red into pch_e2 and pch_e1 at tile m *
 // gridDim.x + blockIdx.x) and u1 = sum g1 dhn1, u2 = sum g1 dhn1 hhat1
 // (gLN per tile; cLN per row and lane segment). Grid (ceil(K / 128), M),
-// block 256.
+// block 256. kTapChunks (P > kMaxTaps, past the per-thread arrays of
+// kTaps taps): the walk over the rows reads each tap's weights and dc rows
+// as it reaches the tap and forms everything but d_dw; d_dw follows in
+// chunks of kTaps taps, each a walk over the same rows in the same order
+// (dc(j) formed again), so every sum is formed in the order it is at P <=
+// kTaps.
+template <bool kTapChunks = false>
 __global__ void __launch_bounds__(kWgCta) e2_wg_kernel(BwdParams p, int cln) {
   __shared__ float s_red[kWgCta * 8];   // [n_rg][H]
   constexpr int kTaps = kMaxTaps;
@@ -350,8 +356,9 @@ __global__ void __launch_bounds__(kWgCta) e2_wg_kernel(BwdParams p, int cln) {
   load8(p.b1 + c0, bet);
   load8(p.g2 + c0, gam2);
   float w[kTaps][8];
-  for (int q = 0; q < P; ++q)
-    unpack8(ldg16(dwp + static_cast<size_t>(q) * H + c0), w[q]);
+  if constexpr (!kTapChunks)
+    for (int q = 0; q < P; ++q)
+      unpack8(ldg16(dwp + static_cast<size_t>(q) * H + c0), w[q]);
   const float* st_m = stat_at(p, false, m, 0);   // gLN's
   float sc[8], sh[8];
 #pragma unroll
@@ -360,9 +367,10 @@ __global__ void __launch_bounds__(kWgCta) e2_wg_kernel(BwdParams p, int cln) {
     sh[j] = bet[j] - st_m[kMean1] * sc[j];
   }
   float ddw[kTaps][8], dg[8], db[8], da2[8];
-  for (int q = 0; q < P; ++q)
+  if constexpr (!kTapChunks)
+    for (int q = 0; q < P; ++q)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) ddw[q][j] = 0.f;
+      for (int j = 0; j < 8; ++j) ddw[q][j] = 0.f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) dg[j] = db[j] = da2[j] = 0.f;
   float u1 = 0.f, u2 = 0.f;
@@ -392,43 +400,58 @@ __global__ void __launch_bounds__(kWgCta) e2_wg_kernel(BwdParams p, int cln) {
       const size_t idx = static_cast<size_t>(j) * H + c0;
       const uint4 c_j = ldg16(cc + idx), e_j = ldg16(e + idx);
       const uint4 hp_j = ldg16(hp + idx);
-      uint4 c_o[kTaps], e_o[kTaps], hp_i[kTaps];
-      for (int q = 0; q < P; ++q) {
-        const int kk = j - q * d + left;   // output row that tap q of j fed
-        const int kh = j + q * d - left;   // input row tap q of j read
-        const bool ok_o = kk >= 0 && kk < K, ok_i = kh >= 0 && kh < K;
-        const size_t io = static_cast<size_t>(ok_o ? kk : 0) * H + c0;
-        const size_t ii = static_cast<size_t>(ok_i ? kh : 0) * H + c0;
-        c_o[q] = ok_o ? ldg16(cc + io) : make_uint4(0u, 0u, 0u, 0u);
-        e_o[q] = ok_o ? ldg16(e + io) : make_uint4(0u, 0u, 0u, 0u);
-        hp_i[q] = ok_i ? ldg16(hp + ii) : make_uint4(0u, 0u, 0u, 0u);
-      }
       float dcj[8], acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      dc8(j, c_j, e_j, dcj, da2);
-      for (int q = 0; q < P; ++q) {
-        const int kk = j - q * d + left;
-        if (kk >= 0 && kk < K) {
-          float dco[8];
-          dc8(kk, c_o[q], e_o[q], dco, nullptr);
+      if constexpr (kTapChunks) {
+        // tap q's weights and dc row as the walk reaches it; no d_dw here
+        dc8(j, c_j, e_j, dcj, da2);
+        for (int q = 0; q < P; ++q) {
+          const int kk = j - q * d + left;   // output row that tap q of j fed
+          if (kk < 0 || kk >= K) continue;
+          const size_t io = static_cast<size_t>(kk) * H + c0;
+          float wq[8], dco[8];
+          unpack8(ldg16(dwp + static_cast<size_t>(q) * H + c0), wq);
+          dc8(kk, ldg16(cc + io), ldg16(e + io), dco, nullptr);
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) acc[jj] = fmaf(w[q][jj], dco[jj], acc[jj]);
+          for (int jj = 0; jj < 8; ++jj) acc[jj] = fmaf(wq[jj], dco[jj], acc[jj]);
         }
-        const int kh = j + q * d - left;
-        if (kh >= 0 && kh < K) {
-          float hv[8];
-          unpack8(hp_i[q], hv);
-          float mu = 0.f, rs = 1.f;
-          if (cln) {
-            const float* sk = stat_at(p, true, m, kh);
-            mu = sk[kMean1];
-            rs = sk[kRs1];
-          }
+      } else {
+        uint4 c_o[kTaps], e_o[kTaps], hp_i[kTaps];
+        for (int q = 0; q < P; ++q) {
+          const int kk = j - q * d + left;   // output row that tap q of j fed
+          const int kh = j + q * d - left;   // input row tap q of j read
+          const bool ok_o = kk >= 0 && kk < K, ok_i = kh >= 0 && kh < K;
+          const size_t io = static_cast<size_t>(ok_o ? kk : 0) * H + c0;
+          const size_t ii = static_cast<size_t>(ok_i ? kh : 0) * H + c0;
+          c_o[q] = ok_o ? ldg16(cc + io) : make_uint4(0u, 0u, 0u, 0u);
+          e_o[q] = ok_o ? ldg16(e + io) : make_uint4(0u, 0u, 0u, 0u);
+          hp_i[q] = ok_i ? ldg16(hp + ii) : make_uint4(0u, 0u, 0u, 0u);
+        }
+        dc8(j, c_j, e_j, dcj, da2);
+        for (int q = 0; q < P; ++q) {
+          const int kk = j - q * d + left;
+          if (kk >= 0 && kk < K) {
+            float dco[8];
+            dc8(kk, c_o[q], e_o[q], dco, nullptr);
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-            const float h1 = prelu(hv[jj], a1);
-            const float hn = cln ? (h1 - mu) * rs * gam[jj] + bet[jj]
-                                 : h1 * sc[jj] + sh[jj];
-            ddw[q][jj] = fmaf(dcj[jj], hn, ddw[q][jj]);
+            for (int jj = 0; jj < 8; ++jj) acc[jj] = fmaf(w[q][jj], dco[jj], acc[jj]);
+          }
+          const int kh = j + q * d - left;
+          if (kh >= 0 && kh < K) {
+            float hv[8];
+            unpack8(hp_i[q], hv);
+            float mu = 0.f, rs = 1.f;
+            if (cln) {
+              const float* sk = stat_at(p, true, m, kh);
+              mu = sk[kMean1];
+              rs = sk[kRs1];
+            }
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              const float h1 = prelu(hv[jj], a1);
+              const float hn = cln ? (h1 - mu) * rs * gam[jj] + bet[jj]
+                                   : h1 * sc[jj] + sh[jj];
+              ddw[q][jj] = fmaf(dcj[jj], hn, ddw[q][jj]);
+            }
           }
         }
       }
@@ -464,12 +487,16 @@ __global__ void __launch_bounds__(kWgCta) e2_wg_kernel(BwdParams p, int cln) {
   // per-channel sums of the row groups, in order: d_dw[0..P-1], dg1, db1
   // to pch_e2, da2 to pch_e1
   const size_t tile = static_cast<size_t>(m) * gridDim.x + blockIdx.x;
-  for (int q = 0; q < P + 3; ++q) {
+  for (int q = kTapChunks ? P : 0; q < P + 3; ++q) {
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
-      s_red[rg * H + c0 + jj] = q < P ? ddw[q][jj]
-                                : q == P ? dg[jj]
-                                : q == P + 1 ? db[jj] : da2[jj];
+      if constexpr (kTapChunks)
+        s_red[rg * H + c0 + jj] = q == P ? dg[jj]
+                                  : q == P + 1 ? db[jj] : da2[jj];
+      else
+        s_red[rg * H + c0 + jj] = q < P ? ddw[q][jj]
+                                  : q == P ? dg[jj]
+                                  : q == P + 1 ? db[jj] : da2[jj];
     __syncthreads();
     for (int ch = tid; ch < H; ch += kWgCta) {
       float v = 0.f;
@@ -480,6 +507,55 @@ __global__ void __launch_bounds__(kWgCta) e2_wg_kernel(BwdParams p, int cln) {
         p.pch_e1[tile * H + ch] = v;
     }
     __syncthreads();
+  }
+  // kTapChunks: then d_dw chunk by chunk, each tap's row-group sums as
+  // above (dg1, db1 and da2 out of the registers first)
+  if constexpr (kTapChunks) for (int q0 = 0; q0 < P; q0 += kTaps) {
+#pragma unroll
+    for (int u = 0; u < kTaps; ++u)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) ddw[u][jj] = 0.f;
+#pragma unroll 1
+    for (int i = 0; i < n_rows; ++i) {
+      const int j = r0 + rg + n_rg * i;
+      if (j >= K) continue;
+      const size_t idx = static_cast<size_t>(j) * H + c0;
+      float dcj[8];
+      dc8(j, ldg16(cc + idx), ldg16(e + idx), dcj, nullptr);
+#pragma unroll
+      for (int u = 0; u < kTaps; ++u) {
+        const int kh = j + (q0 + u) * d - left;
+        if (q0 + u >= P || kh < 0 || kh >= K) continue;
+        float hv[8];
+        unpack8(ldg16(hp + static_cast<size_t>(kh) * H + c0), hv);
+        float mu = 0.f, rs = 1.f;
+        if (cln) {
+          const float* sk = stat_at(p, true, m, kh);
+          mu = sk[kMean1];
+          rs = sk[kRs1];
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float h1 = prelu(hv[jj], a1);
+          const float hn = cln ? (h1 - mu) * rs * gam[jj] + bet[jj]
+                               : h1 * sc[jj] + sh[jj];
+          ddw[u][jj] = fmaf(dcj[jj], hn, ddw[u][jj]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTaps; ++u) {
+      if (q0 + u >= P) break;   // uniform over the block
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) s_red[rg * H + c0 + jj] = ddw[u][jj];
+      __syncthreads();
+      for (int ch = tid; ch < H; ch += kWgCta) {
+        float v = 0.f;
+        for (int r = 0; r < n_rg; ++r) v += s_red[r * H + ch];
+        p.pch_e2[(tile * (P + 2) + q0 + u) * H + ch] = v;
+      }
+      __syncthreads();
+    }
   }
   if (!cln) {
     block_sum2(u1, u2);
@@ -953,7 +1029,10 @@ int launch_bwd_wg(const BwdParams& p, cudaStream_t stream) {
                                                                       kCln);
     n_u = H / kE2Cols;
   } else {
-    e2_wg_kernel<<<dim3(kt, M), kWgCta, 0, stream>>>(p, kCln);
+    if (p.P > kMaxTaps)
+      e2_wg_kernel<true><<<dim3(kt, M), kWgCta, 0, stream>>>(p, kCln);
+    else
+      e2_wg_kernel<<<dim3(kt, M), kWgCta, 0, stream>>>(p, kCln);
     n_u = kCln ? n_seg : 1;
   }
   CTN_CHECK();

@@ -474,6 +474,110 @@ __global__ void __launch_bounds__(kDwThreads, 8)
   }
 }
 
+// Launch B under cLN at P > kMaxTaps, beside dwconv_kernel (which keeps
+// its per-(tap, row) statistics in static arrays of kMaxTaps taps): the
+// taps in chunks of kMaxTaps. For each chunk the block fills the chunk's
+// per-(tap, row) statistics by row_stats, as dwconv_kernel does for all
+// of its taps, and every thread carries its rows' conv sums over the
+// chunk into s_acc (its own column), so each row's sum runs over the taps
+// in the order q = 0..P-1 as dwconv_kernel's does. Same grid, block and
+// outputs as dwconv_kernel; no register cap (32 rows' sums live in shared
+// memory, not registers).
+template <typename T, bool kPre>
+__global__ void __launch_bounds__(kDwThreads)
+    dwconv_cln_taps_kernel(Params p, int n_part_a) {
+  __shared__ float s_mu[kMaxTaps * kDwRows];
+  __shared__ float s_rs[kMaxTaps * kDwRows];
+  __shared__ float s_acc[kDwRows][kDwThreads];
+  __shared__ float s_row[2][kDwThreads / 32][kDwRows];
+  const int m = blockIdx.z;
+  const int r0 = blockIdx.x * kDwRows;
+  const int c = blockIdx.y * kDwThreads + threadIdx.x;
+  const int K = p.K, H = p.H, P = p.P, d = p.dilation;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const T* h = static_cast<const T*>(p.h) + static_cast<size_t>(m) * K * H;
+  const T* dw = static_cast<const T*>(p.dw);
+  T* y = static_cast<T*>(p.y) + static_cast<size_t>(m) * K * H;
+  const float a1 = kPre ? *p.a1 : 0.f;
+  const float a2 = *p.a2;
+  const bool active = c < H;
+  const float g = active ? p.g1[c] : 1.f;
+  const float b = active ? p.b1[c] : 0.f;
+  for (int q0 = 0; q0 < P; q0 += kMaxTaps) {
+    const int nq = P - q0 < kMaxTaps ? P - q0 : kMaxTaps;
+    __syncthreads();   // the last chunk's statistics are read
+    // statistics of every input row a tap of this chunk reads
+    for (int t = threadIdx.x; t < nq * kDwRows; t += kDwThreads) {
+      const int q = q0 + t / kDwRows;
+      const int kk = r0 + (t % kDwRows) + q * d - p.left;
+      if (kk >= 0 && kk < K)
+        row_stats(p.part_a + 2 * (static_cast<size_t>(m) * K + kk) * n_part_a,
+                  n_part_a, p.Hn, &s_mu[t], &s_rs[t]);
+    }
+    __syncthreads();
+    for (int i = 0; i < kDwRows; ++i) {
+      const int k = r0 + i;
+      if (!active || k >= K) continue;
+      float acc = q0 == 0 ? 0.f : s_acc[i][threadIdx.x];
+      for (int q = 0; q < nq; ++q) {
+        const int kk = k + (q0 + q) * d - p.left;
+        if (kk < 0 || kk >= K) continue;  // zero padding after norm1
+        float hv = to_f<T>(h[static_cast<size_t>(kk) * H + c]);
+        if (kPre) hv = prelu(hv, a1);
+        const float hn =
+            (hv - s_mu[q * kDwRows + i]) * s_rs[q * kDwRows + i] * g + b;
+        acc = fmaf(to_f<T>(dw[(q0 + q) * H + c]), hn, acc);
+      }
+      s_acc[i][threadIdx.x] = acc;
+    }
+  }
+  for (int i = 0; i < kDwRows; ++i) {
+    const int k = r0 + i;
+    float v = 0.f;
+    if (active && k < K) {
+      const float acc = s_acc[i][threadIdx.x];
+      v = prelu(acc, a2);
+      y[static_cast<size_t>(k) * H + c] = from_f<T>(kPre ? acc : v);
+    }
+    const float w1 = warp_sum(v);
+    const float w2 = warp_sum(v * v);
+    if (lane == 0) {
+      s_row[0][warp][i] = w1;
+      s_row[1][warp][i] = w2;
+    }
+  }
+  __syncthreads();
+  const int i = threadIdx.x;
+  if (i < kDwRows && r0 + i < K) {
+    float u1 = 0.f, u2 = 0.f;
+    for (int w = 0; w < kDwThreads / 32; ++w) {
+      u1 += s_row[0][w][i];
+      u2 += s_row[1][w][i];
+    }
+    float* dst = p.part_b +
+        2 * ((static_cast<size_t>(m) * K + r0 + i) * gridDim.y + blockIdx.y);
+    dst[0] = u1;
+    dst[1] = u2;
+  }
+}
+
+// Launch B on grid (ceil(K/kDwRows), ceil(H/kDwThreads), M): dwconv_kernel,
+// or under cLN at P > kMaxTaps dwconv_cln_taps_kernel (gLN and BN read one
+// statistic per sample or channel, so dwconv_kernel takes any P there).
+template <typename T, int kNorm, bool kPre>
+void launch_dwconv(const Params& p, dim3 grid, int n_part_a,
+                   cudaStream_t stream) {
+  if constexpr (kNorm == kNormCLN) {
+    if (p.P > kMaxTaps) {
+      dwconv_cln_taps_kernel<T, kPre><<<grid, kDwThreads, 0, stream>>>(
+          p, n_part_a);
+      return;
+    }
+  }
+  dwconv_kernel<T, kNorm, kPre><<<grid, kDwThreads, 0, stream>>>(p, n_part_a);
+}
+
 // The prep launch before launch A: W_eff = diag(g) W_out, with g the
 // per-channel scale of norm2 (for BN the running statistics folded in), in
 // the compute dtype, and the column sums g @ W_out (of W_eff as rounded) and
@@ -815,8 +919,8 @@ int launch_block_first(const Params& p, cudaStream_t stream) {
   CTN_CHECK();
   const unsigned rt = (p.K + kDwRows - 1) / kDwRows;
   const unsigned ct = (p.H + kDwThreads - 1) / kDwThreads;
-  dwconv_kernel<T, kNorm, false><<<dim3(rt, ct, p.M), kDwThreads, 0, stream>>>(
-      p, static_cast<int>(n_a));
+  launch_dwconv<T, kNorm, false>(p, dim3(rt, ct, p.M), static_cast<int>(n_a),
+                                 stream);
   CTN_CHECK();
   out_proj_kernel<T><<<dim3(kt, p.B / kBN, p.M), kGemmThreads, 0, stream>>>(
       p, static_cast<int>(n_b));

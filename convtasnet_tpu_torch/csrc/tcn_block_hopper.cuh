@@ -390,12 +390,13 @@ __host__ __device__ inline int out_proj_halo(int K, int P, int d) {
 }
 
 // C''s shared memory: y, the ring, the cLN row sums, the column sums, and
-// the staged output tile, which the cLN halo's statistics share (they are
-// read before the first epilogue).
-inline size_t out_proj_wg_smem(int K, int B, int H, int P, int d, int norm) {
+// the staged output tile, which the cLN halo's statistics share where
+// halo_smem (they are read before the first epilogue).
+inline size_t out_proj_wg_smem(int K, int B, int H, int P, int d,
+                               bool halo_smem) {
   const int cg = H / 8, seg = cg < 32 ? cg : 32, bn = staged_bn(B);
   const size_t stage = static_cast<size_t>(kWgRows) * (bn + 8) * sizeof(bf16);
-  const size_t halo = norm == kNormCLN
+  const size_t halo = halo_smem
       ? 2 * static_cast<size_t>(out_proj_halo(K, P, d)) * sizeof(float) : 0;
   return 1024 + static_cast<size_t>(H / kSlabK) * kWgRows * kLine +
          static_cast<size_t>(kOutStages) * bn * kLine +
@@ -421,9 +422,12 @@ inline size_t out_proj_wg_smem(int K, int B, int H, int P, int d, int norm) {
 //       rounds the normalised y, not y, and folds nothing).
 // n_part_a: A's partials per sample (gLN) or row (cLN); n_part_b: B''s per
 // sample (gLN). kCln: p.norm is cLN (its own instantiation, so that the
-// gLN and BN path carries none of the row normalisation). Grid
-// (ceil(K / 128), M), block 256.
-template <int BN, bool kCln>
+// gLN and BN path carries none of the row normalisation). kHaloDev (cLN,
+// where the halo's min(128 + (P - 1) d, K) rows of statistics do not fit
+// in shared memory beside the resident operands): each tap takes its row's
+// norm1 statistics by row_stats from A's partials in device memory, the
+// values the shared halo would hold. Grid (ceil(K / 128), M), block 256.
+template <int BN, bool kCln, bool kHaloDev = false>
 __global__ void __launch_bounds__(kWgCta)
     out_proj_wg_kernel(Params p, int n_part_a, int n_part_b) {
   extern __shared__ uint8_t wg_smem[];
@@ -465,7 +469,7 @@ __global__ void __launch_bounds__(kWgCta)
                    static_cast<double>(K) * p.Hn, &s_st[0], &s_st[1]);
       sample_stats(p.part_b + 2 * static_cast<size_t>(m) * n_part_b, n_part_b,
                    static_cast<double>(K) * p.Hn, &s_st[2], &s_st[3]);
-    } else if (kCln) {
+    } else if (kCln && !kHaloDev) {
       const int n_halo = min(out_proj_halo(K, P, d), K - lo);
       for (int i = tid; i < n_halo; i += kWgCta)
         row_stats(p.part_a + 2 * (static_cast<size_t>(m) * K + lo + i) * n_part_a,
@@ -485,8 +489,14 @@ __global__ void __launch_bounds__(kWgCta)
         static_cast<const bf16*>(p.dw), K, H, P, d, left, r0, cg, rg,
         kWgCta / CG, 0.f, kCln, g, b, sc, sh,
         [&](int kk, float& mu, float& rs) {
-          mu = s_halo[2 * (kk - lo)];
-          rs = s_halo[2 * (kk - lo) + 1];
+          if constexpr (kHaloDev) {
+            row_stats(
+                p.part_a + 2 * (static_cast<size_t>(m) * K + kk) * n_part_a,
+                n_part_a, p.Hn, &mu, &rs);
+          } else {
+            mu = s_halo[2 * (kk - lo)];
+            rs = s_halo[2 * (kk - lo) + 1];
+          }
         },
         [&](int rl, int k, const float (&acc)[8]) {
           float yv[8];
@@ -571,13 +581,13 @@ __global__ void __launch_bounds__(kWgCta)
       });
 }
 
-template <int BN, bool kCln>
+template <int BN, bool kCln, bool kHaloDev = false>
 int launch_out_proj_bn(const Params& p, int n_part_a, int n_part_b,
                        cudaStream_t stream) {
-  const size_t smem =
-      out_proj_wg_smem(p.K, p.B, p.H, p.P, p.dilation, p.norm);
+  const size_t smem = out_proj_wg_smem(p.K, p.B, p.H, p.P, p.dilation,
+                                       kCln && !kHaloDev);
   if (smem > kMaxDynSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = out_proj_wg_kernel<BN, kCln>;
+  auto kernel = out_proj_wg_kernel<BN, kCln, kHaloDev>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -590,6 +600,12 @@ int launch_out_proj_bn(const Params& p, int n_part_a, int n_part_b,
 int launch_out_proj_wg(const Params& p, int n_part_a, int n_part_b,
                        cudaStream_t stream) {
   const bool cln = p.norm == kNormCLN;
+  // cLN with a halo past shared memory: its statistics from device memory
+  if (cln && out_proj_wg_smem(p.K, p.B, p.H, p.P, p.dilation, true) >
+                 kMaxDynSmem)
+    return staged_bn(p.B) == 128
+        ? launch_out_proj_bn<128, true, true>(p, n_part_a, n_part_b, stream)
+        : launch_out_proj_bn<64, true, true>(p, n_part_a, n_part_b, stream);
   if (staged_bn(p.B) == 128)
     return cln ? launch_out_proj_bn<128, true>(p, n_part_a, n_part_b, stream)
                : launch_out_proj_bn<128, false>(p, n_part_a, n_part_b, stream);

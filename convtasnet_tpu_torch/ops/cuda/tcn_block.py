@@ -39,7 +39,6 @@ from convtasnet_tpu_torch.ops.norm import (
 NORM_CODES = {"gLN": 0, "cLN": 1, "BN": 2}
 _ENTRY = {torch.float32: "ctn_tcn_block_f32",
           torch.bfloat16: "ctn_tcn_block_bf16"}
-MAX_TAPS = 16      # kMaxTaps in tcn_block.cu
 TILE = 64          # the kernels run B and H at multiples of the GEMM tile
                    # (kBM = kBN); other widths are zero-padded up to one
 
@@ -47,11 +46,21 @@ TILE = 64          # the kernels run B and H at multiples of the GEMM tile
 def shape_refusal(B: int, H: int, P: int, causal: bool) -> Optional[str]:
     """Why the TCN block kernels (B1, and the backwards B2 and B3, which
     take the same widths) refuse a block of bottleneck width B, hidden
-    width H and P depthwise taps, or None where they take it (any B and H:
-    ``pad_block``). The wrappers raise it on a CUDA tensor;
-    ``ops/cuda/shapes.py`` applies it to a whole configuration."""
-    if P > MAX_TAPS or (not causal and P % 2 == 0):
-        return f"unsupported depthwise kernel size P={P}"
+    width H and P depthwise taps, or None where they take it: any B and H
+    (``pad_block``) and any P the JAX package runs, P >= 1 when causal and
+    odd otherwise (``ops/conv.py`` refuses an even P outside the causal
+    mode in the same words). The kernels run P <= 16 on their first
+    routes and more taps in chunks of 16 beside them. The wrappers raise
+    it on a CUDA tensor; ``ops/cuda/shapes.py`` applies it to a whole
+    configuration."""
+    return taps_refusal(P, causal)
+
+
+def taps_refusal(P: int, causal: bool) -> Optional[str]:
+    """The depthwise taps' rule of B1-B6: an even P outside the causal
+    mode has no SAME padding, as ``ops/conv.py`` says of it."""
+    if not causal and P % 2 == 0:
+        return f"non-causal SAME padding requires odd kernel size, got P={P}"
     return None
 
 

@@ -33,7 +33,7 @@ import torch
 
 from convtasnet_tpu_torch.ops.conv import depthwise_conv1d
 from convtasnet_tpu_torch.ops.cuda.build import load_library
-from convtasnet_tpu_torch.ops.cuda.tcn_block import padded
+from convtasnet_tpu_torch.ops.cuda.tcn_block import padded, taps_refusal
 from convtasnet_tpu_torch.ops.norm import EPS
 
 _ENTRY = {torch.float32: "ctn_tcn_block_tp2_f32",
@@ -41,22 +41,20 @@ _ENTRY = {torch.float32: "ctn_tcn_block_tp2_f32",
 TILE = 64          # the kernel runs Hs and B at multiples of the GEMM tile
                    # (others zero-padded up); the partials' workspace holds
                    # a slot per 64 rows (either design's tiles)
-MAX_TAPS = 16      # as B1 (ops/cuda/tcn_block.py)
 MAX_WIDTH = 512    # Hs at most this (the kernel's shared [64, Hs] tile)
 
 
 def shape_refusal(Hs: int, B: int, P: int, causal: bool) -> Optional[str]:
     """Why B6 refuses stage 2 of a gLN block at shard width Hs (H / m),
-    bottleneck width B and P taps, or None where it takes it. (B6 is gLN
-    only; ``fused_tp_stage2`` refuses another norm on any device.) Hs and
-    B need not be multiples of 64: the wrapper zero-pads them, and a
-    padded channel (no gLN-1 affine, no taps, no weights) adds 0 to z and
-    to the gLN-2 sums."""
+    bottleneck width B and P taps, or None where it takes it: any P the
+    JAX package runs (``taps_refusal``; its depthwise walks take any P).
+    (B6 is gLN only; ``fused_tp_stage2`` refuses another norm on any
+    device.) Hs and B need not be multiples of 64: the wrapper zero-pads
+    them, and a padded channel (no gLN-1 affine, no taps, no weights) adds
+    0 to z and to the gLN-2 sums."""
     if padded(Hs) > MAX_WIDTH:
         return (f"the kernel needs Hs at most {MAX_WIDTH}, got Hs={Hs}")
-    if P > MAX_TAPS or (not causal and P % 2 == 0):
-        return f"unsupported depthwise kernel size P={P}"
-    return None
+    return taps_refusal(P, causal)
 
 
 def pad_shard(h: torch.Tensor, dw: torch.Tensor, w_out: torch.Tensor,

@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 scripts/kernels_vs_parent.py --other DIR \\
-        [--time [all|dpt-forward|f32-attention|padded]] [--out FILE]
+        [--time [all|dpt-forward|f32-attention|padded|taps]] [--out FILE]
 
 DIR holds another checkout's ``convtasnet_tpu_torch/`` (for example the
 parent commit, unpacked with ``git archive HEAD convtasnet_tpu_torch``).
@@ -20,7 +20,9 @@ wide with the columns past B zero) and at B = 320 and 512 (their wide
 routes; on the last shard of 5 and 2); the TCN TP
 stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128; the TCN block forward
 (B1, gLN and cLN causal), the gLN block backward (B2) and the cLN one
-(B3) at the paper shape [8, 3199, 256], H=512, d = 1, 16, 128; the block
+(B3) at the paper shape [8, 3199, 256], H=512, d = 1, 16, 128 (and at P =
+5 and 16 taps, d = 1 and 128, with B5 at (d, 2 d): every P <= 16 runs the
+first routes, which the routes past 16 taps leave as they were); the block
 pair forward (B4, gLN and cLN causal) and the gLN pair backward (B5),
 (d1, d2) = (1, 2), (16, 32), (64, 128); bf16 and f32.
 
@@ -65,6 +67,12 @@ and backward, with each one's device time per call and per kernel (a
 width a tree refuses is printed for the other alone), and by CUDA events
 what the padding copies add per call (the operands padded as the
 wrappers pad them, the output, or the cotangents, sliced back).
+``--time taps`` times only B1 (gLN, cLN causal, BN), B2, B3, B4, B5 and
+B6 (Hs = 256) in bf16 and f32 at the paper shape at P = 3, 17 and 33 taps
+and d = 1 and 128, by CUDA events and in device time, each beside its
+bound (its FLOP at the dtype's peak, 989 TFLOP/s bf16 or 67 TFLOP/s f32,
+or its bytes at 3.35 TB/s where that is larger); a tree that refuses P >
+16 is timed at P = 3 alone.
 ``--time``
 (all) goes on, at the paper shape unless named: B1 (gLN and cLN causal),
 B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
@@ -92,6 +100,7 @@ further from a twin than its bar.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -133,6 +142,14 @@ TCN_KERNELS = [("b1", "gLN", False), ("b1", "cLN", True),
 TCN_CASES = [(kern, norm, causal, dtype, d)
              for kern, norm, causal in TCN_KERNELS
              for dtype in ("bfloat16", "float32") for d in (1, 16, 128)]
+# the same at P = 5 and 16 taps (every P <= 16 runs the first routes, in
+# both trees; an even P only causal), and B5 at (16, 32): (kernel, norm,
+# causal, dtype, d, P)
+TCN_TAPS_CASES = [(kern, norm, causal or P % 2 == 0, dtype, d, P)
+                  for P in (5, 16)
+                  for kern, norm, causal in TCN_KERNELS + [("b5", "gLN",
+                                                            False)]
+                  for dtype in ("bfloat16", "float32") for d in (1, 128)]
 # (kernel, norm, causal): B4 gLN and cLN causal, B5 gLN
 PAIR_KERNELS = [("b4", "gLN", False), ("b4", "cLN", True),
                 ("b5", "gLN", False)]
@@ -349,7 +366,7 @@ def summarize(turns: list) -> list:
     return lines
 
 
-def _block_inputs(torch, dtype, seed: int, norm: str, H=H):
+def _block_inputs(torch, dtype, seed: int, norm: str, H=H, P=P):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, scale=1.0):
@@ -520,6 +537,26 @@ def dump(path: str) -> None:
                         ("dg1", 6), ("db1", 7), ("dg2", 8), ("db2", 9)):
             out[f"{key} {name}"] = got[i].cpu()
             out[f"twin {key} {name}"] = rel_l2(got[i], want[i])
+        torch.cuda.synchronize()
+    for kern, norm, causal, dtype, d, taps in TCN_TAPS_CASES:
+        args, g = _block_inputs(torch, dtype, 150 + d + taps, norm, P=taps)
+        key = f"{kern} {dtype} {norm} causal={int(causal)} d={d} P={taps}"
+        if kern == "b5":
+            pb, _ = _block_inputs(torch, dtype, 160 + d + taps, norm, P=taps)
+            got = tcn_block_pair_bwd.fused_tcn_block_pair_bwd(
+                args[0], g, list(args[1:]), list(pb[1:]), d1=d, d2=2 * d,
+                causal=causal)
+            for i, t in enumerate((got[0], *got[1], *got[2])):
+                out[f"{key} {i}"] = t.cpu()
+            continue
+        kw = dict(dilation=d, causal=causal, norm_type=norm)
+        if kern == "b1":
+            with torch.inference_mode():
+                out[key] = tcn_block.fused_tcn_block(*args, **kw).cpu()
+            continue
+        got = tcn_block_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+        for i, t in enumerate(got):
+            out[f"{key} {i}"] = t.cpu()
         torch.cuda.synchronize()
     for kern, norm, causal, dtype, d1 in PAIR_CASES:
         pa, g = _block_inputs(torch, dtype, 200 + d1, norm)
@@ -1051,6 +1088,126 @@ def _time_padded(torch, res: dict, rn) -> None:
                     torch, bwd_copies, 20)
 
 
+# --time taps: B1-B6 at the paper shape per P and dilation, bf16 and f32
+TAPS_TIMED = [(taps, d) for taps in (3, 17, 33) for d in (1, 128)]
+# an H100 SXM's published peaks (chip_smoke.py's): bf16 tensor cores, f32
+# FMA outside them, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES_S = 3.35e12
+
+
+def _taps_bound_ms(dtype: str, products: float, conv: float,
+                   nbytes: float) -> float:
+    """The least time of a TCN kernel's work: the larger of its FLOP (the
+    products and the depthwise taps) at the dtype's peak and its bytes
+    (each input read once, each output written once) at the HBM rate."""
+    return 1e3 * max((products + conv) / PEAK_FLOPS[dtype],
+                     nbytes / PEAK_BYTES_S)
+
+
+def _time_taps(torch, res: dict) -> None:
+    """B1 (gLN, cLN causal, BN), B2 (gLN), B3 (cLN causal), B4 and B5
+    (gLN, (d1, d2) = (d, 2 d)) and B6 (Hs = 256) at the paper shape
+    [8, 3199, 256], H = 512, at P = 3, 17 and 33 taps and d = 1 and 128
+    (``TAPS_TIMED``), bf16 and f32: each call's time by CUDA events and its
+    device time by torch.profiler, and beside it its bound
+    (``_taps_bound_ms``; 2 FLOP per multiply-add: B1 two products of
+    2 M K B H and one depthwise pass of 2 M K H P, B2 and B3 five products
+    and three depthwise passes, as chip_smoke.tcn_bwd_work counts them, a
+    pair twice its blocks', B6 one product of 2 M K Hs B and its
+    depthwise pass). A shape the tree refuses (P > 16 on a tree older than
+    the routes past 16 taps) is left out."""
+    from convtasnet_tpu_torch.ops.cuda import (
+        tcn_block,
+        tcn_block_bwd,
+        tcn_block_pair,
+        tcn_block_pair_bwd,
+        tcn_block_tp,
+    )
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def timed(key, fn, iters, bound):
+        try:
+            fn()
+        except ValueError:   # a P this tree refuses
+            return
+        res[key] = _ms(torch, fn, iters)
+        _device_ms(torch, res, key, fn, iters)
+        res[f"bound {key}"] = bound
+
+    bn = tuple(torch.rand(H, device="cuda") + 0.5 for _ in range(4))
+    for dtype in ("bfloat16", "float32"):
+        for taps, d in TAPS_TIMED:
+            at = f"[8,3199,256] H=512 P={taps} d={d} {dtype}"
+            prod, conv = 2 * M * K * B * H, 2 * M * K * H * taps
+            for label, norm, causal in (("b1 gLN", "gLN", False),
+                                        ("b1 cLN causal", "cLN", True),
+                                        ("b1 BN", "BN", False)):
+                args, g = _block_inputs(torch, dtype, taps + d, norm, P=taps)
+                kw = dict(dilation=d, causal=causal, norm_type=norm,
+                          bn_stats=bn if norm == "BN" else None)
+                with torch.inference_mode():
+                    timed(f"{label} {at}",
+                          lambda: tcn_block.fused_tcn_block(*args, **kw), 20,
+                          _taps_bound_ms(dtype, 2 * prod, conv,
+                                         nbytes(*args, args[0])))
+            for label, norm, causal in (("b2 gLN", "gLN", False),
+                                        ("b3 cLN causal", "cLN", True)):
+                args, g = _block_inputs(torch, dtype, taps + d, norm, P=taps)
+                fn = functools.partial(
+                    tcn_block_bwd.fused_tcn_block_bwd, args[0], g, *args[1:],
+                    dilation=d, causal=causal, norm_type=norm)
+                try:
+                    out = fn()
+                except ValueError:
+                    continue
+                timed(f"{label} {at}", fn, 10, _taps_bound_ms(
+                    dtype, 5 * prod, 3 * conv, nbytes(*args, g, *out)))
+            pa, g = _block_inputs(torch, dtype, 40 + taps + d, "gLN", P=taps)
+            pb, _ = _block_inputs(torch, dtype, 50 + taps + d, "gLN", P=taps)
+            x, pa, pb = pa[0], list(pa[1:]), list(pb[1:])
+            kw = dict(d1=d, d2=2 * d, causal=False)
+            with torch.inference_mode():
+                timed(f"b4 gLN {at}",
+                      lambda: tcn_block_pair.fused_tcn_block_pair(
+                          x, pa, pb, norm_type="gLN", **kw), 20,
+                      _taps_bound_ms(dtype, 4 * prod, 2 * conv,
+                                     nbytes(x, *pa, *pb, x)))
+            fn = functools.partial(
+                tcn_block_pair_bwd.fused_tcn_block_pair_bwd, x, g, pa, pb,
+                **kw)
+            try:
+                out = fn()
+            except ValueError:
+                out = None
+            if out is not None:
+                timed(f"b5 gLN {at}", fn, 10, _taps_bound_ms(
+                    dtype, 2 * 5 * prod, 2 * 3 * conv,
+                    nbytes(x, g, *pa, *pb, out[0], *out[1], *out[2])))
+            hs = 256
+            gen = torch.Generator(device="cuda").manual_seed(taps + d)
+
+            def rn(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda")
+
+            h = torch.nn.functional.leaky_relu(rn(M, K, hs), 0.25).to(
+                getattr(torch, dtype))
+            targs = (h, torch.stack([0.1 * rn(M), 1.0 + 0.1 * rn(M)], -1),
+                     rn(taps, hs) * 0.1, rn(hs, B) * hs ** -0.5,
+                     torch.tensor(0.25, device="cuda"), 1.0 + 0.1 * rn(hs),
+                     0.1 * rn(hs), 1.0 + 0.1 * rn(hs))
+            z_bytes = M * K * B * h.element_size()
+            with torch.inference_mode():
+                timed(f"b6 Hs={hs} {at}",
+                      lambda: tcn_block_tp.fused_tp_stage2(
+                          *targs, dilation=d, causal=False), 20,
+                      _taps_bound_ms(dtype, 2 * M * K * hs * B,
+                                     2 * M * K * hs * taps,
+                                     nbytes(*targs) + z_bytes))
+
+
 def time_tree(path: str, what: str) -> None:
     """Times one tree into path: everything (``what`` "all") or the DPT
     forwards alone ("dpt-forward": ``_time_dpt_forwards`` and the
@@ -1077,6 +1234,10 @@ def time_tree(path: str, what: str) -> None:
         return
     if what == "padded":
         _time_padded(torch, res, rn)
+        torch.save(res, path)
+        return
+    if what == "taps":
+        _time_taps(torch, res)
         torch.save(res, path)
         return
     _time_dpt_forwards(torch, res, rn)
@@ -1174,12 +1335,12 @@ def main() -> int:
                                     "convtasnet_tpu_torch/")
     ap.add_argument("--time", nargs="?", const="all",
                     choices=["all", "dpt-forward", "f32-attention",
-                             "padded"],
+                             "padded", "taps"],
                     help="also time both trees in turns: everything (the "
                          "default), the DPT forwards alone, the f32 "
-                         "attention kernels at every head width, or the DPT "
+                         "attention kernels at every head width, the DPT "
                          "kernels at widths off 64 beside the next one on "
-                         "the tile")
+                         "the tile, or the TCN kernels at 3, 17 and 33 taps")
     ap.add_argument("--out", help="write every number here as JSON")
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     ap.add_argument("--time-dump", help=argparse.SUPPRESS)

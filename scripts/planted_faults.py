@@ -5,8 +5,9 @@ the cLN block backward (B3), of the TCN block pair (B4 and B5, which run
 each block through the single block's launches), of
 the TCN's tensor parallelism (kernel B6 and the shard sum around it) and
 of the dual-path tensor parallelism (the partial kernels B7p-B12p and
-the shard sums around them) and of the padding that runs widths off the
-kernels' tiles, and report which checks see each one. Needs
+the shard sums around them), of the padding that runs widths off the
+kernels' tiles and of the TCN kernels' routes past 16 depthwise taps, and
+report which checks see each one. Needs
 one CUDA GPU and nvcc.
 
     python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...] \\
@@ -32,7 +33,8 @@ B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
 ``phase_step_compare(torch, "tcn")``, for dual-path tensor parallelism
 ``phase_dpt_partial_vs_twin``, ``phase_dpt_tp_forward`` and
 ``phase_step_compare(torch, "dpt")``, for the padding
-``phase_auto_padded``), then the kind's ``cuda``-marked
+``phase_auto_padded``, for the routes past 16 depthwise taps
+``phase_tcn_taps``), then the kind's ``cuda``-marked
 tests. The repository itself is never edited. A fault is caught when either
 run fails. ``--jobs N`` runs N faults at once on the one card. Each run's
 full output goes to ``--log-dir`` (default: a new temporary directory),
@@ -231,7 +233,11 @@ FAULTS = {
     # tcn_block_bwd_common.cuh
     "cln_bwd_tap_stats_of_output_row": ("cln_backward",
         "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
+        "unpack4(hp_t[u][q], hv);\n            float mu = 0.f, rs = 1.f;\n"
+        "            if (cln) {\n"
         "              const float* sk = stat_at(p, true, m, kh);",
+        "unpack4(hp_t[u][q], hv);\n            float mu = 0.f, rs = 1.f;\n"
+        "            if (cln) {\n"
         "              const float* sk = stat_at(p, true, m, j);"),
     "cln_bwd_g1_row_sum_half_twice": ("cln_backward",
         "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
@@ -350,6 +356,26 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
         "P.dgb, !f.partial, stream);",
         "P.dgb, true, stream);"),
+    # the routes past 16 taps (kind taps): E2' in bf16 (e2_wg_kernel's
+    # kTapChunks) dropping d_dw of the taps past the sixteenth, and the
+    # first design's cLN launch B (dwconv_cln_taps_kernel) taking a tap's
+    # norm-1 statistics from the input row one dilation short of the row
+    # it reads
+    "taps_e2_wg_ddw_past_16_dropped": ("taps",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
+        "        p.pch_e2[(tile * (P + 2) + q0 + u) * H + ch] = v;",
+        "        p.pch_e2[(tile * (P + 2) + q0 + u) * H + ch] = q0 ? 0.f : v;"),
+    "taps_cln_dwconv_stats_one_dilation_short": ("taps",
+        "convtasnet_tpu_torch/csrc/tcn_block_common.cuh",
+        "      const int q = q0 + t / kDwRows;\n"
+        "      const int kk = r0 + (t % kDwRows) + q * d - p.left;\n"
+        "      if (kk >= 0 && kk < K)\n"
+        "        row_stats(p.part_a + 2 * (static_cast<size_t>(m) * K + kk)",
+        "      const int q = q0 + t / kDwRows;\n"
+        "      const int kk = r0 + (t % kDwRows) + q * d - p.left;\n"
+        "      if (kk >= 0 && kk < K)\n"
+        "        row_stats(p.part_a + 2 * (static_cast<size_t>(m) * K + "
+        "(kk >= d ? kk - d : kk))"),
 }
 # The smoke phases a fault of each kind is run through; each phase runs
 # whether or not an earlier one failed, and prints "PHASE <call>: passed"
@@ -378,6 +404,7 @@ PHASES = {
                "phase_dpt_tp_forward(torch, dpt)",
                "phase_step_compare(torch, 'dpt')"],
     "padded": ["phase_auto_padded(torch, k, dpt)"],
+    "taps": ["phase_tcn_taps(torch, k)"],
 }
 CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
                                "or fused_block_ad or rounding_points",
@@ -386,7 +413,8 @@ CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
               "dpt_forward": "dpt", "dpt_backward": "dpt or ffn_bwd",
               "cln_backward": "cln", "pair": "pair", "tp": "tp_",
               "dpt_tp": "partial or dpt_tp",
-              "padded": "untiled or check_shapes or auto_mode or padded"}
+              "padded": "untiled or check_shapes or auto_mode or padded",
+              "taps": "taps"}
 RUNNER = """
 import sys
 import torch

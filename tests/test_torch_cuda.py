@@ -20,6 +20,7 @@ from exact than max(4e-2, 1.25x the bf16 twin's own distance).
 """
 
 import os
+import statistics
 
 import numpy as np
 import pytest
@@ -328,7 +329,8 @@ def test_kernel_rejects_untiled_widths(cuda):
     """Widths off the 64-column tile are padded, not refused: B = 32 and
     H = 96 run the kernel zero-padded to 64 and 128, with the norms taken
     over the block's own 96 channels, within the forward bar of the twin
-    in every norm and dtype; more than 16 taps are still refused."""
+    in every norm and dtype; an even P outside the causal mode, which has
+    no SAME padding, is still refused."""
     for dtype in (torch.float32, torch.bfloat16):
         for norm_type in ("gLN", "cLN", "BN"):
             args, bn = _block_args(cuda, dtype, norm_type, b=32, h=96)
@@ -342,10 +344,10 @@ def test_kernel_rejects_untiled_widths(cuda):
             err = _rel_l2(got, want)
             assert err <= TOL[dtype], (dtype, norm_type, err)
     args, _ = _block_args(cuda, torch.float32, "gLN")
-    dw17 = torch.zeros(17, args[2].shape[1], device=cuda)
+    dw4 = torch.zeros(4, args[2].shape[1], device=cuda)
     with pytest.raises(ValueError, match="kernel size"):
-        port.fused_tcn_block(args[0], args[1], dw17, *args[3:], dilation=1,
-                             causal=True, norm_type="gLN")
+        port.fused_tcn_block(args[0], args[1], dw4, *args[3:], dilation=1,
+                             causal=False, norm_type="gLN")
 
 
 def test_kernel_path_refuses_autograd(cuda):
@@ -1902,8 +1904,8 @@ def test_tp_stage2_kernel_matches_twin(cuda, dtype, Hs, dilation, causal):
 
 def test_tp_stage2_kernel_is_deterministic_and_refuses(cuda):
     """Two calls give the same bits; a shard width off the 64-column tile
-    runs padded; a shard wider than 512, more than 16 taps and a norm
-    other than gLN are refused."""
+    runs padded; a shard wider than 512, an even P outside the causal
+    mode and a norm other than gLN are refused."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
 
     args = _tp2_args(cuda, torch.bfloat16, 128, seed=5, M=2, K=700)
@@ -1921,9 +1923,9 @@ def test_tp_stage2_kernel_is_deterministic_and_refuses(cuda):
         wide = _tp2_args(cuda, torch.bfloat16, 576, M=2, K=700)
         with pytest.raises(ValueError, match="at most 512"):
             tp.fused_tp_stage2(*wide, **kw)
-        taps = _tp2_args(cuda, torch.bfloat16, 128, M=2, K=700, P=17)
-        with pytest.raises(ValueError, match="P=17"):
-            tp.fused_tp_stage2(*taps, dilation=1, causal=True)
+        taps = _tp2_args(cuda, torch.bfloat16, 128, M=2, K=700, P=4)
+        with pytest.raises(ValueError, match="P=4"):
+            tp.fused_tp_stage2(*taps, dilation=1, causal=False)
         with pytest.raises(ValueError, match="gLN only"):
             tp.fused_tp_stage2(*args, **kw, norm_type="cLN")
 
@@ -2310,11 +2312,13 @@ AUTO_PADDED = {
                 bottleneck=64, dpt_chunk=100, dpt_layers=1, dpt_heads=2,
                 dpt_ff=192),
 }
-# (config, the rule the error names): 17 causal taps, a DPT wider than 512
+# (config, the rule the error names): DPTs wider than 512 (the TCN blocks
+# take every width and every P the JAX package runs; the "tcn" slot held
+# 17 causal taps until they were taken, test_tcn_model_takes_any_taps)
 AUTO_REFUSED = {
-    "tcn": (dict(n_filters=64, kernel_size=16, bottleneck=64, hidden=128,
-                 conv_kernel=17, causal=True, num_blocks=2, num_repeats=1),
-            "P=17"),
+    "tcn": (dict(separator="dpt", n_filters=64, kernel_size=16,
+                 bottleneck=640, dpt_layers=1, dpt_heads=20, dpt_ff=256),
+            "at most 512"),
     "dpt": (dict(separator="dpt", n_filters=64, kernel_size=16,
                  bottleneck=576, dpt_layers=1, dpt_heads=18, dpt_ff=256),
             "at most 512"),
@@ -2366,8 +2370,8 @@ def test_auto_mode_runs_padded_widths_through_the_kernels(cuda, family):
 
 @pytest.mark.parametrize("family", ["tcn", "dpt"])
 def test_auto_mode_raises_where_no_kernel_takes_the_shape(cuda, family):
-    """A shape no kernel takes (a TCN with 17 causal taps, a DPT at
-    B = 576) raises under auto on the card as with
+    """A shape no kernel takes (a DPT at B = 640 or 576) raises under
+    auto on the card as with
     use_pallas=True, naming the rule, before any launch; use_pallas=False
     serves it through the plain ops."""
     kw, rule = AUTO_REFUSED[family]
@@ -2857,3 +2861,355 @@ def test_dpt_head_widths_off_the_cores_raise(cuda, dtype):
                                                        match="head width"):
                 DPT_FNS[kind][0](*args, **kw)
     assert not any(_dpt_launch_counts(before).values())
+
+
+# --------------------------------------------------------------------------
+# Any number of taps: B1-B6 past the 16 taps of their first routes
+# --------------------------------------------------------------------------
+
+TAPS_CASES = [(kind, P, d) for kind in ("gLN", "cLN", "BN", "pair", "tp")
+              for P in (17, 31, 33) for d in (1, 128)]
+SLOPES = ("da1", "da2")
+
+
+def _with_taps(args, P, seed=7):
+    """``args`` (a block's operands) with P depthwise taps in place of
+    three, each of the scale three taps had over P / 3 of them."""
+    rng = np.random.default_rng(seed + P)
+    dw = rng.standard_normal((P, args[2].shape[1])) * np.sqrt(3.0 / P)
+    args = list(args)
+    args[2] = torch.from_numpy(dw.astype(np.float32)).to(args[2].device,
+                                                         args[2].dtype)
+    return args
+
+
+def _taps_gate(names, got, exact, twin, dtype):
+    """The block and pair backwards at a random cotangent against the exact
+    f32 cotangents: in f32 every one within 4e-3; in bf16 every one but
+    the PReLU-slope gradients, as chip_smoke.py's backward gates hold them
+    (each a sum of M K H cancelling terms, which the bf16 twin itself
+    misses by up to 0.6 at 33 taps), no further from exact than
+    max(8e-2, 1.25x the bf16 twin's own distance), as
+    ``_check_against_exact`` holds them."""
+    for name, q, e, w in zip(names, got, exact, twin):
+        assert torch.isfinite(q).all(), name
+        if dtype == torch.bfloat16 and name.split()[-1] in SLOPES:
+            continue
+        bar = BWD_TOL[dtype]
+        if dtype == torch.bfloat16:
+            bar = max(bar, 1.25 * _rel_l2(w, e))
+        err = _rel_l2(q, e)
+        assert err <= bar, f"{name}: rel_l2 {err:.3e}, bar {bar:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,P,dilation", TAPS_CASES)
+def test_tcn_kernels_take_any_taps(cuda, dtype, kind, P, dilation):
+    """B1-B6 at P = 17, 31 and 33 taps, past the 16 of their first routes
+    (the cLN launch B of the first design, E2 and E2' in chunks of 16
+    taps), at d = 1 and 128 (at P = 33, d = 128 the halo of 4,096 rows is
+    longer than K = 300: most rows skip most taps): B1 in gLN (non-causal),
+    cLN (causal) and BN (non-causal) against its twin at the forward bar;
+    B2 and B3 on all ten cotangents against the exact f32 ones
+    (``_taps_gate``); the pair (gLN; at (d1, d2) = (1, 2) and (64, 128),
+    the least and the most dilated pair a model runs) over three seeds,
+    B4 at the pair gate, B5 the bits of chained B1 + B2 + B2 and all 19
+    cotangents by ``_taps_gate``'s bars on the median over the seeds; B6
+    (Hs = 128) at the forward bars and at its rounding points. Each
+    launches its kernel once."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    if kind == "pair":
+        d1 = 1 if dilation == 1 else dilation // 2
+        kw = dict(d1=d1, d2=2 * d1, causal=False)
+        names = ["dx"] + [f"{blk} {n}" for blk in "ab" for n in NAMES[1:]]
+        errs, twin_errs = [], []
+        for seed in (P, P + 1, P + 2):
+            x, pa, pb, g = _pair_args(cuda, dtype, seed=seed)
+            pa = _with_taps([x, *pa], P)[1:]
+            pb = _with_taps([x, *pb], P, 8)[1:]
+            before = _tcn_launches()
+            got = pair.fused_tcn_block_pair(x, pa, pb, norm_type="gLN", **kw)
+            dx, ga, gb = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+            torch.cuda.synchronize()
+            assert _tcn_launches(before) == {"b1": 0, "b2": 0, "b4": 1,
+                                             "b5": 1}
+            want = pair.fused_tcn_block_pair_reference(
+                x, pa, pb, norm_type="gLN", **kw)
+            assert _rel_l2(got, want) <= PAIR_TOL[dtype], _rel_l2(got, want)
+            # B5 runs B1's and B2's stages: chained, the same bits
+            x1 = port.fused_tcn_block(x, *pa, dilation=d1, causal=False,
+                                      norm_type="gLN")
+            dx1, *wb = port_bwd.fused_tcn_block_bwd(x1, g, *pb,
+                                                    dilation=2 * d1,
+                                                    causal=False)
+            dx0, *wa = port_bwd.fused_tcn_block_bwd(x, dx1, *pa, dilation=d1,
+                                                    causal=False)
+            assert torch.equal(dx, dx0)
+            assert all(torch.equal(u, v) for u, v in zip((*ga, *gb),
+                                                          (*wa, *wb)))
+            exact = pair_bwd.fused_tcn_block_pair_bwd_reference(
+                x.float(), g.float(), [t.float() for t in pa],
+                [t.float() for t in pb], **kw)
+            twin = pair_bwd.fused_tcn_block_pair_bwd_reference(x, g, pa, pb,
+                                                               **kw)
+            flat = [(dx, *ga, *gb), (exact[0], *exact[1], *exact[2]),
+                    (twin[0], *twin[1], *twin[2])]
+            assert all(torch.isfinite(q).all() for q in flat[0])
+            errs.append([_rel_l2(q, e) for q, e in zip(flat[0], flat[1])])
+            twin_errs.append([_rel_l2(w, e) for w, e in zip(flat[2], flat[1])])
+        # f32: every seed at 4e-3. bf16: the median over the three seeds
+        # (one seed's reading is one draw of bf16 rounding: at P = 31 the
+        # gate's ratio over seeds 0-11 spreads as at P = 3, and a seed
+        # past the bar gives the first route's bits at the taps in range,
+        # scripts/tcn_pair_bwd_draws.py), the slopes left out, within
+        # max(8e-2, 1.25x the bf16 twin's own median distance)
+        for i, name in enumerate(names):
+            if dtype == torch.float32:
+                err = max(e[i] for e in errs)
+                assert err <= BWD_TOL[dtype], f"{name}: rel_l2 {err:.3e}"
+            elif name.split()[-1] not in SLOPES:
+                err = statistics.median(e[i] for e in errs)
+                bar = max(BWD_TOL[dtype], 1.25 * statistics.median(
+                    w[i] for w in twin_errs))
+                assert err <= bar, f"{name}: {err:.3e}, bar {bar:.3e}"
+        return
+    if kind == "tp":
+        args = _tp2_args(cuda, dtype, 128, seed=P, M=2, K=300, P=P)
+        kw = dict(dilation=dilation, causal=False)
+        before = tp.fused_tp_stage2.launches
+        with torch.inference_mode():
+            z, sums = tp.fused_tp_stage2(*args, **kw)
+            torch.cuda.synchronize()
+            z_want, s_want = tp.tp_stage2_reference(*args, **kw)
+            z_ord, s_ord = tp.tp_stage2_reference(*args, **kw,
+                                                  rounding="pallas")
+        assert tp.fused_tp_stage2.launches == before + 1
+        assert _rel_l2(z, z_want) <= TOL[dtype], _rel_l2(z, z_want)
+        assert _rel_l2(sums, s_want) <= TOL[dtype], _rel_l2(sums, s_want)
+        assert _rel_l2(z, z_ord) <= TP_ORDER_TOL[dtype], _rel_l2(z, z_ord)
+        assert _rel_l2(sums, s_ord) <= TP_ORDER_TOL[dtype]
+        return
+    args, bn = _block_args(cuda, dtype, kind)
+    args = _with_taps(args, P)
+    kw = dict(dilation=dilation, causal=kind == "cLN", norm_type=kind)
+    before = _tcn_launches()
+    got = port.fused_tcn_block(*args, bn_stats=bn, **kw)
+    torch.cuda.synchronize()
+    want = port.fused_tcn_block_reference(*args, bn_stats=bn, **kw)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert _rel_l2(got, want) <= TOL[dtype], _rel_l2(got, want)
+    if kind == "BN":
+        assert _tcn_launches(before)["b1"] == 1
+        return
+    bargs, g = _bwd_args(cuda, dtype, norm_type=kind)
+    bargs[2] = args[2]
+    b0 = port_bwd.fused_tcn_block_bwd.cln_launches
+    grads = port_bwd.fused_tcn_block_bwd(bargs[0], g, *bargs[1:], **kw)
+    torch.cuda.synchronize()
+    counts = _tcn_launches(before)
+    assert counts["b1"] == 1 and counts["b2"] == (kind == "gLN")
+    assert port_bwd.fused_tcn_block_bwd.cln_launches - b0 == (kind == "cLN")
+    f32 = [t.float() for t in bargs]
+    exact = port_bwd.fused_tcn_block_bwd_reference(f32[0], g.float(),
+                                                   *f32[1:], **kw)
+    twin = port_bwd.fused_tcn_block_bwd_reference(bargs[0], g, *bargs[1:],
+                                                  **kw)
+    _taps_gate(NAMES, grads, exact, twin, dtype)
+
+
+def _zero_taps(dw, causal):
+    """dw [P, H] widened to 17 taps with zeros: tap 0 when causal (P = 16),
+    taps 0 and 16 otherwise (P = 15), so that every other tap reads the
+    rows it reads at P."""
+    zero = torch.zeros_like(dw[:1])
+    return torch.cat([zero, dw] + ([] if causal else [zero]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("gLN", True),
+                                              ("cLN", True), ("BN", False)])
+def test_tcn_taps_routes_equal_the_first_routes(cuda, dtype, norm_type,
+                                                causal):
+    """A block of 17 taps whose extra taps are zero runs the routes past
+    16 taps and sums the same products in the same order as the block of
+    16 (causal) or 15 taps on the first routes: B1, B2/B3 (d_dw's extra
+    rows aside), B5 and B6 give the same bits, at d = 4 and d = 128."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    P = 16 if causal else 15
+    for d in (4, 128):
+        args, bn = _block_args(cuda, dtype, norm_type, seed=d)
+        args = _with_taps(args, P)
+        wide = list(args)
+        wide[2] = _zero_taps(args[2], causal)
+        kw = dict(dilation=d, causal=causal, norm_type=norm_type)
+        with torch.inference_mode():
+            a = port.fused_tcn_block(*args, bn_stats=bn, **kw)
+            b = port.fused_tcn_block(*wide, bn_stats=bn, **kw)
+        assert torch.equal(a, b), d
+        if norm_type == "BN":
+            continue
+        g = torch.randn(a.shape, generator=torch.Generator().manual_seed(d))
+        g = g.to(cuda, dtype)
+        ga = port_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+        gb = list(port_bwd.fused_tcn_block_bwd(wide[0], g, *wide[1:], **kw))
+        gb[2] = gb[2][1:1 + P]
+        for name, u, v in zip(NAMES, ga, gb):
+            assert torch.equal(u, v), (d, name)
+    if norm_type != "gLN" or causal:
+        return
+    x, pa, pb, g = _pair_args(cuda, dtype, seed=3)
+    pa, pb = _with_taps([x, *pa], P)[1:], _with_taps([x, *pb], P, 8)[1:]
+    pa17, pb17 = list(pa), list(pb)
+    pa17[1], pb17[1] = _zero_taps(pa[1], False), _zero_taps(pb[1], False)
+    kw = dict(d1=4, d2=8, causal=False)
+    a = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+    b = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa17, pb17, **kw)
+    assert torch.equal(a[0], b[0])
+    for blk in (1, 2):
+        for i, (u, v) in enumerate(zip(a[blk], b[blk])):
+            assert torch.equal(u, v[1:1 + P] if i == 1 else v), (blk, i)
+    targs = list(_tp2_args(cuda, dtype, 128, M=2, K=300, P=P))
+    wide = list(targs)
+    wide[2] = _zero_taps(targs[2], False)
+    with torch.inference_mode():
+        za, sa = tp.fused_tp_stage2(*targs, dilation=4, causal=False)
+        zb, sb = tp.fused_tp_stage2(*wide, dilation=4, causal=False)
+    assert torch.equal(za, zb) and torch.equal(sa, sb)
+
+
+@pytest.mark.parametrize("norm_type,causal,P", [("gLN", False, 17),
+                                                ("cLN", True, 17),
+                                                ("gLN", True, 33)])
+def test_tcn_model_takes_any_taps(cuda, norm_type, causal, P):
+    """Under use_pallas=None on the card a TCN at P = 17 (and 33 causal)
+    builds with no refusal, serves a batch through B1 and trains a step
+    through B1 and B2 (gLN) or B3 (cLN) in every block, f32, within the
+    forward bar of the plain model and the step bar of its gradient."""
+    from convtasnet_tpu_torch.config import SolverConfig
+    from convtasnet_tpu_torch.ops.cuda import shapes
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    cfg = ConvTasNetConfig(n_filters=64, kernel_size=16, bottleneck=64,
+                           hidden=128, conv_kernel=P, causal=causal,
+                           norm_type=norm_type, num_blocks=2, num_repeats=1)
+    assert shapes.refusals(cfg) == {} and shapes.refusals(cfg, pairs=True) \
+        == {}
+    gen = torch.Generator().manual_seed(P)
+    mix = torch.randn(2, 8000, generator=gen).to(cuda)
+    data = (mix, torch.full((2,), 8000, dtype=torch.int32, device=cuda),
+            torch.randn(2, 2, 8000, generator=gen).to(cuda),
+            torch.ones(2, device=cuda))
+    plain = ts.create_train_state(cfg, SolverConfig(), device=cuda,
+                                  use_pallas=False)
+    state = ts.create_train_state(cfg, SolverConfig(), device=cuda)
+    state.model.load_state_dict(plain.model.state_dict())
+    before = _tcn_launches()
+    b0 = port_bwd.fused_tcn_block_bwd.cln_launches
+    for st in (state, plain):
+        st.model.eval()
+    losses, grads = [], []
+    with _pair_switch(False):
+        with torch.inference_mode():
+            got, want = state.model(mix), plain.model(mix)
+        for st in (state, plain):
+            st.model.train()
+            losses.append(float(ts._loss_and_grads(st.model, data, 0)))
+            grads.append(torch.cat([p.grad.reshape(-1) for p in
+                                    st.model.parameters()]))
+    torch.cuda.synchronize()
+    counts = _tcn_launches(before)
+    n = cfg.num_blocks * cfg.num_repeats
+    assert counts == {"b1": 2 * n, "b2": n if norm_type == "gLN" else 0,
+                      "b4": 0, "b5": 0}, counts
+    assert port_bwd.fused_tcn_block_bwd.cln_launches - b0 == (
+        n if norm_type == "cLN" else 0)
+    assert _rel_l2(got, want) <= TOL[torch.float32], _rel_l2(got, want)
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    assert torch.isfinite(grads[0]).all()
+    assert _rel_l2(grads[0], grads[1]) <= BWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cln_halo_of_many_taps(cuda, dtype):
+    """The cLN block at P = 47, d = 128 on one sample of K = 6,000 frames
+    at the paper widths: in bf16 C''s halo of statistics (6,000 rows)
+    does not fit in shared memory beside its resident operands, and each
+    tap reads its row's statistics from device memory instead; the launch
+    is taken and the output is within the forward bar of the twin (and in
+    bf16 within 1e-3 of the twin at its rounding points); f32 runs the
+    first design's chunked launch B at the same shape."""
+    args, _ = _block_args(cuda, dtype, "cLN", m=1, k=6000, b=256, h=512,
+                          seed=3)
+    args = _with_taps(args, 47)
+    kw = dict(dilation=128, causal=True, norm_type="cLN")
+    before = port.fused_tcn_block.launches
+    got = port.fused_tcn_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert port.fused_tcn_block.launches == before + 1
+    assert torch.isfinite(got).all()
+    want = port.fused_tcn_block_reference(*args, **kw)
+    assert _rel_l2(got, want) <= TOL[dtype], _rel_l2(got, want)
+    if dtype == torch.bfloat16:
+        rounded = _b1_at_its_rounding_points(*args, dilation=128, causal=True,
+                                             norm_type="cLN")
+        assert _rel_l2(got, rounded) <= TP_ORDER_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tcn_taps_past_the_halo_equal_their_center_taps(cuda, dtype):
+    """At P = 33, d = 128 on K = 300 frames (non-causal) only the center
+    taps 14..18 ever read a row in range, and a tap out of range is
+    skipped, not summed: B1 (gLN, BN), B2 and B6 on the routes past 16
+    taps give the bits of the same blocks at P = 5 of those center taps on
+    the first routes (d_dw's out-of-range rows aside, which are zero);
+    cLN causal at P = 33 against P = 4 of taps 29..32 (only 30..32 reach
+    a row; P = 3 would run E2''s P = 3 design); B5 at (128, 256) against
+    P = 5 of taps 14..18, and at P = 31, (64, 128) against P = 9 of taps
+    11..19."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    for norm_type, causal, cut in (("gLN", False, slice(14, 19)),
+                                   ("BN", False, slice(14, 19)),
+                                   ("cLN", True, slice(29, 33))):
+        args, bn = _block_args(cuda, dtype, norm_type, seed=33)
+        wide = _with_taps(args, 33)
+        narrow = list(wide)
+        narrow[2] = wide[2][cut].contiguous()
+        kw = dict(dilation=128, causal=causal, norm_type=norm_type)
+        with torch.inference_mode():
+            a = port.fused_tcn_block(*wide, bn_stats=bn, **kw)
+            b = port.fused_tcn_block(*narrow, bn_stats=bn, **kw)
+        assert torch.equal(a, b), norm_type
+        if norm_type == "BN":
+            continue
+        g = torch.randn(a.shape, generator=torch.Generator().manual_seed(5))
+        g = g.to(cuda, dtype)
+        ga = list(port_bwd.fused_tcn_block_bwd(wide[0], g, *wide[1:], **kw))
+        gb = port_bwd.fused_tcn_block_bwd(narrow[0], g, *narrow[1:], **kw)
+        rest = torch.ones(33, dtype=torch.bool)
+        rest[cut] = False
+        assert not ga[2][rest.to(cuda)].any()
+        ga[2] = ga[2][cut]
+        for name, u, v in zip(NAMES, ga, gb):
+            assert torch.equal(u, v), (norm_type, name)
+    for P, d1, cut in ((33, 128, slice(14, 19)), (31, 64, slice(11, 20))):
+        x, pa, pb, g = _pair_args(cuda, dtype, seed=P)
+        pa, pb = _with_taps([x, *pa], P)[1:], _with_taps([x, *pb], P, 8)[1:]
+        pa5, pb5 = list(pa), list(pb)
+        pa5[1], pb5[1] = pa[1][cut].contiguous(), pb[1][cut].contiguous()
+        kw = dict(d1=d1, d2=2 * d1, causal=False)
+        a = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa, pb, **kw)
+        b = pair_bwd.fused_tcn_block_pair_bwd(x, g, pa5, pb5, **kw)
+        assert torch.equal(a[0], b[0]), P
+        for blk in (1, 2):
+            for i, (u, v) in enumerate(zip(a[blk], b[blk])):
+                assert torch.equal(u[cut] if i == 1 else u, v), (P, blk, i)
+    targs = list(_tp2_args(cuda, dtype, 128, M=2, K=300, P=33))
+    narrow = list(targs)
+    narrow[2] = targs[2][14:19].contiguous()
+    with torch.inference_mode():
+        za, sa = tp.fused_tp_stage2(*targs, dilation=128, causal=False)
+        zb, sb = tp.fused_tp_stage2(*narrow, dilation=128, causal=False)
+    assert torch.equal(za, zb) and torch.equal(sa, sb)

@@ -50,7 +50,7 @@ CUDA = torch.device("cuda")   # read for its type only
 
 
 def _tcn_ok(B, H, P, causal):
-    return P <= 16 and (causal or P % 2)
+    return causal or P % 2
 
 
 @pytest.mark.parametrize("B,H", [(64, 64), (256, 512), (96, 128), (128, 96),
@@ -58,9 +58,10 @@ def _tcn_ok(B, H, P, causal):
 @pytest.mark.parametrize("P,causal", [(3, False), (4, False), (4, True),
                                       (17, True)])
 def test_tcn_block_and_pair_rules(B, H, P, causal):
-    """B1-B3 take any B and H (padded to multiples of 64) and P <= 16, odd
-    unless causal; the pair (B4, B5), which runs each block through the
-    single block's launchers, has the same rule at any B."""
+    """B1-B3 take any B and H (padded to multiples of 64) and any P, odd
+    unless causal (the JAX package's rule); the pair (B4, B5), which runs
+    each block through the single block's launchers, has the same rule at
+    any B."""
     got = tcn_block.shape_refusal(B, H, P, causal)
     assert (got is None) == bool(_tcn_ok(B, H, P, causal)), got
     pair = tcn_block_pair.shape_refusal(B, H, P, causal)
@@ -281,6 +282,10 @@ def test_ffn_rule(B):
     (dict(bottleneck=576), 1, False, {}),
     (dict(conv_kernel=4), 1, False, {"block"}),
     (dict(conv_kernel=4, causal=True, norm_type="cLN"), 1, True, {}),
+    (dict(conv_kernel=17), 1, True, {}),
+    (dict(conv_kernel=17, causal=True, norm_type="cLN"), 1, True, {}),
+    (dict(conv_kernel=33), 2, False, {}),
+    (dict(conv_kernel=4), 2, False, {"stage2"}),
     (dict(hidden=192), 2, False, {}),
     (dict(hidden=192, norm_type="cLN"), 2, False, {}),
     (dict(separator="dpt"), 1, False, {}),
@@ -331,6 +336,7 @@ def test_ffn_rule(B):
      {"intra", "inter"}),
     (dict(separator="dpt"), 3, False, {"intra", "inter"}),
 ], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
+        "P17-pairs", "P17-cLN-pairs", "tp-P33", "tp-P4",
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-B576",
         "dpt-B512", "dpt-tp2-B512", "dpt-tp7-B448-bf16", "dpt-tp4-B384",
         "dpt-tp8",
@@ -386,19 +392,19 @@ def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
 
 
 def test_model_refuses_before_launching_and_keeps_false():
-    """A model whose kernels refuse its configuration (17 causal taps)
-    raises under auto on a CUDA input as with
-    use_pallas=True, naming the TCN blocks and the rule, before it touches
-    the input; with use_pallas=False, or auto on a CPU input, it serves
-    through the plain ops without a warning; use_pallas=True refuses a CPU
-    input."""
-    cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=64,
-                           hidden=96, conv_kernel=17, causal=True,
-                           num_blocks=2, num_repeats=1)
+    """A model whose kernels refuse its configuration (a DPT wider than
+    512; the TCN blocks take every P the JAX package runs, 17 causal taps
+    included) raises under auto on a CUDA input as with use_pallas=True,
+    naming the sublayer and the rule, before it touches the input; with
+    use_pallas=False, or auto on a CPU input, it serves through the plain
+    ops without a warning; use_pallas=True refuses a CPU input."""
+    cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=576,
+                           separator="dpt", dpt_layers=1, dpt_heads=18,
+                           dpt_ff=256)
     on_card = types.SimpleNamespace(device=CUDA)   # read for its device
     for use_pallas in (None, True):
-        with pytest.raises(ValueError, match=r"TCN blocks \(B1-B3\): "
-                           r"unsupported depthwise kernel size P=17"):
+        with pytest.raises(ValueError, match=r"DPT FFN \(B11, B12\): "
+                           r"the kernel needs B at most 512"):
             ConvTasNet(cfg, use_pallas=use_pallas)(on_card)
     mix = torch.randn(1, 80, generator=torch.Generator().manual_seed(0))
     with warnings.catch_warnings():
@@ -407,9 +413,9 @@ def test_model_refuses_before_launching_and_keeps_false():
             with torch.no_grad():
                 out = ConvTasNet(cfg, use_pallas=use_pallas)(mix)
             assert out.shape == (1, 2, 80) and torch.isfinite(out).all()
-    with pytest.raises(ValueError, match="unsupported depthwise"):
+    with pytest.raises(ValueError, match="at most 512"):
         ConvTasNet(cfg, use_pallas=True)(mix)
-    taken = dataclasses.replace(cfg, conv_kernel=3)
+    taken = dataclasses.replace(cfg, bottleneck=512, dpt_heads=16)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ConvTasNet(taken, use_pallas=True)(mix)
 

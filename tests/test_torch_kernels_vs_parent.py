@@ -256,3 +256,32 @@ def test_width_cases_cover_the_narrow_tiles():
     assert kvp.bitwise("dpt ffn float32 B=128 S=128 heads=4 partial m=2 "
                        "backward 0")
     assert not kvp.bitwise("dpt inter bfloat16 B=192 S=128 heads=6 forward")
+
+
+def test_taps_cases_run_the_first_routes_in_both_trees():
+    """The bit proof runs B1 (gLN, cLN causal), B2, B3 and B5 also at P = 5
+    and 16 taps, d = 1 and 128, both dtypes: P <= 16 runs the first
+    routes in both trees, an even P only causal. Each output is held bit
+    for bit."""
+    assert {P for *_, P in kvp.TCN_TAPS_CASES} == {5, 16}
+    assert {k for k, *_ in kvp.TCN_TAPS_CASES} == {"b1", "b2", "b3", "b5"}
+    assert all(causal for _, _, causal, _, _, P in kvp.TCN_TAPS_CASES
+               if P % 2 == 0)
+    assert len(kvp.TCN_TAPS_CASES) == 2 * 5 * 2 * 2
+    assert kvp.bitwise("b3 float32 cLN causal=1 d=128 P=16 2")
+
+
+@pytest.mark.parametrize("dtype,products,conv,nbytes,want", [
+    # B1 at the paper shape, P = 3: two products of 2 M K B H and the taps
+    ("bfloat16", 2 * 2 * 8 * 3199 * 256 * 512, 2 * 8 * 3199 * 512 * 3,
+     26.3e6, 0.01365),
+    # f32 at P = 33: the FMA peak
+    ("float32", 2 * 2 * 8 * 3199 * 256 * 512, 2 * 8 * 3199 * 512 * 33,
+     52.5e6, 0.2132),
+    # a kernel whose bytes take longer than its FLOP
+    ("bfloat16", 1e9, 0.0, 33.5e6, 0.0100)])
+def test_taps_bound(dtype, products, conv, nbytes, want):
+    """``--time taps``'s bound: the larger of the FLOP at the dtype's peak
+    (989 TFLOP/s bf16, 67 TFLOP/s f32) and the bytes at 3.35 TB/s."""
+    got = kvp._taps_bound_ms(dtype, products, conv, nbytes)
+    assert got == pytest.approx(want, rel=2e-3)
