@@ -2259,17 +2259,24 @@ def tp_stage2_inputs(torch, dtype, Hs: int, seed: int, M=8, K=3199, B=256,
 # B6's cases beyond two and four shards of H = 512: the other shard
 # widths its bf16 wgmma stage takes, (Hs, dilations), bf16 only
 TP_WG_WIDTHS = ((512, (1, 16, 128)), (64, (1, 16, 128)))
+# shard widths past 512 (B6's wide route, y through device memory): one
+# tile past it (H = 1152 over two) and two shards of H = 2048, (Hs,
+# dilations), bf16 and f32
+TP_WIDE_WIDTHS = ((576, (1, 16, 128)), (1024, (1, 16, 128)))
+TP_WIDE_TIMED = (576, 768, 1024)   # the wide route's widths timed
 
 
 def phase_tp_stage2_vs_twin(torch, k):
     """Kernel B6 (TP stage 2) against its twin at [8, 3199, Hs] (the last
     128-row tile holds 127 rows), Hs = 256 and 128 (two and four shards of
     H = 512), every dilation 1..128, gLN non-causal and causal, bf16 and
-    f32, and in bf16 at the wgmma stage's other widths, Hs = 512 and 64,
-    d = 1, 16, 128: z and the gLN-2 sums within the forward bars (4e-2 /
-    2e-3), against the twin at B6's own rounding points within
-    TP_ORDER_TOL, finite, and two calls the same bits. Every case is
-    printed before the phase fails; returns the worst max_abs_err of z."""
+    f32, in bf16 at the wgmma stage's other widths, Hs = 512 and 64, and
+    on the wide route at Hs = 576 and 1024 (shards of H = 1152 and 2048)
+    in bf16 and f32, d = 1, 16, 128: z and the gLN-2 sums within the
+    forward bars (4e-2 / 2e-3), against the twin at B6's own rounding
+    points within TP_ORDER_TOL, finite, and two calls the same bits. Every
+    case is printed before the phase fails; returns the worst max_abs_err
+    of z."""
     tp = k["tp"]
     worst = 0.0
     failures = []
@@ -2277,13 +2284,16 @@ def phase_tp_stage2_vs_twin(torch, k):
     cases = [(Hs, dtype, DILATIONS) for Hs in (256, 128)
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(Hs, torch.bfloat16, ds) for Hs, ds in TP_WG_WIDTHS]
+    cases += [(Hs, dtype, ds) for Hs, ds in TP_WIDE_WIDTHS
+              for dtype in (torch.bfloat16, torch.float32)]
     n_cases = 0
     for Hs, dtype, dilations in cases:
             name = str(dtype).split(".")[-1]
             for causal in (False, True):
                 for d in dilations:
                     n_cases += 1
-                    args = tp_stage2_inputs(torch, dtype, Hs, d)
+                    args = tp_stage2_inputs(torch, dtype, Hs, d,
+                                            H=2 * Hs if Hs > 512 else 512)
                     kw = dict(dilation=d, causal=causal)
                     with torch.inference_mode():
                         z, sums = tp.fused_tp_stage2(*args, **kw)
@@ -2319,12 +2329,12 @@ def phase_tp_stage2_vs_twin(torch, k):
     return worst
 
 
-def phase_tp_forward(torch, k):
-    """``tp_forward`` of the paper config (random weights from seed 0) at
-    B=8 x 4 s over two and four shards, all on cuda:0, bf16 and f32: 32 m
-    launches of B6 and none of any other TCN kernel, finite, and within
-    the forward bars of the unsharded kernel path (blocks singly) and of
-    the plain path."""
+def phase_tp_forward(torch, k, hidden: int = 512, shards=TP_SHARDS):
+    """``tp_forward`` of the paper config (random weights from seed 0; its
+    hidden width ``hidden``) at B=8 x 4 s over each of ``shards``, all on
+    cuda:0, bf16 and f32: 32 m launches of B6 and none of any other TCN
+    kernel, finite, and within the forward bars of the unsharded kernel
+    path (blocks singly) and of the plain path."""
     from convtasnet_tpu_torch import ConvTasNetConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.parallel.mesh import shard_devices
@@ -2334,21 +2344,22 @@ def phase_tp_forward(torch, k):
     mix = torch.randn(8, SECONDS * SAMPLE_RATE, generator=torch.Generator(
         device="cuda").manual_seed(9), device="cuda")
     for dtype in ("bfloat16", "float32"):
-        cfg = ConvTasNetConfig(compute_dtype=dtype)
+        cfg = ConvTasNetConfig(compute_dtype=dtype, hidden=hidden)
         n_blocks = cfg.num_repeats * cfg.num_blocks
         kernel = ConvTasNet(cfg, use_pallas=True, device="cuda").eval()
         plain = ConvTasNet(cfg, use_pallas=False, device="cuda").eval()
         with torch.inference_mode(), pair_switch(False):
             want_k, want_p = kernel(mix), plain(mix)
             sd = kernel.state_dict()
-            for m in TP_SHARDS:
+            for m in shards:
                 devices = shard_devices(m, "cuda")
                 tcn_reset(k)
                 got = tp_forward(cfg, sd, mix, devices)
                 torch.cuda.synchronize()
                 counts = tcn_counts(k)
                 ek, ep = rel_l2(got, want_k), rel_l2(got, want_p)
-                print(f"tp_forward paper config B=8x{SECONDS}s {dtype} over "
+                print(f"tp_forward paper config H={hidden} "
+                      f"B=8x{SECONDS}s {dtype} over "
                       f"{m} shards on {sorted({str(d) for d in devices})}: "
                       f"vs the unsharded kernel path rel_l2 {ek:.3e}, vs the "
                       f"plain path {ep:.3e} (bar {TOL[dtype]:.0e}); launches "
@@ -2365,14 +2376,16 @@ def phase_tp_forward(torch, k):
     print(f"tp_forward phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str):
-    """``cli train --n-model 2 --use-pallas 1`` at the paper config, bf16,
-    on the corpus of ``make_corpus`` (one epoch of 4 steps at batch 8 and
-    a cv pass): every loss finite, B6 launched 64 times per step and per cv
-    batch and no other TCN kernel; then its package served through ``cli
-    separate --tensor-parallel 2`` (64 B6 per batch) against the unsharded
-    ``cli separate`` (32 kernel-1 launches, pairs off): finite wavs within
-    the bf16 forward bar. Returns the launch counts of the train run."""
+def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str,
+                        hidden: int = 512):
+    """``cli train --n-model 2 --use-pallas 1`` at the paper config (its
+    hidden width ``hidden``), bf16, on the corpus of ``make_corpus`` (one
+    epoch of 4 steps at batch 8 and a cv pass): every loss finite, B6
+    launched 64 times per step and per cv batch and no other TCN kernel;
+    then its package served through ``cli separate --tensor-parallel 2``
+    (64 B6 per batch) against the unsharded ``cli separate`` (32 kernel-1
+    launches, pairs off): finite wavs within the bf16 forward bar. Returns
+    the launch counts of the train run."""
     import contextlib
     import io
 
@@ -2382,7 +2395,7 @@ def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str):
     from convtasnet_tpu_torch.data.audio_io import read_wav
 
     n_blocks, n_cv, m = 32, 2, 2
-    out = os.path.join(work, "exp_tp")
+    out = os.path.join(work, f"exp_tp_H{hidden}")
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
     buf = io.StringIO()
     tcn_reset(k)
@@ -2393,7 +2406,7 @@ def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str):
             "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
             out, "--device", "cuda", "--compute-dtype", "bfloat16",
             "--use-pallas", "1", "--n-model", str(m), "--epochs", "1",
-            "--batch-size", "8", "--print-freq", "1"])
+            "--batch-size", "8", "--print-freq", "1", "--H", str(hidden)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = tcn_counts(k)
@@ -2404,8 +2417,8 @@ def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str):
         records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in records if r["kind"] == "iter"]
     n_steps = len(losses)
-    print(f"cli train --n-model {m} (paper config, bf16, --use-pallas 1; "
-          f"{placement}): {n_steps} steps, losses "
+    print(f"cli train --n-model {m} (paper config, --H {hidden}, bf16, "
+          f"--use-pallas 1; {placement}): {n_steps} steps, losses "
           f"{[round(x, 4) for x in losses]}, cv loss "
           f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
           f"launches {counts}, {wall:.1f} s wall", flush=True)
@@ -2425,7 +2438,7 @@ def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str):
             ("tensor-parallel", ["--tensor-parallel", str(m)],
              tcn_want(b6=n_blocks * m)),
             ("unsharded", [], tcn_want(b1=n_blocks))):
-        sep_dir = os.path.join(work, f"sep_tp_{label}")
+        sep_dir = os.path.join(work, f"sep_tp_H{hidden}_{label}")
         tcn_reset(k)
         with pair_switch(False), contextlib.redirect_stdout(io.StringIO()):
             rc = cli.main(["separate", "--model-path", pkg, "--mix-dir",
@@ -2441,14 +2454,31 @@ def phase_tp_train_path(torch, k, work: str, data: str, json_dir: str):
             for f in sorted(os.listdir(sep_dir)) if "_s" in f])
     err = rel_l2(torch.from_numpy(outs["tensor-parallel"]),
                  torch.from_numpy(outs["unsharded"]))
-    print(f"cli separate --tensor-parallel {m} with the trained package: "
-          f"launches {tcn_want(b6=n_blocks * m)} (1 batch), wavs vs the "
+    print(f"cli separate --tensor-parallel {m} with the trained package "
+          f"(H={hidden}): launches {tcn_want(b6=n_blocks * m)} (1 batch), "
+          f"wavs vs the "
           f"unsharded cli separate rel_l2 {err:.3e} (bar "
           f"{TOL['bfloat16']:.0e}); train and separate phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(err <= TOL["bfloat16"], f"tensor-parallel separate disagrees: "
           f"{err:.3e}")
     return counts
+
+
+def phase_tp_wide(torch, k, work: str, data: str, json_dir: str):
+    """Shards wider than 512 channels, B6 on its wide route: the paper
+    config at H = 2048 over two shards (Hs = 1024) served by
+    ``tp_forward`` in bf16 and f32 (64 B6 launches, no other TCN kernel,
+    within the forward bars of the unsharded kernel path, B1 at H = 2048,
+    and of plain); then ``cli train --H 2048 --n-model 2 --use-pallas 1``
+    (4 steps and a cv pass, losses finite) and its package through ``cli
+    separate --tensor-parallel 2`` against the unsharded ``cli
+    separate``, launches exact throughout."""
+    t0 = time.perf_counter()
+    phase_tp_forward(torch, k, hidden=2048, shards=(2,))
+    phase_tp_train_path(torch, k, work, data, json_dir, hidden=2048)
+    print(f"tp wide phase (H=2048 over 2 shards): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def dpt_step_medians(torch, dpt, cfg, sd, seeds, label: str, kinds,
@@ -3900,11 +3930,15 @@ def tp_stage2_work(args, outs) -> tuple:
 def phase_tp_timings(torch, k, card: str):
     """B6 against its twin, bf16, [8, 3199, Hs] for Hs = 256 and 128, in
     turns (twin, kernel, kernel, twin) at every dilation, with its bound;
+    B6 on its wide route at [8, 3199, Hs], Hs = 576, 768 and 1024, d = 1,
+    bf16 and f32: device time per call and per launch, with its bound, the
+    twin's time and ``torch.matmul``'s device time at its product's shape
+    ([8 x 3199, Hs] @ [Hs, 256], a yardstick no kernel calls);
     the bf16 paper-config forward at B=8 x 4 s over two and four shards
     against the unsharded kernel path (blocks singly), and the bf16 train
     step at B=8 x 4 s over two shards against the unsharded kernel step,
     in turns, with peak memory. Returns {Hs: (mean kernel ms, mean twin ms,
-    (bound_ms, bound_by))}."""
+    (bound_ms, bound_by))} for Hs = 256 and 128."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.parallel.mesh import shard_devices
@@ -3939,6 +3973,37 @@ def phase_tp_timings(torch, k, card: str):
               f"{bound[0]:.4f} ms ({bound[1]}); B6 {rows[Hs][0]:.4f} ms "
               f"({bound[0] / rows[Hs][0]:.1%} of the bound), twin "
               f"{rows[Hs][1]:.4f} ms (means over d)", flush=True)
+    for Hs in TP_WIDE_TIMED:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            args = tp_stage2_inputs(torch, dtype, Hs, 1, H=2 * Hs)
+            kw = dict(dilation=1, causal=False)
+            a = torch.randn(8 * 3199, Hs, device="cuda").to(dtype)
+            b = torch.randn(Hs, 256, device="cuda").to(dtype)
+            with torch.inference_mode():
+                ms, per = device_ms(
+                    torch, lambda: tp.fused_tp_stage2(*args, **kw), 20)
+                twin_ms = time_ms(
+                    torch, lambda: tp.tp_stage2_reference(*args, **kw), 10)
+                mm_ms = device_ms(torch, lambda: torch.matmul(a, b), 20)[0]
+                mm_ev = time_ms(torch, lambda: torch.matmul(a, b), 20)
+                outs = tp.fused_tp_stage2(*args, **kw)
+            bound = kernel_bound(*tp_stage2_work(args, outs),
+                                 PEAK_BF16_FLOPS if name == "bfloat16"
+                                 else PEAK_F32_FLOPS)
+            # each launch by its kernel's name, without namespace or
+            # parameters
+            launches = "; ".join(
+                "{} {:.1f} us".format(key.replace("void ", "").replace(
+                    "(anonymous namespace)::", "").split("(")[0], v * 1e3)
+                for key, v in per.items())
+            print(f"timing [{card}] tp stage 2 wide route [8,3199,{Hs}] "
+                  f"B=256 gLN {name} d=1: B6 {ms:.4f} ms device ({launches})"
+                  f"; bound {bound[0]:.4f} ms ({bound[1]}, "
+                  f"{bound[0] / ms:.1%}); twin {twin_ms:.4f} ms; "
+                  f"torch.matmul [{8 * 3199},{Hs}]x[{Hs},256] {mm_ms:.4f} "
+                  f"ms device ({mm_ev:.4f} ms by events)", flush=True)
+            del args, a, b, outs
 
     cfg = ConvTasNetConfig(compute_dtype="bfloat16")
     model = ConvTasNet(cfg, use_pallas=True, device="cuda").eval()
@@ -4523,6 +4588,9 @@ def main() -> int:
         # through cli separate --tensor-parallel 2, each with exact counts
         phase_tp_forward(torch, k)
         tp_train = phase_tp_train_path(torch, k, work, data, json_dir)
+        # shards wider than 512 (B6's wide route): the paper config at
+        # H = 2048 over two shards served, trained and separated
+        phase_tp_wide(torch, k, work, data, json_dir)
         phase_dpt_forward(torch, dpt)
         dpt_launches_sep = phase_dpt_serving(torch, dpt, work)
         dpt_launches_bwd = phase_dpt_train_path(torch, dpt, work, data,

@@ -47,11 +47,36 @@
 // (y 64 KB at Hs 256, a 3-slab ring of 24 KB, the 18 KB stage) lets two
 // CTAs share an SM, so the paper shape's 200 tiles run in one wave.
 //
-// f32, and bf16 at other widths: the first design, one CTA per (64-row
-// tile, sample) that builds its [64, Hs] tile of y one channel per thread
-// (gemm_tile's resident operand, 32 KB at Hs=256 in bf16, 64 KB in f32)
-// and runs B1's 64x64 WMMA tile (FMA in f32) over W_out_s without cp.async
-// or wgmma; 400 CTAs at the paper shape.
+// f32, and bf16 at other widths up to 512: the first design, one CTA per
+// (64-row tile, sample) that builds its [64, Hs] tile of y one channel per
+// thread (gemm_tile's resident operand, 32 KB at Hs=256 in bf16, 64 KB in
+// f32) and runs B1's 64x64 WMMA tile (FMA in f32) over W_out_s without
+// cp.async or wgmma; 400 CTAs at the paper shape.
+//
+// Shards wider than 512 (the padded Hs alone chooses it, in both dtypes):
+// the wide route, beside the resident tiles, which no longer fit (the
+// first design's [64, Hs + 16 / sizeof(T)] tile is 264 KB at Hs = 1024 in
+// f32; a block gets at most 227 KB). It sends y through device memory, as
+// B1's first design does, in three launches:
+//   1. tp_wide_dw_kernel: the first design's depthwise walk, one channel
+//      per thread over a (64-row, 64-channel) tile (gLN-1's scale and shift
+//      per element inside the taps, a tap outside [0, K) skipped, the taps
+//      in the order q = 0..P-1, then PReLU), writes round(y g2) [M, K, Hs]
+//      in the compute dtype to a workspace and each tile's f32 (sum y,
+//      sum y^2) into its slot of `part`;
+//   2. tp_wide_out_kernel: z = round(round(y g2) @ W_out_s), gemm_tile
+//      streaming the workspace from device memory over the whole depth
+//      (WMMA in bf16, FMA in f32), one CTA per 64x64 tile of z;
+//   3. tp_sums_kernel, in its fixed order.
+// The elements of y g2 are computed by the same expressions as the first
+// design's, and gemm_tile reads a tile from device memory into the same
+// fragments in the same order as a resident one, so where both routes see
+// the same y g2 they give the same z bits: a shard padded with zero
+// channels (no taps, no gLN-1 affine) gives the z of the narrower shard.
+// Bytes at [8, 3199, 1024], B = 256: h 52.4 MB read, the workspace 52.4 MB
+// written and read back (105 MB in f32), z 13.1 MB written; the bound (h
+// and z once) is 0.0197 ms in bf16, from bytes, and 0.200 ms in f32, from
+// its 13.4 GFLOP at 67 TFLOP/s.
 
 #include "tcn_block_common.cuh"
 #include "tcn_block_hopper.cuh"
@@ -253,8 +278,100 @@ __global__ void __launch_bounds__(kWgCta, 2) tp_stage2_wg_kernel(TpParams p) {
   }
 }
 
+// The wide route (top note): Hs above this runs through device memory.
+constexpr int kTpResidentWidth = 512;
+constexpr int kTpWideThreads = 256;   // 64 channels x 4 groups of 16 rows
+constexpr int kTpWideRows = kBM / (kTpWideThreads / kBN);
+
+// Launch 1 of the wide route: for rows [r0, r0 + 64) and channels [c0, c0 +
+// 64) of sample blockIdx.z, y = PReLU_a2(dwconv(gLN-1(h))) as the first
+// design computes it, round(y g2) into yw [M, K, Hs] (rows < K only) and
+// the tile's f32 (sum y, sum y^2) into part[(m * gridDim.x + blockIdx.x) *
+// gridDim.y + blockIdx.y]. Grid (ceil(K / 64), Hs / 64, M), kTpWideThreads.
 template <typename T>
-int launch_tp(const TpParams& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(kTpWideThreads)
+    tp_wide_dw_kernel(TpParams p, T* __restrict__ yw) {
+  const int m = blockIdx.z;
+  const int c = blockIdx.y * kBN + threadIdx.x % kBN;
+  const int i0 = blockIdx.x * kBM + (threadIdx.x / kBN) * kTpWideRows;
+  const int K = p.K, Hs = p.Hs, P = p.P, d = p.dilation;
+  const T* h = static_cast<const T*>(p.h) + static_cast<size_t>(m) * K * Hs;
+  const T* dw = static_cast<const T*>(p.dw);
+  T* y = yw + static_cast<size_t>(m) * K * Hs;
+  const float mean1 = p.stats1[2 * m];
+  const float rs1 = p.stats1[2 * m + 1];
+  const float a2 = *p.a2;
+  const float sc = rs1 * p.g1[c];
+  const float sh = p.b1[c] - mean1 * sc;
+  const float g2 = p.g2[c];
+
+  float t1 = 0.f, t2 = 0.f;
+  for (int k = i0; k < i0 + kTpWideRows && k < K; ++k) {
+    float acc = 0.f;
+    for (int q = 0; q < P; ++q) {
+      const int kk = k + q * d - p.left;
+      if (kk < 0 || kk >= K) continue;  // a tap outside [0, K) adds nothing
+      const float hv = to_f<T>(h[static_cast<size_t>(kk) * Hs + c]);
+      acc = fmaf(to_f<T>(dw[q * Hs + c]), hv * sc + sh, acc);
+    }
+    const float v = prelu(acc, a2);
+    t1 += v;
+    t2 += v * v;
+    y[static_cast<size_t>(k) * Hs + c] = from_f<T>(v * g2);
+  }
+  block_sum2(t1, t2);
+  if (threadIdx.x == 0) {
+    float* dst = p.part + 2 * ((static_cast<size_t>(m) * gridDim.x +
+                                blockIdx.x) * gridDim.y + blockIdx.y);
+    dst[0] = t1;
+    dst[1] = t2;
+  }
+}
+
+// Launch 2 of the wide route: z[m, r0:r0+64, n0:n0+64] = round(yw[m] @
+// W_out_s), yw streamed from device memory over the whole depth Hs.
+// Grid (ceil(K / 64), B / 64, M), kGemmThreads.
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads)
+    tp_wide_out_kernel(TpParams p, const T* __restrict__ yw) {
+  using S = GemmSmem<T>;
+  __shared__ S s;
+  const int m = blockIdx.z;
+  const int r0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  gemm_tile<T>(yw + static_cast<size_t>(m) * p.K * p.Hs,
+               static_cast<const T*>(p.w_out), p.K, p.Hs, p.B, r0, n0, s);
+  T* z = static_cast<T*>(p.z) + static_cast<size_t>(m) * p.K * p.B;
+  for (int e = threadIdx.x; e < kBM * kBN; e += kGemmThreads) {
+    const int r = e / kBN;
+    const int c = e % kBN;
+    if (r0 + r < p.K)
+      z[static_cast<size_t>(r0 + r) * p.B + n0 + c] =
+          from_f<T>(s.c[r * S::kLdC + c]);
+  }
+}
+
+// The wide route's three launches; yw holds M * K * Hs elements and p.part
+// 2 * M * ceil(K / 64) * (Hs / 64) floats.
+template <typename T>
+int launch_tp_wide(const TpParams& p, T* yw, cudaStream_t stream) {
+  const unsigned kt = (p.K + kBM - 1) / kBM;
+  tp_wide_dw_kernel<T><<<dim3(kt, p.Hs / kBN, p.M), kTpWideThreads, 0,
+                         stream>>>(p, yw);
+  CTN_CHECK();
+  tp_wide_out_kernel<T><<<dim3(kt, p.B / kBN, p.M), kGemmThreads, 0,
+                          stream>>>(p, yw);
+  CTN_CHECK();
+  tp_sums_kernel<<<p.M, 256, 0, stream>>>(
+      p.part, static_cast<int>(kt) * (p.Hs / kBN), p.sums);
+  CTN_CHECK();
+  return 0;
+}
+
+template <typename T>
+int launch_tp(const TpParams& p, void* yw, cudaStream_t stream) {
+  if (p.Hs > kTpResidentWidth)
+    return launch_tp_wide<T>(p, static_cast<T*>(yw), stream);
   unsigned kt;
   if (runs_wg(p.B, p.Hs, sizeof(T))) {   // bf16 at wg_widths_ok
     const size_t smem = tp_wg_smem(p.Hs);
@@ -317,19 +434,31 @@ TpParams make_tp_params(const void* h, const void* stats1, const void* dw,
 #define CTN_TP_ARGS                                                          \
   const void *h, const void *stats1, const void *dw, const void *w_out,     \
       const void *a2, const void *g1, const void *b1, const void *g2,       \
-      void *z, void *part, void *sums, int M, int K, int Hs, int B, int P,  \
-      int dilation, int causal, void *stream
+      void *z, void *part, void *sums, void *yw, int M, int K, int Hs,      \
+      int B, int P, int dilation, int causal, void *stream
 #define CTN_TP_CALL                                                          \
   make_tp_params(h, stats1, dw, w_out, a2, g1, b1, g2, z, part, sums, M, K, \
                  Hs, B, P, dilation, causal),                               \
-      static_cast<cudaStream_t>(stream)
+      yw, static_cast<cudaStream_t>(stream)
 
 extern "C" {
 
-// Stage 2 of one shard's block; every pointer is device memory, `part`
-// holds 2 * M * ceil(K / 64) floats of workspace (enough for either
-// design's tiles), `stream` is a cudaStream_t. Returns the first CUDA
-// error of its two launches.
+// The workspace of a call at these widths: *n_part floats of per-tile
+// partials (2 * M * ceil(K / 64), enough for either resident design's
+// tiles; times Hs / 64 on the wide route) and *n_y elements of the compute
+// dtype for the wide route's round(y g2) (M * K * Hs; 0 at Hs <= 512).
+int ctn_tcn_block_tp2_workspace(int M, int K, int Hs, long long* n_part,
+                                long long* n_y) {
+  const bool wide = Hs > kTpResidentWidth;
+  *n_part = 2LL * M * ((K + kBM - 1) / kBM) * (wide ? Hs / kBN : 1);
+  *n_y = wide ? static_cast<long long>(M) * K * Hs : 0;
+  return 0;
+}
+
+// Stage 2 of one shard's block; every pointer is device memory, `part` and
+// `yw` the workspace of ctn_tcn_block_tp2_workspace (`yw` may be null
+// where it is 0), `stream` is a cudaStream_t. Returns the first CUDA error
+// of its launches.
 int ctn_tcn_block_tp2_f32(CTN_TP_ARGS) {
   return launch_tp<float>(CTN_TP_CALL);
 }

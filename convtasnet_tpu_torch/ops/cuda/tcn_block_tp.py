@@ -27,6 +27,7 @@ JAX package has no backward kernel for stage 2, so neither has the port.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -38,22 +39,18 @@ from convtasnet_tpu_torch.ops.norm import EPS
 
 _ENTRY = {torch.float32: "ctn_tcn_block_tp2_f32",
           torch.bfloat16: "ctn_tcn_block_tp2_bf16"}
-TILE = 64          # the kernel runs Hs and B at multiples of the GEMM tile
-                   # (others zero-padded up); the partials' workspace holds
-                   # a slot per 64 rows (either design's tiles)
-MAX_WIDTH = 512    # Hs at most this (the kernel's shared [64, Hs] tile)
 
 
 def shape_refusal(Hs: int, B: int, P: int, causal: bool) -> Optional[str]:
     """Why B6 refuses stage 2 of a gLN block at shard width Hs (H / m),
-    bottleneck width B and P taps, or None where it takes it: any P the
-    JAX package runs (``taps_refusal``; its depthwise walks take any P).
-    (B6 is gLN only; ``fused_tp_stage2`` refuses another norm on any
-    device.) Hs and B need not be multiples of 64: the wrapper zero-pads
-    them, and a padded channel (no gLN-1 affine, no taps, no weights) adds
-    0 to z and to the gLN-2 sums."""
-    if padded(Hs) > MAX_WIDTH:
-        return (f"the kernel needs Hs at most {MAX_WIDTH}, got Hs={Hs}")
+    bottleneck width B and P taps, or None where it takes it: any Hs and
+    B, and any P the JAX package runs (``taps_refusal``; its depthwise
+    walks take any P). (B6 is gLN only; ``fused_tp_stage2`` refuses
+    another norm on any device.) Hs and B need not be multiples of 64: the
+    wrapper zero-pads them, and a padded channel (no gLN-1 affine, no taps,
+    no weights) adds 0 to z and to the gLN-2 sums. A padded Hs up to 512
+    keeps its tile of y in shared memory; a wider one runs the wide route
+    (``csrc/tcn_block_tp.cu``), which sends y through device memory."""
     return taps_refusal(P, causal)
 
 
@@ -154,8 +151,11 @@ def fused_tp_stage2(
     norm_type: str = "gLN",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 2 of one shard's block -> ``(z [M, K, B] in h's dtype, sums
-    [M, 2] f32)``. gLN only, as the Pallas kernel: cLN and BN blocks take
-    the per-norm path (``parallel/tensor_parallel.py``)."""
+    [M, 2] f32)``, at any shard width Hs and bottleneck width B (the kernel
+    runs them zero-padded to multiples of 64; a padded Hs above 512 on its
+    wide route, three launches through a workspace of [M, K, Hs]). gLN
+    only, as the Pallas kernel: cLN and BN blocks take the per-norm path
+    (``parallel/tensor_parallel.py``)."""
     if norm_type != "gLN":
         raise ValueError(f"the TP stage-2 kernel (B6) is gLN only, got "
                          f"{norm_type}: cLN and BN blocks take the per-norm "
@@ -222,14 +222,21 @@ def _launch_cuda(h, stats1, dw, w_out, a2, gamma1, beta1, gamma2, *,
         raise ValueError("the kernel needs a 16-byte aligned w_out")
     f32 = dict(dtype=torch.float32, device=h.device)
     z = torch.empty((M, K, B), dtype=dt, device=h.device)
-    part = torch.empty(2 * M * (-(-K // TILE)), **f32)
+    n_part, n_y = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.ctn_tcn_block_tp2_workspace(M, K, Hs, ctypes.byref(n_part),
+                                    ctypes.byref(n_y))
+    part = torch.empty(n_part.value, **f32)
     sums = torch.empty((M, 2), **f32)
+    # the wide route's round(y g2), allocated only where it runs
+    yw = (torch.empty(n_y.value, dtype=dt, device=h.device) if n_y.value
+          else None)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = getattr(lib, _ENTRY[dt])(
             h.data_ptr(), vecs[0].data_ptr(), dw.data_ptr(),
             w_out.data_ptr(), *(v.data_ptr() for v in vecs[1:]),
             z.data_ptr(), part.data_ptr(), sums.data_ptr(),
+            None if yw is None else yw.data_ptr(),
             M, K, Hs, B, P, dilation, int(causal), stream)
     if err != 0:
         msg = lib.ctn_error_string(err).decode()

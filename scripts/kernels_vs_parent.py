@@ -3,7 +3,8 @@
 one NVIDIA GPU.
 
     python3 scripts/kernels_vs_parent.py --other DIR \\
-        [--time [all|dpt-forward|f32-attention|padded|taps]] [--out FILE]
+        [--time [all|dpt-forward|f32-attention|padded|taps|tp]] \\
+        [--out FILE]
 
 DIR holds another checkout's ``convtasnet_tpu_torch/`` (for example the
 parent commit, unpacked with ``git archive HEAD convtasnet_tpu_torch``).
@@ -18,9 +19,10 @@ at B = 128 and 192 (B / 32 heads, F = 4B, full and on the last shard of
 2 and 3: the widths below 256 whose out and DN tiles are 128 wide, or 256
 wide with the columns past B zero) and at B = 320 and 512 (their wide
 routes; on the last shard of 5 and 2); the TCN TP
-stage 2 (B6) at [8, 3199, Hs], Hs = 256 and 128; the TCN block forward
-(B1, gLN and cLN causal), the gLN block backward (B2) and the cLN one
-(B3) at the paper shape [8, 3199, 256], H=512, d = 1, 16, 128 (and at P =
+stage 2 (B6) at [8, 3199, Hs], Hs = 256, 128, 512 and 448 (each route a
+shard up to 512 wide takes); the TCN block forward (B1, gLN and cLN
+causal), the gLN block backward (B2) and the cLN one (B3) at the paper
+shape [8, 3199, 256], H=512, d = 1, 16, 128 (and at P =
 5 and 16 taps, d = 1 and 128, with B5 at (d, 2 d): every P <= 16 runs the
 first routes, which the routes past 16 taps leave as they were); the block
 pair forward (B4, gLN and cLN causal) and the gLN pair backward (B5),
@@ -73,6 +75,12 @@ and d = 1 and 128, by CUDA events and in device time, each beside its
 bound (its FLOP at the dtype's peak, 989 TFLOP/s bf16 or 67 TFLOP/s f32,
 or its bytes at 3.35 TB/s where that is larger); a tree that refuses P >
 16 is timed at P = 3 alone.
+``--time tp`` times only B6 at [8, 3199, Hs], B = 256, in bf16 and f32:
+Hs = 256 and 128 at d = 1, 16 and 128, and on its wide route at Hs =
+576, 768 and 1024, d = 1 (a tree that refuses a shard wider than 512 is
+timed at 256 and 128 alone), by CUDA events and in device time per call
+and per launch, with ``torch.matmul``'s device time at each wide
+product's shape ([8 x 3199, Hs] @ [Hs, 256]).
 ``--time``
 (all) goes on, at the paper shape unless named: B1 (gLN and cLN causal),
 B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
@@ -132,8 +140,15 @@ WIDTH_CASES = [(kind, dtype, B, m)
                for kind in ("inter", "intra", "ffn")
                for dtype in ("bfloat16", "float32")
                for B, m in ((128, 2), (192, 3), (320, 5), (512, 2))]
+# B6 at every route a shard width up to 512 takes: Hs = 256, 128 and 512
+# (bf16 on the wgmma stage, f32 on the first design) and 448 (the first
+# design in both dtypes)
 B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
-            for hs in (256, 128) for d in (1, 128)]
+            for hs in (256, 128, 512, 448) for d in (1, 128)]
+# --time tp: (Hs, dilations); the widths past 512 run B6's wide route, and
+# a tree that refuses them is timed at the others alone
+B6_TIMED = ((256, (1, 16, 128)), (128, (1, 16, 128)), (576, (1,)),
+            (768, (1,)), (1024, (1,)))
 # the partial modes: one shard of m of the quality default's widths
 PARTIAL_SHARDS = (2, 4)
 # (kernel, norm, causal): B1 gLN and cLN causal, B2 gLN, B3 cLN causal
@@ -1208,6 +1223,44 @@ def _time_taps(torch, res: dict) -> None:
                                      nbytes(*targs) + z_bytes))
 
 
+def _time_tp(torch, res: dict) -> None:
+    """``--time tp``: B6 at ``B6_TIMED`` in bf16 and f32 (the widths this
+    tree's rule takes), by CUDA events and device time, and torch.matmul
+    at the wide products' shapes."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for hs, dilations in B6_TIMED:
+            if tcn_block_tp.shape_refusal(hs, B, P, False):
+                continue
+            args = (torch.nn.functional.leaky_relu(rn(M, K, hs), 0.25).to(dt),
+                    torch.stack([0.1 * rn(M), 1.0 + 0.1 * rn(M)], dim=-1),
+                    rn(P, hs, scale=0.1), rn(hs, B, scale=hs ** -0.5),
+                    torch.tensor(0.25, device="cuda"), 1.0 + 0.1 * rn(hs),
+                    0.1 * rn(hs), 1.0 + 0.1 * rn(hs))
+            for d in dilations:
+                name = f"b6 {dtype} Hs={hs} d={d}"
+
+                def call():
+                    return tcn_block_tp.fused_tp_stage2(*args, dilation=d,
+                                                        causal=False)
+
+                with torch.inference_mode():
+                    res[name] = _ms(torch, call, 20)
+                    _device_ms(torch, res, name, call)
+            if hs > 512:
+                a, w = rn(M * K, hs).to(dt), args[3].to(dt)
+                _device_ms(torch, res, f"torch.matmul {dtype} [{M * K},{hs}]"
+                           f"x[{hs},{B}]", lambda: torch.matmul(a, w))
+            del args
+
+
 def time_tree(path: str, what: str) -> None:
     """Times one tree into path: everything (``what`` "all") or the DPT
     forwards alone ("dpt-forward": ``_time_dpt_forwards`` and the
@@ -1238,6 +1291,10 @@ def time_tree(path: str, what: str) -> None:
         return
     if what == "taps":
         _time_taps(torch, res)
+        torch.save(res, path)
+        return
+    if what == "tp":
+        _time_tp(torch, res)
         torch.save(res, path)
         return
     _time_dpt_forwards(torch, res, rn)
@@ -1335,12 +1392,13 @@ def main() -> int:
                                     "convtasnet_tpu_torch/")
     ap.add_argument("--time", nargs="?", const="all",
                     choices=["all", "dpt-forward", "f32-attention",
-                             "padded", "taps"],
+                             "padded", "taps", "tp"],
                     help="also time both trees in turns: everything (the "
                          "default), the DPT forwards alone, the f32 "
                          "attention kernels at every head width, the DPT "
                          "kernels at widths off 64 beside the next one on "
-                         "the tile, or the TCN kernels at 3, 17 and 33 taps")
+                         "the tile, the TCN kernels at 3, 17 and 33 taps, "
+                         "or B6 at shard widths 128 to 1024")
     ap.add_argument("--out", help="write every number here as JSON")
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     ap.add_argument("--time-dump", help=argparse.SUPPRESS)

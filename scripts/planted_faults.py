@@ -312,6 +312,20 @@ FAULTS = {
         "stage_store<kTpBN>(st, z, B, r0, K, (i / nk) * kTpBN, tid);",
         "stage_store<kTpBN>(st, z, B, r0, K, ((i / nk + 1) % n_tiles) * "
         "kTpBN, tid);"),
+    # B6's wide route (shards past 512 channels): the channels past 512
+    # dropped from the gLN-2 sums, and from the product (their round(y g2)
+    # written as zeros)
+    "b6_wide_sums_drop_channels_past_512": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tp.cu",
+        "    t1 += v;\n    t2 += v * v;\n"
+        "    y[static_cast<size_t>(k) * Hs + c]",
+        "    if (c < 512) t1 += v;\n    if (c < 512) t2 += v * v;\n"
+        "    y[static_cast<size_t>(k) * Hs + c]"),
+    "b6_wide_product_drops_channels_past_512": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tp.cu",
+        "y[static_cast<size_t>(k) * Hs + c] = from_f<T>(v * g2);",
+        "y[static_cast<size_t>(k) * Hs + c] = from_f<T>(c < 512 ? v * g2 "
+        ": 0.f);"),
     # the padding of widths off the tiles: B1's wgmma gLN-1 statistics
     # over the padded H in place of the block's own, the intra kernels'
     # appended frames left unmasked as keys, and the bf16 DPT LN's mean

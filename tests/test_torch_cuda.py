@@ -1904,8 +1904,9 @@ def test_tp_stage2_kernel_matches_twin(cuda, dtype, Hs, dilation, causal):
 
 def test_tp_stage2_kernel_is_deterministic_and_refuses(cuda):
     """Two calls give the same bits; a shard width off the 64-column tile
-    runs padded; a shard wider than 512, an even P outside the causal
-    mode and a norm other than gLN are refused."""
+    runs padded; a shard wider than 512 runs (the wide route) within the
+    forward bars of the twin; an even P outside the causal mode and a norm
+    other than gLN are refused."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
 
     args = _tp2_args(cuda, torch.bfloat16, 128, seed=5, M=2, K=700)
@@ -1921,8 +1922,14 @@ def test_tp_stage2_kernel_is_deterministic_and_refuses(cuda):
         assert _rel_l2(z, z_want) <= TOL[torch.bfloat16]
         assert _rel_l2(sums, s_want) <= TOL[torch.bfloat16]
         wide = _tp2_args(cuda, torch.bfloat16, 576, M=2, K=700)
-        with pytest.raises(ValueError, match="at most 512"):
-            tp.fused_tp_stage2(*wide, **kw)
+        before = tp.fused_tp_stage2.launches
+        z, sums = tp.fused_tp_stage2(*wide, **kw)
+        torch.cuda.synchronize()
+        assert tp.fused_tp_stage2.launches == before + 1
+        z_want, s_want = tp.tp_stage2_reference(*wide, **kw)
+        assert z.shape == z_want.shape and torch.isfinite(z).all()
+        assert _rel_l2(z, z_want) <= TOL[torch.bfloat16]
+        assert _rel_l2(sums, s_want) <= TOL[torch.bfloat16]
         taps = _tp2_args(cuda, torch.bfloat16, 128, M=2, K=700, P=4)
         with pytest.raises(ValueError, match="P=4"):
             tp.fused_tp_stage2(*taps, dilation=1, causal=False)
@@ -1982,6 +1989,82 @@ def test_tp_stage2_first_design_widths(cuda, dtype, Hs):
     assert _rel_l2(sums, s_ord) <= TP_ORDER_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hs", [576, 600, 768, 1024])
+@pytest.mark.parametrize("dilation", [1, 16, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tp_stage2_wide_route_matches_twin(cuda, dtype, Hs, dilation,
+                                           causal):
+    """B6 on its wide route (a padded shard width above 512; 600 runs
+    padded to 640) at M = 4, K = 1199 (the last 64-row tile holds 47
+    rows): z and the gLN-2 sums against the twin at the forward bars and at
+    B6's rounding points within TP_ORDER_TOL, finite, one launch counted
+    per call, and two calls the same bits."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    args = _tp2_args(cuda, dtype, Hs, seed=Hs + dilation, M=4, K=1199)
+    kw = dict(dilation=dilation, causal=causal)
+    before = tp.fused_tp_stage2.launches
+    with torch.inference_mode():
+        z, sums = tp.fused_tp_stage2(*args, **kw)
+        z2, sums2 = tp.fused_tp_stage2(*args, **kw)
+        torch.cuda.synchronize()
+        z_want, s_want = tp.tp_stage2_reference(*args, **kw)
+        z_ord, s_ord = tp.tp_stage2_reference(*args, **kw, rounding="pallas")
+    assert tp.fused_tp_stage2.launches == before + 2
+    assert z.dtype == dtype and z.shape == z_want.shape == (4, 1199, 256)
+    assert torch.equal(z, z2) and torch.equal(sums, sums2)
+    assert torch.isfinite(z).all() and torch.isfinite(sums).all()
+    assert _rel_l2(z, z_want) <= TOL[dtype], _rel_l2(z, z_want)
+    assert _rel_l2(sums, s_want) <= TOL[dtype], _rel_l2(sums, s_want)
+    assert _rel_l2(z, z_ord) <= TP_ORDER_TOL[dtype], _rel_l2(z, z_ord)
+    assert _rel_l2(sums, s_ord) <= TP_ORDER_TOL[dtype], _rel_l2(sums, s_ord)
+
+
+def _zero_channel_shard(args, Hs):
+    """A shard's stage-2 operands widened to Hs channels whose dw, g1 and
+    b1 are zero (their h, W_out rows and g2 random): each such channel's y
+    is 0, so it adds nothing to z or to the gLN-2 sums."""
+    h, stats1, dw, w_out, a2, g1, b1, g2 = args
+    extra = Hs - h.shape[-1]
+    g = torch.Generator(device=h.device).manual_seed(Hs)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=h.device)
+
+    return (torch.cat([h, rn(*h.shape[:-1], extra).to(h.dtype)], dim=-1),
+            stats1, torch.nn.functional.pad(dw, (0, extra)),
+            torch.cat([w_out, rn(extra, w_out.shape[1])], dim=0), a2,
+            torch.nn.functional.pad(g1, (0, extra)),
+            torch.nn.functional.pad(b1, (0, extra)),
+            torch.cat([g2, 1.0 + rn(extra)]))
+
+
+@pytest.mark.parametrize("dtype,narrow", [(torch.float32, 512),
+                                          (torch.bfloat16, 448)])
+@pytest.mark.parametrize("Hs", [576, 1024])
+@pytest.mark.parametrize("dilation,causal", [(1, False), (128, True)])
+def test_tp_stage2_wide_route_zero_channels_same_bits(cuda, dtype, narrow,
+                                                      Hs, dilation, causal):
+    """The wide route against the first design bit for bit: a shard of
+    ``narrow`` channels (the first design's width: f32 at 512, bf16 at
+    448) padded to Hs with zero dw, g1 and b1 channels gives the narrow
+    shard's z, the same bits, and its gLN-2 sums within TP_ORDER_TOL (their
+    partials are summed over other tiles)."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
+
+    args = _tp2_args(cuda, dtype, narrow, seed=narrow + dilation, M=4,
+                     K=1199)
+    kw = dict(dilation=dilation, causal=causal)
+    with torch.inference_mode():
+        z, sums = tp.fused_tp_stage2(*args, **kw)
+        zw, sw = tp.fused_tp_stage2(*_zero_channel_shard(args, Hs), **kw)
+        torch.cuda.synchronize()
+    assert torch.isfinite(zw).all() and zw.abs().max() > 0
+    assert torch.equal(zw, z), (zw.float() - z.float()).abs().max().item()
+    assert _rel_l2(sw, sums) <= TP_ORDER_TOL[dtype], _rel_l2(sw, sums)
+
+
 def _tp_launches(before=None):
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
 
@@ -2031,6 +2114,50 @@ def test_tp_forward_launches_b6_only(cuda, n_model, pairs):
     torch.cuda.synchronize()
     assert _tp_launches(before) == {"b1": 0, "b2": 0, "b4": 0, "b5": 0,
                                     "b6": 32 * n_model}
+    assert np.isfinite(float(metrics["loss"]))
+
+
+@pytest.mark.parametrize("hidden", [1152, 2048])
+def test_tp_forward_wide_shards(cuda, hidden):
+    """The paper config widened to H = 1152 and 2048 over two shards (Hs =
+    576, one tile past the resident designs, and 1024): ``tp_forward``
+    launches B6 64 times and no other TCN kernel, within the forward bars
+    of the unsharded kernel path (B1 at H = 1152 / 2048) in bf16 and f32;
+    a TP train step launches B6 64 times, its loss finite."""
+    from convtasnet_tpu_torch import SolverConfig
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import (
+        make_tcn_tp_train_step,
+        tp_forward,
+    )
+    from convtasnet_tpu_torch.train.train_step import create_train_state
+
+    devices = shard_devices(2, cuda)
+    mix = torch.randn(2, 16000, generator=torch.Generator().manual_seed(
+        hidden)).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = ConvTasNetConfig(hidden=hidden,
+                               compute_dtype=str(dtype).split(".")[-1])
+        model = ConvTasNet(cfg, device=cuda).eval()
+        with torch.inference_mode(), _pair_switch(False):
+            want = model(mix)
+            before = _tp_launches()
+            got = tp_forward(cfg, model.state_dict(), mix, devices)
+            torch.cuda.synchronize()
+            assert _tp_launches(before) == {"b1": 0, "b2": 0, "b4": 0,
+                                            "b5": 0, "b6": 64}
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        assert _rel_l2(got, want) <= TOL[dtype], _rel_l2(got, want)
+    state = create_train_state(cfg, SolverConfig(), device=cuda)
+    step = make_tcn_tp_train_step(cfg, devices)
+    batch = (mix, torch.full((2,), 16000, device=cuda),
+             torch.randn(2, 2, 16000, device=cuda), torch.ones(2, device=cuda))
+    before = _tp_launches()
+    with _pair_switch(False):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert _tp_launches(before) == {"b1": 0, "b2": 0, "b4": 0, "b5": 0,
+                                    "b6": 64}
     assert np.isfinite(float(metrics["loss"]))
 
 

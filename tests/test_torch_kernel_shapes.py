@@ -68,13 +68,15 @@ def test_tcn_block_and_pair_rules(B, H, P, causal):
     assert pair == got
 
 
-@pytest.mark.parametrize("Hs", [64, 96, 192, 500, 512, 576])
+@pytest.mark.parametrize("Hs", [64, 96, 192, 500, 512, 576, 1024, 1088])
 @pytest.mark.parametrize("B", [64, 96, 256])
 def test_tp_stage2_rule(Hs, B):
-    """B6 takes any Hs = H / m and B (padded to multiples of 64) while the
-    padded Hs is at most 512."""
-    got = tcn_block_tp.shape_refusal(Hs, B, 3, False)
-    assert (got is None) == (-(-Hs // 64) * 64 <= 512), got
+    """B6 takes every Hs = H / m and B (padded to multiples of 64; a padded
+    Hs above 512 on its wide route) at any P ``taps_refusal`` takes."""
+    for P, causal in ((3, False), (17, True), (4, True)):
+        assert tcn_block_tp.shape_refusal(Hs, B, P, causal) is None
+    assert (tcn_block_tp.shape_refusal(Hs, B, 4, False)
+            == tcn_block.taps_refusal(4, False))
 
 
 def _attention_ok(kind, B, S, Bq, heads):
@@ -300,7 +302,8 @@ def test_ffn_rule(B):
     (dict(separator="dpt", bottleneck=384), 4, False, {}),
     (dict(separator="dpt"), 8, False, {}),
     (dict(separator="dpt", dpt_ff=1280), 4, False, {}),
-    (dict(hidden=1152), 2, False, {"stage2"}),
+    (dict(hidden=1152), 2, False, {}),
+    (dict(hidden=2048), 2, False, {}),
     (dict(separator="dpt", dpt_chunk=272), 1, False, {}),
     (dict(separator="dpt", dpt_chunk=320), 1, False, {}),
     (dict(separator="dpt", dpt_chunk=320, compute_dtype="bfloat16"), 1,
@@ -340,7 +343,8 @@ def test_ffn_rule(B):
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-B576",
         "dpt-B512", "dpt-tp2-B512", "dpt-tp7-B448-bf16", "dpt-tp4-B384",
         "dpt-tp8",
-        "dpt-tp4-F320", "tp-Hs576", "dpt-S272", "dpt-S320", "dpt-S320-bf16",
+        "dpt-tp4-F320", "tp-Hs576", "tp-Hs1024", "dpt-S272", "dpt-S320",
+        "dpt-S320-bf16",
         "dpt-tp2-S320-bf16", "dpt-S100-bf16", "dpt-d16", "dpt-d128",
         "dpt-tp2-d16", "dpt-tp2-d128", "dpt-tp4-d16", "dpt-d16-S272",
         "dpt-d128-S272", "dpt-d16-bf16", "dpt-d128-bf16", "dpt-tp2-d128-bf16",

@@ -285,3 +285,20 @@ def test_taps_bound(dtype, products, conv, nbytes, want):
     (989 TFLOP/s bf16, 67 TFLOP/s f32) and the bytes at 3.35 TB/s."""
     got = kvp._taps_bound_ms(dtype, products, conv, nbytes)
     assert got == pytest.approx(want, rel=2e-3)
+
+
+def test_b6_cases_cover_every_route_up_to_512():
+    """The bit proof runs B6 on every route a shard up to 512 channels
+    wide takes (bf16: the wgmma stage at 128, 256 and 512, the first design
+    at 448; f32: the first design), both of whose outputs are held bit for
+    bit; ``--time tp`` times the wide route's widths past 512 only in a tree
+    whose rule takes them (this one takes them all)."""
+    from convtasnet_tpu_torch.ops.cuda import tcn_block_tp
+
+    assert {hs for _, hs, _ in kvp.B6_CASES} == {128, 256, 448, 512}
+    assert {dt for dt, _, _ in kvp.B6_CASES} == {"bfloat16", "float32"}
+    assert all(kvp.bitwise(f"b6 {dt} Hs={hs} d={d} {out}")
+               for dt, hs, d in kvp.B6_CASES for out in ("z", "sums"))
+    assert [hs for hs, _ in kvp.B6_TIMED if hs > 512] == [576, 768, 1024]
+    assert all(tcn_block_tp.shape_refusal(hs, kvp.B, kvp.P, False) is None
+               for hs, _ in kvp.B6_TIMED)

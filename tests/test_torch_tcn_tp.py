@@ -13,8 +13,9 @@ Function ``tp_stage2_ad`` is held against ``jax.grad`` of JAX's
 own bars (rtol 2e-4, atol 2e-5). JAX runs under ``jax.jit``, once per
 case (module-scoped fixtures). The twin at the Pallas kernel's own
 rounding points (``rounding="pallas"``) is held against that kernel at
-1e-3 in bf16. The kernel B6 is held against both twins on the card
-(``tests/test_torch_cuda.py``).
+1e-3 in bf16. The stage-2 comparisons also run at shard widths above 512
+(576 and 1024), which B6 takes on its wide route. The kernel B6 is held
+against both twins on the card (``tests/test_torch_cuda.py``).
 """
 
 import functools
@@ -45,7 +46,7 @@ def _rel(got, want) -> float:
                                                   1e-30))
 
 
-def _stage2_inputs(K: int, seed: int = 1) -> dict:
+def _stage2_inputs(K: int, seed: int = 1, Hs: int = Hs) -> dict:
     """Seeded stage-2 operands, as tests/test_tcn_tp.py makes them."""
     rng = np.random.default_rng(seed)
     arrs = dict(
@@ -77,16 +78,10 @@ def _f32(t):
         jnp.asarray(t, jnp.float32))
 
 
-@pytest.fixture(scope="module", params=CASES,
-                ids=[f"d{d}-causal{int(c)}-K{k}" for d, c, k in CASES])
-def stage2_case(request):
-    """One case's inputs and JAX's results, each computed once under
-    jax.jit: xla_tp_stage2 and the interpret-mode Pallas stage 2 in both
-    dtypes, and the cotangents of sum(z^2) + sum(sums) through JAX's
-    tp_stage2_ad in f32."""
-    d, causal, K = request.param
-    arrs = _stage2_inputs(K)
-    out = {"case": request.param, "arrs": arrs}
+def _jax_stage2(arrs, d, causal) -> dict:
+    """xla_tp_stage2 and the interpret-mode Pallas stage 2 of ``arrs`` in
+    both dtypes, each under jax.jit."""
+    out = {}
     for name, (jdt, _, _) in DTYPES.items():
         args = _to_jax(arrs, jdt)
         xla = jax.jit(functools.partial(jtp.xla_tp_stage2, dilation=d,
@@ -96,6 +91,19 @@ def stage2_case(request):
             interpret=True))
         out[name] = {"xla": jax.device_get(xla(*args)),
                      "pallas": jax.device_get(fused(*args))}
+    return out
+
+
+@pytest.fixture(scope="module", params=CASES,
+                ids=[f"d{d}-causal{int(c)}-K{k}" for d, c, k in CASES])
+def stage2_case(request):
+    """One case's inputs and JAX's results, each computed once under
+    jax.jit: xla_tp_stage2 and the interpret-mode Pallas stage 2 in both
+    dtypes, and the cotangents of sum(z^2) + sum(sums) through JAX's
+    tp_stage2_ad in f32."""
+    d, causal, K = request.param
+    arrs = _stage2_inputs(K)
+    out = {"case": request.param, "arrs": arrs, **_jax_stage2(arrs, d, causal)}
 
     def loss(*a):
         z, s = jtp.tp_stage2_ad((d, causal, "t16", True), *a)
@@ -139,6 +147,45 @@ def test_pallas_rounding_twin_matches_the_pallas_kernel(stage2_case, dtype):
     bar = PALLAS_ORDER_TOL[dtype]
     assert _rel(_f32(z), _f32(z_want)) <= bar
     assert _rel(_f32(sums), _f32(s_want)) <= bar
+
+
+# shards wider than 512 channels (B6's wide route on the card): one tile
+# past it and two shards of H = 2048, at CASES' dilations and lengths
+WIDE_CASES = [(576, 2, False, 48), (1024, 4, True, 37)]
+
+
+@pytest.fixture(scope="module", params=WIDE_CASES,
+                ids=[f"Hs{h}-d{d}-causal{int(c)}-K{k}"
+                     for h, d, c, k in WIDE_CASES])
+def wide_case(request):
+    """A shard wider than 512: its inputs (M = 2, B = 6) and JAX's
+    xla_tp_stage2 and interpret-mode Pallas stage 2 in both dtypes."""
+    hs, d, causal, K = request.param
+    arrs = _stage2_inputs(K, seed=hs, Hs=hs)
+    return {"case": (d, causal, K), "arrs": arrs,
+            **_jax_stage2(arrs, d, causal)}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_wide_shard_twin_matches_jax(wide_case, dtype, ref):
+    """At shard widths above 512 the twin (``fused_tp_stage2``'s CPU
+    branch) against xla_tp_stage2 and the Pallas kernel in interpret mode
+    at this file's bars; at the Pallas kernel's rounding points against
+    that kernel within PALLAS_ORDER_TOL."""
+    d, causal, _ = wide_case["case"]
+    _, tdt, bar = DTYPES[dtype]
+    args = _to_port(wide_case["arrs"], tdt)
+    z, sums = port.fused_tp_stage2(*args, dilation=d, causal=causal)
+    z_want, s_want = wide_case[dtype][ref]
+    assert z.dtype == tdt and tuple(z.shape) == tuple(z_want.shape)
+    assert _rel(_f32(z), _f32(z_want)) <= bar
+    assert _rel(_f32(sums), _f32(s_want)) <= bar
+    if ref == "pallas":
+        z, sums = port.tp_stage2_reference(*args, dilation=d, causal=causal,
+                                           rounding="pallas")
+        assert _rel(_f32(z), _f32(z_want)) <= PALLAS_ORDER_TOL[dtype]
+        assert _rel(_f32(sums), _f32(s_want)) <= PALLAS_ORDER_TOL[dtype]
 
 
 def test_fused_stage2_on_cpu_is_the_twin(stage2_case):

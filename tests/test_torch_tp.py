@@ -4,8 +4,9 @@ package's (``convtasnet_tpu/parallel/tensor_parallel.py``).
 - ``tp_forward`` against JAX's jitted ``tp_forward`` on a (1 data x m
   model) mesh of virtual CPU devices with ``use_pallas=False`` (JAX's
   interpret-mode whole forward is a slow test there): gLN from one bridged
-  JAX variables tree at m = 2 and 4, and the causal cLN model at m = 2,
-  f32 within 1e-5 relative L2.
+  JAX variables tree at m = 2 and 4, gLN with shards wider than 512
+  channels (H = 1152 at m = 2), and the causal cLN model at m = 2, f32
+  within 1e-5 relative L2.
 - Against the port's own unsharded model (itself held against JAX): BN
   with running statistics, a softmax mask head over three speakers, and
   gLN in bf16 (4e-2); the per-norm decomposition of a gLN model against
@@ -85,6 +86,20 @@ def test_tp_forward_gln_matches_jax(gln_case, n_model):
     assert got.dtype == torch.float32
     assert got.shape == gln_case["want"].shape
     assert _rel(got.numpy(), gln_case["want"]) <= 1e-5
+
+
+def test_tp_forward_wide_shards_match_jax():
+    """Shards wider than 512 channels (H = 1152 over two: Hs = 576, B6's
+    wide route on the card; its twin here) serve JAX's output."""
+    cfg = dataclasses.replace(TINY, hidden=1152, num_repeats=1)
+    variables = jax.device_get(jmodel.init_params(
+        cfg, jax.random.PRNGKey(5), example_len=T))
+    mix = _mixture(seed=8)
+    want = _jax_forward(cfg, variables, mix, 2)
+    got = ptp.tp_forward(cfg, state_dict_from_jax(variables, cfg),
+                         torch.from_numpy(mix), shard_devices(2, "cpu"))
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want) <= 1e-5
 
 
 def test_tp_forward_causal_cln_matches_jax():
