@@ -75,8 +75,9 @@ Phases, each raising on failure (so the script exits nonzero):
    off the kernels' tiles, each serve a batch and train a step through the
    kernels, padded, within the bf16 forward bar of the plain model, and so
    does a DPT at ``--B 96`` (3 heads of 32; B and every head group off 64,
-   padded with zero columns and a zero head); a DPT at B = 576, which no
-   kernel takes, raises before any launch;
+   padded with zero columns and a zero head); a DPT at ``--B 96
+   --dpt-heads 2`` (a head width of 48), which no kernel takes, raises
+   before any launch;
 6. the TCN serving path: ``separate`` on four seeded 4 s mixtures with a
    paper-config model (random weights from seed 0) in bf16 and in f32,
    through the block pairs (``CONVTASNET_PAIR_FUSION=1``: B4 16 times per
@@ -136,7 +137,19 @@ Phases, each raising on failure (so the script exits nonzero):
    bars; exact launch counts), ``cli train --B 512 --n-model 2`` through
    B7p-B12p and its package through ``cli separate --tensor-parallel 2``,
    and each kernel's device time there beside its twin's and its bound;
-   then the DPT widths off the kernels' 64-column tile, which the wrappers
+   then the DPT above 512 (``phase_dpt_wider``: the routes beside the
+   resident tiles): B7-B12 alone at [8, 25, 128, 1024] and 576 and
+   B7p-B12p at 1024 on one shard of two against their twins, B = 512
+   padded to 576 with the LN over its first 512 columns against B = 512
+   (the forwards and the cotangents of ``WIDER_BITS`` bit for bit), the
+   quality default at ``--B 1024`` and ``--B 576`` served (bf16, f32) and
+   stepped (f32 at both, bf16 over three seeds at 1024) against plain,
+   ``cli train`` / ``separate`` / ``evaluate`` under ``--use-pallas -1``
+   at ``--B 1024`` bf16 and ``--B 576`` f32, ``cli train --B 1024
+   --n-model 2`` and ``separate --tensor-parallel 2`` (exact launch
+   counts), and each kernel's device time at 1024 with ``torch.matmul``
+   at the products' shapes; then the DPT widths off the kernels' 64-column
+   tile, which the wrappers
    zero-pad (zero columns, zero heads; each LN over the sublayer's own B,
    ``phase_dpt_padded``): B7-B12 alone at [8, 25, 128, B], B = 96, 160
    and 480, and B7p-B12p on shards of 32 channels (B = 256 over 8) and 96
@@ -2115,8 +2128,9 @@ def phase_auto_padded(torch, k, dpt):
     step's loss finite; so does the DPT quality default at ``--B 96`` (3
     heads of 32: B7-B12 pad B to 128 with zero columns and the heads with a
     zero head, each LN over the real 96 columns), with the same counts. A
-    shape no kernel takes (the DPT at B = 576, above the kernels' 512)
-    raises under auto as with ``use_pallas=True``, before any launch."""
+    shape no kernel takes (the DPT at ``--B 96 --dpt-heads 2``, a head
+    width of 48) raises under auto as with ``use_pallas=True``, before any
+    launch."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.ops.cuda import shapes
@@ -2170,26 +2184,27 @@ def phase_auto_padded(torch, k, dpt):
               and math.isfinite(loss), f"auto mode {label}: {err:.3e}, "
               f"loss {loss}")
         del plain, state
-    wide = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16",
-                            bottleneck=576, dpt_heads=18)
+    refused = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16",
+                               bottleneck=96, dpt_heads=2)
     tcn_reset(k)
     reset_dpt_all(dpt)
     for use_pallas in (None, True):
-        model = ConvTasNet(wide, use_pallas=use_pallas, device="cuda").eval()
+        model = ConvTasNet(refused, use_pallas=use_pallas,
+                           device="cuda").eval()
         try:
             with torch.inference_mode():
                 model(mix)
             raised = "nothing"
         except ValueError as e:
             raised = str(e)
-        print(f"auto mode, dpt B=576: use_pallas={use_pallas} raises "
+        print(f"auto mode, dpt B=96 d=48: use_pallas={use_pallas} raises "
               f"{raised!r}", flush=True)
-        check("at most 512" in raised,
-              f"dpt B=576 use_pallas={use_pallas} raised {raised!r}")
+        check("head width" in raised,
+              f"dpt B=96 d=48 use_pallas={use_pallas} raised {raised!r}")
         del model
     launched = {**tcn_counts(k), **{kind: dpt_fns(dpt, kind)[0].launches
                                     for kind in DPT_KINDS}}
-    check(not any(launched.values()), f"dpt B=576 launched {launched}")
+    check(not any(launched.values()), f"dpt B=96 d=48 launched {launched}")
     print(f"auto mode phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -2647,7 +2662,7 @@ def phase_dpt_head_widths(torch, dpt):
                 dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
 
 
-WIDE_B = 512   # the widest DPT the kernels take (dpt_attention.MAX_WIDTH)
+WIDE_B = 512   # the widest DPT on the kernels' resident tiles (kWideMax)
 # (width, shards): the kernels alone at [8, 25, 128, B], B / 32 heads: B7-B12
 # at 512 and 320, and B7p-B12p on the last shard of two at 512
 WIDE_CASES = ((WIDE_B, 1), (WIDE_B, 2), (320, 1))
@@ -2753,22 +2768,24 @@ def kernel_name(key: str) -> str:
     return key
 
 
-def wide_timings(torch, dpt, card: str) -> None:
-    """Device time per call of each DPT kernel at [8, 25, 128, 512] (16
-    heads of 32; the FFN at [8, 3200, 512], F = 1024) with the real key
-    mask, forward and backward, full and on one shard of two, bf16 and
-    f32, beside its twin's time (CUDA events) and its bound (the FLOP at
-    989 TFLOP/s bf16 or 67 TFLOP/s f32 FMA, or the bytes at 3.35 TB/s)
-    and each launch's share; and the f32 B11 and B12 at the quality
-    default's width [8, 3200, 256]."""
-    cases = [(WIDE_B, m, dtype) for dtype in (torch.bfloat16, torch.float32)
+def wide_timings(torch, dpt, card: str, width: int = WIDE_B,
+                 narrow: bool = True) -> None:
+    """Device time per call of each DPT kernel at [8, 25, 128, width]
+    (width / 32 heads of 32; the FFN at [8, 3200, width], F = 1024) with
+    the real key mask, forward and backward, full and on one shard of two,
+    bf16 and f32, beside its twin's time (CUDA events) and its bound (the
+    FLOP at 989 TFLOP/s bf16 or 67 TFLOP/s f32 FMA, or the bytes at 3.35
+    TB/s) and each launch's share; with ``narrow``, the f32 B11 and B12 at
+    the quality default's width [8, 3200, 256] too."""
+    cases = [(width, m, dtype) for dtype in (torch.bfloat16, torch.float32)
              for m in (1, 2)]
-    cases += [(DPT_B, 1, torch.float32)]
+    if narrow:
+        cases += [(DPT_B, 1, torch.float32)]
     for B, m, dtype in cases:
         name = str(dtype).split(".")[-1]
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         heads = B // 32
-        kinds = DPT_KINDS if B == WIDE_B else ("ffn",)
+        kinds = DPT_KINDS if B == width else ("ffn",)
         for kind in kinds:
             kw = ({} if kind == "ffn" else {"n_heads": heads // m})
             if m > 1:
@@ -2852,6 +2869,260 @@ def phase_dpt_wide(torch, dpt, work: str, data: str, json_dir: str,
           f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }, TP train "
           f"partial launches {tp}; {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+WIDER_B = 1024   # the DPT the smoke serves and trains past the resident tiles
+# (width, shards): the kernels alone at [8, 25, 128, B], B / 32 heads, on
+# the routes above 512: B7-B12 at 1024 (the f32 inter cores staging 16 key
+# chunks a load) and 576, B7p-B12p on the last shard of two at 1024
+WIDER_CASES = ((WIDER_B, 1), (WIDER_B, 2), (576, 1))
+# the cotangents (dpt_bwd_fns order) that keep the B = 512 bits when the
+# sublayer runs at 576 with 64 zero columns and two zero heads: every one
+# in f32; in bf16 dx, dgamma, dbeta (and the FFN's bias gradients), while
+# the weight gradients sum their rows in chunks that wg_wgrad_chunk picks
+# from the operands' widths (another chunk at the padded width: held by
+# the twins' bars; PERF.md §6 names the launch)
+WIDER_BITS = {
+    ("float32", "inter"): (0, 1, 2, 3, 4),
+    ("float32", "intra"): (0, 1, 2, 3, 4),
+    ("float32", "ffn"): (0, 1, 2, 3, 4, 5, 6),
+    ("bfloat16", "inter"): (0, 1, 2),
+    ("bfloat16", "intra"): (0, 1, 2),
+    ("bfloat16", "ffn"): (0, 1, 2, 4, 6),
+}
+
+
+def zero_column_operands(torch, args, kind: str, to: int, extra_heads: int):
+    """A sublayer's operands padded to ``to`` columns: zero columns of x,
+    gamma, beta (and b_down), zero rows and columns of the weights that
+    meet them, and in each of q, k and v ``extra_heads`` zero heads of
+    32."""
+    import torch.nn.functional as F
+
+    B = args[0].shape[-1]
+    pad = to - B
+    if kind == "ffn":
+        x, g_, b_, w_up, b_up, w_down, b_down = args
+        return (F.pad(x, (0, pad)), F.pad(g_, (0, pad)), F.pad(b_, (0, pad)),
+                F.pad(w_up, (0, 0, 0, pad)), b_up, F.pad(w_down, (0, pad)),
+                F.pad(b_down, (0, pad)))
+    x, g_, b_, w_qkv, w_out, bias = args
+    dq = 32 * extra_heads
+    qkv = torch.cat([F.pad(t, (0, dq, 0, pad)) for t in w_qkv.split(B, 1)],
+                    dim=1)
+    return (F.pad(x, (0, pad)), F.pad(g_, (0, pad)), F.pad(b_, (0, pad)),
+            qkv, F.pad(w_out, (0, pad, 0, dq)), bias)
+
+
+def wider_zero_columns(torch, dpt, failures: list) -> None:
+    """The routes above 512 against the resident ones, bit for bit: each
+    of B7-B12 at [8, 25, 128, 512] (16 heads of 32, F = 1024; the real key
+    mask), and the same sublayer padded to 576 with 64 zero columns and
+    two zero heads, run through the CUDA branch with its LN over the first
+    Bn = 512 columns (``launch_attention(..., Bn=512)``, the FFN's
+    ``_launch_cuda``): the forward the B = 512 bits, and the cotangents of
+    ``WIDER_BITS`` the B = 512 backward's bits; bf16 and f32."""
+    import torch.nn.functional as F
+
+    for kind in DPT_KINDS:
+        fused, _ = dpt_fns(dpt, kind)
+        fused_b, _ = dpt_bwd_fns(dpt, kind)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, g, w, kw, _ = dpt_bwd_inputs(torch, kind, dtype, 25, 3199,
+                                            seed=7400, heads=16, B=512)
+            xw, *ww = zero_column_operands(torch, (x, *w), kind, 576, 2)
+            gw = F.pad(g, (0, 64))
+            with torch.inference_mode():
+                out = fused(x, *w, **kw)
+                if kind == "ffn":
+                    out_w = dpt["ffn"]._launch_cuda(xw, *ww, Bn=512)
+                else:
+                    out_w = dpt["inter"].launch_attention(
+                        kind, xw, *ww, n_heads=18, Bn=512)
+            grads = fused_b(x, g, *w, **kw)
+            if kind == "ffn":
+                grads_w = dpt["ffn"]._launch_cuda_bwd(xw, gw, *ww, Bn=512)
+            else:
+                dx, dgam, dbet, dwq, dwo = dpt["inter"].launch_attention_bwd(
+                    kind, xw, gw, *ww, n_heads=18, Bn=512)
+                dwq = dwq.reshape(512, 3, 576)[:, :, :512].reshape(512, -1)
+                grads_w = (dx, dgam, dbet, dwq, dwo[:512])
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(grads_w, grads)]
+            names = DPT_GRAD_NAMES[kind]
+            fwd_same = torch.equal(out_w, out)
+            print(f"dpt {kind} {name} zero columns 512 -> 576 (Bn 512): "
+                  f"forward the same bits {fwd_same}; cotangents the same "
+                  f"bits {dict(zip(names, same))}", flush=True)
+            held = WIDER_BITS[(name, kind)]
+            if not fwd_same or not all(same[i] for i in held):
+                failures.append(
+                    f"{kind} {name} zero columns: forward {fwd_same}, "
+                    f"{[names[i] for i in held if not same[i]]} moved")
+
+
+def phase_dpt_wider_kernels(torch, dpt) -> dict:
+    """B7-B12 and B7p-B12p above 512 (``WIDER_CASES``) against their twins
+    as ``wide_kernels_vs_twins`` holds them, and the zero-column bits of
+    ``wider_zero_columns``. Returns the worst max_abs_err per kernel."""
+    t0 = time.perf_counter()
+    failures = []
+    worst = wide_kernels_vs_twins(torch, dpt, failures, cases=WIDER_CASES)
+    wider_zero_columns(torch, dpt, failures)
+    check(not failures, "DPT kernels above 512 disagree: "
+          + "; ".join(failures))
+    print(f"dpt kernels above 512: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return worst
+
+
+def wider_cli_path(torch, dpt, work: str, data: str, json_dir: str,
+                   width: int, dtype: str) -> dict:
+    """``cli train --separator dpt --B width --compute-dtype dtype
+    --use-pallas -1`` on the corpus of ``make_corpus`` (one epoch of 4
+    steps at batch 8 x 4 s and a cv pass), then ``cli separate`` and ``cli
+    evaluate`` of its package under auto: every loss finite; per step 4
+    B7, 4 B9 and 8 B11 and 4 B8, 4 B10 and 8 B12, per cv or served batch
+    the forwards; the separated wavs finite and of the mixtures' lengths,
+    SI-SNRi finite. Returns the train run's backward launches."""
+    import contextlib
+    import io
+
+    from convtasnet_tpu_torch import cli
+
+    cfg = dpt_config(dtype)
+    per_batch = {"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
+                 "ffn": 2 * cfg.dpt_layers}
+    n_cv = 2
+    label = f"--B {width} {dtype}"
+    out = os.path.join(work, f"exp_dpt_B{width}_{dtype}")
+    os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
+    reset_dpt_all(dpt)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main([
+            "train", "--train-dir", os.path.join(json_dir, "tr"),
+            "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
+            out, "--device", "cuda", "--separator", "dpt", "--B",
+            str(width), "--compute-dtype", dtype, "--use-pallas", "-1",
+            "--epochs", "1", "--batch-size", "8", "--print-freq", "1"])
+    torch.cuda.synchronize()
+    os.environ.pop("CONVTASNET_SEGMENT_CACHE")
+    wall = time.perf_counter() - t0
+    fwd, bwd = dpt_launches(dpt), dpt_bwd_launches(dpt)
+    check(rc == 0, f"cli train {label} returned {rc}")
+    with open(os.path.join(out, "history.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "iter"]
+    n_steps = len(losses)
+    check(n_steps == 4 and all(math.isfinite(v) for v in losses),
+          f"cli train {label}: losses {losses}")
+    want_fwd = {k: v * (n_steps + n_cv) for k, v in per_batch.items()}
+    want_bwd = {k: v * n_steps for k, v in per_batch.items()}
+    check(fwd == want_fwd and bwd == want_bwd, f"cli train {label}: "
+          f"launches {fwd} / {bwd}, expected {want_fwd} / {want_bwd}")
+    pkg = os.path.join(out, "final.ckpt")
+    mix_dir = os.path.join(data, "cv", "mix")
+    sep_dir = os.path.join(work, f"sep_dpt_B{width}_{dtype}")
+    reset_dpt_all(dpt)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["separate", "--model-path", pkg, "--mix-dir", mix_dir,
+                       "--out-dir", sep_dir, "--batch-size", str(n_cv),
+                       "--device", "cuda", "--use-pallas", "-1"])
+    torch.cuda.synchronize()
+    sep = dpt_launches(dpt)
+    check(rc == 0 and sep == per_batch, f"cli separate {label}: rc {rc}, "
+          f"launches {sep}, expected {per_batch}")
+    check_wavs(sep_dir, mix_dir)
+    reset_dpt_all(dpt)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["evaluate", "--model-path", pkg, "--data-dir",
+                       os.path.join(json_dir, "cv"), "--batch-size",
+                       str(n_cv), "--use-pallas", "-1"])
+    torch.cuda.synchronize()
+    ev = dpt_launches(dpt)
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and ev == per_batch and math.isfinite(result["si_snri"]),
+          f"cli evaluate {label}: rc {rc}, launches {ev}, {result}")
+    print(f"cli train / separate / evaluate {label} (--use-pallas -1): "
+          f"{n_steps} steps, losses {[round(v, 4) for v in losses]}, "
+          f"launches {fwd} / {bwd}; separate {sep}; evaluate {ev}, "
+          f"{result}; train {wall:.1f} s, all {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    return bwd
+
+
+def wider_matmuls(torch, card: str, width: int) -> None:
+    """``torch.matmul`` at the products of the DPT sublayers at [8, 25,
+    128, width] (R = 25,600 rows; F = 1024), bf16 and f32, device time per
+    call: the QKV product [R, B] x [B, 3B], the out product [R, B] x [B,
+    B], the FFN's [R, B] x [B, F] and [R, F] x [F, B]: the library's time
+    for the projections the kernels run."""
+    R, B, F = 8 * 25 * DPT_S, width, DPT_F
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for label, (m, k, n) in (("qkv", (R, B, 3 * B)), ("out", (R, B, B)),
+                                 ("ffn up", (R, B, F)),
+                                 ("ffn down", (R, F, B))):
+            a = torch.randn(m, k, device="cuda").to(dtype)
+            b = torch.randn(k, n, device="cuda").to(dtype)
+            ms, _ = device_ms(torch, lambda: torch.matmul(a, b), 10)
+            print(f"timing [{card}] torch.matmul {label} [{m}, {k}] x [{k}, "
+                  f"{n}] {name}: device {ms:.4f} ms", flush=True)
+
+
+def phase_dpt_wider(torch, dpt, work: str, data: str, json_dir: str,
+                    card: str):
+    """The DPT above 512 channels, on the routes beside the resident tiles
+    (``csrc/dpt_attn_bwd_wg.cuh``'s streamed LQ and F1, launch_qkv_rows,
+    ln_bwd_wide_kernel, the f32 inter cores' smaller key staging): each
+    kernel alone against its twin and the zero-column bits
+    (``phase_dpt_wider_kernels``); the quality default at ``--B 1024``
+    (32 heads of 32, F = 1024) and ``--B 576`` (18 heads), random weights
+    from seed 0, one forward kernel path against plain path in bf16 and
+    f32 (B=4 x 4 s; 4 B7, 4 B9, 8 B11), one f32 train step against plain
+    at both widths and the bf16 step over three seeds at 1024 (4 B8, 4 B10,
+    8 B12); ``cli train``, ``cli separate`` and ``cli evaluate`` under
+    ``--use-pallas -1`` at ``--B 1024`` bf16 and ``--B 576`` f32
+    (``wider_cli_path``); ``cli train --B 1024 --n-model 2`` through
+    B7p-B12p and its package through ``cli separate --tensor-parallel 2``;
+    and ``wide_timings`` at 1024 with ``torch.matmul`` at the products'
+    shapes."""
+    import dataclasses
+
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
+    from convtasnet_tpu_torch.ops.cuda import shapes
+
+    t0 = time.perf_counter()
+    worst = phase_dpt_wider_kernels(torch, dpt)
+    batch = train_batch(torch, 4, 41)
+    for width in (WIDER_B, 576):
+        label = f"--B {width}"
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(dpt_config(dtype), bottleneck=width)
+            check(cfg.dpt_num_heads == width // 32
+                  and not shapes.refusals(cfg),
+                  f"dpt {label}: heads {cfg.dpt_num_heads}, refused "
+                  f"{shapes.refusals(cfg)}")
+            sd = init_params(cfg, torch.Generator().manual_seed(0))
+            dpt_forward_vs_plain(torch, dpt, cfg, sd, batch[0], label)
+            if dtype == "float32":
+                dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
+            elif width == WIDER_B:
+                dpt_step_medians(torch, dpt, cfg, sd, (41, 42, 43), label,
+                                 DPT_KINDS, batch)
+    cli = {f"B{w} {d}": wider_cli_path(torch, dpt, work, data, json_dir, w, d)
+           for w, d in ((WIDER_B, "bfloat16"), (576, "float32"))}
+    tp = phase_dpt_tp_train_path(torch, dpt, work, data, json_dir,
+                                 width=WIDER_B)
+    wide_timings(torch, dpt, card, width=WIDER_B, narrow=False)
+    wider_matmuls(torch, card, WIDER_B)
+    print(f"dpt above 512 phase: worst max_abs_err vs twins "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }, cli "
+          f"backward launches {cli}, TP train partial launches {tp}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # (width, shards): the widths off 64 that the wrappers zero-pad
@@ -4607,6 +4878,12 @@ def main() -> int:
         # against its twin, served and stepped against plain, cli train
         # --n-model 2 through B7p-B12p, and their device times
         phase_dpt_wide(torch, dpt, work, data, json_dir, card)
+        # the DPT above 512 (--B 1024 and 576), on the routes beside the
+        # resident tiles: each kernel alone against its twin and the
+        # zero-column bits, served and stepped against plain, cli train /
+        # separate / evaluate under auto, cli train --B 1024 --n-model 2,
+        # and the device times at 1024
+        phase_dpt_wider(torch, dpt, work, data, json_dir, card)
         # the DPT widths off 64, zero-padded with each LN over its own B:
         # each kernel alone against its twin, --B 96 served and stepped
         # against plain, cli train --B 192 --n-model 2 through B7p-B12p

@@ -37,7 +37,8 @@
 //   out x + round(a @ W_out) on wgmma per 128-row tile (partial: the
 //       product alone; rows_wg_kernel).
 // Above B = 256 (to 512) F1 keeps one resident tile and out runs
-// 256-column tiles, as B9 does (dpt_attn_bwd_wg.cuh's note).
+// 256-column tiles, as B9 does (dpt_attn_bwd_wg.cuh's note); above 512 F1
+// streams y through device memory (launch_qkv_streamed there).
 // At the default the core's 8,192 CTAs read qkv once (39.3 MB, each CTA a
 // 64-byte head slice of 25 rows 196 KB apart) and write a (13.1 MB), a
 // floor of ~16 us; it reads ~30 us (PERF.md), under the ~35 us at which a
@@ -62,6 +63,15 @@
 // holding 64 of its dimensions, and each dot product is the two halves'
 // sums added by one shuffle; 16 query chunks per warp pass. At d <= 64
 // (G = 1) every value and every order of summation is as before.
+// Above Bq = 512 (the heads' width; chosen by Bq alone) 32 key chunks of
+// k and v for all heads, 256 Bq bytes, pass the block's shared memory at
+// Bq = 960, so the core stages fewer per load (kKeys = 0:
+// inter_wide_keys in dpt_common.cuh, 16 chunks up to Bq = 1024, 8 up to
+// 2048), each warp taking its heads in turn; the online max and
+// denominator and every sum still run key by key in order, so the values
+// are those a 32-chunk staging would give. Above B = 512 launch 1 runs as
+// ln_rows_kernel + gemm_rows_kernel through the output buffer
+// (launch_qkv_rows, dpt_bwd_common.cuh).
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // sublayer runs the h heads of one shard's head group, of width Bq = h * d:
@@ -74,19 +84,22 @@
 
 namespace {
 
-constexpr int kKeyTile = 32;   // key chunks staged per shared-memory load
+constexpr int kKeyTile = kInterKeys;   // key chunks staged per load
 
-template <typename T>
+// The core's shared memory with kKeys (inter_core_keys).
+template <typename T, int kKeys = kKeyTile>
 size_t inter_core_smem(int Bq) {
-  return align128(static_cast<size_t>(kKeyTile) * 2 * Bq * sizeof(T)) +
-         kKeyTile * sizeof(float);
+  const int keys = inter_core_keys<T, kKeys>(Bq);
+  return align128(static_cast<size_t>(keys) * 2 * Bq * sizeof(T)) +
+         keys * sizeof(float);
 }
 
 // f32's core (the first design, top note). Grid (S, M); 32 * core_warps(h)
 // threads, warp = head (kTurns: heads warp, warp + warps, ... in turn), G
-// lanes per query chunk. B below is the heads' width Bq: the rows of qkv
-// hold 3Bq values, those of a Bq.
-template <typename T, int D, bool kTurns>
+// lanes per query chunk; kKeys key chunks staged per load (0: as many as
+// inter_wide_keys gives, above Bq = 512). B below is the heads' width Bq:
+// the rows of qkv hold 3Bq values, those of a Bq.
+template <typename T, int D, bool kTurns, int kKeys = kKeyTile>
 __global__ void __launch_bounds__(256)
     inter_core_kernel(DptAttnParams p, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -94,16 +107,17 @@ __global__ void __launch_bounds__(256)
   constexpr int G = InterLanes<D>::G;
   constexpr int DL = InterLanes<D>::DL;
   const int n = p.n, S = p.S, B = p.Bq;
+  const int key_tile = inter_core_keys<T, kKeys>(B);
   T* kv_s = reinterpret_cast<T*>(smem);
   float* b_s = reinterpret_cast<float*>(
-      smem + align128(static_cast<size_t>(kKeyTile) * 2 * B * sizeof(T)));
+      smem + align128(static_cast<size_t>(key_tile) * 2 * B * sizeof(T)));
   const int s = blockIdx.x, m = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % G;   // which DL dimensions of the head
   const size_t stride = static_cast<size_t>(S) * 3 * B;  // chunk to chunk
   const T* base = static_cast<const T*>(p.qkv) +
                   (static_cast<size_t>(m) * n * S + s) * 3 * B;
-  const bool one_tile = n <= kKeyTile;
+  const bool one_tile = n <= key_tile;
 
   // k and v (columns B..3B) of key chunks k0..k0+kt, and their biases
   auto load_tile = [&](int k0, int kt) {
@@ -149,8 +163,8 @@ __global__ void __launch_bounds__(256)
       load_row(base + static_cast<size_t>(valid ? qc : 0) * stride + col0, q);
 
       float mx = -INFINITY, sum = 0.f;
-      for (int k0 = 0; k0 < n; k0 += kKeyTile) {
-        const int kt = min(kKeyTile, n - k0);
+      for (int k0 = 0; k0 < n; k0 += key_tile) {
+        const int kt = min(key_tile, n - k0);
         load_tile(k0, kt);
         for (int j = 0; j < kt; ++j) {
           const float sc = score(q, j);
@@ -163,8 +177,8 @@ __global__ void __launch_bounds__(256)
       float acc[DL];
 #pragma unroll
       for (int t = 0; t < DL; ++t) acc[t] = 0.f;
-      for (int k0 = 0; k0 < n; k0 += kKeyTile) {
-        const int kt = min(kKeyTile, n - k0);
+      for (int k0 = 0; k0 < n; k0 += key_tile) {
+        const int kt = min(key_tile, n - k0);
         if (!one_tile) load_tile(k0, kt);
         for (int j = 0; j < kt; ++j) {
           const float w = round_to<T>(expf(score(q, j) - mx) / sum);
@@ -195,10 +209,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int D, bool kTurns>
+template <typename T, int D, bool kTurns, int kKeys = kKeyTile>
 int launch_core_turns(const DptAttnParams& p, cudaStream_t stream) {
-  const size_t smem = inter_core_smem<T>(p.Bq);
-  auto kernel = inter_core_kernel<T, D, kTurns>;
+  const size_t smem = inter_core_smem<T, kKeys>(p.Bq);
+  auto kernel = inter_core_kernel<T, D, kTurns, kKeys>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -210,8 +224,11 @@ int launch_core_turns(const DptAttnParams& p, cudaStream_t stream) {
 
 // A warp a head (kTurns false) up to 8 heads at d >= 32; each warp its
 // heads in turn otherwise (core_warps), as at d = 16 at every head count.
+// Above Bq = 512 (chosen by Bq alone) fewer key chunks a load (kKeys 0),
+// each warp its heads in turn (one each at up to 8 heads).
 template <typename T, int D>
 int launch_core(const DptAttnParams& p, cudaStream_t stream) {
+  if (p.Bq > kWideMax) return launch_core_turns<T, D, true, 0>(p, stream);
   return D == 16 || p.h > 8 ? launch_core_turns<T, D, true>(p, stream)
                             : launch_core_turns<T, D, false>(p, stream);
 }

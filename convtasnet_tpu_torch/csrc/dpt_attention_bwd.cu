@@ -57,6 +57,12 @@
 // is as before. The key side's four rows (k, v, dk, dv) spill at 64
 // dimensions a lane, at d = 64 as before and at d = 128; four lanes of 32
 // at d = 128 spill nothing but ran 1.12x slower (PERF.md §6).
+// Above Bq = 512 the core stages fewer chunks per load (kKeys = 0,
+// inter_wide_keys: 32 chunks of q and dA, or k and v, for all heads pass
+// the block's shared memory at Bq = 960), as the forward's does, every sum
+// in the same order; above B = 512 the frame's qkv recompute runs from y
+// (launch_qkv_rows) and its LN backward on ln_bwd_wide_kernel
+// (dpt_bwd_common.cuh).
 //
 // Under tensor parallelism (partial, the backward of the Pallas kernel's
 // partial=True) the core runs one shard's h heads of width Bq = h * d
@@ -67,19 +73,22 @@
 
 namespace {
 
-constexpr int kTile = 32;   // chunks staged per shared-memory load
+constexpr int kTile = kInterKeys;   // chunks staged per shared-memory load
 
-template <typename T>
+// The core's shared memory with kKeys (inter_core_keys).
+template <typename T, int kKeys = kTile>
 size_t core_bwd_smem(int Bq) {
-  return align128(static_cast<size_t>(kTile) * 2 * Bq * sizeof(T)) +
-         kTile * sizeof(float);
+  const int keys = inter_core_keys<T, kKeys>(Bq);
+  return align128(static_cast<size_t>(keys) * 2 * Bq * sizeof(T)) +
+         keys * sizeof(float);
 }
 
 // Grid (S, M); 32 * core_warps(h) threads, warp = head (kTurns: heads
-// warp, warp + warps, ... in turn), G lanes per chunk. B below is the
-// heads' width Bq: the rows of qkv and dqkv hold 3Bq values, those of dA
-// and a Bq.
-template <typename T, int D, bool kTurns>
+// warp, warp + warps, ... in turn), G lanes per chunk, kKeys chunks staged
+// per load (0: as many as inter_wide_keys gives, above Bq = 512). B below
+// is the heads' width Bq: the rows of qkv and dqkv hold 3Bq values, those
+// of dA and a Bq.
+template <typename T, int D, bool kTurns, int kKeys = kTile>
 __global__ void __launch_bounds__(256)
     inter_bwd_core_kernel(DptAttnBwdParams P, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -88,15 +97,16 @@ __global__ void __launch_bounds__(256)
   constexpr int DL = InterLanes<D>::DL;
   const DptAttnParams& p = P.f;
   const int n = p.n, S = p.S, B = p.Bq, h = p.h;
-  T* tile_s = reinterpret_cast<T*>(smem);   // [kTile][2B]
+  const int key_tile = inter_core_keys<T, kKeys>(B);
+  T* tile_s = reinterpret_cast<T*>(smem);   // [key_tile][2B]
   float* b_s = reinterpret_cast<float*>(
-      smem + align128(static_cast<size_t>(kTile) * 2 * B * sizeof(T)));
+      smem + align128(static_cast<size_t>(key_tile) * 2 * B * sizeof(T)));
   const int s = blockIdx.x, m = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % G;   // which DL dimensions of the head
   const T* qkv = static_cast<const T*>(p.qkv);
   const T* dA = static_cast<const T*>(P.dA);
-  const bool one_tile = n <= kTile;
+  const bool one_tile = n <= key_tile;
   // the row of chunk c at position s
   auto row_of = [&](int c) {
     return (static_cast<size_t>(m) * n + c) * S + s;
@@ -174,8 +184,8 @@ __global__ void __launch_bounds__(256)
       };
 
       float mx = -INFINITY, sum = 0.f;
-      for (int k0 = 0; k0 < n; k0 += kTile) {
-        const int kt = min(kTile, n - k0);
+      for (int k0 = 0; k0 < n; k0 += key_tile) {
+        const int kt = min(key_tile, n - k0);
         load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
         for (int j = 0; j < kt; ++j) {
           const float sc = score(j);
@@ -188,8 +198,8 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
       for (int t = 0; t < DL; ++t) acc[t] = 0.f;
       float rowsum = 0.f;
-      for (int k0 = 0; k0 < n; k0 += kTile) {
-        const int kt = min(kTile, n - k0);
+      for (int k0 = 0; k0 < n; k0 += key_tile) {
+        const int kt = min(key_tile, n - k0);
         if (!one_tile) load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
         for (int j = 0; j < kt; ++j) {
           const float pj = expf(score(j) - mx) / sum;
@@ -205,8 +215,8 @@ __global__ void __launch_bounds__(256)
 
 #pragma unroll
       for (int t = 0; t < DL; ++t) acc[t] = 0.f;
-      for (int k0 = 0; k0 < n; k0 += kTile) {
-        const int kt = min(kTile, n - k0);
+      for (int k0 = 0; k0 < n; k0 += key_tile) {
+        const int kt = min(key_tile, n - k0);
         if (!one_tile) load_tile(qkv + B, 3 * B, qkv + 2 * B, 3 * B, k0, kt);
         for (int j = 0; j < kt; ++j) {
           const float pj = expf(score(j) - mx) / sum;
@@ -240,8 +250,8 @@ __global__ void __launch_bounds__(256)
       load_row(qkv + krow * 3 * B + 2 * B + col0, vv);
 #pragma unroll
       for (int t = 0; t < DL; ++t) dk[t] = dv[t] = 0.f;
-      for (int c0 = 0; c0 < n; c0 += kTile) {
-        const int ct = min(kTile, n - c0);
+      for (int c0 = 0; c0 < n; c0 += key_tile) {
+        const int ct = min(key_tile, n - c0);
         load_tile(qkv, 3 * B, dA, B, c0, ct);
         for (int i = 0; i < ct; ++i) {
           const float* st =
@@ -273,10 +283,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, int D, bool kTurns>
+template <typename T, int D, bool kTurns, int kKeys = kTile>
 int launch_core_turns(const DptAttnBwdParams& P, cudaStream_t stream) {
-  const size_t smem = core_bwd_smem<T>(P.f.Bq);
-  auto kernel = inter_bwd_core_kernel<T, D, kTurns>;
+  const size_t smem = core_bwd_smem<T, kKeys>(P.f.Bq);
+  auto kernel = inter_bwd_core_kernel<T, D, kTurns, kKeys>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -289,8 +299,12 @@ int launch_core_turns(const DptAttnBwdParams& P, cudaStream_t stream) {
 
 // A warp a head (kTurns false) up to 8 heads at d >= 32; each warp its
 // heads in turn otherwise (core_warps), as at d = 16 at every head count.
+// Above Bq = 512 (chosen by Bq alone) fewer chunks a load (kKeys 0), each
+// warp its heads in turn (one each at up to 8 heads).
 template <typename T, int D>
 int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
+  if (P.f.Bq > kWideMax)
+    return launch_core_turns<T, D, true, 0>(P, stream);
   return D == 16 || P.f.h > 8 ? launch_core_turns<T, D, true>(P, stream)
                               : launch_core_turns<T, D, false>(P, stream);
 }

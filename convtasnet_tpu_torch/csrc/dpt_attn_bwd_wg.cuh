@@ -50,6 +50,18 @@
 // per head and takes any head count (10 to 16 heads of 32 at B = 320 to
 // 512, a CTA each).
 //
+// Above B = 512 (kWideMax, chosen by B alone) one resident tile of x no
+// longer fits (128 KB at 512, LQ's 216 KB there), so LQ and F1 stream the
+// row instead (launch_qkv_streamed): y = round(LN(x) gamma + beta) by
+// ln_rows_kernel into device memory (ln_resident_tile's bits; the
+// backward's y segment, the forward's output buffer until out overwrites
+// it), then qkv = round(y @ W_qkv) on rows_wg_kernel, y's 64-deep panels
+// and W_qkv's MN-major slabs through its ring; the backward then
+// transposes W_out once (w_out_t, a segment of its workspace only above
+// 512) and runs dA = round(g @ W_out^T) the same way: F1 two launches, LQ
+// four. DN finishes each row in ln_bwd_wide_kernel (launch_dy_ln_wide).
+// Every other launch is as at 512.
+//
 // The core (attn_bwd_core_kernel) is one kernel for both kinds, templated
 // on the row gather: a CTA takes one problem, the L rows that attend to
 // each other for one head (intra: the S rows of one chunk, contiguous, the
@@ -98,6 +110,37 @@
 namespace {
 
 // ---- LQ (and the forward's F1) ----
+
+// A rows_wg_kernel epilogue: round(a @ W_out), plus x where the launch
+// stages it (the attention forward's out: the full sublayer; partial, or
+// with no residual tile, the product alone, rounded once: also the
+// streamed LQ's products above kWideMax).
+struct AttnOutEpi {
+  __device__ float operator()(float acc, int, float x, bool residual) const {
+    float o = round_to<bf16>(acc);
+    if (residual) o += x;
+    return o;
+  }
+};
+
+// F1 above kWideMax (top note): y = round(LN(x) gamma + beta) to y [R, B]
+// by ln_rows_kernel, then qkv = round(y @ W_qkv) into f.qkv on
+// rows_wg_kernel: two launches.
+inline int launch_qkv_streamed(const DptAttnParams& f, bf16* y,
+                               cudaStream_t stream) {
+  const int R = static_cast<int>(f.R);
+  CTN_RETURN_IF(
+      launch_ln_rows<bf16>(f.x, R, f.B, f.Bn, f.gamma, f.beta, y, stream));
+  RowsWgParams q;
+  q.a = y;
+  q.w = static_cast<const bf16*>(f.w_qkv);
+  q.res = nullptr;
+  q.out = static_cast<bf16*>(f.qkv);
+  q.R = R;
+  q.N = 3 * f.Bq;
+  q.depth = f.B;
+  return launch_rows_wg(q, AttnOutEpi{}, stream);
+}
 
 // LQ's column tile: 128 where Bq (and so 3Bq) is a multiple of 128, else
 // 64; its ring depth: the backward's 128-wide slots and stage tile beside
@@ -895,13 +938,14 @@ int launch_fwd_core(const DptAttnParams& f, cudaStream_t stream) {
 // ---- The frame ----
 
 // The bf16 workspace: qkv [R, 3Bq], a [R, Bq], y [R, B], dA [R, Bq], dqkv
-// [R, 3Bq] in bf16; in f32 each row's (mean, rs), the core's stats [R, h,
-// kNumRowStats], the chunk partials of dW_qkv and dW_out, DN's tile
-// partials of (dgamma, dbeta) (128-row tiles; above B = 256 ln_bwd_kernel's
-// 64-row ones, ln_tiles of them) and, above 256 only, dy [R, B]; each
-// segment on a 256-byte boundary.
+// [R, 3Bq] and, above kWideMax only, W_out^T [B, Bq] in bf16; in f32 each
+// row's (mean, rs), the core's stats [R, h, kNumRowStats], the chunk
+// partials of dW_qkv and dW_out, DN's tile partials of (dgamma, dbeta)
+// (128-row tiles; above B = 256 ln_bwd_kernel's 64-row ones, ln_tiles of
+// them) and, above 256 only, dy [R, B]; each segment on a 256-byte
+// boundary.
 struct AttnWgLayout {
-  size_t act[5];
+  size_t act[6];
   size_t f32[6];
   size_t n_act, n_f32;
   int chunks_qkv, chunks_out, tiles, ln_tiles;
@@ -916,14 +960,15 @@ AttnWgLayout attn_wg_layout(long long R, int B, int h, int Bq) {
   L.ln_tiles = wide ? n_row_tiles(R) : L.tiles;
   const size_t rq = static_cast<size_t>(R) * Bq;
   const size_t bq = static_cast<size_t>(B) * Bq;
-  const size_t act[5] = {3 * rq, rq, static_cast<size_t>(R) * B, rq, 3 * rq};
+  const size_t act[6] = {3 * rq, rq, static_cast<size_t>(R) * B, rq, 3 * rq,
+                         B > kWideMax ? bq : 0};
   const size_t f32[6] = {2 * static_cast<size_t>(R),
                          static_cast<size_t>(R) * h * kNumRowStats,
                          L.chunks_qkv * 3 * bq, L.chunks_out * bq,
                          static_cast<size_t>(L.ln_tiles) * 2 * B,
                          wide ? static_cast<size_t>(R) * B : 0};
   size_t off = 0;
-  for (int i = 0; i < 5; ++i) {
+  for (int i = 0; i < 6; ++i) {
     L.act[i] = off;
     off += align_elems(act[i], 128);
   }
@@ -940,13 +985,14 @@ AttnWgLayout attn_wg_layout(long long R, int B, int h, int Bq) {
 // The bf16 attention backward (top note): LQ, C (core(P, stream)), W (two
 // launches), DN, S; above B = 256 LQ's wide layout and DN's wide route
 // (launch_dy_ln_wide: dy through device memory, ln_bwd_kernel), the rest
-// as at 256. Returns the first CUDA error.
+// as at 256; above kWideMax LQ streamed (four launches) and DN's rows on
+// ln_bwd_wide_kernel. Returns the first CUDA error.
 template <typename Core>
 int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
                             cudaStream_t stream, Core core) {
   DptAttnParams& f = P.f;
   const int R = static_cast<int>(f.R), B = f.B, Bq = f.Bq;
-  if (B % kSlabK || B > kWideMax || Bq % 64)
+  if (B % kSlabK || Bq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnWgLayout L = attn_wg_layout(f.R, B, f.h, Bq);
   bf16* act = static_cast<bf16*>(ws_act);
@@ -964,7 +1010,22 @@ int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   float* part_out = ws_f32 + L.f32[3];
   float* lnpart = ws_f32 + L.f32[4];
   const bf16* g = static_cast<const bf16*>(P.g);
-  CTN_RETURN_IF(launch_lq<true>(f, g, o, L.tiles, stream));
+  if (B > kWideMax) {   // LQ streamed: y, qkv, W_out^T, dA
+    bf16* w_out_t = act + L.act[5];
+    CTN_RETURN_IF(launch_qkv_streamed(f, o.y, stream));
+    CTN_RETURN_IF(launch_transpose<bf16>(f.w_out, w_out_t, Bq, B, stream));
+    RowsWgParams q;
+    q.a = g;
+    q.w = w_out_t;
+    q.res = nullptr;
+    q.out = o.dA;
+    q.R = R;
+    q.N = Bq;
+    q.depth = B;
+    CTN_RETURN_IF(launch_rows_wg(q, AttnOutEpi{}, stream));
+  } else {
+    CTN_RETURN_IF(launch_lq<true>(f, g, o, L.tiles, stream));
+  }
   CTN_RETURN_IF(core(P, stream));
   CTN_RETURN_IF(launch_wgrad_parts_wg(o.y, P.dqkv, R, B, 3 * Bq, part_qkv,
                                       stream));
@@ -1006,32 +1067,27 @@ int launch_core_wg_d(const DptAttnBwdParams& P, cudaStream_t stream) {
 
 // ---- The forward's frame (F1, the core, out) ----
 
-// out's epilogue: round(a @ W_out), plus x where the launch stages it (the
-// full sublayer; partial: the product alone).
-struct AttnOutEpi {
-  __device__ float operator()(float acc, int, float x, bool residual) const {
-    float o = round_to<bf16>(acc);
-    if (residual) o += x;
-    return o;
-  }
-};
-
 // The bf16 attention forward: F1 (LQ without its dA product, y and
 // statistics: qkv = round(LN(x) @ W_qkv) into f.qkv), the core
 // (core(f, stream): a into f.a) and out (x + round(a @ W_out), or the
-// product alone in partial mode, on rows_wg_kernel: one column tile as
-// wide as the row up to B = 256, 256 at B = 192; 256-column tiles above).
-// B a multiple of 64 up to 512, Bq a multiple of 64. Returns the first
-// CUDA error.
+// product alone in partial mode, on rows_wg_kernel with AttnOutEpi: one
+// column tile as wide as the row up to B = 256, 256 at B = 192; 256-column
+// tiles above). Above kWideMax F1 is streamed (launch_qkv_streamed), its y
+// in f.out, which out overwrites. B and Bq multiples of 64. Returns the
+// first CUDA error.
 template <typename Core>
 int launch_attention_fwd_wg(const DptAttnParams& f, cudaStream_t stream,
                             Core core) {
   const int B = f.B, Bq = f.Bq;
-  if (B % kSlabK || B > kWideMax || Bq % 64)
+  if (B % kSlabK || Bq % 64)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = static_cast<int>((f.R + kWgRows - 1) / kWgRows);
-  LqOut o = {static_cast<bf16*>(f.qkv), nullptr, nullptr, nullptr};
-  CTN_RETURN_IF(launch_lq<false>(f, nullptr, o, tiles, stream));
+  if (B > kWideMax) {
+    CTN_RETURN_IF(launch_qkv_streamed(f, static_cast<bf16*>(f.out), stream));
+  } else {
+    const int tiles = static_cast<int>((f.R + kWgRows - 1) / kWgRows);
+    LqOut o = {static_cast<bf16*>(f.qkv), nullptr, nullptr, nullptr};
+    CTN_RETURN_IF(launch_lq<false>(f, nullptr, o, tiles, stream));
+  }
   CTN_RETURN_IF(core(f, stream));
   RowsWgParams q;
   q.a = static_cast<const bf16*>(f.a);

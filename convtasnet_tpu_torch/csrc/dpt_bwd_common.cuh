@@ -26,11 +26,14 @@
 //   mean(dy*gamma*xhat))), with per-tile partials of dgamma = sum dy*xhat
 //   and dbeta = sum dy; rows up to kMaxWidth = 256 wide, or kLnBwdWidth =
 //   512 in its wide instantiation (the bf16 designs' DN above 256 runs it
-//   too).
-// - launch_attention_bwd: the launches both attention backwards share
-//   around their cores in f32 (the recompute of qkv by the forward's launch
-//   1, dA, the weight gradients, dy = dqkv @ W_qkv^T, the LN backward); in
-//   bf16 they run the design of dpt_attn_bwd_wg.cuh on the pieces below.
+//   too); rows wider than that on ln_bwd_wide_kernel, its arithmetic in
+//   its order without per-lane state (launch_ln_bwd, launch_dy_ln_wide).
+// - launch_attention: the f32 attention forwards' three launches around
+//   their cores; launch_attention_bwd: the launches both attention
+//   backwards share around their cores in f32 (the recompute of qkv by the
+//   forward's launch 1, dA, the weight gradients, dy = dqkv @ W_qkv^T, the
+//   LN backward); in bf16 they run the design of dpt_attn_bwd_wg.cuh on the
+//   pieces below. Above B = kWideMax both take qkv by launch_qkv_rows.
 //
 // Every LN here (ln_row_stats, ln_rows_kernel, ln_bwd_kernel,
 // ln_resident_tile, dy_ln_bwd_wg_kernel) takes the sublayer's own width Bn
@@ -55,12 +58,22 @@
 
 namespace {
 
+#define CTN_RETURN_IF(call)          \
+  do {                               \
+    const int err_ = (call);         \
+    if (err_ != 0) return err_;      \
+  } while (0)
+
 // The widest B of the bf16 designs' one-tile pieces (DN's tile as wide as
 // the row, LQ's and UG's two resident 128-row tiles, B11's one launch);
 // above it, up to kWideMax, they run the wide routes (dpt_attn_bwd_wg.cuh,
-// dpt_ffn.cu, dpt_ffn_bwd.cu), chosen by B alone.
+// dpt_ffn.cu, dpt_ffn_bwd.cu), chosen by B alone. kWideMax is the capacity
+// of the routes whose state is sized by the row (LQ's and F1's one
+// resident tile, ln_qkv_kernel's y tile, ln_bwd_kernel's columns); above
+// it, again chosen by B alone, routes beside them stream the row through
+// device memory, so every B runs.
 constexpr int kMaxWidth = 256;
-constexpr int kWideMax = 512;             // B at most this (checked by the wrappers)
+constexpr int kWideMax = 512;             // the resident routes' widest row
 constexpr int kLnBwdWidth = 512;          // ln_bwd_kernel's widest row
 constexpr int kColThreads = 256;          // colsum_kernel: columns per block
 constexpr int kColRows = 128;             // colsum_kernel: rows per block
@@ -284,8 +297,97 @@ __global__ void __launch_bounds__(kDptThreads)
   }
 }
 
+// ln_bwd_kernel's arithmetic for rows of any width (above kLnBwdWidth,
+// whose per-lane columns and s_col would not fit), with no per-lane state,
+// kRowTile rows per block. Phase 1, one warp per row: the statistics
+// (ln_row_stats), a lane-strided pass over the row for the sums of dy
+// gamma and dy gamma xhat (lane l over columns l, l + 32, ..., then
+// warp_sum's butterfly), a second one for dx, and the row's (mean, rs) to
+// shared memory. Phase 2, each thread owns columns and loops over the
+// tile's rows: a column's (dgamma, dbeta) partial over the rows warp w
+// took (w, w + 8, ...) in order, then over the 8 warps in order. Every sum
+// runs in ln_bwd_kernel's order, so at a width both take every output has
+// its bits (and B = 576 with 64 zero columns has those of B = 512). The
+// statistics and both means are over the row's first Bn columns.
+template <typename T, bool kResidual>
+__global__ void __launch_bounds__(kDptThreads)
+    ln_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ gamma, int rows, int B,
+                       int Bn, T* __restrict__ dx, float* __restrict__ part) {
+  constexpr int kWarps = kDptThreads / 32;
+  __shared__ float s_stat[kRowTile][2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kRowTile;
+  for (int r = warp; r < kRowTile; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= rows) break;
+    const size_t base = static_cast<size_t>(row) * B;
+    float mean, rs;
+    ln_row_stats<T>(x + base, Bn, &mean, &rs);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < B; c += 32) {
+      const float xh = (to_f<T>(x[base + c]) - mean) * rs;
+      const float d = dy[base + c];
+      const float dxh = d * gamma[c];
+      s1 += dxh;
+      s2 += dxh * xh;
+    }
+    const float mean_d = warp_sum(s1) / Bn;
+    const float mean_xd = warp_sum(s2) / Bn;
+    for (int c = lane; c < B; c += 32) {
+      const float xh = (to_f<T>(x[base + c]) - mean) * rs;
+      const float dxh = dy[base + c] * gamma[c];
+      if constexpr (kResidual)
+        dx[base + c] = from_f<T>(to_f<T>(g[base + c]) +
+                                 rs * (dxh - mean_d - xh * mean_xd));
+      else
+        dx[base + c] = from_f<T>(rs * (dxh - mean_d - xh * mean_xd));
+    }
+    if (lane == 0) {
+      s_stat[r][0] = mean;
+      s_stat[r][1] = rs;
+    }
+  }
+  __syncthreads();
+  const int n = min(kRowTile, rows - row0);
+  for (int c = threadIdx.x; c < B; c += kDptThreads) {
+    float pg = 0.f, pb = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      float cg = 0.f, cb = 0.f;
+      for (int r = w; r < n; r += kWarps) {
+        const size_t i = static_cast<size_t>(row0 + r) * B + c;
+        const float xh = (to_f<T>(x[i]) - s_stat[r][0]) * s_stat[r][1];
+        const float d = dy[i];
+        cg += d * xh;
+        cb += d;
+      }
+      pg += cg;
+      pb += cb;
+    }
+    part[static_cast<size_t>(blockIdx.x) * 2 * B + c] = pg;
+    part[static_cast<size_t>(blockIdx.x) * 2 * B + B + c] = pb;
+  }
+}
+
 int n_row_tiles(long long rows) {
   return static_cast<int>((rows + kRowTile - 1) / kRowTile);
+}
+
+// The LN backward's kernel for rows of width B: ln_bwd_kernel at 256 up to
+// kMaxWidth, at kLnBwdWidth up to it, ln_bwd_wide_kernel above (chosen by B
+// alone). residual: dx carries the g term.
+template <typename T>
+auto ln_bwd_fn(int B, bool residual) {
+  if (B > kLnBwdWidth)
+    return residual ? ln_bwd_wide_kernel<T, true>
+                    : ln_bwd_wide_kernel<T, false>;
+  return B > kMaxWidth
+      ? (residual ? ln_bwd_kernel<T, true, kLnBwdWidth>
+                  : ln_bwd_kernel<T, false, kLnBwdWidth>)
+      : (residual ? ln_bwd_kernel<T, true, kMaxWidth>
+                  : ln_bwd_kernel<T, false, kMaxWidth>);
 }
 
 // dx and dgb [2, B] = (dgamma, dbeta); part holds n_row_tiles(rows) * 2 * B
@@ -296,13 +398,8 @@ int launch_ln_bwd(const void* x, const void* g, const float* dy,
                   const float* gamma, int rows, int B, int Bn, void* dx,
                   float* part, float* dgb, bool residual,
                   cudaStream_t stream) {
-  if (B > kLnBwdWidth) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = n_row_tiles(rows);
-  auto* kernel = B > kMaxWidth
-      ? (residual ? ln_bwd_kernel<T, true, kLnBwdWidth>
-                  : ln_bwd_kernel<T, false, kLnBwdWidth>)
-      : (residual ? ln_bwd_kernel<T, true, kMaxWidth>
-                  : ln_bwd_kernel<T, false, kMaxWidth>);
+  auto* kernel = ln_bwd_fn<T>(B, residual);
   kernel<<<tiles, kDptThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), dy, gamma, rows, B,
       Bn, static_cast<T*>(dx), part);
@@ -317,6 +414,43 @@ int launch_ln_rows(const void* x, int rows, int B, int Bn, const float* gamma,
                    const float* beta, void* y, cudaStream_t stream) {
   ln_rows_kernel<T><<<n_row_tiles(rows), kDptThreads, 0, stream>>>(
       static_cast<const T*>(x), rows, B, Bn, gamma, beta, static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 attention frames' launch 1 above kWideMax, where ln_qkv_kernel's
+// y tile does not fit: y [R, B] = round(LN(x) gamma + beta) by
+// ln_rows_kernel (ln_rows_to_smem's bits) unless y_ready, then qkv =
+// round(y @ W_qkv) on gemm_rows_kernel's 64 x 64 FMA tile, each sum over
+// the depth in ln_qkv_kernel's order (one FMA chain from column 0), so the
+// same bits. Two launches (one with y_ready).
+template <typename T>
+int launch_qkv_rows(const DptAttnParams& p, void* y, bool y_ready,
+                    cudaStream_t stream) {
+  const int R = static_cast<int>(p.R);
+  if (!y_ready)
+    CTN_RETURN_IF(
+        launch_ln_rows<T>(p.x, R, p.B, p.Bn, p.gamma, p.beta, y, stream));
+  return launch_gemm_rows<T>(static_cast<const T*>(y),
+                             static_cast<const T*>(p.w_qkv), R, p.B, 3 * p.Bq,
+                             StoreRounded<T>{static_cast<T*>(p.qkv)}, stream);
+}
+
+// The f32 attention forward: launches 1 and 3 around an attention core
+// (launch 2), on one stream; above kWideMax launch 1 is launch_qkv_rows
+// with y in the output buffer, which the out launch overwrites once the
+// core is done (no workspace). Returns the first CUDA error.
+template <typename T, typename Core>
+int launch_attention(const DptAttnParams& p, cudaStream_t stream,
+                     Core core) {
+  if (p.B > kWideMax)
+    CTN_RETURN_IF(launch_qkv_rows<T>(p, p.out, false, stream));
+  else
+    CTN_RETURN_IF(launch_ln_qkv<T>(p, stream));
+  const int core_err = core(p, stream);
+  if (core_err != 0) return core_err;
+  const unsigned out_tiles = static_cast<unsigned>((p.R + kBM - 1) / kBM);
+  out_proj_residual_kernel<T>
+      <<<dim3(out_tiles, p.B / kBN), kGemmThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -754,13 +888,15 @@ inline int launch_dy_ln_wg(const DyLnParams& q, bool residual,
 //   ln_bwd_kernel above, the f32 designs' LN backward, reads it back: it
 //   finishes each row (its sums of dy gamma and dy gamma xhat over the
 //   row, lane by lane, then warp_sum's butterfly; dx with the residual)
-//   and writes its 64-row tiles' (dgamma, dbeta) partials. dy's round trip
-//   is 4 R B bytes each way.
+//   and writes its 64-row tiles' (dgamma, dbeta) partials; above
+//   kLnBwdWidth ln_bwd_wide_kernel does, in the same order. dy's round
+//   trip is 4 R B bytes each way.
 // - rows_wg_kernel: out = epi(a @ w) over 128-row x BN-column tiles (BN
 //   as wide as the row up to 256, then 256-column tiles), a's K-major
 //   panels and w's MN-major slabs through a ring, a residual tile staged
 //   over the ring after the product: the attention forwards' out launch
-//   at every width, and B11's two products above 256.
+//   at every width, B11's two products above 256, and above kWideMax the
+//   attention's qkv and dA products (dpt_attn_bwd_wg.cuh's streamed LQ).
 
 // dy [R, B] (f32) = a [R, depth] @ w [B, depth]^T, both K-major.
 template <int BN>
@@ -779,12 +915,13 @@ int launch_dy_wide_bn(const bf16* a, const bf16* w, float* dy, int R, int B,
 }
 
 // DN above 256 (top of this section): dy = a @ w^T to q.dy, then dx and
-// the tiles' (dgamma, dbeta) partials by ln_bwd_kernel into q.part
-// (n_row_tiles(R) 64-row tiles), which the caller sums in tile order.
-// residual: dx carries the g term (false for a partial forward).
+// the tiles' (dgamma, dbeta) partials by ln_bwd_kernel (ln_bwd_wide_kernel
+// above kLnBwdWidth) into q.part (n_row_tiles(R) 64-row tiles), which the
+// caller sums in tile order. residual: dx carries the g term (false for a
+// partial forward).
 inline int launch_dy_ln_wide(const DyLnParams& q, float* dy, bool residual,
                              cudaStream_t stream) {
-  if (q.B % 64 || q.B > kLnBwdWidth || q.depth % kSlabK)
+  if (q.B % 64 || q.depth % kSlabK)
     return static_cast<int>(cudaErrorInvalidValue);
   int err;
   switch (wg_bn(q.B)) {
@@ -793,8 +930,7 @@ inline int launch_dy_ln_wide(const DyLnParams& q, float* dy, bool residual,
     default: err = launch_dy_wide_bn<64>(q.a, q.w, dy, q.R, q.B, q.depth, stream);
   }
   if (err != 0) return err;
-  auto* kernel = residual ? ln_bwd_kernel<bf16, true, kLnBwdWidth>
-                          : ln_bwd_kernel<bf16, false, kLnBwdWidth>;
+  auto* kernel = ln_bwd_fn<bf16>(q.B, residual);
   kernel<<<n_row_tiles(q.R), kDptThreads, 0, stream>>>(
       q.x, q.g, dy, q.gamma, q.R, q.B, q.Bn, q.dx, q.part);
   return static_cast<int>(cudaGetLastError());
@@ -998,15 +1134,10 @@ void attn_bwd_carve(DptAttnBwdParams& P, void* ws_act, float* ws_f32) {
   P.lnpart = ws_f32 + L.f32[3];
 }
 
-#define CTN_RETURN_IF(call)          \
-  do {                               \
-    const int err_ = (call);         \
-    if (err_ != 0) return err_;      \
-  } while (0)
-
 // The attention backward around its core (launch C), on one stream:
 //   T  W_qkv^T, W_out^T;  L  qkv = round(LN(x) @ W_qkv) (the forward's
-//   launch 1) and y = round(LN(x));  A  dA = round(g @ W_out^T);
+//   launch 1) and y = round(LN(x)) (above kWideMax y first, then qkv from
+//   it: launch_qkv_rows);  A  dA = round(g @ W_out^T);
 //   C  the core: a = round(round(p) v) and dqkv = (dq | dk | dv);
 //   W  dW_qkv = y^T dqkv, dW_out = a^T g;  D  dy = dqkv @ W_qkv^T (f32);
 //   N  the LN backward and the residual (none for a partial forward): dx,
@@ -1022,9 +1153,15 @@ int launch_attention_bwd(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   const int Bq = f.Bq;
   CTN_RETURN_IF(launch_transpose<T>(f.w_qkv, P.w_qkv_t, B, 3 * Bq, stream));
   CTN_RETURN_IF(launch_transpose<T>(f.w_out, P.w_out_t, Bq, B, stream));
-  CTN_RETURN_IF(launch_ln_qkv<T>(f, stream));
-  CTN_RETURN_IF(launch_ln_rows<T>(f.x, R, B, f.Bn, f.gamma, f.beta, P.y,
-                                  stream));
+  if (B > kWideMax) {
+    CTN_RETURN_IF(launch_ln_rows<T>(f.x, R, B, f.Bn, f.gamma, f.beta, P.y,
+                                    stream));
+    CTN_RETURN_IF(launch_qkv_rows<T>(f, P.y, true, stream));
+  } else {
+    CTN_RETURN_IF(launch_ln_qkv<T>(f, stream));
+    CTN_RETURN_IF(launch_ln_rows<T>(f.x, R, B, f.Bn, f.gamma, f.beta, P.y,
+                                    stream));
+  }
   CTN_RETURN_IF(launch_gemm_rows<T>(
       static_cast<const T*>(P.g), static_cast<const T*>(P.w_out_t), R, B, Bq,
       StoreRounded<T>{static_cast<T*>(P.dA)}, stream));

@@ -22,6 +22,9 @@
 //   launch: ln_qkv_kernel (pre-LN + QKV product, rounded once) and the out
 //   product, rounded once, + residual (out_proj_residual_kernel, on the TCN
 //   kernels' gemm_tile). Only the attention core between them differs.
+//   Above B = 512 ln_qkv_kernel's y tile does not fit, and launch_attention
+//   (dpt_bwd_common.cuh) runs launch 1 as two launches through device
+//   memory instead (launch_qkv_rows there).
 // - Both launches and both cores also run a tensor-parallel shard (the
 //   Pallas kernels' partial=True, parallel/dpt_tp.py): the h heads of the
 //   shard's head group, of local width Bq = h * d < B, with w_qkv
@@ -88,6 +91,33 @@ __device__ __forceinline__ float lanes_sum(float v) {
 #pragma unroll
   for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The key chunks an f32 inter core (dpt_attention.cu, dpt_attention_bwd.cu)
+// stages per shared-memory load: kInterKeys, 8 Bq bytes each, up to Bq =
+// 512 (256 Bq bytes, 128 KB there; 32 chunks fit up to Bq = 896); above it
+// (the cores' kKeys = 0 instantiations, chosen by Bq alone) the most, from
+// 16 down by halves, whose staging fits in kInterWideStage: 16 up to Bq =
+// 1024, 8 up to 2048, and so on, one chunk at the least. The chunks' sums
+// run key by key in the same order at any staging, so the tile's size
+// moves no bit.
+constexpr int kInterKeys = 32;
+constexpr size_t kInterWideStage = 128 * 1024;
+
+template <typename T>
+__host__ __device__ constexpr int inter_wide_keys(int Bq) {
+  int keys = 16;
+  while (keys > 1 &&
+         static_cast<size_t>(keys) * 2 * Bq * sizeof(T) > kInterWideStage)
+    keys /= 2;
+  return keys;
+}
+
+// The key chunks a core instantiated with kKeys stages (kKeys = 0:
+// inter_wide_keys).
+template <typename T, int kKeys>
+__host__ __device__ constexpr int inter_core_keys(int Bq) {
+  return kKeys ? kKeys : inter_wide_keys<T>(Bq);
 }
 
 // Warps of an f32 inter core's block for h heads, a warp per head: h up to
@@ -241,8 +271,8 @@ struct DptAttnParams {
 
 // Launch 1: qkv = round(LN(x) @ W_qkv), one 64-row tile per block; qkv has
 // 3Bq columns. f32 (the bf16 forwards and backwards run LQ's tiles).
-// Shared memory: 256 (B + 4) + 83,968 bytes, 216 KB at B = 512; it fits up
-// to B = 576.
+// Shared memory: 256 (B + 4) + 83,968 bytes, 216 KB at B = 512; it runs B
+// up to 512, and launch_qkv_rows (dpt_bwd_common.cuh) above.
 template <typename T>
 __host__ __device__ constexpr size_t ln_qkv_smem(int B) {
   return align128(static_cast<size_t>(kRowTile) * padded<T>(B) * sizeof(T)) +
@@ -319,21 +349,6 @@ int launch_ln_qkv(const DptAttnParams& p, cudaStream_t stream) {
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   ln_qkv_kernel<T><<<tiles, kDptThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches 1 and 3 around an attention core (launch 2), on one stream;
-// returns the first CUDA error.
-template <typename T, typename Core>
-int launch_attention(const DptAttnParams& p, cudaStream_t stream,
-                     Core core) {
-  const int ln_err = launch_ln_qkv<T>(p, stream);
-  if (ln_err != 0) return ln_err;
-  const int core_err = core(p, stream);
-  if (core_err != 0) return core_err;
-  const unsigned out_tiles = static_cast<unsigned>((p.R + kBM - 1) / kBM);
-  out_proj_residual_kernel<T>
-      <<<dim3(out_tiles, p.B / kBN), kGemmThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

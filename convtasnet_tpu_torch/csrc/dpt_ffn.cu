@@ -61,8 +61,8 @@
 // tiles in shared memory, one block per 64 rows, slabs of 64; about 185 KB
 // at B = 256 (512 (B + 4) + 52,224 bytes: it fits up to B = 348).
 //
-// Above B = 256 (up to 512), in either dtype, the one-launch designs do not
-// fit: the bf16 one's down accumulator (BN / 2 floats a thread) and ring
+// Above B = 256 (at any width), in either dtype, the one-launch designs do
+// not fit: the bf16 one's down accumulator (BN / 2 floats a thread) and ring
 // slot grow with the row, and x's resident tile alone is 128 KB at B =
 // 512; the f32 one's y and output tiles are 264 KB there. So the sublayer
 // runs three launches through a workspace (ctn_dpt_ffn_workspace: y [R, B]
@@ -72,7 +72,9 @@
 // the one launch; f32: the 64 x 64 FMA tile of gemm_rows_kernel); and out
 // = x + round(round(h @ W_down) + round(b_down)) (partial: round(h @
 // W_down)) in 256-column tiles (bf16) or 64-column ones (f32). h's round
-// trip is 2 R F elements more than the one launch moves.
+// trip is 2 R F elements more than the one launch moves. None of the three
+// holds state sized by the row (ln_rows_kernel's warps stride over it, the
+// products stream their depth), so this route takes every B.
 //
 // Under tensor parallelism (partial, the Pallas kernel's partial=True) the
 // weights are one shard's slice of the hidden width, W_up [B, F/m] and
@@ -430,7 +432,7 @@ struct DownResF32 {
 
 template <typename T>
 int launch_wide(const FfnParams& p, void* ws, cudaStream_t stream) {
-  if (p.B % 64 || p.B > kWideMax || p.F % (2 * kFfnSlab))
+  if (p.B % 64 || p.F % (2 * kFfnSlab))
     return static_cast<int>(cudaErrorInvalidValue);
   T* y = static_cast<T*>(ws);
   T* h = y + ffn_ws_h(p.R, p.B);

@@ -42,14 +42,15 @@
 //   S   one launch adds every set of partials in order, in double.
 // What remains over the bound: h and dpre, 52 MB each, written by UG and
 // read by DN and W, and W's chunk partials.
-//   Above B = 256 (up to 512) UG's y and g tiles (256 KB at B = 512) and
+//   Above B = 256 (at any width) UG's y and g tiles (256 KB at B = 512) and
 // DN's tile as wide as the row do not fit: y comes from ln_rows_kernel
 // (ln_resident_tile's bits), UG streams y's and g's 64-deep panels through
 // its ring beside the weights' slabs (kStream: a slot of 48 KB, three of
 // them), the tiles' column sums of g come from colsum_kernel (over the same
 // 128-row tiles, in the same row order), and DN takes the wide route
-// (launch_dy_ln_wide: dy through device memory, ln_bwd_kernel): seven
-// launches.
+// (launch_dy_ln_wide: dy through device memory, ln_bwd_kernel; above 512
+// ln_bwd_wide_kernel): seven launches. UG's slots are 64 deep whatever B
+// is, so this route takes every B.
 //
 // f32: the first design, 16 launches (dpt_bwd_common.cuh's first pieces):
 //   T  W_up^T, W_down^T;  L  y;
@@ -57,7 +58,8 @@
 //   G  dh = g W_down^T on the same tile, whose epilogue turns pre into h in
 //      place and writes dpre;
 //   W  dW_down, dW_up over fixed row chunks, db_up, db_down by column sums;
-//   D  dy = dpre W_up^T (f32);  N  the LN backward: dx, dgamma, dbeta.
+//   D  dy = dpre W_up^T (f32);  N  the LN backward: dx, dgamma, dbeta
+//      (ln_bwd_kernel; above B = 512 ln_bwd_wide_kernel, in its order).
 //
 // Under tensor parallelism (partial, the backward of the Pallas kernel's
 // partial=True) the weights are one shard's hidden slice (F is F/m here),
@@ -417,7 +419,7 @@ int launch_bwd_wg(const FfnBwdParams& p, void* ws_act, float* ws_f32,
                   cudaStream_t stream) {
   const int R = p.R, B = p.B, F = p.F;
   const bool wide = B > kMaxWidth;
-  if (B % kSlabK || B > kWideMax || F % kUgBN)
+  if (B % kSlabK || F % kUgBN)
     return static_cast<int>(cudaErrorInvalidValue);
   const FfnWgLayout L = ffn_wg_layout(R, B, F);
   bf16* act = static_cast<bf16*>(ws_act);

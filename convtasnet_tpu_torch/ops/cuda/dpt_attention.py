@@ -45,6 +45,10 @@ columns alone. Outputs and cotangents are sliced back
 (``unpad_attention_grads``). The twins take the same ``Bn`` (an LN over
 the first Bn columns), so the padded plain path can be held against the
 unpadded one on the CPU.
+
+Any B runs: above 512 the kernels take routes beside their resident tiles
+(chosen in ``csrc/`` by B alone; the f32 inter cores' staging by Bq), so
+the shape rule is the head width and the shard count alone.
 """
 
 from __future__ import annotations
@@ -63,11 +67,6 @@ from convtasnet_tpu_torch.ops.norm import LN_EPS, layer_norm
 NEG_INF = -1e9
 TILE = 64            # the kernels run B and Bq at multiples of the GEMM
                      # tile; the wrappers zero-pad other widths up to one
-# B at most this once padded, in every DPT kernel (B7-B12 and their
-# partial modes): up to 256 the bf16 designs keep tiles as wide as the
-# row, from 320 to 512 they take their wide routes
-# (csrc/dpt_bwd_common.cuh, kWideMax)
-MAX_WIDTH = 512
 # the head widths d = Bq / h the kernels take, by compute dtype: the bf16
 # designs share one tensor-core core, templated on d; the f32 first
 # designs are templated on d too
@@ -102,15 +101,13 @@ def shape_refusal(kind: str, B: int, S: int, Bq: int, n_heads: int,
     B10; and their partial modes) refuse a sublayer of width B over chunks
     of S frames whose heads, ``n_heads`` of them, span Bq channels (Bq ==
     B, or B / m for a head-group shard of m), in the compute ``dtype`` (a
-    torch dtype or its name), or None where they take it: B at most
-    ``MAX_WIDTH`` (512) once padded up to a multiple of 64, Bq dividing B
+    torch dtype or its name), or None where they take it: Bq dividing B
     (m a whole shard count) and a head width Bq / n_heads in ``HEAD_DIMS``
-    of the dtype, at any head count. B and Bq off 64 run zero-padded
-    (``pad_attention``). Any S runs (the f32 intra kernels above 256
-    frames on their row-statistics core, ``csrc/dpt_intra_rowstat.cuh``)."""
-    if not 0 < B <= MAX_WIDTH:
-        return (f"the kernel needs B at most {MAX_WIDTH} (B is zero-padded "
-                f"up to a multiple of {TILE}), got B={B}")
+    of the dtype, at any head count. Any B runs (up to 256 on tiles as wide
+    as the row, up to 512 on one resident tile, above that on routes that
+    stream the row); B and Bq off 64 run zero-padded (``pad_attention``).
+    Any S runs (the f32 intra kernels above 256 frames on their
+    row-statistics core, ``csrc/dpt_intra_rowstat.cuh``)."""
     if not 0 < Bq <= B or B % Bq:
         return (f"the partial kernel needs the shard's width B/m to divide "
                 f"B, got {Bq} of B={B}")
@@ -292,13 +289,14 @@ def needs_grad(*tensors) -> bool:
 
 
 def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
-             n_heads: int, partial: bool):
+             n_heads: int, partial: bool, Bn: Optional[int] = None):
     """Checks the operands of either attention kernel (forward or backward)
     and returns them as the kernels take them: x and the weights contiguous
     in x's dtype, gamma, beta and the bias contiguous in f32, B and Bq
     zero-padded up to the tile (``pad_attention``); then the heads' padded
-    width Bq, their padded count and the LN's width Bn (the real B).
-    Raises on anything the kernels do not take."""
+    width Bq, their padded count and the LN's width Bn (the real B, or the
+    ``Bn`` given for operands that come zero-padded already). Raises on
+    anything the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
     if x.dtype not in _ENTRY[kind]:
@@ -307,8 +305,6 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
     if x.dim() != 4:
         raise ValueError(f"x must be [M, n, S, B], got {tuple(x.shape)}")
     M, n, S, B = x.shape
-    if not 0 < B <= MAX_WIDTH:
-        raise ValueError(shape_refusal(kind, B, S, B, 1))
     Bq = w_qkv.shape[-1] // 3
     if (tuple(w_qkv.shape) != (B, 3 * Bq) or tuple(w_out.shape) != (Bq, B)
             or not 0 < Bq <= B or (Bq != B and not partial)):
@@ -335,13 +331,15 @@ def _prepare(name: str, kind: str, x, gamma, beta, w_qkv, w_out, key_bias,
                              f"{t.device}")
     if gamma.numel() != B or beta.numel() != B:
         raise ValueError("LN gamma and beta must be [B]")
+    if Bn is not None and not 0 < Bn <= B:
+        raise ValueError(f"the LN's width Bn must be in [1, B={B}], got {Bn}")
     x, gamma, beta, w_qkv, w_out, n_heads = pad_attention(
         x, gamma, beta, w_qkv, w_out, n_heads)
     for t in (x, w_qkv, w_out):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, w_qkv, w_out")
     return (x, gamma, beta, w_qkv, w_out, key_bias, w_qkv.shape[1] // 3,
-            n_heads, B)
+            n_heads, B if Bn is None else Bn)
 
 
 def raise_on_error(lib, err: int, what: str) -> None:
@@ -351,11 +349,15 @@ def raise_on_error(lib, err: int, what: str) -> None:
 
 
 def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
-                     n_heads: int, partial: bool = False) -> torch.Tensor:
+                     n_heads: int, partial: bool = False,
+                     Bn: Optional[int] = None) -> torch.Tensor:
     """The CUDA branch of both attention wrappers (``kind`` "inter" or
     "intra"): builds the kernels at first use, checks, allocates, launches
     on the current stream, and raises on anything the kernel does not
-    take."""
+    take. ``Bn``: the LN's width where the operands come zero-padded
+    already (a check of the padded routes against the narrow ones; the
+    output keeps its first Bn columns); None: x's width, as the wrappers
+    call it."""
     name = f"fused_{kind}_attention"
     if needs_grad(x, gamma, beta, w_qkv, w_out, key_bias):
         raise NotImplementedError(
@@ -365,7 +367,8 @@ def launch_attention(kind: str, x, gamma, beta, w_qkv, w_out, key_bias, *,
             "under torch.inference_mode() or torch.no_grad()")
     lib = load_library()
     x, gamma, beta, w_qkv, w_out, key_bias, Bq, n_heads, Bn = _prepare(
-        name, kind, x, gamma, beta, w_qkv, w_out, key_bias, n_heads, partial)
+        name, kind, x, gamma, beta, w_qkv, w_out, key_bias, n_heads, partial,
+        Bn)
     S_in = x.shape[2]
     if kind == "intra" and S_in % INTRA_ROWS and x.dtype != torch.bfloat16:
         x, key_bias = pad_chunks(x, key_bias, -(-S_in // INTRA_ROWS)
@@ -543,22 +546,24 @@ fused_inter_attention_bwd.partial_launches = 0
 
 
 def launch_attention_bwd(kind: str, x, g, gamma, beta, w_qkv, w_out,
-                         key_bias, *, n_heads: int, partial: bool = False):
+                         key_bias, *, n_heads: int, partial: bool = False,
+                         Bn: Optional[int] = None):
     """The CUDA branch of both attention backward wrappers: builds the
     kernels at first use, checks, allocates the workspace and the outputs,
     launches on the current stream, and raises on anything the kernel does
-    not take."""
+    not take. ``Bn`` as in ``launch_attention`` (the cotangents keep the
+    first Bn columns and rows)."""
     name = f"fused_{kind}_attention_bwd"
     lib = load_library()
     prims = _prepare(name, kind, x, gamma, beta, w_qkv, w_out, key_bias,
-                     n_heads, partial)
+                     n_heads, partial, Bn)
     xc, gamma_c, beta_c, w_qkv_c, w_out_c, bias_c, Bq, n_heads, Bn = prims
     if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"g must have x's shape {tuple(x.shape)}, got "
                          f"{tuple(g.shape)}")
     g = g.detach().to(xc.dtype)
-    if xc.shape[-1] != Bn:
-        g = F.pad(g, (0, xc.shape[-1] - Bn))
+    if xc.shape[-1] != g.shape[-1]:
+        g = F.pad(g, (0, xc.shape[-1] - g.shape[-1]))
     g = g.contiguous()
     if g.device != xc.device or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned tensor on {xc.device}")

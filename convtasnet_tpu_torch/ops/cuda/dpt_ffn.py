@@ -29,7 +29,9 @@ db_down is zero. A partial launch counts in ``partial_launches``.
 A width B off the kernels' 64-column tile runs zero-padded (``pad_ffn``),
 with the kernels' LN over the sublayer's own B (their ``Bn``; the twins
 take the same ``Bn``), and the outputs and cotangents sliced back
-(``unpad_ffn_grads``), as in ``dpt_attention.py``.
+(``unpad_ffn_grads``), as in ``dpt_attention.py``. Every B runs (above
+256 through a workspace, above 512 with the LN backward's rows on a
+kernel of their own; ``csrc/dpt_ffn.cu``, ``csrc/dpt_ffn_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ import torch.nn.functional as F
 
 from convtasnet_tpu_torch.ops.cuda.build import load_library
 from convtasnet_tpu_torch.ops.cuda.dpt_attention import (
-    MAX_WIDTH,
     TILE,
     count_launch,
     ln_stats,
@@ -64,14 +65,13 @@ _GELU_A = 0.044715
 
 def shape_refusal(B: int) -> Optional[str]:
     """Why the FFN kernels (B11, B12, and their partial modes) refuse a
-    sublayer of width B, or None where they take it: B at most
-    ``MAX_WIDTH`` (512) once zero-padded up to a multiple of 64
-    (``pad_ffn``; above 256 B11 runs three launches through a workspace,
-    ``csrc/dpt_ffn.cu``). Any hidden width F (F / m for a shard of m): the
-    wrappers zero-pad it to a multiple of ``F_TILE`` (``pad_hidden``)."""
-    if not 0 < B <= MAX_WIDTH:
-        return (f"the kernel needs B at most {MAX_WIDTH} (B is zero-padded "
-                f"up to a multiple of {TILE}), got B={B}")
+    sublayer of width B, or None where they take it: they take every B > 0,
+    zero-padded up to a multiple of 64 (``pad_ffn``; above 256 B11 runs
+    three launches through a workspace, ``csrc/dpt_ffn.cu``), and any
+    hidden width F (F / m for a shard of m): the wrappers zero-pad it to a
+    multiple of ``F_TILE`` (``pad_hidden``)."""
+    if B <= 0:
+        return f"the kernel needs a width B > 0, got B={B}"
     return None
 
 
@@ -152,12 +152,14 @@ def unpad_ffn_grads(grads, B: int):
             dw_down[:, :B], db_down[:B])
 
 
-def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
+def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down,
+             Bn: Optional[int] = None):
     """Checks the operands of the FFN kernels (forward or backward) and
     returns them as the kernels take them: x and the weights contiguous in
     x's dtype, the LN affines and biases contiguous in f32, B zero-padded
     to the tile (``pad_ffn``) and F to ``F_TILE`` (``pad_hidden``); then
-    the LN's width Bn (the real B). Raises on anything the kernels do not
+    the LN's width Bn (the real B, or the ``Bn`` given for operands that
+    come zero-padded already). Raises on anything the kernels do not
     take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got "
@@ -182,6 +184,8 @@ def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
             for t in (gamma, beta, b_up, b_down)]
     if [v.numel() for v in vecs] != [B, B, Fw, B]:
         raise ValueError("gamma, beta, b_down must be [B] and b_up [F]")
+    if Bn is not None and not 0 < Bn <= B:
+        raise ValueError(f"the LN's width Bn must be in [1, B={B}], got {Bn}")
     for t in (w_up, w_down, *vecs):
         if t.device != x.device:
             raise ValueError(f"all operands must be on {x.device}, one is on "
@@ -192,14 +196,16 @@ def _prepare(name, x, gamma, beta, w_up, b_up, w_down, b_down):
     for t in (x, w_up, w_down):
         if t.data_ptr() % 16:
             raise ValueError("the kernel needs 16-byte aligned x, w_up, w_down")
-    return x, g_, b_, w_up, bu, w_down, bd, B
+    return x, g_, b_, w_up, bu, w_down, bd, B if Bn is None else Bn
 
 
 def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down,
-                 partial: bool = False):
+                 partial: bool = False, Bn: Optional[int] = None):
     """The CUDA branch of ``fused_ffn``: builds the kernels at first use,
     checks, allocates, launches on the current stream, and raises on
-    anything the kernel does not take."""
+    anything the kernel does not take. ``Bn``: the LN's width where the
+    operands come zero-padded already (a check of the padded routes; the
+    output keeps its first Bn columns); None: x's width."""
     if needs_grad(x, gamma, beta, w_up, b_up, w_down, b_down):
         raise NotImplementedError(
             "fused_ffn launches the CUDA FFN kernel forward only: its output "
@@ -208,7 +214,7 @@ def _launch_cuda(x, gamma, beta, w_up, b_up, w_down, b_down,
             "torch.inference_mode() or torch.no_grad()")
     lib = load_library()
     x, g, b, w_up, bu, w_down, bd, Bn = _prepare(
-        "fused_ffn", x, gamma, beta, w_up, b_up, w_down, b_down)
+        "fused_ffn", x, gamma, beta, w_up, b_up, w_down, b_down, Bn)
     M, K, B = x.shape
     Fw = w_up.shape[1]
     n_ws = ctypes.c_longlong()   # y and h above B = 256; none below
@@ -292,21 +298,23 @@ fused_ffn_bwd.partial_launches = 0
 
 
 def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down,
-                     partial: bool = False):
+                     partial: bool = False, Bn: Optional[int] = None):
     """The CUDA branch of ``fused_ffn_bwd``: builds the kernels at first
     use, checks, allocates the workspace and the outputs, launches on the
-    current stream, and raises on anything the kernel does not take."""
+    current stream, and raises on anything the kernel does not take.
+    ``Bn`` as in ``_launch_cuda`` (the cotangents keep the first Bn columns
+    and rows)."""
     lib = load_library()
     xc, g_, b_, w_up_c, bu, w_down_c, bd, Bn = _prepare(
-        "fused_ffn_bwd", x, gamma, beta, w_up, b_up, w_down, b_down)
+        "fused_ffn_bwd", x, gamma, beta, w_up, b_up, w_down, b_down, Bn)
     M, K, B = xc.shape
     Fw = w_up_c.shape[1]
     if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"g must have x's shape {tuple(x.shape)}, got "
                          f"{tuple(g.shape)}")
     g = g.detach().to(xc.dtype)
-    if B != Bn:
-        g = F.pad(g, (0, B - Bn))
+    if B != g.shape[-1]:
+        g = F.pad(g, (0, B - g.shape[-1]))
     g = g.contiguous()
     if g.device != xc.device or g.data_ptr() % 16:
         raise ValueError(f"g must be a 16-byte aligned tensor on {xc.device}")
@@ -339,7 +347,7 @@ def _launch_cuda_bwd(x, g, gamma, beta, w_up, b_up, w_down, b_down,
     return (dx.contiguous(), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
             dw_up_.to(w_up.dtype), db_up_.reshape(b_up.shape).to(b_up.dtype),
             dw_down_.to(w_down.dtype),
-            db_down.reshape(b_down.shape).to(b_down.dtype))
+            db_down.reshape(*b_down.shape[:-1], -1).to(b_down.dtype))
 
 
 class _FusedFfnFn(torch.autograd.Function):

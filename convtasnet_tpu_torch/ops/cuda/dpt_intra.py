@@ -45,8 +45,8 @@ def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
     """Why the intra kernels (B9, B10, and their partial modes) refuse a
     sublayer of width B over chunks of S frames with ``n_heads`` heads over
     Bq channels in the compute ``dtype``, or None where they take it: the
-    attention kernels' rules (B at most 512 once padded, B and Bq off 64
-    zero-padded, head widths 16, 32, 64 and 128 in either dtype). Any S
+    attention kernels' rules (any B, B and Bq off 64 zero-padded, Bq
+    dividing B, head widths 16, 32, 64 and 128 in either dtype). Any S
     runs: in f32 the first designs up to 256 frames and the
     row-statistics core above (``csrc/dpt_intra_rowstat.cuh``); the f32
     kernels and the bf16 backward run S padded up to a multiple of 16 with

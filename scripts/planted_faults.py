@@ -6,9 +6,9 @@ each block through the single block's launches), of
 the TCN's tensor parallelism (kernel B6 and the shard sum around it) and
 of the dual-path tensor parallelism (the partial kernels B7p-B12p and
 the shard sums around them), of the padding that runs widths off the
-kernels' tiles and of the TCN kernels' routes past 16 depthwise taps, and
-report which checks see each one. Needs
-one CUDA GPU and nvcc.
+kernels' tiles, of the TCN kernels' routes past 16 depthwise taps and of
+the DPT kernels' routes above 512 channels, and report which checks see
+each one. Needs one CUDA GPU and nvcc.
 
     python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...] \\
         [--jobs N]
@@ -34,7 +34,8 @@ B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
 ``phase_dpt_partial_vs_twin``, ``phase_dpt_tp_forward`` and
 ``phase_step_compare(torch, "dpt")``, for the padding
 ``phase_auto_padded``, for the routes past 16 depthwise taps
-``phase_tcn_taps``), then the kind's ``cuda``-marked
+``phase_tcn_taps``, for the DPT routes above 512
+``phase_dpt_wider_kernels``), then the kind's ``cuda``-marked
 tests. The repository itself is never edited. A fault is caught when either
 run fails. ``--jobs N`` runs N faults at once on the one card. Each run's
 full output goes to ``--log-dir`` (default: a new temporary directory),
@@ -390,6 +391,23 @@ FAULTS = {
         "      if (kk >= 0 && kk < K)\n"
         "        row_stats(p.part_a + 2 * (static_cast<size_t>(m) * K + "
         "(kk >= d ? kk - d : kk))"),
+    # the DPT routes above 512 (kind wider): ln_bwd_wide_kernel's mean of
+    # dy gamma over the padded B in place of the sublayer's own Bn, and
+    # the f32 inter core (B7) dropping its last key tile where a pass
+    # stages more than one (16 key chunks a load above Bq = 512)
+    "wider_ln_bwd_mean_over_padded_b": ("wider",
+        "convtasnet_tpu_torch/csrc/dpt_bwd_common.cuh",
+        "      s2 += dxh * xh;\n    }\n"
+        "    const float mean_d = warp_sum(s1) / Bn;",
+        "      s2 += dxh * xh;\n    }\n"
+        "    const float mean_d = warp_sum(s1) / B;"),
+    "wider_inter_core_last_key_tile_dropped": ("wider",
+        "convtasnet_tpu_torch/csrc/dpt_attention.cu",
+        "      float mx = -INFINITY, sum = 0.f;\n"
+        "      for (int k0 = 0; k0 < n; k0 += key_tile) {",
+        "      float mx = -INFINITY, sum = 0.f;\n"
+        "      for (int k0 = 0; k0 == 0 || k0 + key_tile < n; "
+        "k0 += key_tile) {"),
 }
 # The smoke phases a fault of each kind is run through; each phase runs
 # whether or not an earlier one failed, and prints "PHASE <call>: passed"
@@ -419,6 +437,7 @@ PHASES = {
                "phase_step_compare(torch, 'dpt')"],
     "padded": ["phase_auto_padded(torch, k, dpt)"],
     "taps": ["phase_tcn_taps(torch, k)"],
+    "wider": ["phase_dpt_wider_kernels(torch, dpt)"],
 }
 CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
                                "or fused_block_ad or rounding_points",
@@ -428,7 +447,7 @@ CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
               "cln_backward": "cln", "pair": "pair", "tp": "tp_",
               "dpt_tp": "partial or dpt_tp",
               "padded": "untiled or check_shapes or auto_mode or padded",
-              "taps": "taps"}
+              "taps": "taps", "wider": "wide"}
 RUNNER = """
 import sys
 import torch

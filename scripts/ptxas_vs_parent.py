@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Registers and spills of the TCN kernels in this tree against another
+"""Registers and spills of the kernels in this tree against another
 checkout's, as ``nvcc -Xptxas -v`` reports them for sm_90a. Needs nvcc.
 
     python3 scripts/ptxas_vs_parent.py --other DIR [--log-dir DIR]
+        [--sources tcn|dpt|all]
 
 DIR holds another checkout's ``convtasnet_tpu_torch/`` (for example the
 parent commit, unpacked with ``git archive HEAD convtasnet_tpu_torch``).
-Each TCN source (``tcn_block*.cu``) of both trees compiles at once, with
-the package's own nvcc flags, and every kernel both trees have is held by
-its registers, stack frame and spill stores and loads: one line per kernel
+Each source of both trees (the TCN's ``tcn_block*.cu`` and the DPT's
+``dpt_*.cu``, or one family with ``--sources``) compiles at once, with the
+package's own nvcc flags, and every kernel both trees have is held by its
+registers, stack frame and spill stores and loads: one line per kernel
 whose numbers moved, one per kernel only one tree has, and a count of the
 kernels the trees share with the same numbers. A kernel that gained a
 defaulted template parameter keeps its old name for its default
 instantiation (``e2_kernel`` and ``e2_wg_kernel``'s ``kTapChunks``,
-``out_proj_wg_kernel``'s ``kHaloDev``), so that a P <= 16 route is held
-against itself. ``--log-dir`` keeps each report. Exits 1 if a shared
-kernel's numbers moved.
+``out_proj_wg_kernel``'s ``kHaloDev``, the f32 inter cores' ``kKeys`` of
+32), so that a P <= 16 route, or one up to B = 512, is held against
+itself. ``--log-dir`` keeps each report. Exits 1 if a shared kernel's
+numbers moved.
 """
 
 from __future__ import annotations
@@ -30,14 +33,21 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-SOURCES = ("tcn_block", "tcn_block_bwd", "tcn_block_pair",
-           "tcn_block_pair_bwd", "tcn_block_tp")
-# default instantiations of kernels that gained a defaulted bool template
+FAMILIES = {
+    "tcn": ("tcn_block", "tcn_block_bwd", "tcn_block_pair",
+            "tcn_block_pair_bwd", "tcn_block_tp"),
+    "dpt": ("dpt_attention", "dpt_attention_bwd", "dpt_intra",
+            "dpt_intra_bwd", "dpt_ffn", "dpt_ffn_bwd"),
+}
+SOURCES = FAMILIES["tcn"] + FAMILIES["dpt"]
+# default instantiations of kernels that gained a defaulted template
 # parameter, mapped to the names they had without it
 RENAMES = [(r"(e2_kernelI\w+?)ELb0EEEv", r"\1EEEv"),
            (r"(out_proj_wg_kernelILi\d+ELb[01])ELb0EEEv", r"\1EEEv"),
            (r"e2_wg_kernelILb0EEEvNS_9BwdParamsEi",
-            "e2_wg_kernelENS_9BwdParamsEi")]
+            "e2_wg_kernelENS_9BwdParamsEi"),
+           (r"(inter(?:_bwd)?_core_kernelIfLi\d+ELb[01]E)Li32EEEv",
+            r"\1EEv")]
 
 
 def kernel_name(mangled: str) -> str:
@@ -75,13 +85,14 @@ def parse(report: str) -> dict:
     return out
 
 
-def compile_reports(root: str, tmp: str, tag: str) -> dict:
-    """Each TCN source of the tree at root compiled at once; {source:
+def compile_reports(root: str, tmp: str, tag: str,
+                    sources=SOURCES) -> dict:
+    """Each of ``sources`` of the tree at root compiled at once; {source:
     report}."""
     from convtasnet_tpu_torch.ops.cuda.build import NVCC_FLAGS, _nvcc
 
     nvcc, procs = _nvcc(), {}
-    for src in SOURCES:
+    for src in sources:
         path = os.path.join(root, "convtasnet_tpu_torch", "csrc", f"{src}.cu")
         procs[src] = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -97,10 +108,11 @@ def compile_reports(root: str, tmp: str, tag: str) -> dict:
 
 
 def compare(mine: dict, other: dict) -> tuple:
-    """(lines, n_same, n_shared, n_moved) for two trees' reports."""
+    """(lines, n_same, n_shared, n_moved) for two trees' reports (of the
+    same sources)."""
     lines, same, shared, moved = [], 0, 0, 0
     fmt = "{} registers, {} bytes stack, {}/{} bytes spill stores/loads"
-    for src in SOURCES:
+    for src in mine:
         a, b = parse(mine[src]), parse(other[src])
         for k in sorted(set(a) | set(b)):
             if k in a and k in b:
@@ -125,9 +137,14 @@ def main() -> int:
                     help="directory holding the other checkout's "
                          "convtasnet_tpu_torch/")
     ap.add_argument("--log-dir", help="keep each tree's reports here")
+    ap.add_argument("--sources", choices=("tcn", "dpt", "all"),
+                    default="all", help="which sources' kernels (default: "
+                    "all)")
     a = ap.parse_args()
+    sources = SOURCES if a.sources == "all" else FAMILIES[a.sources]
     with tempfile.TemporaryDirectory() as tmp:
-        reports = {tag: compile_reports(root, tmp, tag) for tag, root in
+        reports = {tag: compile_reports(root, tmp, tag, sources)
+                   for tag, root in
                    (("this", REPO), ("other", os.path.abspath(a.other)))}
     if a.log_dir:
         os.makedirs(a.log_dir, exist_ok=True)

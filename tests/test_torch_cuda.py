@@ -1048,9 +1048,9 @@ def test_dpt_kernels_are_deterministic_and_check_shapes(cuda):
         args, kw, _ = _dpt_args(cuda, torch.bfloat16, kind, 7, True, seed=2)
         with torch.inference_mode():
             assert torch.equal(fused(*args, **kw), fused(*args, **kw))
-    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, B=576,
-                            heads=18)
-    with pytest.raises(ValueError, match="at most 512"):
+    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, B=96,
+                            heads=2)
+    with pytest.raises(ValueError, match="head width"):   # d = 48
         dpt_intra.fused_intra_attention(*args, **kw)
     args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=16)
     with pytest.raises(ValueError, match="head width"):   # d = 8
@@ -2439,16 +2439,19 @@ AUTO_PADDED = {
                 bottleneck=64, dpt_chunk=100, dpt_layers=1, dpt_heads=2,
                 dpt_ff=192),
 }
-# (config, the rule the error names): DPTs wider than 512 (the TCN blocks
-# take every width and every P the JAX package runs; the "tcn" slot held
-# 17 causal taps until they were taken, test_tcn_model_takes_any_taps)
+# (config, the rule the error names): DPTs whose head width no kernel
+# takes, 48 (2 heads of B = 96) and 8 (72 heads of B = 576) (the TCN
+# blocks take every width and every P the JAX package runs, and the DPT
+# every B; the "tcn" slot held 17 causal taps until they were taken,
+# test_tcn_model_takes_any_taps, then a DPT at B = 640 until B above 512
+# was taken)
 AUTO_REFUSED = {
     "tcn": (dict(separator="dpt", n_filters=64, kernel_size=16,
-                 bottleneck=640, dpt_layers=1, dpt_heads=20, dpt_ff=256),
-            "at most 512"),
+                 bottleneck=96, dpt_layers=1, dpt_heads=2, dpt_ff=256),
+            "head width"),
     "dpt": (dict(separator="dpt", n_filters=64, kernel_size=16,
-                 bottleneck=576, dpt_layers=1, dpt_heads=18, dpt_ff=256),
-            "at most 512"),
+                 bottleneck=576, dpt_layers=1, dpt_heads=72, dpt_ff=256),
+            "head width"),
 }
 
 
@@ -2497,7 +2500,7 @@ def test_auto_mode_runs_padded_widths_through_the_kernels(cuda, family):
 
 @pytest.mark.parametrize("family", ["tcn", "dpt"])
 def test_auto_mode_raises_where_no_kernel_takes_the_shape(cuda, family):
-    """A shape no kernel takes (a DPT at B = 640 or 576) raises under
+    """A shape no kernel takes (a DPT at head width 48 or 8) raises under
     auto on the card as with
     use_pallas=True, naming the rule, before any launch; use_pallas=False
     serves it through the plain ops."""
@@ -2656,26 +2659,31 @@ def test_imported_reference_package_through_b1(cuda, tmp_path, dtype,
 # DPT widths above 256 (B = 320 to 512): every sublayer kernel on its wide
 # route (LQ's one resident tile, out in 256-column tiles, DN through dy in
 # device memory and ln_bwd_kernel, UG streaming y and g, B11 in three
-# launches; the f32 inter cores with more than 8 heads taking them in turn)
+# launches; the f32 inter cores with more than 8 heads taking them in
+# turn); above 512 (B = 576, 1024, 2048) on the routes beside the resident
+# tiles (LQ and F1 streaming y through device memory, the f32 launch 1 as
+# ln_rows_kernel + gemm_rows_kernel, the LN backward's rows on
+# ln_bwd_wide_kernel, the f32 inter cores staging fewer key chunks above
+# Bq = 512)
 # --------------------------------------------------------------------------
 
-WIDE_WIDTHS = (320, 384, 448, 512)
+WIDE_WIDTHS = (320, 384, 448, 512, 576, 1024, 2048)
 
 
 def _wide_shards(B):
     """The least shard count m > 1 whose head-group shard of B (B / 32
     heads) is a multiple of 64 wide: 5, 2, 7, 2 at B = 320, 384, 448,
-    512."""
+    512; 3, 2, 2 at 576, 1024, 2048."""
     return [m for m in dpt_attention.fitting_shards(B, B // 32)
             if (B // m) % 64 == 0][1]
 
 
-def _wide_case(cuda, dtype, kind, B, m, heads=None, seed=0):
+def _wide_case(cuda, dtype, kind, B, m, heads=None, seed=0, M=2):
     """Operands of one sublayer at width B (B / 32 heads unless ``heads``;
-    F = 2B) over [2, 5, 32] rows (320, the last 128-row tile half full)
-    with a masked tail, and of its last shard of m (m > 1)."""
+    F = 2B) over [M, 5, 32] rows (320 at M = 2, the last 128-row tile half
+    full) with a masked tail, and of its last shard of m (m > 1)."""
     heads = heads or B // 32
-    args, kw, valid = _dpt_args(cuda, dtype, kind, 5, True, S=32, B=B,
+    args, kw, valid = _dpt_args(cuda, dtype, kind, 5, True, M=M, S=32, B=B,
                                 heads=heads, F=2 * B, seed=seed)
     if m > 1:
         args = _shard(args, kind, m, m - 1)
@@ -2698,16 +2706,19 @@ WIDE_ORDER_TOL = {False: 1e-3, True: 2e-3}
 def test_dpt_wide_kernels_match_twins(cuda, B, dtype, kind, m):
     """B7-B12 (full) and B7p-B12p (the last shard of ``_wide_shards``) at
     B = 320, 384, 448 and 512 with B / 32 heads (10 to 16 heads of 32; a
-    shard 2 to 8 of them), F = 2B: the forward within DPT_TOL of its twin
-    on the valid rows (bf16 also within 1e-3 of the forward at its
-    rounding points, ``WIDE_ORDER_TOL``) and two calls the same bits;
-    every cotangent of the
-    backward as test_dpt_bwd_kernel_matches_twin holds it; one launch per
+    shard 2 to 8 of them), and above 512 at 576, 1024 and 2048 (18 to 64
+    heads; a shard of 192, 512 or 1024 channels), F = 2B, over [2, 5, 32]
+    rows ([1, 5, 32] at 2048): the forward within DPT_TOL of its twin on
+    the valid rows (bf16 also within 1e-3 of the forward at its rounding
+    points, ``WIDE_ORDER_TOL``) and two calls the same bits; every
+    cotangent of the backward as test_dpt_bwd_kernel_matches_twin holds
+    it (above 512 a second backward the same bits too); one launch per
     call, counted in its mode."""
+    shards = 1 if m == "full" else _wide_shards(B)
     fused, twin = DPT_FNS[kind]
     fused_bwd, twin_bwd = DPT_BWD_FNS[kind]
-    shards = 1 if m == "full" else _wide_shards(B)
-    args, kw, valid = _wide_case(cuda, dtype, kind, B, shards, seed=B)
+    args, kw, valid = _wide_case(cuda, dtype, kind, B, shards, seed=B,
+                                 M=1 if B == 2048 else 2)
     count = "partial_launches" if shards > 1 else "launches"
     before = getattr(fused, count)
     with torch.inference_mode():
@@ -2733,6 +2744,9 @@ def test_dpt_wide_kernels_match_twins(cuda, B, dtype, kind, m):
     grads = fused_bwd(x, g, *w, **kw)
     torch.cuda.synchronize()
     assert getattr(fused_bwd, count) == before + 1
+    if B > 512:
+        assert all(torch.equal(a, b)
+                   for a, b in zip(grads, fused_bwd(x, g, *w, **kw)))
     exact = twin_bwd(x.float(), g.float(), *w, **kw)
     same = twin_bwd(x, g, *w, **kw)
     if kind == "ffn" and shards > 1:   # db_down of a partial backward
@@ -2768,10 +2782,11 @@ def test_dpt_wide_attention_head_widths(cuda, heads, dtype, kind):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B", [384, 512])
+@pytest.mark.parametrize("B", [384, 512, 576, 1024])
 def test_dpt_wide_model_kernel_path_matches_plain_path(cuda, B, dtype):
-    """A DPT at B = 384 (12 heads) and 512 (16 heads), one layer, 32-frame
-    chunks, F = 2B, serving a 1.3 s mixture: auto mode takes it (no
+    """A DPT at B = 384 (12 heads), 512 (16 heads), 576 (18) and 1024 (32;
+    the last two on the routes above 512), one layer, 32-frame chunks,
+    F = 2B, serving a 1.3 s mixture: auto mode takes it (no
     refusal), each sublayer launches its kernel, the output within the
     forward bar of the plain path's; a backward through the kernel path
     launches each backward kernel once (the FFN's twice), every gradient
@@ -2827,6 +2842,142 @@ def test_dpt_wide_partial_kernels_sum_to_the_full_kernel(cuda, kind):
     total = args[0] + parts + (args[-1] if kind == "ffn" else 0)
     err = _rel_l2(_valid_rows(total, valid, 512), _valid_rows(full, valid, 512))
     assert err <= DPT_TOL[torch.float32], err
+
+
+# --------------------------------------------------------------------------
+# DPT widths above 512, past what test_dpt_wide_kernels_match_twins holds:
+# the f32 inter cores over several key loads, and the routes above 512
+# against the resident ones bit for bit
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,m", [(1024, 1), (2048, 1), (2048, 2)])
+@pytest.mark.parametrize("n", [25, 94])
+def test_dpt_wider_f32_inter_cores_stage_fewer_keys(cuda, B, m, n):
+    """The f32 inter cores (B7, B8; B7p, B8p on the last shard of two) past
+    their 32-chunk staging (Bq = 1024 stages 16 key chunks a load, 2048
+    stages 8) at n = 25 and 94 chunks of 8 frames (several loads per pass,
+    the last one partial) with a masked tail: the forward within DPT_TOL of
+    its twin and every cotangent within DPT_BWD_TOL of the exact twin, a
+    second call of each the same bits."""
+    fused, twin = DPT_FNS["inter"]
+    fused_bwd, twin_bwd = DPT_BWD_FNS["inter"]
+    heads = B // 32
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, torch.float32, "inter", n,
+                                       True, M=1, S=8, B=B, heads=heads,
+                                       seed=n)
+    args = (x, *w)
+    if m > 1:
+        x, *w = _shard(args, "inter", m, m - 1)
+        args = (x, *w)
+        kw = dict(_partial_kw("inter", m, heads), partial=True)
+    with torch.inference_mode():
+        got, again = fused(*args, **kw), fused(*args, **kw)
+        same = twin(*args, **kw)
+    assert torch.equal(got, again)
+    err = _rel_l2(_valid_rows(got, valid, B), _valid_rows(same, valid, B))
+    assert err <= DPT_TOL[torch.float32], err
+    grads = fused_bwd(x, g, *w, **kw)
+    assert all(torch.equal(a, b)
+               for a, b in zip(grads, fused_bwd(x, g, *w, **kw)))
+    exact = twin_bwd(x, g, *w, **kw)
+    _check_dpt_cotangents(grads, exact, exact, valid, torch.float32)
+
+
+def _zero_column_operands(args, kind, to, extra_heads):
+    """A sublayer's operands (B = 512 wide) padded to ``to`` columns as the
+    routes above 512 see a sublayer of 512 real columns: zero columns of
+    x, gamma, beta (and b_down) and zero rows and columns of the weights
+    that meet them; the attention's q, k and v each with ``extra_heads``
+    zero heads of 32."""
+    import torch.nn.functional as F
+
+    B = args[0].shape[-1]
+    pad = to - B
+    if kind == "ffn":
+        x, g_, b_, w_up, b_up, w_down, b_down = args
+        return (F.pad(x, (0, pad)), F.pad(g_, (0, pad)), F.pad(b_, (0, pad)),
+                F.pad(w_up, (0, 0, 0, pad)), b_up, F.pad(w_down, (0, pad)),
+                F.pad(b_down, (0, pad)))
+    x, g_, b_, w_qkv, w_out, bias = args
+    dq = 32 * extra_heads
+    qkv = torch.cat([F.pad(t, (0, dq, 0, pad)) for t in w_qkv.split(B, 1)],
+                    dim=1)
+    return (F.pad(x, (0, pad)), F.pad(g_, (0, pad)), F.pad(b_, (0, pad)),
+            qkv, F.pad(w_out, (0, pad, 0, dq)), bias)
+
+
+def _zero_column_runs(kind, args, kw, args_w, kw_w, g, g_w, Bn):
+    """The narrow sublayer through its wrappers and the padded one through
+    the CUDA branches with the LN over its first Bn columns: (forward,
+    forward padded, cotangents, cotangents padded), the padded ones cut to
+    the narrow shapes."""
+    x, *w = args
+    xw, *ww = args_w
+    if kind == "ffn":
+        out = dpt_ffn.fused_ffn(*args)
+        out_w = dpt_ffn._launch_cuda(*args_w, Bn=Bn)
+        grads = dpt_ffn.fused_ffn_bwd(x, g, *w)
+        grads_w = dpt_ffn._launch_cuda_bwd(xw, g_w, *ww, Bn=Bn)
+        return out, out_w, grads, grads_w
+    fused = DPT_FNS[kind][0]
+    out = fused(*args, **kw)
+    out_w = dpt_attention.launch_attention(kind, *args_w, Bn=Bn, **kw_w)
+    grads = DPT_BWD_FNS[kind][0](x, g, *w, **kw)
+    dx, dgam, dbet, dwq, dwo = dpt_attention.launch_attention_bwd(
+        kind, xw, g_w, *ww, Bn=Bn, **kw_w)
+    Bqw = dwq.shape[1] // 3
+    dwq = dwq.reshape(Bn, 3, Bqw)[:, :, :Bn].reshape(Bn, 3 * Bn)
+    return out, out_w, grads, (dx, dgam, dbet, dwq, dwo[:Bn])
+
+
+# the cotangents that keep the B = 512 bits on the routes above 512: every
+# one in f32; in bf16 dx, dgamma, dbeta (and the FFN's bias gradients),
+# while the weight gradients sum their rows in chunks that
+# wg_wgrad_chunk picks from the operands' widths, so a padded width may
+# sum them in other chunks (held by the twins' bars there; PERF.md §6)
+WIDER_BITS = {
+    (torch.float32, "inter"): (0, 1, 2, 3, 4),
+    (torch.float32, "intra"): (0, 1, 2, 3, 4),
+    (torch.float32, "ffn"): (0, 1, 2, 3, 4, 5, 6),
+    (torch.bfloat16, "inter"): (0, 1, 2),
+    (torch.bfloat16, "intra"): (0, 1, 2),
+    (torch.bfloat16, "ffn"): (0, 1, 2, 4, 6),
+}
+
+
+@pytest.mark.parametrize("kind", ["inter", "intra", "ffn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dpt_wider_zero_columns_same_bits(cuda, dtype, kind):
+    """The routes above 512 against the resident ones: a sublayer of B =
+    512 (16 heads of 32, F = 1024) over [2, 5, 32] rows, padded to 576
+    with 64 zero columns and two zero heads and run through the CUDA
+    branch with its LN over the first Bn = 512 columns, gives the B = 512
+    forward's bits, and the cotangents ``WIDER_BITS`` lists the B = 512
+    backward's bits (the others within the twins' bars of the narrow
+    exact cotangents)."""
+    args, kw, valid = _dpt_args(cuda, dtype, kind, 5, True, S=32, B=512,
+                                heads=16, F=1024, seed=11)
+    args_w = _zero_column_operands(args, kind, 576, 2)
+    kw_w = {} if kind == "ffn" else dict(n_heads=18)
+    x = args[0]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(12))
+    g = (g.to(cuda).reshape(x.shape[0], -1, 512)
+         * valid.reshape(1, -1, 1)).reshape(x.shape).to(dtype)
+    g_w = torch.nn.functional.pad(g, (0, 64))
+    w = [None if a is None else a.float() for a in args[1:]]
+    w_w = [None if a is None else a.float() for a in args_w[1:]]
+    with torch.no_grad():
+        out, out_w, grads, grads_w = _zero_column_runs(
+            kind, (x, *w), kw, (args_w[0], *w_w), kw_w, g, g_w, 512)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out_w).all()
+    assert torch.equal(out_w, out), (out_w.float() - out.float()).abs().max()
+    same = [torch.equal(a, b) for a, b in zip(grads_w, grads)]
+    print(f"zero columns {dtype} {kind}: cotangents the same bits {same}")
+    assert all(same[i] for i in WIDER_BITS[(dtype, kind)]), same
+    exact = DPT_BWD_FNS[kind][1](x.float(), g.float(), *w, **kw)
+    twin = DPT_BWD_FNS[kind][1](x, g, *w, **kw)
+    _check_dpt_cotangents(grads_w, exact, twin, valid, dtype)
 
 
 # --------------------------------------------------------------------------

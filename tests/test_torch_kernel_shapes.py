@@ -80,7 +80,7 @@ def test_tp_stage2_rule(Hs, B):
 
 
 def _attention_ok(kind, B, S, Bq, heads):
-    return (B <= 512 and B % Bq == 0 and Bq % heads == 0
+    return (B % Bq == 0 and Bq % heads == 0
             and Bq // heads in (16, 32, 64, 128))
 
 
@@ -88,14 +88,17 @@ def _attention_ok(kind, B, S, Bq, heads):
 @pytest.mark.parametrize("B,Bq,heads", [
     (256, 256, 8), (256, 128, 4), (256, 32, 1), (256, 256, 16),
     (320, 320, 10), (96, 96, 3), (64, 64, 2), (512, 512, 16),
-    (512, 256, 8), (448, 64, 2), (576, 576, 18)])
+    (512, 256, 8), (448, 64, 2), (576, 576, 18), (640, 640, 20),
+    (1024, 1024, 32), (1024, 512, 16), (2048, 2048, 64), (576, 96, 2)])
 @pytest.mark.parametrize("S", [100, 128, 272])
 def test_attention_rules(kind, B, Bq, heads, S):
-    """B7-B10 (and partial modes) take B <= 512, a head width of 16, 32,
-    64 or 128 and a head group's width Bq dividing B, at any chunk length
-    S (the intra kernels pad it to a multiple of 16); B = 320 to 512 on
-    their wide routes, B = 96 and a shard of 32 channels zero-padded to
-    the 64-column tile, B = 576 refused."""
+    """B7-B10 (and partial modes) take any B, a head width of 16, 32, 64
+    or 128 and a head group's width Bq dividing B, at any chunk length S
+    (the intra kernels pad it to a multiple of 16); B = 320 to 512 on
+    their wide routes, B = 576, 640, 1024 and 2048 (and a shard of 512 of
+    1024) on the routes beside the resident tiles, B = 96 and a shard of
+    32 channels zero-padded to the 64-column tile; a head width of 48 (96
+    channels in 2 heads) refused."""
     got = dpt_attention.shape_refusal(kind, B, S, Bq, heads)
     assert (got is None) == _attention_ok(kind, B, S, Bq, heads), got
     if kind == "intra":
@@ -106,11 +109,13 @@ CSRC = Path(dpt_attention.__file__).resolve().parents[2] / "csrc"
 
 
 def _csrc_int(name, file):
-    """The value of ``constexpr int name = ...;`` in csrc/file."""
-    found = re.search(rf"constexpr int {name} = (\d+);",
+    """The value of ``constexpr int name = ...;`` (or ``size_t``, a product
+    of integers) in csrc/file."""
+    found = re.search(rf"constexpr (?:int|size_t) {name} = ([\d *]+);",
                       (CSRC / file).read_text())
     assert found, (name, file)
-    return int(found.group(1))
+    return functools.reduce(lambda a, b: a * b,
+                            (int(v) for v in found.group(1).split("*")))
 
 
 def _f32_inter_launchers_take(B, Bq, h):
@@ -118,41 +123,49 @@ def _f32_inter_launchers_take(B, Bq, h):
     B8's ``launch_bwd`` in csrc/dpt_attention_bwd.cu, with their partial
     modes) check and ask for, written out, at the widths the wrappers hand
     them (B, Bq and h as ``dpt_attention.pad_attention`` pads them): Bq a
-    multiple of 64 and at most B, a head width in core_head_width, B within the LN backward's rows
-    (kLnBwdWidth) and the widest row (kWideMax), a core block of
-    core_warps(h) warps (at most 8, each taking h / warps heads in turn)
-    and the dynamic shared memory of ln_qkv_kernel (ln_qkv_smem<float>)
-    and of the inter cores (inter_core_smem, core_bwd_smem) within an
-    H100 block's 232,448 bytes."""
+    multiple of 64 and at most B, a head width in core_head_width, a core
+    block of core_warps(h) warps (at most 8, each taking h / warps heads
+    in turn) and the dynamic shared memory of ln_qkv_kernel
+    (ln_qkv_smem<float>, up to B = kWideMax; above it launch 1 keeps no
+    tile) and of the inter cores (inter_core_smem, core_bwd_smem: kInterKeys
+    key chunks staged up to Bq = kWideMax, above it inter_wide_keys', the
+    most from 16 down by halves within kInterWideStage) within an H100
+    block's 232,448 bytes. No bound on B itself: the LN backward's rows
+    past kLnBwdWidth and LQ's past kWideMax take routes of their own."""
     def align128(n):
         return (n + 127) // 128 * 128
 
+    wide = _csrc_int("kWideMax", "dpt_bwd_common.cuh")
     d = Bq // h
     warps = min(h, 8)
     while h % warps:
         warps -= 1
     ln_qkv = (align128(64 * (B + 4) * 4) + align128(64 * 68 * 4)
-              + 64 * (256 + 4) * 4)
-    core = align128(32 * 2 * Bq * 4) + 32 * 4
+              + 64 * (256 + 4) * 4) if B <= wide else 0
+    keys = _csrc_int("kInterKeys", "dpt_common.cuh")
+    if Bq > wide:
+        keys = 16
+        while keys > 1 and keys * 2 * Bq * 4 > _csrc_int(
+                "kInterWideStage", "dpt_common.cuh"):
+            keys //= 2
+    core = align128(keys * 2 * Bq * 4) + keys * 4
     return (Bq % 64 == 0 and Bq <= B and Bq % h == 0
             and d in (16, 32, 64, 128)
-            and B <= _csrc_int("kLnBwdWidth", "dpt_bwd_common.cuh")
-            and B <= _csrc_int("kWideMax", "dpt_bwd_common.cuh")
             and warps <= 8 and h % warps == 0
             and max(ln_qkv, core) <= 232448)
 
 
 def test_every_taken_f32_inter_shape_launches():
-    """Every shape the attention rule takes in f32 at B <= 512 with 10 to
-    16 heads (a head-group shard of m of them too), padded as the wrappers
-    pad it, is one the f32 inter launchers take: no launcher keeps a
-    refusal the rule does not state (the one-warp-a-head limit above 8
-    heads is gone from both), and the shapes the rule refuses are B above
-    512 or a head width no core takes."""
+    """Every shape the attention rule takes in f32 at B up to 2048 with 10
+    to 16 heads (a head-group shard of m of them too), padded as the
+    wrappers pad it, is one the f32 inter launchers take: no launcher keeps
+    a refusal the rule does not state (the one-warp-a-head limit above 8
+    heads is gone from both, and so is every bound on B), and the shapes
+    the rule refuses are those of a head width no core takes."""
     for name in ("dpt_attention.cu", "dpt_attention_bwd.cu"):
         assert not re.search(r"\bh > 8 &&", (CSRC / name).read_text()), name
     taken = 0
-    for B in range(64, 577, 32):
+    for B in range(64, 2049, 32):
         for heads in range(10, 17):
             for m in range(1, heads + 1):
                 if heads % m or B % m:
@@ -168,8 +181,6 @@ def test_every_taken_f32_inter_shape_launches():
                         x, x[0, 0, 0], x[0, 0, 0], w_qkv, w_out, h)
                     assert _f32_inter_launchers_take(
                         xp.shape[-1], wq.shape[1] // 3, hp), (B, Bq, h)
-                elif B > 512:
-                    assert "at most 512" in got, (B, got)
                 else:
                     assert "head width" in got, (B, Bq, h, got)
     assert taken >= 8
@@ -181,7 +192,8 @@ def test_wide_widths_take_every_head_width_and_shard(B, dtype):
     """At B = 320 to 512 the attention kernels (inter and intra) take every
     head width of their dtype, on the full sublayer and on every head-group
     shard (a width B / m off 64 zero-padded), and the FFN kernels take
-    B; B + 64 past 512 is refused and B - 32, off the tile, taken."""
+    B; B + 64 past 512 (on the routes beside the resident tiles) and
+    B - 32, off the tile, are taken too."""
     taken = 0
     for d in dpt_attention.HEAD_DIMS[dtype]:
         heads = B // d
@@ -202,7 +214,7 @@ def test_wide_widths_take_every_head_width_and_shard(B, dtype):
     assert dpt_attention.shape_refusal(
         "inter", B - 32, 128, B - 32, (B - 32) // 32, dtype) is None
     if B == 512:
-        assert dpt_ffn.shape_refusal(B + 64)
+        assert dpt_ffn.shape_refusal(B + 64) is None
 
 
 @pytest.mark.parametrize("kind", ["inter", "intra"])
@@ -263,17 +275,17 @@ def test_f32_dpt_head_widths_refuse_only_long_chunks(heads):
     assert shapes.refusals(long) == {}
 
 
-@pytest.mark.parametrize("B", [64, 256, 320, 96, 448, 512, 576])
+@pytest.mark.parametrize("B", [64, 256, 320, 96, 448, 512, 576, 640, 1024,
+                               2048])
 def test_ffn_rule(B):
-    """B11, B12 (and partial modes) take B <= 512 (320 to 512 on their
-    wide routes; B = 96 zero-padded to 128) and any F (F / m), padded to a
-    multiple of 128; B = 576 is refused."""
+    """B11, B12 (and partial modes) take every B (320 and up on their wide
+    routes, 576 to 2048 among them; B = 96 zero-padded to 128) and any F
+    (F / m), padded to a multiple of 128: no width bound is left in
+    either wrapper."""
     got = dpt_ffn.shape_refusal(B)
-    assert (got is None) == (B <= 512), got
-    assert dpt_ffn.MAX_WIDTH is dpt_attention.MAX_WIDTH == 512
-    if got:
-        assert got == (f"the kernel needs B at most 512 (B is zero-padded "
-                       f"up to a multiple of 64), got B={B}")
+    assert got is None, got
+    assert not hasattr(dpt_ffn, "MAX_WIDTH")
+    assert not hasattr(dpt_attention, "MAX_WIDTH")
 
 
 @pytest.mark.parametrize("overrides,n_model,pairs,want", [
@@ -293,8 +305,7 @@ def test_ffn_rule(B):
     (dict(separator="dpt"), 1, False, {}),
     (dict(separator="dpt", dpt_chunk=100), 1, False, {}),
     (dict(separator="dpt", bottleneck=320), 1, False, {}),
-    (dict(separator="dpt", bottleneck=576), 1, False,
-     {"intra", "inter", "ffn"}),
+    (dict(separator="dpt", bottleneck=576), 1, False, {}),
     (dict(separator="dpt", bottleneck=512), 1, False, {}),
     (dict(separator="dpt", bottleneck=512), 2, False, {}),
     (dict(separator="dpt", bottleneck=448, compute_dtype="bfloat16"), 7,
@@ -338,6 +349,22 @@ def test_ffn_rule(B):
     (dict(separator="dpt", bottleneck=64, dpt_heads=8), 1, False,
      {"intra", "inter"}),
     (dict(separator="dpt"), 3, False, {"intra", "inter"}),
+    (dict(separator="dpt", bottleneck=640), 1, False, {}),
+    (dict(separator="dpt", bottleneck=1024), 1, False, {}),
+    (dict(separator="dpt", bottleneck=1024, compute_dtype="bfloat16"), 1,
+     False, {}),
+    (dict(separator="dpt", bottleneck=1024), 2, False, {}),
+    (dict(separator="dpt", bottleneck=1024, compute_dtype="bfloat16"), 2,
+     False, {}),
+    (dict(separator="dpt", bottleneck=2048), 1, False, {}),
+    (dict(separator="dpt", bottleneck=2048, compute_dtype="bfloat16"), 2,
+     False, {}),
+    (dict(separator="dpt", bottleneck=576, compute_dtype="bfloat16"), 2,
+     False, {}),
+    (dict(separator="dpt", bottleneck=1152, dpt_heads=24), 1, False,
+     {"intra", "inter"}),
+    (dict(separator="dpt", bottleneck=576, dpt_heads=72,
+          compute_dtype="bfloat16"), 1, False, {"intra", "inter"}),
 ], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
         "P17-pairs", "P17-cLN-pairs", "tp-P33", "tp-P4",
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-B576",
@@ -349,7 +376,10 @@ def test_ffn_rule(B):
         "dpt-tp2-d16", "dpt-tp2-d128", "dpt-tp4-d16", "dpt-d16-S272",
         "dpt-d128-S272", "dpt-d16-bf16", "dpt-d128-bf16", "dpt-tp2-d128-bf16",
         "dpt-B128-d128-bf16", "dpt-B96", "dpt-tp2-B192", "dpt-tp3-B96-d16",
-        "dpt-B480-bf16", "dpt-B96-d48", "dpt-B64-d8", "dpt-tp3"])
+        "dpt-B480-bf16", "dpt-B96-d48", "dpt-B64-d8", "dpt-tp3", "dpt-B640",
+        "dpt-B1024", "dpt-B1024-bf16", "dpt-tp2-B1024", "dpt-tp2-B1024-bf16",
+        "dpt-B2048", "dpt-tp2-B2048-bf16", "dpt-tp2-B576-bf16",
+        "dpt-B1152-d48", "dpt-B576-d8-bf16"])
 def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
                                                  want):
     """The kinds a configuration's kernels refuse, each with its wrapper's
@@ -395,20 +425,46 @@ def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
     assert not shapes.use_kernels(cfg, False, CUDA, n_model, pairs)
 
 
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [576, 640, 1024, 2048])
+def test_dpt_above_512_is_taken_and_c8_still_refused(B, dtype, m):
+    """A DPT above 512 channels (B / 32 heads of 32, F = 1024) is taken by
+    every kind's rule, full and over two shards, in either dtype; the same
+    width split into heads of 48 or 8 (C8) is refused by the attention
+    kinds alone, with the head-width rule's words."""
+    cfg = ConvTasNetConfig(separator="dpt", bottleneck=B,
+                           compute_dtype=dtype)
+    assert cfg.dpt_num_heads == B // 32
+    assert shapes.refusals(cfg, m) == {}
+    dims = dpt_attention.HEAD_DIMS[dtype]
+    for d in (48, 8):
+        if B % (d * m):
+            continue
+        heads = B // d
+        got = shapes.refusals(dataclasses.replace(cfg, dpt_heads=heads), m)
+        assert set(got) == {"intra", "inter"}, got
+        assert got["inter"] == (f"the {dtype} kernel needs a head width in "
+                                f"{dims}, got {B // m} channels with "
+                                f"{heads // m} heads")
+
+
 def test_model_refuses_before_launching_and_keeps_false():
-    """A model whose kernels refuse its configuration (a DPT wider than
-    512; the TCN blocks take every P the JAX package runs, 17 causal taps
-    included) raises under auto on a CUDA input as with use_pallas=True,
-    naming the sublayer and the rule, before it touches the input; with
-    use_pallas=False, or auto on a CPU input, it serves through the plain
-    ops without a warning; use_pallas=True refuses a CPU input."""
-    cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=576,
-                           separator="dpt", dpt_layers=1, dpt_heads=18,
+    """A model whose kernels refuse its configuration (a DPT whose head
+    width no kernel takes, 2 heads of 48 at B = 96; every B and every P
+    the JAX package runs is taken) raises under auto on a CUDA input as
+    with use_pallas=True, naming the sublayer and the rule, before it
+    touches the input; with use_pallas=False, or auto on a CPU input, it
+    serves through the plain ops without a warning; use_pallas=True
+    refuses a CPU input."""
+    cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=96,
+                           separator="dpt", dpt_layers=1, dpt_heads=2,
                            dpt_ff=256)
     on_card = types.SimpleNamespace(device=CUDA)   # read for its device
     for use_pallas in (None, True):
-        with pytest.raises(ValueError, match=r"DPT FFN \(B11, B12\): "
-                           r"the kernel needs B at most 512"):
+        with pytest.raises(ValueError, match=r"DPT inter-chunk attention "
+                           r"\(B7, B8\): the float32 kernel needs a head "
+                           r"width"):
             ConvTasNet(cfg, use_pallas=use_pallas)(on_card)
     mix = torch.randn(1, 80, generator=torch.Generator().manual_seed(0))
     with warnings.catch_warnings():
@@ -417,9 +473,9 @@ def test_model_refuses_before_launching_and_keeps_false():
             with torch.no_grad():
                 out = ConvTasNet(cfg, use_pallas=use_pallas)(mix)
             assert out.shape == (1, 2, 80) and torch.isfinite(out).all()
-    with pytest.raises(ValueError, match="at most 512"):
+    with pytest.raises(ValueError, match="head width"):
         ConvTasNet(cfg, use_pallas=True)(mix)
-    taken = dataclasses.replace(cfg, bottleneck=512, dpt_heads=16)
+    taken = dataclasses.replace(cfg, bottleneck=576, dpt_heads=18)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ConvTasNet(taken, use_pallas=True)(mix)
 
