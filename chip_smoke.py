@@ -2127,10 +2127,12 @@ def phase_auto_padded(torch, k, dpt):
     output finite and within the bf16 forward bar of the plain model, the
     step's loss finite; so does the DPT quality default at ``--B 96`` (3
     heads of 32: B7-B12 pad B to 128 with zero columns and the heads with a
-    zero head, each LN over the real 96 columns), with the same counts. A
-    shape no kernel takes (the DPT at ``--B 96 --dpt-heads 2``, a head
-    width of 48) raises under auto as with ``use_pallas=True``, before any
-    launch."""
+    zero head, each LN over the real 96 columns), and at ``--B 96
+    --dpt-heads 2`` (2 heads of 48, each widened with zero columns to 64
+    and run with the scale of 48), with the same counts. A shape no kernel
+    takes, which the JAX package refuses too (the paper config with P = 4
+    outside the causal mode), raises under auto as with
+    ``use_pallas=True``, before any launch."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.ops.cuda import shapes
@@ -2154,6 +2156,11 @@ def phase_auto_padded(torch, k, dpt):
         ("dpt --B 96", ConvTasNetConfig(
             separator="dpt", compute_dtype="bfloat16", bottleneck=96),
          tcn_want(), {"inter": 2 * 4, "intra": 2 * 4, "ffn": 2 * 8},
+         {"inter": 4, "intra": 4, "ffn": 8}),
+        ("dpt --B 96 --dpt-heads 2", ConvTasNetConfig(
+            separator="dpt", compute_dtype="bfloat16", bottleneck=96,
+            dpt_heads=2), tcn_want(),
+         {"inter": 2 * 4, "intra": 2 * 4, "ffn": 2 * 8},
          {"inter": 4, "intra": 4, "ffn": 8}))
     for label, cfg, want_tcn, want_fwd, want_bwd in cases:
         check(not shapes.refusals(cfg), f"auto mode {label}: refused "
@@ -2184,8 +2191,7 @@ def phase_auto_padded(torch, k, dpt):
               and math.isfinite(loss), f"auto mode {label}: {err:.3e}, "
               f"loss {loss}")
         del plain, state
-    refused = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16",
-                               bottleneck=96, dpt_heads=2)
+    refused = ConvTasNetConfig(compute_dtype="bfloat16", conv_kernel=4)
     tcn_reset(k)
     reset_dpt_all(dpt)
     for use_pallas in (None, True):
@@ -2197,14 +2203,14 @@ def phase_auto_padded(torch, k, dpt):
             raised = "nothing"
         except ValueError as e:
             raised = str(e)
-        print(f"auto mode, dpt B=96 d=48: use_pallas={use_pallas} raises "
-              f"{raised!r}", flush=True)
-        check("head width" in raised,
-              f"dpt B=96 d=48 use_pallas={use_pallas} raised {raised!r}")
+        print(f"auto mode, tcn P=4 non-causal: use_pallas={use_pallas} "
+              f"raises {raised!r}", flush=True)
+        check("odd kernel size" in raised,
+              f"tcn P=4 use_pallas={use_pallas} raised {raised!r}")
         del model
     launched = {**tcn_counts(k), **{kind: dpt_fns(dpt, kind)[0].launches
                                     for kind in DPT_KINDS}}
-    check(not any(launched.values()), f"dpt B=96 d=48 launched {launched}")
+    check(not any(launched.values()), f"tcn P=4 launched {launched}")
     print(f"auto mode phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -2662,6 +2668,194 @@ def phase_dpt_head_widths(torch, dpt):
                 dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
 
 
+# (B, m, heads): the attention kernels alone at [8, 25, 128, B] at head
+# widths off the cores' 16, 32, 64 and 128, full and on the last shard of
+# two: d = 8 (32 heads at B = 256) and 48 (4 heads at B = 192) widened
+# with zero columns to 16 and 64; d = 192 (one head at B = 192, two at 384
+# on shards) and 256 (one head at B = 256, two at 512 on shards) on the
+# route beside the cores
+HEAD_WIDTH_CASES = ((256, 1, 32), (256, 2, 32), (192, 1, 4), (192, 2, 4),
+                    (192, 1, 1), (384, 2, 2), (256, 1, 1), (512, 2, 2))
+# the cotangents (dpt_bwd_fns order) that keep the narrow heads' bits when
+# each head of d = 32 (64) on the last shard of two at B = 256 is widened
+# with zero columns to 64 (128) and run there with the scale of d: every
+# one in f32; in bf16 dx, dgamma and dbeta, while the weight gradients sum
+# their rows in chunks wg_wgrad_chunk picks from the operands' widths (at
+# [8, 25, 128, 256] dW_qkv 1024 rows a chunk at 3Bq = 384 and at 768,
+# dW_out 256 at Bq = 128 and 512 at 256)
+HEAD_BITS = {"float32": (0, 1, 2, 3, 4), "bfloat16": (0, 1, 2)}
+# (B, heads, m): the device-time cases of phase_dpt_every_head_width:
+# d = 48 widened to 64 beside d = 64 at the same 4 heads (the gap is the
+# padding), and one head of 256 on the route beside 8 heads of 32; then
+# B7p-B10p on the last shard of two at d = 48 (2 heads) and d = 256 (1)
+HEAD_TIMING_CASES = ((192, 4, 1), (256, 4, 1), (256, 1, 1), (256, 8, 1),
+                     (192, 4, 2), (512, 2, 2))
+
+
+def head_zero_columns(torch, dpt, failures: list) -> None:
+    """The zero-column proof: the attention sublayers' partial kernels at
+    [8, 25, 128, 256] (the real key mask) on the last head-group shard of
+    two (128 channels: 4 heads of d = 32, or 2 of 64), each head widened
+    with zero columns to 2d (``pad_heads``; the widened shard fills B, so
+    B and every route chosen by it stay) and run on the 2d core through
+    the CUDA branch with the scale of d (``launch_attention(..., d=d)``):
+    the forward the d core's bits, and the cotangents of ``HEAD_BITS`` the
+    d core's backward bits; bf16 and f32."""
+    attn = dpt["inter"]
+    m = 2
+    for d in (32, 64):
+        heads = DPT_B // d // m
+        kw = dict(n_heads=heads, partial=True)
+        for kind in ("inter", "intra"):
+            fused, _ = dpt_fns(dpt, kind)
+            fused_b, _ = dpt_bwd_fns(dpt, kind)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                x, g, w, _, _ = dpt_bwd_inputs(torch, kind, dtype, 25, 3199,
+                                               seed=7500 + d,
+                                               heads=heads * m)
+                x, *w = dpt_shard(torch, (x, *w), kind, m, m - 1)
+                gamma, beta, w_qkv, w_out, bias = w
+                wq2, wo2 = attn.pad_heads(w_qkv, w_out, heads, 2 * d)
+                with torch.inference_mode():
+                    out = fused(x, gamma, beta, w_qkv.to(dtype),
+                                w_out.to(dtype), bias, **kw)
+                    out_w = attn.launch_attention(
+                        kind, x, gamma, beta, wq2.to(dtype), wo2.to(dtype),
+                        bias, d=d, **kw)
+                grads = fused_b(x, g, *w, **kw)
+                *grads_w, dwq, dwo = attn.launch_attention_bwd(
+                    kind, x, g, gamma, beta, wq2, wo2, bias, d=d, **kw)
+                grads_w += attn.unpad_heads(dwq, dwo, heads, d)
+                torch.cuda.synchronize()
+                same = [torch.equal(a, b) for a, b in zip(grads_w, grads)]
+                names = DPT_GRAD_NAMES[kind]
+                fwd_same = torch.equal(out_w, out)
+                print(f"dpt {kind} partial {name} heads of {d} widened to "
+                      f"{2 * d} (scale of {d}): forward the same bits "
+                      f"{fwd_same}; "
+                      f"cotangents the same bits {dict(zip(names, same))}",
+                      flush=True)
+                held = HEAD_BITS[name]
+                if not fwd_same or not all(same[i] for i in held):
+                    failures.append(
+                        f"{kind} {name} heads {d} -> {2 * d}: forward "
+                        f"{fwd_same}, {[names[i] for i in held if not same[i]]}"
+                        f" moved")
+
+
+def head_width_timings(torch, dpt, card: str) -> None:
+    """Device time per call of B7-B10 (and B7p-B10p on the last shard of
+    m) at [8, 25, 128, B] with the real key mask (``HEAD_TIMING_CASES``),
+    forward and backward, bf16 and f32, beside its bound (the real d's
+    FLOP at 989 TFLOP/s bf16 or 67 TFLOP/s f32 FMA, or the bytes at 3.35
+    TB/s) and each launch's share: d = 48 widened to 64 beside d = 64 (the
+    gap is the padding); one head of 256 on the route beside 8 heads of
+    32."""
+    for B, heads, m in HEAD_TIMING_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else PEAK_F32_FLOPS)
+            for kind in ("inter", "intra"):
+                fused, _ = dpt_fns(dpt, kind)
+                fused_b, _ = dpt_bwd_fns(dpt, kind)
+                args, kw, _ = dpt_inputs(torch, kind, dtype, 25, 3199,
+                                         seed=7600, heads=heads, B=B)
+                x, g, w, _, _ = dpt_bwd_inputs(torch, kind, dtype, 25, 3199,
+                                               seed=7600, heads=heads, B=B)
+                if m > 1:
+                    args = dpt_shard(torch, args, kind, m, m - 1)
+                    x, *w = dpt_shard(torch, (x, *w), kind, m, m - 1)
+                    kw = dict(n_heads=heads // m, partial=True)
+                with torch.inference_mode():
+                    ms, split = device_ms(torch, lambda: fused(*args, **kw),
+                                          5)
+                bound = kernel_bound(*dpt_work(kind, args), peak=peak)
+                bms, bsplit = device_ms(
+                    torch, lambda: fused_b(x, g, *w, **kw), 3)
+                bbound = kernel_bound(*dpt_bwd_work(
+                    kind, (x, g, *w), fused_b(x, g, *w, **kw)), peak=peak)
+                for what, t, (b, by), parts in (
+                        ("forward", ms, bound, split),
+                        ("backward", bms, bbound, bsplit)):
+                    top = "; ".join(
+                        f"{kernel_name(k)} {1e3 * v:.1f}" for k, v in sorted(
+                            parts.items(), key=lambda kv: -kv[1])[:6])
+                    mode = f" partial m={m}" if m > 1 else ""
+                    print(f"timing [{card}] dpt {kind}{mode} {what} [8,25,"
+                          f"{DPT_S},{B}] {heads // m} heads of {B // heads} "
+                          f"{name}: device "
+                          f"{t:.4f} ms, bound {b:.4f} ms ({by}); us by "
+                          f"launch: {top}", flush=True)
+
+
+def phase_dpt_head_width_kernels(torch, dpt) -> dict:
+    """B7-B10 and B7p-B10p at head widths off the cores
+    (``HEAD_WIDTH_CASES``) against their twins as ``wide_kernels_vs_twins``
+    holds them, and the zero-column bits of ``head_zero_columns``. Returns
+    the worst max_abs_err per kernel."""
+    t0 = time.perf_counter()
+    failures = []
+    worst = wide_kernels_vs_twins(torch, dpt, failures,
+                                  cases=HEAD_WIDTH_CASES,
+                                  kinds=("inter", "intra"))
+    head_zero_columns(torch, dpt, failures)
+    check(not failures, "DPT attention at head widths off the cores "
+          "disagrees: " + "; ".join(failures))
+    print(f"dpt attention at head widths off the cores: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def phase_dpt_every_head_width(torch, dpt, work: str, data: str,
+                               json_dir: str, card: str):
+    """The DPT attention at head widths off the cores' 16, 32, 64 and 128:
+    each kernel alone against its twin and the zero-column proof
+    (``phase_dpt_head_width_kernels``: d = 8, 48 widened with zero
+    columns, 192, 256 on the route beside the cores, full and on a shard
+    of two); the quality default at
+    ``--B 256 --dpt-heads 1`` (one head of 256), random weights from seed
+    0, one forward kernel path against plain path in bf16 and f32 and one
+    train step (f32 within the step bar, bf16 over three seeds), exact
+    launch counts; ``cli train``, ``cli separate`` and ``cli evaluate``
+    under ``--use-pallas -1`` at ``--B 96 --dpt-heads 2`` bf16 and ``--B
+    256 --dpt-heads 1`` f32 (``wider_cli_path``); ``cli train --B 96
+    --dpt-heads 2 --n-model 2`` through B7p-B12p (one head of 48 a shard)
+    and its package through ``cli separate --tensor-parallel 2``; and
+    ``head_width_timings``."""
+    import dataclasses
+
+    from convtasnet_tpu_torch.models.conv_tasnet import init_params
+    from convtasnet_tpu_torch.ops.cuda import shapes
+
+    t0 = time.perf_counter()
+    worst = phase_dpt_head_width_kernels(torch, dpt)
+    batch = train_batch(torch, 4, 51)
+    label = "--B 256 --dpt-heads 1"
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(dpt_config(dtype), dpt_heads=1)
+        check(not shapes.refusals(cfg), f"dpt {label}: refused "
+              f"{shapes.refusals(cfg)}")
+        sd = init_params(cfg, torch.Generator().manual_seed(0))
+        dpt_forward_vs_plain(torch, dpt, cfg, sd, batch[0], label)
+        if dtype == "float32":
+            dpt_f32_step_vs_plain(torch, dpt, cfg, sd, batch, label)
+        else:
+            dpt_step_medians(torch, dpt, cfg, sd, (51, 52, 53), label,
+                             ("inter", "intra"), batch)
+    cli = {f"B{w} h{h} {d}": wider_cli_path(torch, dpt, work, data,
+                                            json_dir, w, d, heads=h)
+           for w, h, d in ((96, 2, "bfloat16"), (256, 1, "float32"))}
+    tp = phase_dpt_tp_train_path(torch, dpt, work, data, json_dir, width=96,
+                                 heads=2)
+    head_width_timings(torch, dpt, card)
+    print(f"dpt head widths phase: worst max_abs_err vs twins "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }, cli "
+          f"backward launches {cli}, TP train partial launches {tp}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 WIDE_B = 512   # the widest DPT on the kernels' resident tiles (kWideMax)
 # (width, shards): the kernels alone at [8, 25, 128, B], B / 32 heads: B7-B12
 # at 512 and 320, and B7p-B12p on the last shard of two at 512
@@ -2677,19 +2871,20 @@ WIDE_ORDER_TOL = {False: 1e-3, True: 2e-3}
 
 
 def wide_kernels_vs_twins(torch, dpt, failures: list,
-                          cases=WIDE_CASES) -> dict:
-    """Each of B7-B12 alone (and B7p-B12p on the last shard of m) at the
-    ``cases``' (B, m) ([8, 25, 128, B] with the real key mask, B / 32
-    heads, F = 1024), bf16 and f32, against its twin: the forward within
+                          cases=WIDE_CASES, kinds=DPT_KINDS) -> dict:
+    """Each of ``kinds`` of B7-B12 alone (and B7p-B12p on the last shard
+    of m) at the ``cases``' (B, m) or (B, m, heads) ([8, 25, 128, B] with
+    the real key mask, B / 32 heads where the case names none, F = 1024),
+    bf16 and f32, against its twin: the forward within
     4e-2 / 1e-5 on the valid rows (bf16 also at its rounding points,
     ``WIDE_ORDER_TOL``: 2e-3 for a partial output above B = 256), the
     backward as ``compare_cotangents``, and a second backward the same
     bits. Appends what fails; returns the worst max_abs_err per kernel
     name."""
     worst = {}
-    for B, m in cases:
-        heads = B // 32
-        for kind in DPT_KINDS:
+    for B, m, *named in cases:
+        heads = named[0] if named else B // 32
+        for kind in kinds:
             fused, twin = dpt_fns(dpt, kind)
             fused_b, twin_b = dpt_bwd_fns(dpt, kind)
             kw = ({} if kind == "ffn" else {"n_heads": heads // m})
@@ -2698,6 +2893,8 @@ def wide_kernels_vs_twins(torch, dpt, failures: list,
             names = DPT_GRAD_NAMES[kind]
             tag = f"dpt {kind}{' partial' if m > 1 else ''}"
             shard = f", shard {m - 1} of {m}" if m > 1 else ""
+            if named:
+                shard = f", {heads // m} heads of {B // heads}{shard}"
             for dtype in (torch.bfloat16, torch.float32):
                 name = str(dtype).split(".")[-1]
                 args, _, valid = dpt_inputs(torch, kind, dtype, 25, 3199,
@@ -2978,9 +3175,10 @@ def phase_dpt_wider_kernels(torch, dpt) -> dict:
 
 
 def wider_cli_path(torch, dpt, work: str, data: str, json_dir: str,
-                   width: int, dtype: str) -> dict:
-    """``cli train --separator dpt --B width --compute-dtype dtype
-    --use-pallas -1`` on the corpus of ``make_corpus`` (one epoch of 4
+                   width: int, dtype: str, heads: int = 0) -> dict:
+    """``cli train --separator dpt --B width --dpt-heads heads
+    --compute-dtype dtype --use-pallas -1`` (0 heads: B / 32) on the
+    corpus of ``make_corpus`` (one epoch of 4
     steps at batch 8 x 4 s and a cv pass), then ``cli separate`` and ``cli
     evaluate`` of its package under auto: every loss finite; per step 4
     B7, 4 B9 and 8 B11 and 4 B8, 4 B10 and 8 B12, per cv or served batch
@@ -2995,8 +3193,9 @@ def wider_cli_path(torch, dpt, work: str, data: str, json_dir: str,
     per_batch = {"inter": cfg.dpt_layers, "intra": cfg.dpt_layers,
                  "ffn": 2 * cfg.dpt_layers}
     n_cv = 2
-    label = f"--B {width} {dtype}"
-    out = os.path.join(work, f"exp_dpt_B{width}_{dtype}")
+    label = f"--B {width} --dpt-heads {heads} {dtype}"
+    tag = f"B{width}_h{heads}_{dtype}"
+    out = os.path.join(work, f"exp_dpt_{tag}")
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
     reset_dpt_all(dpt)
     t0 = time.perf_counter()
@@ -3005,8 +3204,9 @@ def wider_cli_path(torch, dpt, work: str, data: str, json_dir: str,
             "train", "--train-dir", os.path.join(json_dir, "tr"),
             "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
             out, "--device", "cuda", "--separator", "dpt", "--B",
-            str(width), "--compute-dtype", dtype, "--use-pallas", "-1",
-            "--epochs", "1", "--batch-size", "8", "--print-freq", "1"])
+            str(width), "--dpt-heads", str(heads), "--compute-dtype", dtype,
+            "--use-pallas", "-1", "--epochs", "1", "--batch-size", "8",
+            "--print-freq", "1"])
     torch.cuda.synchronize()
     os.environ.pop("CONVTASNET_SEGMENT_CACHE")
     wall = time.perf_counter() - t0
@@ -3024,7 +3224,7 @@ def wider_cli_path(torch, dpt, work: str, data: str, json_dir: str,
           f"launches {fwd} / {bwd}, expected {want_fwd} / {want_bwd}")
     pkg = os.path.join(out, "final.ckpt")
     mix_dir = os.path.join(data, "cv", "mix")
-    sep_dir = os.path.join(work, f"sep_dpt_B{width}_{dtype}")
+    sep_dir = os.path.join(work, f"sep_dpt_{tag}")
     reset_dpt_all(dpt)
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["separate", "--model-path", pkg, "--mix-dir", mix_dir,
@@ -3640,9 +3840,10 @@ def phase_dpt_tp_forward(torch, dpt):
 
 
 def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str,
-                            width: int = DPT_B):
+                            width: int = DPT_B, heads: int = 0):
     """``cli train --separator dpt --n-model 2 --use-pallas 1`` at the DPT
-    quality default (or at ``--B width``, B / 32 heads), bf16, on the
+    quality default (or at ``--B width``, B / 32 heads or ``--dpt-heads
+    heads``), bf16, on the
     corpus of ``make_corpus`` (one epoch of 4
     steps at batch 8 and a cv pass): every loss finite, its placement line
     printed, the partial kernels launched 2 x (4, 4, 8) times per step
@@ -3661,9 +3862,11 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str,
 
     import dataclasses
 
-    cfg = dataclasses.replace(dpt_config(), bottleneck=width)
+    cfg = dataclasses.replace(dpt_config(), bottleneck=width,
+                              dpt_heads=heads)
     n_cv, m = 2, 2
-    out = os.path.join(work, f"exp_dpt_tp_B{width}")
+    tag = f"B{width}" + (f"_h{heads}" if heads else "")
+    out = os.path.join(work, f"exp_dpt_tp_{tag}")
     os.environ["CONVTASNET_SEGMENT_CACHE"] = os.path.join(work, "segcache")
     buf = io.StringIO()
     reset_dpt_all(dpt)
@@ -3674,8 +3877,8 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str,
             "--valid-dir", os.path.join(json_dir, "cv"), "--save-folder",
             out, "--device", "cuda", "--separator", "dpt", "--compute-dtype",
             "bfloat16", "--use-pallas", "1", "--n-model", str(m), "--B",
-            str(width), "--epochs", "1", "--batch-size", "8",
-            "--print-freq", "1"])
+            str(width), "--dpt-heads", str(heads), "--epochs", "1",
+            "--batch-size", "8", "--print-freq", "1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dpt_partial_counts(dpt)
@@ -3686,7 +3889,8 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str,
         records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in records if r["kind"] == "iter"]
     n_steps = len(losses)
-    print(f"cli train --separator dpt --n-model {m} --B {width} (bf16, "
+    print(f"cli train --separator dpt --n-model {m} --B {width} "
+          f"--dpt-heads {heads} (bf16, "
           f"--use-pallas 1; {placement}): {n_steps} steps, losses "
           f"{[round(x, 4) for x in losses]}, cv loss "
           f"{[r['loss'] for r in records if r.get('split') == 'valid']}, "
@@ -3705,7 +3909,7 @@ def phase_dpt_tp_train_path(torch, dpt, work: str, data: str, json_dir: str,
     outs = {}
     for label, flags in (("tensor-parallel", ["--tensor-parallel", str(m)]),
                          ("unsharded", [])):
-        sep_dir = os.path.join(work, f"sep_dpt_tp_B{width}_{label}")
+        sep_dir = os.path.join(work, f"sep_dpt_tp_{tag}_{label}")
         reset_dpt_all(dpt)
         with contextlib.redirect_stdout(io.StringIO()):
             rc = cli.main(["separate", "--model-path", pkg, "--mix-dir",
@@ -4888,6 +5092,13 @@ def main() -> int:
         # each kernel alone against its twin, --B 96 served and stepped
         # against plain, cli train --B 192 --n-model 2 through B7p-B12p
         phase_dpt_padded(torch, dpt, work, data, json_dir)
+        # the DPT attention at every head width: heads off the cores'
+        # widths widened with zero columns and the real d's scale, above
+        # 128 on the route beside the cores; each kernel alone against its
+        # twin and the zero-column bits, --B 256 --dpt-heads 1 served and
+        # stepped against plain, cli train / separate / evaluate under
+        # auto, cli train --B 96 --dpt-heads 2 --n-model 2, device times
+        phase_dpt_every_head_width(torch, dpt, work, data, json_dir, card)
         phase_streaming(torch, k, work, card)
         # the ways in: reference PyTorch packages, the JAX package's
         # checkpoints, and a raw shorten-compressed corpus through stage 0

@@ -80,7 +80,7 @@
 // shards (Bq 128, 4 heads) that is 7.0 GFLOP, under the 7.8 us of x in and
 // out: bytes-bound.
 
-#include "dpt_attn_bwd_wg.cuh"
+#include "dpt_attn_wide_head.cuh"
 
 namespace {
 
@@ -210,14 +210,14 @@ __global__ void __launch_bounds__(256)
 }
 
 template <typename T, int D, bool kTurns, int kKeys = kKeyTile>
-int launch_core_turns(const DptAttnParams& p, cudaStream_t stream) {
+int launch_core_turns(const DptAttnParams& p, cudaStream_t stream,
+                      float scale) {
   const size_t smem = inter_core_smem<T, kKeys>(p.Bq);
   auto kernel = inter_core_kernel<T, D, kTurns, kKeys>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
   kernel<<<dim3(p.S, p.M), 32 * core_warps(p.h), smem, stream>>>(p, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -227,35 +227,49 @@ int launch_core_turns(const DptAttnParams& p, cudaStream_t stream) {
 // Above Bq = 512 (chosen by Bq alone) fewer key chunks a load (kKeys 0),
 // each warp its heads in turn (one each at up to 8 heads).
 template <typename T, int D>
-int launch_core(const DptAttnParams& p, cudaStream_t stream) {
-  if (p.Bq > kWideMax) return launch_core_turns<T, D, true, 0>(p, stream);
-  return D == 16 || p.h > 8 ? launch_core_turns<T, D, true>(p, stream)
-                            : launch_core_turns<T, D, false>(p, stream);
+int launch_core(const DptAttnParams& p, cudaStream_t stream, float scale) {
+  if (p.Bq > kWideMax)
+    return launch_core_turns<T, D, true, 0>(p, stream, scale);
+  return D == 16 || p.h > 8
+             ? launch_core_turns<T, D, true>(p, stream, scale)
+             : launch_core_turns<T, D, false>(p, stream, scale);
 }
 
-// f32's core for head width d (core_head_width).
+// f32's core for the padded head width D = Bq / h (core_head_width), with
+// the real width's softmax scale.
 template <typename T>
-int launch_core_d(const DptAttnParams& p, cudaStream_t stream) {
+int launch_core_d(const DptAttnParams& p, cudaStream_t stream, float scale) {
   switch (p.Bq / p.h) {
-    case 16: return launch_core<T, 16>(p, stream);
-    case 32: return launch_core<T, 32>(p, stream);
-    case 64: return launch_core<T, 64>(p, stream);
-    case 128: return launch_core<T, 128>(p, stream);
+    case 16: return launch_core<T, 16>(p, stream, scale);
+    case 32: return launch_core<T, 32>(p, stream, scale);
+    case 64: return launch_core<T, 64>(p, stream, scale);
+    case 128: return launch_core<T, 128>(p, stream, scale);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16: the forward frame of dpt_attn_bwd_wg.cuh with the core's inter
-// gather; f32: the first design.
+// gather; f32: the first design. d: the heads' real width (its scale);
+// above a padded width of 128 the core is the route of
+// dpt_attn_wide_head.cuh, in `wide`.
 template <typename T>
-int launch(const DptAttnParams& p, cudaStream_t stream) {
-  if (p.Bq % 64 || p.Bq > p.B || !core_head_width(p.Bq / p.h) ||
+int launch(const DptAttnParams& p, cudaStream_t stream, int d, float* wide) {
+  if (p.Bq % 64 || p.Bq > p.B || !attn_head_widths_ok(p.Bq, p.h, d) ||
       p.Bn < 1 || p.Bn > p.B)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = attn_scale(d);
+  auto core = [=](const DptAttnParams& q, cudaStream_t s) {
+    if (q.Bq / q.h > kCoreMaxD)
+      return launch_wide_head_fwd<T, true>(q, wide, scale, s);
+    if constexpr (kIsBf16<T>)
+      return launch_fwd_core_d<true>(q, s, scale);
+    else
+      return launch_core_d<T>(q, s, scale);
+  };
   if constexpr (kIsBf16<T>) {
-    return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<true>);
+    return launch_attention_fwd_wg(p, stream, core);
   } else {
-    return launch_attention<T>(p, stream, launch_core_d<T>);
+    return launch_attention<T>(p, stream, core);
   }
 }
 
@@ -263,15 +277,31 @@ int launch(const DptAttnParams& p, cudaStream_t stream) {
 
 extern "C" {
 
+// Floats of the f32 workspace `wide` that the attention kernels of either
+// kind (inter != 0: B7, B8; else B9, B10) take beside their arguments at
+// padded head width D = Bq / h: the logits of the route above D = 128
+// (dpt_attn_wide_head.cuh), for the backward (bwd != 0) or the forward;
+// 0 at D <= 128.
+int ctn_dpt_attn_wide_workspace(int inter, int M, int n, int S, int Bq, int h,
+                                int bwd, long long* n_floats) {
+  if (h <= 0 || Bq % h) return static_cast<int>(cudaErrorInvalidValue);
+  *n_floats = inter ? wide_head_ws<true>(M, n, S, Bq, h, bwd != 0)
+                    : wide_head_ws<false>(M, n, S, Bq, h, bwd != 0);
+  return 0;
+}
+
 // One inter-chunk attention sublayer (operands: DptAttnParams in
-// dpt_common.cuh); returns the first CUDA error of its three launches.
+// dpt_common.cuh, d and wide beside them); returns the first CUDA error of
+// its launches.
 int ctn_dpt_inter_f32(CTN_DPT_ATTN_ARGS) {
-  return launch<float>(CTN_DPT_ATTN_PARAMS, static_cast<cudaStream_t>(stream));
+  return launch<float>(CTN_DPT_ATTN_PARAMS, static_cast<cudaStream_t>(stream),
+                       d, static_cast<float*>(wide));
 }
 
 int ctn_dpt_inter_bf16(CTN_DPT_ATTN_ARGS) {
   return launch<__nv_bfloat16>(CTN_DPT_ATTN_PARAMS,
-                               static_cast<cudaStream_t>(stream));
+                               static_cast<cudaStream_t>(stream), d,
+                               static_cast<float*>(wide));
 }
 
 }  // extern "C"

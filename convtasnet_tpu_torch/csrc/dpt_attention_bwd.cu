@@ -69,7 +69,7 @@
 // (qkv, dqkv [R, 3Bq], dA and a [R, Bq]), the products take Bq
 // (dpt_bwd_common.cuh) and dx has no g term.
 
-#include "dpt_attn_bwd_wg.cuh"
+#include "dpt_attn_wide_head.cuh"
 
 namespace {
 
@@ -284,14 +284,14 @@ __global__ void __launch_bounds__(256)
 }
 
 template <typename T, int D, bool kTurns, int kKeys = kTile>
-int launch_core_turns(const DptAttnBwdParams& P, cudaStream_t stream) {
+int launch_core_turns(const DptAttnBwdParams& P, cudaStream_t stream,
+                      float scale) {
   const size_t smem = core_bwd_smem<T, kKeys>(P.f.Bq);
   auto kernel = inter_bwd_core_kernel<T, D, kTurns, kKeys>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
   kernel<<<dim3(P.f.S, P.f.M), 32 * core_warps(P.f.h), smem, stream>>>(
       P, scale);
   return static_cast<int>(cudaGetLastError());
@@ -302,43 +302,51 @@ int launch_core_turns(const DptAttnBwdParams& P, cudaStream_t stream) {
 // Above Bq = 512 (chosen by Bq alone) fewer chunks a load (kKeys 0), each
 // warp its heads in turn (one each at up to 8 heads).
 template <typename T, int D>
-int launch_core(const DptAttnBwdParams& P, cudaStream_t stream) {
+int launch_core(const DptAttnBwdParams& P, cudaStream_t stream, float scale) {
   if (P.f.Bq > kWideMax)
-    return launch_core_turns<T, D, true, 0>(P, stream);
-  return D == 16 || P.f.h > 8 ? launch_core_turns<T, D, true>(P, stream)
-                              : launch_core_turns<T, D, false>(P, stream);
+    return launch_core_turns<T, D, true, 0>(P, stream, scale);
+  return D == 16 || P.f.h > 8
+             ? launch_core_turns<T, D, true>(P, stream, scale)
+             : launch_core_turns<T, D, false>(P, stream, scale);
 }
 
-// The core for head width d (core_head_width).
+// The core for the padded head width D = Bq / h (core_head_width), with
+// the real width's softmax scale.
 template <typename T>
-int launch_core_d(const DptAttnBwdParams& P, cudaStream_t stream) {
+int launch_core_d(const DptAttnBwdParams& P, cudaStream_t stream,
+                  float scale) {
   switch (P.f.Bq / P.f.h) {
-    case 16: return launch_core<T, 16>(P, stream);
-    case 32: return launch_core<T, 32>(P, stream);
-    case 64: return launch_core<T, 64>(P, stream);
-    case 128: return launch_core<T, 128>(P, stream);
+    case 16: return launch_core<T, 16>(P, stream, scale);
+    case 32: return launch_core<T, 32>(P, stream, scale);
+    case 64: return launch_core<T, 64>(P, stream, scale);
+    case 128: return launch_core<T, 128>(P, stream, scale);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// f32: the first design; bf16: the design in dpt_attn_bwd_wg.cuh, with the
+// core's inter gather. d: the heads' real width (its scale); above a
+// padded width of 128 the core is the route of dpt_attn_wide_head.cuh, in
+// `wide`.
 template <typename T>
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
-               cudaStream_t stream) {
-  const int d = P.f.Bq / P.f.h;
-  if (!core_head_width(d) || P.f.Bq % 64 || P.f.Bq > P.f.B || P.f.Bn < 1 ||
-      P.f.Bn > P.f.B)
+               cudaStream_t stream, int d, float* wide) {
+  if (!attn_head_widths_ok(P.f.Bq, P.f.h, d) || P.f.Bq % 64 ||
+      P.f.Bq > P.f.B || P.f.Bn < 1 || P.f.Bn > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention_bwd<T>(P, ws_act, ws_f32, stream, launch_core_d<T>);
-}
-
-// bf16: the design in dpt_attn_bwd_wg.cuh, with the core's inter gather.
-int launch_bwd_wg(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
-                  cudaStream_t stream) {
-  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
-      P.f.Bn < 1 || P.f.Bn > P.f.B)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention_bwd_wg(P, ws_act, ws_f32, stream,
-                                 launch_core_wg_d<true>);
+  const float scale = attn_scale(d);
+  auto core = [=](const DptAttnBwdParams& q, cudaStream_t s) {
+    if (q.f.Bq / q.f.h > kCoreMaxD)
+      return launch_wide_head_bwd<T, true>(q, wide, scale, s);
+    if constexpr (kIsBf16<T>)
+      return launch_core_wg_d<true>(q, s, scale);
+    else
+      return launch_core_d<T>(q, s, scale);
+  };
+  if constexpr (kIsBf16<T>)
+    return launch_attention_bwd_wg(P, ws_act, ws_f32, stream, core);
+  else
+    return launch_attention_bwd<T>(P, ws_act, ws_f32, stream, core);
 }
 
 }  // namespace
@@ -372,7 +380,7 @@ int ctn_dpt_inter_bwd_f32(CTN_DPT_ATTN_BWD_ARGS) {
 }
 
 int ctn_dpt_inter_bwd_bf16(CTN_DPT_ATTN_BWD_ARGS) {
-  return launch_bwd_wg(CTN_DPT_ATTN_BWD_CALL);
+  return launch_bwd<__nv_bfloat16>(CTN_DPT_ATTN_BWD_CALL);
 }
 
 }  // extern "C"

@@ -826,7 +826,8 @@ inline void core_shape(int L, int* T, int* warps) {
 }
 
 template <int D, bool kInter>
-int launch_core_wg(const DptAttnBwdParams& P, cudaStream_t stream) {
+int launch_core_wg(const DptAttnBwdParams& P, cudaStream_t stream,
+                   float scale) {
   int T, warps;
   core_shape(kInter ? P.f.n : P.f.S, &T, &warps);
   const size_t smem = core_wg_smem<D>(T, warps);
@@ -835,7 +836,6 @@ int launch_core_wg(const DptAttnBwdParams& P, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
   kernel<<<dim3(kInter ? P.f.S : P.f.n, P.f.M, P.f.h), 32 * warps, smem,
            stream>>>(P, scale, T);
   return static_cast<int>(cudaGetLastError());
@@ -920,7 +920,8 @@ __global__ void __launch_bounds__(kCoreWarpsWg * 32)
 }
 
 template <int D, bool kInter>
-int launch_fwd_core(const DptAttnParams& f, cudaStream_t stream) {
+int launch_fwd_core(const DptAttnParams& f, cudaStream_t stream,
+                    float scale) {
   int T, warps;
   core_shape(kInter ? f.n : f.S, &T, &warps);
   const size_t smem = core_fwd_smem<D>(T, warps);
@@ -929,7 +930,6 @@ int launch_fwd_core(const DptAttnParams& f, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
   kernel<<<dim3(kInter ? f.S : f.n, f.M, f.h), 32 * warps, smem, stream>>>(
       f, scale, T);
   return static_cast<int>(cudaGetLastError());
@@ -1053,14 +1053,16 @@ int launch_attention_bwd_wg(DptAttnBwdParams P, void* ws_act, float* ws_f32,
   return launch_reduce_jobs(jobs, 3, stream);
 }
 
-// The core for head width d (core_head_width).
+// The core for the padded head width D = Bq / h (core_head_width), with
+// the real width's softmax scale.
 template <bool kInter>
-int launch_core_wg_d(const DptAttnBwdParams& P, cudaStream_t stream) {
+int launch_core_wg_d(const DptAttnBwdParams& P, cudaStream_t stream,
+                     float scale) {
   switch (P.f.Bq / P.f.h) {
-    case 16: return launch_core_wg<16, kInter>(P, stream);
-    case 32: return launch_core_wg<32, kInter>(P, stream);
-    case 64: return launch_core_wg<64, kInter>(P, stream);
-    case 128: return launch_core_wg<128, kInter>(P, stream);
+    case 16: return launch_core_wg<16, kInter>(P, stream, scale);
+    case 32: return launch_core_wg<32, kInter>(P, stream, scale);
+    case 64: return launch_core_wg<64, kInter>(P, stream, scale);
+    case 128: return launch_core_wg<128, kInter>(P, stream, scale);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1100,14 +1102,16 @@ int launch_attention_fwd_wg(const DptAttnParams& f, cudaStream_t stream,
   return launch_rows_wg(q, AttnOutEpi{}, stream);
 }
 
-// The forward core for head width d (core_head_width).
+// The forward core for the padded head width D = Bq / h
+// (core_head_width), with the real width's softmax scale.
 template <bool kInter>
-int launch_fwd_core_d(const DptAttnParams& f, cudaStream_t stream) {
+int launch_fwd_core_d(const DptAttnParams& f, cudaStream_t stream,
+                      float scale) {
   switch (f.Bq / f.h) {
-    case 16: return launch_fwd_core<16, kInter>(f, stream);
-    case 32: return launch_fwd_core<32, kInter>(f, stream);
-    case 64: return launch_fwd_core<64, kInter>(f, stream);
-    case 128: return launch_fwd_core<128, kInter>(f, stream);
+    case 16: return launch_fwd_core<16, kInter>(f, stream, scale);
+    case 32: return launch_fwd_core<32, kInter>(f, stream, scale);
+    case 64: return launch_fwd_core<64, kInter>(f, stream, scale);
+    case 128: return launch_fwd_core<128, kInter>(f, stream, scale);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1198,13 +1198,16 @@ inline DptAttnBwdParams make_attn_bwd_params(
 // The C interface of both attention backwards: every pointer is device
 // memory; x, g, w_qkv, w_out, dx and ws_act in the compute dtype, the rest
 // f32 (bias [n, S] or null); dgb [2, B] = dgamma, dbeta. Bn, Bq and
-// partial as in DptAttnParams.
+// partial as in DptAttnParams; d and wide as in CTN_DPT_ATTN_ARGS (wide
+// sized for the backward).
 #define CTN_DPT_ATTN_BWD_ARGS                                                 \
   const void *x, const void *g, const void *gamma, const void *beta,         \
       const void *w_qkv, const void *w_out, const void *bias, void *ws_act,  \
       void *ws_f32, void *dx, void *dgb, void *dw_qkv, void *dw_out, int M,  \
-      int n, int S, int B, int Bn, int h, int Bq, int partial, void *stream
+      int n, int S, int B, int Bn, int h, int Bq, int partial, int d,        \
+      void *wide, void *stream
 #define CTN_DPT_ATTN_BWD_CALL                                               \
   make_attn_bwd_params(x, g, gamma, beta, w_qkv, w_out, bias, dx, dgb,     \
                        dw_qkv, dw_out, M, n, S, B, Bn, h, Bq, partial),    \
-      ws_act, static_cast<float*>(ws_f32), static_cast<cudaStream_t>(stream)
+      ws_act, static_cast<float*>(ws_f32), static_cast<cudaStream_t>(stream), \
+      d, static_cast<float*>(wide)

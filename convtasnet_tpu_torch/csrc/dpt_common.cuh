@@ -384,12 +384,17 @@ inline DptAttnParams make_attn_params(const void* x, const void* gamma,
 
 // The C interface of both attention forwards; Bn, Bq and partial as in
 // DptAttnParams (Bn == Bq == B and partial 0 for the full sublayer at a
-// width on the tile).
+// width on the tile). Beside the struct: d, the heads' real width (the
+// softmax scale is 1 / sqrt(d); the wrappers pad each head from d to the
+// width D = Bq / h a core takes, d == D where no head is padded), and
+// wide, the f32 workspace of the route above D = 128
+// (dpt_attn_wide_head.cuh; ctn_dpt_attn_wide_workspace gives its size,
+// null at D <= 128).
 #define CTN_DPT_ATTN_ARGS                                                    \
   const void *x, const void *gamma, const void *beta, const void *w_qkv,    \
       const void *w_out, const void *bias, void *qkv, void *a, void *out,  \
       int M, int n, int S, int B, int Bn, int h, int Bq, int partial,      \
-      void *stream
+      int d, void *wide, void *stream
 #define CTN_DPT_ATTN_PARAMS                                                   \
   make_attn_params(x, gamma, beta, w_qkv, w_out, bias, qkv, a, out, M, n, S, \
                    B, Bn, h, Bq, partial)

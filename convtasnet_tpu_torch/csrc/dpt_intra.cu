@@ -90,6 +90,7 @@
 // default's m = 2 shards (Bq 128, 4 heads) that is 8.4 GFLOP, 8.5 us at
 // 989 TFLOP/s, against 7.8 us of x in and out.
 
+#include "dpt_attn_wide_head.cuh"
 #include "dpt_intra_rowstat.cuh"
 
 namespace {
@@ -221,7 +222,7 @@ long long spill_elems(int M, int n, int S, int h) {
 }
 
 template <typename T, int D>
-int launch_core(const DptAttnParams& p, cudaStream_t stream) {
+int launch_core(const DptAttnParams& p, cudaStream_t stream, float scale) {
   const bool spill = intra_core_smem<T, D>(p.S, false) > kMaxCoreSmem;
   const size_t smem = intra_core_smem<T, D>(p.S, spill);
   if (smem > kMaxCoreSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -229,7 +230,6 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
       intra_core_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
   unsigned char* ws = reinterpret_cast<unsigned char*>(
       static_cast<T*>(p.a) + p.R * p.Bq);
   intra_core_kernel<T, D><<<dim3(p.n, p.M, p.h), kCoreWarps * 32, smem,
@@ -237,30 +237,43 @@ int launch_core(const DptAttnParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The f32 core for head width d (core_head_width): the first design at
-// S <= 256, the row-statistics core above.
+// The f32 core for the padded head width D = Bq / h (core_head_width),
+// with the real width's softmax scale: the first design at S <= 256, the
+// row-statistics core above.
 template <typename T>
-int launch_core_d(const DptAttnParams& p, cudaStream_t stream) {
+int launch_core_d(const DptAttnParams& p, cudaStream_t stream, float scale) {
   if (p.S > kFirstDesignMaxS)
-    return launch_rs_core_d<false>(p, nullptr, nullptr, nullptr, stream);
+    return launch_rs_core_d<false>(p, nullptr, nullptr, nullptr, stream,
+                                   scale);
   switch (p.Bq / p.h) {
-    case 16: return launch_core<T, 16>(p, stream);
-    case 32: return launch_core<T, 32>(p, stream);
-    case 64: return launch_core<T, 64>(p, stream);
-    case 128: return launch_core<T, 128>(p, stream);
+    case 16: return launch_core<T, 16>(p, stream, scale);
+    case 32: return launch_core<T, 32>(p, stream, scale);
+    case 64: return launch_core<T, 64>(p, stream, scale);
+    case 128: return launch_core<T, 128>(p, stream, scale);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// d: the heads' real width (its scale); above a padded width of 128 the
+// core is the route of dpt_attn_wide_head.cuh, in `wide`, at any S.
 template <typename T>
-int launch(const DptAttnParams& p, cudaStream_t stream) {
-  if (p.Bq % 64 || p.Bq > p.B || !core_head_width(p.Bq / p.h) ||
+int launch(const DptAttnParams& p, cudaStream_t stream, int d, float* wide) {
+  if (p.Bq % 64 || p.Bq > p.B || !attn_head_widths_ok(p.Bq, p.h, d) ||
       p.Bn < 1 || p.Bn > p.B)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = attn_scale(d);
+  auto core = [=](const DptAttnParams& q, cudaStream_t s) {
+    if (q.Bq / q.h > kCoreMaxD)
+      return launch_wide_head_fwd<T, false>(q, wide, scale, s);
+    if constexpr (kIsBf16<T>)
+      return launch_fwd_core_d<false>(q, s, scale);
+    else
+      return launch_core_d<T>(q, s, scale);
+  };
   if constexpr (kIsBf16<T>)
-    return launch_attention_fwd_wg(p, stream, launch_fwd_core_d<false>);
+    return launch_attention_fwd_wg(p, stream, core);
   else
-    return launch_attention<T>(p, stream, launch_core_d<T>);
+    return launch_attention<T>(p, stream, core);
 }
 
 }  // namespace
@@ -271,12 +284,18 @@ extern "C" {
 // intra forward needs after the R * Bq of its `a` workspace for its spilled
 // q, k, v tiles: 0 where they fit in shared memory (always in bf16, whose
 // core keeps no per-head tile, and in f32 above S = 256, whose
-// row-statistics core keeps none either), -1 where the f32 core fits no
-// way. B here is the heads' width Bq = h * d.
+// row-statistics core keeps none either, and above a head width of 128,
+// whose route keeps its logits in `wide`), -1 where the f32 core fits no
+// way. B here is the heads' padded width Bq = h * D.
 int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
                             long long* n_spill) {
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
   const int d = B / h;
+  if (d > kCoreMaxD) {   // the route beside the cores: its own workspace
+    if (d % 64) return static_cast<int>(cudaErrorInvalidValue);
+    *n_spill = 0;
+    return 0;
+  }
   if (elem_bytes == 2) {
     if (!core_head_width(d)) return static_cast<int>(cudaErrorInvalidValue);
     *n_spill = 0;
@@ -300,14 +319,17 @@ int ctn_dpt_intra_workspace(int M, int n, int S, int B, int h, int elem_bytes,
 // dpt_common.cuh; the `a` workspace holds R * Bq elements plus what
 // ctn_dpt_intra_workspace gives); returns the first CUDA error of its three
 // launches. Either dtype takes any S (f32 a multiple of 16: the wrapper
-// pads), f32 above 256 on the row-statistics core.
+// pads), f32 above 256 on the row-statistics core; d and wide as in
+// CTN_DPT_ATTN_ARGS.
 int ctn_dpt_intra_f32(CTN_DPT_ATTN_ARGS) {
-  return launch<float>(CTN_DPT_ATTN_PARAMS, static_cast<cudaStream_t>(stream));
+  return launch<float>(CTN_DPT_ATTN_PARAMS, static_cast<cudaStream_t>(stream),
+                       d, static_cast<float*>(wide));
 }
 
 int ctn_dpt_intra_bf16(CTN_DPT_ATTN_ARGS) {
   return launch<__nv_bfloat16>(CTN_DPT_ATTN_PARAMS,
-                               static_cast<cudaStream_t>(stream));
+                               static_cast<cudaStream_t>(stream), d,
+                               static_cast<float*>(wide));
 }
 
 }  // extern "C"

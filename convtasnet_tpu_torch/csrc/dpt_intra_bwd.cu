@@ -81,6 +81,7 @@
 // (qkv, dqkv [R, 3Bq], dA and a [R, Bq]), the products take Bq
 // (dpt_bwd_common.cuh) and dx has no g term.
 
+#include "dpt_attn_wide_head.cuh"
 #include "dpt_intra_rowstat.cuh"
 
 namespace {
@@ -302,14 +303,13 @@ long long spill_elems(int M, int n, int S, int h) {
 
 template <int D>
 int launch_core(const DptAttnBwdParams& P, unsigned char* spill,
-                cudaStream_t stream) {
+                cudaStream_t stream, float scale) {
   const CoreCfg c = core_cfg<D>(P.f.S);
   if (c.warps == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       intra_bwd_core_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(c.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
   intra_bwd_core_kernel<D><<<dim3(P.f.n, P.f.M, P.f.h), c.warps * 32, c.smem,
                              stream>>>(P, scale, c.spill ? spill : nullptr,
                                        c.heads);
@@ -317,41 +317,54 @@ int launch_core(const DptAttnBwdParams& P, unsigned char* spill,
 }
 
 // f32: ws_act holds the attention workspace (attn_bwd_layout) and, after
-// it, the spilled tiles where the core needs them.
+// it, the spilled tiles where the core needs them. d: the heads' real
+// width (its scale); above a padded width of 128 the core is the route of
+// dpt_attn_wide_head.cuh, in `wide`, at any S.
 int launch_bwd(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
-               cudaStream_t stream) {
-  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
-      P.f.Bn < 1 || P.f.Bn > P.f.B)
+               cudaStream_t stream, int d, float* wide) {
+  if (!attn_head_widths_ok(P.f.Bq, P.f.h, d) || P.f.Bq % 64 ||
+      P.f.Bq > P.f.B || P.f.Bn < 1 || P.f.Bn > P.f.B)
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnBwdLayout L =
       attn_bwd_layout(P.f.R, P.f.B, P.f.h, P.f.Bq, sizeof(float));
   unsigned char* spill =
       reinterpret_cast<unsigned char*>(static_cast<float*>(ws_act) + L.n_act);
+  const float scale = attn_scale(d);
   return launch_attention_bwd<float>(
       P, ws_act, ws_f32, stream,
-      [spill](const DptAttnBwdParams& q, cudaStream_t s) {
+      [spill, scale, wide](const DptAttnBwdParams& q, cudaStream_t s) {
+        if (q.f.Bq / q.f.h > kCoreMaxD)
+          return launch_wide_head_bwd<float, false>(q, wide, scale, s);
         if (q.f.S > kFirstDesignMaxS)   // the row-statistics core
           return launch_rs_core_d<true>(
               q.f, static_cast<const float*>(q.dA),
-              static_cast<float*>(q.dqkv), q.stats, s);
+              static_cast<float*>(q.dqkv), q.stats, s, scale);
         switch (q.f.Bq / q.f.h) {
-          case 16: return launch_core<16>(q, spill, s);
-          case 32: return launch_core<32>(q, spill, s);
-          case 64: return launch_core<64>(q, spill, s);
-          case 128: return launch_core<128>(q, spill, s);
+          case 16: return launch_core<16>(q, spill, s, scale);
+          case 32: return launch_core<32>(q, spill, s, scale);
+          case 64: return launch_core<64>(q, spill, s, scale);
+          case 128: return launch_core<128>(q, spill, s, scale);
         }
         return static_cast<int>(cudaErrorInvalidValue);
       });
 }
 
-// bf16: the design in dpt_attn_bwd_wg.cuh, with the core's intra gather.
+// bf16: the design in dpt_attn_bwd_wg.cuh, with the core's intra gather;
+// d and wide as in launch_bwd.
 int launch_bwd_wg(const DptAttnBwdParams& P, void* ws_act, float* ws_f32,
-                  cudaStream_t stream) {
-  if (!core_head_width(P.f.Bq / P.f.h) || P.f.Bq % 64 || P.f.Bq > P.f.B ||
-      P.f.Bn < 1 || P.f.Bn > P.f.B || P.f.S % 16)
+                  cudaStream_t stream, int d, float* wide) {
+  if (!attn_head_widths_ok(P.f.Bq, P.f.h, d) || P.f.Bq % 64 ||
+      P.f.Bq > P.f.B || P.f.Bn < 1 || P.f.Bn > P.f.B || P.f.S % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention_bwd_wg(P, ws_act, ws_f32, stream,
-                                 launch_core_wg_d<false>);
+  const float scale = attn_scale(d);
+  return launch_attention_bwd_wg(
+      P, ws_act, ws_f32, stream,
+      [scale, wide](const DptAttnBwdParams& q, cudaStream_t s) {
+        if (q.f.Bq / q.f.h > kCoreMaxD)
+          return launch_wide_head_bwd<__nv_bfloat16, false>(q, wide, scale,
+                                                            s);
+        return launch_core_wg_d<false>(q, s, scale);
+      });
 }
 
 }  // namespace
@@ -369,6 +382,12 @@ int ctn_dpt_intra_bwd_spill(int M, int n, int S, int B, int h, int elem_bytes,
   if (h <= 0 || B % h) return static_cast<int>(cudaErrorInvalidValue);
   if (elem_bytes == 2) {   // bf16: the core on mma.sync
     *n_spill = 0;          // (dpt_attn_bwd_wg.cuh) keeps no [S, S] tile
+    return 0;
+  }
+  if (B / h > kCoreMaxD) {   // the route beside the cores: its own
+    // workspace (ctn_dpt_attn_wide_workspace)
+    if ((B / h) % 64) return static_cast<int>(cudaErrorInvalidValue);
+    *n_spill = 0;
     return 0;
   }
   if (S > kFirstDesignMaxS) {   // the row-statistics core: no tiles; its

@@ -482,31 +482,35 @@ __global__ void __launch_bounds__(kRsWarps * 32)
 
 template <int D, bool kBwd>
 int launch_rs_core(const DptAttnParams& f, const float* dA, float* dqkv,
-                   float* stats, cudaStream_t stream) {
+                   float* stats, cudaStream_t stream, float scale) {
   constexpr size_t smem = RsShape<D>::kSmem;
   auto kernel = rs_core_kernel<D, kBwd>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
   kernel<<<dim3(f.n, f.M, f.h), kRsWarps * 32, smem, stream>>>(
       f, dA, dqkv, stats, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The core at the heads' width d = Bq / h: the forward (kBwd false; dA,
-// dqkv and stats null) or the backward. S % 16 == 0, S > kFirstDesignMaxS.
+// The core at the heads' padded width D = Bq / h, with the real width's
+// softmax scale: the forward (kBwd false; dA, dqkv and stats null) or the
+// backward. S % 16 == 0, S > kFirstDesignMaxS.
 template <bool kBwd>
 int launch_rs_core_d(const DptAttnParams& f, const float* dA, float* dqkv,
-                     float* stats, cudaStream_t stream) {
+                     float* stats, cudaStream_t stream, float scale) {
   if (f.S % 16 || f.S <= kFirstDesignMaxS)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (f.Bq / f.h) {
-    case 16: return launch_rs_core<16, kBwd>(f, dA, dqkv, stats, stream);
-    case 32: return launch_rs_core<32, kBwd>(f, dA, dqkv, stats, stream);
-    case 64: return launch_rs_core<64, kBwd>(f, dA, dqkv, stats, stream);
-    case 128: return launch_rs_core<128, kBwd>(f, dA, dqkv, stats, stream);
+    case 16:
+      return launch_rs_core<16, kBwd>(f, dA, dqkv, stats, stream, scale);
+    case 32:
+      return launch_rs_core<32, kBwd>(f, dA, dqkv, stats, stream, scale);
+    case 64:
+      return launch_rs_core<64, kBwd>(f, dA, dqkv, stats, stream, scale);
+    case 128:
+      return launch_rs_core<128, kBwd>(f, dA, dqkv, stats, stream, scale);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -42,15 +42,16 @@ _PAIR_BWD_ARGTYPES = [_P] * 29 + [_I] * 9 + [_P]
 # ctn_tcn_block_tp2_{f32,bf16}: 12 pointers (the last the wide route's
 # workspace), 7 ints, the stream (see tcn_block_tp.cu)
 _TP2_ARGTYPES = [_P] * 12 + [_I] * 7 + [_P]
-# ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 8 ints, the stream
+# ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 8 ints, the heads' real
+# width, the workspace of the route above a head width of 128, the stream
 # (dpt_common.cuh)
-_ATTN_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
+_ATTN_ARGTYPES = [_P] * 9 + [_I] * 9 + [_P, _P]
 # ctn_dpt_ffn_{f32,bf16}: 9 pointers (the last the workspace), 5 ints, the
 # stream (dpt_ffn.cu)
 _FFN_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
-# ctn_dpt_{inter,intra}_bwd_{f32,bf16}: 13 pointers, 8 ints, the stream
-# (dpt_bwd_common.cuh)
-_ATTN_BWD_ARGTYPES = [_P] * 13 + [_I] * 8 + [_P]
+# ctn_dpt_{inter,intra}_bwd_{f32,bf16}: 13 pointers, 8 ints, the heads'
+# real width, the wide route's workspace, the stream (dpt_bwd_common.cuh)
+_ATTN_BWD_ARGTYPES = [_P] * 13 + [_I] * 9 + [_P, _P]
 # ctn_dpt_ffn_bwd_{f32,bf16}: 15 pointers, 5 ints, the stream (dpt_ffn_bwd.cu)
 _FFN_BWD_ARGTYPES = [_P] * 15 + [_I] * 5 + [_P]
 
@@ -155,6 +156,7 @@ def load_library() -> ctypes.CDLL:
         "ctn_dpt_intra_bwd_bf16": _ATTN_BWD_ARGTYPES,
         "ctn_dpt_attn_bwd_workspace": [_I] * 7 + [_LL_P, _LL_P],
         "ctn_dpt_intra_workspace": [_I] * 6 + [_LL_P],
+        "ctn_dpt_attn_wide_workspace": [_I] * 7 + [_LL_P],
         "ctn_dpt_intra_bwd_spill": [_I] * 6 + [_LL_P],
         "ctn_dpt_ffn_bwd_f32": _FFN_BWD_ARGTYPES,
         "ctn_dpt_ffn_bwd_bf16": _FFN_BWD_ARGTYPES,

@@ -45,8 +45,8 @@ def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
     """Why the intra kernels (B9, B10, and their partial modes) refuse a
     sublayer of width B over chunks of S frames with ``n_heads`` heads over
     Bq channels in the compute ``dtype``, or None where they take it: the
-    attention kernels' rules (any B, B and Bq off 64 zero-padded, Bq
-    dividing B, head widths 16, 32, 64 and 128 in either dtype). Any S
+    attention kernels' rule (any B, B and Bq off 64 zero-padded, any head
+    width in either dtype, Bq dividing B into the heads). Any S
     runs: in f32 the first designs up to 256 frames and the
     row-statistics core above (``csrc/dpt_intra_rowstat.cuh``); the f32
     kernels and the bf16 backward run S padded up to a multiple of 16 with
@@ -56,12 +56,13 @@ def shape_refusal(B: int, S: int, Bq: int, n_heads: int,
 
 def intra_attention_reference(x, gamma, beta, w_qkv, w_out, key_bias, *,
                               n_heads: int, partial: bool = False,
-                              Bn: Optional[int] = None) -> torch.Tensor:
+                              Bn: Optional[int] = None,
+                              d: Optional[int] = None) -> torch.Tensor:
     """The intra-chunk sublayer's plain twin (``xla_intra_attention``);
-    ``Bn`` as in ``dpt_attention.attention_reference``."""
+    ``Bn`` and ``d`` as in ``dpt_attention.attention_reference``."""
     return attention_reference(x, gamma, beta, w_qkv, w_out, key_bias,
                                n_heads=n_heads, attend_axis=2,
-                               partial=partial, Bn=Bn)
+                               partial=partial, Bn=Bn, d=d)
 
 
 def fused_intra_attention(
@@ -92,11 +93,12 @@ fused_intra_attention.partial_launches = 0
 
 def intra_attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out, key_bias,
                                   *, n_heads: int, partial: bool = False,
-                                  Bn: Optional[int] = None):
+                                  Bn: Optional[int] = None,
+                                  d: Optional[int] = None):
     """The intra-chunk sublayer backward's plain twin."""
     return attention_bwd_reference(x, g, gamma, beta, w_qkv, w_out,
                                    key_bias, n_heads=n_heads, attend_axis=2,
-                                   partial=partial, Bn=Bn)
+                                   partial=partial, Bn=Bn, d=d)
 
 
 def fused_intra_attention_bwd(

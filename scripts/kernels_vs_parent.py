@@ -109,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import json
 import os
 import subprocess
@@ -1082,10 +1083,17 @@ def _time_padded(torch, res: dict, rn) -> None:
                                torch.empty(Bp, 3 * Bqp, device="cuda"),
                                torch.empty(Bqp, Bp, device="cuda"))
 
+                    # a tree that widens no head slices without the
+                    # head count
+                    unpad_kw = ({"n_heads": kw["n_heads"]} if "n_heads" in
+                                inspect.signature(dpt_attention
+                                                  .unpad_attention_grads)
+                                .parameters else {})
+
                     def unpad():
                         return [t.contiguous() for t in
                                 dpt_attention.unpad_attention_grads(
-                                    grads_p, Bd, Bq)]
+                                    grads_p, Bd, Bq, **unpad_kw)]
 
                 def fwd_copies():
                     pad()

@@ -6,9 +6,10 @@ each block through the single block's launches), of
 the TCN's tensor parallelism (kernel B6 and the shard sum around it) and
 of the dual-path tensor parallelism (the partial kernels B7p-B12p and
 the shard sums around them), of the padding that runs widths off the
-kernels' tiles, of the TCN kernels' routes past 16 depthwise taps and of
-the DPT kernels' routes above 512 channels, and report which checks see
-each one. Needs one CUDA GPU and nvcc.
+kernels' tiles, of the TCN kernels' routes past 16 depthwise taps, of
+the DPT kernels' routes above 512 channels and of the DPT attention at
+head widths off its cores, and report which checks see each one. Needs
+one CUDA GPU and nvcc.
 
     python3 scripts/planted_faults.py [--log-dir DIR] [--only NAME ...] \\
         [--jobs N]
@@ -35,7 +36,8 @@ B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
 ``phase_step_compare(torch, "dpt")``, for the padding
 ``phase_auto_padded``, for the routes past 16 depthwise taps
 ``phase_tcn_taps``, for the DPT routes above 512
-``phase_dpt_wider_kernels``), then the kind's ``cuda``-marked
+``phase_dpt_wider_kernels``, for the head widths off the cores
+``phase_dpt_head_width_kernels``), then the kind's ``cuda``-marked
 tests. The repository itself is never edited. A fault is caught when either
 run fails. ``--jobs N`` runs N faults at once on the one card. Each run's
 full output goes to ``--log-dir`` (default: a new temporary directory),
@@ -401,6 +403,22 @@ FAULTS = {
         "    const float mean_d = warp_sum(s1) / Bn;",
         "      s2 += dxh * xh;\n    }\n"
         "    const float mean_d = warp_sum(s1) / B;"),
+    # the DPT attention at head widths off the cores (kind head_widths):
+    # the inter forward's softmax scale from the padded width D in place
+    # of the heads' real d, and the route above 128 taking its padded keys
+    # (score 0) into the softmax in place of NEG_INF
+    "head_scale_from_padded_width": ("head_widths",
+        "convtasnet_tpu_torch/csrc/dpt_attention.cu",
+        "  const float scale = attn_scale(d);\n"
+        "  auto core = [=](const DptAttnParams& q, cudaStream_t s) {",
+        "  const float scale = attn_scale(p.Bq / p.h);\n"
+        "  auto core = [=](const DptAttnParams& q, cudaStream_t s) {"),
+    "wide_head_softmax_reads_padded_key": ("head_widths",
+        "convtasnet_tpu_torch/csrc/dpt_attn_wide_head.cuh",
+        "const float v = j < L ? s[j] * scale + rows.bias(bias, g, j) : "
+        "-INFINITY;",
+        "const float v = s[j] * scale + (j < L ? rows.bias(bias, g, j) : "
+        "0.f);"),
     "wider_inter_core_last_key_tile_dropped": ("wider",
         "convtasnet_tpu_torch/csrc/dpt_attention.cu",
         "      float mx = -INFINITY, sum = 0.f;\n"
@@ -438,6 +456,7 @@ PHASES = {
     "padded": ["phase_auto_padded(torch, k, dpt)"],
     "taps": ["phase_tcn_taps(torch, k)"],
     "wider": ["phase_dpt_wider_kernels(torch, dpt)"],
+    "head_widths": ["phase_dpt_head_width_kernels(torch, dpt)"],
 }
 CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
                                "or fused_block_ad or rounding_points",
@@ -447,7 +466,8 @@ CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
               "cln_backward": "cln", "pair": "pair", "tp": "tp_",
               "dpt_tp": "partial or dpt_tp",
               "padded": "untiled or check_shapes or auto_mode or padded",
-              "taps": "taps", "wider": "wide"}
+              "taps": "taps", "wider": "wide",
+              "head_widths": "head_width or zero_column_heads"}
 RUNNER = """
 import sys
 import torch

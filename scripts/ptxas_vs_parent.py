@@ -12,7 +12,10 @@ Each source of both trees (the TCN's ``tcn_block*.cu`` and the DPT's
 package's own nvcc flags, and every kernel both trees have is held by its
 registers, stack frame and spill stores and loads: one line per kernel
 whose numbers moved, one per kernel only one tree has, and a count of the
-kernels the trees share with the same numbers. A kernel that gained a
+kernels the trees share with the same numbers. A kernel's name is taken
+without both of its source's anonymous-namespace hashes (nvcc's second one
+can change with the source, as when it gains an ``extern "C"`` entry), so
+an edited source's kernels are held against the other tree's too. A kernel that gained a
 defaulted template parameter keeps its old name for its default
 instantiation (``e2_kernel`` and ``e2_wg_kernel``'s ``kTapChunks``,
 ``out_proj_wg_kernel``'s ``kHaloDev``, the f32 inter cores' ``kKeys`` of
@@ -51,9 +54,11 @@ RENAMES = [(r"(e2_kernelI\w+?)ELb0EEEv", r"\1EEEv"),
 
 
 def kernel_name(mangled: str) -> str:
-    """A kernel's mangled name without its file's anonymous-namespace
-    hash, default instantiations under their old names."""
+    """A kernel's mangled name without its file's two anonymous-namespace
+    hashes (an edited source may get another second one), default
+    instantiations under their old names."""
     name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", mangled)
+    name = re.sub(r"(_cu)_[0-9a-f]{8}(?=\d)", r"\1", name)
     for old, new in RENAMES:
         name = re.sub(old, new, name)
     return name
@@ -61,7 +66,7 @@ def kernel_name(mangled: str) -> str:
 
 def short(name: str) -> str:
     """The name past the namespace prefix, for printing."""
-    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", name)
+    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu(?:_[0-9a-f]{8})?\d+", "", name)
 
 
 def parse(report: str) -> dict:

@@ -1048,12 +1048,18 @@ def test_dpt_kernels_are_deterministic_and_check_shapes(cuda):
         args, kw, _ = _dpt_args(cuda, torch.bfloat16, kind, 7, True, seed=2)
         with torch.inference_mode():
             assert torch.equal(fused(*args, **kw), fused(*args, **kw))
-    args, kw, _ = _dpt_args(cuda, torch.float32, "intra", 3, True, B=96,
-                            heads=2)
-    with pytest.raises(ValueError, match="head width"):   # d = 48
-        dpt_intra.fused_intra_attention(*args, **kw)
-    args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=16)
-    with pytest.raises(ValueError, match="head width"):   # d = 8
+    # head widths off the cores run widened (d = 48 -> 64, d = 8 -> 16);
+    # heads that do not split the width evenly (JAX splits none) raise
+    for kind, B, heads in (("intra", 96, 2), ("inter", 128, 16)):
+        args, kw, valid = _dpt_args(cuda, torch.float32, kind, 3, True, B=B,
+                                    heads=heads)
+        fused, twin = DPT_FNS[kind]
+        with torch.inference_mode():
+            got, want = fused(*args, **kw), twin(*args, **kw)
+        assert _rel_l2(_valid_rows(got, valid, B), _valid_rows(
+            want, valid, B)) <= DPT_TOL[torch.float32]
+    args, kw, _ = _dpt_args(cuda, torch.float32, "inter", 3, True, heads=3)
+    with pytest.raises(ValueError, match="split"):
         dpt_attention.fused_inter_attention(*args, **kw)
     # a chunk off the 16-row tile runs padded with masked frames
     args, kw, valid = _dpt_args(cuda, torch.float32, "intra", 3, True, S=24)
@@ -2308,8 +2314,9 @@ def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
                                                             monkeypatch):
     """On CUDA tensors the partial wrappers launch or raise: a shard whose
     width does not divide B (a third of B=256's q, k and v columns) names
-    the rule, a head width outside the bf16 kernels' {16, 32, 64,
-    128} (8: 16 heads on a shard of 128 channels) raises, a shard's
+    the rule, a head count that does not split the shard's width (3 heads
+    on a shard of 128 channels; every head width runs since C8's repair)
+    raises, a shard's
     weights without ``partial=True`` raise, and with the kernel library
     made to fail the wrapper raises and counts no launch; F/m off the
     128-column tile (F/16 = 64) runs padded. ``dpt_tp_forward`` over three
@@ -2326,9 +2333,9 @@ def test_dpt_partial_kernels_refuse_widths_they_do_not_take(cuda,
         dpt_attention.fused_inter_attention(
             x, g_, b_, third, w_out[:85].contiguous(), bias, n_heads=1,
             partial=True)
-    with pytest.raises(ValueError, match="head width"):
+    with pytest.raises(ValueError, match="split"):
         dpt_intra.fused_intra_attention(*_shard(args, "intra", 2, 0),
-                                        n_heads=16, partial=True)
+                                        n_heads=3, partial=True)
     with pytest.raises(ValueError, match="partial=True"):
         dpt_attention.fused_inter_attention(*_shard(args, "inter", 2, 0),
                                             n_heads=4)
@@ -2439,19 +2446,20 @@ AUTO_PADDED = {
                 bottleneck=64, dpt_chunk=100, dpt_layers=1, dpt_heads=2,
                 dpt_ff=192),
 }
-# (config, the rule the error names): DPTs whose head width no kernel
-# takes, 48 (2 heads of B = 96) and 8 (72 heads of B = 576) (the TCN
-# blocks take every width and every P the JAX package runs, and the DPT
-# every B; the "tcn" slot held 17 causal taps until they were taken,
+# (config, shards, the rule the kernels' error names, the JAX package's
+# words the plain path raises): shapes the JAX package refuses too, a TCN
+# with an even P outside the causal mode and a DPT over 3 shards of its 8
+# heads (the kernels take every width, every head width and every P the
+# JAX package runs; the slots held 17 causal taps until they were taken,
 # test_tcn_model_takes_any_taps, then a DPT at B = 640 until B above 512
-# was taken)
+# was taken, then DPTs at head widths 48 and 8 until C8 was repaired)
 AUTO_REFUSED = {
-    "tcn": (dict(separator="dpt", n_filters=64, kernel_size=16,
-                 bottleneck=96, dpt_layers=1, dpt_heads=2, dpt_ff=256),
-            "head width"),
+    "tcn": (dict(n_filters=64, kernel_size=16, bottleneck=64, hidden=64,
+                 num_blocks=2, num_repeats=1, conv_kernel=4), 1,
+            "odd kernel size", "odd kernel size"),
     "dpt": (dict(separator="dpt", n_filters=64, kernel_size=16,
-                 bottleneck=576, dpt_layers=1, dpt_heads=72, dpt_ff=256),
-            "head width"),
+                 dpt_layers=1), 3, r"fit: \[1, 2, 4, 8\]",
+            "must divide n_heads"),
 }
 
 
@@ -2500,24 +2508,38 @@ def test_auto_mode_runs_padded_widths_through_the_kernels(cuda, family):
 
 @pytest.mark.parametrize("family", ["tcn", "dpt"])
 def test_auto_mode_raises_where_no_kernel_takes_the_shape(cuda, family):
-    """A shape no kernel takes (a DPT at head width 48 or 8) raises under
-    auto on the card as with
-    use_pallas=True, naming the rule, before any launch; use_pallas=False
-    serves it through the plain ops."""
-    kw, rule = AUTO_REFUSED[family]
+    """A shape no kernel takes, which the JAX package refuses too (a TCN
+    with an even P outside the causal mode; a DPT over 3 shards of its 8
+    heads), raises under auto on the card as with use_pallas=True, naming
+    the rule, before any launch; use_pallas=False raises the JAX
+    package's own words, since the plain ops do not run it either."""
+    from convtasnet_tpu_torch.parallel.dpt_tp import dpt_tp_forward
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+
+    kw, m, rule, plain_rule = AUTO_REFUSED[family]
     cfg = ConvTasNetConfig(**kw)
     mix = torch.randn(2, 8000, generator=torch.Generator().manual_seed(3))
     mix = mix.to(cuda)
+    sd = ConvTasNet(cfg, use_pallas=False, device=cuda).state_dict()
+
+    def serve(use_pallas):
+        with torch.inference_mode():
+            if m > 1:
+                return dpt_tp_forward(cfg, sd, mix, shard_devices(m, cuda),
+                                      use_pallas=use_pallas)
+            return ConvTasNet(cfg, use_pallas=use_pallas,
+                              device=cuda).eval()(mix)
+
     tcn0, dpt0 = _tcn_launches(), _dpt_launch_counts()
+    p0 = _partial_launches()
     for use_pallas in (None, True):
-        model = ConvTasNet(cfg, use_pallas=use_pallas, device=cuda).eval()
-        with torch.inference_mode(), pytest.raises(ValueError, match=rule):
-            model(mix)
+        with pytest.raises(ValueError, match=rule):
+            serve(use_pallas)
     assert not any(_tcn_launches(tcn0).values())
     assert not any(_dpt_launch_counts(dpt0).values())
-    with torch.inference_mode():
-        out = ConvTasNet(cfg, use_pallas=False, device=cuda).eval()(mix)
-    assert out.shape == (2, 2, 8000) and torch.isfinite(out).all()
+    assert not any(_partial_launches(p0).values())
+    with pytest.raises(ValueError, match=plain_rule):
+        serve(False)
 
 
 def test_tp_forward_pads_untiled_shard_widths(cuda):
@@ -3126,19 +3148,23 @@ def test_dpt_tp_forward_pads_untiled_shard_widths(cuda, B, n_model, heads):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dpt_head_widths_off_the_cores_raise(cuda, dtype):
-    """A head width no core takes (48: B = 96 with 2 heads; 8: B = 64 with
-    8 heads) raises on the card before any launch, naming the rule, in
-    either dtype."""
+def test_dpt_head_widths_off_the_cores_run(cuda, dtype):
+    """A head width off the cores (48: B = 96 with 2 heads; 8: B = 64 with
+    8 heads) runs on the card, widened with zero columns (to 64, 16), one
+    launch a call, within the twin's bar, in either dtype."""
     before = _dpt_launch_counts()
     for B, heads in ((96, 2), (64, 8)):
-        args, kw, _ = _dpt_args(cuda, dtype, "inter", 2, True, B=B,
-                                heads=heads)
+        args, kw, valid = _dpt_args(cuda, dtype, "inter", 2, True, B=B,
+                                    heads=heads)
         for kind in ("inter", "intra"):
-            with torch.inference_mode(), pytest.raises(ValueError,
-                                                       match="head width"):
-                DPT_FNS[kind][0](*args, **kw)
-    assert not any(_dpt_launch_counts(before).values())
+            fused, twin = DPT_FNS[kind]
+            with torch.inference_mode():
+                got, want = fused(*args, **kw), twin(*args, **kw)
+            assert _rel_l2(_valid_rows(got, valid, B), _valid_rows(
+                want, valid, B)) <= DPT_TOL[dtype]
+    assert _dpt_launch_counts(before) == {
+        "inter": 2, "intra": 2, "ffn": 0, "inter_bwd": 0, "intra_bwd": 0,
+        "ffn_bwd": 0}
 
 
 # --------------------------------------------------------------------------
@@ -3491,3 +3517,160 @@ def test_tcn_taps_past_the_halo_equal_their_center_taps(cuda, dtype):
         za, sa = tp.fused_tp_stage2(*targs, dilation=128, causal=False)
         zb, sb = tp.fused_tp_stage2(*narrow, dilation=128, causal=False)
     assert torch.equal(za, zb) and torch.equal(sa, sb)
+
+
+# --------------------------------------------------------------------------
+# Every head width (C8): heads off the cores' widths run widened with zero
+# columns and the real d's scale; heads wider than 128 on the route beside
+# the cores (csrc/dpt_attn_wide_head.cuh)
+# --------------------------------------------------------------------------
+
+# head width d -> (B, heads) of the full sublayer; on two shards a single
+# head runs as two heads at twice the width
+HEAD_WIDTHS = {8: (128, 16), 24: (48, 2), 48: (96, 2), 96: (192, 2),
+               192: (192, 1), 256: (256, 1)}
+
+
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("d", sorted(HEAD_WIDTHS))
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dpt_head_width_kernels_match_twins(cuda, dtype, kind, d, m):
+    """B7-B10 (m = 1) and B7p-B10p (the last shard of two) at head width d,
+    against their twins: the forward on the valid rows within the DPT bar
+    (in bf16 also at its rounding points, 1e-3; 2e-3 for a partial
+    output) and every cotangent as ``_check_dpt_cotangents`` holds them;
+    one launch a call. n = 7 chunks of 32 frames with a masked tail: the
+    inter route's rows of logits pad 7 keys to 16."""
+    B, heads = HEAD_WIDTHS[d]
+    if m > 1 and heads % m:
+        B, heads = B * m, heads * m
+    fused, twin = DPT_FNS[kind]
+    fused_b, twin_b = DPT_BWD_FNS[kind]
+    x, g, w, kw, valid = _dpt_bwd_args(cuda, dtype, kind, 7, True, B=B,
+                                       heads=heads, seed=d + m)
+    gamma, beta, w_qkv, w_out, bias = w
+    args = (x, gamma, beta, w_qkv.to(dtype), w_out.to(dtype), bias)
+    if m > 1:
+        args = _shard(args, kind, m, m - 1)
+        x, *w = _shard((x, *w), kind, m, m - 1)
+        kw = dict(n_heads=heads // m, partial=True)
+    count = "partial_launches" if m > 1 else "launches"
+    before = getattr(fused, count), getattr(fused_b, count)
+    with torch.inference_mode():
+        got = fused(*args, **kw)
+        want = twin(*args, **kw)
+        rounded = dpt_attention.attention_rounded_reference(
+            *args, attend_axis=2 if kind == "intra" else 1, **kw)
+    grads = fused_b(x, g, *w, **kw)
+    torch.cuda.synchronize()
+    assert (getattr(fused, count), getattr(fused_b, count)) == (
+        before[0] + 1, before[1] + 1)
+    got_v = _valid_rows(got, valid, B)
+    assert torch.isfinite(got_v).all()
+    assert _rel_l2(got_v, _valid_rows(want, valid, B)) <= DPT_TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert _rel_l2(got_v, _valid_rows(rounded, valid, B)) <= (
+            2e-3 if m > 1 else 1e-3)
+    exact = twin_b(x.float(), g.float(), *w, **kw)
+    same = twin_b(x, g, *w, **kw)
+    _check_dpt_cotangents(grads, exact, same, valid, dtype)
+
+
+# the cotangents that keep the narrow heads' bits when each head is widened
+# with zero columns to the next core width: every one in f32; in bf16 dx,
+# dgamma and dbeta, while the weight gradients sum their rows in chunks
+# that wg_wgrad_chunk picks from the operands' widths (as WIDER_BITS)
+HEAD_BITS = {torch.float32: (0, 1, 2, 3, 4), torch.bfloat16: (0, 1, 2)}
+HEAD_SHARDS = 2   # the proof's shard count: the widened heads fill B
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("kind", ["inter", "intra"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dpt_zero_column_heads_same_bits(cuda, dtype, kind, d):
+    """The zero-column proof: the last head-group shard of two at B = 256
+    (128 channels in heads of d = 32, or 64), each head widened with zero
+    columns to 2d and run on the 2d core with the scale of d
+    (``launch_attention(..., d=d)``; the widened shard fills B, so B and
+    every route chosen by it stay as they are), gives the d core's forward
+    bits and the cotangents ``HEAD_BITS`` lists (the others within the
+    twins' bars of the narrow exact cotangents)."""
+    m = HEAD_SHARDS
+    heads = 256 // d // m
+    x, g, w, _, valid = _dpt_bwd_args(cuda, dtype, kind, 5, True, B=256,
+                                      heads=heads * m, seed=d)
+    x, *w = _shard((x, *w), kind, m, m - 1)
+    kw = dict(n_heads=heads, partial=True)
+    gamma, beta, w_qkv, w_out, bias = w
+    wq2, wo2 = dpt_attention.pad_heads(w_qkv, w_out, heads, 2 * d)
+    with torch.no_grad():
+        out = DPT_FNS[kind][0](x, gamma, beta, w_qkv.to(dtype),
+                               w_out.to(dtype), bias, **kw)
+        out_w = dpt_attention.launch_attention(
+            kind, x, gamma, beta, wq2.to(dtype), wo2.to(dtype), bias, d=d,
+            **kw)
+    grads = DPT_BWD_FNS[kind][0](x, g, *w, **kw)
+    *grads_w, dwq, dwo = dpt_attention.launch_attention_bwd(
+        kind, x, g, gamma, beta, wq2, wo2, bias, d=d, **kw)
+    grads_w += dpt_attention.unpad_heads(dwq, dwo, heads, d)
+    torch.cuda.synchronize()
+    assert torch.equal(out_w, out), (out_w.float() - out.float()).abs().max()
+    same = [torch.equal(a, b) for a, b in zip(grads_w, grads)]
+    print(f"zero-column heads {dtype} {kind} d={d} -> {2 * d}: cotangents "
+          f"the same bits {same}")
+    assert all(same[i] for i in HEAD_BITS[dtype]), same
+    exact = DPT_BWD_FNS[kind][1](x.float(), g.float(), *w, **kw)
+    twin = DPT_BWD_FNS[kind][1](x, g, *w, **kw)
+    _check_dpt_cotangents(grads_w, exact, twin, valid, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,heads", [(96, 2), (256, 1)])
+def test_dpt_model_at_head_widths_off_the_cores(cuda, B, heads, dtype):
+    """A one-layer DPT at ``--B 96 --dpt-heads 2`` (d = 48, widened to 64)
+    and ``--B 256 --dpt-heads 1`` (d = 256, the route beside the cores)
+    under auto: one served batch within the forward bar of the plain model
+    and one train step with a finite loss, B7 and B9 once per forward, B8
+    and B10 once per step; then ``dpt_tp_forward`` over two shards at B =
+    96 with 2 heads (one head of 48 a shard) through B7p-B10p, within the
+    forward bar of the unsharded plain model."""
+    from convtasnet_tpu_torch.config import SolverConfig
+    from convtasnet_tpu_torch.parallel.dpt_tp import dpt_tp_forward
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    cfg = ConvTasNetConfig(separator="dpt", n_filters=64, kernel_size=16,
+                           bottleneck=B, dpt_heads=heads, dpt_layers=1,
+                           dpt_ff=2 * B, compute_dtype=str(dtype)[6:])
+    gen = torch.Generator().manual_seed(B)
+    mix = torch.randn(2, 8000, generator=gen).to(cuda)
+    data = (mix, torch.full((2,), 8000, dtype=torch.int32, device=cuda),
+            torch.randn(2, 2, 8000, generator=gen).to(cuda),
+            torch.ones(2, device=cuda))
+    plain = ConvTasNet(cfg, use_pallas=False, device=cuda).eval()
+    state = ts.create_train_state(cfg, SolverConfig(), device=cuda)
+    state.model.load_state_dict(plain.state_dict())
+    dpt0 = _dpt_launch_counts()
+    state.model.eval()
+    with torch.inference_mode():
+        got, want = state.model(mix), plain(mix)
+    state, metrics = ts.make_train_step()(state, data)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, want) <= TOL[dtype], _rel_l2(got, want)
+    assert _dpt_launch_counts(dpt0) == {
+        "inter": 2, "intra": 2, "ffn": 4, "inter_bwd": 1, "intra_bwd": 1,
+        "ffn_bwd": 2}
+    if heads < 2:
+        return
+    p0 = _partial_launches()
+    with torch.inference_mode():
+        tp = dpt_tp_forward(cfg, plain.state_dict(), mix,
+                            shard_devices(2, cuda))
+    torch.cuda.synchronize()
+    assert _partial_launches(p0) == {
+        "inter": 2, "intra": 2, "ffn": 4, "inter_bwd": 0, "intra_bwd": 0,
+        "ffn_bwd": 0, "full": 0}
+    assert _rel_l2(tp, want) <= TOL[dtype], _rel_l2(tp, want)

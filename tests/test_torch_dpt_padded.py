@@ -149,11 +149,12 @@ def padded_backward(kind, x, g, *w, **kw):
         return dpt_ffn.unpad_ffn_grads(
             bwd(xp, gp, gm, bt, wu, b_up, wd, bd, Bn=B, **kw), B)
     gamma, beta, w_qkv, w_out, bias = w
+    heads = kw.pop("n_heads")
     xp, gm, bt, wq, wo, hp = dpt_attention.pad_attention(
-        x, gamma, beta, w_qkv, w_out, kw.pop("n_heads"))
+        x, gamma, beta, w_qkv, w_out, heads)
     return dpt_attention.unpad_attention_grads(
         bwd(xp, gp, gm, bt, wq, wo, bias, n_heads=hp, Bn=B, **kw), B,
-        w_qkv.shape[-1] // 3)
+        w_qkv.shape[-1] // 3, heads)
 
 
 def _check(kind, got, want, bar):
@@ -270,12 +271,12 @@ def test_padding_layout():
     assert not wq[B:].any() and not wo[Bq:].any() and not wo[:, B:].any()
     assert not (xp[..., B:].any() or gp[B:].any() or bp[B:].any())
     grads = (xp, gp, bp, wq, wo)
-    back = dpt_attention.unpad_attention_grads(grads, B, Bq)
+    back = dpt_attention.unpad_attention_grads(grads, B, Bq, h)
     for got, want in zip(back, (x, gamma, beta, w_qkv, w_out)):
         assert torch.equal(got, want)
     same = dpt_attention.pad_attention(xp, gp, bp, wq, wo, hp)
     assert all(a is b for a, b in zip(same, (xp, gp, bp, wq, wo, hp)))
-    assert dpt_attention.unpad_attention_grads(grads, 128, 64) is grads
+    assert dpt_attention.unpad_attention_grads(grads, 128, 64, h) is grads
 
 
 # ---- a DPT at --B 96 whole, every sublayer on the padded plain path ----

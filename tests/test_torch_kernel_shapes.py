@@ -80,8 +80,7 @@ def test_tp_stage2_rule(Hs, B):
 
 
 def _attention_ok(kind, B, S, Bq, heads):
-    return (B % Bq == 0 and Bq % heads == 0
-            and Bq // heads in (16, 32, 64, 128))
+    return B % Bq == 0 and Bq % heads == 0
 
 
 @pytest.mark.parametrize("kind", ["inter", "intra"])
@@ -92,13 +91,14 @@ def _attention_ok(kind, B, S, Bq, heads):
     (1024, 1024, 32), (1024, 512, 16), (2048, 2048, 64), (576, 96, 2)])
 @pytest.mark.parametrize("S", [100, 128, 272])
 def test_attention_rules(kind, B, Bq, heads, S):
-    """B7-B10 (and partial modes) take any B, a head width of 16, 32, 64
-    or 128 and a head group's width Bq dividing B, at any chunk length S
-    (the intra kernels pad it to a multiple of 16); B = 320 to 512 on
-    their wide routes, B = 576, 640, 1024 and 2048 (and a shard of 512 of
-    1024) on the routes beside the resident tiles, B = 96 and a shard of
-    32 channels zero-padded to the 64-column tile; a head width of 48 (96
-    channels in 2 heads) refused."""
+    """B7-B10 (and partial modes) take any B, any head width (16, 32, 64
+    and 128 on the cores, others widened with zero columns, above 128 on
+    the route beside the cores) and a head group's width Bq dividing B, at
+    any chunk length S (the intra kernels pad it to a multiple of 16); B =
+    320 to 512 on their wide routes, B = 576, 640, 1024 and 2048 (and a
+    shard of 512 of 1024) on the routes beside the resident tiles, B = 96
+    and a shard of 32 channels zero-padded to the 64-column tile; a head
+    width of 48 (96 channels in 2 heads) widened to 64."""
     got = dpt_attention.shape_refusal(kind, B, S, Bq, heads)
     assert (got is None) == _attention_ok(kind, B, S, Bq, heads), got
     if kind == "intra":
@@ -123,7 +123,9 @@ def _f32_inter_launchers_take(B, Bq, h):
     B8's ``launch_bwd`` in csrc/dpt_attention_bwd.cu, with their partial
     modes) check and ask for, written out, at the widths the wrappers hand
     them (B, Bq and h as ``dpt_attention.pad_attention`` pads them): Bq a
-    multiple of 64 and at most B, a head width in core_head_width, a core
+    multiple of 64 and at most B, a padded head width in core_head_width
+    or, above 128, a multiple of 64 (the route beside the cores, whose
+    products keep static shared memory alone), a core
     block of core_warps(h) warps (at most 8, each taking h / warps heads
     in turn) and the dynamic shared memory of ln_qkv_kernel
     (ln_qkv_smem<float>, up to B = kWideMax; above it launch 1 keeps no
@@ -148,9 +150,9 @@ def _f32_inter_launchers_take(B, Bq, h):
         while keys > 1 and keys * 2 * Bq * 4 > _csrc_int(
                 "kInterWideStage", "dpt_common.cuh"):
             keys //= 2
-    core = align128(keys * 2 * Bq * 4) + keys * 4
+    core = align128(keys * 2 * Bq * 4) + keys * 4 if d <= 128 else 0
     return (Bq % 64 == 0 and Bq <= B and Bq % h == 0
-            and d in (16, 32, 64, 128)
+            and (d in (16, 32, 64, 128) or d % 64 == 0)
             and warps <= 8 and h % warps == 0
             and max(ln_qkv, core) <= 232448)
 
@@ -160,8 +162,9 @@ def test_every_taken_f32_inter_shape_launches():
     to 16 heads (a head-group shard of m of them too), padded as the
     wrappers pad it, is one the f32 inter launchers take: no launcher keeps
     a refusal the rule does not state (the one-warp-a-head limit above 8
-    heads is gone from both, and so is every bound on B), and the shapes
-    the rule refuses are those of a head width no core takes."""
+    heads is gone from both, and so is every bound on B and on the head
+    width), and the shapes the rule refuses are those whose heads do not
+    split the channels evenly."""
     for name in ("dpt_attention.cu", "dpt_attention_bwd.cu"):
         assert not re.search(r"\bh > 8 &&", (CSRC / name).read_text()), name
     taken = 0
@@ -182,7 +185,7 @@ def test_every_taken_f32_inter_shape_launches():
                     assert _f32_inter_launchers_take(
                         xp.shape[-1], wq.shape[1] // 3, hp), (B, Bq, h)
                 else:
-                    assert "head width" in got, (B, Bq, h, got)
+                    assert Bq % h and "split" in got, (B, Bq, h, got)
     assert taken >= 8
 
 
@@ -195,7 +198,7 @@ def test_wide_widths_take_every_head_width_and_shard(B, dtype):
     B; B + 64 past 512 (on the routes beside the resident tiles) and
     B - 32, off the tile, are taken too."""
     taken = 0
-    for d in dpt_attention.HEAD_DIMS[dtype]:
+    for d in dpt_attention.HEAD_DIMS:
         heads = B // d
         if B % d:
             continue
@@ -226,23 +229,25 @@ def test_wide_widths_take_every_head_width_and_shard(B, dtype):
     (64, 8, 1)])
 def test_attention_head_widths_by_dtype(kind, dtype, B, heads, m):
     """The bf16 kernels (one tensor-core core, templated on the head width)
-    and the f32 first designs (templated on it too) take d = 16, 32, 64
-    and 128: B = 256 with 16 heads (d = 16) or 2 (d = 128), B = 128 with 1
-    head or 8, their head-group shards of m = 2 and 4; d = 8 (also B = 64
-    with 8 heads), 48 (B = 96 with 2 heads) and 256 no kernel takes,
-    though JAX runs them. A refusal names the rule and the dtype."""
-    bf16 = str(dtype).replace("torch.", "") == "bfloat16"
+    and the f32 first designs (templated on it too) run d = 16, 32, 64 and
+    128 on their cores: B = 256 with 16 heads (d = 16) or 2 (d = 128), B =
+    128 with 1 head or 8, their head-group shards of m = 2 and 4; and they
+    take every other width JAX runs: d = 8 (also B = 64 with 8 heads) and
+    48 (B = 96 with 2 heads) widened with zero columns to the next core
+    width, d = 256 on the route beside the cores, at a multiple of 64."""
     d = B // heads
     got = dpt_attention.shape_refusal(kind, B, 128, B // m, heads // m,
                                       dtype)
     dims = (16, 32, 64, 128)
-    assert dpt_attention.HEAD_DIMS == {"bfloat16": dims, "float32": dims}
+    assert dpt_attention.HEAD_DIMS == dims
+    assert got is None, got
+    D = dpt_attention.core_head_width(d)
     if d in dims:
-        assert got is None, got
+        assert D == d
+    elif d < 128:
+        assert D == min(w for w in dims if w > d)
     else:
-        name = "bfloat16" if bf16 else "float32"
-        assert got == (f"the {name} kernel needs a head width in {dims}, "
-                       f"got {B // m} channels with {heads // m} heads")
+        assert D % 64 == 0 and D - 64 < d <= D
     if kind == "intra":
         assert dpt_intra.shape_refusal(B, 128, B // m, heads // m,
                                        dtype) == got
@@ -344,10 +349,8 @@ def test_ffn_rule(B):
      False, {}),
     (dict(separator="dpt", bottleneck=480, compute_dtype="bfloat16"), 1,
      False, {}),
-    (dict(separator="dpt", bottleneck=96, dpt_heads=2), 1, False,
-     {"intra", "inter"}),
-    (dict(separator="dpt", bottleneck=64, dpt_heads=8), 1, False,
-     {"intra", "inter"}),
+    (dict(separator="dpt", bottleneck=96, dpt_heads=2), 1, False, {}),
+    (dict(separator="dpt", bottleneck=64, dpt_heads=8), 1, False, {}),
     (dict(separator="dpt"), 3, False, {"intra", "inter"}),
     (dict(separator="dpt", bottleneck=640), 1, False, {}),
     (dict(separator="dpt", bottleneck=1024), 1, False, {}),
@@ -361,10 +364,9 @@ def test_ffn_rule(B):
      False, {}),
     (dict(separator="dpt", bottleneck=576, compute_dtype="bfloat16"), 2,
      False, {}),
-    (dict(separator="dpt", bottleneck=1152, dpt_heads=24), 1, False,
-     {"intra", "inter"}),
+    (dict(separator="dpt", bottleneck=1152, dpt_heads=24), 1, False, {}),
     (dict(separator="dpt", bottleneck=576, dpt_heads=72,
-          compute_dtype="bfloat16"), 1, False, {"intra", "inter"}),
+          compute_dtype="bfloat16"), 1, False, {}),
 ], ids=["paper", "H96", "H96-pairs", "B576-pairs", "B576", "P4", "P4-cLN",
         "P17-pairs", "P17-cLN-pairs", "tp-P33", "tp-P4",
         "tp-Hs96", "tp-cLN", "dpt", "dpt-S100", "dpt-B320", "dpt-B576",
@@ -428,44 +430,45 @@ def test_configuration_refusals_follow_the_rules(overrides, n_model, pairs,
 @pytest.mark.parametrize("m", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B", [576, 640, 1024, 2048])
-def test_dpt_above_512_is_taken_and_c8_still_refused(B, dtype, m):
+def test_dpt_above_512_and_every_head_width_are_taken(B, dtype, m):
     """A DPT above 512 channels (B / 32 heads of 32, F = 1024) is taken by
-    every kind's rule, full and over two shards, in either dtype; the same
-    width split into heads of 48 or 8 (C8) is refused by the attention
-    kinds alone, with the head-width rule's words."""
+    every kind's rule, full and over two shards, in either dtype; so is the
+    same width split into heads of 48 or 8 (widened to 64 and 16) or into
+    one head of B (the route beside the cores), since C8's repair."""
     cfg = ConvTasNetConfig(separator="dpt", bottleneck=B,
                            compute_dtype=dtype)
     assert cfg.dpt_num_heads == B // 32
     assert shapes.refusals(cfg, m) == {}
-    dims = dpt_attention.HEAD_DIMS[dtype]
-    for d in (48, 8):
+    for d in (48, 8, B // m):
         if B % (d * m):
             continue
         heads = B // d
         got = shapes.refusals(dataclasses.replace(cfg, dpt_heads=heads), m)
-        assert set(got) == {"intra", "inter"}, got
-        assert got["inter"] == (f"the {dtype} kernel needs a head width in "
-                                f"{dims}, got {B // m} channels with "
-                                f"{heads // m} heads")
+        assert got == {}, (d, got)
 
 
 def test_model_refuses_before_launching_and_keeps_false():
-    """A model whose kernels refuse its configuration (a DPT whose head
-    width no kernel takes, 2 heads of 48 at B = 96; every B and every P
-    the JAX package runs is taken) raises under auto on a CUDA input as
-    with use_pallas=True, naming the sublayer and the rule, before it
-    touches the input; with use_pallas=False, or auto on a CPU input, it
-    serves through the plain ops without a warning; use_pallas=True
+    """A model whose kernels refuse its configuration (a TCN with an even
+    P outside the causal mode, which the JAX package refuses too; every B,
+    every head width and every odd P the JAX package runs is taken)
+    raises under auto on a CUDA input as with use_pallas=True, naming the
+    blocks and the rule, before it touches the input. A DPT with 2 heads of
+    48 at B = 96 (C8, now taken) serves with use_pallas=False, or auto on a
+    CPU input, through the plain ops without a warning; use_pallas=True
     refuses a CPU input."""
+    refused = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=32,
+                               hidden=64, num_blocks=2, num_repeats=1,
+                               conv_kernel=4)
     cfg = ConvTasNetConfig(n_filters=16, kernel_size=8, bottleneck=96,
                            separator="dpt", dpt_layers=1, dpt_heads=2,
                            dpt_ff=256)
+    assert shapes.refusals(cfg) == {}
     on_card = types.SimpleNamespace(device=CUDA)   # read for its device
     for use_pallas in (None, True):
-        with pytest.raises(ValueError, match=r"DPT inter-chunk attention "
-                           r"\(B7, B8\): the float32 kernel needs a head "
-                           r"width"):
-            ConvTasNet(cfg, use_pallas=use_pallas)(on_card)
+        with pytest.raises(ValueError, match=r"TCN blocks \(B1-B3\): "
+                           r"non-causal SAME padding requires odd kernel "
+                           r"size"):
+            ConvTasNet(refused, use_pallas=use_pallas)(on_card)
     mix = torch.randn(1, 80, generator=torch.Generator().manual_seed(0))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -473,7 +476,7 @@ def test_model_refuses_before_launching_and_keeps_false():
             with torch.no_grad():
                 out = ConvTasNet(cfg, use_pallas=use_pallas)(mix)
             assert out.shape == (1, 2, 80) and torch.isfinite(out).all()
-    with pytest.raises(ValueError, match="head width"):
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         ConvTasNet(cfg, use_pallas=True)(mix)
     taken = dataclasses.replace(cfg, bottleneck=576, dpt_heads=18)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
