@@ -1632,6 +1632,174 @@ def phase_tcn_taps(torch, k):
     print(f"tcn taps phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def f64_block(torch, args, dilation: int, causal: bool, norm: str,
+              bn_stats=None):
+    """One block's output with every product and statistic in float64
+    (the block's math on float64 tensors): the witness of how close an f32
+    evaluation comes to the value."""
+    from convtasnet_tpu_torch.ops.conv import depthwise_conv1d, prelu
+    from convtasnet_tpu_torch.ops.norm import (
+        batch_norm,
+        channelwise_layer_norm,
+        global_layer_norm,
+    )
+
+    x, w_in, dw, w_out, a1, a2, g1, b1, g2, b2 = args
+    m1, v1, m2, v2 = bn_stats if norm == "BN" else (None,) * 4
+
+    def nrm(h, g, b, m, v):
+        if norm == "gLN":
+            return global_layer_norm(h, g, b)
+        if norm == "cLN":
+            return channelwise_layer_norm(h, g, b)
+        return batch_norm(h, g, b, m.double(), v.double())
+
+    h = nrm(prelu(x @ w_in, a1), g1, b1, m1, v1)
+    h = nrm(prelu(depthwise_conv1d(h, dw, dilation, causal), a2), g2, b2,
+            m2, v2)
+    return x + h @ w_out
+
+
+# the f32 stages' cases (csrc/tcn_block_tf32.cuh, tcn_block_bwd_tf32.cuh):
+# (label, block_inputs keywords, dilations per norm) at the paper shape,
+# at 17 taps (the routes past 16), at B = H = 96 (run padded to 128, the
+# norms over 96) and at H = 64
+F32_STAGE_CASES = [
+    ("[8,3199,256] H=512", {}, {"gLN": (1, 16, 128), "cLN": (1, 16, 128),
+                                "BN": (1, 128)}),
+    ("P=17", dict(P=17), {"gLN": (4,), "cLN": (2,), "BN": (1,)}),
+    ("B=H=96", dict(B=96, H=96), {"gLN": (8,), "cLN": (1,)}),
+    ("H=64", dict(H=64), {"gLN": (2,), "cLN": (32,), "BN": (1,)}),
+]
+# the forward's out - x against the f64 block: 3xTF32 products are
+# f32-grade, where one TF32 product (10 mantissa bits) reads ~3e-4
+F32_ACCURACY_BAR = 1e-5
+
+
+def phase_tcn_f32_stages(torch, k):
+    """The f32 TCN stages on the 3xTF32 core: the core alone at B1's two
+    product shapes against the f64 product (within 1e-6; torch.matmul in
+    f32 printed beside it) with its split's rounding held against
+    cvt.rna.tf32.f32 bit for bit; then B1 under gLN, cLN (causal) and BN
+    and B2, at ``F32_STAGE_CASES``: each call against its twin at
+    the f32 bars (2e-3 forward; 4e-3 backward on all ten cotangents of a
+    random cotangent, the twin evaluated in f32), the forward's out - x
+    within ``F32_ACCURACY_BAR`` of the f64 block, each kernel twice to the
+    same bits, and one launch of its counter a call and none of any other
+    TCN kernel's. At the paper shape, d = 1, the ten B2 cotangents'
+    distances from the f64 block are printed beside the twin's. Every
+    reading is printed before the phase fails."""
+    t0 = time.perf_counter()
+    tcn, bwd = k["tcn"], k["bwd"]
+    failures = []
+    from convtasnet_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for rows, depth, cols in ((25592, 256, 512), (25592, 512, 256)):
+        # the core alone at B1's two product shapes (ctn_tf32_matmul_check:
+        # b as the stages take a weight, [cols, depth] K-major)
+        a = torch.randn(rows, depth, device="cuda", generator=gen)
+        b = torch.randn(cols, depth, device="cuda", generator=gen)
+        ws = torch.empty(3 * cols * depth, device="cuda")
+        c = torch.empty(rows, cols, device="cuda")
+        err = lib.ctn_tf32_matmul_check(
+            a.data_ptr(), b.data_ptr(), ws.data_ptr(), c.data_ptr(), rows,
+            cols, depth, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        exact = a.double() @ b.double().t()
+        core, f32 = rel_l2(c.double(), exact), rel_l2(a @ b.t(), exact)
+        n = cols * depth
+        rna = torch.equal(ws[:n].view(torch.int32),
+                          ws[2 * n:].view(torch.int32))
+        print(f"f32 stages core [{rows},{depth}]x[{depth},{cols}]: from "
+              f"f64 {core:.3e} (torch.matmul f32 {f32:.3e}), the split's "
+              f"rounding the bits of cvt.rna.tf32.f32 {rna}", flush=True)
+        if err or not (core <= 1e-6 and rna):
+            failures.append(f"core [{rows},{depth}]x[{depth},{cols}]: err "
+                            f"{err}, {core:.3e}, rna bits {rna}")
+
+    def launched(want: dict, what: str):
+        got = tcn_counts(k)
+        if got != tcn_want(**want):
+            failures.append(f"{what}: launches {got}")
+
+    for label, kw_in, dils in F32_STAGE_CASES:
+        for norm, ds in dils.items():
+            causal = norm == "cLN"
+            for d in ds:
+                args = block_inputs(torch, torch.float32, 700 + d, **kw_in)
+                H = args[1].shape[1]
+                bn = (tuple(torch.rand(H, device="cuda") + 0.5
+                            for _ in range(4)) if norm == "BN" else None)
+                kw = dict(dilation=d, causal=causal, norm_type=norm,
+                          bn_stats=bn)
+                tcn_reset(k)
+                with torch.inference_mode():
+                    got = tcn.fused_tcn_block(*args, **kw)
+                    again = tcn.fused_tcn_block(*args, **kw)
+                    torch.cuda.synchronize()
+                    launched({"b1": 2}, f"B1 f32 {label} {norm} d={d}")
+                    want = tcn.fused_tcn_block_reference(*args, **kw)
+                    x64 = args[0].double()
+                    exact = f64_block(torch, [t.double() for t in args], d,
+                                      causal, norm, bn) - x64
+                err = rel_l2(got, want)
+                acc = rel_l2(got.double() - x64, exact)
+                twin_acc = rel_l2(want.double() - x64, exact)
+                same = torch.equal(got, again)
+                print(f"f32 stages B1 {label} {norm} causal={int(causal)} "
+                      f"d={d}: vs twin {err:.3e} (bar 2e-3), out - x vs f64 "
+                      f"{acc:.3e} (bar {F32_ACCURACY_BAR:.0e}; the twin "
+                      f"{twin_acc:.3e}), twice the same bits {same}",
+                      flush=True)
+                if not (err <= TOL["float32"] and acc <= F32_ACCURACY_BAR
+                        and same and torch.isfinite(got).all().item()):
+                    failures.append(f"B1 {label} {norm} d={d}: {err:.3e}, "
+                                    f"{acc:.3e}, same bits {same}")
+            if norm != "gLN":
+                continue
+            for d in ds:
+                a2 = -0.1 if d == 16 else 0.25   # one negative second slope
+                x, *w = block_inputs(torch, torch.float32, 800 + d, a2=a2,
+                                     **kw_in)
+                g = torch.randn(x.shape, generator=torch.Generator(
+                    device="cuda").manual_seed(3000 + d), device="cuda")
+                kw = dict(dilation=d, causal=False, norm_type="gLN")
+                tcn_reset(k)
+                got = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+                again = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+                torch.cuda.synchronize()
+                launched({"b2": 2}, f"B2 f32 {label} d={d}")
+                want = bwd.fused_tcn_block_bwd_reference(x, g, *w, **kw)
+                errs = {n: rel_l2(q, r)
+                        for n, q, r in zip(GRAD_NAMES, got, want)}
+                worst = max(errs, key=errs.get)
+                same = all(torch.equal(u, v) for u, v in zip(got, again))
+                print(f"f32 stages B2 {label} d={d} a2={a2}: vs twin "
+                      f"{errs[worst]:.3e} ({worst}; bar 4e-3), twice the "
+                      f"same bits {same}", flush=True)
+                if not (errs[worst] <= BWD_TOL["float32"] and same and all(
+                        torch.isfinite(q).all().item() for q in got)):
+                    failures.append(f"B2 {label} d={d}: {errs[worst]:.3e} "
+                                    f"({worst}), same bits {same}")
+                if label.startswith("[8,3199") and d == 1:
+                    prims = [t.detach().double().requires_grad_(True)
+                             for t in (x, *w)]
+                    with torch.enable_grad():
+                        out = f64_block(torch, prims, d, False, "gLN")
+                        exact = torch.autograd.grad(out, prims, g.double())
+                    print("f32 stages B2 [8,3199,256] H=512 d=1, distance "
+                          "from the f64 block: kernel " + ", ".join(
+                              f"{n} {rel_l2(q, r):.2e}" for n, q, r in
+                              zip(GRAD_NAMES, got, exact)) + "; twin "
+                          + ", ".join(f"{n} {rel_l2(q, r):.2e}" for n, q, r
+                                      in zip(GRAD_NAMES, want, exact)),
+                          flush=True)
+    print(f"f32 stages phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    check(not failures, "f32 TCN stages: " + "; ".join(failures))
+
+
 def phase_main_path(torch, k, work: str):
     import numpy as np
 
@@ -5110,6 +5278,9 @@ def main() -> int:
     phase_step_compare(torch, "tcn", "cLN")
     phase_step_compare(torch, "dpt")
     phase_tcn_taps(torch, k)
+    # the f32 TCN blocks on their 3xTF32 stages: B1 and B2 against their
+    # twins and the f64 block, at 17 taps and padded widths too
+    phase_tcn_f32_stages(torch, k)
     phase_dpt_chunk256_step(torch, dpt)
     phase_dpt_head_widths(torch, dpt)
     rows = phase_timings(torch, k, card)

@@ -46,10 +46,15 @@
 // against ~330 MB for the launches below. cLN has no B' and no prep, BN no
 // B' (its statistics are folded).
 //
-// f32 keeps exact f32 products on the first design (tcn_block_common.cuh):
-// prep + A + B + C on a 64x64 tile (FMA in f32, WMMA in bf16), y through
-// device memory. bf16 runs it too at the widths the Hopper stages do not
-// take (wg_widths_ok).
+// f32 at the same widths (tcn_block_tf32.cuh, on hopper_gemm_tf32.cuh's
+// 3xTF32 wgmma core): prep + A' + B' + C' as above, its products on the
+// tensor cores in three TF32 products a product (f32-grade, where one TF32
+// product is not), both operands streamed through the ring and y stored by
+// B' (an f32 y tile of 128 rows does not fit in shared memory).
+//
+// The first design (tcn_block_common.cuh): prep + A + B + C on a 64x64
+// tile (FMA in f32, WMMA in bf16), y through device memory, at the widths
+// the Hopper stages do not take (wg_widths_ok), in either dtype.
 //
 // Any number of taps P (the JAX package's: any P causal, odd P
 // otherwise). Where a per-tap state is sized for kMaxTaps = 16 taps, a
@@ -68,15 +73,14 @@
 // atomics are used and a rerun gives the same bits. Each launch masks the
 // ragged row edge itself; x is not padded.
 
-#include "tcn_block_common.cuh"
-#include "tcn_block_hopper.cuh"
+#include "tcn_block_tf32.cuh"
 
 // The first design's launches (launch_block_first) and Params are in
-// tcn_block_common.cuh, because the f32 backward reruns them; the bf16
-// stages (launch_block_wg) and the choice between the two designs
-// (launch_block) are in tcn_block_hopper.cuh, because the bf16 backward
-// reruns A' and the block pair (B4, B5) runs each of its blocks through
-// launch_block.
+// tcn_block_common.cuh, because its backward reruns them; the bf16 stages
+// (launch_block_wg) are in tcn_block_hopper.cuh and the f32 ones
+// (launch_block_tf32) in tcn_block_tf32.cuh, because the backwards rerun A'
+// and B'; the choice between the designs (launch_block) is in the latter,
+// because the block pair (B4, B5) runs each of its blocks through it.
 
 namespace {
 
@@ -158,6 +162,13 @@ int ctn_tcn_block_partials(int K, int H, int norm, long long* n_a,
 // buffer (the Hopper stages: bf16 at wg_widths_ok).
 int ctn_tcn_block_stores_y(int B, int H, int is_bf16) {
   return is_bf16 && wg_widths_ok(B, H) ? 0 : 1;
+}
+
+// Elements of the compute dtype (is_bf16 as above) the forward's w_eff
+// buffer holds: H * B (W_eff), or 4 * H * B floats for the f32 stages at
+// wg_widths_ok (W_in^T and W_eff^T, each as tf32 hi and lo copies).
+long long ctn_tcn_block_weights(int B, int H, int is_bf16) {
+  return static_cast<long long>(weights_elems(B, H, is_bf16 ? 2 : 4));
 }
 
 // Forward of one block; every pointer is device memory, `stream` is a

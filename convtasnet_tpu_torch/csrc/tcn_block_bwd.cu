@@ -51,10 +51,18 @@
 //   W'  dW_in = x^T @ dh_pre as dW_out.
 //   S   per-channel partials summed in a fixed order, then da1, da2.
 //
-// f32 keeps exact f32 products on the first design's 19 launches
-// (tcn_block_bwd_common.cuh: a 64x64 FMA tile, transposes T, E1 and G2a
-// passes of their own); bf16 runs them (on WMMA) at the widths the Hopper
-// stages do not take (wg_widths_ok).
+// f32 gLN (B2) at the same widths runs these stages rebuilt on the 3xTF32
+// product core (tcn_block_bwd_tf32.cuh, hopper_gemm_tf32.cuh: its wgmma
+// for R1, G1' and G2b', mma.sync for W'), 16 launches: the weights written
+// by a prep launch as K-major tf32 hi and lo copies (tf32 wgmma has no
+// transpose bit), every operand streamed by TMA (no f32 tile of 128 rows
+// fits beside the ring), dh_pre formed by G2b''s prologue into device
+// memory.
+//
+// The first design's 19 launches (tcn_block_bwd_common.cuh: a 64x64 FMA
+// tile, transposes T, E1 and G2a passes of their own) run f32 cLN (B3) and
+// f32 at the other widths; bf16 runs them (on WMMA) at the widths the
+// Hopper stages do not take (wg_widths_ok).
 //
 // Any number of taps P: E2 (e2_kernel) and E2' at P != 3 (e2_wg_kernel)
 // hold d_dw (and E2' the taps' weights and rows) in per-thread arrays of

@@ -1,8 +1,9 @@
 // The bf16 stages of the TCN block backward on the Hopper product core
 // (hopper_gemm.cuh): R2', G1', E2' (two kernels), G2b', W' and their launch
 // sequence launch_bwd_wg; then one block's workspace layout and
-// launch_block_bwd, which runs these stages or the first design's
-// (tcn_block_bwd_common.cuh) as a block's dtype and widths ask, for the
+// launch_block_bwd, which runs these stages, the f32 ones
+// (tcn_block_bwd_tf32.cuh) or the first design's (tcn_block_bwd_common.cuh)
+// as a block's dtype, norm and widths ask, for the
 // single-block backwards (tcn_block_bwd.cu: B2 gLN, B3 cLN) and each block
 // of the gLN pair backward (tcn_block_pair_bwd.cu: B5). tcn_block_bwd.cu's
 // top note says what each stage computes and why.
@@ -10,6 +11,7 @@
 #pragma once
 
 #include "tcn_block_bwd_common.cuh"
+#include "tcn_block_bwd_tf32.cuh"
 #include "tcn_block_hopper.cuh"
 
 namespace {
@@ -1058,7 +1060,8 @@ int launch_bwd_wg(const BwdParams& p, cudaStream_t stream) {
 // Workspace layout of one block's backward, shared by the size query and
 // the launch. Every segment starts on a 256-byte boundary.
 struct BwdLayout {
-  size_t act[7];   // w_in_t, w_out_t, hp, c, e, hn2, dh (elements)
+  size_t act[7];   // w_in_t, w_out_t, hp, c, e, hn2, dh (elements); the f32
+                   // gLN stages keep their split weights in w_in_t's
   size_t f32[8];   // stats, part, part2, pch_g1, pch_e1, pch_e2, pch_g2,
                    // wpart
   size_t n_act, n_f32;
@@ -1078,7 +1081,8 @@ inline BwdLayout bwd_layout(int M, int K, int B, int H, int P,
   const size_t n_part = n_r1 > n_dw ? n_r1 : n_dw;
   const size_t n_chunks = (rows + kChunkRows - 1) / kChunkRows;
   const size_t mkh = static_cast<size_t>(M) * K * H;
-  const size_t act_sizes[7] = {static_cast<size_t>(H) * B,
+  const bool tf32 = !cln && runs_tf32(B, H, act_bytes);
+  const size_t act_sizes[7] = {static_cast<size_t>(tf32 ? 6 : 1) * H * B,
                                static_cast<size_t>(B) * H, mkh, mkh, mkh, mkh,
                                mkh};
   size_t off = 0;
@@ -1129,15 +1133,18 @@ void bind_bwd_workspace(BwdParams* p, const BwdLayout& L, void* ws_act,
 }
 
 // One block's backward (B2 gLN, B3 cLN) on a bound workspace (p.left
-// set): these stages for bf16 at wg_widths_ok, else the first design's
-// launches (tcn_block_bwd_common.cuh). The gLN block pair's backward (B5)
-// runs each of its blocks through this.
+// set): these stages for bf16 at wg_widths_ok, the f32 stages for f32 gLN
+// there (tcn_block_bwd_tf32.cuh), else the first design's launches
+// (tcn_block_bwd_common.cuh). The gLN block pair's backward (B5) runs each
+// of its blocks through this.
 template <typename T, int kNorm>
 int launch_block_bwd(const BwdParams& p, cudaStream_t stream) {
   static_assert(kNorm == kNormGLN || kNorm == kNormCLN, "gLN or cLN");
   const int M = p.M, K = p.K, B = p.B, H = p.H;
   if constexpr (std::is_same<T, bf16>::value) {
     if (wg_widths_ok(B, H)) return launch_bwd_wg<kNorm>(p, stream);
+  } else if constexpr (kNorm == kNormGLN) {
+    if (wg_widths_ok(B, H)) return launch_bwd_tf32(p, stream);
   }
   const int kt = row_tiles(K);
   const int n_chunks = static_cast<int>(

@@ -16,7 +16,8 @@
 // runtime branch (p.norm), uniform over the block. Widths (wg_widths_ok):
 // H in {64, 128, 256, 512} (dw_layout_ok, and y's 128 KB at H = 512), B a
 // multiple of 64 up to 512; at other widths the bf16 block and its
-// backward run the first design's launches, as f32 does.
+// backward run the first design's launches. f32 at these widths runs its
+// own stages (tcn_block_tf32.cuh), which also hold launch_block.
 
 #pragma once
 
@@ -631,25 +632,6 @@ inline int launch_block_wg(const Params& p, cudaStream_t stream) {
     CTN_CHECK();
   }
   return launch_out_proj_wg(p, n_a, kt, stream);
-}
-
-// One block forward (B1) in the design of its dtype and widths: these
-// stages for bf16 at wg_widths_ok, else the first design's launches. The
-// block pair (B4, B5) runs each of its blocks through this.
-template <typename T>
-int launch_block(const Params& p, cudaStream_t stream) {
-  if (p.norm < kNormGLN || p.norm > kNormBN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (wg_widths_ok(p.B, p.H)) return launch_block_wg(p, stream);
-  }
-  switch (p.norm) {
-    case kNormGLN:
-      return launch_block_first<T, kNormGLN>(p, stream);
-    case kNormCLN:
-      return launch_block_first<T, kNormCLN>(p, stream);
-  }
-  return launch_block_first<T, kNormBN>(p, stream);
 }
 
 }  // namespace

@@ -19,10 +19,11 @@
 // 64x64 WMMA tile, a fused boundary launch of 400 CTAs at 3 per SM) took
 // 1.02 ms in bf16 on an H100 (700 W), against 0.31 for two B1 calls.
 //
-// So the pair runs each block through launch_block (tcn_block_hopper.cuh),
-// the launches a single block of its dtype and widths runs (bf16 at
-// wg_widths_ok: prep, A', B', C' on the Hopper core; f32 and the other bf16
-// widths: the first design's prep, A, B, C), block 1 writing x1 to the
+// So the pair runs each block through launch_block (tcn_block_tf32.cuh),
+// the launches a single block of its dtype and widths runs (at
+// wg_widths_ok: prep, A', B', C' on the Hopper core, bf16's or f32's 3xTF32
+// one; at other widths the first design's prep, A, B, C), block 1 writing
+// x1 to the
 // workspace as B1 writes its output and block 2 reading it. The pair
 // equals two chained B1 calls bit for bit in either dtype, and makes their
 // launches: 8 for bf16 gLN, 4 for cLN. Fusing the boundary was tried in
@@ -36,11 +37,12 @@
 // Statistics are summed in a fixed order without atomics, so two calls
 // give the same bits.
 //
-// Workspace: one block's h [M, K, H] and y [M, K, H] (the first design
-// only), W_eff in the compute dtype, and its wsum and partials in f32, each
+// Workspace: one block's h [M, K, H] and y [M, K, H] (all but the bf16
+// stages), W_eff in the compute dtype (the f32 stages: W_in^T and
+// W_eff^T, weights_elems), and its wsum and partials in f32, each
 // block using them in turn, and x1 [M, K, B].
 
-#include "tcn_block_hopper.cuh"
+#include "tcn_block_tf32.cuh"
 
 namespace {
 
@@ -57,10 +59,12 @@ PairLayout pair_layout(int M, int K, int B, int H, size_t act_bytes,
   const bool wg = runs_wg(B, H, act_bytes);
   const size_t rows = norm == kNormCLN ? static_cast<size_t>(M) * K : M;
   const size_t mkh = static_cast<size_t>(M) * K * H;
-  // the bf16 stages recompute y in C' and keep no y buffer
+  // the bf16 stages recompute y in C' and keep no y buffer; the f32 stages
+  // keep W_in^T and W_eff^T split in hi and lo in w_eff's
   const size_t act[4] = {mkh, wg ? 0 : mkh, static_cast<size_t>(M) * K * B,
-                         static_cast<size_t>(H) * B};
-  const size_t f32[3] = {wsum_size(B, H, wg), 2 * rows * n_a, 2 * rows * n_b};
+                         weights_elems(B, H, act_bytes)};
+  const size_t f32[3] = {wsum_size(B, H, wg || runs_tf32(B, H, act_bytes)),
+                         2 * rows * n_a, 2 * rows * n_b};
   PairLayout L;
   size_t off = 0;
   for (int i = 0; i < 4; ++i) {

@@ -23,11 +23,11 @@
 // (700 W), against 0.96 for B1 + 2 x B2.
 //
 // So the pair runs the chained single blocks' launches in their order, each
-// in the design of its dtype and widths (bf16 at wg_widths_ok: B1's four
-// and B2's 15 bf16 stages; f32 and the other bf16 widths: the first
-// design's), on one workspace:
+// in the design of its dtype and widths (at wg_widths_ok: B1's four and
+// B2's 15 bf16 stages, or their 4 and 16 f32 ones on the 3xTF32 core; at
+// other widths the first design's), on one workspace:
 //
-//   x1 = B1(x0)                       launch_block (tcn_block_hopper.cuh)
+//   x1 = B1(x0)                       launch_block (tcn_block_tf32.cuh)
 //   dx1, block 2's gradients = B2(x1, g)     launch_block_bwd
 //   dx0, block 1's gradients = B2(x0, dx1)   (tcn_block_bwd_hopper.cuh)
 //
@@ -44,7 +44,7 @@
 //
 // Workspace: one block backward's (tcn_block_bwd_hopper.cuh, bwd_layout),
 // which block 2's backward and then block 1's use, and whose hp and c the
-// forward's h and y (the first design only) borrow first; x1 and dx1
+// forward's h and y (all but the bf16 stages) borrow first; x1 and dx1
 // [M, K, B]; the forward's W_eff, column sums and partials.
 
 #include "tcn_block_bwd_hopper.cuh"
@@ -65,8 +65,9 @@ PairBwdLayout pair_bwd_layout(int M, int K, int B, int H, int P,
   long long n_a = 0, n_b = 0;
   part_counts(K, H, kNormGLN, &n_a, &n_b);
   const size_t mkb = static_cast<size_t>(M) * K * B;
-  const size_t act[3] = {mkb, mkb, static_cast<size_t>(H) * B};
-  const size_t f32[3] = {wsum_size(B, H, runs_wg(B, H, act_bytes)),
+  const size_t act[3] = {mkb, mkb, weights_elems(B, H, act_bytes)};
+  const size_t f32[3] = {wsum_size(B, H, runs_wg(B, H, act_bytes) ||
+                                             runs_tf32(B, H, act_bytes)),
                          2 * static_cast<size_t>(M) * n_a,
                          2 * static_cast<size_t>(M) * n_b};
   size_t off = L.bwd.n_act;

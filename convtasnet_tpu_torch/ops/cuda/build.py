@@ -163,11 +163,15 @@ def load_library() -> ctypes.CDLL:
         "ctn_dpt_ffn_bwd_workspace": [_I] * 4 + [_LL_P, _LL_P],
         "ctn_wg_matmul_check": [_P] * 3 + [_I] * 5 + [_P],
         "ctn_wg_wgrad_check": [_P] * 2 + [_I] * 4 + [_P] * 2,
+        "ctn_tf32_matmul_check": [_P] * 4 + [_I] * 3 + [_P],
+        "ctn_tf32_wgrad_check": [_P] * 2 + [_I] * 4 + [_P] * 2,
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.ctn_tcn_block_weights.argtypes = [_I, _I, _I]
+    lib.ctn_tcn_block_weights.restype = ctypes.c_longlong
     lib.ctn_error_string.argtypes = [_I]
     lib.ctn_error_string.restype = ctypes.c_char_p
     return lib

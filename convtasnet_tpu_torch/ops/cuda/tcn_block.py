@@ -158,9 +158,17 @@ fused_tcn_block.launches = 0
 @functools.lru_cache(maxsize=64)
 def _stores_y(B: int, H: int, bf16: bool) -> bool:
     """Whether the kernel at these widths keeps y in device memory (the
-    first design) or recomputes it (the bf16 Hopper stages; which widths
-    they take lives in tcn_block.cu)."""
+    first design and the f32 Hopper stages) or recomputes it (the bf16
+    Hopper stages; which widths they take lives in tcn_block.cu)."""
     return bool(load_library().ctn_tcn_block_stores_y(B, H, int(bf16)))
+
+
+@functools.lru_cache(maxsize=64)
+def _weights(B: int, H: int, bf16: bool) -> int:
+    """Elements of the w_eff buffer the kernel at these widths takes: W_eff
+    [H, B], or the f32 stages' W_in^T and W_eff^T as tf32 hi and lo
+    copies (tcn_block_tf32.cuh)."""
+    return int(load_library().ctn_tcn_block_weights(B, H, int(bf16)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -236,7 +244,8 @@ def _launch_cuda(x, w_in, dw, w_out, a1, a2, gamma1, beta1, gamma2, beta2,
     # the bf16 Hopper stages recompute y inside the output launch
     y = (torch.empty((M, K, H), dtype=dt, device=x.device)
          if _stores_y(B, H, dt == torch.bfloat16) else None)
-    w_eff = torch.empty((H, B), dtype=dt, device=x.device)
+    w_eff = torch.empty(_weights(B, H, dt == torch.bfloat16), dtype=dt,
+                        device=x.device)
     # the column sums g2 @ W_out and b2 @ W_out, per 64-row block in bf16
     wsum = torch.empty(2 * B * (H // TILE), **f32)
     part_a = torch.empty(2 * rows * n_a, **f32) if n_a else None

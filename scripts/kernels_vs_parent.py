@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 scripts/kernels_vs_parent.py --other DIR \\
-        [--time [all|dpt-forward|f32-attention|padded|taps|tp]] \\
+        [--time [all|dpt-forward|f32|f32-attention|padded|taps|tp]] \\
         [--out FILE]
 
 DIR holds another checkout's ``convtasnet_tpu_torch/`` (for example the
@@ -34,7 +34,10 @@ pair forward (B4, gLN and cLN causal) and the gLN pair backward (B5),
   1e-3, B6's order bar ``chip_smoke.TP_ORDER_TOL``; the attention's is
   ``attention_rounded_reference``, and a tree older than it holds only
   its bf16 twin) and from its bf16 twin (``bf16 twin``, within 4e-2),
-  and the relative L2 between the two trees;
+  and the relative L2 between the two trees; and every f32 output of B1,
+  B2, B4 and B5 here (all at the paper widths, which the f32 3xTF32
+  stages take: ``F32_BY_DISTANCE``), each within its twin's bar (2e-3
+  forward, 3e-3 pair forward, 4e-3 backward);
 - bit for bit (``torch.equal``): every other output. A change to the
   kernels' shared pieces must leave these bits as they were. Where a
   tree carries a twin distance for one of them (the B1-B6 and backward
@@ -75,6 +78,15 @@ and d = 1 and 128, by CUDA events and in device time, each beside its
 bound (its FLOP at the dtype's peak, 989 TFLOP/s bf16 or 67 TFLOP/s f32,
 or its bytes at 3.35 TB/s where that is larger); a tree that refuses P >
 16 is timed at P = 3 alone.
+``--time f32`` times only B1 (gLN, cLN causal, BN), B2, B4 and B5 in f32
+at the paper shape, d = 1 (their 3xTF32 stages; the first design's in an
+older tree), each beside its bound at the 3xTF32 rate (495 / 3 TFLOP/s)
+and at the f32 FMA rate (67 TFLOP/s), the larger of that and its bytes at
+3.35 TB/s, by CUDA events and in device time with each kernel's share; the
+paper config's f32 forward and gLN train step at B=8 x 4 s (pairs off),
+events and device time; the 3xTF32 core alone at B1's product shapes; and
+torch.matmul in f32 at the kernels' product shapes with TF32 off and on,
+in device time.
 ``--time tp`` times only B6 at [8, 3199, Hs], B = 256, in bf16 and f32:
 Hs = 256 and 128 at d = 1, 16 and 128, and on its wide route at Hs =
 576, 768 and 1024, d = 1 (a tree that refuses a shard wider than 512 is
@@ -86,8 +98,8 @@ product's shape ([8 x 3199, Hs] @ [Hs, 256]).
 B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
 of dilations (1, 2) .. (64, 128), and beside each in the same turn two
 chained B1 calls and B1 + 2 x B2; the gLN B4 and B5 beside the same also
-in f32 ("f32") and in bf16 at H=192 ("H=192"), which run the first
-design's launches; B6 at [8, 3199, Hs], Hs = 256 and 128, per dilation;
+in f32 ("f32": the 3xTF32 stages; an older tree's first design) and in
+bf16 at H=192 ("H=192", the first design's launches); B6 at [8, 3199, Hs], Hs = 256 and 128, per dilation;
 B12 at [8, 3200, 256], F=1024, and B12p on one shard of m = 2 and 4; B8
 and B10 at [8, 25, 128, 256], 8 heads, the real key mask, B8p and B10p on
 one shard of m = 2 and 4, B10 also at S = 256 (n = 13) and B8 at n = 94
@@ -146,6 +158,12 @@ WIDTH_CASES = [(kind, dtype, B, m)
 # design in both dtypes)
 B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
             for hs in (256, 128, 512, 448) for d in (1, 128)]
+# B5's four PReLU slope gradients among its 19 outputs (dx, then each
+# block's dW_in, d_dw, dW_out, da1, da2, ...): sums of millions of cancelling
+# terms, one f32 evaluation ~1e-2 from another's on one slope alone, so an
+# output held by distance holds them as one vector (chip_smoke.py's
+# phase_pair_bwd_vs_twin does the same)
+B5_SLOPES = (4, 5, 13, 14)
 # --time tp: (Hs, dilations); the widths past 512 run B6's wide route, and
 # a tree that refuses them is timed at the others alone
 B6_TIMED = ((256, (1, 16, 128)), (128, (1, 16, 128)), (576, (1,)),
@@ -187,11 +205,25 @@ TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
 # the forward at its rounding points ("twin", B6's order bar) and within
 # 4e-2 of its bf16 twin ("bf16 twin")
 FWD_BY_DISTANCE = ("dpt inter bfloat16 ",)
+# and every f32 output of B1, B2, B4 and B5 at the widths the f32 3xTF32
+# stages take (csrc/tcn_block_tf32.cuh; every TCN case here is at the paper
+# widths B = 256, H = 512): their products sum in another order than the
+# first design's FMA tile, each within its twin's bar (TCN_TOL). f32 B3 and
+# B6 keep the first design, and their bits.
+F32_BY_DISTANCE = ("b1 float32 ", "b2 float32 ", "b4 float32 ",
+                   "b5 float32 ")
 TWINS = ("twin ", "bf16 twin ")
+# distances from the f64 block (f32 B2 at the paper shape, d = 1), printed
+# beside the other tree's and held by nothing
+F64 = "f64 "
+GRAD_NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2", "dg1", "db1",
+              "dg2", "db2")
 
 
 def bitwise(key: str) -> bool:
     """Whether an output is held bit for bit against the other tree."""
+    if key.startswith(F32_BY_DISTANCE):
+        return False
     return not (key.startswith(FWD_BY_DISTANCE) and key.endswith(" forward"))
 
 
@@ -273,6 +305,50 @@ def _tcn_tol(key: str) -> float:
     return TCN_TOL[kern if kern in ("b1", "b4", "b6") else "bwd", dtype]
 
 
+def _f64_block_grads(torch, args, g, dilation: int):
+    """The ten cotangents of one gLN block (non-causal) with every product
+    and statistic in float64: autograd through the block's math on f64
+    copies of the operands."""
+    from convtasnet_tpu_torch.ops.conv import depthwise_conv1d, prelu
+    from convtasnet_tpu_torch.ops.norm import global_layer_norm
+
+    prims = [t.detach().double().requires_grad_(True) for t in args]
+    x, w_in, dw, w_out, a1, a2, g1, b1, g2, b2 = prims
+    with torch.enable_grad():
+        h = global_layer_norm(prelu(x @ w_in, a1), g1, b1)
+        h = global_layer_norm(
+            prelu(depthwise_conv1d(h, dw, dilation, False), a2), g2, b2)
+        return torch.autograd.grad(x + h @ w_out, prims, g.double())
+
+
+def f64_lines(mine: dict, other: dict) -> list:
+    """Lines for the f64 distances both trees carry: each cotangent's
+    distance of this tree's kernel, the other tree's and the f32 twin's."""
+    lines = []
+    for key in sorted(k for k in mine
+                      if k.startswith(F64) and not k.startswith(F64 + "twin")):
+        name = key[len(F64):]
+        theirs = other.get(key)
+        lines.append(f"{name}: from the f64 block, this tree {mine[key]:.3e}"
+                     + ("" if theirs is None else f", other {theirs:.3e}")
+                     + f", the f32 twin {mine[F64 + 'twin ' + name]:.3e}")
+    return lines
+
+
+def _twins(out: dict, key: str, got, want) -> None:
+    """Each output of a TCN case (a tensor or a sequence of them, ``key``
+    and ``key i``) into ``out``, and where the case's outputs are held by
+    distance (``bitwise`` false) its distance from ``want``'s as ``twin
+    key``."""
+    pairs = ([(key, got, want)] if not isinstance(got, (list, tuple))
+             else [(f"{key} {i}", q, w) for i, (q, w)
+                   in enumerate(zip(got, want))])
+    for k, q, w in pairs:
+        out[k] = q.cpu()
+        if not bitwise(k):
+            out[f"twin {k}"] = rel_l2(q, w)
+
+
 def compare(mine: dict, other: dict):
     """Lines to print and the keys at fault: the ``bitwise`` outputs (all
     but the bf16 forward of B7 and its partial mode) must
@@ -282,7 +358,7 @@ def compare(mine: dict, other: dict):
     exceeds its bar. Every output with a twin entry prints the distances
     from its twins of both trees that have them."""
     lines, bad = [], []
-    for key in sorted(k for k in other if not k.startswith(TWINS)):
+    for key in sorted(k for k in other if not k.startswith(TWINS + (F64,))):
         if key not in mine:
             lines.append(f"{key}: missing in this tree")
             bad.append(key)
@@ -318,7 +394,7 @@ def same_bits(mine: dict, other: dict):
     """(n, of): how many of the other tree's outputs, those held by
     distance too (the twin distances aside), this tree gives bit for
     bit."""
-    keys = [k for k in other if not k.startswith(TWINS)]
+    keys = [k for k in other if not k.startswith(TWINS + (F64,))]
     n = sum(1 for k in keys if k in mine and mine[k].shape == other[k].shape
             and bool((mine[k] == other[k]).all()))
     return n, len(keys)
@@ -553,26 +629,50 @@ def dump(path: str) -> None:
                         ("dg1", 6), ("db1", 7), ("dg2", 8), ("db2", 9)):
             out[f"{key} {name}"] = got[i].cpu()
             out[f"twin {key} {name}"] = rel_l2(got[i], want[i])
+        if kern == "b2" and dtype == "float32" and d == 1:
+            # all ten cotangents' distances from the f64 block, this
+            # tree's kernel and the f32 twin (printed, not held)
+            exact = _f64_block_grads(torch, args, g, d)
+            for i, name in enumerate(GRAD_NAMES):
+                out[f"f64 {key} {name}"] = rel_l2(got[i].double(), exact[i])
+                out[f"f64 twin {key} {name}"] = rel_l2(want[i].double(),
+                                                       exact[i])
         torch.cuda.synchronize()
     for kern, norm, causal, dtype, d, taps in TCN_TAPS_CASES:
         args, g = _block_inputs(torch, dtype, 150 + d + taps, norm, P=taps)
         key = f"{kern} {dtype} {norm} causal={int(causal)} d={d} P={taps}"
+        # the f32 twins (exact f32) of the outputs held by distance
+        held = not bitwise(key)
         if kern == "b5":
             pb, _ = _block_inputs(torch, dtype, 160 + d + taps, norm, P=taps)
+            kw = dict(d1=d, d2=2 * d, causal=causal)
             got = tcn_block_pair_bwd.fused_tcn_block_pair_bwd(
-                args[0], g, list(args[1:]), list(pb[1:]), d1=d, d2=2 * d,
-                causal=causal)
-            for i, t in enumerate((got[0], *got[1], *got[2])):
-                out[f"{key} {i}"] = t.cpu()
+                args[0], g, list(args[1:]), list(pb[1:]), **kw)
+            want = (tcn_block_pair_bwd.fused_tcn_block_pair_bwd_reference(
+                args[0], g, list(args[1:]), list(pb[1:]), **kw)
+                if held else got)
+            flat = (got[0], *got[1], *got[2])
+            flat_want = (want[0], *want[1], *want[2])
+            _twins(out, key, flat, flat_want)
+            if held:   # the four slopes as one vector, as the smoke holds them
+                slopes = B5_SLOPES
+                dist = rel_l2(torch.stack([flat[i] for i in slopes]),
+                              torch.stack([flat_want[i] for i in slopes]))
+                for i in slopes:
+                    out[f"twin {key} {i}"] = dist
             continue
         kw = dict(dilation=d, causal=causal, norm_type=norm)
         if kern == "b1":
             with torch.inference_mode():
-                out[key] = tcn_block.fused_tcn_block(*args, **kw).cpu()
+                got = tcn_block.fused_tcn_block(*args, **kw)
+                want = (tcn_block.fused_tcn_block_reference(*args, **kw)
+                        if held else got)
+            _twins(out, key, got, want)
             continue
         got = tcn_block_bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
-        for i, t in enumerate(got):
-            out[f"{key} {i}"] = t.cpu()
+        want = (tcn_block_bwd.fused_tcn_block_bwd_reference(
+            args[0], g, *args[1:], **kw) if held else got)
+        _twins(out, key, got, want)
         torch.cuda.synchronize()
     for kern, norm, causal, dtype, d1 in PAIR_CASES:
         pa, g = _block_inputs(torch, dtype, 200 + d1, norm)
@@ -1231,6 +1331,130 @@ def _time_taps(torch, res: dict) -> None:
                                      nbytes(*targs) + z_bytes))
 
 
+# --time f32: the f32 TCN kernels' bound at the 3xTF32 rate (three TF32
+# tensor-core products a product, 495 / 3 TFLOP/s), and beside it the f32
+# FMA rate (PEAK_FLOPS) that bounded the first design
+PEAK_3XTF32 = 495e12 / 3
+# the products timed in f32 (torch.matmul, tf32 off and on): B1's two,
+# B2's three others
+F32_PRODUCTS = ("x @ W_in, g @ W_out^T", "y @ W_eff, dh_pre @ W_in^T",
+                "hn2^T @ g", "x^T @ dh_pre")
+
+
+def _time_f32(torch, res: dict) -> None:
+    """``--time f32``: B1 (gLN, cLN causal, BN), B2, B4 and B5 (gLN, (1, 2))
+    in f32 at the paper shape [8, 3199, 256], H = 512, d = 1: each call by
+    CUDA events and in device time with its kernels' shares, beside its
+    bound at the 3xTF32 rate (``bound``) and at the f32 FMA rate (``fma
+    bound``; each the larger of its FLOP, counted as ``_time_taps`` counts
+    them, and its bytes at the HBM rate); the paper config's f32 forward
+    and gLN train step at B = 8 x 4 s (pairs off), device time and idle
+    share; the 3xTF32 core alone at B1's two product shapes
+    (``ctn_tf32_matmul_check``, its weight split included; a tree without
+    it leaves it out); and torch.matmul in f32 at each of the kernels'
+    product shapes with TF32 off and on (a yardstick; the port never calls
+    it)."""
+    from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import PAIR_ENV, ConvTasNet
+    from convtasnet_tpu_torch.ops.cuda import (
+        tcn_block,
+        tcn_block_bwd,
+        tcn_block_pair,
+        tcn_block_pair_bwd,
+    )
+    from convtasnet_tpu_torch.train import train_step as ts
+
+    def nbytes(*ts_):
+        return sum(t.numel() * t.element_size() for t in ts_)
+
+    def timed(key, fn, iters, flops, n):
+        res[key] = _ms(torch, fn, iters)
+        _device_ms(torch, res, key, fn, iters)
+        res[f"bound {key}"] = 1e3 * max(flops / PEAK_3XTF32, n / PEAK_BYTES_S)
+        res[f"fma bound {key}"] = 1e3 * max(flops / PEAK_FLOPS["float32"],
+                                            n / PEAK_BYTES_S)
+
+    at = "[8,3199,256] H=512 d=1 float32"
+    prod, conv = 2 * M * K * B * H, 2 * M * K * H * P
+    bn = tuple(torch.rand(H, device="cuda") + 0.5 for _ in range(4))
+    for label, norm, causal in (("b1 gLN", "gLN", False),
+                                ("b1 cLN causal", "cLN", True),
+                                ("b1 BN", "BN", False)):
+        args, _ = _block_inputs(torch, "float32", 1, norm)
+        kw = dict(dilation=1, causal=causal, norm_type=norm,
+                  bn_stats=bn if norm == "BN" else None)
+        with torch.inference_mode():
+            timed(f"{label} {at}",
+                  lambda: tcn_block.fused_tcn_block(*args, **kw), 20,
+                  2 * prod + conv, nbytes(*args, args[0]))
+    args, g = _block_inputs(torch, "float32", 1, "gLN")
+    fn = functools.partial(tcn_block_bwd.fused_tcn_block_bwd, args[0], g,
+                           *args[1:], dilation=1, causal=False,
+                           norm_type="gLN")
+    timed(f"b2 gLN {at}", fn, 10, 5 * prod + 3 * conv,
+          nbytes(*args, g, *fn()))
+    pa, g = _block_inputs(torch, "float32", 41, "gLN")
+    pb, _ = _block_inputs(torch, "float32", 51, "gLN")
+    x, pa, pb = pa[0], list(pa[1:]), list(pb[1:])
+    kw = dict(d1=1, d2=2, causal=False)
+    with torch.inference_mode():
+        timed(f"b4 gLN {at}", lambda: tcn_block_pair.fused_tcn_block_pair(
+            x, pa, pb, norm_type="gLN", **kw), 20, 4 * prod + 2 * conv,
+            nbytes(x, *pa, *pb, x))
+    fn = functools.partial(tcn_block_pair_bwd.fused_tcn_block_pair_bwd, x, g,
+                           pa, pb, **kw)
+    out = fn()
+    timed(f"b5 gLN {at}", fn, 10, 2 * (5 * prod + 3 * conv),
+          nbytes(x, g, *pa, *pb, out[0], *out[1], *out[2]))
+    del out
+    os.environ[PAIR_ENV] = "0"
+    T = 4 * 8000
+    cfg = ConvTasNetConfig(compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    mix = torch.randn(8, T, generator=gen, device="cuda")
+    data = (mix, torch.full((8,), T, dtype=torch.int32, device="cuda"),
+            torch.randn(8, 2, T, generator=gen, device="cuda"),
+            torch.ones(8, device="cuda"))
+    model = ConvTasNet(cfg, device="cuda").eval()
+    with torch.inference_mode():
+        key = "forward f32 gLN B=8 x 4 s"
+        res[key] = _ms(torch, lambda: model(mix), 10)
+        _device_ms(torch, res, key, lambda: model(mix), 10)
+    del model
+    state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
+                                  use_pallas=True)
+    step = ts.make_train_step()
+    key = "train step f32 gLN B=8 x 4 s"
+    res[key] = _ms(torch, lambda: step(state, data), 5)
+    _device_ms(torch, res, key, lambda: step(state, data), 5)
+    del state
+    from convtasnet_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    if hasattr(lib, "ctn_tf32_matmul_check"):   # the core alone (this tree)
+        for name in F32_PRODUCTS[:2]:
+            r, k, n = PRODUCTS[name]
+            a = torch.randn(r, k, device="cuda")
+            b = torch.randn(n, k, device="cuda")
+            ws = torch.empty(3 * n * k, device="cuda")
+            c = torch.empty(r, n, device="cuda")
+            _device_ms(torch, res, f"3xTF32 core {name} [{r},{k}]x[{k},{n}]",
+                       lambda: lib.ctn_tf32_matmul_check(
+                           a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                           c.data_ptr(), r, n, k,
+                           torch.cuda.current_stream().cuda_stream))
+    for name in F32_PRODUCTS:
+        r, k, n = PRODUCTS[name]
+        a = torch.randn(r, k, device="cuda")
+        b = torch.randn(k, n, device="cuda")
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            _device_ms(torch, res, f"torch.matmul f32 tf32={int(tf32)} "
+                       f"{name} [{r},{k}]x[{k},{n}]",
+                       lambda: torch.matmul(a, b))
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def _time_tp(torch, res: dict) -> None:
     """``--time tp``: B6 at ``B6_TIMED`` in bf16 and f32 (the widths this
     tree's rule takes), by CUDA events and device time, and torch.matmul
@@ -1305,6 +1529,10 @@ def time_tree(path: str, what: str) -> None:
         _time_tp(torch, res)
         torch.save(res, path)
         return
+    if what == "f32":
+        _time_f32(torch, res)
+        torch.save(res, path)
+        return
     _time_dpt_forwards(torch, res, rn)
     if what == "dpt-forward":
         _time_products(torch, res, ("b7/b9 ", "b7-b10 ", "b11/b12 y", "b11/b12 h"))
@@ -1327,8 +1555,8 @@ def time_tree(path: str, what: str) -> None:
     pb = list(_block_inputs(torch, "bfloat16", 8, "gLN")[0][1:])
     _time_pairs(torch, res, "", args[0], g, list(args[1:]), pb,
                 (("gLN", "gLN", False), ("cLN causal", "cLN", True)))
-    # f32, and bf16 at a width the Hopper stages do not take: the first
-    # design's launches
+    # f32 (its 3xTF32 stages), and bf16 at a width the Hopper stages do
+    # not take (the first design's launches)
     f32 = [t.float() for t in (args[0], g)]
     _time_pairs(torch, res, " f32", *f32, [t.float() for t in args[1:]],
                 [t.float() for t in pb], (("gLN", "gLN", False),))
@@ -1399,14 +1627,15 @@ def main() -> int:
     ap.add_argument("--other", help="directory holding the other checkout's "
                                     "convtasnet_tpu_torch/")
     ap.add_argument("--time", nargs="?", const="all",
-                    choices=["all", "dpt-forward", "f32-attention",
+                    choices=["all", "dpt-forward", "f32", "f32-attention",
                              "padded", "taps", "tp"],
                     help="also time both trees in turns: everything (the "
                          "default), the DPT forwards alone, the f32 "
                          "attention kernels at every head width, the DPT "
                          "kernels at widths off 64 beside the next one on "
                          "the tile, the TCN kernels at 3, 17 and 33 taps, "
-                         "or B6 at shard widths 128 to 1024")
+                         "B6 at shard widths 128 to 1024, or the f32 TCN "
+                         "kernels and model on their 3xTF32 stages")
     ap.add_argument("--out", help="write every number here as JSON")
     ap.add_argument("--dump", help=argparse.SUPPRESS)
     ap.add_argument("--time-dump", help=argparse.SUPPRESS)
@@ -1436,13 +1665,15 @@ def main() -> int:
         for line in lines:
             print(f"kernels vs the other checkout, {line}", flush=True)
         n_bits = sum(1 for k in outs["other"]
-                     if bitwise(k) and not k.startswith(TWINS))
+                     if bitwise(k) and not k.startswith(TWINS + (F64,)))
         n_diff = sum(1 for k in bad if bitwise(k))
         print(f"{n_bits - n_diff} of {n_bits} bit-for-bit outputs the same "
               f"bits; {len(bad) - n_diff} outputs held by distance past "
               f"their bars", flush=True)
         n_same, n_all = same_bits(outs["this"], outs["other"])
         print(f"{n_same} of {n_all} outputs in all the same bits", flush=True)
+        for line in f64_lines(outs["this"], outs["other"]):
+            print(f"kernels vs the other checkout, {line}", flush=True)
         report["compare"] = lines
         if a.time:
             turns = []

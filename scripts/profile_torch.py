@@ -3,9 +3,13 @@
 train step, on one GPU.
 
     PYTHONPATH=. python3 scripts/profile_torch.py {tcn,dpt} [forward|train] \\
-        [--norm gLN|cLN] [--pairs] [--batch 8] [--seconds 4] [--iters 10]
+        [--norm gLN|cLN] [--pairs] [--dtype bfloat16|float32] [--batch 8] \\
+        [--seconds 4] [--iters 10]
 
-Runs a model in bf16 with random weights from seed 0 at [batch, seconds *
+Runs a model in ``--dtype`` (bf16 by default; float32 is the port's own
+default compute dtype, whose TCN blocks run the f32 stages of
+``csrc/tcn_block_tf32.cuh`` and ``tcn_block_bwd_tf32.cuh``) with random
+weights from seed 0 at [batch, seconds *
 8 kHz] through the hand-written kernels: ``tcn`` the paper config (gLN;
 ``--norm cLN`` its causal cLN variant) with block pairs off, the default
 (``CONVTASNET_PAIR_FUSION=0``), or with ``--pairs`` on (blocks (x, x+1)
@@ -64,6 +68,9 @@ def main() -> int:
     ap.add_argument("--pairs", action="store_true",
                     help="run the TCN's blocks as pairs "
                          "(CONVTASNET_PAIR_FUSION=1)")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="the model's compute dtype")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=4.0)
     ap.add_argument("--iters", type=int, default=10)
@@ -84,11 +91,11 @@ def main() -> int:
 
     os.environ[PAIR_ENV] = "1" if a.pairs else "0"
     if a.model == "dpt":
-        cfg = ConvTasNetConfig(separator="dpt", compute_dtype="bfloat16")
+        cfg = ConvTasNetConfig(separator="dpt", compute_dtype=a.dtype)
         label = "dpt"
     else:
         cfg = ConvTasNetConfig(norm_type=a.norm, causal=a.norm == "cLN",
-                               compute_dtype="bfloat16")
+                               compute_dtype=a.dtype)
         label = f"tcn {a.norm}" + (" pairs" if a.pairs else "")
     build = _forward if a.mode == "forward" else _train
     call, ctx = build(torch, cfg, a.batch, int(a.seconds * cfg.sample_rate))
@@ -118,7 +125,8 @@ def main() -> int:
     total = sum(e.self_device_time_total for e in rows) / a.iters
     unit = "forward" if a.mode == "forward" else "step"
     print(card)
-    print(f"{label} {a.mode} [{a.batch} x {a.seconds} s] bf16 kernel path: "
+    dt = "bf16" if a.dtype == "bfloat16" else "f32"
+    print(f"{label} {a.mode} [{a.batch} x {a.seconds} s] {dt} kernel path: "
           f"{wall_ms:.3f} ms per {unit} (CUDA events), device kernels "
           f"{total / 1e3:.3f} ms per {unit} (profiler), idle share "
           f"{1 - total / 1e3 / wall_ms:.3f}")

@@ -171,6 +171,146 @@ def test_wgmma_wgrad_core_matches_matmul(cuda, ca, cb):
     assert _rel_l2(part.sum(0), a.float().t() @ b.float()) <= 1e-5
 
 
+# the f32 3xTF32 core (csrc/hopper_gemm_tf32.cuh) at B1's and B2's
+# product shapes, and off them (a column tile of 64, a ragged row tile)
+TF32_SHAPES = WG_SHAPES + [(3000, 192, 64), (130, 128, 320)]
+
+
+def _tf32_hi(t):
+    """t rounded to tf32 as the core splits it (round half away from zero
+    on the magnitude: the bits of cvt.rna.tf32.f32)."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("rows,depth,cols", TF32_SHAPES)
+def test_tf32_core_matches_f64(cuda, rows, depth, cols):
+    """The f32 stages' wgmma core alone (left operand streamed, the right
+    one split into hi and lo copies, 3xTF32, each 32-deep slab summed in a
+    fresh accumulator) against the f64 product: f32-grade, where one TF32
+    product of the same operands is two orders further; and the split's
+    integer rounding against cvt.rna.tf32.f32's bits."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + depth + cols)
+    a = torch.randn(rows, depth, device=cuda, generator=gen)
+    b = torch.randn(cols, depth, device=cuda, generator=gen)
+    ws = torch.empty(3 * cols * depth, device=cuda)
+    c = torch.empty(rows, cols, device=cuda)
+    _wg_lib_call("ctn_tf32_matmul_check", a.data_ptr(), b.data_ptr(),
+                 ws.data_ptr(), c.data_ptr(), rows, cols, depth)
+    n = cols * depth
+    assert torch.equal(ws[:n].view(torch.int32), ws[2 * n:].view(torch.int32))
+    assert torch.equal(ws[:n], _tf32_hi(b).reshape(-1))
+    exact = a.double() @ b.double().t()
+    one = _tf32_hi(a).double() @ _tf32_hi(b).double().t()
+    assert _rel_l2(c.double(), exact) <= 1e-6
+    assert _rel_l2(one, exact) > 1e-5
+
+
+@pytest.mark.parametrize("ca,cb", [(512, 256), (256, 512), (192, 64)])
+def test_tf32_wgrad_core_matches_f64(cuda, ca, cb):
+    """W' in f32 (mma.sync.m16n8k8 in 3xTF32, the operands gathered
+    transposed from row-major slabs), a^T @ b over 25592 rows in chunks of
+    1024 (the last one ragged), against the f64 product."""
+    rows, chunk = 25592, 1024
+    gen = torch.Generator(device="cuda").manual_seed(ca + cb)
+    a = torch.randn(rows, ca, device=cuda, generator=gen)
+    b = torch.randn(rows, cb, device=cuda, generator=gen)
+    part = torch.empty(-(-rows // chunk), ca, cb, device=cuda)
+    _wg_lib_call("ctn_tf32_wgrad_check", a.data_ptr(), b.data_ptr(), rows,
+                 ca, cb, chunk, part.data_ptr())
+    assert _rel_l2(part.sum(0).double(), a.double().t() @ b.double()) <= 2e-5
+
+
+# (B, H, P, dilation) of the f32 stages' block cases: the paper widths,
+# 17 taps, widths run padded (96 to 128) and H = 64
+F32_STAGE_SHAPES = [(256, 512, 3, 1), (256, 512, 3, 128), (256, 512, 17, 4),
+                    (96, 96, 3, 8), (256, 64, 3, 2)]
+
+
+def _f64_block(args, dilation, causal, norm_type, bn=None):
+    from convtasnet_tpu_torch.ops.conv import depthwise_conv1d, prelu
+    from convtasnet_tpu_torch.ops.norm import (
+        batch_norm,
+        channelwise_layer_norm,
+        global_layer_norm,
+    )
+
+    x, w_in, dw, w_out, a1, a2, g1, b1, g2, b2 = args
+    m1, v1, m2, v2 = bn if norm_type == "BN" else (None,) * 4
+
+    def nrm(h, g, b, m, v):
+        if norm_type == "gLN":
+            return global_layer_norm(h, g, b)
+        if norm_type == "cLN":
+            return channelwise_layer_norm(h, g, b)
+        return batch_norm(h, g, b, m, v)
+
+    h = nrm(prelu(x @ w_in, a1), g1, b1, m1, v1)
+    h = nrm(prelu(depthwise_conv1d(h, dw, dilation, causal), a2), g2, b2, m2,
+            v2)
+    return x + h @ w_out
+
+
+def _f32_stage_args(device, b, h, p, seed, a2=0.3):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    return (t(rng.standard_normal((8, 3199, b))),
+            t(rng.standard_normal((b, h)) * np.sqrt(2 / (b + h))),
+            t(rng.standard_normal((p, h)) * np.sqrt(2 / (p + h * p))),
+            t(rng.standard_normal((h, b)) * np.sqrt(2 / (b + h))),
+            t(0.25), t(a2), t(1 + 0.1 * rng.standard_normal(h)),
+            t(0.1 * rng.standard_normal(h)), t(1 + 0.1 * rng.standard_normal(h)),
+            t(0.1 * rng.standard_normal(h)))
+
+
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True),
+                                              ("BN", False)])
+@pytest.mark.parametrize("b,h,p,dilation", F32_STAGE_SHAPES)
+def test_f32_stages_forward(cuda, norm_type, causal, b, h, p, dilation):
+    """B1 in f32 on its 3xTF32 stages: within 2e-3 of its twin, out - x
+    within 1e-5 of the f64 block (one TF32 product would read ~3e-4 there),
+    the same bits twice, one launch a call."""
+    args = _f32_stage_args(cuda, b, h, p, 40 + dilation)
+    bn = None
+    if norm_type == "BN":
+        bn = tuple(torch.rand(h, device=cuda) + 0.5 for _ in range(4))
+    kw = dict(dilation=dilation, causal=causal, norm_type=norm_type,
+              bn_stats=bn)
+    before = _tcn_launches()
+    with torch.inference_mode():
+        got = port.fused_tcn_block(*args, **kw)
+        again = port.fused_tcn_block(*args, **kw)
+        want = port.fused_tcn_block_reference(*args, **kw)
+    assert _tcn_launches(before) == {"b1": 2, "b2": 0, "b4": 0, "b5": 0}
+    assert torch.equal(got, again)
+    assert _rel_l2(got, want) <= TOL[torch.float32]
+    x = args[0].double()
+    exact = _f64_block([t.double() for t in args], dilation, causal,
+                       norm_type, bn and [t.double() for t in bn]) - x
+    assert _rel_l2(got.double() - x, exact) <= 1e-5
+
+
+@pytest.mark.parametrize("b,h,p,dilation", F32_STAGE_SHAPES)
+def test_f32_stages_backward(cuda, b, h, p, dilation):
+    """B2 in f32 on its 3xTF32 stages: all ten cotangents of a random
+    cotangent within 4e-3 of the f32 twin, the same bits twice, one launch
+    a call."""
+    x, *w = _f32_stage_args(cuda, b, h, p, 50 + dilation, a2=-0.1)
+    g = torch.randn(x.shape, device=cuda, generator=torch.Generator(
+        device="cuda").manual_seed(dilation))
+    kw = dict(dilation=dilation, causal=False, norm_type="gLN")
+    before = _tcn_launches()
+    got = port_bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+    again = port_bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+    assert _tcn_launches(before) == {"b1": 0, "b2": 2, "b4": 0, "b5": 0}
+    want = port_bwd.fused_tcn_block_bwd_reference(x, g, *w, **kw)
+    for name, q, r, q2 in zip(NAMES, got, want, again):
+        assert torch.equal(q, q2), name
+        assert _rel_l2(q, r) <= BWD_TOL[torch.float32], name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm_type,causal,dilation", CASES)
 def test_kernel_matches_twin(cuda, dtype, norm_type, causal, dilation):

@@ -1,7 +1,9 @@
 """The pure helpers of ``scripts/kernels_vs_parent.py`` (the comparison of
 the port's kernels with another checkout's, which runs on the card only):
 ``compare`` holds every output bit for bit but the bf16 forward of B7 (and
-its partial mode), which it reports by distance, at its twins' bars; ``summarize`` lays the timed turns out per metric and tree.
+its partial mode) and the f32 outputs of B1, B2, B4 and B5 (their 3xTF32
+stages), which it reports by distance, at their twins' bars; ``summarize``
+lays the timed turns out per metric and tree.
 On the CPU, with small tensors."""
 
 import importlib.util
@@ -27,11 +29,13 @@ def _outs(seed, twin=1e-3, fwd_twin=5e-4):
            "b6 float32 Hs=256 d=1 z": torch.randn(3, 5, generator=g),
            "b1 bfloat16 gLN causal=0 d=1": torch.randn(6, 7, generator=g),
            "b2 float32 gLN causal=0 d=16 dx": torch.randn(6, 7, generator=g),
+           "b3 float32 cLN causal=1 d=16 dx": torch.randn(6, 7, generator=g),
            "b4 bfloat16 gLN causal=0 d=(1,2)": torch.randn(6, 7, generator=g),
            "b5 float32 gLN causal=0 d=(16,32) dx": torch.randn(
                6, 7, generator=g)}
     for key in ("b1 bfloat16 gLN causal=0 d=1",
                 "b2 float32 gLN causal=0 d=16 dx",
+                "b3 float32 cLN causal=1 d=16 dx",
                 "b4 bfloat16 gLN causal=0 d=(1,2)",
                 "b5 float32 gLN causal=0 d=(16,32) dx"):
         out[f"twin {key}"] = twin
@@ -44,11 +48,11 @@ def test_compare_same_trees_has_no_fault():
     mine, other = _outs(0), _outs(0)
     lines, bad = kvp.compare(mine, other)
     assert bad == []
-    assert sum("same bits" in line for line in lines) == 6
-    assert sum("trees apart rel_l2 0.000e+00" in line for line in lines) == 1
+    assert sum("same bits" in line for line in lines) == 5
+    assert sum("trees apart rel_l2 0.000e+00" in line for line in lines) == 3
     # every output with a twin prints both trees' distances from it
     assert sum("from the twin this tree 1.000e-03, other 1.000e-03"
-               in line for line in lines) == 4
+               in line for line in lines) == 5
     inter = next(line for line in lines if line.startswith(INTER_FWD))
     assert ("from the twin this tree 5.000e-04, other 5.000e-04 (bar 1e-03)"
             in inter and "from the bf16 twin this tree 5.000e-03, other "
@@ -58,7 +62,7 @@ def test_compare_same_trees_has_no_fault():
 @pytest.mark.parametrize("key", ["dpt ffn bfloat16 S=128 heads=8 forward",
                                  "b6 float32 Hs=256 d=1 z",
                                  "b1 bfloat16 gLN causal=0 d=1",
-                                 "b2 float32 gLN causal=0 d=16 dx"])
+                                 "b3 float32 cLN causal=1 d=16 dx"])
 def test_compare_flags_a_bit_difference(key):
     mine, other = _outs(0), _outs(0)
     mine[key] = mine[key].clone()
@@ -69,25 +73,31 @@ def test_compare_flags_a_bit_difference(key):
 
 
 def test_compare_holds_the_tcn_kernels_at_their_bars():
-    """The TCN kernels, blocks (B1-B3) and pairs (B4, B5) alike, are held
+    """The TCN kernels in bf16 and f32 B3, blocks and pairs alike, are held
     bit for bit whatever their twin distance; the outputs held by distance
-    (the bf16 B7 forward) may differ from the other tree's and are
-    at fault only when a distance from a twin passes its bar: 1e-3 at the
-    kernel's rounding points, 4e-2 from the bf16 twin, or when this tree
-    has no rounding-points twin to hold them."""
+    (the bf16 B7 forward, and f32 B1, B2, B4, B5 on their 3xTF32 stages)
+    may differ from the other tree's and are at fault only when a distance
+    from a twin passes its bar: 1e-3 at the kernel's rounding points, 4e-2
+    from the bf16 twin, 4e-3 for an f32 backward, or when this tree has no
+    twin to hold them."""
     other = _outs(0)
-    mine = _outs(0, twin=3.9e-2)
+    mine = _outs(0, twin=3.9e-3)
     for key in ("b4 bfloat16 gLN causal=0 d=(1,2)",
                 "b5 float32 gLN causal=0 d=(16,32) dx", INTER_FWD):
         mine[key] = mine[key] * 1.01
     lines, bad = kvp.compare(mine, other)
-    assert sum("trees apart rel_l2 1.000e-02" in line for line in lines) == 1
-    assert bad == ["b4 bfloat16 gLN causal=0 d=(1,2)",
-                   "b5 float32 gLN causal=0 d=(16,32) dx"]
-    for key in ("b4 bfloat16 gLN causal=0 d=(1,2)",
-                "b5 float32 gLN causal=0 d=(16,32) dx"):
-        mine[key] = other[key]
+    assert sum("trees apart rel_l2 1.000e-02" in line for line in lines) == 2
+    assert bad == ["b4 bfloat16 gLN causal=0 d=(1,2)"]
+    mine["b4 bfloat16 gLN causal=0 d=(1,2)"] = other[
+        "b4 bfloat16 gLN causal=0 d=(1,2)"]
     assert kvp.compare(mine, other)[1] == []
+    mine["twin b5 float32 gLN causal=0 d=(16,32) dx"] = 4.1e-3
+    assert kvp.compare(mine, other)[1] == [
+        "b5 float32 gLN causal=0 d=(16,32) dx"]
+    del mine["twin b5 float32 gLN causal=0 d=(16,32) dx"]
+    assert kvp.compare(mine, other)[1] == [
+        "b5 float32 gLN causal=0 d=(16,32) dx"]
+    mine["twin b5 float32 gLN causal=0 d=(16,32) dx"] = 1e-3
     mine[f"twin {INTER_FWD}"] = 1.1e-3
     assert kvp.compare(mine, other)[1] == [INTER_FWD]
     mine[f"twin {INTER_FWD}"] = 9e-4
@@ -102,6 +112,15 @@ def test_compare_holds_the_tcn_kernels_at_their_bars():
 
 
 @pytest.mark.parametrize("key,bits", [
+    ("b1 float32 gLN causal=0 d=1", False),
+    ("b1 float32 cLN causal=1 d=16 P=5", False),
+    ("b2 float32 gLN causal=0 d=128 dW_in", False),
+    ("b2 float32 gLN causal=0 d=1 P=16 4", False),
+    ("b4 float32 cLN causal=1 d=(16,32)", False),
+    ("b5 float32 gLN causal=0 d=(1,2) a dW_out", False),
+    ("b3 float32 cLN causal=1 d=1 dx", True),
+    ("b1 bfloat16 gLN causal=0 d=1", True),
+    ("b5 bfloat16 gLN causal=0 d=(1,2) dx", True),
     ("dpt inter bfloat16 S=128 heads=8 backward 0", True),
     ("dpt intra bfloat16 S=256 heads=4 backward 3", True),
     ("dpt intra bfloat16 S=128 heads=8 partial m=2 backward 1", True),
@@ -122,13 +141,16 @@ def test_compare_holds_the_tcn_kernels_at_their_bars():
     ("b4 bfloat16 gLN causal=0 d=(1,2)", True),
     ("b6 float32 Hs=128 d=16 sums", True)])
 def test_bitwise_holds_the_redesigned_bf16_outputs_by_distance(key, bits):
-    """The bf16 forward of B7 (and its partial mode) sums in another
-    order than the first design: held by distance at its twins' bars;
-    every other output, the bf16 forwards of B9 and B11 (which keep their
-    bits), the backwards and every f32 output among them, bit for bit."""
+    """The bf16 forward of B7 (and its partial mode) and the f32 outputs
+    of B1, B2, B4 and B5 sum in another order than their first designs:
+    held by distance at their twins' bars (1e-3 at B7's rounding points;
+    f32 2e-3 forward, 3e-3 pair forward, 4e-3 backward); every other
+    output, the bf16 forwards of B9 and B11 (which keep their bits), the
+    backwards, f32 B3 and B6 among them, bit for bit."""
     assert kvp.bitwise(key) is bits
     if not bits:
-        assert kvp._tcn_tol(key) == 1e-3
+        bar = {"dpt": 1e-3, "b1": 2e-3, "b4": 3e-3}.get(key.split()[0], 4e-3)
+        assert kvp._tcn_tol(key) == bar
 
 
 def test_compare_flags_a_missing_output():
@@ -235,10 +257,10 @@ def test_same_bits_counts_every_output():
     included and the twin distances left out: the count the bit proof
     prints as "n of n outputs in all the same bits"."""
     mine, other = _outs(0), _outs(0)
-    assert kvp.same_bits(mine, other) == (7, 7)
+    assert kvp.same_bits(mine, other) == (8, 8)
     mine[INTER_FWD] = mine[INTER_FWD] * 1.01
     del mine["b6 float32 Hs=256 d=1 z"]
-    assert kvp.same_bits(mine, other) == (5, 7)
+    assert kvp.same_bits(mine, other) == (6, 8)
 
 
 def test_width_cases_cover_the_narrow_tiles():
@@ -302,3 +324,37 @@ def test_b6_cases_cover_every_route_up_to_512():
     assert [hs for hs, _ in kvp.B6_TIMED if hs > 512] == [576, 768, 1024]
     assert all(tcn_block_tp.shape_refusal(hs, kvp.B, kvp.P, False) is None
                for hs, _ in kvp.B6_TIMED)
+
+
+def test_twins_hold_only_the_moved_outputs():
+    """``_twins`` records a TCN case's outputs (one tensor, or each of a
+    sequence as ``key i``) and gives a twin distance only to the outputs
+    held by distance (f32 B1, B2, B4, B5); a bf16 case keeps its bits."""
+    t = torch.ones(3)
+    out = {}
+    kvp._twins(out, "b2 float32 gLN causal=0 d=1 P=5", [t, 2 * t],
+               [t, 4 * t])
+    assert out["twin b2 float32 gLN causal=0 d=1 P=5 0"] == 0.0
+    assert out["twin b2 float32 gLN causal=0 d=1 P=5 1"] == 0.5
+    kvp._twins(out, "b2 bfloat16 gLN causal=0 d=1 P=5", [t], [2 * t])
+    assert "b2 bfloat16 gLN causal=0 d=1 P=5 0" in out
+    assert not any(k.startswith("twin b2 bfloat16") for k in out)
+    kvp._twins(out, "b1 float32 gLN causal=0 d=1 P=5", t, t)
+    assert out["twin b1 float32 gLN causal=0 d=1 P=5"] == 0.0
+    assert kvp.B5_SLOPES == (4, 5, 13, 14)
+
+
+def test_f64_distances_are_printed_and_held_by_nothing():
+    """The f64 distances of f32 B2 (each tree's kernel and the f32 twin)
+    print beside each other and count as no output: ``compare`` and
+    ``same_bits`` see the same outputs with them as without."""
+    mine, other = _outs(0), _outs(0)
+    key = "b2 float32 gLN causal=0 d=1"
+    for tree, v in ((mine, 1e-6), (other, 3e-4)):
+        tree[f"f64 {key} dx"] = v
+        tree[f"f64 twin {key} dx"] = 5e-4
+    assert kvp.compare(mine, other) == kvp.compare(_outs(0), _outs(0))
+    assert kvp.same_bits(mine, other) == (8, 8)
+    assert kvp.f64_lines(mine, other) == [
+        f"{key} dx: from the f64 block, this tree 1.000e-06, other "
+        "3.000e-04, the f32 twin 5.000e-04"]
