@@ -23,7 +23,9 @@ Phases, each raising on failure (so the script exits nonzero):
    negative PReLU slope, bf16 and f32: all ten cotangents finite and
    within the JAX train gate (loss = sum of the output, twice the
    forward's bars: 8e-2 / 4e-3); and with a random cotangent, against
-   the exact (f32) cotangents: all ten within 4e-3 in f32, the eight
+   the exact (f32) cotangents (f32 B3 against the f64 block under the
+   branches, of the pre-activations within f32 rounding of 0, nearest
+   its slopes): all ten within 4e-3 in f32, the eight
    besides the two PReLU slopes within 8e-2 in bf16; then the block pair:
    kernel B4 against its twin for each pair of dilations (1, 2) .. (64,
    128), gLN non-causal and cLN causal (and the other two at (4, 8)), at
@@ -282,6 +284,7 @@ DILATIONS = [2 ** i for i in range(8)]
 # its full 700 W power limit): the floors that bound_ms is taken against
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores (FMA)
+PEAK_3XTF32 = 495e12 / 3  # f32 as three TF32 tensor-core products
 PEAK_BYTES_S = 3.35e12
 GRAD_NAMES = ("dx", "dW_in", "d_dw", "dW_out", "da1", "da2",
               "dg1", "db1", "dg2", "db2")
@@ -455,8 +458,11 @@ def phase_bwd_vs_twin(torch, bwd, norm: str = "gLN"):
     through the plain block in the same dtype, max relative L2 over the
     ten. A constant cotangent hides a bug in how g is indexed per row or
     per sample, so a random cotangent is held too, against the twin
-    evaluated in f32 on the same values: all ten within the f32 bar in
-    f32, and in bf16 the eight besides the PReLU slopes within the bf16
+    evaluated in f32 on the same values (f32 B3 against the f64 block
+    under the branches of the pre-activations within f32 rounding of 0
+    that put its slopes nearest, ``f64_nearest_branches``, the f32 twin's
+    own distance from the f64 block printed): all ten within the f32 bar
+    in f32, and in bf16 the eight besides the PReLU slopes within the bf16
     bar. The slope cotangents are sums of 13 M cancelling terms, and in
     bf16 no evaluation lands within the bar of their exact values (the
     bf16 twin's own distance is printed beside the kernel's). Every case
@@ -508,6 +514,13 @@ def phase_bwd_vs_twin(torch, bwd, norm: str = "gLN"):
                 x.float(), g.float(), *[t.float() for t in w], **kw)
             twin = (bwd.fused_tcn_block_bwd_reference(x, g, *w, **kw)
                     if dtype == torch.bfloat16 else exact)
+            note = ""
+            if dtype == torch.float32 and norm == "cLN":
+                exact, twin_ref, note = f64_nearest_branches(
+                    torch, x, g, w, d, causal, norm, got, BWD_TOL[name])
+                note = f"; f64 branches: {note}"
+            else:
+                twin_ref = exact
             torch.cuda.synchronize()
             if not all(torch.isfinite(q).all().item() for q in got):
                 failures.append(f"non-finite cotangent (random g) at d={d} "
@@ -520,8 +533,9 @@ def phase_bwd_vs_twin(torch, bwd, norm: str = "gLN"):
                   f"bar {BWD_TOL[name]:.0e}; random g vs exact: kernel "
                   f"{fmt(k_err)}, held {fmt(held)}, dx {k_err['dx']:.3e}, "
                   f"dW_in {k_err['dW_in']:.3e}"
-                  + (f", {name} twin {fmt(errors(twin, exact))}"
-                     if dtype == torch.bfloat16 else ""), flush=True)
+                  + (f", {name} twin {fmt(errors(twin, twin_ref))}"
+                     if dtype == torch.bfloat16 or norm == "cLN" else "")
+                  + note, flush=True)
             if max(gate.values()) > BWD_TOL[name]:
                 failures.append(f"g=1 gate at d={d} {name}: {fmt(gate)}")
             if max(held.values()) > BWD_TOL[name]:
@@ -1369,12 +1383,20 @@ SLOPES = ("da1", "da2")
 
 def taps_bwd_errors(torch, bwd, x, w, kw, seed: int):
     """B2 or B3 at a random cotangent against the exact f32 cotangents
-    (the twin in f32 on the same values): {name: rel_l2}."""
+    (the twin in f32 on the same values; f32 B3 against the f64 block,
+    ``f64_nearest_branches``, whose note it prints): {name: rel_l2}."""
     g = torch.randn(x.shape, generator=torch.Generator(
         device="cuda").manual_seed(seed), device="cuda").to(x.dtype)
     got = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
-    exact = bwd.fused_tcn_block_bwd_reference(
-        x.float(), g.float(), *[t.float() for t in w], **kw)
+    if x.dtype == torch.float32 and kw["norm_type"] == "cLN":
+        exact, _, note = f64_nearest_branches(
+            torch, x, g, w, kw["dilation"], kw["causal"], "cLN", got,
+            BWD_TOL["float32"])
+        print(f"taps B3 P={w[1].shape[0]} d={kw['dilation']} f64 branches: "
+              f"{note}", flush=True)
+    else:
+        exact = bwd.fused_tcn_block_bwd_reference(
+            x.float(), g.float(), *[t.float() for t in w], **kw)
     return {n: rel_l2(q, r) for n, q, r in zip(GRAD_NAMES, got, exact)}
 
 
@@ -1401,7 +1423,8 @@ def taps_kernels_vs_twins(torch, k, failures: list) -> None:
     d = 1 and 128 (``TAPS_CASES``), bf16 and f32: B1 in gLN (non-causal),
     cLN (causal) and BN (non-causal, running statistics) against its twin
     at the forward bars; B2 (gLN) and B3 (cLN causal) at a random
-    cotangent against the exact f32 cotangents, ``phase_bwd_vs_twin``'s
+    cotangent against the exact f32 cotangents (f32 B3 against the f64
+    block), ``phase_bwd_vs_twin``'s
     gate (all ten within 4e-3 in f32, the eight besides the PReLU slopes
     within 8e-2 in bf16); B4 and B5 at (d1, d2) = (64, 128), B4 at the
     pair gate and B5 at ``phase_pair_bwd_vs_twin``'s (the 15 besides the
@@ -1633,11 +1656,14 @@ def phase_tcn_taps(torch, k):
 
 
 def f64_block(torch, args, dilation: int, causal: bool, norm: str,
-              bn_stats=None):
+              bn_stats=None, flips=None, pre=None):
     """One block's output with every product and statistic in float64
     (the block's math on float64 tensors): the witness of how close an f32
-    evaluation comes to the value."""
-    from convtasnet_tpu_torch.ops.conv import depthwise_conv1d, prelu
+    evaluation comes to the value. flips: {"hp" or "c": flat indices} of
+    pre-activations (h_pre = x @ W_in, c the depthwise conv's output) each
+    taken to the other PReLU branch than its sign gives; pre, a dict, gets
+    both pre-activations. The math is the dtype of args."""
+    from convtasnet_tpu_torch.ops.conv import depthwise_conv1d
     from convtasnet_tpu_torch.ops.norm import (
         batch_norm,
         channelwise_layer_norm,
@@ -1646,6 +1672,7 @@ def f64_block(torch, args, dilation: int, causal: bool, norm: str,
 
     x, w_in, dw, w_out, a1, a2, g1, b1, g2, b2 = args
     m1, v1, m2, v2 = bn_stats if norm == "BN" else (None,) * 4
+    flips = flips or {}
 
     def nrm(h, g, b, m, v):
         if norm == "gLN":
@@ -1654,10 +1681,109 @@ def f64_block(torch, args, dilation: int, causal: bool, norm: str,
             return channelwise_layer_norm(h, g, b)
         return batch_norm(h, g, b, m.double(), v.double())
 
-    h = nrm(prelu(x @ w_in, a1), g1, b1, m1, v1)
-    h = nrm(prelu(depthwise_conv1d(h, dw, dilation, causal), a2), g2, b2,
+    def prelu(v, a, name):
+        if pre is not None:
+            pre[name] = v.detach()
+        keep = v >= 0
+        if flips.get(name):
+            keep = keep.reshape(-1).clone()
+            keep[flips[name]] = ~keep[flips[name]]
+            keep = keep.reshape(v.shape)
+        return torch.where(keep, v, a * v)
+
+    h = nrm(prelu(x @ w_in, a1, "hp"), g1, b1, m1, v1)
+    h = nrm(prelu(depthwise_conv1d(h, dw, dilation, causal), a2, "c"), g2, b2,
             m2, v2)
     return x + h @ w_out
+
+
+def f64_block_grads(torch, x, g, w, dilation: int, causal: bool,
+                    norm: str, flips=None) -> tuple:
+    """The ten cotangents of the f64 block (autograd through ``f64_block``
+    on float64 copies of x and the nine weights, its flips taken) at the
+    cotangent g."""
+    prims = [t.detach().double().requires_grad_(True) for t in (x, *w)]
+    with torch.enable_grad():
+        out = f64_block(torch, prims, dilation, causal, norm, flips=flips)
+        return torch.autograd.grad(out, prims, g.double())
+
+
+# f64_nearest_branches: a pre-activation lies within f32 rounding of 0
+# where its f64 value is within NEAR_ZERO_ROUNDINGS times its row's rms
+# rounding error of an f32 evaluation (the block's math in f32 against
+# f64); the NEAR_ZERO_MOST nearest of them are tried
+NEAR_ZERO_ROUNDINGS = 4.0
+NEAR_ZERO_MOST = 10
+
+
+def f64_nearest_branches(torch, x, g, w, dilation: int, causal: bool,
+                         norm: str, got, bar: float,
+                         roundings: float = NEAR_ZERO_ROUNDINGS,
+                         most: int = NEAR_ZERO_MOST):
+    """The f64 block's ten cotangents under the PReLU branch assignment of
+    the pre-activations within f32 rounding of 0 that puts got's two slope
+    gradients nearest: an f32 evaluation may take such an element to the
+    other branch, and one flipped element of c moves da1 by ~2% at the
+    paper shape (a slope gradient is a sum of millions of cancelling
+    terms). Each candidate's effect on (da1, da2) comes from one f64
+    evaluation with that element flipped alone; the subsets are summed
+    from those, the smallest one that brings both slopes within bar of
+    got's (else the nearest) is taken, and its cotangents are evaluated
+    exactly. Returns (cotangents, the unflipped f64 cotangents, a note
+    with the number of elements within rounding and each one tried)."""
+    import itertools
+
+    base = f64_block_grads(torch, x, g, w, dilation, causal, norm)
+    args, pre64, pre32 = [x, *w], {}, {}
+    with torch.no_grad():
+        f64_block(torch, [t.double() for t in args], dilation, causal, norm,
+                  pre=pre64)
+        f64_block(torch, [t.float() for t in args], dilation, causal, norm,
+                  pre=pre32)
+    near = []   # (|v| in roundings, name, flat index)
+    for name in ("hp", "c"):
+        v = pre64[name]
+        scale = (pre32[name].double() - v).square().mean(-1, keepdim=True)
+        ratio = (v.abs() / scale.sqrt()).reshape(-1)
+        idx = (ratio <= roundings).nonzero().reshape(-1)
+        near += zip(ratio[idx].tolist(), [name] * len(idx), idx.tolist())
+    near.sort()
+    counts = {n: sum(1 for _, m, _ in near if m == n) for n in ("hp", "c")}
+    tried = near[:most]
+
+    def slopes(grads):
+        return [grads[4].item(), grads[5].item()]
+
+    b, k = slopes(base), slopes(got)
+    deltas = [[s - t for s, t in zip(slopes(f64_block_grads(
+        torch, x, g, w, dilation, causal, norm, {name: [i]})), b)]
+        for _, name, i in tried]
+
+    def worst(sel):
+        v = [b[j] + sum(deltas[n][j] for n in sel) for j in range(2)]
+        return max(abs(k[j] - v[j]) / max(abs(v[j]), 1e-30)
+                   for j in range(2))
+
+    subsets = [sel for r in range(len(tried) + 1)
+               for sel in itertools.combinations(range(len(tried)), r)]
+    best = min(subsets, key=lambda sel: (worst(sel) > bar, len(sel),
+                                         worst(sel)))
+    note = (f"{len(near)} pre-activations within {roundings:g} roundings of "
+            f"0 (h_pre {counts['hp']}, c {counts['c']}), {len(best)} of the "
+            f"{len(tried)} tried flipped")
+    K, H = pre64["c"].shape[1:]
+    for n, (r, name, i) in enumerate(tried):
+        v = pre64[name].reshape(-1)[i].item()
+        note += (f"; {name}[{i // (K * H)},{i // H % K},{i % H}] {v:.2e} "
+                 f"({r:.2f} roundings) da1 {deltas[n][0]:+.4g} da2 "
+                 f"{deltas[n][1]:+.4g}{' flipped' if n in best else ''}")
+    if not best:
+        return base, base, note
+    flips = {}
+    for n in best:
+        flips.setdefault(tried[n][1], []).append(tried[n][2])
+    return (f64_block_grads(torch, x, g, w, dilation, causal, norm, flips),
+            base, note)
 
 
 # the f32 stages' cases (csrc/tcn_block_tf32.cuh, tcn_block_bwd_tf32.cuh):
@@ -1680,15 +1806,16 @@ def phase_tcn_f32_stages(torch, k):
     """The f32 TCN stages on the 3xTF32 core: the core alone at B1's two
     product shapes against the f64 product (within 1e-6; torch.matmul in
     f32 printed beside it) with its split's rounding held against
-    cvt.rna.tf32.f32 bit for bit; then B1 under gLN, cLN (causal) and BN
-    and B2, at ``F32_STAGE_CASES``: each call against its twin at
-    the f32 bars (2e-3 forward; 4e-3 backward on all ten cotangents of a
-    random cotangent, the twin evaluated in f32), the forward's out - x
-    within ``F32_ACCURACY_BAR`` of the f64 block, each kernel twice to the
-    same bits, and one launch of its counter a call and none of any other
-    TCN kernel's. At the paper shape, d = 1, the ten B2 cotangents'
-    distances from the f64 block are printed beside the twin's. Every
-    reading is printed before the phase fails."""
+    cvt.rna.tf32.f32 bit for bit; then B1 under gLN, cLN (causal) and BN,
+    B2 and B3 (cLN, causal), at ``F32_STAGE_CASES``: each call against its
+    twin at the f32 bars (2e-3 forward; 4e-3 backward on all ten
+    cotangents of a random cotangent, the twin evaluated in f32; B3
+    against the f64 block at that bar, the f32 twin printed), the
+    forward's out - x within ``F32_ACCURACY_BAR`` of the f64 block, each
+    kernel twice to the same bits, and one launch of its counter a call
+    and none of any other TCN kernel's. At the paper shape, d = 1, the ten
+    B2 and B3 cotangents' distances from the f64 block are printed beside
+    the twin's. Every reading is printed before the phase fails."""
     t0 = time.perf_counter()
     tcn, bwd = k["tcn"], k["bwd"]
     failures = []
@@ -1757,44 +1884,63 @@ def phase_tcn_f32_stages(torch, k):
                         and same and torch.isfinite(got).all().item()):
                     failures.append(f"B1 {label} {norm} d={d}: {err:.3e}, "
                                     f"{acc:.3e}, same bits {same}")
-            if norm != "gLN":
+            if norm == "BN":
                 continue
+            # the backward: B2 (gLN) or B3 (cLN, causal)
+            kern = "b2" if norm == "gLN" else "b3"
             for d in ds:
                 a2 = -0.1 if d == 16 else 0.25   # one negative second slope
+                if norm == "cLN":
+                    a2 = -0.2 if d == 16 else 0.3
                 x, *w = block_inputs(torch, torch.float32, 800 + d, a2=a2,
                                      **kw_in)
                 g = torch.randn(x.shape, generator=torch.Generator(
                     device="cuda").manual_seed(3000 + d), device="cuda")
-                kw = dict(dilation=d, causal=False, norm_type="gLN")
+                kw = dict(dilation=d, causal=causal, norm_type=norm)
                 tcn_reset(k)
                 got = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
                 again = bwd.fused_tcn_block_bwd(x, g, *w, **kw)
                 torch.cuda.synchronize()
-                launched({"b2": 2}, f"B2 f32 {label} d={d}")
+                launched({kern: 2}, f"{kern.upper()} f32 {label} d={d}")
                 want = bwd.fused_tcn_block_bwd_reference(x, g, *w, **kw)
+                exact = base = None
+                note = ""
+                if kern == "b3":
+                    exact, base, branches = f64_nearest_branches(
+                        torch, x, g, w, d, causal, norm, got,
+                        BWD_TOL["float32"])
+                    twin_f64 = max(rel_l2(q, r) for q, r in zip(want, base))
+                    to_twin = max(rel_l2(q, r) for q, r in zip(got, want))
+                    note = (f"; the f32 twin from f64 {twin_f64:.3e}, the "
+                            f"kernel from the twin {to_twin:.3e}; f64 "
+                            f"branches: {branches}")
+                elif label.startswith("[8,3199") and d == 1:
+                    exact = base = f64_block_grads(torch, x, g, w, d, causal,
+                                                   norm)
+                # B2 against the f32 twin, B3 against the f64 block
+                ref = exact if kern == "b3" else want
                 errs = {n: rel_l2(q, r)
-                        for n, q, r in zip(GRAD_NAMES, got, want)}
+                        for n, q, r in zip(GRAD_NAMES, got, ref)}
                 worst = max(errs, key=errs.get)
                 same = all(torch.equal(u, v) for u, v in zip(got, again))
-                print(f"f32 stages B2 {label} d={d} a2={a2}: vs twin "
-                      f"{errs[worst]:.3e} ({worst}; bar 4e-3), twice the "
-                      f"same bits {same}", flush=True)
+                print(f"f32 stages {kern.upper()} {label} {norm} "
+                      f"causal={int(causal)} d={d} a2={a2}: vs "
+                      f"{'f64 block' if kern == 'b3' else 'twin'} "
+                      f"{errs[worst]:.3e} ({worst}; bar 4e-3{note}), twice "
+                      f"the same bits {same}", flush=True)
                 if not (errs[worst] <= BWD_TOL["float32"] and same and all(
                         torch.isfinite(q).all().item() for q in got)):
-                    failures.append(f"B2 {label} d={d}: {errs[worst]:.3e} "
-                                    f"({worst}), same bits {same}")
+                    failures.append(f"{kern.upper()} {label} d={d}: "
+                                    f"{errs[worst]:.3e} ({worst}), same "
+                                    f"bits {same}")
                 if label.startswith("[8,3199") and d == 1:
-                    prims = [t.detach().double().requires_grad_(True)
-                             for t in (x, *w)]
-                    with torch.enable_grad():
-                        out = f64_block(torch, prims, d, False, "gLN")
-                        exact = torch.autograd.grad(out, prims, g.double())
-                    print("f32 stages B2 [8,3199,256] H=512 d=1, distance "
-                          "from the f64 block: kernel " + ", ".join(
+                    print(f"f32 stages {kern.upper()} [8,3199,256] H=512 "
+                          f"{norm} causal={int(causal)} d=1, distance from "
+                          "the f64 block: kernel " + ", ".join(
                               f"{n} {rel_l2(q, r):.2e}" for n, q, r in
                               zip(GRAD_NAMES, got, exact)) + "; twin "
                           + ", ".join(f"{n} {rel_l2(q, r):.2e}" for n, q, r
-                                      in zip(GRAD_NAMES, want, exact)),
+                                      in zip(GRAD_NAMES, want, base)),
                           flush=True)
     print(f"f32 stages phase: {time.perf_counter() - t0:.1f} s", flush=True)
     check(not failures, "f32 TCN stages: " + "; ".join(failures))
@@ -4473,10 +4619,11 @@ def phase_timings(torch, k, card: str):
 def phase_cln_timings(torch, bwd, card: str):
     """Kernel 3 against its twin, bf16, causal, [8, 3199, 256] H=512, at
     every dilation in turns (twin, kernel, kernel, twin), with its bound,
-    and kernel 1's cLN forward beside it; then the bf16 causal cLN train
-    step at B=8 x 4 s, kernel path against plain path, with each path's
-    peak memory. Returns (mean kernel ms, mean twin ms, (bound_ms,
-    bound_by))."""
+    and kernel 1's cLN forward beside it; f32 kernel 3 (its 3xTF32
+    stages) at d = 1 the same way, with its bound at the 3xTF32 rate;
+    then the causal cLN train step at B=8 x 4 s, bf16 and f32, kernel
+    path against plain path, with each path's peak memory. Returns (mean
+    kernel ms, mean twin ms, (bound_ms, bound_by)) of the bf16 kernel."""
     from convtasnet_tpu_torch import ConvTasNetConfig
     from convtasnet_tpu_torch.ops.cuda import tcn_block as tcn
 
@@ -4507,17 +4654,34 @@ def phase_cln_timings(torch, bwd, card: str):
           f"{bound[0]:.4f} ms ({bound[1]}); kernel 3 {means[0]:.4f} ms, "
           f"twin {means[1]:.4f} ms; kernel 1 cLN forward "
           f"{statistics.mean(fwd):.4f} ms (means over d)", flush=True)
-    cfg = ConvTasNetConfig(compute_dtype="bfloat16", norm_type="cLN",
-                           causal=True)
-    phase_train_timings(torch, cfg, card, "tcn cLN causal", big_batch=False)
+    args = block_inputs(torch, torch.float32, 1)
+    g = torch.randn(args[0].shape, device="cuda")
+    kw = dict(dilation=1, causal=True, norm_type="cLN")
+    t = time_turns(torch, {
+        "plain": lambda: bwd.fused_tcn_block_bwd_reference(
+            args[0], g, *args[1:], **kw),
+        "kernel": lambda: bwd.fused_tcn_block_bwd(args[0], g, *args[1:],
+                                                  **kw)}, 10)
+    grads = bwd.fused_tcn_block_bwd(args[0], g, *args[1:], **kw)
+    bound32 = kernel_bound(*tcn_bwd_work(args, g, grads), peak=PEAK_3XTF32)
+    print(f"timing [{card}] block [8,3199,256] H=512 cLN causal f32 d=1: "
+          f"backward kernel 3 {t['kernel'][0]:.4f} ms (runs "
+          f"{[round(r, 4) for r in t['kernel'][1]]}), twin "
+          f"{t['plain'][0]:.4f} ms; bound at the 3xTF32 rate "
+          f"{bound32[0]:.4f} ms ({bound32[1]})", flush=True)
+    for dtype in ("bfloat16", "float32"):
+        cfg = ConvTasNetConfig(compute_dtype=dtype, norm_type="cLN",
+                               causal=True)
+        phase_train_timings(torch, cfg, card, "tcn cLN causal",
+                            big_batch=False)
     return means[0], means[1], bound
 
 
 def phase_train_timings(torch, cfg, card: str, label: str,
                         big_batch: bool, pair_states=(True,)):
-    """The bf16 train step (forward + backward + optimizer) at B=8 x 4 s,
-    plain path and kernel path (for each pair switch state in
-    ``pair_states``) in turns, with each path's peak memory; with
+    """The train step (forward + backward + optimizer) at B=8 x 4 s in
+    cfg's compute dtype, plain path and kernel path (for each pair switch
+    state in ``pair_states``) in turns, with each path's peak memory; with
     ``big_batch`` also the kernel paths at B=24."""
     from convtasnet_tpu_torch import SolverConfig
     from convtasnet_tpu_torch.train import train_step as ts
@@ -4543,9 +4707,10 @@ def phase_train_timings(torch, cfg, card: str, label: str,
     for name in [*paths, *reversed(list(paths))]:
         ms, mem[name] = step_ms(*paths[name], 8, 10)
         runs[name].append(ms)
+    dt = "bf16" if cfg.compute_dtype == "bfloat16" else cfg.compute_dtype
     for name in paths:
         med = statistics.median(runs[name])
-        print(f"timing [{card}] {label} train step B=8x{SECONDS}s bf16 "
+        print(f"timing [{card}] {label} train step B=8x{SECONDS}s {dt} "
               f"{name} path: {med:.3f} ms (runs "
               f"{[round(r, 3) for r in runs[name]]}), peak memory "
               f"{mem[name]:.2f} GiB", flush=True)
@@ -4554,7 +4719,7 @@ def phase_train_timings(torch, cfg, card: str, label: str,
             if not flag:
                 continue
             ms24, mem24 = step_ms(True, pairs, 24, 5)
-            print(f"timing [{card}] {label} train step B=24x{SECONDS}s bf16 "
+            print(f"timing [{card}] {label} train step B=24x{SECONDS}s {dt} "
                   f"{name} path: {ms24:.3f} ms, peak memory {mem24:.2f} GiB",
                   flush=True)
 
@@ -5278,8 +5443,8 @@ def main() -> int:
     phase_step_compare(torch, "tcn", "cLN")
     phase_step_compare(torch, "dpt")
     phase_tcn_taps(torch, k)
-    # the f32 TCN blocks on their 3xTF32 stages: B1 and B2 against their
-    # twins and the f64 block, at 17 taps and padded widths too
+    # the f32 TCN blocks on their 3xTF32 stages: B1, B2 and B3 against
+    # their twins and the f64 block, at 17 taps and padded widths too
     phase_tcn_f32_stages(torch, k)
     phase_dpt_chunk256_step(torch, dpt)
     phase_dpt_head_widths(torch, dpt)

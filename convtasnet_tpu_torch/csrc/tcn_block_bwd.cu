@@ -51,16 +51,18 @@
 //   W'  dW_in = x^T @ dh_pre as dW_out.
 //   S   per-channel partials summed in a fixed order, then da1, da2.
 //
-// f32 gLN (B2) at the same widths runs these stages rebuilt on the 3xTF32
-// product core (tcn_block_bwd_tf32.cuh, hopper_gemm_tf32.cuh: its wgmma
-// for R1, G1' and G2b', mma.sync for W'), 16 launches: the weights written
-// by a prep launch as K-major tf32 hi and lo copies (tf32 wgmma has no
-// transpose bit), every operand streamed by TMA (no f32 tile of 128 rows
-// fits beside the ring), dh_pre formed by G2b''s prologue into device
-// memory.
+// f32 at the same widths, gLN (B2) and cLN (B3), runs these stages
+// rebuilt on the 3xTF32 product core (tcn_block_bwd_tf32.cuh,
+// hopper_gemm_tf32.cuh: its wgmma for R1, G1' and G2b', mma.sync for W'),
+// gLN 16 launches, cLN 14 (R1 writes each row's norm1 statistics and G1'
+// its t1, t2, so their finalisers go): the weights written by a prep
+// launch as K-major tf32 hi and lo copies (tf32 wgmma has no transpose
+// bit), every operand streamed by TMA (no f32 tile of 128 rows fits beside
+// the ring), dh_pre formed by G2b''s prologue into device memory.
+// Registers are in that file's note.
 //
-// The first design's 19 launches (tcn_block_bwd_common.cuh: a 64x64 FMA
-// tile, transposes T, E1 and G2a passes of their own) run f32 cLN (B3) and
+// The first design's launches (tcn_block_bwd_common.cuh: a 64x64 FMA
+// tile, transposes T, E1 and G2a passes of their own; gLN 19, cLN 20) run
 // f32 at the other widths; bf16 runs them (on WMMA) at the widths the
 // Hopper stages do not take (wg_widths_ok).
 //

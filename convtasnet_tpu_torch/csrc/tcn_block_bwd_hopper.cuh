@@ -1061,7 +1061,7 @@ int launch_bwd_wg(const BwdParams& p, cudaStream_t stream) {
 // the launch. Every segment starts on a 256-byte boundary.
 struct BwdLayout {
   size_t act[7];   // w_in_t, w_out_t, hp, c, e, hn2, dh (elements); the f32
-                   // gLN stages keep their split weights in w_in_t's
+                   // stages keep their split weights in w_in_t's
   size_t f32[8];   // stats, part, part2, pch_g1, pch_e1, pch_e2, pch_g2,
                    // wpart
   size_t n_act, n_f32;
@@ -1073,7 +1073,9 @@ inline BwdLayout bwd_layout(int M, int K, int B, int H, int P,
   const size_t kt = row_tiles(K), rt = dw_row_tiles(K), ct = dw_col_tiles(H);
   const long long rows = static_cast<long long>(M) * K;
   // partials per sample (gLN: one per tile) or per row (cLN: one per
-  // column tile); part holds R1's, G1's and E2's, part2 R2's
+  // column tile); part holds R1's, G1's and E2's, part2 R2's. The f32
+  // stages' cLN partials fit: R1 one (mean, rs) a row, E2' H / 128 a row
+  // (at most H / kBN), R2' H / 256 (at most ct)
   const bool cln = norm == kNormCLN;
   const size_t n_r1 = cln ? H / kBN : kt * (H / kBN);
   const size_t n_dw = cln ? ct : rt * ct;
@@ -1081,7 +1083,7 @@ inline BwdLayout bwd_layout(int M, int K, int B, int H, int P,
   const size_t n_part = n_r1 > n_dw ? n_r1 : n_dw;
   const size_t n_chunks = (rows + kChunkRows - 1) / kChunkRows;
   const size_t mkh = static_cast<size_t>(M) * K * H;
-  const bool tf32 = !cln && runs_tf32(B, H, act_bytes);
+  const bool tf32 = runs_tf32(B, H, act_bytes);
   const size_t act_sizes[7] = {static_cast<size_t>(tf32 ? 6 : 1) * H * B,
                                static_cast<size_t>(B) * H, mkh, mkh, mkh, mkh,
                                mkh};
@@ -1133,18 +1135,19 @@ void bind_bwd_workspace(BwdParams* p, const BwdLayout& L, void* ws_act,
 }
 
 // One block's backward (B2 gLN, B3 cLN) on a bound workspace (p.left
-// set): these stages for bf16 at wg_widths_ok, the f32 stages for f32 gLN
-// there (tcn_block_bwd_tf32.cuh), else the first design's launches
-// (tcn_block_bwd_common.cuh). The gLN block pair's backward (B5) runs each
-// of its blocks through this.
+// set): these stages for bf16 at wg_widths_ok (15 launches), the f32
+// stages for f32 there (tcn_block_bwd_tf32.cuh: gLN 16 launches, cLN 14),
+// else the first design's launches (tcn_block_bwd_common.cuh: gLN 19, cLN
+// 20). The gLN block pair's backward (B5) runs each of its blocks through
+// this.
 template <typename T, int kNorm>
 int launch_block_bwd(const BwdParams& p, cudaStream_t stream) {
   static_assert(kNorm == kNormGLN || kNorm == kNormCLN, "gLN or cLN");
   const int M = p.M, K = p.K, B = p.B, H = p.H;
   if constexpr (std::is_same<T, bf16>::value) {
     if (wg_widths_ok(B, H)) return launch_bwd_wg<kNorm>(p, stream);
-  } else if constexpr (kNorm == kNormGLN) {
-    if (wg_widths_ok(B, H)) return launch_bwd_tf32(p, stream);
+  } else {
+    if (wg_widths_ok(B, H)) return launch_bwd_tf32<kNorm>(p, stream);
   }
   const int kt = row_tiles(K);
   const int n_chunks = static_cast<int>(

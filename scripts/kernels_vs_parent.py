@@ -78,15 +78,16 @@ and d = 1 and 128, by CUDA events and in device time, each beside its
 bound (its FLOP at the dtype's peak, 989 TFLOP/s bf16 or 67 TFLOP/s f32,
 or its bytes at 3.35 TB/s where that is larger); a tree that refuses P >
 16 is timed at P = 3 alone.
-``--time f32`` times only B1 (gLN, cLN causal, BN), B2, B4 and B5 in f32
-at the paper shape, d = 1 (their 3xTF32 stages; the first design's in an
-older tree), each beside its bound at the 3xTF32 rate (495 / 3 TFLOP/s)
-and at the f32 FMA rate (67 TFLOP/s), the larger of that and its bytes at
-3.35 TB/s, by CUDA events and in device time with each kernel's share; the
-paper config's f32 forward and gLN train step at B=8 x 4 s (pairs off),
-events and device time; the 3xTF32 core alone at B1's product shapes; and
-torch.matmul in f32 at the kernels' product shapes with TF32 off and on,
-in device time.
+``--time f32`` times only B1 (gLN, cLN causal, BN), B2, B3 (cLN causal),
+B4 and B5 in f32 at the paper shape, d = 1 (their 3xTF32 stages; the
+first design's in an older tree), each beside its bound at the 3xTF32
+rate (495 / 3 TFLOP/s) and at the f32 FMA rate (67 TFLOP/s), the larger
+of that and its bytes at 3.35 TB/s, by CUDA events and in device time
+with each kernel's share; the paper config's f32 forward and its gLN and
+causal cLN train steps at B=8 x 4 s (pairs off), events and device time;
+the 3xTF32 core alone at B1's product shapes; and torch.matmul at the
+kernels' product shapes and B6's at Hs = 256, in f32 with TF32 off and on
+and in bf16, in device time.
 ``--time tp`` times only B6 at [8, 3199, Hs], B = 256, in bf16 and f32:
 Hs = 256 and 128 at d = 1, 16 and 128, and on its wide route at Hs =
 576, 768 and 1024, d = 1 (a tree that refuses a shard wider than 512 is
@@ -205,13 +206,14 @@ TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
 # the forward at its rounding points ("twin", B6's order bar) and within
 # 4e-2 of its bf16 twin ("bf16 twin")
 FWD_BY_DISTANCE = ("dpt inter bfloat16 ",)
-# and every f32 output of B1, B2, B4 and B5 at the widths the f32 3xTF32
-# stages take (csrc/tcn_block_tf32.cuh; every TCN case here is at the paper
-# widths B = 256, H = 512): their products sum in another order than the
-# first design's FMA tile, each within its twin's bar (TCN_TOL). f32 B3 and
-# B6 keep the first design, and their bits.
-F32_BY_DISTANCE = ("b1 float32 ", "b2 float32 ", "b4 float32 ",
-                   "b5 float32 ")
+# and every f32 output of B1, B2, B3, B4 and B5 at the widths the f32
+# 3xTF32 stages take (csrc/tcn_block_tf32.cuh, tcn_block_bwd_tf32.cuh;
+# every TCN case here is at the paper widths B = 256, H = 512): their
+# products sum in another order than the first design's FMA tile, each
+# within its twin's bar (TCN_TOL). f32 B6 keeps the first design, and its
+# bits.
+F32_BY_DISTANCE = ("b1 float32 ", "b2 float32 ", "b3 float32 ",
+                   "b4 float32 ", "b5 float32 ")
 TWINS = ("twin ", "bf16 twin ")
 # distances from the f64 block (f32 B2 at the paper shape, d = 1), printed
 # beside the other tree's and held by nothing
@@ -1342,18 +1344,19 @@ F32_PRODUCTS = ("x @ W_in, g @ W_out^T", "y @ W_eff, dh_pre @ W_in^T",
 
 
 def _time_f32(torch, res: dict) -> None:
-    """``--time f32``: B1 (gLN, cLN causal, BN), B2, B4 and B5 (gLN, (1, 2))
-    in f32 at the paper shape [8, 3199, 256], H = 512, d = 1: each call by
+    """``--time f32``: B1 (gLN, cLN causal, BN), B2, B3 (cLN causal), B4
+    and B5 (gLN, (1, 2)) in f32 at the paper shape [8, 3199, 256], H = 512,
+    d = 1: each call by
     CUDA events and in device time with its kernels' shares, beside its
     bound at the 3xTF32 rate (``bound``) and at the f32 FMA rate (``fma
     bound``; each the larger of its FLOP, counted as ``_time_taps`` counts
     them, and its bytes at the HBM rate); the paper config's f32 forward
-    and gLN train step at B = 8 x 4 s (pairs off), device time and idle
-    share; the 3xTF32 core alone at B1's two product shapes
-    (``ctn_tf32_matmul_check``, its weight split included; a tree without
-    it leaves it out); and torch.matmul in f32 at each of the kernels'
-    product shapes with TF32 off and on (a yardstick; the port never calls
-    it)."""
+    and its gLN and causal cLN train steps at B = 8 x 4 s (pairs off),
+    device time and idle share; the 3xTF32 core alone at B1's two product
+    shapes (``ctn_tf32_matmul_check``, its weight split included; a tree
+    without it leaves it out); and torch.matmul at each of the kernels'
+    product shapes and at B6's at Hs = 256, in f32 with TF32 off and on
+    and in bf16 (a yardstick; the port never calls it)."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import PAIR_ENV, ConvTasNet
     from convtasnet_tpu_torch.ops.cuda import (
@@ -1387,12 +1390,14 @@ def _time_f32(torch, res: dict) -> None:
             timed(f"{label} {at}",
                   lambda: tcn_block.fused_tcn_block(*args, **kw), 20,
                   2 * prod + conv, nbytes(*args, args[0]))
-    args, g = _block_inputs(torch, "float32", 1, "gLN")
-    fn = functools.partial(tcn_block_bwd.fused_tcn_block_bwd, args[0], g,
-                           *args[1:], dilation=1, causal=False,
-                           norm_type="gLN")
-    timed(f"b2 gLN {at}", fn, 10, 5 * prod + 3 * conv,
-          nbytes(*args, g, *fn()))
+    for label, norm, causal in (("b2 gLN", "gLN", False),
+                                ("b3 cLN causal", "cLN", True)):
+        args, g = _block_inputs(torch, "float32", 1, norm)
+        fn = functools.partial(tcn_block_bwd.fused_tcn_block_bwd, args[0], g,
+                               *args[1:], dilation=1, causal=causal,
+                               norm_type=norm)
+        timed(f"{label} {at}", fn, 10, 5 * prod + 3 * conv,
+              nbytes(*args, g, *fn()))
     pa, g = _block_inputs(torch, "float32", 41, "gLN")
     pb, _ = _block_inputs(torch, "float32", 51, "gLN")
     x, pa, pb = pa[0], list(pa[1:]), list(pb[1:])
@@ -1421,13 +1426,16 @@ def _time_f32(torch, res: dict) -> None:
         res[key] = _ms(torch, lambda: model(mix), 10)
         _device_ms(torch, res, key, lambda: model(mix), 10)
     del model
-    state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
-                                  use_pallas=True)
     step = ts.make_train_step()
-    key = "train step f32 gLN B=8 x 4 s"
-    res[key] = _ms(torch, lambda: step(state, data), 5)
-    _device_ms(torch, res, key, lambda: step(state, data), 5)
-    del state
+    for norm in ("gLN", "cLN"):
+        cfg = ConvTasNetConfig(compute_dtype="float32", norm_type=norm,
+                               causal=norm == "cLN")
+        state = ts.create_train_state(cfg, SolverConfig(), device="cuda",
+                                      use_pallas=True)
+        key = f"train step f32 {norm} B=8 x 4 s"
+        res[key] = _ms(torch, lambda: step(state, data), 5)
+        _device_ms(torch, res, key, lambda: step(state, data), 5)
+        del state
     from convtasnet_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
@@ -1443,7 +1451,7 @@ def _time_f32(torch, res: dict) -> None:
                            a.data_ptr(), b.data_ptr(), ws.data_ptr(),
                            c.data_ptr(), r, n, k,
                            torch.cuda.current_stream().cuda_stream))
-    for name in F32_PRODUCTS:
+    for name in (*F32_PRODUCTS, "b6 (y g2) @ W_out Hs=256"):
         r, k, n = PRODUCTS[name]
         a = torch.randn(r, k, device="cuda")
         b = torch.randn(k, n, device="cuda")
@@ -1453,6 +1461,9 @@ def _time_f32(torch, res: dict) -> None:
                        f"{name} [{r},{k}]x[{k},{n}]",
                        lambda: torch.matmul(a, b))
         torch.backends.cuda.matmul.allow_tf32 = False
+        a, b = a.bfloat16(), b.bfloat16()
+        _device_ms(torch, res, f"torch.matmul bf16 {name} [{r},{k}]x[{k},{n}]",
+                   lambda: torch.matmul(a, b))
 
 
 def _time_tp(torch, res: dict) -> None:

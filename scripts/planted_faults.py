@@ -27,7 +27,8 @@ bwd)`` and ``phase_step_compare(torch, "tcn")``, for a DPT forward kernel
 DPT backward ``phase_dpt_bwd_vs_twin``, ``phase_ffn_bwd_tail_tiles``,
 ``phase_step_compare(torch, "dpt")`` and ``phase_dpt_head_widths``, for
 B3 ``phase_bwd_vs_twin(torch, bwd, "cLN")`` and
-``phase_step_compare(torch, "tcn", "cLN")``, for the block pair
+``phase_step_compare(torch, "tcn", "cLN")``, for f32 B3 on the 3xTF32
+stages ``phase_tcn_f32_stages``, for the block pair
 ``phase_pair_vs_twin``, ``phase_pair_bwd_vs_twin`` and
 ``phase_step_compare(torch, "tcn")``, for tensor parallelism
 ``phase_tp_stage2_vs_twin``, ``phase_tp_forward`` and
@@ -382,6 +383,26 @@ FAULTS = {
         "convtasnet_tpu_torch/csrc/tcn_block_bwd_hopper.cuh",
         "        p.pch_e2[(tile * (P + 2) + q0 + u) * H + ch] = v;",
         "        p.pch_e2[(tile * (P + 2) + q0 + u) * H + ch] = q0 ? 0.f : v;"),
+    # the f32 cLN block backward (B3) on the 3xTF32 stages
+    # (tcn_block_bwd_tf32.cuh): E2' at P = 3 forming a tap's dc with the
+    # reading row's statistics, G1' leaving t1 undivided by n, E2''s row
+    # sums short of half their lanes, G2b' taking u2 for u1
+    "f32_cln_bwd_e2_tap_stats_of_reading_row": ("cln_backward_f32",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_tf32.cuh",
+        "dc4_row(c_o[q], e_o[q], s_st[(1 + q) * kWgRows + rl], dco,",
+        "dc4_row(c_o[q], e_o[q], s_st[rl], dco,"),
+    "f32_cln_bwd_g1_t1_undivided": ("cln_backward_f32",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_tf32.cuh",
+        "sr[kT1] = static_cast<float>(static_cast<double>(q1) / p.Hn);",
+        "sr[kT1] = q1;"),
+    "f32_cln_bwd_e2_row_sum_half": ("cln_backward_f32",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_tf32.cuh",
+        "      for (int o = 1; o < seg; o <<= 1) {",
+        "      for (int o = 1; o < seg / 2; o <<= 1) {"),
+    "f32_cln_bwd_g2b_u1_u2_swapped": ("cln_backward_f32",
+        "convtasnet_tpu_torch/csrc/tcn_block_bwd_tf32.cuh",
+        "s_rst[rl] = make_float4(sr[kMean1], sr[kRs1], sr[kU1], sr[kU2]);",
+        "s_rst[rl] = make_float4(sr[kMean1], sr[kRs1], sr[kU2], sr[kU1]);"),
     "taps_cln_dwconv_stats_one_dilation_short": ("taps",
         "convtasnet_tpu_torch/csrc/tcn_block_common.cuh",
         "      const int q = q0 + t / kDwRows;\n"
@@ -444,6 +465,7 @@ PHASES = {
                      "phase_dpt_head_widths(torch, dpt)"],
     "cln_backward": ["phase_bwd_vs_twin(torch, bwd, 'cLN')",
                      "phase_step_compare(torch, 'tcn', 'cLN')"],
+    "cln_backward_f32": ["phase_tcn_f32_stages(torch, k)"],
     "pair": ["phase_pair_vs_twin(torch, k)",
              "phase_pair_bwd_vs_twin(torch, k)",
              "phase_step_compare(torch, 'tcn')"],
@@ -463,7 +485,9 @@ CARD_TESTS = {"block_forward": "kernel_matches_twin or model_kernel_path "
               "block_backward": "bwd or fused_block_ad or train_grads or "
                                 "wgmma",
               "dpt_forward": "dpt", "dpt_backward": "dpt or ffn_bwd",
-              "cln_backward": "cln", "pair": "pair", "tp": "tp_",
+              "cln_backward": "cln",
+              "cln_backward_f32": "f32_stages_backward_cln",
+              "pair": "pair", "tp": "tp_",
               "dpt_tp": "partial or dpt_tp",
               "padded": "untiled or check_shapes or auto_mode or padded",
               "taps": "taps", "wider": "wide",

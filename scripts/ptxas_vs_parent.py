@@ -19,8 +19,8 @@ an edited source's kernels are held against the other tree's too. A kernel that 
 defaulted template parameter keeps its old name for its default
 instantiation (``e2_kernel`` and ``e2_wg_kernel``'s ``kTapChunks``,
 ``out_proj_wg_kernel``'s ``kHaloDev``, the f32 inter cores' ``kKeys`` of
-32), so that a P <= 16 route, or one up to B = 512, is held against
-itself. ``--log-dir`` keeps each report. Exits 1 if a shared kernel's
+32, the f32 backward stages' ``kCln``), so that a P <= 16 route, one up
+to B = 512, or a gLN stage is held against itself. ``--log-dir`` keeps each report. Exits 1 if a shared kernel's
 numbers moved.
 """
 
@@ -50,7 +50,9 @@ RENAMES = [(r"(e2_kernelI\w+?)ELb0EEEv", r"\1EEEv"),
            (r"e2_wg_kernelILb0EEEvNS_9BwdParamsEi",
             "e2_wg_kernelENS_9BwdParamsEi"),
            (r"(inter(?:_bwd)?_core_kernelIfLi\d+ELb[01]E)Li32EEEv",
-            r"\1EEv")]
+            r"\1EEv"),
+           (r"((?:g1|g2b)_tf32_kernelILi\d+)ELb0EEEv", r"\1EEEv"),
+           (r"(e2_tf32_kernelILi\d+ELb[01])ELb0EEEv", r"\1EEEv")]
 
 
 def kernel_name(mangled: str) -> str:

@@ -311,6 +311,45 @@ def test_f32_stages_backward(cuda, b, h, p, dilation):
         assert _rel_l2(q, r) <= BWD_TOL[torch.float32], name
 
 
+# (B, H, P, dilation, causal) of f32 B3 on the 3xTF32 stages: chip_smoke's
+# F32_STAGE_CASES under cLN (the paper widths at d = 1, 16, 128, 17 taps,
+# B = H = 96 run padded to 128, H = 64), E2''s route for P in 4..16, and
+# the non-causal mode
+F32_CLN_BWD_SHAPES = [(256, 512, 3, 1, True), (256, 512, 3, 16, True),
+                      (256, 512, 3, 128, True), (256, 512, 17, 2, True),
+                      (96, 96, 3, 1, True), (256, 64, 3, 32, True),
+                      (256, 512, 5, 4, True), (256, 512, 3, 2, False),
+                      (256, 512, 3, 128, False), (256, 512, 5, 3, False)]
+
+
+@pytest.mark.parametrize("b,h,p,dilation,causal", F32_CLN_BWD_SHAPES)
+def test_f32_stages_backward_cln(cuda, b, h, p, dilation, causal):
+    """B3 in f32 on its 3xTF32 stages: all ten cotangents of a random
+    cotangent within 4e-3 of the f64 block's (``chip_smoke.py``'s
+    ``f64_block_grads``), the same bits twice, one B3 launch a call and
+    none of any other TCN kernel. (An f32 evaluation of the twin can stray
+    past the bar on a slope gradient where the kernel does not;
+    ``scripts/tcn_bwd_outliers.py`` prints both distances from f64 on
+    these inputs.)"""
+    import chip_smoke
+
+    x, *w = _f32_stage_args(cuda, b, h, p, 60 + dilation, a2=-0.2)
+    g = torch.randn(x.shape, device=cuda, generator=torch.Generator(
+        device="cuda").manual_seed(100 + dilation))
+    kw = dict(dilation=dilation, causal=causal, norm_type="cLN")
+    before = _tcn_launches()
+    cln_before = port_bwd.fused_tcn_block_bwd.cln_launches
+    got = port_bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+    again = port_bwd.fused_tcn_block_bwd(x, g, *w, **kw)
+    assert port_bwd.fused_tcn_block_bwd.cln_launches == cln_before + 2
+    assert _tcn_launches(before) == {"b1": 0, "b2": 0, "b4": 0, "b5": 0}
+    want = chip_smoke.f64_block_grads(torch, x, g, w, dilation, causal,
+                                      "cLN")
+    for name, q, r, q2 in zip(NAMES, got, want, again):
+        assert torch.equal(q, q2), name
+        assert _rel_l2(q, r) <= BWD_TOL[torch.float32], name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("norm_type,causal,dilation", CASES)
 def test_kernel_matches_twin(cuda, dtype, norm_type, causal, dilation):
