@@ -2592,22 +2592,27 @@ def tp_stage2_inputs(torch, dtype, Hs: int, seed: int, M=8, K=3199, B=256,
 
 
 # B6's cases beyond two and four shards of H = 512: the other shard
-# widths its bf16 wgmma stage takes, (Hs, dilations), bf16 only
+# widths its bf16 wgmma stage takes, (Hs, dilations), bf16 and f32 (f32's
+# depthwise stage on dw_rows_f32)
 TP_WG_WIDTHS = ((512, (1, 16, 128)), (64, (1, 16, 128)))
-# shard widths past 512 (B6's wide route, y through device memory): one
-# tile past it (H = 1152 over two) and two shards of H = 2048, (Hs,
+# a width off dw_layout_ok (f32's depthwise stage one channel a thread),
+# f32 only
+TP_F32_WIDTHS = ((448, (1, 16, 128)),)
+# shard widths past 512 (bf16 B6's wide route, y through device memory):
+# one tile past it (H = 1152 over two) and two shards of H = 2048, (Hs,
 # dilations), bf16 and f32
 TP_WIDE_WIDTHS = ((576, (1, 16, 128)), (1024, (1, 16, 128)))
-TP_WIDE_TIMED = (576, 768, 1024)   # the wide route's widths timed
+TP_WIDE_TIMED = (576, 768, 1024)   # the widths past 512 timed
 
 
 def phase_tp_stage2_vs_twin(torch, k):
     """Kernel B6 (TP stage 2) against its twin at [8, 3199, Hs] (the last
     128-row tile holds 127 rows), Hs = 256 and 128 (two and four shards of
     H = 512), every dilation 1..128, gLN non-causal and causal, bf16 and
-    f32, in bf16 at the wgmma stage's other widths, Hs = 512 and 64, and
-    on the wide route at Hs = 576 and 1024 (shards of H = 1152 and 2048)
-    in bf16 and f32, d = 1, 16, 128: z and the gLN-2 sums within the
+    f32; at the bf16 wgmma stage's other widths, Hs = 512 and 64, in both
+    dtypes, f32 at 448, and past 512 at Hs = 576 and 1024 (shards of H =
+    1152 and 2048; bf16 on its wide route) in bf16 and f32, d = 1, 16,
+    128: z and the gLN-2 sums within the
     forward bars (4e-2 / 2e-3), against the twin at B6's own rounding
     points within TP_ORDER_TOL, finite, and two calls the same bits. Every
     case is printed before the phase fails; returns the worst max_abs_err
@@ -2618,7 +2623,9 @@ def phase_tp_stage2_vs_twin(torch, k):
     t0 = time.perf_counter()
     cases = [(Hs, dtype, DILATIONS) for Hs in (256, 128)
              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(Hs, torch.bfloat16, ds) for Hs, ds in TP_WG_WIDTHS]
+    cases += [(Hs, dtype, ds) for Hs, ds in TP_WG_WIDTHS
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(Hs, torch.float32, ds) for Hs, ds in TP_F32_WIDTHS]
     cases += [(Hs, dtype, ds) for Hs, ds in TP_WIDE_WIDTHS
               for dtype in (torch.bfloat16, torch.float32)]
     n_cases = 0
@@ -4735,18 +4742,30 @@ def tp_stage2_work(args, outs) -> tuple:
     return 2 * M * K * Hs * B + 2 * M * K * Hs * P, nbytes
 
 
+def launch_shares(per: dict) -> str:
+    """A call's device time per launch, each by its kernel's name without
+    namespace or parameters."""
+    return "; ".join(
+        "{} {:.1f} us".format(key.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0], v * 1e3)
+        for key, v in per.items())
+
+
 def phase_tp_timings(torch, k, card: str):
-    """B6 against its twin, bf16, [8, 3199, Hs] for Hs = 256 and 128, in
-    turns (twin, kernel, kernel, twin) at every dilation, with its bound;
-    B6 on its wide route at [8, 3199, Hs], Hs = 576, 768 and 1024, d = 1,
-    bf16 and f32: device time per call and per launch, with its bound, the
-    twin's time and ``torch.matmul``'s device time at its product's shape
-    ([8 x 3199, Hs] @ [Hs, 256], a yardstick no kernel calls);
-    the bf16 paper-config forward at B=8 x 4 s over two and four shards
-    against the unsharded kernel path (blocks singly), and the bf16 train
-    step at B=8 x 4 s over two shards against the unsharded kernel step,
-    in turns, with peak memory. Returns {Hs: (mean kernel ms, mean twin ms,
-    (bound_ms, bound_by))} for Hs = 256 and 128."""
+    """B6 against its twin, bf16 and f32, [8, 3199, Hs] for Hs = 256 and
+    128, in turns (twin, kernel, kernel, twin) at every dilation, with its
+    bound (f32 at the 3xTF32 rate); f32 at d = 1 also in device time per
+    call and per launch, with ``torch.matmul``'s device time at its
+    product's shape in f32, TF32 off and on; B6 past 512 at [8, 3199, Hs],
+    Hs = 576, 768 and 1024, d = 1, bf16 (its wide route) and f32: device
+    time per call and per launch, with its bound, the twin's time and
+    ``torch.matmul``'s device time at its product's shape ([8 x 3199, Hs]
+    @ [Hs, 256], a yardstick no kernel calls); the paper-config forward at
+    B=8 x 4 s over two and four shards against the unsharded kernel path
+    (blocks singly), bf16 and f32, and the bf16 train step at B=8 x 4 s
+    over two shards against the unsharded kernel step, in turns, with peak
+    memory. Returns {Hs: (mean kernel ms, mean twin ms, (bound_ms,
+    bound_by))} for Hs = 256 and 128 in bf16."""
     from convtasnet_tpu_torch import ConvTasNetConfig, SolverConfig
     from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_tpu_torch.parallel.mesh import shard_devices
@@ -4781,6 +4800,42 @@ def phase_tp_timings(torch, k, card: str):
               f"{bound[0]:.4f} ms ({bound[1]}); B6 {rows[Hs][0]:.4f} ms "
               f"({bound[0] / rows[Hs][0]:.1%} of the bound), twin "
               f"{rows[Hs][1]:.4f} ms (means over d)", flush=True)
+    # f32, the default dtype: its one route on the 3xTF32 core
+    for Hs in (256, 128):
+        kern = []
+        for d in DILATIONS:
+            args = tp_stage2_inputs(torch, torch.float32, Hs, d)
+            kw = dict(dilation=d, causal=False)
+            with torch.inference_mode():
+                t = time_turns(torch, {
+                    "twin": lambda: tp.tp_stage2_reference(*args, **kw),
+                    "kernel": lambda: tp.fused_tp_stage2(*args, **kw)}, 20)
+            kern.append(t["kernel"][0])
+            print(f"timing [{card}] tp stage 2 [8,3199,{Hs}] B=256 gLN f32 "
+                  f"d={d}: B6 {t['kernel'][0]:.4f} ms by events (runs "
+                  f"{[round(r, 4) for r in t['kernel'][1]]}), twin "
+                  f"{t['twin'][0]:.4f} ms", flush=True)
+        args = tp_stage2_inputs(torch, torch.float32, Hs, 1)
+        kw = dict(dilation=1, causal=False)
+        a = torch.randn(8 * 3199, Hs, device="cuda")
+        with torch.inference_mode():
+            ms, per = device_ms(
+                torch, lambda: tp.fused_tp_stage2(*args, **kw), 20)
+            outs = tp.fused_tp_stage2(*args, **kw)
+            mm = {}
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                mm[tf32] = device_ms(
+                    torch, lambda: torch.matmul(a, args[3]), 20)[0]
+            torch.backends.cuda.matmul.allow_tf32 = False
+        bound = kernel_bound(*tp_stage2_work(args, outs), PEAK_3XTF32)
+        print(f"timing [{card}] tp stage 2 [8,3199,{Hs}] B=256 gLN f32 d=1: "
+              f"B6 {ms:.4f} ms device ({launch_shares(per)}); bound "
+              f"{bound[0]:.4f} ms ({bound[1]}, 3xTF32; {bound[0] / ms:.1%});"
+              f" B6 by events {statistics.mean(kern):.4f} ms (mean over d);"
+              f" torch.matmul f32 [{8 * 3199},{Hs}]x[{Hs},256] TF32 off "
+              f"{mm[False]:.4f} ms, on {mm[True]:.4f} ms device", flush=True)
+        del args, a, outs
     for Hs in TP_WIDE_TIMED:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
@@ -4798,43 +4853,40 @@ def phase_tp_timings(torch, k, card: str):
                 outs = tp.fused_tp_stage2(*args, **kw)
             bound = kernel_bound(*tp_stage2_work(args, outs),
                                  PEAK_BF16_FLOPS if name == "bfloat16"
-                                 else PEAK_F32_FLOPS)
-            # each launch by its kernel's name, without namespace or
-            # parameters
-            launches = "; ".join(
-                "{} {:.1f} us".format(key.replace("void ", "").replace(
-                    "(anonymous namespace)::", "").split("(")[0], v * 1e3)
-                for key, v in per.items())
-            print(f"timing [{card}] tp stage 2 wide route [8,3199,{Hs}] "
-                  f"B=256 gLN {name} d=1: B6 {ms:.4f} ms device ({launches})"
+                                 else PEAK_3XTF32)
+            print(f"timing [{card}] tp stage 2 past 512 [8,3199,{Hs}] "
+                  f"B=256 gLN {name} d=1: B6 {ms:.4f} ms device "
+                  f"({launch_shares(per)})"
                   f"; bound {bound[0]:.4f} ms ({bound[1]}, "
                   f"{bound[0] / ms:.1%}); twin {twin_ms:.4f} ms; "
                   f"torch.matmul [{8 * 3199},{Hs}]x[{Hs},256] {mm_ms:.4f} "
                   f"ms device ({mm_ev:.4f} ms by events)", flush=True)
             del args, a, b, outs
 
-    cfg = ConvTasNetConfig(compute_dtype="bfloat16")
-    model = ConvTasNet(cfg, use_pallas=True, device="cuda").eval()
-    sd = model.state_dict()
     mix = torch.randn(8, SECONDS * SAMPLE_RATE, generator=torch.Generator(
         device="cuda").manual_seed(7), device="cuda")
-    fns = {"unsharded kernel path": lambda: model(mix)}
-    for m in TP_SHARDS:
-        fns[f"TP m={m}"] = (lambda devs: lambda: tp_forward(
-            cfg, sd, mix, devs))(shard_devices(m, "cuda"))
-    mem = {}
-    with torch.inference_mode(), pair_switch(False):
-        t = time_turns(torch, fns, 10)
-        for name, fn in fns.items():
-            torch.cuda.reset_peak_memory_stats()
-            fn()
-            mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
-    for name, (ms, runs) in t.items():
-        print(f"timing [{card}] forward B=8x{SECONDS}s bf16 {name}: "
-              f"{ms:.3f} ms, {8 * SECONDS / (ms / 1e3):.1f}x realtime (runs "
-              f"{[round(r, 3) for r in runs]}), peak memory "
-              f"{mem[name]:.2f} GiB", flush=True)
-    del model
+    for dt in ("bfloat16", "float32"):
+        cfg = ConvTasNetConfig(compute_dtype=dt)
+        model = ConvTasNet(cfg, use_pallas=True, device="cuda").eval()
+        sd = model.state_dict()
+        fns = {"unsharded kernel path": lambda: model(mix)}
+        for m in TP_SHARDS:
+            fns[f"TP m={m}"] = (lambda devs: lambda: tp_forward(
+                cfg, sd, mix, devs))(shard_devices(m, "cuda"))
+        mem = {}
+        with torch.inference_mode(), pair_switch(False):
+            t = time_turns(torch, fns, 10)
+            for name, fn in fns.items():
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for name, (ms, runs) in t.items():
+            print(f"timing [{card}] forward B=8x{SECONDS}s {dt} {name}: "
+                  f"{ms:.3f} ms, {8 * SECONDS / (ms / 1e3):.1f}x realtime "
+                  f"(runs {[round(r, 3) for r in runs]}), peak memory "
+                  f"{mem[name]:.2f} GiB", flush=True)
+        del model, sd, fns
+    cfg = ConvTasNetConfig(compute_dtype="bfloat16")
 
     steps = {"unsharded kernel step": ts.make_train_step(),
              "TP m=2 step": make_tcn_tp_train_step(

@@ -25,13 +25,43 @@
 // What bounds it on the card. At the paper shape (M=8, K=3199, B=256) with
 // two shards (Hs=256) a call reads h (13.1 MB in bf16) and writes z (13.1
 // MB): 7.8 us at 3.35 TB/s, where the product is 3.35 GFLOP (3.4 us at 989
-// TFLOP/s): bytes-bound. Four shards (Hs=128) read half of h. The Pallas
-// kernel keeps a sample's whole [K, Hs] h in VMEM; here a CTA builds one
-// tile of y from h in device memory and keeps round(y g2) in shared memory
-// as the resident left operand of the product with W_out_s. Its partial
-// sums land in one slot per tile; a second launch (tp_sums_kernel) sums
-// them in a fixed order in double, so there are no atomics and a rerun
-// gives the same bits.
+// TFLOP/s): bytes-bound in bf16. In f32 h and z are 52.4 MB (15.6 us) and
+// the product at the 3xTF32 rate (165 TFLOP/s) 20.3 us: operations-bound.
+// Four shards (Hs=128) read half of h. The Pallas kernel keeps a sample's
+// whole [K, Hs] h in VMEM; here each design builds y from h in device
+// memory, a tile at a time. Its partial sums land in one slot per tile; a
+// last launch (tp_sums_kernel) sums them in a fixed order in double, so
+// there are no atomics and a rerun gives the same bits.
+//
+// f32, at every shard width: four launches on the f32 stages' 3xTF32 core
+// (hopper_gemm_tf32.cuh, tcn_block_tf32.cuh), one design for every padded
+// Hs, so that a shard padded with zero channels gives the narrow shard's z
+// bit for bit (a zero depth column adds exact zeros to a 3xTF32 product):
+//   1. prep_tf32_kernel (the f32 stages' prep, its job 0 alone): W_out_s
+//      [Hs, B] as the K-major right operand W_out_s^T [B, Hs], a tf32 hi
+//      and a lo copy (split_tf32);
+//   2. the depthwise stage: y = PReLU_a2(dwconv(gLN-1(h))) in f32, gLN-1's
+//      scale and shift applied per element inside the taps, the taps in the
+//      order q = 0..P-1, a tap outside [0, K) adding nothing (its share of
+//      the b1 shift included); y g2 in f32 to a workspace [M, K, Hs] and each
+//      tile's f32 (sum y, sum y^2) into its slot of `part`. Where
+//      dw_layout_ok(Hs) (Hs / 8 divides 256) it is tp_dw_tf32_kernel, on
+//      the f32 stages' vectorised walk (dw_rows_f32: 8 channels a thread,
+//      one CTA per 128-row tile); at the other padded widths (192, 320, 448,
+//      576, 768, ...) tp_wide_dw_kernel, one channel per thread over a
+//      (64-row, 64-channel) tile. Both evaluate each element by the same
+//      expressions in the same order, so y g2 has the same bits on either;
+//   3. tp_out_tf32_kernel: z = (y g2) @ W_out_s on rows_tf32_run, the TMA
+//      ring of B1's launch C' (32-deep slabs of y g2 and of the split
+//      weight), 64 columns a tile and 3 slabs deep, so that two CTAs share
+//      an SM, with a plain epilogue: z = acc, rows at or beyond K not
+//      stored;
+//   4. tp_sums_kernel, in its fixed order.
+// y g2 makes a round trip through device memory (26 MB each way at the
+// paper shape, Hs 256): the f32 tile a resident design would keep is 128
+// KB at Hs 256 and 256 KB at Hs 512, past a CTA's 227 KB once a ring sits
+// beside it, and the core's TF32 left operand comes through TMA from
+// device memory anyway, as C' streams y.
 //
 // bf16 at the Hopper widths (wg_widths_ok: Hs in {64, 128, 256, 512}, B a
 // multiple of 64 up to 512): one launch of B1's stage C' with a plainer
@@ -47,26 +77,19 @@
 // (y 64 KB at Hs 256, a 3-slab ring of 24 KB, the 18 KB stage) lets two
 // CTAs share an SM, so the paper shape's 200 tiles run in one wave.
 //
-// f32, and bf16 at other widths up to 512: the first design, one CTA per
-// (64-row tile, sample) that builds its [64, Hs] tile of y one channel per
-// thread (gemm_tile's resident operand, 32 KB at Hs=256 in bf16, 64 KB in
-// f32) and runs B1's 64x64 WMMA tile (FMA in f32) over W_out_s without
-// cp.async or wgmma; 400 CTAs at the paper shape.
+// bf16 at other widths up to 512: the first design, one CTA per (64-row
+// tile, sample) that builds its [64, Hs] tile of y one channel per thread
+// (gemm_tile's resident operand, 32 KB at Hs=256) and runs B1's 64x64 WMMA
+// tile over W_out_s without cp.async or wgmma; 400 CTAs at the paper shape.
 //
-// Shards wider than 512 (the padded Hs alone chooses it, in both dtypes):
-// the wide route, beside the resident tiles, which no longer fit (the
-// first design's [64, Hs + 16 / sizeof(T)] tile is 264 KB at Hs = 1024 in
-// f32; a block gets at most 227 KB). It sends y through device memory, as
-// B1's first design does, in three launches:
-//   1. tp_wide_dw_kernel: the first design's depthwise walk, one channel
-//      per thread over a (64-row, 64-channel) tile (gLN-1's scale and shift
-//      per element inside the taps, a tap outside [0, K) skipped, the taps
-//      in the order q = 0..P-1, then PReLU), writes round(y g2) [M, K, Hs]
-//      in the compute dtype to a workspace and each tile's f32 (sum y,
-//      sum y^2) into its slot of `part`;
+// bf16 shards wider than 512 (the padded Hs alone chooses it): the wide
+// route, beside the resident tiles, which no longer fit. It sends y through
+// device memory in three launches:
+//   1. tp_wide_dw_kernel (f32's depthwise stage at widths off
+//      dw_layout_ok), writing round(y g2) [M, K, Hs] to a workspace;
 //   2. tp_wide_out_kernel: z = round(round(y g2) @ W_out_s), gemm_tile
 //      streaming the workspace from device memory over the whole depth
-//      (WMMA in bf16, FMA in f32), one CTA per 64x64 tile of z;
+//      (WMMA), one CTA per 64x64 tile of z;
 //   3. tp_sums_kernel, in its fixed order.
 // The elements of y g2 are computed by the same expressions as the first
 // design's, and gemm_tile reads a tile from device memory into the same
@@ -74,12 +97,11 @@
 // the same y g2 they give the same z bits: a shard padded with zero
 // channels (no taps, no gLN-1 affine) gives the z of the narrower shard.
 // Bytes at [8, 3199, 1024], B = 256: h 52.4 MB read, the workspace 52.4 MB
-// written and read back (105 MB in f32), z 13.1 MB written; the bound (h
-// and z once) is 0.0197 ms in bf16, from bytes, and 0.200 ms in f32, from
-// its 13.4 GFLOP at 67 TFLOP/s.
+// written and read back, z 13.1 MB written; the bound (h and z once) is
+// 0.0197 ms, from bytes.
 
 #include "tcn_block_common.cuh"
-#include "tcn_block_hopper.cuh"
+#include "tcn_block_tf32.cuh"
 
 namespace {
 
@@ -103,6 +125,7 @@ constexpr size_t tp_smem(int Hs) {
   return static_cast<size_t>(kBM) * res_ld<T>(Hs) * sizeof(T);
 }
 
+// The first design (top note), bf16 at widths off wg_widths_ok up to 512.
 // Grid (ceil(K/kBM), M), kGemmThreads threads; Hs % kBN == 0, B % kBN == 0.
 template <typename T>
 __global__ void __launch_bounds__(kGemmThreads) tp_stage2_kernel(TpParams p) {
@@ -278,16 +301,17 @@ __global__ void __launch_bounds__(kWgCta, 2) tp_stage2_wg_kernel(TpParams p) {
   }
 }
 
-// The wide route (top note): Hs above this runs through device memory.
+// The bf16 wide route (top note): Hs above this runs through device memory.
 constexpr int kTpResidentWidth = 512;
 constexpr int kTpWideThreads = 256;   // 64 channels x 4 groups of 16 rows
 constexpr int kTpWideRows = kBM / (kTpWideThreads / kBN);
 
-// Launch 1 of the wide route: for rows [r0, r0 + 64) and channels [c0, c0 +
-// 64) of sample blockIdx.z, y = PReLU_a2(dwconv(gLN-1(h))) as the first
-// design computes it, round(y g2) into yw [M, K, Hs] (rows < K only) and
-// the tile's f32 (sum y, sum y^2) into part[(m * gridDim.x + blockIdx.x) *
-// gridDim.y + blockIdx.y]. Grid (ceil(K / 64), Hs / 64, M), kTpWideThreads.
+// Launch 1 of the bf16 wide route and the f32 depthwise stage at widths off
+// dw_layout_ok: for rows [r0, r0 + 64) and channels [c0, c0 + 64) of sample
+// blockIdx.z, y = PReLU_a2(dwconv(gLN-1(h))) as the first design computes
+// it, round(y g2) into yw [M, K, Hs] (rows < K only) and the tile's f32 (sum
+// y, sum y^2) into part[(m * gridDim.x + blockIdx.x) * gridDim.y +
+// blockIdx.y]. Grid (ceil(K / 64), Hs / 64, M), kTpWideThreads.
 template <typename T>
 __global__ void __launch_bounds__(kTpWideThreads)
     tp_wide_dw_kernel(TpParams p, T* __restrict__ yw) {
@@ -328,7 +352,7 @@ __global__ void __launch_bounds__(kTpWideThreads)
   }
 }
 
-// Launch 2 of the wide route: z[m, r0:r0+64, n0:n0+64] = round(yw[m] @
+// Launch 2 of the bf16 wide route: z[m, r0:r0+64, n0:n0+64] = round(yw[m] @
 // W_out_s), yw streamed from device memory over the whole depth Hs.
 // Grid (ceil(K / 64), B / 64, M), kGemmThreads.
 template <typename T>
@@ -368,12 +392,13 @@ int launch_tp_wide(const TpParams& p, T* yw, cudaStream_t stream) {
   return 0;
 }
 
+// bf16 stage 2 in the design its widths take (top note).
 template <typename T>
 int launch_tp(const TpParams& p, void* yw, cudaStream_t stream) {
   if (p.Hs > kTpResidentWidth)
     return launch_tp_wide<T>(p, static_cast<T*>(yw), stream);
   unsigned kt;
-  if (runs_wg(p.B, p.Hs, sizeof(T))) {   // bf16 at wg_widths_ok
+  if (runs_wg(p.B, p.Hs, sizeof(T))) {   // at wg_widths_ok
     const size_t smem = tp_wg_smem(p.Hs);
     cudaError_t err = cudaFuncSetAttribute(
         tp_stage2_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -397,6 +422,131 @@ int launch_tp(const TpParams& p, void* yw, cudaStream_t stream) {
   }
   CTN_CHECK();
   tp_sums_kernel<<<p.M, 256, 0, stream>>>(p.part, static_cast<int>(kt),
+                                          p.sums);
+  CTN_CHECK();
+  return 0;
+}
+
+// ---- The f32 route (top note): split, depthwise stage, product, sums ----
+
+// Launch 2 where dw_layout_ok(Hs): for rows [r0, r0 + 128) of sample
+// blockIdx.y, y = PReLU_a2(dwconv(gLN-1(h))) on dw_rows_f32 (gLN-1's scale
+// and shift from stats1, per element inside the taps, as tp_wide_dw_kernel
+// applies them), y g2 into yg [M, K, Hs] (rows < K only) and the tile's f32
+// (sum y, sum y^2) into part[m * gridDim.x + blockIdx.x]. Grid (ceil(K /
+// 128), M), block 256.
+__global__ void __launch_bounds__(kWgCta)
+    tp_dw_tf32_kernel(TpParams p, float* __restrict__ yg) {
+  const int K = p.K, Hs = p.Hs, CG = Hs / 8;
+  const int tid = threadIdx.x, cg = tid % CG, rg = tid / CG, c0 = 8 * cg;
+  const int m = blockIdx.y, r0 = blockIdx.x * kWgRows;
+  const float mean1 = p.stats1[2 * m], rs1 = p.stats1[2 * m + 1];
+  float g[8], b[8], sc[8], sh[8], g2[8];
+  load8(p.g1 + c0, g);
+  load8(p.b1 + c0, b);
+  load8(p.g2 + c0, g2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sc[j] = rs1 * g[j];
+    sh[j] = b[j] - mean1 * sc[j];
+  }
+  const float a2 = *p.a2;
+  const size_t base = static_cast<size_t>(m) * K * Hs;
+  float* y = yg + base;
+  float s1 = 0.f, s2 = 0.f;
+  dw_rows_f32<false>(
+      static_cast<const float*>(p.h) + base, static_cast<const float*>(p.dw),
+      K, Hs, p.P, p.dilation, p.left, r0, cg, rg, kWgCta / CG, 0.f, false, g,
+      b, sc, sh, [](int, float&, float&) {},
+      [&](int, int k, const float (&acc)[8]) {
+        if (k >= K) return;
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float u = prelu(acc[j], a2);
+          s1 += u;
+          s2 += u * u;
+          v[j] = u * g2[j];
+        }
+        st8f(y + static_cast<size_t>(k) * Hs + c0, v);
+      });
+  block_sum2(s1, s2);
+  if (tid == 0) {
+    const size_t slot = static_cast<size_t>(m) * gridDim.x + blockIdx.x;
+    p.part[2 * slot] = s1;
+    p.part[2 * slot + 1] = s2;
+  }
+}
+
+// The product's column tile and ring depth: a 3-slab ring of 32 KB slots
+// (97 KB) lets two CTAs share an SM, so the paper shape's 200 row tiles
+// run in one wave (at BN = 128 with 4 slabs, 1.5 waves: 3-5% slower at Hs
+// 128 and 256, 2-3% faster at 576-1024 on an H100).
+constexpr int kTpOutBN = 64;
+constexpr int kTpOutStages = 3;
+
+// Launch 3: z = (y g2) @ W_out_s for rows [r0, r0 + 128) of sample
+// blockIdx.y, all B columns, on the 3xTF32 core (maps: y g2 of launch 2,
+// depth Hs; W_out_s^T's split of launch 1), stored from the accumulators as
+// C' stores out (8-byte stores), rows at or beyond K skipped. Grid (ceil(K
+// / 128), M), block 256.
+__global__ void __launch_bounds__(kWgCta, 2)
+    tp_out_tf32_kernel(const __grid_constant__ RowsMaps maps, TpParams p) {
+  extern __shared__ uint8_t wg_smem[];
+  const int K = p.K, B = p.B;
+  const int t = threadIdx.x % kWgThreads, wg = threadIdx.x / kWgThreads;
+  const int m = blockIdx.y, r0 = blockIdx.x * kWgRows;
+  float* z = static_cast<float*>(p.z) + static_cast<size_t>(m) * K * B;
+  rows_tf32_run<kTpOutBN, kTpOutStages>(
+      wg_smem, align_1024(wg_smem), maps, m, r0, p.Hs, B,
+      [&](float (&acc)[kTpOutBN / 2], int n0) {
+#pragma unroll
+        for (int j = 0; j < kTpOutBN / 2; j += 2) {
+          const int r = r0 + 64 * wg + acc_row(t, j);
+          if (r < K)
+            *reinterpret_cast<float2*>(
+                &z[static_cast<size_t>(r) * B + n0 + acc_col(t, j)]) =
+                make_float2(acc[j], acc[j + 1]);
+        }
+      });
+}
+
+// Partials per sample the f32 depthwise stage writes: one per 128-row tile
+// on dw_rows_f32, one per (64-row, 64-channel) tile on tp_wide_dw_kernel.
+inline int tp_tf32_parts(int K, int Hs) {
+  return dw_layout_ok(Hs) ? (K + kWgRows - 1) / kWgRows
+                          : (K + kBM - 1) / kBM * (Hs / kBN);
+}
+
+// f32 stage 2 (top note), at ws: W_out_s^T's split (2 B Hs floats), then y
+// g2 (M K Hs floats).
+int launch_tp_tf32(const TpParams& p, void* ws, cudaStream_t stream) {
+  float* w = static_cast<float*>(ws);
+  float* yg = w + 2 * static_cast<size_t>(p.B) * p.Hs;
+  // launch 1: the f32 stages' prep, its job 0 alone (W_out_s in W_in's
+  // place: [Hs, B] -> [B, Hs], hi at w, lo at w + B Hs)
+  prep_tf32_kernel<<<dim3(p.Hs / 32, p.B / kSlabK, 1), dim3(32, 8), 0,
+                     stream>>>(static_cast<const float*>(p.w_out), nullptr,
+                               nullptr, nullptr, nullptr, nullptr, 0, p.Hs,
+                               p.B, 0, w, nullptr);
+  CTN_CHECK();
+  if (dw_layout_ok(p.Hs))
+    tp_dw_tf32_kernel<<<dim3((p.K + kWgRows - 1) / kWgRows, p.M), kWgCta, 0,
+                        stream>>>(p, yg);
+  else
+    tp_wide_dw_kernel<float><<<dim3((p.K + kBM - 1) / kBM, p.Hs / kBN, p.M),
+                               kTpWideThreads, 0, stream>>>(p, yg);
+  CTN_CHECK();
+  RowsMaps maps;
+  CTN_TRY(make_rows_maps(&maps, yg, p.M, p.K, p.Hs, w, p.B, kTpOutBN));
+  // all of the SM's 228 KB as shared memory, so that two CTAs fit
+  CTN_TRY(static_cast<int>(cudaFuncSetAttribute(
+      tp_out_tf32_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      100)));
+  CTN_TRY(launch_rows_tf32(tp_out_tf32_kernel,
+                           rows_tf32_smem<kTpOutBN, kTpOutStages>(), p.K, p.M,
+                           stream, maps, p));
+  tp_sums_kernel<<<p.M, 256, 0, stream>>>(p.part, tp_tf32_parts(p.K, p.Hs),
                                           p.sums);
   CTN_CHECK();
   return 0;
@@ -443,12 +593,20 @@ TpParams make_tp_params(const void* h, const void* stats1, const void* dw,
 
 extern "C" {
 
-// The workspace of a call at these widths: *n_part floats of per-tile
-// partials (2 * M * ceil(K / 64), enough for either resident design's
-// tiles; times Hs / 64 on the wide route) and *n_y elements of the compute
-// dtype for the wide route's round(y g2) (M * K * Hs; 0 at Hs <= 512).
-int ctn_tcn_block_tp2_workspace(int M, int K, int Hs, long long* n_part,
-                                long long* n_y) {
+// The workspace of a call at these widths in a compute dtype of elem_bytes:
+// *n_part floats of per-tile partials and *n_y elements of the compute
+// dtype. f32 (every width): 2 * M * tp_tf32_parts(K, Hs) partials, and
+// W_out_s^T's split and y g2 (2 * B * Hs + M * K * Hs floats). bf16: 2 * M
+// * ceil(K / 64) partials (enough for either resident design's tiles; times
+// Hs / 64 on the wide route), and the wide route's round(y g2) (M * K * Hs;
+// 0 at Hs <= 512).
+int ctn_tcn_block_tp2_workspace(int M, int K, int Hs, int B, int elem_bytes,
+                                long long* n_part, long long* n_y) {
+  if (elem_bytes == 4) {
+    *n_part = 2LL * M * tp_tf32_parts(K, Hs);
+    *n_y = 2LL * B * Hs + static_cast<long long>(M) * K * Hs;
+    return 0;
+  }
   const bool wide = Hs > kTpResidentWidth;
   *n_part = 2LL * M * ((K + kBM - 1) / kBM) * (wide ? Hs / kBN : 1);
   *n_y = wide ? static_cast<long long>(M) * K * Hs : 0;
@@ -460,7 +618,7 @@ int ctn_tcn_block_tp2_workspace(int M, int K, int Hs, long long* n_part,
 // where it is 0), `stream` is a cudaStream_t. Returns the first CUDA error
 // of its launches.
 int ctn_tcn_block_tp2_f32(CTN_TP_ARGS) {
-  return launch_tp<float>(CTN_TP_CALL);
+  return launch_tp_tf32(CTN_TP_CALL);
 }
 
 int ctn_tcn_block_tp2_bf16(CTN_TP_ARGS) {

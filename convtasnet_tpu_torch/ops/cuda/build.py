@@ -39,8 +39,9 @@ _PAIR_ARGTYPES = [_P] * 22 + [_I] * 10 + [_P]
 # ctn_tcn_block_pair_bwd_{f32,bf16}: 29 pointers, 9 ints, the stream
 # (see tcn_block_pair_bwd.cu)
 _PAIR_BWD_ARGTYPES = [_P] * 29 + [_I] * 9 + [_P]
-# ctn_tcn_block_tp2_{f32,bf16}: 12 pointers (the last the wide route's
-# workspace), 7 ints, the stream (see tcn_block_tp.cu)
+# ctn_tcn_block_tp2_{f32,bf16}: 12 pointers (the last the workspace of the
+# f32 route and of the bf16 wide route), 7 ints, the stream (see
+# tcn_block_tp.cu)
 _TP2_ARGTYPES = [_P] * 12 + [_I] * 7 + [_P]
 # ctn_dpt_{inter,intra}_{f32,bf16}: 9 pointers, 8 ints, the heads' real
 # width, the workspace of the route above a head width of 128, the stream
@@ -140,7 +141,7 @@ def load_library() -> ctypes.CDLL:
         "ctn_tcn_block_pair_bwd_f32": _PAIR_BWD_ARGTYPES,
         "ctn_tcn_block_pair_bwd_bf16": _PAIR_BWD_ARGTYPES,
         "ctn_tcn_block_pair_bwd_workspace": [_I] * 6 + [_LL_P, _LL_P],
-        "ctn_tcn_block_tp2_workspace": [_I] * 3 + [_LL_P, _LL_P],
+        "ctn_tcn_block_tp2_workspace": [_I] * 5 + [_LL_P, _LL_P],
         "ctn_tcn_block_tp2_f32": _TP2_ARGTYPES,
         "ctn_tcn_block_tp2_bf16": _TP2_ARGTYPES,
         "ctn_dpt_inter_f32": _ATTN_ARGTYPES,

@@ -48,9 +48,10 @@ def shape_refusal(Hs: int, B: int, P: int, causal: bool) -> Optional[str]:
     walks take any P). (B6 is gLN only; ``fused_tp_stage2`` refuses
     another norm on any device.) Hs and B need not be multiples of 64: the
     wrapper zero-pads them, and a padded channel (no gLN-1 affine, no taps,
-    no weights) adds 0 to z and to the gLN-2 sums. A padded Hs up to 512
-    keeps its tile of y in shared memory; a wider one runs the wide route
-    (``csrc/tcn_block_tp.cu``), which sends y through device memory."""
+    no weights) adds 0 to z and to the gLN-2 sums. In f32 every padded Hs
+    runs one route, y g2 through device memory into a 3xTF32 product; in
+    bf16 a padded Hs up to 512 keeps its tile of y in shared memory and a
+    wider one runs the wide route (``csrc/tcn_block_tp.cu``)."""
     return taps_refusal(P, causal)
 
 
@@ -152,10 +153,11 @@ def fused_tp_stage2(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 2 of one shard's block -> ``(z [M, K, B] in h's dtype, sums
     [M, 2] f32)``, at any shard width Hs and bottleneck width B (the kernel
-    runs them zero-padded to multiples of 64; a padded Hs above 512 on its
-    wide route, three launches through a workspace of [M, K, Hs]). gLN
-    only, as the Pallas kernel: cLN and BN blocks take the per-norm path
-    (``parallel/tensor_parallel.py``)."""
+    runs them zero-padded to multiples of 64; in f32 four launches through
+    a workspace of W_out_s's tf32 split and y g2 [M, K, Hs] at every width,
+    in bf16 a padded Hs above 512 on its wide route, three launches through
+    a workspace of [M, K, Hs]). gLN only, as the Pallas kernel: cLN and BN
+    blocks take the per-norm path (``parallel/tensor_parallel.py``)."""
     if norm_type != "gLN":
         raise ValueError(f"the TP stage-2 kernel (B6) is gLN only, got "
                          f"{norm_type}: cLN and BN blocks take the per-norm "
@@ -223,11 +225,12 @@ def _launch_cuda(h, stats1, dw, w_out, a2, gamma1, beta1, gamma2, *,
     f32 = dict(dtype=torch.float32, device=h.device)
     z = torch.empty((M, K, B), dtype=dt, device=h.device)
     n_part, n_y = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.ctn_tcn_block_tp2_workspace(M, K, Hs, ctypes.byref(n_part),
-                                    ctypes.byref(n_y))
+    lib.ctn_tcn_block_tp2_workspace(M, K, Hs, B, h.element_size(),
+                                    ctypes.byref(n_part), ctypes.byref(n_y))
     part = torch.empty(n_part.value, **f32)
     sums = torch.empty((M, 2), **f32)
-    # the wide route's round(y g2), allocated only where it runs
+    # f32: W_out_s's tf32 split and y g2; bf16: the wide route's round(y
+    # g2), allocated only where it runs
     yw = (torch.empty(n_y.value, dtype=dt, device=h.device) if n_y.value
           else None)
     with torch.cuda.device(h.device):

@@ -35,9 +35,11 @@ pair forward (B4, gLN and cLN causal) and the gLN pair backward (B5),
   ``attention_rounded_reference``, and a tree older than it holds only
   its bf16 twin) and from its bf16 twin (``bf16 twin``, within 4e-2),
   and the relative L2 between the two trees; and every f32 output of B1,
-  B2, B4 and B5 here (all at the paper widths, which the f32 3xTF32
-  stages take: ``F32_BY_DISTANCE``), each within its twin's bar (2e-3
-  forward, 3e-3 pair forward, 4e-3 backward);
+  B2, B3, B4 and B5 here (all at the paper widths, which the f32 3xTF32
+  stages take) and of B6 (its one f32 route on the same core at every
+  shard width: ``F32_BY_DISTANCE``), each within its twin's bar (2e-3
+  forward, 3e-3 pair forward, 4e-3 backward; B6 1e-5 of the twin at its
+  own rounding points, ``chip_smoke.TP_ORDER_TOL``);
 - bit for bit (``torch.equal``): every other output. A change to the
   kernels' shared pieces must leave these bits as they were. Where a
   tree carries a twin distance for one of them (the B1-B6 and backward
@@ -89,11 +91,15 @@ the 3xTF32 core alone at B1's product shapes; and torch.matmul at the
 kernels' product shapes and B6's at Hs = 256, in f32 with TF32 off and on
 and in bf16, in device time.
 ``--time tp`` times only B6 at [8, 3199, Hs], B = 256, in bf16 and f32:
-Hs = 256 and 128 at d = 1, 16 and 128, and on its wide route at Hs =
-576, 768 and 1024, d = 1 (a tree that refuses a shard wider than 512 is
+Hs = 256 and 128 at d = 1, 16 and 128, and at Hs = 576, 768 and 1024 (bf16
+on its wide route), d = 1 (a tree that refuses a shard wider than 512 is
 timed at 256 and 128 alone), by CUDA events and in device time per call
-and per launch, with ``torch.matmul``'s device time at each wide
-product's shape ([8 x 3199, Hs] @ [Hs, 256]).
+and per launch, each width beside its bound (``bound b6``: bf16 at 989
+TFLOP/s, f32 at the 3xTF32 rate, or its bytes where that is larger), with
+``torch.matmul``'s device time at each product's shape ([8 x 3199, Hs] @
+[Hs, 256]; f32 with TF32 off and on), and the f32 paper config's
+``tp_forward`` over two shards at B=8 x 4 s (64 B6 launches), by CUDA
+events and in device time with each kernel's share.
 ``--time``
 (all) goes on, at the paper shape unless named: B1 (gLN and cLN causal),
 B2 and B3 per dilation 1..128; B4 (gLN and cLN causal) and B5 per pair
@@ -155,8 +161,8 @@ WIDTH_CASES = [(kind, dtype, B, m)
                for dtype in ("bfloat16", "float32")
                for B, m in ((128, 2), (192, 3), (320, 5), (512, 2))]
 # B6 at every route a shard width up to 512 takes: Hs = 256, 128 and 512
-# (bf16 on the wgmma stage, f32 on the first design) and 448 (the first
-# design in both dtypes)
+# (bf16 on the wgmma stage, f32's depthwise stage on dw_rows_f32) and 448
+# (bf16 on the first design, f32's depthwise stage one channel a thread)
 B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
             for hs in (256, 128, 512, 448) for d in (1, 128)]
 # B5's four PReLU slope gradients among its 19 outputs (dx, then each
@@ -165,8 +171,9 @@ B6_CASES = [(dtype, hs, d) for dtype in ("bfloat16", "float32")
 # output held by distance holds them as one vector (chip_smoke.py's
 # phase_pair_bwd_vs_twin does the same)
 B5_SLOPES = (4, 5, 13, 14)
-# --time tp: (Hs, dilations); the widths past 512 run B6's wide route, and
-# a tree that refuses them is timed at the others alone
+# --time tp: (Hs, dilations); the widths past 512 run bf16 B6's wide route
+# (f32's one route at every width), and a tree that refuses them is timed
+# at the others alone
 B6_TIMED = ((256, (1, 16, 128)), (128, (1, 16, 128)), (576, (1,)),
             (768, (1,)), (1024, (1,)))
 # the partial modes: one shard of m of the quality default's widths
@@ -192,13 +199,14 @@ PAIR_CASES = [(kern, norm, causal, dtype, d1)
               for kern, norm, causal in PAIR_KERNELS
               for dtype in ("bfloat16", "float32") for d1 in (1, 16, 64)]
 # the twin bars: the forward's and the backward's (the JAX probe and train
-# gates), the pair forward at 1.5x the block's (the JAX pair gate); B6 in
-# bf16 at its own rounding points (chip_smoke.TP_ORDER_TOL), B12 in bf16
+# gates), the pair forward at 1.5x the block's (the JAX pair gate); B6 at
+# its own rounding points (chip_smoke.TP_ORDER_TOL), B12 in bf16
 # against its bf16 twin (chip_smoke.DPT_TOL)
 TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
            ("b4", "bfloat16"): 6e-2, ("b4", "float32"): 3e-3,
            ("bwd", "bfloat16"): 8e-2, ("bwd", "float32"): 4e-3,
-           ("b6", "bfloat16"): 1e-3, ("dpt", "bfloat16"): 4e-2,
+           ("b6", "bfloat16"): 1e-3, ("b6", "float32"): 1e-5,
+           ("dpt", "bfloat16"): 4e-2,
            ("dpt forward", "bfloat16"): 1e-3}
 # outputs held by distance against the other tree (every other output bit
 # for bit): the bf16 forward of B7 and of its partial mode, whose Hopper
@@ -208,12 +216,13 @@ TCN_TOL = {("b1", "bfloat16"): 4e-2, ("b1", "float32"): 2e-3,
 FWD_BY_DISTANCE = ("dpt inter bfloat16 ",)
 # and every f32 output of B1, B2, B3, B4 and B5 at the widths the f32
 # 3xTF32 stages take (csrc/tcn_block_tf32.cuh, tcn_block_bwd_tf32.cuh;
-# every TCN case here is at the paper widths B = 256, H = 512): their
-# products sum in another order than the first design's FMA tile, each
-# within its twin's bar (TCN_TOL). f32 B6 keeps the first design, and its
-# bits.
+# every TCN case here is at the paper widths B = 256, H = 512), and of B6
+# at every shard width (its one f32 route on the same core,
+# csrc/tcn_block_tp.cu): their products sum in another order than the
+# first design's FMA tile, each within its twin's bar (TCN_TOL; B6 at its
+# own rounding points, 1e-5).
 F32_BY_DISTANCE = ("b1 float32 ", "b2 float32 ", "b3 float32 ",
-                   "b4 float32 ", "b5 float32 ")
+                   "b4 float32 ", "b5 float32 ", "b6 float32 ")
 TWINS = ("twin ", "bf16 twin ")
 # distances from the f64 block (f32 B2 at the paper shape, d = 1), printed
 # beside the other tree's and held by nothing
@@ -608,9 +617,9 @@ def dump(path: str) -> None:
                 *args, dilation=d, causal=False, rounding="pallas")
         out[f"{key} z"] = z.cpu()
         out[f"{key} sums"] = sums.cpu()
-        if dtype == "bfloat16":   # held by distance, at B6's rounding points
-            out[f"twin {key} z"] = rel_l2(z, zw)
-            out[f"twin {key} sums"] = rel_l2(sums, sw)
+        # at B6's rounding points: bf16's bar, and f32's by distance
+        out[f"twin {key} z"] = rel_l2(z, zw)
+        out[f"twin {key} sums"] = rel_l2(sums, sw)
     for kern, norm, causal, dtype, d in TCN_CASES:
         args, g = _block_inputs(torch, dtype, 100 + d, norm)
         kw = dict(dilation=d, causal=causal, norm_type=norm)
@@ -1468,8 +1477,11 @@ def _time_f32(torch, res: dict) -> None:
 
 def _time_tp(torch, res: dict) -> None:
     """``--time tp``: B6 at ``B6_TIMED`` in bf16 and f32 (the widths this
-    tree's rule takes), by CUDA events and device time, and torch.matmul
-    at the wide products' shapes."""
+    tree's rule takes), by CUDA events and device time, each width's bound
+    (bf16 at 989 TFLOP/s, f32 at the 3xTF32 rate, or the bytes of h, the
+    weights and z, the larger), and torch.matmul at each product's shape
+    (f32 with TF32 off and on); then the f32 paper config's ``tp_forward``
+    over two shards at B=8 x 4 s, events and device time."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp
 
     g = torch.Generator(device="cuda").manual_seed(31)
@@ -1497,11 +1509,37 @@ def _time_tp(torch, res: dict) -> None:
                 with torch.inference_mode():
                     res[name] = _ms(torch, call, 20)
                     _device_ms(torch, res, name, call)
-            if hs > 512:
-                a, w = rn(M * K, hs).to(dt), args[3].to(dt)
-                _device_ms(torch, res, f"torch.matmul {dtype} [{M * K},{hs}]"
-                           f"x[{hs},{B}]", lambda: torch.matmul(a, w))
-            del args
+            n = sum(t.numel() * t.element_size() for t in args) \
+                + M * K * B * args[0].element_size() + 2 * M * 4
+            flops = 2 * M * K * hs * (B + P)
+            res[f"bound b6 {dtype} Hs={hs}"] = 1e3 * max(
+                flops / (PEAK_3XTF32 if dtype == "float32" else 989e12),
+                n / PEAK_BYTES_S)
+            a, w = rn(M * K, hs).to(dt), args[3].to(dt)
+            for tf32 in ((False, True) if dtype == "float32" else (False,)):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                _device_ms(torch, res, f"torch.matmul {dtype}"
+                           + (f" tf32={int(tf32)}" if dtype == "float32"
+                              else "") + f" [{M * K},{hs}]x[{hs},{B}]",
+                           lambda: torch.matmul(a, w))
+            torch.backends.cuda.matmul.allow_tf32 = False
+            del args, a, w
+    # the f32 paper config's forward over two shards (64 B6 launches; f32
+    # is the default dtype), by CUDA events and in device time
+    from convtasnet_tpu_torch import ConvTasNetConfig
+    from convtasnet_tpu_torch.models.conv_tasnet import ConvTasNet
+    from convtasnet_tpu_torch.parallel.mesh import shard_devices
+    from convtasnet_tpu_torch.parallel.tensor_parallel import tp_forward
+
+    cfg = ConvTasNetConfig(compute_dtype="float32")
+    sd = ConvTasNet(cfg, device="cuda").state_dict()
+    mix = torch.randn(M, 4 * 8000, generator=g, device="cuda")
+    devs = shard_devices(2, "cuda")
+    name = "tcn tp forward float32 m=2 B=8 x 4 s"
+    with torch.inference_mode():
+        res[name] = _ms(torch, lambda: tp_forward(cfg, sd, mix, devs), 5)
+        _device_ms(torch, res, name, lambda: tp_forward(cfg, sd, mix, devs),
+                   5)
 
 
 def time_tree(path: str, what: str) -> None:

@@ -288,7 +288,8 @@ FAULTS = {
         "  T* x1 = act + L.act[0];",
         "  T* x1 = act + L.act[1];"),
     # TCN tensor parallelism: B6 with the gLN-1 shift added for taps
-    # outside [0, K) (the Pallas halo's trap), B6 with g2 folded into W_out
+    # outside [0, K) (the Pallas halo's trap; in the first design, which
+    # bf16 runs at widths off the wgmma stage), B6 with g2 folded into W_out
     # in place of rounding y g2 (planted in its wrapper: W_eff in the
     # compute dtype and g2 = 1; in f32 the same numbers, so only bf16 can
     # see it), and the shard sum's epilogue without the g2 @ W_out term
@@ -330,6 +331,26 @@ FAULTS = {
         "y[static_cast<size_t>(k) * Hs + c] = from_f<T>(v * g2);",
         "y[static_cast<size_t>(k) * Hs + c] = from_f<T>(c < 512 ? v * g2 "
         ": 0.f);"),
+    # B6's f32 route (every shard width on the 3xTF32 core): the weight's
+    # lo terms dropped from the product (the prep's split writes lo as 0),
+    # a tap outside [0, K) adding gLN-1's shift on dw_rows_f32 (the
+    # depthwise stage at the dw_layout_ok widths), both in code B1's f32
+    # stages share, which only the TP checks run here; and a tile's (sum y,
+    # sum y^2) written into the next tile's slot
+    "b6_f32_weight_lo_dropped": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tf32.cuh",
+        "dst[hb + idx] = __uint_as_float(lo);",
+        "dst[hb + idx] = 0.f * __uint_as_float(lo);"),
+    "b6_f32_shift_on_out_of_range_taps": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tf32.cuh",
+        "if (kk >= 0 && kk < K) tap(hv[u][q], kk, w[q], acc);",
+        "if (kk >= 0 && kk < K) tap(hv[u][q], kk, w[q], acc); else for "
+        "(int j = 0; j < 8; ++j) acc[j] = fmaf(w[q][j], sh[j], acc[j]);"),
+    "b6_f32_sums_in_next_tile_slot": ("tp",
+        "convtasnet_tpu_torch/csrc/tcn_block_tp.cu",
+        "const size_t slot = static_cast<size_t>(m) * gridDim.x + blockIdx.x;",
+        "const size_t slot = static_cast<size_t>(m) * gridDim.x + blockIdx.x "
+        "+ 1;"),
     # the padding of widths off the tiles: B1's wgmma gLN-1 statistics
     # over the padded H in place of the block's own, the intra kernels'
     # appended frames left unmasked as keys, and the bf16 DPT LN's mean

@@ -2152,22 +2152,33 @@ def test_tp_stage2_wgmma_stage_matches_twin(cuda, Hs, causal, dilation):
         _rel_l2(sums, s_ord)
 
 
-@pytest.mark.parametrize("dtype,Hs", [(torch.float32, 192),
-                                      (torch.bfloat16, 192),
-                                      (torch.float32, 512)])
+@pytest.mark.parametrize("dtype,Hs", [(torch.bfloat16, 192),
+                                      (torch.float32, 64),
+                                      (torch.float32, 192),
+                                      (torch.float32, 448),
+                                      (torch.float32, 512),
+                                      (torch.float32, 600)])
 def test_tp_stage2_first_design_widths(cuda, dtype, Hs):
-    """B6 where it runs its first design (f32, and bf16 at a shard width
-    the wgmma stage does not take) against the twin at both rounding
-    points, at K = 1199."""
+    """B6 at the widths off the paper's shards, at K = 1199 (the last
+    128-row tile holds 47 rows): bf16 at 192 on its first design, f32 on
+    its one route at 64, 192, 448, 512 and 600 (padded to 640; the
+    depthwise stage on dw_rows_f32 at 64 and 512, one channel a thread at
+    the others), against the twin at both rounding points, one launch
+    counted per call, two calls the same bits."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
 
     args = _tp2_args(cuda, dtype, Hs, seed=7, M=4, K=1199)
     kw = dict(dilation=8, causal=False)
+    before = tp.fused_tp_stage2.launches
     with torch.inference_mode():
         z, sums = tp.fused_tp_stage2(*args, **kw)
+        z2, sums2 = tp.fused_tp_stage2(*args, **kw)
         torch.cuda.synchronize()
         z_want, s_want = tp.tp_stage2_reference(*args, **kw)
         z_ord, s_ord = tp.tp_stage2_reference(*args, **kw, rounding="pallas")
+    assert tp.fused_tp_stage2.launches == before + 2
+    assert torch.equal(z, z2) and torch.equal(sums, sums2)
+    assert torch.isfinite(z).all() and torch.isfinite(sums).all()
     assert _rel_l2(z, z_want) <= TOL[dtype], _rel_l2(z, z_want)
     assert _rel_l2(sums, s_want) <= TOL[dtype]
     assert _rel_l2(z, z_ord) <= TP_ORDER_TOL[dtype], _rel_l2(z, z_ord)
@@ -2180,11 +2191,12 @@ def test_tp_stage2_first_design_widths(cuda, dtype, Hs):
 @pytest.mark.parametrize("causal", [False, True])
 def test_tp_stage2_wide_route_matches_twin(cuda, dtype, Hs, dilation,
                                            causal):
-    """B6 on its wide route (a padded shard width above 512; 600 runs
-    padded to 640) at M = 4, K = 1199 (the last 64-row tile holds 47
-    rows): z and the gLN-2 sums against the twin at the forward bars and at
-    B6's rounding points within TP_ORDER_TOL, finite, one launch counted
-    per call, and two calls the same bits."""
+    """B6 past a padded shard width of 512 (bf16 on its wide route, f32
+    on its one route; 600 runs padded to 640) at M = 4, K = 1199 (the
+    last 64-row tile holds 47 rows): z and the gLN-2 sums against the
+    twin at the forward bars and at B6's rounding points within
+    TP_ORDER_TOL, finite, one launch counted per call, and two calls the
+    same bits."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
 
     args = _tp2_args(cuda, dtype, Hs, seed=Hs + dilation, M=4, K=1199)
@@ -2231,11 +2243,13 @@ def _zero_channel_shard(args, Hs):
 @pytest.mark.parametrize("dilation,causal", [(1, False), (128, True)])
 def test_tp_stage2_wide_route_zero_channels_same_bits(cuda, dtype, narrow,
                                                       Hs, dilation, causal):
-    """The wide route against the first design bit for bit: a shard of
-    ``narrow`` channels (the first design's width: f32 at 512, bf16 at
-    448) padded to Hs with zero dw, g1 and b1 channels gives the narrow
-    shard's z, the same bits, and its gLN-2 sums within TP_ORDER_TOL (their
-    partials are summed over other tiles)."""
+    """A shard padded past 512 channels against the narrow shard bit for
+    bit: a shard of ``narrow`` channels (f32 at 512, on dw_rows_f32; bf16
+    at 448, on its first design) padded to Hs with zero dw, g1 and b1
+    channels (f32 at 576 one channel a thread, at 1024 on dw_rows_f32;
+    bf16 on its wide route) gives the narrow shard's z, the same bits, and
+    its gLN-2 sums within TP_ORDER_TOL (their partials are summed over
+    other tiles)."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp as tp
 
     args = _tp2_args(cuda, dtype, narrow, seed=narrow + dilation, M=4,

@@ -1,8 +1,8 @@
 """The pure helpers of ``scripts/kernels_vs_parent.py`` (the comparison of
 the port's kernels with another checkout's, which runs on the card only):
 ``compare`` holds every output bit for bit but the bf16 forward of B7 (and
-its partial mode) and the f32 outputs of B1, B2, B4 and B5 (their 3xTF32
-stages), which it reports by distance, at their twins' bars; ``summarize``
+its partial mode) and the f32 outputs of B1-B6 (their 3xTF32 stages),
+which it reports by distance, at their twins' bars; ``summarize``
 lays the timed turns out per metric and tree.
 On the CPU, with small tensors."""
 
@@ -27,6 +27,7 @@ def _outs(seed, twin=1e-3, fwd_twin=5e-4):
                4, 8, generator=g),
            INTER_FWD: torch.randn(4, 8, generator=g),
            "b6 float32 Hs=256 d=1 z": torch.randn(3, 5, generator=g),
+           "b6 bfloat16 Hs=256 d=1 z": torch.randn(3, 5, generator=g),
            "b1 bfloat16 gLN causal=0 d=1": torch.randn(6, 7, generator=g),
            "b2 float32 gLN causal=0 d=16 dx": torch.randn(6, 7, generator=g),
            "b3 bfloat16 cLN causal=1 d=16 dx": torch.randn(6, 7, generator=g),
@@ -39,6 +40,7 @@ def _outs(seed, twin=1e-3, fwd_twin=5e-4):
                 "b4 bfloat16 gLN causal=0 d=(1,2)",
                 "b5 float32 gLN causal=0 d=(16,32) dx"):
         out[f"twin {key}"] = twin
+    out["twin b6 float32 Hs=256 d=1 z"] = 4e-7  # at its rounding points
     out[f"twin {INTER_FWD}"] = fwd_twin          # at its rounding points
     out[f"bf16 twin {INTER_FWD}"] = 10 * fwd_twin
     return out
@@ -49,7 +51,7 @@ def test_compare_same_trees_has_no_fault():
     lines, bad = kvp.compare(mine, other)
     assert bad == []
     assert sum("same bits" in line for line in lines) == 5
-    assert sum("trees apart rel_l2 0.000e+00" in line for line in lines) == 3
+    assert sum("trees apart rel_l2 0.000e+00" in line for line in lines) == 4
     # every output with a twin prints both trees' distances from it
     assert sum("from the twin this tree 1.000e-03, other 1.000e-03"
                in line for line in lines) == 5
@@ -60,7 +62,7 @@ def test_compare_same_trees_has_no_fault():
 
 
 @pytest.mark.parametrize("key", ["dpt ffn bfloat16 S=128 heads=8 forward",
-                                 "b6 float32 Hs=256 d=1 z",
+                                 "b6 bfloat16 Hs=256 d=1 z",
                                  "b1 bfloat16 gLN causal=0 d=1",
                                  "b3 bfloat16 cLN causal=1 d=16 dx"])
 def test_compare_flags_a_bit_difference(key):
@@ -73,13 +75,13 @@ def test_compare_flags_a_bit_difference(key):
 
 
 def test_compare_holds_the_tcn_kernels_at_their_bars():
-    """The TCN kernels in bf16 and f32 B3, blocks and pairs alike, are held
-    bit for bit whatever their twin distance; the outputs held by distance
-    (the bf16 B7 forward, and f32 B1, B2, B4, B5 on their 3xTF32 stages)
-    may differ from the other tree's and are at fault only when a distance
-    from a twin passes its bar: 1e-3 at the kernel's rounding points, 4e-2
-    from the bf16 twin, 4e-3 for an f32 backward, or when this tree has no
-    twin to hold them."""
+    """The TCN kernels in bf16, blocks and pairs alike, are held bit for
+    bit whatever their twin distance; the outputs held by distance (the
+    bf16 B7 forward, and f32 B1-B6 on their 3xTF32 stages) may differ from
+    the other tree's and are at fault only when a distance from a twin
+    passes its bar: 1e-3 at the kernel's rounding points (f32 B6's 1e-5),
+    4e-2 from the bf16 twin, 4e-3 for an f32 backward, or when this tree
+    has no twin to hold them."""
     other = _outs(0)
     mine = _outs(0, twin=3.9e-3)
     for key in ("b4 bfloat16 gLN causal=0 d=(1,2)",
@@ -106,8 +108,15 @@ def test_compare_holds_the_tcn_kernels_at_their_bars():
     del mine[f"twin {INTER_FWD}"]
     mine[f"bf16 twin {INTER_FWD}"] = 1e-3
     assert kvp.compare(mine, other)[1] == [INTER_FWD]
+    mine[f"bf16 twin {INTER_FWD}"] = 5e-3
+    mine[f"twin {INTER_FWD}"] = 5e-4
+    mine["b6 float32 Hs=256 d=1 z"] = mine["b6 float32 Hs=256 d=1 z"] * 1.01
+    assert kvp.compare(mine, other)[1] == []
+    mine["twin b6 float32 Hs=256 d=1 z"] = 1.1e-5
+    assert kvp.compare(mine, other)[1] == ["b6 float32 Hs=256 d=1 z"]
     assert kvp._tcn_tol("b1 bfloat16 gLN causal=0 d=1") == 4e-2
     assert kvp._tcn_tol("b3 float32 cLN causal=1 d=1 dx") == 4e-3
+    assert kvp._tcn_tol("b6 float32 Hs=256 d=1 z") == 1e-5
     assert kvp._tcn_tol(INTER_FWD) == 1e-3
 
 
@@ -139,17 +148,19 @@ def test_compare_holds_the_tcn_kernels_at_their_bars():
     ("dpt inter float32 S=128 heads=8 forward", True),
     ("b6 bfloat16 Hs=256 d=1 z", True),
     ("b4 bfloat16 gLN causal=0 d=(1,2)", True),
-    ("b6 float32 Hs=128 d=16 sums", True)])
+    ("b6 float32 Hs=128 d=16 sums", False)])
 def test_bitwise_holds_the_redesigned_bf16_outputs_by_distance(key, bits):
     """The bf16 forward of B7 (and its partial mode) and the f32 outputs
-    of B1, B2, B4 and B5 sum in another order than their first designs:
-    held by distance at their twins' bars (1e-3 at B7's rounding points;
-    f32 2e-3 forward, 3e-3 pair forward, 4e-3 backward); every other
-    output, the bf16 forwards of B9 and B11 (which keep their bits), the
-    backwards, f32 B3 and B6 among them, bit for bit."""
+    of B1-B6 sum in another order than their first designs: held by
+    distance at their twins' bars (1e-3 at B7's rounding points; f32 2e-3
+    forward, 3e-3 pair forward, 4e-3 backward, 1e-5 for B6 at its rounding
+    points); every other output, the bf16 forwards of B9 and B11 (which
+    keep their bits), the bf16 backwards and bf16 B6 among them, bit for
+    bit."""
     assert kvp.bitwise(key) is bits
     if not bits:
-        bar = {"dpt": 1e-3, "b1": 2e-3, "b4": 3e-3}.get(key.split()[0], 4e-3)
+        bar = {"dpt": 1e-3, "b1": 2e-3, "b4": 3e-3,
+               "b6": 1e-5}.get(key.split()[0], 4e-3)
         assert kvp._tcn_tol(key) == bar
 
 
@@ -257,10 +268,10 @@ def test_same_bits_counts_every_output():
     included and the twin distances left out: the count the bit proof
     prints as "n of n outputs in all the same bits"."""
     mine, other = _outs(0), _outs(0)
-    assert kvp.same_bits(mine, other) == (8, 8)
+    assert kvp.same_bits(mine, other) == (9, 9)
     mine[INTER_FWD] = mine[INTER_FWD] * 1.01
     del mine["b6 float32 Hs=256 d=1 z"]
-    assert kvp.same_bits(mine, other) == (6, 8)
+    assert kvp.same_bits(mine, other) == (7, 9)
 
 
 def test_width_cases_cover_the_narrow_tiles():
@@ -313,14 +324,16 @@ def test_taps_bound(dtype, products, conv, nbytes, want):
 def test_b6_cases_cover_every_route_up_to_512():
     """The bit proof runs B6 on every route a shard up to 512 channels
     wide takes (bf16: the wgmma stage at 128, 256 and 512, the first design
-    at 448; f32: the first design), both of whose outputs are held bit for
-    bit; ``--time tp`` times the wide route's widths past 512 only in a tree
-    whose rule takes them (this one takes them all)."""
+    at 448, both of whose outputs are held bit for bit; f32: its one route,
+    the depthwise stage on dw_rows_f32 at 128, 256 and 512 and one channel
+    a thread at 448, held by distance); ``--time tp`` times the widths past
+    512 only in a tree whose rule takes them (this one takes them all)."""
     from convtasnet_tpu_torch.ops.cuda import tcn_block_tp
 
     assert {hs for _, hs, _ in kvp.B6_CASES} == {128, 256, 448, 512}
     assert {dt for dt, _, _ in kvp.B6_CASES} == {"bfloat16", "float32"}
     assert all(kvp.bitwise(f"b6 {dt} Hs={hs} d={d} {out}")
+               is (dt == "bfloat16")
                for dt, hs, d in kvp.B6_CASES for out in ("z", "sums"))
     assert [hs for hs, _ in kvp.B6_TIMED if hs > 512] == [576, 768, 1024]
     assert all(tcn_block_tp.shape_refusal(hs, kvp.B, kvp.P, False) is None
@@ -355,7 +368,7 @@ def test_f64_distances_are_printed_and_held_by_nothing():
         tree[f"f64 {key} dx"] = v
         tree[f"f64 twin {key} dx"] = 5e-4
     assert kvp.compare(mine, other) == kvp.compare(_outs(0), _outs(0))
-    assert kvp.same_bits(mine, other) == (8, 8)
+    assert kvp.same_bits(mine, other) == (9, 9)
     assert kvp.f64_lines(mine, other) == [
         f"{key} dx: from the f64 block, this tree 1.000e-06, other "
         "3.000e-04, the f32 twin 5.000e-04"]
